@@ -1,0 +1,416 @@
+"""Incremental (KV-cache) decoding for the transformer LM — the port of
+``paddle_tpu/models/decode.py``.
+
+``TransformerDecoder`` reimplements ``transformer_lm``'s forward over
+the SAME parameter table (names, ``[in, out]`` layouts, dtype — see
+params.py), with a dense per-batch KV cache: the reference decoder the
+paged path is held against. ``PagedDecoder`` is the serving step: K/V
+live in a shared preallocated pool of fixed-size pages
+``[L, n_pages, page_size, g, dh]``, each slot of a fixed slot batch
+owns a page-table row, and attention reads the pool through
+``ops/paged_decode.paged_window_attention`` — the hand-written Hopper
+kernel on the card, the plain gather/einsum version on the CPU.
+
+Numerics follow the reference: the same layer norm formula, the same
+grouped-query einsum strings and ``-1e30`` mask, and a shared ``_ffn``
+so the dense and paged paths cannot drift. PyTorch runs eagerly, so
+there is no jit and no per-shape compile; pools are updated IN PLACE
+(the counterpart of the reference's buffer donation) and ``step``
+returns the same pool tensors it was given.
+
+Not in this slice (each raises ``NotImplementedError``): MoE blocks,
+int8 KV pools (``kv_quant``), beam search and the speculative
+``DraftDecoder``; the flash-attention prefill is TPU-only in the
+reference and has no counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch.device import DeviceLike, resolve_device
+from paddle_tpu_torch.ops import paged_decode as paged_ops
+from paddle_tpu_torch.params import params_from_numpy
+
+_NEG_INF = -1e30
+
+
+def _ln(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+        eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean,
+                      min=0.0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * g + b).to(x.dtype)
+
+
+def _heads(x: torch.Tensor, h: int) -> torch.Tensor:
+    return x.reshape(x.shape[:-1] + (h, x.shape[-1] // h))
+
+
+def tokens_agree(got: Sequence[int], want: Sequence[int],
+                 ref_logits: np.ndarray, tol: float) -> bool:
+    """Greedy token identity under the tie rule: ``got`` must equal
+    ``want`` token for token, except that at the FIRST mismatch the
+    run still agrees when ``got``'s token scored within ``tol`` of the
+    reference's best logit there (a near-tie that rounding between two
+    correct implementations may break either way; past it the
+    sequences legitimately diverge). ``ref_logits[j]`` is the
+    reference's logit row that produced ``want[j]``."""
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            row = np.asarray(ref_logits[j], np.float64)
+            return bool(row[a] >= row.max() - tol)
+    return len(got) == len(want)
+
+
+class TransformerDecoder:
+    """Greedy / temperature sampling with per-layer dense KV caches.
+
+    params: the parameter table (numpy arrays or tensors) — the JAX
+    package's ``Topology.init_params`` output or a checkpoint tar read
+    by ``params.load_params_tar``. Config args mirror transformer_lm.
+    ``device`` None is the CUDA card (and an error without one)."""
+
+    def __init__(self, params: Mapping, *, n_layers: int, n_heads: int,
+                 name: str = "tfm", device: DeviceLike = None):
+        self.device = resolve_device(device)
+        prefix = f"_{name}"
+        own = {k: v for k, v in params.items() if k.startswith(prefix)}
+        if any("_moe." in k for k in own):
+            raise NotImplementedError(
+                "MoE feed-forward blocks are not ported yet (they come "
+                "with the attention slice: ops/moe.py)")
+        self.p: Dict[str, torch.Tensor] = {
+            k: v.to(self.device) for k, v in own.items()
+            if isinstance(v, torch.Tensor)}
+        self.p.update(params_from_numpy(
+            {k: np.asarray(v) for k, v in own.items()
+             if not isinstance(v, torch.Tensor)}, self.device))
+        self.n_layers = int(n_layers)
+        self.n_heads = int(n_heads)
+        self.name = name
+        n = name
+        self.d_model = self.p[f"_{n}_tok_emb.w0"].shape[1]
+        self.head_dim = self.d_model // self.n_heads
+        self.kv_heads = self.p[f"_{n}_l0_k.w0"].shape[1] // self.head_dim
+        self.dtype = self.p[f"_{n}_tok_emb.w0"].dtype
+
+    # ---------------------------------------------------------------- core
+    def _embed(self, ids: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        n = self.name
+        return self.p[f"_{n}_tok_emb.w0"][ids] + \
+            self.p[f"_{n}_pos_emb.w0"][pos]
+
+    def _block(self, i: int, x: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, pos: int, kv_len: int) -> torch.Tensor:
+        """One decoder block over a [b, t, d] slice; writes the
+        [b, T, g, dh] caches IN PLACE at positions [pos, pos+t) and
+        attends over positions < kv_len, causally."""
+        p, n, h = self.p, self.name, self.n_heads
+        ln1 = _ln(x, p[f"_{n}_l{i}_ln1.w0"], p[f"_{n}_l{i}_ln1.wbias"])
+        q = _heads(ln1 @ p[f"_{n}_l{i}_q.w0"], h)
+        dh = q.shape[-1]
+        kv_h = k_cache.shape[2]
+        k = _heads(ln1 @ p[f"_{n}_l{i}_k.w0"], kv_h)
+        v = _heads(ln1 @ p[f"_{n}_l{i}_v.w0"], kv_h)
+        t = x.shape[1]
+        k_cache[:, pos:pos + t] = k.to(k_cache.dtype)
+        v_cache[:, pos:pos + t] = v.to(v_cache.dtype)
+        T = k_cache.shape[1]
+        rep = h // kv_h
+        # grouped-query: q [b,t,(kv_h, rep),dh] against kv_h-head caches
+        # — the cache is read at stored width, never repeated
+        q5 = q.reshape(q.shape[0], t, kv_h, rep, dh)
+        logits = torch.einsum("bqgrd,bkgd->bgrqk", q5,
+                              k_cache.to(q.dtype)) * dh ** -0.5
+        qpos = pos + torch.arange(t, device=x.device)[:, None]
+        kpos = torch.arange(T, device=x.device)[None, :]
+        mask = (kpos <= qpos) & (kpos < kv_len)
+        logits = torch.where(mask, logits,
+                             torch.tensor(_NEG_INF, dtype=logits.dtype,
+                                          device=x.device))
+        w = torch.softmax(logits, dim=-1)
+        attn = torch.einsum("bgrqk,bkgd->bqgrd", w,
+                            v_cache.to(q.dtype)).reshape(x.shape)
+        x = x + attn @ p[f"_{n}_l{i}_proj.w0"]
+        return self._ffn(i, x)
+
+    def _ffn(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """ln2 + dense FFN + residual over [b, t, d] — shared between
+        the dense-cache block and the paged step."""
+        p, n = self.p, self.name
+        ln2 = _ln(x, p[f"_{n}_l{i}_ln2.w0"], p[f"_{n}_l{i}_ln2.wbias"])
+        up = torch.relu(ln2 @ p[f"_{n}_l{i}_up.w0"]
+                        + p[f"_{n}_l{i}_up.wbias"])
+        return x + up @ p[f"_{n}_l{i}_down.w0"]
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        p, n = self.p, self.name
+        x = _ln(x, p[f"_{n}_lnf.w0"], p[f"_{n}_lnf.wbias"])
+        if f"_{n}_head.w0" in p:
+            logits = x @ p[f"_{n}_head.w0"]
+        else:  # tie_embeddings: the head IS the token table, transposed
+            logits = x @ p[f"_{n}_tok_emb.w0"].T
+        if f"_{n}_head.wbias" in p:  # older checkpoints carried a bias
+            logits = logits + p[f"_{n}_head.wbias"]
+        return logits
+
+    def _forward(self, ids, pos, caches, cache_pos: int, kv_len: int):
+        """ids [b, t] -> logits [b, t, V]; extends ``caches`` in place."""
+        x = self._embed(ids, pos)
+        for i, (kc, vc) in enumerate(caches):
+            x = self._block(i, x, kc, vc, cache_pos, kv_len)
+        return self._logits(x)
+
+    def _prefill(self, prompt: torch.Tensor, max_len: int):
+        """Allocate the fixed-size caches and run the one batched causal
+        pass over the prompt -> (logits [b, plen, V], caches)."""
+        b, plen = prompt.shape
+        caches = [(torch.zeros((b, max_len, self.kv_heads, self.head_dim),
+                               dtype=self.dtype, device=self.device),
+                   torch.zeros((b, max_len, self.kv_heads, self.head_dim),
+                               dtype=self.dtype, device=self.device))
+                  for _ in range(self.n_layers)]
+        pos = torch.arange(plen, device=self.device)[None, :].expand(b, -1)
+        return self._forward(prompt, pos, caches, 0, plen), caches
+
+    def _validate(self, prompt: torch.Tensor, max_len: int) -> int:
+        plen = int(prompt.shape[1])
+        if max_len <= plen:
+            raise ValueError(f"max_len {max_len} <= prompt length {plen}")
+        pos_rows = self.p[f"_{self.name}_pos_emb.w0"].shape[0]
+        if max_len > pos_rows:
+            raise ValueError(f"max_len {max_len} exceeds the position "
+                             f"table ({pos_rows} rows)")
+        return plen
+
+    def _ids(self, prompt) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(prompt, np.int64),
+                               device=self.device)
+
+    @torch.no_grad()
+    def prefill_logits(self, ids) -> np.ndarray:
+        """Teacher-forced logits [b, t, V] (float32, host) of one causal
+        pass over ``ids`` [b, t] — row j is the model's distribution for
+        position j + 1. Tests and the chip smoke read greedy-decode
+        near-ties from it (:func:`tokens_agree`)."""
+        ids = self._ids(ids)
+        logits, _ = self._prefill(ids, int(ids.shape[1]))
+        return logits.float().cpu().numpy()
+
+    # ------------------------------------------------------------- generate
+    @torch.no_grad()
+    def generate(self, prompt, max_len: int,
+                 temperature: Optional[float] = None,
+                 generator: Optional[torch.Generator] = None,
+                 eos_id: Optional[int] = None) -> List[List[int]]:
+        """prompt [b, P] int -> per-row generated ids (length
+        max_len - P, trimmed after eos_id when given).
+
+        temperature None = greedy argmax; otherwise categorical at that
+        temperature, drawing from ``generator`` (a ``torch.Generator``
+        on this decoder's device; None uses the global one)."""
+        prompt = self._ids(prompt)
+        plen = self._validate(prompt, int(max_len))
+        b = prompt.shape[0]
+
+        def sample(lg):
+            if temperature is None:
+                return torch.argmax(lg, dim=-1)
+            probs = torch.softmax(lg.float() / temperature, dim=-1)
+            return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+        logits, caches = self._prefill(prompt, int(max_len))
+        tok = sample(logits[:, -1])
+        toks = [tok]
+        for pp in range(plen, int(max_len) - 1):
+            pos = torch.full((b, 1), pp, dtype=torch.long,
+                             device=self.device)
+            lg = self._forward(tok[:, None], pos, caches, pp, pp + 1)
+            tok = sample(lg[:, -1])
+            toks.append(tok)
+        out = torch.stack(toks, dim=1).cpu().numpy()
+        rows = []
+        for row in out:
+            row = [int(t) for t in row]
+            if eos_id is not None and eos_id in row:
+                row = row[:row.index(eos_id) + 1]
+            rows.append(row)
+        return rows
+
+    def beam_search(self, *args, **kwargs):
+        raise NotImplementedError(
+            "beam search is not ported yet (a later slice of the port)")
+
+    def paged(self, *, num_slots: int, page_size: int, num_pages: int,
+              max_pages_per_slot: int,
+              temperature: Optional[float] = None, window: int = 1,
+              kv_quant: Optional[str] = None) -> "PagedDecoder":
+        """A fixed-shape paged-KV decode step over this decoder's
+        parameter table (the serving engine's hot path)."""
+        return PagedDecoder(self, num_slots=num_slots, page_size=page_size,
+                            num_pages=num_pages,
+                            max_pages_per_slot=max_pages_per_slot,
+                            temperature=temperature, window=window,
+                            kv_quant=kv_quant)
+
+
+class PagedDecoder:
+    """One slot-batched decode step over a PAGED KV cache.
+
+    K/V live in a shared preallocated POOL of fixed-size pages
+    ([L, n_pages, page_size, g, dh]); each slot of the fixed slot batch
+    owns a page-table row mapping its logical positions to physical
+    pages. Requests join and leave by editing the small int32 inputs
+    (tokens / positions / page tables / active mask); the step's shapes
+    never change. Physical page 0 is RESERVED as the null page:
+    inactive slots write their (discarded) K/V there and unassigned
+    page-table entries point at it, which keeps the scatter and the
+    attention unconditional.
+
+    ``window`` W tokens per slot per step: every window token's K/V is
+    scattered into the pool BEFORE attention and each token's kv_len
+    masks later positions, so the window is causal; output column w is
+    the model's next-token choice after feeding tokens 0..w.
+
+    Scheduling (which slot holds which request, page alloc/free,
+    eviction) is host policy in serving/engine.py; this class is only
+    the device step."""
+
+    def __init__(self, dense: TransformerDecoder, *, num_slots: int,
+                 page_size: int, num_pages: int, max_pages_per_slot: int,
+                 temperature: Optional[float] = None, window: int = 1,
+                 kv_quant: Optional[str] = None):
+        if kv_quant is not None:
+            raise NotImplementedError(
+                "int8 KV pools (kv_quant) are not ported yet: they come "
+                "with the dequant-fused kernel in a later slice")
+        if num_pages < 2:
+            raise ValueError("need at least the null page + one real")
+        pos_rows = dense.p[f"_{dense.name}_pos_emb.w0"].shape[0]
+        if max_pages_per_slot * page_size > pos_rows:
+            raise ValueError(
+                "slot capacity exceeds the position table — positions "
+                "past it have no embedding row")
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        self.dense = dense
+        self.device = dense.device
+        self.num_slots = int(num_slots)
+        self.page_size = int(page_size)
+        self.num_pages = int(num_pages)
+        self.max_pages_per_slot = int(max_pages_per_slot)
+        self.temperature = temperature
+        self.window = int(window)
+        self.head_dim = dense.head_dim
+        self.kv_heads = dense.kv_heads
+        self.dtype = dense.dtype
+
+    def init_pools(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Zeroed (k_pool, v_pool), each [L, n_pages, page_size, g, dh]
+        at the parameters' dtype, on the decoder's device."""
+        shape = (self.dense.n_layers, self.num_pages, self.page_size,
+                 self.kv_heads, self.head_dim)
+        return (torch.zeros(shape, dtype=self.dtype, device=self.device),
+                torch.zeros(shape, dtype=self.dtype, device=self.device))
+
+    def pool_bytes(self) -> int:
+        rows = self.dense.n_layers * self.num_pages * self.page_size * \
+            self.kv_heads
+        esize = torch.empty((), dtype=self.dtype).element_size()
+        return 2 * esize * rows * self.head_dim
+
+    def _paged_block(self, i, x, k_pool, v_pool, page_idx, offs,
+                     page_tables, kv_lens):
+        d0 = self.dense
+        p, n, h = d0.p, d0.name, d0.n_heads
+        S, W = x.shape[0], x.shape[1]
+        g = self.kv_heads
+        ln1 = _ln(x, p[f"_{n}_l{i}_ln1.w0"], p[f"_{n}_l{i}_ln1.wbias"])
+        q = _heads(ln1 @ p[f"_{n}_l{i}_q.w0"], h)       # [S, W, h, dh]
+        k = _heads(ln1 @ p[f"_{n}_l{i}_k.w0"], g)        # [S, W, g, dh]
+        v = _heads(ln1 @ p[f"_{n}_l{i}_v.w0"], g)
+        # unconditional in-place scatter of every window token's K/V at
+        # (physical page, in-page offset) — BEFORE attention, so later
+        # window tokens attend to earlier ones. Masked tokens were
+        # routed to the null page by the caller.
+        k_pool[i, page_idx, offs] = k.reshape(S * W, g, -1).to(k_pool.dtype)
+        v_pool[i, page_idx, offs] = v.reshape(S * W, g, -1).to(v_pool.dtype)
+        attn = paged_ops.paged_window_attention(
+            q.contiguous(), k_pool[i], v_pool[i], page_tables, kv_lens)
+        x = x + attn.reshape(x.shape) @ p[f"_{n}_l{i}_proj.w0"]
+        return d0._ffn(i, x)
+
+    @torch.no_grad()
+    def _step_impl(self, k_pool, v_pool, tokens, positions, page_tables,
+                   active, generator):
+        """tokens/positions/active [S, W]; page_tables [S, P] int32 ->
+        next_tokens [S, W] (on the device); the pools change in place."""
+        d0 = self.dense
+        ps = self.page_size
+        x = d0._embed(tokens, positions)                 # [S, W, d]
+        page_idx = torch.gather(page_tables.long(), 1, positions // ps)
+        page_idx = torch.where(active, page_idx, 0).reshape(-1)
+        offs = torch.where(active, positions % ps, 0).reshape(-1)
+        kv_lens = (positions + 1).to(torch.int32).contiguous()
+        for i in range(d0.n_layers):
+            x = self._paged_block(i, x, k_pool, v_pool, page_idx, offs,
+                                  page_tables, kv_lens)
+        logits = d0._logits(x)                            # [S, W, V]
+        if self.temperature is None:
+            return torch.argmax(logits, dim=-1)
+        probs = torch.softmax(logits.float() / self.temperature, dim=-1)
+        flat = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                                 generator=generator)
+        return flat.reshape(logits.shape[:2])
+
+    def step(self, k_pool, v_pool, tokens, positions, page_tables, active,
+             generator: Optional[torch.Generator] = None):
+        """Run one decode step. Accepts the classic [S] one-token arrays
+        (returns next tokens [S]) or the [S, W] window contract (returns
+        [S, W]); inputs are numpy arrays or tensors. Returns
+        ``(next_tokens as numpy int32, k_pool, v_pool)`` — the pools are
+        the tensors passed in, updated in place; reading the tokens back
+        is the one host sync of the step."""
+        dev = self.device
+        tokens = torch.as_tensor(np.asarray(tokens), device=dev).long()
+        squeeze = tokens.dim() == 1
+        positions = torch.as_tensor(np.asarray(positions),
+                                    device=dev).long()
+        active = torch.as_tensor(np.asarray(active), device=dev).bool()
+        if squeeze:
+            if self.window != 1:
+                raise ValueError("one-token [S] arrays only drive a "
+                                 "window=1 decoder")
+            tokens, positions, active = \
+                tokens[:, None], positions[:, None], active[:, None]
+        tables = torch.as_tensor(np.asarray(page_tables, np.int32),
+                                 device=dev).contiguous()
+        nxt = self._step_impl(k_pool, v_pool, tokens, positions, tables,
+                              active, generator)
+        nxt = nxt.to(torch.int32).cpu().numpy()
+        return (nxt[:, 0] if squeeze else nxt), k_pool, v_pool
+
+    @torch.no_grad()
+    def copy_page(self, k_pool, v_pool, src: int, dst: int):
+        """Copy physical page ``src`` -> ``dst`` in both pools, all
+        layers, in place — the copy-on-write step behind partial-page
+        prefix reuse (serving/prefix.py)."""
+        k_pool[:, int(dst)] = k_pool[:, int(src)]
+        v_pool[:, int(dst)] = v_pool[:, int(src)]
+        return k_pool, v_pool
+
+
+class DraftDecoder:
+    """The speculative-decoding draft model of the reference — not in
+    this slice of the port."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "speculative decoding (DraftDecoder) is not ported yet: it "
+            "comes with a later slice of the serving path")

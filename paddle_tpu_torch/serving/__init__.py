@@ -1,0 +1,16 @@
+"""Serving plane of the port: the continuous-batching decode engine
+(engine.py) with its shared-prefix KV index (prefix.py), the
+engine-backed InferenceServer (server.py) and its JSON/HTTP front
+(http.py)."""
+
+from paddle_tpu_torch.serving.engine import (DecodeEngine, GenRequest,
+                                             PagePool)
+from paddle_tpu_torch.serving.http import build_http_server
+from paddle_tpu_torch.serving.prefix import PrefixIndex, PrefixMatch
+from paddle_tpu_torch.serving.server import (Expired, InferenceServer,
+                                             Rejected, ServerClosed,
+                                             ServingError)
+
+__all__ = ["DecodeEngine", "Expired", "GenRequest", "InferenceServer",
+           "PagePool", "PrefixIndex", "PrefixMatch", "Rejected",
+           "ServerClosed", "ServingError", "build_http_server"]
