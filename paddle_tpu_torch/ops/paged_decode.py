@@ -31,8 +31,8 @@ import torch
 NEG_INF = -1e30
 
 # the kernel's limits (csrc/paged_window_attention.cu): one warp per
-# query row of a kv group, lanes striding over dh, one page's K and V
-# rows of one group staged in shared memory
+# query row of a kv group, lanes striding over dh, two pages' K and V
+# rows of one group double-buffered in shared memory by 16-byte copies
 _MAX_ROWS_PER_GROUP = 32        # W * rep warps in one block
 _MAX_HEAD_DIM = 256
 _MAX_SMEM_BYTES = 227 * 1024
@@ -98,14 +98,14 @@ def paged_window_reference(q: torch.Tensor, k_pages: torch.Tensor,
 def paged_kernel_supported(q: torch.Tensor, k_pages: torch.Tensor) -> bool:
     """Does the Hopper kernel take these shapes and dtypes? dh a
     multiple of 8 and at most 256, float32 or bfloat16 with q and pages
-    of one dtype, at most 32 query rows (W * rep) per kv group, and one
-    page's K+V rows of one group (as float32) inside shared memory."""
+    of one dtype, at most 32 query rows (W * rep) per kv group, and two
+    pages' K+V rows of one group inside shared memory."""
     _, W, h, dh = q.shape
     _, ps, g, _ = k_pages.shape
     return (dh % 8 == 0 and dh <= _MAX_HEAD_DIM and h % g == 0
             and W * (h // g) <= _MAX_ROWS_PER_GROUP
             and q.dtype in _DTYPE_CODES and k_pages.dtype == q.dtype
-            and 2 * ps * dh * 4 <= _MAX_SMEM_BYTES)
+            and 4 * ps * dh * q.element_size() <= _MAX_SMEM_BYTES)
 
 
 def _launch_kernel(q, k_pages, v_pages, page_tables, kv_lens, scale):
@@ -116,6 +116,8 @@ def _launch_kernel(q, k_pages, v_pages, page_tables, kv_lens, scale):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     for name in ("page_tables", "kv_lens"):
         if tensors[name].dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got "
