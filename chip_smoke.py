@@ -34,6 +34,8 @@ Phases (any failure exits non-zero before the final line):
    byte/flop bound, the plain version's time, and
    torch.nn.functional.scaled_dot_product_attention on the gathered
    view as a yardstick (library_ms; the port never calls it).
+5. trace — 8 more requests under torch.profiler: device busy time by
+   kernel against the wall clock, per engine step.
 
 Prints the kernel table as one JSON line, the card's name and power
 limit (nvidia-smi), and last {"ok": true, "device": {...}}.
@@ -327,6 +329,43 @@ def phase_timings(eng, prompts, news):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+# ------------------------------------------------------------ phase 5
+def phase_trace(eng):
+    """Where an engine step's time goes: 8 fresh requests served under
+    torch.profiler; device busy time by kernel against the wall clock
+    (the profiler slows the host, so the idle share is an upper
+    bound)."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(7)
+    steps0 = eng.stats()["steps"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        reqs = [eng.submit(rng.randint(0, FULL["vocab_size"], (32,)), 16)
+                for _ in range(SLOTS)]
+        eng.run(timeout=600)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    for r in reqs:
+        r.get(timeout=1)
+    steps = eng.stats()["steps"] - steps0
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type.name == "CUDA" and ev.self_device_time_total > 0:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + \
+                ev.self_device_time_total / 1e3
+    busy_ms = sum(by_kernel.values())
+    paged_ms = sum(v for k, v in by_kernel.items() if "paged_window" in k)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+    log(f"trace: {steps} steps, wall {wall_ms:.3f} ms "
+        f"({wall_ms / steps:.3f} ms/step), device busy {busy_ms:.3f} ms "
+        f"(idle share {1 - busy_ms / wall_ms:.3f}), paged window kernel "
+        f"{paged_ms:.3f} ms ({paged_ms / steps * 1e3:.2f} us/step)")
+    for name, ms in top:
+        log(f"trace top kernel: {ms:.3f} ms  {name[:90]}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -340,6 +379,7 @@ def main():
     max_err = phase_kernel_vs_plain()
     eng, prompts, news, launches = phase_engine()
     timing = phase_timings(eng, prompts, news)
+    phase_trace(eng)
     kernels = [dict(
         name="paged_window_attention", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",

@@ -43,13 +43,14 @@ import threading
 import time
 import uuid
 from collections import deque
-from typing import Callable, Dict, List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from paddle_tpu_torch.serving.prefix import PrefixIndex
 from paddle_tpu_torch.serving.server import (Expired, Rejected,
-                                             ServerClosed, ServingError)
+                                             ServerClosed, ServingError,
+                                             percentile)
 
 log = logging.getLogger(__name__)
 
@@ -117,14 +118,6 @@ class PagePool:
     def refcount(self, page: int) -> int:
         with self._lock:
             return self._refs.get(page, 0)
-
-    def refcount_histogram(self) -> Dict[int, int]:
-        """{refcount: page count} over allocated pages."""
-        with self._lock:
-            hist: Dict[int, int] = {}
-            for c in self._refs.values():
-                hist[c] = hist.get(c, 0) + 1
-            return hist
 
     def free(self, pages) -> None:
         with self._lock:
@@ -247,7 +240,6 @@ class DecodeEngine:
                  max_waiting: int = 64,
                  temperature: Optional[float] = None,
                  latency_window: int = 2048,
-                 clock: Callable[[], float] = time.monotonic,
                  draft=None, spec_k: int = 0,
                  prefix_cache: bool = True,
                  kv_quant: Optional[str] = None,
@@ -284,7 +276,6 @@ class DecodeEngine:
         self.max_waiting = int(max_waiting)
         self.temperature = temperature
         self.generator = generator
-        self._clock = clock
         S, P, W = self.num_slots, pages_per_slot, self.window
         self.slots: List[Optional[_Slot]] = [None] * S
         self._tokens = np.zeros((S, W), np.int32)
@@ -332,7 +323,7 @@ class DecodeEngine:
         saturated wait queue; ``ServerClosed`` when draining); the
         request itself settles with tokens or a typed error.
         ``deadline`` is relative, in seconds."""
-        now = self._clock()
+        now = time.monotonic()
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         if not prompt or int(max_new_tokens) < 1:
             raise ValueError("need a non-empty prompt and "
@@ -373,7 +364,7 @@ class DecodeEngine:
                 error: Optional[ServingError] = None) -> None:
         req.state = state
         req.error = error
-        req.finished_at = self._clock()
+        req.finished_at = time.monotonic()
         req.done.set()
 
     def _index_slot_pages(self, slot: _Slot) -> None:
@@ -499,7 +490,6 @@ class DecodeEngine:
                 slot.pages.append(dst)
                 matched += rows
                 self._counters["prefix_cow_copies"] += 1
-                self.prefix.cow_hits += 1
             self.pool.free([src])       # unpin
         for j, p in enumerate(slot.pages):
             self._tables[s, j] = p
@@ -508,8 +498,6 @@ class DecodeEngine:
         miss = self._pages_for(len(slot.replay)) - hit
         self._counters["prefix_hit_pages"] += hit
         self._counters["prefix_miss_pages"] += max(miss, 0)
-        self.prefix.hit_pages += hit
-        self.prefix.miss_pages += max(miss, 0)
         req.prefix_hit_pages = hit
 
     def _admit(self) -> None:
@@ -576,7 +564,7 @@ class DecodeEngine:
         device step, bookkeep. Returns True iff a device step ran.
         Single-threaded by contract: the engine thread in serving mode,
         the caller in sync mode."""
-        self._reap(self._clock())
+        self._reap(time.monotonic())
         self._admit()
         active_idx = [s for s in range(self.num_slots)
                       if self.slots[s] is not None]
@@ -617,7 +605,7 @@ class DecodeEngine:
             log.exception("decode step failed")
             self._recover_from_step_failure(e)
             return False
-        t_after = self._clock()
+        t_after = time.monotonic()
         with self._cv:
             self._steps += 1
             self._active_steps_sum += len(live)
@@ -790,14 +778,6 @@ class DecodeEngine:
             self._close_all()
 
     # ------------------------------------------------------------ snapshots
-    @staticmethod
-    def _percentile(vals: List[float], q: float) -> float:
-        if not vals:
-            return 0.0
-        s = sorted(vals)
-        idx = min(len(s) - 1, max(0, int(round(q * (len(s) - 1)))))
-        return s[idx]
-
     def page_accounting(self) -> dict:
         """Pool truth vs slot + trie holdings: ``leaked`` is 0 always,
         and ``refs_total`` == ``held_by_slots`` + ``held_by_trie``
@@ -842,9 +822,9 @@ class DecodeEngine:
             "active_slot_steps": active_sum,
             "cache_tokens_read": cache_read,
             "token_latency_p50_ms":
-                round(self._percentile(lat, 0.50) * 1e3, 3),
+                round(percentile(lat, 0.50) * 1e3, 3),
             "token_latency_p99_ms":
-                round(self._percentile(lat, 0.99) * 1e3, 3),
-            "ttft_p50_ms": round(self._percentile(ttft, 0.50) * 1e3, 3),
+                round(percentile(lat, 0.99) * 1e3, 3),
+            "ttft_p50_ms": round(percentile(ttft, 0.50) * 1e3, 3),
         })
         return out

@@ -84,11 +84,6 @@ class PrefixIndex:
         self._root = _Node(None, None, None)
         self._seq = 0                
         self._nodes = 0              
-        self.hit_pages = 0
-        self.miss_pages = 0
-        self.cow_hits = 0
-        self.inserted_pages = 0
-        self.evicted_pages = 0
 
     # --------------------------------------------------------------- lookup
     def match(self, tokens) -> PrefixMatch:
@@ -158,7 +153,6 @@ class PrefixIndex:
                 child.last_used = self._seq
                 node = child
                 i += ps
-            self.inserted_pages += new
         return new
 
     # ------------------------------------------------------------ eviction
@@ -186,7 +180,6 @@ class PrefixIndex:
                 self._nodes -= 1
                 self.pool.free([victim.page])
                 freed.append(victim.page)
-            self.evicted_pages += len(freed)
         return freed
 
     def reclaimable_pages(self) -> int:
@@ -204,19 +197,6 @@ class PrefixIndex:
             return count
 
     # ------------------------------------------------------------ lifecycle
-    def flush(self) -> int:
-        """Drop the whole index, returning every trie ref to the pool
-        (shared pages stay allocated for the slots still holding them).
-        Returns the number of dropped nodes."""
-        with self._lock:
-            dropped = self._collect_pages()
-            for page in dropped:
-                self.pool.free([page])
-            n = self._nodes
-            self._root = _Node(None, None, None)
-            self._nodes = 0
-        return n
-
     def reset(self) -> None:
         """Forget every node WITHOUT touching the pool — the step-
         failure recovery path, where the engine has already rebuilt the
@@ -225,39 +205,7 @@ class PrefixIndex:
             self._root = _Node(None, None, None)
             self._nodes = 0
 
-    def _collect_pages(self) -> List[int]:
-        pages = []
-        stack = [self._root]
-        while stack:
-            nd = stack.pop()
-            if nd.page is not None:
-                pages.append(nd.page)
-            stack.extend(nd.children.values())
-        return pages
-
     # ------------------------------------------------------------ snapshots
     def page_count(self) -> int:
         with self._lock:
             return self._nodes
-
-    def summary(self) -> dict:
-        """Flight-bundle / stats() view: trie shape + cumulative hit
-        accounting + the pool's refcount histogram."""
-        with self._lock:
-            depth = 0
-            stack = [(self._root, 0)]
-            while stack:
-                nd, d = stack.pop()
-                depth = max(depth, d)
-                stack.extend((c, d + 1) for c in nd.children.values())
-            return {
-                "nodes": self._nodes,
-                "pages": self._nodes,
-                "max_depth_pages": depth,
-                "hit_pages": self.hit_pages,
-                "miss_pages": self.miss_pages,
-                "cow_copies": self.cow_hits,
-                "inserted_pages": self.inserted_pages,
-                "evicted_pages": self.evicted_pages,
-                "refcount_histogram": self.pool.refcount_histogram(),
-            }

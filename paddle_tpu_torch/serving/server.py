@@ -16,7 +16,18 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, List, Optional
+from typing import List, Optional
+
+
+_LATENCY_WINDOW = 256          # latencies kept for the percentiles
+
+
+def percentile(vals: List[float], q: float) -> float:
+    """Nearest-rank ``q`` quantile of ``vals`` (0.0 when empty)."""
+    if not vals:
+        return 0.0
+    s = sorted(vals)
+    return s[min(len(s) - 1, max(0, int(round(q * (len(s) - 1)))))]
 
 
 class ServingError(RuntimeError):
@@ -50,21 +61,18 @@ class InferenceServer:
     admission and drains (or, with ``drain=False``, settles everything
     in flight with ``ServerClosed``)."""
 
-    def __init__(self, engine, *, default_deadline: Optional[float] = None,
-                 latency_window: int = 256,
-                 clock: Callable[[], float] = time.monotonic):
+    def __init__(self, engine, *,
+                 default_deadline: Optional[float] = None):
         if engine is None:
             raise ServingError(
                 "this slice of the port serves generation only: "
                 "construct the server with a DecodeEngine")
         self.engine = engine
         self.default_deadline = default_deadline
-        self._clock = clock
         self._lock = threading.Lock()
         self._running = False
         self._started_at: Optional[float] = None
         self._latencies: List[float] = []
-        self._latency_window = int(latency_window)
         self._counters = {"served": 0, "rejected_full": 0,
                           "rejected_capacity": 0, "expired": 0,
                           "failed": 0, "closed": 0}
@@ -75,7 +83,7 @@ class InferenceServer:
             if self._running:
                 return self
             self._running = True
-            self._started_at = self._clock()
+            self._started_at = time.monotonic()
         self.engine.start()
         return self
 
@@ -143,18 +151,10 @@ class InferenceServer:
         with self._lock:
             self._counters["served"] += 1
             self._latencies.append(time.perf_counter() - t0)
-            del self._latencies[:-self._latency_window]
+            del self._latencies[:-_LATENCY_WINDOW]
         return toks
 
     # ------------------------------------------------------------ snapshots
-    @staticmethod
-    def _percentile(lats: List[float], q: float) -> float:
-        if not lats:
-            return 0.0
-        s = sorted(lats)
-        idx = min(len(s) - 1, max(0, int(round(q * (len(s) - 1)))))
-        return s[idx]
-
     def health(self) -> dict:
         with self._lock:
             running = self._running
@@ -170,11 +170,11 @@ class InferenceServer:
         with self._lock:
             out = dict(self._counters)
             lats = list(self._latencies)
-            uptime = (self._clock() - self._started_at) \
+            uptime = (time.monotonic() - self._started_at) \
                 if self._started_at is not None else 0.0
         out.update({
-            "p50_ms": round(self._percentile(lats, 0.50) * 1e3, 3),
-            "p99_ms": round(self._percentile(lats, 0.99) * 1e3, 3),
+            "p50_ms": round(percentile(lats, 0.50) * 1e3, 3),
+            "p99_ms": round(percentile(lats, 0.99) * 1e3, 3),
             "uptime_s": round(uptime, 3),
             "engine": self.engine.stats(),
         })
