@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (paddle_tpu_torch) on one
-NVIDIA GPU: the quickest proof that the port still builds and serves.
+NVIDIA GPU: the quickest proof that the port still builds, serves and
+trains.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line):
 
-1. build — compile every hand-written kernel of the serving path from
-   the sources in this checkout (nvcc, sm_90a), print the ptxas report.
+1. build — compile every hand-written kernel from the sources in this
+   checkout (one nvcc per source, all at once, sm_90a), print the
+   ptxas report.
 2. kernel vs plain — paged window attention at full width (dh 64,
    page 16, 8 slots, 34 pages a slot, lengths up to 544), h/g in
    {8/8, 8/2, 8/1}, W in {1, 4}, float32 and bfloat16, against the
    plain PyTorch version on the same inputs: rtol 2e-4 / atol 2e-5 in
    float32 (the JAX package's bound for its kernel against its
-   einsum), atol 2e-2 in bfloat16 (bf16 output rounding); and the
-   allocated-pages contract — NaN written into every page past each
-   slot's used count changes nothing.
+   einsum), atol 2e-2 in bfloat16 (bf16 output rounding); a row with
+   kv_len 0 against the TPU kernel's value for it, the mean of V over
+   the slot's used pages; and the allocated-pages contract — NaN
+   written into every page past each slot's used count changes
+   nothing.
 3. engine — the main path through the entry points a user calls: a
    full-width transformer_lm (vocab 32000, d_model 512, 8 heads, 6
    layers, d_ff 2048, max_len 544, float32, random weights from seed
@@ -36,9 +40,41 @@ Phases (any failure exits non-zero before the final line):
    view as a yardstick (library_ms; the port never calls it).
 5. trace — 8 more requests under torch.profiler: device busy time by
    kernel against the wall clock, per engine step.
+6. flash vs plain — the flash attention forward, dq and dk/dv kernels
+   at full width ([8, T, 8, 64]): causal T 1024 with ragged kv_lens,
+   and non-causal T 1000 (not a block multiple) with q_lens below T
+   and fully-masked rows; out, lse, dq, dk, dv against autograd of the
+   plain version in float32 on the same values: float32
+   assert_close(rtol 2e-4, atol 2e-5 max(1, max|ref|)), bfloat16
+   max |err| <= 2e-2 max(1, max|ref|).
+7. train — the main training path: the full-width tied transformer_lm
+   (vocab 32000, d_model 512, 8 heads, 6 layers, d_ff 2048, 1024
+   tokens) built with the port's DSL, Parameters.create, and
+   SGD.train_batch with Adam(1e-4) in bfloat16 on one seeded batch of
+   8 full-length rows: 2 warm-up steps, then 8 timed steps with the
+   flash launch counts zeroed just before and read just after. Asserts
+   finite, falling losses, finite parameters and launches == steps x
+   6 for each flash kernel. Then, in float32 from one table, the
+   gradients of one Topology.forward cost with use_flash_attention
+   True against False: the worst per-parameter ||diff|| / ||g|| at
+   most max(1e-3, twice the plain path's own spread under a 2^-22
+   input perturbation) — the ReLU makes the gradient discontinuous, so
+   at this width two correct float32 runs differ by ~1e-3.
+8. train -> serve — the trained table through Parameters.to_tar,
+   load_params_tar, TransformerDecoder (tied head) and DecodeEngine:
+   4 seeded requests, zero step failures, tokens identical to the
+   dense generate under the tie rule.
+9. flash timings — each flash kernel's device time per call at the
+   training shapes, bf16 and f32 (CUDA-graph replay over 6 input
+   sets), its bound, the plain version's time, and SDPA as a yardstick
+   (forward; autograd backward against dq + dk/dv together).
+10. train trace — one bfloat16 train step under torch.profiler (run
+   right after phase 7): device busy time against the wall clock, the
+   top kernels, the flash share.
 
-Prints the kernel table as one JSON line, the card's name and power
-limit (nvidia-smi), and last {"ok": true, "device": {...}}.
+Prints the kernel table as one JSON line (the flash kernels at their
+bfloat16 times, the training dtype), the card's name and power limit
+(nvidia-smi), and last {"ok": true, "device": {...}}.
 """
 
 import json
@@ -57,6 +93,17 @@ SLOTS, PAGE, N_REQ = 8, 16, 16
 F32_TOL = dict(rtol=2e-4, atol=2e-5)
 BF16_ATOL = 2e-2
 TIE_RTOL, TIE_ATOL = 1e-4, 1e-5    # the logits tolerance of the tests
+BF16_FLOPS_PER_S = 989e12          # H100 SXM, dense bf16 tensor cores
+FLASH_SHAPE = (8, 8, 64)           # batch, heads, head dim of the LM
+FLASH_KV_LENS = [1024, 1000, 777, 513, 512, 300, 64, 17]
+# the train step bench.py:245-286 runs: tied transformer_lm, 8 x 1024
+TRAIN = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
+             d_ff=2048, max_len=1024, tie_embeddings=True)
+TRAIN_ROWS, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 8
+# (name, line of the TPU kernel in ops/pallas_attention.py, source)
+FLASH_KERNELS = [("fwd", 43, "flash_attention_fwd.cu"),
+                 ("dq", 225, "flash_attention_bwd.cu"),
+                 ("dkv", 264, "flash_attention_bwd.cu")]
 
 
 def log(msg):
@@ -173,6 +220,8 @@ def phase_kernel_vs_plain():
                 elif err > BF16_ATOL:
                     raise AssertionError(
                         f"bf16 kernel off by {err} > {BF16_ATOL}")
+                zero_err = _check_zero_len_row(ops, args, tables, lens,
+                                               dtype)
                 # allocated-pages contract: pages past each slot's used
                 # count are never read — poison them, nothing changes
                 P = tables.shape[1]
@@ -188,8 +237,40 @@ def phase_kernel_vs_plain():
                     raise AssertionError("kernel read a page past a "
                                          "slot's used count")
                 log(f"kernel vs plain h={h} g={g} W={W} "
-                    f"{str(dtype)[6:]}: max_abs_err {err:.3e}")
+                    f"{str(dtype)[6:]}: max_abs_err {err:.3e}, kv_len-0 "
+                    f"row {zero_err:.3e}")
     return worst
+
+
+def _check_zero_len_row(ops, args, tables, lens, dtype):
+    """Window token 0 of slot 2 with kv_len 0 must return what the TPU
+    kernel returns for it: the mean of V over every column of the
+    slot's used pages (pallas_decode.py:297-314 does not zero masked
+    weights). The other rows keep the plain version's values."""
+    s = 2
+    lens0 = lens.copy()
+    lens0[s, 0] = 0
+    ln = torch.from_numpy(lens0).to(args[4].device)
+    got = ops.paged_window_attention(*args[:4], ln)
+    torch.cuda.synchronize()
+    q, v_pages = args[0], args[2]
+    h, g = q.shape[2], v_pages.shape[2]
+    used = min(max(-(-int(lens0[s].max()) // PAGE), 1), tables.shape[1])
+    pages = torch.from_numpy(tables[s, :used].astype(np.int64)).cuda()
+    mean_v = v_pages[pages].float().reshape(-1, g, q.shape[3]).mean(dim=0)
+    want = mean_v.repeat_interleave(h // g, dim=0)         # [h, dh]
+    err = (got[s, 0].float() - want).abs().max().item()
+    if err > (F32_TOL["atol"] if dtype == torch.float32 else BF16_ATOL):
+        raise AssertionError(f"kv_len-0 row off the mean of V by {err}")
+    keep = torch.ones(got.shape[:2], dtype=torch.bool, device=got.device)
+    keep[s, 0] = False
+    want_rest = ops.paged_window_reference(
+        *[a.float() if a.is_floating_point() else a for a in args[:4]], ln)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[keep], want_rest[keep], **F32_TOL)
+    elif (got[keep].float() - want_rest[keep]).abs().max() > BF16_ATOL:
+        raise AssertionError("a kv_len-0 row changed the other rows")
+    return err
 
 
 # ------------------------------------------------------------ phase 3
@@ -366,6 +447,421 @@ def phase_trace(eng):
         log(f"trace top kernel: {ms:.3f} ms  {name[:90]}")
 
 
+# ------------------------------------------------------------ phase 6
+def _flash_inputs(T, dtype, seed):
+    rng = np.random.RandomState(seed)
+    b, h, d = FLASH_SHAPE
+    return [torch.from_numpy(rng.randn(b, T, h, d).astype(np.float32))
+            .to("cuda", dtype) for _ in range(4)]            # q, k, v, dO
+
+
+def _flash_kernels(q, k, v, do, lens2, causal):
+    """Forward, D = rowsum(dO*O), dq and dk/dv through the three kernel
+    wrappers, as the autograd Function runs them."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    scale = q.shape[-1] ** -0.5
+    out, lse = fa.flash_forward(q, k, v, lens2, causal, scale)
+    dd = fa.rowsum_do_o(do, out)
+    dq = fa.flash_backward_dq(q, k, v, do, lse, dd, lens2, causal, scale)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, dd, lens2, causal,
+                                   scale)
+    return out, lse, dd, dq, dk, dv
+
+
+def _held(name, got, want, dtype):
+    """float32: assert_close(rtol 2e-4, atol 2e-5 * max(1, max|ref|));
+    bfloat16: max |err| <= 2e-2 * max(1, max|ref|). Returns max |err|."""
+    got, want = got.float(), want.float()
+    bound = max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=F32_TOL["rtol"],
+                                   atol=F32_TOL["atol"] * bound,
+                                   msg=lambda m: f"{name}: {m}")
+    elif err > BF16_ATOL * bound:
+        raise AssertionError(f"bf16 {name} off by {err} > "
+                             f"{BF16_ATOL} x {bound}")
+    return err
+
+
+def phase_flash_vs_plain():
+    """The three flash kernels against autograd of the plain version in
+    float32 on the same (rounded) values, at full width: causal T 1024
+    with ragged kv_lens, and non-causal T 1000 (not a block multiple)
+    with q_lens below T, fully-masked batch rows included."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    cases = [("causal T1024", 1024, True, [1024] * 8, FLASH_KV_LENS),
+             ("non-causal T1000", 1000, False,
+              [1000, 999, 640, 513, 100, 1, 0, 64],
+              [1000, 1000, 777, 1, 512, 300, 64, 0])]
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for ci, (label, T, causal, q_lens, kv_lens) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = _flash_inputs(T, dtype, seed=60 + ci)
+            lens2 = torch.tensor(np.stack([q_lens, kv_lens], 1),
+                                 dtype=torch.int32, device="cuda")
+            out, lse, _, dq, dk, dv = _flash_kernels(q, k, v, do, lens2,
+                                                     causal)
+            torch.cuda.synchronize()
+            qf, kf, vf = (x.float().requires_grad_() for x in (q, k, v))
+            ql, kl = lens2[:, 0], lens2[:, 1]
+            scale = q.shape[-1] ** -0.5
+            ref = fa.flash_attention_reference(qf, kf, vf, ql, kl, causal,
+                                               scale)
+            gq, gk, gv = torch.autograd.grad(ref, (qf, kf, vf), do.float())
+            lse_ref = fa.flash_lse_reference(qf.detach(), kf.detach(), ql,
+                                             kl, causal, scale)
+            live = lse_ref > fa.NEG_INF / 2
+            if not torch.all(lse[~live] == fa.NEG_INF):
+                raise AssertionError(f"{label}: lse of a fully-masked row "
+                                     "is not NEG_INF")
+            errs = {"out": _held("out", out, ref, dtype),
+                    "lse": _held("lse", lse[live], lse_ref[live],
+                                 torch.float32),
+                    "dq": _held("dq", dq, gq, dtype),
+                    "dk": _held("dk", dk, gk, dtype),
+                    "dv": _held("dv", dv, gv, dtype)}
+            if dtype == torch.float32:
+                worst["fwd"] = max(worst["fwd"], errs["out"], errs["lse"])
+                worst["dq"] = max(worst["dq"], errs["dq"])
+                worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"])
+            log(f"flash vs plain {label} {str(dtype)[6:]}: " + ", ".join(
+                f"{n} {e:.3e}" for n, e in errs.items()))
+            del ref, gq, gk, gv
+    return worst
+
+
+# ------------------------------------------------------------ phase 7
+def _lm_spec(compute_dtype):
+    from paddle_tpu_torch import config
+    from paddle_tpu_torch.core.registry import reset_name_counters
+    from paddle_tpu_torch.models import transformer_lm
+    config.init(seed=0, compute_dtype=compute_dtype)
+    reset_name_counters()
+    return transformer_lm(**TRAIN)
+
+
+def _lm_batch(seed=0):
+    """TRAIN_ROWS full-length rows of seeded tokens: (tokens, positions,
+    next tokens)."""
+    rng = np.random.RandomState(seed)
+    T = TRAIN["max_len"]
+    toks = rng.randint(0, TRAIN["vocab_size"], (TRAIN_ROWS, T + 1)) \
+        .astype(np.int32)
+    return [(toks[i, :-1], np.arange(T, dtype=np.int32), toks[i, 1:])
+            for i in range(TRAIN_ROWS)]
+
+
+def _flash_counts(fa, zero=False):
+    fns = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
+    if zero:
+        for fn in fns:
+            fn.launches = 0
+    return [fn.launches for fn in fns]
+
+
+def phase_train():
+    """The main training path: SGD.train_batch with Adam(1e-4) on the
+    full-width tied transformer_lm in bfloat16, 8 x 1024 tokens."""
+    from paddle_tpu_torch.core.topology import Topology
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import SGD, create
+
+    spec = _lm_spec("bfloat16")
+    topo = Topology(spec.cost, extra_outputs=[spec.output])
+    params = create(topo, torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in params.raw.values())
+    trainer = SGD(spec.cost, params, Adam(learning_rate=1e-4))
+    batch = _lm_batch()
+    losses = [trainer.train_batch(batch)[0] for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _flash_counts(fa, zero=True)
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        losses.append(trainer.train_batch(batch)[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _flash_counts(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses not finite and falling: "
+                             f"{losses}")
+    bad = [k for k, p in params.raw.items()
+           if not bool(torch.isfinite(p).all())]
+    if bad:
+        raise AssertionError(f"non-finite parameters after training: {bad}")
+    want = TRAIN_STEPS * TRAIN["n_layers"]
+    if launches != [want] * 3:
+        raise AssertionError(f"flash launches {launches} != steps x layers "
+                             f"= {want} each")
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tokens = TRAIN_ROWS * TRAIN["max_len"]
+    log(f"train: {n_params} parameters, bf16, {TRAIN_STEPS} timed steps "
+        f"after {TRAIN_WARMUP}: {step_ms:.3f} ms/step, "
+        f"{tokens / (step_ms / 1e3):.1f} tokens/s, peak "
+        f"{peak_gb:.3f} GB; losses {[round(x, 4) for x in losses]}; "
+        f"flash launches fwd/dq/dkv {launches}")
+    return trainer, batch, launches
+
+
+def phase_flash_grad_check(batch):
+    """float32, full width, one table: the gradients of one
+    Topology.forward cost with use_flash_attention True (the kernels)
+    against False (the plain version): the worst per-parameter
+    ||g_kernel - g_plain|| / ||g_plain|| at most max(1e-3, twice the
+    plain version's own spread), and the costs within 1e-5.
+
+    Not elementwise: the FFN's ReLU makes the gradient discontinuous,
+    and among the 8192 x 2048 pre-activations of a layer some lie
+    within float32 rounding of 0, so any two correct float32 runs that
+    round differently flip a few of them: single gradient entries move
+    by up to ~1e-2 of max|g| and whole parameters by ~1e-3 in norm.
+    The same measures between the plain version and itself with the
+    token table scaled by (1 + 2^-22) give that noise floor."""
+    from paddle_tpu_torch.config import global_config
+    from paddle_tpu_torch.core.topology import Topology
+    from paddle_tpu_torch.trainer import DataFeeder, create
+
+    spec = _lm_spec("float32")
+    topo = Topology(spec.cost)
+    params = create(topo, torch.Generator().manual_seed(1)).raw
+    feed = DataFeeder(topo.data_type(), device="cuda")(batch)
+    n_real = feed.pop("__batch_size__")
+    names = sorted(params)
+    leaves = [params[k].requires_grad_() for k in names]
+
+    def grads(flag):
+        global_config().use_flash_attention = flag
+        try:
+            outs, _ = topo.forward(params, {}, feed, n_real=n_real)
+            cost = outs[spec.cost.name].sum() / n_real
+            return cost.item(), torch.autograd.grad(cost, leaves)
+        finally:
+            global_config().use_flash_attention = True
+
+    def worst(ga, gb):
+        rel = max(((a - b).norm() / b.norm()).item() for a, b in
+                  zip(ga, gb))
+        ent = max(((a - b).abs().max() / b.abs().max()).item() for a, b in
+                  zip(ga, gb))
+        return rel, ent
+
+    cost_k, g_k = grads(True)
+    cost_p, g_p = grads(False)
+    tok = params["_tfm_tok_emb.w0"]
+    saved = tok.detach().clone()
+    with torch.no_grad():
+        tok.mul_(1.0 + 2.0 ** -22)
+    _, g_floor = grads(False)
+    with torch.no_grad():
+        tok.copy_(saved)
+    rel, ent = worst(g_k, g_p)
+    rel_floor, ent_floor = worst(g_floor, g_p)
+    log(f"f32 grads at full width over {len(names)} parameters: cost "
+        f"{cost_k:.6f} (kernels) vs {cost_p:.6f} (plain); kernels vs plain "
+        f"worst ||diff||/||g|| {rel:.3e}, worst max|diff|/max|g| {ent:.3e};"
+        f" plain vs plain at a 2^-22 input perturbation {rel_floor:.3e} and "
+        f"{ent_floor:.3e}")
+    if not rel <= max(1e-3, 2.0 * rel_floor) or \
+            abs(cost_k - cost_p) > 1e-5 * abs(cost_p):
+        raise AssertionError(f"flash-path gradients off the plain path: "
+                             f"||diff||/||g|| {rel} > max(1e-3, 2 x "
+                             f"{rel_floor}) or cost {cost_k} vs {cost_p}")
+
+
+# ------------------------------------------------------------ phase 8
+def phase_train_to_serve(trainer):
+    """The trained table: Parameters.to_tar -> load_params_tar ->
+    TransformerDecoder (tied head) -> DecodeEngine, 4 seeded requests,
+    tokens identical to the dense generate under the tie rule."""
+    import io
+    from paddle_tpu_torch.models.decode import (TransformerDecoder,
+                                                tokens_agree)
+    from paddle_tpu_torch.params import load_params_tar
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    buf = io.BytesIO()
+    trainer.save_parameter_to_tar(buf)
+    buf.seek(0)
+    table = load_params_tar(buf)
+    if "_tfm_head.w0" in table:
+        raise AssertionError("a tied table carries a separate head")
+    dec = TransformerDecoder(table, n_layers=TRAIN["n_layers"],
+                             n_heads=TRAIN["n_heads"])
+    eng = DecodeEngine(dec, num_slots=4, page_size=PAGE, max_seq_len=128)
+    rng = np.random.RandomState(8)
+    prompts = [rng.randint(0, TRAIN["vocab_size"],
+                           (int(rng.randint(16, 49)),)).astype(np.int32)
+               for _ in range(4)]
+    reqs = [eng.submit(p, 16) for p in prompts]
+    eng.run(timeout=600)
+    st = eng.stats()
+    if st["step_failures"]:
+        raise AssertionError(f"{st['step_failures']} step failures: "
+                             f"{eng.last_step_error}")
+    for i, (p, r) in enumerate(zip(prompts, reqs)):
+        got = r.get(timeout=1)
+        want = dec.generate(p[None, :], max_len=len(p) + 16)[0]
+        ref = dec.prefill_logits(np.concatenate([p, want])[None, :])[0]
+        tol = TIE_ATOL + TIE_RTOL * float(np.abs(ref).max())
+        if len(got) != 16 or not tokens_agree(got, want, ref[len(p) - 1:],
+                                               tol):
+            raise AssertionError(f"served request {i} differs from the "
+                                 "dense decoder")
+    log(f"train -> serve: 4 requests x 16 tokens from the trained table, "
+        f"{st['steps']} engine steps, zero step failures, tokens identical "
+        "to the dense decoder")
+
+
+# ------------------------------------------------------------ phase 9
+def _flash_bound(kernel, dtype, T, kv_lens, causal=True):
+    """(bound_ms, bound_by): the larger of the bytes the call must move
+    at 3.35 TB/s and its operations at the dtype's peak. Operations
+    count the valid (query, key) pairs of these inputs: the forward
+    does two products of 2 d flops a pair (S = QK^T, PV), dq three
+    (S, dO V^T, dS K) and dk/dv four (S, dO V^T, P^T dO, dS^T Q)."""
+    b, h, d = FLASH_SHAPE
+    pairs = sum(min(L, T) * (min(L, T) + 1) // 2 + (T - min(L, T)) * min(L, T)
+                if causal else T * L for L in kv_lens) * h
+    esize = 2 if dtype == torch.bfloat16 else 4
+    tensor = b * T * h * d * esize
+    rows = b * h * T * 4                       # one float32 per row
+    products, n_tensors, n_rows = {"fwd": (2, 4, 1), "dq": (3, 5, 2),
+                                   "dkv": (4, 6, 2)}[kernel]
+    flops = products * 2.0 * d * pairs
+    t_ops = flops / (BF16_FLOPS_PER_S if esize == 2 else FP32_FLOPS_PER_S)
+    t_bytes = (n_tensors * tensor + n_rows * rows + b * 8) / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_flash_timings():
+    """Each flash kernel's device time per call at the training shapes
+    (8 x 1024 tokens, 8 heads, dh 64, causal, full-length rows), bf16
+    and f32, by CUDA-graph replay over 6 input sets (one per layer, so
+    the inputs do not sit in L2); its bound; the plain version's time;
+    and, as a yardstick the port never calls, SDPA (forward for the
+    forward kernel, its autograd backward for dq + dk/dv together)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+    T = TRAIN["max_len"]
+    kv_lens = [T] * FLASH_SHAPE[0]
+    lens2 = torch.tensor([[T, T]] * FLASH_SHAPE[0], dtype=torch.int32,
+                         device="cuda")
+    scale = FLASH_SHAPE[2] ** -0.5
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        sets = []
+        for i in range(TRAIN["n_layers"]):
+            q, k, v, do = _flash_inputs(T, dtype, seed=90 + i)
+            o, lse = fa.flash_forward(q, k, v, lens2, True, scale)
+            sets.append((q, k, v, do, lse, fa.rowsum_do_o(do, o)))
+        L = len(sets)
+
+        def fwd(i):
+            q, k, v = sets[i % L][:3]
+            return fa.flash_forward(q, k, v, lens2, True, scale)
+
+        def dq(i):
+            return fa.flash_backward_dq(*sets[i % L], lens2, True, scale)
+
+        def dkv(i):
+            return fa.flash_backward_dkv(*sets[i % L], lens2, True, scale)
+
+        def fwd_plain(i):
+            q, k, v = sets[i % L][:3]
+            return (fa.flash_attention_reference(q, k, v, None, lens2[:, 1],
+                                                 True, scale),
+                    fa.flash_lse_reference(q, k, None, lens2[:, 1], True,
+                                           scale))
+
+        def dq_plain(i):
+            return fa.flash_dq_reference(*sets[i % L], None, lens2[:, 1],
+                                         True, scale)
+
+        def dkv_plain(i):
+            return fa.flash_dkv_reference(*sets[i % L], None, lens2[:, 1],
+                                          True, scale)
+
+        heads = [[x.transpose(1, 2) for x in s[:4]] for s in sets]
+
+        def sdpa(i):
+            q, k, v = heads[i % L][:3]
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+        lib_fwd = device_ms(sdpa, iters=12)
+        leaves = [[x.detach().requires_grad_() for x in h_[:3]]
+                  for h_ in heads]
+        outs = [F.scaled_dot_product_attention(*lv, is_causal=True)
+                for lv in leaves]
+
+        def sdpa_bwd(i):
+            return torch.autograd.grad(outs[i % L], leaves[i % L],
+                                       heads[i % L][3], retain_graph=True)
+
+        lib_bwd = event_ms(sdpa_bwd, iters=12)
+        for name, kern, plain, lib in (("fwd", fwd, fwd_plain, lib_fwd),
+                                       ("dq", dq, dq_plain, lib_bwd),
+                                       ("dkv", dkv, dkv_plain, lib_bwd)):
+            bound_ms, bound_by = _flash_bound(name, dtype, T, kv_lens)
+            out[(name, dtype)] = dict(
+                ms=device_ms(kern, iters=12),
+                plain_ms=device_ms(plain, iters=3), bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib)
+            r = out[(name, dtype)]
+            log(f"flash {name} {str(dtype)[6:]} at train shapes: "
+                f"{r['ms'] * 1e3:.2f} us/call, bound {bound_ms * 1e3:.3f} "
+                f"us ({bound_by}), plain {r['plain_ms'] * 1e3:.2f} us, "
+                f"sdpa {'fwd' if name == 'fwd' else 'bwd (dq+dkv)'} "
+                f"{lib * 1e3:.2f} us")
+        del sets, heads, leaves, outs
+    return out
+
+
+def event_ms(fn, iters):
+    """Milliseconds per call between CUDA events around ``iters`` eager
+    calls (for work that cannot be captured in a CUDA graph, at sizes
+    where the host's issue time hides behind the device)."""
+    fn(0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ------------------------------------------------------------ phase 10
+def phase_train_trace(trainer, batch):
+    """One train step under torch.profiler: device busy time against
+    the wall clock, the top device kernels, the flash kernels' share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_batch(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type.name == "CUDA" and ev.self_device_time_total > 0:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + \
+                ev.self_device_time_total / 1e3
+    busy_ms = sum(by_kernel.values())
+    flash_ms = sum(v for k, v in by_kernel.items() if "flash_" in k)
+    log(f"train trace: 1 step, wall {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}), flash "
+        f"kernels {flash_ms:.3f} ms ({flash_ms / busy_ms:.3f} of busy)")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"train trace top kernel: {ms:.3f} ms  {name[:90]}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -380,11 +876,25 @@ def main():
     eng, prompts, news, launches = phase_engine()
     timing = phase_timings(eng, prompts, news)
     phase_trace(eng)
+    del eng
+    flash_err = phase_flash_vs_plain()
+    trainer, batch, flash_launches = phase_train()
+    phase_train_trace(trainer, batch)      # still in bfloat16
+    phase_flash_grad_check(batch)          # switches to float32
+    phase_train_to_serve(trainer)
+    flash_timing = phase_flash_timings()
     kernels = [dict(
         name="paged_window_attention", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",
         replaces="paddle_tpu/ops/pallas_decode.py:257",
         launches=launches, max_abs_err=max_err, **timing)]
+    for (name, line, src), n in zip(FLASH_KERNELS, flash_launches):
+        kernels.append(dict(
+            name=f"flash_attention_{name}", route="cuda",
+            source=f"paddle_tpu_torch/csrc/{src}",
+            replaces=f"paddle_tpu/ops/pallas_attention.py:{line}",
+            launches=n, max_abs_err=flash_err[name],
+            **flash_timing[(name, torch.bfloat16)]))
     bad = [k["name"] for k in kernels if k["launches"] < 1]
     if bad:
         raise AssertionError(f"kernels not launched on the main path: "

@@ -7,12 +7,19 @@ they expect it, and uses PyTorch idiom inside. The JAX package stays
 the reference; ``tests/test_torch_*.py`` hold the port against it on
 the CPU.
 
-Slices ported so far: the paged-decode serving path —
-``TransformerDecoder`` / ``PagedDecoder`` (models/decode.py), the
-continuous-batching ``DecodeEngine`` with its prefix cache
-(serving/), an engine-backed ``InferenceServer`` + JSON/HTTP front,
-the ``serve --decode_config`` CLI, and the hand-written Hopper kernel
-for paged window attention (csrc/paged_window_attention.cu).
+Slices ported so far:
+
+- the paged-decode serving path — ``TransformerDecoder`` /
+  ``PagedDecoder`` (models/decode.py), the continuous-batching
+  ``DecodeEngine`` with its prefix cache (serving/), an engine-backed
+  ``InferenceServer`` + JSON/HTTP front, the ``serve --decode_config``
+  CLI, and the hand-written Hopper kernel for paged window attention
+  (csrc/paged_window_attention.cu);
+- the training path of ``transformer_lm`` — the layer DSL and the
+  ``Topology`` executor (core/, layers/), ``models.transformer_lm``,
+  ``Adam`` / ``Momentum`` (optimizer/), ``Parameters`` and the
+  ``SGD`` trainer (trainer/), with hand-written Hopper kernels for
+  flash attention forward, dq and dk/dv (csrc/flash_attention_*.cu).
 
 Entry points run on the card unless the caller passes
 ``device="cpu"``; with no GPU and no device asked for they raise
@@ -20,13 +27,17 @@ Entry points run on the card unless the caller passes
 
 Matmul precision: float32 products on the card run at full float32
 precision (TF32 off, for matmuls and cuDNN alike) — the port's
-counterpart of the JAX package's ``precision=HIGHEST`` policy.
+counterpart of the JAX package's ``precision=HIGHEST`` policy. Under
+``compute_dtype="bfloat16"`` the JAX package multiplies bf16 inputs
+with float32 accumulation (``preferred_element_type=float32``), so
+cuBLAS's reduced-precision (bf16) reductions are turned off too.
 """
 
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 from paddle_tpu_torch.device import resolve_device  # noqa: E402
 

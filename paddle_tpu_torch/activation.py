@@ -1,0 +1,38 @@
+"""paddle.v2.activation-compatible descriptors — the port of
+``paddle_tpu/activation.py`` (the activations the transformer slice
+uses; each ``name`` keys into ops/activations.py)."""
+
+from __future__ import annotations
+
+
+class BaseActivation:
+    name = "linear"
+
+    def __repr__(self):
+        return f"activation.{type(self).__name__}"
+
+
+def _make(cls_name, act_name):
+    return type(cls_name, (BaseActivation,), {"name": act_name})
+
+
+Softmax = _make("Softmax", "softmax")
+Relu = _make("Relu", "relu")
+Linear = _make("Linear", "linear")
+
+
+def to_name(act) -> str:
+    """Normalize an activation argument (object, class, or string)."""
+    if act is None:
+        return "linear"
+    if isinstance(act, str):
+        from paddle_tpu_torch.ops import activations as _ops
+        if act not in _ops.names():
+            raise NotImplementedError(
+                f"activation {act!r} is not ported yet; have {_ops.names()}")
+        return act
+    if isinstance(act, type) and issubclass(act, BaseActivation):
+        return act.name
+    if isinstance(act, BaseActivation):
+        return act.name
+    raise TypeError(f"bad activation: {act!r}")

@@ -8,7 +8,9 @@
 // c < kv_lens[s, w] (the ragged-length mask and the in-window causal
 // mask in one), grouped-query heads (query head g*rep + r reads kv
 // group g), online softmax in base 2 with scale*log2(e), and the
-// finalize division by max(l, 1e-30).
+// finalize division by max(l, 1e-30). A row with kv_len 0 returns
+// what the TPU kernel returns for it: the mean of V over every column
+// of the slot's used pages (its masked weights are exp2(0) = 1 there).
 //
 // Rethought for the GPU, not copied block by block: the TPU kernel
 // walks pages along a sequential grid axis and carries (m, l, acc) in
@@ -203,6 +205,21 @@ __global__ void __launch_bounds__(1024) paged_window_kernel(
     const T* vt = vbuf + ((r & 1) * split + k) * tile;
     // columns of page p this row may see: absolute c < len
     const int c_end = p < used ? min(PS, len - p * PS) : 0;
+    if (len <= 0 && p < used) {
+      // a row that sees no column (kv_len 0): the TPU kernel does not
+      // zero its masked weights, and exp2(NEG_INF - NEG_INF) = 1 gives
+      // every column of the used pages weight 1 — the row returns the
+      // mean of V over them. m stays NEG_INF, so the split merge below
+      // sums these partial states with factor 1.
+      for (int c = 0; c < PS; ++c) {
+#pragma unroll
+        for (int i = 0; i < NCH; ++i) {
+          const int d = i * kWarp + lane;
+          if (d < DH) acc[i] += to_f32(vt[c * DH + d]);
+        }
+      }
+      l += (float)PS;
+    }
     for (int c0 = 0; c0 < c_end; c0 += kCols) {
       float sc[kCols];
 #pragma unroll

@@ -1,0 +1,194 @@
+"""Core layers — the port of the ``data``, ``fc``, ``embedding`` and
+``addto`` layers of ``paddle_tpu/layers/base.py``.
+
+Conventions (the JAX package's): non-sequence values are
+``[batch, size]``; sequences are SequenceBatch with data
+``[batch, T, size]`` (ids ``[batch, T]``). ``build`` is the JAX
+package's, line for line, so topologies serialize identically;
+``apply`` computes on torch tensors.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from paddle_tpu_torch.core import initializers
+from paddle_tpu_torch.core.data_type import InputType
+from paddle_tpu_torch.core.registry import (LayerMeta, ParamAttr, ParamSpec,
+                                            default_weight_init,
+                                            register_layer)
+from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.ops import activations as act_ops
+from paddle_tpu_torch.ops import embedding as emb_ops
+from paddle_tpu_torch.ops import linear as linear_ops
+
+
+def _apply_act(x, act_name: str, mask=None):
+    if act_name == "sequence_softmax":
+        raise NotImplementedError("sequence_softmax is not ported yet "
+                                  "(the sequence slice)")
+    return act_ops.get(act_name)(x)
+
+
+def _map_seq(fn, value):
+    """Apply fn to the dense payload whether value is a SequenceBatch or
+    a tensor."""
+    if isinstance(value, SequenceBatch):
+        return value.with_data(fn(value.data))
+    return fn(value)
+
+
+def _payload(value):
+    return value.data if isinstance(value, SequenceBatch) else value
+
+
+def _norm_attrs(param_attr, n: int) -> List[ParamAttr]:
+    if param_attr is None:
+        return [ParamAttr() for _ in range(n)]
+    if isinstance(param_attr, (list, tuple)):
+        out = [ParamAttr.of(a) for a in param_attr]
+        assert len(out) == n, "param_attr list length mismatch"
+        return out
+    return [ParamAttr.of(param_attr) for _ in range(n)]
+
+
+@register_layer("data")
+class DataLayer:
+    @staticmethod
+    def build(name, cfg, input_metas):
+        it: InputType = cfg["input_type"]
+        height = cfg.get("height", 0)
+        width = cfg.get("width", 0)
+        channels = it.dim // (height * width) if height and width else 0
+        return (LayerMeta(size=it.dim, seq_level=it.seq_type.value,
+                          height=height, width=width, channels=channels,
+                          is_integer=(it.kind == "integer")), [], [])
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        v = inputs[0]
+        # mixed-precision entry cast: dense float feeds drop to the
+        # compute dtype once, here
+        it: InputType = cfg["input_type"]
+        if it.kind != "integer":
+            cd = linear_ops.compute_dtype()
+            if cd != torch.float32:
+                if isinstance(v, SequenceBatch):
+                    if v.data.is_floating_point():
+                        v = v.with_data(v.data.to(cd))
+                elif v.is_floating_point():
+                    v = v.to(cd)
+        return v
+
+
+@register_layer("fc")
+class FCLayer:
+    @staticmethod
+    def build(name, cfg, input_metas):
+        size = cfg["size"]
+        attrs = _norm_attrs(cfg.get("param_attr"), len(input_metas))
+        cfg["param_attr"] = attrs
+        specs = []
+        for i, (m, a) in enumerate(zip(input_metas, attrs)):
+            pname = a.name or (f"_{name}.w{i}" if i else f"_{name}.w0")
+            # tied_transpose stores the weight [out, in] — the shape of
+            # an embedding table — so an LM head can share the token
+            # table; the fc applies it transposed
+            shape = (size, m.size) if cfg.get("tied_transpose") \
+                else (m.size, size)
+            fan_in = (1,) if cfg.get("tied_transpose") else (0,)
+            specs.append(ParamSpec(pname, shape,
+                                   default_weight_init(a, fan_in), a))
+        battr = ParamAttr.of(cfg.get("bias_attr")) if not isinstance(
+            cfg.get("bias_attr"), bool) else ParamAttr()
+        if cfg.get("bias_attr") is not False:
+            bname = battr.name or f"_{name}.wbias"
+            specs.append(ParamSpec(bname, (size,),
+                                   battr.initializer or initializers.zeros,
+                                   battr))
+            cfg["_bias_name"] = bname
+        seq_level = max(m.seq_level for m in input_metas)
+        return LayerMeta(size=size, seq_level=seq_level), specs, []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        attrs = cfg["param_attr"]
+        ws = [params[a.name or f"_{name}.w{i}"] for i, a in enumerate(attrs)]
+        b = params.get(cfg.get("_bias_name")) if cfg.get("_bias_name") \
+            else None
+        out = None
+        ref = None
+        for val, w in zip(inputs, ws):
+            x = _payload(val)
+            if not isinstance(val, SequenceBatch) and x.dim() > 2:
+                x = x.reshape(x.shape[0], -1)
+            y = linear_ops.matmul(x, w.t() if cfg.get("tied_transpose")
+                                  else w)
+            out = y if out is None else out + y
+            if isinstance(val, SequenceBatch):
+                ref = val
+        if b is not None:
+            out = out + b.to(out.dtype)     # f32 master bias: no promote
+        out = _apply_act(out, cfg.get("act", "linear"))
+        return ref.with_data(out) if ref is not None else out
+
+
+@register_layer("embedding")
+class EmbeddingLayer:
+    @staticmethod
+    def build(name, cfg, input_metas):
+        m = input_metas[0]
+        assert m.is_integer, "embedding input must be integer ids"
+        size = cfg["size"]
+        a = ParamAttr.of(cfg.get("param_attr"))
+        pname = a.name or f"_{name}.w0"
+        cfg["_w_name"] = pname
+        if cfg.get("remote") or a.remote or a.sparse:
+            raise NotImplementedError(
+                "remote and row-sparse embedding tables are not ported "
+                "yet (ROADMAP.md queue A.7)")
+        init = a.initializer or initializers.normal(a.initial_std or 0.01)
+        specs = [ParamSpec(pname, (m.size, size), init, a)]
+        return LayerMeta(size=size, seq_level=m.seq_level), specs, []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        val = inputs[0]
+        out = emb_ops.embedding_lookup(params[cfg["_w_name"]],
+                                       _payload(val),
+                                       pad_id=cfg.get("pad_id", -1))
+        return val.with_data(out) if isinstance(val, SequenceBatch) else out
+
+
+@register_layer("addto")
+class AddtoLayer:
+    @staticmethod
+    def build(name, cfg, input_metas):
+        size = input_metas[0].size
+        for m in input_metas:
+            assert m.size == size, "addto inputs must agree in size"
+        specs = []
+        if cfg.get("bias_attr") not in (False, None):
+            a = ParamAttr.of(None if cfg.get("bias_attr") is True
+                             else cfg.get("bias_attr"))
+            bname = a.name or f"_{name}.wbias"
+            specs.append(ParamSpec(bname, (size,), initializers.zeros, a))
+            cfg["_bias_name"] = bname
+        m0 = input_metas[0]
+        return LayerMeta(size=size,
+                         seq_level=max(m.seq_level for m in input_metas),
+                         height=m0.height, width=m0.width,
+                         channels=m0.channels), specs, []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        ref = next((v for v in inputs if isinstance(v, SequenceBatch)), None)
+        out = _payload(inputs[0])
+        for v in inputs[1:]:
+            out = out + _payload(v)        # f32 + bf16 promotes to f32
+        if cfg.get("_bias_name"):
+            out = out + params[cfg["_bias_name"]].to(out.dtype)
+        out = _apply_act(out, cfg.get("act", "linear"))
+        return ref.with_data(out) if ref is not None else out

@@ -4,8 +4,9 @@ Each kernel source under ``paddle_tpu_torch/csrc/`` is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
 and loaded with ``ctypes`` (no PyTorch headers: a build takes seconds).
 Libraries go to ``build/paddle_tpu_torch/`` at the repository root
-(listed in ``.gitignore``), named by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one is reused.
+(listed in ``.gitignore``), named by a hash of the source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source or header
+rebuilds and an unchanged one is reused.
 
 Everything happens at first use, never at import: the CPU tests import
 every module on machines with no ``nvcc``. A build or load failure is
@@ -30,6 +31,8 @@ BUILD_DIR = PKG_DIR.parent / "build" / "paddle_tpu_torch"
 # kernel name -> source file under csrc/
 SOURCES: Dict[str, str] = {
     "paged_window_attention": "paged_window_attention.cu",
+    "flash_attention_fwd": "flash_attention_fwd.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -57,9 +60,12 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    # the shared headers are part of every source's hash: an edited
+    # header rebuilds every library
+    blob = (CSRC / SOURCES[name]).read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        blob += header.read_bytes()
+    digest = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 

@@ -168,7 +168,13 @@ def paged_window_attention(q: torch.Tensor, k_pages: torch.Tensor,
     pages (``ceil(max_w kv_lens[s, w] / page_size)``, at least 1)
     instead of the full table width — or an exception for inputs it
     does not take. Each kernel launch adds one to
-    ``paged_window_attention.launches``."""
+    ``paged_window_attention.launches``.
+
+    A row with kv_len 0 (which the engine never feeds) sees no column.
+    The kernel returns for it what the TPU kernel returns: the mean of
+    V over the slot's used pages. The plain version returns what the
+    JAX package's einsum path returns: the mean over the full table
+    width."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":

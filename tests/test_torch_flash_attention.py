@@ -1,0 +1,196 @@
+"""Port parity: paddle_tpu_torch/ops/flash_attention.py against
+paddle_tpu/ops/pallas_attention.py on the CPU.
+
+The JAX side runs its Pallas kernels as its own tests run them here
+(``interpret=True``), forward and the custom-vjp backward (the dq and
+dk/dv kernels). The port's side is the plain version its CPU wrappers
+take — the same functions its CUDA kernels are held against on the
+card. Inputs are numpy arrays from a seeded RandomState handed to
+both. Tolerance: atol 2e-5 in float32, the bound of
+tests/test_pallas_attention.py for the kernel against its reference.
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from paddle_tpu.ops import pallas_attention as jfa
+from paddle_tpu_torch.ops import flash_attention as tfa
+
+ATOL = 2e-5
+
+# name -> (tq, tk, q_lens, kv_lens, causal, block): the cases of
+# tests/test_pallas_attention.py, each in the port
+CASES = {
+    "full": (24, 40, None, None, False, 512),
+    "ragged_kv": (24, 40, None, [17, 40], False, 512),
+    "q_lens_zero_rows": (24, 40, [10, 24], None, False, 512),
+    "causal": (32, 32, None, [32, 20], True, 512),
+    "multi_block": (70, 90, None, [90, 33], False, 16),
+    "multi_block_causal_ragged": (90, 90, [90, 61], [77, 90], True, 16),
+    "fully_masked_row": (24, 40, None, [0, 5], False, 512),
+}
+
+
+def _inputs(tq, tk, seed=0, b=2, h=2, d=16):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, tq, h, d).astype(np.float32)
+    k = rng.randn(b, tk, h, d).astype(np.float32)
+    v = rng.randn(b, tk, h, d).astype(np.float32)
+    do = rng.randn(b, tq, h, d).astype(np.float32)
+    return q, k, v, do
+
+
+def _lens(x):
+    return None if x is None else np.asarray(x, np.int32)
+
+
+def _jax_out_and_grads(q, k, v, do, ql, kl, causal, block):
+    def f(q_, k_, v_):
+        return jfa.flash_attention(
+            q_, k_, v_,
+            q_lens=None if ql is None else jnp.asarray(ql),
+            kv_lens=None if kl is None else jnp.asarray(kl),
+            causal=causal, block_q=block, block_k=block, interpret=True)
+
+    out, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return (np.asarray(out),) + tuple(np.asarray(g) for g in
+                                      vjp(jnp.asarray(do)))
+
+
+def _t(x, grad=False):
+    return None if x is None else torch.tensor(x, requires_grad=grad)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_forward_and_gradients_match_pallas_interpret(case):
+    tq, tk, ql, kl, causal, block = CASES[case]
+    q, k, v, do = _inputs(tq, tk)
+    ql, kl = _lens(ql), _lens(kl)
+    want = _jax_out_and_grads(q, k, v, do, ql, kl, causal, block)
+    tq_, tk_, tv_ = _t(q, True), _t(k, True), _t(v, True)
+    out = tfa.flash_attention(tq_, tk_, tv_, q_lens=_t(ql), kv_lens=_t(kl),
+                              causal=causal)
+    grads = torch.autograd.grad(out, (tq_, tk_, tv_), torch.tensor(do))
+    got = (out.detach().numpy(),) + tuple(g.numpy() for g in grads)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, b, atol=ATOL, err_msg=name)
+    if case == "fully_masked_row":
+        assert np.all(got[0][0] == 0.0) and np.all(np.isfinite(got[0]))
+    if case == "q_lens_zero_rows":
+        assert np.all(got[0][0, 10:] == 0.0)
+
+
+@pytest.mark.parametrize("case", ["ragged_kv", "q_lens_zero_rows", "causal",
+                                  "fully_masked_row"])
+def test_wrappers_match_pallas_residual_and_backward(case):
+    """The three CPU wrappers (flash_forward's lse, flash_backward_dq,
+    flash_backward_dkv) against the JAX kernels' saved logsumexp
+    (``_flash_fwd``'s residual, lane 0) and their backward."""
+    tq, tk, ql, kl, causal, _ = CASES[case]
+    q, k, v, do = _inputs(tq, tk, seed=1)
+    b = q.shape[0]
+    ql = _lens(ql) if ql is not None else np.full((b,), tq, np.int32)
+    kl = _lens(kl) if kl is not None else np.full((b,), tk, np.int32)
+    scale = q.shape[-1] ** -0.5
+    _, res = jfa._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            jnp.asarray(ql), jnp.asarray(kl), causal, scale,
+                            tq, tk, True)
+    want_lse = np.asarray(res[4])[..., 0]
+    want = _jax_out_and_grads(q, k, v, do, ql, kl, causal, 512)
+
+    lens2 = torch.tensor(np.stack([ql, kl], 1))
+    tq_, tk_, tv_, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    out, lse = tfa.flash_forward(tq_, tk_, tv_, lens2, causal, scale)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=ATOL)
+    np.testing.assert_allclose(out.numpy(), want[0], atol=ATOL)
+    dd = tfa.rowsum_do_o(tdo, out)
+    dq = tfa.flash_backward_dq(tq_, tk_, tv_, tdo, lse, dd, lens2, causal,
+                               scale)
+    dk, dv = tfa.flash_backward_dkv(tq_, tk_, tv_, tdo, lse, dd, lens2,
+                                    causal, scale)
+    for name, a, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want[1:]):
+        np.testing.assert_allclose(a.numpy(), w, atol=ATOL, err_msg=name)
+
+
+def test_gqa_through_the_attention_layer():
+    """dot_product_attention with 4 query heads over 2 kv heads (the
+    layer repeats k/v), causal with ragged lengths: the port's layer
+    against the JAX layer, forward and input gradients."""
+    import paddle_tpu as paddle
+    from paddle_tpu.core.registry import reset_name_counters as j_reset
+    from paddle_tpu.core.sequence import pack_sequences as j_pack
+    from paddle_tpu_torch import layers as tl
+    from paddle_tpu_torch.core.data_type import dense_vector_sequence
+    from paddle_tpu_torch.core.registry import reset_name_counters as t_reset
+    from paddle_tpu_torch.core.sequence import pack_sequences as t_pack
+    from paddle_tpu_torch.core.topology import Topology as TTopology
+
+    rng = np.random.RandomState(3)
+    lens = [11, 7]
+    rows = {n: [rng.randn(L, w).astype(np.float32) for L in lens]
+            for n, w in (("q", 32), ("k", 16), ("v", 16))}
+    w_out = rng.randn(2, 11, 32).astype(np.float32)
+
+    j_reset()
+    jd = {n: paddle.layer.data(n, paddle.data_type.dense_vector_sequence(
+        rows[n][0].shape[1])) for n in rows}
+    jatt = paddle.layer.dot_product_attention(jd["q"], jd["k"], jd["v"],
+                                              num_heads=4, num_kv_heads=2,
+                                              causal=True)
+    jtopo = paddle.Topology(jatt)
+    feed0 = {n: j_pack(rows[n]) for n in rows}
+
+    def jloss(datas):
+        feed = {n: feed0[n].with_data(datas[n]) for n in rows}
+        outs, _ = jtopo.forward({}, {}, feed, mode="test")
+        out = outs[jatt.name].data
+        return jnp.sum(out * w_out), out
+
+    (_, jout), jg = jax.value_and_grad(jloss, has_aux=True)(
+        {n: feed0[n].data for n in rows})
+
+    t_reset()
+    td = {n: tl.data(n, dense_vector_sequence(rows[n][0].shape[1]))
+          for n in rows}
+    tatt = tl.dot_product_attention(td["q"], td["k"], td["v"], num_heads=4,
+                                    num_kv_heads=2, causal=True)
+    ttopo = TTopology(tatt)
+    feed = {n: t_pack(rows[n]) for n in rows}
+    leaves = {n: feed[n].data.requires_grad_() for n in rows}
+    outs, _ = ttopo.forward({}, {}, feed, mode="test")
+    tout = outs[tatt.name].data
+    tg = torch.autograd.grad(torch.sum(tout * torch.tensor(w_out)),
+                             [leaves[n] for n in rows])
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout),
+                               atol=ATOL)
+    for n, g in zip(rows, tg):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg[n]), atol=ATOL,
+                                   err_msg=n)
+
+
+def test_supported_gate_and_cpu_path_launches_nothing():
+    q = torch.zeros(2, 24, 2, 16)
+    assert tfa.flash_supported(q, q)
+    assert not tfa.flash_supported(torch.zeros(2, 24, 2, 12), q)
+    assert not tfa.flash_supported(torch.zeros(2, 24, 2, 136),
+                                   torch.zeros(2, 24, 2, 136))
+    assert not tfa.flash_supported(q.double(), q.double())
+    before = (tfa.flash_forward.launches, tfa.flash_backward_dq.launches,
+              tfa.flash_backward_dkv.launches)
+    x = torch.randn(1, 16, 2, 8, requires_grad=True)
+    tfa.flash_attention(x, x, x, causal=True).sum().backward()
+    assert (tfa.flash_forward.launches, tfa.flash_backward_dq.launches,
+            tfa.flash_backward_dkv.launches) == before
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    q = torch.zeros(1, 8, 1, 8, device="meta")
+    lens2 = torch.zeros(1, 2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no flash attention kernel"):
+        tfa.flash_forward(q, q, q, lens2, False, 1.0)
+    with pytest.raises(ValueError, match="no flash attention kernel"):
+        tfa.flash_attention(q, q, q)
