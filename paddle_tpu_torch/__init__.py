@@ -19,7 +19,14 @@ Slices ported so far:
   ``Topology`` executor (core/, layers/), ``models.transformer_lm``,
   ``Adam`` / ``Momentum`` (optimizer/), ``Parameters`` and the
   ``SGD`` trainer (trainer/), with hand-written Hopper kernels for
-  flash attention forward, dq and dk/dv (csrc/flash_attention_*.cu).
+  flash attention forward, dq and dk/dv (csrc/flash_attention_*.cu);
+- the sequence slice — the recurrent layers (lstmemory, grumemory,
+  recurrent), sequence pooling, concat, the linear-chain CRF, the
+  recurrent stacks of networks.py, ``models.stacked_lstm_net`` /
+  ``bidi_lstm_net`` (models/text.py), ``models.rnn_crf_tagger``
+  (models/tagger.py) and ``trainer.infer`` / ``Inference``, with
+  hand-written Hopper kernels for the fused LSTM forward and backward
+  and the GRU forward (csrc/lstm_fwd.cu, lstm_bwd.cu, gru_fwd.cu).
 
 Entry points run on the card unless the caller passes
 ``device="cpu"``; with no GPU and no device asked for they raise

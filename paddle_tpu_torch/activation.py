@@ -1,6 +1,6 @@
 """paddle.v2.activation-compatible descriptors — the port of
-``paddle_tpu/activation.py`` (the activations the transformer slice
-uses; each ``name`` keys into ops/activations.py)."""
+``paddle_tpu/activation.py`` (the activations the ported slices use;
+each ``name`` keys into ops/activations.py)."""
 
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ def _make(cls_name, act_name):
     return type(cls_name, (BaseActivation,), {"name": act_name})
 
 
+Tanh = _make("Tanh", "tanh")
+Sigmoid = _make("Sigmoid", "sigmoid")
 Softmax = _make("Softmax", "softmax")
 Relu = _make("Relu", "relu")
 Linear = _make("Linear", "linear")

@@ -44,6 +44,15 @@ zeros = constant(0.0)
 ones = constant(1.0)
 
 
+def smart_normal(fan_in_axis: int = 0) -> Initializer:
+    """The reference's ``initial_smart``: std = 1/sqrt(fan_in)."""
+    def init(gen, shape, dtype=torch.float32):
+        fan_in = shape[fan_in_axis] if shape else 1
+        std = 1.0 / math.sqrt(max(fan_in, 1))
+        return std * torch.randn(shape, generator=gen, dtype=dtype)
+    return init
+
+
 def xavier(fan_in_axes: Sequence[int] = (0,)) -> Initializer:
     """uniform(-sqrt(3/fan_in), sqrt(3/fan_in)) — the reference's default."""
     def init(gen, shape, dtype=torch.float32):

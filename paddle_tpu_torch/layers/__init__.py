@@ -1,6 +1,9 @@
 """The layer DSL — the port of the ``paddle_tpu.layers`` wrappers that
-``transformer_lm`` builds from (data, fc, embedding, addto,
-layer_norm, dot_product_attention, cross_entropy_cost).
+the ported models build from: ``transformer_lm`` (data, fc, embedding,
+addto, layer_norm, dot_product_attention, cross_entropy_cost) and the
+sequence models (lstmemory, grumemory, recurrent, last_seq, first_seq,
+pooling, concat, classification_cost, classification_error, crf,
+crf_decoding).
 
 Each wrapper normalizes its arguments exactly as the JAX package's
 does (activation objects -> names, non-default options only), so the
@@ -14,6 +17,7 @@ from __future__ import annotations
 from typing import Optional
 
 from paddle_tpu_torch import activation as act_mod
+from paddle_tpu_torch import pooling as pool_mod
 from paddle_tpu_torch.core.data_type import InputType
 from paddle_tpu_torch.core.registry import LayerOutput, make_layer
 
@@ -21,6 +25,10 @@ from paddle_tpu_torch.core.registry import LayerOutput, make_layer
 from paddle_tpu_torch.layers import base as _base            # noqa: F401
 from paddle_tpu_torch.layers import cost_layers as _cost     # noqa: F401
 from paddle_tpu_torch.layers import extra_layers as _extra   # noqa: F401
+from paddle_tpu_torch.layers import recurrent_layers as _rec  # noqa: F401
+from paddle_tpu_torch.layers import seq_layers as _seq       # noqa: F401
+from paddle_tpu_torch.layers.crf_layers import (  # noqa: F401
+    crf, crf_decoding, crf_error)
 from paddle_tpu_torch.layers.attention_layers import (  # noqa: F401
     dot_product_attention)
 
@@ -65,6 +73,11 @@ def addto(input, act=None, name: Optional[str] = None,
                       act=act_mod.to_name(act), bias_attr=bias_attr)
 
 
+def concat(input, act=None, name: Optional[str] = None, **kw) -> LayerOutput:
+    return make_layer("concat", name, _listify(input),
+                      act=act_mod.to_name(act))
+
+
 def layer_norm(input, name=None, param_attr=None, **kw) -> LayerOutput:
     return make_layer("layer_norm", name, [input], param_attr=param_attr)
 
@@ -86,3 +99,68 @@ def cross_entropy_cost(input, label, name=None, weight=None,
         opts["label_smoothing"] = label_smoothing
     nodes = [input, label] + ([weight] if weight is not None else [])
     return make_layer("multi-class-cross-entropy", name, nodes, **opts)
+
+
+# ---------------------------------------------------------------------------
+# sequence layers
+
+
+def pooling(input, pooling_type=None, agg_level: int = 0, name=None,
+            max_segments=None, **kw) -> LayerOutput:
+    return make_layer("seqpool", name, [input],
+                      pool_type=pool_mod.to_name(pooling_type),
+                      agg_level=agg_level, max_segments=max_segments)
+
+
+def last_seq(input, name=None, agg_level: int = 0, **kw) -> LayerOutput:
+    return make_layer("seqlastins", name, [input], first=False)
+
+
+def first_seq(input, name=None, agg_level: int = 0, **kw) -> LayerOutput:
+    return make_layer("seqlastins", name, [input], first=True)
+
+
+# ---------------------------------------------------------------------------
+# recurrent layers
+
+
+def lstmemory(input, name=None, reverse: bool = False, act=None,
+              gate_act=None, state_act=None, bias_attr=None, param_attr=None,
+              **kw) -> LayerOutput:
+    return make_layer("lstmemory", name, [input], reverse=reverse,
+                      act=act_mod.to_name(act or "tanh"),
+                      gate_act=act_mod.to_name(gate_act or "sigmoid"),
+                      state_act=act_mod.to_name(state_act or "tanh"),
+                      bias_attr=bias_attr, param_attr=param_attr)
+
+
+def grumemory(input, name=None, reverse: bool = False, act=None,
+              gate_act=None, bias_attr=None, param_attr=None,
+              **kw) -> LayerOutput:
+    return make_layer("gru", name, [input], reverse=reverse,
+                      act=act_mod.to_name(act or "tanh"),
+                      gate_act=act_mod.to_name(gate_act or "sigmoid"),
+                      bias_attr=bias_attr, param_attr=param_attr)
+
+
+def recurrent(input, name=None, reverse: bool = False, act=None,
+              bias_attr=None, param_attr=None, **kw) -> LayerOutput:
+    return make_layer("recurrent", name, [input], reverse=reverse,
+                      act=act_mod.to_name(act or "tanh"),
+                      bias_attr=bias_attr, param_attr=param_attr)
+
+
+# ---------------------------------------------------------------------------
+# classification costs
+
+
+def classification_cost(input, label, weight=None, name=None,
+                        **kw) -> LayerOutput:
+    """CE over softmax probabilities (v2 classification_cost); the input
+    carries a softmax activation already."""
+    nodes = [input, label] + ([weight] if weight is not None else [])
+    return make_layer("multi-class-cross-entropy", name, nodes)
+
+
+def classification_error(input, label, name=None, **kw) -> LayerOutput:
+    return make_layer("classification_error", name, [input, label])

@@ -1,5 +1,5 @@
-"""Core layers — the port of the ``data``, ``fc``, ``embedding`` and
-``addto`` layers of ``paddle_tpu/layers/base.py``.
+"""Core layers — the port of the ``data``, ``fc``, ``embedding``,
+``addto`` and ``concat`` layers of ``paddle_tpu/layers/base.py``.
 
 Conventions (the JAX package's): non-sequence values are
 ``[batch, size]``; sequences are SequenceBatch with data
@@ -190,5 +190,29 @@ class AddtoLayer:
             out = out + _payload(v)        # f32 + bf16 promotes to f32
         if cfg.get("_bias_name"):
             out = out + params[cfg["_bias_name"]].to(out.dtype)
+        out = _apply_act(out, cfg.get("act", "linear"))
+        return ref.with_data(out) if ref is not None else out
+
+
+@register_layer("concat")
+class ConcatLayer:
+    @staticmethod
+    def build(name, cfg, input_metas):
+        size = sum(m.size for m in input_metas)
+        m0 = input_metas[0]
+        seq_level = max(m.seq_level for m in input_metas)
+        # image channel-concat: same spatial dims -> channels add
+        if all(m.height and m.height == m0.height and m.width == m0.width
+               and m.channels for m in input_metas):
+            return LayerMeta(size=size, seq_level=seq_level,
+                             height=m0.height, width=m0.width,
+                             channels=sum(m.channels for m in input_metas)), \
+                [], []
+        return LayerMeta(size=size, seq_level=seq_level), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        ref = next((v for v in inputs if isinstance(v, SequenceBatch)), None)
+        out = torch.cat([_payload(v) for v in inputs], dim=-1)
         out = _apply_act(out, cfg.get("act", "linear"))
         return ref.with_data(out) if ref is not None else out

@@ -1,7 +1,7 @@
-"""Cost layers — the port of the ``multi-class-cross-entropy`` layer of
-``paddle_tpu/layers/cost_layers.py``. A cost layer outputs per-sample
-loss [batch]; a sequence prediction sums its per-position costs over
-the valid positions.
+"""Cost layers — the port of the ``multi-class-cross-entropy`` and
+``classification_error`` layers of ``paddle_tpu/layers/cost_layers.py``.
+A cost layer outputs per-sample loss [batch]; a sequence prediction
+sums its per-position costs over the valid positions.
 """
 
 from __future__ import annotations
@@ -26,6 +26,14 @@ def _flatten_seq_cost(per_pos, seq: SequenceBatch, average: bool = False):
     return tot
 
 
+def _seq_or_sample_cost(fn, pred, label):
+    """Apply a per-row cost either per sample or per (valid) timestep."""
+    if isinstance(pred, SequenceBatch):
+        per_pos = fn(pred.data, _payload(label))
+        return _flatten_seq_cost(per_pos, pred)
+    return fn(_payload(pred), _payload(label))
+
+
 @register_layer("multi-class-cross-entropy")
 class CrossEntropyCost:
     @staticmethod
@@ -42,15 +50,24 @@ class CrossEntropyCost:
                 label_smoothing=cfg.get("label_smoothing", 0.0))
 
         w = inputs[2] if len(inputs) > 2 else None
-        if isinstance(pred, SequenceBatch):
+        if isinstance(pred, SequenceBatch) and isinstance(w, SequenceBatch):
+            # per-token weights, applied before the reduction
             per_pos = fn(pred.data, _payload(label))
-            if isinstance(w, SequenceBatch):
-                # per-token weights, applied before the reduction
-                per_pos = per_pos * w.data.reshape(per_pos.shape)
-                return _flatten_seq_cost(per_pos, pred)
-            out = _flatten_seq_cost(per_pos, pred)
-        else:
-            out = fn(_payload(pred), _payload(label))
+            per_pos = per_pos * w.data.reshape(per_pos.shape)
+            return _flatten_seq_cost(per_pos, pred)
+        out = _seq_or_sample_cost(fn, pred, label)
         if w is not None:
             out = out * _payload(w).reshape(out.shape)
         return out
+
+
+@register_layer("classification_error")
+class ClassificationErrorLayer:
+    @staticmethod
+    def build(name, cfg, input_metas):
+        return LayerMeta(size=1), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        return _seq_or_sample_cost(cost_ops.classification_error,
+                                   inputs[0], inputs[1])

@@ -33,6 +33,9 @@ SOURCES: Dict[str, str] = {
     "paged_window_attention": "paged_window_attention.cu",
     "flash_attention_fwd": "flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "lstm_fwd": "lstm_fwd.cu",
+    "lstm_bwd": "lstm_bwd.cu",
+    "gru_fwd": "gru_fwd.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

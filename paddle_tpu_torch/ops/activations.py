@@ -1,5 +1,6 @@
 """Activation functions — the port of ``paddle_tpu/ops/activations.py``
-(linear, relu, softmax; the rest wait for the slices that use them)."""
+(linear, relu, softmax, sigmoid, tanh; the rest wait for the slices
+that use them)."""
 
 from __future__ import annotations
 
@@ -37,6 +38,16 @@ _REGISTRY["identity"] = linear
 @register("relu")
 def relu(x):
     return torch.relu(x)
+
+
+@register("sigmoid")
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+@register("tanh")
+def tanh(x):
+    return torch.tanh(x)
 
 
 @register("softmax")

@@ -1,5 +1,5 @@
-"""Cost functions — the port of the cross-entropy part of
-``paddle_tpu/ops/cost.py``. Costs return per-sample values; the
+"""Cost functions — the port of the cross-entropy and classification
+error parts of ``paddle_tpu/ops/cost.py``. Costs return per-sample values; the
 trainer averages.
 """
 
@@ -66,3 +66,10 @@ def cross_entropy(probs_or_logits: torch.Tensor, labels: torch.Tensor, *,
             "only the label column)")
     p = _gather_label(probs_or_logits, labels)
     return -torch.log(torch.clamp(p.float(), min=eps))
+
+
+def classification_error(probs: torch.Tensor,
+                         labels: torch.Tensor) -> torch.Tensor:
+    """Per-sample 0/1 error (ClassificationErrorLayer / evaluator)."""
+    pred = torch.argmax(probs, dim=-1)
+    return (pred != labels.to(pred.dtype)).to(torch.float32)

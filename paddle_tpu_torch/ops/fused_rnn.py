@@ -1,0 +1,467 @@
+"""Fused LSTM / GRU sequence ops — the counterpart of
+``paddle_tpu/ops/pallas_rnn.py``.
+
+- :func:`lstm_reference`, :func:`lstm_backward_reference` and
+  :func:`gru_reference`: the plain versions of what the kernels compute
+  (the JAX package's ``_lstm_ref``, the body of ``_lstm_bwd_kernel``
+  and ``_gru_ref``), with the kernels' rounding points: the product
+  inputs are rounded to the dtype of ``w`` (float32 or bfloat16), the
+  streams are stored in it, the carries and gate math are float32.
+  They are the CPU path and the oracles the kernels are held against.
+- :func:`lstm_forward`, :func:`lstm_backward`, :func:`gru_forward`: one
+  wrapper per kernel. A tensor on the CPU takes the plain version; a
+  tensor on a CUDA card launches the hand-written Hopper kernel
+  (``csrc/lstm_fwd.cu`` replaces ``_lstm_kernel``, ``csrc/lstm_bwd.cu``
+  ``_lstm_bwd_kernel``, ``csrc/gru_fwd.cu`` ``_gru_kernel``) or raises.
+  Each launch adds one to the wrapper's ``launches``
+  (``lstm_forward.res_launches`` counts the launches that also wrote
+  the training residuals).
+- :func:`lstm_sequence`: the differentiable LSTM. When a gradient is
+  needed, a ``torch.autograd.Function`` (the JAX package's
+  ``custom_vjp``) runs the forward with residuals and its backward runs
+  the reverse-time kernel, then forms dW, dbias and dpeep as large
+  contractions outside it; otherwise the forward runs without
+  residuals.
+- :func:`gru_sequence`: with no gradient needed the GRU kernel; with
+  one, the plain float32 scan under autograd, as the JAX package's
+  ``_gru_fwd`` trains through ``jax.vjp(_gru_ref)``.
+- :func:`kernel_ok`: the dispatch gate of ``ops/recurrent.py``.
+
+Layouts are the layer's: x4 ``[b, T, 4h]`` (gates ``[i, f, c~, o]``),
+x3 ``[b, T, 3h]`` (``[z, r, c~]``), w ``[h, 4h]`` / ``[h, 3h]``, bias
+``[4h]`` / ``[3h]``, peep ``[3h]`` (``[i, f, o]``), lengths ``[b]``;
+streams come back batch-major ``[b, T, .]`` (the TPU kernels' time-major
+blocks are a grid artefact).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from paddle_tpu_torch.ops.linear import compute_dtype
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' tiling (csrc/rnn_common.cuh) and the sm_90 opt-in limit
+_KC, _ROWS, _LDS = 32, 128, 132
+_MAX_UNITS = 16
+_SM90_SMEM = 232448
+
+
+# ------------------------------------------------------------ plain versions
+def lstm_reference(x4: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
+                   bias: torch.Tensor, peep: torch.Tensor,
+                   save_res: bool = False):
+    """The LSTM forward, plain version. ``x4`` [b, T, 4h] and ``w`` [h, 4h]
+    hold the product dtype's values; returns (out [b, T, h] in ``w.dtype``,
+    hT, cT [b, h] float32), plus (cseq [b, T, h], gates [b, T, 4h]) in
+    ``w.dtype`` with ``save_res``. Differentiable by autograd."""
+    mxu = w.dtype
+    b, T, four_h = x4.shape
+    h = four_h // 4
+    xf, wf = x4.float(), w.float()
+    bias = bias.float()
+    pi, pf, po = peep.float().reshape(3, h)
+    hh = xf.new_zeros((b, h))
+    cc = xf.new_zeros((b, h))
+    outs, cs, gs = [], [], []
+    for t in range(T):
+        z = xf[:, t] + hh.to(mxu).float() @ wf + bias
+        zi, zf, zc, zo = z.split(h, dim=-1)
+        i = torch.sigmoid(zi + pi * cc)
+        f = torch.sigmoid(zf + pf * cc)
+        cand = torch.tanh(zc)
+        c_new = f * cc + i * cand
+        o = torch.sigmoid(zo + po * c_new)
+        h_new = o * torch.tanh(c_new)
+        valid = (lens > t)[:, None]
+        hh = torch.where(valid, h_new, hh)
+        cc = torch.where(valid, c_new, cc)
+        outs.append(torch.where(valid, h_new, torch.zeros_like(h_new))
+                    .to(mxu))
+        if save_res:
+            cs.append(cc.to(mxu))
+            gs.append(torch.cat([i, f, cand, o], dim=-1).to(mxu))
+    out = torch.stack(outs, dim=1)
+    if save_res:
+        return out, hh, cc, torch.stack(cs, dim=1), torch.stack(gs, dim=1)
+    return out, hh, cc
+
+
+def lstm_backward_reference(w: torch.Tensor, peep: torch.Tensor,
+                            lens: torch.Tensor, gates: torch.Tensor,
+                            cseq: torch.Tensor, d_out: torch.Tensor,
+                            dhT: torch.Tensor, dcT: torch.Tensor
+                            ) -> torch.Tensor:
+    """dz [b, T, 4h] in ``w.dtype``: the reverse-time recurrence of
+    ``_lstm_bwd_kernel``, plain version."""
+    mxu = w.dtype
+    b, T, four_h = gates.shape
+    h = four_h // 4
+    wt = w.float().t()
+    pi, pf, po = peep.float().reshape(3, h)
+    dh, dc = dhT.float(), dcT.float()
+    dz = gates.new_empty((b, T, four_h), dtype=mxu)
+    for t in reversed(range(T)):
+        i, f, cand, o = gates[:, t].float().split(h, dim=-1)
+        c_t = cseq[:, t].float()
+        c_prev = cseq[:, t - 1].float() if t > 0 else torch.zeros_like(c_t)
+        valid = (lens > t)[:, None]
+        dh_t = dh + torch.where(valid, d_out[:, t].float(),
+                                torch.zeros_like(dh))
+        tc = torch.tanh(c_t)
+        dzo = dh_t * tc * o * (1.0 - o)
+        dc_t = dc + dh_t * o * (1.0 - tc * tc) + dzo * po
+        dzi = dc_t * cand * i * (1.0 - i)
+        dzf = dc_t * c_prev * f * (1.0 - f)
+        dzc = dc_t * i * (1.0 - cand * cand)
+        dz_t = torch.cat([dzi, dzf, dzc, dzo], dim=-1)
+        dz_t = torch.where(valid, dz_t, torch.zeros_like(dz_t)).to(mxu)
+        dh = torch.where(valid, dz_t.float() @ wt, dh)
+        dc = torch.where(valid, dc_t * f + dzi * pi + dzf * pf, dc)
+        dz[:, t] = dz_t
+    return dz
+
+
+def gru_reference(x3: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
+                  bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The GRU forward, plain version: (out [b, T, h], hT [b, h]), both
+    float32; the two product inputs are rounded to ``w.dtype``.
+    Differentiable by autograd."""
+    mxu = w.dtype
+    b, T, three_h = x3.shape
+    h = three_h // 3
+    xf, wf = x3.float(), w.float()
+    bias = bias.float()
+    hh = xf.new_zeros((b, h))
+    outs = []
+    for t in range(T):
+        x_t = xf[:, t]
+        zr = x_t[:, :2 * h] + hh.to(mxu).float() @ wf[:, :2 * h] + \
+            bias[:2 * h]
+        z = torch.sigmoid(zr[:, :h])
+        r = torch.sigmoid(zr[:, h:])
+        cand = x_t[:, 2 * h:] + (r * hh).to(mxu).float() @ wf[:, 2 * h:] + \
+            bias[2 * h:]
+        h_new = (1.0 - z) * hh + z * torch.tanh(cand)
+        valid = (lens > t)[:, None]
+        hh = torch.where(valid, h_new, hh)
+        outs.append(torch.where(valid, h_new, torch.zeros_like(h_new)))
+    return torch.stack(outs, dim=1), hh
+
+
+# ------------------------------------------------------------ the kernels
+def _units(h: int, device: torch.device) -> int:
+    """Hidden units a block owns: one block per SM at most."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return -(-h // sms)
+
+
+def _smem_bytes(k: int, n_w: int, n_tile: int) -> int:
+    """rnn::smem_floats * 4: the resident slice [round_up(k, 32), n_w]
+    plus the staging area (or the [128, n_tile] product tile)."""
+    kpad = -(-k // _KC) * _KC
+    return 4 * (kpad * n_w + max(_KC * _LDS, _ROWS * n_tile))
+
+
+def kernel_smem(h: int, units: int, gates: int) -> int:
+    """Shared memory of the kernels of one cell type: the LSTM forward
+    and backward (gates 4) or the GRU forward (gates 3)."""
+    if gates == 4:
+        return max(_smem_bytes(h, 4 * units, 4 * units),
+                   _smem_bytes(4 * h, units + (units & 1), 0))
+    return _smem_bytes(h, 3 * units, 2 * units)
+
+
+def kernel_ok(b: int, h: int, act: str = "tanh", gate_act: str = "sigmoid",
+              state_act: str = "tanh", gates: int = 4,
+              device=None) -> bool:
+    """Whether ``ops/recurrent.py`` sends a forward-direction scan to the
+    kernels (the port's ``pallas_ok``). Decided before any launch:
+
+    - a CUDA tensor on an sm_90 card (the kernels are built for sm_90a);
+    - the default activations (tanh, sigmoid gates, tanh state);
+    - the persistent design fits: with U = ceil(h / SMs) hidden units a
+      block (one block per SM, all resident at once), U <= 16 and the
+      block's resident weight slice plus its staging area fit the
+      232,448 bytes of shared memory a block may use — the LSTM needs
+      4 * (32 * ceil(h / 32) * 4U + max(4224, 512U)) bytes (its
+      backward 4 * (32 * ceil(4h / 32) * (U rounded up to even) +
+      4224)), the GRU
+      4 * (32 * ceil(h / 32) * 3U + max(4224, 256U)). On an H100 SXM
+      (132 SMs) that admits the LSTM up to h = 1312 and the GRU up to
+      h = 1472, in float32 and bfloat16 alike. Any batch size.
+    """
+    device = torch.device(device) if device is not None else None
+    if device is None or device.type != "cuda":
+        return False
+    if (act, gate_act, state_act) != ("tanh", "sigmoid", "tanh") or \
+            b < 1 or h < 1:
+        return False
+    if torch.cuda.get_device_capability(device) != (9, 0):
+        return False
+    units = _units(h, device)
+    return units <= _MAX_UNITS and \
+        kernel_smem(h, units, gates) <= _SM90_SMEM
+
+
+def _fn(lib: str, sym: str, n_ptrs: int):
+    from paddle_tpu_torch.ops import _build
+    fn = getattr(_build.load(lib), sym)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + \
+            [ctypes.c_void_p]
+    return fn
+
+
+def _cuda_or_raise(x: torch.Tensor, h: int, b: int, gates: int):
+    if x.device.type != "cuda":
+        raise ValueError(f"no recurrent kernel for device {x.device}")
+    if not kernel_ok(b, h, gates=gates, device=x.device):
+        raise ValueError(f"the recurrent kernels do not take b={b}, h={h} "
+                         f"on {torch.cuda.get_device_name(x.device)} "
+                         "(kernel_ok)")
+
+
+def _check(named, dev, shapes_dtypes):
+    for name, t in named.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        shape, dtype = shapes_dtypes[name]
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _barrier(dev):
+    """The kernels' grid-barrier arrival counter, zeroed for one launch
+    (the caller keeps it alive until the launch is enqueued)."""
+    return torch.zeros(1, dtype=torch.int32, device=dev)
+
+
+def lstm_forward(x4: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
+                 bias: torch.Tensor, peep: torch.Tensor,
+                 save_res: bool = False):
+    """The LSTM forward kernel: (out, hT, cT) or, with ``save_res``,
+    (out, hT, cT, cseq, gates) — see :func:`lstm_reference`. ``x4`` and
+    ``w`` share the product dtype; bias, peep float32; lens int32 [b].
+    CPU: the plain version; CUDA: the kernel."""
+    if x4.device.type == "cpu":
+        return lstm_reference(x4, lens, w, bias, peep, save_res)
+    b, T, four_h = x4.shape
+    h = four_h // 4
+    _cuda_or_raise(x4, h, b, 4)
+    dt = w.dtype
+    if dt not in _DTYPE_CODES:
+        raise TypeError(f"the LSTM kernel takes float32 or bfloat16, got {dt}")
+    _check({"x4": x4, "w": w, "bias": bias, "peep": peep, "lens": lens},
+           x4.device,
+           {"x4": ((b, T, four_h), dt), "w": ((h, four_h), dt),
+            "bias": ((four_h,), torch.float32),
+            "peep": ((3 * h,), torch.float32),
+            "lens": ((b,), torch.int32)})
+    dev = x4.device
+    out = torch.empty((b, T, h), dtype=dt, device=dev)
+    cseq = torch.empty((b, T, h), dtype=dt, device=dev) if save_res else None
+    gates = torch.empty((b, T, four_h), dtype=dt, device=dev) \
+        if save_res else None
+    hT = torch.empty((b, h), dtype=torch.float32, device=dev)
+    cT = torch.empty((b, h), dtype=torch.float32, device=dev)
+    hbuf = torch.zeros((2, b, h), dtype=torch.float32, device=dev)
+    bar = _barrier(dev)
+    fn = _fn("lstm_fwd", "pt_lstm_fwd", 12)
+    err = fn(x4.data_ptr(), w.data_ptr(), bias.data_ptr(), peep.data_ptr(),
+             lens.data_ptr(), out.data_ptr(),
+             cseq.data_ptr() if save_res else None,
+             gates.data_ptr() if save_res else None, hT.data_ptr(),
+             cT.data_ptr(), hbuf.data_ptr(), bar.data_ptr(), b, T, h,
+             _units(h, dev), _DTYPE_CODES[dt], _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"LSTM forward launch failed: CUDA error {err}")
+    lstm_forward.launches += 1
+    if save_res:
+        lstm_forward.res_launches += 1
+        return out, hT, cT, cseq, gates
+    return out, hT, cT
+
+
+def lstm_backward(w: torch.Tensor, peep: torch.Tensor, lens: torch.Tensor,
+                  gates: torch.Tensor, cseq: torch.Tensor,
+                  d_out: torch.Tensor, dhT: torch.Tensor,
+                  dcT: torch.Tensor) -> torch.Tensor:
+    """The LSTM backward kernel: dz [b, T, 4h] in ``w.dtype`` from the
+    forward's residuals and the cotangents (d_out in ``w.dtype``, dhT /
+    dcT float32). CPU: the plain version; CUDA: the kernel."""
+    if gates.device.type == "cpu":
+        return lstm_backward_reference(w, peep, lens, gates, cseq, d_out,
+                                       dhT, dcT)
+    b, T, four_h = gates.shape
+    h = four_h // 4
+    _cuda_or_raise(gates, h, b, 4)
+    dt = w.dtype
+    if dt not in _DTYPE_CODES:
+        raise TypeError(f"the LSTM kernel takes float32 or bfloat16, got {dt}")
+    _check({"w": w, "peep": peep, "lens": lens, "gates": gates, "cseq": cseq,
+            "d_out": d_out, "dhT": dhT, "dcT": dcT}, gates.device,
+           {"w": ((h, four_h), dt), "peep": ((3 * h,), torch.float32),
+            "lens": ((b,), torch.int32), "gates": ((b, T, four_h), dt),
+            "cseq": ((b, T, h), dt), "d_out": ((b, T, h), dt),
+            "dhT": ((b, h), torch.float32), "dcT": ((b, h), torch.float32)})
+    dev = gates.device
+    dz = torch.empty((b, T, four_h), dtype=dt, device=dev)
+    dh = torch.empty((b, h), dtype=torch.float32, device=dev)
+    dc = torch.empty((b, h), dtype=torch.float32, device=dev)
+    bar = _barrier(dev)
+    fn = _fn("lstm_bwd", "pt_lstm_bwd", 12)
+    err = fn(w.data_ptr(), peep.data_ptr(), lens.data_ptr(), gates.data_ptr(),
+             cseq.data_ptr(), d_out.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
+             dz.data_ptr(), dh.data_ptr(), dc.data_ptr(), bar.data_ptr(), b, T,
+             h, _units(h, dev), _DTYPE_CODES[dt], _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"LSTM backward launch failed: CUDA error {err}")
+    lstm_backward.launches += 1
+    return dz
+
+
+def gru_forward(x3: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
+                bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The GRU forward kernel: (out [b, T, h], hT [b, h]) float32; ``x3``
+    and ``w`` share the product dtype, bias float32, lens int32 [b].
+    CPU: the plain version; CUDA: the kernel."""
+    if x3.device.type == "cpu":
+        return gru_reference(x3, lens, w, bias)
+    b, T, three_h = x3.shape
+    h = three_h // 3
+    _cuda_or_raise(x3, h, b, 3)
+    dt = w.dtype
+    if dt not in _DTYPE_CODES:
+        raise TypeError(f"the GRU kernel takes float32 or bfloat16, got {dt}")
+    _check({"x3": x3, "w": w, "bias": bias, "lens": lens}, x3.device,
+           {"x3": ((b, T, three_h), dt), "w": ((h, three_h), dt),
+            "bias": ((three_h,), torch.float32),
+            "lens": ((b,), torch.int32)})
+    dev = x3.device
+    out = torch.empty((b, T, h), dtype=torch.float32, device=dev)
+    hT = torch.empty((b, h), dtype=torch.float32, device=dev)
+    hbuf = torch.zeros((2, b, h), dtype=torch.float32, device=dev)
+    zbuf = torch.empty((b, h), dtype=torch.float32, device=dev)
+    rhbuf = torch.empty((b, h), dtype=torch.float32, device=dev)
+    bar = _barrier(dev)
+    fn = _fn("gru_fwd", "pt_gru_fwd", 10)
+    err = fn(x3.data_ptr(), w.data_ptr(), bias.data_ptr(), lens.data_ptr(),
+             out.data_ptr(), hT.data_ptr(), hbuf.data_ptr(), zbuf.data_ptr(),
+             rhbuf.data_ptr(), bar.data_ptr(), b, T, h, _units(h, dev),
+             _DTYPE_CODES[dt], _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"GRU forward launch failed: CUDA error {err}")
+    gru_forward.launches += 1
+    return out, hT
+
+
+lstm_forward.launches = 0
+lstm_forward.res_launches = 0
+lstm_backward.launches = 0
+gru_forward.launches = 0
+
+
+# ------------------------------------------------------------ public ops
+class _LSTMFn(torch.autograd.Function):
+    """Forward with residuals, reverse-time backward kernel, then the
+    parameter gradients as large contractions (``_lstm_fwd`` /
+    ``_lstm_bwd``). dW comes out of one matmul over all (t, b) in the
+    product dtype, like every bf16 matmul of the port."""
+
+    @staticmethod
+    def forward(ctx, x4, lens, w, bias, peep):
+        mxu = compute_dtype()
+        wm = w.to(mxu).contiguous()
+        out, hT, cT, cseq, gates = lstm_forward(
+            x4.to(mxu).contiguous(), lens, wm, bias.contiguous(),
+            peep.contiguous(), save_res=True)
+        ctx.save_for_backward(lens, wm, peep, cseq, gates, out)
+        ctx.dtypes = (x4.dtype, w.dtype)
+        return out, hT, cT
+
+    @staticmethod
+    def backward(ctx, d_out, d_hT, d_cT):
+        lens, wm, peep, cseq, gates, out = ctx.saved_tensors
+        b, T, h = out.shape
+        d_out = torch.zeros_like(out) if d_out is None else \
+            d_out.to(wm.dtype).contiguous()
+        d_hT = out.new_zeros((b, h), dtype=torch.float32) if d_hT is None \
+            else d_hT.float().contiguous()
+        d_cT = out.new_zeros((b, h), dtype=torch.float32) if d_cT is None \
+            else d_cT.float().contiguous()
+        dz = lstm_backward(wm, peep.contiguous(), lens, gates, cseq, d_out,
+                           d_hT, d_cT)
+        hprev = torch.cat([out.new_zeros((b, 1, h)), out[:, :-1]], dim=1)
+        dw = torch.matmul(hprev.reshape(b * T, h).t(),
+                          dz.reshape(b * T, 4 * h))
+        dbias = dz.sum(dim=(0, 1), dtype=torch.float32)
+        cprev = torch.cat([cseq.new_zeros((b, 1, h)), cseq[:, :-1]], dim=1)
+        dpeep = torch.cat([
+            (dz[..., :h] * cprev).sum(dim=(0, 1), dtype=torch.float32),
+            (dz[..., h:2 * h] * cprev).sum(dim=(0, 1), dtype=torch.float32),
+            (dz[..., 3 * h:] * cseq).sum(dim=(0, 1), dtype=torch.float32)])
+        x4_dtype, w_dtype = ctx.dtypes
+        return dz.to(x4_dtype), None, dw.to(w_dtype), dbias, dpeep
+
+
+def _lens(lengths: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return lengths.to(device=x.device, dtype=torch.int32) \
+        .reshape(x.shape[0]).contiguous()
+
+
+def lstm_sequence(x4: torch.Tensor, lengths: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor],
+                  peep: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x4 [b, T, 4h] -> (h_seq [b, T, h] in the compute dtype, hT, cT
+    [b, h] float32). Differentiable: fused kernels both directions on
+    the card, their plain versions on the CPU."""
+    four_h = x4.shape[-1]
+    h = four_h // 4
+    lens = _lens(lengths, x4)
+    b_arr = (bias if bias is not None else
+             x4.new_zeros((four_h,), dtype=torch.float32)).reshape(four_h) \
+        .float()
+    p_arr = (peep if peep is not None else
+             x4.new_zeros((3 * h,), dtype=torch.float32)).reshape(3 * h) \
+        .float()
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x4, w, b_arr, p_arr)):
+        return _LSTMFn.apply(x4, lens, w, b_arr, p_arr)
+    mxu = compute_dtype()
+    return lstm_forward(x4.to(mxu).contiguous(), lens,
+                        w.to(mxu).contiguous(), b_arr.contiguous(),
+                        p_arr.contiguous())
+
+
+def gru_sequence(x3: torch.Tensor, lengths: torch.Tensor, w: torch.Tensor,
+                 bias: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x3 [b, T, 3h], w [h, 3h] (gates [h, 2h] | candidate [h, h]) ->
+    (h_seq [b, T, h], hT [b, h]), float32. With no gradient needed: the
+    GRU kernel (inputs rounded to the compute dtype); with one: the
+    plain float32 scan under autograd."""
+    three_h = x3.shape[-1]
+    lens = _lens(lengths, x3)
+    b_arr = (bias if bias is not None else
+             x3.new_zeros((three_h,), dtype=torch.float32)) \
+        .reshape(three_h).float()
+    x3f, wf = x3.float(), w.float()
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x3, w, b_arr)):
+        return gru_reference(x3f, lens, wf, b_arr)
+    mxu = compute_dtype()
+    return gru_forward(x3f.to(mxu).contiguous(), lens,
+                       wf.to(mxu).contiguous(), b_arr.contiguous())

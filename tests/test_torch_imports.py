@@ -39,7 +39,11 @@ def test_every_module_imports_without_jax_or_paddle_tpu():
               "core.topology", "core.registry", "layers.base",
               "layers.attention_layers", "models.transformer",
               "optimizer.optimizers", "trainer.trainer",
-              "trainer.parameters", "trainer.data_feeder"):
+              "trainer.parameters", "trainer.data_feeder", "pooling",
+              "networks", "ops.fused_rnn", "ops.recurrent",
+              "ops.sequence_ops", "layers.recurrent_layers",
+              "layers.seq_layers", "layers.crf_layers", "models.text",
+              "models.tagger", "trainer.inference"):
         assert f"paddle_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

@@ -1,0 +1,330 @@
+"""Port parity: the recurrent ops of paddle_tpu_torch (ops/fused_rnn.py,
+ops/recurrent.py) against paddle_tpu's on the CPU.
+
+Inputs are made with numpy from a seed and go through both packages:
+
+- the fused sequence ops — the port's ``lstm_sequence`` /
+  ``gru_sequence`` (on the CPU: the kernels' plain versions, and for
+  the LSTM the same autograd Function the card runs) against
+  ``pallas_rnn.lstm_sequence`` / ``gru_sequence`` with
+  ``interpret=True`` (the Pallas kernels and their custom_vjp): forward,
+  final state and ``jax.vjp`` gradients, with ragged lengths, with and
+  without bias and peepholes;
+- the masked scans — ``lstm_scan`` / ``gru_scan`` / ``rnn_scan``, forward
+  and reverse, with ``h0`` / ``c0`` — against the JAX package's.
+
+Tolerances: float32 forwards at the JAX package's own kernel-vs-scan
+bound (rtol 1e-5, atol 1e-6, tests/test_pallas_rnn.py:33), gradients at
+its gradient bound (rtol 1e-4, atol 1e-5, :70); bfloat16 compute at atol
+2e-2 (both round the product inputs and streams to bf16, and sum in
+another order). The JAX package's scans refuse bfloat16 compute (their
+carry changes dtype, ROADMAP.md queue C), so the scans are compared in
+float32 only.
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import paddle_tpu as paddle
+import torch
+from paddle_tpu.core.sequence import SequenceBatch as JSeq
+from paddle_tpu.ops import pallas_rnn, recurrent as jrec
+
+from paddle_tpu_torch import config as tconfig
+from paddle_tpu_torch.core.sequence import SequenceBatch as TSeq
+from paddle_tpu_torch.ops import fused_rnn, recurrent as trec
+
+FWD = dict(rtol=1e-5, atol=1e-6)
+GRAD = dict(rtol=1e-4, atol=1e-5)
+BF16_ATOL = 2e-2
+
+
+@pytest.fixture
+def compute_dtype():
+    """Sets both packages' compute dtype; float32 again afterwards."""
+    def set_(name):
+        paddle.init(use_tpu=False, seed=0, compute_dtype=name)
+        tconfig.init(seed=0, compute_dtype=name)
+    yield set_
+    set_("float32")
+
+
+def _inputs(gates, h=6, b=4, t=12, seed=0):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(b, t, gates * h) * 0.5).astype(np.float32)
+    lens = rng.randint(3, t + 1, b).astype(np.int32)
+    lens[0] = t
+    w = (rng.randn(h, gates * h) * 0.3).astype(np.float32)
+    bias = (rng.randn(gates * h) * 0.1).astype(np.float32)
+    peep = (rng.randn(3 * h) * 0.1).astype(np.float32)
+    return x, lens, w, bias, peep
+
+
+def _close(got, want, tol):
+    if isinstance(got, torch.Tensor):
+        got = got.detach().float().numpy()
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), **tol)
+
+
+def _t(a):
+    return None if a is None else torch.tensor(a, requires_grad=True)
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _lstm_pair(x, lens, w, bias, peep, cts):
+    """(outs, grads) of the fused LSTM in both packages for the
+    cotangents ``cts`` = (d_out, d_hT, d_cT)."""
+    args = [a for a in (x, w, bias, peep) if a is not None]
+
+    def jf(*a):
+        it = iter(a)
+        xx, ww = next(it), next(it)
+        bb = next(it) if bias is not None else None
+        pp = next(it) if peep is not None else None
+        return pallas_rnn.lstm_sequence(xx, jnp.asarray(lens), ww, bb, pp,
+                                        interpret=True)
+
+    jouts, vjp = jax.vjp(jf, *[jnp.asarray(a) for a in args])
+    jgrads = vjp(tuple(jnp.asarray(c).astype(o.dtype)
+                       for c, o in zip(cts, jouts)))
+    leaves = [torch.tensor(a, requires_grad=True) for a in args]
+    it = iter(leaves)
+    tx, tw = next(it), next(it)
+    tb = next(it) if bias is not None else None
+    tp = next(it) if peep is not None else None
+    touts = fused_rnn.lstm_sequence(tx, torch.tensor(lens), tw, tb, tp)
+    loss = sum((o.float() * torch.tensor(c)).sum()
+               for o, c in zip(touts, cts))
+    tgrads = torch.autograd.grad(loss, leaves)
+    return jouts, touts, jgrads, tgrads
+
+
+@pytest.mark.parametrize("with_bias,with_peep", [(True, True), (True, False),
+                                                 (False, False)])
+def test_lstm_sequence_matches_pallas_float32(with_bias, with_peep):
+    x, lens, w, bias, peep = _inputs(4, seed=1)
+    rng = np.random.RandomState(2)
+    cts = [rng.randn(4, 12, 6).astype(np.float32),
+           rng.randn(4, 6).astype(np.float32),
+           rng.randn(4, 6).astype(np.float32)]
+    jouts, touts, jg, tg = _lstm_pair(x, lens, w,
+                                      bias if with_bias else None,
+                                      peep if with_peep else None, cts)
+    for j, t in zip(jouts, touts):
+        _close(t.detach(), j, FWD)
+    for j, t in zip(jg, tg):
+        _close(t, j, GRAD)
+    # the padded tail of every row is zero, the final state the last
+    # valid step's
+    out = touts[0].detach().numpy()
+    for r, L in enumerate(lens):
+        assert not out[r, L:].any()
+        np.testing.assert_array_equal(out[r, L - 1], touts[1][r].detach())
+
+
+def test_lstm_sequence_matches_pallas_bfloat16(compute_dtype):
+    compute_dtype("bfloat16")
+    x, lens, w, bias, peep = _inputs(4, h=16, seed=3)
+    rng = np.random.RandomState(4)
+    cts = [rng.randn(4, 12, 16).astype(np.float32),
+           rng.randn(4, 16).astype(np.float32),
+           rng.randn(4, 16).astype(np.float32)]
+    jouts, touts, jg, tg = _lstm_pair(x, lens, w, bias, peep, cts)
+    assert touts[0].dtype == torch.bfloat16
+    assert touts[1].dtype == torch.float32
+    for j, t in zip(jouts, touts):
+        _close(t.detach(), j, dict(rtol=0, atol=BF16_ATOL))
+    for j, t in zip(jg, tg):
+        _close(t, j, dict(rtol=0, atol=BF16_ATOL))
+
+
+def test_lstm_no_grad_call_takes_the_no_residual_forward():
+    """Without a gradient the op runs the forward once, without
+    residuals, and gives the same values as the differentiable call."""
+    x, lens, w, bias, peep = _inputs(4, seed=5)
+    with torch.no_grad():
+        plain = fused_rnn.lstm_sequence(torch.tensor(x), torch.tensor(lens),
+                                        torch.tensor(w), torch.tensor(bias),
+                                        torch.tensor(peep))
+    diff = fused_rnn.lstm_sequence(_t(x), torch.tensor(lens), _t(w),
+                                   _t(bias), _t(peep))
+    for a, b_ in zip(plain, diff):
+        assert not a.requires_grad
+        torch.testing.assert_close(a, b_.detach(), rtol=0, atol=0)
+
+
+def test_lstm_backward_reference_is_the_pallas_backward():
+    """dz of the plain backward (the kernel's oracle) is the JAX
+    package's dx4, from the same residuals."""
+    x, lens, w, bias, peep = _inputs(4, seed=6)
+    tl = torch.tensor(lens)
+    out, hT, cT, cseq, gates = fused_rnn.lstm_reference(
+        torch.tensor(x), tl, torch.tensor(w), torch.tensor(bias),
+        torch.tensor(peep), save_res=True)
+    rng = np.random.RandomState(7)
+    d_out = rng.randn(*out.shape).astype(np.float32)
+    dhT, dcT = (rng.randn(*hT.shape).astype(np.float32) for _ in range(2))
+    dz = fused_rnn.lstm_backward(torch.tensor(w), torch.tensor(peep), tl,
+                                 gates, cseq, torch.tensor(d_out),
+                                 torch.tensor(dhT), torch.tensor(dcT))
+    _, vjp = jax.vjp(lambda xx: pallas_rnn.lstm_sequence(
+        xx, jnp.asarray(lens), jnp.asarray(w), jnp.asarray(bias),
+        jnp.asarray(peep), interpret=True), jnp.asarray(x))
+    (dx4,) = vjp((jnp.asarray(d_out), jnp.asarray(dhT), jnp.asarray(dcT)))
+    _close(dz, dx4, GRAD)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_gru_sequence_matches_pallas_float32(with_bias):
+    x, lens, w, bias, _ = _inputs(3, seed=8)
+    bias = bias if with_bias else None
+    jout, jhT = pallas_rnn.gru_sequence(jnp.asarray(x), jnp.asarray(lens),
+                                        jnp.asarray(w), _j(bias),
+                                        interpret=True)
+    with torch.no_grad():
+        tout, thT = fused_rnn.gru_sequence(torch.tensor(x),
+                                           torch.tensor(lens),
+                                           torch.tensor(w),
+                                           None if bias is None
+                                           else torch.tensor(bias))
+    _close(tout, jout, FWD)
+    _close(thT, jhT, FWD)
+    # gradients: the plain float32 scan under autograd on both sides
+    rng = np.random.RandomState(9)
+    cts = (rng.randn(*tout.shape).astype(np.float32),
+           rng.randn(*thT.shape).astype(np.float32))
+    args = [a for a in (x, w, bias) if a is not None]
+    _, vjp = jax.vjp(lambda *a: pallas_rnn.gru_sequence(
+        a[0], jnp.asarray(lens), a[1], a[2] if len(a) > 2 else None,
+        interpret=True), *[jnp.asarray(a) for a in args])
+    jg = vjp(tuple(jnp.asarray(c) for c in cts))
+    leaves = [torch.tensor(a, requires_grad=True) for a in args]
+    touts = fused_rnn.gru_sequence(leaves[0], torch.tensor(lens), leaves[1],
+                                   leaves[2] if len(leaves) > 2 else None)
+    tg = torch.autograd.grad(sum((o * torch.tensor(c)).sum()
+                                 for o, c in zip(touts, cts)), leaves)
+    for j, t in zip(jg, tg):
+        _close(t, j, GRAD)
+
+
+def test_gru_sequence_matches_pallas_bfloat16(compute_dtype):
+    compute_dtype("bfloat16")
+    x, lens, w, bias, _ = _inputs(3, h=16, seed=10)
+    jout, jhT = pallas_rnn.gru_sequence(jnp.asarray(x), jnp.asarray(lens),
+                                        jnp.asarray(w), jnp.asarray(bias),
+                                        interpret=True)
+    with torch.no_grad():
+        tout, thT = fused_rnn.gru_sequence(torch.tensor(x),
+                                           torch.tensor(lens),
+                                           torch.tensor(w),
+                                           torch.tensor(bias))
+    assert tout.dtype == torch.float32
+    _close(tout, jout, dict(rtol=0, atol=BF16_ATOL))
+    _close(thT, jhT, dict(rtol=0, atol=BF16_ATOL))
+
+
+def _scan_case(kind, reverse, with_state, seed):
+    gates = {"lstm": 4, "gru": 3, "rnn": 1}[kind]
+    x, lens, w, bias, peep = _inputs(gates, seed=seed)
+    w = w[:, :gates * 6] if kind != "rnn" else w[:, :6]
+    rng = np.random.RandomState(seed + 1)
+    h0 = rng.randn(4, 6).astype(np.float32) if with_state else None
+    c0 = rng.randn(4, 6).astype(np.float32) if with_state else None
+    return x, lens, w, bias, peep, h0, c0
+
+
+def _scan(pkg, kind, x, lens, w, bias, peep, h0, c0, reverse):
+    seq_cls = JSeq if pkg is jrec else TSeq
+    arr = jnp.asarray if pkg is jrec else torch.as_tensor
+    seq = seq_cls(x, arr(lens))
+    if kind == "lstm":
+        out, (hT, cT) = pkg.lstm_scan(seq, w, bias, peep, reverse=reverse,
+                                      h0=h0, c0=c0, return_state=True)
+        return out.data, hT, cT
+    if kind == "gru":
+        out, hT = pkg.gru_scan(seq, w, bias, reverse=reverse, h0=h0,
+                               return_state=True)
+        return out.data, hT
+    return (pkg.rnn_scan(seq, w, bias, reverse=reverse, h0=h0).data,)
+
+
+@pytest.mark.parametrize("kind", ["lstm", "gru", "rnn"])
+@pytest.mark.parametrize("reverse,with_state", [(False, False), (True, False),
+                                                (False, True), (True, True)])
+def test_masked_scans_match_jax(kind, reverse, with_state):
+    x, lens, w, bias, peep, h0, c0 = _scan_case(kind, reverse, with_state,
+                                                seed=11)
+    if kind == "gru":
+        bias = bias[:18]
+    elif kind == "rnn":
+        bias = bias[:6]
+    peep = peep if kind == "lstm" else None
+    c0 = c0 if kind == "lstm" else None
+    diff = [a for a in (x, w, bias, peep, h0, c0) if a is not None]
+    pos = {id(a): i for i, a in enumerate(diff)}
+
+    def pick(vals, a):
+        return None if a is None else vals[pos[id(a)]]
+
+    def run(pkg, vals):
+        return _scan(pkg, kind, pick(vals, x), lens, pick(vals, w),
+                     pick(vals, bias), pick(vals, peep), pick(vals, h0),
+                     pick(vals, c0), reverse)
+
+    jouts, vjp = jax.vjp(lambda *v: run(jrec, v),
+                         *[jnp.asarray(a) for a in diff])
+    rng = np.random.RandomState(12)
+    cts = [rng.randn(*o.shape).astype(np.float32) for o in jouts]
+    jg = vjp(tuple(jnp.asarray(c) for c in cts))
+    leaves = [torch.tensor(a, requires_grad=True) for a in diff]
+    touts = run(trec, leaves)
+    tg = torch.autograd.grad(sum((o * torch.tensor(c)).sum()
+                                 for o, c in zip(touts, cts)), leaves)
+    for j, t in zip(jouts, touts):
+        _close(t.detach(), j, FWD)
+    for j, t in zip(jg, tg):
+        _close(t, j, GRAD)
+
+
+def test_cells_match_jax():
+    x, _, w, bias, peep = _inputs(4, seed=13)
+    rng = np.random.RandomState(14)
+    h, c = (rng.randn(4, 6).astype(np.float32) for _ in range(2))
+    jh, jc = jrec.lstm_cell(jnp.asarray(x[:, 0]), jnp.asarray(h),
+                            jnp.asarray(c), jnp.asarray(w),
+                            jnp.asarray(bias), jnp.asarray(peep))
+    th, tc = trec.lstm_cell(torch.tensor(x[:, 0]), torch.tensor(h),
+                            torch.tensor(c), torch.tensor(w),
+                            torch.tensor(bias), torch.tensor(peep))
+    _close(th, jh, FWD)
+    _close(tc, jc, FWD)
+    jg = jrec.gru_cell(jnp.asarray(x[:, 0, :18]), jnp.asarray(h),
+                       jnp.asarray(w[:, :18]), jnp.asarray(bias[:18]))
+    tg = trec.gru_cell(torch.tensor(x[:, 0, :18]), torch.tensor(h),
+                       torch.tensor(w[:, :18]), torch.tensor(bias[:18]))
+    _close(tg, jg, FWD)
+
+
+def test_kernel_gate_and_wrappers_off_the_card():
+    """The dispatch gate never admits a CPU tensor, and a wrapper given a
+    tensor that is neither on the CPU nor on a CUDA card raises instead
+    of falling back to its plain version."""
+    assert not fused_rnn.kernel_ok(4, 6, device="cpu")
+    assert not fused_rnn.kernel_ok(4, 6, device=None)
+    x = torch.zeros((2, 3, 24), device="meta")
+    with pytest.raises(ValueError, match="no recurrent kernel"):
+        fused_rnn.lstm_forward(x, torch.zeros(2, dtype=torch.int32),
+                               torch.zeros((6, 24)), torch.zeros(24),
+                               torch.zeros(18))
+    with pytest.raises(ValueError, match="no recurrent kernel"):
+        fused_rnn.gru_forward(torch.zeros((2, 3, 18), device="meta"),
+                              torch.zeros(2, dtype=torch.int32),
+                              torch.zeros((6, 18)), torch.zeros(18))
+    # the shared-memory plan of the documented limits
+    assert fused_rnn.kernel_smem(1280, 10, 4) <= fused_rnn._SM90_SMEM
+    assert fused_rnn.kernel_smem(1320, 10, 4) > fused_rnn._SM90_SMEM

@@ -194,7 +194,7 @@ def test_ce_from_logits_matches_jax(smoothing):
 def test_unported_layers_and_options_raise():
     from paddle_tpu_torch.core.registry import make_layer
     with pytest.raises(NotImplementedError, match="not ported"):
-        make_layer("lstmemory", None, [])
+        make_layer("mdlstm", None, [])
     with pytest.raises(NotImplementedError, match="MoE"):
         t_transformer_lm(**CFG, moe_experts=2)
     with pytest.raises(NotImplementedError, match="dropout"):
