@@ -108,11 +108,45 @@ Phases (any failure exits non-zero before the final line):
 16. lstm train trace — one bfloat16 LSTM train step under
    torch.profiler (run right after phase 12): device busy against the
    wall clock, the top kernels, the LSTM kernels' share.
+17. int8 kernel vs plain — the int8 path of the paged window kernel
+   at phase 2's widths (q float32 and bfloat16, h/g 8/8, 8/2, 8/1, W
+   1, 3 and 4, pages quantized on the card) against its plain version
+   at phase 2's tolerances; NaN scales past each slot's used pages
+   change nothing; a kv_len-0 row returns the mean of dequantized V;
+   quantize_kv on the card is bit-equal to the CPU port's.
+18. decode kernel vs plain — decode_attention at b 8, h 8, g 8/2/1, dh
+   64, T 544, shared and per-row lengths (one of them 0), float32 and
+   bfloat16, against decode_reference; paged_attention(use_kernel=True)
+   against the einsum path over phase 3's engine pages. These calls
+   are the kernel's launches: no engine route reaches it.
+19. int8 engine — phase 3's 16 requests with kv_quant="int8": launches
+   of the int8 kernel == steps x 6 and of the float kernel 0, balanced
+   pages, the first 4 requests' tokens against the CPU port's int8
+   engine on the same table under the tie rule (the tie reference is
+   the CPU int8 paged step's teacher-forced logits); prints how many
+   requests match the float engine token for token.
+20. speculation — phase 3's requests with spec_k 2 (W 3): the
+   same-weights draft, then a 2-layer draft from another seed; tokens
+   of the first 4 requests agree with the dense reference (tie rule),
+   float kernel launches == target steps x 6, same-weights tokens per
+   step > 1; prints accepted/proposed and tokens/s against phase 3.
+21. two-tier — int8 pages + speculation on a pool cut to 72 pages
+   with a 256-page host spill store: waves of 8 prompts sharing a
+   two-page prefix push cold pages to host and a revisit restores
+   them; spills and restores > 0, revisit tokens equal the first
+   visit's, both tiers balance.
+22. two-tier timings and trace — the int8 kernel at the int8 engine's
+   shapes (W 1 and 3) and the decode kernel at b 8, h 8, g 8, T 544
+   over the same 8 lengths, float32 and bfloat16, by CUDA-graph replay,
+   with their bounds (the decode kernel's counts each row's live
+   columns only), plain times and SDPA yardsticks; then 8 requests
+   through the int8 + speculative engine under torch.profiler.
 
 Prints the kernel table as one JSON line (the flash and LSTM kernels at
 their bfloat16 times, the training dtype; the GRU kernel at float32, the
-dtype the tagger decodes in), the card's name and power limit
-(nvidia-smi), and last {"ok": true, "device": {...}}.
+dtype the tagger decodes in; the int8 and decode kernels at float32, the
+serving dtype, W 1), the card's name and power limit (nvidia-smi), and
+last {"ok": true, "device": {...}}.
 """
 
 import json
@@ -128,6 +162,7 @@ FP32_FLOPS_PER_S = 67e12           # H100 SXM, non-tensor float32
 FULL = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
             d_ff=2048, max_len=544)
 SLOTS, PAGE, N_REQ = 8, 16, 16
+SPEC_K = 2                         # bench.py decode_speculative: W = 3
 F32_TOL = dict(rtol=2e-4, atol=2e-5)
 BF16_ATOL = 2e-2
 TIE_RTOL, TIE_ATOL = 1e-4, 1e-5    # the logits tolerance of the tests
@@ -317,8 +352,7 @@ def _check_zero_len_row(ops, args, tables, lens, dtype):
 
 # ------------------------------------------------------------ phase 3
 def phase_engine():
-    from paddle_tpu_torch.models.decode import (TransformerDecoder,
-                                                tokens_agree)
+    from paddle_tpu_torch.models.decode import TransformerDecoder
     from paddle_tpu_torch.ops import paged_decode as ops
     from paddle_tpu_torch.params import init_transformer_lm_params
     from paddle_tpu_torch.serving import DecodeEngine
@@ -337,47 +371,43 @@ def phase_engine():
     news = [int(rng.randint(16, 65)) for _ in range(N_REQ)]
     torch.cuda.synchronize()
     ops.paged_window_attention.launches = 0
-    t0 = time.perf_counter()
-    reqs = [eng.submit(p, n) for p, n in zip(prompts, news)]
-    eng.run(timeout=600)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    reqs, wall = _serve(eng, prompts, news)
     launches = ops.paged_window_attention.launches
     st = eng.stats()
-    if st["step_failures"]:
-        raise AssertionError(f"{st['step_failures']} step failures: "
-                             f"{eng.last_step_error}")
-    for i, (r, n) in enumerate(zip(reqs, news)):
-        toks = r.get(timeout=1)
-        if r.state != "done" or len(toks) != n:
-            raise AssertionError(f"request {i}: state {r.state}, "
-                                 f"{len(toks)}/{n} tokens")
-        if not all(0 <= t < FULL["vocab_size"] for t in toks):
+    for i, r in enumerate(reqs):
+        if not all(0 <= t < FULL["vocab_size"] for t in r.get(timeout=1)):
             raise AssertionError(f"request {i}: token out of range")
     if launches != st["steps"] * FULL["n_layers"] or launches == 0:
         raise AssertionError(f"kernel launches {launches} != steps "
                              f"{st['steps']} x {FULL['n_layers']}")
-    acc = eng.page_accounting()
-    if acc["leaked"] or acc["free"] + acc["held_by_trie"] != \
-            acc["total_usable"] or acc["refs_total"] != \
-            acc["held_by_slots"] + acc["held_by_trie"]:
-        raise AssertionError(f"page accounting unbalanced: {acc}")
+    dense = []
     for i in range(4):
         p = prompts[i]
         want = dec.generate(p[None, :], max_len=len(p) + news[i])[0]
         ref = dec.prefill_logits(np.concatenate([p, want])[None, :])[0]
-        tol = TIE_ATOL + TIE_RTOL * float(np.abs(ref).max())
-        if not tokens_agree(reqs[i].get(timeout=1), want,
-                            ref[len(p) - 1:], tol):
-            raise AssertionError(f"request {i}: engine tokens differ "
-                                 "from the dense reference")
+        dense.append((want, ref[len(p) - 1:]))
+    _check_dense(reqs, dense, "engine")
     gen = st["tokens_out"]
     log(f"engine: {N_REQ} requests, {gen} tokens, {st['steps']} steps, "
         f"{wall:.3f} s, {gen / wall:.1f} tokens/s, p50 inter-token "
         f"{st['token_latency_p50_ms']} ms, p99 "
         f"{st['token_latency_p99_ms']} ms, kernel launches {launches}, "
         f"prefix hit pages {st['prefix_hit_pages']}")
-    return eng, prompts, news, launches
+    return dict(eng=eng, dec=dec, prompts=prompts, news=news,
+                launches=launches, tokens=[r.get(timeout=1) for r in reqs],
+                dense=dense, tokens_per_s=gen / wall,
+                pool_bytes=eng.paged.pool_bytes())
+
+
+def _check_dense(reqs, dense, label):
+    """The first requests' tokens against the dense decoder's greedy
+    rows under the tie rule (``dense``: (tokens, logits) pairs)."""
+    from paddle_tpu_torch.models.decode import tokens_agree
+    for i, (want, ref) in enumerate(dense):
+        tol = TIE_ATOL + TIE_RTOL * float(np.abs(ref).max())
+        if not tokens_agree(reqs[i].get(timeout=1), want, ref, tol):
+            raise AssertionError(f"{label} request {i}: tokens differ "
+                                 "from the dense reference")
 
 
 # ------------------------------------------------------------ phase 4
@@ -1381,6 +1411,599 @@ def phase_rnn_timings():
     return out
 
 
+# ------------------------------------------------------------ phase 17
+def _quant_window_case(h, g, W, dtype, seed):
+    """Phase 2's full-width window inputs with int8 pools: the float
+    pages quantized on the card, q in ``dtype``; a tenth of the rows
+    scaled down, so scales differ across rows."""
+    from paddle_tpu_torch.ops import paged_decode as ops
+    args, tables, lens = _window_case(h, g, W, torch.float32, seed)
+    q, k, v, tb, ln = args
+    rows = torch.rand(k.shape[:3], device=k.device) < 0.1
+    k = torch.where(rows[..., None], k * 0.01, k)
+    kq, ks = ops.quantize_kv(k)
+    vq, vs = ops.quantize_kv(v)
+    return dict(q=q.to(dtype), kq=kq, vq=vq, ks=ks, vs=vs, tb=tb, ln=ln,
+                k=k, v=v), tables, lens
+
+
+def phase_dequant_vs_plain():
+    """Kernel 8 (the int8 path of paged window attention) against its
+    plain version at full width: q float32 and bfloat16, h/g 8/8, 8/2,
+    8/1, W 1, 3 and 4, ragged lengths straddling pages; NaN scales in
+    every page past each slot's used count change nothing; a kv_len-0
+    row returns the mean of dequantized V over the used pages; and
+    quantize_kv on the card is bit-equal to the CPU port's."""
+    from paddle_tpu_torch.ops import paged_decode as ops
+    worst = 0.0
+    for (h, g) in ((8, 8), (8, 2), (8, 1)):
+        for W in (1, 3, 4):
+            for dtype in (torch.float32, torch.bfloat16):
+                a, tables, lens = _quant_window_case(h, g, W, dtype,
+                                                     seed=h * 10 + g + W)
+                kw = dict(k_scales=a["ks"], v_scales=a["vs"])
+                got = ops.paged_window_attention(a["q"], a["kq"], a["vq"],
+                                                 a["tb"], a["ln"], **kw)
+                torch.cuda.synchronize()
+                want = ops.paged_window_reference(
+                    a["q"].float(), a["kq"], a["vq"], a["tb"], a["ln"], **kw)
+                err = (got.float() - want).abs().max().item()
+                if dtype == torch.float32:
+                    torch.testing.assert_close(got, want, **F32_TOL)
+                    worst = max(worst, err)
+                elif err > BF16_ATOL:
+                    raise AssertionError(
+                        f"bf16 int8 kernel off by {err} > {BF16_ATOL}")
+                # allocated-pages contract: the scales of pages past each
+                # slot's used count are never read — poison them
+                P = tables.shape[1]
+                used = np.clip(-(-lens.max(axis=1) // PAGE), 1, P)
+                tail = np.concatenate([tables[s, used[s]:]
+                                       for s in range(SLOTS)])
+                tail = torch.from_numpy(tail[tail > 0].astype(np.int64))
+                ks, vs = a["ks"].clone(), a["vs"].clone()
+                ks[tail.cuda()] = float("nan")
+                vs[tail.cuda()] = float("nan")
+                again = ops.paged_window_attention(
+                    a["q"], a["kq"], a["vq"], a["tb"], a["ln"],
+                    k_scales=ks, v_scales=vs)
+                torch.cuda.synchronize()
+                if not torch.equal(again, got):
+                    raise AssertionError("int8 kernel read a page or scale "
+                                         "past a slot's used count")
+                zero_err = _check_zero_len_row_int8(ops, a, tables, lens,
+                                                    dtype)
+                log(f"int8 kernel vs plain h={h} g={g} W={W} "
+                    f"{str(dtype)[6:]}: max_abs_err {err:.3e}, kv_len-0 "
+                    f"row {zero_err:.3e}")
+    k = torch.randn(SLOTS * 34 + 1, PAGE, 8, 64, device="cuda") * \
+        torch.rand(SLOTS * 34 + 1, PAGE, 8, 1, device="cuda") * 10
+    gq, gs = ops.quantize_kv(k)
+    cq, cs = ops.quantize_kv(k.cpu())
+    if not (torch.equal(gq.cpu(), cq) and torch.equal(gs.cpu(), cs)):
+        raise AssertionError(
+            f"quantize_kv on the card differs from the CPU port's: "
+            f"{int((gq.cpu() != cq).sum())} values, "
+            f"{int((gs.cpu() != cs).sum())} scales")
+    log(f"quantize_kv: {k.numel()} values bit-equal to the CPU port's")
+    return worst
+
+
+def _check_zero_len_row_int8(ops, a, tables, lens, dtype):
+    """Window token 0 of slot 2 with kv_len 0: the mean of dequantized
+    V over every column of the slot's used pages (the TPU kernel's
+    value); the other rows unchanged."""
+    s = 2
+    lens0 = lens.copy()
+    lens0[s, 0] = 0
+    ln = torch.from_numpy(lens0).to(a["ln"].device)
+    kw = dict(k_scales=a["ks"], v_scales=a["vs"])
+    got = ops.paged_window_attention(a["q"], a["kq"], a["vq"], a["tb"], ln,
+                                     **kw)
+    torch.cuda.synchronize()
+    h, g = a["q"].shape[2], a["vq"].shape[2]
+    used = min(max(-(-int(lens0[s].max()) // PAGE), 1), tables.shape[1])
+    pages = torch.from_numpy(tables[s, :used].astype(np.int64)).cuda()
+    vdq = ops.dequantize_kv(a["vq"][pages], a["vs"][pages])
+    want = vdq.reshape(-1, g, vdq.shape[-1]).mean(dim=0) \
+        .repeat_interleave(h // g, dim=0)
+    err = (got[s, 0].float() - want).abs().max().item()
+    if err > (F32_TOL["atol"] if dtype == torch.float32 else BF16_ATOL):
+        raise AssertionError(f"int8 kv_len-0 row off the mean of V by {err}")
+    keep = torch.ones(got.shape[:2], dtype=torch.bool, device=got.device)
+    keep[s, 0] = False
+    rest = ops.paged_window_reference(a["q"].float(), a["kq"], a["vq"],
+                                      a["tb"], ln, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[keep], rest[keep], **F32_TOL)
+    elif (got[keep].float() - rest[keep]).abs().max() > BF16_ATOL:
+        raise AssertionError("an int8 kv_len-0 row changed the other rows")
+    return err
+
+
+# ------------------------------------------------------------ phase 18
+DECODE_T = FULL["max_len"]
+DECODE_LENS = [544, 1, 17, 100, 255, 256, 0, 513]
+
+
+def _decode_case(g, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h, dh = FULL["n_heads"], 64
+    q = torch.randn(SLOTS, h, dh, generator=gen, device="cuda")
+    k = torch.randn(SLOTS, g, dh, DECODE_T, generator=gen, device="cuda")
+    v = torch.randn(SLOTS, g, dh, DECODE_T, generator=gen, device="cuda")
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def _engine_page_view(eng, lens, seed):
+    """Tables over the engine's real pools for rows of the given
+    lengths: out-of-order pages, null pages past each row's use."""
+    k_pool = eng.k_pool["q"] if isinstance(eng.k_pool, dict) else eng.k_pool
+    L, n_pages, ps = k_pool.shape[:3]
+    P = FULL["max_len"] // ps
+    used = -(-np.asarray(lens) // ps)
+    rng = np.random.RandomState(seed)
+    tables = np.zeros((len(lens), P), np.int32)
+    pages = rng.permutation(n_pages - 1) + 1
+    at = 0
+    for s, u in enumerate(used):
+        tables[s, :u] = pages[at:at + u]
+        at += u
+    return torch.from_numpy(tables).cuda(), \
+        torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+
+def phase_decode_vs_plain(eng):
+    """Kernel 9 (dense-cache decode attention) against decode_reference
+    at b 8, h 8, g 8/2/1, dh 64, T 544, one shared length and per-row
+    lengths (a kv_len-0 row among them), float32 and bfloat16; then the
+    op route paged_attention(use_kernel=True) against use_kernel=False
+    over the phase 3 engine's pools (layer 0 and 5, float32). Returns
+    the worst float32 error; decode_attention.launches counts these
+    calls (no engine route reaches the kernel)."""
+    from paddle_tpu_torch.ops import paged_decode as ops
+    ops.decode_attention.launches = 0
+    worst = 0.0
+    for g in (8, 2, 1):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _decode_case(g, dtype, seed=180 + g)
+            for lens in ([300], DECODE_LENS):
+                ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                got = ops.decode_attention(q, k, v, ln)
+                torch.cuda.synchronize()
+                want = ops.decode_reference(q.float(), k.float(), v.float(),
+                                            ln)
+                err = (got.float() - want).abs().max().item()
+                if dtype == torch.float32:
+                    torch.testing.assert_close(got, want, **F32_TOL)
+                    worst = max(worst, err)
+                elif err > BF16_ATOL:
+                    raise AssertionError(f"bf16 decode kernel off by {err}")
+                log(f"decode kernel vs plain g={g} {str(dtype)[6:]} "
+                    f"{'shared' if len(lens) == 1 else 'per-row'} lengths: "
+                    f"max_abs_err {err:.3e}")
+    lens = [len(p) + n for p, n in zip(eng["prompts"][:SLOTS],
+                                       eng["news"][:SLOTS])]
+    tb, ln = _engine_page_view(eng["eng"], lens, seed=181)
+    q = torch.randn(SLOTS, FULL["n_heads"], 64, device="cuda")
+    for layer in (0, FULL["n_layers"] - 1):
+        kp, vp = eng["eng"].k_pool[layer], eng["eng"].v_pool[layer]
+        ker = ops.paged_attention(q, kp, vp, tb, ln, use_kernel=True)
+        ein = ops.paged_attention(q, kp, vp, tb, ln)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(ker, ein, **F32_TOL)
+        worst = max(worst, (ker - ein).abs().max().item())
+    log(f"paged_attention(use_kernel=True) vs einsum over the engine's "
+        f"pages (lens {lens}): held; decode launches "
+        f"{ops.decode_attention.launches}")
+    return worst, ops.decode_attention.launches
+
+
+# ------------------------------------------------------------ phase 19
+def _serve(eng, prompts, news, timeout=600):
+    """Submit every request, run the engine to the end, check each
+    finished with its tokens and balanced pages; returns (requests,
+    wall seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, n) for p, n in zip(prompts, news)]
+    eng.run(timeout=timeout)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    if st["step_failures"]:
+        raise AssertionError(f"{st['step_failures']} step failures: "
+                             f"{eng.last_step_error}")
+    for i, (r, n) in enumerate(zip(reqs, news)):
+        toks = r.get(timeout=1)
+        if r.state != "done" or len(toks) != n:
+            raise AssertionError(f"request {i}: state {r.state}, "
+                                 f"{len(toks)}/{n} tokens")
+    acc = eng.page_accounting()
+    if acc["leaked"] or acc["free"] + acc["held_by_trie"] != \
+            acc["total_usable"] or acc["refs_total"] != \
+            acc["held_by_slots"] + acc["held_by_trie"]:
+        raise AssertionError(f"page accounting unbalanced: {acc}")
+    if eng.spill is not None and acc["spill_puts"] != (
+            acc["spill_restores"] + acc["spill_evicted_lru"]
+            + acc["spill_dropped_integrity"] + acc["spill_cleared"]
+            + acc["spilled"]):
+        raise AssertionError(f"spill tier not conserved: {acc}")
+    return reqs, wall
+
+
+def _first_divergence(a, b):
+    for j, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return j
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def phase_int8_engine(serve):
+    """The int8 engine at full width: phase 3's 16 requests with
+    kv_quant="int8". Kernel 8 launches == steps x 6 and kernel 7 none;
+    balanced pages; the first 4 requests' tokens agree (tie rule) with
+    the CPU port's int8 engine on the same table, the near-tie
+    reference being the CPU int8 paged step's teacher-forced logits.
+    Prints how many requests match the float engine token for token."""
+    from paddle_tpu_torch.models.decode import (TransformerDecoder,
+                                                tokens_agree)
+    from paddle_tpu_torch.ops import paged_decode as ops
+    from paddle_tpu_torch.params import init_transformer_lm_params
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    prompts, news = serve["prompts"], serve["news"]
+    kw = dict(num_slots=SLOTS, page_size=PAGE, max_seq_len=FULL["max_len"],
+              kv_quant="int8")
+    eng = DecodeEngine(serve["dec"], **kw)
+    eng.warmup()
+    torch.cuda.synchronize()
+    ops.paged_window_attention.launches = 0
+    ops.paged_window_attention.dequant_launches = 0
+    reqs, wall = _serve(eng, prompts, news)
+    launches = ops.paged_window_attention.dequant_launches
+    float_launches = ops.paged_window_attention.launches
+    st = eng.stats()
+    if launches != st["steps"] * FULL["n_layers"] or launches == 0 or \
+            float_launches:
+        raise AssertionError(
+            f"int8 launches {launches} (float {float_launches}) != steps "
+            f"{st['steps']} x {FULL['n_layers']}")
+    cpu_dec = TransformerDecoder(init_transformer_lm_params(FULL, seed=0),
+                                 n_layers=FULL["n_layers"],
+                                 n_heads=FULL["n_heads"], device="cpu")
+    cpu = DecodeEngine(cpu_dec, **kw)
+    cpu_reqs = [cpu.submit(p, n) for p, n in zip(prompts[:4], news[:4])]
+    cpu.run(timeout=600)
+    ref_step = cpu_dec.paged(num_slots=1, page_size=PAGE, num_pages=36,
+                             max_pages_per_slot=FULL["max_len"] // PAGE,
+                             window=32, kv_quant="int8")
+    for i, r in enumerate(cpu_reqs):
+        want = r.get(timeout=1)
+        p = prompts[i]
+        ref = ref_step.prefill_logits(np.concatenate([p, want]))
+        tol = TIE_ATOL + TIE_RTOL * float(np.abs(ref).max())
+        if not tokens_agree(reqs[i].get(timeout=1), want, ref[len(p) - 1:],
+                            tol):
+            raise AssertionError(f"int8 request {i}: card tokens differ "
+                                 "from the CPU port's int8 engine")
+    same = 0
+    firsts = []
+    for r, fp in zip(reqs, serve["tokens"]):
+        j = _first_divergence(r.get(timeout=1), fp)
+        same += j is None
+        firsts.append(j)
+    gen = st["tokens_out"]
+    log(f"int8 engine: {N_REQ} requests, {gen} tokens, {st['steps']} "
+        f"steps, {wall:.3f} s, {gen / wall:.1f} tokens/s (float engine "
+        f"{serve['tokens_per_s']:.1f}), p50 inter-token "
+        f"{st['token_latency_p50_ms']} ms, int8 kernel launches {launches}, "
+        f"pool {eng.paged.pool_bytes()} bytes (float "
+        f"{serve['pool_bytes']}); 4 requests agree with the "
+        f"CPU port's int8 engine")
+    log(f"int8 vs float engine: {same}/{N_REQ} requests token-identical; "
+        f"first divergence per request {firsts} (random-weight logits "
+        "are near-flat: a finding, not a gate)")
+    return eng, launches
+
+
+# ------------------------------------------------------------ phase 20
+def phase_speculation(serve):
+    """Speculative decoding at full width, spec_k 2 (W 3): the
+    same-weights draft, then a disagreeing 2-layer draft from another
+    seed. Tokens agree with the dense reference (tie rule, first 4
+    requests), kernel 7 launches == target steps x 6, same-weights
+    tokens per step > 1."""
+    from paddle_tpu_torch.models.decode import TransformerDecoder
+    from paddle_tpu_torch.ops import paged_decode as ops
+    from paddle_tpu_torch.params import init_transformer_lm_params
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    small = dict(FULL, n_layers=2)
+    drafts = {"same-weights": serve["dec"],
+              "disagreeing 2-layer": TransformerDecoder(
+                  init_transformer_lm_params(small, seed=1), n_layers=2,
+                  n_heads=FULL["n_heads"])}
+    out = {}
+    for label, draft in drafts.items():
+        eng = DecodeEngine(serve["dec"], num_slots=SLOTS, page_size=PAGE,
+                           max_seq_len=FULL["max_len"], draft=draft,
+                           spec_k=SPEC_K)
+        eng.warmup()
+        torch.cuda.synchronize()
+        ops.paged_window_attention.launches = 0
+        reqs, wall = _serve(eng, serve["prompts"], serve["news"])
+        st = eng.stats()
+        launches = ops.paged_window_attention.launches
+        if launches != st["steps"] * FULL["n_layers"]:
+            raise AssertionError(f"{label}: kernel 7 launches {launches} != "
+                                 f"target steps {st['steps']} x "
+                                 f"{FULL['n_layers']}")
+        _check_dense(reqs, serve["dense"], f"speculative ({label})")
+        per_step = st["tokens_out"] / st["steps"]
+        if label == "same-weights" and per_step <= 1.0:
+            raise AssertionError(f"same-weights draft: {per_step} tokens "
+                                 "per step")
+        gen = st["tokens_out"]
+        out[label] = dict(tokens_per_s=gen / wall, per_step=per_step)
+        log(f"speculation ({label} draft, spec_k {SPEC_K}): {gen} tokens, "
+            f"{st['steps']} target steps, {per_step:.3f} tokens/step, "
+            f"accepted {st['spec_accepted_tokens']} of "
+            f"{st['spec_proposed_tokens']} proposed, {wall:.3f} s, "
+            f"{gen / wall:.1f} tokens/s (phase 3: "
+            f"{serve['tokens_per_s']:.1f}), kernel 7 launches {launches}")
+        del eng
+    return out
+
+
+# ------------------------------------------------------------ phase 21
+# 72 usable pages (phase 3 serves with 272): wave B alone fills them,
+# so every trie page of wave A has to leave the device
+SPILL_PAGES_POOL = 73
+SPILL_CAPACITY = 256
+
+
+def _spill_waves(seed):
+    """Two waves of 8 prompts: within a wave the prompts share a
+    32-token (two-page) prefix and differ after it; wave A 64 tokens
+    (+16 new: 5 pages a request), wave B 96 tokens (+48 new: 9 pages
+    a request, 72 in all — every cold page of A spills host-ward);
+    wave C then revisits A's prompts."""
+    rng = np.random.RandomState(seed)
+    waves = []
+    for length in (64, 96):
+        shared = rng.randint(0, FULL["vocab_size"], 32)
+        waves.append([np.concatenate([shared, rng.randint(
+            0, FULL["vocab_size"], length - 32)]).astype(np.int32)
+            for _ in range(SLOTS)])
+    return waves
+
+
+def phase_two_tier(serve):
+    """int8 pages + host spill + speculation at full width on a pool
+    cut to 72 pages with a 256-page spill store: wave A, wave B (cold
+    A pages spill host-ward), wave C revisits A (spilled pages restore
+    before prefill). spills > 0, restores > 0, revisit tokens equal
+    first-visit tokens, both tiers balance. Returns the engine (phase
+    22 traces it)."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    eng = DecodeEngine(serve["dec"], num_slots=SLOTS, page_size=PAGE,
+                       max_seq_len=FULL["max_len"],
+                       num_pages=SPILL_PAGES_POOL, kv_quant="int8",
+                       kv_spill_pages=SPILL_CAPACITY, draft=serve["dec"],
+                       spec_k=SPEC_K)
+    eng.warmup()
+    wave_a, wave_b = _spill_waves(seed=210)
+    first, wall_a = _serve(eng, wave_a, [16] * SLOTS)
+    _, wall_b = _serve(eng, wave_b, [48] * SLOTS)
+    spilled = eng.stats()["kv_pages_spilled"]
+    again, wall_c = _serve(eng, wave_a, [16] * SLOTS)
+    st = eng.stats()
+    acc = eng.page_accounting()
+    if not (spilled > 0 and st["kv_pages_restored"] > 0):
+        raise AssertionError(f"no spill round trip: spilled {spilled}, "
+                             f"restored {st['kv_pages_restored']}")
+    for i, (a, b) in enumerate(zip(first, again)):
+        if a.get(timeout=1) != b.get(timeout=1):
+            raise AssertionError(f"revisit {i}: tokens differ from the "
+                                 "first visit")
+    hits = sum(r.prefix_hit_pages for r in again)
+    log(f"two-tier: pool {SPILL_PAGES_POOL - 1} pages + spill "
+        f"{SPILL_CAPACITY}, int8, spec_k {SPEC_K}: spilled "
+        f"{st['kv_pages_spilled']}, restored {st['kv_pages_restored']}, "
+        f"integrity drops {st['kv_spill_integrity_drops']}, revisit prefix "
+        f"hit pages {hits}; waves {wall_a:.3f} / {wall_b:.3f} / "
+        f"{wall_c:.3f} s; revisit tokens identical; accounting {acc}")
+    return eng
+
+
+# ------------------------------------------------------------ phase 22
+def _int8_timing(int8_eng, tb, lens, W, dtype):
+    """Kernel 8 at the int8 engine's shapes (the phase 19 pools, the
+    first 8 requests at their final lengths, W tokens, q of ``dtype``):
+    device time per call by CUDA-graph replay, its byte bound, the
+    plain version's time, and SDPA on the dequantized view."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import paged_decode as ops
+    k_pool, v_pool = int8_eng.k_pool, int8_eng.v_pool
+    L, n_pages, ps, g, dh = k_pool["q"].shape
+    h = FULL["n_heads"]
+    used = -(-lens // ps)
+    ln = torch.from_numpy(np.maximum(
+        lens[:, None] - W + 1 + np.arange(W)[None, :], 1)
+        .astype(np.int32)).cuda()
+    q = torch.randn(SLOTS, W, h, dh, device="cuda").to(dtype)
+    layers = [(k_pool["q"][i], v_pool["q"][i], k_pool["s"][i],
+               v_pool["s"][i]) for i in range(L)]
+
+    def kernel(i):
+        kq, vq, ks, vs = layers[i % L]
+        return ops.paged_window_attention(q, kq, vq, tb, ln,
+                                          k_scales=ks, v_scales=vs)
+
+    def plain(i):
+        kq, vq, ks, vs = layers[i % L]
+        return ops.paged_window_reference(q, kq, vq, tb, ln,
+                                          k_scales=ks, v_scales=vs)
+
+    ms = device_ms(kernel, iters=60)
+    plain_ms = device_ms(plain, iters=12)
+    # yardstick: SDPA on the dequantized gathered view, in q's dtype
+    kg = [ops.dequantize_kv(ops.gather_pages(kq, tb),
+                            ops.gather_scales(ks, tb), dtype)
+          .permute(0, 2, 1, 3) for kq, _, ks, _ in layers]
+    vg = [ops.dequantize_kv(ops.gather_pages(vq, tb),
+                            ops.gather_scales(vs, tb), dtype)
+          .permute(0, 2, 1, 3) for _, vq, _, vs in layers]
+    T = tb.shape[1] * ps
+    mask = (torch.arange(T, device="cuda")[None, None, :]
+            < ln[:, :, None])[:, None]            # [S, 1, W, T]
+    qs = q.permute(0, 2, 1, 3)
+    gqa = {} if g == h else {"enable_gqa": True}
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(
+            qs, kg[i % L], vg[i % L], attn_mask=mask, **gqa)
+
+    got, want = sdpa(0).permute(0, 2, 1, 3), plain(0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **F32_TOL)
+    elif (got.float() - want.float()).abs().max().item() > BF16_ATOL:
+        raise AssertionError("bf16 SDPA yardstick off the int8 plain path")
+    library_ms = device_ms(sdpa, iters=60)
+    kv_bytes = 2 * int(used.sum()) * ps * g * (dh + 4)
+    io_bytes = 2 * q.numel() * q.element_size() + tb.numel() * 4 + \
+        ln.numel() * 4
+    flops = 4.0 * float(ln.sum().item()) * h * dh
+    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                     else FP32_FLOPS_PER_S) * 1e3
+    log(f"int8 kernel at engine shapes W={W} {str(dtype)[6:]} q (lens "
+        f"{lens.tolist()}): {ms * 1e3:.2f} us/call, bound "
+        f"{max(t_bytes, t_ops) * 1e3:.3f} us ({kv_bytes + io_bytes} "
+        f"bytes), plain {plain_ms * 1e3:.2f} us, sdpa on the dequantized "
+        f"view {library_ms * 1e3:.2f} us")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _decode_bound(g, dtype, lens):
+    """(bound_ms, bound_by) of kernel 9 on this run's lengths: a row
+    with kv_len > 0 needs its first kv_len columns of K and V (later
+    columns weigh exactly 0); a kv_len-0 row needs all T of V (its
+    output is their mean) and no K. Plus q, out and the lengths."""
+    h, dh, e = FULL["n_heads"], 64, torch.finfo(dtype).bits // 8
+    live = [min(int(n), DECODE_T) if n > 0 else 0 for n in lens]
+    vcols = [n if n > 0 else DECODE_T for n in live]
+    nbytes = (sum(live) + sum(vcols)) * g * dh * e + \
+        2 * SLOTS * h * dh * e + len(lens) * 4
+    flops = 2.0 * h * dh * (sum(live) + sum(vcols))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (BF16_FLOPS_PER_S if e == 2 else FP32_FLOPS_PER_S) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations", nbytes
+
+
+def _decode_timing(lens, dtype):
+    """Kernel 9 at b 8, h 8, g 8, dh 64, T 544 with the given per-row
+    lengths, q and cache of ``dtype``: device time per call by
+    CUDA-graph replay, its bound, the plain version's time, and SDPA
+    on [b, h, 1, T]."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import paged_decode as ops
+    g9 = FULL["n_heads"]
+    sets = [_decode_case(g9, dtype, seed=230 + i) for i in range(6)]
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+    def dkernel(i):
+        q, k, v = sets[i % 6]
+        return ops.decode_attention(q, k, v, ln)
+
+    def dplain(i):
+        q, k, v = sets[i % 6]
+        return ops.decode_reference(q, k, v, ln)
+
+    ms = device_ms(dkernel, iters=60)
+    plain_ms = device_ms(dplain, iters=12)
+    sq = [q[:, :, None, :] for q, _, _ in sets]           # [b, h, 1, dh]
+    sk = [k.transpose(2, 3) for _, k, _ in sets]           # [b, g, T, dh]
+    sv = [v.transpose(2, 3) for _, _, v in sets]
+    dmask = (torch.arange(DECODE_T, device="cuda")[None, :]
+             < ln[:, None])[:, None, None, :]
+
+    def dsdpa(i):
+        return F.scaled_dot_product_attention(sq[i % 6], sk[i % 6],
+                                              sv[i % 6], attn_mask=dmask)
+
+    got, want = dsdpa(0)[:, :, 0], dplain(0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **F32_TOL)
+    elif (got.float() - want.float()).abs().max().item() > BF16_ATOL:
+        raise AssertionError("bf16 SDPA yardstick off the decode plain path")
+    library_ms = device_ms(dsdpa, iters=60)
+    bound_ms, bound_by, nbytes = _decode_bound(g9, dtype, lens)
+    log(f"decode kernel at b{SLOTS} h{FULL['n_heads']} g{g9} dh64 "
+        f"T{DECODE_T} {str(dtype)[6:]} (lens {list(lens)}): "
+        f"{ms * 1e3:.2f} us/call, bound {bound_ms * 1e3:.3f} us "
+        f"({bound_by}, {nbytes} bytes), plain {plain_ms * 1e3:.2f} us, "
+        f"sdpa {library_ms * 1e3:.2f} us")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_two_tier_timings(int8_eng, serve):
+    """Kernel 8 at the int8 engine's shapes (W 1 and W 3) and kernel 9
+    at b 8, h 8, g 8, dh 64, T 544 over the same 8 lengths, each with
+    float32 and bfloat16 q (kernel 9's cache in q's dtype); keyed by
+    (kernel, W or None, dtype)."""
+    lens = np.array([len(p) + n for p, n in
+                     zip(serve["prompts"][:SLOTS], serve["news"][:SLOTS])],
+                    np.int32)
+    tb, _ = _engine_page_view(int8_eng, lens, seed=220)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for W in (1, SPEC_K + 1):
+            out[("int8", W, dtype)] = _int8_timing(int8_eng, tb, lens, W,
+                                                   dtype)
+        out[("decode", None, dtype)] = _decode_timing(lens.tolist(), dtype)
+    return out
+
+
+def phase_two_tier_trace(eng):
+    """8 fresh requests through the int8 + speculative (+ spill)
+    engine under torch.profiler: device busy against the wall clock,
+    the top device ops, the int8 kernel's share."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(222)
+    steps0 = eng.stats()["steps"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        reqs = [eng.submit(rng.randint(0, FULL["vocab_size"], (32,)), 16)
+                for _ in range(SLOTS)]
+        eng.run(timeout=600)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    for r in reqs:
+        r.get(timeout=1)
+    steps = eng.stats()["steps"] - steps0
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type.name == "CUDA" and ev.self_device_time_total > 0:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + \
+                ev.self_device_time_total / 1e3
+    busy_ms = sum(by_kernel.values())
+    int8_ms = sum(v for k, v in by_kernel.items() if "paged_window" in k)
+    log(f"two-tier trace: {steps} target steps, wall {wall_ms:.3f} ms "
+        f"({wall_ms / steps:.3f} ms/step), device busy {busy_ms:.3f} ms "
+        f"(idle share {1 - busy_ms / wall_ms:.3f}), paged window kernel "
+        f"{int8_ms:.3f} ms")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"two-tier trace top op: {ms:.3f} ms  {name[:90]}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -1392,10 +2015,11 @@ def main():
     log(f"card: {nvidia_smi_line()}")
     phase_build()
     max_err = phase_kernel_vs_plain()
-    eng, prompts, news, launches = phase_engine()
+    serve = phase_engine()
+    eng, prompts, news = serve["eng"], serve["prompts"], serve["news"]
+    launches = serve["launches"]
     timing = phase_timings(eng, prompts, news)
     phase_trace(eng)
-    del eng
     flash_err = phase_flash_vs_plain()
     trainer, batch, flash_launches = phase_train()
     phase_train_trace(trainer, batch)      # still in bfloat16
@@ -1412,6 +2036,15 @@ def main():
     del lstm_trainer
     gru_launches = phase_tagger()
     rnn_timing = phase_rnn_timings()
+    dequant_err = phase_dequant_vs_plain()
+    decode_err, decode_launches = phase_decode_vs_plain(serve)
+    del serve["eng"], eng
+    int8_eng, dequant_launches = phase_int8_engine(serve)
+    phase_speculation(serve)
+    two_tier = phase_two_tier(serve)
+    tt_timing = phase_two_tier_timings(int8_eng, serve)
+    phase_two_tier_trace(two_tier)
+    del int8_eng, two_tier
     kernels = [dict(
         name="paged_window_attention", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",
@@ -1436,6 +2069,18 @@ def main():
             replaces=f"paddle_tpu/ops/pallas_rnn.py:{line}",
             launches=rnn_launches[name], max_abs_err=rnn_err[name],
             **rnn_timing[(name, dt)]))
+    kernels.append(dict(
+        name="paged_window_attention_int8", route="cuda",
+        source="paddle_tpu_torch/csrc/paged_window_attention.cu",
+        replaces="paddle_tpu/ops/pallas_decode.py:322",
+        launches=dequant_launches, max_abs_err=dequant_err,
+        **tt_timing[("int8", 1, torch.float32)]))
+    kernels.append(dict(
+        name="decode_attention", route="cuda",
+        source="paddle_tpu_torch/csrc/decode_attention.cu",
+        replaces="paddle_tpu/ops/pallas_decode.py:112",
+        launches=decode_launches, max_abs_err=decode_err,
+        **tt_timing[("decode", None, torch.float32)]))
     bad = [k["name"] for k in kernels if k["launches"] < 1]
     if bad:
         raise AssertionError(f"kernels not launched on the main path: "

@@ -26,7 +26,12 @@ Slices ported so far:
   ``bidi_lstm_net`` (models/text.py), ``models.rnn_crf_tagger``
   (models/tagger.py) and ``trainer.infer`` / ``Inference``, with
   hand-written Hopper kernels for the fused LSTM forward and backward
-  and the GRU forward (csrc/lstm_fwd.cu, lstm_bwd.cu, gru_fwd.cu).
+  and the GRU forward (csrc/lstm_fwd.cu, lstm_bwd.cu, gru_fwd.cu);
+- the serving engine's remaining options — int8 KV pages (the int8
+  path of csrc/paged_window_attention.cu), the host spill tier
+  (serving/spill.py), speculative decoding with ``DraftDecoder``, and
+  the dense ``decode_attention`` op with its hand-written Hopper
+  kernel (csrc/decode_attention.cu).
 
 Entry points run on the card unless the caller passes
 ``device="cpu"``; with no GPU and no device asked for they raise

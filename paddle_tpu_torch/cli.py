@@ -1,12 +1,15 @@
 """Command line of the port — ``python -m paddle_tpu_torch.cli``.
 
-This slice ports ``serve --decode_config``: the config script (a
-Python file run with ``runpy``) must define ``decoder``, a
+The port has ``serve --decode_config``: the config script (a Python
+file run with ``runpy``) must define ``decoder``, a
 ``paddle_tpu_torch.models.TransformerDecoder``; the command wraps it
 in a continuous-batching ``DecodeEngine`` behind an
 ``InferenceServer`` and serves ``POST /generate``, ``GET /health`` and
-``GET /stats`` until SIGTERM/SIGINT, then drains. The other
-subcommands of ``paddle_tpu`` wait for later slices.
+``GET /stats`` until SIGTERM/SIGINT, then drains. ``--draft_config``
+and ``--spec_k`` turn on speculative decoding, ``--kv_quant int8``
+stores the KV pages in int8, and ``--kv_spill_pages`` attaches the
+host spill tier. The other subcommands of ``paddle_tpu`` wait for
+later slices.
 """
 
 from __future__ import annotations
@@ -30,10 +33,21 @@ def _build_engine(args):
     if decoder is None:
         raise SystemExit("--decode_config must define `decoder` "
                          "(a paddle_tpu_torch TransformerDecoder)")
+    draft = None
+    if args.draft_config:
+        dns = runpy.run_path(args.draft_config)
+        draft = dns.get("draft_decoder") or dns.get("decoder")
+        if draft is None:
+            raise SystemExit("--draft_config must define `decoder` "
+                             "(or `draft_decoder`)")
     return DecodeEngine(decoder, num_slots=args.gen_slots,
                         page_size=args.gen_page_size,
                         max_waiting=args.max_queue,
-                        prefix_cache=args.prefix_cache == "on")
+                        draft=draft, spec_k=args.spec_k,
+                        prefix_cache=args.prefix_cache == "on",
+                        kv_quant=None if args.kv_quant == "none"
+                        else args.kv_quant,
+                        kv_spill_pages=args.kv_spill_pages)
 
 
 def _cmd_serve(args) -> int:
@@ -82,6 +96,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="KV page size in tokens")
     sv.add_argument("--prefix_cache", choices=["on", "off"], default="on",
                     help="shared-prefix KV reuse")
+    sv.add_argument("--draft_config", default=None,
+                    help="Python script defining the draft `decoder` "
+                         "for speculative decoding (with --spec_k >= 1)")
+    sv.add_argument("--spec_k", type=int, default=0,
+                    help="draft tokens proposed per decode step "
+                         "(greedy verify; 0 disables speculation)")
+    sv.add_argument("--kv_quant", choices=["none", "int8"],
+                    default="none",
+                    help="KV page dtype: int8 stores quantized pages "
+                         "with per-row float32 scales")
+    sv.add_argument("--kv_spill_pages", type=int, default=0,
+                    help="host-RAM spill store capacity in pages: cold "
+                         "prefix pages spill there instead of being "
+                         "freed (0: off; needs --prefix_cache on)")
     sv.add_argument("--max_queue", type=int, default=64,
                     help="bound of the generation wait queue")
     sv.add_argument("--deadline_ms", type=float, default=0,

@@ -54,6 +54,19 @@
 // slot stays sequential inside its block, and only S * g blocks run.
 // Splitting long slots across blocks, TMA and wgmma are later work.
 //
+// int8 pages (replaces paddle_tpu/ops/pallas_decode.py:
+// _paged_window_dequant_kernel, the dequant-fused twin): the same walk
+// over int8 K/V rows with float32 scales [N, PS, G]. A round stages each
+// page's int8 rows (16-byte cp.async when dh % 16 == 0, else 8-byte —
+// the reference admits dh % 8 == 0) and the page's PS scales of group g
+// (4-byte copies: one group's scales are strided by G). Each element is
+// dequantized in float32 right after it lands in shared memory,
+// k = float(int8) * scale[row], exactly the TPU kernel's rounding
+// points, and the products, the softmax and the merge stay in float32.
+// Pages past a slot's used count are not read, and neither are their
+// scales. The K/V bytes a call must move fall to a quarter of float32
+// (1 byte an element + 4 bytes a row); what bounds it is still latency.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared
 // -Xcompiler -fPIC (paddle_tpu_torch/ops/_build.py); bound with ctypes
 // through the plain C function at the bottom.
@@ -61,6 +74,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -74,6 +89,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
 }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
@@ -91,10 +109,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// 16-byte asynchronous global -> shared copy (sm_80+), and its groups
+// asynchronous global -> shared copies (sm_80+): 16 bytes bypassing L1,
+// 8 and 4 bytes through it (cp.async.cg takes only 16), and their groups
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem));
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -106,25 +135,51 @@ __device__ __forceinline__ void cp_async_wait_all_but_one() {
 
 constexpr int kCols = 8;            // key columns per softmax update
 
+__host__ __device__ __forceinline__ size_t align16(size_t n) {
+  return (n + 15) & ~static_cast<size_t>(15);
+}
+
+// Shared-memory layout of one block: K and V rings of
+// [2 rounds][split pages][PS][DH] elements of TKV, then (int8 pages) the
+// pages' K and V scales of group g, [2][split][PS] floats each; every
+// region starts on a 16-byte boundary.
+template <typename TKV>
+__host__ __device__ __forceinline__ size_t ring_bytes(int split, int PS,
+                                                      int DH) {
+  return align16((size_t)2 * split * PS * DH * sizeof(TKV));
+}
+__host__ __device__ __forceinline__ size_t scale_ring_bytes(int split,
+                                                            int PS) {
+  return align16((size_t)2 * split * PS * sizeof(float));
+}
+
 // grid (S, G); block 32 * W*rep * split threads (<= 1024); dynamic
-// shared max(2 rounds x split pages x (K, V) x ps x dh elements of T,
-// the merge scratch). NCH is ceil(dh / 32) rounded up to a power of
-// two: the per-lane chunks of the q row and the accumulator, sized at
-// compile time so registers fit a 1024-thread block.
+// shared max(the rings above, the merge scratch). NCH is ceil(dh / 32)
+// rounded up to a power of two: the per-lane chunks of the q row and
+// the accumulator, sized at compile time so registers fit a
+// 1024-thread block. T is q's and out's type; TKV the pages' (T, or
+// int8_t with float32 scales).
 // Layouts (all contiguous): q, out [S, W, H, DH]; k_pages, v_pages
-// [N, PS, G, DH]; tables [S, P] int32; kv_lens [S, W] int32.
-template <typename T, int NCH>
+// [N, PS, G, DH]; k_scales, v_scales [N, PS, G] (int8 pages only);
+// tables [S, P] int32; kv_lens [S, W] int32.
+template <typename T, typename TKV, int NCH>
 __global__ void __launch_bounds__(1024) paged_window_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ tables,
+    const T* __restrict__ q, const TKV* __restrict__ k_pages,
+    const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ tables,
     const int* __restrict__ kv_lens, T* __restrict__ out, int W, int H,
     int G, int DH, int n_pages, int PS, int P, float scale_log2) {
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rep = H / G;
   const int split = blockDim.x / kWarp / (W * rep);
   const int tile = PS * DH;
-  T* kbuf = reinterpret_cast<T*>(smem_raw);   // [2][split][PS][DH]
-  T* vbuf = kbuf + 2 * split * tile;          // [2][split][PS][DH]
+  const size_t rb = ring_bytes<TKV>(split, PS, DH);
+  TKV* kbuf = reinterpret_cast<TKV*>(smem_raw);        // [2][split][PS][DH]
+  TKV* vbuf = reinterpret_cast<TKV*>(smem_raw + rb);   // [2][split][PS][DH]
+  float* ksbuf = reinterpret_cast<float*>(smem_raw + 2 * rb);  // [2][split][PS]
+  float* vsbuf = reinterpret_cast<float*>(smem_raw + 2 * rb +
+                                          scale_ring_bytes(split, PS));
 
   const int s = blockIdx.x;
   const int g = blockIdx.y;
@@ -158,11 +213,15 @@ __global__ void __launch_bounds__(1024) paged_window_kernel(
     return;
   }
 
-  const int vec = 16 / (int)sizeof(T);        // elements per 16 bytes
+  // copy width: 16 bytes where a row is a multiple of 16 bytes, else 8
+  // (int8 rows with dh % 16 != 0)
+  const int cbytes = (DH * (int)sizeof(TKV)) % 16 == 0 ? 16 : 8;
+  const int vec = cbytes / (int)sizeof(TKV);  // elements per copy
   const int chunks_row = DH / vec;
   const int n_chunks = PS * chunks_row;       // per page and tensor
   const int n_rounds = (used + split - 1) / split;
-  // copy the pages of round r into buffer half `half`
+  // copy the pages of round r (and, for int8 pages, their scales of
+  // group g) into buffer half `half`
   auto issue = [&](int r, int half) {
     for (int j = threadIdx.x; j < split * n_chunks; j += blockDim.x) {
       const int pk = j / n_chunks;
@@ -175,8 +234,25 @@ __global__ void __launch_bounds__(1024) paged_window_kernel(
           ((size_t)tables[s * P + p] * PS * G + g) * (size_t)DH +
           (size_t)c * G * DH + e;
       const int soff = (half * split + pk) * tile + c * DH + e;
-      cp_async16(kbuf + soff, k_pages + goff);
-      cp_async16(vbuf + soff, v_pages + goff);
+      if (cbytes == 16) {
+        cp_async16(kbuf + soff, k_pages + goff);
+        cp_async16(vbuf + soff, v_pages + goff);
+      } else {
+        cp_async8(kbuf + soff, k_pages + goff);
+        cp_async8(vbuf + soff, v_pages + goff);
+      }
+    }
+    if constexpr (kQuant) {
+      for (int j = threadIdx.x; j < split * PS; j += blockDim.x) {
+        const int pk = j / PS;
+        const int p = r * split + pk;
+        if (p >= used) break;        // a skipped page skips its scales
+        const int c = j - pk * PS;
+        const size_t goff = ((size_t)tables[s * P + p] * PS + c) * G + g;
+        const int soff = (half * split + pk) * PS + c;
+        cp_async4(ksbuf + soff, k_scales + goff);
+        cp_async4(vsbuf + soff, v_scales + goff);
+      }
     }
   };
 
@@ -201,21 +277,27 @@ __global__ void __launch_bounds__(1024) paged_window_kernel(
     cp_async_wait_all_but_one();     // round r has landed
     __syncthreads();
     const int p = r * split + k;
-    const T* kt = kbuf + ((r & 1) * split + k) * tile;
-    const T* vt = vbuf + ((r & 1) * split + k) * tile;
+    const TKV* kt = kbuf + ((r & 1) * split + k) * tile;
+    const TKV* vt = vbuf + ((r & 1) * split + k) * tile;
+    const float* kst = ksbuf + ((r & 1) * split + k) * PS;
+    const float* vst = vsbuf + ((r & 1) * split + k) * PS;
     // columns of page p this row may see: absolute c < len
     const int c_end = p < used ? min(PS, len - p * PS) : 0;
     if (len <= 0 && p < used) {
       // a row that sees no column (kv_len 0): the TPU kernel does not
       // zero its masked weights, and exp2(NEG_INF - NEG_INF) = 1 gives
       // every column of the used pages weight 1 — the row returns the
-      // mean of V over them. m stays NEG_INF, so the split merge below
-      // sums these partial states with factor 1.
+      // mean of (dequantized) V over them. m stays NEG_INF, so the
+      // split merge below sums these partial states with factor 1.
       for (int c = 0; c < PS; ++c) {
+        const float sv = kQuant ? vst[c] : 1.f;
 #pragma unroll
         for (int i = 0; i < NCH; ++i) {
           const int d = i * kWarp + lane;
-          if (d < DH) acc[i] += to_f32(vt[c * DH + d]);
+          if (d < DH) {
+            const float vv = to_f32(vt[c * DH + d]);
+            acc[i] += kQuant ? vv * sv : vv;
+          }
         }
       }
       l += (float)PS;
@@ -226,10 +308,14 @@ __global__ void __launch_bounds__(1024) paged_window_kernel(
       for (int j = 0; j < kCols; ++j) {
         float part = 0.f;
         if (c0 + j < c_end) {
+          const float sk = kQuant ? kst[c0 + j] : 1.f;
 #pragma unroll
           for (int i = 0; i < NCH; ++i) {
             const int d = i * kWarp + lane;
-            if (d < DH) part += qv[i] * to_f32(kt[(c0 + j) * DH + d]);
+            if (d < DH) {
+              const float kk = to_f32(kt[(c0 + j) * DH + d]);
+              part += qv[i] * (kQuant ? kk * sk : kk);
+            }
           }
         }
         sc[j] = part;
@@ -242,10 +328,13 @@ __global__ void __launch_bounds__(1024) paged_window_kernel(
       }
       const float alpha = exp2f(m - m_new);
       float pw[kCols];
+      float sv[kCols];
       float psum = 0.f;
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
-        pw[j] = (c0 + j < c_end) ? exp2f(sc[j] - m_new) : 0.f;
+        const bool live = c0 + j < c_end;
+        pw[j] = live ? exp2f(sc[j] - m_new) : 0.f;
+        sv[j] = (kQuant && live) ? vst[c0 + j] : 1.f;
         psum += pw[j];
       }
       l = l * alpha + psum;
@@ -256,7 +345,10 @@ __global__ void __launch_bounds__(1024) paged_window_kernel(
           float a = acc[i] * alpha;
 #pragma unroll
           for (int j = 0; j < kCols; ++j)
-            if (c0 + j < c_end) a += pw[j] * to_f32(vt[(c0 + j) * DH + d]);
+            if (c0 + j < c_end) {
+              const float vv = to_f32(vt[(c0 + j) * DH + d]);
+              a += pw[j] * (kQuant ? vv * sv[j] : vv);
+            }
           acc[i] = a;
         }
       }
@@ -306,74 +398,120 @@ __global__ void __launch_bounds__(1024) paged_window_kernel(
   }
 }
 
-template <typename T, int NCH>
+// the launch's shared-memory bytes for `split` pages a round
+template <typename TKV>
+size_t smem_bytes(int split, int rows, int PS, int DH) {
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
+  const size_t copies = 2 * ring_bytes<TKV>(split, PS, DH) +
+                        (kQuant ? 2 * scale_ring_bytes(split, PS) : 0);
+  const size_t merge = (size_t)rows * split * (2 + DH) * sizeof(float);
+  return copies > merge ? copies : merge;
+}
+
+template <typename T, typename TKV, int NCH>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
+                   const float* k_scales, const float* v_scales,
                    const int* tables, const int* kv_lens, void* out, int S,
                    int W, int H, int G, int DH, int n_pages, int PS, int P,
                    float scale, cudaStream_t stream) {
   const int rows = W * (H / G);
-  const size_t page_bytes = 2u * PS * DH * sizeof(T);   // K + V
   int split = rows < kTargetWarps ? kTargetWarps / rows : 1;
-  while (split > 1 && 2u * split * page_bytes > kMaxSmem) split /= 2;
-  const size_t copies = 2u * split * page_bytes;
-  const size_t merge = (size_t)rows * split * (2 + DH) * sizeof(float);
-  const size_t smem = copies > merge ? copies : merge;
+  while (split > 1 && smem_bytes<TKV>(split, rows, PS, DH) > kMaxSmem)
+    split /= 2;
+  const size_t smem = smem_bytes<TKV>(split, rows, PS, DH);
   if (smem > 48u * 1024u) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_window_kernel<T, NCH>,
+        paged_window_kernel<T, TKV, NCH>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   dim3 grid(S, G);
   dim3 block(kWarp * rows * split);
-  paged_window_kernel<T, NCH><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), tables, kv_lens, static_cast<T*>(out),
-      W, H, G, DH, n_pages, PS, P, scale * kLog2e);
+  paged_window_kernel<T, TKV, NCH><<<grid, block, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const TKV*>(k_pages),
+      static_cast<const TKV*>(v_pages), k_scales, v_scales, tables, kv_lens,
+      static_cast<T*>(out), W, H, G, DH, n_pages, PS, P, scale * kLog2e);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TKV>
 cudaError_t dispatch(const void* q, const void* k_pages, const void* v_pages,
+                     const float* k_scales, const float* v_scales,
                      const int* tables, const int* kv_lens, void* out, int S,
                      int W, int H, int G, int DH, int n_pages, int PS, int P,
                      float scale, cudaStream_t stream) {
   const int nch = (DH + kWarp - 1) / kWarp;
   if (nch <= 1)
-    return launch<T, 1>(q, k_pages, v_pages, tables, kv_lens, out, S, W, H,
-                        G, DH, n_pages, PS, P, scale, stream);
+    return launch<T, TKV, 1>(q, k_pages, v_pages, k_scales, v_scales, tables,
+                             kv_lens, out, S, W, H, G, DH, n_pages, PS, P,
+                             scale, stream);
   if (nch <= 2)
-    return launch<T, 2>(q, k_pages, v_pages, tables, kv_lens, out, S, W, H,
-                        G, DH, n_pages, PS, P, scale, stream);
+    return launch<T, TKV, 2>(q, k_pages, v_pages, k_scales, v_scales, tables,
+                             kv_lens, out, S, W, H, G, DH, n_pages, PS, P,
+                             scale, stream);
   if (nch <= 4)
-    return launch<T, 4>(q, k_pages, v_pages, tables, kv_lens, out, S, W, H,
-                        G, DH, n_pages, PS, P, scale, stream);
-  return launch<T, kMaxChunks>(q, k_pages, v_pages, tables, kv_lens, out, S,
-                               W, H, G, DH, n_pages, PS, P, scale, stream);
+    return launch<T, TKV, 4>(q, k_pages, v_pages, k_scales, v_scales, tables,
+                             kv_lens, out, S, W, H, G, DH, n_pages, PS, P,
+                             scale, stream);
+  return launch<T, TKV, kMaxChunks>(q, k_pages, v_pages, k_scales, v_scales,
+                                    tables, kv_lens, out, S, W, H, G, DH,
+                                    n_pages, PS, P, scale, stream);
+}
+
+bool shape_ok(int S, int W, int H, int G, int DH, int PS, int P) {
+  return S > 0 && W > 0 && G > 0 && H % G == 0 && DH > 0 && DH % 8 == 0 &&
+         DH <= kMaxChunks * kWarp && W * (H / G) <= kWarp && PS > 0 && P > 0;
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. Returns cudaGetLastError() after the
-// launch (0 on success); the wrapper raises on anything else.
+// Float pages of q's dtype. dtype: 0 float32, 1 bfloat16. Returns
+// cudaGetLastError() after the launch (0 on success); the wrapper raises
+// on anything else.
 extern "C" int pt_paged_window_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* tables, const void* kv_lens, void* out, int S, int W, int H,
     int G, int DH, int n_pages, int PS, int P, float scale, int dtype,
     void* stream) {
-  if (S <= 0 || W <= 0 || G <= 0 || H % G != 0 || DH <= 0 || DH % 8 ||
-      DH > kMaxChunks * kWarp || W * (H / G) > kWarp || PS <= 0 || P <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (!shape_ok(S, W, H, G, DH, PS, P)) return (int)cudaErrorInvalidValue;
   const int* tb = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(kv_lens);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = dispatch<float>(q, k_pages, v_pages, tb, ln, out, S, W, H, G, DH,
-                        n_pages, PS, P, scale, st);
+    e = dispatch<float, float>(q, k_pages, v_pages, nullptr, nullptr, tb, ln,
+                               out, S, W, H, G, DH, n_pages, PS, P, scale,
+                               st);
   else if (dtype == 1)
-    e = dispatch<__nv_bfloat16>(q, k_pages, v_pages, tb, ln, out, S, W, H,
-                                G, DH, n_pages, PS, P, scale, st);
+    e = dispatch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pages, v_pages, nullptr, nullptr, tb, ln, out, S, W, H, G, DH,
+        n_pages, PS, P, scale, st);
+  else
+    e = cudaErrorInvalidValue;
+  return (int)e;
+}
+
+// int8 pages with float32 scales [N, PS, G]; dtype is q's (and out's):
+// 0 float32, 1 bfloat16.
+extern "C" int pt_paged_window_attention_int8(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scales, const void* v_scales, const void* tables,
+    const void* kv_lens, void* out, int S, int W, int H, int G, int DH,
+    int n_pages, int PS, int P, float scale, int dtype, void* stream) {
+  if (!shape_ok(S, W, H, G, DH, PS, P)) return (int)cudaErrorInvalidValue;
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
+  const int* tb = static_cast<const int*>(tables);
+  const int* ln = static_cast<const int*>(kv_lens);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == 0)
+    e = dispatch<float, int8_t>(q, k_pages, v_pages, ks, vs, tb, ln, out, S,
+                                W, H, G, DH, n_pages, PS, P, scale, st);
+  else if (dtype == 1)
+    e = dispatch<__nv_bfloat16, int8_t>(q, k_pages, v_pages, ks, vs, tb, ln,
+                                        out, S, W, H, G, DH, n_pages, PS, P,
+                                        scale, st);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

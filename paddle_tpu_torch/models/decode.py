@@ -18,10 +18,15 @@ there is no jit and no per-shape compile; pools are updated IN PLACE
 (the counterpart of the reference's buffer donation) and ``step``
 returns the same pool tensors it was given.
 
-Not in this slice (each raises ``NotImplementedError``): MoE blocks,
-int8 KV pools (``kv_quant``), beam search and the speculative
-``DraftDecoder``; the flash-attention prefill is TPU-only in the
-reference and has no counterpart here.
+``PagedDecoder(kv_quant="int8")`` keeps the two-tier int8 pools
+(``{"q": int8, "s": float32 scales}``, read by the dequant path of the
+window kernel on the card); ``read_page`` / ``write_page`` are the
+host spill tier's device legs. ``DraftDecoder`` is the speculative
+draft over slot-private dense caches.
+
+Not in this slice (each raises ``NotImplementedError``): MoE blocks and
+beam search; the flash-attention prefill is TPU-only in the reference
+and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -278,6 +283,20 @@ class PagedDecoder:
     masks later positions, so the window is causal; output column w is
     the model's next-token choice after feeding tokens 0..w.
 
+    ``kv_quant="int8"`` switches the pools to the two-tier int8 layout:
+    each pool is ``{"q": int8 [L, N, ps, g, dh], "s": float32 [L, N,
+    ps, g]}``; the scatter quantizes each K/V row per (token, kv-head)
+    with ``ops/paged_decode.quantize_kv`` (a pure function of the row,
+    so prefix-shared pages stay bit-identical across owners) and
+    attention reads through the dequant path of the window kernel.
+
+    On a CUDA card the window kernel must take the step's shapes
+    (``paged_kernel_supported``, with the scale blocks under int8):
+    construction raises ``ValueError`` for a shape it refuses. The TPU
+    engine falls back to a dequantizing gather there (and journals
+    ``dequant_fallback``); the port never runs the plain version on the
+    card.
+
     Scheduling (which slot holds which request, page alloc/free,
     eviction) is host policy in serving/engine.py; this class is only
     the device step."""
@@ -286,10 +305,9 @@ class PagedDecoder:
                  page_size: int, num_pages: int, max_pages_per_slot: int,
                  temperature: Optional[float] = None, window: int = 1,
                  kv_quant: Optional[str] = None):
-        if kv_quant is not None:
-            raise NotImplementedError(
-                "int8 KV pools (kv_quant) are not ported yet: they come "
-                "with the dequant-fused kernel in a later slice")
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"kv_quant must be None or 'int8', got "
+                             f"{kv_quant!r}")
         if num_pages < 2:
             raise ValueError("need at least the null page + one real")
         pos_rows = dense.p[f"_{dense.name}_pos_emb.w0"].shape[0]
@@ -307,21 +325,51 @@ class PagedDecoder:
         self.max_pages_per_slot = int(max_pages_per_slot)
         self.temperature = temperature
         self.window = int(window)
+        self.kv_quant = kv_quant
         self.head_dim = dense.head_dim
         self.kv_heads = dense.kv_heads
         self.dtype = dense.dtype
+        if self.device.type == "cuda":
+            probe_q = torch.empty((0, self.window, dense.n_heads,
+                                   self.head_dim), dtype=self.dtype)
+            kv_dtype = torch.int8 if kv_quant else self.dtype
+            probe_k = torch.empty((0, self.page_size, self.kv_heads,
+                                   self.head_dim), dtype=kv_dtype)
+            probe_s = torch.empty((0, self.page_size, self.kv_heads),
+                                  dtype=torch.float32) if kv_quant else None
+            if not paged_ops.paged_kernel_supported(probe_q, probe_k,
+                                                    probe_s):
+                raise ValueError(
+                    f"the paged window kernel does not take W "
+                    f"{self.window}, {dense.n_heads} heads over "
+                    f"{self.kv_heads} kv heads of dim {self.head_dim}, "
+                    f"page {self.page_size}, {self.dtype}"
+                    + (" with int8 pages" if kv_quant else "")
+                    + " (paged_kernel_supported)")
 
-    def init_pools(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def init_pools(self):
         """Zeroed (k_pool, v_pool), each [L, n_pages, page_size, g, dh]
-        at the parameters' dtype, on the decoder's device."""
+        at the parameters' dtype, on the decoder's device — or, under
+        ``kv_quant="int8"``, dicts ``{"q": int8 values, "s": float32
+        per-row scales [L, n_pages, page_size, g]}``."""
         shape = (self.dense.n_layers, self.num_pages, self.page_size,
                  self.kv_heads, self.head_dim)
+        if self.kv_quant == "int8":
+            def one():
+                return {"q": torch.zeros(shape, dtype=torch.int8,
+                                         device=self.device),
+                        "s": torch.zeros(shape[:-1], dtype=torch.float32,
+                                         device=self.device)}
+            return one(), one()
         return (torch.zeros(shape, dtype=self.dtype, device=self.device),
                 torch.zeros(shape, dtype=self.dtype, device=self.device))
 
     def pool_bytes(self) -> int:
         rows = self.dense.n_layers * self.num_pages * self.page_size * \
             self.kv_heads
+        if self.kv_quant == "int8":
+            # 1 byte an element + one float32 scale a row, per pool
+            return 2 * rows * (self.head_dim + 4)
         esize = torch.empty((), dtype=self.dtype).element_size()
         return 2 * esize * rows * self.head_dim
 
@@ -339,18 +387,31 @@ class PagedDecoder:
         # (physical page, in-page offset) — BEFORE attention, so later
         # window tokens attend to earlier ones. Masked tokens were
         # routed to the null page by the caller.
-        k_pool[i, page_idx, offs] = k.reshape(S * W, g, -1).to(k_pool.dtype)
-        v_pool[i, page_idx, offs] = v.reshape(S * W, g, -1).to(v_pool.dtype)
-        attn = paged_ops.paged_window_attention(
-            q.contiguous(), k_pool[i], v_pool[i], page_tables, kv_lens)
+        if self.kv_quant == "int8":
+            kq, ks = paged_ops.quantize_kv(k.reshape(S * W, g, -1))
+            vq, vs = paged_ops.quantize_kv(v.reshape(S * W, g, -1))
+            k_pool["q"][i, page_idx, offs] = kq
+            k_pool["s"][i, page_idx, offs] = ks
+            v_pool["q"][i, page_idx, offs] = vq
+            v_pool["s"][i, page_idx, offs] = vs
+            attn = paged_ops.paged_window_attention(
+                q.contiguous(), k_pool["q"][i], v_pool["q"][i],
+                page_tables, kv_lens, k_scales=k_pool["s"][i],
+                v_scales=v_pool["s"][i])
+        else:
+            k_pool[i, page_idx, offs] = k.reshape(S * W, g, -1) \
+                .to(k_pool.dtype)
+            v_pool[i, page_idx, offs] = v.reshape(S * W, g, -1) \
+                .to(v_pool.dtype)
+            attn = paged_ops.paged_window_attention(
+                q.contiguous(), k_pool[i], v_pool[i], page_tables, kv_lens)
         x = x + attn.reshape(x.shape) @ p[f"_{n}_l{i}_proj.w0"]
         return d0._ffn(i, x)
 
-    @torch.no_grad()
-    def _step_impl(self, k_pool, v_pool, tokens, positions, page_tables,
-                   active, generator):
+    def _forward(self, k_pool, v_pool, tokens, positions, page_tables,
+                 active):
         """tokens/positions/active [S, W]; page_tables [S, P] int32 ->
-        next_tokens [S, W] (on the device); the pools change in place."""
+        logits [S, W, V] (on the device); the pools change in place."""
         d0 = self.dense
         ps = self.page_size
         x = d0._embed(tokens, positions)                 # [S, W, d]
@@ -361,7 +422,15 @@ class PagedDecoder:
         for i in range(d0.n_layers):
             x = self._paged_block(i, x, k_pool, v_pool, page_idx, offs,
                                   page_tables, kv_lens)
-        logits = d0._logits(x)                            # [S, W, V]
+        return d0._logits(x)
+
+    @torch.no_grad()
+    def _step_impl(self, k_pool, v_pool, tokens, positions, page_tables,
+                   active, generator):
+        """tokens/positions/active [S, W]; page_tables [S, P] int32 ->
+        next_tokens [S, W] (on the device); the pools change in place."""
+        logits = self._forward(k_pool, v_pool, tokens, positions,
+                               page_tables, active)       # [S, W, V]
         if self.temperature is None:
             return torch.argmax(logits, dim=-1)
         probs = torch.softmax(logits.float() / self.temperature, dim=-1)
@@ -375,7 +444,7 @@ class PagedDecoder:
         (returns next tokens [S]) or the [S, W] window contract (returns
         [S, W]); inputs are numpy arrays or tensors. Returns
         ``(next_tokens as numpy int32, k_pool, v_pool)`` — the pools are
-        the tensors passed in, updated in place; reading the tokens back
+        the objects passed in, updated in place; reading the tokens back
         is the one host sync of the step."""
         dev = self.device
         tokens = torch.as_tensor(np.asarray(tokens), device=dev).long()
@@ -397,20 +466,177 @@ class PagedDecoder:
         return (nxt[:, 0] if squeeze else nxt), k_pool, v_pool
 
     @torch.no_grad()
+    def prefill_logits(self, ids) -> np.ndarray:
+        """Teacher-forced logits [t, V] (float32, host) of one sequence
+        ``ids`` [t] through this paged step, in fresh pools: slot 0,
+        physical pages 1, 2, ..., W tokens a call. Row j is the
+        distribution for position j + 1 under the paged numerics
+        (int8 pages included) — the near-tie reference of
+        :func:`tokens_agree` for an engine that runs them."""
+        ids = [int(t) for t in np.asarray(ids).reshape(-1)]
+        n_pages = -(-len(ids) // self.page_size)
+        if n_pages > min(self.max_pages_per_slot, self.num_pages - 1):
+            raise ValueError(f"{len(ids)} tokens need {n_pages} pages")
+        k_pool, v_pool = self.init_pools()
+        S, W, dev = self.num_slots, self.window, self.device
+        tables = torch.zeros((S, self.max_pages_per_slot),
+                             dtype=torch.int32, device=dev)
+        tables[0, :n_pages] = torch.arange(1, n_pages + 1)
+        rows = []
+        for c in range(0, len(ids), W):
+            chunk = ids[c:c + W]
+            tokens = torch.zeros((S, W), dtype=torch.long, device=dev)
+            positions = torch.zeros((S, W), dtype=torch.long, device=dev)
+            active = torch.zeros((S, W), dtype=torch.bool, device=dev)
+            tokens[0, :len(chunk)] = torch.tensor(chunk)
+            positions[0, :len(chunk)] = torch.arange(c, c + len(chunk))
+            active[0, :len(chunk)] = True
+            logits = self._forward(k_pool, v_pool, tokens, positions,
+                                   tables, active)
+            rows.append(logits[0, :len(chunk)].float().cpu())
+        return torch.cat(rows).numpy()
+
+    @staticmethod
+    def _leaves(pool) -> List[torch.Tensor]:
+        """The pool's tensors: the bare float pool, or the int8 layout's
+        values and scales (sorted keys)."""
+        if isinstance(pool, dict):
+            return [pool[key] for key in sorted(pool)]
+        return [pool]
+
+    @torch.no_grad()
     def copy_page(self, k_pool, v_pool, src: int, dst: int):
         """Copy physical page ``src`` -> ``dst`` in both pools, all
-        layers, in place — the copy-on-write step behind partial-page
-        prefix reuse (serving/prefix.py)."""
-        k_pool[:, int(dst)] = k_pool[:, int(src)]
-        v_pool[:, int(dst)] = v_pool[:, int(src)]
+        layers, in place (values AND scales of the int8 layout) — the
+        copy-on-write step behind partial-page prefix reuse
+        (serving/prefix.py)."""
+        for leaf in self._leaves(k_pool) + self._leaves(v_pool):
+            leaf[:, int(dst)] = leaf[:, int(src)]
+        return k_pool, v_pool
+
+    @torch.no_grad()
+    def read_page(self, k_pool, v_pool, page: int):
+        """One physical page of both pools as [L, 1, ...] copies (same
+        structure as the pools) — the spill tier's device -> host
+        read (serving/engine.py)."""
+        page = int(page)
+
+        def rd(pool):
+            if isinstance(pool, dict):
+                return {key: leaf[:, page:page + 1].clone()
+                        for key, leaf in pool.items()}
+            return pool[:, page:page + 1].clone()
+
+        return rd(k_pool), rd(v_pool)
+
+    @torch.no_grad()
+    def write_page(self, k_pool, v_pool, k_page, v_page, page: int):
+        """Write [L, 1, ...] pages (the structure :meth:`read_page`
+        returns) back into physical ``page`` of both pools, in place —
+        the restore leg of page spill."""
+        page = int(page)
+
+        def wr(pool, data):
+            if isinstance(pool, dict):
+                for key, leaf in pool.items():
+                    leaf[:, page:page + 1] = data[key].to(leaf.device,
+                                                          leaf.dtype)
+            else:
+                pool[:, page:page + 1] = data.to(pool.device, pool.dtype)
+
+        wr(k_pool, k_page)
+        wr(v_pool, v_page)
         return k_pool, v_pool
 
 
 class DraftDecoder:
-    """The speculative-decoding draft model of the reference — not in
-    this slice of the port."""
+    """The DRAFT side of speculative decoding: a small decoder over
+    slot-PRIVATE dense caches, window-batched like PagedDecoder.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "speculative decoding (DraftDecoder) is not ported yet: it "
-            "comes with a later slice of the serving path")
+    The draft never shares the paged pool or the prefix trie — each
+    slot owns a [T+1]-row dense cache lane (row T is the null row that
+    masked tokens write to, mirroring the paged null page), and the
+    engine teacher-forces the slot's committed tokens through it before
+    asking for proposals. The engine only tracks how many committed
+    tokens the draft has FED (``draft_pos``), rolls it back past
+    rejected proposals, and re-feeds — every cache row is rewritten
+    before any query's kv_len can reach it. Greedy argmax only.
+
+    One [S, W] step serves catch-up (feed up to W committed tokens)
+    and proposal (feed 1 token, read its argmax). Its attention is the
+    reference's einsum outside any kernel (plain ``torch.einsum``)."""
+
+    def __init__(self, dense: TransformerDecoder, *, num_slots: int,
+                 max_seq_len: int, window: int = 1):
+        pos_rows = dense.p[f"_{dense.name}_pos_emb.w0"].shape[0]
+        if max_seq_len > pos_rows:
+            raise ValueError(f"max_seq_len {max_seq_len} exceeds the "
+                             f"position table ({pos_rows} rows)")
+        self.dense = dense
+        self.device = dense.device
+        self.num_slots = int(num_slots)
+        self.max_seq_len = int(max_seq_len)
+        self.window = int(window)
+        self.head_dim = dense.head_dim
+        self.kv_heads = dense.kv_heads
+        self.dtype = dense.dtype
+
+    def init_caches(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Zeroed (k, v), each [L, S, T+1, g, dh] — row T is the null
+        row masked tokens write to (never read: kv_len <= T)."""
+        shape = (self.dense.n_layers, self.num_slots,
+                 self.max_seq_len + 1, self.kv_heads, self.head_dim)
+        return (torch.zeros(shape, dtype=self.dtype, device=self.device),
+                torch.zeros(shape, dtype=self.dtype, device=self.device))
+
+    def cache_bytes(self) -> int:
+        esize = torch.empty((), dtype=self.dtype).element_size()
+        return 2 * esize * self.dense.n_layers * self.num_slots * \
+            (self.max_seq_len + 1) * self.kv_heads * self.head_dim
+
+    @torch.no_grad()
+    def _step_impl(self, kc, vc, tokens, positions, active):
+        """tokens/positions/active [S, W] -> argmax [S, W]; the caches
+        change in place."""
+        d0 = self.dense
+        p, n, h, g = d0.p, d0.name, d0.n_heads, self.kv_heads
+        S, W = tokens.shape
+        rep = h // g
+        rows = torch.arange(S, device=self.device)[:, None].expand(S, W)
+        wpos = torch.where(active, positions, self.max_seq_len)
+        x = d0._embed(tokens, torch.where(active, positions, 0))
+        kv_lens = positions + 1                          # [S, W]
+        tpos = torch.arange(self.max_seq_len + 1, device=self.device)
+        mask = tpos[None, None, :] < kv_lens[:, :, None]  # [S, W, T+1]
+        for i in range(d0.n_layers):
+            ln1 = _ln(x, p[f"_{n}_l{i}_ln1.w0"], p[f"_{n}_l{i}_ln1.wbias"])
+            q = _heads(ln1 @ p[f"_{n}_l{i}_q.w0"], h)    # [S, W, h, dh]
+            k = _heads(ln1 @ p[f"_{n}_l{i}_k.w0"], g)
+            v = _heads(ln1 @ p[f"_{n}_l{i}_v.w0"], g)
+            kc[i, rows, wpos] = k.to(kc.dtype)
+            vc[i, rows, wpos] = v.to(vc.dtype)
+            dh = q.shape[-1]
+            q5 = q.reshape(S, W, g, rep, dh)
+            logits = torch.einsum("swgrd,stgd->sgrwt", q5,
+                                  kc[i].to(q.dtype)) * (dh ** -0.5)
+            logits = torch.where(mask[:, None, None], logits,
+                                 torch.tensor(_NEG_INF, dtype=logits.dtype,
+                                              device=self.device))
+            w_ = torch.softmax(logits, dim=-1)
+            attn = torch.einsum("sgrwt,stgd->swgrd", w_,
+                                vc[i].to(q.dtype))
+            x = x + attn.reshape(x.shape) @ p[f"_{n}_l{i}_proj.w0"]
+            x = d0._ffn(i, x)
+        return torch.argmax(d0._logits(x), dim=-1)
+
+    def step(self, kc, vc, tokens, positions, active):
+        """One [S, W] draft step over numpy arrays or tensors. Returns
+        ``(argmax as numpy int32 [S, W], kc, vc)`` — the caches are the
+        tensors passed in, updated in place."""
+        dev = self.device
+        tokens = torch.as_tensor(np.asarray(tokens), device=dev).long()
+        positions = torch.as_tensor(np.asarray(positions),
+                                    device=dev).long()
+        active = torch.as_tensor(np.asarray(active), device=dev).bool()
+        out = self._step_impl(kc, vc, tokens, positions, active)
+        return out.to(torch.int32).cpu().numpy(), kc, vc

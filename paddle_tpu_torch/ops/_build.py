@@ -36,6 +36,7 @@ SOURCES: Dict[str, str] = {
     "lstm_fwd": "lstm_fwd.cu",
     "lstm_bwd": "lstm_bwd.cu",
     "gru_fwd": "gru_fwd.cu",
+    "decode_attention": "decode_attention.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

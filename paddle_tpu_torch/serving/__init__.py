@@ -1,7 +1,7 @@
 """Serving plane of the port: the continuous-batching decode engine
-(engine.py) with its shared-prefix KV index (prefix.py), the
-engine-backed InferenceServer (server.py) and its JSON/HTTP front
-(http.py)."""
+(engine.py) with its shared-prefix KV index (prefix.py) and host spill
+tier (spill.py), the engine-backed InferenceServer (server.py) and its
+JSON/HTTP front (http.py)."""
 
 from paddle_tpu_torch.serving.engine import (DecodeEngine, GenRequest,
                                              PagePool)
@@ -10,7 +10,9 @@ from paddle_tpu_torch.serving.prefix import PrefixIndex, PrefixMatch
 from paddle_tpu_torch.serving.server import (Expired, InferenceServer,
                                              Rejected, ServerClosed,
                                              ServingError)
+from paddle_tpu_torch.serving.spill import SpillEntry, SpillStore
 
 __all__ = ["DecodeEngine", "Expired", "GenRequest", "InferenceServer",
            "PagePool", "PrefixIndex", "PrefixMatch", "Rejected",
-           "ServerClosed", "ServingError", "build_http_server"]
+           "ServerClosed", "ServingError", "SpillEntry", "SpillStore",
+           "build_http_server"]

@@ -24,16 +24,25 @@
   itself is bounded (``queue_full``).
 - Shared-prefix KV reuse (serving/prefix.py) with copy-on-write on
   divergence inside a page.
+- Speculative decoding (``draft=``, ``spec_k``): a small draft
+  (models/decode.DraftDecoder) proposes up to k tokens per slot; the
+  target verifies them in the same [S, W] paged step it uses for
+  prefill chunks (W = spec_k + 1 fixed at construction). Greedy token
+  identity is the acceptance rule, so output is token-exact against
+  the dense decoder; rejected rows are dead weight the kv_len mask
+  never reads and the next feed overwrites.
+- The two-tier KV plane: ``kv_quant="int8"`` pools (the dequant path of
+  the window kernel) and ``kv_spill_pages``, a host-RAM store
+  (serving/spill.py) that cold trie pages spill to instead of being
+  freed and restore from on the next prefix match.
 
 ``stats()`` exports KV-page occupancy, slot utilization, per-token
-latency percentiles, prefix-hit accounting and the scheduling
-counters.
+latency percentiles, prefix-hit, speculation and spill accounting and
+the scheduling counters.
 
-Not in this slice (each raises ``NotImplementedError``): speculative
-decoding (``draft=``), int8 KV pages (``kv_quant``) and host spill of
-cold pages (``kv_spill_pages``). The reference's observability plane
-(event journal, flight recorder, profiler, SLO watchdog, metrics
-registry) is not ported either.
+The reference's observability plane (event journal, flight recorder,
+profiler, SLO watchdog, metrics registry) is not ported: its counters
+stay in ``stats()``.
 """
 
 from __future__ import annotations
@@ -43,11 +52,13 @@ import threading
 import time
 import uuid
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from paddle_tpu_torch.serving.prefix import PrefixIndex
+from paddle_tpu_torch.serving.spill import SpillEntry, SpillStore
 from paddle_tpu_torch.serving.server import (Expired, Rejected,
                                              ServerClosed, ServingError,
                                              percentile)
@@ -173,7 +184,7 @@ class GenRequest:
         self.finished_at: Optional[float] = None
         self.evictions = 0
         self.prefix_hit_pages = 0
-        self.accepted_tokens = 0          # speculation: always 0 here
+        self.accepted_tokens = 0
         self._cancelled = False
 
     @property
@@ -198,7 +209,7 @@ class _Slot:
     """Host bookkeeping for one occupied decode slot."""
 
     __slots__ = ("req", "replay", "pos", "pages", "arrival", "last_tok",
-                 "last_token_t")
+                 "last_token_t", "draft_pos")
 
     def __init__(self, req: GenRequest, arrival: int):
         self.req = req
@@ -211,6 +222,10 @@ class _Slot:
         self.arrival = arrival
         self.last_tok = 0
         self.last_token_t: Optional[float] = None
+        # committed tokens already teacher-forced through the DRAFT
+        # cache lane (speculative decoding); rolled back past rejected
+        # proposals every verify
+        self.draft_pos = 0
 
     def next_input(self) -> int:
         if self.pos < len(self.replay):
@@ -227,8 +242,14 @@ class DecodeEngine:
     to full capacity (every slot can reach ``max_seq_len``) — size it
     SMALLER to serve more slots than worst-case memory would allow and
     let preemption absorb the tail. ``prefix_cache`` toggles
-    shared-prefix KV reuse. ``generator`` (a ``torch.Generator`` on the
-    decoder's device) drives sampling when ``temperature`` is set.
+    shared-prefix KV reuse. ``draft``/``spec_k`` turn on speculative
+    decoding (a second, smaller TransformerDecoder on the same device
+    proposing ``spec_k`` tokens per step — greedy only).
+    ``kv_quant="int8"`` stores the pages in int8 with per-row scales;
+    ``kv_spill_pages`` > 0 attaches a host-RAM spill store of that many
+    pages behind the prefix cache. ``generator`` (a
+    ``torch.Generator`` on the decoder's device) drives sampling when
+    ``temperature`` is set.
 
     Drive it synchronously (``step()`` / ``run()`` — deterministic, the
     test/bench mode) or as a background thread (``start()`` /
@@ -245,24 +266,24 @@ class DecodeEngine:
                  kv_quant: Optional[str] = None,
                  kv_spill_pages: int = 0,
                  generator=None):
-        if draft is not None or spec_k:
-            raise NotImplementedError(
-                "speculative decoding (draft=/spec_k) is not ported yet")
-        if kv_spill_pages:
-            raise NotImplementedError(
-                "host spill of KV pages (kv_spill_pages) is not ported "
-                "yet")
         pos_rows = decoder.p[f"_{decoder.name}_pos_emb.w0"].shape[0]
         if max_seq_len is None:
             max_seq_len = pos_rows
         self.max_seq_len = min(int(max_seq_len), pos_rows)
         self.page_size = int(page_size)
         self.num_slots = int(num_slots)
-        # W = 1: one token per slot per step (no speculation window)
-        self.window = 1
+        self.spec_k = max(int(spec_k), 0) if draft is not None else 0
+        if self.spec_k and temperature is not None:
+            raise ValueError(
+                "speculative decoding is greedy-only: the acceptance "
+                "rule is token identity, which sampling breaks")
+        # W = spec_k + 1: one pending token + k proposals per step,
+        # fixed at construction
+        self.window = 1 + self.spec_k
         pages_per_slot = -(-self.max_seq_len // self.page_size)
         if num_pages is None:
             num_pages = self.num_slots * pages_per_slot + 1
+        self.kv_quant = kv_quant
         self.paged = decoder.paged(
             num_slots=self.num_slots, page_size=self.page_size,
             num_pages=int(num_pages), max_pages_per_slot=pages_per_slot,
@@ -273,6 +294,24 @@ class DecodeEngine:
         self.prefix: Optional[PrefixIndex] = (
             PrefixIndex(self.pool, self.page_size) if prefix_cache
             else None)
+        if kv_spill_pages and not prefix_cache:
+            raise ValueError(
+                "kv_spill_pages needs the prefix cache: spilled pages "
+                "are keyed and restored by their trie token path")
+        self.spill: Optional[SpillStore] = (
+            SpillStore(int(kv_spill_pages)) if kv_spill_pages else None)
+        # test seam: called at the "read" and "commit" stages of every
+        # spill with (stage, token path, page), so a test can crash a
+        # spill between its stages and check the ordering contract
+        self._spill_interceptor: Optional[
+            Callable[[str, tuple, int], None]] = None
+        self.draft = None
+        if draft is not None and self.spec_k > 0:
+            from paddle_tpu_torch.models.decode import DraftDecoder
+            self.draft = DraftDecoder(
+                draft, num_slots=self.num_slots,
+                max_seq_len=self.max_seq_len, window=self.window)
+            self._draft_kc, self._draft_vc = self.draft.init_caches()
         self.max_waiting = int(max_waiting)
         self.temperature = temperature
         self.generator = generator
@@ -302,7 +341,14 @@ class DecodeEngine:
                           "tokens_out": 0, "prefill_tokens": 0,
                           "prefix_hit_pages": 0, "prefix_miss_pages": 0,
                           "prefix_cow_copies": 0,
-                          "prefix_evicted_pages": 0}
+                          "prefix_evicted_pages": 0,
+                          "spec_proposed_tokens": 0,
+                          "spec_accepted_tokens": 0,
+                          "draft_failures": 0,
+                          "kv_pages_spilled": 0,
+                          "kv_pages_restored": 0,
+                          "kv_spill_integrity_drops": 0,
+                          "kv_spill_cleared": 0}
 
     # ------------------------------------------------------------ admission
     def _pages_for(self, n_tokens: int) -> int:
@@ -459,15 +505,160 @@ class DecodeEngine:
     def _alloc_page(self) -> Optional[int]:
         """One page from the pool, reclaiming cold prefix-cache leaves
         (LRU, trie-only refcount) when the free list is dry — the trie
-        gives pages back BEFORE any running request is preempted."""
+        gives pages back BEFORE any running request is preempted. With
+        a spill store attached, cold pages go device->host
+        (:meth:`_spill_cold_pages`) instead of being destroyed; the
+        lossy ``evict_lru`` path stays the fallback when spilling frees
+        nothing (no candidates, or a failed device read)."""
         page = self.pool.alloc()
         while page is None and self.prefix is not None:
+            if self.spill is not None and self._spill_cold_pages(1):
+                page = self.pool.alloc()
+                continue
             freed = self.prefix.evict_lru(1)
             if not freed:
                 return None
             self._counters["prefix_evicted_pages"] += len(freed)
             page = self.pool.alloc()
         return page
+
+    # ------------------------------------------------------------- spill
+    @staticmethod
+    def _flatten_page(tag: str, tree, out: dict) -> None:
+        """Pool page -> named host arrays (float pools are bare
+        tensors; int8 pools are {"q", "s"} dicts). bfloat16 has no
+        numpy type, so its bits travel as int16."""
+        def host(t):
+            t = t.detach().cpu()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            return t.numpy()
+
+        if isinstance(tree, dict):
+            for kk in sorted(tree):
+                out[f"{tag}.{kk}"] = host(tree[kk])
+        else:
+            out[tag] = host(tree)
+
+    @staticmethod
+    def _unflatten_page(tag: str, like, payload: dict):
+        """Inverse of :meth:`_flatten_page`, shaped like the pool
+        ``like`` (host tensors; ``write_page`` moves them)."""
+        def dev(arr, leaf):
+            return torch.from_numpy(np.ascontiguousarray(arr)) \
+                .view(leaf.dtype)
+
+        if isinstance(like, dict):
+            return {kk: dev(payload[f"{tag}.{kk}"], like[kk])
+                    for kk in like}
+        return dev(payload[tag], like)
+
+    def _spill_cold_pages(self, n: int, avoid=None) -> int:
+        """Spill up to ``n`` cold trie-only pages to the host store,
+        in the crash-safety order of serving/spill.py: read +
+        checksum first (no state changed), THEN evict the node and
+        free the device page, THEN commit the entry — a crash at any
+        point leaves the accounting balanced and never leaves a page
+        both device-owned and host-stored.
+
+        ``avoid`` (a token tuple) skips candidates on that path — the
+        restore path passes the replay it is extending, so making room
+        never spills the very match it restores into."""
+        freed = 0
+        cands = self.prefix.spill_candidates(
+            n if avoid is None else n + 8)
+        for path, page in cands:
+            if freed >= n:
+                break
+            if avoid is not None and avoid[:len(path)] == path:
+                continue
+            hook = self._spill_interceptor
+            if hook is not None:
+                hook("read", path, page)
+            try:
+                payload: dict = {}
+                k_page, v_page = self.paged.read_page(
+                    self.k_pool, self.v_pool, page)
+                self._flatten_page("k", k_page, payload)
+                self._flatten_page("v", v_page, payload)
+                entry = SpillEntry(payload)
+            # a failed device read falls back to the lossy evict path:
+            # the serving loop must not die for a cache optimization
+            except Exception:  # noqa: BLE001
+                log.exception("KV page spill read failed")
+                self._counters["kv_spill_integrity_drops"] += 1
+                return freed
+            if self.prefix.evict_exact(path) is None:
+                continue               # node changed under us — skip
+            if hook is not None:
+                hook("commit", path, page)
+            self.spill.put(path, entry)
+            freed += 1
+            self._counters["kv_pages_spilled"] += 1
+        return freed
+
+    def _restore_spilled(self, replay) -> int:
+        """Walk ``replay``'s token path past the trie match and restore
+        consecutive spilled pages host->device BEFORE admission charges
+        prefill. Each restore allocates a device page (which may
+        cascade-spill colder pages), verifies the entry's checksum,
+        uploads, and re-inserts the trie node; a torn entry is dropped
+        so the lookup degrades to a prefix miss."""
+        ps = self.page_size
+        limit = len(replay) - 1
+        restored = 0
+        avoid = tuple(int(t) for t in replay)
+        while True:
+            match = self.prefix.match(replay)
+            nxt = match.matched + ps
+            if nxt > limit:
+                break
+            key = avoid[:nxt]
+            if not self.spill.has(key):
+                break
+            # make room by spilling colder OTHER branches only — never
+            # the lossy evict path (destroying cache to restore cache)
+            # and never this replay's own match (the ``avoid`` guard)
+            page = self.pool.alloc()
+            while page is None:
+                if not self._spill_cold_pages(1, avoid=avoid):
+                    break
+                page = self.pool.alloc()
+            if page is None:
+                break                  # pool truly full — stay spilled
+            entry = self.spill.pop(key)
+            if entry is None:
+                self.pool.free([page])
+                break
+            if not entry.verify():
+                self.pool.free([page])
+                self.spill.dropped_integrity += 1
+                self._counters["kv_spill_integrity_drops"] += 1
+                break
+            try:
+                k_page = self._unflatten_page("k", self.k_pool,
+                                              entry.payload)
+                v_page = self._unflatten_page("v", self.v_pool,
+                                              entry.payload)
+                self.k_pool, self.v_pool = self.paged.write_page(
+                    self.k_pool, self.v_pool, k_page, v_page, page)
+            # a failed upload degrades to a prefix miss — it never
+            # kills admission
+            except Exception:  # noqa: BLE001
+                log.exception("KV page restore failed")
+                self.pool.free([page])
+                self.spill.dropped_integrity += 1
+                self._counters["kv_spill_integrity_drops"] += 1
+                break
+            # the trie takes the page over: insert refs it (2), dropping
+            # our alloc ref leaves it trie-only (1) — exactly the state
+            # it was spilled from
+            self.prefix.insert(key, match.pages + [page])
+            self.pool.free([page])
+            self.spill.restored_count += 1
+            restored += 1
+            self._counters["kv_pages_restored"] += 1
+        return restored
 
     def _attach_prefix(self, s: int, slot: _Slot, match) -> None:
         """Wire a PrefixMatch into slot ``s``: one slot ref per shared
@@ -512,6 +703,11 @@ class DecodeEngine:
                     continue
                 req = self._waiting[0]
                 replay = req.prompt + req.tokens
+                if self.spill is not None and len(self.spill):
+                    # spill-hit path: restored pages join the match
+                    # below, so admission charges only what is novel
+                    # beyond both tiers
+                    self._restore_spilled(replay)
                 match = self.prefix.match(replay) \
                     if self.prefix is not None else None
                 shared = len(match.pages) if match is not None else 0
@@ -558,20 +754,97 @@ class DecodeEngine:
                 slot.pages.append(page)
                 self._tables[s, len(slot.pages) - 1] = page
 
+    # ----------------------------------------------------------- speculation
+    def _draft_propose(self, active_idx: List[int]) -> Dict[int, List[int]]:
+        """Run the draft model for up to spec_k proposals per caught-up
+        slot: bounded rounds of the draft's own [S, W] step, each round
+        teacher-forcing committed tokens the draft has not seen (up to
+        W per round) or chaining one proposal. Slots still prefilling
+        the TARGET are skipped — their draft lanes catch up across
+        later steps, W tokens a round."""
+        if self.draft is None:
+            return {}
+        S, W = self.num_slots, self.window
+        props: Dict[int, List[int]] = {}
+        want: Dict[int, int] = {}
+        for s in active_idx:
+            slot = self.slots[s]
+            if slot.pos < len(slot.replay) - 1:
+                continue               # target still prefilling
+            req = slot.req
+            seq_len = len(req.prompt) + len(req.tokens)
+            k_eff = min(self.spec_k,
+                        req.max_new - req.num_generated - 1,
+                        self.max_seq_len - 1 - slot.pos,
+                        self.max_seq_len + 1 - seq_len)
+            if k_eff > 0:
+                props[s] = []
+                want[s] = k_eff
+        if not props:
+            return {}
+        toks = np.zeros((S, W), np.int32)
+        poss = np.zeros((S, W), np.int32)
+        act = np.zeros((S, W), np.bool_)
+        for _ in range(self.spec_k + 2):
+            toks[:, :] = 0
+            poss[:, :] = 0
+            act[:, :] = False
+            fed: Dict[int, int] = {}   # slot -> tokens fed this round
+            for s, got in props.items():
+                slot = self.slots[s]
+                if len(got) >= want[s]:
+                    continue
+                seq = slot.req.prompt + slot.req.tokens
+                dp = slot.draft_pos
+                if dp < len(seq):      # catch-up: feed a committed chunk
+                    c = min(W, len(seq) - dp)
+                    toks[s, :c] = seq[dp:dp + c]
+                else:                  # chain: feed the last proposal
+                    c = 1
+                    toks[s, 0] = got[-1]
+                poss[s, :c] = np.arange(dp, dp + c)
+                act[s, :c] = True
+                fed[s] = c
+            if not fed:
+                break
+            try:
+                out, self._draft_kc, self._draft_vc = self.draft.step(
+                    self._draft_kc, self._draft_vc, toks, poss, act)
+            # a draft failure must not kill the serving loop: the target
+            # path continues unassisted
+            except Exception:  # noqa: BLE001
+                log.exception("draft step failed")
+                self._counters["draft_failures"] += 1
+                self._draft_kc, self._draft_vc = self.draft.init_caches()
+                for s in props:
+                    if self.slots[s] is not None:
+                        self.slots[s].draft_pos = 0
+                return {}
+            for s, c in fed.items():
+                slot = self.slots[s]
+                seq_len = len(slot.req.prompt) + len(slot.req.tokens)
+                slot.draft_pos += c
+                if slot.draft_pos >= seq_len:
+                    # the last fed row predicts the next token: the
+                    # first/next proposal of the chain
+                    props[s].append(int(out[s, c - 1]))
+        return {s: p for s, p in props.items() if p}
+
     # ------------------------------------------------------------- the loop
     def step(self) -> bool:
-        """One engine iteration: reap, admit, plan, page-ensure, ONE
-        device step, bookkeep. Returns True iff a device step ran.
-        Single-threaded by contract: the engine thread in serving mode,
-        the caller in sync mode."""
+        """One engine iteration: reap, admit, draft-propose, window-
+        plan, page-ensure, ONE device step, bookkeep. Returns True iff
+        a device step ran. Single-threaded by contract: the engine
+        thread in serving mode, the caller in sync mode."""
         self._reap(time.monotonic())
         self._admit()
         active_idx = [s for s in range(self.num_slots)
                       if self.slots[s] is not None]
         if not active_idx:
             return False
-        # window plan: the next replay token (prefill, teacher-forced)
-        # or the pending generated token
+        props = self._draft_propose(active_idx)
+        # window plan: a replay chunk (multi-token prefill) or the
+        # pending token + the draft's proposals (speculative verify)
         W = self.window
         plan: Dict[int, List[int]] = {}
         for s in active_idx:
@@ -580,7 +853,9 @@ class DecodeEngine:
                 wlen = min(W, len(slot.replay) - slot.pos)
                 plan[s] = slot.replay[slot.pos:slot.pos + wlen]
             else:
-                plan[s] = [slot.next_input()]
+                p_s = props.get(s, [])[:W - 1]
+                room = self.max_seq_len - 1 - slot.pos
+                plan[s] = [slot.next_input()] + p_s[:max(room, 0)]
         self._ensure_pages(plan)
         live = [s for s in active_idx
                 if self.slots[s] is not None and s in plan]
@@ -618,10 +893,10 @@ class DecodeEngine:
             with self._cv:
                 self._cache_tokens_read += sum(
                     fed + j + 1 for j in range(w))
-            commits: List[int] = []
             if fed < len(slot.replay) - 1:
                 # replay chunk: all rows teacher-forced; the last row
                 # commits one token iff it reached the replay tail
+                commits: List[int] = []
                 n_prefill = min(w, len(slot.replay) - 1 - fed)
                 with self._cv:
                     self._counters["prefill_tokens"] += n_prefill
@@ -629,7 +904,25 @@ class DecodeEngine:
                 if fed + w == len(slot.replay):
                     commits = [int(nxt[s, w - 1])]
             else:
-                commits = [int(nxt[s, 0])]
+                # speculative verify: outs[j] is the target's choice
+                # after feeding tokens 0..j. Proposal j (toks[j+1]) is
+                # accepted iff it IS that choice; the first rejection
+                # ends the run and its row becomes dead weight the
+                # kv_len mask never reads.
+                m = w - 1
+                outs = [int(nxt[s, j]) for j in range(w)]
+                commits = [outs[0]]
+                a = 0
+                while a < m and toks[a + 1] == commits[-1]:
+                    commits.append(outs[a + 1])
+                    a += 1
+                if m:
+                    with self._cv:
+                        self._counters["spec_proposed_tokens"] += m
+                        self._counters["spec_accepted_tokens"] += a
+                    req.accepted_tokens += a
+                seq_before = len(req.prompt) + len(req.tokens)
+                slot.draft_pos = min(slot.draft_pos, seq_before + a)
             if not commits:
                 continue
             done = False
@@ -654,7 +947,10 @@ class DecodeEngine:
                     for _ in range(n_commit):
                         self._lat.append(dt / n_commit)
             if fed >= len(slot.replay) - 1:
+                # keep only the fed rows that match the committed
+                # sequence: pending token + (n_commit - 1) accepted
                 slot.pos = fed + n_commit
+                slot.draft_pos = min(slot.draft_pos, fed + n_commit)
             if done:
                 self._finish(s, "done")
         return True
@@ -662,8 +958,8 @@ class DecodeEngine:
     def _recover_from_step_failure(self, exc: Exception) -> None:
         """A failed step may have left the pools half-written: settle
         everything in flight with a typed error, then rebuild pools +
-        free-list + prefix index so fresh traffic can still be
-        served."""
+        free-list + prefix index + spill store + draft caches so fresh
+        traffic can still be served."""
         with self._cv:
             self._counters["step_failures"] += 1
         self.last_step_error = repr(exc)
@@ -681,6 +977,12 @@ class DecodeEngine:
             # and repoint at the rebuilt allocator
             self.prefix.reset()
             self.prefix.pool = self.pool
+        if self.spill is not None:
+            # host entries were carved from the dead trie — never
+            # restore across a rebuild
+            self._counters["kv_spill_cleared"] += self.spill.clear()
+        if self.draft is not None:
+            self._draft_kc, self._draft_vc = self.draft.init_caches()
         self._tables[:, :] = 0
         self._active[:, :] = False
 
@@ -706,16 +1008,20 @@ class DecodeEngine:
             return self._accepting
 
     def warmup(self) -> None:
-        """One all-inactive step before any request is admitted:
-        inactive slots write only the reserved null page, so the pools
-        are semantically untouched, and the first request never pays
+        """One all-inactive step (target, and draft when speculating)
+        before any request is admitted: inactive slots write only the
+        reserved null page / null row, so the pools are semantically
+        untouched, and the first request never pays
         the one-time costs (kernel build and load, cuBLAS handles,
         the allocator's first blocks)."""
         S, W = self.num_slots, self.window
         z = np.zeros((S, W), np.int32)
+        inactive = np.zeros((S, W), np.bool_)
         _, self.k_pool, self.v_pool = self.paged.step(
-            self.k_pool, self.v_pool, z, z, self._tables,
-            np.zeros((S, W), np.bool_))
+            self.k_pool, self.v_pool, z, z, self._tables, inactive)
+        if self.draft is not None:
+            _, self._draft_kc, self._draft_vc = self.draft.step(
+                self._draft_kc, self._draft_vc, z, z, inactive)
 
     def start(self) -> "DecodeEngine":
         with self._cv:
@@ -781,12 +1087,22 @@ class DecodeEngine:
     def page_accounting(self) -> dict:
         """Pool truth vs slot + trie holdings: ``leaked`` is 0 always,
         and ``refs_total`` == ``held_by_slots`` + ``held_by_trie``
-        (zero refcount underflows)."""
+        (zero refcount underflows). With a spill store the dict grows
+        the host tier (``spilled``, ``spill_capacity``, ``spill_puts``
+        ...), whose invariant is conservation: puts == restores +
+        integrity drops + LRU drops + recovery clears + still-resident
+        entries."""
         acc = self.pool.accounting()
         acc["held_by_slots"] = sum(
             len(s.pages) for s in self.slots if s is not None)
         acc["held_by_trie"] = self.prefix.page_count() \
             if self.prefix is not None else 0
+        if self.spill is not None:
+            acc.update(self.spill.accounting())
+            acc["spill_cleared"] = self._counters["kv_spill_cleared"]
+        else:
+            acc["spilled"] = 0
+            acc["spill_capacity"] = 0
         return acc
 
     def stats(self) -> dict:
@@ -800,6 +1116,8 @@ class DecodeEngine:
             cache_read = self._cache_tokens_read
         active = sum(1 for s in self.slots if s is not None)
         util = (active_sum / (steps * self.num_slots)) if steps else 0.0
+        spilled_now = len(self.spill) if self.spill is not None else 0
+        spill_cap = self.spill.capacity if self.spill is not None else 0
         out = dict(counters)
         out.update({
             "slots": self.num_slots,
@@ -814,8 +1132,15 @@ class DecodeEngine:
             "kv_pages_reclaimable": self.prefix.reclaimable_pages()
             if self.prefix is not None else 0,
             "kv_page_high_water": self.pool.high_water,
+            "kv_pages_spilled_now": spilled_now,
+            "kv_spill_capacity": spill_cap,
+            "kv_spill_headroom": max(0, spill_cap - spilled_now),
+            "kv_quant": self.kv_quant or "none",
+            "kv_quant_bits": 8 if self.kv_quant == "int8" else
+            torch.empty((), dtype=self.paged.dtype).element_size() * 8,
             "page_size": self.page_size,
             "window": self.window,
+            "spec_k": self.spec_k,
             "prefix_nodes": self.prefix.page_count()
             if self.prefix is not None else 0,
             "steps": steps,

@@ -82,8 +82,8 @@ class PrefixIndex:
         self._lock = threading.Lock()
         # the radix trie + LRU clock
         self._root = _Node(None, None, None)
-        self._seq = 0                
-        self._nodes = 0              
+        self._seq = 0
+        self._nodes = 0
 
     # --------------------------------------------------------------- lookup
     def match(self, tokens) -> PrefixMatch:
@@ -182,6 +182,65 @@ class PrefixIndex:
                 freed.append(victim.page)
         return freed
 
+    # --------------------------------------------------------------- spill
+    @staticmethod
+    def _path_of(node: _Node) -> tuple:
+        """Full token path from the root through ``node`` — the spill
+        store's key (serving/spill.py): restores look the SAME token
+        run back up, so the key is reconstructable from a request's
+        replay alone."""
+        keys = []
+        while node.key is not None:
+            keys.append(node.key)
+            node = node.parent
+        out: List[int] = []
+        for key in reversed(keys):
+            out.extend(key)
+        return tuple(out)
+
+    def spill_candidates(self, n: int = 1) -> List[Tuple[tuple, int]]:
+        """Up to ``n`` least-recently-used LEAF pages whose only owner
+        is the trie, as ``(token_path, physical_page)`` — NO mutation.
+        The engine spills these device->host and then calls
+        :meth:`evict_exact` per page, keeping the crash-safety ordering
+        (read, evict+free, commit) under ITS control."""
+        with self._lock:
+            leaves = []
+            stack = [self._root]
+            while stack:
+                nd = stack.pop()
+                if nd.page is not None and not nd.children and \
+                        self.pool.refcount(nd.page) == 1:
+                    leaves.append(nd)
+                stack.extend(nd.children.values())
+            leaves.sort(key=lambda nd: nd.last_used)
+            return [(self._path_of(nd), nd.page) for nd in leaves[:n]]
+
+    def evict_exact(self, path: tuple) -> Optional[int]:
+        """Remove the node at exactly ``path`` (a full token path) and
+        free its page — the evict+free step of the spill ordering. The
+        node must still be a trie-only (refcount 1) childless leaf;
+        returns the freed page, or None if the node changed since
+        :meth:`spill_candidates` picked it (grew children, gained a
+        slot ref, vanished) — the caller then skips the spill."""
+        ps = self.page_size
+        path = tuple(int(t) for t in path)
+        if not path or len(path) % ps != 0:
+            return None
+        with self._lock:
+            node = self._root
+            for i in range(0, len(path), ps):
+                node = node.children.get(path[i:i + ps])
+                if node is None:
+                    return None
+            if node.children or self.pool.refcount(node.page) != 1:
+                return None
+            page = node.page
+            del node.parent.children[node.key]
+            self._nodes -= 1
+            self.pool.free([page])
+            return page
+
     def reclaimable_pages(self) -> int:
         """Pages an eviction loop could eventually return to the free
         list: trie pages no slot is also holding (refcount 1)."""
@@ -197,6 +256,22 @@ class PrefixIndex:
             return count
 
     # ------------------------------------------------------------ lifecycle
+    def flush(self) -> int:
+        """Drop the whole index, returning every trie ref to the pool
+        (shared pages stay allocated for the slots still holding them).
+        Returns the number of dropped nodes."""
+        with self._lock:
+            stack = [self._root]
+            while stack:
+                nd = stack.pop()
+                if nd.page is not None:
+                    self.pool.free([nd.page])
+                stack.extend(nd.children.values())
+            n = self._nodes
+            self._root = _Node(None, None, None)
+            self._nodes = 0
+        return n
+
     def reset(self) -> None:
         """Forget every node WITHOUT touching the pool — the step-
         failure recovery path, where the engine has already rebuilt the

@@ -205,12 +205,7 @@ def test_unported_features_raise():
     tdec = pt_decode.TransformerDecoder(params, n_layers=2, n_heads=2,
                                         device="cpu")
     with pytest.raises(NotImplementedError):
-        tdec.paged(num_slots=1, page_size=4, num_pages=4,
-                   max_pages_per_slot=2, kv_quant="int8")
-    with pytest.raises(NotImplementedError):
         tdec.beam_search(np.zeros((1, 2), np.int32), max_len=6)
-    with pytest.raises(NotImplementedError):
-        pt_decode.DraftDecoder(tdec, num_slots=1, max_seq_len=8)
     moe = dict(params)
     moe["_tfm_l0_moe.gate"] = np.zeros((16, 2), np.float32)
     with pytest.raises(NotImplementedError, match="MoE"):

@@ -43,7 +43,8 @@ def test_every_module_imports_without_jax_or_paddle_tpu():
               "networks", "ops.fused_rnn", "ops.recurrent",
               "ops.sequence_ops", "layers.recurrent_layers",
               "layers.seq_layers", "layers.crf_layers", "models.text",
-              "models.tagger", "trainer.inference"):
+              "models.tagger", "trainer.inference", "serving.spill",
+              "serving.prefix", "models.decode"):
         assert f"paddle_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
