@@ -9,7 +9,12 @@ Phases (any failure exits non-zero before the final line):
 
 1. build — compile every hand-written kernel from the sources in this
    checkout (one nvcc per source, all at once, sm_90a), print the
-   ptxas report.
+   ptxas report; the two wgmma kernels (flash_fwd_sm90.cu,
+   flash_dkv_sm90.cu) must report 0 spill bytes. Then the building
+   blocks of sm90_pipeline.cuh on one 64 x 64 bf16 tile: A B^T by
+   wgmma SS over TMA-loaded K-major tiles and A B by wgmma RS with B
+   MN-major, against float32 torch products (max |err| <= 1e-3 x
+   max(1, max|ref|)).
 2. kernel vs plain — paged window attention at full width (dh 64,
    page 16, 8 slots, 34 pages a slot, lengths up to 544), h/g in
    {8/8, 8/2, 8/1}, W in {1, 4}, float32 and bfloat16, against the
@@ -43,34 +48,48 @@ Phases (any failure exits non-zero before the final line):
 6. flash vs plain — the flash attention forward, dq and dk/dv kernels
    at full width ([8, T, 8, 64]): causal T 1024 with ragged kv_lens,
    and non-causal T 1000 (not a block multiple) with q_lens below T
-   and fully-masked rows; out, lse, dq, dk, dv against autograd of the
-   plain version in float32 on the same values: float32
+   and fully-masked rows, in float32 (SIMT kernels) and bfloat16 (the
+   wgmma forward and dk/dv, the SIMT dq); then in bfloat16 the causal
+   case at head dim 128 and the non-causal one at head dim 72 (a d
+   tail the TMA zero-fills); out, lse, dq, dk, dv against autograd of
+   the plain version in float32 on the same values: float32
    assert_close(rtol 2e-4, atol 2e-5 max(1, max|ref|)), bfloat16
-   max |err| <= 2e-2 max(1, max|ref|).
+   max |err| <= 2e-2 max(1, max|ref|), and per (batch row, head)
+   slice max |err| <= 2e-2 max|ref| of the slice (floored at 1e-3
+   max(1, max|ref|) for slices 0 by cancellation), which must reject
+   two planted faults of dv (zeroed past key 64; x 0.95 outside its
+   largest slice); fully-masked rows give lse == NEG_INF and out == 0.
 7. train — the main training path: the full-width tied transformer_lm
    (vocab 32000, d_model 512, 8 heads, 6 layers, d_ff 2048, 1024
    tokens) built with the port's DSL, Parameters.create, and
    SGD.train_batch with Adam(1e-4) in bfloat16 on one seeded batch of
    8 full-length rows: 2 warm-up steps, then 8 timed steps with the
    flash launch counts zeroed just before and read just after. Asserts
-   finite, falling losses, finite parameters and launches == steps x
-   6 for each flash kernel. Then, in float32 from one table, the
-   gradients of one Topology.forward cost with use_flash_attention
-   True against False: the worst per-parameter ||diff|| / ||g|| at
-   most max(1e-3, twice the plain path's own spread under a 2^-22
-   input perturbation) — the ReLU makes the gradient discontinuous, so
-   at this width two correct float32 runs differ by ~1e-3.
+   finite, falling losses, finite parameters and, by route, steps x 6
+   launches of the wgmma forward and dk/dv and of the SIMT dq, none of
+   the SIMT forward or dk/dv. Then, from one table, the gradients of
+   one Topology.forward cost with use_flash_attention True against
+   False, in bfloat16 (worst per-parameter ||diff|| / ||g|| at most
+   max(2e-2, twice the plain path's own spread under a one-ulp bf16
+   input perturbation, x (1 + 2^-7)); costs within 2e-2) and in float32
+   (at most max(1e-3, twice the spread under a 2^-22 perturbation);
+   costs within 1e-5) — the ReLU makes the gradient discontinuous, so
+   at this width two correct float32 runs differ by ~1e-3. Each q, k,
+   v and output projection is also held against twice its own spread,
+   and that per-leaf check must reject a planted dv x 0.85.
 8. train -> serve — the trained table through Parameters.to_tar,
    load_params_tar, TransformerDecoder (tied head) and DecodeEngine:
    4 seeded requests, zero step failures, tokens identical to the
    dense generate under the tie rule.
 9. flash timings — each flash kernel's device time per call at the
-   training shapes, bf16 and f32 (CUDA-graph replay over 6 input
-   sets), its bound, the plain version's time, and SDPA as a yardstick
-   (forward; autograd backward against dq + dk/dv together).
+   training shapes, bf16 (the wgmma forward and dk/dv, the SIMT dq)
+   and f32 (SIMT) by CUDA-graph replay over 6 input sets, its bound,
+   the plain version's time, and SDPA as a yardstick (forward by graph
+   replay; autograd backward against dq + dk/dv together, by events
+   behind a spin kernel so the host's call rate is not timed).
 10. train trace — one bfloat16 train step under torch.profiler (run
    right after phase 7): device busy time against the wall clock, the
-   top kernels, the flash share.
+   top kernels, the flash share and each flash kernel's.
 11. rnn vs plain — the fused LSTM forward (with and without residuals)
    and backward kernels and the GRU forward kernel against their plain
    versions on the same inputs: the LSTM at full width (b 128, h 1280,
@@ -104,7 +123,9 @@ Phases (any failure exits non-zero before the final line):
 15. rnn timings — each recurrent kernel's device time per call and per
    run step at the main path's shapes in bfloat16 and float32
    (CUDA-graph replay), its bound, the plain version's time, and
-   cuDNN's LSTM forward as a labelled near-yardstick (printed only).
+   cuDNN's LSTM forward as a labelled near-yardstick (printed only;
+   events behind a spin kernel, as phase 9's SDPA backward; "not
+   measured" where the call blocks the host past the spin).
 16. lstm train trace — one bfloat16 LSTM train step under
    torch.profiler (run right after phase 12): device busy against the
    wall clock, the top kernels, the LSTM kernels' share.
@@ -143,13 +164,15 @@ Phases (any failure exits non-zero before the final line):
    through the int8 + speculative engine under torch.profiler.
 
 Prints the kernel table as one JSON line (the flash and LSTM kernels at
-their bfloat16 times, the training dtype; the GRU kernel at float32, the
+their bfloat16 times and errors, the training dtype, the flash forward
+and dk/dv rows naming their wgmma sources; the GRU kernel at float32, the
 dtype the tagger decodes in; the int8 and decode kernels at float32, the
 serving dtype, W 1), the card's name and power limit (nvidia-smi), and
 last {"ok": true, "device": {...}}.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -159,12 +182,16 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 FP32_FLOPS_PER_S = 67e12           # H100 SXM, non-tensor float32
+# spin ahead of event timing: 0.25 s at the H100's boost clock, ~1 s
+# when it runs slower (250.7 and 1002.5 ms both seen on one card)
+SPIN_CYCLES = 500_000_000
 FULL = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
             d_ff=2048, max_len=544)
 SLOTS, PAGE, N_REQ = 8, 16, 16
 SPEC_K = 2                         # bench.py decode_speculative: W = 3
 F32_TOL = dict(rtol=2e-4, atol=2e-5)
 BF16_ATOL = 2e-2
+SLICE_FLOOR = 1e-3                 # of max(1, max|ref|): see _slice_ratio
 TIE_RTOL, TIE_ATOL = 1e-4, 1e-5    # the logits tolerance of the tests
 BF16_FLOPS_PER_S = 989e12          # H100 SXM, dense bf16 tensor cores
 FLASH_SHAPE = (8, 8, 64)           # batch, heads, head dim of the LM
@@ -173,10 +200,12 @@ FLASH_KV_LENS = [1024, 1000, 777, 513, 512, 300, 64, 17]
 TRAIN = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
              d_ff=2048, max_len=1024, tie_embeddings=True)
 TRAIN_ROWS, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 8
-# (name, line of the TPU kernel in ops/pallas_attention.py, source)
-FLASH_KERNELS = [("fwd", 43, "flash_attention_fwd.cu"),
-                 ("dq", 225, "flash_attention_bwd.cu"),
-                 ("dkv", 264, "flash_attention_bwd.cu")]
+# (name, line of the TPU kernel in ops/pallas_attention.py, the route
+# bfloat16 takes — the training path's dtype — and that route's source)
+FLASH_KERNELS = [("fwd", 43, "sm90", "flash_fwd_sm90.cu"),
+                 ("dq", 225, "simt", "flash_attention_bwd.cu"),
+                 ("dkv", 264, "sm90", "flash_dkv_sm90.cu")]
+SM90_LIBS = ("flash_fwd_sm90", "flash_dkv_sm90")
 
 
 _T0 = time.perf_counter()
@@ -240,6 +269,7 @@ def host_ms(fn, iters=50):
 
 # ------------------------------------------------------------ phase 1
 def phase_build():
+    import re
     from paddle_tpu_torch.ops import _build
     t0 = time.perf_counter()
     reports = _build.build_all()
@@ -249,8 +279,48 @@ def phase_build():
                  if "registers" in ln or "spill" in ln
                  or "bytes stack" in ln]
         log(f"build {name}: " + ("; ".join(lines) or "reused"))
+        spills = [int(n) for n in
+                  re.findall(r"(\d+) bytes spill (?:stores|loads)", rep)]
+        if name in SM90_LIBS and any(spills):
+            raise AssertionError(f"{name}: ptxas reports spills: {lines}")
     log(f"build seconds: {secs:.3f}")
+    _sm90_product_check()
     return secs
+
+
+def _sm90_product_check():
+    """The building blocks of csrc/sm90_pipeline.cuh on one 64 x 64
+    tile of bf16 values: A B^T by wgmma SS (TMA-loaded, both K-major:
+    the score product) and A B by wgmma RS (A fragments in registers, B
+    MN-major: the P.V product) against float32 torch products of the
+    same values; max |err| <= 1e-3 max(1, max|ref|) (exact products,
+    float32 sums in another order)."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    fn = _build.load("flash_fwd_sm90").pt_sm90_product_check
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5
+    rng = np.random.RandomState(5)
+    a, b = (torch.from_numpy(rng.randn(64, 64).astype(np.float32))
+            .to("cuda", torch.bfloat16) for _ in range(2))
+    c_abt = torch.empty(64, 64, device="cuda")
+    c_ab = torch.empty(64, 64, device="cuda")
+    err = fn(a.data_ptr(), b.data_ptr(), c_abt.data_ptr(), c_ab.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sm90 product check launch failed: CUDA error "
+                           f"{err}")
+    torch.cuda.synchronize()
+    af, bf = a.float(), b.float()
+    for name, got, want in (("A B^T (SS, K-major)", c_abt, af @ bf.T),
+                            ("A B (RS, B MN-major)", c_ab, af @ bf)):
+        e = (got - want).abs().max().item()
+        bound = 1e-3 * max(1.0, want.abs().max().item())
+        log(f"sm90 product check {name}: max |err| {e:.3e}")
+        if not e <= bound:
+            raise AssertionError(
+                f"sm90 {name}: max |err| {e} > {bound} (against the "
+                f"transpose: {(got - want.T).abs().max().item():.3e})")
 
 
 # ------------------------------------------------------------ phase 2
@@ -520,9 +590,9 @@ def phase_trace(eng):
 
 
 # ------------------------------------------------------------ phase 6
-def _flash_inputs(T, dtype, seed):
+def _flash_inputs(T, dtype, seed, d=FLASH_SHAPE[2]):
     rng = np.random.RandomState(seed)
-    b, h, d = FLASH_SHAPE
+    b, h, _ = FLASH_SHAPE
     return [torch.from_numpy(rng.randn(b, T, h, d).astype(np.float32))
             .to("cuda", dtype) for _ in range(4)]            # q, k, v, dO
 
@@ -556,20 +626,82 @@ def _held(name, got, want, dtype):
     return err
 
 
+def _slice_ratio(got, want):
+    """(worst ratio, (batch row, head)) over the (batch row, head) slices
+    of [b, T, h, d] tensors: max |err| of the slice over max |ref| of
+    the slice, the latter floored at SLICE_FLOOR x max(1, max|ref|) of
+    the whole tensor. The floor is for slices that are exactly 0 by
+    cancellation (dk and dq of a kv_len-1 row: P = 1 and dP = D), where
+    both sides hold only float32 summation noise."""
+    g = got.detach().float().permute(0, 2, 1, 3).flatten(2)
+    w = want.detach().float().permute(0, 2, 1, 3).flatten(2)
+    floor = SLICE_FLOOR * max(1.0, w.abs().max().item())
+    ratio = (g - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(floor)
+    at = int(ratio.argmax())
+    return ratio.max().item(), divmod(at, ratio.shape[1])
+
+
+def _held_slices(label, grads, refs):
+    """bfloat16: each of out, dq, dk, dv held per (batch row, head)
+    slice, max |err| <= 2e-2 x max |ref| of the slice (see
+    _slice_ratio): the whole-tensor bound alone is set by the largest
+    slice (a kv_len-1 row's dv sums ~500 dO rows), so it cannot see an
+    error in the others. Then two planted faults of dv, which the
+    slice check must reject: dv zeroed past the first 64 keys, and dv
+    x 0.95 in every slice but the one that holds max |dv|. Returns
+    {name: worst ratio}."""
+    ratios = {}
+    for name in ("out", "dq", "dk", "dv"):
+        ratios[name], at = _slice_ratio(grads[name], refs[name])
+        if ratios[name] > BF16_ATOL:
+            raise AssertionError(
+                f"{label} bf16 {name}: slice (row, head) {at} off by "
+                f"{ratios[name]:.3e} of its max|ref| > {BF16_ATOL}")
+    dv, ref = grads["dv"].float(), refs["dv"].detach().float()
+    past_tile = dv.clone()
+    past_tile[:, 64:] = 0
+    top = ref.abs().amax((1, 3)).flatten().argmax()    # (row, head) index
+    scaled = dv * 0.95
+    b_top, h_top = divmod(int(top), dv.shape[2])
+    scaled[b_top, :, h_top] = dv[b_top, :, h_top]
+    whole = BF16_ATOL * max(1.0, ref.abs().max().item())
+    for fault, bad in (("dv zeroed past key 64", past_tile),
+                       ("dv x 0.95 outside its top slice", scaled)):
+        r, _ = _slice_ratio(bad, ref)
+        old = (bad - ref).abs().max().item()
+        log(f"{label} planted fault, {fault}: slice ratio {r:.3e} (limit "
+            f"{BF16_ATOL}); whole-tensor max|err| {old:.3e} (limit "
+            f"{whole:.3e}, {'rejects' if old > whole else 'passes'} it)")
+        if not r > BF16_ATOL:
+            raise AssertionError(f"{label}: the slice check passes a planted "
+                                 f"fault ({fault}): ratio {r}")
+    return ratios
+
+
 def phase_flash_vs_plain():
     """The three flash kernels against autograd of the plain version in
     float32 on the same (rounded) values, at full width: causal T 1024
     with ragged kv_lens, and non-causal T 1000 (not a block multiple)
-    with q_lens below T, fully-masked batch rows included."""
+    with q_lens below T, fully-masked batch rows included, both at head
+    dim 64 in float32 (the SIMT route) and bfloat16 (the sm90 route
+    for the forward and dk/dv); then in bfloat16 the causal case at head
+    dim 128 (two d panels, two dk/dv warpgroups) and the non-causal one
+    at head dim 72 (72 % 16 != 0: the zero-filled d tail). Returns the
+    worst max |err| by (kernel, dtype)."""
     from paddle_tpu_torch.ops import flash_attention as fa
-    cases = [("causal T1024", 1024, True, [1024] * 8, FLASH_KV_LENS),
-             ("non-causal T1000", 1000, False,
-              [1000, 999, 640, 513, 100, 1, 0, 64],
-              [1000, 1000, 777, 1, 512, 300, 64, 0])]
-    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
-    for ci, (label, T, causal, q_lens, kv_lens) in enumerate(cases):
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, do = _flash_inputs(T, dtype, seed=60 + ci)
+    f32, bf16 = torch.float32, torch.bfloat16
+    causal_lens = ([1024] * 8, FLASH_KV_LENS)
+    ragged_lens = ([1000, 999, 640, 513, 100, 1, 0, 64],
+                   [1000, 1000, 777, 1, 512, 300, 64, 0])
+    cases = [("causal T1024", 1024, True, causal_lens, 64, (f32, bf16)),
+             ("non-causal T1000", 1000, False, ragged_lens, 64, (f32, bf16)),
+             ("causal T1024 d128", 1024, True, causal_lens, 128, (bf16,)),
+             ("non-causal T1000 d72", 1000, False, ragged_lens, 72, (bf16,))]
+    worst = {(n, dt): 0.0 for n in ("fwd", "dq", "dkv") for dt in (f32, bf16)}
+    for ci, (label, T, causal, (q_lens, kv_lens), d, dtypes) in \
+            enumerate(cases):
+        for dtype in dtypes:
+            q, k, v, do = _flash_inputs(T, dtype, seed=60 + ci, d=d)
             lens2 = torch.tensor(np.stack([q_lens, kv_lens], 1),
                                  dtype=torch.int32, device="cuda")
             out, lse, _, dq, dk, dv = _flash_kernels(q, k, v, do, lens2,
@@ -587,18 +719,29 @@ def phase_flash_vs_plain():
             if not torch.all(lse[~live] == fa.NEG_INF):
                 raise AssertionError(f"{label}: lse of a fully-masked row "
                                      "is not NEG_INF")
+            rows = out.permute(0, 2, 1, 3).reshape(-1, T, d)
+            if not torch.all(rows[~live.reshape(-1, T)] == 0):
+                raise AssertionError(f"{label}: out of a fully-masked row "
+                                     "is not 0")
             errs = {"out": _held("out", out, ref, dtype),
                     "lse": _held("lse", lse[live], lse_ref[live],
                                  torch.float32),
                     "dq": _held("dq", dq, gq, dtype),
                     "dk": _held("dk", dk, gk, dtype),
                     "dv": _held("dv", dv, gv, dtype)}
-            if dtype == torch.float32:
-                worst["fwd"] = max(worst["fwd"], errs["out"], errs["lse"])
-                worst["dq"] = max(worst["dq"], errs["dq"])
-                worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"])
-            log(f"flash vs plain {label} {str(dtype)[6:]}: " + ", ".join(
-                f"{n} {e:.3e}" for n, e in errs.items()))
+            slices = "" if dtype == f32 else "; per-slice ratios " + \
+                ", ".join(f"{n} {r:.3e}" for n, r in _held_slices(
+                    label, {"out": out, "dq": dq, "dk": dk, "dv": dv},
+                    {"out": ref, "dq": gq, "dk": gk, "dv": gv}).items())
+            for name, keys in (("fwd", ("out", "lse")), ("dq", ("dq",)),
+                               ("dkv", ("dk", "dv"))):
+                worst[(name, dtype)] = max(worst[(name, dtype)],
+                                           *(errs[x] for x in keys))
+            routes = "/".join(fa.flash_route(n, dtype)
+                              for n in ("fwd", "dq", "dkv"))
+            log(f"flash vs plain {label} {str(dtype)[6:]} (fwd/dq/dkv "
+                f"routes {routes}): " + ", ".join(
+                    f"{n} {e:.3e}" for n, e in errs.items()) + slices)
             del ref, gq, gk, gv
     return worst
 
@@ -625,11 +768,12 @@ def _lm_batch(seed=0):
 
 
 def _flash_counts(fa, zero=False):
-    fns = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
+    """{kernel: {route: launches}} of the three flash wrappers."""
     if zero:
-        for fn in fns:
-            fn.launches = 0
-    return [fn.launches for fn in fns]
+        fa.reset_launches()
+    return {name: dict(fn.route_launches) for name, fn in (
+        ("fwd", fa.flash_forward), ("dq", fa.flash_backward_dq),
+        ("dkv", fa.flash_backward_dkv))}
 
 
 def phase_train():
@@ -665,25 +809,46 @@ def phase_train():
     if bad:
         raise AssertionError(f"non-finite parameters after training: {bad}")
     want = TRAIN_STEPS * TRAIN["n_layers"]
-    if launches != [want] * 3:
-        raise AssertionError(f"flash launches {launches} != steps x layers "
-                             f"= {want} each")
+    expect = {name: {"sm90": want if route == "sm90" else 0,
+                     "simt": want if route == "simt" else 0}
+              for name, _, route, _ in FLASH_KERNELS}
+    if launches != expect:
+        raise AssertionError(f"flash launches by route {launches} != "
+                             f"{expect} (steps x layers = {want})")
     step_ms = wall / TRAIN_STEPS * 1e3
     tokens = TRAIN_ROWS * TRAIN["max_len"]
     log(f"train: {n_params} parameters, bf16, {TRAIN_STEPS} timed steps "
         f"after {TRAIN_WARMUP}: {step_ms:.3f} ms/step, "
         f"{tokens / (step_ms / 1e3):.1f} tokens/s, peak "
         f"{peak_gb:.3f} GB; losses {[round(x, 4) for x in losses]}; "
-        f"flash launches fwd/dq/dkv {launches}")
-    return trainer, batch, launches
+        f"flash launches by route {launches}")
+    return trainer, batch, [launches[name][route]
+                            for name, _, route, _ in FLASH_KERNELS]
 
 
-def phase_flash_grad_check(batch):
-    """float32, full width, one table: the gradients of one
-    Topology.forward cost with use_flash_attention True (the kernels)
-    against False (the plain version): the worst per-parameter
+# compute dtype -> (relative perturbation of the token table that
+# gives the plain path's own spread, least gradient bound, cost rtol)
+GRAD_CHECK = {"float32": (2.0 ** -22, 1e-3, 1e-5),
+              # one bf16 ulp: x (1 + 2^-7) moves every entry by 1-2 ulps
+              "bfloat16": (2.0 ** -7, 2e-2, 2e-2)}
+# the projections around each layer's attention, whose gradients the
+# flash kernels feed directly
+ATTN_LEAF = re.compile(r"_l\d+_(q|k|v|proj)\.w0$")
+
+
+def phase_flash_grad_check(batch, compute_dtype="float32"):
+    """Full width, one table, in ``compute_dtype``: the gradients of one
+    Topology.forward cost with use_flash_attention True (the kernels:
+    in bfloat16 the sm90 forward and dk/dv and the SIMT dq) against
+    False (the plain version): the worst per-parameter
     ||g_kernel - g_plain|| / ||g_plain|| at most max(1e-3, twice the
-    plain version's own spread), and the costs within 1e-5.
+    plain version's own spread), and the costs within 1e-5 (float32);
+    max(2e-2, twice the spread) and 2e-2 in bfloat16, where the spread
+    comes from a one-ulp perturbation of the bf16 inputs. The leaves
+    the flash kernels feed directly, each layer's q, k, v and output
+    projections, are also held one by one: each at most max(least,
+    twice its own spread). A planted fault, dv x 0.85 out of every
+    dk/dv launch, must fail that per-leaf check.
 
     Not elementwise: the FFN's ReLU makes the gradient discontinuous,
     and among the 8192 x 2048 pre-activations of a layer some lie
@@ -694,15 +859,18 @@ def phase_flash_grad_check(batch):
     token table scaled by (1 + 2^-22) give that noise floor."""
     from paddle_tpu_torch.config import global_config
     from paddle_tpu_torch.core.topology import Topology
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.trainer import DataFeeder, create
 
-    spec = _lm_spec("float32")
+    eps, least, cost_rtol = GRAD_CHECK[compute_dtype]
+    spec = _lm_spec(compute_dtype)
     topo = Topology(spec.cost)
     params = create(topo, torch.Generator().manual_seed(1)).raw
     feed = DataFeeder(topo.data_type(), device="cuda")(batch)
     n_real = feed.pop("__batch_size__")
     names = sorted(params)
     leaves = [params[k].requires_grad_() for k in names]
+    attn = [i for i, n in enumerate(names) if ATTN_LEAF.search(n)]
 
     def grads(flag):
         global_config().use_flash_attention = flag
@@ -713,34 +881,73 @@ def phase_flash_grad_check(batch):
         finally:
             global_config().use_flash_attention = True
 
-    def worst(ga, gb):
-        rel = max(((a - b).norm() / b.norm()).item() for a, b in
-                  zip(ga, gb))
-        ent = max(((a - b).abs().max() / b.abs().max()).item() for a, b in
-                  zip(ga, gb))
-        return rel, ent
+    def per_leaf(ga, gb):
+        return ([((a - b).norm() / b.norm()).item() for a, b in zip(ga, gb)],
+                [((a - b).abs().max() / b.abs().max()).item()
+                 for a, b in zip(ga, gb)])
 
     cost_k, g_k = grads(True)
     cost_p, g_p = grads(False)
     tok = params["_tfm_tok_emb.w0"]
     saved = tok.detach().clone()
     with torch.no_grad():
-        tok.mul_(1.0 + 2.0 ** -22)
+        tok.mul_(1.0 + eps)
     _, g_floor = grads(False)
     with torch.no_grad():
         tok.copy_(saved)
-    rel, ent = worst(g_k, g_p)
-    rel_floor, ent_floor = worst(g_floor, g_p)
-    log(f"f32 grads at full width over {len(names)} parameters: cost "
-        f"{cost_k:.6f} (kernels) vs {cost_p:.6f} (plain); kernels vs plain "
-        f"worst ||diff||/||g|| {rel:.3e}, worst max|diff|/max|g| {ent:.3e};"
-        f" plain vs plain at a 2^-22 input perturbation {rel_floor:.3e} and "
-        f"{ent_floor:.3e}")
-    if not rel <= max(1e-3, 2.0 * rel_floor) or \
-            abs(cost_k - cost_p) > 1e-5 * abs(cost_p):
-        raise AssertionError(f"flash-path gradients off the plain path: "
-                             f"||diff||/||g|| {rel} > max(1e-3, 2 x "
-                             f"{rel_floor}) or cost {cost_k} vs {cost_p}")
+    real_dkv = fa.flash_backward_dkv
+
+    def faulty_dkv(*args):
+        dk, dv = real_dkv(*args)
+        return dk, dv * 0.85
+
+    faulty_dkv.launches, faulty_dkv.route_launches = 0, {"sm90": 0,
+                                                         "simt": 0}
+    fa.flash_backward_dkv = faulty_dkv
+    try:
+        _, g_bad = grads(True)
+    finally:
+        fa.flash_backward_dkv = real_dkv
+    rels, ents = per_leaf(g_k, g_p)
+    floors, ent_floors = per_leaf(g_floor, g_p)
+    bads, _ = per_leaf(g_bad, g_p)
+    rel, ent, rel_floor = max(rels), max(ents), max(floors)
+
+    def attn_worst(r):
+        """(name, ratio to its own limit) of the worst attention leaf."""
+        i = max(attn, key=lambda j: r[j] / max(least, 2.0 * floors[j]))
+        return names[i], r[i] / max(least, 2.0 * floors[i])
+
+    a_name, a_ratio = attn_worst(rels)
+    b_name, b_ratio = attn_worst(bads)
+    log(f"{compute_dtype} grads at full width over {len(names)} parameters:"
+        f" cost {cost_k:.6f} (kernels) vs {cost_p:.6f} (plain); kernels vs "
+        f"plain worst ||diff||/||g|| {rel:.3e}, worst max|diff|/max|g| "
+        f"{ent:.3e}; plain vs plain at a {eps:.3g} input perturbation "
+        f"{rel_floor:.3e} and {max(ent_floors):.3e}")
+    log(f"{compute_dtype} attention leaves ({len(attn)}): ||diff||/||g|| "
+        f"{min(rels[i] for i in attn):.3e}-{max(rels[i] for i in attn):.3e} "
+        f"against own spreads {min(floors[i] for i in attn):.3e}-"
+        f"{max(floors[i] for i in attn):.3e}; worst at {a_ratio:.3f} of its "
+        f"limit ({a_name})")
+    log(f"{compute_dtype} planted fault, dv x 0.85: attention leaves "
+        f"||diff||/||g|| up to {max(bads[i] for i in attn):.3e}, worst at "
+        f"{b_ratio:.3f} of its limit ({b_name}: per-leaf check "
+        f"{'rejects' if b_ratio > 1 else 'passes'} it); whole-table worst "
+        f"{max(bads):.3e} against {max(least, 2.0 * rel_floor):.3e} "
+        f"({'rejects' if max(bads) > max(least, 2.0 * rel_floor) else 'passes'}"
+        f" it)")
+    if not rel <= max(least, 2.0 * rel_floor) or a_ratio > 1 or \
+            abs(cost_k - cost_p) > cost_rtol * abs(cost_p):
+        raise AssertionError(f"{compute_dtype} flash-path gradients off the "
+                             f"plain path: ||diff||/||g|| {rel} > max("
+                             f"{least}, 2 x {rel_floor}), or {a_name} at "
+                             f"{a_ratio} of its own limit, or cost {cost_k} "
+                             f"vs {cost_p}")
+    if not b_ratio > 1:
+        raise AssertionError(f"{compute_dtype}: the per-leaf check passes a "
+                             f"planted fault (dv x 0.85): {b_name} at "
+                             f"{b_ratio} of its limit")
 
 
 # ------------------------------------------------------------ phase 8
@@ -883,28 +1090,52 @@ def phase_flash_timings():
                 plain_ms=device_ms(plain, iters=3), bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib)
             r = out[(name, dtype)]
-            log(f"flash {name} {str(dtype)[6:]} at train shapes: "
+            log(f"flash {name} {str(dtype)[6:]} "
+                f"({fa.flash_route(name, dtype)}) at train shapes: "
                 f"{r['ms'] * 1e3:.2f} us/call, bound {bound_ms * 1e3:.3f} "
                 f"us ({bound_by}), plain {r['plain_ms'] * 1e3:.2f} us, "
                 f"sdpa {'fwd' if name == 'fwd' else 'bwd (dq+dkv)'} "
-                f"{lib * 1e3:.2f} us")
+                f"{_us(lib)}")
         del sets, heads, leaves, outs
     return out
 
 
+def _us(ms):
+    return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
+
+
 def event_ms(fn, iters):
-    """Milliseconds per call between CUDA events around ``iters`` eager
-    calls (for work that cannot be captured in a CUDA graph, at sizes
-    where the host's issue time hides behind the device)."""
+    """Device milliseconds per call between CUDA events around ``iters``
+    eager calls, for work that cannot be captured in a CUDA graph (an
+    autograd backward, cuDNN's LSTM). A spin kernel launched first holds
+    the card while the host queues the calls, so the events time the
+    card's work and not the rate at which the host makes the calls
+    (eager calls made as the card runs them time the host: SDPA's
+    autograd backward at the LM's shapes costs the host more than the
+    card). None, "not measured", when the host was still queueing as
+    the spin ended: then host time is in the events' (a call that
+    blocks the host, as cuDNN's float32 LSTM does, compacting its
+    weights on every call, waits out any spin)."""
     fn(0)
     torch.cuda.synchronize()
+    spin = torch.cuda.Event(enable_timing=True)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    spin.record()
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
+    t0 = time.perf_counter()
     for i in range(iters):
         fn(i)
     end.record()
+    queued_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
+    if queued_ms >= spin.elapsed_time(start):
+        log(f"event_ms: the host queued for {queued_ms:.1f} ms, longer "
+            f"than the {spin.elapsed_time(start):.1f} ms spin: the events' "
+            f"{start.elapsed_time(end) / iters * 1e3:.2f} us/call include "
+            "host time; not measured")
+        return None
     return start.elapsed_time(end) / iters
 
 
@@ -933,6 +1164,10 @@ def phase_train_trace(trainer, batch, label="train", what="flash kernels",
     log(f"{label} trace: 1 step, wall {wall_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}), {what} "
         f"{ours_ms:.3f} ms ({ours_ms / busy_ms:.3f} of busy)")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
+        if any(m in name for m in marks):
+            log(f"{label} trace {what}: {ms:.3f} ms ({ms / busy_ms:.3f} of "
+                f"busy)  {name[:90]}")
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
         log(f"{label} trace top kernel: {ms:.3f} ms  {name[:90]}")
 
@@ -1406,7 +1641,7 @@ def phase_rnn_timings():
             cudnn_ms = event_ms(lambda i: cudnn(xe), iters=5)
         log(f"near-yardstick torch.nn.LSTM (cuDNN) forward {str(dtype)[6:]} "
             f"b128 T{LSTM_TOKENS} in {LSTM_NET['emb_size']} h"
-            f"{LSTM_NET['hidden_size']}: {cudnn_ms * 1e3:.2f} us/call")
+            f"{LSTM_NET['hidden_size']}: {_us(cudnn_ms)}")
         del x4, w, cseq, gates, d_out, x3, gw, cudnn, xe
     return out
 
@@ -2023,7 +2258,8 @@ def main():
     flash_err = phase_flash_vs_plain()
     trainer, batch, flash_launches = phase_train()
     phase_train_trace(trainer, batch)      # still in bfloat16
-    phase_flash_grad_check(batch)          # switches to float32
+    phase_flash_grad_check(batch, "bfloat16")
+    phase_flash_grad_check(batch, "float32")   # leaves float32 set
     phase_train_to_serve(trainer)
     flash_timing = phase_flash_timings()
     rnn_err = phase_rnn_vs_plain()
@@ -2050,12 +2286,12 @@ def main():
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",
         replaces="paddle_tpu/ops/pallas_decode.py:257",
         launches=launches, max_abs_err=max_err, **timing)]
-    for (name, line, src), n in zip(FLASH_KERNELS, flash_launches):
+    for (name, line, _, src), n in zip(FLASH_KERNELS, flash_launches):
         kernels.append(dict(
             name=f"flash_attention_{name}", route="cuda",
             source=f"paddle_tpu_torch/csrc/{src}",
             replaces=f"paddle_tpu/ops/pallas_attention.py:{line}",
-            launches=n, max_abs_err=flash_err[name],
+            launches=n, max_abs_err=flash_err[(name, torch.bfloat16)],
             **flash_timing[(name, torch.bfloat16)]))
     rnn_launches = {"lstm_fwd": lstm_counts["lstm_fwd"],
                     "lstm_bwd": lstm_counts["lstm_bwd"],

@@ -1,9 +1,11 @@
-// Flash-attention backward for Hopper (sm_90a): two kernels.
+// Flash-attention backward for Hopper (sm_90a): two SIMT kernels.
 //
 // Replaces: paddle_tpu/ops/pallas_attention.py:_flash_bwd_dq_kernel
-// (pt_flash_bwd_dq) and :_flash_bwd_dkv_kernel (pt_flash_bwd_dkv),
-// both launched by _flash_grads. Same functions: each tile's softmax
-// is recomputed from the saved natural-units logsumexp as
+// (pt_flash_bwd_dq, float32 and bfloat16) and :_flash_bwd_dkv_kernel
+// (pt_flash_bwd_dkv, float32 only: bfloat16 takes the wgmma kernel of
+// flash_dkv_sm90.cu), both launched by _flash_grads. Same functions:
+// each tile's softmax is recomputed from the saved natural-units
+// logsumexp as
 // p = exp2(s*scale*log2e - lse*log2e) under the full (q_len, kv_len,
 // causal) mask — the mask applied BEFORE the exponent can overflow on
 // a fully-masked row, whose lse is NEG_INF — then with
@@ -33,8 +35,9 @@
 // T 1024, d 64, causal) dq does 3 and dk/dv 4 products of the
 // forward's 2 (12.9 and 17.2 GFLOP counting the valid pairs) against
 // ~42 and ~50 MB in bf16 — operations-bound on the SIMT float32 units
-// of this first version (>= 190 and 260 us at 67 TFLOP/s); mma/wgmma
-// tiles are later work.
+// (>= 190 and 260 us at 67 TFLOP/s). float32 stays here because the
+// JAX kernels run it at Precision.HIGHEST, beyond TF32; bf16 dq moving
+// to wgmma on sm90_pipeline.cuh's building blocks is the next step.
 //
 // Build: see flash_attention_fwd.cu.
 
@@ -278,8 +281,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. Each returns cudaGetLastError() after
-// its launch (0 on success); the wrapper raises on anything else.
+// dtype: 0 float32, 1 bfloat16 (dq only; bf16 dk/dv take
+// flash_dkv_sm90.cu). Each returns cudaGetLastError() after its launch
+// (0 on success); the wrapper raises on anything else.
 extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* dd, const void* lens, void* dq,
@@ -319,20 +323,11 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const float* dl = static_cast<const float*>(dd);
   const int* ln = static_cast<const int*>(lens);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0)
-    e = D <= 64 ? launch_dkv<float, 1>(q, k, v, dout, ls, dl, ln, dk, dv, B, H,
-                                       Tq, Tk, D, scale, causal, st)
-                : launch_dkv<float, 2>(q, k, v, dout, ls, dl, ln, dk, dv, B, H,
-                                       Tq, Tk, D, scale, causal, st);
-  else if (dtype == 1)
-    e = D <= 64 ? launch_dkv<__nv_bfloat16, 1>(q, k, v, dout, ls, dl, ln, dk,
-                                               dv, B, H, Tq, Tk, D, scale,
-                                               causal, st)
-                : launch_dkv<__nv_bfloat16, 2>(q, k, v, dout, ls, dl, ln, dk,
-                                               dv, B, H, Tq, Tk, D, scale,
-                                               causal, st);
-  else
-    e = cudaErrorInvalidValue;
-  return (int)e;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return (int)(D <= 64 ? launch_dkv<float, 1>(q, k, v, dout, ls, dl, ln, dk,
+                                              dv, B, H, Tq, Tk, D, scale,
+                                              causal, st)
+                       : launch_dkv<float, 2>(q, k, v, dout, ls, dl, ln, dk,
+                                              dv, B, H, Tq, Tk, D, scale,
+                                              causal, st));
 }

@@ -1,7 +1,8 @@
-// Flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a), float32 route.
 //
 // Replaces: paddle_tpu/ops/pallas_attention.py:_flash_kernel (launched
-// by _flash_call, public flash_attention). Same function: softmax
+// by _flash_call, public flash_attention) for float32 q/k/v; bfloat16
+// takes the wgmma kernel of flash_fwd_sm90.cu. Same function: softmax
 // attention of each query row over the key rows with the per-row
 // (q_len, kv_len) mask and, under causal, cols <= rows, computed as an
 // online softmax in base 2 (scale*log2(e) folded into the scores, p
@@ -16,23 +17,22 @@
 //   - it visits only key blocks k0 < kv_len and, under causal,
 //     k0 <= q0 + 63 (the TPU kernel's block skip as a loop bound); a
 //     query block wholly past q_len does no work;
-//   - K and V blocks of 64 rows are staged in shared memory as float32
-//     (bf16 converted on load), then S = Q K^T and O += P V are
-//     register-tiled SIMT products (4 x 4 scores and 4 rows x D/16
-//     outputs a thread), P passing through shared memory;
+//   - K and V blocks of 64 rows are staged in shared memory, then
+//     S = Q K^T and O += P V are register-tiled SIMT products (4 x 4
+//     scores and 4 rows x D/16 outputs a thread), P passing through
+//     shared memory;
 //   - interior tiles (all rows < q_len, all cols < kv_len, wholly at or
 //     below the diagonal) skip the mask, as on the TPU;
 //   - any T is handled by bounds checks on the loads and stores, not
 //     by padding copies.
 // Inputs are read in the layer's [b, T, h, d] layout, with no transposes.
 //
-// What bounds it on an H100: at the transformer's shapes (b 8, h 8,
-// T 1024, d 64, causal) it does 4*bh*d*T(T+1)/2 = 8.6 GFLOP against
-// 33.5 MB of q/k/v/out in bf16: 8.7 us at the 989 TFLOP/s of the bf16
-// tensor cores, 10.0 us at 3.35 TB/s — near balance. This first
-// version multiplies on the SIMT float32 units (67 TFLOP/s peak), so
-// it is flop-bound at >= 128 us; mma/wgmma tiles, TMA and warp
-// specialisation are later work.
+// What bounds it on an H100: the JAX kernel runs float32 at
+// Precision.HIGHEST, which the TF32 tensor cores (about 3 decimal
+// digits) would not match, so the products stay on the float32 SIMT
+// units (67 TFLOP/s): at the transformer's shapes (b 8, h 8, T 1024,
+// d 64, causal) 8.6 GFLOP put a floor of 128 us under it. Splitting
+// each operand into three TF32 parts is untried.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared
 // -Xcompiler -fPIC (paddle_tpu_torch/ops/_build.py); bound with ctypes
@@ -187,8 +187,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. Returns cudaGetLastError() after the
-// launch (0 on success); the wrapper raises on anything else.
+// dtype must be 0 (float32): bfloat16 takes flash_fwd_sm90.cu. Returns
+// cudaGetLastError() after the launch (0 on success); the wrapper
+// raises on anything else.
 extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
                             const void* lens, void* out, void* lse, int B,
                             int H, int Tq, int Tk, int D, float scale,
@@ -197,14 +198,7 @@ extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
   const int* ln = static_cast<const int*>(lens);
   float* ls = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0)
-    e = dispatch<float>(q, k, v, ln, out, ls, B, H, Tq, Tk, D, scale, causal,
-                        st);
-  else if (dtype == 1)
-    e = dispatch<__nv_bfloat16>(q, k, v, ln, out, ls, B, H, Tq, Tk, D, scale,
-                                causal, st);
-  else
-    e = cudaErrorInvalidValue;
-  return (int)e;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return (int)dispatch<float>(q, k, v, ln, out, ls, B, H, Tq, Tk, D, scale,
+                              causal, st);
 }

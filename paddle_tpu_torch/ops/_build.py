@@ -37,6 +37,8 @@ SOURCES: Dict[str, str] = {
     "lstm_bwd": "lstm_bwd.cu",
     "gru_fwd": "gru_fwd.cu",
     "decode_attention": "decode_attention.cu",
+    "flash_fwd_sm90": "flash_fwd_sm90.cu",
+    "flash_dkv_sm90": "flash_dkv_sm90.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

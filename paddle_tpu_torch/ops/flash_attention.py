@@ -9,11 +9,24 @@
   things the kernels compute.
 - :func:`flash_forward`, :func:`flash_backward_dq`,
   :func:`flash_backward_dkv`: one wrapper per kernel. A tensor on the
-  CPU takes the plain version; a tensor on a CUDA card launches the
-  hand-written Hopper kernel (``csrc/flash_attention_fwd.cu`` —
-  replaces ``_flash_kernel``; ``csrc/flash_attention_bwd.cu`` —
-  replaces ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``) or
-  raises. Each launch adds one to the wrapper's ``launches``.
+  CPU takes the plain version; a tensor on a CUDA card launches a
+  hand-written Hopper kernel or raises. The kernel is chosen by dtype
+  alone (:func:`flash_route`), never on error:
+
+  ========  ==========================  =================================
+  kernel    bfloat16 ("sm90")           float32 ("simt")
+  ========  ==========================  =================================
+  forward   ``csrc/flash_fwd_sm90.cu``  ``csrc/flash_attention_fwd.cu``
+  dq        ``csrc/flash_attention_bwd.cu`` (both dtypes: "simt")
+  dk/dv     ``csrc/flash_dkv_sm90.cu``  ``csrc/flash_attention_bwd.cu``
+  ========  ==========================  =================================
+
+  The sm90 kernels run both products of every tile on wgmma over
+  TMA-fed tiles; the SIMT kernels multiply in float32, as the JAX
+  kernels' ``Precision.HIGHEST`` requires. They replace
+  ``_flash_kernel``, ``_flash_bwd_dq_kernel`` and
+  ``_flash_bwd_dkv_kernel``. Each launch adds one to the wrapper's
+  ``launches`` and to its route's entry in ``route_launches``.
 - :func:`flash_attention`: the differentiable entry point. On the card
   a ``torch.autograd.Function`` runs the forward kernel (saving q, k, v,
   out, lse and the lengths), and its backward computes
@@ -156,8 +169,34 @@ def flash_supported(q: torch.Tensor, k: torch.Tensor) -> bool:
             and k.dtype == q.dtype)
 
 
-def _fn(lib: str, sym: str, n_ptrs: int):
+# (kernel, route) -> (library, C symbol)
+_KERNELS = {
+    ("fwd", "sm90"): ("flash_fwd_sm90", "pt_flash_fwd_sm90"),
+    ("fwd", "simt"): ("flash_attention_fwd", "pt_flash_fwd"),
+    ("dq", "simt"): ("flash_attention_bwd", "pt_flash_bwd_dq"),
+    ("dkv", "sm90"): ("flash_dkv_sm90", "pt_flash_dkv_sm90"),
+    ("dkv", "simt"): ("flash_attention_bwd", "pt_flash_bwd_dkv"),
+}
+
+
+def flash_route(kernel: str, dtype: torch.dtype) -> str:
+    """The route of ``kernel`` ("fwd", "dq" or "dkv") for operands of
+    ``dtype``: bfloat16 forward and dk/dv take the wgmma kernels
+    ("sm90"); float32, and dq in both dtypes, the SIMT kernels
+    ("simt"). Every head dim the shape gate admits takes the same route."""
+    if kernel not in ("fwd", "dq", "dkv"):
+        raise ValueError(f"no flash kernel {kernel!r}")
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash kernels take float32 or bfloat16, got "
+                        f"{dtype}")
+    if dtype == torch.bfloat16 and kernel != "dq":
+        return "sm90"
+    return "simt"
+
+
+def _fn(kernel: str, route: str, n_ptrs: int):
     from paddle_tpu_torch.ops import _build
+    lib, sym = _KERNELS[(kernel, route)]
     fn = getattr(_build.load(lib), sym)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -217,10 +256,15 @@ def _lens_pair(lens2):
     return lens2[:, 0], lens2[:, 1]
 
 
+def _count(wrapper, route):
+    wrapper.launches += 1
+    wrapper.route_launches[route] += 1
+
+
 def flash_forward(q, k, v, lens2, causal: bool, scale: float):
     """(out [b, Tq, h, d], lse [b*h, Tq] float32). ``lens2`` is int32
     [b, 2] (q_len, kv_len). CPU: the plain version; CUDA: the forward
-    kernel."""
+    kernel of :func:`flash_route`."""
     if q.device.type == "cpu":
         ql, kl = _lens_pair(lens2)
         return (flash_attention_reference(q, k, v, ql, kl, causal, scale),
@@ -231,7 +275,8 @@ def flash_forward(q, k, v, lens2, causal: bool, scale: float):
     b, tq, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
-    fn = _fn("flash_attention_fwd", "pt_flash_fwd", 6)
+    route = flash_route("fwd", q.dtype)
+    fn = _fn("fwd", route, 6)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens2.data_ptr(),
              out.data_ptr(), lse.data_ptr(), b, h, tq, k.shape[1], d,
              float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
@@ -239,14 +284,14 @@ def flash_forward(q, k, v, lens2, causal: bool, scale: float):
     if err != 0:
         raise RuntimeError(
             f"flash attention forward launch failed: CUDA error {err}")
-    flash_forward.launches += 1
+    _count(flash_forward, route)
     return out, lse
 
 
 def flash_backward_dq(q, k, v, do, lse, dd, lens2, causal: bool,
                       scale: float) -> torch.Tensor:
     """dq from the saved lse and D = rowsum(dO*O) [b*h, Tq]. CPU: the
-    plain version; CUDA: the dq kernel."""
+    plain version; CUDA: the SIMT dq kernel."""
     if q.device.type == "cpu":
         ql, kl = _lens_pair(lens2)
         return flash_dq_reference(q, k, v, do, lse, dd, ql, kl, causal,
@@ -258,7 +303,8 @@ def flash_backward_dq(q, k, v, do, lse, dd, lens2, causal: bool,
             "lens": lens2}, q)
     b, tq, h, d = q.shape
     dq = torch.empty_like(q)
-    fn = _fn("flash_attention_bwd", "pt_flash_bwd_dq", 8)
+    route = flash_route("dq", q.dtype)
+    fn = _fn("dq", route, 8)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), dd.data_ptr(), lens2.data_ptr(), dq.data_ptr(),
              b, h, tq, k.shape[1], d, float(scale), int(bool(causal)),
@@ -267,14 +313,14 @@ def flash_backward_dq(q, k, v, do, lse, dd, lens2, causal: bool,
     if err != 0:
         raise RuntimeError(f"flash attention dq launch failed: CUDA error "
                            f"{err}")
-    flash_backward_dq.launches += 1
+    _count(flash_backward_dq, route)
     return dq
 
 
 def flash_backward_dkv(q, k, v, do, lse, dd, lens2, causal: bool,
                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) from the saved lse and D. CPU: the plain version;
-    CUDA: the dk/dv kernel."""
+    CUDA: the dk/dv kernel of :func:`flash_route`."""
     if q.device.type == "cpu":
         ql, kl = _lens_pair(lens2)
         return flash_dkv_reference(q, k, v, do, lse, dd, ql, kl, causal,
@@ -287,7 +333,8 @@ def flash_backward_dkv(q, k, v, do, lse, dd, lens2, causal: bool,
     b, tq, h, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = _fn("flash_attention_bwd", "pt_flash_bwd_dkv", 9)
+    route = flash_route("dkv", q.dtype)
+    fn = _fn("dkv", route, 9)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), dd.data_ptr(), lens2.data_ptr(), dk.data_ptr(),
              dv.data_ptr(), b, h, tq, k.shape[1], d, float(scale),
@@ -296,13 +343,18 @@ def flash_backward_dkv(q, k, v, do, lse, dd, lens2, causal: bool,
     if err != 0:
         raise RuntimeError(f"flash attention dk/dv launch failed: CUDA "
                            f"error {err}")
-    flash_backward_dkv.launches += 1
+    _count(flash_backward_dkv, route)
     return dk, dv
 
 
-flash_forward.launches = 0
-flash_backward_dq.launches = 0
-flash_backward_dkv.launches = 0
+def reset_launches():
+    """Zero every flash wrapper's ``launches`` and ``route_launches``."""
+    for fn in (flash_forward, flash_backward_dq, flash_backward_dkv):
+        fn.launches = 0
+        fn.route_launches = {"sm90": 0, "simt": 0}
+
+
+reset_launches()
 
 
 class _FlashFn(torch.autograd.Function):

@@ -7,7 +7,10 @@ dk/dv kernels). The port's side is the plain version its CPU wrappers
 take — the same functions its CUDA kernels are held against on the
 card. Inputs are numpy arrays from a seeded RandomState handed to
 both. Tolerance: atol 2e-5 in float32, the bound of
-tests/test_pallas_attention.py for the kernel against its reference.
+tests/test_pallas_attention.py for the kernel against its reference;
+in bfloat16 (the same values rounded to bf16 on both sides) max |err|
+<= 2e-2 max(1, max|ref|), the bound chip_smoke.py's phase 6 holds the
+bf16 kernels to: the two sides round p to bf16 at different points.
 """
 
 import numpy as np
@@ -21,6 +24,7 @@ from paddle_tpu.ops import pallas_attention as jfa
 from paddle_tpu_torch.ops import flash_attention as tfa
 
 ATOL = 2e-5
+BF16_ATOL = 2e-2
 
 # name -> (tq, tk, q_lens, kv_lens, causal, block): the cases of
 # tests/test_pallas_attention.py, each in the port
@@ -48,7 +52,8 @@ def _lens(x):
     return None if x is None else np.asarray(x, np.int32)
 
 
-def _jax_out_and_grads(q, k, v, do, ql, kl, causal, block):
+def _jax_out_and_grads(q, k, v, do, ql, kl, causal, block,
+                       dtype=jnp.float32):
     def f(q_, k_, v_):
         return jfa.flash_attention(
             q_, k_, v_,
@@ -56,9 +61,9 @@ def _jax_out_and_grads(q, k, v, do, ql, kl, causal, block):
             kv_lens=None if kl is None else jnp.asarray(kl),
             causal=causal, block_q=block, block_k=block, interpret=True)
 
-    out, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    return (np.asarray(out),) + tuple(np.asarray(g) for g in
-                                      vjp(jnp.asarray(do)))
+    out, vjp = jax.vjp(f, *(jnp.asarray(x, dtype) for x in (q, k, v)))
+    return tuple(np.asarray(x.astype(jnp.float32)) for x in
+                 (out,) + vjp(jnp.asarray(do, dtype)))
 
 
 def _t(x, grad=False):
@@ -82,6 +87,54 @@ def test_forward_and_gradients_match_pallas_interpret(case):
         assert np.all(got[0][0] == 0.0) and np.all(np.isfinite(got[0]))
     if case == "q_lens_zero_rows":
         assert np.all(got[0][0, 10:] == 0.0)
+
+
+@pytest.mark.parametrize("d", [16, 24])
+@pytest.mark.parametrize("case", ["causal", "multi_block_causal_ragged",
+                                  "fully_masked_row"])
+def test_bf16_forward_and_gradients_match_pallas_interpret(case, d):
+    """bfloat16 q/k/v/dO (d 24: a head dim the gate admits with
+    d % 16 != 0): the port's flash_attention, forward and autograd
+    backward, against the JAX package's, in interpret mode, with its
+    custom-vjp dq and dk/dv kernels."""
+    tq, tk, ql, kl, causal, block = CASES[case]
+    q, k, v, do = _inputs(tq, tk, seed=2, d=d)
+    ql, kl = _lens(ql), _lens(kl)
+    want = _jax_out_and_grads(q, k, v, do, ql, kl, causal, block,
+                              jnp.bfloat16)
+    leaves = [torch.tensor(x).to(torch.bfloat16).requires_grad_()
+              for x in (q, k, v)]
+    out = tfa.flash_attention(*leaves, q_lens=_t(ql), kv_lens=_t(kl),
+                              causal=causal)
+    assert out.dtype == torch.bfloat16
+    grads = torch.autograd.grad(out, leaves,
+                                torch.tensor(do).to(torch.bfloat16))
+    got = [x.detach().float().numpy() for x in (out,) + grads]
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        bound = BF16_ATOL * max(1.0, float(np.abs(b).max()))
+        err = float(np.abs(a - b).max())
+        assert err <= bound, f"{name}: max |err| {err} > {bound}"
+    if case == "fully_masked_row":
+        assert np.all(got[0][0] == 0.0) and np.all(np.isfinite(got[0]))
+
+
+@pytest.mark.parametrize("d", [8, 24, 64, 72, 128])
+def test_route_is_chosen_by_dtype_alone(d):
+    """bfloat16 forward and dk/dv take the wgmma kernels (sm90), float32
+    and dq the SIMT kernels, at every head dim the gate admits."""
+    q = torch.zeros(2, 16, 2, d)
+    for dtype, want in ((torch.bfloat16, ("sm90", "simt", "sm90")),
+                        (torch.float32, ("simt", "simt", "simt"))):
+        x = q.to(dtype)
+        assert tfa.flash_supported(x, x)
+        got = tuple(tfa.flash_route(n, x.dtype) for n in ("fwd", "dq", "dkv"))
+        assert got == want
+        for kernel, route in zip(("fwd", "dq", "dkv"), got):
+            assert (kernel, route) in tfa._KERNELS
+    with pytest.raises(TypeError):
+        tfa.flash_route("fwd", torch.float16)
+    with pytest.raises(ValueError):
+        tfa.flash_route("bwd", torch.bfloat16)
 
 
 @pytest.mark.parametrize("case", ["ragged_kv", "q_lens_zero_rows", "causal",
@@ -179,12 +232,19 @@ def test_supported_gate_and_cpu_path_launches_nothing():
     assert not tfa.flash_supported(torch.zeros(2, 24, 2, 136),
                                    torch.zeros(2, 24, 2, 136))
     assert not tfa.flash_supported(q.double(), q.double())
-    before = (tfa.flash_forward.launches, tfa.flash_backward_dq.launches,
-              tfa.flash_backward_dkv.launches)
-    x = torch.randn(1, 16, 2, 8, requires_grad=True)
-    tfa.flash_attention(x, x, x, causal=True).sum().backward()
-    assert (tfa.flash_forward.launches, tfa.flash_backward_dq.launches,
-            tfa.flash_backward_dkv.launches) == before
+    wrappers = (tfa.flash_forward, tfa.flash_backward_dq,
+                tfa.flash_backward_dkv)
+
+    def counts():
+        return [(w.launches, dict(w.route_launches)) for w in wrappers]
+
+    before = counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(1, 16, 2, 8).to(dtype).requires_grad_()
+        tfa.flash_attention(x, x, x, causal=True).sum().backward()
+    assert counts() == before
+    tfa.reset_launches()
+    assert counts() == [(0, {"sm90": 0, "simt": 0})] * 3
 
 
 def test_kernel_wrappers_refuse_other_devices():
