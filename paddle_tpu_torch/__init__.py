@@ -19,14 +19,16 @@ Slices ported so far:
   ``Topology`` executor (core/, layers/), ``models.transformer_lm``,
   ``Adam`` / ``Momentum`` (optimizer/), ``Parameters`` and the
   ``SGD`` trainer (trainer/), with hand-written Hopper kernels for
-  flash attention forward, dq and dk/dv (csrc/flash_attention_*.cu);
+  flash attention forward, dq and dk/dv (bfloat16 on the tensor cores,
+  csrc/flash_{fwd,dq,dkv}_sm90.cu; float32 csrc/flash_attention_*.cu);
 - the sequence slice — the recurrent layers (lstmemory, grumemory,
   recurrent), sequence pooling, concat, the linear-chain CRF, the
   recurrent stacks of networks.py, ``models.stacked_lstm_net`` /
   ``bidi_lstm_net`` (models/text.py), ``models.rnn_crf_tagger``
   (models/tagger.py) and ``trainer.infer`` / ``Inference``, with
   hand-written Hopper kernels for the fused LSTM forward and backward
-  and the GRU forward (csrc/lstm_fwd.cu, lstm_bwd.cu, gru_fwd.cu);
+  and the GRU forward (csrc/lstm_fwd.cu, lstm_bwd.cu, gru_fwd.cu; the
+  bfloat16 backward's product on the tensor cores, lstm_bwd_sm90.cu);
 - the serving engine's remaining options — int8 KV pages (the int8
   path of csrc/paged_window_attention.cu), the host spill tier
   (serving/spill.py), speculative decoding with ``DraftDecoder``, and
@@ -52,5 +54,9 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 from paddle_tpu_torch.device import resolve_device  # noqa: E402
+# fills the layer registry, as paddle_tpu/__init__.py does by importing
+# its layers: Topology.deserialize needs it in any process. Cheap: no
+# CUDA call and no kernel build happens at import.
+from paddle_tpu_torch import layers as _layers  # noqa: E402,F401
 
 __all__ = ["resolve_device"]

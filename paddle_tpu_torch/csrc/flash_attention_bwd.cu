@@ -1,9 +1,10 @@
-// Flash-attention backward for Hopper (sm_90a): two SIMT kernels.
+// Flash-attention backward for Hopper (sm_90a): two SIMT kernels,
+// float32.
 //
 // Replaces: paddle_tpu/ops/pallas_attention.py:_flash_bwd_dq_kernel
-// (pt_flash_bwd_dq, float32 and bfloat16) and :_flash_bwd_dkv_kernel
-// (pt_flash_bwd_dkv, float32 only: bfloat16 takes the wgmma kernel of
-// flash_dkv_sm90.cu), both launched by _flash_grads. Same functions:
+// (pt_flash_bwd_dq) and :_flash_bwd_dkv_kernel (pt_flash_bwd_dkv), both
+// launched by _flash_grads, for float32 operands: bfloat16 takes the
+// wgmma kernels of flash_dq_sm90.cu and flash_dkv_sm90.cu. Same functions:
 // each tile's softmax is recomputed from the saved natural-units
 // logsumexp as
 // p = exp2(s*scale*log2e - lse*log2e) under the full (q_len, kv_len,
@@ -36,8 +37,7 @@
 // forward's 2 (12.9 and 17.2 GFLOP counting the valid pairs) against
 // ~42 and ~50 MB in bf16 — operations-bound on the SIMT float32 units
 // (>= 190 and 260 us at 67 TFLOP/s). float32 stays here because the
-// JAX kernels run it at Precision.HIGHEST, beyond TF32; bf16 dq moving
-// to wgmma on sm90_pipeline.cuh's building blocks is the next step.
+// JAX kernels run it at Precision.HIGHEST, beyond TF32.
 //
 // Build: see flash_attention_fwd.cu.
 
@@ -281,8 +281,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (dq only; bf16 dk/dv take
-// flash_dkv_sm90.cu). Each returns cudaGetLastError() after its launch
+// dtype must be 0 (float32): bfloat16 takes flash_dq_sm90.cu and
+// flash_dkv_sm90.cu. Each returns cudaGetLastError() after its launch
 // (0 on success); the wrapper raises on anything else.
 extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
@@ -295,21 +295,11 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
   const float* dl = static_cast<const float*>(dd);
   const int* ln = static_cast<const int*>(lens);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0)
-    e = D <= 64 ? launch_dq<float, 1>(q, k, v, dout, ls, dl, ln, dq, B, H, Tq,
-                                      Tk, D, scale, causal, st)
-                : launch_dq<float, 2>(q, k, v, dout, ls, dl, ln, dq, B, H, Tq,
-                                      Tk, D, scale, causal, st);
-  else if (dtype == 1)
-    e = D <= 64
-            ? launch_dq<__nv_bfloat16, 1>(q, k, v, dout, ls, dl, ln, dq, B, H,
-                                          Tq, Tk, D, scale, causal, st)
-            : launch_dq<__nv_bfloat16, 2>(q, k, v, dout, ls, dl, ln, dq, B, H,
-                                          Tq, Tk, D, scale, causal, st);
-  else
-    e = cudaErrorInvalidValue;
-  return (int)e;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return (int)(D <= 64 ? launch_dq<float, 1>(q, k, v, dout, ls, dl, ln, dq, B,
+                                             H, Tq, Tk, D, scale, causal, st)
+                       : launch_dq<float, 2>(q, k, v, dout, ls, dl, ln, dq, B,
+                                             H, Tq, Tk, D, scale, causal, st));
 }
 
 extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,

@@ -2,7 +2,7 @@
 //
 // Replaces: paddle_tpu/ops/pallas_attention.py:_flash_bwd_dkv_kernel
 // (launched by _flash_grads) for bf16 operands; float32 keeps the SIMT
-// kernel of flash_attention_bwd.cu, and dq stays there in both dtypes.
+// kernel of flash_attention_bwd.cu. The bf16 dq is flash_dq_sm90.cu.
 // Same function as that file documents: p is recomputed from the saved
 // natural-units lse as exp2(s*scale*log2e - lse*log2e) under the full
 // (q_len, kv_len, causal) mask, the mask applied BEFORE the exponent (a

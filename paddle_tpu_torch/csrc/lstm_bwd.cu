@@ -1,10 +1,12 @@
-// Fused LSTM sequence backward for Hopper (sm_90a).
+// Fused LSTM sequence backward for Hopper (sm_90a), float32.
 //
 // Replaces: paddle_tpu/ops/pallas_rnn.py:_lstm_bwd_kernel (launched by
-// _lstm_bwd). Same function: in reverse time, from the forward's
-// activated gates and c sequence, the output cotangent dh_seq and the
-// final-state cotangents dhT / dcT, it carries (dh, dc) and emits dz,
-// the cotangent of the gate pre-activations:
+// _lstm_bwd) for float32 weights: bfloat16 takes lstm_bwd_sm90.cu, the
+// same plan with its product on the tensor cores. Same function: in
+// reverse time, from the forward's activated gates and c sequence, the
+// output cotangent dh_seq and the final-state cotangents dhT / dcT, it
+// carries (dh, dc) and emits dz, the cotangent of the gate
+// pre-activations:
 //   dh_t = dh + [valid] dh_seq[t]
 //   dzo = dh_t*tanh(c_t)*o*(1-o)
 //   dc_t = dc + dh_t*o*(1-tanh(c_t)^2) + dzo*po
@@ -233,9 +235,10 @@ cudaError_t dispatch(const void* w, const float* peep, const int* lens,
 }  // namespace
 
 // w [H, 4H], gates [B, T, 4H], cseq and dhseq [B, T, H] and dz [B, T, 4H]
-// in the product dtype (0 float32, 1 bfloat16); peep [3H], dhT, dcT and
-// the scratch carries dh, dc [B, H] float32; lens [B] int32; bar one
-// zeroed uint32. Returns the CUDA error of the launch (0 on success).
+// in the product dtype, which must be 0 (float32: bfloat16 takes
+// lstm_bwd_sm90.cu); peep [3H], dhT, dcT and the scratch carries dh, dc
+// [B, H] float32; lens [B] int32; bar one zeroed uint32. Returns the CUDA
+// error of the launch (0 on success).
 extern "C" int pt_lstm_bwd(const void* w, const void* peep, const void* lens,
                            const void* gates, const void* cseq,
                            const void* dhseq, const void* dhT,
@@ -251,14 +254,7 @@ extern "C" int pt_lstm_bwd(const void* w, const void* peep, const void* lens,
   float* dc_ = static_cast<float*>(dc);
   unsigned int* br = static_cast<unsigned int*>(bar);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0)
-    e = dispatch<float>(w, p, ln, gates, cseq, dhseq, dht, dct, dz, dh_, dc_,
-                        br, B, Tn, H, U, st);
-  else if (dtype == 1)
-    e = dispatch<__nv_bfloat16>(w, p, ln, gates, cseq, dhseq, dht, dct, dz,
-                                dh_, dc_, br, B, Tn, H, U, st);
-  else
-    e = cudaErrorInvalidValue;
-  return (int)e;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return (int)dispatch<float>(w, p, ln, gates, cseq, dhseq, dht, dct, dz,
+                              dh_, dc_, br, B, Tn, H, U, st);
 }

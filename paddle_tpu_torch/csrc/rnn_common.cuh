@@ -1,7 +1,7 @@
 // Shared pieces of the persistent recurrent kernels for Hopper (sm_90a):
 // the grid-wide barrier, the staged SIMT product against a weight slice
 // resident in shared memory, and the element conversions. Included by
-// lstm_fwd.cu, lstm_bwd.cu and gru_fwd.cu.
+// lstm_fwd.cu, lstm_bwd.cu, lstm_bwd_sm90.cu and gru_fwd.cu.
 //
 // The design every recurrent kernel shares (a persistent RNN): one
 // cooperative launch covers the whole sequence, with at most one block
@@ -262,7 +262,7 @@ __device__ __forceinline__ int steps_to_run(const int* lens, int B, int Tn) {
   if (threadIdx.x == 0) s_max = 0;
   __syncthreads();
   int m = 0;
-  for (int r = threadIdx.x; r < B; r += kThreads) m = max(m, lens[r]);
+  for (int r = threadIdx.x; r < B; r += blockDim.x) m = max(m, lens[r]);
   atomicMax(&s_max, m);
   __syncthreads();
   return min(s_max, Tn);
@@ -273,7 +273,7 @@ __device__ __forceinline__ int steps_to_run(const int* lens, int B, int Tn) {
 // barrier). The shared-memory limit is raised once per instantiation.
 inline cudaError_t coop_launch(const void* kernel, int grid, size_t smem,
                                size_t& configured, void** args,
-                               cudaStream_t stream) {
+                               cudaStream_t stream, int threads = kThreads) {
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -282,7 +282,7 @@ inline cudaError_t coop_launch(const void* kernel, int grid, size_t smem,
     configured = smem;
   }
   cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid),
-                                              dim3(kThreads), args, smem,
+                                              dim3(threads), args, smem,
                                               stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();

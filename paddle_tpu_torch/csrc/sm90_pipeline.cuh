@@ -1,14 +1,17 @@
-// Hopper (sm_90a) building blocks of the tensor-core flash kernels
-// (flash_fwd_sm90.cu, flash_dkv_sm90.cu), all inline PTX, no library:
+// Hopper (sm_90a) building blocks of the tensor-core kernels
+// (flash_fwd_sm90.cu, flash_dq_sm90.cu, flash_dkv_sm90.cu,
+// lstm_bwd_sm90.cu), all inline PTX, no library:
 //
 //   - a 4-D TMA tensor map over the layer's [b, T, h, d] bf16 layout,
 //     encoded on the host through cudaGetDriverEntryPoint (no -lcuda);
 //   - mbarrier init / arrive / expect-tx / parity wait;
-//   - cp.async.bulk.tensor 4-D loads that complete on an mbarrier;
+//   - cp.async.bulk.tensor 3-D and 4-D loads that complete on an
+//     mbarrier, and the proxy fences that order generic stores before
+//     them (another block's global stores, this block's shared ones);
 //   - shared-memory matrix descriptors for the 128-byte swizzle,
 //     K-major and MN-major;
-//   - wgmma fence / commit / wait and m64n64k16 bf16 -> f32 in SS and
-//     RS form;
+//   - wgmma fence / commit / wait, m64n64k16 bf16 -> f32 in SS and RS
+//     form, and m64n16k16 SS (the LSTM's narrow product);
 //   - the accumulator-fragment <-> (row, col) map, and packing an f32
 //     accumulator into bf16 A-register fragments.
 //
@@ -173,6 +176,32 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 3-D `map` at element coordinates (c0, c1, c2) into the
+// 1024-byte-aligned `dst`; completes the box's bytes on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// order this thread's generic-proxy global accesses against async-proxy
+// (TMA) accesses: on the writer after its stores, on the reader between
+// the acquire that made them visible and its TMA loads
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// the same for shared memory written with generic stores and then read
+// by wgmma (which reads shared memory through the async proxy)
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
@@ -277,6 +306,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TransB));
+}
+
+// d (+)= A B, m64n16k16, A and B from shared memory, both K-major (the
+// fragment map below with j < 2: d[8])
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // (row, col) of accumulator register i for lane l of warp w of the

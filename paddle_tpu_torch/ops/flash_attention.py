@@ -17,11 +17,11 @@
   kernel    bfloat16 ("sm90")           float32 ("simt")
   ========  ==========================  =================================
   forward   ``csrc/flash_fwd_sm90.cu``  ``csrc/flash_attention_fwd.cu``
-  dq        ``csrc/flash_attention_bwd.cu`` (both dtypes: "simt")
+  dq        ``csrc/flash_dq_sm90.cu``   ``csrc/flash_attention_bwd.cu``
   dk/dv     ``csrc/flash_dkv_sm90.cu``  ``csrc/flash_attention_bwd.cu``
   ========  ==========================  =================================
 
-  The sm90 kernels run both products of every tile on wgmma over
+  The sm90 kernels run every product of every tile on wgmma over
   TMA-fed tiles; the SIMT kernels multiply in float32, as the JAX
   kernels' ``Precision.HIGHEST`` requires. They replace
   ``_flash_kernel``, ``_flash_bwd_dq_kernel`` and
@@ -173,6 +173,7 @@ def flash_supported(q: torch.Tensor, k: torch.Tensor) -> bool:
 _KERNELS = {
     ("fwd", "sm90"): ("flash_fwd_sm90", "pt_flash_fwd_sm90"),
     ("fwd", "simt"): ("flash_attention_fwd", "pt_flash_fwd"),
+    ("dq", "sm90"): ("flash_dq_sm90", "pt_flash_dq_sm90"),
     ("dq", "simt"): ("flash_attention_bwd", "pt_flash_bwd_dq"),
     ("dkv", "sm90"): ("flash_dkv_sm90", "pt_flash_dkv_sm90"),
     ("dkv", "simt"): ("flash_attention_bwd", "pt_flash_bwd_dkv"),
@@ -181,17 +182,15 @@ _KERNELS = {
 
 def flash_route(kernel: str, dtype: torch.dtype) -> str:
     """The route of ``kernel`` ("fwd", "dq" or "dkv") for operands of
-    ``dtype``: bfloat16 forward and dk/dv take the wgmma kernels
-    ("sm90"); float32, and dq in both dtypes, the SIMT kernels
-    ("simt"). Every head dim the shape gate admits takes the same route."""
+    ``dtype``: bfloat16 takes the wgmma kernels ("sm90"), float32 the
+    SIMT kernels ("simt"). Every head dim the shape gate admits takes
+    the same route."""
     if kernel not in ("fwd", "dq", "dkv"):
         raise ValueError(f"no flash kernel {kernel!r}")
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"flash kernels take float32 or bfloat16, got "
                         f"{dtype}")
-    if dtype == torch.bfloat16 and kernel != "dq":
-        return "sm90"
-    return "simt"
+    return "sm90" if dtype == torch.bfloat16 else "simt"
 
 
 def _fn(kernel: str, route: str, n_ptrs: int):
@@ -291,7 +290,8 @@ def flash_forward(q, k, v, lens2, causal: bool, scale: float):
 def flash_backward_dq(q, k, v, do, lse, dd, lens2, causal: bool,
                       scale: float) -> torch.Tensor:
     """dq from the saved lse and D = rowsum(dO*O) [b*h, Tq]. CPU: the
-    plain version; CUDA: the SIMT dq kernel."""
+    plain version; CUDA: the dq kernel of :func:`flash_route` (bfloat16:
+    ``csrc/flash_dq_sm90.cu``, float32: ``csrc/flash_attention_bwd.cu``)."""
     if q.device.type == "cpu":
         ql, kl = _lens_pair(lens2)
         return flash_dq_reference(q, k, v, do, lse, dd, ql, kl, causal,

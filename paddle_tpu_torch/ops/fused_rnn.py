@@ -11,11 +11,14 @@
 - :func:`lstm_forward`, :func:`lstm_backward`, :func:`gru_forward`: one
   wrapper per kernel. A tensor on the CPU takes the plain version; a
   tensor on a CUDA card launches the hand-written Hopper kernel
-  (``csrc/lstm_fwd.cu`` replaces ``_lstm_kernel``, ``csrc/lstm_bwd.cu``
-  ``_lstm_bwd_kernel``, ``csrc/gru_fwd.cu`` ``_gru_kernel``) or raises.
+  (``csrc/lstm_fwd.cu`` replaces ``_lstm_kernel``, ``csrc/gru_fwd.cu``
+  ``_gru_kernel``; ``_lstm_bwd_kernel`` is ``csrc/lstm_bwd_sm90.cu`` in
+  bfloat16, its product on wgmma, and ``csrc/lstm_bwd.cu`` in float32,
+  chosen by ``w.dtype`` alone, :func:`lstm_bwd_route`) or raises.
   Each launch adds one to the wrapper's ``launches``
   (``lstm_forward.res_launches`` counts the launches that also wrote
-  the training residuals).
+  the training residuals, ``lstm_backward.route_launches`` the
+  backward's launches by route).
 - :func:`lstm_sequence`: the differentiable LSTM. When a gradient is
   needed, a ``torch.autograd.Function`` (the JAX package's
   ``custom_vjp``) runs the forward with residuals and its backward runs
@@ -48,6 +51,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KC, _ROWS, _LDS = 32, 128, 132
 _MAX_UNITS = 16
 _SM90_SMEM = 232448
+# the bf16 backward (csrc/lstm_bwd_sm90.cu): 16 units a block, weight
+# tiles of 64 columns, ring stages of two 64 x 64 bf16 tiles
+_BWD_UNITS, _BWD_CHUNK, _BWD_MAX_STAGES = 16, 64, 8
+_BWD_W_TILE, _BWD_STAGE, _BWD_STATIC = 16 * 64 * 2, 2 * 64 * 64 * 2, 1024
 
 
 # ------------------------------------------------------------ plain versions
@@ -175,6 +182,20 @@ def kernel_smem(h: int, units: int, gates: int) -> int:
     return _smem_bytes(h, 3 * units, 2 * units)
 
 
+def lstm_bwd_sm90_smem(h: int) -> Tuple[int, int]:
+    """(dynamic shared-memory bytes, ring stages) of the bf16 backward
+    kernel: 1024 of alignment slack, the block's weight rows as
+    ceil(4h / 64) tiles of 2048 bytes, and as many ring stages of 16384
+    bytes as fit under the opt-in limit beside 1024 bytes of static
+    memory (at most 8; 0 stages when fewer than 2 fit, which the
+    kernel refuses) — the arithmetic of ``ring_stages`` in
+    ``csrc/lstm_bwd_sm90.cu``."""
+    w_bytes = -(-4 * h // _BWD_CHUNK) * _BWD_W_TILE
+    stages = (_SM90_SMEM - _BWD_STATIC - 1024 - w_bytes) // _BWD_STAGE
+    stages = 0 if stages < 2 else min(stages, _BWD_MAX_STAGES)
+    return 1024 + w_bytes + stages * _BWD_STAGE, stages
+
+
 def kernel_ok(b: int, h: int, act: str = "tanh", gate_act: str = "sigmoid",
               state_act: str = "tanh", gates: int = 4,
               device=None) -> bool:
@@ -190,9 +211,14 @@ def kernel_ok(b: int, h: int, act: str = "tanh", gate_act: str = "sigmoid",
       4 * (32 * ceil(h / 32) * 4U + max(4224, 512U)) bytes (its
       backward 4 * (32 * ceil(4h / 32) * (U rounded up to even) +
       4224)), the GRU
-      4 * (32 * ceil(h / 32) * 3U + max(4224, 256U)). On an H100 SXM
-      (132 SMs) that admits the LSTM up to h = 1312 and the GRU up to
-      h = 1472, in float32 and bfloat16 alike. Any batch size.
+      4 * (32 * ceil(h / 32) * 3U + max(4224, 256U));
+    - for the LSTM, the bf16 backward (``csrc/lstm_bwd_sm90.cu``) fits
+      too: ceil(h / 16) blocks of 16 units (at most one per SM), each
+      with 1024 + 2048 * ceil(4h / 64) bytes of bf16 weight tiles plus
+      at least two 16384-byte ring stages (:func:`lstm_bwd_sm90_smem`)
+      — true up to h = 1536, so the float32 kernels' limit binds.
+    On an H100 SXM (132 SMs) that admits the LSTM up to h = 1312 and the
+    GRU up to h = 1472, in float32 and bfloat16 alike. Any batch size.
     """
     device = torch.device(device) if device is not None else None
     if device is None or device.type != "cuda":
@@ -203,6 +229,10 @@ def kernel_ok(b: int, h: int, act: str = "tanh", gate_act: str = "sigmoid",
     if torch.cuda.get_device_capability(device) != (9, 0):
         return False
     units = _units(h, device)
+    if gates == 4:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        if -(-h // _BWD_UNITS) > sms or lstm_bwd_sm90_smem(h)[1] == 0:
+            return False
     return units <= _MAX_UNITS and \
         kernel_smem(h, units, gates) <= _SM90_SMEM
 
@@ -294,13 +324,58 @@ def lstm_forward(x4: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
     return out, hT, cT
 
 
+def lstm_bwd_route(dtype: torch.dtype) -> str:
+    """The LSTM backward's route for weights of ``dtype``: bfloat16
+    takes the tensor-core kernel (``csrc/lstm_bwd_sm90.cu``, "sm90"),
+    float32 the SIMT kernel (``csrc/lstm_bwd.cu``, "simt"). By dtype
+    alone, decided before any launch."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the LSTM kernel takes float32 or bfloat16, got "
+                        f"{dtype}")
+    return "sm90" if dtype == torch.bfloat16 else "simt"
+
+
+def lstm_bwd_sm90_launch(w, peep, lens, gates, cseq, d_out, dhT, dcT,
+                         mode: int = 0) -> torch.Tensor:
+    """One launch of ``csrc/lstm_bwd_sm90.cu`` on checked bf16 CUDA
+    tensors; returns dz. ``mode`` 0 computes the function (what
+    :func:`lstm_backward` launches); 1 runs the steps without their
+    product and 2 the grid barriers alone, the per-step floors that
+    ``chip_smoke.py`` times (their dz is not the function). Counts
+    nothing: :func:`lstm_backward` counts its own launches."""
+    b, T, four_h = gates.shape
+    h = four_h // 4
+    dev = gates.device
+    dz = torch.empty((b, T, four_h), dtype=torch.bfloat16, device=dev)
+    zt = torch.empty((2, b, -(-four_h // 8) * 8), dtype=torch.bfloat16,
+                     device=dev)
+    dh = torch.empty((b, h), dtype=torch.float32, device=dev)
+    dc = torch.empty((b, h), dtype=torch.float32, device=dev)
+    bar = _barrier(dev)
+    from paddle_tpu_torch.ops import _build
+    fn = _build.load("lstm_bwd_sm90").pt_lstm_bwd_sm90
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + \
+            [ctypes.c_void_p]
+    err = fn(w.data_ptr(), peep.data_ptr(), lens.data_ptr(), gates.data_ptr(),
+             cseq.data_ptr(), d_out.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
+             dz.data_ptr(), zt.data_ptr(), dh.data_ptr(), dc.data_ptr(),
+             bar.data_ptr(), b, T, h, int(mode), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"LSTM backward (sm90) launch failed: CUDA error "
+                           f"{err}")
+    return dz
+
+
 def lstm_backward(w: torch.Tensor, peep: torch.Tensor, lens: torch.Tensor,
                   gates: torch.Tensor, cseq: torch.Tensor,
                   d_out: torch.Tensor, dhT: torch.Tensor,
                   dcT: torch.Tensor) -> torch.Tensor:
     """The LSTM backward kernel: dz [b, T, 4h] in ``w.dtype`` from the
     forward's residuals and the cotangents (d_out in ``w.dtype``, dhT /
-    dcT float32). CPU: the plain version; CUDA: the kernel."""
+    dcT float32). CPU: the plain version; CUDA: the kernel of
+    :func:`lstm_bwd_route`."""
     if gates.device.type == "cpu":
         return lstm_backward_reference(w, peep, lens, gates, cseq, d_out,
                                        dhT, dcT)
@@ -308,14 +383,19 @@ def lstm_backward(w: torch.Tensor, peep: torch.Tensor, lens: torch.Tensor,
     h = four_h // 4
     _cuda_or_raise(gates, h, b, 4)
     dt = w.dtype
-    if dt not in _DTYPE_CODES:
-        raise TypeError(f"the LSTM kernel takes float32 or bfloat16, got {dt}")
+    route = lstm_bwd_route(dt)
     _check({"w": w, "peep": peep, "lens": lens, "gates": gates, "cseq": cseq,
             "d_out": d_out, "dhT": dhT, "dcT": dcT}, gates.device,
            {"w": ((h, four_h), dt), "peep": ((3 * h,), torch.float32),
             "lens": ((b,), torch.int32), "gates": ((b, T, four_h), dt),
             "cseq": ((b, T, h), dt), "d_out": ((b, T, h), dt),
             "dhT": ((b, h), torch.float32), "dcT": ((b, h), torch.float32)})
+    if route == "sm90":
+        dz = lstm_bwd_sm90_launch(w, peep, lens, gates, cseq, d_out, dhT,
+                                  dcT)
+        lstm_backward.launches += 1
+        lstm_backward.route_launches[route] += 1
+        return dz
     dev = gates.device
     dz = torch.empty((b, T, four_h), dtype=dt, device=dev)
     dh = torch.empty((b, h), dtype=torch.float32, device=dev)
@@ -329,6 +409,7 @@ def lstm_backward(w: torch.Tensor, peep: torch.Tensor, lens: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"LSTM backward launch failed: CUDA error {err}")
     lstm_backward.launches += 1
+    lstm_backward.route_launches[route] += 1
     return dz
 
 
@@ -370,6 +451,7 @@ def gru_forward(x3: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
 lstm_forward.launches = 0
 lstm_forward.res_launches = 0
 lstm_backward.launches = 0
+lstm_backward.route_launches = {"sm90": 0, "simt": 0}
 gru_forward.launches = 0
 
 

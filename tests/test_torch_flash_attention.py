@@ -89,14 +89,17 @@ def test_forward_and_gradients_match_pallas_interpret(case):
         assert np.all(got[0][0, 10:] == 0.0)
 
 
-@pytest.mark.parametrize("d", [16, 24])
+@pytest.mark.parametrize("d", [16, 24, 64, 72, 128])
 @pytest.mark.parametrize("case", ["causal", "multi_block_causal_ragged",
                                   "fully_masked_row"])
 def test_bf16_forward_and_gradients_match_pallas_interpret(case, d):
-    """bfloat16 q/k/v/dO (d 24: a head dim the gate admits with
-    d % 16 != 0): the port's flash_attention, forward and autograd
-    backward, against the JAX package's, in interpret mode, with its
-    custom-vjp dq and dk/dv kernels."""
+    """bfloat16 q/k/v/dO (d 24 and 72: head dims the gate admits with
+    d % 16 != 0; 64, 72 and 128: the head dims the card's bf16 dq is held
+    at, one and two d panels): the port's flash_attention, forward and
+    autograd backward — the plain versions the bf16 wgmma kernels are
+    held against — against the JAX package's, in interpret mode, with
+    its custom-vjp dq and dk/dv kernels; q_lens below T and
+    fully-masked rows among the cases."""
     tq, tk, ql, kl, causal, block = CASES[case]
     q, k, v, do = _inputs(tq, tk, seed=2, d=d)
     ql, kl = _lens(ql), _lens(kl)
@@ -120,10 +123,10 @@ def test_bf16_forward_and_gradients_match_pallas_interpret(case, d):
 
 @pytest.mark.parametrize("d", [8, 24, 64, 72, 128])
 def test_route_is_chosen_by_dtype_alone(d):
-    """bfloat16 forward and dk/dv take the wgmma kernels (sm90), float32
-    and dq the SIMT kernels, at every head dim the gate admits."""
+    """bfloat16 forward, dq and dk/dv take the wgmma kernels (sm90),
+    float32 the SIMT kernels, at every head dim the gate admits."""
     q = torch.zeros(2, 16, 2, d)
-    for dtype, want in ((torch.bfloat16, ("sm90", "simt", "sm90")),
+    for dtype, want in ((torch.bfloat16, ("sm90", "sm90", "sm90")),
                         (torch.float32, ("simt", "simt", "simt"))):
         x = q.to(dtype)
         assert tfa.flash_supported(x, x)

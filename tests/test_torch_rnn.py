@@ -328,3 +328,48 @@ def test_kernel_gate_and_wrappers_off_the_card():
     # the shared-memory plan of the documented limits
     assert fused_rnn.kernel_smem(1280, 10, 4) <= fused_rnn._SM90_SMEM
     assert fused_rnn.kernel_smem(1320, 10, 4) > fused_rnn._SM90_SMEM
+
+
+def test_lstm_backward_route_is_chosen_by_dtype_alone():
+    """bfloat16 weights take the tensor-core backward (sm90,
+    csrc/lstm_bwd_sm90.cu), float32 the SIMT one (csrc/lstm_bwd.cu),
+    decided by dtype before any launch; on the CPU both dtypes take the
+    plain version and count no launch."""
+    assert fused_rnn.lstm_bwd_route(torch.bfloat16) == "sm90"
+    assert fused_rnn.lstm_bwd_route(torch.float32) == "simt"
+    with pytest.raises(TypeError):
+        fused_rnn.lstm_bwd_route(torch.float16)
+    bwd = fused_rnn.lstm_backward
+    before = (bwd.launches, dict(bwd.route_launches))
+    x, lens, w, bias, peep = _inputs(4, seed=12)
+    tl = torch.tensor(lens)
+    rng = np.random.RandomState(13)
+    for dtype in (torch.float32, torch.bfloat16):
+        wd = torch.tensor(w).to(dtype)
+        _, hT, _, cseq, gates = fused_rnn.lstm_reference(
+            torch.tensor(x).to(dtype), tl, wd, torch.tensor(bias),
+            torch.tensor(peep), save_res=True)
+        d_out = torch.tensor(rng.randn(*cseq.shape).astype(np.float32)) \
+            .to(dtype)
+        dhT, dcT = (torch.tensor(rng.randn(*hT.shape).astype(np.float32))
+                    for _ in range(2))
+        args = (wd, torch.tensor(peep), tl, gates, cseq, d_out, dhT, dcT)
+        dz = fused_rnn.lstm_backward(*args)
+        assert dz.dtype == dtype
+        torch.testing.assert_close(dz, fused_rnn.lstm_backward_reference(
+            *args), rtol=0, atol=0)
+    assert (bwd.launches, dict(bwd.route_launches)) == before
+    assert set(bwd.route_launches) == {"sm90", "simt"}
+
+
+def test_lstm_bwd_sm90_shared_memory_plan():
+    """The bf16 backward's shared memory (csrc/lstm_bwd_sm90.cu): 16 units
+    a block as 2048-byte weight tiles of 64 columns, plus ring stages of
+    16384 bytes, under the 232,448 bytes a block may use — 4 stages at
+    the classifier's h 1280, at least 2 up to h 1536, none past it."""
+    smem, stages = fused_rnn.lstm_bwd_sm90_smem(1280)
+    assert (smem, stages) == (1024 + 80 * 2048 + 4 * 16384, 4)
+    for h in (1, 13, 48, 128, 1312, 1536):
+        smem, stages = fused_rnn.lstm_bwd_sm90_smem(h)
+        assert 2 <= stages <= 8 and smem + 1024 <= fused_rnn._SM90_SMEM, h
+    assert fused_rnn.lstm_bwd_sm90_smem(1537)[1] == 0

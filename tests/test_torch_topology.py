@@ -202,3 +202,36 @@ def test_unported_layers_and_options_raise():
     _, ttopo, _, _ = _topologies()
     with pytest.raises(NotImplementedError, match="mesh"):
         ttopo.forward({}, {}, {}, mesh=object())
+
+
+@pytest.mark.parametrize("golden", ["simple_fc", "attention_net",
+                                    "simple_lstm_net", "crf_tagger"])
+def test_deserialize_in_a_fresh_process_round_trips_the_golden(golden):
+    """A process that imports only the port's topology module reads a
+    golden topology and serializes it back byte for byte, as the JAX
+    package does: importing the package fills the layer registry, so
+    nothing else has to be imported first (the test process has
+    imported the layers already, which would hide the fault)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.path.join(root, "tests", "golden", f"{golden}.json")
+    with open(path) as f:
+        src = f.read()
+    assert paddle.Topology.deserialize(src).serialize() == src
+    code = (
+        "import sys\n"
+        "from paddle_tpu_torch.core.topology import Topology\n"
+        f"src = open({path!r}).read()\n"
+        "topo = Topology.deserialize(src)\n"
+        "print('ROUND_TRIP', topo.serialize() == src)\n"
+        "print('FOREIGN', sorted(m for m in sys.modules if m in "
+        "('jax', 'paddle_tpu')))\n")
+    env = dict(os.environ, PYTHONPATH=root, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-B", "-c", code], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "ROUND_TRIP True" in res.stdout, res.stdout
+    assert "FOREIGN []" in res.stdout, res.stdout
