@@ -9,15 +9,17 @@ Phases (any failure exits non-zero before the final line):
 
 1. build — compile every hand-written kernel from the sources in this
    checkout (one nvcc per source, all at once, sm_90a), print the
-   ptxas report (and its wgmma warnings); the four wgmma kernels
+   ptxas report (and its wgmma warnings); the five wgmma kernels
    (flash_fwd_sm90.cu, flash_dq_sm90.cu, flash_dkv_sm90.cu,
-   lstm_bwd_sm90.cu) must report 0 spill bytes. Then the building
-   blocks of sm90_pipeline.cuh on one 64 x 64 bf16 tile: A B^T by
-   wgmma SS over TMA-loaded K-major tiles and A B by wgmma RS with B
-   MN-major; and the LSTM backward's product, a [64, 200] x [16, 200]^T
-   by wgmma m64n16k16 over TMA-loaded 64-column chunks and its weight
-   tile layout; each against float32 torch products (max |err| <= 1e-3
-   x max(1, max|ref|)).
+   lstm_fwd_sm90.cu, lstm_bwd_sm90.cu) must report 0 spill bytes and
+   no C75xx warning (products serialized). Then the building blocks of
+   sm90_pipeline.cuh on one 64 x 64 bf16 tile: A B^T by wgmma SS over
+   TMA-loaded K-major tiles and A B by wgmma RS with B MN-major; the
+   LSTM backward's product, a [64, 200] x [16, 200]^T by wgmma
+   m64n16k16 over TMA-loaded 64-column chunks and its weight tile
+   layout; and the LSTM forward's, a [64, 120] x [120, 64] by wgmma
+   m64n64k16 over its gate-major weight tiles; each against float32
+   torch products (max |err| <= 1e-3 x max(1, max|ref|)).
 2. kernel vs plain — paged window attention at full width (dh 64,
    page 16, 8 slots, 34 pages a slot, lengths up to 544), h/g in
    {8/8, 8/2, 8/1}, W in {1, 4}, float32 and bfloat16, against the
@@ -97,14 +99,18 @@ Phases (any failure exits non-zero before the final line):
 11. rnn vs plain — the fused LSTM forward (with and without residuals)
    and backward kernels and the GRU forward kernel against their plain
    versions on the same inputs: the LSTM at full width (b 128, h 1280,
-   T 128, ragged lengths with 100, 1 and 128) and at b 6, h 48, T 13
-   (a multiple of no tile), the GRU at b 64, h 128, T 64 ragged;
-   h_seq, hT, cT, cseq, gates, dz, and through the autograd Function
-   dx4, dw, dbias, dpeep against autograd of the plain version in
-   float32; float32 (the SIMT backward) and bfloat16 (the tensor-core
-   backward, lstm_bwd_sm90.cu) at the tolerances of phase 6, and the
-   bf16 dz also per time step, max |err| <= 2e-2 max|ref| of the step,
-   which must reject a planted fault (dz x 0.95 at step 0).
+   T 128, ragged lengths with 100, 1 and 128), at b 6, h 48, T 13 (a
+   multiple of no tile) and at two batch tiles (b 160, h 256, T 17),
+   the GRU at b 64, h 128, T 64 ragged; h_seq, hT, cT, cseq, gates,
+   dz, and through the autograd Function dx4, dw, dbias, dpeep against
+   autograd of the plain version in float32; float32 (the SIMT
+   kernels) and bfloat16 (the tensor-core forward and backward,
+   lstm_fwd_sm90.cu and lstm_bwd_sm90.cu; each direct forward call on
+   its dtype's route) at the tolerances of phase 6; the bf16 out of
+   both forward calls and dz also per time step, max |err| <= 2e-2
+   max|ref| of the step, which must reject planted faults (out x 0.95
+   at step 0, out stale at step T/2 — step T/2 - 1's — and dz x 0.95
+   at step 0).
 12. lstm train — the sequence slice's main path: stacked_lstm_net at
    the RNN benchmark's widest row (vocab 30000, emb 128, hidden 1280,
    one LSTM, 2 classes; 11,060,482 parameters) built with the port's
@@ -114,15 +120,15 @@ Phases (any failure exits non-zero before the final line):
    tokens: 2 warm-up steps, then 8 timed steps with the launch counts
    zeroed just before. Asserts finite, falling losses, finite
    parameters and 8 launches each of the LSTM forward (with residuals)
-   and backward kernels, every backward on the tensor-core route
-   (sm90). Then, in float32 from one table on 16 of the
+   and backward kernels, every forward and backward on the tensor-core
+   route (sm90). Then, in float32 from one table on 16 of the
    rows, the gradients of one cost through the kernels against the
    plain scan of the CPU port: worst per-parameter ||diff|| / ||g|| <=
    1e-3.
 13. lstm infer — paddle.infer of the probabilities over 512 seeded
    ragged samples in batches of 128, float32, from the trained table:
-   4 forward launches without residuals, probabilities within 1e-4 of
-   the CPU port's.
+   4 forward launches without residuals, all on the float32 (simt)
+   route, probabilities within 1e-4 of the CPU port's.
 14. tagger — rnn_crf_tagger at its defaults (vocab 20000, 45 labels,
    emb 128, hidden 128): 3 float32 train steps on 64 sentences of 8-64
    tokens (the plain GRU scans, no kernel launch), then infer of the
@@ -131,14 +137,15 @@ Phases (any failure exits non-zero before the final line):
 15. rnn timings — each recurrent kernel's device time per call and per
    run step at the main path's shapes in bfloat16 and float32
    (CUDA-graph replay), its bound, the plain version's time; in
-   bfloat16 also the per-step floors of the tensor-core backward's
-   plan (its steps with no product; its grid barriers alone); and
+   bfloat16 also the per-step floors of both tensor-core LSTM kernels'
+   plan (their steps with no product; their grid barriers alone) and
+   their ring depth swept (2, 3 and 4 stages of 16 KB); and
    cuDNN's LSTM forward as a labelled near-yardstick (printed only;
    events behind a spin kernel, as phase 9's SDPA backward; "not
    measured" where the call blocks the host past the spin).
 16. lstm train trace — one bfloat16 LSTM train step under
    torch.profiler (run right after phase 12): device busy against the
-   wall clock, the top kernels, the LSTM kernels' share.
+   wall clock, the top kernels, each LSTM kernel's share.
 17. int8 kernel vs plain — the int8 path of the paged window kernel
    at phase 2's widths (q float32 and bfloat16, h/g 8/8, 8/2, 8/1, W
    1, 3 and 4, pages quantized on the card) against its plain version
@@ -174,9 +181,8 @@ Phases (any failure exits non-zero before the final line):
    through the int8 + speculative engine under torch.profiler.
 
 Prints the kernel table as one JSON line (the flash and LSTM kernels at
-their bfloat16 times, the training dtype, the flash rows and the LSTM
-backward's naming their wgmma sources; the flash kernels' and the LSTM
-backward's errors in bfloat16 too, the LSTM forward's in float32; the GRU kernel at float32, the
+their bfloat16 times, the training dtype, naming their wgmma sources,
+with their errors in bfloat16 too; the GRU kernel at float32, the
 dtype the tagger decodes in; the int8 and decode kernels at float32, the
 serving dtype, W 1), the card's name and power limit (nvidia-smi), and
 last {"ok": true, "device": {...}}.
@@ -218,7 +224,7 @@ FLASH_KERNELS = [("fwd", 43, "sm90", "flash_fwd_sm90.cu"),
                  ("dkv", 264, "sm90", "flash_dkv_sm90.cu")]
 # the wgmma kernels, which must build with 0 spill bytes
 SM90_LIBS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90",
-             "lstm_bwd_sm90")
+             "lstm_fwd_sm90", "lstm_bwd_sm90")
 
 
 _T0 = time.perf_counter()
@@ -298,9 +304,14 @@ def phase_build():
                   re.findall(r"(\d+) bytes spill (?:stores|loads)", rep)]
         if name in SM90_LIBS and any(spills):
             raise AssertionError(f"{name}: ptxas reports spills: {lines}")
+        # C75xx: ptxas serialized or fenced the kernel's products
+        if name in SM90_LIBS and re.search(r"\(C75\d\d\)", rep):
+            raise AssertionError(f"{name}: ptxas serializes its wgmma "
+                                 f"products: {lines}")
     log(f"build seconds: {secs:.3f}")
     _sm90_product_check()
     _lstm_sm90_product_check()
+    _lstm_fwd_sm90_product_check()
     return secs
 
 
@@ -371,6 +382,43 @@ def _lstm_sm90_product_check():
     log(f"sm90 product check A W^T (m64n16k16 SS, K {K}): max |err| {e:.3e}")
     if not e <= bound:
         raise AssertionError(f"LSTM sm90 product: max |err| {e} > {bound}")
+
+
+def _lstm_fwd_sm90_product_check():
+    """The LSTM forward's product on its own building blocks
+    (csrc/lstm_fwd_sm90.cu): a [64, 120] bf16 tile loaded by TMA through
+    the scratch's 3-D map in 64-column chunks (the second zero-filled
+    past column 120) times a [120, 64] weight slice laid out by
+    load_w_tiles as four gate blocks of 16 columns (the gate-major
+    order), on wgmma m64n64k16 with both operands K-major, against the
+    float32 torch product of the same values; max |err| <= 1e-3 max(1,
+    max|ref|)."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    fn = _build.load("lstm_fwd_sm90").pt_lstm_fwd_sm90_product_check
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    rng = np.random.RandomState(7)
+    K = 120
+    a = torch.from_numpy(rng.randn(64, K).astype(np.float32)) \
+        .to("cuda", torch.bfloat16)
+    w = torch.from_numpy(rng.randn(K, 64).astype(np.float32)) \
+        .to("cuda", torch.bfloat16)
+    c = torch.empty(64, 64, device="cuda")
+    err = fn(a.data_ptr(), w.data_ptr(), c.data_ptr(), K,
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"LSTM forward sm90 product check launch failed: "
+                           f"CUDA error {err}")
+    torch.cuda.synchronize()
+    want = a.float() @ w.float()
+    e = (c - want).abs().max().item()
+    bound = 1e-3 * max(1.0, want.abs().max().item())
+    log(f"sm90 product check A W (m64n64k16 SS, gate-major W tiles, K {K}): "
+        f"max |err| {e:.3e}")
+    if not e <= bound:
+        raise AssertionError(f"LSTM forward sm90 product: max |err| {e} > "
+                             f"{bound}")
 
 
 # ------------------------------------------------------------ phase 2
@@ -1284,7 +1332,7 @@ def _lstm_function_check(x4, lens, w, bias, peep, dtype, seed):
 
 
 def _step_ratio(got, want):
-    """(worst ratio, step) over the time steps of [b, T, 4h] dz: max |err|
+    """(worst ratio, step) over the time steps of [b, T, .] (dz, out): max |err|
     of the step over max |ref| of the step, the latter floored at
     SLICE_FLOOR x max(1, max|ref|) (steps past every row's length are 0
     on both sides)."""
@@ -1294,28 +1342,42 @@ def _step_ratio(got, want):
     return ratio.max().item(), int(ratio.argmax())
 
 
-def _held_steps(label, dz, ref):
-    """bfloat16 dz held per time step: max |err| <= 2e-2 x max |ref| of
-    the step (_step_ratio). The whole-tensor bound is set by the largest
-    step and cannot see one wrong step among 128 — as a cross-proxy fault
-    between the dz stores and the next step's TMA reads would be. It
-    must reject a planted fault: dz x 0.95 at step 0, the last step the
-    reverse walk computes. Returns the worst ratio."""
-    r, at = _step_ratio(dz, ref)
+def _scaled_step(x, t, f=0.95):
+    bad = x.float().clone()
+    bad[:, t] *= f
+    return bad
+
+
+def _stale_step(x, t):
+    bad = x.float().clone()
+    bad[:, t] = bad[:, t - 1]
+    return bad
+
+
+def _held_steps(label, name, got, ref, faults):
+    """bfloat16 dz or out held per time step: max |err| <= 2e-2 x max
+    |ref| of the step (_step_ratio). The whole-tensor bound is set by the
+    largest step and cannot see one wrong step among 128 — as a
+    cross-proxy fault between one step's state stores and the next
+    step's TMA reads would be. It must reject each planted fault of
+    ``faults``, (description, faulty tensor) pairs: for dz, x 0.95 at
+    step 0, the last step the reverse walk computes; for out, x 0.95 at
+    step 0 and a stale step (step t's output replaced by step t-1's).
+    Returns the worst ratio."""
+    r, at = _step_ratio(got, ref)
     if r > BF16_ATOL:
-        raise AssertionError(f"{label} bf16 dz: step {at} off by {r:.3e} of "
-                             f"its max|ref| > {BF16_ATOL}")
-    bad = dz.float().clone()
-    bad[:, 0] *= 0.95
-    rb, _ = _step_ratio(bad, ref)
-    whole = (bad - ref.float()).abs().max().item()
+        raise AssertionError(f"{label} bf16 {name}: step {at} off by "
+                             f"{r:.3e} of its max|ref| > {BF16_ATOL}")
     limit = BF16_ATOL * max(1.0, ref.float().abs().max().item())
-    log(f"{label} planted fault, dz x 0.95 at step 0: step ratio {rb:.3e} "
-        f"(limit {BF16_ATOL}); whole-tensor max|err| {whole:.3e} (limit "
-        f"{limit:.3e}, {'rejects' if whole > limit else 'passes'} it)")
-    if not rb > BF16_ATOL:
-        raise AssertionError(f"{label}: the step check passes a planted dz "
-                             f"fault: ratio {rb}")
+    for fault, bad in faults:
+        rb, _ = _step_ratio(bad, ref)
+        whole = (bad - ref.float()).abs().max().item()
+        log(f"{label} planted fault, {fault}: step ratio {rb:.3e} (limit "
+            f"{BF16_ATOL}); whole-tensor max|err| {whole:.3e} (limit "
+            f"{limit:.3e}, {'rejects' if whole > limit else 'passes'} it)")
+        if not rb > BF16_ATOL:
+            raise AssertionError(f"{label}: the step check passes a planted "
+                                 f"fault ({fault}): ratio {rb}")
     return r
 
 
@@ -1323,20 +1385,27 @@ def phase_rnn_vs_plain():
     """The LSTM forward (both modes) and backward kernels and the GRU
     kernel against their plain versions on the same inputs: the LSTM at
     full width (b 128, h 1280, T 128, ragged lengths with 100, 1 and
-    128) and at a shape that is a multiple of no tile (b 6, h 48, T 13);
-    the GRU at b 64, h 128, T 64, ragged. float32 and bfloat16, the
-    tolerances of _held."""
+    128), at a shape that is a multiple of no tile (b 6, h 48, T 13) and
+    at two batch tiles (b 160, h 256, T 17); the GRU at b 64, h 128, T
+    64, ragged. float32 and bfloat16, the tolerances of _held; each
+    direct forward call on the route of its dtype."""
     from paddle_tpu_torch.ops import fused_rnn as fr
     worst = {"lstm_fwd": 0.0, "lstm_bwd": 0.0, "gru_fwd": 0.0}
     lstm_cases = [("b128 h1280 T128", 128, 1280, 128, (100, 1, 128)),
-                  ("b6 h48 T13", 6, 48, 13, (13, 1, 7))]
+                  ("b6 h48 T13", 6, 48, 13, (13, 1, 7)),
+                  ("b160 h256 T17", 160, 256, 17, (17, 1, 9))]
     for ci, (label, b, h, T, must) in enumerate(lstm_cases):
         lens = _ragged_lens(b, T, seed=110 + ci, must=must)
         for dtype in (torch.float32, torch.bfloat16):
             x4, w, bias, peep = _rnn_inputs(b, h, T, 4, dtype, 120 + ci)
+            routes = dict(fr.lstm_forward.route_launches)
             out, hT, cT = fr.lstm_forward(x4, lens, w, bias, peep)
             res = fr.lstm_forward(x4, lens, w, bias, peep, save_res=True)
             torch.cuda.synchronize()
+            route = fr.lstm_fwd_route(dtype)
+            if fr.lstm_forward.route_launches[route] - routes[route] != 2:
+                raise AssertionError(f"{label} {dtype}: the forward calls "
+                                     f"did not take the {route} route")
             ref = fr.lstm_reference(x4, lens, w, bias, peep, save_res=True)
             errs = {}
             for name, a, r in (("out", out, ref[0]), ("hT", hT, ref[1]),
@@ -1356,20 +1425,30 @@ def phase_rnn_vs_plain():
                                                 d_out, dhT, dcT)
             errs["dz"] = _held("dz", dz, dz_ref, dtype)
             if dtype == torch.bfloat16:
-                errs["dz/step"] = _held_steps(label, dz, dz_ref)
+                mid = T // 2
+                for name, got, want in (("out", out, ref[0]),
+                                        ("out/res", res[0], ref[0])):
+                    errs[f"{name}/step"] = _held_steps(
+                        label, name, got, want,
+                        [(f"{name} x 0.95 at step 0", _scaled_step(got, 0)),
+                         (f"{name} stale at step {mid} (step {mid - 1}'s)",
+                          _stale_step(got, mid))])
+                errs["dz/step"] = _held_steps(
+                    label, "dz", dz, dz_ref,
+                    [("dz x 0.95 at step 0", _scaled_step(dz, 0))])
             errs.update(_lstm_function_check(x4, lens, w, bias, peep, dtype,
                                              140 + ci))
-            if dtype == torch.float32:
+            if dtype == torch.bfloat16:
+                # the kernels the JSON rows name, lstm_fwd_sm90.cu and
+                # lstm_bwd_sm90.cu, run bfloat16 only: their rows hold
+                # their outputs
                 worst["lstm_fwd"] = max(worst["lstm_fwd"], *(
                     errs[k] for k in ("out", "hT", "cT", "out/res", "hT/res",
                                       "cT/res", "cseq", "gates")))
-            else:
-                # the kernel the JSON row names, lstm_bwd_sm90.cu, runs
-                # bfloat16 only: its row holds its output, dz
                 worst["lstm_bwd"] = max(worst["lstm_bwd"], errs["dz"])
-            log(f"lstm vs plain {label} {str(dtype)[6:]} (backward route "
-                f"{fr.lstm_bwd_route(dtype)}): " + ", ".join(
-                    f"{n} {e:.3e}" for n, e in errs.items()))
+            log(f"lstm vs plain {label} {str(dtype)[6:]} (forward route "
+                f"{route}, backward route {fr.lstm_bwd_route(dtype)}): " +
+                ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
     b, h, T = 64, 128, 64
     lens = _ragged_lens(b, T, seed=150, must=(64, 1, 33))
     for dtype in (torch.float32, torch.bfloat16):
@@ -1400,7 +1479,7 @@ LSTM_ROWS, LSTM_TOKENS, LSTM_WARMUP, LSTM_STEPS = 128, 100, 2, 8
 LSTM_LR = 5e-4
 TAGGER = dict(vocab_size=20000, num_labels=45, emb_size=128, hidden_size=128)
 # (name, line of the TPU kernel in ops/pallas_rnn.py, source)
-RNN_KERNELS = [("lstm_fwd", 62, "lstm_fwd.cu"),
+RNN_KERNELS = [("lstm_fwd", 62, "lstm_fwd_sm90.cu"),
                ("lstm_bwd", 121, "lstm_bwd_sm90.cu"),
                ("gru_fwd", 371, "gru_fwd.cu")]
 
@@ -1411,9 +1490,11 @@ def _rnn_counts(fr, zero=False):
         for fn in fns:
             fn.launches = 0
         fr.lstm_forward.res_launches = 0
+        fr.lstm_forward.route_launches = {"sm90": 0, "simt": 0}
         fr.lstm_backward.route_launches = {"sm90": 0, "simt": 0}
     return {"lstm_fwd": fr.lstm_forward.launches,
             "lstm_res": fr.lstm_forward.res_launches,
+            "lstm_fwd_routes": dict(fr.lstm_forward.route_launches),
             "lstm_bwd": fr.lstm_backward.launches,
             "lstm_bwd_routes": dict(fr.lstm_backward.route_launches),
             "gru_fwd": fr.gru_forward.launches}
@@ -1474,11 +1555,12 @@ def phase_lstm_train():
            if not bool(torch.isfinite(p).all())]
     if bad:
         raise AssertionError(f"non-finite parameters after training: {bad}")
+    sm90_only = {"sm90": LSTM_STEPS, "simt": 0}
     if not (counts["lstm_fwd"] == counts["lstm_res"] == counts["lstm_bwd"]
-            == LSTM_STEPS) or \
-            counts["lstm_bwd_routes"] != {"sm90": LSTM_STEPS, "simt": 0}:
+            == LSTM_STEPS) or counts["lstm_fwd_routes"] != sm90_only or \
+            counts["lstm_bwd_routes"] != sm90_only:
         raise AssertionError(f"LSTM launches {counts} != {LSTM_STEPS} each, "
-                             "every backward on the sm90 route")
+                             "every forward and backward on the sm90 route")
     step_ms = wall / LSTM_STEPS * 1e3
     log(f"lstm train: {n_params} parameters, bf16, {LSTM_STEPS} timed steps "
         f"after {LSTM_WARMUP}: {step_ms:.3f} ms/step, "
@@ -1560,9 +1642,11 @@ def phase_lstm_infer(spec, trainer):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _rnn_counts(fr)
-    if counts["lstm_fwd"] != 4 or counts["lstm_res"] or counts["lstm_bwd"]:
-        raise AssertionError(f"infer launches {counts}: expected 4 forward "
-                             "launches without residuals")
+    if counts["lstm_fwd"] != 4 or counts["lstm_res"] or \
+            counts["lstm_bwd"] or \
+            counts["lstm_fwd_routes"] != {"sm90": 0, "simt": 4}:
+        raise AssertionError(f"infer launches {counts}: expected 4 float32 "
+                             "(simt) forward launches without residuals")
     cpu = Parameters({k: v.detach().cpu() for k, v in params.raw.items()},
                      device="cpu")
     want = infer(output_layer=spec.output, parameters=cpu, input=samples,
@@ -1718,16 +1802,31 @@ def phase_rnn_timings():
                             lambda i: fr.gru_reference(x3, gln, gw, gbias),
                             shapes["gru"])
         if dtype == torch.bfloat16:
-            # the per-step floors of the tensor-core backward's plan: its
-            # steps without their product, and its grid barriers alone
+            # the per-step floors of the tensor-core kernels' plan: their
+            # steps without their product, and their grid barriers alone;
+            # then the ring depth swept (2, 3, 4 stages of 16 KB), which
+            # tells the L2 stream's bandwidth from its latency
             steps = max(shapes["lstm"][3])
-            floor = {m: device_ms(lambda i, m=m: fr.lstm_bwd_sm90_launch(
-                w, peep, ln, gates, cseq, d_out, dhT, dhT, mode=m), iters=3,
-                reps=3) for m in (1, 2)}
-            log(f"lstm_bwd bf16 (sm90) floors: steps without the product "
-                f"{floor[1] * 1e3:.2f} us/call ({floor[1] / steps * 1e3:.3f} "
-                f"us/step), grid barriers alone {floor[2] * 1e3:.2f} us/call "
-                f"({floor[2] / steps * 1e3:.3f} us/step)")
+            sm90 = {
+                "lstm_fwd": lambda m, st: fr.lstm_fwd_sm90_launch(
+                    x4, ln, w, bias, peep, True, mode=m, stages=st),
+                "lstm_bwd": lambda m, st: fr.lstm_bwd_sm90_launch(
+                    w, peep, ln, gates, cseq, d_out, dhT, dhT, mode=m,
+                    stages=st)}
+            for name, launch in sm90.items():
+                floor = {m: device_ms(lambda i, m=m: launch(m, 0), iters=3,
+                                      reps=3) for m in (1, 2)}
+                log(f"{name} bf16 (sm90) floors: steps without the product "
+                    f"{floor[1] * 1e3:.2f} us/call "
+                    f"({floor[1] / steps * 1e3:.3f} us/step), grid barriers "
+                    f"alone {floor[2] * 1e3:.2f} us/call "
+                    f"({floor[2] / steps * 1e3:.3f} us/step)")
+                sweep = {st: device_ms(lambda i, st=st: launch(0, st),
+                                       iters=3, reps=3) for st in (2, 3, 4)}
+                log(f"{name} bf16 (sm90) ring sweep: " + ", ".join(
+                    f"{st} stages {ms * 1e3:.2f} us/call "
+                    f"({ms / steps * 1e3:.3f} us/step)"
+                    for st, ms in sweep.items()))
         for name, (kern, plain, (b_, h_, T_, lens_)) in calls.items():
             ms = device_ms(kern, iters=3, reps=3)
             plain_ms = device_ms(plain, iters=1, reps=3)
@@ -2376,8 +2475,8 @@ def main():
     lstm_spec, lstm_trainer, lstm_batch, lstm_counts = phase_lstm_train()
     # phase 16, still in bfloat16
     phase_train_trace(lstm_trainer, lstm_batch, "lstm train", "LSTM kernels",
-                      ("lstm_fwd_kernel", "lstm_bwd_kernel",
-                       "lstm_bwd_sm90_kernel"))
+                      ("lstm_fwd_kernel", "lstm_fwd_sm90_kernel",
+                       "lstm_bwd_kernel", "lstm_bwd_sm90_kernel"))
     phase_lstm_grad_check(lstm_batch[:16])             # float32
     phase_lstm_infer(lstm_spec, lstm_trainer)
     del lstm_trainer

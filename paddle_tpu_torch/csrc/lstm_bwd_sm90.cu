@@ -73,17 +73,17 @@ __host__ __device__ inline int n_chunks(int H) {
   return (4 * H + kChunk - 1) / kChunk;
 }
 
-// Ring stages that fit beside the resident weights (0 if fewer than 2).
-__host__ __device__ inline int ring_stages(int H) {
-  const long long left = (long long)kMaxSmem - (long long)kStaticReserve -
-                         1024 - (long long)n_chunks(H) * kWTileBytes;
-  const long long s = left / (kConsumers * kZTileBytes);
-  return s < 2 ? 0 : (int)(s < kMaxStages ? s : kMaxStages);
+// Ring stages that fit beside the resident weights (rnn_common.cuh
+// ring_stages_fit)
+__host__ __device__ inline int ring_stages(int H, int cap) {
+  return ring_stages_fit((long long)kStaticReserve + 1024 +
+                             (long long)n_chunks(H) * kWTileBytes,
+                         (long long)kConsumers * kZTileBytes, kMaxStages, cap);
 }
 
-__host__ __device__ inline size_t dyn_smem(int H) {
+__host__ __device__ inline size_t dyn_smem(int H, int stages) {
   return 1024 + (size_t)n_chunks(H) * kWTileBytes +
-         (size_t)ring_stages(H) * kConsumers * kZTileBytes;
+         (size_t)stages * kConsumers * kZTileBytes;
 }
 
 // byte offset of element (n, kc) (unit row n < 16, column kc < 64) in a
@@ -143,14 +143,13 @@ __global__ void __launch_bounds__(kThreadsSm90, 1) lstm_bwd_sm90_kernel(
     const __nv_bfloat16* __restrict__ dhseq, const float* __restrict__ dhT,
     const float* __restrict__ dcT, __nv_bfloat16* dz, __nv_bfloat16* zt,
     float* __restrict__ dh, float* __restrict__ dc, unsigned int* bar, int B,
-    int Tn, int H, int pitch, int mode) {
+    int Tn, int H, int pitch, int mode, int stages) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kMaxStages];
   __shared__ __align__(8) uint64_t empty[kMaxStages];
   uint8_t* smem = sm90::align1024(smem_raw);
   const int K4 = 4 * H;
   const int nchunk = n_chunks(H);
-  const int stages = ring_stages(H);
   uint8_t* ws = smem;
   uint8_t* ring = smem + (size_t)nchunk * kWTileBytes;
   auto z_tile = [&](int s, int g) {
@@ -348,48 +347,30 @@ __global__ void __launch_bounds__(128) lstm_sm90_product_check_kernel(
         acc[i];
 }
 
-// The map of a bf16 [planes, rows, cols] buffer with a row pitch of
-// `pitch` elements (pitch % 8 == 0: 16-byte strides, as the TMA needs),
-// innermost first (cols, rows, planes); box 64 columns x 64 rows x 1
-// plane, 128-byte swizzle, zero fill past cols and rows.
-inline bool make_rows_map(CUtensorMap* map, const void* ptr, int cols,
-                          int rows, int planes, int pitch) {
-  sm90::EncodeTiledFn encode = sm90::encode_fn();
-  if (encode == nullptr || pitch % 8 != 0) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
-                              (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)pitch * 2,
-                                 (cuuint64_t)rows * pitch * 2};
-  const cuuint32_t box[3] = {kChunk, kZRows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 }  // namespace
 
 // w [H, 4H], gates [B, T, 4H], cseq and dhseq [B, T, H] and dz [B, T, 4H]
 // bf16; zt the bf16 scratch [2, B, pitch] with pitch = 4H rounded up to
 // 8; peep [3H], dhT, dcT and the scratch carries dh, dc [B, H] float32;
 // lens [B] int32; bar one zeroed uint32. `mode` 0 computes the function;
-// 1 and 2 are the floors of the file note. Returns the CUDA error of the launch (0 on
-// success); the wrapper raises on anything else.
+// 1 and 2 are the floors of the file note. `stages` caps the ring's
+// depth (0: as many as fit; the ring depth changes no result). Returns
+// the CUDA error of the launch (0 on success); the wrapper raises on
+// anything else.
 extern "C" int pt_lstm_bwd_sm90(const void* w, const void* peep,
                                 const void* lens, const void* gates,
                                 const void* cseq, const void* dhseq,
                                 const void* dhT, const void* dcT, void* dz,
                                 void* zt, void* dh, void* dc, void* bar,
-                                int B, int Tn, int H, int mode,
+                                int B, int Tn, int H, int mode, int stages,
                                 void* stream) {
-  if (B <= 0 || Tn <= 0 || H <= 0 || mode < 0 || mode > 2 ||
-      ring_stages(H) == 0)
+  if (B <= 0 || Tn <= 0 || H <= 0 || mode < 0 || mode > 2 || stages < 0)
     return (int)cudaErrorInvalidValue;
+  stages = ring_stages(H, stages);
+  if (stages == 0) return (int)cudaErrorInvalidValue;
   int pitch = (4 * H + 7) / 8 * 8;
   CUtensorMap mz;
-  if (!make_rows_map(&mz, zt, 4 * H, B, 2, pitch))
+  if (!sm90::make_rows_map(&mz, zt, 4 * H, B, 2, pitch))
     return (int)cudaErrorInvalidValue;
   const __nv_bfloat16* w_ = static_cast<const __nv_bfloat16*>(w);
   const float* peep_ = static_cast<const float*>(peep);
@@ -406,10 +387,11 @@ extern "C" int pt_lstm_bwd_sm90(const void* w, const void* peep,
   unsigned int* bar_ = static_cast<unsigned int*>(bar);
   void* args[] = {&mz,    &w_,   &peep_, &lens_, &gates_, &cseq_, &dhseq_,
                   &dhT_,  &dcT_, &dz_,   &zt_,   &dh_,    &dc_,   &bar_,
-                  &B,     &Tn,   &H,     &pitch, &mode};
+                  &B,     &Tn,   &H,     &pitch, &mode,  &stages};
   static size_t configured = 0;
   return (int)coop_launch((const void*)lstm_bwd_sm90_kernel,
-                          (H + kUnits - 1) / kUnits, dyn_smem(H), configured,
+                          (H + kUnits - 1) / kUnits, dyn_smem(H, stages),
+                          configured,
                           args, static_cast<cudaStream_t>(stream),
                           kThreadsSm90);
 }
@@ -420,7 +402,7 @@ extern "C" int pt_lstm_sm90_product_check(const void* a, const void* w,
                                           void* c, int K, void* stream) {
   if (K <= 0 || K % 8 != 0 || K > 256) return (int)cudaErrorInvalidValue;
   CUtensorMap ma;
-  if (!make_rows_map(&ma, a, K, kZRows, 1, K))
+  if (!sm90::make_rows_map(&ma, a, K, kZRows, 1, K))
     return (int)cudaErrorInvalidValue;
   const int nchunk = (K + kChunk - 1) / kChunk;
   const size_t smem = 1024 + (size_t)nchunk * (kWTileBytes + kZTileBytes);

@@ -1,7 +1,9 @@
-// Fused LSTM sequence forward for Hopper (sm_90a).
+// Fused LSTM sequence forward for Hopper (sm_90a), float32.
 //
 // Replaces: paddle_tpu/ops/pallas_rnn.py:_lstm_kernel (launched by
-// _lstm_fwd_call, public lstm_sequence). Same function: for each step t
+// _lstm_fwd_call, public lstm_sequence) for float32 weights: bfloat16
+// takes lstm_fwd_sm90.cu, the same plan with its product on the tensor
+// cores. Same function: for each step t
 //   z = x4[:, t] + round(h) @ W + bias          (gates [i, f, c~, o])
 //   i = sig(zi + pi*c), f = sig(zf + pf*c), c~ = tanh(zc)
 //   c' = f*c + i*c~,    o = sig(zo + po*c'),  h' = o*tanh(c')
@@ -31,9 +33,8 @@
 // products are 2*B*H*4H*100 = 167.8 GFLOP (0.17 ms at the 989 TFLOP/s of
 // the bf16 tensor cores) against about 0.43 GB of streams in bf16
 // (0.13 ms at 3.35 TB/s): operation-bound, and the chain of dependent
-// steps adds a barrier per step. This first version multiplies on the
-// SIMT float32 units (67 TFLOP/s peak: >= 2.5 ms); mma/wgmma tiles are
-// later work.
+// steps adds a barrier per step. This kernel multiplies on the SIMT
+// float32 units (67 TFLOP/s peak: >= 2.5 ms in float32).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared -Xcompiler
 // -fPIC (paddle_tpu_torch/ops/_build.py); bound with ctypes through the
@@ -192,11 +193,12 @@ cudaError_t dispatch(const void* x4, const void* w, const float* bias,
 
 }  // namespace
 
-// x4 [B, T, 4H] and w [H, 4H] in the product dtype (0 float32,
-// 1 bfloat16), like out / cseq / gates; bias [4H], peep [3H], hT, cT
-// [B, H] and hbuf [2, B, H] (zeroed) float32; lens [B] int32; bar one
-// zeroed uint32. cseq and gates null: no residuals. U hidden units per
-// block (<= 16). Returns the CUDA error of the launch (0 on success).
+// x4 [B, T, 4H] and w [H, 4H] in the product dtype, which must be 0
+// (float32: bfloat16 takes lstm_fwd_sm90.cu), like out / cseq / gates;
+// bias [4H], peep [3H], hT, cT [B, H] and hbuf [2, B, H] (zeroed)
+// float32; lens [B] int32; bar one zeroed uint32. cseq and gates null:
+// no residuals. U hidden units per block (<= 16). Returns the CUDA error
+// of the launch (0 on success).
 extern "C" int pt_lstm_fwd(const void* x4, const void* w, const void* bias,
                            const void* peep, const void* lens, void* out,
                            void* cseq, void* gates, void* hT, void* cT,
@@ -212,14 +214,7 @@ extern "C" int pt_lstm_fwd(const void* x4, const void* w, const void* bias,
   float* hb = static_cast<float*>(hbuf);
   unsigned int* br = static_cast<unsigned int*>(bar);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0)
-    e = dispatch<float>(x4, w, b, p, ln, out, cseq, gates, ht, ct, hb, br, B,
-                        Tn, H, U, st);
-  else if (dtype == 1)
-    e = dispatch<__nv_bfloat16>(x4, w, b, p, ln, out, cseq, gates, ht, ct, hb,
-                                br, B, Tn, H, U, st);
-  else
-    e = cudaErrorInvalidValue;
-  return (int)e;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return (int)dispatch<float>(x4, w, b, p, ln, out, cseq, gates, ht, ct, hb,
+                              br, B, Tn, H, U, st);
 }

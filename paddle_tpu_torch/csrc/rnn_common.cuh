@@ -1,7 +1,8 @@
 // Shared pieces of the persistent recurrent kernels for Hopper (sm_90a):
-// the grid-wide barrier, the staged SIMT product against a weight slice
-// resident in shared memory, and the element conversions. Included by
-// lstm_fwd.cu, lstm_bwd.cu, lstm_bwd_sm90.cu and gru_fwd.cu.
+// the grid-wide barrier (whole, or split into arrive and wait), the
+// staged SIMT product against a weight slice resident in shared memory,
+// and the element conversions. Included by lstm_fwd.cu, lstm_bwd.cu,
+// lstm_fwd_sm90.cu, lstm_bwd_sm90.cu and gru_fwd.cu.
 //
 // The design every recurrent kernel shares (a persistent RNN): one
 // cooperative launch covers the whole sequence, with at most one block
@@ -82,13 +83,22 @@ __device__ __forceinline__ float sigmoid(float x) {
 // (1, 2, ...) waits until e * gridDim.x blocks have arrived. Each
 // block's writes are ordered before its arrival by __syncthreads and a
 // device-scope fence, and the acquiring load orders the reads after.
-__device__ __forceinline__ void grid_sync(unsigned int* bar,
-                                          unsigned int epoch) {
+// In two halves, for a block that has work no other block waits for
+// (stores read only after the launch, loads of the next step's inputs):
+// grid_arrive(bar) once the writes the others need are made, that work,
+// then grid_wait(bar, epoch); grid_sync has nothing between them.
+__device__ __forceinline__ void grid_arrive(unsigned int* bar) {
   __syncthreads();
   if (threadIdx.x == 0) {
-    const unsigned int target = epoch * gridDim.x;
     __threadfence();
     atomicAdd(bar, 1u);
+  }
+}
+
+__device__ __forceinline__ void grid_wait(unsigned int* bar,
+                                          unsigned int epoch) {
+  if (threadIdx.x == 0) {
+    const unsigned int target = epoch * gridDim.x;
     unsigned int seen;
     do {
       asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
@@ -99,6 +109,25 @@ __device__ __forceinline__ void grid_sync(unsigned int* bar,
     __threadfence();
   }
   __syncthreads();
+}
+
+__device__ __forceinline__ void grid_sync(unsigned int* bar,
+                                          unsigned int epoch) {
+  grid_arrive(bar);
+  grid_wait(bar, epoch);
+}
+
+// Ring stages of stage_bytes that fit in a block's shared memory beside
+// fixed_bytes, at most max_stages and at most cap when cap > 0; 0 when
+// fewer than 2 remain or cap is 1 (a consumer holds one stage while it
+// waits for the next). The plan of the bf16 LSTM kernels.
+__host__ __device__ inline int ring_stages_fit(long long fixed_bytes,
+                                               long long stage_bytes,
+                                               int max_stages, int cap) {
+  long long s = ((long long)kMaxSmem - fixed_bytes) / stage_bytes;
+  if (s > max_stages) s = max_stages;
+  if (cap > 0 && cap < s) s = cap;
+  return s < 2 ? 0 : (int)s;
 }
 
 // Four consecutive elements of A in their stored form (a float4, or

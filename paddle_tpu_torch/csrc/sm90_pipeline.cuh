@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels
 // (flash_fwd_sm90.cu, flash_dq_sm90.cu, flash_dkv_sm90.cu,
-// lstm_bwd_sm90.cu), all inline PTX, no library:
+// lstm_fwd_sm90.cu, lstm_bwd_sm90.cu), all inline PTX, no library:
 //
 //   - a 4-D TMA tensor map over the layer's [b, T, h, d] bf16 layout,
 //     encoded on the host through cudaGetDriverEntryPoint (no -lcuda);
+//   - a 3-D one over the LSTM kernels' [planes, rows, cols] state scratch;
 //   - mbarrier init / arrive / expect-tx / parity wait;
 //   - cp.async.bulk.tensor 3-D and 4-D loads that complete on an
 //     mbarrier, and the proxy fences that order generic stores before
@@ -96,6 +97,28 @@ inline bool make_bthd_map(CUtensorMap* map, const void* ptr, int B, int T,
   const cuuint32_t box[4] = {kPanel, 1, kRows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a bf16 [planes, rows, cols] buffer with a row pitch of
+// `pitch` elements (pitch % 8 == 0: 16-byte strides, as the TMA needs),
+// innermost first (cols, rows, planes); box 64 columns x 64 rows x 1
+// plane, 128-byte swizzle, zero fill past cols and rows. The LSTM
+// kernels' state streams (lstm_fwd_sm90.cu, lstm_bwd_sm90.cu).
+inline bool make_rows_map(CUtensorMap* map, const void* ptr, int cols,
+                          int rows, int planes, int pitch) {
+  EncodeTiledFn encode = encode_fn();
+  if (encode == nullptr || pitch % 8 != 0) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)pitch * 2,
+                                 (cuuint64_t)rows * pitch * 2};
+  const cuuint32_t box[3] = {kPanel, kRows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(ptr), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -10,15 +10,16 @@
   They are the CPU path and the oracles the kernels are held against.
 - :func:`lstm_forward`, :func:`lstm_backward`, :func:`gru_forward`: one
   wrapper per kernel. A tensor on the CPU takes the plain version; a
-  tensor on a CUDA card launches the hand-written Hopper kernel
-  (``csrc/lstm_fwd.cu`` replaces ``_lstm_kernel``, ``csrc/gru_fwd.cu``
-  ``_gru_kernel``; ``_lstm_bwd_kernel`` is ``csrc/lstm_bwd_sm90.cu`` in
-  bfloat16, its product on wgmma, and ``csrc/lstm_bwd.cu`` in float32,
-  chosen by ``w.dtype`` alone, :func:`lstm_bwd_route`) or raises.
-  Each launch adds one to the wrapper's ``launches``
-  (``lstm_forward.res_launches`` counts the launches that also wrote
-  the training residuals, ``lstm_backward.route_launches`` the
-  backward's launches by route).
+  tensor on a CUDA card launches the hand-written Hopper kernel or
+  raises. ``_lstm_kernel`` is ``csrc/lstm_fwd_sm90.cu`` in bfloat16 and
+  ``_lstm_bwd_kernel`` ``csrc/lstm_bwd_sm90.cu``, their products on
+  wgmma; in float32 they are ``csrc/lstm_fwd.cu`` and
+  ``csrc/lstm_bwd.cu`` (SIMT), chosen by ``w.dtype`` alone
+  (:func:`lstm_fwd_route`, :func:`lstm_bwd_route`); ``_gru_kernel`` is
+  ``csrc/gru_fwd.cu``. Each launch adds one to the wrapper's
+  ``launches`` (``lstm_forward.res_launches`` counts the launches that
+  also wrote the training residuals, ``route_launches`` the LSTM
+  wrappers' launches by route).
 - :func:`lstm_sequence`: the differentiable LSTM. When a gradient is
   needed, a ``torch.autograd.Function`` (the JAX package's
   ``custom_vjp``) runs the forward with residuals and its backward runs
@@ -51,10 +52,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KC, _ROWS, _LDS = 32, 128, 132
 _MAX_UNITS = 16
 _SM90_SMEM = 232448
-# the bf16 backward (csrc/lstm_bwd_sm90.cu): 16 units a block, weight
-# tiles of 64 columns, ring stages of two 64 x 64 bf16 tiles
-_BWD_UNITS, _BWD_CHUNK, _BWD_MAX_STAGES = 16, 64, 8
-_BWD_W_TILE, _BWD_STAGE, _BWD_STATIC = 16 * 64 * 2, 2 * 64 * 64 * 2, 1024
+# the bf16 kernels (csrc/lstm_fwd_sm90.cu, csrc/lstm_bwd_sm90.cu): 16
+# units a block, weight tiles of 64 contraction columns, ring stages of
+# two 64 x 64 bf16 tiles, at most 8; the forward's tiles hold the
+# block's 64 columns of W, the backward's its 16 rows
+_SM90_UNITS, _SM90_CHUNK, _SM90_MAX_STAGES = 16, 64, 8
+_SM90_STAGE, _SM90_STATIC = 2 * 64 * 64 * 2, 1024
+_FWD_W_TILE, _BWD_W_TILE = 64 * 64 * 2, 16 * 64 * 2
 
 
 # ------------------------------------------------------------ plain versions
@@ -182,18 +186,29 @@ def kernel_smem(h: int, units: int, gates: int) -> int:
     return _smem_bytes(h, 3 * units, 2 * units)
 
 
-def lstm_bwd_sm90_smem(h: int) -> Tuple[int, int]:
-    """(dynamic shared-memory bytes, ring stages) of the bf16 backward
-    kernel: 1024 of alignment slack, the block's weight rows as
-    ceil(4h / 64) tiles of 2048 bytes, and as many ring stages of 16384
+def _sm90_plan(w_bytes: int, stages: int) -> Tuple[int, int]:
+    """(dynamic shared-memory bytes, ring stages): 1024 of alignment
+    slack, the resident weight tiles, and as many ring stages of 16384
     bytes as fit under the opt-in limit beside 1024 bytes of static
-    memory (at most 8; 0 stages when fewer than 2 fit, which the
-    kernel refuses) — the arithmetic of ``ring_stages`` in
-    ``csrc/lstm_bwd_sm90.cu``."""
-    w_bytes = -(-4 * h // _BWD_CHUNK) * _BWD_W_TILE
-    stages = (_SM90_SMEM - _BWD_STATIC - 1024 - w_bytes) // _BWD_STAGE
-    stages = 0 if stages < 2 else min(stages, _BWD_MAX_STAGES)
-    return 1024 + w_bytes + stages * _BWD_STAGE, stages
+    memory — at most 8, at most ``stages`` when it is above 0; 0 stages
+    when fewer than 2 remain, which the kernels refuse. The arithmetic
+    of ``ring_stages`` in both bf16 LSTM kernels."""
+    fit = (_SM90_SMEM - _SM90_STATIC - 1024 - w_bytes) // _SM90_STAGE
+    fit = min(fit, _SM90_MAX_STAGES, stages if stages > 0 else fit)
+    fit = 0 if fit < 2 else fit
+    return 1024 + w_bytes + fit * _SM90_STAGE, fit
+
+
+def lstm_fwd_sm90_smem(h: int, stages: int = 0) -> Tuple[int, int]:
+    """:func:`_sm90_plan` of the bf16 forward kernel: the block's 64
+    weight columns as ceil(h / 64) tiles of 8192 bytes."""
+    return _sm90_plan(-(-h // _SM90_CHUNK) * _FWD_W_TILE, stages)
+
+
+def lstm_bwd_sm90_smem(h: int, stages: int = 0) -> Tuple[int, int]:
+    """:func:`_sm90_plan` of the bf16 backward kernel: the block's 16
+    weight rows as ceil(4h / 64) tiles of 2048 bytes."""
+    return _sm90_plan(-(-4 * h // _SM90_CHUNK) * _BWD_W_TILE, stages)
 
 
 def kernel_ok(b: int, h: int, act: str = "tanh", gate_act: str = "sigmoid",
@@ -212,11 +227,13 @@ def kernel_ok(b: int, h: int, act: str = "tanh", gate_act: str = "sigmoid",
       backward 4 * (32 * ceil(4h / 32) * (U rounded up to even) +
       4224)), the GRU
       4 * (32 * ceil(h / 32) * 3U + max(4224, 256U));
-    - for the LSTM, the bf16 backward (``csrc/lstm_bwd_sm90.cu``) fits
-      too: ceil(h / 16) blocks of 16 units (at most one per SM), each
-      with 1024 + 2048 * ceil(4h / 64) bytes of bf16 weight tiles plus
-      at least two 16384-byte ring stages (:func:`lstm_bwd_sm90_smem`)
-      — true up to h = 1536, so the float32 kernels' limit binds.
+    - for the LSTM, the bf16 kernels (``csrc/lstm_fwd_sm90.cu``,
+      ``csrc/lstm_bwd_sm90.cu``) fit too: ceil(h / 16) blocks of 16
+      units (at most one per SM), each with its bf16 weight tiles
+      (1024 + 8192 * ceil(h / 64) bytes forward, 1024 + 2048 *
+      ceil(4h / 64) backward) plus at least two 16384-byte ring stages
+      (:func:`lstm_fwd_sm90_smem`, :func:`lstm_bwd_sm90_smem`) — true
+      up to h = 1536, so the float32 kernels' limit binds.
     On an H100 SXM (132 SMs) that admits the LSTM up to h = 1312 and the
     GRU up to h = 1472, in float32 and bfloat16 alike. Any batch size.
     """
@@ -231,13 +248,16 @@ def kernel_ok(b: int, h: int, act: str = "tanh", gate_act: str = "sigmoid",
     units = _units(h, device)
     if gates == 4:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        if -(-h // _BWD_UNITS) > sms or lstm_bwd_sm90_smem(h)[1] == 0:
+        if -(-h // _SM90_UNITS) > sms or lstm_fwd_sm90_smem(h)[1] == 0 \
+                or lstm_bwd_sm90_smem(h)[1] == 0:
             return False
     return units <= _MAX_UNITS and \
         kernel_smem(h, units, gates) <= _SM90_SMEM
 
 
 def _fn(lib: str, sym: str, n_ptrs: int):
+    """The C entry ``sym`` of kernel library ``lib``: n_ptrs pointers,
+    five ints, then the stream; returns the CUDA error."""
     from paddle_tpu_torch.ops import _build
     fn = getattr(_build.load(lib), sym)
     if fn.argtypes is None:
@@ -284,44 +304,103 @@ def lstm_forward(x4: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
     """The LSTM forward kernel: (out, hT, cT) or, with ``save_res``,
     (out, hT, cT, cseq, gates) — see :func:`lstm_reference`. ``x4`` and
     ``w`` share the product dtype; bias, peep float32; lens int32 [b].
-    CPU: the plain version; CUDA: the kernel."""
+    CPU: the plain version; CUDA: the kernel of :func:`lstm_fwd_route`."""
     if x4.device.type == "cpu":
         return lstm_reference(x4, lens, w, bias, peep, save_res)
     b, T, four_h = x4.shape
     h = four_h // 4
     _cuda_or_raise(x4, h, b, 4)
     dt = w.dtype
-    if dt not in _DTYPE_CODES:
-        raise TypeError(f"the LSTM kernel takes float32 or bfloat16, got {dt}")
+    route = lstm_fwd_route(dt)
     _check({"x4": x4, "w": w, "bias": bias, "peep": peep, "lens": lens},
            x4.device,
            {"x4": ((b, T, four_h), dt), "w": ((h, four_h), dt),
             "bias": ((four_h,), torch.float32),
             "peep": ((3 * h,), torch.float32),
             "lens": ((b,), torch.int32)})
-    dev = x4.device
+    if route == "sm90":
+        res = lstm_fwd_sm90_launch(x4, lens, w, bias, peep, save_res)
+    else:
+        res = _lstm_fwd_simt(x4, lens, w, bias, peep, save_res)
+    lstm_forward.launches += 1
+    lstm_forward.route_launches[route] += 1
+    if save_res:
+        lstm_forward.res_launches += 1
+    return res
+
+
+def _outputs(x4: torch.Tensor, save_res: bool):
+    """The forward's outputs in ``x4.dtype``: out, cseq [b, T, h], gates
+    [b, T, 4h] (None, None without residuals), hT, cT [b, h] float32."""
+    b, T, four_h = x4.shape
+    h, dt, dev = four_h // 4, x4.dtype, x4.device
     out = torch.empty((b, T, h), dtype=dt, device=dev)
     cseq = torch.empty((b, T, h), dtype=dt, device=dev) if save_res else None
     gates = torch.empty((b, T, four_h), dtype=dt, device=dev) \
         if save_res else None
     hT = torch.empty((b, h), dtype=torch.float32, device=dev)
     cT = torch.empty((b, h), dtype=torch.float32, device=dev)
+    return out, cseq, gates, hT, cT
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _lstm_fwd_simt(x4, lens, w, bias, peep, save_res):
+    """One launch of ``csrc/lstm_fwd.cu`` on checked CUDA tensors."""
+    b, T, four_h = x4.shape
+    h, dev = four_h // 4, x4.device
+    out, cseq, gates, hT, cT = _outputs(x4, save_res)
     hbuf = torch.zeros((2, b, h), dtype=torch.float32, device=dev)
     bar = _barrier(dev)
     fn = _fn("lstm_fwd", "pt_lstm_fwd", 12)
     err = fn(x4.data_ptr(), w.data_ptr(), bias.data_ptr(), peep.data_ptr(),
-             lens.data_ptr(), out.data_ptr(),
-             cseq.data_ptr() if save_res else None,
-             gates.data_ptr() if save_res else None, hT.data_ptr(),
-             cT.data_ptr(), hbuf.data_ptr(), bar.data_ptr(), b, T, h,
-             _units(h, dev), _DTYPE_CODES[dt], _stream(dev))
+             lens.data_ptr(), out.data_ptr(), _ptr(cseq), _ptr(gates),
+             hT.data_ptr(), cT.data_ptr(), hbuf.data_ptr(), bar.data_ptr(),
+             b, T, h, _units(h, dev), _DTYPE_CODES[w.dtype], _stream(dev))
     if err != 0:
         raise RuntimeError(f"LSTM forward launch failed: CUDA error {err}")
-    lstm_forward.launches += 1
-    if save_res:
-        lstm_forward.res_launches += 1
-        return out, hT, cT, cseq, gates
-    return out, hT, cT
+    return (out, hT, cT, cseq, gates) if save_res else (out, hT, cT)
+
+
+def lstm_fwd_route(dtype: torch.dtype) -> str:
+    """The LSTM forward's route for weights of ``dtype``: bfloat16 takes
+    the tensor-core kernel (``csrc/lstm_fwd_sm90.cu``, "sm90"), float32
+    the SIMT kernel (``csrc/lstm_fwd.cu``, "simt"). By dtype alone,
+    decided before any launch."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the LSTM kernel takes float32 or bfloat16, got "
+                        f"{dtype}")
+    return "sm90" if dtype == torch.bfloat16 else "simt"
+
+
+def lstm_fwd_sm90_launch(x4, lens, w, bias, peep, save_res: bool = False,
+                         mode: int = 0, stages: int = 0):
+    """One launch of ``csrc/lstm_fwd_sm90.cu`` on checked bf16 CUDA
+    tensors; returns what :func:`lstm_forward` returns. ``mode`` 0
+    computes the function (what :func:`lstm_forward` launches); 1 runs
+    the steps without their product and 2 the grid barriers alone, the
+    per-step floors that ``chip_smoke.py`` times (their outputs are not
+    the function). ``stages`` caps the ring's depth (0: as many as fit;
+    no result depends on it). Counts nothing: :func:`lstm_forward`
+    counts its own launches."""
+    b, T, four_h = x4.shape
+    h, dev = four_h // 4, x4.device
+    out, cseq, gates, hT, cT = _outputs(x4, save_res)
+    # round(h_{t-1}) by step parity; plane 0 is h_{-1} = 0
+    hs = torch.zeros((2, b, -(-h // 8) * 8), dtype=torch.bfloat16,
+                     device=dev)
+    bar = _barrier(dev)
+    fn = _fn("lstm_fwd_sm90", "pt_lstm_fwd_sm90", 12)
+    err = fn(x4.data_ptr(), w.data_ptr(), bias.data_ptr(), peep.data_ptr(),
+             lens.data_ptr(), out.data_ptr(), _ptr(cseq), _ptr(gates),
+             hT.data_ptr(), cT.data_ptr(), hs.data_ptr(), bar.data_ptr(), b,
+             T, h, int(mode), int(stages), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"LSTM forward (sm90) launch failed: CUDA error "
+                           f"{err}")
+    return (out, hT, cT, cseq, gates) if save_res else (out, hT, cT)
 
 
 def lstm_bwd_route(dtype: torch.dtype) -> str:
@@ -336,13 +415,14 @@ def lstm_bwd_route(dtype: torch.dtype) -> str:
 
 
 def lstm_bwd_sm90_launch(w, peep, lens, gates, cseq, d_out, dhT, dcT,
-                         mode: int = 0) -> torch.Tensor:
+                         mode: int = 0, stages: int = 0) -> torch.Tensor:
     """One launch of ``csrc/lstm_bwd_sm90.cu`` on checked bf16 CUDA
     tensors; returns dz. ``mode`` 0 computes the function (what
     :func:`lstm_backward` launches); 1 runs the steps without their
     product and 2 the grid barriers alone, the per-step floors that
-    ``chip_smoke.py`` times (their dz is not the function). Counts
-    nothing: :func:`lstm_backward` counts its own launches."""
+    ``chip_smoke.py`` times (their dz is not the function). ``stages``
+    caps the ring's depth (0: as many as fit; no result depends on it).
+    Counts nothing: :func:`lstm_backward` counts its own launches."""
     b, T, four_h = gates.shape
     h = four_h // 4
     dev = gates.device
@@ -352,16 +432,11 @@ def lstm_bwd_sm90_launch(w, peep, lens, gates, cseq, d_out, dhT, dcT,
     dh = torch.empty((b, h), dtype=torch.float32, device=dev)
     dc = torch.empty((b, h), dtype=torch.float32, device=dev)
     bar = _barrier(dev)
-    from paddle_tpu_torch.ops import _build
-    fn = _build.load("lstm_bwd_sm90").pt_lstm_bwd_sm90
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + \
-            [ctypes.c_void_p]
+    fn = _fn("lstm_bwd_sm90", "pt_lstm_bwd_sm90", 13)
     err = fn(w.data_ptr(), peep.data_ptr(), lens.data_ptr(), gates.data_ptr(),
              cseq.data_ptr(), d_out.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
              dz.data_ptr(), zt.data_ptr(), dh.data_ptr(), dc.data_ptr(),
-             bar.data_ptr(), b, T, h, int(mode), _stream(dev))
+             bar.data_ptr(), b, T, h, int(mode), int(stages), _stream(dev))
     if err != 0:
         raise RuntimeError(f"LSTM backward (sm90) launch failed: CUDA error "
                            f"{err}")
@@ -450,6 +525,7 @@ def gru_forward(x3: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
 
 lstm_forward.launches = 0
 lstm_forward.res_launches = 0
+lstm_forward.route_launches = {"sm90": 0, "simt": 0}
 lstm_backward.launches = 0
 lstm_backward.route_launches = {"sm90": 0, "simt": 0}
 gru_forward.launches = 0

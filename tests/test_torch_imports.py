@@ -122,13 +122,14 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 
 def test_build_sources_name_every_routed_kernel():
-    """_build.SOURCES names the two tensor-core kernels of the bf16
-    routes that replaced SIMT ones (the flash dq and the LSTM backward),
-    every library a flash route or the LSTM backward loads, and only
-    sources that exist."""
+    """_build.SOURCES names the tensor-core kernels of the bf16 routes
+    that replaced SIMT ones (the flash dq and the LSTM forward and
+    backward), every library a flash route or the LSTM kernels load,
+    and only sources that exist."""
     from paddle_tpu_torch.ops import _build, flash_attention
     assert _build.SOURCES["flash_dq_sm90"] == "flash_dq_sm90.cu"
     assert _build.SOURCES["lstm_bwd_sm90"] == "lstm_bwd_sm90.cu"
+    assert _build.SOURCES["lstm_fwd_sm90"] == "lstm_fwd_sm90.cu"
     for src in _build.SOURCES.values():
         assert (_build.CSRC / src).is_file(), src
     for lib, _ in flash_attention._KERNELS.values():

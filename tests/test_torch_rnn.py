@@ -143,6 +143,24 @@ def test_lstm_sequence_matches_pallas_bfloat16(compute_dtype):
         _close(t, j, dict(rtol=0, atol=BF16_ATOL))
 
 
+def test_lstm_no_grad_bfloat16_matches_pallas(compute_dtype):
+    """The no-residual forward (the infer call) in bfloat16: the port's
+    lstm_sequence under no_grad against the Pallas kernel in interpret
+    mode, out, hT and cT."""
+    compute_dtype("bfloat16")
+    x, lens, w, bias, peep = _inputs(4, h=16, seed=15)
+    jouts = pallas_rnn.lstm_sequence(jnp.asarray(x), jnp.asarray(lens),
+                                     jnp.asarray(w), jnp.asarray(bias),
+                                     jnp.asarray(peep), interpret=True)
+    with torch.no_grad():
+        touts = fused_rnn.lstm_sequence(torch.tensor(x), torch.tensor(lens),
+                                        torch.tensor(w), torch.tensor(bias),
+                                        torch.tensor(peep))
+    assert touts[0].dtype == torch.bfloat16
+    for j, t in zip(jouts, touts):
+        _close(t, j, dict(rtol=0, atol=BF16_ATOL))
+
+
 def test_lstm_no_grad_call_takes_the_no_residual_forward():
     """Without a gradient the op runs the forward once, without
     residuals, and gives the same values as the differentiable call."""
@@ -362,14 +380,87 @@ def test_lstm_backward_route_is_chosen_by_dtype_alone():
     assert set(bwd.route_launches) == {"sm90", "simt"}
 
 
-def test_lstm_bwd_sm90_shared_memory_plan():
-    """The bf16 backward's shared memory (csrc/lstm_bwd_sm90.cu): 16 units
-    a block as 2048-byte weight tiles of 64 columns, plus ring stages of
-    16384 bytes, under the 232,448 bytes a block may use — 4 stages at
-    the classifier's h 1280, at least 2 up to h 1536, none past it."""
-    smem, stages = fused_rnn.lstm_bwd_sm90_smem(1280)
-    assert (smem, stages) == (1024 + 80 * 2048 + 4 * 16384, 4)
-    for h in (1, 13, 48, 128, 1312, 1536):
-        smem, stages = fused_rnn.lstm_bwd_sm90_smem(h)
+def _check_sm90_plan(plan, w_bytes_1280):
+    """A bf16 LSTM kernel's shared-memory plan: its weight tiles plus ring
+    stages of 16384 bytes under the 232,448 bytes a block may use — 4
+    stages at the classifier's h 1280, at least 2 up to h 1536, none past
+    it; a stage cap takes at most what fits, and a cap of 1 is refused
+    (a consumer holds one stage while it waits for the next)."""
+    full = (1024 + w_bytes_1280 + 4 * 16384, 4)
+    assert plan(1280) == plan(1280, 0) == plan(1280, 8) == full
+    for cap in (2, 3):
+        assert plan(1280, cap) == (1024 + w_bytes_1280 + cap * 16384, cap)
+    assert plan(1280, 1)[1] == 0
+    for h in (1, 13, 48, 50, 128, 256, 1312, 1536):
+        smem, stages = plan(h)
         assert 2 <= stages <= 8 and smem + 1024 <= fused_rnn._SM90_SMEM, h
-    assert fused_rnn.lstm_bwd_sm90_smem(1537)[1] == 0
+    assert plan(1537)[1] == 0
+
+
+def test_lstm_bwd_sm90_shared_memory_plan():
+    """The bf16 backward (csrc/lstm_bwd_sm90.cu): 16 units a block as
+    2048-byte weight tiles of 64 of its 4h columns."""
+    _check_sm90_plan(fused_rnn.lstm_bwd_sm90_smem, 80 * 2048)
+
+
+def test_lstm_fwd_sm90_shared_memory_plan():
+    """The bf16 forward (csrc/lstm_fwd_sm90.cu): the 64 weight columns of
+    16 units a block as 8192-byte tiles of 64 rows of h — the same
+    1024 + 20 * 8192 + 4 * 16384 bytes as the backward at h 1280."""
+    _check_sm90_plan(fused_rnn.lstm_fwd_sm90_smem, 20 * 8192)
+    assert fused_rnn.lstm_fwd_sm90_smem(1280) == \
+        fused_rnn.lstm_bwd_sm90_smem(1280)
+
+
+def test_lstm_forward_route_is_chosen_by_dtype_alone():
+    """bfloat16 weights take the tensor-core forward (sm90,
+    csrc/lstm_fwd_sm90.cu), float32 the SIMT one (csrc/lstm_fwd.cu),
+    decided by dtype before any launch; on the CPU both dtypes take the
+    plain version, with and without residuals, and count no launch on
+    either route."""
+    assert fused_rnn.lstm_fwd_route(torch.bfloat16) == "sm90"
+    assert fused_rnn.lstm_fwd_route(torch.float32) == "simt"
+    for bad in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            fused_rnn.lstm_fwd_route(bad)
+    fwd = fused_rnn.lstm_forward
+    before = (fwd.launches, fwd.res_launches, dict(fwd.route_launches))
+    x, lens, w, bias, peep = _inputs(4, seed=14)
+    tl = torch.tensor(lens)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (torch.tensor(x).to(dtype), tl, torch.tensor(w).to(dtype),
+                torch.tensor(bias), torch.tensor(peep))
+        for save_res in (False, True):
+            got = fwd(*args, save_res=save_res)
+            want = fused_rnn.lstm_reference(*args, save_res=save_res)
+            assert got[0].dtype == dtype and got[1].dtype == torch.float32
+            for g, r in zip(got, want):
+                torch.testing.assert_close(g, r, rtol=0, atol=0)
+    assert (fwd.launches, fwd.res_launches, dict(fwd.route_launches)) == \
+        before
+    assert set(fwd.route_launches) == {"sm90", "simt"}
+
+
+def test_kernel_ok_admits_the_same_grid(monkeypatch):
+    """On an emulated H100 (sm_90, 132 SMs) the dispatch gate admits the
+    LSTM up to h 1312 and the GRU up to h 1472 at any batch, as before
+    the bf16 forward joined the plan: the float32 kernels' limit binds,
+    since both bf16 LSTM kernels fit up to h 1536. Another architecture
+    is never admitted."""
+    import types
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda device=None: (9, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device=None: types.SimpleNamespace(
+                            multi_processor_count=132))
+    hs = range(1, 1601)
+    for gates, top in ((4, 1312), (3, 1472)):
+        for b in (1, 6, 128, 160, 4096):
+            admitted = [h for h in hs
+                        if fused_rnn.kernel_ok(b, h, gates=gates,
+                                               device="cuda")]
+            assert admitted == list(range(1, top + 1)), (gates, b)
+    assert not fused_rnn.kernel_ok(128, 1280, act="relu", device="cuda")
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda device=None: (8, 0))
+    assert not fused_rnn.kernel_ok(128, 1280, device="cuda")
