@@ -12,7 +12,8 @@ Phases (any failure exits non-zero before the final line):
    ptxas report (and its wgmma warnings); the five wgmma kernels
    (flash_fwd_sm90.cu, flash_dq_sm90.cu, flash_dkv_sm90.cu,
    lstm_fwd_sm90.cu, lstm_bwd_sm90.cu) must report 0 spill bytes and
-   no C75xx warning (products serialized). Then the building blocks of
+   no C75xx warning (products serialized), and the window kernel
+   (paged_window_attention.cu) 0 spill bytes. Then the building blocks of
    sm90_pipeline.cuh on one 64 x 64 bf16 tile: A B^T by wgmma SS over
    TMA-loaded K-major tiles and A B by wgmma RS with B MN-major; the
    LSTM backward's product, a [64, 200] x [16, 200]^T by wgmma
@@ -27,9 +28,13 @@ Phases (any failure exits non-zero before the final line):
    float32 (the JAX package's bound for its kernel against its
    einsum), atol 2e-2 in bfloat16 (bf16 output rounding); a row with
    kv_len 0 against the TPU kernel's value for it, the mean of V over
-   the slot's used pages; and the allocated-pages contract — NaN
+   the slot's used pages; the allocated-pages contract — NaN
    written into every page past each slot's used count changes
-   nothing.
+   nothing; out-of-range table entries inside two slots' used pages
+   (one slot within one chunk, one over several, so the merge carries
+   it) make those slots' rows NaN and leave every other row equal to
+   the clean call's; and after the synchronized calls every arrival
+   counter of the kernel's merge reads 0 again.
 3. engine — the main path through the entry points a user calls: a
    full-width transformer_lm (vocab 32000, d_model 512, 8 heads, 6
    layers, d_ff 2048, max_len 544, float32, random weights from seed
@@ -41,11 +46,14 @@ Phases (any failure exits non-zero before the final line):
    balanced page accounting, and greedy tokens of 4 requests
    identical to the port's dense TransformerDecoder.generate on the
    card under the tie rule.
-4. timings — engine tokens/s and p50 inter-token ms; the kernel's
-   median device time per call at the engine's shapes (CUDA-graph
-   replay timed with CUDA events; pool slices cycled
-   over the 6 layers, so the 107 MB of K/V defeat the 50 MB L2), its
-   byte/flop bound, the plain version's time, and
+4. timings — the float kernel's median device time per call at the
+   engine's shapes, one token (W 1) and the speculation window (W 3)
+   (CUDA-graph replay timed with CUDA events; pool slices cycled over
+   the 6 layers — the used pages of the 8 slots, ~24 MB, stay in the
+   50 MB L2), the host's eager issue time, the chunk plan (C pages a
+   block), the kernel's floors (launches stopped after the prologue,
+   after the gather, before the merge), its byte/flop bound, the plain
+   version's time, and
    torch.nn.functional.scaled_dot_product_attention on the gathered
    view as a yardstick (library_ms; the port never calls it).
 5. trace — 8 more requests under torch.profiler: device busy time by
@@ -150,7 +158,8 @@ Phases (any failure exits non-zero before the final line):
    at phase 2's widths (q float32 and bfloat16, h/g 8/8, 8/2, 8/1, W
    1, 3 and 4, pages quantized on the card) against its plain version
    at phase 2's tolerances; NaN scales past each slot's used pages
-   change nothing; a kv_len-0 row returns the mean of dequantized V;
+   change nothing; phase 2's corrupt table entries and arrival-counter
+   check; a kv_len-0 row returns the mean of dequantized V;
    quantize_kv on the card is bit-equal to the CPU port's.
 18. decode kernel vs plain — decode_attention at b 8, h 8, g 8/2/1, dh
    64, T 544, shared and per-row lengths (one of them 0), float32 and
@@ -179,6 +188,13 @@ Phases (any failure exits non-zero before the final line):
    with their bounds (the decode kernel's counts each row's live
    columns only), plain times and SDPA yardsticks; then 8 requests
    through the int8 + speculative engine under torch.profiler.
+23. full context — both window kernels with every slot at 544 tokens
+   (8 slots x 34 pages, h 8, g 8, dh 64, float32 q), float32 and int8
+   pages, W 1 and 3, on seeded random pools large enough to exceed the
+   50 MB L2 (6 float32 sets, 107 MB; 16 int8 sets, 76 MB): device time,
+   bound, plain and SDPA as in phase 4; then the chunk plan swept (C 1,
+   2, 4, 8 pages a block) on those pools at the engine's lengths and
+   at full context, each C held against the plain version.
 
 Prints the kernel table as one JSON line (the flash and LSTM kernels at
 their bfloat16 times, the training dtype, naming their wgmma sources,
@@ -188,6 +204,7 @@ serving dtype, W 1), the card's name and power limit (nvidia-smi), and
 last {"ok": true, "device": {...}}.
 """
 
+import functools
 import json
 import re
 import subprocess
@@ -222,9 +239,11 @@ TRAIN_ROWS, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 8
 FLASH_KERNELS = [("fwd", 43, "sm90", "flash_fwd_sm90.cu"),
                  ("dq", 225, "sm90", "flash_dq_sm90.cu"),
                  ("dkv", 264, "sm90", "flash_dkv_sm90.cu")]
-# the wgmma kernels, which must build with 0 spill bytes
+# the wgmma kernels, which must build with 0 spill bytes and no C75xx
+# warning; the window kernel must build with 0 spill bytes too
 SM90_LIBS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90",
              "lstm_fwd_sm90", "lstm_bwd_sm90")
+NO_SPILL_LIBS = SM90_LIBS + ("paged_window_attention",)
 
 
 _T0 = time.perf_counter()
@@ -302,7 +321,7 @@ def phase_build():
         log(f"build {name}: " + ("; ".join(lines) or "reused"))
         spills = [int(n) for n in
                   re.findall(r"(\d+) bytes spill (?:stores|loads)", rep)]
-        if name in SM90_LIBS and any(spills):
+        if name in NO_SPILL_LIBS and any(spills):
             raise AssertionError(f"{name}: ptxas reports spills: {lines}")
         # C75xx: ptxas serialized or fenced the kernel's products
         if name in SM90_LIBS and re.search(r"\(C75\d\d\)", rep):
@@ -481,10 +500,42 @@ def phase_kernel_vs_plain():
                 if not torch.equal(again, got):
                     raise AssertionError("kernel read a page past a "
                                          "slot's used count")
+                _check_corrupt_entry(
+                    lambda tb: ops.paged_window_attention(
+                        args[0], args[1], args[2], tb, args[4]),
+                    args[3], lens, got)
                 log(f"kernel vs plain h={h} g={g} W={W} "
                     f"{str(dtype)[6:]}: max_abs_err {err:.3e}, kv_len-0 "
                     f"row {zero_err:.3e}")
     return worst
+
+
+def _check_corrupt_entry(call, tb, lens, clean):
+    """Out-of-range table entries inside a slot's used pages are never
+    dereferenced: slot 1's first entry (-1; its used pages fit one
+    chunk) and slot 5's last used one (2^30; the last of several
+    chunks, so the merge carries it) make those slots' rows NaN, and
+    every other row equals the clean call's. After the synchronized
+    call every arrival counter of the merge reads 0 again."""
+    from paddle_tpu_torch.ops import paged_decode as ops
+    bad = tb.clone()
+    used5 = min(max(-(-int(lens[5].max()) // PAGE), 1), tb.shape[1])
+    bad[1, 0] = -1
+    bad[5, used5 - 1] = 1 << 30
+    got = call(bad)
+    torch.cuda.synchronize()
+    keep = torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
+    keep[[1, 5]] = False
+    if not torch.isnan(got[~keep]).all():
+        raise AssertionError("a corrupt table entry did not make its "
+                             "slot's rows NaN")
+    if not torch.equal(got[keep], clean[keep]):
+        raise AssertionError("a corrupt table entry changed another "
+                             "slot's rows")
+    for counters in ops.window_arrival_counters():
+        if counters.any():
+            raise AssertionError("window kernel arrival counters not back "
+                                 "to 0 after a call")
 
 
 def _check_zero_len_row(ops, args, tables, lens, dtype):
@@ -579,75 +630,109 @@ def _check_dense(reqs, dense, label):
 
 
 # ------------------------------------------------------------ phase 4
-def phase_timings(eng, prompts, news):
-    """The kernel at the engine's shapes: the first 8 requests at their
-    final lengths, one token each, over the engine's real pools."""
+def _window_lens(lens, W):
+    """Per-token kv_lens [S, W] of a W-token window ending at ``lens``
+    (window token w sees lens - W + 1 + w columns, at least 1)."""
+    return torch.from_numpy(np.maximum(
+        np.asarray(lens)[:, None] - W + 1 + np.arange(W)[None, :], 1)
+        .astype(np.int32)).cuda()
+
+
+def _window_timing(label, q, layers, tb, ln):
+    """One window kernel's device time per call (CUDA-graph replay,
+    cycling over ``layers``, each (k_pages, v_pages, k_scales,
+    v_scales) with the scales None for float pages), the host's eager
+    issue time, its bound on this call's inputs, the plain version's
+    time and SDPA on the gathered (dequantized) view as a yardstick."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import paged_decode as ops
+    k0 = layers[0][0]
+    _, ps, g, dh = k0.shape
+    h = q.shape[2]
+    quant = layers[0][2] is not None
 
-    k_pool, v_pool = eng.k_pool, eng.v_pool
-    L, n_pages, ps, g, dh = k_pool.shape
-    h, P = FULL["n_heads"], FULL["max_len"] // PAGE
-    lens = np.array([len(p) + n for p, n in
-                     zip(prompts[:SLOTS], news[:SLOTS])], np.int32)
-    used = -(-lens // ps)
-    rng = np.random.RandomState(1)
-    tables = np.zeros((SLOTS, P), np.int32)
-    pages = rng.permutation(n_pages - 1) + 1
-    at = 0
-    for s in range(SLOTS):
-        tables[s, :used[s]] = pages[at:at + used[s]]
-        at += used[s]
-    dev = k_pool.device
-    q = torch.randn(SLOTS, 1, h, dh, device=dev)
-    tb = torch.from_numpy(tables).to(dev)
-    ln = torch.from_numpy(lens[:, None]).to(dev)
-    ks = [k_pool[i] for i in range(L)]
-    vs = [v_pool[i] for i in range(L)]
+    def call(fn, i):
+        k, v, ks, vs = layers[i % len(layers)]
+        return fn(q, k, v, tb, ln, k_scales=ks, v_scales=vs)
 
-    def kernel(i):
-        return ops.paged_window_attention(q, ks[i % L], vs[i % L], tb, ln)
+    ms = device_ms(lambda i: call(ops.paged_window_attention, i), iters=60)
+    plain_ms = device_ms(lambda i: call(ops.paged_window_reference, i),
+                         iters=12)
+    issue_ms = host_ms(lambda i: call(ops.paged_window_attention, i))
+    # the kernel's floors: stopped after the prologue, the gather, the
+    # chunk's own outputs (no merge)
+    floors = [device_ms(lambda i: call(functools.partial(
+        ops.paged_window_launch, mode=m), i), iters=60) for m in (1, 2, 3)]
 
-    def plain(i):
-        return ops.paged_window_reference(q, ks[i % L], vs[i % L], tb, ln)
+    def view(pages, scales):
+        x = ops.gather_pages(pages, tb)
+        if scales is not None:
+            x = ops.dequantize_kv(x, ops.gather_scales(scales, tb), q.dtype)
+        return x.to(q.dtype).permute(0, 2, 1, 3)
 
-    kernel_ms = device_ms(kernel, iters=60)
-    plain_ms = device_ms(plain, iters=12)
-    kernel_host_ms = host_ms(kernel)
-    # yardstick: one library call on the gathered [S, h, T, dh] view
-    kg = [ops.gather_pages(ks[i], tb).permute(0, 2, 1, 3) for i in range(L)]
-    vg = [ops.gather_pages(vs[i], tb).permute(0, 2, 1, 3) for i in range(L)]
-    mask = (torch.arange(P * ps, device=dev)[None, :] < ln)[:, None, None]
+    kg = [view(k, ks) for k, _, ks, _ in layers]
+    vg = [view(v, vs) for _, v, _, vs in layers]
+    T = tb.shape[1] * ps
+    mask = (torch.arange(T, device="cuda")[None, None, :]
+            < ln[:, :, None])[:, None]            # [S, 1, W, T]
     qs = q.permute(0, 2, 1, 3)
-
     gqa = {} if g == h else {"enable_gqa": True}
 
     def sdpa(i):
         return F.scaled_dot_product_attention(
-            qs, kg[i % L], vg[i % L], attn_mask=mask, **gqa)
+            qs, kg[i % len(layers)], vg[i % len(layers)], attn_mask=mask,
+            **gqa)
 
-    want = ops.paged_window_reference(q, ks[0], vs[0], tb, ln)
-    torch.testing.assert_close(sdpa(0).permute(0, 2, 1, 3), want,
-                               **F32_TOL)
+    got = sdpa(0).permute(0, 2, 1, 3)
+    want = call(ops.paged_window_reference, 0)
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(got, want, **F32_TOL)
+    elif (got.float() - want.float()).abs().max().item() > BF16_ATOL:
+        raise AssertionError(f"{label}: bf16 SDPA yardstick off the plain "
+                             "path")
     library_ms = device_ms(sdpa, iters=60)
-
-    esize = k_pool.element_size()
-    kv_bytes = 2 * int(used.sum()) * ps * g * dh * esize
+    lens_max = ln.max(dim=1).values.cpu().numpy()
+    used = np.clip(-(-lens_max // ps), 1, tb.shape[1])
+    row_bytes = dh * k0.element_size() + (4 if quant else 0)
+    kv_bytes = 2 * int(used.sum()) * ps * g * row_bytes
     io_bytes = 2 * q.numel() * q.element_size() + tb.numel() * 4 + \
         ln.numel() * 4
-    flops = 4.0 * float(lens.sum()) * h * dh
+    flops = 4.0 * float(ln.sum().item()) * h * dh
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / (BF16_FLOPS_PER_S if q.dtype == torch.bfloat16
+                     else FP32_FLOPS_PER_S) * 1e3
     bound_ms = max(t_bytes, t_ops)
-    log(f"kernel at engine shapes (lens {lens.tolist()}): "
-        f"{kernel_ms * 1e3:.2f} us/call on the device "
-        f"({kernel_host_ms * 1e3:.2f} us/call issued eagerly), "
-        f"bound {bound_ms * 1e3:.3f} us "
+    plan = ops.window_plan(q.shape[0], q.shape[1], h, g, dh, ps,
+                           tb.shape[1], k0.element_size(), quant)
+    log(f"{label} (lens {lens_max.tolist()}, {len(layers)} pool sets; "
+        f"chunks of C {plan.chunk_pages:g} pages, {plan.n_chunks} a "
+        f"slot): {ms * 1e3:.2f} us/call on the device ({issue_ms * 1e3:.2f} "
+        f"us/call issued eagerly), bound {bound_ms * 1e3:.3f} us "
         f"({kv_bytes + io_bytes} bytes), plain {plain_ms * 1e3:.2f} us, "
-        f"sdpa {library_ms * 1e3:.2f} us")
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        f"sdpa {library_ms * 1e3:.2f} us; floors: prologue "
+        f"{floors[0] * 1e3:.2f}, + gather {floors[1] * 1e3:.2f}, + chunk "
+        f"outputs {floors[2] * 1e3:.2f} us")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_timings(eng, prompts, news):
+    """The float kernel at the engine's shapes: the first 8 requests at
+    their final lengths over the engine's real pools, one token each
+    (W 1) and the speculation window (W 3). Returns W 1's numbers."""
+    k_pool, v_pool = eng.k_pool, eng.v_pool
+    L, _, _, _, dh = k_pool.shape
+    lens = np.array([len(p) + n for p, n in
+                     zip(prompts[:SLOTS], news[:SLOTS])], np.int32)
+    tb, _ = _engine_page_view(eng, lens, seed=1)
+    layers = [(k_pool[i], v_pool[i], None, None) for i in range(L)]
+    out = {}
+    for W in (1, SPEC_K + 1):
+        q = torch.randn(SLOTS, W, FULL["n_heads"], dh, device="cuda")
+        out[W] = _window_timing(f"kernel at engine shapes W={W} float32",
+                                q, layers, tb, _window_lens(lens, W))
+    return out[1]
 
 
 # ------------------------------------------------------------ phase 5
@@ -1915,6 +2000,10 @@ def phase_dequant_vs_plain():
                 if not torch.equal(again, got):
                     raise AssertionError("int8 kernel read a page or scale "
                                          "past a slot's used count")
+                _check_corrupt_entry(
+                    lambda tb: ops.paged_window_attention(
+                        a["q"], a["kq"], a["vq"], tb, a["ln"], **kw),
+                    a["tb"], lens, got)
                 zero_err = _check_zero_len_row_int8(ops, a, tables, lens,
                                                     dtype)
                 log(f"int8 kernel vs plain h={h} g={g} W={W} "
@@ -2263,73 +2352,82 @@ def phase_two_tier(serve):
 
 # ------------------------------------------------------------ phase 22
 def _int8_timing(int8_eng, tb, lens, W, dtype):
-    """Kernel 8 at the int8 engine's shapes (the phase 19 pools, the
-    first 8 requests at their final lengths, W tokens, q of ``dtype``):
-    device time per call by CUDA-graph replay, its byte bound, the
-    plain version's time, and SDPA on the dequantized view."""
-    import torch.nn.functional as F
-    from paddle_tpu_torch.ops import paged_decode as ops
+    """Kernel 8 at the int8 engine's shapes: the phase 19 pools, the
+    first 8 requests at their final lengths, W tokens, q of
+    ``dtype``."""
     k_pool, v_pool = int8_eng.k_pool, int8_eng.v_pool
-    L, n_pages, ps, g, dh = k_pool["q"].shape
-    h = FULL["n_heads"]
-    used = -(-lens // ps)
-    ln = torch.from_numpy(np.maximum(
-        lens[:, None] - W + 1 + np.arange(W)[None, :], 1)
-        .astype(np.int32)).cuda()
-    q = torch.randn(SLOTS, W, h, dh, device="cuda").to(dtype)
+    L, _, _, _, dh = k_pool["q"].shape
+    q = torch.randn(SLOTS, W, FULL["n_heads"], dh, device="cuda").to(dtype)
     layers = [(k_pool["q"][i], v_pool["q"][i], k_pool["s"][i],
                v_pool["s"][i]) for i in range(L)]
+    return _window_timing(f"int8 kernel at engine shapes W={W} "
+                          f"{str(dtype)[6:]} q", q, layers, tb,
+                          _window_lens(lens, W))
 
-    def kernel(i):
-        kq, vq, ks, vs = layers[i % L]
-        return ops.paged_window_attention(q, kq, vq, tb, ln,
-                                          k_scales=ks, v_scales=vs)
 
-    def plain(i):
-        kq, vq, ks, vs = layers[i % L]
-        return ops.paged_window_reference(q, kq, vq, tb, ln,
-                                          k_scales=ks, v_scales=vs)
+# full context: every slot at max_len (34 pages), pool sets enough to
+# exceed the 50 MB L2 (6 float32 sets: 107 MB of K/V; 16 int8 sets:
+# 76 MB with scales)
+FULL_CONTEXT_SETS = {"float32": 6, "int8": 16}
+CHUNK_SWEEP = (1, 2, 4, 8)
 
-    ms = device_ms(kernel, iters=60)
-    plain_ms = device_ms(plain, iters=12)
-    # yardstick: SDPA on the dequantized gathered view, in q's dtype
-    kg = [ops.dequantize_kv(ops.gather_pages(kq, tb),
-                            ops.gather_scales(ks, tb), dtype)
-          .permute(0, 2, 1, 3) for kq, _, ks, _ in layers]
-    vg = [ops.dequantize_kv(ops.gather_pages(vq, tb),
-                            ops.gather_scales(vs, tb), dtype)
-          .permute(0, 2, 1, 3) for _, vq, _, vs in layers]
-    T = tb.shape[1] * ps
-    mask = (torch.arange(T, device="cuda")[None, None, :]
-            < ln[:, :, None])[:, None]            # [S, 1, W, T]
-    qs = q.permute(0, 2, 1, 3)
-    gqa = {} if g == h else {"enable_gqa": True}
 
-    def sdpa(i):
-        return F.scaled_dot_product_attention(
-            qs, kg[i % L], vg[i % L], attn_mask=mask, **gqa)
-
-    got, want = sdpa(0).permute(0, 2, 1, 3), plain(0)
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, **F32_TOL)
-    elif (got.float() - want.float()).abs().max().item() > BF16_ATOL:
-        raise AssertionError("bf16 SDPA yardstick off the int8 plain path")
-    library_ms = device_ms(sdpa, iters=60)
-    kv_bytes = 2 * int(used.sum()) * ps * g * (dh + 4)
-    io_bytes = 2 * q.numel() * q.element_size() + tb.numel() * 4 + \
-        ln.numel() * 4
-    flops = 4.0 * float(ln.sum().item()) * h * dh
-    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / (BF16_FLOPS_PER_S if dtype == torch.bfloat16
-                     else FP32_FLOPS_PER_S) * 1e3
-    log(f"int8 kernel at engine shapes W={W} {str(dtype)[6:]} q (lens "
-        f"{lens.tolist()}): {ms * 1e3:.2f} us/call, bound "
-        f"{max(t_bytes, t_ops) * 1e3:.3f} us ({kv_bytes + io_bytes} "
-        f"bytes), plain {plain_ms * 1e3:.2f} us, sdpa on the dequantized "
-        f"view {library_ms * 1e3:.2f} us")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+def phase_full_context_timings(engine_lens):
+    """Both window kernels at full context: 8 slots of 544 tokens (34
+    pages each, out of order over a 273-page pool), h 8, g 8, dh 64,
+    float32 q; float32 pages and int8 pages, W 1 and 3, on seeded
+    random pools. Then, on the same pools, the chunk plan swept: device
+    time per call with C = 1, 2, 4 and 8 pages a block at the engine's
+    lengths and at full context, each held against the plain version
+    first. Keyed by (kind, W)."""
+    from paddle_tpu_torch.ops import paged_decode as ops
+    h, dh = FULL["n_heads"], 64
+    P = FULL["max_len"] // PAGE
+    n_pages = SLOTS * P + 1
+    rng = np.random.RandomState(230)
+    tables = (rng.permutation(n_pages - 1)[:SLOTS * P] + 1) \
+        .reshape(SLOTS, P).astype(np.int32)
+    tb = torch.from_numpy(tables).cuda()
+    full = np.full(SLOTS, FULL["max_len"], np.int32)
+    gen = torch.Generator(device="cuda").manual_seed(230)
+    out = {}
+    for kind, n_sets in FULL_CONTEXT_SETS.items():
+        layers = []
+        for _ in range(n_sets):
+            k, v = (torch.randn(n_pages, PAGE, h, dh, generator=gen,
+                                device="cuda") for _ in range(2))
+            if kind == "int8":
+                (kq, ks), (vq, vs) = ops.quantize_kv(k), ops.quantize_kv(v)
+                layers.append((kq, vq, ks, vs))
+            else:
+                layers.append((k, v, None, None))
+        for W in (1, SPEC_K + 1):
+            q = torch.randn(SLOTS, W, h, dh, generator=gen, device="cuda")
+            out[(kind, W)] = _window_timing(
+                f"{kind} pages at full context W={W}", q, layers, tb,
+                _window_lens(full, W))
+        for label, lens in (("engine lengths", engine_lens),
+                            ("full context", full)):
+            for W in (1, SPEC_K + 1):
+                ln = _window_lens(lens, W)
+                q = torch.randn(SLOTS, W, h, dh, generator=gen,
+                                device="cuda")
+                want = ops.paged_window_reference(
+                    q, *layers[0][:2], tb, ln, k_scales=layers[0][2],
+                    v_scales=layers[0][3])
+                row = []
+                for C in CHUNK_SWEEP:
+                    def call(i, C=C):
+                        k, v, ks, vs = layers[i % len(layers)]
+                        return ops.paged_window_launch(
+                            q, k, v, tb, ln, k_scales=ks, v_scales=vs,
+                            chunk_pages=C)
+                    torch.testing.assert_close(call(0), want, **F32_TOL)
+                    row.append(f"C {C}: {device_ms(call, 60) * 1e3:.2f}")
+                log(f"chunk sweep, {kind} pages at {label} W={W}: "
+                    + ", ".join(row) + " us/call")
+        del layers
+    return out
 
 
 def _decode_bound(g, dtype, lens):
@@ -2491,6 +2589,8 @@ def main():
     tt_timing = phase_two_tier_timings(int8_eng, serve)
     phase_two_tier_trace(two_tier)
     del int8_eng, two_tier
+    phase_full_context_timings([len(p) + n for p, n in
+                                zip(prompts[:SLOTS], news[:SLOTS])])
     kernels = [dict(
         name="paged_window_attention", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",

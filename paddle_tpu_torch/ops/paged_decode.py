@@ -18,6 +18,9 @@
   (``csrc/paged_window_attention.cu`` — replaces the allocated-pages
   Pallas kernels ``_paged_window_kernel`` and, with ``k_scales`` /
   ``v_scales``, ``_paged_window_dequant_kernel``) or raises.
+  :func:`window_plan` sizes its chunks (the split page walk) and its
+  merge workspace; :func:`paged_window_launch` is one launch, with the
+  floors ``chip_smoke.py`` times.
 - :func:`decode_attention`: one query per row over a dense
   ``[b, g, dh, T]`` cache; on the card the Hopper kernel
   ``csrc/decode_attention.cu`` (replaces ``_decode_kernel``), on the
@@ -39,6 +42,8 @@ in-window causal mask).
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -57,12 +62,15 @@ INT8_KV_ATOL = 2e-2
 # divides by zero
 INT8_KV_SCALE_EPS = 1e-12
 
-# the window kernel's limits (csrc/paged_window_attention.cu): one warp
-# per query row of a kv group, lanes striding over dh, two pages' K and
-# V rows of one group double-buffered in shared memory
-_MAX_ROWS_PER_GROUP = 32        # W * rep warps in one block
+# the window kernel's limits (csrc/paged_window_attention.cu): blocks
+# over (slot, kv group, chunk of key rows), each gathering its chunk's K
+# and V rows of one group into shared memory in one round trip
+_MAX_ROWS_PER_GROUP = 32        # W * rep query rows of one group
 _MAX_HEAD_DIM = 256
 _MAX_SMEM_BYTES = 227 * 1024
+_WINDOW_SMEM_BYTES = 226 * 1024  # a block's dynamic shared memory
+_WINDOW_WARPS = 4               # warps of one block
+_MAX_CHUNK_PAGES = 8            # pages a block gathers, at most
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the decode kernel's limits (csrc/decode_attention.cu): one block per
@@ -186,10 +194,12 @@ def paged_kernel_supported(q: torch.Tensor, k_pages: torch.Tensor,
     """Does the Hopper window kernel take these shapes and dtypes? dh a
     multiple of 8 and at most 256, q float32 or bfloat16, at most 32
     query rows (W * rep) per kv group, and two pages' K+V rows of one
-    group inside shared memory. Pages share q's dtype — or, with
-    ``k_scales`` (the int8 two-tier layout), are int8 with float32
-    scales ``[n_pages, page_size, g]``, and the shared-memory budget
-    counts the int8 rows plus their scales."""
+    group within 227 KB (the budget the gate has always applied; the
+    kernel's chunk plan, :func:`window_plan`, fits every shape it
+    admits). Pages share q's dtype — or, with ``k_scales`` (the int8
+    two-tier layout), are int8 with float32 scales ``[n_pages,
+    page_size, g]``, and the budget counts the int8 rows plus their
+    scales."""
     _, W, h, _ = q.shape
     _, ps, g, dh = k_pages.shape
     ok = (q.shape[-1] == dh and dh % 8 == 0 and dh <= _MAX_HEAD_DIM
@@ -205,6 +215,132 @@ def paged_kernel_supported(q: torch.Tensor, k_pages: torch.Tensor,
             and 4 * ps * dh + 4 * ps * 4 + 64 <= _MAX_SMEM_BYTES)
 
 
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _row_stride(dh: int, esize: int) -> int:
+    """Bytes of one K/V row in the window kernel's shared memory: the
+    row rounded up to 16 bytes, then to an odd multiple of 16, so the 8
+    lanes of a 16-byte load phase, on 8 consecutive rows, hit 8
+    different bank groups."""
+    b = _align16(dh * esize)
+    return b + 16 if (b // 16) % 2 == 0 else b
+
+
+def _pv_split(R: int, dh: int) -> int:
+    """Ways the kernel splits a row's keys in P.V: enough to give each
+    warp a (row, 32 columns) unit when those are fewer than the warps."""
+    units = R * -(-dh // 32)
+    return _WINDOW_WARPS // units if units < _WINDOW_WARPS else 1
+
+
+def window_smem_bytes(rows: int, W: int, rep: int, dh: int,
+                      page_size: int, esize: int, quant: bool) -> int:
+    """Shared memory of one block of the window kernel walking ``rows``
+    key rows (the kernel's ``layout``): float32 q rows (later the P.V
+    sums of each key part), the chunk's K and V rows (and int8 scales),
+    the [W*rep, rows] probabilities, (m, l) per row, the chunk's page
+    ids and the W lengths."""
+    R = W * rep
+    return (_align16(_pv_split(R, dh) * R * dh * 4)
+            + 2 * rows * _row_stride(dh, esize)
+            + (2 * _align16(rows * 4) if quant else 0)
+            + _align16(R * rows * 4) + _align16(R * 8)
+            + _align16((rows // page_size + 2) * 4) + _align16(W * 4))
+
+
+@dataclass(frozen=True)
+class WindowPlan:
+    """How the window kernel splits each slot's page walk: a block takes
+    ``rows`` key rows (a chunk) of one (slot, kv group); the grid has
+    ``n_chunks`` chunks per (slot, group) over the full table width, and
+    a block whose chunk starts past the slot's used pages returns at
+    once. ``partials`` float32 (m, l, acc[dh]) records and ``flags``
+    int32 words make the merge workspace; both are 0 with one chunk."""
+    page_size: int
+    table_pages: int
+    rows: int
+    n_chunks: int
+    smem: int
+    partials: int
+    flags: int
+
+    @property
+    def chunk_pages(self) -> float:
+        return self.rows / self.page_size
+
+    def used_pages(self, kv_lens) -> torch.Tensor:
+        """Pages of each slot the kernel reads: clamp(ceil(max_w
+        kv_lens[s, w] / page_size), 1, P) — the ``used`` of the
+        allocated-pages contract (pallas_decode.py:448)."""
+        lens = torch.as_tensor(kv_lens).long()
+        mx = lens.reshape(lens.shape[0], -1).max(dim=1).values
+        return torch.clamp(-(-mx // self.page_size), 1, self.table_pages)
+
+    def live_chunks(self, kv_lens) -> torch.Tensor:
+        """Blocks per (slot, group) that read pages: ceil(used *
+        page_size / rows); the last of them to finish merges."""
+        return -(-self.used_pages(kv_lens) * self.page_size // self.rows)
+
+
+@functools.lru_cache(maxsize=256)
+def window_plan(S: int, W: int, h: int, g: int, dh: int, page_size: int,
+                table_pages: int, esize: int, quant: bool,
+                chunk_pages: Optional[int] = None) -> WindowPlan:
+    """The window kernel's chunk plan for these shapes: C whole pages a
+    block, ``_MAX_CHUNK_PAGES`` (or ``chunk_pages``) and at most the
+    table's width, all gathered in one round trip; fewer rows only while
+    a block's shared memory would pass ``_WINDOW_SMEM_BYTES`` (pages
+    that large are cut into parts). On an H100 at the serving shapes
+    (page 16, dh 64) C 8 was the fastest of 1, 2, 4 and 8 for float32
+    and int8 pages (``PERF.md``): a slot of up to 128 tokens takes one
+    block and no merge, whose extra round trips cost more there than
+    the walk that more blocks would share."""
+    rep = h // g
+    if chunk_pages is None:
+        chunk_pages = max(1, min(_MAX_CHUNK_PAGES, table_pages))
+    rows = chunk_pages * page_size
+
+    def smem(r):
+        return window_smem_bytes(r, W, rep, dh, page_size, esize, quant)
+
+    while rows > 1 and smem(rows) > _WINDOW_SMEM_BYTES:
+        rows = rows - page_size if rows > page_size else max(1, rows - 32)
+    n_chunks = -(-table_pages * page_size // rows)
+    split = n_chunks > 1
+    return WindowPlan(
+        page_size=page_size, table_pages=table_pages, rows=rows,
+        n_chunks=n_chunks, smem=smem(rows),
+        partials=S * g * n_chunks * W * rep * (dh + 2) if split else 0,
+        flags=S * g * n_chunks if split else 0)
+
+
+# arrival counters of the window kernel's merge, one int32 per (slot,
+# group), per device: zeroed when allocated, each merging block sets
+# its counter back to 0, so no memset runs per call. Calls on one
+# device share them: two calls must not run at once on two streams.
+_ARRIVALS = {}
+
+
+def _arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    buf = _ARRIVALS.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        # a buffer made during CUDA-graph capture is zeroed by a captured
+        # memset at every replay, but not before: it serves that graph
+        # only
+        if not torch.cuda.is_current_stream_capturing():
+            _ARRIVALS[device.index] = buf
+    return buf
+
+
+def window_arrival_counters():
+    """The window kernel's arrival counters on every device it ran on;
+    between calls every entry reads 0."""
+    return list(_ARRIVALS.values())
+
+
 def _check_operands(tensors, device):
     for name, t in tensors.items():
         if t.device != device:
@@ -215,8 +351,25 @@ def _check_operands(tensors, device):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _launch_kernel(q, k_pages, v_pages, page_tables, kv_lens, scale,
-                   k_scales, v_scales):
+def paged_window_launch(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, page_tables: torch.Tensor,
+                        kv_lens: torch.Tensor, *,
+                        scale: Optional[float] = None,
+                        k_scales: Optional[torch.Tensor] = None,
+                        v_scales: Optional[torch.Tensor] = None,
+                        mode: int = 0,
+                        chunk_pages: Optional[int] = None) -> torch.Tensor:
+    """One launch of ``csrc/paged_window_attention.cu`` on checked CUDA
+    tensors. ``mode`` 0 computes :func:`paged_window_attention` (what it
+    launches); 1, 2 and 3 stop after the prologue, after the gather and
+    before the merge — the floors ``chip_smoke.py`` times (their outputs
+    are not the function). ``chunk_pages`` overrides the plan's pages a
+    block (None: :func:`window_plan`'s, what the function launches; no
+    result depends on it beyond summation order), for the sweep
+    ``chip_smoke.py`` times. Counts nothing:
+    :func:`paged_window_attention` counts its own launches."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     quant = k_scales is not None
     tensors = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
                "page_tables": page_tables, "kv_lens": kv_lens}
@@ -247,30 +400,39 @@ def _launch_kernel(q, k_pages, v_pages, page_tables, kv_lens, scale,
         raise ValueError(f"page_tables {tuple(page_tables.shape)} / "
                          f"kv_lens {tuple(kv_lens.shape)} do not match "
                          f"q {tuple(q.shape)}")
+    plan = window_plan(S, W, h, g, dh, ps, P, k_pages.element_size(),
+                       quant, chunk_pages)
     from paddle_tpu_torch.ops import _build
     lib = _build.load("paged_window_attention")
     fn = lib.pt_paged_window_attention_int8 if quant else \
         lib.pt_paged_window_attention
-    n_ptr = 8 if quant else 6
+    n_ptr = 11 if quant else 9
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8 + \
-            [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 10 + \
+            [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     out = torch.empty_like(q)
+    ws = flags = arrivals = None
+    if plan.n_chunks > 1:
+        buf = torch.empty(plan.partials + plan.flags, dtype=torch.float32,
+                          device=q.device)
+        ws = buf.data_ptr()
+        flags = ws + 4 * plan.partials
+        arrivals = _arrival_counters(q.device, S * g).data_ptr()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
     if quant:
         ptrs += [k_scales.data_ptr(), v_scales.data_ptr()]
-    ptrs += [page_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr()]
-    err = fn(*ptrs, S, W, h, g, dh, n_pages, ps, P, float(scale),
-             _DTYPE_CODES[q.dtype], stream)
+    ptrs += [page_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+             ws, flags, arrivals]
+    err = fn(*ptrs, S, W, h, g, dh, n_pages, ps, P, plan.rows,
+             plan.n_chunks, float(scale), _DTYPE_CODES[q.dtype], int(mode),
+             stream)
     if err != 0:
-        raise RuntimeError(
-            f"paged window kernel launch failed: CUDA error {err}")
-    if quant:
-        paged_window_attention.dequant_launches += 1
-    else:
-        paged_window_attention.launches += 1
+        why = {-1: "shapes refused", -2: "workspace missing",
+               -3: f"shared memory past the card's ({plan})"}
+        raise RuntimeError("paged window kernel launch failed: "
+                           + why.get(err, f"CUDA error {err}"))
     return out
 
 
@@ -288,8 +450,10 @@ def paged_window_attention(q: torch.Tensor, k_pages: torch.Tensor,
     On the CPU: :func:`paged_window_reference`. On a CUDA card: the
     allocated-pages Hopper kernel, which reads only each slot's used
     pages (``ceil(max_w kv_lens[s, w] / page_size)``, at least 1)
-    instead of the full table width — or an exception for inputs it
-    does not take. ``k_scales``/``v_scales`` switch the pools to the
+    instead of the full table width, in chunks of
+    :func:`window_plan` pages a block, merged in the same launch — or
+    an exception for inputs it does not take. ``k_scales``/``v_scales``
+    switch the pools to the
     int8 layout: the kernel stages the int8 rows and their scales and
     dequantizes in float32 after they land in shared memory (never at
     float width in device memory). Each launch adds one to
@@ -311,8 +475,14 @@ def paged_window_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                       k_scales=k_scales, v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"no paged window attention for device {q.device}")
-    return _launch_kernel(q, k_pages, v_pages, page_tables, kv_lens, scale,
-                          k_scales, v_scales)
+    out = paged_window_launch(q, k_pages, v_pages, page_tables, kv_lens,
+                              scale=scale, k_scales=k_scales,
+                              v_scales=v_scales)
+    if k_scales is not None:
+        paged_window_attention.dequant_launches += 1
+    else:
+        paged_window_attention.launches += 1
+    return out
 
 
 paged_window_attention.launches = 0

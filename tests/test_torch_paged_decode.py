@@ -23,6 +23,9 @@ from paddle_tpu_torch.ops import paged_decode as pt_ops
 
 TOLS = {"einsum": dict(rtol=2e-5, atol=2e-6),
         "interpret": dict(rtol=2e-4, atol=2e-5)}
+# chunk sizes of the split page walk: one page, two, one chunk over the
+# whole table
+CHUNKS = [1, 2, "all"]
 
 
 def _window_inputs(h, g, W, seed=3):
@@ -139,3 +142,157 @@ def test_kernel_gate():
         q.half(), torch.zeros((8, 4, 2, 8)).half())
     assert not pt_ops.paged_kernel_supported(
         q, torch.zeros((8, 4, 2, 8), dtype=torch.bfloat16))
+
+
+# --------------------------------------------- the kernel's chunk plan
+def plan_for(q, k_pages, tables, chunk):
+    """The kernel's plan for these tensors with ``chunk`` pages a block
+    ("all": one chunk over the whole table); int8 pages are quantized."""
+    S, W, h, dh = q.shape
+    _, ps, g, _ = k_pages.shape
+    P = tables.shape[1]
+    return pt_ops.window_plan(S, W, h, g, dh, ps, P,
+                              k_pages.dtype.itemsize,
+                              k_pages.dtype == torch.int8,
+                              P if chunk == "all" else chunk)
+
+
+def chunked_window_reference(q, k_pages, v_pages, tables, lens, plan, *,
+                             k_scales=None, v_scales=None):
+    """The Hopper window kernel's algorithm in plain float32 torch,
+    driven by its chunk plan: each slot's used rows (plan.used_pages) in
+    chunks of plan.rows; per chunk and query row the base-2 softmax
+    state (m, l, acc) over the columns the row sees (a kv_len-0 row
+    sees none and weighs every column 1, m staying NEG_INF; a live row
+    with no column in the chunk gives (NEG_INF, 0, 0)); then the merge
+    by factors exp2(m_c - max_c m_c) and the division by max(l,
+    1e-30). int8 pages dequantize per element in float32."""
+    S, W, h, dh = q.shape
+    _, ps, g, _ = k_pages.shape
+    rep = h // g
+    scale_log2 = dh ** -0.5 * pt_ops.LOG2E
+    used = plan.used_pages(lens)
+    live = plan.live_chunks(lens)
+    lens = torch.as_tensor(lens).long()
+    out = torch.empty(S, W, h, dh)
+    for s in range(S):
+        pages = torch.as_tensor(tables[s, :int(used[s])]).long()
+        k = k_pages[pages].float()
+        v = v_pages[pages].float()
+        if k_scales is not None:
+            k = k * k_scales[pages].float()[..., None]
+            v = v * v_scales[pages].float()[..., None]
+        k = k.reshape(-1, g, dh).repeat_interleave(rep, dim=1)
+        v = v.reshape(-1, g, dh).repeat_interleave(rep, dim=1)
+        qf = q[s].float()                                   # [W, h, dh]
+        ms, ls, accs = [], [], []
+        for c in range(int(live[s])):
+            c0 = c * plan.rows
+            kc, vc = k[c0:c0 + plan.rows], v[c0:c0 + plan.rows]
+            col = c0 + torch.arange(kc.shape[0])
+            sees = col[None, :] < lens[s][:, None]          # [W, nk]
+            blind = (lens[s] <= 0)[:, None].expand_as(sees)
+            sc = torch.einsum("whd,khd->whk", qf, kc) * scale_log2
+            sc = torch.where(sees[:, None], sc,
+                             torch.tensor(pt_ops.NEG_INF))
+            m = sc.max(dim=-1).values                       # [W, h]
+            p = torch.where((sees | blind)[:, None],
+                            torch.exp2(sc - m[..., None]),
+                            torch.tensor(0.0))
+            ms.append(m)
+            ls.append(p.sum(dim=-1))
+            accs.append(torch.einsum("whk,khd->whd", p, vc))
+        m_all = torch.stack(ms).max(dim=0).values
+        f = [torch.exp2(m - m_all) for m in ms]
+        l_all = sum(l * fc for l, fc in zip(ls, f))
+        acc = sum(a * fc[..., None] for a, fc in zip(accs, f))
+        out[s] = acc / torch.clamp(l_all, min=1e-30)[..., None]
+    return out
+
+
+def test_chunk_plan_used_pages_and_live_chunks():
+    """The plan's used pages are pallas_decode.py:448's ``used`` on
+    seeded lengths (an idle slot at kv_len 1 on the null page, a
+    kv_len-0 token, windows of 1 and 3 tokens); its live chunks cover
+    exactly those pages."""
+    rng = np.random.RandomState(11)
+    S, P, ps = 9, 34, 16
+    for W in (1, 3):
+        lens = rng.randint(1, P * ps + 1, (S, W)).astype(np.int32)
+        lens[0] = 1                                  # idle slot
+        lens[1, 0] = 0
+        lens[2] = P * ps                             # full context
+        want = np.asarray(jnp.clip(-(-jnp.max(jnp.asarray(lens), axis=1)
+                                     // ps), 1, P))
+        for chunk in (None, 1, 2, 3, P):
+            plan = pt_ops.window_plan(S, W, 8, 8, 64, ps, P, 4, False,
+                                      chunk)
+            used = plan.used_pages(lens).numpy()
+            np.testing.assert_array_equal(used, want)
+            n = plan.live_chunks(lens).numpy()
+            assert ((n - 1) * plan.rows < used * ps).all()
+            assert (n * plan.rows >= used * ps).all()
+            assert plan.n_chunks == -(-P * ps // plan.rows)
+            assert (n <= plan.n_chunks).all() and n[0] == 1
+            split = plan.n_chunks > 1
+            assert plan.partials == (S * 8 * plan.n_chunks * W * 66
+                                     if split else 0)
+            assert plan.flags == (S * 8 * plan.n_chunks if split else 0)
+
+
+def test_chunk_plan_sizes():
+    """8 whole pages a block at the engine's shapes (float32, bf16 and
+    int8), fewer in a narrower table, and pages cut to what fits in
+    float32 at dh 256; a block's shared memory within the kernel's 226
+    KB at the gate's widest admitted shapes, where a page is cut into
+    parts."""
+    def plan(*a):
+        return pt_ops.window_plan(*a)
+    assert plan(8, 1, 8, 8, 64, 16, 34, 4, False).rows == 128
+    assert plan(8, 1, 8, 8, 64, 16, 34, 2, False).rows == 128
+    assert plan(8, 3, 8, 8, 64, 16, 34, 1, True).rows == 128
+    assert plan(3, 1, 4, 2, 8, 4, 5, 4, False).rows == 20    # 5 pages
+    assert plan(8, 1, 8, 8, 256, 16, 34, 4, False).rows == 96
+    # the kernel's layout at the engine's float32 shapes, by hand: q
+    # rows or P.V sums of 2 key parts 2 x 64 x 4, K and V 2 x 128 x 272,
+    # probabilities 512, (m, l) 16, 10 page ids 48, lengths 16
+    assert plan(8, 1, 8, 8, 64, 16, 34, 4, False).smem == \
+        512 + 2 * 128 * 272 + 512 + 16 + 48 + 16
+    gate = [  # (S, W, h, g, dh, ps, P, esize, quant) admitted by the gate
+        (2, 1, 32, 1, 256, 56, 4, 4, False),
+        (2, 4, 8, 1, 8, 3632, 2, 2, False),
+        (2, 1, 8, 1, 8, 4841, 2, 1, True),
+        (2, 32, 1, 1, 256, 14, 3, 4, False),
+    ]
+    for a in gate:
+        S, W, h, g, dh, ps, P, esize, quant = a
+        q = torch.zeros((S, W, h, dh), dtype=(torch.float32 if esize == 4
+                                              else torch.bfloat16))
+        kp = torch.zeros((4, ps, g, dh), dtype={4: torch.float32,
+                                                2: torch.bfloat16,
+                                                1: torch.int8}[esize])
+        ks = torch.zeros((4, ps, g)) if quant else None
+        if quant:
+            q = q.float()
+        assert pt_ops.paged_kernel_supported(q, kp, ks), a
+        p = plan(*a)
+        assert 1 <= p.rows and p.smem <= 226 * 1024, (a, p)
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("W", [1, 3])
+@pytest.mark.parametrize("h,g", [(4, 4), (4, 2), (4, 1)])
+def test_chunked_merge_matches_pallas_interpret(h, g, W, chunk):
+    """The kernel's split page walk and merge (plain, in float32) equal
+    the JAX package's allocated-pages kernel in interpret mode, a
+    kv_len-0 token included: both return the mean of V over the slot's
+    used pages for it."""
+    q, k_pages, v_pages, tables, lens = _window_inputs(h, g, W)
+    lens[1, 0] = 0
+    want = np.asarray(jax_ops.paged_window_attention(
+        *[jnp.asarray(a) for a in (q, k_pages, v_pages, tables, lens)],
+        use_kernel=True, interpret=True))
+    t = [torch.from_numpy(a) for a in (q, k_pages, v_pages)]
+    plan = plan_for(t[0], t[1], tables, chunk)
+    got = chunked_window_reference(*t, tables, lens, plan)
+    np.testing.assert_allclose(got.numpy(), want, **TOLS["interpret"])

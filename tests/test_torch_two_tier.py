@@ -39,6 +39,8 @@ from paddle_tpu_torch.ops import paged_decode as pt_ops
 from paddle_tpu_torch.serving import DecodeEngine
 from paddle_tpu_torch.serving.spill import (SpillEntry, SpillStore,
                                             entry_checksum)
+from tests.test_torch_paged_decode import (CHUNKS, chunked_window_reference,
+                                           plan_for)
 
 CFG = dict(vocab_size=40, d_model=16, n_heads=2, n_layers=2, d_ff=32,
            max_len=32)
@@ -140,6 +142,29 @@ def test_int8_window_matches_jax(h, g, W, oracle):
     got = pt_ops.paged_window_attention(
         t["q"], t["kq"], t["vq"], t["tables"], t["lens"],
         k_scales=t["ks"], v_scales=t["vs"])
+    np.testing.assert_allclose(got.numpy(), want, **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("W", [1, 3])
+@pytest.mark.parametrize("h,g", [(4, 4), (4, 2), (4, 1)])
+def test_int8_chunked_merge_matches_pallas_interpret(h, g, W, chunk):
+    """The window kernel's split page walk and merge over int8 pages
+    (plain, float32 dequant per element, driven by its chunk plan) equal
+    the JAX package's dequant-fused kernel in interpret mode, a kv_len-0
+    token included (the mean of dequantized V over the used pages)."""
+    a = _quant_inputs(h, g, W)
+    a["lens"][1, 0] = 0
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    want = np.asarray(jax_ops.paged_window_attention(
+        j["q"], j["kq"], j["vq"], j["tables"], j["lens"],
+        k_scales=j["ks"], v_scales=j["vs"], use_kernel=True,
+        interpret=True))
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    plan = plan_for(t["q"], t["kq"], a["tables"], chunk)
+    got = chunked_window_reference(t["q"], t["kq"], t["vq"], a["tables"],
+                                   a["lens"], plan, k_scales=t["ks"],
+                                   v_scales=t["vs"])
     np.testing.assert_allclose(got.numpy(), want, **KERNEL_TOL)
 
 
