@@ -13,7 +13,8 @@ Phases (any failure exits non-zero before the final line):
    (flash_fwd_sm90.cu, flash_dq_sm90.cu, flash_dkv_sm90.cu,
    lstm_fwd_sm90.cu, lstm_bwd_sm90.cu) must report 0 spill bytes and
    no C75xx warning (products serialized), and the window kernel
-   (paged_window_attention.cu) 0 spill bytes. Then the building blocks of
+   (paged_window_attention.cu) and the cluster GRU kernel
+   (gru_fwd_sm90.cu) 0 spill bytes. Then the building blocks of
    sm90_pipeline.cuh on one 64 x 64 bf16 tile: A B^T by wgmma SS over
    TMA-loaded K-major tiles and A B by wgmma RS with B MN-major; the
    LSTM backward's product, a [64, 200] x [16, 200]^T by wgmma
@@ -105,11 +106,19 @@ Phases (any failure exits non-zero before the final line):
    right after phase 7): device busy time against the wall clock, the
    top kernels, the flash share and each flash kernel's.
 11. rnn vs plain — the fused LSTM forward (with and without residuals)
-   and backward kernels and the GRU forward kernel against their plain
+   and backward kernels and the GRU forward kernels against their plain
    versions on the same inputs: the LSTM at full width (b 128, h 1280,
    T 128, ragged lengths with 100, 1 and 128), at b 6, h 48, T 13 (a
    multiple of no tile) and at two batch tiles (b 160, h 256, T 17),
-   the GRU at b 64, h 128, T 64 ragged; h_seq, hT, cT, cseq, gates,
+   the GRU at the tagger's batch (b 64, h 128, T 64 ragged), at b 6, h
+   48, T 13 and b 5, h 45, T 9 (odd h), at h 160, 256, 352 (b 37:
+   a cluster's rows part empty), 448 and 1024, and at b 600, h 48 (2
+   rows a block), so that every cluster size of gru_fwd_sm90.cu (1, 2,
+   4, 8), 1, 2 and 4 rows a cluster and the cooperative gru_fwd.cu
+   run in float32 and bfloat16, each call on gru_fwd_plan's route
+   (counted by route), out also per time step (a stale step T/2 must
+   fail), after the plan's shared-memory arithmetic is held against
+   the kernel's layout; the LSTM's h_seq, hT, cT, cseq, gates,
    dz, and through the autograd Function dx4, dw, dbias, dpeep against
    autograd of the plain version in float32; float32 (the SIMT
    kernels) and bfloat16 (the tensor-core forward and backward,
@@ -141,13 +150,27 @@ Phases (any failure exits non-zero before the final line):
    emb 128, hidden 128): 3 float32 train steps on 64 sentences of 8-64
    tokens (the plain GRU scans, no kernel launch), then infer of the
    Viterbi path over 256 sentences in batches of 64: 4 GRU kernel
-   launches, labels identical to the CPU port's.
+   launches, all on the sm90 route (gru_fwd_sm90.cu), labels identical
+   to the CPU port's, sentences/s beside the cooperative kernel's
+   recorded 137.598 ms (PERF.md); then one 64-sentence
+   infer batch under torch.profiler: device busy against the wall
+   clock, the top kernels, the GRU kernel's share and launches (one
+   launch required; a launch with no record in the trace is noted).
 15. rnn timings — each recurrent kernel's device time per call and per
    run step at the main path's shapes in bfloat16 and float32
    (CUDA-graph replay), its bound, the plain version's time; in
    bfloat16 also the per-step floors of both tensor-core LSTM kernels'
    plan (their steps with no product; their grid barriers alone) and
-   their ring depth swept (2, 3 and 4 stages of 16 KB); and
+   their ring depth swept (2, 3 and 4 stages of 16 KB); at the
+   tagger's batch the cooperative GRU kernel (the earlier route), the
+   sm90 GRU kernel's floors (launch and the weight load; the steps
+   without the products) and its cluster size swept (1, 2, 4, 8, each
+   held against the plain version); in float32 also, where the GRU's
+   plan picks clusters of 2, 4, 8 (b 64, h 160, 256, 352 float32, h 448
+   bfloat16) or more than one row a cluster (b 200 and 600), every
+   cluster size and rows a cluster that hold the weight and the
+   cooperative kernel, each held against the plain version, and the
+   fastest; and
    cuDNN's LSTM forward as a labelled near-yardstick (printed only;
    events behind a spin kernel, as phase 9's SDPA backward; "not
    measured" where the call blocks the host past the spin).
@@ -198,8 +221,9 @@ Phases (any failure exits non-zero before the final line):
 
 Prints the kernel table as one JSON line (the flash and LSTM kernels at
 their bfloat16 times, the training dtype, naming their wgmma sources,
-with their errors in bfloat16 too; the GRU kernel at float32, the
-dtype the tagger decodes in; the int8 and decode kernels at float32, the
+with their errors in bfloat16 too; the GRU kernel, gru_fwd_sm90.cu,
+at float32, the dtype the tagger decodes in; the int8 and decode
+kernels at float32, the
 serving dtype, W 1), the card's name and power limit (nvidia-smi), and
 last {"ok": true, "device": {...}}.
 """
@@ -243,7 +267,7 @@ FLASH_KERNELS = [("fwd", 43, "sm90", "flash_fwd_sm90.cu"),
 # warning; the window kernel must build with 0 spill bytes too
 SM90_LIBS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90",
              "lstm_fwd_sm90", "lstm_bwd_sm90")
-NO_SPILL_LIBS = SM90_LIBS + ("paged_window_attention",)
+NO_SPILL_LIBS = SM90_LIBS + ("paged_window_attention", "gru_fwd_sm90")
 
 
 _T0 = time.perf_counter()
@@ -1331,14 +1355,26 @@ def phase_train_trace(trainer, batch, label="train", what="flash kernels",
     """One train step under torch.profiler: device busy time against
     the wall clock, the top device kernels, and the share of the
     kernels whose names hold one of ``marks`` (phases 10 and 16)."""
+    _trace(lambda: trainer.train_batch(batch), label, "1 step", what, marks)
+
+
+def _trace(run, label, unit, what, marks, launched=None):
+    """``run()`` under torch.profiler: device busy time against the wall
+    clock, the top device kernels, and the share of the kernels whose
+    names hold one of ``marks``. With ``launched`` (a wrapper's launch
+    count, read before and after), the launches of the run too, and a
+    note where they left no record in the trace; returns that number
+    of launches (None without ``launched``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    n0 = launched() if launched else 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_batch(batch)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    n_launched = launched() - n0 if launched else None
     by_kernel = {}
     for ev in prof.key_averages():
         if ev.device_type.name == "CUDA" and ev.self_device_time_total > 0:
@@ -1347,15 +1383,21 @@ def phase_train_trace(trainer, batch, label="train", what="flash kernels",
     busy_ms = sum(by_kernel.values())
     ours_ms = sum(v for k, v in by_kernel.items()
                   if any(m in k for m in marks))
-    log(f"{label} trace: 1 step, wall {wall_ms:.3f} ms, device busy "
+    share = f"{ours_ms:.3f} ms ({ours_ms / busy_ms:.3f} of busy)"
+    if n_launched is not None:
+        share += f", launches {n_launched}"
+        if n_launched and not ours_ms:
+            share += " (no record of them in the trace)"
+    log(f"{label} trace: {unit}, wall {wall_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}), {what} "
-        f"{ours_ms:.3f} ms ({ours_ms / busy_ms:.3f} of busy)")
+        f"{share}")
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
         if any(m in name for m in marks):
             log(f"{label} trace {what}: {ms:.3f} ms ({ms / busy_ms:.3f} of "
                 f"busy)  {name[:90]}")
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
         log(f"{label} trace top kernel: {ms:.3f} ms  {name[:90]}")
+    return n_launched
 
 
 # ------------------------------------------------------------ phase 11
@@ -1534,20 +1576,94 @@ def phase_rnn_vs_plain():
             log(f"lstm vs plain {label} {str(dtype)[6:]} (forward route "
                 f"{route}, backward route {fr.lstm_bwd_route(dtype)}): " +
                 ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
-    b, h, T = 64, 128, 64
-    lens = _ragged_lens(b, T, seed=150, must=(64, 1, 33))
-    for dtype in (torch.float32, torch.bfloat16):
-        x3, w, bias, _ = _rnn_inputs(b, h, T, 3, dtype, 160)
-        out, hT = fr.gru_forward(x3, lens, w, bias)
-        torch.cuda.synchronize()
-        ref_out, ref_hT = fr.gru_reference(x3, lens, w, bias)
-        errs = {"out": _held("gru out", out, ref_out, dtype),
-                "hT": _held("gru hT", hT, ref_hT, dtype)}
-        if dtype == torch.float32:
-            worst["gru_fwd"] = max(errs.values())
-        log(f"gru vs plain b{b} h{h} T{T} {str(dtype)[6:]}: " + ", ".join(
-            f"{n} {e:.3e}" for n, e in errs.items()))
+    worst["gru_fwd"] = _gru_vs_plain()
     return worst
+
+
+# the GRU's phase-11 cases: (label, b, h, T, lengths that must occur);
+# by gru_fwd_plan's route in float32 / bfloat16 on an H100: the tagger's
+# batch (sm90, n 1 / n 1), odd and small shapes (n 1 / n 1), then
+# n 2 / n 1, n 4 / n 2 (2 rows a cluster), n 8 / n 4 (4 rows; b 37: a
+# last cluster part empty), coop / n 8, coop / coop, and 2 rows a block
+# (n 1, b 600)
+GRU_CASES = [("b64 h128 T64", 64, 128, 64, (64, 1, 33)),
+             ("b6 h48 T13", 6, 48, 13, (13, 1, 7)),
+             ("b5 h45 T9", 5, 45, 9, (9, 1, 4)),
+             ("b64 h160 T17", 64, 160, 17, (17, 1, 9)),
+             ("b64 h256 T17", 64, 256, 17, (17, 1, 9)),
+             ("b37 h352 T17", 37, 352, 17, (17, 1, 9)),
+             ("b64 h448 T17", 64, 448, 17, (17, 1, 9)),
+             ("b64 h1024 T17", 64, 1024, 17, (17, 1, 9)),
+             ("b600 h48 T5", 600, 48, 5, (5, 1, 3))]
+
+
+def _gru_vs_plain():
+    """The GRU forward through gru_forward against gru_reference at each
+    of GRU_CASES, float32 and bfloat16, at the tolerances of _held and
+    per time step (_held_steps, which must reject out stale at step
+    T/2); each call on gru_fwd_plan's route, counted by route, the cases
+    covering each cluster size and 1, 2 and 4 rows a cluster. First
+    the plan's shared-memory arithmetic (fused_rnn._gru_sm90_smem)
+    against the kernel's layout over h < 600. Returns the worst float32
+    error of the sm90 kernel's calls."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import fused_rnn as fr
+    # the plan's shared-memory mirror against the kernel's own layout
+    smem_of = _build.load("gru_fwd_sm90").pt_gru_fwd_sm90_smem
+    smem_of.restype = ctypes.c_int
+    smem_of.argtypes = [ctypes.c_int] * 4
+    for h in range(1, 600):
+        for n in fr._GRU_CLUSTERS:
+            for rows in fr._GRU_ROWS:
+                for esize in (2, 4):
+                    want = smem_of(h, n, rows, esize)
+                    got = fr._gru_sm90_smem(h, n, rows, esize)[1]
+                    if got != want:
+                        raise AssertionError(
+                            f"_gru_sm90_smem(h {h}, n {n}, rows {rows}, "
+                            f"esize {esize}) = {got}, the kernel's layout "
+                            f"{want}")
+    worst = 0.0
+    routes_seen = {"sm90": set(), "coop": set()}
+    for ci, (label, b, h, T, must) in enumerate(GRU_CASES):
+        lens = _ragged_lens(b, T, seed=150 + ci, must=must)
+        for dtype in (torch.float32, torch.bfloat16):
+            x3, w, bias, _ = _rnn_inputs(b, h, T, 3, dtype, 160 + ci)
+            plan = fr.gru_fwd_plan(b, h, dtype, _sms())
+            before = dict(fr.gru_forward.route_launches)
+            out, hT = fr.gru_forward(x3, lens, w, bias)
+            torch.cuda.synchronize()
+            taken = {k: v - before[k]
+                     for k, v in fr.gru_forward.route_launches.items()}
+            if taken != {r: int(r == plan.route) for r in taken}:
+                raise AssertionError(f"gru {label} {dtype}: launches by "
+                                     f"route {taken}, plan {plan}")
+            routes_seen[plan.route].add((plan.cluster, plan.rows))
+            ref_out, ref_hT = fr.gru_reference(x3, lens, w, bias)
+            errs = {"out": _held("gru out", out, ref_out, dtype),
+                    "hT": _held("gru hT", hT, ref_hT, dtype)}
+            mid = T // 2
+            errs["out/step"] = _held_steps(
+                f"gru {label} {str(dtype)[6:]}", "out", out, ref_out,
+                [(f"out stale at step {mid} (step {mid - 1}'s)",
+                  _stale_step(out, mid))])
+            if dtype == torch.float32 and plan.route == "sm90":
+                worst = max(worst, errs["out"], errs["hT"])
+            log(f"gru vs plain {label} {str(dtype)[6:]} (route {plan.route}"
+                f", cluster {plan.cluster}, rows {plan.rows}, smem "
+                f"{plan.smem}): " + ", ".join(f"{n} {e:.3e}"
+                                              for n, e in errs.items()))
+    if routes_seen["sm90"] != {(n, r) for n, r in
+                               ((1, 1), (2, 1), (4, 2), (8, 4), (1, 2))} \
+            or not routes_seen["coop"]:
+        raise AssertionError(f"the GRU cases missed a route or cluster "
+                             f"size: {routes_seen}")
+    return worst
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 # ------------------------------------------------------------ phase 12
@@ -1566,7 +1682,7 @@ TAGGER = dict(vocab_size=20000, num_labels=45, emb_size=128, hidden_size=128)
 # (name, line of the TPU kernel in ops/pallas_rnn.py, source)
 RNN_KERNELS = [("lstm_fwd", 62, "lstm_fwd_sm90.cu"),
                ("lstm_bwd", 121, "lstm_bwd_sm90.cu"),
-               ("gru_fwd", 371, "gru_fwd.cu")]
+               ("gru_fwd", 371, "gru_fwd_sm90.cu")]
 
 
 def _rnn_counts(fr, zero=False):
@@ -1577,12 +1693,14 @@ def _rnn_counts(fr, zero=False):
         fr.lstm_forward.res_launches = 0
         fr.lstm_forward.route_launches = {"sm90": 0, "simt": 0}
         fr.lstm_backward.route_launches = {"sm90": 0, "simt": 0}
+        fr.gru_forward.route_launches = {"sm90": 0, "coop": 0}
     return {"lstm_fwd": fr.lstm_forward.launches,
             "lstm_res": fr.lstm_forward.res_launches,
             "lstm_fwd_routes": dict(fr.lstm_forward.route_launches),
             "lstm_bwd": fr.lstm_backward.launches,
             "lstm_bwd_routes": dict(fr.lstm_backward.route_launches),
-            "gru_fwd": fr.gru_forward.launches}
+            "gru_fwd": fr.gru_forward.launches,
+            "gru_fwd_routes": dict(fr.gru_forward.route_launches)}
 
 
 def _lstm_spec(compute_dtype):
@@ -1798,9 +1916,10 @@ def phase_tagger():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _rnn_counts(fr)
-    if counts["gru_fwd"] != 4:
-        raise AssertionError(f"GRU kernel launches {counts['gru_fwd']} != 4 "
-                             "infer batches")
+    if counts["gru_fwd"] != 4 or counts["gru_fwd_routes"]["sm90"] != 4:
+        raise AssertionError(f"GRU kernel launches {counts['gru_fwd']} (by "
+                             f"route {counts['gru_fwd_routes']}) != 4 infer "
+                             "batches on the sm90 route")
     cpu = Parameters({k: v.detach().cpu() for k, v in params.raw.items()},
                      device="cpu")
     want = infer(output_layer=spec.decoded, parameters=cpu, input=words,
@@ -1812,8 +1931,19 @@ def phase_tagger():
                              f"({n_diff} positions)")
     log(f"tagger: losses {[round(x, 4) for x in losses]}; infer 256 "
         f"sentences in 4 batches, {wall * 1e3:.3f} ms, {256 / wall:.1f} "
-        f"sentences/s, GRU launches {counts['gru_fwd']}, labels identical "
-        "to the CPU port's")
+        f"sentences/s (with the cooperative GRU kernel, PERF.md: 137.598 "
+        f"ms), GRU launches {counts['gru_fwd']} "
+        f"(by route {counts['gru_fwd_routes']}), labels identical to the "
+        "CPU port's")
+    # where the decode's time goes: one 64-sentence infer batch traced
+    n = _trace(lambda: infer(output_layer=spec.decoded, parameters=params,
+                             input=words[:64], batch_size=64),
+               "tagger decode", "1 infer batch of 64 sentences",
+               "GRU kernels", ("gru_fwd_sm90_kernel", "gru_fwd_kernel"),
+               launched=lambda: fr.gru_forward.launches)
+    if n != 1:
+        raise AssertionError(f"the traced infer batch made {n} GRU kernel "
+                             "launches, not 1")
     return counts["gru_fwd"]
 
 
@@ -1880,12 +2010,13 @@ def phase_rnn_timings():
                          lambda i: fr.lstm_backward_reference(
                              w, peep, ln, gates, cseq, d_out, dhT, dhT),
                          shapes["lstm"])}
-        gb, gh, gT, glens_ = shapes["gru"]
-        gln = torch.tensor(glens_, dtype=torch.int32, device="cuda")
-        x3, gw, gbias, _ = _rnn_inputs(gb, gh, gT, 3, dtype, 172)
+        x3, gln, gw, gbias = _gru_tagger_inputs(dtype)
         calls["gru_fwd"] = (lambda i: fr.gru_forward(x3, gln, gw, gbias),
                             lambda i: fr.gru_reference(x3, gln, gw, gbias),
                             shapes["gru"])
+        _gru_timings(x3, gln, gw, gbias)
+        if dtype == torch.float32:
+            _gru_route_timings()
         if dtype == torch.bfloat16:
             # the per-step floors of the tensor-core kernels' plan: their
             # steps without their product, and their grid barriers alone;
@@ -1938,6 +2069,111 @@ def phase_rnn_timings():
             f"{LSTM_NET['hidden_size']}: {_us(cudnn_ms)}")
         del x4, w, cseq, gates, d_out, x3, gw, cudnn, xe
     return out
+
+
+def _gru_tagger_inputs(dtype):
+    """(x3, lens, w, bias) of one tagger infer batch: b 64, h 128, T 64,
+    the lengths of phase 14's first 64 sentences."""
+    glens = [len(w) for w, _ in _tagger_sentences(64, seed=21)]
+    lens = torch.tensor(glens, dtype=torch.int32, device="cuda")
+    x3, w, bias, _ = _rnn_inputs(64, TAGGER["hidden_size"], 64, 3, dtype,
+                                 172)
+    return x3, lens, w, bias
+
+
+def _gru_timings(x3, lens, w, bias):
+    """At one tagger infer batch: the cooperative kernel (gru_fwd.cu, the
+    tagger's route before the sm90 kernel) through the same timing lines,
+    so before and after come from one card; then the sm90 kernel's
+    floors at the plan (mode 1: launch and the weight load; mode 2: the
+    steps without their products) and its cluster sizes swept (n 1, 2,
+    4, 8), each held against the plain version first."""
+    from paddle_tpu_torch.ops import fused_rnn as fr
+    b, T, three_h = x3.shape
+    h, dt = three_h // 3, str(w.dtype)[6:]
+    steps = int(lens.max())
+    plan = fr.gru_fwd_plan(b, h, w.dtype, _sms())
+
+    def line(what, ms):
+        return (f"{what} {ms * 1e3:.2f} us/call ({ms / steps * 1e3:.3f} "
+                f"us/step)")
+
+    coop = device_ms(lambda i: fr.gru_fwd_coop_launch(x3, lens, w, bias),
+                     iters=3, reps=3)
+    log(f"gru_fwd {dt} at b{b} h{h} T{T} ({steps} run steps): "
+        + line("cooperative gru_fwd.cu (the earlier route)", coop))
+    floors = {m: device_ms(lambda i, m=m: fr.gru_fwd_sm90_launch(
+        x3, lens, w, bias, plan, mode=m), iters=3, reps=3) for m in (1, 2)}
+    log(f"gru_fwd {dt} (sm90, plan {plan}) floors: "
+        + line("launch and the weight load", floors[1]) + ", "
+        + line("steps without the products", floors[2]))
+    sweep = _gru_sweep(x3, lens, w, bias, [(n, 0) for n in (1, 2, 4, 8)])
+    log(f"gru_fwd {dt} (sm90) cluster sweep (plan n {plan.cluster}): "
+        + ", ".join(line(f"n {n}", ms) for (n, _), ms in sweep.items()))
+
+
+def _gru_sweep(x3, lens, w, bias, forced):
+    """{(n, R): device ms} of the sm90 kernel on each plan forced to
+    cluster n and R rows (0: the plan's rule) that holds the weight,
+    each held against the plain version first; keyed by the plan's own
+    (n, R)."""
+    from paddle_tpu_torch.ops import fused_rnn as fr
+    b, _, three_h = x3.shape
+    ref_out, ref_hT = fr.gru_reference(x3, lens, w, bias)
+    times = {}
+    for n, r in forced:
+        try:
+            plan = fr.gru_fwd_plan(b, three_h // 3, w.dtype, _sms(),
+                                   cluster=n, rows=r)
+        except ValueError:
+            continue                # the weight does not fit this plan
+        out, hT = fr.gru_fwd_sm90_launch(x3, lens, w, bias, plan)
+        torch.cuda.synchronize()
+        _held(f"gru n {n} R {plan.rows} out", out, ref_out, w.dtype)
+        _held(f"gru n {n} R {plan.rows} hT", hT, ref_hT, w.dtype)
+        times[(plan.cluster, plan.rows)] = device_ms(
+            lambda i, p=plan: fr.gru_fwd_sm90_launch(x3, lens, w, bias, p),
+            iters=3, reps=3)
+    return times
+
+
+# where gru_fwd_plan picks more than one block or more than one batch
+# row a cluster, (b, h, dtype): clusters of 2, 4 and 8 at the tagger's
+# batch in float32 (h 160, 256, 352) and bfloat16 (h 448), and rows
+# a cluster past the SMs' one wave at b 200 and 600
+GRU_ROUTE_SHAPES = [(64, 160, torch.float32), (64, 256, torch.float32),
+                    (64, 352, torch.float32), (64, 448, torch.bfloat16),
+                    (600, 128, torch.float32), (600, 128, torch.bfloat16),
+                    (600, 48, torch.float32), (200, 48, torch.float32),
+                    (600, 160, torch.float32), (200, 128, torch.float32)]
+
+
+def _gru_route_timings():
+    """At each of GRU_ROUTE_SHAPES (T 64, tagger sentence lengths): the
+    sm90 kernel on every cluster size and rows a cluster that holds the
+    weight (_gru_sweep) and the cooperative kernel, so that the plan's
+    choice is timed against each alternative; prints the fastest."""
+    from paddle_tpu_torch.ops import fused_rnn as fr
+    grid = [(n, r) for n in fr._GRU_CLUSTERS for r in fr._GRU_ROWS]
+    for b, h, dtype in GRU_ROUTE_SHAPES:
+        lens = torch.tensor([len(s) for s, _ in _tagger_sentences(b, 21)],
+                            dtype=torch.int32, device="cuda")
+        x3, w, bias, _ = _rnn_inputs(b, h, 64, 3, dtype, 173)
+        plan = fr.gru_fwd_plan(b, h, dtype, _sms())
+        times = _gru_sweep(x3, lens, w, bias, grid)
+        times["coop"] = device_ms(
+            lambda i: fr.gru_fwd_coop_launch(x3, lens, w, bias), iters=3,
+            reps=3)
+        mine = times["coop" if plan.route == "coop" else
+                     (plan.cluster, plan.rows)]
+        best = min(times, key=times.get)
+        log(f"gru routes {str(dtype)[6:]} b{b} h{h} T64 (plan {plan.route} "
+            f"n {plan.cluster} R {plan.rows}: {mine * 1e3:.2f} us): "
+            + ", ".join(f"{'coop' if k == 'coop' else f'n{k[0]} R{k[1]}'} "
+                        f"{ms * 1e3:.2f}" for k, ms in times.items())
+            + f" us; fastest {best} ({times[best] / mine:.3f} of the "
+            "plan's)")
+        del x3, w
 
 
 # ------------------------------------------------------------ phase 17

@@ -27,9 +27,11 @@ Slices ported so far:
   ``bidi_lstm_net`` (models/text.py), ``models.rnn_crf_tagger``
   (models/tagger.py) and ``trainer.infer`` / ``Inference``, with
   hand-written Hopper kernels for the fused LSTM forward and backward
-  and the GRU forward (csrc/lstm_fwd.cu, lstm_bwd.cu, gru_fwd.cu; in
-  bfloat16 the LSTM forward's and backward's products on the tensor
-  cores, lstm_fwd_sm90.cu and lstm_bwd_sm90.cu);
+  and the GRU forward (csrc/lstm_fwd.cu, lstm_bwd.cu; in bfloat16 the
+  LSTM forward's and backward's products on the tensor cores,
+  lstm_fwd_sm90.cu and lstm_bwd_sm90.cu; the GRU's batch rows split
+  across thread-block clusters, gru_fwd_sm90.cu, and at wide h the
+  cooperative gru_fwd.cu);
 - the serving engine's remaining options — int8 KV pages (the int8
   path of csrc/paged_window_attention.cu), the host spill tier
   (serving/spill.py), speculative decoding with ``DraftDecoder``, and

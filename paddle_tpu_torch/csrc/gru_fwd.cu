@@ -12,21 +12,20 @@
 // the two product inputs are in the product dtype T; the output, hT,
 // the bias and all gate math are float32.
 //
-// Rethought for the GPU: one cooperative launch runs the whole
-// sequence (rnn_common.cuh). Block x owns the hidden units
-// [x*U, x*U+U) and keeps W[:, j] (z and r columns) and W[:, 2H + j]
-// (candidate column) of those units in shared memory. A GRU step holds
-// two dependent products: the candidate needs r*h of EVERY unit. So a
-// step is (1) z, r of the owned units from h_{t-1}, r*h written to a
-// global buffer, grid barrier, (2) the candidate of the owned units
-// from all of r*h, h_t written to a double-buffered global h, grid
-// barrier: two barriers a step. Steps past the longest row are not run.
+// Serves only the wide-h shapes: where no cluster of at most 8 blocks
+// holds W in shared memory (ops/fused_rnn.py gru_fwd_plan; on an H100
+// float32 past h 384, bfloat16 past h 544), up to kernel_ok's limit.
+// Narrower h takes gru_fwd_sm90.cu, which needs no grid barrier.
 //
-// What bounds it on an H100: at the tagger's shapes (B 64, H 128,
-// about 2300 valid row-steps a batch) the products are 6*H^2 flops a
-// row-step, a few hundred MFLOP, and the streams a few MB: both bounds
-// are microseconds, so the chain of 2T dependent barriers and the
-// per-step latency of the small products set the time.
+// Design: one cooperative launch runs the whole sequence
+// (rnn_common.cuh). Block x owns the hidden units [x*U, x*U+U) and
+// keeps their z, r and candidate columns of W in shared memory. The
+// candidate needs r*h of EVERY unit, so a step is (1) z, r of the owned
+// units from h_{t-1}, r*h to a global buffer, grid barrier, (2) the
+// candidate from all of r*h, h_t to a double-buffered global h, grid
+// barrier. Steps past the longest row are not run. Two dependent grid
+// barriers a step and every block re-reading all of h and r*h from L2
+// bound it, not its flops or bytes.
 //
 // Build: as lstm_fwd.cu.
 

@@ -2,7 +2,8 @@
 // the grid-wide barrier (whole, or split into arrive and wait), the
 // staged SIMT product against a weight slice resident in shared memory,
 // and the element conversions. Included by lstm_fwd.cu, lstm_bwd.cu,
-// lstm_fwd_sm90.cu, lstm_bwd_sm90.cu and gru_fwd.cu.
+// lstm_fwd_sm90.cu, lstm_bwd_sm90.cu, gru_fwd.cu and gru_fwd_sm90.cu
+// (which takes only the conversions: it has no grid barrier).
 //
 // The design every recurrent kernel shares (a persistent RNN): one
 // cooperative launch covers the whole sequence, with at most one block

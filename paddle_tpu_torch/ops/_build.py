@@ -42,6 +42,7 @@ SOURCES: Dict[str, str] = {
     "flash_dq_sm90": "flash_dq_sm90.cu",
     "lstm_bwd_sm90": "lstm_bwd_sm90.cu",
     "lstm_fwd_sm90": "lstm_fwd_sm90.cu",
+    "gru_fwd_sm90": "gru_fwd_sm90.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -16,10 +16,14 @@
   wgmma; in float32 they are ``csrc/lstm_fwd.cu`` and
   ``csrc/lstm_bwd.cu`` (SIMT), chosen by ``w.dtype`` alone
   (:func:`lstm_fwd_route`, :func:`lstm_bwd_route`); ``_gru_kernel`` is
-  ``csrc/gru_fwd.cu``. Each launch adds one to the wrapper's
-  ``launches`` (``lstm_forward.res_launches`` counts the launches that
-  also wrote the training residuals, ``route_launches`` the LSTM
-  wrappers' launches by route).
+  ``csrc/gru_fwd_sm90.cu`` (batch rows split across clusters of blocks
+  that hold the whole weight, no grid barrier) wherever a cluster of at
+  most 8 blocks holds the weight, and the cooperative
+  ``csrc/gru_fwd.cu`` at wider h, by shape alone (:func:`gru_fwd_plan`).
+  Each launch adds one to the wrapper's ``launches``
+  (``lstm_forward.res_launches`` counts the launches that also wrote
+  the training residuals, ``route_launches`` each wrapper's launches by
+  route).
 - :func:`lstm_sequence`: the differentiable LSTM. When a gradient is
   needed, a ``torch.autograd.Function`` (the JAX package's
   ``custom_vjp``) runs the forward with residuals and its backward runs
@@ -29,7 +33,9 @@
 - :func:`gru_sequence`: with no gradient needed the GRU kernel; with
   one, the plain float32 scan under autograd, as the JAX package's
   ``_gru_fwd`` trains through ``jax.vjp(_gru_ref)``.
-- :func:`kernel_ok`: the dispatch gate of ``ops/recurrent.py``.
+- :func:`kernel_ok`: the dispatch gate of ``ops/recurrent.py``;
+  :func:`gru_fwd_plan`: the GRU's route, cluster size, rows a cluster
+  and shared memory, pure arithmetic on the shape.
 
 Layouts are the layer's: x4 ``[b, T, 4h]`` (gates ``[i, f, c~, o]``),
 x3 ``[b, T, 3h]`` (``[z, r, c~]``), w ``[h, 4h]`` / ``[h, 3h]``, bias
@@ -41,7 +47,7 @@ blocks are a grid artefact).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -59,6 +65,11 @@ _SM90_SMEM = 232448
 _SM90_UNITS, _SM90_CHUNK, _SM90_MAX_STAGES = 16, 64, 8
 _SM90_STAGE, _SM90_STATIC = 2 * 64 * 64 * 2, 1024
 _FWD_W_TILE, _BWD_W_TILE = 64 * 64 * 2, 16 * 64 * 2
+# the sm90 GRU kernel (csrc/gru_fwd_sm90.cu): 256 threads a block,
+# clusters of 1-8 blocks, 1-4 batch rows a cluster, at most 226 KB of
+# dynamic shared memory a block (static words count against the opt-in)
+_GRU_THREADS, _GRU_SMEM = 256, 226 * 1024
+_GRU_CLUSTERS, _GRU_ROWS = (1, 2, 4, 8), (1, 2, 4)
 
 
 # ------------------------------------------------------------ plain versions
@@ -164,10 +175,13 @@ def gru_reference(x3: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
 
 
 # ------------------------------------------------------------ the kernels
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _units(h: int, device: torch.device) -> int:
     """Hidden units a block owns: one block per SM at most."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return -(-h // sms)
+    return -(-h // _sms(device))
 
 
 def _smem_bytes(k: int, n_w: int, n_tile: int) -> int:
@@ -211,6 +225,89 @@ def lstm_bwd_sm90_smem(h: int, stages: int = 0) -> Tuple[int, int]:
     return _sm90_plan(-(-4 * h // _SM90_CHUNK) * _BWD_W_TILE, stages)
 
 
+class GruPlan(NamedTuple):
+    """How one GRU forward call is launched (:func:`gru_fwd_plan`)."""
+    route: str       # "sm90" (csrc/gru_fwd_sm90.cu) or "coop" (gru_fwd.cu)
+    cluster: int     # blocks a cluster (sm90; 1 for coop)
+    rows: int        # batch rows a cluster (sm90; all b for coop)
+    units: int       # hidden units a block
+    smem: int        # dynamic shared-memory bytes a block
+    blocks: int      # the grid
+
+
+def _gru_sm90_smem(h: int, n: int, rows: int, esize: int) -> Tuple[int, int]:
+    """(units a block, dynamic shared-memory bytes) of the sm90 GRU
+    kernel with clusters of ``n`` blocks and ``rows`` batch rows a
+    cluster: the ``layout`` of ``csrc/gru_fwd_sm90.cu``, each part
+    rounded up to 16 bytes — the weight slice [kpad, 3U] in the product
+    dtype (U = ceil(h / n) rounded up to 4, kpad = h rounded up to 4),
+    round(h) and round(r*h) [rows, kpad + 4 ceil(kpad / 16)] (skewed),
+    the owned units' h and z [rows, U], the bias slice [3U], three x3
+    stages [3, rows, 3, wseg] of 4-byte words (wseg: the U elements'
+    words plus one, rounded up to 4), the lengths."""
+    units = -(-(-(-h // n)) // 4) * 4
+    kpad = -(-h // 4) * 4
+    kph = kpad + 4 * -(-kpad // 16)
+    per_word = 4 // esize
+    wseg = -(-(-(-units // per_word) + per_word - 1) // 4) * 4
+    parts = (kpad * 3 * units * esize, rows * kph * 4, rows * kph * 4,
+             rows * units * 4, rows * units * 4, 3 * units * 4,
+             3 * rows * 3 * wseg * 4, (rows + 1) * 4)
+    return units, sum(-(-p // 16) * 16 for p in parts)
+
+
+def gru_fwd_plan(b: int, h: int, dtype: torch.dtype, sms: int,
+                 cluster: int = 0, rows: int = 0) -> Optional[GruPlan]:
+    """The GRU forward's launch, by shape alone (pure arithmetic: no
+    card is asked). None when no kernel takes (b, h) — exactly when the
+    cooperative kernel's persistent design does not fit (``kernel_ok``).
+
+    - "sm90", ``csrc/gru_fwd_sm90.cu``: the smallest cluster n of 1, 2,
+      4, 8 blocks whose blocks each hold a [h, 3h/n] weight slice plus
+      their state and staging in 226 KB (a cluster's barrier costs more
+      than the traffic a larger n divides); R batch rows a cluster, the
+      smallest of 1, 2, 4 at least ceil(b n / sms), so that the clusters
+      fit the ``sms`` SMs in one wave, but at most 2 at n 1 (a lone
+      block has no cluster barrier to share among its rows, and more
+      rows take the registers that hold its weight), less where that
+      does not fit. ``chip_smoke.py`` phase 15 times every (n, R) and
+      the cooperative kernel where this picks n > 1 or R > 1.
+      ``cluster`` and ``rows`` force n and R (those sweeps); a forced
+      plan that does not fit raises.
+    - "coop", ``csrc/gru_fwd.cu``: where no cluster holds the weight
+      (at 226 KB a block: float32 past h 384, bfloat16 past h 544), the
+      cooperative kernel over hidden-unit slices with two grid barriers
+      a step."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the GRU kernel takes float32 or bfloat16, got "
+                        f"{dtype}")
+    if b < 1 or h < 1:
+        return None
+    coop_units = -(-h // sms)
+    if coop_units > _MAX_UNITS or \
+            kernel_smem(h, coop_units, 3) > _SM90_SMEM:
+        return None
+    esize = 2 if dtype == torch.bfloat16 else 4
+    if cluster and cluster not in _GRU_CLUSTERS or \
+            rows and rows not in _GRU_ROWS:
+        raise ValueError(f"cluster and rows must be one of {_GRU_CLUSTERS}")
+    for n in (cluster,) if cluster else _GRU_CLUSTERS:
+        want = min(-(-b * n // sms), 2 if n == 1 else _GRU_ROWS[-1])
+        top = next(r for r in _GRU_ROWS if r >= want)
+        for r in (rows,) if rows else reversed(_GRU_ROWS):
+            if r > top and not rows:
+                continue
+            units, smem = _gru_sm90_smem(h, n, r, esize)
+            if smem <= _GRU_SMEM:
+                return GruPlan("sm90", n, r, units, smem, n * -(-b // r))
+    if cluster or rows:
+        raise ValueError(f"no cluster of {cluster or 'any size'} with "
+                         f"{rows or 'any'} rows holds the GRU's weight at "
+                         f"h {h} in {dtype}")
+    return GruPlan("coop", 1, b, coop_units,
+                   kernel_smem(h, coop_units, 3), -(-h // coop_units))
+
+
 def kernel_ok(b: int, h: int, act: str = "tanh", gate_act: str = "sigmoid",
               state_act: str = "tanh", gates: int = 4,
               device=None) -> bool:
@@ -233,7 +330,11 @@ def kernel_ok(b: int, h: int, act: str = "tanh", gate_act: str = "sigmoid",
       (1024 + 8192 * ceil(h / 64) bytes forward, 1024 + 2048 *
       ceil(4h / 64) backward) plus at least two 16384-byte ring stages
       (:func:`lstm_fwd_sm90_smem`, :func:`lstm_bwd_sm90_smem`) — true
-      up to h = 1536, so the float32 kernels' limit binds.
+      up to h = 1536, so the float32 kernels' limit binds;
+    - for the GRU, :func:`gru_fwd_plan` has a route: the cluster kernel
+      (``csrc/gru_fwd_sm90.cu``) where a cluster holds the weight, the
+      cooperative one elsewhere, so the cooperative kernel's limit above
+      is the GRU's.
     On an H100 SXM (132 SMs) that admits the LSTM up to h = 1312 and the
     GRU up to h = 1472, in float32 and bfloat16 alike. Any batch size.
     """
@@ -245,25 +346,26 @@ def kernel_ok(b: int, h: int, act: str = "tanh", gate_act: str = "sigmoid",
         return False
     if torch.cuda.get_device_capability(device) != (9, 0):
         return False
-    units = _units(h, device)
-    if gates == 4:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        if -(-h // _SM90_UNITS) > sms or lstm_fwd_sm90_smem(h)[1] == 0 \
-                or lstm_bwd_sm90_smem(h)[1] == 0:
-            return False
+    sms = _sms(device)
+    if gates == 3:
+        return gru_fwd_plan(b, h, torch.float32, sms) is not None
+    if -(-h // _SM90_UNITS) > sms or lstm_fwd_sm90_smem(h)[1] == 0 \
+            or lstm_bwd_sm90_smem(h)[1] == 0:
+        return False
+    units = -(-h // sms)
     return units <= _MAX_UNITS and \
         kernel_smem(h, units, gates) <= _SM90_SMEM
 
 
-def _fn(lib: str, sym: str, n_ptrs: int):
+def _fn(lib: str, sym: str, n_ptrs: int, n_ints: int = 5):
     """The C entry ``sym`` of kernel library ``lib``: n_ptrs pointers,
-    five ints, then the stream; returns the CUDA error."""
+    n_ints ints, then the stream; returns the CUDA error."""
     from paddle_tpu_torch.ops import _build
     fn = getattr(_build.load(lib), sym)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + \
-            [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + \
+            [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     return fn
 
 
@@ -492,7 +594,8 @@ def gru_forward(x3: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
                 bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The GRU forward kernel: (out [b, T, h], hT [b, h]) float32; ``x3``
     and ``w`` share the product dtype, bias float32, lens int32 [b].
-    CPU: the plain version; CUDA: the kernel."""
+    CPU: the plain version; CUDA: the kernel of :func:`gru_fwd_plan`'s
+    route, counted in ``route_launches``."""
     if x3.device.type == "cpu":
         return gru_reference(x3, lens, w, bias)
     b, T, three_h = x3.shape
@@ -505,7 +608,48 @@ def gru_forward(x3: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
            {"x3": ((b, T, three_h), dt), "w": ((h, three_h), dt),
             "bias": ((three_h,), torch.float32),
             "lens": ((b,), torch.int32)})
-    dev = x3.device
+    plan = gru_fwd_plan(b, h, dt, _sms(x3.device))
+    if plan.route == "sm90":
+        res = gru_fwd_sm90_launch(x3, lens, w, bias, plan)
+    else:
+        res = gru_fwd_coop_launch(x3, lens, w, bias)
+    gru_forward.launches += 1
+    gru_forward.route_launches[plan.route] += 1
+    return res
+
+
+def gru_fwd_sm90_launch(x3, lens, w, bias, plan: GruPlan, mode: int = 0):
+    """One launch of ``csrc/gru_fwd_sm90.cu`` on checked CUDA tensors
+    with ``plan``, an "sm90" plan of :func:`gru_fwd_plan` (the call's
+    own, or one with a forced cluster size or rows: the sweeps of
+    ``chip_smoke.py``); returns (out, hT). ``mode`` 0 computes the
+    function (what :func:`gru_forward` launches); 1 stops after the
+    weight load and 2 runs the steps without their products, the floors
+    that ``chip_smoke.py`` times (their outputs are not the function).
+    Counts nothing: :func:`gru_forward` counts its own launches."""
+    b, T, three_h = x3.shape
+    h, dev = three_h // 3, x3.device
+    if plan.route != "sm90":
+        raise ValueError(f"not a plan of the sm90 GRU kernel: {plan}")
+    out = torch.empty((b, T, h), dtype=torch.float32, device=dev)
+    hT = torch.empty((b, h), dtype=torch.float32, device=dev)
+    fn = _fn("gru_fwd_sm90", "pt_gru_fwd_sm90", 6, 7)
+    err = fn(x3.data_ptr(), w.data_ptr(), bias.data_ptr(), lens.data_ptr(),
+             out.data_ptr(), hT.data_ptr(), b, T, h, plan.cluster, plan.rows,
+             _DTYPE_CODES[w.dtype], int(mode), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"GRU forward (sm90) launch failed: CUDA error "
+                           f"{err} ({plan})")
+    return out, hT
+
+
+def gru_fwd_coop_launch(x3, lens, w, bias):
+    """One launch of the cooperative ``csrc/gru_fwd.cu`` on checked CUDA
+    tensors; returns (out, hT). :func:`gru_forward`'s route where no
+    cluster holds the weight; ``chip_smoke.py`` also times it at the
+    tagger's shapes beside the sm90 kernel. Counts nothing."""
+    b, T, three_h = x3.shape
+    h, dev = three_h // 3, x3.device
     out = torch.empty((b, T, h), dtype=torch.float32, device=dev)
     hT = torch.empty((b, h), dtype=torch.float32, device=dev)
     hbuf = torch.zeros((2, b, h), dtype=torch.float32, device=dev)
@@ -516,10 +660,9 @@ def gru_forward(x3: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
     err = fn(x3.data_ptr(), w.data_ptr(), bias.data_ptr(), lens.data_ptr(),
              out.data_ptr(), hT.data_ptr(), hbuf.data_ptr(), zbuf.data_ptr(),
              rhbuf.data_ptr(), bar.data_ptr(), b, T, h, _units(h, dev),
-             _DTYPE_CODES[dt], _stream(dev))
+             _DTYPE_CODES[w.dtype], _stream(dev))
     if err != 0:
         raise RuntimeError(f"GRU forward launch failed: CUDA error {err}")
-    gru_forward.launches += 1
     return out, hT
 
 
@@ -529,6 +672,7 @@ lstm_forward.route_launches = {"sm90": 0, "simt": 0}
 lstm_backward.launches = 0
 lstm_backward.route_launches = {"sm90": 0, "simt": 0}
 gru_forward.launches = 0
+gru_forward.route_launches = {"sm90": 0, "coop": 0}
 
 
 # ------------------------------------------------------------ public ops

@@ -246,6 +246,140 @@ def test_gru_sequence_matches_pallas_bfloat16(compute_dtype):
     _close(thT, jhT, dict(rtol=0, atol=BF16_ATOL))
 
 
+def _tagger_inputs(seed=11):
+    """The tagger's decode widths (b 64, h 128, T 64), ragged, one row at
+    the full 64 steps and one at 1."""
+    rng = np.random.RandomState(seed)
+    b, h, t = 64, 128, 64
+    x = (rng.randn(b, t, 3 * h) * 0.5).astype(np.float32)
+    lens = rng.randint(1, t + 1, b).astype(np.int32)
+    lens[0], lens[1] = t, 1
+    w = (rng.randn(h, 3 * h) * h ** -0.5).astype(np.float32)
+    bias = (rng.randn(3 * h) * 0.1).astype(np.float32)
+    return x, lens, w, bias
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gru_sequence_matches_pallas_at_tagger_width(dtype, compute_dtype):
+    """The decode path's GRU at the tagger's width: the port's
+    gru_sequence (on the CPU: the sm90 kernel's plain version) against
+    the Pallas kernel in interpret mode; float32 at the card check's
+    tolerance (rtol 2e-4, atol 2e-5), bfloat16 at BF16_ATOL."""
+    compute_dtype(dtype)
+    x, lens, w, bias = _tagger_inputs()
+    jout, jhT = pallas_rnn.gru_sequence(jnp.asarray(x), jnp.asarray(lens),
+                                        jnp.asarray(w), jnp.asarray(bias),
+                                        interpret=True)
+    with torch.no_grad():
+        tout, thT = fused_rnn.gru_sequence(torch.tensor(x),
+                                           torch.tensor(lens),
+                                           torch.tensor(w),
+                                           torch.tensor(bias))
+    tol = dict(rtol=2e-4, atol=2e-5) if dtype == "float32" else \
+        dict(rtol=0, atol=BF16_ATOL)
+    _close(tout, jout, tol)
+    _close(thT, jhT, tol)
+
+
+def _old_gru_rule(h, sms=132):
+    """The cooperative GRU kernel's admission rule before the sm90 route
+    existed: U = ceil(h / SMs) <= 16 units a block and its resident
+    slice plus staging, 4 * (32 * ceil(h / 32) * 3U + max(4224, 256U))
+    bytes, within the 232,448 a block may use."""
+    units = -(-h // sms)
+    smem = 4 * (32 * -(-h // 32) * 3 * units + max(4224, 256 * units))
+    return units <= 16 and smem <= 232448
+
+
+@pytest.mark.parametrize("b", [1, 6, 64, 1000])
+def test_gru_fwd_plan_admits_todays_shapes(b):
+    """At 132 SMs the plan has a route (sm90 or coop) for exactly the
+    (b, h) the cooperative kernel took before, in both dtypes, and
+    kernel_ok's GRU gate agrees with it."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for h in range(1, 1601):
+            plan = fused_rnn.gru_fwd_plan(b, h, dtype, 132)
+            assert (plan is not None) == _old_gru_rule(h), (b, h, dtype)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_fwd_plan_covers_each_unit_and_row_once(cluster, dtype):
+    """With n blocks a cluster, block q of cluster c owns units [qU, qU +
+    U) and rows [cR, cR + R): over every shape the cluster holds, each
+    hidden unit and each batch row is owned exactly once, and the
+    block's shared memory stays under the plan's limit."""
+    seen = 0
+    for h in (4, 13, 45, 48, 100, 128, 160, 256, 352, 448, 544):
+        for b in (1, 5, 37, 64, 1000):
+            try:
+                plan = fused_rnn.gru_fwd_plan(b, h, dtype, 132,
+                                              cluster=cluster)
+            except ValueError:
+                continue            # the weight does not fit this cluster
+            seen += 1
+            assert plan.route == "sm90" and plan.cluster == cluster
+            assert plan.smem <= fused_rnn._GRU_SMEM
+            assert plan.units % 4 == 0 and plan.rows in (1, 2, 4)
+            units = np.zeros(h, np.int64)
+            for q in range(cluster):
+                units[q * plan.units:(q + 1) * plan.units] += 1
+            assert (units == 1).all(), (h, b)
+            clusters = plan.blocks // cluster
+            assert plan.blocks % cluster == 0
+            rows = np.zeros(b, np.int64)
+            for c in range(clusters):
+                rows[c * plan.rows:(c + 1) * plan.rows] += 1
+            assert (rows == 1).all(), (h, b)
+    assert seen >= 10
+
+
+def test_gru_fwd_plan_routes_by_shape():
+    """The tagger's h 128 takes the sm90 kernel in one block a row (n 1,
+    R 1: 64 blocks at b 64) in both dtypes; the cluster size grows with
+    h, the rows a cluster with b; h 1024 keeps the cooperative kernel;
+    past kernel_ok's limit there is no route. On the CPU gru_forward
+    takes the plain version and counts no launch on either route."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = fused_rnn.gru_fwd_plan(64, 128, dtype, 132)
+        assert (plan.route, plan.cluster, plan.rows, plan.blocks) == \
+            ("sm90", 1, 1, 64)
+        assert fused_rnn.gru_fwd_plan(64, 1024, dtype, 132).route == "coop"
+        assert fused_rnn.gru_fwd_plan(64, 1473, dtype, 132) is None
+    sizes = [fused_rnn.gru_fwd_plan(64, h, torch.float32, 132).cluster
+             for h in (128, 160, 256, 352)]
+    assert sizes == [1, 2, 4, 8]
+    assert fused_rnn.gru_fwd_plan(64, 448, torch.float32, 132).route == \
+        "coop"
+    assert fused_rnn.gru_fwd_plan(64, 448, torch.bfloat16, 132).cluster == 8
+    # rows a cluster: enough to fill the SMs in one wave, at most 4, and
+    # at most 2 for a lone block
+    rows = [(p.cluster, p.rows) for p in
+            (fused_rnn.gru_fwd_plan(b, h, torch.float32, 132)
+             for b, h in ((64, 256), (64, 352), (200, 128), (600, 128),
+                          (600, 48), (600, 160)))]
+    assert rows == [(4, 2), (8, 4), (1, 2), (1, 2), (1, 2), (2, 4)]
+    with pytest.raises(ValueError):
+        fused_rnn.gru_fwd_plan(64, 128, torch.float32, 132, rows=8)
+    assert fused_rnn.gru_fwd_plan(600, 128, torch.float32, 132, cluster=1,
+                                  rows=1).blocks == 600
+    with pytest.raises(ValueError):
+        fused_rnn.gru_fwd_plan(64, 1024, torch.float32, 132, cluster=8)
+    with pytest.raises(TypeError):
+        fused_rnn.gru_fwd_plan(64, 128, torch.float16, 132)
+    fwd = fused_rnn.gru_forward
+    before = (fwd.launches, dict(fwd.route_launches))
+    x, lens, w, bias, _ = _inputs(3, seed=15)
+    got = fwd(torch.tensor(x), torch.tensor(lens), torch.tensor(w),
+              torch.tensor(bias))
+    want = fused_rnn.gru_reference(torch.tensor(x), torch.tensor(lens),
+                                   torch.tensor(w), torch.tensor(bias))
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    assert (fwd.launches, dict(fwd.route_launches)) == before
+    assert set(fwd.route_launches) == {"sm90", "coop"}
+
+
 def _scan_case(kind, reverse, with_state, seed):
     gates = {"lstm": 4, "gru": 3, "rnn": 1}[kind]
     x, lens, w, bias, peep = _inputs(gates, seed=seed)
