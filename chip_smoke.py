@@ -9,10 +9,11 @@ Phases (any failure exits non-zero before the final line):
 
 1. build — compile every hand-written kernel from the sources in this
    checkout (one nvcc per source, all at once, sm_90a), print the
-   ptxas report (and its wgmma warnings); the five wgmma kernels
+   ptxas report (and its wgmma warnings); the seven wgmma kernels
    (flash_fwd_sm90.cu, flash_dq_sm90.cu, flash_dkv_sm90.cu,
-   lstm_fwd_sm90.cu, lstm_bwd_sm90.cu) must report 0 spill bytes and
-   no C75xx warning (products serialized), and the window kernel
+   lstm_fwd_sm90.cu, lstm_bwd_sm90.cu, flash_dq_tf32_sm90.cu,
+   flash_dkv_tf32_sm90.cu) must report 0 spill bytes and no C75xx
+   warning (products serialized), and the window kernel
    (paged_window_attention.cu) and the cluster GRU kernel
    (gru_fwd_sm90.cu) 0 spill bytes. Then the building blocks of
    sm90_pipeline.cuh on one 64 x 64 bf16 tile: A B^T by wgmma SS over
@@ -21,7 +22,14 @@ Phases (any failure exits non-zero before the final line):
    m64n16k16 over TMA-loaded 64-column chunks and its weight tile
    layout; and the LSTM forward's, a [64, 120] x [120, 64] by wgmma
    m64n64k16 over its gate-major weight tiles; each against float32
-   torch products (max |err| <= 1e-3 x max(1, max|ref|)).
+   torch products (max |err| <= 1e-3 x max(1, max|ref|)); and
+   sm90_tf32.cuh's 3xTF32 products on float32 tiles (TMA-loaded, split
+   into TF32 hi and lo): A B^T by SS m64n32k8 and (A B^T) B by RS
+   m64n64k8, the A operand split in registers from the accumulator and
+   B transposed in the fragment's k order, against float64 products
+   (max |err| <= 1e-5 x max(1, max|ref|), which one TF32 pass fails);
+   then flash_tf32_plan (ops/flash_attention.py) against the float32
+   dq and dk/dv kernels' own plan and shared bytes at every d 8..128.
 2. kernel vs plain — paged window attention at full width (dh 64,
    page 16, 8 slots, 34 pages a slot, lengths up to 544), h/g in
    {8/8, 8/2, 8/1}, W in {1, 4}, float32 and bfloat16, against the
@@ -62,18 +70,19 @@ Phases (any failure exits non-zero before the final line):
 6. flash vs plain — the flash attention forward, dq and dk/dv kernels
    at full width ([8, T, 8, 64]): causal T 1024 with ragged kv_lens,
    and non-causal T 1000 (not a block multiple) with q_lens below T
-   and fully-masked rows, in float32 (SIMT kernels) and bfloat16 (the
-   wgmma forward, dq and dk/dv); then in bfloat16 the causal
-   case at head dim 128 and the non-causal one at head dim 72 (a d
-   tail the TMA zero-fills); out, lse, dq, dk, dv against autograd of
+   and fully-masked rows, then the causal case at head dim 128 and the
+   non-causal one at head dim 72 (a d tail the TMA zero-fills), each
+   in float32 (the SIMT forward, the 3xTF32 wgmma dq and dk/dv) and
+   bfloat16 (the wgmma forward, dq and dk/dv); out, lse, dq, dk, dv
+   against autograd of
    the plain version in float32 on the same values: float32
    assert_close(rtol 2e-4, atol 2e-5 max(1, max|ref|)), bfloat16
    max |err| <= 2e-2 max(1, max|ref|), and per (batch row, head)
    slice max |err| <= 2e-2 max|ref| of the slice (floored at 1e-3
    max(1, max|ref|) for slices 0 by cancellation), which must reject
    two planted faults each of dq and dv (zeroed past query / key 64;
-   x 0.95 outside the largest slice); fully-masked rows give lse ==
-   NEG_INF and out == 0.
+   x 0.95 outside the largest slice), as the float32 bound must;
+   fully-masked rows give lse == NEG_INF and out == 0.
 7. train — the main training path: the full-width tied transformer_lm
    (vocab 32000, d_model 512, 8 heads, 6 layers, d_ff 2048, 1024
    tokens) built with the port's DSL, Parameters.create, and
@@ -97,11 +106,14 @@ Phases (any failure exits non-zero before the final line):
    4 seeded requests, zero step failures, tokens identical to the
    dense generate under the tie rule.
 9. flash timings — each flash kernel's device time per call at the
-   training shapes, bf16 (the wgmma kernels) and f32 (SIMT) by
-   CUDA-graph replay over 6 input sets, its bound,
-   the plain version's time, and SDPA as a yardstick (forward by graph
-   replay; autograd backward against dq + dk/dv together, by events
-   behind a spin kernel so the host's call rate is not timed).
+   training shapes, bf16 (the wgmma kernels) and f32 (the SIMT forward,
+   the tf32x3 dq and dk/dv) by CUDA-graph replay over 6 input sets,
+   its bound by route (the tf32x3 kernels': three TF32 passes of every
+   product at 494.7 TFLOP/s, printed beside the SIMT float32 floor at
+   67 TFLOP/s, which is no bound for them; a reading under its bound
+   fails), the plain version's time, and SDPA as a yardstick (forward
+   by graph replay; autograd backward against dq + dk/dv together, by
+   events behind a spin kernel so the host's call rate is not timed).
 10. train trace — one bfloat16 train step under torch.profiler (run
    right after phase 7): device busy time against the wall clock, the
    top kernels, the flash share and each flash kernel's.
@@ -218,10 +230,21 @@ Phases (any failure exits non-zero before the final line):
    bound, plain and SDPA as in phase 4; then the chunk plan swept (C 1,
    2, 4, 8 pages a block) on those pools at the engine's lengths and
    at full context, each C held against the plain version.
+24. f32 train — phase 7's main path at the framework's default dtype
+   (run after phase 8): the same model, batch and optimizer with
+   compute_dtype float32, 2 warm-up steps, then 4 timed steps with the
+   flash launch counts zeroed just before and read just after; finite,
+   falling losses, finite parameters and, by route, steps x 6 launches
+   of the SIMT forward and the tf32x3 dq and dk/dv, none of the bf16
+   kernels; prints step_ms and tokens/s; then one step under
+   torch.profiler (device busy against the wall clock, top kernels,
+   the flash share).
 
 Prints the kernel table as one JSON line (the flash and LSTM kernels at
 their bfloat16 times, the training dtype, naming their wgmma sources,
-with their errors in bfloat16 too; the GRU kernel, gru_fwd_sm90.cu,
+with their errors in bfloat16 too; the flash kernels again at float32,
+the default dtype, as flash_attention_*_f32 with phase 24's launches
+and their float32 sources; the GRU kernel, gru_fwd_sm90.cu,
 at float32, the dtype the tagger decodes in; the int8 and decode
 kernels at float32, the
 serving dtype, W 1), the card's name and power limit (nvidia-smi), and
@@ -252,6 +275,7 @@ BF16_ATOL = 2e-2
 SLICE_FLOOR = 1e-3                 # of max(1, max|ref|): see _slice_ratio
 TIE_RTOL, TIE_ATOL = 1e-4, 1e-5    # the logits tolerance of the tests
 BF16_FLOPS_PER_S = 989e12          # H100 SXM, dense bf16 tensor cores
+TF32_FLOPS_PER_S = 494.7e12        # H100 SXM, dense TF32 tensor cores
 FLASH_SHAPE = (8, 8, 64)           # batch, heads, head dim of the LM
 FLASH_KV_LENS = [1024, 1000, 777, 513, 512, 300, 64, 17]
 # the train step bench.py:245-286 runs: tied transformer_lm, 8 x 1024
@@ -263,10 +287,17 @@ TRAIN_ROWS, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 8
 FLASH_KERNELS = [("fwd", 43, "sm90", "flash_fwd_sm90.cu"),
                  ("dq", 225, "sm90", "flash_dq_sm90.cu"),
                  ("dkv", 264, "sm90", "flash_dkv_sm90.cu")]
+# the float32 sources (routes "simt", "tf32x3", "tf32x3"): the framework's
+# default compute dtype, trained by phase 24
+FLASH_F32_SOURCES = {"fwd": "flash_attention_fwd.cu",
+                     "dq": "flash_dq_tf32_sm90.cu",
+                     "dkv": "flash_dkv_tf32_sm90.cu"}
+F32_TRAIN_STEPS = 4
 # the wgmma kernels, which must build with 0 spill bytes and no C75xx
 # warning; the window kernel must build with 0 spill bytes too
 SM90_LIBS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90",
-             "lstm_fwd_sm90", "lstm_bwd_sm90")
+             "lstm_fwd_sm90", "lstm_bwd_sm90", "flash_dq_tf32_sm90",
+             "flash_dkv_tf32_sm90")
 NO_SPILL_LIBS = SM90_LIBS + ("paged_window_attention", "gru_fwd_sm90")
 
 
@@ -355,6 +386,8 @@ def phase_build():
     _sm90_product_check()
     _lstm_sm90_product_check()
     _lstm_fwd_sm90_product_check()
+    _tf32_product_check()
+    _tf32_plan_check()
     return secs
 
 
@@ -462,6 +495,80 @@ def _lstm_fwd_sm90_product_check():
     if not e <= bound:
         raise AssertionError(f"LSTM forward sm90 product: max |err| {e} > "
                              f"{bound}")
+
+
+def _tf32_product_check():
+    """The 3xTF32 building blocks of csrc/sm90_tf32.cuh (through
+    csrc/flash_dq_tf32_sm90.cu): float32 A [64, 64] and B [32, 64]
+    loaded by TMA (128-byte swizzle, 32 columns a panel) and split into
+    hi and lo; C = A B^T by three TF32 wgmma SS products a k-step (both
+    K-major), then E = C B by three RS products, C split in registers
+    from its accumulator and B^T written transposed with its rows in
+    the register fragment's k order. Each against float64 torch
+    products of the same values (E against the kernel's own C): max
+    |err| <= 1e-5 max(1, max|ref|), which one TF32 product a k-step
+    (~1e-3 relative) fails."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    fn = _build.load("flash_dq_tf32_sm90").pt_tf32_product_check
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5
+    rng = np.random.RandomState(9)
+    a = torch.from_numpy(rng.randn(64, 64).astype(np.float32)).cuda()
+    b = torch.from_numpy(rng.randn(32, 64).astype(np.float32)).cuda()
+    c = torch.empty(64, 32, device="cuda")
+    e = torch.empty(64, 64, device="cuda")
+    err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), e.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tf32 product check launch failed: CUDA error "
+                           f"{err}")
+    torch.cuda.synchronize()
+    ad, bd = a.double(), b.double()
+    for name, got, want in (("C = A B^T (SS, K-major)", c, ad @ bd.T),
+                            ("E = C B (RS, B^T in k order)", e,
+                             c.double() @ bd)):
+        err = (got.double() - want).abs().max().item()
+        bound = 1e-5 * max(1.0, want.abs().max().item())
+        log(f"tf32x3 product check {name}: max |err| {err:.3e} (limit "
+            f"{bound:.3e})")
+        if not err <= bound:
+            raise AssertionError(f"tf32x3 {name}: max |err| {err} > {bound}")
+
+
+def _tf32_plan_check():
+    """ops/flash_attention.py flash_tf32_plan against the kernels' own
+    Plan (pt_flash_dq_tf32_plan, pt_flash_dkv_tf32_plan: warpgroups,
+    rows, tile, stages, dynamic and static shared bytes) at every head
+    dim the shape gate admits, each within the 227 KB opt-in."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+    keys = ("warpgroups", "rows", "tile", "stages", "smem", "static")
+    for kernel in ("dq", "dkv"):
+        fn = getattr(_build.load(f"flash_{kernel}_tf32_sm90"),
+                     f"pt_flash_{kernel}_tf32_plan")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        seen = set()
+        for d in range(8, 129, 8):
+            buf = (ctypes.c_int * len(keys))()
+            err = fn(d, buf)
+            if err != 0:
+                raise RuntimeError(f"pt_flash_{kernel}_tf32_plan({d}): CUDA "
+                                   f"error {err}")
+            got = dict(zip(keys, buf))
+            want = fa.flash_tf32_plan(kernel, d)
+            if got != want:
+                raise AssertionError(f"flash_tf32_plan({kernel!r}, {d}) = "
+                                     f"{want}, the kernel's plan {got}")
+            if got["smem"] + got["static"] > fa.SMEM_LIMIT:
+                raise AssertionError(f"{kernel} d {d}: {got} exceeds "
+                                     f"{fa.SMEM_LIMIT} bytes")
+            seen.add(tuple(got.values()))
+        log(f"tf32x3 {kernel} plan == kernel layout at d 8..128: " +
+            "; ".join(f"wg {p[0]} rows {p[1]} tile {p[2]} stages {p[3]} "
+                      f"smem {p[4]}+{p[5]}" for p in sorted(seen)))
 
 
 # ------------------------------------------------------------ phase 2
@@ -848,15 +955,45 @@ def _slice_ratio(got, want):
     return ratio.max().item(), divmod(at, ratio.shape[1])
 
 
+def _planted(name, got, ref):
+    """The two planted faults of dq ("query") or dv ("key") that phase
+    6 must reject: the tensor zeroed past its first 64 rows, and x 0.95
+    in every (batch row, head) slice but the one that holds its max
+    |ref|. [(label, faulty tensor)]."""
+    rows = "query" if name == "dq" else "key"
+    got, ref = got.float(), ref.detach().float()
+    past_tile = got.clone()
+    past_tile[:, 64:] = 0
+    top = ref.abs().amax((1, 3)).flatten().argmax()  # (row, head) index
+    scaled = got * 0.95
+    b_top, h_top = divmod(int(top), got.shape[2])
+    scaled[b_top, :, h_top] = got[b_top, :, h_top]
+    return [(f"{name} zeroed past {rows} 64", past_tile),
+            (f"{name} x 0.95 outside its top slice", scaled)]
+
+
+def _held_faults_f32(label, grads, refs):
+    """float32: the planted faults of dq and dv (_planted) must fail the
+    float32 bound of _held, as the bf16 ones fail the slice check."""
+    for name in ("dq", "dv"):
+        for fault, bad in _planted(name, grads[name], refs[name]):
+            try:
+                _held(name, bad, refs[name], torch.float32)
+            except AssertionError:
+                log(f"{label} f32 planted fault, {fault}: rejected")
+                continue
+            raise AssertionError(f"{label}: the float32 check passes a "
+                                 f"planted fault ({fault})")
+
+
 def _held_slices(label, grads, refs):
     """bfloat16: each of out, dq, dk, dv held per (batch row, head)
     slice, max |err| <= 2e-2 x max |ref| of the slice (see
     _slice_ratio): the whole-tensor bound alone is set by the largest
     slice (a kv_len-1 row's dv sums ~500 dO rows), so it cannot see an
-    error in the others. Then two planted faults each of dq and dv,
-    which the slice check must reject: the tensor zeroed past its first
-    64 rows (queries for dq, keys for dv), and x 0.95 in every slice but
-    the one that holds its max |ref|. Returns {name: worst ratio}."""
+    error in the others. Then two planted faults each of dq and dv
+    (_planted), which the slice check must reject. Returns {name: worst
+    ratio}."""
     ratios = {}
     for name in ("out", "dq", "dk", "dv"):
         ratios[name], at = _slice_ratio(grads[name], refs[name])
@@ -864,17 +1001,10 @@ def _held_slices(label, grads, refs):
             raise AssertionError(
                 f"{label} bf16 {name}: slice (row, head) {at} off by "
                 f"{ratios[name]:.3e} of its max|ref| > {BF16_ATOL}")
-    for name, rows in (("dq", "query"), ("dv", "key")):
-        got, ref = grads[name].float(), refs[name].detach().float()
-        past_tile = got.clone()
-        past_tile[:, 64:] = 0
-        top = ref.abs().amax((1, 3)).flatten().argmax()  # (row, head) index
-        scaled = got * 0.95
-        b_top, h_top = divmod(int(top), got.shape[2])
-        scaled[b_top, :, h_top] = got[b_top, :, h_top]
+    for name in ("dq", "dv"):
+        ref = refs[name].detach().float()
         whole = BF16_ATOL * max(1.0, ref.abs().max().item())
-        for fault, bad in ((f"{name} zeroed past {rows} 64", past_tile),
-                           (f"{name} x 0.95 outside its top slice", scaled)):
+        for fault, bad in _planted(name, grads[name], ref):
             r, _ = _slice_ratio(bad, ref)
             old = (bad - ref).abs().max().item()
             log(f"{label} planted fault, {fault}: slice ratio {r:.3e} "
@@ -891,13 +1021,14 @@ def phase_flash_vs_plain():
     """The three flash kernels against autograd of the plain version in
     float32 on the same (rounded) values, at full width: causal T 1024
     with ragged kv_lens, and non-causal T 1000 (not a block multiple)
-    with q_lens below T, fully-masked batch rows included, both at head
-    dim 64 in float32 (the SIMT route) and bfloat16 (the sm90 route:
-    the wgmma forward, dq and dk/dv); then in bfloat16 the causal case
-    at head dim 128 (two d panels: two dk/dv warpgroups, two dQ
-    accumulators) and the non-causal one at head dim 72 (72 % 16 != 0:
-    the zero-filled d tail). Returns the worst max |err| by (kernel,
-    dtype)."""
+    with q_lens below T, fully-masked batch rows included, at head dim
+    64, then the causal case at head dim 128 (bf16: two d panels, two
+    dk/dv warpgroups, two dQ accumulators; f32: the one-stage plans and
+    16-query dk/dv tiles) and the non-causal one at head dim 72 (the
+    zero-filled d tail), each in float32 (the SIMT forward, the tf32x3
+    dq and dk/dv) and bfloat16 (the sm90 route: the wgmma forward, dq
+    and dk/dv). Planted faults of dq and dv must fail each dtype's
+    check. Returns the worst max |err| by (kernel, dtype)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     f32, bf16 = torch.float32, torch.bfloat16
     causal_lens = ([1024] * 8, FLASH_KV_LENS)
@@ -905,8 +1036,10 @@ def phase_flash_vs_plain():
                    [1000, 1000, 777, 1, 512, 300, 64, 0])
     cases = [("causal T1024", 1024, True, causal_lens, 64, (f32, bf16)),
              ("non-causal T1000", 1000, False, ragged_lens, 64, (f32, bf16)),
-             ("causal T1024 d128", 1024, True, causal_lens, 128, (bf16,)),
-             ("non-causal T1000 d72", 1000, False, ragged_lens, 72, (bf16,))]
+             ("causal T1024 d128", 1024, True, causal_lens, 128,
+              (f32, bf16)),
+             ("non-causal T1000 d72", 1000, False, ragged_lens, 72,
+              (f32, bf16))]
     worst = {(n, dt): 0.0 for n in ("fwd", "dq", "dkv") for dt in (f32, bf16)}
     for ci, (label, T, causal, (q_lens, kv_lens), d, dtypes) in \
             enumerate(cases):
@@ -939,10 +1072,15 @@ def phase_flash_vs_plain():
                     "dq": _held("dq", dq, gq, dtype),
                     "dk": _held("dk", dk, gk, dtype),
                     "dv": _held("dv", dv, gv, dtype)}
-            slices = "" if dtype == f32 else "; per-slice ratios " + \
-                ", ".join(f"{n} {r:.3e}" for n, r in _held_slices(
-                    label, {"out": out, "dq": dq, "dk": dk, "dv": dv},
-                    {"out": ref, "dq": gq, "dk": gk, "dv": gv}).items())
+            grads = {"out": out, "dq": dq, "dk": dk, "dv": dv}
+            refs = {"out": ref, "dq": gq, "dk": gk, "dv": gv}
+            if dtype == f32:
+                _held_faults_f32(label, grads, refs)
+                slices = ""
+            else:
+                slices = "; per-slice ratios " + ", ".join(
+                    f"{n} {r:.3e}"
+                    for n, r in _held_slices(label, grads, refs).items())
             for name, keys in (("fwd", ("out", "lse")), ("dq", ("dq",)),
                                ("dkv", ("dk", "dv"))):
                 worst[(name, dtype)] = max(worst[(name, dtype)],
@@ -986,15 +1124,20 @@ def _flash_counts(fa, zero=False):
         ("dkv", fa.flash_backward_dkv))}
 
 
-def phase_train():
+def phase_train(compute_dtype="bfloat16", steps=TRAIN_STEPS):
     """The main training path: SGD.train_batch with Adam(1e-4) on the
-    full-width tied transformer_lm in bfloat16, 8 x 1024 tokens."""
+    full-width tied transformer_lm, 8 x 1024 tokens, in bfloat16 (phase
+    7) or in float32, the framework's default (phase 24): finite,
+    falling losses, finite parameters, and steps x 6 launches of each
+    flash kernel on its dtype's route and none on another. Returns the
+    trainer, the batch and {kernel: launches on its route}."""
     from paddle_tpu_torch.core.topology import Topology
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.optimizer import Adam
     from paddle_tpu_torch.trainer import SGD, create
 
-    spec = _lm_spec("bfloat16")
+    dtype = getattr(torch, compute_dtype)
+    spec = _lm_spec(compute_dtype)
     topo = Topology(spec.cost, extra_outputs=[spec.output])
     params = create(topo, torch.Generator().manual_seed(0))
     n_params = sum(p.numel() for p in params.raw.values())
@@ -1005,7 +1148,7 @@ def phase_train():
     torch.cuda.reset_peak_memory_stats()
     _flash_counts(fa, zero=True)
     t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         losses.append(trainer.train_batch(batch)[0])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1018,22 +1161,22 @@ def phase_train():
            if not bool(torch.isfinite(p).all())]
     if bad:
         raise AssertionError(f"non-finite parameters after training: {bad}")
-    want = TRAIN_STEPS * TRAIN["n_layers"]
-    expect = {name: {"sm90": want if route == "sm90" else 0,
-                     "simt": want if route == "simt" else 0}
-              for name, _, route, _ in FLASH_KERNELS}
+    want = steps * TRAIN["n_layers"]
+    routes = {name: fa.flash_route(name, dtype) for name in launches}
+    expect = {name: {r: want if r == routes[name] else 0
+                     for r in fa.flash_routes(name)} for name in launches}
     if launches != expect:
         raise AssertionError(f"flash launches by route {launches} != "
                              f"{expect} (steps x layers = {want})")
-    step_ms = wall / TRAIN_STEPS * 1e3
+    step_ms = wall / steps * 1e3
     tokens = TRAIN_ROWS * TRAIN["max_len"]
-    log(f"train: {n_params} parameters, bf16, {TRAIN_STEPS} timed steps "
-        f"after {TRAIN_WARMUP}: {step_ms:.3f} ms/step, "
+    log(f"train: {n_params} parameters, {compute_dtype}, {steps} timed "
+        f"steps after {TRAIN_WARMUP}: step_ms {step_ms:.3f}, "
         f"{tokens / (step_ms / 1e3):.1f} tokens/s, peak "
         f"{peak_gb:.3f} GB; losses {[round(x, 4) for x in losses]}; "
         f"flash launches by route {launches}")
-    return trainer, batch, [launches[name][route]
-                            for name, _, route, _ in FLASH_KERNELS]
+    return trainer, batch, {name: launches[name][routes[name]]
+                            for name in launches}
 
 
 # compute dtype -> (relative perturbation of the token table that
@@ -1048,8 +1191,9 @@ ATTN_LEAF = re.compile(r"_l\d+_(q|k|v|proj)\.w0$")
 
 def phase_flash_grad_check(batch, compute_dtype="float32"):
     """Full width, one table, in ``compute_dtype``: the gradients of one
-    Topology.forward cost with use_flash_attention True (the kernels:
-    in bfloat16 the sm90 forward and dk/dv and the SIMT dq) against
+    Topology.forward cost with use_flash_attention True (the kernels of
+    ``flash_route``: in float32 the SIMT forward and the tf32x3 dq and
+    dk/dv) against
     False (the plain version): the worst per-parameter
     ||g_kernel - g_plain|| / ||g_plain|| at most max(1e-3, twice the
     plain version's own spread), and the costs within 1e-5 (float32);
@@ -1111,8 +1255,8 @@ def phase_flash_grad_check(batch, compute_dtype="float32"):
         dk, dv = real_dkv(*args)
         return dk, dv * 0.85
 
-    faulty_dkv.launches, faulty_dkv.route_launches = 0, {"sm90": 0,
-                                                         "simt": 0}
+    faulty_dkv.launches = 0
+    faulty_dkv.route_launches = dict.fromkeys(fa.flash_routes("dkv"), 0)
     fa.flash_backward_dkv = faulty_dkv
     try:
         _, g_bad = grads(True)
@@ -1205,12 +1349,12 @@ def phase_train_to_serve(trainer):
 
 
 # ------------------------------------------------------------ phase 9
-def _flash_bound(kernel, dtype, T, kv_lens, causal=True):
-    """(bound_ms, bound_by): the larger of the bytes the call must move
-    at 3.35 TB/s and its operations at the dtype's peak. Operations
-    count the valid (query, key) pairs of these inputs: the forward
-    does two products of 2 d flops a pair (S = QK^T, PV), dq three
-    (S, dO V^T, dS K) and dk/dv four (S, dO V^T, P^T dO, dS^T Q)."""
+def _flash_work(kernel, dtype, T, kv_lens, causal=True):
+    """(flops, bytes) of one call at FLASH_SHAPE: operations count the
+    valid (query, key) pairs of these inputs, the forward two products
+    of 2 d flops a pair (S = QK^T, PV), dq three (S, dO V^T, dS K) and
+    dk/dv four (S, dO V^T, P^T dO, dS^T Q); bytes each input read once
+    and each output written once."""
     b, h, d = FLASH_SHAPE
     pairs = sum(min(L, T) * (min(L, T) + 1) // 2 + (T - min(L, T)) * min(L, T)
                 if causal else T * L for L in kv_lens) * h
@@ -1219,9 +1363,22 @@ def _flash_bound(kernel, dtype, T, kv_lens, causal=True):
     rows = b * h * T * 4                       # one float32 per row
     products, n_tensors, n_rows = {"fwd": (2, 4, 1), "dq": (3, 5, 2),
                                    "dkv": (4, 6, 2)}[kernel]
-    flops = products * 2.0 * d * pairs
-    t_ops = flops / (BF16_FLOPS_PER_S if esize == 2 else FP32_FLOPS_PER_S)
-    t_bytes = (n_tensors * tensor + n_rows * rows + b * 8) / HBM_BYTES_PER_S
+    return (products * 2.0 * d * pairs,
+            n_tensors * tensor + n_rows * rows + b * 8)
+
+
+def _flash_bound(kernel, dtype, T, kv_lens, causal=True):
+    """(bound_ms, bound_by): the larger of the bytes the call must move
+    at 3.35 TB/s and its operations at its route's peak: bf16 wgmma
+    (sm90) at 989 TFLOP/s, the SIMT float32 forward at 67 TFLOP/s, and
+    the tf32x3 dq and dk/dv as three TF32 passes of every product at
+    494.7 TFLOP/s (a tensor-core kernel can read under the SIMT float32
+    floor, which is no bound for it)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    flops, nbytes = _flash_work(kernel, dtype, T, kv_lens, causal)
+    rate = {"sm90": BF16_FLOPS_PER_S, "simt": FP32_FLOPS_PER_S,
+            "tf32x3": TF32_FLOPS_PER_S / 3}[fa.flash_route(kernel, dtype)]
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, \
         "operations" if t_ops >= t_bytes else "bytes"
 
@@ -1241,6 +1398,7 @@ def phase_flash_timings():
                          device="cuda")
     scale = FLASH_SHAPE[2] ** -0.5
     out = {}
+    log(f"flash timings on {nvidia_smi_line()}")
     for dtype in (torch.bfloat16, torch.float32):
         sets = []
         for i in range(TRAIN["n_layers"]):
@@ -1300,12 +1458,22 @@ def phase_flash_timings():
                 plain_ms=device_ms(plain, iters=3), bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib)
             r = out[(name, dtype)]
-            log(f"flash {name} {str(dtype)[6:]} "
-                f"({fa.flash_route(name, dtype)}) at train shapes: "
+            route = fa.flash_route(name, dtype)
+            simt = ""
+            if route == "tf32x3":
+                simt_us = _flash_work(name, dtype, T, kv_lens)[0] / \
+                    FP32_FLOPS_PER_S * 1e6
+                simt = (f", SIMT float32 floor {simt_us:.3f} us (67 "
+                        "TFLOP/s; no bound for this route)")
+            log(f"flash {name} {str(dtype)[6:]} ({route}) at train shapes: "
                 f"{r['ms'] * 1e3:.2f} us/call, bound {bound_ms * 1e3:.3f} "
-                f"us ({bound_by}), plain {r['plain_ms'] * 1e3:.2f} us, "
+                f"us ({bound_by}){simt}, plain {r['plain_ms'] * 1e3:.2f} "
+                "us, "
                 f"sdpa {'fwd' if name == 'fwd' else 'bwd (dq+dkv)'} "
                 f"{_us(lib)}")
+            if r["ms"] < bound_ms:
+                raise AssertionError(f"flash {name} {dtype}: {r['ms']} ms "
+                                     f"reads under its bound {bound_ms} ms")
         del sets, heads, leaves, outs
     return out
 
@@ -2804,6 +2972,11 @@ def main():
     phase_flash_grad_check(batch, "bfloat16")
     phase_flash_grad_check(batch, "float32")   # leaves float32 set
     phase_train_to_serve(trainer)
+    del trainer
+    # phase 24: the default dtype, then one of its steps traced
+    trainer, batch, f32_launches = phase_train("float32", F32_TRAIN_STEPS)
+    phase_train_trace(trainer, batch, "f32 train")
+    del trainer, batch
     flash_timing = phase_flash_timings()
     rnn_err = phase_rnn_vs_plain()
     lstm_spec, lstm_trainer, lstm_batch, lstm_counts = phase_lstm_train()
@@ -2832,13 +3005,23 @@ def main():
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",
         replaces="paddle_tpu/ops/pallas_decode.py:257",
         launches=launches, max_abs_err=max_err, **timing)]
-    for (name, line, _, src), n in zip(FLASH_KERNELS, flash_launches):
+    for name, line, _, src in FLASH_KERNELS:
         kernels.append(dict(
             name=f"flash_attention_{name}", route="cuda",
             source=f"paddle_tpu_torch/csrc/{src}",
             replaces=f"paddle_tpu/ops/pallas_attention.py:{line}",
-            launches=n, max_abs_err=flash_err[(name, torch.bfloat16)],
+            launches=flash_launches[name],
+            max_abs_err=flash_err[(name, torch.bfloat16)],
             **flash_timing[(name, torch.bfloat16)]))
+    for name, line, _, _ in FLASH_KERNELS:
+        # float32, the framework's default dtype (phase 24)
+        kernels.append(dict(
+            name=f"flash_attention_{name}_f32", route="cuda",
+            source=f"paddle_tpu_torch/csrc/{FLASH_F32_SOURCES[name]}",
+            replaces=f"paddle_tpu/ops/pallas_attention.py:{line}",
+            launches=f32_launches[name],
+            max_abs_err=flash_err[(name, torch.float32)],
+            **flash_timing[(name, torch.float32)]))
     rnn_launches = {"lstm_fwd": lstm_counts["lstm_fwd"],
                     "lstm_bwd": lstm_counts["lstm_bwd"],
                     "gru_fwd": gru_launches}

@@ -32,7 +32,8 @@
 // digits) would not match, so the products stay on the float32 SIMT
 // units (67 TFLOP/s): at the transformer's shapes (b 8, h 8, T 1024,
 // d 64, causal) 8.6 GFLOP put a floor of 128 us under it. Splitting
-// each operand into three TF32 parts is untried.
+// each operand into TF32 parts, as the float32 backward kernels
+// (flash_{dq,dkv}_tf32_sm90.cu) do, is the next step.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared
 // -Xcompiler -fPIC (paddle_tpu_torch/ops/_build.py); bound with ctypes

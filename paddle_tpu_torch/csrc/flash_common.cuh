@@ -1,9 +1,9 @@
 // Shared pieces of the flash-attention kernels for Hopper (sm_90a):
 // tile loads into float32 shared memory and the two register-tiled
-// SIMT products the SIMT kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu) are built from; the wgmma kernels
-// (flash_fwd_sm90.cu, flash_dkv_sm90.cu) take only the constants,
-// set_smem and shapes_ok.
+// SIMT products the SIMT forward (flash_attention_fwd.cu) is built
+// from; the wgmma kernels (flash_{fwd,dq,dkv}_sm90.cu and
+// flash_{dq,dkv}_tf32_sm90.cu) take only the constants, set_smem and
+// shapes_ok.
 //
 // Layouts: q, out, dq [B, Tq, H, D]; k, v, dk, dv [B, Tk, H, D] (the
 // layer's [b, T, h, d] order, read in place: head h of row t lies at

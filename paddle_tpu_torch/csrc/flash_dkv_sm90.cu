@@ -1,9 +1,9 @@
 // Flash-attention dk/dv for Hopper's tensor cores (sm_90a), bfloat16.
 //
 // Replaces: paddle_tpu/ops/pallas_attention.py:_flash_bwd_dkv_kernel
-// (launched by _flash_grads) for bf16 operands; float32 keeps the SIMT
-// kernel of flash_attention_bwd.cu. The bf16 dq is flash_dq_sm90.cu.
-// Same function as that file documents: p is recomputed from the saved
+// (launched by _flash_grads) for bf16 operands; float32 takes the
+// 3xTF32 kernel of flash_dkv_tf32_sm90.cu. The bf16 dq is
+// flash_dq_sm90.cu. Same function: p is recomputed from the saved
 // natural-units lse as exp2(s*scale*log2e - lse*log2e) under the full
 // (q_len, kv_len, causal) mask, the mask applied BEFORE the exponent (a
 // fully-masked row's lse is NEG_INF), then with D = rowsum(dO*O)
@@ -265,7 +265,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype must be 1 (bfloat16): float32 takes flash_attention_bwd.cu.
+// dtype must be 1 (bfloat16): float32 takes flash_dkv_tf32_sm90.cu.
 // Returns cudaGetLastError() after the launch (0 on success); the
 // wrapper raises on anything else.
 extern "C" int pt_flash_dkv_sm90(const void* q, const void* k, const void* v,

@@ -32,7 +32,6 @@ BUILD_DIR = PKG_DIR.parent / "build" / "paddle_tpu_torch"
 SOURCES: Dict[str, str] = {
     "paged_window_attention": "paged_window_attention.cu",
     "flash_attention_fwd": "flash_attention_fwd.cu",
-    "flash_attention_bwd": "flash_attention_bwd.cu",
     "lstm_fwd": "lstm_fwd.cu",
     "lstm_bwd": "lstm_bwd.cu",
     "gru_fwd": "gru_fwd.cu",
@@ -43,6 +42,8 @@ SOURCES: Dict[str, str] = {
     "lstm_bwd_sm90": "lstm_bwd_sm90.cu",
     "lstm_fwd_sm90": "lstm_fwd_sm90.cu",
     "gru_fwd_sm90": "gru_fwd_sm90.cu",
+    "flash_dq_tf32_sm90": "flash_dq_tf32_sm90.cu",
+    "flash_dkv_tf32_sm90": "flash_dkv_tf32_sm90.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

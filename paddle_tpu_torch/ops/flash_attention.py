@@ -10,20 +10,23 @@
 - :func:`flash_forward`, :func:`flash_backward_dq`,
   :func:`flash_backward_dkv`: one wrapper per kernel. A tensor on the
   CPU takes the plain version; a tensor on a CUDA card launches a
-  hand-written Hopper kernel or raises. The kernel is chosen by dtype
-  alone (:func:`flash_route`), never on error:
+  hand-written Hopper kernel or raises. The kernel (under ``csrc/``) is
+  chosen by dtype alone (:func:`flash_route`), never on error:
 
-  ========  ==========================  =================================
-  kernel    bfloat16 ("sm90")           float32 ("simt")
-  ========  ==========================  =================================
-  forward   ``csrc/flash_fwd_sm90.cu``  ``csrc/flash_attention_fwd.cu``
-  dq        ``csrc/flash_dq_sm90.cu``   ``csrc/flash_attention_bwd.cu``
-  dk/dv     ``csrc/flash_dkv_sm90.cu``  ``csrc/flash_attention_bwd.cu``
-  ========  ==========================  =================================
+  ========  =====================  =========================  ========
+  kernel    bfloat16, "sm90"       float32                    route
+  ========  =====================  =========================  ========
+  forward   ``flash_fwd_sm90.cu``  ``flash_attention_fwd.cu``  "simt"
+  dq        ``flash_dq_sm90.cu``   ``flash_dq_tf32_sm90.cu``   "tf32x3"
+  dk/dv     ``flash_dkv_sm90.cu``  ``flash_dkv_tf32_sm90.cu``  "tf32x3"
+  ========  =====================  =========================  ========
 
   The sm90 kernels run every product of every tile on wgmma over
-  TMA-fed tiles; the SIMT kernels multiply in float32, as the JAX
-  kernels' ``Precision.HIGHEST`` requires. They replace
+  TMA-fed tiles. The tf32x3 kernels do too, each float32 product as
+  three TF32 products of split operands (hi.hi + hi.lo + lo.hi), about
+  float32 accuracy, as the JAX kernels' ``Precision.HIGHEST`` asks;
+  their tiles by head dim are :func:`flash_tf32_plan`. The float32
+  forward multiplies on the SIMT float32 units. They replace
   ``_flash_kernel``, ``_flash_bwd_dq_kernel`` and
   ``_flash_bwd_dkv_kernel``. Each launch adds one to the wrapper's
   ``launches`` and to its route's entry in ``route_launches``.
@@ -50,6 +53,8 @@ import torch
 
 NEG_INF = -1e30
 _MAX_HEAD_DIM = 128
+# shared memory a block may use on sm_90 (the 227 KB opt-in)
+SMEM_LIMIT = 232448
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -174,23 +179,75 @@ _KERNELS = {
     ("fwd", "sm90"): ("flash_fwd_sm90", "pt_flash_fwd_sm90"),
     ("fwd", "simt"): ("flash_attention_fwd", "pt_flash_fwd"),
     ("dq", "sm90"): ("flash_dq_sm90", "pt_flash_dq_sm90"),
-    ("dq", "simt"): ("flash_attention_bwd", "pt_flash_bwd_dq"),
+    ("dq", "tf32x3"): ("flash_dq_tf32_sm90", "pt_flash_dq_tf32_sm90"),
     ("dkv", "sm90"): ("flash_dkv_sm90", "pt_flash_dkv_sm90"),
-    ("dkv", "simt"): ("flash_attention_bwd", "pt_flash_bwd_dkv"),
+    ("dkv", "tf32x3"): ("flash_dkv_tf32_sm90", "pt_flash_dkv_tf32_sm90"),
 }
 
 
 def flash_route(kernel: str, dtype: torch.dtype) -> str:
     """The route of ``kernel`` ("fwd", "dq" or "dkv") for operands of
-    ``dtype``: bfloat16 takes the wgmma kernels ("sm90"), float32 the
-    SIMT kernels ("simt"). Every head dim the shape gate admits takes
-    the same route."""
+    ``dtype``: bfloat16 takes the wgmma kernels ("sm90"); float32 the
+    3xTF32 wgmma kernels for dq and dk/dv ("tf32x3") and the SIMT
+    forward ("simt"). Every head dim the shape gate admits takes the
+    same route (:func:`flash_tf32_plan` covers them all)."""
     if kernel not in ("fwd", "dq", "dkv"):
         raise ValueError(f"no flash kernel {kernel!r}")
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"flash kernels take float32 or bfloat16, got "
                         f"{dtype}")
-    return "sm90" if dtype == torch.bfloat16 else "simt"
+    if dtype == torch.bfloat16:
+        return "sm90"
+    return "simt" if kernel == "fwd" else "tf32x3"
+
+
+def flash_routes(kernel: str) -> Tuple[str, ...]:
+    """Every route of ``kernel``: the keys of its ``route_launches``."""
+    return tuple(r for k, r in _KERNELS if k == kernel)
+
+
+def flash_tf32_plan(kernel: str, d: int) -> dict:
+    """The launch of the float32 ("tf32x3") dq or dk/dv kernel at head
+    dim ``d``, chosen by ``d`` alone: consumer ``warpgroups`` (dq: 64
+    query rows each; dk/dv: alternate query tiles of the block's keys),
+    the block's ``rows`` (queries for dq, keys for dk/dv), the streamed
+    ``tile`` (keys for dq, queries for dk/dv), ring ``stages``, and the
+    shared bytes, ``smem`` (dynamic, 1024 of them alignment slack) and
+    ``static`` (the mbarriers and, for dk/dv, each stage's lse and D,
+    in 16-byte units). The
+    kernels' ``Plan`` (``csrc/flash_{dq,dkv}_tf32_sm90.cu``) computes
+    the same; ``chip_smoke.py`` holds the two equal.
+
+    Each operand is held split (hi and lo, float32 rows of 128 bytes, a
+    panel every 32 columns of d), plus a transposed copy (rows = d,
+    64-row panels) of the tile the token contraction reads: dq keeps
+    its query rows' Q and dO and streams K, V and K^T; dk/dv keeps its
+    64 keys' K and V and streams Q, dO, Q^T and dO^T."""
+    if d <= 0 or d % 8 or d > _MAX_HEAD_DIM:
+        raise ValueError(f"no float32 flash plan for head dim {d}")
+    npf = -(-d // 32)                  # 32-column panels of d
+    np_ = -(-d // 64)                  # 64-column output panels
+    row = 128                          # bytes of a panel row
+    if kernel == "dq":
+        wg = 2 if npf <= 2 else 1
+        stages = 2 if npf <= 2 else 1
+        tile = 32
+        resident = 4 * wg * 64 * row * npf          # Q, dO hi and lo
+        stage = 4 * tile * row * npf + 2 * 64 * np_ * row   # K, V; K^T
+        static = 8 * (1 + 3 * stages)
+        rows = 64 * wg
+    elif kernel == "dkv":
+        wg, rows = (2 if npf <= 2 else 1), 64
+        tile = 32 if npf <= 2 else 16
+        stages = 2 if npf <= 3 else 1
+        resident = 4 * 64 * row * npf               # K, V hi and lo
+        stage = 4 * tile * row * npf + 2 * (2 * tile // 32) * 64 * np_ * row
+        static = 8 * (1 + 2 * stages) + 8 * stages * tile
+    else:
+        raise ValueError(f"no float32 flash plan for kernel {kernel!r}")
+    return dict(warpgroups=wg, rows=rows, tile=tile, stages=stages,
+                smem=1024 + resident + stages * stage,
+                static=-(-static // 16) * 16)   # ptxas rounds to 16
 
 
 def _fn(kernel: str, route: str, n_ptrs: int):
@@ -291,7 +348,7 @@ def flash_backward_dq(q, k, v, do, lse, dd, lens2, causal: bool,
                       scale: float) -> torch.Tensor:
     """dq from the saved lse and D = rowsum(dO*O) [b*h, Tq]. CPU: the
     plain version; CUDA: the dq kernel of :func:`flash_route` (bfloat16:
-    ``csrc/flash_dq_sm90.cu``, float32: ``csrc/flash_attention_bwd.cu``)."""
+    ``csrc/flash_dq_sm90.cu``, float32: ``csrc/flash_dq_tf32_sm90.cu``)."""
     if q.device.type == "cpu":
         ql, kl = _lens_pair(lens2)
         return flash_dq_reference(q, k, v, do, lse, dd, ql, kl, causal,
@@ -349,9 +406,10 @@ def flash_backward_dkv(q, k, v, do, lse, dd, lens2, causal: bool,
 
 def reset_launches():
     """Zero every flash wrapper's ``launches`` and ``route_launches``."""
-    for fn in (flash_forward, flash_backward_dq, flash_backward_dkv):
+    for kernel, fn in (("fwd", flash_forward), ("dq", flash_backward_dq),
+                       ("dkv", flash_backward_dkv)):
         fn.launches = 0
-        fn.route_launches = {"sm90": 0, "simt": 0}
+        fn.route_launches = {r: 0 for r in flash_routes(kernel)}
 
 
 reset_launches()

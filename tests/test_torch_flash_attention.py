@@ -123,11 +123,12 @@ def test_bf16_forward_and_gradients_match_pallas_interpret(case, d):
 
 @pytest.mark.parametrize("d", [8, 24, 64, 72, 128])
 def test_route_is_chosen_by_dtype_alone(d):
-    """bfloat16 forward, dq and dk/dv take the wgmma kernels (sm90),
-    float32 the SIMT kernels, at every head dim the gate admits."""
+    """bfloat16 forward, dq and dk/dv take the wgmma kernels (sm90);
+    float32 the SIMT forward and the 3xTF32 wgmma dq and dk/dv
+    (tf32x3), at every head dim the gate admits."""
     q = torch.zeros(2, 16, 2, d)
     for dtype, want in ((torch.bfloat16, ("sm90", "sm90", "sm90")),
-                        (torch.float32, ("simt", "simt", "simt"))):
+                        (torch.float32, ("simt", "tf32x3", "tf32x3"))):
         x = q.to(dtype)
         assert tfa.flash_supported(x, x)
         got = tuple(tfa.flash_route(n, x.dtype) for n in ("fwd", "dq", "dkv"))
@@ -247,7 +248,9 @@ def test_supported_gate_and_cpu_path_launches_nothing():
         tfa.flash_attention(x, x, x, causal=True).sum().backward()
     assert counts() == before
     tfa.reset_launches()
-    assert counts() == [(0, {"sm90": 0, "simt": 0})] * 3
+    assert counts() == [(0, {"sm90": 0, "simt": 0}),
+                        (0, {"sm90": 0, "tf32x3": 0}),
+                        (0, {"sm90": 0, "tf32x3": 0})]
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -257,3 +260,96 @@ def test_kernel_wrappers_refuse_other_devices():
         tfa.flash_forward(q, q, q, lens2, False, 1.0)
     with pytest.raises(ValueError, match="no flash attention kernel"):
         tfa.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("d", range(8, 129, 8))
+def test_tf32_plan_fits_every_admitted_head_dim(d):
+    """The float32 dq and dk/dv take the tf32x3 route at every head dim
+    the gate admits, and their plan (chosen by d alone) fits the 227 KB
+    of shared memory a block may use on sm_90, static words included;
+    the LM's d 64 gets 2-stage rings and two consumer warpgroups."""
+    x = torch.zeros(1, 16, 1, d)
+    assert tfa.flash_supported(x, x)
+    for kernel in ("dq", "dkv"):
+        assert tfa.flash_route(kernel, torch.float32) == "tf32x3"
+        assert (kernel, "tf32x3") in tfa._KERNELS
+        plan = tfa.flash_tf32_plan(kernel, d)
+        assert plan["smem"] + plan["static"] <= tfa.SMEM_LIMIT == 232448
+        assert plan["tile"] in (16, 32) and plan["stages"] in (1, 2)
+    dq, dkv = (tfa.flash_tf32_plan(k, d) for k in ("dq", "dkv"))
+    assert dq["rows"] == 64 * dq["warpgroups"] and dkv["rows"] == 64
+    if d <= 64:
+        assert dq["warpgroups"] == dkv["warpgroups"] == 2
+        assert dq["stages"] == dkv["stages"] == 2
+
+
+def test_tf32_plan_refuses_what_the_gate_refuses():
+    for d in (0, 12, 136):
+        with pytest.raises(ValueError):
+            tfa.flash_tf32_plan("dq", d)
+    with pytest.raises(ValueError):
+        tfa.flash_tf32_plan("fwd", 64)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits: the low 13 of float32 masked)
+    to nearest, ties away from zero, as cvt.rna.tf32.f32 rounds."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm(eq, a, b, split):
+    """einsum ``eq`` as the tf32x3 kernels multiply: lo.hi + hi.lo +
+    hi.hi of TF32 parts on float32 sums (``split``), or one TF32 pass."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not split:
+        return torch.einsum(eq, ah, bh)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) + \
+        torch.einsum(eq, ah, bh)
+
+
+def _tf32x3_grads(q, k, v, do, lse, dd, ql, kl, causal, scale, split):
+    """(dq, dk, dv) as csrc/flash_{dq,dkv}_tf32_sm90.cu compute them:
+    S and dP^T from split operands, p under the mask from the saved lse,
+    dS split again (from its accumulator, in registers on the card),
+    every product in TF32 parts."""
+    b, t, h, _ = q.shape
+    mask = tfa.lens_mask(torch.tensor(ql), torch.tensor(kl), t, k.shape[1],
+                         causal)[:, None]
+    s = _mm("bqhd,bkhd->bhqk", q, k, split)
+    lse4 = lse.reshape(b, h, t, 1)
+    p = torch.where(mask, torch.exp2(torch.where(
+        mask, s * (scale * 1.4426950408889634) - lse4 * 1.4426950408889634,
+        torch.zeros_like(s))), torch.zeros_like(s))
+    dp = _mm("bqhd,bkhd->bhqk", do, v, split)
+    ds = p * (dp - dd.reshape(b, h, t, 1)) * scale
+    return (_mm("bhqk,bkhd->bqhd", ds, k, split),
+            _mm("bhqk,bqhd->bkhd", ds, q, split),
+            _mm("bhqk,bqhd->bkhd", p, do, split))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 72])
+def test_tf32x3_products_meet_the_float32_tolerance(d, causal):
+    """The float32 kernels' arithmetic emulated on the CPU (b 2, T 80,
+    h 2, ragged q and kv lengths with fully-masked rows) against the JAX
+    package's _flash_grads in interpret mode at the float32 atol 2e-5:
+    the three-pass split meets it, one TF32 pass does not."""
+    t = 80
+    q, k, v, do = _inputs(t, t, seed=20 + d, b=2, h=2, d=d)
+    ql = np.array([80, 61], np.int32)
+    kl = np.array([77, 80], np.int32)
+    want = _jax_out_and_grads(q, k, v, do, ql, kl, causal, 16)
+    tq_, tk_, tv_, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    lens2 = torch.tensor(np.stack([ql, kl], 1))
+    scale = d ** -0.5
+    out, lse = tfa.flash_forward(tq_, tk_, tv_, lens2, causal, scale)
+    dd = tfa.rowsum_do_o(tdo, out)
+    args = (tq_, tk_, tv_, tdo, lse, dd, ql, kl, causal, scale)
+    for name, a, w in zip(("dq", "dk", "dv"), _tf32x3_grads(*args, True),
+                          want[1:]):
+        np.testing.assert_allclose(a.numpy(), w, atol=ATOL, err_msg=name)
+    one_pass = _tf32x3_grads(*args, False)
+    assert max(float(np.abs(a.numpy() - w).max())
+               for a, w in zip(one_pass, want[1:])) > ATOL
