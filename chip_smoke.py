@@ -9,10 +9,11 @@ Phases (any failure exits non-zero before the final line):
 
 1. build — compile every hand-written kernel from the sources in this
    checkout (one nvcc per source, all at once, sm_90a), print the
-   ptxas report (and its wgmma warnings); the seven wgmma kernels
+   ptxas report (and its wgmma warnings); the eight wgmma kernels
    (flash_fwd_sm90.cu, flash_dq_sm90.cu, flash_dkv_sm90.cu,
-   lstm_fwd_sm90.cu, lstm_bwd_sm90.cu, flash_dq_tf32_sm90.cu,
-   flash_dkv_tf32_sm90.cu) must report 0 spill bytes and no C75xx
+   lstm_fwd_sm90.cu, lstm_bwd_sm90.cu, flash_fwd_tf32_sm90.cu,
+   flash_dq_tf32_sm90.cu, flash_dkv_tf32_sm90.cu) must report 0 spill
+   bytes and no C75xx
    warning (products serialized), and the window kernel
    (paged_window_attention.cu) and the cluster GRU kernel
    (gru_fwd_sm90.cu) 0 spill bytes. Then the building blocks of
@@ -29,7 +30,8 @@ Phases (any failure exits non-zero before the final line):
    B transposed in the fragment's k order, against float64 products
    (max |err| <= 1e-5 x max(1, max|ref|), which one TF32 pass fails);
    then flash_tf32_plan (ops/flash_attention.py) against the float32
-   dq and dk/dv kernels' own plan and shared bytes at every d 8..128.
+   forward, dq and dk/dv kernels' own plan and shared bytes at every d
+   8..128.
 2. kernel vs plain — paged window attention at full width (dh 64,
    page 16, 8 slots, 34 pages a slot, lengths up to 544), h/g in
    {8/8, 8/2, 8/1}, W in {1, 4}, float32 and bfloat16, against the
@@ -72,17 +74,19 @@ Phases (any failure exits non-zero before the final line):
    and non-causal T 1000 (not a block multiple) with q_lens below T
    and fully-masked rows, then the causal case at head dim 128 and the
    non-causal one at head dim 72 (a d tail the TMA zero-fills), each
-   in float32 (the SIMT forward, the 3xTF32 wgmma dq and dk/dv) and
-   bfloat16 (the wgmma forward, dq and dk/dv); out, lse, dq, dk, dv
-   against autograd of
-   the plain version in float32 on the same values: float32
-   assert_close(rtol 2e-4, atol 2e-5 max(1, max|ref|)), bfloat16
-   max |err| <= 2e-2 max(1, max|ref|), and per (batch row, head)
-   slice max |err| <= 2e-2 max|ref| of the slice (floored at 1e-3
-   max(1, max|ref|) for slices 0 by cancellation), which must reject
-   two planted faults each of dq and dv (zeroed past query / key 64;
-   x 0.95 outside the largest slice), as the float32 bound must;
-   fully-masked rows give lse == NEG_INF and out == 0.
+   in float32 (the 3xTF32 wgmma forward, dq and dk/dv) and bfloat16
+   (the wgmma forward, dq and dk/dv); out, lse, dq, dk, dv against
+   autograd of the plain version in float32 on the same values:
+   float32 assert_close(rtol 2e-4, atol 2e-5 max(1, max|ref|)), lse
+   also max |err| <= 2e-5 max(1, max|ref|) with no relative term (an
+   error in lse scales a whole row of p), bfloat16 max |err| <= 2e-2
+   max(1, max|ref|), and per (batch row, head) slice max |err| <= 2e-2
+   max|ref| of the slice (floored at 1e-3 max(1, max|ref|) for slices
+   0 by cancellation), which must reject two planted faults each of dq
+   and dv (zeroed past query / key 64; x 0.95 outside the largest
+   slice), as the float32 bound must, and the float32 bound also two
+   of the forward (out x 0.95 in its largest slice; lse + 1e-3 past
+   query 64); fully-masked rows give lse == NEG_INF and out == 0.
 7. train — the main training path: the full-width tied transformer_lm
    (vocab 32000, d_model 512, 8 heads, 6 layers, d_ff 2048, 1024
    tokens) built with the port's DSL, Parameters.create, and
@@ -90,8 +94,8 @@ Phases (any failure exits non-zero before the final line):
    8 full-length rows: 2 warm-up steps, then 8 timed steps with the
    flash launch counts zeroed just before and read just after. Asserts
    finite, falling losses, finite parameters and, by route, steps x 6
-   launches of the wgmma forward, dq and dk/dv, none of the SIMT
-   kernels. Then, from one table, the gradients of
+   launches of the wgmma forward, dq and dk/dv, none of the float32
+   (tf32x3) kernels. Then, from one table, the gradients of
    one Topology.forward cost with use_flash_attention True against
    False, in bfloat16 (worst per-parameter ||diff|| / ||g|| at most
    max(2e-2, twice the plain path's own spread under a one-ulp bf16
@@ -106,8 +110,8 @@ Phases (any failure exits non-zero before the final line):
    4 seeded requests, zero step failures, tokens identical to the
    dense generate under the tie rule.
 9. flash timings — each flash kernel's device time per call at the
-   training shapes, bf16 (the wgmma kernels) and f32 (the SIMT forward,
-   the tf32x3 dq and dk/dv) by CUDA-graph replay over 6 input sets,
+   training shapes, bf16 (the wgmma kernels) and f32 (the tf32x3
+   forward, dq and dk/dv) by CUDA-graph replay over 6 input sets,
    its bound by route (the tf32x3 kernels': three TF32 passes of every
    product at 494.7 TFLOP/s, printed beside the SIMT float32 floor at
    67 TFLOP/s, which is no bound for them; a reading under its bound
@@ -235,7 +239,7 @@ Phases (any failure exits non-zero before the final line):
    compute_dtype float32, 2 warm-up steps, then 4 timed steps with the
    flash launch counts zeroed just before and read just after; finite,
    falling losses, finite parameters and, by route, steps x 6 launches
-   of the SIMT forward and the tf32x3 dq and dk/dv, none of the bf16
+   of the tf32x3 forward, dq and dk/dv, none of the bf16
    kernels; prints step_ms and tokens/s; then one step under
    torch.profiler (device busy against the wall clock, top kernels,
    the flash share).
@@ -287,17 +291,17 @@ TRAIN_ROWS, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 8
 FLASH_KERNELS = [("fwd", 43, "sm90", "flash_fwd_sm90.cu"),
                  ("dq", 225, "sm90", "flash_dq_sm90.cu"),
                  ("dkv", 264, "sm90", "flash_dkv_sm90.cu")]
-# the float32 sources (routes "simt", "tf32x3", "tf32x3"): the framework's
-# default compute dtype, trained by phase 24
-FLASH_F32_SOURCES = {"fwd": "flash_attention_fwd.cu",
+# the float32 sources (route "tf32x3"): the framework's default compute
+# dtype, trained by phase 24
+FLASH_F32_SOURCES = {"fwd": "flash_fwd_tf32_sm90.cu",
                      "dq": "flash_dq_tf32_sm90.cu",
                      "dkv": "flash_dkv_tf32_sm90.cu"}
 F32_TRAIN_STEPS = 4
 # the wgmma kernels, which must build with 0 spill bytes and no C75xx
 # warning; the window kernel must build with 0 spill bytes too
 SM90_LIBS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90",
-             "lstm_fwd_sm90", "lstm_bwd_sm90", "flash_dq_tf32_sm90",
-             "flash_dkv_tf32_sm90")
+             "lstm_fwd_sm90", "lstm_bwd_sm90", "flash_fwd_tf32_sm90",
+             "flash_dq_tf32_sm90", "flash_dkv_tf32_sm90")
 NO_SPILL_LIBS = SM90_LIBS + ("paged_window_attention", "gru_fwd_sm90")
 
 
@@ -538,14 +542,14 @@ def _tf32_product_check():
 
 def _tf32_plan_check():
     """ops/flash_attention.py flash_tf32_plan against the kernels' own
-    Plan (pt_flash_dq_tf32_plan, pt_flash_dkv_tf32_plan: warpgroups,
-    rows, tile, stages, dynamic and static shared bytes) at every head
-    dim the shape gate admits, each within the 227 KB opt-in."""
+    Plan (pt_flash_{fwd,dq,dkv}_tf32_plan: warpgroups, rows, tile,
+    stages, dynamic and static shared bytes) at every head dim the shape
+    gate admits, each within the 227 KB opt-in."""
     import ctypes
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
     keys = ("warpgroups", "rows", "tile", "stages", "smem", "static")
-    for kernel in ("dq", "dkv"):
+    for kernel in ("fwd", "dq", "dkv"):
         fn = getattr(_build.load(f"flash_{kernel}_tf32_sm90"),
                      f"pt_flash_{kernel}_tf32_plan")
         fn.restype = ctypes.c_int
@@ -940,6 +944,18 @@ def _held(name, got, want, dtype):
     return err
 
 
+def _held_lse(got, want):
+    """lse on the live rows: _held's float32 bound, and max |err| <= 2e-5
+    x max(1, max|ref|) with no relative term: an error e in lse scales
+    every p of its row by exp(e) however large lse is (at lse ~7 the
+    rtol term alone passes e = 1.4e-3). Returns max |err|."""
+    err = _held("lse", got, want, torch.float32)
+    bound = F32_TOL["atol"] * max(1.0, want.abs().max().item())
+    if err > bound:
+        raise AssertionError(f"lse off by {err} > {bound}")
+    return err
+
+
 def _slice_ratio(got, want):
     """(worst ratio, (batch row, head)) over the (batch row, head) slices
     of [b, T, h, d] tensors: max |err| of the slice over max |ref| of
@@ -986,6 +1002,30 @@ def _held_faults_f32(label, grads, refs):
                                  f"planted fault ({fault})")
 
 
+def _held_faults_fwd(label, out, ref, lse, lse_ref, live):
+    """float32: two planted faults of the forward must fail phase 6's
+    float32 checks: out x 0.95 in the (batch row, head) slice that holds
+    its max |ref|, and lse + 1e-3 on the rows past query 64."""
+    top = int(ref.detach().abs().amax((1, 3)).argmax())
+    b_top, h_top = divmod(top, out.shape[2])
+    scaled = out.clone()
+    scaled[b_top, :, h_top] *= 0.95
+    shifted = lse.clone()
+    shifted[:, 64:] += 1e-3
+    for fault, check in (
+            ("out x 0.95 in its top slice",
+             lambda: _held("out", scaled, ref, torch.float32)),
+            ("lse + 1e-3 past query 64",
+             lambda: _held_lse(shifted[live], lse_ref[live]))):
+        try:
+            check()
+        except AssertionError:
+            log(f"{label} f32 planted fault, {fault}: rejected")
+            continue
+        raise AssertionError(f"{label}: the float32 check passes a "
+                             f"planted fault ({fault})")
+
+
 def _held_slices(label, grads, refs):
     """bfloat16: each of out, dq, dk, dv held per (batch row, head)
     slice, max |err| <= 2e-2 x max |ref| of the slice (see
@@ -1025,10 +1065,11 @@ def phase_flash_vs_plain():
     64, then the causal case at head dim 128 (bf16: two d panels, two
     dk/dv warpgroups, two dQ accumulators; f32: the one-stage plans and
     16-query dk/dv tiles) and the non-causal one at head dim 72 (the
-    zero-filled d tail), each in float32 (the SIMT forward, the tf32x3
-    dq and dk/dv) and bfloat16 (the sm90 route: the wgmma forward, dq
-    and dk/dv). Planted faults of dq and dv must fail each dtype's
-    check. Returns the worst max |err| by (kernel, dtype)."""
+    zero-filled d tail), each in float32 (the tf32x3 forward, dq and
+    dk/dv) and bfloat16 (the sm90 route: the wgmma forward, dq and
+    dk/dv). Planted faults of dq and dv must fail each dtype's check,
+    and planted faults of out and lse the float32 one. Returns the
+    worst max |err| by (kernel, dtype)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     f32, bf16 = torch.float32, torch.bfloat16
     causal_lens = ([1024] * 8, FLASH_KV_LENS)
@@ -1067,8 +1108,7 @@ def phase_flash_vs_plain():
                 raise AssertionError(f"{label}: out of a fully-masked row "
                                      "is not 0")
             errs = {"out": _held("out", out, ref, dtype),
-                    "lse": _held("lse", lse[live], lse_ref[live],
-                                 torch.float32),
+                    "lse": _held_lse(lse[live], lse_ref[live]),
                     "dq": _held("dq", dq, gq, dtype),
                     "dk": _held("dk", dk, gk, dtype),
                     "dv": _held("dv", dv, gv, dtype)}
@@ -1076,6 +1116,7 @@ def phase_flash_vs_plain():
             refs = {"out": ref, "dq": gq, "dk": gk, "dv": gv}
             if dtype == f32:
                 _held_faults_f32(label, grads, refs)
+                _held_faults_fwd(label, out, ref, lse, lse_ref, live)
                 slices = ""
             else:
                 slices = "; per-slice ratios " + ", ".join(
@@ -1192,8 +1233,8 @@ ATTN_LEAF = re.compile(r"_l\d+_(q|k|v|proj)\.w0$")
 def phase_flash_grad_check(batch, compute_dtype="float32"):
     """Full width, one table, in ``compute_dtype``: the gradients of one
     Topology.forward cost with use_flash_attention True (the kernels of
-    ``flash_route``: in float32 the SIMT forward and the tf32x3 dq and
-    dk/dv) against
+    ``flash_route``: in float32 the tf32x3 forward, dq and dk/dv)
+    against
     False (the plain version): the worst per-parameter
     ||g_kernel - g_plain|| / ||g_plain|| at most max(1e-3, twice the
     plain version's own spread), and the costs within 1e-5 (float32);
@@ -1370,13 +1411,12 @@ def _flash_work(kernel, dtype, T, kv_lens, causal=True):
 def _flash_bound(kernel, dtype, T, kv_lens, causal=True):
     """(bound_ms, bound_by): the larger of the bytes the call must move
     at 3.35 TB/s and its operations at its route's peak: bf16 wgmma
-    (sm90) at 989 TFLOP/s, the SIMT float32 forward at 67 TFLOP/s, and
-    the tf32x3 dq and dk/dv as three TF32 passes of every product at
-    494.7 TFLOP/s (a tensor-core kernel can read under the SIMT float32
-    floor, which is no bound for it)."""
+    (sm90) at 989 TFLOP/s, and the float32 tf32x3 kernels as three TF32
+    passes of every product at 494.7 TFLOP/s (a tensor-core kernel can
+    read under the SIMT float32 floor, which is no bound for it)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     flops, nbytes = _flash_work(kernel, dtype, T, kv_lens, causal)
-    rate = {"sm90": BF16_FLOPS_PER_S, "simt": FP32_FLOPS_PER_S,
+    rate = {"sm90": BF16_FLOPS_PER_S,
             "tf32x3": TF32_FLOPS_PER_S / 3}[fa.flash_route(kernel, dtype)]
     t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, \

@@ -1,8 +1,8 @@
 // Flash-attention forward for Hopper's tensor cores (sm_90a), bfloat16.
 //
 // Replaces: paddle_tpu/ops/pallas_attention.py:_flash_kernel (launched
-// by _flash_call, public flash_attention) for bf16 q/k/v; float32 keeps
-// the SIMT kernel of flash_attention_fwd.cu. Same function as that
+// by _flash_call, public flash_attention) for bf16 q/k/v; float32 takes
+// the 3xTF32 kernel of flash_fwd_tf32_sm90.cu. Same function as that
 // kernel documents: a base-2 online softmax (scale*log2(e) folded into
 // the scores, p zeroed explicitly on masked entries) over the per-row
 // (q_len, kv_len) mask and, under causal, cols <= rows; rows with no
@@ -63,52 +63,6 @@ using namespace sm90;
 
 constexpr int kStages = 2;
 constexpr int kWarpgroups = 2;       // consumer warpgroups: 128 query rows
-
-// one m64n64 score tile, masked (Masked) or not, folded into the running
-// (m, l, O) of the thread's two rows; P comes back as bf16 A fragments
-template <bool Masked, int NP>
-__device__ __forceinline__ void online_update(
-    float (&s)[32], float (&o)[NP][32], float (&m)[2], float (&l)[2],
-    uint32_t (&pa)[16], float scale_log2, int row0, int k0, int q_len,
-    int kv_len, int causal, int lane) {
-  float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    float x = s[i] * scale_log2;
-    if (Masked) {
-      const int row = row0 + 8 * ((i >> 1) & 1);
-      const int col = k0 + frag_col(i, lane);
-      if (!(row < q_len && col < kv_len && (!causal || col <= row)))
-        x = kNegInf;
-    }
-    s[i] = x;
-    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
-  }
-  float alpha[2], mnew[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-    mnew[h] = fmaxf(m[h], mx[h]);
-    alpha[h] = exp2f(m[h] - mnew[h]);
-    m[h] = mnew[h];
-    l[h] *= alpha[h];
-  }
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int h = (i >> 1) & 1;
-    // explicit zero on masked entries: a row masked in every tile so
-    // far has mnew == NEG_INF and would see exp2(0) == 1
-    const float p = (Masked && s[i] == kNegInf) ? 0.f : exp2f(s[i] - mnew[h]);
-    s[i] = p;
-    l[h] += p;
-  }
-#pragma unroll
-  for (int pnl = 0; pnl < NP; ++pnl)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[pnl][i] *= alpha[(i >> 1) & 1];
-  pack_a(s, pa);
-}
 
 template <int NP>
 __global__ void __launch_bounds__(128 * kWarpgroups + 32, 1)
@@ -217,15 +171,16 @@ __global__ void __launch_bounds__(128 * kWarpgroups + 32, 1)
       wgmma_wait<0>();
       fence_regs(sc);
 
-      uint32_t pa[16];
       const bool interior = (qg + 64 <= q_len) && (k0 + kRows <= kv_len) &&
                             (!causal || k0 + kRows - 1 <= qg);
       if (interior)
-        online_update<false, NP>(sc, o, m, l, pa, scale_log2, row0, k0,
-                                 q_len, kv_len, causal, lane);
+        online_softmax<false, 32, NP>(sc, o, m, l, scale_log2, row0, k0,
+                                      q_len, kv_len, causal, lane);
       else
-        online_update<true, NP>(sc, o, m, l, pa, scale_log2, row0, k0,
-                                q_len, kv_len, causal, lane);
+        online_softmax<true, 32, NP>(sc, o, m, l, scale_log2, row0, k0,
+                                     q_len, kv_len, causal, lane);
+      uint32_t pa[16];
+      pack_a(sc, pa);
 
       fence_regs(pa);
 #pragma unroll
@@ -367,7 +322,7 @@ __global__ void __launch_bounds__(128) sm90_product_check_kernel(
 
 }  // namespace
 
-// dtype must be 1 (bfloat16): float32 takes flash_attention_fwd.cu.
+// dtype must be 1 (bfloat16): float32 takes flash_fwd_tf32_sm90.cu.
 // Returns cudaGetLastError() after the launch (0 on success); the
 // wrapper raises on anything else.
 extern "C" int pt_flash_fwd_sm90(const void* q, const void* k, const void* v,

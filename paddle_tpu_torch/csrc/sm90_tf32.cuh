@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the float32 flash-attention
-// backward on the tensor cores (flash_dq_tf32_sm90.cu,
-// flash_dkv_tf32_sm90.cu): float32-accurate products as three TF32
-// wgmma products (3xTF32), all inline PTX, no library.
+// kernels on the tensor cores (flash_fwd_tf32_sm90.cu,
+// flash_dq_tf32_sm90.cu, flash_dkv_tf32_sm90.cu): float32-accurate
+// products as three TF32 wgmma products (3xTF32), all inline PTX, no
+// library.
 //
 // The split. Each float32 operand x is held as two TF32 values,
 //   hi = rna_tf32(x),  lo = rna_tf32(x - hi)  (to_tf32 below),
@@ -24,10 +25,11 @@
 //
 // TF32 wgmma takes both shared-memory operands K-major only: the
 // transpose bits exist for 16-bit types. So a product that contracts
-// over tokens (dQ = dS K, dV = P^T dO, dK = dS^T Q) reads a transposed
-// copy of the token tile, rows = d, one 128-byte row holding the tile's
-// tokens (transpose_tile). TMA cannot transpose a 32-bit tile; the
-// copy is written from the tile the TMA loaded, split on the way.
+// over tokens (O = P V, dQ = dS K, dV = P^T dO, dK = dS^T Q) reads a
+// transposed copy of the token tile, rows = d, one 128-byte row holding
+// the tile's tokens (transpose_tile). TMA cannot transpose a 32-bit
+// tile; the copy is written from the tile the TMA loaded, split on the
+// way.
 //
 // Register A operands. The m64k8 TF32 A fragment of lane l (g = l / 4,
 // t = l % 4) holds a0 (row g, k t), a1 (row g + 8, k t), a2 (row g,
@@ -184,8 +186,8 @@ __device__ __forceinline__ void split_a(const float (&d)[N],
   }
 }
 
-// d += A B, m64n16k8 / m64n32k8 TF32, both operands K-major in shared
-// memory
+// d += A B, m64n16k8 / m64n32k8 / m64n64k8 TF32, both operands K-major
+// in shared memory
 __device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t da,
                                          uint64_t db) {
   asm volatile(
@@ -214,6 +216,28 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(1));
 }
 

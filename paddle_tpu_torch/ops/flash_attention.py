@@ -16,7 +16,7 @@
   ========  =====================  =========================  ========
   kernel    bfloat16, "sm90"       float32                    route
   ========  =====================  =========================  ========
-  forward   ``flash_fwd_sm90.cu``  ``flash_attention_fwd.cu``  "simt"
+  forward   ``flash_fwd_sm90.cu``  ``flash_fwd_tf32_sm90.cu``  "tf32x3"
   dq        ``flash_dq_sm90.cu``   ``flash_dq_tf32_sm90.cu``   "tf32x3"
   dk/dv     ``flash_dkv_sm90.cu``  ``flash_dkv_tf32_sm90.cu``  "tf32x3"
   ========  =====================  =========================  ========
@@ -25,8 +25,7 @@
   TMA-fed tiles. The tf32x3 kernels do too, each float32 product as
   three TF32 products of split operands (hi.hi + hi.lo + lo.hi), about
   float32 accuracy, as the JAX kernels' ``Precision.HIGHEST`` asks;
-  their tiles by head dim are :func:`flash_tf32_plan`. The float32
-  forward multiplies on the SIMT float32 units. They replace
+  their tiles by head dim are :func:`flash_tf32_plan`. They replace
   ``_flash_kernel``, ``_flash_bwd_dq_kernel`` and
   ``_flash_bwd_dkv_kernel``. Each launch adds one to the wrapper's
   ``launches`` and to its route's entry in ``route_launches``.
@@ -177,7 +176,7 @@ def flash_supported(q: torch.Tensor, k: torch.Tensor) -> bool:
 # (kernel, route) -> (library, C symbol)
 _KERNELS = {
     ("fwd", "sm90"): ("flash_fwd_sm90", "pt_flash_fwd_sm90"),
-    ("fwd", "simt"): ("flash_attention_fwd", "pt_flash_fwd"),
+    ("fwd", "tf32x3"): ("flash_fwd_tf32_sm90", "pt_flash_fwd_tf32_sm90"),
     ("dq", "sm90"): ("flash_dq_sm90", "pt_flash_dq_sm90"),
     ("dq", "tf32x3"): ("flash_dq_tf32_sm90", "pt_flash_dq_tf32_sm90"),
     ("dkv", "sm90"): ("flash_dkv_sm90", "pt_flash_dkv_sm90"),
@@ -187,18 +186,16 @@ _KERNELS = {
 
 def flash_route(kernel: str, dtype: torch.dtype) -> str:
     """The route of ``kernel`` ("fwd", "dq" or "dkv") for operands of
-    ``dtype``: bfloat16 takes the wgmma kernels ("sm90"); float32 the
-    3xTF32 wgmma kernels for dq and dk/dv ("tf32x3") and the SIMT
-    forward ("simt"). Every head dim the shape gate admits takes the
-    same route (:func:`flash_tf32_plan` covers them all)."""
+    ``dtype``: bfloat16 takes the wgmma kernels ("sm90"), float32 the
+    3xTF32 wgmma kernels ("tf32x3"). Every head dim the shape gate
+    admits takes the same route (:func:`flash_tf32_plan` covers them
+    all)."""
     if kernel not in ("fwd", "dq", "dkv"):
         raise ValueError(f"no flash kernel {kernel!r}")
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"flash kernels take float32 or bfloat16, got "
                         f"{dtype}")
-    if dtype == torch.bfloat16:
-        return "sm90"
-    return "simt" if kernel == "fwd" else "tf32x3"
+    return "sm90" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def flash_routes(kernel: str) -> Tuple[str, ...]:
@@ -207,20 +204,21 @@ def flash_routes(kernel: str) -> Tuple[str, ...]:
 
 
 def flash_tf32_plan(kernel: str, d: int) -> dict:
-    """The launch of the float32 ("tf32x3") dq or dk/dv kernel at head
-    dim ``d``, chosen by ``d`` alone: consumer ``warpgroups`` (dq: 64
-    query rows each; dk/dv: alternate query tiles of the block's keys),
-    the block's ``rows`` (queries for dq, keys for dk/dv), the streamed
-    ``tile`` (keys for dq, queries for dk/dv), ring ``stages``, and the
-    shared bytes, ``smem`` (dynamic, 1024 of them alignment slack) and
-    ``static`` (the mbarriers and, for dk/dv, each stage's lse and D,
-    in 16-byte units). The
-    kernels' ``Plan`` (``csrc/flash_{dq,dkv}_tf32_sm90.cu``) computes
-    the same; ``chip_smoke.py`` holds the two equal.
+    """The launch of the float32 ("tf32x3") forward, dq or dk/dv kernel
+    at head dim ``d``, chosen by ``d`` alone: consumer ``warpgroups``
+    (forward and dq: 64 query rows each; dk/dv: alternate query tiles of
+    the block's keys), the block's ``rows`` (queries for the forward and
+    dq, keys for dk/dv), the streamed ``tile`` (keys for the forward and
+    dq, queries for dk/dv), ring ``stages``, and the shared bytes,
+    ``smem`` (dynamic, 1024 of them alignment slack) and ``static`` (the
+    mbarriers and, for dk/dv, each stage's lse and D, in 16-byte units).
+    The kernels' ``Plan`` (``csrc/flash_{fwd,dq,dkv}_tf32_sm90.cu``)
+    computes the same; ``chip_smoke.py`` holds the two equal.
 
     Each operand is held split (hi and lo, float32 rows of 128 bytes, a
     panel every 32 columns of d), plus a transposed copy (rows = d,
-    64-row panels) of the tile the token contraction reads: dq keeps
+    64-row panels) of the tile the token contraction reads: the forward
+    keeps its query rows' Q and streams K, V as loaded and V^T; dq keeps
     its query rows' Q and dO and streams K, V and K^T; dk/dv keeps its
     64 keys' K and V and streams Q, dO, Q^T and dO^T."""
     if d <= 0 or d % 8 or d > _MAX_HEAD_DIM:
@@ -228,7 +226,16 @@ def flash_tf32_plan(kernel: str, d: int) -> dict:
     npf = -(-d // 32)                  # 32-column panels of d
     np_ = -(-d // 64)                  # 64-column output panels
     row = 128                          # bytes of a panel row
-    if kernel == "dq":
+    if kernel == "fwd":
+        wg = 2 if npf <= 2 else 1
+        stages = 2
+        tile = 64 if npf <= 2 else 32
+        resident = 2 * wg * 64 * row * npf          # Q hi and lo
+        # K hi and lo, V as loaded; V^T hi and lo of each 32-key half
+        stage = 3 * tile * row * npf + 2 * (tile // 32) * 64 * np_ * row
+        static = 8 * (1 + 3 * stages)
+        rows = 64 * wg
+    elif kernel == "dq":
         wg = 2 if npf <= 2 else 1
         stages = 2 if npf <= 2 else 1
         tile = 32

@@ -124,11 +124,11 @@ def test_bf16_forward_and_gradients_match_pallas_interpret(case, d):
 @pytest.mark.parametrize("d", [8, 24, 64, 72, 128])
 def test_route_is_chosen_by_dtype_alone(d):
     """bfloat16 forward, dq and dk/dv take the wgmma kernels (sm90);
-    float32 the SIMT forward and the 3xTF32 wgmma dq and dk/dv
-    (tf32x3), at every head dim the gate admits."""
+    float32 the 3xTF32 wgmma forward, dq and dk/dv (tf32x3), at every
+    head dim the gate admits."""
     q = torch.zeros(2, 16, 2, d)
     for dtype, want in ((torch.bfloat16, ("sm90", "sm90", "sm90")),
-                        (torch.float32, ("simt", "tf32x3", "tf32x3"))):
+                        (torch.float32, ("tf32x3",) * 3)):
         x = q.to(dtype)
         assert tfa.flash_supported(x, x)
         got = tuple(tfa.flash_route(n, x.dtype) for n in ("fwd", "dq", "dkv"))
@@ -248,7 +248,7 @@ def test_supported_gate_and_cpu_path_launches_nothing():
         tfa.flash_attention(x, x, x, causal=True).sum().backward()
     assert counts() == before
     tfa.reset_launches()
-    assert counts() == [(0, {"sm90": 0, "simt": 0}),
+    assert counts() == [(0, {"sm90": 0, "tf32x3": 0}),
                         (0, {"sm90": 0, "tf32x3": 0}),
                         (0, {"sm90": 0, "tf32x3": 0})]
 
@@ -264,31 +264,34 @@ def test_kernel_wrappers_refuse_other_devices():
 
 @pytest.mark.parametrize("d", range(8, 129, 8))
 def test_tf32_plan_fits_every_admitted_head_dim(d):
-    """The float32 dq and dk/dv take the tf32x3 route at every head dim
-    the gate admits, and their plan (chosen by d alone) fits the 227 KB
-    of shared memory a block may use on sm_90, static words included;
-    the LM's d 64 gets 2-stage rings and two consumer warpgroups."""
+    """The float32 forward, dq and dk/dv take the tf32x3 route at every
+    head dim the gate admits, and their plan (chosen by d alone) fits the
+    227 KB of shared memory a block may use on sm_90, static words
+    included; the LM's d 64 gets two consumer warpgroups and 2-stage
+    rings, and the forward 64-key tiles."""
     x = torch.zeros(1, 16, 1, d)
     assert tfa.flash_supported(x, x)
-    for kernel in ("dq", "dkv"):
+    for kernel in ("fwd", "dq", "dkv"):
         assert tfa.flash_route(kernel, torch.float32) == "tf32x3"
         assert (kernel, "tf32x3") in tfa._KERNELS
         plan = tfa.flash_tf32_plan(kernel, d)
         assert plan["smem"] + plan["static"] <= tfa.SMEM_LIMIT == 232448
-        assert plan["tile"] in (16, 32) and plan["stages"] in (1, 2)
-    dq, dkv = (tfa.flash_tf32_plan(k, d) for k in ("dq", "dkv"))
+        assert plan["tile"] in (16, 32, 64) and plan["stages"] in (1, 2)
+    fwd, dq, dkv = (tfa.flash_tf32_plan(k, d) for k in ("fwd", "dq", "dkv"))
+    assert fwd["rows"] == 64 * fwd["warpgroups"] and fwd["stages"] == 2
     assert dq["rows"] == 64 * dq["warpgroups"] and dkv["rows"] == 64
     if d <= 64:
-        assert dq["warpgroups"] == dkv["warpgroups"] == 2
-        assert dq["stages"] == dkv["stages"] == 2
+        assert fwd["warpgroups"] == dq["warpgroups"] == dkv["warpgroups"] == 2
+        assert dq["stages"] == dkv["stages"] == 2 and fwd["tile"] == 64
 
 
 def test_tf32_plan_refuses_what_the_gate_refuses():
-    for d in (0, 12, 136):
-        with pytest.raises(ValueError):
-            tfa.flash_tf32_plan("dq", d)
+    for kernel in ("fwd", "dq"):
+        for d in (0, 12, 136):
+            with pytest.raises(ValueError):
+                tfa.flash_tf32_plan(kernel, d)
     with pytest.raises(ValueError):
-        tfa.flash_tf32_plan("fwd", 64)
+        tfa.flash_tf32_plan("bwd", 64)
 
 
 def _tf32(x):
@@ -353,3 +356,70 @@ def test_tf32x3_products_meet_the_float32_tolerance(d, causal):
     one_pass = _tf32x3_grads(*args, False)
     assert max(float(np.abs(a.numpy() - w).max())
                for a, w in zip(one_pass, want[1:])) > ATOL
+
+
+def _tf32x3_forward(q, k, v, ql, kl, causal, scale, tile, split):
+    """(out, lse) as csrc/flash_fwd_tf32_sm90.cu computes them: over key
+    tiles of ``tile`` keys, S from split operands, the base-2 online
+    softmax (scale*log2(e) folded into S, p zeroed where masked), P split
+    again from its accumulator and O rescaled, then P V; every product
+    in TF32 parts (``_mm``); lse in natural units, NEG_INF where l == 0."""
+    b, t, h, _ = q.shape
+    tk = k.shape[1]
+    mask = tfa.lens_mask(torch.tensor(ql), torch.tensor(kl), t, tk,
+                         causal)[:, None]
+    m = torch.full((b, h, t, 1), tfa.NEG_INF)
+    l = torch.zeros(b, h, t, 1)
+    o = torch.zeros(b, h, t, q.shape[-1])
+    for k0 in range(0, tk, tile):
+        valid = mask[..., k0:k0 + tile]
+        s = _mm("bqhd,bkhd->bhqk", q, k[:, k0:k0 + tile], split) * \
+            (scale * 1.4426950408889634)
+        s = torch.where(valid, s, torch.full_like(s, tfa.NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(valid, torch.exp2(s - m_new), torch.zeros_like(s))
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _mm("bhqk,bkhd->bhqd", p, v[:, k0:k0 + tile], split)
+        m = m_new
+    live = l > 0
+    out = torch.where(live, o / torch.where(live, l, torch.ones_like(l)),
+                      torch.zeros_like(o))
+    lse = torch.where(live, m * 0.6931471805599453 +
+                      torch.log(torch.where(live, l, torch.ones_like(l))),
+                      torch.full_like(l, tfa.NEG_INF))
+    return out.permute(0, 2, 1, 3), lse.reshape(b * h, t)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 72])
+def test_tf32x3_forward_meets_the_float32_tolerance(d, causal):
+    """The float32 forward kernel's arithmetic emulated on the CPU (b 2,
+    T 80, h 2, ragged q and kv lengths with fully-masked rows, key tiles
+    of flash_tf32_plan("fwd", d)["tile"]) against the JAX package's
+    flash_attention and its saved logsumexp (``_flash_fwd``'s residual),
+    in interpret mode, at the float32 atol 2e-5: the three-pass split
+    meets it, one TF32 pass does not."""
+    t = 80
+    q, k, v, _ = _inputs(t, t, seed=40 + d, b=2, h=2, d=d)
+    ql = np.array([80, 61], np.int32)
+    kl = np.array([77, 80], np.int32)
+    scale = d ** -0.5
+    want, res = jfa._flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), jnp.asarray(ql),
+                               jnp.asarray(kl), causal, scale, 16, 16, True)
+    want, want_lse = np.asarray(want), np.asarray(res[4])[..., 0]
+    live = want_lse > tfa.NEG_INF / 2
+    assert not live.all() and live.any()
+    tile = tfa.flash_tf32_plan("fwd", d)["tile"]
+    tq_, tk_, tv_ = (torch.tensor(x) for x in (q, k, v))
+    args = (tq_, tk_, tv_, ql, kl, causal, scale, tile)
+    out, lse = _tf32x3_forward(*args, True)
+    np.testing.assert_allclose(out.numpy(), want, atol=ATOL, err_msg="out")
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=ATOL,
+                               err_msg="lse")
+    assert np.all(lse.numpy()[~live] == tfa.NEG_INF)
+    out1, lse1 = _tf32x3_forward(*args, False)
+    assert max(float(np.abs(out1.numpy() - want).max()),
+               float(np.abs(lse1.numpy()[live] - want_lse[live]).max())) \
+        > ATOL
