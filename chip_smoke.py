@@ -9,11 +9,11 @@ Phases (any failure exits non-zero before the final line):
 
 1. build — compile every hand-written kernel from the sources in this
    checkout (one nvcc per source, all at once, sm_90a), print the
-   ptxas report (and its wgmma warnings); the eight wgmma kernels
+   ptxas report (and its wgmma warnings); the nine wgmma kernels
    (flash_fwd_sm90.cu, flash_dq_sm90.cu, flash_dkv_sm90.cu,
    lstm_fwd_sm90.cu, lstm_bwd_sm90.cu, flash_fwd_tf32_sm90.cu,
-   flash_dq_tf32_sm90.cu, flash_dkv_tf32_sm90.cu) must report 0 spill
-   bytes and no C75xx
+   flash_dq_tf32_sm90.cu, flash_dkv_tf32_sm90.cu,
+   lstm_fwd_bf16x3_sm90.cu) must report 0 spill bytes and no C75xx
    warning (products serialized), and the window kernel
    (paged_window_attention.cu) and the cluster GRU kernel
    (gru_fwd_sm90.cu) 0 spill bytes. Then the building blocks of
@@ -23,7 +23,14 @@ Phases (any failure exits non-zero before the final line):
    m64n16k16 over TMA-loaded 64-column chunks and its weight tile
    layout; and the LSTM forward's, a [64, 120] x [120, 64] by wgmma
    m64n64k16 over its gate-major weight tiles; each against float32
-   torch products (max |err| <= 1e-3 x max(1, max|ref|)); and
+   torch products (max |err| <= 1e-3 x max(1, max|ref|)); the float32
+   LSTM forward's three bf16 passes, a float32 [64, 200] x [200, 40]
+   split by the kernel's own writers into the fragment-order planes
+   and the resident weight halves, on wgmma m64n40k16 RS, against the
+   float64 product (max |err| <= 1e-5 x max(1, max|ref|), which the
+   kernel's one-pass product must fail), and lstm_fwd_bf16x3_plan
+   (ops/fused_rnn.py) against the kernel's own plan at every h
+   1..1400; and
    sm90_tf32.cuh's 3xTF32 products on float32 tiles (TMA-loaded, split
    into TF32 hi and lo): A B^T by SS m64n32k8 and (A B^T) B by RS
    m64n64k8, the A operand split in registers from the accumulator and
@@ -126,6 +133,8 @@ Phases (any failure exits non-zero before the final line):
    versions on the same inputs: the LSTM at full width (b 128, h 1280,
    T 128, ragged lengths with 100, 1 and 128), at b 6, h 48, T 13 (a
    multiple of no tile) and at two batch tiles (b 160, h 256, T 17),
+   and at an odd h with every row shorter than T (b 5, h 45, T 9, the
+   gates past the longest row held to 0, the kernels' value there),
    the GRU at the tagger's batch (b 64, h 128, T 64 ragged), at b 6, h
    48, T 13 and b 5, h 45, T 9 (odd h), at h 160, 256, 352 (b 37:
    a cluster's rows part empty), 448 and 1024, and at b 600, h 48 (2
@@ -136,14 +145,17 @@ Phases (any failure exits non-zero before the final line):
    fail), after the plan's shared-memory arithmetic is held against
    the kernel's layout; the LSTM's h_seq, hT, cT, cseq, gates,
    dz, and through the autograd Function dx4, dw, dbias, dpeep against
-   autograd of the plain version in float32; float32 (the SIMT
-   kernels) and bfloat16 (the tensor-core forward and backward,
+   autograd of the plain version in float32; float32 (the forward on
+   three bf16 wgmma passes, lstm_fwd_bf16x3_sm90.cu, the SIMT
+   backward) and bfloat16 (the tensor-core forward and backward,
    lstm_fwd_sm90.cu and lstm_bwd_sm90.cu; each direct forward call on
    its dtype's route) at the tolerances of phase 6; the bf16 out of
    both forward calls and dz also per time step, max |err| <= 2e-2
    max|ref| of the step, which must reject planted faults (out x 0.95
    at step 0, out stale at step T/2 — step T/2 - 1's — and dz x 0.95
-   at step 0).
+   at step 0); the float32 out of both forward calls per time step at
+   the float32 tolerance (atol scaled by the step's max(1, max|ref|)),
+   which must reject out x 0.99 at step 0 and out stale at step T/2.
 12. lstm train — the sequence slice's main path: stacked_lstm_net at
    the RNN benchmark's widest row (vocab 30000, emb 128, hidden 1280,
    one LSTM, 2 classes; 11,060,482 parameters) built with the port's
@@ -160,7 +172,7 @@ Phases (any failure exits non-zero before the final line):
    1e-3.
 13. lstm infer — paddle.infer of the probabilities over 512 seeded
    ragged samples in batches of 128, float32, from the trained table:
-   4 forward launches without residuals, all on the float32 (simt)
+   4 forward launches without residuals, all on the float32 (bf16x3)
    route, probabilities within 1e-4 of the CPU port's.
 14. tagger — rnn_crf_tagger at its defaults (vocab 20000, 45 labels,
    emb 128, hidden 128): 3 float32 train steps on 64 sentences of 8-64
@@ -174,10 +186,16 @@ Phases (any failure exits non-zero before the final line):
    launch required; a launch with no record in the trace is noted).
 15. rnn timings — each recurrent kernel's device time per call and per
    run step at the main path's shapes in bfloat16 and float32
-   (CUDA-graph replay), its bound, the plain version's time; in
+   (CUDA-graph replay), its bound by route (the float32 LSTM forward's:
+   three bf16 passes at 989 TFLOP/s, printed beside the SIMT float32
+   floor at 67, which bounds no tensor-core route; a reading under its
+   bound fails), the plain version's time; in
    bfloat16 also the per-step floors of both tensor-core LSTM kernels'
    plan (their steps with no product; their grid barriers alone) and
-   their ring depth swept (2, 3 and 4 stages of 16 KB); at the
+   their ring depth swept (2, 3 and 4 stages of 16 KB); in float32 the
+   float32 forward's floors (its steps with no product, its grid
+   barriers alone, its h stream alone) and its register ring swept (8
+   and 4 k-steps, each held against the plain version); at the
    tagger's batch the cooperative GRU kernel (the earlier route), the
    sm90 GRU kernel's floors (launch and the weight load; the steps
    without the products) and its cluster size swept (1, 2, 4, 8, each
@@ -188,8 +206,10 @@ Phases (any failure exits non-zero before the final line):
    cooperative kernel, each held against the plain version, and the
    fastest; and
    cuDNN's LSTM forward as a labelled near-yardstick (printed only;
-   events behind a spin kernel, as phase 9's SDPA backward; "not
-   measured" where the call blocks the host past the spin).
+   bfloat16 by events behind a spin kernel, as phase 9's SDPA
+   backward; float32, whose call blocks the host past any spin, as the
+   sum of its kernels' device time under torch.profiler, with
+   cudnn.allow_tf32 False and True).
 16. lstm train trace — one bfloat16 LSTM train step under
    torch.profiler (run right after phase 12): device busy against the
    wall clock, the top kernels, each LSTM kernel's share.
@@ -248,7 +268,10 @@ Prints the kernel table as one JSON line (the flash and LSTM kernels at
 their bfloat16 times, the training dtype, naming their wgmma sources,
 with their errors in bfloat16 too; the flash kernels again at float32,
 the default dtype, as flash_attention_*_f32 with phase 24's launches
-and their float32 sources; the GRU kernel, gru_fwd_sm90.cu,
+and their float32 sources; the float32 LSTM forward,
+lstm_fwd_bf16x3_sm90.cu, as lstm_fwd_f32 with phase 13's launches,
+phase 11's float32 error and phase 15's float32 time; the GRU kernel,
+gru_fwd_sm90.cu,
 at float32, the dtype the tagger decodes in; the int8 and decode
 kernels at float32, the
 serving dtype, W 1), the card's name and power limit (nvidia-smi), and
@@ -301,7 +324,8 @@ F32_TRAIN_STEPS = 4
 # warning; the window kernel must build with 0 spill bytes too
 SM90_LIBS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90",
              "lstm_fwd_sm90", "lstm_bwd_sm90", "flash_fwd_tf32_sm90",
-             "flash_dq_tf32_sm90", "flash_dkv_tf32_sm90")
+             "flash_dq_tf32_sm90", "flash_dkv_tf32_sm90",
+             "lstm_fwd_bf16x3_sm90")
 NO_SPILL_LIBS = SM90_LIBS + ("paged_window_attention", "gru_fwd_sm90")
 
 
@@ -390,6 +414,8 @@ def phase_build():
     _sm90_product_check()
     _lstm_sm90_product_check()
     _lstm_fwd_sm90_product_check()
+    _bf16x3_product_check()
+    _bf16x3_plan_check()
     _tf32_product_check()
     _tf32_plan_check()
     return secs
@@ -499,6 +525,82 @@ def _lstm_fwd_sm90_product_check():
     if not e <= bound:
         raise AssertionError(f"LSTM forward sm90 product: max |err| {e} > "
                              f"{bound}")
+
+
+def _bf16x3_product_check():
+    """The float32 LSTM forward's product on its own building blocks
+    (csrc/lstm_fwd_bf16x3_sm90.cu): a float32 [64, 200] A split into
+    bf16 halves by the kernel's writer into the fragment-order planes, a
+    float32 [200, 40] W (4 gates x 10 units) split into its resident
+    halves, the three passes on wgmma m64n40k16 RS over the k-steps (the
+    last tile zero past k 200) as the kernel runs them, against the
+    float64 torch product of the same values: max |err| <= 1e-5 max(1,
+    max|ref|), which the kernel's one-pass product h1 W1 (returned
+    beside) must fail."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import fused_rnn as fr
+    fn = _build.load("lstm_fwd_bf16x3_sm90").pt_lstm_fwd_bf16x3_product_check
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    rng = np.random.RandomState(8)
+    K = 200
+    a = torch.from_numpy(rng.randn(64, K).astype(np.float32)).cuda()
+    w = torch.from_numpy(rng.randn(K, 40).astype(np.float32)).cuda()
+    c3 = torch.empty(64, 40, device="cuda")
+    c1 = torch.empty(64, 40, device="cuda")
+    hs = torch.zeros(2 * fr.lstm_fwd_bf16x3_plan(K, _sms()).k_steps * 512,
+                     dtype=torch.int32, device="cuda")
+    err = fn(a.data_ptr(), w.data_ptr(), c3.data_ptr(), c1.data_ptr(),
+             hs.data_ptr(), K, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bf16x3 product check launch failed: CUDA error "
+                           f"{err}")
+    torch.cuda.synchronize()
+    want = a.double() @ w.double()
+    bound = 1e-5 * max(1.0, want.abs().max().item())
+    e3, e1 = ((c.double() - want).abs().max().item() for c in (c3, c1))
+    log(f"bf16x3 product check A W (m64n40k16 RS, K {K}): three passes max "
+        f"|err| {e3:.3e}, one pass {e1:.3e} (limit {bound:.3e})")
+    if not e3 <= bound:
+        raise AssertionError(f"bf16x3 product: max |err| {e3} > {bound}")
+    if not e1 > bound:
+        raise AssertionError(f"the bf16x3 product bound passes one bf16 "
+                             f"pass: {e1} <= {bound}")
+
+
+def _bf16x3_plan_check():
+    """ops/fused_rnn.py lstm_fwd_bf16x3_plan against the kernel's own
+    (pt_lstm_fwd_bf16x3_plan: units, blocks, dynamic shared bytes, ring
+    depth, k-steps) at every h 1..1400 on this card's SMs and both ring
+    depths: the same plan where either fits, neither where one does
+    not, and the dynamic plus the kernel's static shared bytes within
+    the opt-in."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import fused_rnn as fr
+    fn = _build.load("lstm_fwd_bf16x3_sm90").pt_lstm_fwd_bf16x3_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    sms, fits, static = _sms(), 0, 0
+    for h in range(1, 1401):
+        for stages in (0, 4):
+            buf = (ctypes.c_int * 6)()
+            err = fn(h, sms, stages, buf)
+            want = fr.lstm_fwd_bf16x3_plan(h, sms, stages)
+            got = tuple(buf[:5]) if err == 0 else None
+            if got != (None if want is None else tuple(want)):
+                raise AssertionError(f"lstm_fwd_bf16x3_plan({h}, {sms}, "
+                                     f"{stages}) = {want}, the kernel's "
+                                     f"{got} (error {err})")
+            if got is not None:
+                fits, static = max(fits, h), buf[5]
+                if buf[2] + buf[5] > fr._SM90_SMEM:
+                    raise AssertionError(f"bf16x3 plan at h {h}: {buf[2]} + "
+                                         f"{buf[5]} bytes past the opt-in")
+    log(f"bf16x3 plan == kernel layout at h 1..1400 on {sms} SMs: fits up "
+        f"to h {fits}; at h 1280 {fr.lstm_fwd_bf16x3_plan(1280, sms)}, "
+        f"static {static} bytes")
 
 
 def _tf32_product_check():
@@ -1716,19 +1818,52 @@ def _held_steps(label, name, got, ref, faults):
     return r
 
 
+def _held_steps_f32(label, name, got, ref, faults):
+    """float32 out held per time step at _held's float32 tolerance, its
+    atol scaled by the step's own max(1, max|ref|): the ratio of each
+    element's |err| to atol + rtol |ref| is at most 1 over the step. It
+    must reject each planted fault of ``faults`` (out x 0.99 at step 0;
+    out stale at step T/2). Returns the worst ratio."""
+    w = ref.float()
+    atol = F32_TOL["atol"] * w.abs().amax((0, 2)).clamp_min(1.0)
+    limit = atol[None, :, None] + F32_TOL["rtol"] * w.abs()
+
+    def ratio(g):
+        r = ((g.float() - w).abs() / limit).amax((0, 2))
+        return r.max().item(), int(r.argmax())
+
+    r, at = ratio(got)
+    if r > 1.0:
+        raise AssertionError(f"{label} f32 {name}: step {at} at {r:.3e} of "
+                             "its float32 tolerance")
+    for fault, bad in faults:
+        rb, _ = ratio(bad)
+        log(f"{label} planted fault, {fault}: {rb:.3e} of the step's "
+            f"float32 tolerance ({'rejects' if rb > 1.0 else 'passes'} it)")
+        if not rb > 1.0:
+            raise AssertionError(f"{label}: the float32 step check passes a "
+                                 f"planted fault ({fault}): ratio {rb}")
+    return r
+
+
 def phase_rnn_vs_plain():
     """The LSTM forward (both modes) and backward kernels and the GRU
     kernel against their plain versions on the same inputs: the LSTM at
     full width (b 128, h 1280, T 128, ragged lengths with 100, 1 and
-    128), at a shape that is a multiple of no tile (b 6, h 48, T 13) and
-    at two batch tiles (b 160, h 256, T 17); the GRU at b 64, h 128, T
-    64, ragged. float32 and bfloat16, the tolerances of _held; each
+    128), at a shape that is a multiple of no tile (b 6, h 48, T 13), at
+    two batch tiles (b 160, h 256, T 17) and at an odd h with every row
+    shorter than T (b 5, h 45, T 9); the GRU at b 64, h 128, T 64,
+    ragged. float32 and bfloat16, the tolerances of _held; each
     direct forward call on the route of its dtype."""
     from paddle_tpu_torch.ops import fused_rnn as fr
-    worst = {"lstm_fwd": 0.0, "lstm_bwd": 0.0, "gru_fwd": 0.0}
+    worst = {"lstm_fwd": 0.0, "lstm_fwd_f32": 0.0, "lstm_bwd": 0.0,
+             "gru_fwd": 0.0}
+    # the last case: odd h (no 8-byte unit pairs) and every row shorter
+    # than T (steps past the longest row)
     lstm_cases = [("b128 h1280 T128", 128, 1280, 128, (100, 1, 128)),
                   ("b6 h48 T13", 6, 48, 13, (13, 1, 7)),
-                  ("b160 h256 T17", 160, 256, 17, (17, 1, 9))]
+                  ("b160 h256 T17", 160, 256, 17, (17, 1, 9)),
+                  ("b5 h45 T9", 5, 45, 9, (7, 1, 4, 6, 2))]
     for ci, (label, b, h, T, must) in enumerate(lstm_cases):
         lens = _ragged_lens(b, T, seed=110 + ci, must=must)
         for dtype in (torch.float32, torch.bfloat16):
@@ -1743,13 +1878,20 @@ def phase_rnn_vs_plain():
                                      f"did not take the {route} route")
             ref = fr.lstm_reference(x4, lens, w, bias, peep, save_res=True)
             errs = {}
+            # gates past the longest row are 0 by the kernels' contract
+            # (the plain version computes them from the frozen state; the
+            # backward reads no gate of an invalid step)
+            run = int(lens.max())
             for name, a, r in (("out", out, ref[0]), ("hT", hT, ref[1]),
                                ("cT", cT, ref[2]), ("out/res", res[0], ref[0]),
                                ("hT/res", res[1], ref[1]),
                                ("cT/res", res[2], ref[2]),
                                ("cseq", res[3], ref[3]),
-                               ("gates", res[4], ref[4])):
+                               ("gates", res[4][:, :run], ref[4][:, :run])):
                 errs[name] = _held(name, a, r, dtype)
+            if res[4][:, run:].abs().max().item() if run < T else 0:
+                raise AssertionError(f"{label} {dtype}: gates past the "
+                                     "longest row are not 0")
             gen = torch.Generator(device="cuda").manual_seed(130 + ci)
             d_out = _randn(gen, b, T, h, dtype=dtype)
             dhT, dcT = _randn(gen, b, h), _randn(gen, b, h)
@@ -1759,8 +1901,8 @@ def phase_rnn_vs_plain():
             dz_ref = fr.lstm_backward_reference(w, peep, lens, gates, cseq,
                                                 d_out, dhT, dcT)
             errs["dz"] = _held("dz", dz, dz_ref, dtype)
+            mid = T // 2
             if dtype == torch.bfloat16:
-                mid = T // 2
                 for name, got, want in (("out", out, ref[0]),
                                         ("out/res", res[0], ref[0])):
                     errs[f"{name}/step"] = _held_steps(
@@ -1771,16 +1913,29 @@ def phase_rnn_vs_plain():
                 errs["dz/step"] = _held_steps(
                     label, "dz", dz, dz_ref,
                     [("dz x 0.95 at step 0", _scaled_step(dz, 0))])
+            else:
+                for name, got, want in (("out", out, ref[0]),
+                                        ("out/res", res[0], ref[0])):
+                    errs[f"{name}/step"] = _held_steps_f32(
+                        label, name, got, want,
+                        [(f"{name} x 0.99 at step 0",
+                          _scaled_step(got, 0, 0.99)),
+                         (f"{name} stale at step {mid} (step {mid - 1}'s)",
+                          _stale_step(got, mid))])
+            fwd_err = max(errs[k] for k in ("out", "hT", "cT", "out/res",
+                                            "hT/res", "cT/res", "cseq",
+                                            "gates"))
             errs.update(_lstm_function_check(x4, lens, w, bias, peep, dtype,
                                              140 + ci))
             if dtype == torch.bfloat16:
                 # the kernels the JSON rows name, lstm_fwd_sm90.cu and
                 # lstm_bwd_sm90.cu, run bfloat16 only: their rows hold
-                # their outputs
-                worst["lstm_fwd"] = max(worst["lstm_fwd"], *(
-                    errs[k] for k in ("out", "hT", "cT", "out/res", "hT/res",
-                                      "cT/res", "cseq", "gates")))
+                # their outputs; lstm_fwd_f32 (lstm_fwd_bf16x3_sm90.cu)
+                # the float32 forward's
+                worst["lstm_fwd"] = max(worst["lstm_fwd"], fwd_err)
                 worst["lstm_bwd"] = max(worst["lstm_bwd"], errs["dz"])
+            else:
+                worst["lstm_fwd_f32"] = max(worst["lstm_fwd_f32"], fwd_err)
             log(f"lstm vs plain {label} {str(dtype)[6:]} (forward route "
                 f"{route}, backward route {fr.lstm_bwd_route(dtype)}): " +
                 ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
@@ -1899,7 +2054,7 @@ def _rnn_counts(fr, zero=False):
         for fn in fns:
             fn.launches = 0
         fr.lstm_forward.res_launches = 0
-        fr.lstm_forward.route_launches = {"sm90": 0, "simt": 0}
+        fr.lstm_forward.route_launches = {"sm90": 0, "bf16x3": 0}
         fr.lstm_backward.route_launches = {"sm90": 0, "simt": 0}
         fr.gru_forward.route_launches = {"sm90": 0, "coop": 0}
     return {"lstm_fwd": fr.lstm_forward.launches,
@@ -1966,10 +2121,10 @@ def phase_lstm_train():
            if not bool(torch.isfinite(p).all())]
     if bad:
         raise AssertionError(f"non-finite parameters after training: {bad}")
-    sm90_only = {"sm90": LSTM_STEPS, "simt": 0}
     if not (counts["lstm_fwd"] == counts["lstm_res"] == counts["lstm_bwd"]
-            == LSTM_STEPS) or counts["lstm_fwd_routes"] != sm90_only or \
-            counts["lstm_bwd_routes"] != sm90_only:
+            == LSTM_STEPS) or \
+            counts["lstm_fwd_routes"] != {"sm90": LSTM_STEPS, "bf16x3": 0} \
+            or counts["lstm_bwd_routes"] != {"sm90": LSTM_STEPS, "simt": 0}:
         raise AssertionError(f"LSTM launches {counts} != {LSTM_STEPS} each, "
                              "every forward and backward on the sm90 route")
     step_ms = wall / LSTM_STEPS * 1e3
@@ -2055,9 +2210,9 @@ def phase_lstm_infer(spec, trainer):
     counts = _rnn_counts(fr)
     if counts["lstm_fwd"] != 4 or counts["lstm_res"] or \
             counts["lstm_bwd"] or \
-            counts["lstm_fwd_routes"] != {"sm90": 0, "simt": 4}:
+            counts["lstm_fwd_routes"] != {"sm90": 0, "bf16x3": 4}:
         raise AssertionError(f"infer launches {counts}: expected 4 float32 "
-                             "(simt) forward launches without residuals")
+                             "(bf16x3) forward launches without residuals")
     cpu = Parameters({k: v.detach().cpu() for k, v in params.raw.items()},
                      device="cpu")
     want = infer(output_layer=spec.output, parameters=cpu, input=samples,
@@ -2156,12 +2311,14 @@ def phase_tagger():
 
 
 # ------------------------------------------------------------ phase 15
-def _rnn_bound(kind, dtype, b, h, T, lens):
+def _rnn_bound(kind, dtype, b, h, T, lens, route=None):
     """(bound_ms, bound_by): the larger of the bytes the call must move
     (each input read once, each output written once) at 3.35 TB/s and
-    its products on the valid row-steps at the dtype's peak: the LSTM
+    its products on the valid row-steps at the route's peak: the LSTM
     forward 2 * h * 4h flops a row-step (h @ W), the backward the same
-    (dz W^T), the GRU 2 * h * 3h (two products)."""
+    (dz W^T), the GRU 2 * h * 3h (two products); bf16 at the tensor
+    cores' 989 TFLOP/s, float32 at the SIMT units' 67, and the float32
+    forward's "bf16x3" route as three bf16 passes at 989."""
     e = 2 if dtype == torch.bfloat16 else 4
     valid = float(sum(lens))
     lens_b = 4 * b
@@ -2177,7 +2334,10 @@ def _rnn_bound(kind, dtype, b, h, T, lens):
         flops = 2.0 * h * 3 * h * valid
         nbytes = (b * T * 3 * h * e + h * 3 * h * e + 3 * h * 4 + lens_b
                   + b * T * h * 4 + b * h * 4)
-    t_ops = flops / (BF16_FLOPS_PER_S if e == 2 else FP32_FLOPS_PER_S)
+    if route == "bf16x3":
+        t_ops = 3 * flops / BF16_FLOPS_PER_S
+    else:
+        t_ops = flops / (BF16_FLOPS_PER_S if e == 2 else FP32_FLOPS_PER_S)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, \
         "operations" if t_ops >= t_bytes else "bytes"
@@ -2251,18 +2411,31 @@ def phase_rnn_timings():
                     f"{st} stages {ms * 1e3:.2f} us/call "
                     f"({ms / steps * 1e3:.3f} us/step)"
                     for st, ms in sweep.items()))
+        if dtype == torch.float32:
+            _bf16x3_timings(x4, ln, w, bias, peep)
         for name, (kern, plain, (b_, h_, T_, lens_)) in calls.items():
             ms = device_ms(kern, iters=3, reps=3)
             plain_ms = device_ms(plain, iters=1, reps=3)
-            bound_ms, bound_by = _rnn_bound(name, dtype, b_, h_, T_, lens_)
+            route = fr.lstm_fwd_route(dtype) if name == "lstm_fwd" else None
+            bound_ms, bound_by = _rnn_bound(name, dtype, b_, h_, T_, lens_,
+                                            route)
             steps = max(lens_)
             out[(name, dtype)] = dict(ms=ms, plain_ms=plain_ms,
                                       bound_ms=bound_ms, bound_by=bound_by,
                                       library_ms=None)
+            simt = ""
+            if route == "bf16x3":
+                simt_ms = _rnn_bound(name, dtype, b_, h_, T_, lens_)[0]
+                simt = (f", SIMT float32 floor {simt_ms * 1e3:.3f} us (67 "
+                        "TFLOP/s; no bound for this route)")
             log(f"{name} {str(dtype)[6:]} at b{b_} h{h_} T{T_} ({steps} run "
                 f"steps): {ms * 1e3:.2f} us/call ({ms / steps * 1e3:.2f} "
-                f"us/step), bound {bound_ms * 1e3:.3f} us ({bound_by}), "
-                f"plain {plain_ms * 1e3:.2f} us")
+                f"us/step), bound {bound_ms * 1e3:.3f} us ({bound_by}"
+                f"{', route ' + route if route else ''}){simt}, plain "
+                f"{plain_ms * 1e3:.2f} us")
+            if ms < bound_ms:
+                raise AssertionError(f"{name} {dtype}: {ms} ms reads under "
+                                     f"its bound {bound_ms} ms")
         # a labelled near-yardstick the port never calls: cuDNN's LSTM
         # layer (no peepholes, no per-row freeze, and its input
         # projection included) forward over the same 128 x 100 steps
@@ -2270,13 +2443,95 @@ def phase_rnn_timings():
                               batch_first=True).to("cuda", dtype)
         xe = torch.randn(128, LSTM_TOKENS, LSTM_NET["emb_size"],
                          device="cuda", dtype=dtype)
+        what = (f"near-yardstick torch.nn.LSTM (cuDNN) forward "
+                f"{str(dtype)[6:]} b128 T{LSTM_TOKENS} in "
+                f"{LSTM_NET['emb_size']} h{LSTM_NET['hidden_size']}")
         with torch.no_grad():
-            cudnn_ms = event_ms(lambda i: cudnn(xe), iters=5)
-        log(f"near-yardstick torch.nn.LSTM (cuDNN) forward {str(dtype)[6:]} "
-            f"b128 T{LSTM_TOKENS} in {LSTM_NET['emb_size']} h"
-            f"{LSTM_NET['hidden_size']}: {_us(cudnn_ms)}")
+            if dtype == torch.bfloat16:
+                log(f"{what}: {_us(event_ms(lambda i: cudnn(xe), iters=5))}")
+            else:
+                # the float32 call blocks the host past any spin: the sum
+                # of its kernels' device time instead, with and without
+                # TF32 in cuDNN
+                keep = torch.backends.cudnn.allow_tf32
+                try:
+                    for tf32 in (False, True):
+                        torch.backends.cudnn.allow_tf32 = tf32
+                        log(f"{what}, cudnn.allow_tf32 {tf32}: "
+                            f"{_us(profiler_ms(lambda i: cudnn(xe), 5))} "
+                            "(its kernels' device time, torch.profiler)")
+                finally:
+                    torch.backends.cudnn.allow_tf32 = keep
         del x4, w, cseq, gates, d_out, x3, gw, cudnn, xe
     return out
+
+
+def _bf16x3_timings(x4, lens, w, bias, peep):
+    """The float32 forward's own numbers at phase 15's shapes: its floors
+    (lstm_fwd_bf16x3_launch mode 1: the steps without the product, 2:
+    the grid barriers alone, 3: the loads of h's two planes alone, 4:
+    the steps with the products but without the h stream), its
+    ring depth swept (8 and 4 k-steps of fragments in registers), each
+    depth held against the plain version first, and the call without
+    residuals (phase 13's). Gates past the longest row are 0 by the
+    kernel's contract (the plain version computes them from the frozen
+    state; the backward reads no gate of an invalid step): they are held
+    to 0, the run steps' gates to the plain version."""
+    from paddle_tpu_torch.ops import fused_rnn as fr
+    steps = int(lens.max())
+    ref = fr.lstm_reference(x4, lens, w, bias, peep, save_res=True)
+
+    def launch(mode, stages, res=True):
+        return fr.lstm_fwd_bf16x3_launch(x4, lens, w, bias, peep, res,
+                                         mode=mode, stages=stages)
+
+    def line(what, ms):
+        return (f"{what} {ms * 1e3:.2f} us/call ({ms / steps * 1e3:.3f} "
+                "us/step)")
+
+    floor = {m: device_ms(lambda i, m=m: launch(m, 0), iters=3, reps=3)
+             for m in (1, 2, 3, 4)}
+    log("lstm_fwd float32 (bf16x3) floors: "
+        + line("steps without the product", floor[1]) + ", "
+        + line("grid barriers alone", floor[2]) + ", "
+        + line("the h stream alone", floor[3]) + ", "
+        + line("the steps without the h stream", floor[4]))
+    sweep = {}
+    for st in fr._X3_RINGS:
+        got = launch(0, st)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("out", "hT", "cT", "cseq"), got, ref):
+            _held(f"bf16x3 ring {st} {name}", g, r, torch.float32)
+        _held(f"bf16x3 ring {st} gates", got[4][:, :steps],
+              ref[4][:, :steps], torch.float32)
+        if got[4][:, steps:].abs().max().item() != 0:
+            raise AssertionError(f"bf16x3 ring {st}: gates past the longest "
+                                 "row are not 0")
+        sweep[st] = device_ms(lambda i, st=st: launch(0, st), iters=3, reps=3)
+    log("lstm_fwd float32 (bf16x3) ring sweep: " + ", ".join(
+        line(f"{st} k-steps", ms) for st, ms in sweep.items()))
+    log("lstm_fwd float32 (bf16x3) " + line(
+        "without residuals (the infer call)",
+        device_ms(lambda i: launch(0, 0, res=False), iters=3, reps=3)))
+
+
+def profiler_ms(fn, iters):
+    """Device milliseconds per call as the sum of the device time of the
+    kernels that ``iters`` eager calls launch, under torch.profiler: for
+    a call that blocks the host, which events around it would time with
+    the card idle. None, "not measured", where the trace holds no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                   if ev.device_type.name == "CUDA")
+    return total_us / 1e3 / iters if total_us > 0 else None
 
 
 def _gru_tagger_inputs(dtype):
@@ -3022,10 +3277,10 @@ def main():
     lstm_spec, lstm_trainer, lstm_batch, lstm_counts = phase_lstm_train()
     # phase 16, still in bfloat16
     phase_train_trace(lstm_trainer, lstm_batch, "lstm train", "LSTM kernels",
-                      ("lstm_fwd_kernel", "lstm_fwd_sm90_kernel",
+                      ("lstm_fwd_bf16x3_kernel", "lstm_fwd_sm90_kernel",
                        "lstm_bwd_kernel", "lstm_bwd_sm90_kernel"))
     phase_lstm_grad_check(lstm_batch[:16])             # float32
-    phase_lstm_infer(lstm_spec, lstm_trainer)
+    infer_counts = phase_lstm_infer(lstm_spec, lstm_trainer)
     del lstm_trainer
     gru_launches = phase_tagger()
     rnn_timing = phase_rnn_timings()
@@ -3074,6 +3329,14 @@ def main():
             replaces=f"paddle_tpu/ops/pallas_rnn.py:{line}",
             launches=rnn_launches[name], max_abs_err=rnn_err[name],
             **rnn_timing[(name, dt)]))
+    # the float32 forward, the classifier's infer dtype (phase 13)
+    kernels.append(dict(
+        name="lstm_fwd_f32", route="cuda",
+        source="paddle_tpu_torch/csrc/lstm_fwd_bf16x3_sm90.cu",
+        replaces="paddle_tpu/ops/pallas_rnn.py:62",
+        launches=infer_counts["lstm_fwd_routes"]["bf16x3"],
+        max_abs_err=rnn_err["lstm_fwd_f32"],
+        **rnn_timing[("lstm_fwd", torch.float32)]))
     kernels.append(dict(
         name="paged_window_attention_int8", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",

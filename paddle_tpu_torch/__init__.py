@@ -20,16 +20,18 @@ Slices ported so far:
   ``Adam`` / ``Momentum`` (optimizer/), ``Parameters`` and the
   ``SGD`` trainer (trainer/), with hand-written Hopper kernels for
   flash attention forward, dq and dk/dv (bfloat16 on the tensor cores,
-  csrc/flash_{fwd,dq,dkv}_sm90.cu; float32 csrc/flash_attention_*.cu);
+  csrc/flash_{fwd,dq,dkv}_sm90.cu; float32 as three TF32 passes,
+  csrc/flash_{fwd,dq,dkv}_tf32_sm90.cu);
 - the sequence slice — the recurrent layers (lstmemory, grumemory,
   recurrent), sequence pooling, concat, the linear-chain CRF, the
   recurrent stacks of networks.py, ``models.stacked_lstm_net`` /
   ``bidi_lstm_net`` (models/text.py), ``models.rnn_crf_tagger``
   (models/tagger.py) and ``trainer.infer`` / ``Inference``, with
   hand-written Hopper kernels for the fused LSTM forward and backward
-  and the GRU forward (csrc/lstm_fwd.cu, lstm_bwd.cu; in bfloat16 the
-  LSTM forward's and backward's products on the tensor cores,
-  lstm_fwd_sm90.cu and lstm_bwd_sm90.cu; the GRU's batch rows split
+  and the GRU forward (the LSTM's products on the tensor cores: in
+  bfloat16 lstm_fwd_sm90.cu and lstm_bwd_sm90.cu, in float32 the
+  forward as three bf16 passes, lstm_fwd_bf16x3_sm90.cu, and the SIMT
+  backward, lstm_bwd.cu; the GRU's batch rows split
   across thread-block clusters, gru_fwd_sm90.cu, and at wide h the
   cooperative gru_fwd.cu);
 - the serving engine's remaining options — int8 KV pages (the int8

@@ -27,7 +27,7 @@
 // barriers a step and every block re-reading all of h and r*h from L2
 // bound it, not its flops or bytes.
 //
-// Build: as lstm_fwd.cu.
+// Build: as lstm_bwd.cu.
 
 #include "rnn_common.cuh"
 

@@ -38,7 +38,9 @@
 // plus a barrier per step. This version multiplies on the SIMT float32
 // units (>= 2.5 ms at 67 TFLOP/s).
 //
-// Build: as lstm_fwd.cu.
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared -Xcompiler
+// -fPIC (paddle_tpu_torch/ops/_build.py); bound with ctypes through the
+// plain C function at the bottom.
 
 #include "rnn_common.cuh"
 

@@ -48,7 +48,7 @@
 // per-step floors of this plan (timed by chip_smoke.py; their results
 // are not the function).
 //
-// Build: as lstm_fwd.cu.
+// Build: as lstm_bwd.cu.
 
 #include "rnn_common.cuh"
 #include "sm90_pipeline.cuh"

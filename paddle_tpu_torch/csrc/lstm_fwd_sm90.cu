@@ -2,9 +2,9 @@
 // bfloat16.
 //
 // Replaces: paddle_tpu/ops/pallas_rnn.py:_lstm_kernel (launched by
-// _lstm_fwd_call, public lstm_sequence) for bf16 weights; float32 keeps
-// the SIMT kernel of lstm_fwd.cu. Same function and rounding points as
-// that file documents: for each step t
+// _lstm_fwd_call, public lstm_sequence) for bf16 weights; float32 takes
+// lstm_fwd_bf16x3_sm90.cu. Same function as that file documents, with
+// the rounding points of the TPU kernel in bf16: for each step t
 //   z = x4[:, t] + round_bf16(h_{t-1}) @ W + bias    (gates [i, f, c~, o])
 // with the product accumulated in float32, the gate math, the carries,
 // hT, cT, bias and peepholes in float32; invalid steps (t >= lens[r])
@@ -71,7 +71,7 @@
 // under a runtime branch. `stages` caps the ring's depth for the same
 // timings.
 //
-// Build: as lstm_fwd.cu.
+// Build: as lstm_bwd.cu.
 
 #include "rnn_common.cuh"
 #include "sm90_pipeline.cuh"

@@ -12,9 +12,10 @@
   wrapper per kernel. A tensor on the CPU takes the plain version; a
   tensor on a CUDA card launches the hand-written Hopper kernel or
   raises. ``_lstm_kernel`` is ``csrc/lstm_fwd_sm90.cu`` in bfloat16 and
-  ``_lstm_bwd_kernel`` ``csrc/lstm_bwd_sm90.cu``, their products on
-  wgmma; in float32 they are ``csrc/lstm_fwd.cu`` and
-  ``csrc/lstm_bwd.cu`` (SIMT), chosen by ``w.dtype`` alone
+  ``csrc/lstm_fwd_bf16x3_sm90.cu`` in float32 (its product as three
+  bf16 wgmma passes over split halves); ``_lstm_bwd_kernel`` is
+  ``csrc/lstm_bwd_sm90.cu`` in bfloat16 (wgmma) and ``csrc/lstm_bwd.cu``
+  in float32 (SIMT); each chosen by ``w.dtype`` alone
   (:func:`lstm_fwd_route`, :func:`lstm_bwd_route`); ``_gru_kernel`` is
   ``csrc/gru_fwd_sm90.cu`` (batch rows split across clusters of blocks
   that hold the whole weight, no grid barrier) wherever a cluster of at
@@ -35,7 +36,8 @@
   ``_gru_fwd`` trains through ``jax.vjp(_gru_ref)``.
 - :func:`kernel_ok`: the dispatch gate of ``ops/recurrent.py``;
   :func:`gru_fwd_plan`: the GRU's route, cluster size, rows a cluster
-  and shared memory, pure arithmetic on the shape.
+  and shared memory, and :func:`lstm_fwd_bf16x3_plan` the float32 LSTM
+  forward's grid and shared memory, pure arithmetic on the shape.
 
 Layouts are the layer's: x4 ``[b, T, 4h]`` (gates ``[i, f, c~, o]``),
 x3 ``[b, T, 3h]`` (``[z, r, c~]``), w ``[h, 4h]`` / ``[h, 3h]``, bias
@@ -65,6 +67,11 @@ _SM90_SMEM = 232448
 _SM90_UNITS, _SM90_CHUNK, _SM90_MAX_STAGES = 16, 64, 8
 _SM90_STAGE, _SM90_STATIC = 2 * 64 * 64 * 2, 1024
 _FWD_W_TILE, _BWD_W_TILE = 64 * 64 * 2, 16 * 64 * 2
+# the float32 forward (csrc/lstm_fwd_bf16x3_sm90.cu): 10 units a block
+# (wgmma N 40), its weight columns as two bf16 halves of [40 x 64] tiles,
+# ceil(h / 64) rounded up to even a half; a ring of 8 (or 4) k-steps of
+# h's fragments in registers
+_X3_UNITS, _X3_TILE, _X3_RINGS = 10, 40 * 64 * 2, (8, 4)
 # the sm90 GRU kernel (csrc/gru_fwd_sm90.cu): 256 threads a block,
 # clusters of 1-8 blocks, 1-4 batch rows a cluster, at most 226 KB of
 # dynamic shared memory a block (static words count against the opt-in)
@@ -192,11 +199,10 @@ def _smem_bytes(k: int, n_w: int, n_tile: int) -> int:
 
 
 def kernel_smem(h: int, units: int, gates: int) -> int:
-    """Shared memory of the kernels of one cell type: the LSTM forward
-    and backward (gates 4) or the GRU forward (gates 3)."""
+    """Shared memory of the SIMT kernels of one cell type: the float32
+    LSTM backward (gates 4) or the cooperative GRU forward (gates 3)."""
     if gates == 4:
-        return max(_smem_bytes(h, 4 * units, 4 * units),
-                   _smem_bytes(4 * h, units + (units & 1), 0))
+        return _smem_bytes(4 * h, units + (units & 1), 0)
     return _smem_bytes(h, 3 * units, 2 * units)
 
 
@@ -223,6 +229,42 @@ def lstm_bwd_sm90_smem(h: int, stages: int = 0) -> Tuple[int, int]:
     """:func:`_sm90_plan` of the bf16 backward kernel: the block's 16
     weight rows as ceil(4h / 64) tiles of 2048 bytes."""
     return _sm90_plan(-(-4 * h // _SM90_CHUNK) * _BWD_W_TILE, stages)
+
+
+class Bf16x3Plan(NamedTuple):
+    """How one float32 LSTM forward call is launched
+    (:func:`lstm_fwd_bf16x3_plan`)."""
+    units: int       # hidden units a block (wgmma N = 4 units)
+    blocks: int      # the cooperative grid, one block per SM at most
+    smem: int        # dynamic shared-memory bytes a block
+    stages: int      # k-steps of h's fragments in each thread's ring
+    k_steps: int     # 16-row k-steps of the product (h padded)
+
+
+def lstm_fwd_bf16x3_plan(h: int, sms: int,
+                         stages: int = 0) -> Optional[Bf16x3Plan]:
+    """The float32 LSTM forward's launch (``csrc/lstm_fwd_bf16x3_sm90.cu``,
+    its ``plan_fits`` and ``dyn_smem``), pure arithmetic on the shape: 10
+    units a block (the N 40 of its m64n40k16 product; ceil(h / 132) at
+    the classifier's h 1280), ceil(h / 10) blocks, and 1024 bytes of
+    alignment slack plus the block's weight columns as two bf16 halves
+    of ceil(h / 64) (rounded up to even) [40 x 64] tiles of 5120 bytes —
+    205,824 bytes at h 1280. ``stages`` is the ring depth in k-steps, 8
+    or 4 (0: 8). None where it does not fit: more blocks than ``sms``,
+    or more than the 232,448-byte opt-in beside 1024 bytes of static
+    memory. On 132 SMs it fits every h up to 1320."""
+    if stages not in (0,) + _X3_RINGS:
+        raise ValueError(f"the ring depth is one of {_X3_RINGS}, got "
+                         f"{stages}")
+    if h < 1:
+        return None
+    blocks = -(-h // _X3_UNITS)
+    chunks = (-(-h // _SM90_CHUNK) + 1) // 2 * 2
+    smem = 1024 + 2 * chunks * _X3_TILE
+    if blocks > sms or smem + _SM90_STATIC > _SM90_SMEM:
+        return None
+    return Bf16x3Plan(_X3_UNITS, blocks, smem, stages or _X3_RINGS[0],
+                      4 * chunks)
 
 
 class GruPlan(NamedTuple):
@@ -316,26 +358,28 @@ def kernel_ok(b: int, h: int, act: str = "tanh", gate_act: str = "sigmoid",
 
     - a CUDA tensor on an sm_90 card (the kernels are built for sm_90a);
     - the default activations (tanh, sigmoid gates, tanh state);
-    - the persistent design fits: with U = ceil(h / SMs) hidden units a
-      block (one block per SM, all resident at once), U <= 16 and the
-      block's resident weight slice plus its staging area fit the
-      232,448 bytes of shared memory a block may use — the LSTM needs
-      4 * (32 * ceil(h / 32) * 4U + max(4224, 512U)) bytes (its
-      backward 4 * (32 * ceil(4h / 32) * (U rounded up to even) +
-      4224)), the GRU
-      4 * (32 * ceil(h / 32) * 3U + max(4224, 256U));
-    - for the LSTM, the bf16 kernels (``csrc/lstm_fwd_sm90.cu``,
-      ``csrc/lstm_bwd_sm90.cu``) fit too: ceil(h / 16) blocks of 16
-      units (at most one per SM), each with its bf16 weight tiles
-      (1024 + 8192 * ceil(h / 64) bytes forward, 1024 + 2048 *
-      ceil(4h / 64) backward) plus at least two 16384-byte ring stages
-      (:func:`lstm_fwd_sm90_smem`, :func:`lstm_bwd_sm90_smem`) — true
-      up to h = 1536, so the float32 kernels' limit binds;
+    - the persistent SIMT design fits: with U = ceil(h / SMs) hidden
+      units a block (one block per SM, all resident at once), U <= 16
+      and the block's resident weight slice plus its staging area fit
+      the 232,448 bytes of shared memory a block may use — the float32
+      LSTM backward needs 4 * (32 * ceil(4h / 32) * (U rounded up to
+      even) + 4224) bytes, the cooperative GRU 4 * (32 * ceil(h / 32) *
+      3U + max(4224, 256U));
+    - for the LSTM, the tensor-core kernels fit too: the bf16 ones
+      (``csrc/lstm_fwd_sm90.cu``, ``csrc/lstm_bwd_sm90.cu``) in
+      ceil(h / 16) blocks of 16 units (at most one per SM), each with
+      its bf16 weight tiles (1024 + 8192 * ceil(h / 64) bytes forward,
+      1024 + 2048 * ceil(4h / 64) backward) plus at least two
+      16384-byte ring stages (:func:`lstm_fwd_sm90_smem`,
+      :func:`lstm_bwd_sm90_smem`) — true up to h = 1536 — and the
+      float32 forward (``csrc/lstm_fwd_bf16x3_sm90.cu``) in ceil(h / 10)
+      blocks (:func:`lstm_fwd_bf16x3_plan`), which binds with the
+      backward;
     - for the GRU, :func:`gru_fwd_plan` has a route: the cluster kernel
       (``csrc/gru_fwd_sm90.cu``) where a cluster holds the weight, the
       cooperative one elsewhere, so the cooperative kernel's limit above
       is the GRU's.
-    On an H100 SXM (132 SMs) that admits the LSTM up to h = 1312 and the
+    On an H100 SXM (132 SMs) that admits the LSTM up to h = 1320 and the
     GRU up to h = 1472, in float32 and bfloat16 alike. Any batch size.
     """
     device = torch.device(device) if device is not None else None
@@ -350,7 +394,8 @@ def kernel_ok(b: int, h: int, act: str = "tanh", gate_act: str = "sigmoid",
     if gates == 3:
         return gru_fwd_plan(b, h, torch.float32, sms) is not None
     if -(-h // _SM90_UNITS) > sms or lstm_fwd_sm90_smem(h)[1] == 0 \
-            or lstm_bwd_sm90_smem(h)[1] == 0:
+            or lstm_bwd_sm90_smem(h)[1] == 0 \
+            or lstm_fwd_bf16x3_plan(h, sms) is None:
         return False
     units = -(-h // sms)
     return units <= _MAX_UNITS and \
@@ -423,7 +468,7 @@ def lstm_forward(x4: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
     if route == "sm90":
         res = lstm_fwd_sm90_launch(x4, lens, w, bias, peep, save_res)
     else:
-        res = _lstm_fwd_simt(x4, lens, w, bias, peep, save_res)
+        res = lstm_fwd_bf16x3_launch(x4, lens, w, bias, peep, save_res)
     lstm_forward.launches += 1
     lstm_forward.route_launches[route] += 1
     if save_res:
@@ -449,32 +494,52 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _lstm_fwd_simt(x4, lens, w, bias, peep, save_res):
-    """One launch of ``csrc/lstm_fwd.cu`` on checked CUDA tensors."""
-    b, T, four_h = x4.shape
-    h, dev = four_h // 4, x4.device
-    out, cseq, gates, hT, cT = _outputs(x4, save_res)
-    hbuf = torch.zeros((2, b, h), dtype=torch.float32, device=dev)
-    bar = _barrier(dev)
-    fn = _fn("lstm_fwd", "pt_lstm_fwd", 12)
-    err = fn(x4.data_ptr(), w.data_ptr(), bias.data_ptr(), peep.data_ptr(),
-             lens.data_ptr(), out.data_ptr(), _ptr(cseq), _ptr(gates),
-             hT.data_ptr(), cT.data_ptr(), hbuf.data_ptr(), bar.data_ptr(),
-             b, T, h, _units(h, dev), _DTYPE_CODES[w.dtype], _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"LSTM forward launch failed: CUDA error {err}")
-    return (out, hT, cT, cseq, gates) if save_res else (out, hT, cT)
-
-
 def lstm_fwd_route(dtype: torch.dtype) -> str:
     """The LSTM forward's route for weights of ``dtype``: bfloat16 takes
-    the tensor-core kernel (``csrc/lstm_fwd_sm90.cu``, "sm90"), float32
-    the SIMT kernel (``csrc/lstm_fwd.cu``, "simt"). By dtype alone,
+    ``csrc/lstm_fwd_sm90.cu`` ("sm90"), float32
+    ``csrc/lstm_fwd_bf16x3_sm90.cu`` ("bf16x3": the float32 product as
+    three bf16 wgmma passes), both on the tensor cores. By dtype alone,
     decided before any launch."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"the LSTM kernel takes float32 or bfloat16, got "
                         f"{dtype}")
-    return "sm90" if dtype == torch.bfloat16 else "simt"
+    return "sm90" if dtype == torch.bfloat16 else "bf16x3"
+
+
+def lstm_fwd_bf16x3_launch(x4, lens, w, bias, peep, save_res: bool = False,
+                           mode: int = 0, stages: int = 0):
+    """One launch of ``csrc/lstm_fwd_bf16x3_sm90.cu`` on checked float32
+    CUDA tensors; returns what :func:`lstm_forward` returns. ``mode`` 0
+    computes the function (what :func:`lstm_forward` launches); 1 runs
+    the steps without their product, 2 the grid barriers alone, 3 the
+    loads of h's planes alone and 4 the steps with their products but
+    without the h stream (fragments loaded once and reused), the
+    per-step floors that ``chip_smoke.py`` times (their outputs are not
+    the function). ``stages`` is the ring depth of
+    :func:`lstm_fwd_bf16x3_plan` (0: its default; no result depends on
+    it). Counts nothing: :func:`lstm_forward` counts its own launches."""
+    b, T, four_h = x4.shape
+    h, dev = four_h // 4, x4.device
+    plan = lstm_fwd_bf16x3_plan(h, _sms(dev), stages)
+    if plan is None:
+        raise ValueError(f"the float32 LSTM forward does not fit h={h} on "
+                         f"{_sms(dev)} SMs (lstm_fwd_bf16x3_plan)")
+    out, cseq, gates, hT, cT = _outputs(x4, save_res)
+    # h_{t-1} by step parity, as bf16(h) and bf16(h - bf16(h)), each in
+    # the wgmma A fragment order: [parity, half, 64-row m-tiles x k-steps
+    # x 128 lanes x 4 words]; parity 0 is h_{-1} = 0
+    words = 2 * -(-b // 128) * plan.k_steps * 512
+    hs = torch.zeros((2, 2, words), dtype=torch.int32, device=dev)
+    bar = _barrier(dev)
+    fn = _fn("lstm_fwd_bf16x3_sm90", "pt_lstm_fwd_bf16x3", 12)
+    err = fn(x4.data_ptr(), w.data_ptr(), bias.data_ptr(), peep.data_ptr(),
+             lens.data_ptr(), out.data_ptr(), _ptr(cseq), _ptr(gates),
+             hT.data_ptr(), cT.data_ptr(), hs.data_ptr(), bar.data_ptr(), b,
+             T, h, int(mode), plan.stages, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"LSTM forward (bf16x3) launch failed: CUDA "
+                           f"error {err} ({plan})")
+    return (out, hT, cT, cseq, gates) if save_res else (out, hT, cT)
 
 
 def lstm_fwd_sm90_launch(x4, lens, w, bias, peep, save_res: bool = False,
@@ -668,7 +733,7 @@ def gru_fwd_coop_launch(x3, lens, w, bias):
 
 lstm_forward.launches = 0
 lstm_forward.res_launches = 0
-lstm_forward.route_launches = {"sm90": 0, "simt": 0}
+lstm_forward.route_launches = {"sm90": 0, "bf16x3": 0}
 lstm_backward.launches = 0
 lstm_backward.route_launches = {"sm90": 0, "simt": 0}
 gru_forward.launches = 0

@@ -477,9 +477,11 @@ def test_kernel_gate_and_wrappers_off_the_card():
         fused_rnn.gru_forward(torch.zeros((2, 3, 18), device="meta"),
                               torch.zeros(2, dtype=torch.int32),
                               torch.zeros((6, 18)), torch.zeros(18))
-    # the shared-memory plan of the documented limits
+    # the shared-memory plan of the documented limits: the float32 LSTM
+    # backward at 10 units a block fits up to h 1344
     assert fused_rnn.kernel_smem(1280, 10, 4) <= fused_rnn._SM90_SMEM
-    assert fused_rnn.kernel_smem(1320, 10, 4) > fused_rnn._SM90_SMEM
+    assert fused_rnn.kernel_smem(1344, 10, 4) <= fused_rnn._SM90_SMEM
+    assert fused_rnn.kernel_smem(1352, 10, 4) > fused_rnn._SM90_SMEM
 
 
 def test_lstm_backward_route_is_chosen_by_dtype_alone():
@@ -548,12 +550,12 @@ def test_lstm_fwd_sm90_shared_memory_plan():
 
 def test_lstm_forward_route_is_chosen_by_dtype_alone():
     """bfloat16 weights take the tensor-core forward (sm90,
-    csrc/lstm_fwd_sm90.cu), float32 the SIMT one (csrc/lstm_fwd.cu),
-    decided by dtype before any launch; on the CPU both dtypes take the
-    plain version, with and without residuals, and count no launch on
-    either route."""
+    csrc/lstm_fwd_sm90.cu), float32 the three-pass one (bf16x3,
+    csrc/lstm_fwd_bf16x3_sm90.cu), decided by dtype before any launch;
+    on the CPU both dtypes take the plain version, with and without
+    residuals, and count no launch on either route."""
     assert fused_rnn.lstm_fwd_route(torch.bfloat16) == "sm90"
-    assert fused_rnn.lstm_fwd_route(torch.float32) == "simt"
+    assert fused_rnn.lstm_fwd_route(torch.float32) == "bf16x3"
     for bad in (torch.float16, torch.float64):
         with pytest.raises(TypeError):
             fused_rnn.lstm_fwd_route(bad)
@@ -572,14 +574,14 @@ def test_lstm_forward_route_is_chosen_by_dtype_alone():
                 torch.testing.assert_close(g, r, rtol=0, atol=0)
     assert (fwd.launches, fwd.res_launches, dict(fwd.route_launches)) == \
         before
-    assert set(fwd.route_launches) == {"sm90", "simt"}
+    assert set(fwd.route_launches) == {"sm90", "bf16x3"}
 
 
 def test_kernel_ok_admits_the_same_grid(monkeypatch):
     """On an emulated H100 (sm_90, 132 SMs) the dispatch gate admits the
-    LSTM up to h 1312 and the GRU up to h 1472 at any batch, as before
-    the bf16 forward joined the plan: the float32 kernels' limit binds,
-    since both bf16 LSTM kernels fit up to h 1536. Another architecture
+    LSTM up to h 1320 and the GRU up to h 1472 at any batch: the float32
+    LSTM forward's 132 blocks of 10 units bind (its backward fits up to
+    h 1344, both bf16 LSTM kernels up to h 1536). Another architecture
     is never admitted."""
     import types
     monkeypatch.setattr(torch.cuda, "get_device_capability",
@@ -588,7 +590,7 @@ def test_kernel_ok_admits_the_same_grid(monkeypatch):
                         lambda device=None: types.SimpleNamespace(
                             multi_processor_count=132))
     hs = range(1, 1601)
-    for gates, top in ((4, 1312), (3, 1472)):
+    for gates, top in ((4, 1320), (3, 1472)):
         for b in (1, 6, 128, 160, 4096):
             admitted = [h for h in hs
                         if fused_rnn.kernel_ok(b, h, gates=gates,
@@ -598,3 +600,147 @@ def test_kernel_ok_admits_the_same_grid(monkeypatch):
     monkeypatch.setattr(torch.cuda, "get_device_capability",
                         lambda device=None: (8, 0))
     assert not fused_rnn.kernel_ok(128, 1280, device="cuda")
+
+
+# ---- the float32 LSTM forward's product (csrc/lstm_fwd_bf16x3_sm90.cu)
+# and plan. Its tolerance is the card check's float32 one (chip_smoke.py
+# phase 11): rtol 2e-4, atol 2e-5 x max(1, max|ref|).
+F32_CARD = dict(rtol=2e-4, atol=2e-5)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _bf16x3_matmul(h, w, passes):
+    """The kernel's product, emulated in plain torch: h and w split into
+    bf16 halves by round to nearest even, h1 = bf16(h), h2 = bf16(h -
+    h1) and the same for w; with 3 passes (h1 w2 + h2 w1) + h1 w1, the
+    small passes summed apart, each in float32; with 1, h1 w1 alone."""
+    h1, w1 = _bf16(h), _bf16(w)
+    big = h1 @ w1
+    if passes == 1:
+        return big
+    return (h1 @ _bf16(w - w1) + _bf16(h - h1) @ w1) + big
+
+
+def _lstm_scan_bf16x3(x4, lens, w, bias, peep, passes):
+    """The LSTM forward of fused_rnn.lstm_reference (float32), its
+    product h @ W replaced by the kernel's: (out, hT, cT)."""
+    b, T, four_h = x4.shape
+    h = four_h // 4
+    pi, pf, po = peep.reshape(3, h)
+    hh = torch.zeros((b, h))
+    cc = torch.zeros((b, h))
+    outs = []
+    for t in range(T):
+        z = x4[:, t] + _bf16x3_matmul(hh, w, passes) + bias
+        zi, zf, zc, zo = z.split(h, dim=-1)
+        i = torch.sigmoid(zi + pi * cc)
+        f = torch.sigmoid(zf + pf * cc)
+        c_new = f * cc + i * torch.tanh(zc)
+        h_new = torch.sigmoid(zo + po * c_new) * torch.tanh(c_new)
+        valid = (lens > t)[:, None]
+        hh = torch.where(valid, h_new, hh)
+        cc = torch.where(valid, c_new, cc)
+        outs.append(torch.where(valid, h_new, torch.zeros_like(h_new)))
+    return torch.stack(outs, dim=1), hh, cc
+
+
+def _card_scale_inputs(b, h, T, seed):
+    """Seeded float32 inputs at chip_smoke.py's scales (_rnn_inputs): x4
+    0.5, W 1/sqrt(h), bias and peepholes 0.1; ragged lengths with T and
+    1 among them."""
+    rng = np.random.RandomState(seed)
+    x4 = (rng.randn(b, T, 4 * h) * 0.5).astype(np.float32)
+    w = (rng.randn(h, 4 * h) * h ** -0.5).astype(np.float32)
+    bias = (rng.randn(4 * h) * 0.1).astype(np.float32)
+    peep = (rng.randn(3 * h) * 0.1).astype(np.float32)
+    lens = rng.randint(1, T + 1, b).astype(np.int32)
+    lens[0], lens[1] = T, 1
+    return x4, lens, w, bias, peep
+
+
+def _jax_lstm_f32(x4, lens, w, bias, peep):
+    """The JAX package's LSTM oracle (pallas_rnn._lstm_ref) in float32."""
+    b, T, four_h = x4.shape
+    h = four_h // 4
+    return pallas_rnn._lstm_ref(jnp.asarray(x4),
+                                jnp.asarray(lens).reshape(b, 1),
+                                jnp.asarray(w),
+                                jnp.asarray(bias).reshape(1, four_h),
+                                jnp.asarray(peep).reshape(3, h))
+
+
+def _within_card_f32(got, want) -> bool:
+    """assert_close at F32_CARD, atol scaled by max(1, max|ref|)."""
+    want = torch.tensor(np.array(want, np.float32))
+    atol = F32_CARD["atol"] * max(1.0, want.abs().max().item())
+    return bool(((got - want).abs() <=
+                 atol + F32_CARD["rtol"] * want.abs()).all())
+
+
+def test_bf16x3_lstm_scan_matches_jax_float32():
+    """Three bf16 passes inside an LSTM scan (b 4, h 256, T 24 ragged)
+    against the JAX package's float32 LSTM (_lstm_ref): out, hT and cT
+    at the card check's float32 tolerance."""
+    x4, lens, w, bias, peep = _card_scale_inputs(4, 256, 24, seed=30)
+    want = _jax_lstm_f32(x4, lens, w, bias, peep)
+    got = _lstm_scan_bf16x3(torch.tensor(x4), torch.tensor(lens),
+                            torch.tensor(w), torch.tensor(bias),
+                            torch.tensor(peep), passes=3)
+    for g, j in zip(got, want):
+        atol = F32_CARD["atol"] * max(1.0, float(np.abs(j).max()))
+        _close(g, j, dict(rtol=F32_CARD["rtol"], atol=atol))
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_bf16x3_check_has_teeth_at_full_width(passes):
+    """At the classifier's h 1280 (b 4, T 8: small enough for the CPU),
+    one bf16 pass of the product fails the card's float32 check against
+    the JAX package's float32 LSTM, and the kernel's three pass it."""
+    x4, lens, w, bias, peep = _card_scale_inputs(4, 1280, 8, seed=31)
+    want = _jax_lstm_f32(x4, lens, w, bias, peep)
+    got = _lstm_scan_bf16x3(torch.tensor(x4), torch.tensor(lens),
+                            torch.tensor(w), torch.tensor(bias),
+                            torch.tensor(peep), passes=passes)
+    held = [_within_card_f32(g, j) for g, j in zip(got, want)]
+    assert all(held) if passes == 3 else not any(held), held
+
+
+def test_lstm_fwd_bf16x3_plan(monkeypatch):
+    """The float32 forward's plan: 128 blocks of 10 units at h 1280, its
+    two weight halves in 205,824 bytes, under the opt-in with its static
+    reserve, the ring 8 k-steps deep (4 on request); on an emulated H100
+    it fits the largest h the dispatch gate admits (1320), and wherever
+    it does not fit (h past 10 x SMs) the gate sends the float32 LSTM to
+    no kernel route."""
+    import types
+    plan = fused_rnn.lstm_fwd_bf16x3_plan(1280, 132)
+    assert plan == (10, 128, 1024 + 2 * 20 * 5120, 8, 80)
+    assert plan.smem + 1024 <= fused_rnn._SM90_SMEM
+    assert fused_rnn.lstm_fwd_bf16x3_plan(1280, 132, stages=4).stages == 4
+    with pytest.raises(ValueError):
+        fused_rnn.lstm_fwd_bf16x3_plan(1280, 132, stages=3)
+    # odd tile counts round up to even: k-steps a multiple of the ring
+    assert fused_rnn.lstm_fwd_bf16x3_plan(100, 132).k_steps == 8
+    assert fused_rnn.lstm_fwd_bf16x3_plan(1312, 132).k_steps == 88
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda device=None: (9, 0))
+    for sms in (132, 114):
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda device=None, n=sms: types.SimpleNamespace(
+                                multi_processor_count=n))
+        admitted = [h for h in range(1, 1601)
+                    if fused_rnn.kernel_ok(128, h, device="cuda")]
+        for h in range(1, 1601):
+            p = fused_rnn.lstm_fwd_bf16x3_plan(h, sms)
+            assert (p is not None) == (h <= 10 * sms), (sms, h)
+            if p is None:
+                assert h not in admitted, (sms, h)
+            else:
+                assert p.blocks <= sms and \
+                    p.smem + 1024 <= fused_rnn._SM90_SMEM
+                assert p.k_steps * 16 >= h and p.k_steps % 8 == 0
+        assert fused_rnn.lstm_fwd_bf16x3_plan(admitted[-1], sms) is not None
+    assert admitted[-1] == 1140
