@@ -9,11 +9,12 @@ Phases (any failure exits non-zero before the final line):
 
 1. build — compile every hand-written kernel from the sources in this
    checkout (one nvcc per source, all at once, sm_90a), print the
-   ptxas report (and its wgmma warnings); the nine wgmma kernels
+   ptxas report (and its wgmma warnings); the ten wgmma kernels
    (flash_fwd_sm90.cu, flash_dq_sm90.cu, flash_dkv_sm90.cu,
    lstm_fwd_sm90.cu, lstm_bwd_sm90.cu, flash_fwd_tf32_sm90.cu,
    flash_dq_tf32_sm90.cu, flash_dkv_tf32_sm90.cu,
-   lstm_fwd_bf16x3_sm90.cu) must report 0 spill bytes and no C75xx
+   lstm_fwd_bf16x3_sm90.cu, lstm_bwd_bf16x3_sm90.cu) must report 0
+   spill bytes and no C75xx
    warning (products serialized), and the window kernel
    (paged_window_attention.cu) and the cluster GRU kernel
    (gru_fwd_sm90.cu) 0 spill bytes. Then the building blocks of
@@ -28,9 +29,10 @@ Phases (any failure exits non-zero before the final line):
    split by the kernel's own writers into the fragment-order planes
    and the resident weight halves, on wgmma m64n40k16 RS, against the
    float64 product (max |err| <= 1e-5 x max(1, max|ref|), which the
-   kernel's one-pass product must fail), and lstm_fwd_bf16x3_plan
-   (ops/fused_rnn.py) against the kernel's own plan at every h
-   1..1400; and
+   kernel's one-pass product must fail), the float32 backward's the
+   same way over W-row tiles (a [64, 200] x [40, 200]^T), and
+   lstm_fwd_bf16x3_plan and lstm_bwd_bf16x3_plan (ops/fused_rnn.py)
+   against each kernel's own plan at every h 1..1400; and
    sm90_tf32.cuh's 3xTF32 products on float32 tiles (TMA-loaded, split
    into TF32 hi and lo): A B^T by SS m64n32k8 and (A B^T) B by RS
    m64n64k8, the A operand split in registers from the accumulator and
@@ -145,17 +147,20 @@ Phases (any failure exits non-zero before the final line):
    fail), after the plan's shared-memory arithmetic is held against
    the kernel's layout; the LSTM's h_seq, hT, cT, cseq, gates,
    dz, and through the autograd Function dx4, dw, dbias, dpeep against
-   autograd of the plain version in float32; float32 (the forward on
-   three bf16 wgmma passes, lstm_fwd_bf16x3_sm90.cu, the SIMT
-   backward) and bfloat16 (the tensor-core forward and backward,
-   lstm_fwd_sm90.cu and lstm_bwd_sm90.cu; each direct forward call on
-   its dtype's route) at the tolerances of phase 6; the bf16 out of
+   autograd of the plain version in float32; float32 (the forward and
+   backward on three bf16 wgmma passes, lstm_fwd_bf16x3_sm90.cu and
+   lstm_bwd_bf16x3_sm90.cu) and bfloat16 (the tensor-core forward and
+   backward, lstm_fwd_sm90.cu and lstm_bwd_sm90.cu; each direct
+   forward and backward call on its dtype's route) at the tolerances
+   of phase 6; the bf16 out of
    both forward calls and dz also per time step, max |err| <= 2e-2
    max|ref| of the step, which must reject planted faults (out x 0.95
    at step 0, out stale at step T/2 — step T/2 - 1's — and dz x 0.95
    at step 0); the float32 out of both forward calls per time step at
    the float32 tolerance (atol scaled by the step's max(1, max|ref|)),
-   which must reject out x 0.99 at step 0 and out stale at step T/2.
+   which must reject out x 0.99 at step 0 and out stale at step T/2,
+   and the float32 dz the same way (dz x 0.99 at step 0, dz stale at
+   step T/2).
 12. lstm train — the sequence slice's main path: stacked_lstm_net at
    the RNN benchmark's widest row (vocab 30000, emb 128, hidden 1280,
    one LSTM, 2 classes; 11,060,482 parameters) built with the port's
@@ -167,9 +172,9 @@ Phases (any failure exits non-zero before the final line):
    parameters and 8 launches each of the LSTM forward (with residuals)
    and backward kernels, every forward and backward on the tensor-core
    route (sm90). Then, in float32 from one table on 16 of the
-   rows, the gradients of one cost through the kernels against the
-   plain scan of the CPU port: worst per-parameter ||diff|| / ||g|| <=
-   1e-3.
+   rows, the gradients of one cost through the kernels (the backward on
+   the bf16x3 route) against the plain scan of the CPU port: worst
+   per-parameter ||diff|| / ||g|| <= 1e-3.
 13. lstm infer — paddle.infer of the probabilities over 512 seeded
    ragged samples in batches of 128, float32, from the trained table:
    4 forward launches without residuals, all on the float32 (bf16x3)
@@ -186,16 +191,19 @@ Phases (any failure exits non-zero before the final line):
    launch required; a launch with no record in the trace is noted).
 15. rnn timings — each recurrent kernel's device time per call and per
    run step at the main path's shapes in bfloat16 and float32
-   (CUDA-graph replay), its bound by route (the float32 LSTM forward's:
-   three bf16 passes at 989 TFLOP/s, printed beside the SIMT float32
-   floor at 67, which bounds no tensor-core route; a reading under its
-   bound fails), the plain version's time; in
+   (CUDA-graph replay), its bound by route (the float32 LSTM forward's
+   and backward's: three bf16 passes at 989 TFLOP/s, printed beside the
+   SIMT float32 floor at 67, which bounds no tensor-core route; a
+   reading under its bound fails), the plain version's time; in
    bfloat16 also the per-step floors of both tensor-core LSTM kernels'
    plan (their steps with no product; their grid barriers alone) and
    their ring depth swept (2, 3 and 4 stages of 16 KB); in float32 the
    float32 forward's floors (its steps with no product, its grid
-   barriers alone, its h stream alone) and its register ring swept (8
-   and 4 k-steps, each held against the plain version); at the
+   barriers alone, its h stream alone, its products without the
+   stream) and its register ring swept (8 and 4 k-steps, each held
+   against the plain version), and the float32 backward's the same way
+   (its grid barriers and group syncs alone, its dz stream alone); at
+   the
    tagger's batch the cooperative GRU kernel (the earlier route), the
    sm90 GRU kernel's floors (launch and the weight load; the steps
    without the products) and its cluster size swept (1, 2, 4, 8, each
@@ -263,6 +271,15 @@ Phases (any failure exits non-zero before the final line):
    kernels; prints step_ms and tokens/s; then one step under
    torch.profiler (device busy against the wall clock, top kernels,
    the flash share).
+25. lstm f32 train — phase 12's main path at the framework's default
+   dtype (run after phase 13): the same model, batch and optimizer in
+   float32, 2 warm-up steps, then 8 timed steps with the launch counts
+   zeroed just before: finite, falling losses, finite parameters, and
+   exactly 8 launches of the float32 forward with residuals and 8 of
+   the float32 backward, all on the bf16x3 route and none on another;
+   prints step_ms, samples/s and the peak memory; then one step under
+   torch.profiler (device busy against the wall clock, top kernels,
+   each LSTM kernel's share).
 
 Prints the kernel table as one JSON line (the flash and LSTM kernels at
 their bfloat16 times, the training dtype, naming their wgmma sources,
@@ -270,7 +287,9 @@ with their errors in bfloat16 too; the flash kernels again at float32,
 the default dtype, as flash_attention_*_f32 with phase 24's launches
 and their float32 sources; the float32 LSTM forward,
 lstm_fwd_bf16x3_sm90.cu, as lstm_fwd_f32 with phase 13's launches,
-phase 11's float32 error and phase 15's float32 time; the GRU kernel,
+phase 11's float32 error and phase 15's float32 time; the float32
+LSTM backward, lstm_bwd_bf16x3_sm90.cu, as lstm_bwd_f32 with phase
+25's launches; the GRU kernel,
 gru_fwd_sm90.cu,
 at float32, the dtype the tagger decodes in; the int8 and decode
 kernels at float32, the
@@ -325,7 +344,7 @@ F32_TRAIN_STEPS = 4
 SM90_LIBS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90",
              "lstm_fwd_sm90", "lstm_bwd_sm90", "flash_fwd_tf32_sm90",
              "flash_dq_tf32_sm90", "flash_dkv_tf32_sm90",
-             "lstm_fwd_bf16x3_sm90")
+             "lstm_fwd_bf16x3_sm90", "lstm_bwd_bf16x3_sm90")
 NO_SPILL_LIBS = SM90_LIBS + ("paged_window_attention", "gru_fwd_sm90")
 
 
@@ -414,8 +433,9 @@ def phase_build():
     _sm90_product_check()
     _lstm_sm90_product_check()
     _lstm_fwd_sm90_product_check()
-    _bf16x3_product_check()
-    _bf16x3_plan_check()
+    for kernel in ("fwd", "bwd"):
+        _bf16x3_product_check(kernel)
+        _bf16x3_plan_check(kernel)
     _tf32_product_check()
     _tf32_plan_check()
     return secs
@@ -527,80 +547,93 @@ def _lstm_fwd_sm90_product_check():
                              f"{bound}")
 
 
-def _bf16x3_product_check():
-    """The float32 LSTM forward's product on its own building blocks
-    (csrc/lstm_fwd_bf16x3_sm90.cu): a float32 [64, 200] A split into
-    bf16 halves by the kernel's writer into the fragment-order planes, a
-    float32 [200, 40] W (4 gates x 10 units) split into its resident
-    halves, the three passes on wgmma m64n40k16 RS over the k-steps (the
-    last tile zero past k 200) as the kernel runs them, against the
-    float64 torch product of the same values: max |err| <= 1e-5 max(1,
-    max|ref|), which the kernel's one-pass product h1 W1 (returned
-    beside) must fail."""
+def _bf16x3_product_check(kernel):
+    """A float32 LSTM kernel's product on its own building blocks
+    (csrc/lstm_{fwd,bwd}_bf16x3_sm90.cu): a float32 [64, 200] A split
+    into bf16 halves by the kernel's writer into the fragment-order
+    planes (h for the forward, one gate of dz for the backward), 40
+    float32 weight columns split into the resident halves — the
+    forward's W [200, 40] (4 gates x 10 units, gate-strided columns),
+    the backward's 40 rows of W, [40, 200] (W-row tiles, k contiguous) —
+    the three passes on wgmma m64n40k16 RS over the k-steps (the last
+    tile zero past k 200) as the kernel runs them, against the float64
+    torch product of the same values (A W, or A W^T): max |err| <= 1e-5
+    max(1, max|ref|), which the kernel's one-pass product A1 W1
+    (returned beside) must fail."""
     import ctypes
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import fused_rnn as fr
-    fn = _build.load("lstm_fwd_bf16x3_sm90").pt_lstm_fwd_bf16x3_product_check
+    lib = f"lstm_{kernel}_bf16x3_sm90"
+    fn = getattr(_build.load(lib), f"pt_lstm_{kernel}_bf16x3_product_check")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-    rng = np.random.RandomState(8)
+    rng = np.random.RandomState(8 if kernel == "fwd" else 10)
     K = 200
     a = torch.from_numpy(rng.randn(64, K).astype(np.float32)).cuda()
-    w = torch.from_numpy(rng.randn(K, 40).astype(np.float32)).cuda()
+    shape = (K, 40) if kernel == "fwd" else (40, K)
+    w = torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
     c3 = torch.empty(64, 40, device="cuda")
     c1 = torch.empty(64, 40, device="cuda")
-    hs = torch.zeros(2 * fr.lstm_fwd_bf16x3_plan(K, _sms()).k_steps * 512,
-                     dtype=torch.int32, device="cuda")
+    plan = getattr(fr, f"lstm_{kernel}_bf16x3_plan")(K, _sms())
+    hs = torch.zeros(2 * plan.k_steps * 512, dtype=torch.int32,
+                     device="cuda")
     err = fn(a.data_ptr(), w.data_ptr(), c3.data_ptr(), c1.data_ptr(),
              hs.data_ptr(), K, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"bf16x3 product check launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"bf16x3 {kernel} product check launch failed: "
+                           f"CUDA error {err}")
     torch.cuda.synchronize()
-    want = a.double() @ w.double()
+    wd = w.double() if kernel == "fwd" else w.double().T
+    want = a.double() @ wd
     bound = 1e-5 * max(1.0, want.abs().max().item())
     e3, e1 = ((c.double() - want).abs().max().item() for c in (c3, c1))
-    log(f"bf16x3 product check A W (m64n40k16 RS, K {K}): three passes max "
+    what = "A W (m64n40k16 RS" if kernel == "fwd" else \
+        "A W^T (m64n40k16 RS over W-row tiles"
+    log(f"bf16x3 {kernel} product check {what}, K {K}): three passes max "
         f"|err| {e3:.3e}, one pass {e1:.3e} (limit {bound:.3e})")
     if not e3 <= bound:
-        raise AssertionError(f"bf16x3 product: max |err| {e3} > {bound}")
+        raise AssertionError(f"bf16x3 {kernel} product: max |err| {e3} > "
+                             f"{bound}")
     if not e1 > bound:
-        raise AssertionError(f"the bf16x3 product bound passes one bf16 "
-                             f"pass: {e1} <= {bound}")
+        raise AssertionError(f"the bf16x3 {kernel} product bound passes one "
+                             f"bf16 pass: {e1} <= {bound}")
 
 
-def _bf16x3_plan_check():
-    """ops/fused_rnn.py lstm_fwd_bf16x3_plan against the kernel's own
-    (pt_lstm_fwd_bf16x3_plan: units, blocks, dynamic shared bytes, ring
-    depth, k-steps) at every h 1..1400 on this card's SMs and both ring
-    depths: the same plan where either fits, neither where one does
-    not, and the dynamic plus the kernel's static shared bytes within
-    the opt-in."""
+def _bf16x3_plan_check(kernel):
+    """ops/fused_rnn.py lstm_{fwd,bwd}_bf16x3_plan against the kernel's
+    own (pt_lstm_{fwd,bwd}_bf16x3_plan: units, blocks, dynamic shared
+    bytes, ring depth, k-steps) at every h 1..1400 on this card's SMs and
+    both ring depths: the same plan where either fits, neither where one
+    does not, and the dynamic plus the kernel's static shared bytes
+    within the opt-in."""
     import ctypes
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import fused_rnn as fr
-    fn = _build.load("lstm_fwd_bf16x3_sm90").pt_lstm_fwd_bf16x3_plan
+    fn = getattr(_build.load(f"lstm_{kernel}_bf16x3_sm90"),
+                 f"pt_lstm_{kernel}_bf16x3_plan")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    plan = getattr(fr, f"lstm_{kernel}_bf16x3_plan")
     sms, fits, static = _sms(), 0, 0
     for h in range(1, 1401):
         for stages in (0, 4):
             buf = (ctypes.c_int * 6)()
             err = fn(h, sms, stages, buf)
-            want = fr.lstm_fwd_bf16x3_plan(h, sms, stages)
+            want = plan(h, sms, stages)
             got = tuple(buf[:5]) if err == 0 else None
             if got != (None if want is None else tuple(want)):
-                raise AssertionError(f"lstm_fwd_bf16x3_plan({h}, {sms}, "
+                raise AssertionError(f"lstm_{kernel}_bf16x3_plan({h}, {sms}, "
                                      f"{stages}) = {want}, the kernel's "
                                      f"{got} (error {err})")
             if got is not None:
                 fits, static = max(fits, h), buf[5]
                 if buf[2] + buf[5] > fr._SM90_SMEM:
-                    raise AssertionError(f"bf16x3 plan at h {h}: {buf[2]} + "
-                                         f"{buf[5]} bytes past the opt-in")
-    log(f"bf16x3 plan == kernel layout at h 1..1400 on {sms} SMs: fits up "
-        f"to h {fits}; at h 1280 {fr.lstm_fwd_bf16x3_plan(1280, sms)}, "
-        f"static {static} bytes")
+                    raise AssertionError(f"bf16x3 {kernel} plan at h {h}: "
+                                         f"{buf[2]} + {buf[5]} bytes past "
+                                         "the opt-in")
+    log(f"bf16x3 {kernel} plan == kernel layout at h 1..1400 on {sms} SMs: "
+        f"fits up to h {fits}; at h 1280 {plan(1280, sms)}, static {static} "
+        "bytes")
 
 
 def _tf32_product_check():
@@ -1819,11 +1852,11 @@ def _held_steps(label, name, got, ref, faults):
 
 
 def _held_steps_f32(label, name, got, ref, faults):
-    """float32 out held per time step at _held's float32 tolerance, its
-    atol scaled by the step's own max(1, max|ref|): the ratio of each
-    element's |err| to atol + rtol |ref| is at most 1 over the step. It
-    must reject each planted fault of ``faults`` (out x 0.99 at step 0;
-    out stale at step T/2). Returns the worst ratio."""
+    """float32 out or dz held per time step at _held's float32
+    tolerance, its atol scaled by the step's own max(1, max|ref|): the
+    ratio of each element's |err| to atol + rtol |ref| is at most 1 over
+    the step. It must reject each planted fault of ``faults`` (x 0.99 at
+    step 0; stale at step T/2). Returns the worst ratio."""
     w = ref.float()
     atol = F32_TOL["atol"] * w.abs().amax((0, 2)).clamp_min(1.0)
     limit = atol[None, :, None] + F32_TOL["rtol"] * w.abs()
@@ -1857,7 +1890,7 @@ def phase_rnn_vs_plain():
     direct forward call on the route of its dtype."""
     from paddle_tpu_torch.ops import fused_rnn as fr
     worst = {"lstm_fwd": 0.0, "lstm_fwd_f32": 0.0, "lstm_bwd": 0.0,
-             "gru_fwd": 0.0}
+             "lstm_bwd_f32": 0.0, "gru_fwd": 0.0}
     # the last case: odd h (no 8-byte unit pairs) and every row shorter
     # than T (steps past the longest row)
     lstm_cases = [("b128 h1280 T128", 128, 1280, 128, (100, 1, 128)),
@@ -1896,8 +1929,13 @@ def phase_rnn_vs_plain():
             d_out = _randn(gen, b, T, h, dtype=dtype)
             dhT, dcT = _randn(gen, b, h), _randn(gen, b, h)
             cseq, gates = res[3], res[4]
+            bwd_route = fr.lstm_bwd_route(dtype)
+            before = fr.lstm_backward.route_launches[bwd_route]
             dz = fr.lstm_backward(w, peep, lens, gates, cseq, d_out, dhT, dcT)
             torch.cuda.synchronize()
+            if fr.lstm_backward.route_launches[bwd_route] - before != 1:
+                raise AssertionError(f"{label} {dtype}: the backward call "
+                                     f"did not take the {bwd_route} route")
             dz_ref = fr.lstm_backward_reference(w, peep, lens, gates, cseq,
                                                 d_out, dhT, dcT)
             errs["dz"] = _held("dz", dz, dz_ref, dtype)
@@ -1922,6 +1960,11 @@ def phase_rnn_vs_plain():
                           _scaled_step(got, 0, 0.99)),
                          (f"{name} stale at step {mid} (step {mid - 1}'s)",
                           _stale_step(got, mid))])
+                errs["dz/step"] = _held_steps_f32(
+                    label, "dz", dz, dz_ref,
+                    [("dz x 0.99 at step 0", _scaled_step(dz, 0, 0.99)),
+                     (f"dz stale at step {mid} (step {mid - 1}'s)",
+                      _stale_step(dz, mid))])
             fwd_err = max(errs[k] for k in ("out", "hT", "cT", "out/res",
                                             "hT/res", "cT/res", "cseq",
                                             "gates"))
@@ -1930,14 +1973,15 @@ def phase_rnn_vs_plain():
             if dtype == torch.bfloat16:
                 # the kernels the JSON rows name, lstm_fwd_sm90.cu and
                 # lstm_bwd_sm90.cu, run bfloat16 only: their rows hold
-                # their outputs; lstm_fwd_f32 (lstm_fwd_bf16x3_sm90.cu)
-                # the float32 forward's
+                # their outputs; lstm_fwd_f32 and lstm_bwd_f32
+                # (lstm_{fwd,bwd}_bf16x3_sm90.cu) the float32 kernels'
                 worst["lstm_fwd"] = max(worst["lstm_fwd"], fwd_err)
                 worst["lstm_bwd"] = max(worst["lstm_bwd"], errs["dz"])
             else:
                 worst["lstm_fwd_f32"] = max(worst["lstm_fwd_f32"], fwd_err)
+                worst["lstm_bwd_f32"] = max(worst["lstm_bwd_f32"], errs["dz"])
             log(f"lstm vs plain {label} {str(dtype)[6:]} (forward route "
-                f"{route}, backward route {fr.lstm_bwd_route(dtype)}): " +
+                f"{route}, backward route {bwd_route}): " +
                 ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
     worst["gru_fwd"] = _gru_vs_plain()
     return worst
@@ -2042,6 +2086,9 @@ LSTM_ROWS, LSTM_TOKENS, LSTM_WARMUP, LSTM_STEPS = 128, 100, 2, 8
 # work does not depend on the rate.
 LSTM_LR = 5e-4
 TAGGER = dict(vocab_size=20000, num_labels=45, emb_size=128, hidden_size=128)
+# the LSTM kernels' names in a trace (phases 16 and 25)
+LSTM_MARKS = ("lstm_fwd_bf16x3_kernel", "lstm_fwd_sm90_kernel",
+              "lstm_bwd_bf16x3_kernel", "lstm_bwd_sm90_kernel")
 # (name, line of the TPU kernel in ops/pallas_rnn.py, source)
 RNN_KERNELS = [("lstm_fwd", 62, "lstm_fwd_sm90.cu"),
                ("lstm_bwd", 121, "lstm_bwd_sm90.cu"),
@@ -2055,7 +2102,7 @@ def _rnn_counts(fr, zero=False):
             fn.launches = 0
         fr.lstm_forward.res_launches = 0
         fr.lstm_forward.route_launches = {"sm90": 0, "bf16x3": 0}
-        fr.lstm_backward.route_launches = {"sm90": 0, "simt": 0}
+        fr.lstm_backward.route_launches = {"sm90": 0, "bf16x3": 0}
         fr.gru_forward.route_launches = {"sm90": 0, "coop": 0}
     return {"lstm_fwd": fr.lstm_forward.launches,
             "lstm_res": fr.lstm_forward.res_launches,
@@ -2087,16 +2134,22 @@ def _lstm_samples(n, seed, ragged=False):
     return out
 
 
-def phase_lstm_train():
+def phase_lstm_train(compute_dtype="bfloat16"):
     """The sequence slice's main training path: stacked_lstm_net at the
-    benchmark's widest row, SGD.train_batch with Adam(LSTM_LR) in
-    bfloat16 on one seeded batch of 128 rows of 100 tokens."""
+    benchmark's widest row, SGD.train_batch with Adam(LSTM_LR) on one
+    seeded batch of 128 rows of 100 tokens, in bfloat16 (phase 12) or in
+    float32, the framework's default (phase 25): finite, falling losses,
+    finite parameters, and LSTM_STEPS launches each of the forward (with
+    residuals) and backward kernels, every one on its dtype's route
+    (lstm_fwd_route, lstm_bwd_route) and none on another. Returns the
+    spec, the trainer, the batch and the launch counts."""
     from paddle_tpu_torch.core.topology import Topology
     from paddle_tpu_torch.ops import fused_rnn as fr
     from paddle_tpu_torch.optimizer import Adam
     from paddle_tpu_torch.trainer import SGD, create
 
-    spec = _lstm_spec("bfloat16")
+    dtype = getattr(torch, compute_dtype)
+    spec = _lstm_spec(compute_dtype)
     topo = Topology(spec.cost, extra_outputs=[spec.output])
     params = create(topo, torch.Generator().manual_seed(0))
     n_params = sum(p.numel() for p in params.raw.values())
@@ -2121,19 +2174,26 @@ def phase_lstm_train():
            if not bool(torch.isfinite(p).all())]
     if bad:
         raise AssertionError(f"non-finite parameters after training: {bad}")
+    routes = {k: {r: LSTM_STEPS if r == route(dtype) else 0
+                  for r in ("sm90", "bf16x3")}
+              for k, route in (("lstm_fwd_routes", fr.lstm_fwd_route),
+                               ("lstm_bwd_routes", fr.lstm_bwd_route))}
     if not (counts["lstm_fwd"] == counts["lstm_res"] == counts["lstm_bwd"]
             == LSTM_STEPS) or \
-            counts["lstm_fwd_routes"] != {"sm90": LSTM_STEPS, "bf16x3": 0} \
-            or counts["lstm_bwd_routes"] != {"sm90": LSTM_STEPS, "simt": 0}:
+            any(counts[k] != v for k, v in routes.items()):
         raise AssertionError(f"LSTM launches {counts} != {LSTM_STEPS} each, "
-                             "every forward and backward on the sm90 route")
+                             f"every forward and backward on its {dtype} "
+                             f"route ({routes})")
     step_ms = wall / LSTM_STEPS * 1e3
-    log(f"lstm train: {n_params} parameters, bf16, {LSTM_STEPS} timed steps "
-        f"after {LSTM_WARMUP}: {step_ms:.3f} ms/step, "
+    log(f"lstm train: {n_params} parameters, {compute_dtype}, "
+        f"{LSTM_STEPS} timed steps after {LSTM_WARMUP}: {step_ms:.3f} "
+        "ms/step, "
         f"{LSTM_ROWS / (step_ms / 1e3):.1f} samples/s, "
         f"{LSTM_ROWS * LSTM_TOKENS / (step_ms / 1e3):.1f} tokens/s, peak "
         f"{peak_gb:.3f} GB; losses {[round(x, 5) for x in losses]}; "
         f"launches {counts}")
+    if dtype == torch.float32:
+        return spec, trainer, batch, counts
     # the record behind LSTM_LR: the benchmark's rate on the same table
     # and batch
     bench = SGD(spec.cost, create(topo, torch.Generator().manual_seed(0)),
@@ -2171,8 +2231,11 @@ def phase_lstm_grad_check(batch):
     before = _rnn_counts(fr)
     cost_k, g_k = grads("cuda")
     after = _rnn_counts(fr)
-    if after["lstm_bwd"] - before["lstm_bwd"] != 1:
-        raise AssertionError("the card's gradient did not run the kernels")
+    if after["lstm_bwd"] - before["lstm_bwd"] != 1 or \
+            after["lstm_bwd_routes"]["bf16x3"] - \
+            before["lstm_bwd_routes"]["bf16x3"] != 1:
+        raise AssertionError("the card's gradient did not run the float32 "
+                             f"(bf16x3) backward kernel: {before} -> {after}")
     cost_p, g_p = grads("cpu")
     rel = {k: ((g_k[k] - g_p[k]).norm() / g_p[k].norm()).item()
            for k in g_p}
@@ -2318,7 +2381,7 @@ def _rnn_bound(kind, dtype, b, h, T, lens, route=None):
     forward 2 * h * 4h flops a row-step (h @ W), the backward the same
     (dz W^T), the GRU 2 * h * 3h (two products); bf16 at the tensor
     cores' 989 TFLOP/s, float32 at the SIMT units' 67, and the float32
-    forward's "bf16x3" route as three bf16 passes at 989."""
+    kernels' "bf16x3" route as three bf16 passes at 989."""
     e = 2 if dtype == torch.bfloat16 else 4
     valid = float(sum(lens))
     lens_b = 4 * b
@@ -2413,10 +2476,13 @@ def phase_rnn_timings():
                     for st, ms in sweep.items()))
         if dtype == torch.float32:
             _bf16x3_timings(x4, ln, w, bias, peep)
+            _bf16x3_bwd_timings(w, peep, ln, gates, cseq, d_out, dhT)
         for name, (kern, plain, (b_, h_, T_, lens_)) in calls.items():
             ms = device_ms(kern, iters=3, reps=3)
             plain_ms = device_ms(plain, iters=1, reps=3)
-            route = fr.lstm_fwd_route(dtype) if name == "lstm_fwd" else None
+            route = {"lstm_fwd": fr.lstm_fwd_route,
+                     "lstm_bwd": fr.lstm_bwd_route}.get(name)
+            route = route(dtype) if route else None
             bound_ms, bound_by = _rnn_bound(name, dtype, b_, h_, T_, lens_,
                                             route)
             steps = max(lens_)
@@ -2513,6 +2579,44 @@ def _bf16x3_timings(x4, lens, w, bias, peep):
     log("lstm_fwd float32 (bf16x3) " + line(
         "without residuals (the infer call)",
         device_ms(lambda i: launch(0, 0, res=False), iters=3, reps=3)))
+
+
+def _bf16x3_bwd_timings(w, peep, lens, gates, cseq, d_out, dhT):
+    """The float32 backward's own numbers at phase 15's shapes: its
+    floors (lstm_bwd_bf16x3_launch mode 1: the steps without the
+    product, 2: the grid barriers and group syncs alone, 3: the loads of
+    dz's planes alone, 4: the steps with the products but without the dz
+    stream; per run step, of which all but the last run a product) and
+    its ring depth swept (8 and 4 k-steps of fragments in registers),
+    each depth's dz held against the plain version first."""
+    from paddle_tpu_torch.ops import fused_rnn as fr
+    steps = int(lens.max())
+    ref = fr.lstm_backward_reference(w, peep, lens, gates, cseq, d_out, dhT,
+                                     dhT)
+
+    def launch(mode, stages):
+        return fr.lstm_bwd_bf16x3_launch(w, peep, lens, gates, cseq, d_out,
+                                         dhT, dhT, mode=mode, stages=stages)
+
+    def line(what, ms):
+        return (f"{what} {ms * 1e3:.2f} us/call ({ms / steps * 1e3:.3f} "
+                "us/step)")
+
+    floor = {m: device_ms(lambda i, m=m: launch(m, 0), iters=3, reps=3)
+             for m in (1, 2, 3, 4)}
+    log("lstm_bwd float32 (bf16x3) floors: "
+        + line("steps without the product", floor[1]) + ", "
+        + line("grid barriers and group syncs alone", floor[2]) + ", "
+        + line("the dz stream alone", floor[3]) + ", "
+        + line("the steps without the dz stream", floor[4]))
+    sweep = {}
+    for st in fr._X3_RINGS:
+        got = launch(0, st)
+        torch.cuda.synchronize()
+        _held(f"bf16x3 bwd ring {st} dz", got, ref, torch.float32)
+        sweep[st] = device_ms(lambda i, st=st: launch(0, st), iters=3, reps=3)
+    log("lstm_bwd float32 (bf16x3) ring sweep: " + ", ".join(
+        line(f"{st} k-steps", ms) for st, ms in sweep.items()))
 
 
 def profiler_ms(fn, iters):
@@ -3277,11 +3381,15 @@ def main():
     lstm_spec, lstm_trainer, lstm_batch, lstm_counts = phase_lstm_train()
     # phase 16, still in bfloat16
     phase_train_trace(lstm_trainer, lstm_batch, "lstm train", "LSTM kernels",
-                      ("lstm_fwd_bf16x3_kernel", "lstm_fwd_sm90_kernel",
-                       "lstm_bwd_kernel", "lstm_bwd_sm90_kernel"))
+                      LSTM_MARKS)
     phase_lstm_grad_check(lstm_batch[:16])             # float32
     infer_counts = phase_lstm_infer(lstm_spec, lstm_trainer)
     del lstm_trainer
+    # phase 25: the classifier at the default dtype, then one step traced
+    _, f32_trainer, f32_batch, f32_lstm_counts = phase_lstm_train("float32")
+    phase_train_trace(f32_trainer, f32_batch, "lstm f32 train",
+                      "LSTM kernels", LSTM_MARKS)
+    del f32_trainer, f32_batch
     gru_launches = phase_tagger()
     rnn_timing = phase_rnn_timings()
     dequant_err = phase_dequant_vs_plain()
@@ -3337,6 +3445,15 @@ def main():
         launches=infer_counts["lstm_fwd_routes"]["bf16x3"],
         max_abs_err=rnn_err["lstm_fwd_f32"],
         **rnn_timing[("lstm_fwd", torch.float32)]))
+    # the float32 backward, the classifier's default training dtype
+    # (phase 25)
+    kernels.append(dict(
+        name="lstm_bwd_f32", route="cuda",
+        source="paddle_tpu_torch/csrc/lstm_bwd_bf16x3_sm90.cu",
+        replaces="paddle_tpu/ops/pallas_rnn.py:121",
+        launches=f32_lstm_counts["lstm_bwd_routes"]["bf16x3"],
+        max_abs_err=rnn_err["lstm_bwd_f32"],
+        **rnn_timing[("lstm_bwd", torch.float32)]))
     kernels.append(dict(
         name="paged_window_attention_int8", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",

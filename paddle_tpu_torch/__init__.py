@@ -29,9 +29,9 @@ Slices ported so far:
   (models/tagger.py) and ``trainer.infer`` / ``Inference``, with
   hand-written Hopper kernels for the fused LSTM forward and backward
   and the GRU forward (the LSTM's products on the tensor cores: in
-  bfloat16 lstm_fwd_sm90.cu and lstm_bwd_sm90.cu, in float32 the
-  forward as three bf16 passes, lstm_fwd_bf16x3_sm90.cu, and the SIMT
-  backward, lstm_bwd.cu; the GRU's batch rows split
+  bfloat16 lstm_fwd_sm90.cu and lstm_bwd_sm90.cu, in float32 both as
+  three bf16 passes, lstm_fwd_bf16x3_sm90.cu and
+  lstm_bwd_bf16x3_sm90.cu; the GRU's batch rows split
   across thread-block clusters, gru_fwd_sm90.cu, and at wide h the
   cooperative gru_fwd.cu);
 - the serving engine's remaining options — int8 KV pages (the int8

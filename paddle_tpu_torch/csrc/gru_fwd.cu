@@ -27,7 +27,7 @@
 // barriers a step and every block re-reading all of h and r*h from L2
 // bound it, not its flops or bytes.
 //
-// Build: as lstm_bwd.cu.
+// Build: as lstm_bwd_bf16x3_sm90.cu.
 
 #include "rnn_common.cuh"
 

@@ -2,8 +2,8 @@
 // bfloat16.
 //
 // Replaces: paddle_tpu/ops/pallas_rnn.py:_lstm_bwd_kernel (launched by
-// _lstm_bwd) for bf16 weights; float32 keeps the SIMT kernel of
-// lstm_bwd.cu. Same function as that file documents: in reverse time it
+// _lstm_bwd) for bf16 weights; float32 takes lstm_bwd_bf16x3_sm90.cu.
+// Same function as that file documents: in reverse time it
 // carries (dh, dc) in float32, emits dz_t = [dzi, dzf, dzc, dzo] in bf16,
 // and forms dh_{t-1} = dz_t W^T from dz_t as stored (rounded to bf16),
 // the product accumulated in float32.
@@ -15,8 +15,8 @@
 // dz_t ([128, 5120] bf16, 1.31 MB) from L2 — 105 MB a step over 80
 // blocks — plus one grid barrier a step.
 //
-// Design: the persistent, weight-stationary plan of lstm_bwd.cu
-// (rnn_common.cuh) with the per-step product moved onto wgmma:
+// Design: the persistent, weight-stationary plan of rnn_common.cuh
+// with the per-step product on wgmma:
 //   - One cooperative launch; block x owns kUnits = 16 hidden units
 //     [16x, 16x + 16) (80 blocks at H 1280) and keeps their weight rows
 //     W[j, :] resident in shared memory as bf16: [16, 4H] (160 KB at H
@@ -24,7 +24,7 @@
 //     (written once by the block's threads, then a proxy fence), the B
 //     operand of an m64n16k16 product.
 //   - (a) Each step the block computes dz_t of its units from its own
-//     dh/dc carries exactly as lstm_bwd.cu does, and writes it into the
+//     dh/dc carries (the gate math of that file), and writes it into the
 //     dz output and into one of the two planes of a scratch [2, B, 4H] (row
 //     pitch rounded to 16 bytes, which the TMA needs and dz's own rows
 //     lack for odd H); (b) it meets the other blocks at the grid barrier;
@@ -42,13 +42,13 @@
 //     blocks and read by the TMA (the async proxy). Writers fence
 //     (fence.proxy.async.global) before the barrier's release; the
 //     producer fences again after its acquire, before the first load.
-// The carries never leave their owner, as in lstm_bwd.cu; steps past the
+// The carries never leave their owner; steps past the
 // longest row are not run. `mode` 1 runs the steps with no product
 // (dz math and the barrier) and mode 2 the barriers alone: the
 // per-step floors of this plan (timed by chip_smoke.py; their results
 // are not the function).
 //
-// Build: as lstm_bwd.cu.
+// Build: as lstm_bwd_bf16x3_sm90.cu.
 
 #include "rnn_common.cuh"
 #include "sm90_pipeline.cuh"

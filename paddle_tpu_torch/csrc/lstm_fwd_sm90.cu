@@ -71,7 +71,7 @@
 // under a runtime branch. `stages` caps the ring's depth for the same
 // timings.
 //
-// Build: as lstm_bwd.cu.
+// Build: as lstm_bwd_bf16x3_sm90.cu.
 
 #include "rnn_common.cuh"
 #include "sm90_pipeline.cuh"

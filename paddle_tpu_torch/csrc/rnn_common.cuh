@@ -1,10 +1,10 @@
 // Shared pieces of the persistent recurrent kernels for Hopper (sm_90a):
 // the grid-wide barrier (whole, or split into arrive and wait), the
 // staged SIMT product against a weight slice resident in shared memory,
-// and the element conversions. Included by lstm_bwd.cu,
-// lstm_fwd_sm90.cu, lstm_fwd_bf16x3_sm90.cu, lstm_bwd_sm90.cu,
-// gru_fwd.cu and gru_fwd_sm90.cu
-// (which takes only the conversions: it has no grid barrier).
+// and the element conversions. Included by lstm_fwd_sm90.cu,
+// lstm_bwd_sm90.cu, gru_fwd.cu (the staged SIMT product), gru_fwd_sm90.cu
+// (which takes only the conversions: it has no grid barrier) and, through
+// lstm_bf16x3.cuh, lstm_fwd_bf16x3_sm90.cu and lstm_bwd_bf16x3_sm90.cu.
 //
 // The design every recurrent kernel shares (a persistent RNN): one
 // cooperative launch covers the whole sequence, with at most one block

@@ -31,7 +31,6 @@ BUILD_DIR = PKG_DIR.parent / "build" / "paddle_tpu_torch"
 # kernel name -> source file under csrc/
 SOURCES: Dict[str, str] = {
     "paged_window_attention": "paged_window_attention.cu",
-    "lstm_bwd": "lstm_bwd.cu",
     "gru_fwd": "gru_fwd.cu",
     "decode_attention": "decode_attention.cu",
     "flash_fwd_sm90": "flash_fwd_sm90.cu",
@@ -44,6 +43,7 @@ SOURCES: Dict[str, str] = {
     "flash_dkv_tf32_sm90": "flash_dkv_tf32_sm90.cu",
     "flash_fwd_tf32_sm90": "flash_fwd_tf32_sm90.cu",
     "lstm_fwd_bf16x3_sm90": "lstm_fwd_bf16x3_sm90.cu",
+    "lstm_bwd_bf16x3_sm90": "lstm_bwd_bf16x3_sm90.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -14,8 +14,9 @@
   raises. ``_lstm_kernel`` is ``csrc/lstm_fwd_sm90.cu`` in bfloat16 and
   ``csrc/lstm_fwd_bf16x3_sm90.cu`` in float32 (its product as three
   bf16 wgmma passes over split halves); ``_lstm_bwd_kernel`` is
-  ``csrc/lstm_bwd_sm90.cu`` in bfloat16 (wgmma) and ``csrc/lstm_bwd.cu``
-  in float32 (SIMT); each chosen by ``w.dtype`` alone
+  ``csrc/lstm_bwd_sm90.cu`` in bfloat16 and
+  ``csrc/lstm_bwd_bf16x3_sm90.cu`` in float32 (the same three passes,
+  its blocks split by gate); each chosen by ``w.dtype`` alone
   (:func:`lstm_fwd_route`, :func:`lstm_bwd_route`); ``_gru_kernel`` is
   ``csrc/gru_fwd_sm90.cu`` (batch rows split across clusters of blocks
   that hold the whole weight, no grid barrier) wherever a cluster of at
@@ -36,8 +37,9 @@
   ``_gru_fwd`` trains through ``jax.vjp(_gru_ref)``.
 - :func:`kernel_ok`: the dispatch gate of ``ops/recurrent.py``;
   :func:`gru_fwd_plan`: the GRU's route, cluster size, rows a cluster
-  and shared memory, and :func:`lstm_fwd_bf16x3_plan` the float32 LSTM
-  forward's grid and shared memory, pure arithmetic on the shape.
+  and shared memory, and :func:`lstm_fwd_bf16x3_plan` /
+  :func:`lstm_bwd_bf16x3_plan` the float32 LSTM kernels' grid and shared
+  memory, pure arithmetic on the shape.
 
 Layouts are the layer's: x4 ``[b, T, 4h]`` (gates ``[i, f, c~, o]``),
 x3 ``[b, T, 3h]`` (``[z, r, c~]``), w ``[h, 4h]`` / ``[h, 3h]``, bias
@@ -67,11 +69,12 @@ _SM90_SMEM = 232448
 _SM90_UNITS, _SM90_CHUNK, _SM90_MAX_STAGES = 16, 64, 8
 _SM90_STAGE, _SM90_STATIC = 2 * 64 * 64 * 2, 1024
 _FWD_W_TILE, _BWD_W_TILE = 64 * 64 * 2, 16 * 64 * 2
-# the float32 forward (csrc/lstm_fwd_bf16x3_sm90.cu): 10 units a block
-# (wgmma N 40), its weight columns as two bf16 halves of [40 x 64] tiles,
-# ceil(h / 64) rounded up to even a half; a ring of 8 (or 4) k-steps of
-# h's fragments in registers
-_X3_UNITS, _X3_TILE, _X3_RINGS = 10, 40 * 64 * 2, (8, 4)
+# the float32 kernels (csrc/lstm_{fwd,bwd}_bf16x3_sm90.cu): 10 units a
+# block (the forward's wgmma N 40 = 4 gates x 10 units; the backward's N
+# 40 = a group of 40 units, one block per gate), 40 weight columns as two
+# bf16 halves of [40 x 64] tiles, ceil(h / 64) rounded up to even a half;
+# a ring of 8 (or 4) k-steps of the A operand's fragments in registers
+_X3_UNITS, _X3_N, _X3_TILE, _X3_RINGS = 10, 40, 40 * 64 * 2, (8, 4)
 # the sm90 GRU kernel (csrc/gru_fwd_sm90.cu): 256 threads a block,
 # clusters of 1-8 blocks, 1-4 batch rows a cluster, at most 226 KB of
 # dynamic shared memory a block (static words count against the opt-in)
@@ -198,11 +201,9 @@ def _smem_bytes(k: int, n_w: int, n_tile: int) -> int:
     return 4 * (kpad * n_w + max(_KC * _LDS, _ROWS * n_tile))
 
 
-def kernel_smem(h: int, units: int, gates: int) -> int:
-    """Shared memory of the SIMT kernels of one cell type: the float32
-    LSTM backward (gates 4) or the cooperative GRU forward (gates 3)."""
-    if gates == 4:
-        return _smem_bytes(4 * h, units + (units & 1), 0)
+def kernel_smem(h: int, units: int) -> int:
+    """Shared memory of the cooperative GRU forward (``csrc/gru_fwd.cu``,
+    the one SIMT kernel left) at ``units`` hidden units a block."""
     return _smem_bytes(h, 3 * units, 2 * units)
 
 
@@ -232,13 +233,32 @@ def lstm_bwd_sm90_smem(h: int, stages: int = 0) -> Tuple[int, int]:
 
 
 class Bf16x3Plan(NamedTuple):
-    """How one float32 LSTM forward call is launched
-    (:func:`lstm_fwd_bf16x3_plan`)."""
-    units: int       # hidden units a block (wgmma N = 4 units)
+    """How one float32 LSTM forward or backward call is launched
+    (:func:`lstm_fwd_bf16x3_plan`, :func:`lstm_bwd_bf16x3_plan`)."""
+    units: int       # hidden units a block owns
     blocks: int      # the cooperative grid, one block per SM at most
     smem: int        # dynamic shared-memory bytes a block
-    stages: int      # k-steps of h's fragments in each thread's ring
+    stages: int      # k-steps of A's fragments in each thread's ring
     k_steps: int     # 16-row k-steps of the product (h padded)
+
+
+def _bf16x3_plan(h: int, sms: int, stages: int,
+                 blocks: int) -> Optional[Bf16x3Plan]:
+    """The float32 kernels' plan with ``blocks`` blocks: 1024 bytes of
+    alignment slack plus the block's 40 weight columns as two bf16 halves
+    of ceil(h / 64) (rounded up to even) [40 x 64] tiles of 5120 bytes;
+    None past ``sms`` blocks or the opt-in beside 1024 static bytes."""
+    if stages not in (0,) + _X3_RINGS:
+        raise ValueError(f"the ring depth is one of {_X3_RINGS}, got "
+                         f"{stages}")
+    if h < 1:
+        return None
+    chunks = (-(-h // _SM90_CHUNK) + 1) // 2 * 2
+    smem = 1024 + 2 * chunks * _X3_TILE
+    if blocks > sms or smem + _SM90_STATIC > _SM90_SMEM:
+        return None
+    return Bf16x3Plan(_X3_UNITS, blocks, smem, stages or _X3_RINGS[0],
+                      4 * chunks)
 
 
 def lstm_fwd_bf16x3_plan(h: int, sms: int,
@@ -253,18 +273,20 @@ def lstm_fwd_bf16x3_plan(h: int, sms: int,
     or 4 (0: 8). None where it does not fit: more blocks than ``sms``,
     or more than the 232,448-byte opt-in beside 1024 bytes of static
     memory. On 132 SMs it fits every h up to 1320."""
-    if stages not in (0,) + _X3_RINGS:
-        raise ValueError(f"the ring depth is one of {_X3_RINGS}, got "
-                         f"{stages}")
-    if h < 1:
-        return None
-    blocks = -(-h // _X3_UNITS)
-    chunks = (-(-h // _SM90_CHUNK) + 1) // 2 * 2
-    smem = 1024 + 2 * chunks * _X3_TILE
-    if blocks > sms or smem + _SM90_STATIC > _SM90_SMEM:
-        return None
-    return Bf16x3Plan(_X3_UNITS, blocks, smem, stages or _X3_RINGS[0],
-                      4 * chunks)
+    return _bf16x3_plan(h, sms, stages, -(-h // _X3_UNITS))
+
+
+def lstm_bwd_bf16x3_plan(h: int, sms: int,
+                         stages: int = 0) -> Optional[Bf16x3Plan]:
+    """The float32 LSTM backward's launch (``csrc/lstm_bwd_bf16x3_sm90.cu``,
+    its ``plan_fits`` and ``dyn_smem``), pure arithmetic on the shape:
+    ceil(h / 40) groups of 40 units, 4 blocks a group (one per gate: 128
+    at the classifier's h 1280), each owning 10 units and holding its
+    gate's slice of the group's 40 weight rows in the forward's 205,824
+    bytes at h 1280 (:func:`_bf16x3_plan`). ``stages`` as the forward's.
+    None where it does not fit; on 132 SMs it fits every h up to 1320, on
+    114 up to 1120."""
+    return _bf16x3_plan(h, sms, stages, 4 * -(-h // _X3_N))
 
 
 class GruPlan(NamedTuple):
@@ -327,7 +349,7 @@ def gru_fwd_plan(b: int, h: int, dtype: torch.dtype, sms: int,
         return None
     coop_units = -(-h // sms)
     if coop_units > _MAX_UNITS or \
-            kernel_smem(h, coop_units, 3) > _SM90_SMEM:
+            kernel_smem(h, coop_units) > _SM90_SMEM:
         return None
     esize = 2 if dtype == torch.bfloat16 else 4
     if cluster and cluster not in _GRU_CLUSTERS or \
@@ -347,7 +369,7 @@ def gru_fwd_plan(b: int, h: int, dtype: torch.dtype, sms: int,
                          f"{rows or 'any'} rows holds the GRU's weight at "
                          f"h {h} in {dtype}")
     return GruPlan("coop", 1, b, coop_units,
-                   kernel_smem(h, coop_units, 3), -(-h // coop_units))
+                   kernel_smem(h, coop_units), -(-h // coop_units))
 
 
 def kernel_ok(b: int, h: int, act: str = "tanh", gate_act: str = "sigmoid",
@@ -358,27 +380,24 @@ def kernel_ok(b: int, h: int, act: str = "tanh", gate_act: str = "sigmoid",
 
     - a CUDA tensor on an sm_90 card (the kernels are built for sm_90a);
     - the default activations (tanh, sigmoid gates, tanh state);
-    - the persistent SIMT design fits: with U = ceil(h / SMs) hidden
-      units a block (one block per SM, all resident at once), U <= 16
-      and the block's resident weight slice plus its staging area fit
-      the 232,448 bytes of shared memory a block may use — the float32
-      LSTM backward needs 4 * (32 * ceil(4h / 32) * (U rounded up to
-      even) + 4224) bytes, the cooperative GRU 4 * (32 * ceil(h / 32) *
-      3U + max(4224, 256U));
-    - for the LSTM, the tensor-core kernels fit too: the bf16 ones
+    - for the LSTM, all four tensor-core kernels fit, each a
+      cooperative launch of at most one block per SM: the bf16 ones
       (``csrc/lstm_fwd_sm90.cu``, ``csrc/lstm_bwd_sm90.cu``) in
-      ceil(h / 16) blocks of 16 units (at most one per SM), each with
-      its bf16 weight tiles (1024 + 8192 * ceil(h / 64) bytes forward,
-      1024 + 2048 * ceil(4h / 64) backward) plus at least two
-      16384-byte ring stages (:func:`lstm_fwd_sm90_smem`,
-      :func:`lstm_bwd_sm90_smem`) — true up to h = 1536 — and the
-      float32 forward (``csrc/lstm_fwd_bf16x3_sm90.cu``) in ceil(h / 10)
-      blocks (:func:`lstm_fwd_bf16x3_plan`), which binds with the
-      backward;
+      ceil(h / 16) blocks of 16 units, each with its bf16 weight tiles
+      (1024 + 8192 * ceil(h / 64) bytes forward, 1024 + 2048 *
+      ceil(4h / 64) backward) plus at least two 16384-byte ring stages
+      (:func:`lstm_fwd_sm90_smem`, :func:`lstm_bwd_sm90_smem`) — true up
+      to h = 1536 — and the float32 ones in ceil(h / 10) blocks
+      (``csrc/lstm_fwd_bf16x3_sm90.cu``, :func:`lstm_fwd_bf16x3_plan`)
+      and 4 ceil(h / 40) blocks (``csrc/lstm_bwd_bf16x3_sm90.cu``,
+      :func:`lstm_bwd_bf16x3_plan`), which bind;
     - for the GRU, :func:`gru_fwd_plan` has a route: the cluster kernel
       (``csrc/gru_fwd_sm90.cu``) where a cluster holds the weight, the
-      cooperative one elsewhere, so the cooperative kernel's limit above
-      is the GRU's.
+      cooperative one (``csrc/gru_fwd.cu``) elsewhere, which fits where
+      U = ceil(h / SMs) <= 16 hidden units a block and its resident
+      weight slice plus staging area, 4 * (32 * ceil(h / 32) * 3U +
+      max(4224, 256U)) bytes (:func:`kernel_smem`), fit the 232,448
+      bytes of shared memory a block may use.
     On an H100 SXM (132 SMs) that admits the LSTM up to h = 1320 and the
     GRU up to h = 1472, in float32 and bfloat16 alike. Any batch size.
     """
@@ -393,13 +412,10 @@ def kernel_ok(b: int, h: int, act: str = "tanh", gate_act: str = "sigmoid",
     sms = _sms(device)
     if gates == 3:
         return gru_fwd_plan(b, h, torch.float32, sms) is not None
-    if -(-h // _SM90_UNITS) > sms or lstm_fwd_sm90_smem(h)[1] == 0 \
-            or lstm_bwd_sm90_smem(h)[1] == 0 \
-            or lstm_fwd_bf16x3_plan(h, sms) is None:
-        return False
-    units = -(-h // sms)
-    return units <= _MAX_UNITS and \
-        kernel_smem(h, units, gates) <= _SM90_SMEM
+    return -(-h // _SM90_UNITS) <= sms and lstm_fwd_sm90_smem(h)[1] > 0 \
+        and lstm_bwd_sm90_smem(h)[1] > 0 \
+        and lstm_fwd_bf16x3_plan(h, sms) is not None \
+        and lstm_bwd_bf16x3_plan(h, sms) is not None
 
 
 def _fn(lib: str, sym: str, n_ptrs: int, n_ints: int = 5):
@@ -572,13 +588,14 @@ def lstm_fwd_sm90_launch(x4, lens, w, bias, peep, save_res: bool = False,
 
 def lstm_bwd_route(dtype: torch.dtype) -> str:
     """The LSTM backward's route for weights of ``dtype``: bfloat16
-    takes the tensor-core kernel (``csrc/lstm_bwd_sm90.cu``, "sm90"),
-    float32 the SIMT kernel (``csrc/lstm_bwd.cu``, "simt"). By dtype
-    alone, decided before any launch."""
+    takes ``csrc/lstm_bwd_sm90.cu`` ("sm90"), float32
+    ``csrc/lstm_bwd_bf16x3_sm90.cu`` ("bf16x3": dz W^T as three bf16
+    wgmma passes), both on the tensor cores. By dtype alone, decided
+    before any launch."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"the LSTM kernel takes float32 or bfloat16, got "
                         f"{dtype}")
-    return "sm90" if dtype == torch.bfloat16 else "simt"
+    return "sm90" if dtype == torch.bfloat16 else "bf16x3"
 
 
 def lstm_bwd_sm90_launch(w, peep, lens, gates, cseq, d_out, dhT, dcT,
@@ -610,6 +627,50 @@ def lstm_bwd_sm90_launch(w, peep, lens, gates, cseq, d_out, dhT, dcT,
     return dz
 
 
+def lstm_bwd_bf16x3_launch(w, peep, lens, gates, cseq, d_out, dhT, dcT,
+                           mode: int = 0, stages: int = 0) -> torch.Tensor:
+    """One launch of ``csrc/lstm_bwd_bf16x3_sm90.cu`` on checked float32
+    CUDA tensors; returns dz. ``mode`` 0 computes the function (what
+    :func:`lstm_backward` launches); 1 runs the steps without their
+    product, 2 the grid barriers and group syncs alone, 3 the loads of
+    dz's planes alone and 4 the steps with their products but without
+    the dz stream (fragments loaded once and reused), the per-step floors
+    that ``chip_smoke.py`` times (their dz is not the function).
+    ``stages`` is the ring depth of :func:`lstm_bwd_bf16x3_plan` (0: its
+    default; no result depends on it). Counts nothing:
+    :func:`lstm_backward` counts its own launches."""
+    b, T, four_h = gates.shape
+    h, dev = four_h // 4, gates.device
+    plan = lstm_bwd_bf16x3_plan(h, _sms(dev), stages)
+    if plan is None:
+        raise ValueError(f"the float32 LSTM backward does not fit h={h} on "
+                         f"{_sms(dev)} SMs (lstm_bwd_bf16x3_plan)")
+    groups = plan.blocks // 4
+    dz = torch.empty((b, T, four_h), dtype=torch.float32, device=dev)
+    dh = torch.empty((b, h), dtype=torch.float32, device=dev)
+    dc = torch.empty((b, h), dtype=torch.float32, device=dev)
+    # dz_t split, bf16(dz) and bf16(dz - bf16(dz)), in the wgmma A
+    # fragment order: [gate, parity, half, 64-row m-tiles x k-steps x 128
+    # lanes x 4 words]; zero where no owner writes (rows past b, k past h)
+    words = 2 * -(-b // 128) * plan.k_steps * 512
+    zs = torch.zeros((4, 2, 2, words), dtype=torch.int32, device=dev)
+    # the partial products [parity, group, gate, b, 40]
+    part = torch.empty((2, groups, 4, b, _X3_N), dtype=torch.float32,
+                       device=dev)
+    # the grid barrier, then each group's counter, 128 bytes apart
+    bar = torch.zeros((1 + groups) * 32, dtype=torch.int32, device=dev)
+    fn = _fn("lstm_bwd_bf16x3_sm90", "pt_lstm_bwd_bf16x3", 14)
+    err = fn(w.data_ptr(), peep.data_ptr(), lens.data_ptr(), gates.data_ptr(),
+             cseq.data_ptr(), d_out.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
+             dz.data_ptr(), dh.data_ptr(), dc.data_ptr(), zs.data_ptr(),
+             part.data_ptr(), bar.data_ptr(), b, T, h, int(mode), plan.stages,
+             _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"LSTM backward (bf16x3) launch failed: CUDA "
+                           f"error {err} ({plan})")
+    return dz
+
+
 def lstm_backward(w: torch.Tensor, peep: torch.Tensor, lens: torch.Tensor,
                   gates: torch.Tensor, cseq: torch.Tensor,
                   d_out: torch.Tensor, dhT: torch.Tensor,
@@ -632,24 +693,9 @@ def lstm_backward(w: torch.Tensor, peep: torch.Tensor, lens: torch.Tensor,
             "lens": ((b,), torch.int32), "gates": ((b, T, four_h), dt),
             "cseq": ((b, T, h), dt), "d_out": ((b, T, h), dt),
             "dhT": ((b, h), torch.float32), "dcT": ((b, h), torch.float32)})
-    if route == "sm90":
-        dz = lstm_bwd_sm90_launch(w, peep, lens, gates, cseq, d_out, dhT,
-                                  dcT)
-        lstm_backward.launches += 1
-        lstm_backward.route_launches[route] += 1
-        return dz
-    dev = gates.device
-    dz = torch.empty((b, T, four_h), dtype=dt, device=dev)
-    dh = torch.empty((b, h), dtype=torch.float32, device=dev)
-    dc = torch.empty((b, h), dtype=torch.float32, device=dev)
-    bar = _barrier(dev)
-    fn = _fn("lstm_bwd", "pt_lstm_bwd", 12)
-    err = fn(w.data_ptr(), peep.data_ptr(), lens.data_ptr(), gates.data_ptr(),
-             cseq.data_ptr(), d_out.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
-             dz.data_ptr(), dh.data_ptr(), dc.data_ptr(), bar.data_ptr(), b, T,
-             h, _units(h, dev), _DTYPE_CODES[dt], _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"LSTM backward launch failed: CUDA error {err}")
+    launch = lstm_bwd_sm90_launch if route == "sm90" else \
+        lstm_bwd_bf16x3_launch
+    dz = launch(w, peep, lens, gates, cseq, d_out, dhT, dcT)
     lstm_backward.launches += 1
     lstm_backward.route_launches[route] += 1
     return dz
@@ -735,17 +781,37 @@ lstm_forward.launches = 0
 lstm_forward.res_launches = 0
 lstm_forward.route_launches = {"sm90": 0, "bf16x3": 0}
 lstm_backward.launches = 0
-lstm_backward.route_launches = {"sm90": 0, "simt": 0}
+lstm_backward.route_launches = {"sm90": 0, "bf16x3": 0}
 gru_forward.launches = 0
 gru_forward.route_launches = {"sm90": 0, "coop": 0}
 
 
 # ------------------------------------------------------------ public ops
+def lstm_param_grads(dz: torch.Tensor, out: torch.Tensor,
+                     cseq: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dw [h, 4h] in dz's dtype, dbias [4h], dpeep [3h] float32): the
+    contractions over all (t, b) that follow the backward kernel, from
+    its dz [b, T, 4h] and the forward's out and cseq [b, T, h] (h_{t-1}
+    and c_{t-1} are out and cseq one step back, 0 at t = 0)."""
+    b, T, h = out.shape
+    hprev = torch.cat([out.new_zeros((b, 1, h)), out[:, :-1]], dim=1)
+    dw = torch.matmul(hprev.reshape(b * T, h).t(), dz.reshape(b * T, 4 * h))
+    dbias = dz.sum(dim=(0, 1), dtype=torch.float32)
+    cprev = torch.cat([cseq.new_zeros((b, 1, h)), cseq[:, :-1]], dim=1)
+    dpeep = torch.cat([
+        (dz[..., :h] * cprev).sum(dim=(0, 1), dtype=torch.float32),
+        (dz[..., h:2 * h] * cprev).sum(dim=(0, 1), dtype=torch.float32),
+        (dz[..., 3 * h:] * cseq).sum(dim=(0, 1), dtype=torch.float32)])
+    return dw, dbias, dpeep
+
+
 class _LSTMFn(torch.autograd.Function):
     """Forward with residuals, reverse-time backward kernel, then the
     parameter gradients as large contractions (``_lstm_fwd`` /
-    ``_lstm_bwd``). dW comes out of one matmul over all (t, b) in the
-    product dtype, like every bf16 matmul of the port."""
+    ``_lstm_bwd``; :func:`lstm_param_grads`). dW comes out of one matmul
+    over all (t, b) in the product dtype, like every bf16 matmul of the
+    port."""
 
     @staticmethod
     def forward(ctx, x4, lens, w, bias, peep):
@@ -770,15 +836,7 @@ class _LSTMFn(torch.autograd.Function):
             else d_cT.float().contiguous()
         dz = lstm_backward(wm, peep.contiguous(), lens, gates, cseq, d_out,
                            d_hT, d_cT)
-        hprev = torch.cat([out.new_zeros((b, 1, h)), out[:, :-1]], dim=1)
-        dw = torch.matmul(hprev.reshape(b * T, h).t(),
-                          dz.reshape(b * T, 4 * h))
-        dbias = dz.sum(dim=(0, 1), dtype=torch.float32)
-        cprev = torch.cat([cseq.new_zeros((b, 1, h)), cseq[:, :-1]], dim=1)
-        dpeep = torch.cat([
-            (dz[..., :h] * cprev).sum(dim=(0, 1), dtype=torch.float32),
-            (dz[..., h:2 * h] * cprev).sum(dim=(0, 1), dtype=torch.float32),
-            (dz[..., 3 * h:] * cseq).sum(dim=(0, 1), dtype=torch.float32)])
+        dw, dbias, dpeep = lstm_param_grads(dz, out, cseq)
         x4_dtype, w_dtype = ctx.dtypes
         return dz.to(x4_dtype), None, dw.to(w_dtype), dbias, dpeep
 

@@ -477,20 +477,19 @@ def test_kernel_gate_and_wrappers_off_the_card():
         fused_rnn.gru_forward(torch.zeros((2, 3, 18), device="meta"),
                               torch.zeros(2, dtype=torch.int32),
                               torch.zeros((6, 18)), torch.zeros(18))
-    # the shared-memory plan of the documented limits: the float32 LSTM
-    # backward at 10 units a block fits up to h 1344
-    assert fused_rnn.kernel_smem(1280, 10, 4) <= fused_rnn._SM90_SMEM
-    assert fused_rnn.kernel_smem(1344, 10, 4) <= fused_rnn._SM90_SMEM
-    assert fused_rnn.kernel_smem(1352, 10, 4) > fused_rnn._SM90_SMEM
+    # the shared-memory plan of the documented limits: the cooperative
+    # GRU at 12 units a block (132 SMs) fits up to h 1472
+    assert fused_rnn.kernel_smem(1472, 12) <= fused_rnn._SM90_SMEM
+    assert fused_rnn.kernel_smem(1473, 12) > fused_rnn._SM90_SMEM
 
 
 def test_lstm_backward_route_is_chosen_by_dtype_alone():
     """bfloat16 weights take the tensor-core backward (sm90,
-    csrc/lstm_bwd_sm90.cu), float32 the SIMT one (csrc/lstm_bwd.cu),
-    decided by dtype before any launch; on the CPU both dtypes take the
-    plain version and count no launch."""
+    csrc/lstm_bwd_sm90.cu), float32 the three-pass one (bf16x3,
+    csrc/lstm_bwd_bf16x3_sm90.cu), decided by dtype before any launch;
+    on the CPU both dtypes take the plain version and count no launch."""
     assert fused_rnn.lstm_bwd_route(torch.bfloat16) == "sm90"
-    assert fused_rnn.lstm_bwd_route(torch.float32) == "simt"
+    assert fused_rnn.lstm_bwd_route(torch.float32) == "bf16x3"
     with pytest.raises(TypeError):
         fused_rnn.lstm_bwd_route(torch.float16)
     bwd = fused_rnn.lstm_backward
@@ -513,7 +512,7 @@ def test_lstm_backward_route_is_chosen_by_dtype_alone():
         torch.testing.assert_close(dz, fused_rnn.lstm_backward_reference(
             *args), rtol=0, atol=0)
     assert (bwd.launches, dict(bwd.route_launches)) == before
-    assert set(bwd.route_launches) == {"sm90", "simt"}
+    assert set(bwd.route_launches) == {"sm90", "bf16x3"}
 
 
 def _check_sm90_plan(plan, w_bytes_1280):
@@ -580,9 +579,9 @@ def test_lstm_forward_route_is_chosen_by_dtype_alone():
 def test_kernel_ok_admits_the_same_grid(monkeypatch):
     """On an emulated H100 (sm_90, 132 SMs) the dispatch gate admits the
     LSTM up to h 1320 and the GRU up to h 1472 at any batch: the float32
-    LSTM forward's 132 blocks of 10 units bind (its backward fits up to
-    h 1344, both bf16 LSTM kernels up to h 1536). Another architecture
-    is never admitted."""
+    LSTM kernels' 132 blocks bind (the forward's of 10 units, the
+    backward's 4 a group of 40 units; both bf16 LSTM kernels fit up to h
+    1536). Another architecture is never admitted."""
     import types
     monkeypatch.setattr(torch.cuda, "get_device_capability",
                         lambda device=None: (9, 0))
@@ -714,7 +713,8 @@ def test_lstm_fwd_bf16x3_plan(monkeypatch):
     reserve, the ring 8 k-steps deep (4 on request); on an emulated H100
     it fits the largest h the dispatch gate admits (1320), and wherever
     it does not fit (h past 10 x SMs) the gate sends the float32 LSTM to
-    no kernel route."""
+    no kernel route. On 114 SMs the backward's plan binds first: the
+    gate admits up to h 1120 (lstm_bwd_bf16x3_plan)."""
     import types
     plan = fused_rnn.lstm_fwd_bf16x3_plan(1280, 132)
     assert plan == (10, 128, 1024 + 2 * 20 * 5120, 8, 80)
@@ -743,4 +743,128 @@ def test_lstm_fwd_bf16x3_plan(monkeypatch):
                     p.smem + 1024 <= fused_rnn._SM90_SMEM
                 assert p.k_steps * 16 >= h and p.k_steps % 8 == 0
         assert fused_rnn.lstm_fwd_bf16x3_plan(admitted[-1], sms) is not None
-    assert admitted[-1] == 1140
+    assert admitted[-1] == 1120
+
+
+# ---- the float32 LSTM backward's product (csrc/lstm_bwd_bf16x3_sm90.cu)
+# and plan, at the same float32 tolerance.
+def _bf16x3_dz_wt(dz, w, passes):
+    """dz W^T as the backward kernel forms it: block (c, q) multiplies
+    gate q's columns of dz by gate q's slice of W's rows, each split into
+    bf16 halves (_bf16x3_matmul: the small passes summed apart), and the
+    owner of a unit sums the four partials in gate order."""
+    h = w.shape[0]
+    parts = [_bf16x3_matmul(dz[:, q * h:(q + 1) * h],
+                            w[:, q * h:(q + 1) * h].t(), passes)
+             for q in range(4)]
+    return ((parts[0] + parts[1]) + parts[2]) + parts[3]
+
+
+def _lstm_bwd_bf16x3(w, peep, lens, gates, cseq, d_out, dhT, dcT, passes):
+    """The LSTM backward of fused_rnn.lstm_backward_reference (float32),
+    its product dz W^T replaced by the kernel's: dz [b, T, 4h]."""
+    b, T, four_h = gates.shape
+    h = four_h // 4
+    pi, pf, po = peep.reshape(3, h)
+    dh, dc = dhT, dcT
+    dz = torch.empty((b, T, four_h))
+    for t in reversed(range(T)):
+        i, f, cand, o = gates[:, t].split(h, dim=-1)
+        c_t = cseq[:, t]
+        c_prev = cseq[:, t - 1] if t > 0 else torch.zeros_like(c_t)
+        valid = (lens > t)[:, None]
+        dh_t = dh + torch.where(valid, d_out[:, t], torch.zeros_like(dh))
+        tc = torch.tanh(c_t)
+        dzo = dh_t * tc * o * (1.0 - o)
+        dc_t = dc + dh_t * o * (1.0 - tc * tc) + dzo * po
+        dzi = dc_t * cand * i * (1.0 - i)
+        dzf = dc_t * c_prev * f * (1.0 - f)
+        dzc = dc_t * i * (1.0 - cand * cand)
+        dz_t = torch.cat([dzi, dzf, dzc, dzo], dim=-1)
+        dz_t = torch.where(valid, dz_t, torch.zeros_like(dz_t))
+        dh = torch.where(valid, _bf16x3_dz_wt(dz_t, w, passes), dh)
+        dc = torch.where(valid, dc_t * f + dzi * pi + dzf * pf, dc)
+        dz[:, t] = dz_t
+    return dz
+
+
+def _bwd_case(b, h, T, seed, passes):
+    """(the emulated kernel's dz and the contractions of _LSTMFn.backward
+    over it, jax.vjp of the JAX package's float32 LSTM: dx4, dw, dbias,
+    dpeep) for seeded card-scale inputs and cotangents."""
+    x4, lens, w, bias, peep = _card_scale_inputs(b, h, T, seed)
+    rng = np.random.RandomState(seed + 1)
+    d_out = rng.randn(b, T, h).astype(np.float32)
+    dhT, dcT = (rng.randn(b, h).astype(np.float32) for _ in range(2))
+    _, vjp = jax.vjp(
+        lambda x, w_, b_, p_: pallas_rnn._lstm_ref(
+            x, jnp.asarray(lens).reshape(b, 1), w_, b_.reshape(1, 4 * h),
+            p_.reshape(3, h)),
+        *(jnp.asarray(a) for a in (x4, w, bias, peep)))
+    want = vjp((jnp.asarray(d_out), jnp.asarray(dhT), jnp.asarray(dcT)))
+    tl = torch.tensor(lens)
+    out, _, _, cseq, gates = fused_rnn.lstm_reference(
+        torch.tensor(x4), tl, torch.tensor(w), torch.tensor(bias),
+        torch.tensor(peep), save_res=True)
+    dz = _lstm_bwd_bf16x3(torch.tensor(w), torch.tensor(peep), tl, gates,
+                          cseq, torch.tensor(d_out), torch.tensor(dhT),
+                          torch.tensor(dcT), passes)
+    return (dz,) + fused_rnn.lstm_param_grads(dz, out, cseq), want
+
+
+def test_bf16x3_lstm_backward_matches_jax_float32():
+    """Three bf16 passes of dz W^T, split by gate as the backward kernel
+    splits them, inside the reverse scan (b 4, h 256, T 24 ragged):
+    dz, then dw, dbias and dpeep through the contractions the card runs
+    after the kernel, against jax.vjp of the JAX package's float32 LSTM
+    (_lstm_ref: its dx4 is dz) at the card check's float32 tolerance."""
+    got, want = _bwd_case(4, 256, 24, seed=32, passes=3)
+    for name, g, j in zip(("dz", "dw", "dbias", "dpeep"), got, want):
+        atol = F32_CARD["atol"] * max(1.0, float(np.abs(j).max()))
+        _close(g, j, dict(rtol=F32_CARD["rtol"], atol=atol))
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_bf16x3_backward_check_has_teeth_at_full_width(passes):
+    """At the classifier's h 1280 (b 4, T 8: small enough for the CPU),
+    one bf16 pass of dz W^T fails the card's float32 check of dz against
+    the JAX package's float32 LSTM gradient, and the kernel's three pass
+    it."""
+    got, want = _bwd_case(4, 1280, 8, seed=34, passes=passes)
+    assert _within_card_f32(got[0], want[0]) == (passes == 3)
+
+
+def test_lstm_bwd_bf16x3_plan(monkeypatch):
+    """The float32 backward's plan: 128 blocks (32 groups of 40 units x 4
+    gates) at h 1280, each owning 10 units and holding its two weight
+    halves in the forward's 205,824 bytes; the ring 8 k-steps deep (4 on
+    request); it fits wherever 4 ceil(h / 40) blocks fit the SMs — up to
+    h 1320 on 132 SMs, 1120 on 114 — and the dispatch gate admits the
+    LSTM exactly up to the smaller of its and the forward's limits on
+    emulated 132- and 114-SM cards."""
+    import types
+    plan = fused_rnn.lstm_bwd_bf16x3_plan(1280, 132)
+    assert plan == (10, 128, 1024 + 2 * 20 * 5120, 8, 80)
+    assert plan.smem == fused_rnn.lstm_fwd_bf16x3_plan(1280, 132).smem
+    assert plan.smem + 1024 <= fused_rnn._SM90_SMEM
+    assert fused_rnn.lstm_bwd_bf16x3_plan(1280, 132, stages=4).stages == 4
+    with pytest.raises(ValueError):
+        fused_rnn.lstm_bwd_bf16x3_plan(1280, 132, stages=3)
+    assert fused_rnn.lstm_bwd_bf16x3_plan(45, 132).blocks == 8
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda device=None: (9, 0))
+    for sms, top in ((132, 1320), (114, 1120)):
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda device=None, n=sms: types.SimpleNamespace(
+                                multi_processor_count=n))
+        fits = [h for h in range(1, 1601)
+                if fused_rnn.lstm_bwd_bf16x3_plan(h, sms) is not None]
+        assert fits == [h for h in range(1, 1601)
+                        if 4 * -(-h // 40) <= sms]
+        assert fits[-1] == top
+        for h in fits:
+            p = fused_rnn.lstm_bwd_bf16x3_plan(h, sms)
+            assert p.blocks <= sms and p.k_steps * 16 >= h
+        admitted = [h for h in range(1, 1601)
+                    if fused_rnn.kernel_ok(128, h, device="cuda")]
+        assert admitted == list(range(1, top + 1)), sms
