@@ -16,8 +16,9 @@ Phases (any failure exits non-zero before the final line):
    lstm_fwd_bf16x3_sm90.cu, lstm_bwd_bf16x3_sm90.cu) must report 0
    spill bytes and no C75xx
    warning (products serialized), and the window kernel
-   (paged_window_attention.cu) and the cluster GRU kernel
-   (gru_fwd_sm90.cu) 0 spill bytes. Then the building blocks of
+   (paged_window_attention.cu), the cluster GRU kernel
+   (gru_fwd_sm90.cu) and the decode kernel (decode_attention.cu) 0
+   spill bytes. Then the building blocks of
    sm90_pipeline.cuh on one 64 x 64 bf16 tile: A B^T by wgmma SS over
    TMA-loaded K-major tiles and A B by wgmma RS with B MN-major; the
    LSTM backward's product, a [64, 200] x [16, 200]^T by wgmma
@@ -40,7 +41,10 @@ Phases (any failure exits non-zero before the final line):
    (max |err| <= 1e-5 x max(1, max|ref|), which one TF32 pass fails);
    then flash_tf32_plan (ops/flash_attention.py) against the float32
    forward, dq and dk/dv kernels' own plan and shared bytes at every d
-   8..128.
+   8..128; and decode_smem_bytes (ops/paged_decode.py, which
+   decode_plan sizes its chunks by) against the decode kernel's own
+   layout at every rep 1..32, dh 8..512, chunk 32..544, both element
+   sizes.
 2. kernel vs plain — paged window attention at full width (dh 64,
    page 16, 8 slots, 34 pages a slot, lengths up to 544), h/g in
    {8/8, 8/2, 8/1}, W in {1, 4}, float32 and bfloat16, against the
@@ -229,10 +233,15 @@ Phases (any failure exits non-zero before the final line):
    check; a kv_len-0 row returns the mean of dequantized V;
    quantize_kv on the card is bit-equal to the CPU port's.
 18. decode kernel vs plain — decode_attention at b 8, h 8, g 8/2/1, dh
-   64, T 544, shared and per-row lengths (one of them 0), float32 and
-   bfloat16, against decode_reference; paged_attention(use_kernel=True)
-   against the einsum path over phase 3's engine pages. These calls
-   are the kernel's launches: no engine route reaches it.
+   64, T 544, shared and per-row lengths (one of them 0, also held
+   against the mean of V; rows of 544, 513 and 256 span several
+   128-column chunks, so the merge runs), float32 and bfloat16, against
+   decode_reference; at g 2 also T 541 and 542, whose cache rows are
+   not 16-byte aligned (the kernel's 8-byte, 4-byte and element
+   copies); paged_attention(use_kernel=True) against the einsum path
+   over phase 3's engine pages; then every arrival counter of the
+   merge reads 0. These calls are the kernel's launches: no engine
+   route reaches it.
 19. int8 engine — phase 3's 16 requests with kv_quant="int8": launches
    of the int8 kernel == steps x 6 and of the float kernel 0, balanced
    pages, the first 4 requests' tokens against the CPU port's int8
@@ -250,11 +259,17 @@ Phases (any failure exits non-zero before the final line):
    them; spills and restores > 0, revisit tokens equal the first
    visit's, both tiers balance.
 22. two-tier timings and trace — the int8 kernel at the int8 engine's
-   shapes (W 1 and 3) and the decode kernel at b 8, h 8, g 8, T 544
-   over the same 8 lengths, float32 and bfloat16, by CUDA-graph replay,
-   with their bounds (the decode kernel's counts each row's live
-   columns only), plain times and SDPA yardsticks; then 8 requests
-   through the int8 + speculative engine under torch.profiler.
+   shapes (W 1 and 3) and the decode kernel at b 8, h 8, T 544 over
+   the same 8 lengths (g 8 and 1) and at full context (every row 544,
+   g 8 and 1; cache sets of 100 MB or more, past the 50 MB L2),
+   float32 and bfloat16, by CUDA-graph replay, with their bounds (the
+   decode kernel's counts each row's live columns only), plain times
+   and SDPA yardsticks; the decode kernel also with its floors
+   (decode_launch stopped at once, after the tile loads, the scores,
+   P.V, and before the merge) and its chunk plan swept (32, 64, 128
+   columns and the whole T, each held against the plain version);
+   then 8 requests through the int8 + speculative engine under
+   torch.profiler.
 23. full context — both window kernels with every slot at 544 tokens
    (8 slots x 34 pages, h 8, g 8, dh 64, float32 q), float32 and int8
    pages, W 1 and 3, on seeded random pools large enough to exceed the
@@ -340,12 +355,14 @@ FLASH_F32_SOURCES = {"fwd": "flash_fwd_tf32_sm90.cu",
                      "dkv": "flash_dkv_tf32_sm90.cu"}
 F32_TRAIN_STEPS = 4
 # the wgmma kernels, which must build with 0 spill bytes and no C75xx
-# warning; the window kernel must build with 0 spill bytes too
+# warning; the window, GRU and decode kernels must build with 0 spill
+# bytes too
 SM90_LIBS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90",
              "lstm_fwd_sm90", "lstm_bwd_sm90", "flash_fwd_tf32_sm90",
              "flash_dq_tf32_sm90", "flash_dkv_tf32_sm90",
              "lstm_fwd_bf16x3_sm90", "lstm_bwd_bf16x3_sm90")
-NO_SPILL_LIBS = SM90_LIBS + ("paged_window_attention", "gru_fwd_sm90")
+NO_SPILL_LIBS = SM90_LIBS + ("paged_window_attention", "gru_fwd_sm90",
+                             "decode_attention")
 
 
 _T0 = time.perf_counter()
@@ -438,7 +455,35 @@ def phase_build():
         _bf16x3_plan_check(kernel)
     _tf32_product_check()
     _tf32_plan_check()
+    _decode_plan_check()
     return secs
+
+
+def _decode_plan_check():
+    """ops/paged_decode.py decode_smem_bytes, which decode_plan sizes
+    its chunks by, against the decode kernel's own layout
+    (pt_decode_smem) at every rep 1..32, dh 8..512, chunk 32..544 and
+    both element sizes."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import paged_decode as ops
+    fn = _build.load("decode_attention").pt_decode_smem
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4
+    n = 0
+    for rep in range(1, 33):
+        for dh in range(8, 520, 8):
+            for cols in range(32, 577, 32):
+                for esize in (4, 2):
+                    want = fn(rep, dh, cols, esize)
+                    got = ops.decode_smem_bytes(rep, dh, cols, esize)
+                    if got != want:
+                        raise AssertionError(
+                            f"decode_smem_bytes({rep}, {dh}, {cols}, "
+                            f"{esize}) = {got}, the kernel's {want}")
+                    n += 1
+    log(f"decode plan: decode_smem_bytes equals the kernel's layout at "
+        f"{n} shapes")
 
 
 def _sm90_product_check():
@@ -780,6 +825,16 @@ def phase_kernel_vs_plain():
     return worst
 
 
+def _check_counters_zero(kernel):
+    """Every arrival counter of the merge (shared by the window and
+    decode kernels) reads 0 again after a synchronized call."""
+    from paddle_tpu_torch.ops import paged_decode as ops
+    for counters in ops.arrival_counters():
+        if counters.any():
+            raise AssertionError(f"{kernel} kernel arrival counters not "
+                                 "back to 0 after a call")
+
+
 def _check_corrupt_entry(call, tb, lens, clean):
     """Out-of-range table entries inside a slot's used pages are never
     dereferenced: slot 1's first entry (-1; its used pages fit one
@@ -787,7 +842,6 @@ def _check_corrupt_entry(call, tb, lens, clean):
     chunks, so the merge carries it) make those slots' rows NaN, and
     every other row equals the clean call's. After the synchronized
     call every arrival counter of the merge reads 0 again."""
-    from paddle_tpu_torch.ops import paged_decode as ops
     bad = tb.clone()
     used5 = min(max(-(-int(lens[5].max()) // PAGE), 1), tb.shape[1])
     bad[1, 0] = -1
@@ -802,10 +856,7 @@ def _check_corrupt_entry(call, tb, lens, clean):
     if not torch.equal(got[keep], clean[keep]):
         raise AssertionError("a corrupt table entry changed another "
                              "slot's rows")
-    for counters in ops.window_arrival_counters():
-        if counters.any():
-            raise AssertionError("window kernel arrival counters not back "
-                                 "to 0 after a call")
+    _check_counters_zero("window")
 
 
 def _check_zero_len_row(ops, args, tables, lens, dtype):
@@ -840,6 +891,24 @@ def _check_zero_len_row(ops, args, tables, lens, dtype):
 
 
 # ------------------------------------------------------------ phase 3
+def serving_requests():
+    """The 16 seeded requests of the serving mix: (prompts, new token
+    counts)."""
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, FULL["vocab_size"],
+                           (int(rng.randint(16, 97)),)).astype(np.int32)
+               for _ in range(N_REQ)]
+    news = [int(rng.randint(16, 65)) for _ in range(N_REQ)]
+    return prompts, news
+
+
+def engine_lengths():
+    """The kv lengths of the serving mix's first 8 requests at their
+    last token: the lengths the engine's slots reach."""
+    prompts, news = serving_requests()
+    return [len(p) + n for p, n in zip(prompts[:SLOTS], news[:SLOTS])]
+
+
 def phase_engine():
     from paddle_tpu_torch.models.decode import TransformerDecoder
     from paddle_tpu_torch.ops import paged_decode as ops
@@ -853,11 +922,7 @@ def phase_engine():
                        max_seq_len=FULL["max_len"])
     assert eng.pool.num_pages == SLOTS * (FULL["max_len"] // PAGE) + 1
     eng.warmup()
-    rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, FULL["vocab_size"],
-                           (int(rng.randint(16, 97)),)).astype(np.int32)
-               for _ in range(N_REQ)]
-    news = [int(rng.randint(16, 65)) for _ in range(N_REQ)]
+    prompts, news = serving_requests()
     torch.cuda.synchronize()
     ops.paged_window_attention.launches = 0
     reqs, wall = _serve(eng, prompts, news)
@@ -2862,13 +2927,46 @@ DECODE_T = FULL["max_len"]
 DECODE_LENS = [544, 1, 17, 100, 255, 256, 0, 513]
 
 
-def _decode_case(g, dtype, seed):
+# cache widths whose rows are not 16-byte aligned: the kernel copies
+# them in 8-byte (float32 542), 4-byte (float32 541, bfloat16 542)
+# pieces and element by element (bfloat16 541)
+DECODE_ODD_T = (541, 542)
+
+
+def _decode_case(g, dtype, seed, T=DECODE_T):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     h, dh = FULL["n_heads"], 64
     q = torch.randn(SLOTS, h, dh, generator=gen, device="cuda")
-    k = torch.randn(SLOTS, g, dh, DECODE_T, generator=gen, device="cuda")
-    v = torch.randn(SLOTS, g, dh, DECODE_T, generator=gen, device="cuda")
+    k = torch.randn(SLOTS, g, dh, T, generator=gen, device="cuda")
+    v = torch.randn(SLOTS, g, dh, T, generator=gen, device="cuda")
     return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def _decode_check(ops, q, k, v, lens, label):
+    """One decode_attention call against decode_reference on the same
+    values (float32 F32_TOL, bfloat16 BF16_ATOL); each kv_len-0 row
+    also against the mean of its V over T. Returns the max error."""
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = ops.decode_attention(q, k, v, ln)
+    torch.cuda.synchronize()
+    want = ops.decode_reference(q.float(), k.float(), v.float(), ln)
+    err = (got.float() - want).abs().max().item()
+    rep = q.shape[1] // k.shape[1]
+    for i, n in enumerate(lens):
+        if n == 0:
+            mean_v = v[i].float().mean(dim=-1).repeat_interleave(rep, dim=0)
+            zerr = (got[i].float() - mean_v).abs().max().item()
+            limit = F32_TOL["atol"] if q.dtype == torch.float32 else \
+                BF16_ATOL
+            if zerr > limit:
+                raise AssertionError(f"decode kernel {label}: kv_len-0 row "
+                                     f"{i} off the mean of V by {zerr}")
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(got, want, **F32_TOL)
+    elif err > BF16_ATOL:
+        raise AssertionError(f"bf16 decode kernel {label} off by {err}")
+    log(f"decode kernel vs plain {label}: max_abs_err {err:.3e}")
+    return err
 
 
 def _engine_page_view(eng, lens, seed):
@@ -2892,11 +2990,15 @@ def _engine_page_view(eng, lens, seed):
 def phase_decode_vs_plain(eng):
     """Kernel 9 (dense-cache decode attention) against decode_reference
     at b 8, h 8, g 8/2/1, dh 64, T 544, one shared length and per-row
-    lengths (a kv_len-0 row among them), float32 and bfloat16; then the
-    op route paged_attention(use_kernel=True) against use_kernel=False
-    over the phase 3 engine's pools (layer 0 and 5, float32). Returns
-    the worst float32 error; decode_attention.launches counts these
-    calls (no engine route reaches the kernel)."""
+    lengths (a kv_len-0 row among them, also held against the mean of
+    V; rows of 544, 513 and 256 span several chunks, so the merge runs),
+    float32 and bfloat16; at g 2 also caches of T 541 and 542, whose
+    rows are not 16-byte aligned. Then the op route
+    paged_attention(use_kernel=True) against use_kernel=False over the
+    phase 3 engine's pools (layer 0 and 5, float32), and every arrival
+    counter of the merge back at 0. Returns the worst float32 error and
+    decode_attention.launches, which counts these calls (no engine
+    route reaches the kernel)."""
     from paddle_tpu_torch.ops import paged_decode as ops
     ops.decode_attention.launches = 0
     worst = 0.0
@@ -2904,20 +3006,18 @@ def phase_decode_vs_plain(eng):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _decode_case(g, dtype, seed=180 + g)
             for lens in ([300], DECODE_LENS):
-                ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
-                got = ops.decode_attention(q, k, v, ln)
-                torch.cuda.synchronize()
-                want = ops.decode_reference(q.float(), k.float(), v.float(),
-                                            ln)
-                err = (got.float() - want).abs().max().item()
+                err = _decode_check(
+                    ops, q, k, v, lens, f"g={g} {str(dtype)[6:]} "
+                    f"{'shared' if len(lens) == 1 else 'per-row'} lengths")
                 if dtype == torch.float32:
-                    torch.testing.assert_close(got, want, **F32_TOL)
                     worst = max(worst, err)
-                elif err > BF16_ATOL:
-                    raise AssertionError(f"bf16 decode kernel off by {err}")
-                log(f"decode kernel vs plain g={g} {str(dtype)[6:]} "
-                    f"{'shared' if len(lens) == 1 else 'per-row'} lengths: "
-                    f"max_abs_err {err:.3e}")
+    for T in DECODE_ODD_T:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _decode_case(2, dtype, seed=T, T=T)
+            err = _decode_check(ops, q, k, v, DECODE_LENS,
+                                f"g=2 {str(dtype)[6:]} T={T}")
+            if dtype == torch.float32:
+                worst = max(worst, err)
     lens = [len(p) + n for p, n in zip(eng["prompts"][:SLOTS],
                                        eng["news"][:SLOTS])]
     tb, ln = _engine_page_view(eng["eng"], lens, seed=181)
@@ -2929,9 +3029,10 @@ def phase_decode_vs_plain(eng):
         torch.cuda.synchronize()
         torch.testing.assert_close(ker, ein, **F32_TOL)
         worst = max(worst, (ker - ein).abs().max().item())
+    _check_counters_zero("decode")
     log(f"paged_attention(use_kernel=True) vs einsum over the engine's "
-        f"pages (lens {lens}): held; decode launches "
-        f"{ops.decode_attention.launches}")
+        f"pages (lens {lens}): held; arrival counters at 0; decode "
+        f"launches {ops.decode_attention.launches}")
     return worst, ops.decode_attention.launches
 
 
@@ -3250,58 +3351,106 @@ def _decode_bound(g, dtype, lens):
         "operations", nbytes
 
 
-def _decode_timing(lens, dtype):
-    """Kernel 9 at b 8, h 8, g 8, dh 64, T 544 with the given per-row
-    lengths, q and cache of ``dtype``: device time per call by
-    CUDA-graph replay, its bound, the plain version's time, and SDPA
-    on [b, h, 1, T]."""
+# the decode kernel's columns a block, swept: one warp's worth, two,
+# four and the whole T (no split; the plan cuts it to what fits)
+DECODE_CHUNK_SWEEP = (32, 64, 128, DECODE_T)
+# the kernel's floors, decode_launch modes in the order a launch runs:
+# it returns at once, stops after the tile loads, the scores, P.V, and
+# before the merge
+DECODE_FLOORS = {"launch": 5, "tile loads": 1, "scores": 3, "P.V": 4,
+                 "no merge": 2}
+# cache sets cycled in a timing: at least this many bytes of K and V,
+# past the 50 MB L2 (the full-context calls read every column)
+DECODE_POOL_BYTES = 100e6
+
+
+def _decode_timing(lens, dtype, g=FULL["n_heads"], label="engine lengths"):
+    """Kernel 9 at b 8, h 8, g, dh 64, T 544 with the given per-row
+    lengths, q and cache of ``dtype``, cycling over seeded cache sets
+    of DECODE_POOL_BYTES together: device time per call by CUDA-graph
+    replay, its bound, the plain version's time, SDPA on [b, h, 1, T];
+    the kernel's floors (DECODE_FLOORS); and the chunk plan swept
+    (DECODE_CHUNK_SWEEP columns a block, each held against the plain
+    version first)."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import paged_decode as ops
-    g9 = FULL["n_heads"]
-    sets = [_decode_case(g9, dtype, seed=230 + i) for i in range(6)]
+    h, dh = FULL["n_heads"], 64
+    esize = torch.finfo(dtype).bits // 8
+    n_sets = int(min(64, max(6, -(-DECODE_POOL_BYTES // (
+        2 * SLOTS * g * dh * DECODE_T * esize)))))
+    sets = [_decode_case(g, dtype, seed=230 + i) for i in range(n_sets)]
     ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
 
     def dkernel(i):
-        q, k, v = sets[i % 6]
+        q, k, v = sets[i % n_sets]
         return ops.decode_attention(q, k, v, ln)
 
     def dplain(i):
-        q, k, v = sets[i % 6]
+        q, k, v = sets[i % n_sets]
         return ops.decode_reference(q, k, v, ln)
+
+    def dlaunch(i, **kw):
+        q, k, v = sets[i % n_sets]
+        return ops.decode_launch(q, k, v, ln, **kw)
 
     ms = device_ms(dkernel, iters=60)
     plain_ms = device_ms(dplain, iters=12)
+    floors = [device_ms(functools.partial(dlaunch, mode=m), iters=60)
+              for m in DECODE_FLOORS.values()]
     sq = [q[:, :, None, :] for q, _, _ in sets]           # [b, h, 1, dh]
     sk = [k.transpose(2, 3) for _, k, _ in sets]           # [b, g, T, dh]
     sv = [v.transpose(2, 3) for _, _, v in sets]
     dmask = (torch.arange(DECODE_T, device="cuda")[None, :]
              < ln[:, None])[:, None, None, :]
+    gqa = {} if g == h else {"enable_gqa": True}
 
     def dsdpa(i):
-        return F.scaled_dot_product_attention(sq[i % 6], sk[i % 6],
-                                              sv[i % 6], attn_mask=dmask)
+        return F.scaled_dot_product_attention(
+            sq[i % n_sets], sk[i % n_sets], sv[i % n_sets], attn_mask=dmask,
+            **gqa)
 
-    got, want = dsdpa(0)[:, :, 0], dplain(0)
+    want = dplain(0)
+    got = dsdpa(0)[:, :, 0]
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, **F32_TOL)
     elif (got.float() - want.float()).abs().max().item() > BF16_ATOL:
         raise AssertionError("bf16 SDPA yardstick off the decode plain path")
     library_ms = device_ms(dsdpa, iters=60)
-    bound_ms, bound_by, nbytes = _decode_bound(g9, dtype, lens)
-    log(f"decode kernel at b{SLOTS} h{FULL['n_heads']} g{g9} dh64 "
-        f"T{DECODE_T} {str(dtype)[6:]} (lens {list(lens)}): "
-        f"{ms * 1e3:.2f} us/call, bound {bound_ms * 1e3:.3f} us "
-        f"({bound_by}, {nbytes} bytes), plain {plain_ms * 1e3:.2f} us, "
-        f"sdpa {library_ms * 1e3:.2f} us")
+    sweep = []
+    for C in DECODE_CHUNK_SWEEP:
+        plan = ops.decode_plan(SLOTS, h, g, dh, DECODE_T, esize, C)
+        got = dlaunch(0, chunk_cols=C)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, **F32_TOL)
+        elif (got.float() - want.float()).abs().max().item() > BF16_ATOL:
+            raise AssertionError(f"bf16 decode kernel at C {C} off the "
+                                 "plain path")
+        t = device_ms(functools.partial(dlaunch, chunk_cols=C), iters=60)
+        sweep.append(f"C {C} ({plan.cols} columns, {plan.n_chunks} "
+                     f"chunks): {t * 1e3:.2f}")
+    bound_ms, bound_by, nbytes = _decode_bound(g, dtype, lens)
+    plan = ops.decode_plan(SLOTS, h, g, dh, DECODE_T, esize)
+    log(f"decode kernel at b{SLOTS} h{h} g{g} dh{dh} T{DECODE_T} "
+        f"{str(dtype)[6:]} at {label} (lens {list(lens)}; {n_sets} cache "
+        f"sets; C {plan.cols}, {plan.n_chunks} chunks): {ms * 1e3:.2f} "
+        f"us/call, bound {bound_ms * 1e3:.3f} us ({bound_by}, {nbytes} "
+        f"bytes), plain {plain_ms * 1e3:.2f} us, sdpa "
+        f"{library_ms * 1e3:.2f} us; floors: "
+        + ", ".join(f"{name} {t * 1e3:.2f}"
+                    for name, t in zip(DECODE_FLOORS, floors)) + " us")
+    log(f"decode chunk sweep, g{g} {str(dtype)[6:]} at {label}: "
+        + ", ".join(sweep) + " us/call")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_two_tier_timings(int8_eng, serve):
     """Kernel 8 at the int8 engine's shapes (W 1 and W 3) and kernel 9
-    at b 8, h 8, g 8, dh 64, T 544 over the same 8 lengths, each with
-    float32 and bfloat16 q (kernel 9's cache in q's dtype); keyed by
-    (kernel, W or None, dtype)."""
+    at b 8, h 8, dh 64, T 544 over the same 8 lengths (g 8 and 1) and
+    at full context (every row 544; g 8 and 1), each with float32 and
+    bfloat16 q (kernel 9's cache in q's dtype); keyed by (kernel, W or
+    None, dtype) for the engine's shapes, ("decode", label, dtype, g)
+    otherwise."""
     lens = np.array([len(p) + n for p, n in
                      zip(serve["prompts"][:SLOTS], serve["news"][:SLOTS])],
                     np.int32)
@@ -3312,6 +3461,11 @@ def phase_two_tier_timings(int8_eng, serve):
             out[("int8", W, dtype)] = _int8_timing(int8_eng, tb, lens, W,
                                                    dtype)
         out[("decode", None, dtype)] = _decode_timing(lens.tolist(), dtype)
+        out[("decode", "engine lengths", dtype, 1)] = _decode_timing(
+            lens.tolist(), dtype, g=1)
+        for g in (FULL["n_heads"], 1):
+            out[("decode", "full context", dtype, g)] = _decode_timing(
+                [DECODE_T] * SLOTS, dtype, g=g, label="full context")
     return out
 
 

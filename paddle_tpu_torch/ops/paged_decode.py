@@ -24,7 +24,10 @@
 - :func:`decode_attention`: one query per row over a dense
   ``[b, g, dh, T]`` cache; on the card the Hopper kernel
   ``csrc/decode_attention.cu`` (replaces ``_decode_kernel``), on the
-  CPU :func:`decode_reference`.
+  CPU :func:`decode_reference`. :func:`decode_plan` sizes its chunks
+  (each row's columns split across blocks) and its merge workspace;
+  :func:`decode_launch` is one launch, with the floors
+  ``chip_smoke.py`` times.
 
 There is no fallback from the card to a plain version: a shape a
 kernel does not take raises.
@@ -68,15 +71,18 @@ INT8_KV_SCALE_EPS = 1e-12
 _MAX_ROWS_PER_GROUP = 32        # W * rep query rows of one group
 _MAX_HEAD_DIM = 256
 _MAX_SMEM_BYTES = 227 * 1024
-_WINDOW_SMEM_BYTES = 226 * 1024  # a block's dynamic shared memory
+_BLOCK_SMEM_BYTES = 226 * 1024   # a block's dynamic shared memory
 _WINDOW_WARPS = 4               # warps of one block
 _MAX_CHUNK_PAGES = 8            # pages a block gathers, at most
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# the decode kernel's limits (csrc/decode_attention.cu): one block per
-# (row, kv group) holds its rep query rows and their rep x T scores in
-# shared memory as float32, and keeps rep partial sums per thread
+# the decode kernel's limits (csrc/decode_attention.cu): blocks over
+# (row, kv group, chunk of columns), each bringing its chunk's K and V
+# tiles of one group into shared memory in one round trip, and keeping
+# rep partial sums per lane
 _DECODE_MAX_REP = 32
+_DECODE_WARPS = 4               # warps of one block
+_DECODE_CHUNK_COLS = 128        # columns a block (PERF.md: the sweep)
 
 
 def quantize_kv(x: torch.Tensor):
@@ -219,12 +225,13 @@ def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
-def _row_stride(dh: int, esize: int) -> int:
-    """Bytes of one K/V row in the window kernel's shared memory: the
+def _row_stride(n: int, esize: int) -> int:
+    """Bytes of one row of n elements in a kernel's shared memory (a
+    window kernel K/V row of dh, a decode kernel tile row of cols): the
     row rounded up to 16 bytes, then to an odd multiple of 16, so the 8
     lanes of a 16-byte load phase, on 8 consecutive rows, hit 8
     different bank groups."""
-    b = _align16(dh * esize)
+    b = _align16(n * esize)
     return b + 16 if (b // 16) % 2 == 0 else b
 
 
@@ -291,7 +298,7 @@ def window_plan(S: int, W: int, h: int, g: int, dh: int, page_size: int,
     """The window kernel's chunk plan for these shapes: C whole pages a
     block, ``_MAX_CHUNK_PAGES`` (or ``chunk_pages``) and at most the
     table's width, all gathered in one round trip; fewer rows only while
-    a block's shared memory would pass ``_WINDOW_SMEM_BYTES`` (pages
+    a block's shared memory would pass ``_BLOCK_SMEM_BYTES`` (pages
     that large are cut into parts). On an H100 at the serving shapes
     (page 16, dh 64) C 8 was the fastest of 1, 2, 4 and 8 for float32
     and int8 pages (``PERF.md``): a slot of up to 128 tokens takes one
@@ -305,7 +312,7 @@ def window_plan(S: int, W: int, h: int, g: int, dh: int, page_size: int,
     def smem(r):
         return window_smem_bytes(r, W, rep, dh, page_size, esize, quant)
 
-    while rows > 1 and smem(rows) > _WINDOW_SMEM_BYTES:
+    while rows > 1 and smem(rows) > _BLOCK_SMEM_BYTES:
         rows = rows - page_size if rows > page_size else max(1, rows - 32)
     n_chunks = -(-table_pages * page_size // rows)
     split = n_chunks > 1
@@ -316,10 +323,11 @@ def window_plan(S: int, W: int, h: int, g: int, dh: int, page_size: int,
         flags=S * g * n_chunks if split else 0)
 
 
-# arrival counters of the window kernel's merge, one int32 per (slot,
-# group), per device: zeroed when allocated, each merging block sets
-# its counter back to 0, so no memset runs per call. Calls on one
-# device share them: two calls must not run at once on two streams.
+# arrival counters of the window and decode kernels' merges, one int32
+# per (slot or row, group), per device: zeroed when allocated, each
+# merging block sets its counter back to 0, so no memset runs per call.
+# Calls of both kernels on one device share them: two calls must not
+# run at once on two streams.
 _ARRIVALS = {}
 
 
@@ -335,9 +343,9 @@ def _arrival_counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def window_arrival_counters():
-    """The window kernel's arrival counters on every device it ran on;
-    between calls every entry reads 0."""
+def arrival_counters():
+    """The merge's arrival counters (window and decode kernels) on
+    every device they ran on; between calls every entry reads 0."""
     return list(_ARRIVALS.values())
 
 
@@ -516,23 +524,107 @@ def decode_reference(q: torch.Tensor, k_cache: torch.Tensor,
         .to(q.dtype)
 
 
+def _decode_pv_split(dh: int) -> int:
+    """Ways the decode kernel splits a chunk's columns in P.V: enough to
+    give each warp a (column part, 32 of dh) unit when dh's groups of 32
+    are fewer than the warps."""
+    nd = -(-dh // 32)
+    return _DECODE_WARPS // nd if nd < _DECODE_WARPS else 1
+
+
+def decode_smem_bytes(rep: int, dh: int, cols: int, esize: int) -> int:
+    """Shared memory of one block of the decode kernel (the kernel's
+    ``layout``, which ``chip_smoke.py`` phase 1 holds this against):
+    float32 q rows (later the P.V sums of each column part), bfloat16 q
+    rows as loaded, the chunk's [dh, cols] K and V tiles (at least one
+    chunk's partial records, which the merge loads there), the weights,
+    (m, l) of each 32-column group and (m, l, factor) per head. The q,
+    sum, weight and group rows are counted for rep rounded up to a power
+    of two: the heads every lane computes, branch-free."""
+    mr = 1 << (rep - 1).bit_length()
+    return (_align16(_decode_pv_split(dh) * mr * dh * 4)
+            + (0 if esize == 4 else _align16(rep * dh * esize))
+            + max(2 * dh * _row_stride(cols, esize), rep * (dh + 4) * 4)
+            + _align16(mr * cols * 4) + _align16(2 * (cols // 32) * mr * 4)
+            + _align16(rep * 12))
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """How the decode kernel splits each row's columns: a block takes
+    ``cols`` columns (a chunk) of one (row, kv group); the grid has
+    ``n_chunks`` chunks per (row, group) over all T, and a block whose
+    chunk starts at or past the row's live columns returns at once.
+    ``partials`` float32 words of (m, l, 2 words of padding, acc[dh])
+    records and ``counters`` arrival counters make the merge workspace;
+    both are 0 with one chunk."""
+    cols: int
+    n_chunks: int
+    smem: int
+    partials: int
+    counters: int
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(b: int, h: int, g: int, dh: int, T: int, esize: int,
+                chunk_cols: Optional[int] = None) -> DecodePlan:
+    """The decode kernel's chunk plan for these shapes, from the shapes
+    alone (the lengths live on the card; reading them would
+    synchronize): ``_DECODE_CHUNK_COLS`` (or ``chunk_cols``) columns a
+    block, rounded up to a multiple of 32 and at most T rounded up to
+    32 (one chunk: no split); fewer only while a block's shared memory
+    would pass the kernel's 226 KB."""
+    rep = h // g
+    cols = _DECODE_CHUNK_COLS if chunk_cols is None else chunk_cols
+    cols = max(32, min(-(-cols // 32), -(-T // 32)) * 32)
+    while cols > 32 and decode_smem_bytes(rep, dh, cols, esize) > \
+            _BLOCK_SMEM_BYTES:
+        cols -= 32
+    n_chunks = -(-T // cols)
+    split = n_chunks > 1
+    return DecodePlan(
+        cols=cols, n_chunks=n_chunks,
+        smem=decode_smem_bytes(rep, dh, cols, esize),
+        partials=b * g * n_chunks * rep * (dh + 4) if split else 0,
+        counters=b * g if split else 0)
+
+
 def decode_supported(q: torch.Tensor, k_cache: torch.Tensor) -> bool:
     """The Hopper decode kernel's gate (the port's own, in place of the
     TPU kernel's VMEM budget): q and the cache float32 or bfloat16 of
-    one dtype, dh a multiple of 8 and at most 256, h % g == 0 with at
-    most 32 query heads per kv group, and the block's float32 rep x T
-    scores plus its rep x dh query rows inside shared memory."""
+    one dtype, dh a multiple of 8, h % g == 0 with at most 32 query
+    heads per kv group, and the block of :func:`decode_plan` inside
+    shared memory. T is free: the columns are split across blocks."""
     b, h, dh = q.shape
     _, g, dh_k, t = k_cache.shape
-    return (q.dtype in _DTYPE_CODES and k_cache.dtype == q.dtype
-            and dh == dh_k and dh % 8 == 0 and dh <= _MAX_HEAD_DIM
-            and h % g == 0 and h // g <= _DECODE_MAX_REP
-            and 4 * (h // g) * (t + dh + 1) <= _MAX_SMEM_BYTES)
+    if not (q.dtype in _DTYPE_CODES and k_cache.dtype == q.dtype
+            and dh == dh_k and dh % 8 == 0 and g > 0 and h % g == 0
+            and h // g <= _DECODE_MAX_REP and t > 0):
+        return False
+    plan = decode_plan(b, h, g, dh, t, q.element_size())
+    return plan.smem <= _BLOCK_SMEM_BYTES
 
 
-def _launch_decode(q, k_cache, v_cache, lens, scale):
+def decode_launch(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, kv_len: torch.Tensor, *,
+                  scale: Optional[float] = None, mode: int = 0,
+                  chunk_cols: Optional[int] = None) -> torch.Tensor:
+    """One launch of ``csrc/decode_attention.cu`` on checked CUDA
+    tensors, ``kv_len`` int32 [1] or [b]. ``mode`` 0 computes
+    :func:`decode_attention` (what it launches); the floors
+    ``chip_smoke.py`` times stop early (their outputs are not the
+    function): 5 returns at once, 1 stops after the tile loads, 3 after
+    the scores, 4 after P.V, 2 before the merge. ``chunk_cols``
+    overrides the plan's columns a block (None: :func:`decode_plan`'s,
+    what the function launches; no result depends on it beyond
+    summation order), for the sweep ``chip_smoke.py`` times. Counts
+    nothing: :func:`decode_attention` counts its own launches."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     _check_operands({"q": q, "k_cache": k_cache, "v_cache": v_cache,
-                     "kv_len": lens}, q.device)
+                     "kv_len": kv_len}, q.device)
+    if kv_len.dtype != torch.int32:
+        raise TypeError(f"kv_len must be int32, got {kv_len.dtype}")
     if v_cache.shape != k_cache.shape or v_cache.dtype != k_cache.dtype:
         raise ValueError("k_cache and v_cache differ in shape or dtype")
     if not decode_supported(q, k_cache):
@@ -542,24 +634,34 @@ def _launch_decode(q, k_cache, v_cache, lens, scale):
             "(decode_supported)")
     b, h, dh = q.shape
     _, g, _, t = k_cache.shape
-    if k_cache.shape[0] != b or lens.numel() not in (1, b):
+    if k_cache.shape[0] != b or kv_len.numel() not in (1, b):
         raise ValueError(f"cache {tuple(k_cache.shape)} / kv_len "
-                         f"{tuple(lens.shape)} do not match q "
+                         f"{tuple(kv_len.shape)} do not match q "
                          f"{tuple(q.shape)}")
+    plan = decode_plan(b, h, g, dh, t, q.element_size(), chunk_cols)
     from paddle_tpu_torch.ops import _build
     fn = _build.load("decode_attention").pt_decode_attention
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
-            [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + \
+            [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     out = torch.empty_like(q)
+    ws = arrivals = None
+    if plan.n_chunks > 1:
+        buf = torch.empty(plan.partials, dtype=torch.float32,
+                          device=q.device)
+        ws = buf.data_ptr()
+        arrivals = _arrival_counters(q.device, plan.counters).data_ptr()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             lens.data_ptr(), out.data_ptr(), b, h, g, dh, t, lens.numel(),
-             float(scale), _DTYPE_CODES[q.dtype], stream)
+             kv_len.data_ptr(), out.data_ptr(), ws, arrivals, b, h, g, dh,
+             t, plan.cols, plan.n_chunks, kv_len.numel(), float(scale),
+             _DTYPE_CODES[q.dtype], int(mode), stream)
     if err != 0:
-        raise RuntimeError(f"decode kernel launch failed: CUDA error {err}")
-    decode_attention.launches += 1
+        why = {-1: "shapes refused", -2: "workspace missing",
+               -3: f"shared memory past the card's ({plan})"}
+        raise RuntimeError("decode kernel launch failed: "
+                           + why.get(err, f"CUDA error {err}"))
     return out
 
 
@@ -573,7 +675,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     mask). Returns [b, h, dh] in q's dtype.
 
     On the CPU: :func:`decode_reference`. On a CUDA card: the Hopper
-    decode kernel, or an exception for inputs it does not take
+    decode kernel, which splits each row's live columns into chunks of
+    :func:`decode_plan` columns, one block each, merged in the same
+    launch — or an exception for inputs it does not take
     (:func:`decode_supported`). Each launch adds one to
     ``decode_attention.launches``."""
     if scale is None:
@@ -587,7 +691,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return decode_reference(q, k_cache, v_cache, lens, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no decode attention for device {q.device}")
-    return _launch_decode(q, k_cache, v_cache, lens, scale)
+    out = decode_launch(q, k_cache, v_cache, lens, scale=scale)
+    decode_attention.launches += 1
+    return out
 
 
 decode_attention.launches = 0

@@ -309,15 +309,16 @@ def test_decode_gate():
     q = torch.zeros((2, 8, 64))
     assert pt_ops.decode_supported(q, torch.zeros((2, 2, 64, 544)))
     # bfloat16 cache under a float32 query, an odd head dim, more than
-    # 32 query heads a kv group, scores past shared memory
+    # 32 query heads a kv group, a 32-column chunk's tiles and q rows
+    # past shared memory (32 heads a group at dh 1024)
     assert not pt_ops.decode_supported(
         q, torch.zeros((2, 2, 64, 544), dtype=torch.bfloat16))
     assert not pt_ops.decode_supported(torch.zeros((2, 8, 6)),
                                        torch.zeros((2, 2, 6, 16)))
     assert not pt_ops.decode_supported(torch.zeros((2, 64, 8)),
                                        torch.zeros((2, 1, 8, 16)))
-    assert not pt_ops.decode_supported(torch.zeros((2, 32, 8)),
-                                       torch.zeros((2, 1, 8, 4096)))
+    assert not pt_ops.decode_supported(torch.zeros((2, 32, 1024)),
+                                       torch.zeros((2, 1, 1024, 64)))
 
 
 # -------------------------------------------------------- int8 decoder
