@@ -295,6 +295,31 @@ Phases (any failure exits non-zero before the final line):
    prints step_ms, samples/s and the peak memory; then one step under
    torch.profiler (device busy against the wall clock, top kernels,
    each LSTM kernel's share).
+26. mnist v2 — the port copy of demo/mnist/train.py (only its imports
+   changed) at its own width: 784-128-64-10, batch 128, float32,
+   Momentum(0.1/128, 0.9, L2 5e-4), the synthetic 8192/1024 set with
+   shuffle(8192, seed=1), 2 passes, through the v2 entry points
+   (paddle.init, create_parameters, SGD.train, SGD.test, save_pass,
+   Parameters.from_tar, infer); the first 16 per-step costs within 1e-4
+   relative of the port's CPU run from the same init tar on the same
+   batches; finite test cost and classification error; the saved pass
+   equal to the trained parameters and its infer of 8 samples within
+   1e-5 of the CPU port's. Prints step_ms (train_batch, 8 calls after 2
+   warm-ups, phase 7's method) and samples/s over the second whole
+   SGD.train pass, reader and feeder included, with the card's name
+   and power limit; then one step under torch.profiler (device busy
+   against the wall clock, the top kernels). No convergence claim.
+27. sequence tagging v2 — the port copy of
+   demo/sequence_tagging/train.py at its own width (rnn_crf_tagger,
+   vocab 44068, 106 labels, emb 64, hidden 128, batch 16, synthetic
+   conll05, the chunk evaluator): 8 training batches, then SGD.test
+   over the 400 test sentences, whose 25 batches launch
+   gru_fwd_sm90.cu once each (training runs the plain scans); the
+   chunk F1 equal to the chunk evaluator's on the decoded ids of the
+   plain GRU version run on the card for the same parameters (a
+   differing sentence must be a reported near-tie: its two paths' CRF
+   scores within 1e-4 relative); then one test batch under
+   torch.profiler.
 
 Prints the kernel table as one JSON line (the flash and LSTM kernels at
 their bfloat16 times, the training dtype, naming their wgmma sources,
@@ -3503,6 +3528,375 @@ def phase_two_tier_trace(eng):
         log(f"two-tier trace top op: {ms:.3f} ms  {name[:90]}")
 
 
+# ------------------------------------------------------------ phase 26
+# The v2 scripts demo/mnist/train.py and demo/sequence_tagging/train.py,
+# copied with only their imports changed: ``paddle`` is the package the
+# caller passes (paddle_tpu_torch here; the CPU tests pass the JAX
+# package too, to run the same script in both). The arguments stand in
+# for the scripts' command lines; ``init_tar`` makes a parity run start
+# from one weight tar, and ``num_batches_per_pass`` cuts a run short.
+# Each returns what it printed, as numbers, with the trainer and its
+# readers.
+MNIST_PASSES, MNIST_BATCH, MNIST_STEP_CHECK = 2, 128, 16
+MNIST_CPU_RTOL = 1e-4
+
+
+def mnist_v2_demo(paddle, use_tpu=None, num_passes=5, batch_size=128,
+                  output="./mnist_output", init_tar=None,
+                  num_batches_per_pass=None, echo=print):
+    import io
+    import os
+
+    paddle.init(use_tpu=use_tpu, trainer_count=1, seed=42)
+
+    # -- network: 784 -> 128 -> 64 -> softmax(10) (the classic MLP config)
+    img = paddle.layer.data("pixel", paddle.data_type.dense_vector(784))
+    h1 = paddle.layer.fc(img, size=128, act=paddle.activation.Relu())
+    h2 = paddle.layer.fc(h1, size=64, act=paddle.activation.Relu())
+    out = paddle.layer.fc(h2, size=10, act=paddle.activation.Softmax(),
+                          name="output")
+    lbl = paddle.layer.data("label", paddle.data_type.integer_value(10))
+    cost = paddle.layer.classification_cost(out, lbl, name="cost")
+    err = paddle.layer.classification_error(out, lbl, name="error")
+
+    parameters = paddle.create_parameters(paddle.Topology(cost))
+    if init_tar is not None:
+        parameters = paddle.Parameters.from_tar(io.BytesIO(init_tar))
+    buf = io.BytesIO()
+    parameters.to_tar(buf)
+    optimizer = paddle.optimizer.Momentum(
+        learning_rate=0.1 / batch_size, momentum=0.9,
+        regularization=paddle.optimizer.L2Regularization(5e-4))
+    trainer = paddle.SGD(cost=cost, parameters=parameters,
+                         update_equation=optimizer, extra_layers=[err])
+    costs, pass_s, passes = [], {}, []
+
+    def event_handler(e):
+        if isinstance(e, paddle.event.BeginPass):
+            pass_s[e.pass_id] = time.perf_counter()
+        if isinstance(e, paddle.event.EndIteration):
+            costs.append(e.cost)
+        if isinstance(e, paddle.event.EndIteration) and e.batch_id % 16 == 0:
+            echo(f"pass {e.pass_id} batch {e.batch_id} "
+                 f"cost {e.cost:.4f} {e.evaluator}")
+        if isinstance(e, paddle.event.EndPass):
+            pass_s[e.pass_id] = time.perf_counter() - pass_s[e.pass_id]
+            passes.append(dict(e.metrics))
+            echo(f"== pass {e.pass_id} done: {e.evaluator}")
+
+    train_reader = paddle.reader.batch(
+        paddle.reader.shuffle(paddle.dataset.mnist.train(), 8192, seed=1),
+        batch_size, drop_last=True)
+    trainer.train(train_reader, num_passes=num_passes,
+                  event_handler=event_handler,
+                  num_batches_per_pass=num_batches_per_pass)
+
+    result = trainer.test(paddle.reader.batch(paddle.dataset.mnist.test(),
+                                              batch_size))
+    echo(f"test cost {result.cost:.4f} {result.evaluator}")
+
+    trainer.save_pass(output, num_passes - 1)
+    echo(f"saved checkpoint under {output}")
+
+    # inference round-trip through the saved checkpoint
+    ckpt = os.path.join(output, f"pass-{num_passes - 1:05d}",
+                        "params.tar")
+    with open(ckpt, "rb") as f:
+        loaded = paddle.Parameters.from_tar(f)
+    samples = [(s[0],) for _, s in zip(range(8),
+                                       paddle.dataset.mnist.test()())]
+    probs = paddle.infer(output_layer=out, parameters=loaded, input=samples,
+                         feeding={"pixel": 0})
+    echo(f"inference probs shape: {probs.shape} argmax: "
+         f"{probs.argmax(-1).tolist()}")
+    return dict(costs=costs, passes=passes, pass_s=pass_s,
+                test_cost=result.cost, test_metrics=dict(result.metrics),
+                probs=probs, ckpt=ckpt, init_tar=buf.getvalue(),
+                trainer=trainer, train_reader=train_reader, out=out,
+                samples=samples)
+
+
+def tagging_v2_demo(paddle, use_tpu=None, num_passes=2, batch_size=16,
+                    init_tar=None, num_batches_per_pass=None, echo=print):
+    import importlib
+    import io
+    evaluator = importlib.import_module(paddle.__name__ + ".evaluator")
+    conll05 = importlib.import_module(paddle.__name__ + ".dataset.conll05")
+    rnn_crf_tagger = importlib.import_module(
+        paddle.__name__ + ".models.tagger").rnn_crf_tagger
+
+    paddle.init(use_tpu=use_tpu, seed=11)
+
+    model = rnn_crf_tagger(vocab_size=conll05.word_dict_len(),
+                           num_labels=conll05.label_dict_len(),
+                           emb_size=64, hidden_size=128)
+    parameters = paddle.create_parameters(paddle.Topology(model.cost))
+    if init_tar is not None:
+        parameters = paddle.Parameters.from_tar(io.BytesIO(init_tar))
+    buf = io.BytesIO()
+    parameters.to_tar(buf)
+    optimizer = paddle.optimizer.Adam(learning_rate=2e-3)
+    # chunk-F1 over the decoded path, IOB with the conll05 label layout
+    chunk = evaluator.chunk(model.decoded, model.label, chunk_scheme="IOB",
+                            num_chunk_types=(conll05.label_dict_len() - 2) // 2,
+                            name="chunk_f1")
+    trainer = paddle.SGD(cost=model.cost, parameters=parameters,
+                         update_equation=optimizer, evaluators=[chunk])
+
+    # conll05 rows: (word, pred, ctx_n2, ctx_n1, ctx_0, ctx_p1, ctx_p2,
+    # mark, label) — the tagger uses the word and label columns
+    feeding = {"words": 0, "labels": 8}
+    costs, passes = [], []
+
+    def handler(e):
+        if isinstance(e, paddle.event.EndIteration):
+            costs.append(e.cost)
+        if isinstance(e, paddle.event.EndIteration) and e.batch_id % 20 == 0:
+            echo(f"pass {e.pass_id} batch {e.batch_id} cost {e.cost:.4f}")
+        if isinstance(e, paddle.event.EndPass):
+            passes.append(dict(e.metrics))
+            echo(f"== pass {e.pass_id}: {e.evaluator}")
+
+    reader = paddle.reader.batch(
+        paddle.reader.shuffle(conll05.test(), 1024, seed=3),
+        batch_size, drop_last=True)
+    trainer.train(reader, num_passes=num_passes, event_handler=handler,
+                  feeding=feeding, num_batches_per_pass=num_batches_per_pass)
+
+    test_reader = paddle.reader.batch(conll05.test(), batch_size)
+    result = trainer.test(test_reader, feeding=feeding)
+    echo(f"test: cost {result.cost:.4f} {result.evaluator}")
+    return dict(costs=costs, passes=passes, test_cost=result.cost,
+                test_metrics=dict(result.metrics), init_tar=buf.getvalue(),
+                trainer=trainer, model=model, feeding=feeding,
+                test_reader=test_reader, chunk=chunk)
+
+
+MNIST_OUT = "mnist_output"     # the demo's own output directory
+
+
+def _quiet(msg):
+    pass
+
+
+def phase_mnist_v2():
+    """Phase 26: the port copy of demo/mnist/train.py on the card at its
+    own width (784-128-64-10, batch 128, float32, Momentum(0.1/128,
+    0.9, L2 5e-4), the synthetic 8192/1024 set, shuffle(8192, seed=1),
+    2 passes), through the v2 entry points: the first 16 per-step costs
+    within 1e-4 relative of the port's CPU run from the same init tar
+    on the same batches, a finite test cost and classification error,
+    the saved pass reloaded with from_tar and inferred on 8 samples.
+    Prints step_ms (train_batch: 8 calls after 2 warm-ups, the method
+    of phase 7) and samples/s over the second SGD.train pass, reader
+    and feeder included."""
+    import os
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.registry import reset_name_counters
+    card = nvidia_smi_line()
+    lines = []
+    reset_name_counters()      # one set of layer names for both runs
+    r = mnist_v2_demo(paddle, use_tpu=None, num_passes=MNIST_PASSES,
+                      batch_size=MNIST_BATCH,
+                      output=os.path.join(MNIST_OUT, "card"),
+                      echo=lines.append)
+    trainer = r["trainer"]
+    if trainer.device.type != "cuda":
+        raise AssertionError(f"the v2 script trained on {trainer.device}, "
+                             "not the card")
+    n_steps = len(r["costs"])
+    if n_steps != MNIST_PASSES * 8192 // MNIST_BATCH or \
+            not np.all(np.isfinite(r["costs"])):
+        raise AssertionError(f"mnist v2: {n_steps} steps, costs "
+                             f"{r['costs'][:4]}...")
+    probs = r["probs"]
+    if probs.shape != (8, 10) or not np.all(np.isfinite(probs)) or \
+            not np.allclose(probs.sum(-1), 1.0, atol=1e-5):
+        raise AssertionError(f"mnist v2 infer: probs {probs}")
+    err = r["test_metrics"]["error"]
+    if not np.isfinite(r["test_cost"]) or not 0.0 <= err <= 1.0:
+        raise AssertionError(f"mnist v2 test: cost {r['test_cost']}, "
+                             f"error {err}")
+    with open(r["ckpt"], "rb") as f:
+        loaded = paddle.Parameters.from_tar(f)
+    stale = [k for k in trainer.parameters.raw
+             if not torch.equal(loaded.raw[k].cpu(),
+                                trainer.parameters.raw[k].detach().cpu())]
+    if stale:
+        raise AssertionError(f"the saved pass differs from the trained "
+                             f"parameters: {stale}")
+    with open(r["ckpt"], "rb") as f:
+        cpu_params = paddle.Parameters.from_tar(f, device="cpu")
+    cpu_probs = paddle.infer(output_layer=r["out"], parameters=cpu_params,
+                             input=r["samples"], feeding={"pixel": 0},
+                             device="cpu")
+    probs_err = float(np.abs(probs - cpu_probs).max())
+    if probs_err > 1e-5:
+        raise AssertionError(f"card infer differs from the CPU port's by "
+                             f"{probs_err}")
+    samples_s = 8192 / r["pass_s"][1]
+    batch = next(iter(r["train_reader"]()))
+    for _ in range(2):
+        trainer.train_batch(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        trainer.train_batch(batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 8 * 1e3
+    phase_train_trace(trainer, batch, "mnist v2 train", "GEMM kernels",
+                      ("gemm",))
+    # the port on the CPU, from the card run's init tar, on the same batches
+    reset_name_counters()
+    c = mnist_v2_demo(paddle, use_tpu=False, num_passes=1,
+                      batch_size=MNIST_BATCH, num_batches_per_pass=16,
+                      output=os.path.join(MNIST_OUT, "cpu"),
+                      init_tar=r["init_tar"], echo=_quiet)
+    got = np.asarray(r["costs"][:MNIST_STEP_CHECK])
+    want = np.asarray(c["costs"][:MNIST_STEP_CHECK])
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    from paddle_tpu_torch import config
+    config.init(seed=0, compute_dtype="float32")      # back to the card
+    if len(want) != MNIST_STEP_CHECK or rel > MNIST_CPU_RTOL:
+        raise AssertionError(f"mnist v2: card costs {got} against the CPU "
+                             f"port's {want}: max rel {rel}")
+    for line in lines:
+        log(f"mnist v2: {line}")
+    log(f"mnist v2 ({card}): {n_steps} steps over {MNIST_PASSES} passes, "
+        f"step_ms {step_ms:.3f} (train_batch, 8 after 2 warm-ups), "
+        f"{samples_s:.1f} samples/s over pass 1 ({r['pass_s'][1]:.3f} s, "
+        f"reader and feeder included); test cost {r['test_cost']:.6f}, "
+        f"classification_error {err:.6f}; first {MNIST_STEP_CHECK} costs "
+        f"within {rel:.3g} relative of the CPU port's; saved pass reloaded, "
+        f"infer argmax {probs.argmax(-1).tolist()} (CPU infer within "
+        f"{probs_err:.3g})")
+    return dict(step_ms=step_ms, samples_s=samples_s)
+
+
+# ------------------------------------------------------------ phase 27
+TAGGING_TRAIN_BATCHES = 8
+TIE_SCORE_RTOL = 1e-4
+
+
+def _crf_path_score(emis, trans_w, path):
+    """The CRF score of one label path (float64): start + emissions +
+    transitions + end; trans_w is the (n + 2, n) CRF parameter."""
+    start, end, trans = trans_w[0], trans_w[1], trans_w[2:]
+    s = start[path[0]] + end[path[-1]] + emis[np.arange(len(path)), path].sum()
+    return float(s + trans[path[:-1], path[1:]].sum())
+
+
+def _tagging_ties(model, trainer, test_reader, feeding, plain_gru):
+    """Sentences whose decoded ids differ between the GRU kernel and its
+    plain version, each with its two paths' CRF scores under the plain
+    route's emissions."""
+    from paddle_tpu_torch.trainer import Inference
+    from paddle_tpu_torch.ops import fused_rnn as fr
+    inf = Inference(output_layer=[model.decoded, model.output],
+                    parameters=trainer.parameters, device=trainer.device)
+    trans_w = trainer.parameters.raw["_rcrf_trans_w"].detach().cpu() \
+        .double().numpy()
+    out, sent = [], 0
+    for batch in test_reader():
+        dec_k, _ = inf.forward_batch(batch, feeding)
+        kernel = fr.gru_forward
+        fr.gru_forward = plain_gru
+        try:
+            dec_p, emis = inf.forward_batch(batch, feeding)
+        finally:
+            fr.gru_forward = kernel
+        for i, sample in enumerate(batch):
+            n = len(sample[0])
+            a, b = dec_k[i, :n], dec_p[i, :n]
+            if not np.array_equal(a, b):
+                e = emis[i, :n].astype(np.float64)
+                out.append((sent + i, _crf_path_score(e, trans_w, a),
+                            _crf_path_score(e, trans_w, b)))
+        sent += len(batch)
+    return out
+
+
+def phase_tagging_v2():
+    """Phase 27: the port copy of demo/sequence_tagging/train.py on the
+    card at its own width (rnn_crf_tagger, vocab 44068, 106 labels, emb
+    64, hidden 128, batch 16, synthetic conll05, Adam(2e-3), the chunk
+    evaluator): 8 training batches, then SGD.test over the 400 test
+    sentences. The test sweep runs the GRU forward under no_grad, so
+    each of its 25 batches launches gru_fwd_sm90.cu (training runs the
+    plain scans and launches none). The chunk F1 must equal the chunk
+    evaluator's on the decoded ids of the plain GRU version, run on the
+    card with the same parameters; a sentence whose ids differ must be a
+    near-tie (its two paths' CRF scores within 1e-4 relative) and is
+    reported."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.registry import reset_name_counters
+    from paddle_tpu_torch.ops import fused_rnn as fr
+
+    reset_name_counters()
+    card = nvidia_smi_line()
+    lines = []
+    _rnn_counts(fr, zero=True)
+    t0 = time.perf_counter()
+    r = tagging_v2_demo(paddle, use_tpu=None, num_passes=1,
+                        num_batches_per_pass=TAGGING_TRAIN_BATCHES,
+                        echo=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _rnn_counts(fr)
+    n_test = -(-400 // 16)
+    if counts["gru_fwd"] != n_test or \
+            counts["gru_fwd_routes"]["sm90"] != n_test:
+        raise AssertionError(f"GRU kernel launches {counts['gru_fwd']} (by "
+                             f"route {counts['gru_fwd_routes']}) != {n_test} "
+                             "test batches on the sm90 route")
+    trainer, metrics = r["trainer"], r["test_metrics"]
+    f1 = metrics["chunk_f1_f1"]
+    if not np.all(np.isfinite(r["costs"])) or not np.isfinite(r["test_cost"]):
+        raise AssertionError(f"tagging v2: costs {r['costs']}, test cost "
+                             f"{r['test_cost']}")
+
+    def plain_gru(x3, lens, w, bias):
+        return fr.gru_reference(x3.float(), lens, w.float(), bias)
+
+    kernel = fr.gru_forward
+    fr.gru_forward = plain_gru
+    try:
+        plain = trainer.test(r["test_reader"], feeding=r["feeding"])
+    finally:
+        fr.gru_forward = kernel
+    if _rnn_counts(fr)["gru_fwd"] != n_test:
+        raise AssertionError("the plain GRU run launched the kernel")
+    plain_f1 = plain.metrics["chunk_f1_f1"]
+    ties = []
+    if f1 != plain_f1:
+        ties = _tagging_ties(r["model"], trainer, r["test_reader"],
+                             r["feeding"], plain_gru)
+        far = [t for t in ties if abs(t[1] - t[2]) >
+               TIE_SCORE_RTOL * max(1.0, abs(t[2]))]
+        if far or not ties:
+            raise AssertionError(
+                f"tagging v2: chunk F1 {f1} (kernel) != {plain_f1} (plain "
+                f"GRU); differing sentences (index, kernel path score, "
+                f"plain path score) {ties}, not near-ties {far}")
+    for line in lines:
+        log(f"tagging v2: {line}")
+    log(f"tagging v2 ({card}): {TAGGING_TRAIN_BATCHES} train batches + "
+        f"test over 400 sentences in {wall:.3f} s; GRU kernel launches "
+        f"{counts['gru_fwd']} (by route {counts['gru_fwd_routes']}), all in "
+        f"the test sweep; chunk F1 {f1!r} (kernel) vs {plain_f1!r} (plain "
+        f"GRU on the card); near-ties {ties}")
+    # where a test batch's time goes
+    _trace(lambda: trainer.test(paddle.reader.firstn(r["test_reader"], 1),
+                                feeding=r["feeding"]),
+           "tagging v2 test", "1 test batch of 16 sentences", "GRU kernels",
+           ("gru_fwd_sm90_kernel", "gru_fwd_kernel"),
+           launched=lambda: fr.gru_forward.launches)
+    from paddle_tpu_torch import config
+    config.init(seed=0, compute_dtype="float32")
+    return counts["gru_fwd"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -3557,6 +3951,9 @@ def main():
     del int8_eng, two_tier
     phase_full_context_timings([len(p) + n for p, n in
                                 zip(prompts[:SLOTS], news[:SLOTS])])
+    # the v2 scripts last: paddle.init resets the seed and compute dtype
+    phase_mnist_v2()
+    phase_tagging_v2()
     kernels = [dict(
         name="paged_window_attention", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",

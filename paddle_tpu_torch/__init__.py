@@ -40,9 +40,16 @@ Slices ported so far:
   the dense ``decode_attention`` op with its hand-written Hopper
   kernel (csrc/decode_attention.cu).
 
+- the v2 API around the MNIST main path — the ``paddle.v2``-shaped
+  namespace below (``import paddle_tpu_torch as paddle``), readers
+  (reader/), the MNIST and CoNLL-05 datasets with their synthetic
+  fallback (dataset/), the evaluators (evaluator/), every optimizer
+  and schedule of the JAX package with model averaging, and
+  ``SGD.save_pass``. ``op`` and ``model`` are not ported yet.
+
 Entry points run on the card unless the caller passes
-``device="cpu"``; with no GPU and no device asked for they raise
-(device.py).
+``device="cpu"`` or called ``init(use_gpu=False)``; with no GPU and no
+device asked for they raise (device.py).
 
 Matmul precision: float32 products on the card run at full float32
 precision (TF32 off, for matmuls and cuDNN alike) — the port's
@@ -58,10 +65,47 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
+# the v2 namespace, as paddle_tpu/__init__.py exports it. Importing the
+# layers fills the layer registry: Topology.deserialize needs it in any
+# process. Cheap: no CUDA call and no kernel build happens at import.
+from paddle_tpu_torch import config as _config  # noqa: E402,F401
+from paddle_tpu_torch.config import init  # noqa: E402
 from paddle_tpu_torch.device import resolve_device  # noqa: E402
-# fills the layer registry, as paddle_tpu/__init__.py does by importing
-# its layers: Topology.deserialize needs it in any process. Cheap: no
-# CUDA call and no kernel build happens at import.
-from paddle_tpu_torch import layers as _layers  # noqa: E402,F401
+from paddle_tpu_torch import layers as layer  # noqa: E402
+from paddle_tpu_torch import optimizer  # noqa: E402
+from paddle_tpu_torch import trainer  # noqa: E402
+from paddle_tpu_torch.trainer import event  # noqa: E402
+from paddle_tpu_torch.trainer.parameters import (  # noqa: E402
+    Parameters, create as create_parameters)
+from paddle_tpu_torch.trainer.trainer import SGD  # noqa: E402
+from paddle_tpu_torch.trainer.inference import Inference, infer  # noqa: E402
+from paddle_tpu_torch import reader  # noqa: E402
+from paddle_tpu_torch import dataset  # noqa: E402
+from paddle_tpu_torch.core.topology import Topology  # noqa: E402
+from paddle_tpu_torch.core import data_type  # noqa: E402
+from paddle_tpu_torch import activation  # noqa: E402
+from paddle_tpu_torch import attr  # noqa: E402
+from paddle_tpu_torch import pooling  # noqa: E402
+from paddle_tpu_torch import evaluator  # noqa: E402
 
-__all__ = ["resolve_device"]
+__all__ = [
+    "init",
+    "layer",
+    "optimizer",
+    "trainer",
+    "event",
+    "Parameters",
+    "create_parameters",
+    "SGD",
+    "infer",
+    "Inference",
+    "reader",
+    "dataset",
+    "Topology",
+    "data_type",
+    "activation",
+    "attr",
+    "pooling",
+    "evaluator",
+    "resolve_device",
+]

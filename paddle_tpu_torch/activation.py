@@ -1,6 +1,6 @@
 """paddle.v2.activation-compatible descriptors — the port of
-``paddle_tpu/activation.py`` (the activations the ported slices use;
-each ``name`` keys into ops/activations.py)."""
+``paddle_tpu/activation.py`` (each ``name`` keys into
+ops/activations.py)."""
 
 from __future__ import annotations
 
@@ -19,8 +19,20 @@ def _make(cls_name, act_name):
 Tanh = _make("Tanh", "tanh")
 Sigmoid = _make("Sigmoid", "sigmoid")
 Softmax = _make("Softmax", "softmax")
+SequenceSoftmax = _make("SequenceSoftmax", "sequence_softmax")
 Relu = _make("Relu", "relu")
+BRelu = _make("BRelu", "brelu")
+SoftRelu = _make("SoftRelu", "softrelu")
+LeakyRelu = _make("LeakyRelu", "leaky_relu")
+STanh = _make("STanh", "stanh")
 Linear = _make("Linear", "linear")
+Identity = Linear
+Exp = _make("Exp", "exponential")
+Log = _make("Log", "log")
+Square = _make("Square", "square")
+Sqrt = _make("Sqrt", "sqrt")
+Reciprocal = _make("Reciprocal", "reciprocal")
+Abs = _make("Abs", "abs")
 
 
 def to_name(act) -> str:
@@ -30,8 +42,7 @@ def to_name(act) -> str:
     if isinstance(act, str):
         from paddle_tpu_torch.ops import activations as _ops
         if act not in _ops.names():
-            raise NotImplementedError(
-                f"activation {act!r} is not ported yet; have {_ops.names()}")
+            raise KeyError(f"unknown activation {act!r}; have {_ops.names()}")
         return act
     if isinstance(act, type) and issubclass(act, BaseActivation):
         return act.name

@@ -27,8 +27,7 @@ from paddle_tpu_torch.ops import linear as linear_ops
 
 def _apply_act(x, act_name: str, mask=None):
     if act_name == "sequence_softmax":
-        raise NotImplementedError("sequence_softmax is not ported yet "
-                                  "(the sequence slice)")
+        return act_ops.sequence_softmax(x, mask)
     return act_ops.get(act_name)(x)
 
 
@@ -131,7 +130,8 @@ class FCLayer:
                 ref = val
         if b is not None:
             out = out + b.to(out.dtype)     # f32 master bias: no promote
-        out = _apply_act(out, cfg.get("act", "linear"))
+        mask = ref.mask() if ref is not None else None
+        out = _apply_act(out, cfg.get("act", "linear"), mask)
         return ref.with_data(out) if ref is not None else out
 
 

@@ -1,15 +1,16 @@
 """Optimizers — the port of ``paddle_tpu/optimizer/optimizers.py``:
 the ``Optimizer`` base (per-parameter attributes, clipping, L1/L2,
-the learning-rate schedule) with the ``Momentum`` (plain SGD at
-momentum 0) and ``Adam`` rules.
+the learning-rate schedule, ``ModelAverage``) with the ``Momentum``
+(plain SGD at momentum 0), ``Adam``, ``Adamax``, ``AdaGrad``,
+``DecayedAdaGrad``, ``AdaDelta`` and ``RmsProp`` rules.
 
 ``_apply(p, g, slot, lr, step)`` is the JAX package's rule, term for
 term, on float32 tensors. ``update`` applies it to every parameter
 and writes the result INTO the parameter tensors under ``no_grad``
-(they are the trainer's autograd leaves); optimizer slots are
-replaced by new tensors. The step and sample counters live on the
-host, so an update needs no device sync. Row-sparse tables, pruning
-hooks and model averaging are not in this slice and raise.
+(they are the trainer's autograd leaves); optimizer slots and the
+model average are replaced by new tensors. The step and sample
+counters live on the host, so an update needs no device sync.
+Row-sparse tables and pruning hooks are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -32,6 +33,18 @@ class L1Regularization:
         self.rate = rate
 
 
+class ModelAverage:
+    """AverageOptimizer parity: an average of the parameters, used at
+    test time (``test_params``) — the JAX package's EMA whose decay
+    min(step / (step + 1), (w - 1) / w) matches a window of
+    ``max_average_window`` updates."""
+
+    def __init__(self, average_window: float = 0.5,
+                 max_average_window: Optional[int] = None):
+        self.average_window = average_window
+        self.max_average_window = max_average_window or 10000
+
+
 class Optimizer:
     """Base class. Subclasses define _init_slot / _apply."""
 
@@ -41,9 +54,8 @@ class Optimizer:
                  learning_rate_decay_a: float = 0.0,
                  learning_rate_decay_b: float = 0.0,
                  learning_rate_schedule: str = "constant",
-                 model_average=None, batch_size: int = 1, **kwargs):
-        if model_average is not None:
-            raise NotImplementedError("model averaging is not ported yet")
+                 model_average: Optional[ModelAverage] = None,
+                 batch_size: int = 1, **kwargs):
         self.learning_rate = learning_rate
         self.l2 = regularization.rate if isinstance(
             regularization, L2Regularization) else 0.0
@@ -53,6 +65,7 @@ class Optimizer:
         self.schedule = make_schedule(learning_rate_schedule, learning_rate,
                                       learning_rate_decay_a,
                                       learning_rate_decay_b)
+        self.model_average = model_average
         self.param_attrs: Dict[str, Any] = {}
 
     def bind(self, param_specs: Dict[str, Any]) -> "Optimizer":
@@ -81,7 +94,11 @@ class Optimizer:
         with torch.no_grad():
             slots = {k: self._init_slot(v.detach())
                      for k, v in params.items()}
-        return {"step": 0, "num_samples": 0.0, "slots": slots}
+            state = {"step": 0, "num_samples": 0.0, "slots": slots}
+            if self.model_average is not None:
+                state["avg"] = {k: v.detach().clone()
+                                for k, v in params.items()}
+        return state
 
     def _adjust_grad(self, k, p, g):
         """Clipping + L1/L2. Returns (g, lr_scale)."""
@@ -120,8 +137,25 @@ class Optimizer:
                                                 state["slots"][k],
                                                 base_lr * lr_scale, step)
                 p.copy_(np_)
-        return params, {"step": step, "num_samples": num_samples,
-                        "slots": new_slots}
+            new_state = {"step": step, "num_samples": num_samples,
+                         "slots": new_slots}
+            if self.model_average is not None:
+                # the JAX package's float32 decay on the float32 step
+                w = self.model_average.max_average_window
+                decay = float(min(_f32(step) / (_f32(step) + _f32(1)),
+                                  _f32((w - 1.0) / w)))
+                new_state["avg"] = {
+                    k: state["avg"][k] * decay + p.detach() * (1.0 - decay)
+                    for k, p in params.items()}
+        return params, new_state
+
+    def test_params(self, params: Dict[str, torch.Tensor],
+                    state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The parameters to evaluate with: the model average when it is
+        on, else ``params``."""
+        if self.model_average is not None and "avg" in state:
+            return state["avg"]
+        return params
 
 
 def _f32(x: float) -> np.float32:
@@ -170,3 +204,87 @@ class Adam(Optimizer):
         vhat = v / float(_f32(1) - np.power(_f32(self.b2), t))
         return p - lr * mhat / (torch.sqrt(vhat) + self.eps), \
             {"m": m, "v": v}
+
+
+class Adamax(Optimizer):
+    """AdamaxOptimizer (FirstOrderOptimizer.h:303)."""
+
+    def __init__(self, beta1: float = 0.9, beta2: float = 0.999, **kw):
+        super().__init__(**kw)
+        self.b1, self.b2 = beta1, beta2
+
+    def _init_slot(self, p):
+        return {"m": torch.zeros_like(p), "u": torch.zeros_like(p)}
+
+    def _apply(self, p, g, slot, lr, step):
+        t = _f32(step)
+        m = self.b1 * slot["m"] + (1 - self.b1) * g
+        u = torch.maximum(self.b2 * slot["u"], torch.abs(g))
+        scale = lr / float(_f32(1) - np.power(_f32(self.b1), t))
+        return p - scale * m / (u + 1e-12), {"m": m, "u": u}
+
+
+class AdaGrad(Optimizer):
+    """AdagradOptimizer (FirstOrderOptimizer.h:146)."""
+
+    def __init__(self, epsilon: float = 1e-6, **kw):
+        super().__init__(**kw)
+        self.eps = epsilon
+
+    def _init_slot(self, p):
+        return {"acc": torch.zeros_like(p)}
+
+    def _apply(self, p, g, slot, lr, step):
+        acc = slot["acc"] + torch.square(g)
+        return p - lr * g / (torch.sqrt(acc) + self.eps), {"acc": acc}
+
+
+class DecayedAdaGrad(Optimizer):
+    """DecayedAdagradOptimizer (FirstOrderOptimizer.h:222)."""
+
+    def __init__(self, rho: float = 0.95, epsilon: float = 1e-6, **kw):
+        super().__init__(**kw)
+        self.rho, self.eps = rho, epsilon
+
+    def _init_slot(self, p):
+        return {"acc": torch.zeros_like(p)}
+
+    def _apply(self, p, g, slot, lr, step):
+        acc = self.rho * slot["acc"] + (1 - self.rho) * torch.square(g)
+        return p - lr * g / (torch.sqrt(acc) + self.eps), {"acc": acc}
+
+
+class AdaDelta(Optimizer):
+    """AdaDeltaOptimizer (FirstOrderOptimizer.h:168)."""
+
+    def __init__(self, rho: float = 0.95, epsilon: float = 1e-6, **kw):
+        super().__init__(**kw)
+        self.rho, self.eps = rho, epsilon
+
+    def _init_slot(self, p):
+        return {"acc_g": torch.zeros_like(p), "acc_dx": torch.zeros_like(p)}
+
+    def _apply(self, p, g, slot, lr, step):
+        acc_g = self.rho * slot["acc_g"] + (1 - self.rho) * torch.square(g)
+        dx = -torch.sqrt((slot["acc_dx"] + self.eps) /
+                         (acc_g + self.eps)) * g
+        acc_dx = self.rho * slot["acc_dx"] + (1 - self.rho) * torch.square(dx)
+        return p + lr * dx, {"acc_g": acc_g, "acc_dx": acc_dx}
+
+
+class RmsProp(Optimizer):
+    """RMSPropOptimizer (FirstOrderOptimizer.h:190) — the variant with a
+    first-moment term."""
+
+    def __init__(self, rho: float = 0.95, epsilon: float = 1e-6, **kw):
+        super().__init__(**kw)
+        self.rho, self.eps = rho, epsilon
+
+    def _init_slot(self, p):
+        return {"acc": torch.zeros_like(p), "mean": torch.zeros_like(p)}
+
+    def _apply(self, p, g, slot, lr, step):
+        acc = self.rho * slot["acc"] + (1 - self.rho) * torch.square(g)
+        mean = self.rho * slot["mean"] + (1 - self.rho) * g
+        return (p - lr * g / torch.sqrt(acc - torch.square(mean) + self.eps),
+                {"acc": acc, "mean": mean})

@@ -5,19 +5,27 @@ One step is: feed conversion, ``Topology.forward``, the masked
 per-row cost summed and divided by the real row count,
 ``torch.autograd.grad`` over this trainer's parameter tensors (autograd
 leaves), and ``optimizer.update``, which writes the new values into
-those tensors under ``no_grad``. The loss and metrics come back to the
-host in one transfer per step. PyTorch runs the step eagerly where the
-JAX package jits it.
+those tensors under ``no_grad``. The loss, the metrics and the
+evaluators' inputs come back to the host in one transfer per step.
+PyTorch runs the step eagerly where the JAX package jits it.
 
-Not in this slice (each raises): a device mesh, evaluators, pipeline
-stages, and the checkpoint / elastic / fault / microbatch options of
-``train``.
+Evaluators (``evaluators=[...]``, paddle_tpu_torch/evaluator) are host
+accumulators: their input layers become extra outputs of the step, and
+the rows below the batch's real count feed them. ``test`` evaluates the
+optimizer's ``test_params`` (the model average when it is on);
+``save_pass`` writes ``pass-%05d/params.tar``.
+
+Not ported yet (each raises): a device mesh, pipeline stages, the
+gradient printer's activation taps, and the checkpoint / elastic /
+fault / microbatch options of ``train``.
 """
 
 from __future__ import annotations
 
+import copy
+import os
 import warnings
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -34,8 +42,9 @@ from paddle_tpu_torch.trainer.parameters import Parameters
 class SGD:
     """v2-compatible trainer: ``cost`` (a cost LayerOutput or a list),
     ``parameters`` (Parameters), ``update_equation`` (an Optimizer);
-    ``extra_layers`` are metric nodes reported in the events. Runs on
-    ``device`` (the CUDA card unless the CPU is asked for); parameters
+    ``extra_layers`` are metric nodes reported in the events and
+    ``evaluators`` host evaluators fed every batch. Runs on ``device``
+    (the process's device unless one is given, device.py); parameters
     living elsewhere move there."""
 
     def __init__(self, cost, parameters: Parameters, update_equation,
@@ -46,19 +55,40 @@ class SGD:
             raise NotImplementedError(
                 "mesh and pipeline parallelism are not ported yet (the "
                 "parallelism slice, ROADMAP.md queue A)")
-        if evaluators:
-            raise NotImplementedError("evaluators are not ported yet")
         self.device = resolve_device(device)
         costs = cost if isinstance(cost, (list, tuple)) else [cost]
         self.costs = list(costs)
         self.extra_layers = list(extra_layers or [])
-        self.topology = Topology(self.costs, extra_outputs=self.extra_layers)
+        self.evaluators = list(evaluators or [])
+        # evaluator inputs become extra outputs of the step
+        eval_inputs: List[LayerOutput] = []
+        seen = {c.name for c in self.costs} | \
+            {e.name for e in self.extra_layers}
+        for ev in self.evaluators:
+            for li in ev.inputs:
+                if li.name not in seen and hasattr(li, "parents"):
+                    seen.add(li.name)
+                    eval_inputs.append(li)
+        self._eval_out_names = sorted({li.name for ev in self.evaluators
+                                       for li in ev.inputs})
+        self.topology = Topology(
+            self.costs, extra_outputs=self.extra_layers + eval_inputs)
+        feed_names = {name for name, _ in self.topology.data_type()}
+        known = set(self.topology.by_name) | feed_names
+        for ev in self.evaluators:
+            for li in ev.inputs:
+                if li.name not in known:
+                    raise ValueError(
+                        f"evaluator {ev.name!r} input {li.name!r} is "
+                        "neither a layer in this topology nor one of its "
+                        f"data layers {sorted(feed_names)}")
         self.parameters = parameters
         for name, spec in self.topology.state_specs.items():
             if name not in parameters.state:
                 parameters.state[name] = torch.full(
                     tuple(spec.shape), spec.init_value, dtype=spec.dtype,
                     device=self.device)
+        # including the parameters of layers only evaluators reach
         missing = [n for n in self.topology.param_specs
                    if n not in parameters.raw]
         if missing:
@@ -121,20 +151,43 @@ class SGD:
                             < n_real).to(v.dtype)
                 metrics[e.name] = torch.sum(v * row_mask) / \
                     max(float(n_real), 1.0)
-        return total, (metrics, new_state)
+        # evaluator inputs: graph outputs, or raw feed entries (labels)
+        eval_outs = {n: (outs[n] if n in outs else feed[n])
+                     for n in self._eval_out_names}
+        return total, (metrics, new_state, eval_outs)
 
     @staticmethod
-    def _fetch_host(loss, metrics):
-        """One device -> host transfer for a step's loss and metrics."""
+    def _fetch_host(loss, metrics, eval_outs=None):
+        """One device -> host transfer for a step's loss, metrics and
+        evaluator inputs: the scalars and every evaluator tensor go to
+        the host as one byte buffer. Returns (loss, {name: metric},
+        {name: host tensor or SequenceBatch of host tensors})."""
         names = list(metrics)
-        vals = torch.stack([loss.detach().float()] +
-                           [metrics[k].detach().float() for k in names])
-        host = vals.cpu().tolist()
-        return host[0], dict(zip(names, host[1:]))
+        scalars = torch.stack([loss.detach().float()] +
+                              [metrics[k].detach().float() for k in names])
+        parts = [scalars]
+        for v in (eval_outs or {}).values():
+            parts += [v.data, v.lengths] if isinstance(v, SequenceBatch) \
+                else [v]
+        flat = torch.cat([p.detach().contiguous().reshape(-1)
+                          .view(torch.uint8) for p in parts]).cpu()
+        host_parts, off = [], 0
+        for p in parts:
+            n = p.numel() * p.element_size()
+            host_parts.append(flat[off:off + n].clone().view(p.dtype)
+                              .reshape(p.shape))
+            off += n
+        host = host_parts[0].tolist()
+        rest = iter(host_parts[1:])
+        eval_host = {}
+        for k, v in (eval_outs or {}).items():
+            eval_host[k] = SequenceBatch(next(rest), next(rest)) \
+                if isinstance(v, SequenceBatch) else next(rest)
+        return host[0], dict(zip(names, host[1:])), eval_host
 
-    def _step(self, feed, n_real: int):
+    def _step(self, feed, n_real: int, fetch_evals: bool = True):
         params = self._own_params()
-        loss, (metrics, new_state) = self._loss_and_metrics(
+        loss, (metrics, new_state, eval_outs) = self._loss_and_metrics(
             params, self.parameters.state, feed, n_real, "train")
         names = list(params)
         grads = torch.autograd.grad(loss, [params[k] for k in names],
@@ -142,7 +195,22 @@ class SGD:
         _, self.opt_state = self.optimizer.update(
             params, dict(zip(names, grads)), self.opt_state, n_real)
         self.parameters.state = new_state
-        return self._fetch_host(loss, metrics)
+        return self._fetch_host(loss, metrics,
+                                eval_outs if fetch_evals else None)
+
+    def _feed_evaluators(self, eval_host, n_real: int) -> Dict[str, float]:
+        """Push a batch's fetched outputs through the evaluators; returns
+        their running pass-so-far results."""
+        if not self.evaluators:
+            return {}
+        from paddle_tpu_torch.evaluator import _to_np
+        host = {k: _to_np(v) for k, v in eval_host.items()}
+        results: Dict[str, float] = {}
+        for ev in self.evaluators:
+            ev.eval_batch([host[li.name] for li in ev.inputs], n_real)
+            if not getattr(ev, "expensive_result", False):
+                results.update(ev.result())
+        return results
 
     def _feeder(self, feeding):
         return DataFeeder(self.topology.data_type(), feeding,
@@ -153,14 +221,16 @@ class SGD:
         returns (cost, metrics) as host floats."""
         feed = self._feeder(feeding)(data_batch)
         n_real = int(feed.pop("__batch_size__"))
-        return self._step(feed, n_real)
+        return self._step(feed, n_real, fetch_evals=False)[:2]
 
     def train(self, reader=None, num_passes: int = 1,
               event_handler: Optional[Callable] = None, feeding=None,
               num_batches_per_pass: Optional[int] = None, **kwargs):
         """reader: callable yielding batches (lists of sample tuples).
         Emits BeginPass / BeginIteration / EndIteration / EndPass; the
-        EndPass metrics are the pass averages."""
+        EndIteration metrics carry the evaluators' running results, the
+        EndPass metrics the pass averages and the evaluators' pass
+        results."""
         unsupported = sorted(k for k, v in kwargs.items() if v)
         if unsupported:
             raise NotImplementedError(
@@ -173,6 +243,8 @@ class SGD:
             event_handler(evt.BeginPass(pass_id))
             pass_metrics: Dict[str, float] = {}
             n_batches = 0
+            for ev in self.evaluators:
+                ev.start()
             for batch_id, batch in enumerate(reader()):
                 if num_batches_per_pass is not None and \
                         batch_id >= num_batches_per_pass:
@@ -180,38 +252,61 @@ class SGD:
                 event_handler(evt.BeginIteration(pass_id, batch_id))
                 feed = feeder(batch)
                 n_real = int(feed.pop("__batch_size__"))
-                loss, metrics = self._step(feed, n_real)
+                loss, metrics, eval_host = self._step(feed, n_real)
                 for k, v in metrics.items():
                     pass_metrics[k] = pass_metrics.get(k, 0.0) + v
+                metrics.update(self._feed_evaluators(eval_host, n_real))
                 n_batches += 1
                 event_handler(evt.EndIteration(pass_id, batch_id, loss,
                                                metrics))
             denom = float(max(n_batches, 1))
             avg = {k: v / denom for k, v in pass_metrics.items()}
+            for ev in self.evaluators:
+                avg.update(ev.result())
             event_handler(evt.EndPass(pass_id, avg, self.parameters))
 
     def test(self, reader, feeding=None) -> evt.TestResult:
+        """One sweep of ``reader`` in test mode, with the optimizer's
+        ``test_params``; the evaluators' training accumulators are kept
+        and restored around it (test may run mid-pass)."""
         feeder = self._feeder(feeding)
         totals: Dict[str, float] = {}
         total_loss, n = 0.0, 0
-        params = self._own_params()
+        params = self.optimizer.test_params(self._own_params(),
+                                            self.opt_state)
+        saved = [{k: copy.deepcopy(v) for k, v in ev.__dict__.items()
+                  if k != "inputs"} for ev in self.evaluators]
+        for ev in self.evaluators:
+            ev.start()
         with torch.no_grad():
             for batch in reader():
                 feed = feeder(batch)
                 n_real = int(feed.pop("__batch_size__"))
-                loss, (metrics, _) = self._loss_and_metrics(
+                loss, (metrics, _, eval_outs) = self._loss_and_metrics(
                     params, self.parameters.state, feed, n_real, "test")
-                loss_h, metrics_h = self._fetch_host(loss, metrics)
+                loss_h, metrics_h, eval_host = self._fetch_host(
+                    loss, metrics, eval_outs)
                 total_loss += loss_h
                 for k, v in metrics_h.items():
                     totals[k] = totals.get(k, 0.0) + v
+                self._feed_evaluators(eval_host, n_real)
                 n += 1
         n = max(n, 1)
-        return evt.TestResult(total_loss / n,
-                              {k: v / n for k, v in totals.items()})
+        avg = {k: v / n for k, v in totals.items()}
+        for ev, st in zip(self.evaluators, saved):
+            avg.update(ev.result())
+            ev.__dict__.update(st)
+        return evt.TestResult(total_loss / n, avg)
 
     def save_parameter_to_tar(self, f):
         self.parameters.to_tar(f)
+
+    def save_pass(self, output_dir: str, pass_id: int):
+        """ParamUtil parity: ``output_dir/pass-%05d/params.tar``."""
+        d = os.path.join(output_dir, f"pass-{pass_id:05d}")
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "params.tar"), "wb") as f:
+            self.parameters.to_tar(f)
 
 
 def _default_event_handler(e):

@@ -1,0 +1,134 @@
+"""Port parity: the golden topologies of tests/golden/ in
+paddle_tpu_torch against paddle_tpu on the CPU.
+
+Every golden whose layer types the port has is held here, in one
+parametrised test: it deserializes in both packages (and serializes
+back equal to the file in the port), runs from one weight table
+(the JAX package's init, carried through a ``paddle_tpu.params.v1``
+tar) on one seeded ragged batch, and gives the JAX forward's outputs
+at rtol 1e-4 / atol 1e-5. Where the golden has a cost, autograd's
+gradients of the summed cost equal ``jax.grad``'s at the same
+tolerance (two CPU matmul libraries summing in different orders).
+
+``test_held_goldens_are_every_one_the_port_deserializes`` keeps the
+list complete: a golden that a later slice unlocks must join it.
+"""
+
+import io
+import json
+import pathlib
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import paddle_tpu as jpaddle
+import torch
+from paddle_tpu.trainer.data_feeder import DataFeeder as JFeeder
+
+from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.core.topology import Topology as TTopology
+from paddle_tpu_torch.trainer import Parameters as TParameters
+from paddle_tpu_torch.trainer.data_feeder import DataFeeder as TFeeder
+
+RTOL, ATOL = 1e-4, 1e-5
+GOLDEN = pathlib.Path(__file__).parent / "golden"
+HELD = ["attention_net", "bidirectional_gru", "crf_tagger", "simple_fc",
+        "simple_lstm_net", "simple_rnn", "word_embedding_ngram"]
+LENGTHS = (6, 2, 11)
+
+
+def _samples(data_types, seed=4):
+    """One sample per entry of LENGTHS; every sequence column of a
+    sample has that length (a tagger's words and labels must agree)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for L in LENGTHS:
+        row = []
+        for _, it in data_types:
+            seq = it.seq_type.value > 0
+            shape = (L,) if seq else ()
+            if it.kind == "integer":
+                row.append(rng.randint(0, it.dim, shape).astype(np.int32)
+                           if seq else int(rng.randint(0, it.dim)))
+            else:
+                row.append(rng.randn(*(shape + (it.dim,)))
+                           .astype(np.float32))
+        out.append(tuple(row))
+    return out
+
+
+def _payload(v):
+    return v.data if isinstance(v, SequenceBatch) else v
+
+
+def _jpayload(v):
+    return v.data if hasattr(v, "lengths") else v
+
+
+def _is_cost(topo, name):
+    t = topo.by_name[name].type
+    return t.endswith("cost") or t in ("crf", "multi-class-cross-entropy")
+
+
+@pytest.mark.parametrize("golden", HELD)
+def test_golden_forward_and_gradients_match_jax(golden):
+    blob = (GOLDEN / f"{golden}.json").read_text()
+    jpaddle.init(use_tpu=False, seed=0)
+    jtopo = jpaddle.Topology.deserialize(blob)
+    ttopo = TTopology.deserialize(blob)
+    assert json.loads(ttopo.serialize()) == json.loads(blob)
+    assert [n for n, _ in ttopo.data_type()] == \
+        [n for n, _ in jtopo.data_type()]
+    buf = io.BytesIO()
+    jpaddle.Parameters(jtopo.init_params(jax.random.PRNGKey(3))).to_tar(buf)
+    buf.seek(0)
+    tparams = TParameters.from_tar(buf, device="cpu").raw
+    table = {k: v.numpy() for k, v in tparams.items()}
+    assert sorted(table) == sorted(ttopo.param_specs)
+    samples = _samples(jtopo.data_type())
+    jfeed = JFeeder(jtopo.data_type())(samples)
+    jfeed.pop("__batch_size__")
+    tfeed = TFeeder(ttopo.data_type(), device="cpu")(samples)
+    tfeed.pop("__batch_size__")
+    jout, _ = jtopo.forward({k: jnp.asarray(v) for k, v in table.items()},
+                            {}, jfeed, mode="test")
+    leaves = {k: v.clone().requires_grad_() for k, v in tparams.items()}
+    tout, _ = ttopo.forward(leaves, {}, tfeed, mode="test")
+    assert sorted(tout) == sorted(jout)
+    for k in jout:
+        np.testing.assert_allclose(_payload(tout[k]).detach().numpy(),
+                                   np.asarray(_jpayload(jout[k])),
+                                   rtol=RTOL, atol=ATOL, err_msg=k)
+    costs = [o.name for o in ttopo.outputs if _is_cost(ttopo, o.name)]
+    assert bool(costs) == (golden in ("crf_tagger", "simple_fc"))
+    if not costs:
+        return
+
+    def jloss(p):
+        outs, _ = jtopo.forward(p, {}, jfeed, mode="train",
+                                output_names=costs)
+        return sum(jnp.sum(outs[c]) for c in costs)
+
+    jg = jax.grad(jloss)({k: jnp.asarray(v) for k, v in table.items()})
+    outs, _ = ttopo.forward(leaves, {}, tfeed, mode="train",
+                            output_names=costs)
+    names = sorted(leaves)
+    tg = torch.autograd.grad(sum(outs[c].sum() for c in costs),
+                             [leaves[k] for k in names])
+    for k, g in zip(names, tg):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg[k]), rtol=RTOL,
+                                   atol=ATOL, err_msg=f"d/d{k}")
+
+
+def test_held_goldens_are_every_one_the_port_deserializes():
+    ok = []
+    for path in sorted(GOLDEN.glob("*.json")):
+        try:
+            TTopology.deserialize(path.read_text())
+        except NotImplementedError:
+            continue
+        ok.append(path.stem)
+    assert ok == sorted(HELD)
+    assert len(list(GOLDEN.glob("*.json"))) == 32

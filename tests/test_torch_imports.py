@@ -44,7 +44,10 @@ def test_every_module_imports_without_jax_or_paddle_tpu():
               "ops.sequence_ops", "layers.recurrent_layers",
               "layers.seq_layers", "layers.crf_layers", "models.text",
               "models.tagger", "trainer.inference", "serving.spill",
-              "serving.prefix", "models.decode"):
+              "serving.prefix", "models.decode", "reader", "dataset",
+              "dataset.common", "dataset.synthetic", "dataset.mnist",
+              "dataset.conll05", "evaluator", "attr", "activation",
+              "optimizer.schedules", "config", "device"):
         assert f"paddle_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
