@@ -320,8 +320,34 @@ Phases (any failure exits non-zero before the final line):
    differing sentence must be a reported near-tie: its two paths' CRF
    scores within 1e-4 relative); then one test batch under
    torch.profiler.
+28. convergence — the port copy of demo/mnist/convergence.py's digits
+   tier (only its imports and data source changed: convergence_demo,
+   convergence_cnn): conv 32 and 64, pool, fc 256 with dropout 0.5,
+   Adam(1e-3), init(seed=42), batch 128, 100 passes over the 1438
+   training digits of paddle_tpu_torch/dataset/digits.csv.gz, then
+   SGD.test over the 359 held out. Prints the script's artifact
+   (data, num_passes, batch_size, wall_clock_s, test_accuracy,
+   test_cost, met) with the card's name and power limit. Fails below
+   the script's target, test accuracy 0.98, on a non-finite cost or
+   parameter, or when the first 16 step costs of a dropout-0 copy on
+   the card differ by more than 1e-4 relative from the same copy on
+   the CPU port, from the card run's init tar.
+29. resnet50 — bench.py's resnet50_bs128 (bench_image, :194): resnet50
+   at 224 x 224 x 3, 1000 classes, batch 128, Momentum(0.01/128, 0.9,
+   L2 0.0005 x 128), in bf16 (the bench's --dtype default) and float32
+   (the package default, TF32 off), with torch.backends.cudnn.benchmark
+   on for the phase (the 2 warm-up steps absorb the autotuning): 8
+   timed train_batch calls on one seeded batch, step_ms, samples/s,
+   the analytic model FLOPs (convs and fc; forward + 2 x forward for
+   the backward) and the TFLOP/s they imply, peak memory; losses finite
+   and falling, every moving statistic changed, finite and detached;
+   one bf16 step under torch.profiler; the float32 model's infer of 128
+   samples timed, and its test-mode probabilities of 4 samples against
+   the CPU port's on the same weights, moving statistics and inputs
+   (rtol 1e-4, atol 1e-5).
 
-Prints the kernel table as one JSON line (the flash and LSTM kernels at
+Then logs the whole script's wall time and prints the kernel table as
+one JSON line (phases 28-29 add no kernel; the flash and LSTM kernels at
 their bfloat16 times, the training dtype, naming their wgmma sources,
 with their errors in bfloat16 too; the flash kernels again at float32,
 the default dtype, as flash_attention_*_f32 with phase 24's launches
@@ -3897,6 +3923,312 @@ def phase_tagging_v2():
     return counts["gru_fwd"]
 
 
+# ------------------------------------------------------------ phase 28
+CONV_PASSES, CONV_BATCH, CONV_STEP_CHECK = 100, 128, 16
+CONV_CPU_RTOL = 1e-4
+CONV_TARGET = 0.98                 # the convergence script's own target
+
+
+def convergence_cnn(paddle, in_dim=64, drop_rate=0.5):
+    """The digits-tier network of demo/mnist/convergence.py: (cost, the
+    softmax output, the classification error)."""
+    L, act = paddle.layer, paddle.activation
+    img = L.data("pixel", paddle.data_type.dense_vector(in_dim),
+                 height=8, width=8)
+    c1 = L.img_conv(img, filter_size=3, num_filters=32, padding=1,
+                    num_channels=1, act=act.Relu())
+    c2 = L.img_conv(c1, filter_size=3, num_filters=64, padding=1,
+                    act=act.Relu())
+    p = L.img_pool(c2, pool_size=2, stride=2)
+    h = L.dropout(L.fc(p, size=256, act=act.Relu()), drop_rate)
+    out = L.fc(h, size=10, act=act.Softmax())
+    lbl = L.data("label", paddle.data_type.integer_value(10))
+    cost = L.classification_cost(out, lbl)
+    err = L.classification_error(out, lbl, name="error")
+    return cost, out, err
+
+
+def convergence_demo(paddle, readers, use_tpu=None, num_passes=100,
+                     batch_size=128, drop_rate=0.5, init_tar=None,
+                     num_batches_per_pass=None):
+    """demo/mnist/convergence.py's digits tier with only its imports and
+    its data source changed: the package and ``readers`` (a callable
+    giving (train reader, test reader, input dim)) come in as arguments.
+    ``drop_rate`` 0 is the copy the parity checks run."""
+    import io
+    paddle.init(use_tpu=use_tpu, seed=42)
+    train_reader, test_reader, in_dim = readers()
+    cost, out, err = convergence_cnn(paddle, in_dim, drop_rate)
+
+    params = paddle.create_parameters(paddle.Topology(cost))
+    if init_tar is not None:
+        params = paddle.Parameters.from_tar(io.BytesIO(init_tar))
+    buf = io.BytesIO()
+    params.to_tar(buf)
+    opt = paddle.optimizer.Adam(learning_rate=1e-3)
+    trainer = paddle.SGD(cost=cost, parameters=params, update_equation=opt,
+                         extra_layers=[err])
+    reader = paddle.reader.batch(
+        paddle.reader.shuffle(train_reader, 8192, seed=1),
+        batch_size, drop_last=True)
+    costs = []
+
+    def handler(e):
+        if isinstance(e, paddle.event.EndIteration):
+            costs.append(e.cost)
+
+    t0 = time.perf_counter()
+    trainer.train(reader, num_passes=num_passes, event_handler=handler,
+                  num_batches_per_pass=num_batches_per_pass)
+    wall = time.perf_counter() - t0
+    res = trainer.test(paddle.reader.batch(test_reader, batch_size))
+    acc = 1.0 - res.metrics.get("error", 1.0)
+    return dict(costs=costs, wall_clock_s=wall, test_accuracy=float(acc),
+                test_cost=float(res.cost), trainer=trainer,
+                init_tar=buf.getvalue(), out=out)
+
+
+def phase_convergence():
+    """Phase 28: the digits-CNN convergence run on the card — the port
+    copy of demo/mnist/convergence.py's digits tier (conv 32 and 64,
+    pool, fc 256 with dropout 0.5, Adam(1e-3), init(seed=42), batch
+    128, 100 passes over the 1437 training digits of the copy in
+    paddle_tpu_torch/dataset/). Gates: test accuracy >= 0.98, the
+    script's own target; every cost and parameter finite; the first 16
+    step costs of a dropout-0 copy on the card within 1e-4 relative of
+    the same copy on the CPU port, from the card run's init tar."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.registry import reset_name_counters
+    from paddle_tpu_torch.dataset import digits
+    card = nvidia_smi_line()
+    reset_name_counters()
+    r = convergence_demo(paddle, digits.readers, num_passes=CONV_PASSES,
+                         batch_size=CONV_BATCH)
+    trainer = r["trainer"]
+    if trainer.device.type != "cuda":
+        raise AssertionError(f"the convergence run trained on "
+                             f"{trainer.device}, not the card")
+    n_steps = len(r["costs"])
+    n_train = sum(1 for _ in digits.readers()[0]())
+    bad = [k for k, v in trainer.parameters.raw.items()
+           if not bool(torch.isfinite(v).all())]
+    if n_steps != CONV_PASSES * (n_train // CONV_BATCH) or bad or \
+            not np.all(np.isfinite(r["costs"])):
+        raise AssertionError(f"convergence: {n_steps} steps, non-finite "
+                             f"parameters {bad}, costs {r['costs'][:4]}...")
+    acc = r["test_accuracy"]
+    # the dropout-0 copy, 16 steps on the card and on the CPU port
+    got, want = [], []
+    for use_tpu, costs in ((None, got), (False, want)):
+        reset_name_counters()
+        costs += convergence_demo(
+            paddle, digits.readers, use_tpu=use_tpu, num_passes=2,
+            batch_size=CONV_BATCH, drop_rate=0.0, init_tar=r["init_tar"],
+            num_batches_per_pass=CONV_STEP_CHECK // 2)["costs"]
+    from paddle_tpu_torch import config
+    config.init(seed=0, compute_dtype="float32")      # back to the card
+    rel = float(np.max(np.abs(np.asarray(got) - np.asarray(want)) /
+                       np.abs(np.asarray(want))))
+    if len(got) != CONV_STEP_CHECK or len(want) != CONV_STEP_CHECK or \
+            rel > CONV_CPU_RTOL:
+        raise AssertionError(f"convergence dropout-0 copy: card costs {got} "
+                             f"against the CPU port's {want}: max rel {rel}")
+    artifact = {"benchmark": "mnist_convergence", "data": "sklearn-digits",
+                "num_passes": CONV_PASSES, "batch_size": CONV_BATCH,
+                "wall_clock_s": r["wall_clock_s"], "test_accuracy": acc,
+                "test_cost": r["test_cost"],
+                "target": "real-data test_accuracy >= 0.98",
+                "met": bool(acc >= CONV_TARGET)}
+    log(f"convergence ({card}): {json.dumps(artifact)}; {n_steps} steps, "
+        f"{r['wall_clock_s'] / n_steps * 1e3:.3f} ms a step (reader and "
+        f"feeder included); dropout-0 copy: first {CONV_STEP_CHECK} costs "
+        f"within {rel:.3g} relative of the CPU port's")
+    if not artifact["met"]:
+        raise AssertionError(f"convergence: test accuracy {acc} below the "
+                             f"script's target {CONV_TARGET}")
+    return artifact
+
+
+# ------------------------------------------------------------ phase 29
+# bench.py:194 bench_image at its resnet50_bs128 row
+RESNET = dict(height=224, width=224, channels=3, num_classes=1000)
+RESNET_BATCH, RESNET_WARMUP, RESNET_STEPS = 128, 2, 8
+RESNET_CHECK_ROWS = 4
+# the card's float32 test-mode forward against the CPU port's on the
+# same weights and inputs: probabilities within the tests' forward
+# tolerance (cuDNN's and the CPU's convolutions sum in different orders
+# over 53 convs; the first card run's largest |diff| was 1.10e-5)
+RESNET_PROBS_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _resnet_flops(topo):
+    """Analytic model FLOPs per sample of one forward pass: 2 x the
+    multiply-adds of every conv and fc (batch norm, pooling and the
+    activations, a few percent more, not counted)."""
+    flops = 0
+    for l in topo.layers:
+        if l.type == "conv":
+            cfg, m = l.config, l.meta
+            flops += 2 * cfg["filter_size"] ** 2 * (
+                cfg["_ic"] // cfg.get("groups", 1)) * m.channels * \
+                m.height * m.width
+        elif l.type == "fc":
+            flops += 2 * sum(p.meta.size for p in l.parents) * l.meta.size
+    return flops
+
+
+def _resnet_samples(n, seed):
+    rng = np.random.RandomState(seed)
+    dim = RESNET["height"] * RESNET["width"] * RESNET["channels"]
+    img = rng.randn(n, dim).astype(np.float32)
+    lbl = rng.randint(0, RESNET["num_classes"], n)
+    return [(img[i], int(lbl[i])) for i in range(n)]
+
+
+def _resnet_train(compute_dtype, batch):
+    """bench_image's resnet50_bs128: Momentum(0.01/128, 0.9, L2
+    0.0005 x 128) on one repeated batch. As bench.py's _measure does,
+    the batch goes to the card once and the timed steps (2 warm-ups,
+    then 8) are the trainer's step on that feed; 8 train_batch calls
+    on the host samples follow, timed apart (the feeder and the host
+    copy included). Returns the trainer, the spec, the device feed and
+    the step's numbers."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import config
+    from paddle_tpu_torch.core.registry import reset_name_counters
+    from paddle_tpu_torch.models import resnet50
+    config.init(seed=0, compute_dtype=compute_dtype)
+    reset_name_counters()
+    spec = resnet50(**RESNET)
+    topo = paddle.Topology(spec.cost)
+    params = paddle.create_parameters(topo)
+    state0 = {k: v.clone() for k, v in params.state.items()}
+    trainer = paddle.SGD(
+        cost=spec.cost, parameters=params,
+        update_equation=paddle.optimizer.Momentum(
+            learning_rate=0.01 / RESNET_BATCH, momentum=0.9,
+            regularization=paddle.optimizer.L2Regularization(
+                0.0005 * RESNET_BATCH)))
+    feed = trainer._feeder(None)(batch)
+    n_real = int(feed.pop("__batch_size__"))
+
+    def step():
+        return trainer._step(feed, n_real, fetch_evals=False)[0]
+
+    losses = [step() for _ in range(RESNET_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(RESNET_STEPS):
+        losses.append(step())
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / RESNET_STEPS * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    for _ in range(RESNET_STEPS):
+        losses.append(trainer.train_batch(batch)[0])
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / RESNET_STEPS * 1e3
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"resnet50 {compute_dtype}: losses not finite "
+                             f"and falling on the repeated batch: {losses}")
+    bad = [k for k, p in params.raw.items()
+           if not bool(torch.isfinite(p).all())]
+    state = params.state
+    moved = [k for k in state0 if not torch.equal(state[k], state0[k])]
+    finite = all(bool(torch.isfinite(v).all()) for v in state.values())
+    if bad or len(moved) != len(state0) or not finite or \
+            any(v.requires_grad for v in state.values()):
+        raise AssertionError(
+            f"resnet50 {compute_dtype}: non-finite parameters {bad}; "
+            f"{len(moved)} of {len(state0)} moving statistics changed, "
+            f"finite {finite}")
+    flops = _resnet_flops(topo)
+    train_flops = 3 * flops
+    tflops = train_flops * RESNET_BATCH / (step_ms / 1e3) / 1e12
+    log(f"resnet50 {compute_dtype} ({nvidia_smi_line()}): batch "
+        f"{RESNET_BATCH}, feed on the card, {RESNET_STEPS} timed steps "
+        f"after {RESNET_WARMUP}: step_ms {step_ms:.3f}, "
+        f"{RESNET_BATCH / (step_ms / 1e3):.1f} samples/s; "
+        f"{RESNET_STEPS} train_batch calls on the host samples (feeder "
+        f"and host copy included): {host_ms:.3f} ms, "
+        f"{RESNET_BATCH / (host_ms / 1e3):.1f} samples/s; model FLOPs "
+        f"{flops / 1e9:.4f} G a sample forward, {train_flops / 1e9:.4f} G "
+        f"trained (forward + 2 x forward for the backward; convs and fc "
+        f"only), {tflops:.1f} TFLOP/s at step_ms; peak {peak_gb:.3f} GB; "
+        f"losses {[round(x, 5) for x in losses]}; {len(moved)} moving "
+        f"statistics changed, all finite")
+    return trainer, spec, feed, dict(step_ms=step_ms, host_ms=host_ms,
+                                     peak_gb=peak_gb, losses=losses,
+                                     tflops=tflops)
+
+
+def phase_resnet50():
+    """Phase 29: ResNet-50 training at bench.py's resnet50_bs128 (224 x
+    224 x 3, 1000 classes, batch 128, the bench's Momentum) in bf16, the
+    bench's --dtype default, then in float32, the package default (TF32
+    off): step_ms and samples/s of the trainer's step on a feed already
+    on the card (bench.py's convention) with the train_batch time
+    beside it, model TFLOP/s, peak memory; losses finite and falling on
+    the repeated batch, every moving statistic changed, finite and
+    detached. One bf16 step on the card's feed traced. In float32, the card's
+    test-mode forward of 4 samples against the CPU port's on the same
+    weights, moving statistics and inputs, and one infer call of 128
+    samples timed."""
+    import io
+
+    import paddle_tpu_torch as paddle
+    torch.backends.cudnn.benchmark = True
+    log("resnet50: torch.backends.cudnn.benchmark on (the warm-up steps "
+        "absorb cuDNN's autotuning)")
+    batch = _resnet_samples(RESNET_BATCH, 0)
+    out = {}
+    trainer, _, feed, out["bfloat16"] = _resnet_train("bfloat16", batch)
+    _trace(lambda: trainer._step(feed, RESNET_BATCH, fetch_evals=False),
+           "resnet50 bf16 train (feed on the card)", "1 step",
+           "conv kernels", ("conv", "xmma", "implicit", "cudnn"))
+    del trainer, feed
+    trainer, spec, _, out["float32"] = _resnet_train("float32", batch)
+    params = trainer.parameters
+    samples = [(img,) for img, _ in batch]
+    paddle.infer(output_layer=spec.output, parameters=params,
+                 input=samples, feeding={"image": 0})         # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probs = paddle.infer(output_layer=spec.output, parameters=params,
+                         input=samples, feeding={"image": 0})
+    infer_s = time.perf_counter() - t0
+    buf = io.BytesIO()
+    params.to_tar(buf)
+    buf.seek(0)
+    cpu_params = paddle.Parameters.from_tar(buf, device="cpu")
+    cpu_probs = paddle.infer(output_layer=spec.output, parameters=cpu_params,
+                             input=samples[:RESNET_CHECK_ROWS],
+                             feeding={"image": 0}, device="cpu")
+    diff = np.abs(probs[:RESNET_CHECK_ROWS] - cpu_probs)
+    err = float(diff.max())
+    held = np.allclose(probs[:RESNET_CHECK_ROWS], cpu_probs,
+                       **RESNET_PROBS_TOL)
+    if probs.shape != (RESNET_BATCH, RESNET["num_classes"]) or \
+            not np.all(np.isfinite(probs)) or not held:
+        raise AssertionError(
+            f"resnet50 infer: probs {probs.shape}, finite "
+            f"{np.all(np.isfinite(probs))}; card against the CPU port's "
+            f"on {RESNET_CHECK_ROWS} samples: max |diff| {err}, not within "
+            f"{RESNET_PROBS_TOL}")
+    log(f"resnet50 float32 infer: {RESNET_BATCH} samples in "
+        f"{infer_s * 1e3:.3f} ms ({RESNET_BATCH / infer_s:.1f} samples/s, "
+        f"feeder and host copy included); test-mode probs of "
+        f"{RESNET_CHECK_ROWS} samples within {err:.3g} of the CPU port's "
+        f"(held at {RESNET_PROBS_TOL}, the largest |p| "
+        f"{float(np.abs(cpu_probs).max()):.4f})")
+    torch.backends.cudnn.benchmark = False
+    del trainer, params
+    from paddle_tpu_torch import config
+    config.init(seed=0, compute_dtype="float32")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -3954,6 +4286,8 @@ def main():
     # the v2 scripts last: paddle.init resets the seed and compute dtype
     phase_mnist_v2()
     phase_tagging_v2()
+    phase_convergence()
+    phase_resnet50()
     kernels = [dict(
         name="paged_window_attention", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",
@@ -4021,6 +4355,8 @@ def main():
     if bad:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{bad}")
+    log(f"chip_smoke: every phase passed, total wall "
+        f"{time.perf_counter() - _T0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

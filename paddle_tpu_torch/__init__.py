@@ -46,6 +46,13 @@ Slices ported so far:
   fallback (dataset/), the evaluators (evaluator/), every optimizer
   and schedule of the JAX package with model averaging, and
   ``SGD.save_pass``. ``op`` and ``model`` are not ported yet.
+- the image path — conv, pool, batch norm, LRN, space_to_depth and
+  dropout (ops/conv.py, ops/pool.py, ops/norm.py, ops/fused.py,
+  layers/conv_layers.py), the image stacks of networks.py and
+  models/image.py (ResNet, VGG-16, AlexNet, smallnet, the MNIST MLP),
+  with the UCI digits of the convergence run (dataset/digits.py). The
+  JAX package computes these outside Pallas, so they run on cuDNN and
+  plain PyTorch ops: no kernel of this slice is hand-written.
 
 Entry points run on the card unless the caller passes
 ``device="cpu"`` or called ``init(use_gpu=False)``; with no GPU and no

@@ -61,3 +61,14 @@ def xavier(fan_in_axes: Sequence[int] = (0,)) -> Initializer:
             fan_in *= shape[a]
         return uniform(math.sqrt(3.0 / max(fan_in, 1)))(gen, shape, dtype)
     return init
+
+
+def msra(fan_in_axes: Sequence[int] = (0,)) -> Initializer:
+    """He/MSRA init for conv/relu stacks: normal, std sqrt(2/fan_in)."""
+    def init(gen, shape, dtype=torch.float32):
+        fan_in = 1
+        for a in fan_in_axes:
+            fan_in *= shape[a]
+        std = math.sqrt(2.0 / max(fan_in, 1))
+        return std * torch.randn(shape, generator=gen, dtype=dtype)
+    return init

@@ -10,6 +10,7 @@ torch tensors; autograd replaces ``jax.grad``).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import itertools
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -125,11 +126,23 @@ class LayerOutput:
 # Apply-time context
 
 
-class ApplyContext:
-    """Runtime context threaded through layer ``apply`` calls."""
+def fold_seed(*parts) -> int:
+    """A 63-bit seed from ``parts``: the same parts give the same seed in
+    every process (python's ``hash`` is salted per process)."""
+    digest = hashlib.blake2b(":".join(str(p) for p in parts).encode(),
+                             digest_size=8).digest()
+    return int.from_bytes(digest, "little") & ((1 << 63) - 1)
 
-    def __init__(self, mode: str, state: Dict[str, Any]):
+
+class ApplyContext:
+    """Runtime context threaded through layer ``apply`` calls. ``rng``
+    is the step's seed (the trainer folds it from ``init(seed=)`` and
+    its step count); None draws as seed 0."""
+
+    def __init__(self, mode: str, state: Dict[str, Any],
+                 rng: Optional[int] = None):
         self.mode = mode                  # 'train' | 'test'
+        self._rng = rng
         self.state = dict(state)          # read view
         self.state_updates: Dict[str, Any] = {}
         self.mesh = None
@@ -138,6 +151,14 @@ class ApplyContext:
     @property
     def is_train(self) -> bool:
         return self.mode == "train"
+
+    def rng_for(self, layer_name: str, device="cpu") -> torch.Generator:
+        """A generator on ``device`` of its own for ``layer_name`` in this
+        step: the draws differ across layers and steps and never touch
+        the global RNG."""
+        gen = torch.Generator(device=device)
+        gen.manual_seed(fold_seed(self._rng or 0, layer_name))
+        return gen
 
     def get_state(self, name: str):
         return self.state[name]

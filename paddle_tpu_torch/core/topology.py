@@ -121,16 +121,18 @@ class Topology:
     def forward(self, params: Dict[str, torch.Tensor],
                 state: Dict[str, torch.Tensor],
                 feed: Dict[str, Any], *, mode: str = "train",
+                rng: Optional[int] = None,
                 output_names: Optional[Sequence[str]] = None,
                 mesh=None, n_real=None):
         """One forward pass. Returns (outputs_dict, new_state);
         ``outputs_dict`` maps layer name -> value for the requested
-        outputs (default: ``self.outputs``)."""
+        outputs (default: ``self.outputs``). ``rng`` seeds the random
+        layers (dropout) of a train step, ``ApplyContext.rng_for``."""
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh is not ported yet (the parallelism slice, "
                 "ROADMAP.md queue A.10)")
-        ctx = ApplyContext(mode, state)
+        ctx = ApplyContext(mode, state, rng)
         ctx.n_real = n_real
         values: Dict[str, Any] = {}
         wanted = set(output_names) if output_names is not None else \

@@ -1,9 +1,11 @@
 """The layer DSL — the port of the ``paddle_tpu.layers`` wrappers that
 the ported models build from: ``transformer_lm`` (data, fc, embedding,
-addto, layer_norm, dot_product_attention, cross_entropy_cost) and the
+addto, layer_norm, dot_product_attention, cross_entropy_cost), the
 sequence models (lstmemory, grumemory, recurrent, last_seq, first_seq,
 pooling, concat, classification_cost, classification_error, crf,
-crf_decoding).
+crf_decoding) and the image models (dropout, batch_norm, img_conv,
+conv_bn, img_pool, global_img_pool, space_to_depth, img_cmrnorm), with
+the JAX package's ``*_layer`` aliases of each.
 
 Each wrapper normalizes its arguments exactly as the JAX package's
 does (activation objects -> names, non-default options only), so the
@@ -23,6 +25,7 @@ from paddle_tpu_torch.core.registry import LayerOutput, make_layer
 
 # import implementations to populate the registry
 from paddle_tpu_torch.layers import base as _base            # noqa: F401
+from paddle_tpu_torch.layers import conv_layers as _conv     # noqa: F401
 from paddle_tpu_torch.layers import cost_layers as _cost     # noqa: F401
 from paddle_tpu_torch.layers import extra_layers as _extra   # noqa: F401
 from paddle_tpu_torch.layers import recurrent_layers as _rec  # noqa: F401
@@ -47,16 +50,20 @@ def data(name: str, type: InputType, height: int = 0, width: int = 0,
                       width=width)
 
 
+data_layer = data
+
+
 def fc(input, size: int, act=None, name: Optional[str] = None,
        param_attr=None, bias_attr=None, layer_attr=None,
        tied_transpose: bool = False, **kw) -> LayerOutput:
-    if layer_attr is not None and getattr(layer_attr, "drop_rate", None):
-        raise NotImplementedError("dropout is not ported yet (the "
-                                  "transformer slice trains without it)")
     opts = {"tied_transpose": True} if tied_transpose else {}
-    return make_layer("fc", name, _listify(input), size=size,
+    node = make_layer("fc", name, _listify(input), size=size,
                       act=act_mod.to_name(act), param_attr=param_attr,
                       bias_attr=bias_attr, **opts)
+    return _maybe_dropout(node, layer_attr)
+
+
+fc_layer = fc
 
 
 def embedding(input, size: int, name: Optional[str] = None, param_attr=None,
@@ -67,15 +74,53 @@ def embedding(input, size: int, name: Optional[str] = None, param_attr=None,
     return make_layer("embedding", name, [input], **kw)
 
 
+embedding_layer = embedding
+
+
+def dropout(input, dropout_rate: float = 0.5,
+            name: Optional[str] = None) -> LayerOutput:
+    return make_layer("dropout", name, [input], dropout_rate=dropout_rate)
+
+
+dropout_layer = dropout
+
+
+def _maybe_dropout(node: LayerOutput, layer_attr) -> LayerOutput:
+    """``layer_attr=ExtraAttr(drop_rate=r)``: a dropout layer after the
+    node, as the JAX package builds it."""
+    if layer_attr is not None and getattr(layer_attr, "drop_rate", None):
+        return dropout(node, layer_attr.drop_rate)
+    return node
+
+
 def addto(input, act=None, name: Optional[str] = None,
           bias_attr=None, **kw) -> LayerOutput:
     return make_layer("addto", name, _listify(input),
                       act=act_mod.to_name(act), bias_attr=bias_attr)
 
 
+addto_layer = addto
+
+
 def concat(input, act=None, name: Optional[str] = None, **kw) -> LayerOutput:
     return make_layer("concat", name, _listify(input),
                       act=act_mod.to_name(act))
+
+
+concat_layer = concat
+
+
+def batch_norm(input, act=None, name: Optional[str] = None, num_channels=None,
+               param_attr=None, bias_attr=None, use_global_stats=None,
+               moving_average_fraction: float = 0.9, **kw) -> LayerOutput:
+    return make_layer("batch_norm", name, [input], act=act_mod.to_name(act),
+                      param_attr=param_attr, bias_attr=bias_attr,
+                      channels=num_channels,
+                      use_global_stats=use_global_stats,
+                      moving_average_fraction=moving_average_fraction)
+
+
+batch_norm_layer = batch_norm
 
 
 def layer_norm(input, name=None, param_attr=None, **kw) -> LayerOutput:
@@ -102,6 +147,87 @@ def cross_entropy_cost(input, label, name=None, weight=None,
 
 
 # ---------------------------------------------------------------------------
+# image layers
+
+
+def img_conv(input, filter_size: int, num_filters: int, name=None,
+             num_channels=None, act=None, groups: int = 1, stride: int = 1,
+             padding: int = 0, dilation: int = 1, bias_attr=None,
+             param_attr=None, trans: bool = False, layer_attr=None,
+             **kw) -> LayerOutput:
+    node = make_layer("conv", name, [input], filter_size=filter_size,
+                      num_filters=num_filters, channels=num_channels,
+                      act=act_mod.to_name(act), groups=groups, stride=stride,
+                      padding=padding, dilation=dilation, bias_attr=bias_attr,
+                      param_attr=param_attr, trans=trans)
+    return _maybe_dropout(node, layer_attr)
+
+
+img_conv_layer = img_conv
+
+
+def conv_bn(input, filter_size: int, num_filters: int, name=None,
+            num_channels=None, act=None, stride: int = 1, padding: int = 0,
+            dilation: int = 1, param_attr=None, use_global_stats=None,
+            moving_average_fraction: float = 0.9, epsilon: float = 1e-5,
+            fuse_stats: bool = False, groups: int = 1,
+            **kw) -> LayerOutput:
+    """Conv + batch norm in one node, the arithmetic of
+    img_conv(bias_attr=False) -> batch_norm; ``fuse_stats`` opts 1x1/s1/p0
+    convs into ``ops/fused.conv_bn_train`` (not the default)."""
+    assert groups == 1, \
+        "conv_bn does not support grouped convs — use img_conv + batch_norm"
+    return make_layer("conv_bn", name, [input], filter_size=filter_size,
+                      num_filters=num_filters, channels=num_channels,
+                      act=act_mod.to_name(act), stride=stride,
+                      padding=padding, dilation=dilation,
+                      param_attr=param_attr,
+                      use_global_stats=use_global_stats,
+                      moving_average_fraction=moving_average_fraction,
+                      epsilon=epsilon, fuse_stats=fuse_stats)
+
+
+conv_bn_layer = conv_bn
+
+
+def img_pool(input, pool_size: int, name=None, num_channels=None,
+             pool_type=None, stride: int = 1, padding: int = 0,
+             pool_size_x=None, ceil_mode: bool = True, **kw) -> LayerOutput:
+    return make_layer("pool", name, [input], pool_size=pool_size,
+                      pool_size_x=pool_size_x,
+                      channels=num_channels, pool_type=pool_mod.to_name(
+                          pool_type or "max"),
+                      stride=stride, padding=padding, ceil_mode=ceil_mode)
+
+
+img_pool_layer = img_pool
+
+
+def global_img_pool(input, name=None, pool_type=None, **kw) -> LayerOutput:
+    """Global spatial pool (the GAP of the ResNet head)."""
+    return make_layer("pool", name, [input], pool_size=input.meta.height,
+                      pool_size_x=input.meta.width,
+                      pool_type=pool_mod.to_name(pool_type or "average"),
+                      stride=1, padding=0)
+
+
+def space_to_depth(input, factor: int = 2, name=None, num_channels=None,
+                   **kw) -> LayerOutput:
+    """Fold factor x factor spatial blocks into channels."""
+    return make_layer("space_to_depth", name, [input], factor=factor,
+                      channels=num_channels)
+
+
+def img_cmrnorm(input, size: int = 5, scale: float = 0.0128,
+                power: float = 0.75, name=None, **kw) -> LayerOutput:
+    return make_layer("img_cmrnorm", name, [input], size=size, scale=scale,
+                      power=power)
+
+
+img_cmrnorm_layer = img_cmrnorm
+
+
+# ---------------------------------------------------------------------------
 # sequence layers
 
 
@@ -110,6 +236,9 @@ def pooling(input, pooling_type=None, agg_level: int = 0, name=None,
     return make_layer("seqpool", name, [input],
                       pool_type=pool_mod.to_name(pooling_type),
                       agg_level=agg_level, max_segments=max_segments)
+
+
+pooling_layer = pooling
 
 
 def last_seq(input, name=None, agg_level: int = 0, **kw) -> LayerOutput:
@@ -148,6 +277,9 @@ def recurrent(input, name=None, reverse: bool = False, act=None,
     return make_layer("recurrent", name, [input], reverse=reverse,
                       act=act_mod.to_name(act or "tanh"),
                       bias_attr=bias_attr, param_attr=param_attr)
+
+
+recurrent_layer = recurrent
 
 
 # ---------------------------------------------------------------------------

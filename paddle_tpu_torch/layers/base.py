@@ -1,5 +1,6 @@
 """Core layers — the port of the ``data``, ``fc``, ``embedding``,
-``addto`` and ``concat`` layers of ``paddle_tpu/layers/base.py``.
+``dropout``, ``addto``, ``concat`` and ``batch_norm`` layers of
+``paddle_tpu/layers/base.py``.
 
 Conventions (the JAX package's): non-sequence values are
 ``[batch, size]``; sequences are SequenceBatch with data
@@ -17,12 +18,13 @@ import torch
 from paddle_tpu_torch.core import initializers
 from paddle_tpu_torch.core.data_type import InputType
 from paddle_tpu_torch.core.registry import (LayerMeta, ParamAttr, ParamSpec,
-                                            default_weight_init,
+                                            StateSpec, default_weight_init,
                                             register_layer)
 from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.ops import activations as act_ops
 from paddle_tpu_torch.ops import embedding as emb_ops
 from paddle_tpu_torch.ops import linear as linear_ops
+from paddle_tpu_torch.ops import norm as norm_ops
 
 
 def _apply_act(x, act_name: str, mask=None):
@@ -162,6 +164,37 @@ class EmbeddingLayer:
         return val.with_data(out) if isinstance(val, SequenceBatch) else out
 
 
+@register_layer("dropout")
+class DropoutLayer:
+    """Inverted dropout: in a train step each element is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), on a mask drawn
+    from the layer's own generator (``ctx.rng_for``); the identity in
+    test mode and at rate 0."""
+
+    @staticmethod
+    def build(name, cfg, input_metas):
+        m = input_metas[0]
+        return LayerMeta(size=m.size, seq_level=m.seq_level, height=m.height,
+                         width=m.width, channels=m.channels), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        rate = cfg.get("dropout_rate", 0.5)
+        val = inputs[0]
+        if not ctx.is_train or rate <= 0.0:
+            return val
+
+        def drop(x):
+            keep = 1.0 - rate
+            u = torch.rand(x.shape, generator=ctx.rng_for(name, x.device),
+                           device=x.device)
+            return torch.where(u < keep, x / keep,
+                               torch.zeros((), dtype=x.dtype,
+                                           device=x.device)).to(x.dtype)
+
+        return _map_seq(drop, val)
+
+
 @register_layer("addto")
 class AddtoLayer:
     @staticmethod
@@ -216,3 +249,61 @@ class ConcatLayer:
         out = torch.cat([_payload(v) for v in inputs], dim=-1)
         out = _apply_act(out, cfg.get("act", "linear"))
         return ref.with_data(out) if ref is not None else out
+
+
+@register_layer("batch_norm")
+class BatchNormLayer:
+    """Batch norm over the channel axis (the last of an NHWC image, or
+    the feature axis); batch statistics in a train step unless
+    ``use_global_stats``, the moving statistics in test mode."""
+
+    @staticmethod
+    def build(name, cfg, input_metas):
+        m = input_metas[0]
+        c = m.channels if m.channels else m.size
+        a = ParamAttr.of(cfg.get("param_attr"))
+        gname = a.name or f"_{name}.w0"
+        specs = [ParamSpec(gname, (c,), initializers.ones, a)]
+        battr = ParamAttr.of(None if cfg.get("bias_attr") in (True, None)
+                             else cfg.get("bias_attr"))
+        bname = battr.name or f"_{name}.wbias"
+        specs.append(ParamSpec(bname, (c,), initializers.zeros, battr))
+        states = [StateSpec(f"_{name}.moving_mean", (c,), 0.0),
+                  StateSpec(f"_{name}.moving_var", (c,), 1.0)]
+        cfg["_g_name"], cfg["_b_name"] = gname, bname
+        cfg["_channels"] = c
+        return (LayerMeta(size=m.size, seq_level=m.seq_level, height=m.height,
+                          width=m.width, channels=m.channels), specs, states)
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        val = inputs[0]
+        x = _payload(val)
+        c = cfg["_channels"]
+        gamma = params[cfg["_g_name"]]
+        beta = params[cfg["_b_name"]]
+        mm = ctx.get_state(f"_{name}.moving_mean")
+        mv = ctx.get_state(f"_{name}.moving_var")
+        shape = x.shape
+        flat_image = x.dim() == 2 and shape[-1] != c
+        if flat_image:
+            # an image fed flat [b, c*h*w], channel-major (paddle layout)
+            xr = x.reshape(shape[0], c, -1).transpose(1, 2).reshape(-1, c)
+        elif shape[-1] != c or x.dim() == 2:
+            xr = x.reshape(-1, c)
+        else:
+            xr = x
+        if cfg.get("use_global_stats") or not ctx.is_train:
+            y = norm_ops.batch_norm_infer(xr, gamma, beta, mm, mv)
+        else:
+            y, nm, nv = norm_ops.batch_norm_train(
+                xr, gamma, beta, mm, mv,
+                momentum=cfg.get("moving_average_fraction", 0.9))
+            ctx.set_state(f"_{name}.moving_mean", nm)
+            ctx.set_state(f"_{name}.moving_var", nv)
+        if flat_image:
+            y = y.reshape(shape[0], -1, c).transpose(1, 2).reshape(shape)
+        else:
+            y = y.reshape(shape)
+        y = _apply_act(y, cfg.get("act", "linear"))
+        return val.with_data(y) if isinstance(val, SequenceBatch) else y

@@ -2,14 +2,17 @@
 (models/transformer.py) and its dense, paged and draft decoders
 (models/decode.py); the IMDB stacked-LSTM classifier and its
 bidirectional variant (models/text.py); the GRU-CRF tagger
-(models/tagger.py)."""
+(models/tagger.py); the image models (models/image.py)."""
 
 from paddle_tpu_torch.models.decode import (DraftDecoder, PagedDecoder,
                                             TransformerDecoder)
+from paddle_tpu_torch.models.image import (alexnet, googlenet, mnist_mlp,
+                                           resnet, resnet50, smallnet, vgg16)
 from paddle_tpu_torch.models.tagger import rnn_crf_tagger
 from paddle_tpu_torch.models.text import bidi_lstm_net, stacked_lstm_net
 from paddle_tpu_torch.models.transformer import ModelSpec, transformer_lm
 
 __all__ = ["DraftDecoder", "ModelSpec", "PagedDecoder", "TransformerDecoder",
-           "bidi_lstm_net", "rnn_crf_tagger", "stacked_lstm_net",
-           "transformer_lm"]
+           "alexnet", "bidi_lstm_net", "googlenet", "mnist_mlp", "resnet",
+           "resnet50", "rnn_crf_tagger", "smallnet", "stacked_lstm_net",
+           "transformer_lm", "vgg16"]

@@ -1,11 +1,13 @@
 """SGD trainer — the port of the plain train loop of
 ``paddle_tpu/trainer/trainer.py``.
 
-One step is: feed conversion, ``Topology.forward``, the masked
+One step is: feed conversion, ``Topology.forward`` (seeded for the
+random layers by ``init(seed=)`` and the step count), the masked
 per-row cost summed and divided by the real row count,
 ``torch.autograd.grad`` over this trainer's parameter tensors (autograd
 leaves), and ``optimizer.update``, which writes the new values into
-those tensors under ``no_grad``. The loss, the metrics and the
+those tensors under ``no_grad``; the new state (batch norm's moving
+statistics) is kept detached from the step's graph. The loss, the metrics and the
 evaluators' inputs come back to the host in one transfer per step.
 PyTorch runs the step eagerly where the JAX package jits it.
 
@@ -30,7 +32,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 
 from paddle_tpu_torch.config import global_config
-from paddle_tpu_torch.core.registry import LayerOutput
+from paddle_tpu_torch.core.registry import LayerOutput, fold_seed
 from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.core.topology import Topology
 from paddle_tpu_torch.device import DeviceLike, resolve_device
@@ -113,6 +115,10 @@ class SGD:
             parameters.state[k] = v.to(self.device)
         self.optimizer = update_equation.bind(self.topology.param_specs)
         self.opt_state = self.optimizer.init_state(self._own_params())
+        # the random layers' seed: each step folds in its count, and each
+        # layer its name (ApplyContext.rng_for)
+        self._seed = global_config().seed
+        self._step_count = 0
 
     # ------------------------------------------------------------------
     def _own_params(self) -> Dict[str, torch.Tensor]:
@@ -129,9 +135,10 @@ class SGD:
         return torch.sum(v * mask) / max(float(n_real), 1.0)
 
     def _loss_and_metrics(self, params, state, feed, n_real: int,
-                          mode: str):
+                          mode: str, rng: Optional[int] = None):
         outs, new_state = self.topology.forward(params, state, feed,
-                                                mode=mode, n_real=n_real)
+                                                mode=mode, rng=rng,
+                                                n_real=n_real)
         total = 0.0
         metrics = {}
         for c in self.costs:
@@ -187,14 +194,19 @@ class SGD:
 
     def _step(self, feed, n_real: int, fetch_evals: bool = True):
         params = self._own_params()
+        rng = fold_seed(self._seed, self._step_count)
+        self._step_count += 1
         loss, (metrics, new_state, eval_outs) = self._loss_and_metrics(
-            params, self.parameters.state, feed, n_real, "train")
+            params, self.parameters.state, feed, n_real, "train", rng)
         names = list(params)
         grads = torch.autograd.grad(loss, [params[k] for k in names],
                                     allow_unused=True)
         _, self.opt_state = self.optimizer.update(
             params, dict(zip(names, grads)), self.opt_state, n_real)
-        self.parameters.state = new_state
+        # detached: a moving statistic that kept its graph would hold
+        # every earlier step's activations alive
+        self.parameters.state = {k: v.detach()
+                                 for k, v in new_state.items()}
         return self._fetch_host(loss, metrics,
                                 eval_outs if fetch_evals else None)
 

@@ -8,7 +8,12 @@ back equal to the file in the port), runs from one weight table
 tar) on one seeded ragged batch, and gives the JAX forward's outputs
 at rtol 1e-4 / atol 1e-5. Where the golden has a cost, autograd's
 gradients of the summed cost equal ``jax.grad``'s at the same
-tolerance (two CPU matmul libraries summing in different orders).
+tolerance (two CPU matmul libraries summing in different orders). The
+image goldens (``img_layers``, ``tpu_stem_net``) have no cost node:
+their train-mode gradients (batch norm on the batch statistics) are
+those of a fixed seeded projection of the outputs. Layers with state
+(batch norm's moving statistics) start from each package's
+``init_state``.
 
 ``test_held_goldens_are_every_one_the_port_deserializes`` keeps the
 list complete: a golden that a later slice unlocks must join it.
@@ -34,8 +39,11 @@ from paddle_tpu_torch.trainer.data_feeder import DataFeeder as TFeeder
 
 RTOL, ATOL = 1e-4, 1e-5
 GOLDEN = pathlib.Path(__file__).parent / "golden"
-HELD = ["attention_net", "bidirectional_gru", "crf_tagger", "simple_fc",
-        "simple_lstm_net", "simple_rnn", "word_embedding_ngram"]
+HELD = ["attention_net", "bidirectional_gru", "crf_tagger", "img_layers",
+        "simple_fc", "simple_lstm_net", "simple_rnn", "tpu_stem_net",
+        "word_embedding_ngram"]
+# goldens without a cost whose gradients are held through a projection
+PROJECTED = ("img_layers", "tpu_stem_net")
 LENGTHS = (6, 2, 11)
 
 
@@ -92,10 +100,11 @@ def test_golden_forward_and_gradients_match_jax(golden):
     jfeed.pop("__batch_size__")
     tfeed = TFeeder(ttopo.data_type(), device="cpu")(samples)
     tfeed.pop("__batch_size__")
+    jstate, tstate = jtopo.init_state(), ttopo.init_state(device="cpu")
     jout, _ = jtopo.forward({k: jnp.asarray(v) for k, v in table.items()},
-                            {}, jfeed, mode="test")
+                            jstate, jfeed, mode="test")
     leaves = {k: v.clone().requires_grad_() for k, v in tparams.items()}
-    tout, _ = ttopo.forward(leaves, {}, tfeed, mode="test")
+    tout, _ = ttopo.forward(leaves, tstate, tfeed, mode="test")
     assert sorted(tout) == sorted(jout)
     for k in jout:
         np.testing.assert_allclose(_payload(tout[k]).detach().numpy(),
@@ -103,20 +112,27 @@ def test_golden_forward_and_gradients_match_jax(golden):
                                    rtol=RTOL, atol=ATOL, err_msg=k)
     costs = [o.name for o in ttopo.outputs if _is_cost(ttopo, o.name)]
     assert bool(costs) == (golden in ("crf_tagger", "simple_fc"))
-    if not costs:
+    if not costs and golden not in PROJECTED:
         return
+    held = costs or [o.name for o in ttopo.outputs]
+    rng = np.random.RandomState(9)
+    proj = {} if costs else {
+        k: rng.randn(*np.shape(_jpayload(jout[k]))).astype(np.float32)
+        for k in held}
 
     def jloss(p):
-        outs, _ = jtopo.forward(p, {}, jfeed, mode="train",
-                                output_names=costs)
-        return sum(jnp.sum(outs[c]) for c in costs)
+        outs, _ = jtopo.forward(p, jstate, jfeed, mode="train",
+                                output_names=held)
+        return sum(jnp.sum(_jpayload(outs[c]) * proj.get(c, 1.0))
+                   for c in held)
 
     jg = jax.grad(jloss)({k: jnp.asarray(v) for k, v in table.items()})
-    outs, _ = ttopo.forward(leaves, {}, tfeed, mode="train",
-                            output_names=costs)
+    outs, _ = ttopo.forward(leaves, tstate, tfeed, mode="train",
+                            output_names=held)
     names = sorted(leaves)
-    tg = torch.autograd.grad(sum(outs[c].sum() for c in costs),
-                             [leaves[k] for k in names])
+    tloss = sum((_payload(outs[c]) * torch.as_tensor(proj[c])).sum()
+                if c in proj else _payload(outs[c]).sum() for c in held)
+    tg = torch.autograd.grad(tloss, [leaves[k] for k in names])
     for k, g in zip(names, tg):
         np.testing.assert_allclose(g.numpy(), np.asarray(jg[k]), rtol=RTOL,
                                    atol=ATOL, err_msg=f"d/d{k}")

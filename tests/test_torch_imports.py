@@ -47,7 +47,9 @@ def test_every_module_imports_without_jax_or_paddle_tpu():
               "serving.prefix", "models.decode", "reader", "dataset",
               "dataset.common", "dataset.synthetic", "dataset.mnist",
               "dataset.conll05", "evaluator", "attr", "activation",
-              "optimizer.schedules", "config", "device"):
+              "optimizer.schedules", "config", "device", "ops.conv",
+              "ops.pool", "ops.norm", "ops.fused", "layers.conv_layers",
+              "layers.extra_layers", "models.image", "dataset.digits"):
         assert f"paddle_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
