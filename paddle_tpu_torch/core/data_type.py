@@ -1,6 +1,7 @@
 """Input data type declarations — the port's copy of
 ``paddle_tpu/core/data_type.py`` (the subset the transformer slice
-feeds: integer values, integer and dense sequences).
+feeds: integer values, integer and dense sequences and
+sub-sequences).
 
 Each type doubles as the feed-conversion spec the DataFeeder reads.
 ``InputType``/``SeqType`` serialize exactly as the JAX package's do,
@@ -42,3 +43,11 @@ def dense_vector_sequence(dim: int) -> InputType:
 
 def integer_value_sequence(value_range: int) -> InputType:
     return integer_value(value_range, SeqType.SEQUENCE)
+
+
+def dense_vector_sub_sequence(dim: int) -> InputType:
+    return dense_vector(dim, SeqType.SUB_SEQUENCE)
+
+
+def integer_value_sub_sequence(value_range: int) -> InputType:
+    return integer_value(value_range, SeqType.SUB_SEQUENCE)

@@ -152,12 +152,17 @@ class ApplyContext:
     def is_train(self) -> bool:
         return self.mode == "train"
 
+    def seed_for(self, layer_name: str) -> int:
+        """The seed of ``layer_name`` in this step (what a sub-topology
+        run by that layer takes as its ``rng``)."""
+        return fold_seed(self._rng or 0, layer_name)
+
     def rng_for(self, layer_name: str, device="cpu") -> torch.Generator:
         """A generator on ``device`` of its own for ``layer_name`` in this
         step: the draws differ across layers and steps and never touch
         the global RNG."""
         gen = torch.Generator(device=device)
-        gen.manual_seed(fold_seed(self._rng or 0, layer_name))
+        gen.manual_seed(self.seed_for(layer_name))
         return gen
 
     def get_state(self, name: str):

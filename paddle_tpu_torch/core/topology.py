@@ -6,11 +6,15 @@ serialized as the same ``paddle_tpu.topology.v1`` JSON, and executed
 by ``forward(params, state, feed)``: one eager pass over the layers in
 topological order. Gradients come from torch autograd over the
 parameter tensors, where the JAX package differentiates the traced
-function with ``jax.grad``.
+function with ``jax.grad``. A topology that generates (it holds a
+``beam_search`` layer, which no gradient goes through) runs its forward
+without autograd, so its recurrences take the no-gradient kernel routes
+even on parameters that require gradients.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import warnings
 from typing import Any, Dict, List, Optional, Sequence, Union
@@ -92,6 +96,7 @@ class Topology:
                     self.param_specs[ps.name] = ps
             for ss in l.states:
                 self.state_specs[ss.name] = ss
+        self.generates = any(l.type == "beam_search" for l in self.layers)
 
     # ------------------------------------------------------------------ init
     def init_params(self, generator: Optional[torch.Generator] = None,
@@ -132,6 +137,12 @@ class Topology:
             raise NotImplementedError(
                 "a device mesh is not ported yet (the parallelism slice, "
                 "ROADMAP.md queue A.10)")
+        with torch.no_grad() if self.generates else contextlib.nullcontext():
+            return self._forward(params, state, feed, mode, rng,
+                                 output_names, n_real)
+
+    def _forward(self, params, state, feed, mode, rng, output_names,
+                 n_real):
         ctx = ApplyContext(mode, state, rng)
         ctx.n_real = n_real
         values: Dict[str, Any] = {}

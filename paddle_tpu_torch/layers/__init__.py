@@ -3,9 +3,14 @@ the ported models build from: ``transformer_lm`` (data, fc, embedding,
 addto, layer_norm, dot_product_attention, cross_entropy_cost), the
 sequence models (lstmemory, grumemory, recurrent, last_seq, first_seq,
 pooling, concat, classification_cost, classification_error, crf,
-crf_decoding) and the image models (dropout, batch_norm, img_conv,
-conv_bn, img_pool, global_img_pool, space_to_depth, img_cmrnorm), with
-the JAX package's ``*_layer`` aliases of each.
+crf_decoding), the image models (dropout, batch_norm, img_conv,
+conv_bn, img_pool, global_img_pool, space_to_depth, img_cmrnorm) and
+the sequence-generation path (recurrent_group, memory, StaticInput,
+SubsequenceInput, GeneratedInput, get_output, beam_search, gru_step,
+lstm_step, scaling, context_projection, expand, seq_concat,
+seq_reshape, seq_slice, seq_reverse, sub_seq, kmax_seq_score,
+sub_nested_seq, max_id, sampling_id, eos, cross_entropy_over_beam),
+with the JAX package's ``*_layer`` aliases of each.
 
 Each wrapper normalizes its arguments exactly as the JAX package's
 does (activation objects -> names, non-default options only), so the
@@ -30,6 +35,13 @@ from paddle_tpu_torch.layers import cost_layers as _cost     # noqa: F401
 from paddle_tpu_torch.layers import extra_layers as _extra   # noqa: F401
 from paddle_tpu_torch.layers import recurrent_layers as _rec  # noqa: F401
 from paddle_tpu_torch.layers import seq_layers as _seq       # noqa: F401
+from paddle_tpu_torch.layers import group as _group          # noqa: F401
+from paddle_tpu_torch.layers import misc_layers as _misc     # noqa: F401
+from paddle_tpu_torch.layers.group import (  # noqa: F401
+    GeneratedInput, StaticInput, SubsequenceInput, beam_search, get_output,
+    memory, recurrent_group)
+from paddle_tpu_torch.layers.beam import (  # noqa: F401
+    BeamInput, cross_entropy_over_beam)
 from paddle_tpu_torch.layers.crf_layers import (  # noqa: F401
     crf, crf_decoding, crf_error)
 from paddle_tpu_torch.layers.attention_layers import (  # noqa: F401
@@ -121,6 +133,25 @@ def batch_norm(input, act=None, name: Optional[str] = None, num_channels=None,
 
 
 batch_norm_layer = batch_norm
+
+
+def scaling(weight, input, name: Optional[str] = None, **kw) -> LayerOutput:
+    return make_layer("scaling", name, [weight, input])
+
+
+scaling_layer = scaling
+
+
+def context_projection(input, context_len: int, context_start=None,
+                       padding_attr=False, **kw) -> LayerOutput:
+    trainable = padding_attr not in (False, None)
+    return make_layer(
+        "context_projection", None, [input], context_len=context_len,
+        context_start=(context_start if context_start is not None
+                       else -(context_len // 2)),
+        trainable_padding=trainable,
+        param_attr=None if padding_attr in (False, True, None)
+        else padding_attr)
 
 
 def layer_norm(input, name=None, param_attr=None, **kw) -> LayerOutput:
@@ -249,6 +280,53 @@ def first_seq(input, name=None, agg_level: int = 0, **kw) -> LayerOutput:
     return make_layer("seqlastins", name, [input], first=True)
 
 
+def expand(input, expand_as, name=None, expand_level: int = 0,
+           **kw) -> LayerOutput:
+    return make_layer("expand", name, [input, expand_as])
+
+
+expand_layer = expand
+
+
+def seq_concat(a, b, name=None, **kw) -> LayerOutput:
+    return make_layer("seqconcat", name, [a, b])
+
+
+seq_concat_layer = seq_concat
+
+
+def seq_reshape(input, reshape_size: int, name=None, **kw) -> LayerOutput:
+    return make_layer("seqreshape", name, [input], reshape_size=reshape_size)
+
+
+seq_reshape_layer = seq_reshape
+
+
+def seq_slice(input, starts=None, ends=None, name=None, **kw) -> LayerOutput:
+    nodes = [input] + [n for n in (starts, ends) if n is not None]
+    return make_layer("seqslice", name, nodes)
+
+
+seq_slice_layer = seq_slice
+
+
+def seq_reverse(input, name=None, **kw) -> LayerOutput:
+    return make_layer("seqreverse", name, [input])
+
+
+def sub_seq(input, offsets, sizes, name=None, **kw) -> LayerOutput:
+    return make_layer("subseq", name, [input, offsets, sizes])
+
+
+def kmax_seq_score(input, beam_size: int = 1, name=None,
+                   **kw) -> LayerOutput:
+    return make_layer("kmax_seq_score", name, [input], beam_size=beam_size)
+
+
+def sub_nested_seq(input, selected_indices, name=None, **kw) -> LayerOutput:
+    return make_layer("sub_nested_seq", name, [input, selected_indices])
+
+
 # ---------------------------------------------------------------------------
 # recurrent layers
 
@@ -282,6 +360,33 @@ def recurrent(input, name=None, reverse: bool = False, act=None,
 recurrent_layer = recurrent
 
 
+def gru_step(input, output_mem, size=None, name=None, act=None,
+             gate_act=None, bias_attr=None, param_attr=None,
+             **kw) -> LayerOutput:
+    """Step-level GRU for recurrent_group decoders."""
+    return make_layer("gru_step", name, [input, output_mem], size=size,
+                      act=act_mod.to_name(act or "tanh"),
+                      gate_act=act_mod.to_name(gate_act or "sigmoid"),
+                      bias_attr=bias_attr, param_attr=param_attr)
+
+
+gru_step_layer = gru_step
+
+
+def lstm_step(input, state, size=None, name=None, act=None, gate_act=None,
+              state_act=None, bias_attr=None, expose_state: bool = False,
+              **kw) -> LayerOutput:
+    """Step-level LSTM: ``state`` is the previous-cell memory."""
+    return make_layer("lstm_step", name, [input, state], size=size,
+                      act=act_mod.to_name(act or "tanh"),
+                      gate_act=act_mod.to_name(gate_act or "sigmoid"),
+                      state_act=act_mod.to_name(state_act or "tanh"),
+                      bias_attr=bias_attr, expose_state=expose_state)
+
+
+lstm_step_layer = lstm_step
+
+
 # ---------------------------------------------------------------------------
 # classification costs
 
@@ -296,3 +401,22 @@ def classification_cost(input, label, weight=None, name=None,
 
 def classification_error(input, label, name=None, **kw) -> LayerOutput:
     return make_layer("classification_error", name, [input, label])
+
+
+# ---------------------------------------------------------------------------
+# id / sampling / generation helpers
+
+
+def max_id(input, name=None, beam_size: int = 1, **kw) -> LayerOutput:
+    return make_layer("maxid", name, [input], beam_size=beam_size)
+
+
+maxid = max_id
+
+
+def sampling_id(input, name=None, **kw) -> LayerOutput:
+    return make_layer("sampling_id", name, [input])
+
+
+def eos(input, eos_id: int, name=None, **kw) -> LayerOutput:
+    return make_layer("eos_id", name, [input], eos_id=eos_id)

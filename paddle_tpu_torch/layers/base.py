@@ -1,6 +1,6 @@
 """Core layers — the port of the ``data``, ``fc``, ``embedding``,
-``dropout``, ``addto``, ``concat`` and ``batch_norm`` layers of
-``paddle_tpu/layers/base.py``.
+``dropout``, ``addto``, ``concat``, ``batch_norm`` and ``scaling``
+layers of ``paddle_tpu/layers/base.py``.
 
 Conventions (the JAX package's): non-sequence values are
 ``[batch, size]``; sequences are SequenceBatch with data
@@ -307,3 +307,18 @@ class BatchNormLayer:
             y = y.reshape(shape)
         y = _apply_act(y, cfg.get("act", "linear"))
         return val.with_data(y) if isinstance(val, SequenceBatch) else y
+
+
+@register_layer("scaling")
+class ScalingLayer:
+    """ScalingLayer: a per-row scalar (input 0, [b, 1]) times input 1."""
+    @staticmethod
+    def build(name, cfg, input_metas):
+        return LayerMeta(size=input_metas[1].size,
+                         seq_level=input_metas[1].seq_level), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        w, v = inputs
+        out = _payload(w) * _payload(v)
+        return v.with_data(out) if isinstance(v, SequenceBatch) else out

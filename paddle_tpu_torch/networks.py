@@ -1,7 +1,9 @@
 """Network composition helpers — the port of the image stacks
 (simple_img_conv_pool, img_conv_bn_pool, img_conv_group,
-vgg_16_network) and the recurrent stacks (simple_lstm, simple_gru,
-bidirectional_lstm, bidirectional_gru) of ``paddle_tpu/networks.py``.
+vgg_16_network), the recurrent stacks (simple_lstm, simple_gru,
+bidirectional_lstm, bidirectional_gru), simple_attention and the text
+convolution block (sequence_conv_pool / text_conv_pool) of
+``paddle_tpu/networks.py``.
 Pure composition over the layer DSL: the same calls give the same
 layers and names as in the JAX package."""
 
@@ -11,6 +13,7 @@ from typing import Optional, Sequence
 
 from paddle_tpu_torch import activation as act
 from paddle_tpu_torch import layers as layer
+from paddle_tpu_torch import pooling
 from paddle_tpu_torch.core.registry import LayerOutput, _auto_name
 
 
@@ -160,3 +163,47 @@ def bidirectional_gru(input, size: int, name: Optional[str] = None,
     """Forward and reverse simple_gru, concatenated."""
     return _bidirectional(simple_gru, input, size,
                           name or _auto_name("bigru"), return_seq)
+
+
+def simple_attention(encoded_sequence, encoded_proj, decoder_state,
+                     transform_param_attr=None, softmax_param_attr=None,
+                     name: Optional[str] = None) -> LayerOutput:
+    """Additive (Bahdanau) attention inside a recurrent_group step:
+    score_t = v . tanh(enc_proj_t + s), context = sum_t softmax(score)_t
+    * enc_t over the source's valid steps. encoded_sequence and
+    encoded_proj are StaticInput sequences, decoder_state a memory."""
+    name = name or _auto_name("attention")
+    dec_expand = layer.expand(decoder_state, expand_as=encoded_proj,
+                              name=f"{name}_expand")
+    combined = layer.addto([encoded_proj, dec_expand], act=act.Tanh(),
+                           name=f"{name}_combine")
+    scores = layer.fc(combined, size=1, act=act.SequenceSoftmax(),
+                      bias_attr=False, param_attr=softmax_param_attr,
+                      name=f"{name}_weight")
+    scaled = layer.scaling(scores, encoded_sequence, name=f"{name}_scale")
+    return layer.pooling(scaled, pooling_type=pooling.Sum(),
+                         name=f"{name}_context")
+
+
+# ---------------------------------------------------------------------------
+# text conv
+
+
+def sequence_conv_pool(input, context_len: int, hidden_size: int,
+                       name: Optional[str] = None, context_start=None,
+                       pool_type=None, context_proj_param_attr=None,
+                       fc_param_attr=None, fc_act=None) -> LayerOutput:
+    """Context window projection -> fc -> sequence pool (the text CNN
+    block)."""
+    name = name or _auto_name("seq_conv_pool")
+    ctx = layer.context_projection(input, context_len=context_len,
+                                   context_start=context_start,
+                                   param_attr=context_proj_param_attr,
+                                   name=f"{name}_ctx")
+    hidden = layer.fc(ctx, size=hidden_size, act=fc_act or act.Tanh(),
+                      param_attr=fc_param_attr, name=f"{name}_fc")
+    return layer.pooling(hidden, pooling_type=pool_type or pooling.Max(),
+                         name=f"{name}_pool")
+
+
+text_conv_pool = sequence_conv_pool

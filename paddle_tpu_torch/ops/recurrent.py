@@ -27,6 +27,7 @@ from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.ops import activations
 from paddle_tpu_torch.ops import fused_rnn
 from paddle_tpu_torch.ops.linear import matmul
+from paddle_tpu_torch.ops.sequence_ops import take_time
 
 
 def lstm_cell(x4: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
@@ -87,13 +88,6 @@ def simple_rnn_cell(x: torch.Tensor, h: torch.Tensor, w_rec: torch.Tensor,
     return activations.get(act)(z)
 
 
-def _time_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x[r, idx[r, t]] along axis 1 for every row r."""
-    shape = idx.shape + (1,) * (x.dim() - 2)
-    return torch.gather(x, 1, idx.reshape(shape).expand(
-        idx.shape + x.shape[2:]))
-
-
 def _where_valid(valid: torch.Tensor, new, old):
     return torch.where(valid.reshape((-1,) + (1,) * (new.dim() - 1)),
                        new, old)
@@ -112,7 +106,7 @@ def _masked_scan(step_fn, init_carry, seq: SequenceBatch, reverse: bool):
         t = torch.arange(T, dtype=torch.int64, device=x.device)
         rev_idx = torch.clamp(seq.lengths.long()[:, None] - 1 - t[None, :],
                               0, T - 1)
-        x = _time_gather(x, rev_idx)
+        x = take_time(x, rev_idx)
     carry = init_carry
     outs = []
     for t in range(T):
@@ -126,7 +120,7 @@ def _masked_scan(step_fn, init_carry, seq: SequenceBatch, reverse: bool):
         outs.append(_where_valid(valid, out_t, torch.zeros_like(out_t)))
     outs = torch.stack(outs, dim=1)                  # [b, T, ...]
     if reverse:
-        outs = _time_gather(outs, rev_idx)
+        outs = take_time(outs, rev_idx)
         m = seq.mask(outs.dtype)
         outs = outs * m.reshape(m.shape + (1,) * (outs.dim() - 2))
     return carry, outs

@@ -1,9 +1,11 @@
 """DataFeeder — per-sample Python/numpy rows to device feeds; the port
 of ``paddle_tpu/trainer/data_feeder.py`` (integer and dense columns,
-integer and dense sequences).
+integer and dense sequences and nested sequences).
 
 Sequences are padded to the same length buckets as in the JAX
-package, so both packages see the same feed shapes. Every batch
+package, so both packages see the same feed shapes; a nested column
+(a list of subsequences per sample) pads to its longest row, as the
+JAX package's does. Every batch
 carries ``__batch_size__``, its count of real rows.
 """
 
@@ -15,7 +17,9 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.data_type import InputType, SeqType
-from paddle_tpu_torch.core.sequence import bucket_length, pack_sequences
+from paddle_tpu_torch.core.sequence import (bucket_length,
+                                            pack_nested_sequences,
+                                            pack_sequences)
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 
 
@@ -78,5 +82,11 @@ class DataFeeder:
                                     self.bucket_lengths)
             return pack_sequences(np_rows, max_len=max_len,
                                   device=self.device)
-        raise NotImplementedError("nested sequences are not ported yet "
-                                  "(the sequence slice)")
+        conv = []
+        for sample in rows:
+            if itype.kind == "integer":
+                conv.append([np.asarray(s, np.int32) for s in sample])
+            else:
+                conv.append([np.asarray(s, np.float32).reshape(-1, itype.dim)
+                             for s in sample])
+        return pack_nested_sequences(conv, device=self.device)

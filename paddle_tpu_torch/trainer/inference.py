@@ -1,6 +1,8 @@
-"""Inference — the port of ``Inference`` and ``infer`` of
-``paddle_tpu/trainer/inference.py`` (``save_inference_model`` and
-``load_inference_model`` wait).
+"""Inference — the port of ``paddle_tpu/trainer/inference.py``:
+``Inference``, ``infer`` and the merged inference artifact
+(``save_inference_model`` / ``load_inference_model``, one tar holding
+``topology.json`` and ``params.tar``, so an artifact written by either
+package loads in the other).
 
 ``infer(output_layer=..., parameters=..., input=...)`` runs the forward
 pass eagerly under ``torch.no_grad()`` in test mode, batch by batch, and
@@ -10,6 +12,8 @@ CPU is asked for); parameters living elsewhere are read onto it.
 
 from __future__ import annotations
 
+import io
+import tarfile
 from typing import List, Optional
 
 import numpy as np
@@ -88,3 +92,57 @@ def infer(output_layer, parameters: Parameters, input, field="value",
     of sample tuples), as numpy."""
     return Inference(output_layer, parameters, device=device).infer(
         input, field=field, feeding=feeding, batch_size=batch_size)
+
+
+# ---------------------------------------------------------------------------
+# the merged inference artifact
+
+
+def save_inference_model(path: str, output_layer,
+                         parameters: Parameters) -> str:
+    """One deployable file: the serialized topology of ``output_layer``
+    and every parameter (a tar of ``topology.json`` and
+    ``params.tar``)."""
+    outputs = output_layer if isinstance(output_layer, (list, tuple)) \
+        else [output_layer]
+    topo = Topology(list(outputs))
+    with tarfile.open(path, "w") as tf:
+        blob = topo.serialize().encode()
+        info = tarfile.TarInfo("topology.json")
+        info.size = len(blob)
+        tf.addfile(info, io.BytesIO(blob))
+        buf = io.BytesIO()
+        parameters.to_tar(buf)
+        b = buf.getvalue()
+        info = tarfile.TarInfo("params.tar")
+        info.size = len(b)
+        tf.addfile(info, io.BytesIO(b))
+    return path
+
+
+def load_inference_model(path: str, device: DeviceLike = None) -> Inference:
+    """A ready Inference from a save_inference_model artifact, on
+    ``device``. A missing, torn or foreign file raises ValueError naming
+    the artifact."""
+    if isinstance(path, bytes):
+        path = path.decode()
+    try:
+        with tarfile.open(path, "r") as tf:
+            names = set(tf.getnames())
+            missing = {"topology.json", "params.tar"} - names
+            if missing:
+                raise ValueError(
+                    f"{path!r} is not an inference artifact: missing "
+                    f"{sorted(missing)} (have {sorted(names)})")
+            blob = tf.extractfile("topology.json").read()
+            pbytes = tf.extractfile("params.tar").read()
+    except (OSError, tarfile.TarError) as e:
+        raise ValueError(
+            f"cannot load inference artifact {path!r}: {e}") from e
+    try:
+        topo = Topology.deserialize(blob)
+        params = Parameters.from_tar(io.BytesIO(pbytes), device=device)
+    except Exception as e:
+        raise ValueError(
+            f"inference artifact {path!r} is corrupt: {e}") from e
+    return Inference(parameters=params, topology=topo, device=device)

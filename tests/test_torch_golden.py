@@ -39,9 +39,10 @@ from paddle_tpu_torch.trainer.data_feeder import DataFeeder as TFeeder
 
 RTOL, ATOL = 1e-4, 1e-5
 GOLDEN = pathlib.Path(__file__).parent / "golden"
-HELD = ["attention_net", "bidirectional_gru", "crf_tagger", "img_layers",
-        "simple_fc", "simple_lstm_net", "simple_rnn", "tpu_stem_net",
-        "word_embedding_ngram"]
+HELD = ["attention_net", "beam_cost_net", "bidirectional_gru", "crf_tagger",
+        "generation_helpers", "img_layers", "nested_rnn_group", "rnn_group",
+        "seq_ops_suite", "simple_fc", "simple_lstm_net", "simple_rnn",
+        "tpu_stem_net", "word_embedding_ngram"]
 # goldens without a cost whose gradients are held through a projection
 PROJECTED = ("img_layers", "tpu_stem_net")
 LENGTHS = (6, 2, 11)
@@ -49,7 +50,8 @@ LENGTHS = (6, 2, 11)
 
 def _samples(data_types, seed=4):
     """One sample per entry of LENGTHS; every sequence column of a
-    sample has that length (a tagger's words and labels must agree)."""
+    sample has that length (a tagger's words and labels must agree). A
+    nested column splits it into seeded subsequences of 1-4 steps."""
     rng = np.random.RandomState(seed)
     out = []
     for L in LENGTHS:
@@ -58,11 +60,17 @@ def _samples(data_types, seed=4):
             seq = it.seq_type.value > 0
             shape = (L,) if seq else ()
             if it.kind == "integer":
-                row.append(rng.randint(0, it.dim, shape).astype(np.int32)
-                           if seq else int(rng.randint(0, it.dim)))
+                v = rng.randint(0, it.dim, shape).astype(np.int32) \
+                    if seq else int(rng.randint(0, it.dim))
             else:
-                row.append(rng.randn(*(shape + (it.dim,)))
-                           .astype(np.float32))
+                v = rng.randn(*(shape + (it.dim,))).astype(np.float32)
+            if it.seq_type.value == 2:
+                cuts, at = [], 0
+                while at < L:
+                    cuts.append(v[at:at + int(rng.randint(1, 5))])
+                    at += len(cuts[-1])
+                v = cuts
+            row.append(v)
         out.append(tuple(row))
     return out
 

@@ -49,7 +49,9 @@ def test_every_module_imports_without_jax_or_paddle_tpu():
               "dataset.conll05", "evaluator", "attr", "activation",
               "optimizer.schedules", "config", "device", "ops.conv",
               "ops.pool", "ops.norm", "ops.fused", "layers.conv_layers",
-              "layers.extra_layers", "models.image", "dataset.digits"):
+              "layers.extra_layers", "models.image", "dataset.digits",
+              "layers.group", "layers.beam", "layers.misc_layers",
+              "models.seq2seq", "dataset.wmt14"):
         assert f"paddle_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
