@@ -376,9 +376,34 @@ Phases (any failure exits non-zero before the final line):
    and its seq_text_printer lines; the costs of its first 8 batches
    within 1e-4 relative of the port's CPU run of the same copy from
    the card run's init tar.
+32. wide&deep — the row-sparse path: models/recommender.py's
+   wide_and_deep at its defaults (vocabularies 100000 / 100000 / 10000,
+   emb 64, dense 13, hidden 256 / 128 / 64; 13,744,050 parameters, six
+   ParamAttr(sparse=True) tables), float32, Adam(1e-3), init(seed=11),
+   batch 512 of seeded synthetic Criteo-shaped rows (CtrData: each
+   slot's ids Zipf 1.1 over seeded shuffled ranks, the label a seeded
+   logistic rule over the dense features and slot 0's id). Prints the
+   mean unique ids a step, step_ms and samples/s of 8 train_batch
+   calls after 2 warm-ups, peak memory and one traced step, for the
+   sparse tables and for the same graph with dense tables from the
+   same init; then both again at vocabularies 1,000,000 / 1,000,000 /
+   100,000 (with the step's memory growth over what it holds). Fails unless the 50 sparse steps' costs are finite and
+   falling, the first 4 are within 1e-4 relative of the port's CPU run
+   from the same init, the rows never fed have Adam's m, v and the
+   clock _t exactly 0 and each fed row's _t is its last step,
+   Momentum(0.01, 0.9)'s sparse and dense test_params after 8 steps
+   agree within rtol 1e-5 / atol 1e-6, and the 1 M-row sparse step
+   grows the allocated memory by less than one 1 M x 64 float32 table.
+33. recommendation v2 — the port copy of demo/recommendation/train.py
+   (only its imports changed: recommendation_v2_demo, the package
+   passed in) at the script's settings (movielens_regression with emb
+   32, Adam(2e-3), batch 64, 2 passes on the synthetic MovieLens): its
+   costs and test mse cost; the costs of its first 8 batches within
+   1e-4 relative of the port's CPU run of the same copy from the card
+   run's init tar.
 
 Then logs the whole script's wall time and prints the kernel table as
-one JSON line (phases 28-31 add no kernel; the flash and LSTM kernels at
+one JSON line (phases 28-33 add no kernel; the flash and LSTM kernels at
 their bfloat16 times, the training dtype, naming their wgmma sources,
 with their errors in bfloat16 too; the flash kernels again at float32,
 the default dtype, as flash_attention_*_f32 with phase 24's launches
@@ -1869,10 +1894,12 @@ def _trace(run, label, unit, what, marks, launched=None):
         wall_ms = (time.perf_counter() - t0) * 1e3
     n_launched = launched() - n0 if launched else None
     by_kernel = {}
+    n_kernels = 0
     for ev in prof.key_averages():
         if ev.device_type.name == "CUDA" and ev.self_device_time_total > 0:
             by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + \
                 ev.self_device_time_total / 1e3
+            n_kernels += ev.count
     busy_ms = sum(by_kernel.values())
     ours_ms = sum(v for k, v in by_kernel.items()
                   if any(m in k for m in marks))
@@ -1882,8 +1909,8 @@ def _trace(run, label, unit, what, marks, launched=None):
         if n_launched and not ours_ms:
             share += " (no record of them in the trace)"
     log(f"{label} trace: {unit}, wall {wall_ms:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}), {what} "
-        f"{share}")
+        f"{busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}) in "
+        f"{n_kernels} device operations, {what} {share}")
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
         if any(m in name for m in marks):
             log(f"{label} trace {what}: {ms:.3f} ms ({ms / busy_ms:.3f} of "
@@ -4665,6 +4692,386 @@ def phase_seqtoseq_v2():
         f"{rel:.3g} relative of the CPU port's")
 
 
+# ------------------------------------------------------------ phase 32
+# models/recommender.py at its defaults, BASELINE.json's Wide&Deep CTR
+WD_VOCABS = (100000, 100000, 10000)
+WD_HIGH_VOCABS = (1000000, 1000000, 100000)   # "high-dim": 1 M-row tables
+WD_PARAMS = 13744050
+WD_TABLES = {f"_wd_{kind}{i}_w": f"sparse_{i}"
+             for kind in ("emb", "wide") for i in range(3)}
+WD_BATCH, WD_WARMUP, WD_TIMED, WD_STEPS, WD_CPU_STEPS = 512, 2, 8, 50, 4
+WD_MOMENTUM_STEPS = 8
+WD_CPU_RTOL = 1e-4
+WD_ZIPF = 1.1
+WD_DENSE = 13
+WD_FEEDING = {"sparse_0": 0, "sparse_1": 1, "sparse_2": 2,
+              "dense_features": 3, "label": 4}
+WD_MOMENTUM_TOL = dict(rtol=1e-5, atol=1e-6)   # tests/test_sparse.py:98-100
+WD_TABLE_BYTES = 1000000 * 64 * 4              # one 1 M x 64 float32 table
+
+
+class CtrData:
+    """Seeded synthetic Criteo-shaped rows: 3 id slots and 13 dense
+    features a row. Each slot's ids follow a Zipf law (exponent 1.1)
+    over ranks shuffled by a seeded permutation, so most rows go
+    untouched for many steps; the label is a fixed seeded logistic rule
+    over the dense features and slot 0's id."""
+
+    def __init__(self, vocabs, seed=0):
+        rng = np.random.RandomState(seed)
+        self.vocabs = vocabs
+        self.cdf, self.perm = [], []
+        for v in vocabs:
+            w = np.arange(1, v + 1, dtype=np.float64) ** -WD_ZIPF
+            self.cdf.append(np.cumsum(w) / w.sum())
+            self.perm.append(rng.permutation(v))
+        self.w = rng.randn(WD_DENSE) / np.sqrt(WD_DENSE)
+        self.id_logit = 2.0 * rng.randn(vocabs[0])
+        self.rng = np.random.RandomState(seed + 1)
+
+    def batch(self, n=WD_BATCH):
+        ids = [perm[np.minimum(np.searchsorted(cdf, self.rng.rand(n)),
+                               len(perm) - 1)]
+               for cdf, perm in zip(self.cdf, self.perm)]
+        dense = self.rng.randn(n, WD_DENSE).astype(np.float32)
+        logit = dense @ self.w + self.id_logit[ids[0]]
+        label = (self.rng.rand(n) < 1.0 / (1.0 + np.exp(-logit)))
+        return [(int(ids[0][r]), int(ids[1][r]), int(ids[2][r]), dense[r],
+                 int(label[r])) for r in range(n)]
+
+
+def _wd_build(paddle, vocabs, sparse=True):
+    """(cost node, Topology) of wide_and_deep at ``vocabs``; with
+    sparse False the same graph with dense tables (its serialized
+    topology with every ``sparse`` attribute off)."""
+    from paddle_tpu_torch.core.registry import reset_name_counters
+    from paddle_tpu_torch.models import wide_and_deep
+    reset_name_counters()
+    spec = wide_and_deep(sparse_dims=vocabs)
+    topo = paddle.Topology(spec.cost)
+    if not sparse:
+        blob = topo.serialize().replace('"sparse": true', '"sparse": false')
+        topo = paddle.Topology.deserialize(blob)
+    return topo.by_name[spec.cost.name], topo
+
+
+def _wd_trainer(paddle, cost, init, optimizer=None, device=None):
+    """An SGD on a copy of the ``init`` tables (``Adam(1e-3)`` unless an
+    optimizer is given)."""
+    params = paddle.Parameters({k: v.detach().clone().to(device)
+                                for k, v in init.items()})
+    return paddle.SGD(cost=cost, parameters=params, device=device,
+                      update_equation=optimizer or paddle.optimizer.Adam(
+                          learning_rate=1e-3))
+
+
+def _wd_steps(trainer, batches):
+    """train_batch over ``batches``: (costs, seconds of each step)."""
+    costs, secs = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        costs.append(trainer.train_batch(b, feeding=WD_FEEDING)[0])
+        secs.append(time.perf_counter() - t0)
+    return costs, secs
+
+
+def _wd_timed(label, trainer, batches, card):
+    """Warm-ups then timed steps, with the peak memory's growth over the
+    memory held before the first timed step; returns (costs, step_ms,
+    growth bytes)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    costs, secs = _wd_steps(trainer, batches)
+    growth = torch.cuda.max_memory_allocated() - base
+    step_ms = 1e3 * float(np.mean(secs[WD_WARMUP:]))
+    log(f"{label} ({card}): step_ms {step_ms:.3f} (train_batch, "
+        f"{len(secs) - WD_WARMUP} after {WD_WARMUP} warm-ups), "
+        f"{WD_BATCH / (step_ms / 1e3):.1f} samples/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, "
+        f"{growth / 1e6:.1f} MB over the {base / 1e6:.1f} MB held before "
+        f"the steps")
+    return costs, step_ms, growth
+
+
+def _unique_per_table(batches):
+    """Mean unique ids a step in each of the three id slots."""
+    return [float(np.mean([len({s[i] for s in b}) for b in batches]))
+            for i in range(3)]
+
+
+def _wd_rows_check(trainer, batches):
+    """After ``batches`` (the trainer's every step): rows never fed have
+    Adam's m, v and the clock _t exactly 0; each fed row's _t is the
+    last step that fed it."""
+    for pname, src in WD_TABLES.items():
+        slot = trainer.opt_state["slots"][pname]
+        i = int(src[-1])
+        vocab = slot["_t"].shape[0]
+        last = np.zeros(vocab, np.int32)
+        for step, b in enumerate(batches, 1):
+            last[[s[i] for s in b]] = step
+        t = slot["_t"].cpu().numpy()
+        if not np.array_equal(t, last):
+            bad = np.flatnonzero(t != last)[:5]
+            raise AssertionError(f"{pname}: _t {t[bad]} at rows {bad}, "
+                                 f"not the last feeding steps {last[bad]}")
+        fed = torch.from_numpy(last > 0).to(slot["m"].device)
+        for kk in ("m", "v"):
+            if bool((slot[kk][~fed] != 0).any()):
+                raise AssertionError(f"{pname}: {kk} nonzero on a row "
+                                     "never fed")
+            if not bool((slot[kk][fed] != 0).any()):
+                raise AssertionError(f"{pname}: {kk} zero on every fed row")
+
+
+def phase_wide_deep():
+    """Phase 32: Wide&Deep at full width on the row-sparse path — sparse
+    against dense tables at the default and at 1 M-row vocabularies,
+    the CPU port's costs, the rows' clocks and moments, and Momentum's
+    exact catch-up."""
+    import paddle_tpu_torch as paddle
+
+    card = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    paddle.init(seed=11)                      # float32, on the card
+    cost, topo = _wd_build(paddle, WD_VOCABS)
+    n_params = sum(int(np.prod(ps.shape))
+                   for ps in topo.param_specs.values())
+    if n_params != WD_PARAMS or topo.sparse_tables() != WD_TABLES:
+        raise AssertionError(f"wide_and_deep: {n_params} parameters, "
+                             f"sparse tables {topo.sparse_tables()}")
+    init = paddle.create_parameters(topo).raw
+    data = CtrData(WD_VOCABS, seed=11)
+    batches = [data.batch() for _ in range(WD_STEPS)]
+    uniq = _unique_per_table(batches)
+    log(f"wide&deep: wide_and_deep{WD_VOCABS}, emb 64, dense 13, hidden "
+        f"(256, 128, 64), {n_params} parameters, float32, Adam(1e-3), "
+        f"batch {WD_BATCH}; Zipf {WD_ZIPF} ids: mean unique ids a step "
+        f"{[round(u, 1) for u in uniq]} (slots 0-2; each feeds its emb and "
+        "wide table)")
+
+    sparse = _wd_trainer(paddle, cost, init)
+    costs, step_ms, _ = _wd_timed(
+        "wide&deep sparse train", sparse, batches[:WD_WARMUP + WD_TIMED],
+        card)
+    more, _ = _wd_steps(sparse, batches[WD_WARMUP + WD_TIMED:])
+    costs += more
+    if not np.all(np.isfinite(costs)) or \
+            not np.mean(costs[-5:]) < np.mean(costs[:5]):
+        raise AssertionError(f"wide&deep: costs {costs} not finite and "
+                             "falling")
+    _wd_rows_check(sparse, batches)
+    log(f"wide&deep sparse: {WD_STEPS} steps, costs {costs[0]:.4f} -> "
+        f"{costs[-1]:.4f} (first 5 mean {np.mean(costs[:5]):.4f}, last 5 "
+        f"{np.mean(costs[-5:]):.4f}); untouched rows' m, v, _t exactly 0 "
+        "and each fed row's _t its last step, in all six tables")
+    _trace(lambda: sparse.train_batch(batches[-1], feeding=WD_FEEDING),
+           "wide&deep sparse train", "1 step", "index, sort and scatter "
+           "kernels", ("index", "sort", "scatter", "gather"))
+    del sparse
+
+    dense_cost, dtopo = _wd_build(paddle, WD_VOCABS, sparse=False)
+    if dtopo.sparse_tables():
+        raise AssertionError("the dense twin still has sparse tables")
+    dense = _wd_trainer(paddle, dense_cost, init)
+    dcosts, dense_ms, _ = _wd_timed(
+        "wide&deep dense train", dense, batches[:WD_WARMUP + WD_TIMED],
+        card)
+    _trace(lambda: dense.train_batch(batches[-1], feeding=WD_FEEDING),
+           "wide&deep dense train", "1 step", "index, sort and scatter "
+           "kernels", ("index", "sort", "scatter", "gather"))
+    del dense
+    log(f"wide&deep: sparse {step_ms:.3f} ms a step against dense "
+        f"{dense_ms:.3f} (x{dense_ms / step_ms:.3f}); first costs "
+        f"{[round(c, 5) for c in costs[:3]]} sparse, "
+        f"{[round(c, 5) for c in dcosts[:3]]} dense")
+
+    # the first steps in the port on the CPU, from the same init
+    t0 = time.perf_counter()
+    cpu = _wd_trainer(paddle, cost, init, device="cpu")
+    want = _wd_steps(cpu, batches[:WD_CPU_STEPS])[0]
+    del cpu
+    got = np.asarray(costs[:WD_CPU_STEPS])
+    rel = float(np.max(np.abs(got - np.asarray(want)) / np.abs(want)))
+    if rel > WD_CPU_RTOL:
+        raise AssertionError(f"wide&deep: card costs {got} against the CPU "
+                             f"port's {want}: max rel {rel}")
+    log(f"wide&deep: first {WD_CPU_STEPS} costs within {rel:.3g} relative "
+        f"of the CPU port's ({time.perf_counter() - t0:.1f} s on the CPU)")
+
+    # Momentum: the exact catch-up makes sparse == dense
+    def momentum():
+        return paddle.optimizer.Momentum(learning_rate=0.01, momentum=0.9)
+
+    runs = []
+    for c in (cost, dense_cost):
+        tr = _wd_trainer(paddle, c, init, momentum())
+        _wd_steps(tr, batches[:WD_MOMENTUM_STEPS])
+        runs.append(tr.optimizer.test_params(tr._own_params(), tr.opt_state))
+        del tr
+    worst = 0.0
+    for k, want_t in runs[1].items():
+        got_t = runs[0][k].detach()
+        excess = (torch.abs(got_t - want_t.detach()) -
+                  WD_MOMENTUM_TOL["rtol"] * torch.abs(want_t.detach()))
+        worst = max(worst, float(excess.max()))
+    if worst > WD_MOMENTUM_TOL["atol"]:
+        raise AssertionError(f"wide&deep Momentum: sparse test_params off "
+                             f"the dense run's by {worst} past rtol 1e-5")
+    log(f"wide&deep Momentum(0.01, 0.9): {WD_MOMENTUM_STEPS} sparse and "
+        f"dense steps give test_params within rtol 1e-5 + {worst:.3g} "
+        "(atol 1e-6)")
+    del runs, init
+
+    # high-dim: 1 M-row tables, sparse against dense
+    h_cost, h_topo = _wd_build(paddle, WD_HIGH_VOCABS)
+    h_init = paddle.create_parameters(h_topo).raw
+    h_params = sum(int(v.numel()) for v in h_init.values())
+    h_data = CtrData(WD_HIGH_VOCABS, seed=12)
+    h_batches = [h_data.batch() for _ in range(WD_WARMUP + WD_TIMED)]
+    log(f"wide&deep high-dim: wide_and_deep{WD_HIGH_VOCABS}, {h_params} "
+        f"parameters; mean unique ids a step "
+        f"{[round(u, 1) for u in _unique_per_table(h_batches)]}")
+    tr = _wd_trainer(paddle, h_cost, h_init)
+    _, h_sparse_ms, h_growth = _wd_timed("wide&deep high-dim sparse train",
+                                         tr, h_batches, card)
+    _trace(lambda: tr.train_batch(h_batches[-1], feeding=WD_FEEDING),
+           "wide&deep high-dim sparse train", "1 step", "index, sort and "
+           "scatter kernels", ("index", "sort", "scatter", "gather"))
+    del tr
+    if h_growth >= WD_TABLE_BYTES:
+        raise AssertionError(f"wide&deep high-dim: the sparse step grew "
+                             f"memory by {h_growth} bytes, not below one "
+                             f"1 M x 64 float32 table ({WD_TABLE_BYTES})")
+    hd_cost, _ = _wd_build(paddle, WD_HIGH_VOCABS, sparse=False)
+    tr = _wd_trainer(paddle, hd_cost, h_init)
+    _, h_dense_ms, h_dense_growth = _wd_timed(
+        "wide&deep high-dim dense train", tr, h_batches, card)
+    _trace(lambda: tr.train_batch(h_batches[-1], feeding=WD_FEEDING),
+           "wide&deep high-dim dense train", "1 step", "index, sort and "
+           "scatter kernels", ("index", "sort", "scatter", "gather"))
+    del tr, h_init
+    log(f"wide&deep high-dim: sparse {h_sparse_ms:.3f} ms a step against "
+        f"dense {h_dense_ms:.3f} (x{h_dense_ms / h_sparse_ms:.3f}); the "
+        f"sparse step's memory growth {h_growth / 1e6:.1f} MB (< one 1 M x "
+        f"64 table, {WD_TABLE_BYTES / 1e6:.0f} MB), the dense step's "
+        f"{h_dense_growth / 1e6:.1f} MB")
+    log(f"wide&deep phase wall {time.perf_counter() - t_phase:.1f} s")
+    from paddle_tpu_torch import config
+    config.init(seed=0, compute_dtype="float32")
+
+
+# ------------------------------------------------------------ phase 33
+RECO_CPU_BATCHES = 8
+RECO_CPU_RTOL = 1e-4
+
+
+def recommendation_v2_demo(paddle, use_tpu=None, num_passes=2, batch_size=64,
+                           init_tar=None, num_batches_per_pass=None,
+                           echo=print):
+    import importlib
+    import io
+
+    import numpy as np
+    movielens = importlib.import_module(paddle.__name__ + ".dataset.movielens")
+    movielens_regression = importlib.import_module(
+        paddle.__name__ + ".models.recommender").movielens_regression
+
+    paddle.init(use_tpu=use_tpu, seed=13)
+
+    model = movielens_regression(user_dim=movielens.max_user_id() + 1,
+                                 movie_dim=movielens.max_movie_id() + 1,
+                                 emb_size=32)
+    parameters = paddle.create_parameters(paddle.Topology(model.cost))
+    if init_tar is not None:
+        parameters = paddle.Parameters.from_tar(io.BytesIO(init_tar))
+    buf = io.BytesIO()
+    parameters.to_tar(buf)
+    optimizer = paddle.optimizer.Adam(learning_rate=2e-3)
+    trainer = paddle.SGD(cost=model.cost, parameters=parameters,
+                         update_equation=optimizer)
+
+    def to_sample(r):
+        # movielens rows: (uid, gender, age, job, mid, categories, title,
+        # rating) -> (user_id, movie_id, [rating])
+        def reader():
+            for row in r():
+                yield row[0], row[4], np.asarray([row[7]], np.float32)
+        return reader
+
+    feeding = {"user_id": 0, "movie_id": 1, "score": 2}
+    costs = []
+
+    def handler(e):
+        if isinstance(e, paddle.event.EndIteration):
+            costs.append(e.cost)
+        if isinstance(e, paddle.event.EndIteration) and e.batch_id % 25 == 0:
+            echo(f"pass {e.pass_id} batch {e.batch_id} cost {e.cost:.4f}")
+        if isinstance(e, paddle.event.EndPass):
+            echo(f"== pass {e.pass_id} done")
+
+    reader = paddle.reader.batch(
+        paddle.reader.shuffle(to_sample(movielens.train()), 4096, seed=2),
+        batch_size, drop_last=True)
+    trainer.train(reader, num_passes=num_passes, event_handler=handler,
+                  feeding=feeding, num_batches_per_pass=num_batches_per_pass)
+
+    result = trainer.test(
+        paddle.reader.batch(to_sample(movielens.test()), batch_size),
+        feeding=feeding)
+    echo(f"test mse cost {result.cost:.4f}")
+    return dict(costs=costs, test_cost=result.cost, init_tar=buf.getvalue(),
+                trainer=trainer)
+
+
+def phase_recommendation_v2():
+    """Phase 33: the port copy of demo/recommendation/train.py on the
+    card at its own settings (emb 32, Adam(2e-3), batch 64, 2 passes on
+    the synthetic MovieLens): its costs and test mse cost; the costs of
+    its first 8 batches within 1e-4 relative of the same copy on the CPU
+    port from the card run's init tar."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.registry import reset_name_counters
+    card = nvidia_smi_line()
+    lines = []
+    reset_name_counters()             # one set of layer names for both runs
+    t0 = time.perf_counter()
+    r = recommendation_v2_demo(paddle, use_tpu=None, echo=lines.append)
+    wall = time.perf_counter() - t0
+    trainer = r["trainer"]
+    if trainer.device.type != "cuda":
+        raise AssertionError(f"the recommendation script trained on "
+                             f"{trainer.device}, not the card")
+    n_train = sum(1 for _ in paddle.dataset.movielens.train()())
+    if len(r["costs"]) != 2 * (n_train // 64) or \
+            not np.all(np.isfinite(r["costs"])) or \
+            not np.isfinite(r["test_cost"]):
+        raise AssertionError(f"recommendation v2: {len(r['costs'])} steps, "
+                             f"costs {r['costs'][:4]}..., test "
+                             f"{r['test_cost']}")
+    reset_name_counters()
+    c = recommendation_v2_demo(paddle, use_tpu=False,
+                               num_passes=1,
+                               num_batches_per_pass=RECO_CPU_BATCHES,
+                               init_tar=r["init_tar"], echo=_quiet)
+    from paddle_tpu_torch import config
+    config.init(seed=0, compute_dtype="float32")      # back to the card
+    got = np.asarray(r["costs"][:RECO_CPU_BATCHES])
+    want = np.asarray(c["costs"])
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    if len(want) != RECO_CPU_BATCHES or rel > RECO_CPU_RTOL:
+        raise AssertionError(f"recommendation v2: card costs {got} against "
+                             f"the CPU port's {want}: max rel {rel}")
+    for line in lines:
+        log(f"recommendation v2: {line}")
+    log(f"recommendation v2 ({card}): {len(r['costs'])} train batches and "
+        f"the test sweep in {wall:.3f} s; costs {r['costs'][0]:.4f} -> "
+        f"{r['costs'][-1]:.4f}, test mse cost {r['test_cost']:.4f}; first "
+        f"{RECO_CPU_BATCHES} costs within {rel:.3g} relative of the CPU "
+        "port's")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -4726,6 +5133,8 @@ def main():
     phase_resnet50()
     nmt = phase_nmt()
     phase_seqtoseq_v2()
+    phase_wide_deep()
+    phase_recommendation_v2()
     kernels = [dict(
         name="paged_window_attention", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",

@@ -53,6 +53,14 @@ Slices ported so far:
   with the UCI digits of the convergence run (dataset/digits.py). The
   JAX package computes these outside Pallas, so they run on cuDNN and
   plain PyTorch ops: no kernel of this slice is hand-written.
+- the CTR path — row-sparse embedding tables (ops/embedding.py's row
+  ops, ``Topology.sparse_tables``, the optimizers' prefetch with
+  catch-up and row-scatter update, the trainer's sparse step), pruning
+  hooks, sparse feeds, the regression and ranking costs and
+  ``cos_sim``, models/recommender.py (Wide&Deep, the MovieLens
+  regression) and dataset/movielens.py. The JAX package computes the
+  row path with XLA outside Pallas, so it runs on PyTorch's sort,
+  searchsorted, gathers and index copies.
 
 Entry points run on the card unless the caller passes
 ``device="cpu"`` or called ``init(use_gpu=False)``; with no GPU and no

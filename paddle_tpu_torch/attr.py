@@ -12,8 +12,9 @@ from paddle_tpu_torch.core.registry import ParamAttr
 
 
 class HookAttribute:
-    """Parameter update hook: type='pruning' with sparsity_ratio. The
-    port's optimizers reject update hooks for now (ROADMAP.md)."""
+    """Parameter update hook: type='pruning' with sparsity_ratio — the
+    optimizers keep a mask of the largest-|w| weights, applied after
+    every update (``Optimizer.refresh_hooks``)."""
 
     def __init__(self, type: str, sparsity_ratio: Optional[float] = None):
         assert type in ("pruning",), f"unsupported hook type {type!r}"

@@ -147,6 +147,9 @@ class ApplyContext:
         self.state_updates: Dict[str, Any] = {}
         self.mesh = None
         self.n_real = None
+        # {table name: (uids, rows)}: prefetched row blocks of the
+        # row-sparse tables (Topology.forward's sparse_sub)
+        self.sparse_sub = None
 
     @property
     def is_train(self) -> bool:

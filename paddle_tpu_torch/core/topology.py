@@ -128,23 +128,28 @@ class Topology:
                 feed: Dict[str, Any], *, mode: str = "train",
                 rng: Optional[int] = None,
                 output_names: Optional[Sequence[str]] = None,
+                sparse_sub: Optional[Dict[str, Any]] = None,
                 mesh=None, n_real=None):
         """One forward pass. Returns (outputs_dict, new_state);
         ``outputs_dict`` maps layer name -> value for the requested
         outputs (default: ``self.outputs``). ``rng`` seeds the random
-        layers (dropout) of a train step, ``ApplyContext.rng_for``."""
+        layers (dropout) of a train step, ``ApplyContext.rng_for``.
+        ``sparse_sub``: {table name: (uids, rows)} prefetched row blocks
+        — embedding layers whose table appears there look ids up inside
+        the block, so gradients stay row-sparse."""
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh is not ported yet (the parallelism slice, "
                 "ROADMAP.md queue A.10)")
         with torch.no_grad() if self.generates else contextlib.nullcontext():
             return self._forward(params, state, feed, mode, rng,
-                                 output_names, n_real)
+                                 output_names, n_real, sparse_sub)
 
     def _forward(self, params, state, feed, mode, rng, output_names,
-                 n_real):
+                 n_real, sparse_sub=None):
         ctx = ApplyContext(mode, state, rng)
         ctx.n_real = n_real
+        ctx.sparse_sub = sparse_sub
         values: Dict[str, Any] = {}
         wanted = set(output_names) if output_names is not None else \
             {o.name for o in self.outputs}
@@ -166,6 +171,31 @@ class Topology:
         new_state.update(ctx.state_updates)
         outs = {n: values[n] for n in wanted if n in values}
         return outs, new_state
+
+    # ----------------------------------------------------------- sparse path
+    def sparse_tables(self) -> Dict[str, str]:
+        """param_name -> ids data-layer name, for every embedding table
+        marked ParamAttr(sparse=True) whose ids come straight from a data
+        layer (the prefetchable set). A sparse table fed by computed
+        ids, or shared across two id sources, falls back to dense
+        gradients."""
+        out: Dict[str, str] = {}
+        dense_fallback = set()
+        for l in self.layers:
+            if l.type != "embedding":
+                continue
+            for ps in l.params:
+                if not getattr(ps.attr, "sparse", False):
+                    continue
+                if not (l.parents and l.parents[0].type == "data"):
+                    dense_fallback.add(ps.name)     # computed ids
+                elif ps.name in out and out[ps.name] != l.parents[0].name:
+                    dense_fallback.add(ps.name)     # shared across sources
+                else:
+                    out[ps.name] = l.parents[0].name
+        for n in dense_fallback:
+            out.pop(n, None)
+        return out
 
     # ------------------------------------------------------------ data layers
     def data_layers(self) -> Dict[str, LayerOutput]:

@@ -10,7 +10,11 @@ SubsequenceInput, GeneratedInput, get_output, beam_search, gru_step,
 lstm_step, scaling, context_projection, expand, seq_concat,
 seq_reshape, seq_slice, seq_reverse, sub_seq, kmax_seq_score,
 sub_nested_seq, max_id, sampling_id, eos, cross_entropy_over_beam),
-with the JAX package's ``*_layer`` aliases of each.
+the CTR and ranking path (cos_sim, square_error_cost with its aliases
+mse_cost and regression_cost, the binary and self-normalizing cross
+entropies, rank_cost, lambda_cost, the Huber and smooth-L1 costs,
+sum_cost, hsigmoid), with the JAX package's ``*_layer`` aliases of
+each.
 
 Each wrapper normalizes its arguments exactly as the JAX package's
 does (activation objects -> names, non-default options only), so the
@@ -133,6 +137,11 @@ def batch_norm(input, act=None, name: Optional[str] = None, num_channels=None,
 
 
 batch_norm_layer = batch_norm
+
+
+def cos_sim(a, b, scale: float = 1.0, size: int = 1,
+            name: Optional[str] = None, **kw) -> LayerOutput:
+    return make_layer("cos_sim", name, [a, b], scale=scale)
 
 
 def scaling(weight, input, name: Optional[str] = None, **kw) -> LayerOutput:
@@ -401,6 +410,70 @@ def classification_cost(input, label, weight=None, name=None,
 
 def classification_error(input, label, name=None, **kw) -> LayerOutput:
     return make_layer("classification_error", name, [input, label])
+
+
+# ---------------------------------------------------------------------------
+# regression, ranking and the other costs
+
+
+def cross_entropy_with_selfnorm_cost(input, label, name=None,
+                                     softmax_selfnorm_alpha: float = 0.1,
+                                     **kw) -> LayerOutput:
+    return make_layer("cross_entropy_with_selfnorm", name, [input, label],
+                      softmax_selfnorm_alpha=softmax_selfnorm_alpha)
+
+
+def square_error_cost(input, label, weight=None, name=None,
+                      **kw) -> LayerOutput:
+    nodes = [input, label] + ([weight] if weight is not None else [])
+    return make_layer("square_error", name, nodes)
+
+
+mse_cost = square_error_cost
+regression_cost = square_error_cost
+
+
+def soft_binary_class_cross_entropy_cost(input, label, name=None, **kw):
+    return make_layer("soft_binary_class_cross_entropy", name, [input, label])
+
+
+def multi_binary_label_cross_entropy_cost(input, label, name=None, **kw):
+    return make_layer("multi_binary_label_cross_entropy", name,
+                      [input, label])
+
+
+def rank_cost(left, right, label, weight=None, name=None,
+              **kw) -> LayerOutput:
+    nodes = [left, right, label] + ([weight] if weight is not None else [])
+    return make_layer("rank-cost", name, nodes)
+
+
+def lambda_cost(input, score, NDCG_num: int = 5, name=None,
+                **kw) -> LayerOutput:
+    return make_layer("lambda_cost", name, [input, score], NDCG_num=NDCG_num)
+
+
+def huber_regression_cost(input, label, delta: float = 1.0, name=None, **kw):
+    return make_layer("huber_regression", name, [input, label], delta=delta)
+
+
+def huber_classification_cost(input, label, name=None, **kw) -> LayerOutput:
+    return make_layer("huber_classification", name, [input, label])
+
+
+def smooth_l1_cost(input, label, sigma: float = 1.0, name=None, **kw):
+    return make_layer("smooth_l1", name, [input, label], sigma=sigma)
+
+
+def sum_cost(input, name=None, **kw) -> LayerOutput:
+    return make_layer("sum_cost", name, [input])
+
+
+def hsigmoid(input, label, num_classes: int, param_attr=None, bias_attr=None,
+             name=None, **kw) -> LayerOutput:
+    nodes = _listify(input) + [label]
+    return make_layer("hsigmoid", name, nodes, num_classes=num_classes,
+                      param_attr=param_attr, bias_attr=bias_attr)
 
 
 # ---------------------------------------------------------------------------

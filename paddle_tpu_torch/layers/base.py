@@ -1,6 +1,6 @@
 """Core layers — the port of the ``data``, ``fc``, ``embedding``,
-``dropout``, ``addto``, ``concat``, ``batch_norm`` and ``scaling``
-layers of ``paddle_tpu/layers/base.py``.
+``dropout``, ``addto``, ``concat``, ``batch_norm``, ``scaling`` and
+``cos_sim`` layers of ``paddle_tpu/layers/base.py``.
 
 Conventions (the JAX package's): non-sequence values are
 ``[batch, size]``; sequences are SequenceBatch with data
@@ -139,6 +139,12 @@ class FCLayer:
 
 @register_layer("embedding")
 class EmbeddingLayer:
+    """A table lookup. With ``ParamAttr(sparse=True)`` the table is an
+    ordinary parameter; a train step that prefetches its rows passes
+    them in ``ctx.sparse_sub[table name]`` as ``(uids, rows)``, and the
+    lookup then runs inside that block (``row_sub_lookup``), so the
+    gradient is the block's and not the table's."""
+
     @staticmethod
     def build(name, cfg, input_metas):
         m = input_metas[0]
@@ -147,20 +153,29 @@ class EmbeddingLayer:
         a = ParamAttr.of(cfg.get("param_attr"))
         pname = a.name or f"_{name}.w0"
         cfg["_w_name"] = pname
-        if cfg.get("remote") or a.remote or a.sparse:
+        if cfg.get("remote") or a.remote:
             raise NotImplementedError(
-                "remote and row-sparse embedding tables are not ported "
-                "yet (ROADMAP.md queue A.7)")
+                "remote embedding tables (the sharded embedding store, "
+                "paddle_tpu/embed/) are not ported yet (ROADMAP.md queue "
+                "A.11)")
         init = a.initializer or initializers.normal(a.initial_std or 0.01)
         specs = [ParamSpec(pname, (m.size, size), init, a)]
         return LayerMeta(size=size, seq_level=m.seq_level), specs, []
 
     @staticmethod
     def apply(ctx, name, cfg, params, inputs):
+        pname = cfg["_w_name"]
         val = inputs[0]
-        out = emb_ops.embedding_lookup(params[cfg["_w_name"]],
-                                       _payload(val),
-                                       pad_id=cfg.get("pad_id", -1))
+        ids = _payload(val)
+        table = params[pname]
+        sub = ctx.sparse_sub
+        if sub and pname in sub:
+            uids, rows = sub[pname]
+            out = emb_ops.row_sub_lookup(uids, rows, ids, table.shape[0],
+                                         pad_id=cfg.get("pad_id", -1))
+        else:
+            out = emb_ops.embedding_lookup(table, ids,
+                                           pad_id=cfg.get("pad_id", -1))
         return val.with_data(out) if isinstance(val, SequenceBatch) else out
 
 
@@ -322,3 +337,19 @@ class ScalingLayer:
         w, v = inputs
         out = _payload(w) * _payload(v)
         return v.with_data(out) if isinstance(v, SequenceBatch) else out
+
+
+@register_layer("cos_sim")
+class CosSimLayer:
+    @staticmethod
+    def build(name, cfg, input_metas):
+        return LayerMeta(size=1, seq_level=max(m.seq_level
+                                               for m in input_metas)), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        a, b = inputs
+        out = linear_ops.cos_sim(_payload(a), _payload(b),
+                                 cfg.get("scale", 1.0))[..., None]
+        ref = next((v for v in inputs if isinstance(v, SequenceBatch)), None)
+        return ref.with_data(out) if ref is not None else out

@@ -1,5 +1,5 @@
 """Dense matmul with the mixed-precision policy — the port of
-``paddle_tpu/ops/linear.py``.
+``paddle_tpu/ops/linear.py`` (with ``cos_sim``).
 
 compute_dtype float32: the product runs in full float32 (TF32 is off,
 ``paddle_tpu_torch/__init__.py``), the counterpart of the JAX
@@ -29,3 +29,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.matmul(a.to(cd), b.to(cd))
     out = torch.promote_types(a.dtype, b.dtype)
     return torch.matmul(a.to(out), b.to(out))
+
+
+def cos_sim(a: torch.Tensor, b: torch.Tensor, scale: float = 1.0,
+            eps: float = 1e-8) -> torch.Tensor:
+    """Row-wise cosine similarity (paddle/function/CosSimOp,
+    CosSimLayer): scale * <a, b> / max(|a| |b|, eps)."""
+    num = torch.sum(a * b, dim=-1)
+    den = torch.sqrt(torch.sum(a * a, dim=-1) * torch.sum(b * b, dim=-1))
+    return scale * num / torch.clamp(den, min=eps)

@@ -7,14 +7,24 @@ per-row cost summed and divided by the real row count,
 ``torch.autograd.grad`` over this trainer's parameter tensors (autograd
 leaves), and ``optimizer.update``, which writes the new values into
 those tensors under ``no_grad``; the new state (batch norm's moving
-statistics) is kept detached from the step's graph. The loss, the metrics and the
+statistics) is kept detached from the step's graph.
+
+Row-sparse tables (``ParamAttr(sparse=True)`` embeddings whose ids come
+from a data layer, ``Topology.sparse_tables``) take the row path: the
+step prefetches each table's touched rows with the optimizer's
+catch-up (under ``no_grad``), makes the row blocks fresh autograd
+leaves, looks ids up inside them (``sparse_sub``), differentiates the
+dense parameters and the row blocks — never the tables — and hands the
+row gradients to ``optimizer.update(sparse_rows=)``, which writes only
+those rows back. No ``[vocab, emb]`` gradient exists. The loss, the metrics and the
 evaluators' inputs come back to the host in one transfer per step.
 PyTorch runs the step eagerly where the JAX package jits it.
 
 Evaluators (``evaluators=[...]``, paddle_tpu_torch/evaluator) are host
 accumulators: their input layers become extra outputs of the step, and
 the rows below the batch's real count feed them. ``test`` evaluates the
-optimizer's ``test_params`` (the model average when it is on);
+optimizer's ``test_params`` (the model average when it is on, the
+sparse tables caught up to the current step);
 ``save_pass`` writes ``pass-%05d/params.tar``.
 
 Not ported yet (each raises): a device mesh, pipeline stages, the
@@ -113,7 +123,9 @@ class SGD:
             raw[k] = raw[k].detach().to(self.device).requires_grad_(True)
         for k, v in list(parameters.state.items()):
             parameters.state[k] = v.to(self.device)
-        self.optimizer = update_equation.bind(self.topology.param_specs)
+        self._sparse_map = self.topology.sparse_tables()
+        self.optimizer = update_equation.bind(
+            self.topology.param_specs, sparse_params=self._sparse_map.keys())
         self.opt_state = self.optimizer.init_state(self._own_params())
         # the random layers' seed: each step folds in its count, and each
         # layer its name (ApplyContext.rng_for)
@@ -121,6 +133,13 @@ class SGD:
         self._step_count = 0
 
     # ------------------------------------------------------------------
+    def refresh_update_hooks(self):
+        """Recompute parameter-hook state (pruning masks) from the
+        current parameter values — after loading weights into a trainer
+        already made."""
+        self.opt_state = self.optimizer.refresh_hooks(self._own_params(),
+                                                      self.opt_state)
+
     def _own_params(self) -> Dict[str, torch.Tensor]:
         raw = self.parameters.raw
         return {k: raw[k] for k in self.topology.param_specs}
@@ -135,10 +154,12 @@ class SGD:
         return torch.sum(v * mask) / max(float(n_real), 1.0)
 
     def _loss_and_metrics(self, params, state, feed, n_real: int,
-                          mode: str, rng: Optional[int] = None):
+                          mode: str, rng: Optional[int] = None,
+                          sparse_sub=None):
         outs, new_state = self.topology.forward(params, state, feed,
                                                 mode=mode, rng=rng,
-                                                n_real=n_real)
+                                                n_real=n_real,
+                                                sparse_sub=sparse_sub)
         total = 0.0
         metrics = {}
         for c in self.costs:
@@ -196,19 +217,48 @@ class SGD:
         params = self._own_params()
         rng = fold_seed(self._seed, self._step_count)
         self._step_count += 1
-        loss, (metrics, new_state, eval_outs) = self._loss_and_metrics(
-            params, self.parameters.state, feed, n_real, "train", rng)
-        names = list(params)
-        grads = torch.autograd.grad(loss, [params[k] for k in names],
-                                    allow_unused=True)
-        _, self.opt_state = self.optimizer.update(
-            params, dict(zip(names, grads)), self.opt_state, n_real)
+        loss, (metrics, new_state, eval_outs) = self._train_step(
+            params, feed, n_real, rng)
         # detached: a moving statistic that kept its graph would hold
         # every earlier step's activations alive
         self.parameters.state = {k: v.detach()
                                  for k, v in new_state.items()}
         return self._fetch_host(loss, metrics,
                                 eval_outs if fetch_evals else None)
+
+    def _train_step(self, params, feed, n_real: int, rng):
+        """The train step: prefetch each row-sparse table's touched rows,
+        forward on those row blocks, gradients of the dense parameters
+        and the blocks (never of the tables), the update. With no
+        row-sparse table it is the plain dense step."""
+        from paddle_tpu_torch.ops import embedding as emb_ops
+        next_step = self.opt_state["step"] + 1
+        slots = self.opt_state["slots"]
+        uids, rows0, slot_rows = {}, {}, {}
+        for pname, src in self._sparse_map.items():
+            v = feed[src]
+            ids = v.data if isinstance(v, SequenceBatch) else v
+            uids[pname] = emb_ops.touched_ids(ids, params[pname].shape[0])
+            rows0[pname], slot_rows[pname] = self.optimizer.sparse_prefetch(
+                pname, params[pname], slots[pname], uids[pname], next_step)
+        rows = {k: r.detach().requires_grad_(True) for k, r in rows0.items()}
+        sub = {k: (uids[k], rows[k]) for k in rows}
+        out = self._loss_and_metrics(params, self.parameters.state, feed,
+                                     n_real, "train", rng, sparse_sub=sub)
+        dense = [k for k in params if k not in self._sparse_map]
+        tables = list(rows)
+        grads = torch.autograd.grad(
+            out[0], [params[k] for k in dense] + [rows[k] for k in tables],
+            allow_unused=True)
+        g_rows = grads[len(dense):]
+        sparse_rows = {
+            k: (uids[k], torch.zeros_like(rows0[k]) if g is None else g,
+                rows0[k], slot_rows[k])
+            for k, g in zip(tables, g_rows)}
+        _, self.opt_state = self.optimizer.update(
+            params, dict(zip(dense, grads[:len(dense)])), self.opt_state,
+            n_real, sparse_rows=sparse_rows)
+        return out
 
     def _feed_evaluators(self, eval_host, n_real: int) -> Dict[str, float]:
         """Push a batch's fetched outputs through the evaluators; returns

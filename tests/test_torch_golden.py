@@ -9,9 +9,10 @@ tar) on one seeded ragged batch, and gives the JAX forward's outputs
 at rtol 1e-4 / atol 1e-5. Where the golden has a cost, autograd's
 gradients of the summed cost equal ``jax.grad``'s at the same
 tolerance (two CPU matmul libraries summing in different orders). The
-image goldens (``img_layers``, ``tpu_stem_net``) have no cost node:
-their train-mode gradients (batch norm on the batch statistics) are
-those of a fixed seeded projection of the outputs. Layers with state
+image goldens (``img_layers``, ``tpu_stem_net``) and ``cost_suite``
+(an addto of five costs) have no cost node: their train-mode gradients
+(batch norm on the batch statistics) are those of a fixed seeded
+projection of the outputs. Layers with state
 (batch norm's moving statistics) start from each package's
 ``init_state``.
 
@@ -39,12 +40,14 @@ from paddle_tpu_torch.trainer.data_feeder import DataFeeder as TFeeder
 
 RTOL, ATOL = 1e-4, 1e-5
 GOLDEN = pathlib.Path(__file__).parent / "golden"
-HELD = ["attention_net", "beam_cost_net", "bidirectional_gru", "crf_tagger",
-        "generation_helpers", "img_layers", "nested_rnn_group", "rnn_group",
-        "seq_ops_suite", "simple_fc", "simple_lstm_net", "simple_rnn",
-        "tpu_stem_net", "word_embedding_ngram"]
-# goldens without a cost whose gradients are held through a projection
-PROJECTED = ("img_layers", "tpu_stem_net")
+HELD = ["attention_net", "beam_cost_net", "bidirectional_gru", "cost_suite",
+        "crf_tagger", "generation_helpers", "img_layers", "nested_rnn_group",
+        "rank_costs", "rnn_group", "seq_ops_suite", "simple_fc",
+        "simple_lstm_net", "simple_rnn", "tpu_stem_net",
+        "word_embedding_ngram"]
+# goldens without a cost node whose gradients are held through a
+# projection (cost_suite's output is the addto of its five costs)
+PROJECTED = ("cost_suite", "img_layers", "tpu_stem_net")
 LENGTHS = (6, 2, 11)
 
 
@@ -119,7 +122,8 @@ def test_golden_forward_and_gradients_match_jax(golden):
                                    np.asarray(_jpayload(jout[k])),
                                    rtol=RTOL, atol=ATOL, err_msg=k)
     costs = [o.name for o in ttopo.outputs if _is_cost(ttopo, o.name)]
-    assert bool(costs) == (golden in ("crf_tagger", "simple_fc"))
+    assert bool(costs) == (golden in ("crf_tagger", "rank_costs",
+                                      "simple_fc"))
     if not costs and golden not in PROJECTED:
         return
     held = costs or [o.name for o in ttopo.outputs]
