@@ -402,8 +402,67 @@ Phases (any failure exits non-zero before the final line):
    1e-4 relative of the port's CPU run of the same copy from the card
    run's init tar.
 
+34. moe train — bench.py's moe_lm_bs8_t1024 (bench_moe_lm, :528-570):
+   phase 7's tied LM with every FFN an 8-expert top-2 MoE (capacity
+   factor 1.25, aux coeff 0.01; 123,900,928 parameters, 100,663,296 in
+   experts, 7 cost nodes), bf16, Adam(1e-4), 2 warm-ups then 8 timed
+   train_batch steps on phase 7's batch: every cost finite, the total
+   falling, 48 launches of each bf16 flash kernel and none of the
+   float32 ones; step_ms, tokens/s, peak memory; one step under
+   torch.profiler (idle share, top kernels, the MoE operations' share
+   of busy: the kernels under profiler ranges around ops/moe.py's
+   entry points and the autograd nodes of the operations inside
+   them). Then layer 0's MoE block of the trained table at 8192 seeded
+   tokens in float32, the sort path against the einsum path: y, aux
+   and the gradients of x, the gate and both expert tables within
+   MOE_PATH_TOL of each tensor's max |ref|.
+35. moe serve — phase 34's table through save_parameter_to_tar and
+   load_params_tar into TransformerDecoder(moe_k=2), drop-free, in a
+   DecodeEngine at phase 3's shapes (8 slots, page 16, prefix cache)
+   on the serving mix's first 8 requests: window-kernel launches ==
+   steps x 6, every request's tokens equal to the dense decoder's
+   generate under the tie rule; tokens/s.
+36. flash prefill — phase 3's LM (float32), 2 x 512-token prompts: the
+   prefill logits through the flash route (the float32 forward kernel)
+   against the einsum route (use_flash_attention off) at rtol 2e-4 /
+   atol 2e-4, exactly 6 float32 forward launches a prefill and none
+   of the others, both prefill times, generate with and without the
+   route agreeing under the tie rule.
+37. beam — the same LM, 8 seeded 32-token prompts, max_len 96, beam 4,
+   raw-sum then GNMT (alpha 0.6): the n-best lists against the CPU
+   port's same call, rank by rank the scores within 1e-4 and the same
+   path but where the CPU's score at that rank ties another of its
+   ranks within 1e-4 (a near-tie either order may take); sentences/s;
+   one raw-sum search under torch.profiler.
+38. masked lm — the port copy of demo/masked_lm/train.py (only its
+   imports changed: masked_lm_demo, the package passed in) at its own
+   sizes, pretraining 6 passes and fine-tuning 3: the MLM loss's last
+   4 under 0.75 of its first 4 (the JAX demo test's rule), the
+   fine-tune error falling, every trunk parameter loaded, and the
+   first 4 MLM costs within 1e-4 relative of the same copy on the CPU
+   port from the card run's init tars.
+39. ragged and encoder — bf16: phase 7's LM on 8 rows of seeded
+   lengths 256-1024, 2 + 4 steps (valid tokens/s, 24 launches of each
+   bf16 flash kernel), and phase 7's gradient check on those rows
+   (flash against plain, the spread-based bounds, the planted dv
+   fault); transformer_encoder at its defaults (32000, 512, 8 heads, 6
+   layers, 2048, max_len 512) on 8 masked-LM rows of lengths 128-512:
+   one step (6 launches each, non-causal); each of a step's 6 launches
+   at its recorded q, k, v and dO held per slice (out against the
+   float32 plain version; dq, dk and dv against the plain version of
+   the kernels' own functions, p and dS rounded to bf16, with phase
+   6's planted faults; against float32 printed), the
+   cost against the plain route's; the gradients' distance to a
+   float32 run printed (at this init dq cancels, so the bf16 rounding
+   of dS moves the last layer's q gradient as much as a planted fault:
+   phase 7's spread bound cannot hold it);
+   one LM step with dropout 0.1, and in a train-mode forward each
+   residual dropout's kept share within 5 sigma of 0.9 and its kept
+   values x / 0.9 exactly.
+
 Then logs the whole script's wall time and prints the kernel table as
-one JSON line (phases 28-33 add no kernel; the flash and LSTM kernels at
+one JSON line (phases 28-39 add no kernel; the launches of phases
+34-39 are on their own log lines; the flash and LSTM kernels at
 their bfloat16 times, the training dtype, naming their wgmma sources,
 with their errors in bfloat16 too; the flash kernels again at float32,
 the default dtype, as flash_attention_*_f32 with phase 24's launches
@@ -422,6 +481,7 @@ serving dtype, W 1), the card's name and power limit (nvidia-smi), and
 last {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import functools
 import json
 import re
@@ -1446,13 +1506,14 @@ def phase_flash_vs_plain():
 
 
 # ------------------------------------------------------------ phase 7
-def _lm_spec(compute_dtype):
+def _lm_spec(compute_dtype, **cfg):
+    """transformer_lm at ``cfg`` (phase 7's TRAIN by default)."""
     from paddle_tpu_torch import config
     from paddle_tpu_torch.core.registry import reset_name_counters
     from paddle_tpu_torch.models import transformer_lm
     config.init(seed=0, compute_dtype=compute_dtype)
     reset_name_counters()
-    return transformer_lm(**TRAIN)
+    return transformer_lm(**(cfg or TRAIN))
 
 
 def _lm_batch(seed=0):
@@ -1540,7 +1601,7 @@ GRAD_CHECK = {"float32": (2.0 ** -22, 1e-3, 1e-5),
 ATTN_LEAF = re.compile(r"_l\d+_(q|k|v|proj)\.w0$")
 
 
-def phase_flash_grad_check(batch, compute_dtype="float32"):
+def phase_flash_grad_check(batch, compute_dtype="float32", label=None):
     """Full width, one table, in ``compute_dtype``: the gradients of one
     Topology.forward cost with use_flash_attention True (the kernels of
     ``flash_route``: in float32 the tf32x3 forward, dq and dk/dv)
@@ -1561,7 +1622,10 @@ def phase_flash_grad_check(batch, compute_dtype="float32"):
     round differently flip a few of them: single gradient entries move
     by up to ~1e-2 of max|g| and whole parameters by ~1e-3 in norm.
     The same measures between the plain version and itself with the
-    token table scaled by (1 + 2^-22) give that noise floor."""
+    token table scaled by (1 + 2^-22) give that noise floor.
+
+    ``label`` starts the log lines (phase 39 holds its ragged rows this
+    way)."""
     from paddle_tpu_torch.config import global_config
     from paddle_tpu_torch.core.topology import Topology
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -1569,6 +1633,7 @@ def phase_flash_grad_check(batch, compute_dtype="float32"):
 
     eps, least, cost_rtol = GRAD_CHECK[compute_dtype]
     spec = _lm_spec(compute_dtype)
+    label = label or compute_dtype
     topo = Topology(spec.cost)
     params = create(topo, torch.Generator().manual_seed(1)).raw
     feed = DataFeeder(topo.data_type(), device="cuda")(batch)
@@ -1625,17 +1690,17 @@ def phase_flash_grad_check(batch, compute_dtype="float32"):
 
     a_name, a_ratio = attn_worst(rels)
     b_name, b_ratio = attn_worst(bads)
-    log(f"{compute_dtype} grads at full width over {len(names)} parameters:"
+    log(f"{label} grads at full width over {len(names)} parameters:"
         f" cost {cost_k:.6f} (kernels) vs {cost_p:.6f} (plain); kernels vs "
         f"plain worst ||diff||/||g|| {rel:.3e}, worst max|diff|/max|g| "
         f"{ent:.3e}; plain vs plain at a {eps:.3g} input perturbation "
         f"{rel_floor:.3e} and {max(ent_floors):.3e}")
-    log(f"{compute_dtype} attention leaves ({len(attn)}): ||diff||/||g|| "
+    log(f"{label} attention leaves ({len(attn)}): ||diff||/||g|| "
         f"{min(rels[i] for i in attn):.3e}-{max(rels[i] for i in attn):.3e} "
         f"against own spreads {min(floors[i] for i in attn):.3e}-"
         f"{max(floors[i] for i in attn):.3e}; worst at {a_ratio:.3f} of its "
         f"limit ({a_name})")
-    log(f"{compute_dtype} planted fault, dv x 0.85: attention leaves "
+    log(f"{label} planted fault, dv x 0.85: attention leaves "
         f"||diff||/||g|| up to {max(bads[i] for i in attn):.3e}, worst at "
         f"{b_ratio:.3f} of its limit ({b_name}: per-leaf check "
         f"{'rejects' if b_ratio > 1 else 'passes'} it); whole-table worst "
@@ -1644,13 +1709,13 @@ def phase_flash_grad_check(batch, compute_dtype="float32"):
         f" it)")
     if not rel <= max(least, 2.0 * rel_floor) or a_ratio > 1 or \
             abs(cost_k - cost_p) > cost_rtol * abs(cost_p):
-        raise AssertionError(f"{compute_dtype} flash-path gradients off the "
+        raise AssertionError(f"{label} flash-path gradients off the "
                              f"plain path: ||diff||/||g|| {rel} > max("
                              f"{least}, 2 x {rel_floor}), or {a_name} at "
                              f"{a_ratio} of its own limit, or cost {cost_k} "
                              f"vs {cost_p}")
     if not b_ratio > 1:
-        raise AssertionError(f"{compute_dtype}: the per-leaf check passes a "
+        raise AssertionError(f"{label}: the per-leaf check passes a "
                              f"planted fault (dv x 0.85): {b_name} at "
                              f"{b_ratio} of its limit")
 
@@ -5072,6 +5137,869 @@ def phase_recommendation_v2():
         "port's")
 
 
+# ------------------------------------------------------------ phase 34
+# bench.py's moe_lm_bs8_t1024 (bench_moe_lm, :528-570): phase 7's LM with
+# every FFN an 8-expert top-2 MoE (capacity factor 1.25, aux coeff 0.01)
+MOE_TRAIN = dict(TRAIN, moe_experts=8)
+MOE_PARAMS, MOE_EXPERT_PARAMS = 123900928, 100663296
+MOE_COSTS = 1 + TRAIN["n_layers"]          # the CE + one aux a layer
+# sort against einsum for one MoE layer at 8192 tokens, float32: max
+# |diff| of y and of each gradient within this share of the tensor's
+# max |ref| (the einsum's one-hot sums are exact; what differs is the
+# order of the k = 2 products a token sums)
+MOE_PATH_TOL = 2e-5
+
+
+@contextlib.contextmanager
+def _moe_ranges():
+    """The MoE block's entry points (ops/moe.py's moe_ffn and
+    moe_aux_loss, which the layers call through the module) inside
+    profiler ranges named "moe_ffn" / "moe_aux"."""
+    from paddle_tpu_torch.ops import moe as moe_ops
+    orig = (moe_ops.moe_ffn, moe_ops.moe_aux_loss)
+
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return call
+
+    moe_ops.moe_ffn = ranged("moe_ffn", orig[0])
+    moe_ops.moe_aux_loss = ranged("moe_aux", orig[1])
+    try:
+        yield
+    finally:
+        moe_ops.moe_ffn, moe_ops.moe_aux_loss = orig
+
+
+MOE_RANGES = ("moe_ffn", "moe_aux")
+
+
+def _kernels_ms(e):
+    """Device ms of the kernels launched by profiler event ``e`` and
+    its descendants (the ranges' own GPU annotations left out)."""
+    own = sum(k.duration for k in e.kernels if k.name not in MOE_RANGES)
+    return own / 1e3 + sum(_kernels_ms(c) for c in e.cpu_children)
+
+
+def _moe_share(prof):
+    """Device ms of the MoE block in one traced step: the kernels under
+    the forward's MOE_RANGES, and those of the backward nodes whose
+    sequence numbers are those of the forward operations inside them
+    (the autograd engine runs them on its own thread)."""
+    events = prof.events()
+    ranges = [e for e in events if e.name in MOE_RANGES]
+    seqs = set()
+
+    def walk(e):
+        if getattr(e, "sequence_nr", -1) >= 0:
+            seqs.add(e.sequence_nr)
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in ranges:
+        walk(e)
+    fwd = sum(_kernels_ms(e) for e in ranges)
+    bwd_nodes = [e for e in events if e.name.startswith(
+        "autograd::engine::evaluate_function:")
+        and getattr(e, "sequence_nr", -1) in seqs]
+    if not bwd_nodes:     # the node events themselves, where the engine's
+        bwd_nodes = [e for e in events    # wrappers carry no number
+                     if re.search(r"Backward\d+$", e.name)
+                     and getattr(e, "sequence_nr", -1) in seqs]
+    bwd = sum(_kernels_ms(e) for e in bwd_nodes)
+    return fwd, bwd, len(bwd_nodes)
+
+
+def phase_moe_train():
+    """Phase 34: the MoE LM at full width in bfloat16 (the bench's
+    dtype), Adam(1e-4), 2 warm-ups then 8 timed train_batch steps on
+    phase 7's seeded batch; the 7 costs finite each step, the total
+    falling, 48 launches of each bf16 flash kernel (none of the float32
+    ones), one step traced. Then the sort path against the einsum path
+    for one MoE layer at 8192 tokens in float32. Returns the trainer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.core.topology import Topology
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import SGD, create
+
+    card = nvidia_smi_line()
+    spec = _lm_spec("bfloat16", **MOE_TRAIN)
+    costs = [c.name for c in spec.cost]
+    if len(costs) != MOE_COSTS:
+        raise AssertionError(f"MoE LM cost nodes {costs}")
+    topo = Topology(spec.cost, extra_outputs=[spec.output])
+    params = create(topo, torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in params.raw.values())
+    n_expert = sum(p.numel() for k, p in params.raw.items()
+                   if "moe_up" in k or "moe_down" in k)
+    if (n_params, n_expert) != (MOE_PARAMS, MOE_EXPERT_PARAMS):
+        raise AssertionError(f"MoE LM has {n_params} parameters, "
+                             f"{n_expert} in experts")
+    trainer = SGD(spec.cost, params, Adam(learning_rate=1e-4))
+    batch = _lm_batch()
+    steps = [trainer.train_batch(batch) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _flash_counts(fa, zero=True)
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        steps.append(trainer.train_batch(batch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _flash_counts(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [c for c, _ in steps]
+    for c, m in steps:
+        if sorted(m) != sorted(costs) or not all(np.isfinite(list(
+                m.values()))) or not np.isfinite(c):
+            raise AssertionError(f"MoE LM costs {c} {m}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE LM total cost not falling: {losses}")
+    want = TRAIN_STEPS * TRAIN["n_layers"]
+    expect = {k: {"sm90": want, "tf32x3": 0} for k in launches}
+    if launches != expect:
+        raise AssertionError(f"MoE LM flash launches {launches} != "
+                             f"{expect}")
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tokens = TRAIN_ROWS * TRAIN["max_len"]
+    aux = [round(steps[-1][1][c], 5) for c in costs[1:]]
+    log(f"moe train ({card}): {n_params} parameters ({n_expert} in "
+        f"experts), bfloat16, {TRAIN_STEPS} timed steps after "
+        f"{TRAIN_WARMUP}: step_ms {step_ms:.3f}, "
+        f"{tokens / (step_ms / 1e3):.1f} tokens/s, peak {peak_gb:.3f} GB; "
+        f"total costs {[round(x, 4) for x in losses]}; last step's aux "
+        f"costs {aux}; flash launches by route {launches}")
+
+    torch.cuda.synchronize()
+    with _moe_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_batch(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel, n_ops = {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type.name == "CUDA" and ev.self_device_time_total > 0 \
+                and ev.key not in MOE_RANGES:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + \
+                ev.self_device_time_total / 1e3
+            n_ops += ev.count
+    busy = sum(by_kernel.values())
+    flash = sum(v for k, v in by_kernel.items() if "flash_" in k)
+    fwd, bwd, n_bwd = _moe_share(prof)
+    log(f"moe train trace ({card}): 1 step, wall {wall_ms:.3f} ms, device "
+        f"busy {busy:.3f} ms (idle share {1 - busy / wall_ms:.3f}) in "
+        f"{n_ops} device operations; MoE operations {fwd + bwd:.3f} ms "
+        f"({(fwd + bwd) / busy:.3f} of busy: forward {fwd:.3f}, backward "
+        f"{bwd:.3f} over {n_bwd} autograd nodes), flash kernels "
+        f"{flash:.3f} ms ({flash / busy:.3f} of busy)")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"moe train trace top kernel: {ms:.3f} ms  {name[:90]}")
+    _moe_paths_check(params.raw)
+    return trainer
+
+
+def _moe_paths_check(raw):
+    """Layer 0's MoE block of the trained table at 8192 seeded tokens in
+    float32: the sort path (the layer's "auto") against the einsum path
+    — y, aux, and the gradients of x, the gate and both expert tables
+    of sum(y * proj) + aux."""
+    from paddle_tpu_torch.ops import moe as moe_ops
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    n, d = TRAIN_ROWS * TRAIN["max_len"], TRAIN["d_model"]
+    x0 = torch.randn(n, d, generator=gen, device="cuda")
+    proj = torch.randn(n, d, generator=gen, device="cuda")
+    w0 = [raw[f"_tfm_l0_moe.{w}"].detach().float().clone()
+          for w in ("gate", "moe_up", "moe_down")]
+    cap = moe_ops.moe_capacity(n, MOE_TRAIN["moe_experts"], 2, 1.25)
+    outs = {}
+    for mode in ("einsum", "sort"):
+        leaves = [t.clone().requires_grad_() for t in [x0] + w0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux = moe_ops.moe_ffn(leaves[0], None, *leaves[1:], k=2,
+                                 capacity=cap, dispatch_mode=mode)
+        grads = torch.autograd.grad((y * proj).sum() + aux, leaves)
+        torch.cuda.synchronize()
+        outs[mode] = ([y.detach(), aux.detach().reshape(1)] + list(grads),
+                      (time.perf_counter() - t0) * 1e3,
+                      torch.cuda.max_memory_allocated() / 1e9)
+    names = ["y", "aux", "dx", "dgate", "dup", "ddown"]
+    ratios = []
+    for name, got, ref in zip(names, outs["sort"][0], outs["einsum"][0]):
+        r = ((got - ref).abs().max() / ref.abs().max()).item()
+        ratios.append(f"{name} {r:.3e}")
+        if not r <= MOE_PATH_TOL:
+            raise AssertionError(f"moe sort vs einsum at {n} tokens: {name} "
+                                 f"max|diff|/max|ref| {r} > {MOE_PATH_TOL}")
+    log(f"moe paths ({nvidia_smi_line()}): one layer at {n} tokens, E "
+        f"{MOE_TRAIN['moe_experts']}, k 2, capacity {cap}, float32: sort "
+        f"vs einsum max|diff|/max|ref| {', '.join(ratios)} (bound "
+        f"{MOE_PATH_TOL}); forward + backward {outs['sort'][1]:.3f} ms "
+        f"(sort, first call) vs {outs['einsum'][1]:.3f} ms (einsum)")
+
+
+# ------------------------------------------------------------ phase 35
+def phase_moe_serve(trainer):
+    """Phase 35: phase 34's trained table through Parameters.to_tar and
+    load_params_tar into TransformerDecoder(moe_k=2), drop-free, served
+    by DecodeEngine at the serving cell's shapes (8 slots, 16-token
+    pages, the prefix cache on) on 8 seeded requests: window-kernel
+    launches == steps x 6, every request's tokens equal to the dense
+    decoder's generate under the tie rule."""
+    import io
+
+    from paddle_tpu_torch.models.decode import TransformerDecoder
+    from paddle_tpu_torch.ops import paged_decode as ops
+    from paddle_tpu_torch.params import load_params_tar
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    buf = io.BytesIO()
+    trainer.save_parameter_to_tar(buf)
+    buf.seek(0)
+    table = load_params_tar(buf)
+    if not any("_moe." in k for k in table):
+        raise AssertionError("the trained table has no MoE blocks")
+    dec = TransformerDecoder(table, n_layers=TRAIN["n_layers"],
+                             n_heads=TRAIN["n_heads"], moe_k=2)
+    eng = DecodeEngine(dec, num_slots=SLOTS, page_size=PAGE,
+                       max_seq_len=FULL["max_len"])
+    eng.warmup()
+    prompts, news = serving_requests()
+    prompts, news = prompts[:SLOTS], news[:SLOTS]
+    torch.cuda.synchronize()
+    ops.paged_window_attention.launches = 0
+    reqs, wall = _serve(eng, prompts, news)
+    launches = ops.paged_window_attention.launches
+    st = eng.stats()
+    if launches != st["steps"] * TRAIN["n_layers"] or launches == 0:
+        raise AssertionError(f"MoE engine: window launches {launches} != "
+                             f"steps {st['steps']} x {TRAIN['n_layers']}")
+    dense = []
+    for p, n in zip(prompts, news):
+        want = dec.generate(p[None, :], max_len=len(p) + n)[0]
+        ref = dec.prefill_logits(np.concatenate([p, want])[None, :])[0]
+        dense.append((want, ref[len(p) - 1:]))
+    _check_dense(reqs, dense, "moe engine")
+    gen = st["tokens_out"]
+    log(f"moe engine ({nvidia_smi_line()}): the trained MoE table, "
+        f"{len(reqs)} requests, {gen} tokens, {st['steps']} steps, "
+        f"{wall:.3f} s, {gen / wall:.1f} tokens/s, window kernel launches "
+        f"{launches}; every request's tokens equal the dense decoder's "
+        f"(tie rule)")
+
+
+# ------------------------------------------------------------ phase 36
+PREFILL_T, PREFILL_ROWS = 512, 2
+
+
+def _serving_lm(device=None):
+    """The serving cell's LM (bench.py:434-441; float32, random weights
+    from seed 0): phase 3's decoder."""
+    from paddle_tpu_torch.models.decode import TransformerDecoder
+    from paddle_tpu_torch.params import init_transformer_lm_params
+    table = init_transformer_lm_params(FULL, seed=0)
+    return table, TransformerDecoder(table, n_layers=FULL["n_layers"],
+                                     n_heads=FULL["n_heads"], device=device)
+
+
+def phase_flash_prefill():
+    """Phase 36: a 512-token prompt (2 rows) into the serving cell's LM:
+    the prefill logits on the flash route against the einsum route
+    (use_flash_attention off) at rtol 2e-4 / atol 2e-4, exactly 6
+    launches of the float32 flash forward per prefill and none of the
+    others, both prefill times, and generate with and without the route
+    agreeing under the tie rule."""
+    from paddle_tpu_torch.config import global_config
+    from paddle_tpu_torch.models.decode import tokens_agree
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    _, dec = _serving_lm()
+    rng = np.random.RandomState(36)
+    prompt = rng.randint(0, FULL["vocab_size"],
+                         (PREFILL_ROWS, PREFILL_T)).astype(np.int32)
+    ids = dec._ids(prompt)
+
+    def prefill(flag):
+        global_config().use_flash_attention = flag
+        try:
+            with torch.no_grad():
+                return dec._prefill(ids, FULL["max_len"])[0]
+        finally:
+            global_config().use_flash_attention = True
+
+    times = {}
+    for flag in (True, False):
+        prefill(flag)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            prefill(flag)
+        torch.cuda.synchronize()
+        times[flag] = (time.perf_counter() - t0) / 5 * 1e3
+    counts0 = _flash_counts(fa, zero=True)
+    lg_f = prefill(True)
+    torch.cuda.synchronize()
+    counts = _flash_counts(fa)
+    lg_e = prefill(False)
+    if _flash_counts(fa) != counts:
+        raise AssertionError("the einsum prefill launched a flash kernel")
+    want = {"fwd": {"sm90": 0, "tf32x3": FULL["n_layers"]},
+            "dq": {"sm90": 0, "tf32x3": 0}, "dkv": {"sm90": 0, "tf32x3": 0}}
+    if counts != want:
+        raise AssertionError(f"flash prefill launches {counts} != {want} "
+                             f"(zeroed from {counts0})")
+    torch.testing.assert_close(lg_f, lg_e, rtol=2e-4, atol=2e-4)
+    err = (lg_f - lg_e).abs().max().item()
+    news = PREFILL_ROWS * [FULL["max_len"] - PREFILL_T]
+    got = dec.generate(prompt, max_len=FULL["max_len"])
+    global_config().use_flash_attention = False
+    try:
+        plain = dec.generate(prompt, max_len=FULL["max_len"])
+        ref = dec.prefill_logits(np.concatenate(
+            [prompt, np.asarray(plain)], axis=1))
+    finally:
+        global_config().use_flash_attention = True
+    for i in range(PREFILL_ROWS):
+        tol = TIE_ATOL + TIE_RTOL * float(np.abs(ref[i]).max())
+        if not tokens_agree(got[i], plain[i], ref[i, PREFILL_T - 1:], tol):
+            raise AssertionError(f"flash prefill row {i}: generate differs "
+                                 "from the einsum route's")
+    log(f"flash prefill ({nvidia_smi_line()}): {PREFILL_ROWS} x "
+        f"{PREFILL_T} tokens, float32: flash route {times[True]:.3f} ms, "
+        f"einsum route {times[False]:.3f} ms a prefill; logits max|diff| "
+        f"{err:.3e} (rtol 2e-4 / atol 2e-4); flash launches by route "
+        f"{counts} (one float32 forward a layer); generate of {news[0]} "
+        f"tokens agrees with the einsum route (tie rule)")
+    return counts["fwd"]["tf32x3"]
+
+
+# ------------------------------------------------------------ phase 37
+BEAM_PROMPTS, BEAM_PLEN, BEAM_MAX_LEN, BEAM_K = 8, 32, 96, 4
+BEAM_SCORE_TOL = 1e-4
+
+
+def phase_beam():
+    """Phase 37: beam search on the serving cell's LM, 8 seeded 32-token
+    prompts, max_len 96, beam 4, raw-sum then GNMT (alpha 0.6): the
+    n-best lists equal the CPU port's same call under ``_beam_same``'s
+    near-tie rule; sentences/s; one traced raw-sum search."""
+    from paddle_tpu_torch.models.decode import TransformerDecoder
+
+    table, dec = _serving_lm()
+    cpu = TransformerDecoder(table, n_layers=FULL["n_layers"],
+                             n_heads=FULL["n_heads"], device="cpu")
+    rng = np.random.RandomState(37)
+    prompts = rng.randint(0, FULL["vocab_size"],
+                          (BEAM_PROMPTS, BEAM_PLEN)).astype(np.int32)
+    eos = FULL["vocab_size"] - 1
+    card = nvidia_smi_line()
+    for alpha in (0.0, 0.6):
+        kw = dict(max_len=BEAM_MAX_LEN, beam_size=BEAM_K, eos_id=eos,
+                  length_penalty=alpha)
+        dec.beam_search(prompts, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = dec.beam_search(prompts, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = cpu.beam_search(prompts, **kw)
+        gap, tied = _beam_same(f"beam alpha {alpha}", got, want)
+        log(f"beam ({card}): alpha {alpha}, {BEAM_PROMPTS} prompts x "
+            f"{BEAM_PLEN} tokens, max_len {BEAM_MAX_LEN}, beam {BEAM_K}: "
+            f"{wall * 1e3:.3f} ms, {BEAM_PROMPTS / wall:.2f} sentences/s; "
+            f"n-best paths equal the CPU port's ({tied} of "
+            f"{BEAM_PROMPTS * BEAM_K} ranks ordered within a near-tie), "
+            f"scores within {gap:.3e}; best {got[0][0][0]:.4f} over "
+            f"{len(got[0][0][1])} tokens")
+    _trace(lambda: dec.beam_search(prompts, max_len=BEAM_MAX_LEN,
+                                   beam_size=BEAM_K, eos_id=eos),
+           "beam", "1 raw-sum search", "sort kernels", ("Sort", "sort"))
+
+
+def _beam_same(label, got, want):
+    """n-best lists against the CPU port's: rank by rank the scores
+    within BEAM_SCORE_TOL and the same path, except where the CPU's
+    score at that rank ties another of its ranks within the tolerance
+    (two correct runs may order such a near-tie either way). Returns
+    (the largest score gap, the ranks ordered within a near-tie)."""
+    worst, tied = 0.0, 0
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} results, {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        ws = [s for s, _ in w]
+        if len(g) != len(w):
+            raise AssertionError(f"{label}: prompt {i}: {len(g)} results")
+        for j, ((sg, pg), (sw, pw)) in enumerate(zip(g, w)):
+            worst = max(worst, abs(sg - sw))
+            if pg == pw:
+                continue
+            if not any(abs(ws[m] - sw) <= BEAM_SCORE_TOL
+                       for m in range(len(ws)) if m != j):
+                raise AssertionError(
+                    f"{label}: prompt {i} rank {j}: path {pg} ({sg}) "
+                    f"against the CPU port's {pw} ({sw}), no near-tie")
+            tied += 1
+    if worst > BEAM_SCORE_TOL:
+        raise AssertionError(f"{label}: scores off the CPU port's by "
+                             f"{worst}")
+    return worst, tied
+
+
+# ------------------------------------------------------------ phase 38
+def masked_lm_demo(paddle, use_tpu=None, pretrain_passes=6,
+                   finetune_passes=3, init_tars=None,
+                   num_batches_per_pass=None, echo=print):
+    """The port copy of demo/masked_lm/train.py, its imports changed to
+    the package passed in; ``use_tpu`` False runs on the CPU,
+    ``init_tars`` (the encoder's and the classifier's, from another run)
+    replace the seeded inits, and ``num_batches_per_pass`` cuts each
+    pass. Returns the MLM losses, the fine-tune (cost, error) pairs, the
+    loaded trunk parameter count, the encoder's parameter count and the
+    two init tars."""
+    import importlib
+    import io
+
+    import numpy as np
+    registry = importlib.import_module(paddle.__name__ + ".core.registry")
+    models = importlib.import_module(paddle.__name__ + ".models")
+    transformer_classifier = models.transformer_classifier
+    transformer_encoder = models.transformer_encoder
+
+    V, T, B = 67, 16, 32
+    D, H, L_ = 48, 4, 2
+    NUM_CLASSES = 3
+    MASK_ID = 0
+
+    def _row(rng):
+        a, b = int(rng.randint(1, V)), int(rng.randint(1, V))
+        ids = (a + np.arange(T) * b) % (V - 1) + 1       # ids in [1, V)
+        return ids.astype("int32"), b % NUM_CLASSES
+
+    def mlm_reader(rng, n_batches):
+        def reader():
+            for _ in range(n_batches):
+                rows = []
+                for _ in range(B):
+                    ids, _ = _row(rng)
+                    mask = rng.rand(T) < 0.25
+                    mask[0] = True
+                    rows.append((np.where(mask, MASK_ID, ids).astype("int32"),
+                                 np.arange(T, dtype="int32"), ids,
+                                 mask.astype("float32")[:, None]))
+                yield rows
+        return reader
+
+    def cls_reader(rng, n_batches):
+        def reader():
+            for _ in range(n_batches):
+                rows = []
+                for _ in range(B):
+                    ids, label = _row(rng)
+                    rows.append((ids, np.arange(T, dtype="int32"), label))
+                yield rows
+        return reader
+
+    def init_params(topo, i):
+        if init_tars is None:
+            params = paddle.create_parameters(topo)
+        else:
+            params = paddle.Parameters.from_tar(io.BytesIO(init_tars[i]))
+        buf = io.BytesIO()
+        params.to_tar(buf)
+        tars.append(buf.getvalue())
+        return params
+
+    tars = []
+    paddle.init(use_tpu=use_tpu, seed=0)
+    rng = np.random.RandomState(7)
+
+    # ---------------- pretrain: masked-LM over the bidirectional trunk
+    registry.reset_name_counters()
+    enc = transformer_encoder(vocab_size=V, d_model=D, n_heads=H,
+                              n_layers=L_, d_ff=2 * D, max_len=T)
+    params = init_params(
+        paddle.Topology(enc.cost, extra_outputs=[enc.output]), 0)
+    pre = paddle.SGD(cost=enc.cost, parameters=params,
+                     extra_layers=[enc.output],
+                     update_equation=paddle.optimizer.Adam(
+                         learning_rate=3e-3))
+    mlm_losses = []
+    pre.train(mlm_reader(rng, 20), num_passes=pretrain_passes,
+              event_handler=lambda e: mlm_losses.append(e.cost)
+              if isinstance(e, paddle.event.EndIteration) else None,
+              num_batches_per_pass=num_batches_per_pass)
+    echo(f"pretrain: first4 {np.mean(mlm_losses[:4]):.3f} -> "
+         f"last4 {np.mean(mlm_losses[-4:]):.3f}")
+
+    # ---------------- fine-tune: pooled class head over the SAME trunk
+    registry.reset_name_counters()
+    cls = transformer_classifier(vocab_size=V, num_classes=NUM_CLASSES,
+                                 d_model=D, n_heads=H, n_layers=L_,
+                                 d_ff=2 * D, max_len=T)
+    cls_params = init_params(paddle.Topology(cls.cost), 1)
+    loaded = 0
+    for name in cls_params.raw:
+        if name in pre.parameters.raw:       # trunk names match
+            cls_params.raw[name] = pre.parameters.raw[name]
+            loaded += 1
+    echo(f"fine-tune: {loaded} trunk parameters loaded from pretraining")
+    fin = paddle.SGD(cost=cls.cost, parameters=cls_params,
+                     update_equation=paddle.optimizer.Adam(
+                         learning_rate=1e-3),
+                     extra_layers=cls.extra_layers)
+    cls_metrics = []
+    fin.train(cls_reader(rng, 20), num_passes=finetune_passes,
+              event_handler=lambda e: cls_metrics.append(
+                  (e.cost, e.metrics.get(cls.error.name)))
+              if isinstance(e, paddle.event.EndIteration) else None,
+              num_batches_per_pass=num_batches_per_pass)
+    errs = [float(m) for _, m in cls_metrics if m is not None]
+    echo(f"fine-tune: error {np.mean(errs[:4]):.3f} -> "
+         f"{np.mean(errs[-4:]):.3f}")
+    return dict(mlm_losses=mlm_losses, cls_metrics=cls_metrics,
+                loaded=loaded, n_params=len(pre.parameters.raw),
+                init_tars=tars, trainer=fin)
+
+
+def phase_masked_lm():
+    """Phase 38: the port copy of demo/masked_lm/train.py on the card at
+    its own sizes (pretraining 6 passes, fine-tuning 3): the MLM loss
+    falls (its last 4 under 0.75 of its first 4, the JAX demo test's
+    rule), the fine-tune error falls, every trunk parameter loads, and
+    the first 4 MLM costs are within 1e-4 relative of the same copy on
+    the CPU port from the card run's init tars."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import config
+    lines = []
+    t0 = time.perf_counter()
+    r = masked_lm_demo(paddle, echo=lines.append)
+    wall = time.perf_counter() - t0
+    if r["trainer"].device.type != "cuda":
+        raise AssertionError(f"the masked-LM script trained on "
+                             f"{r['trainer'].device}, not the card")
+    mlm = np.asarray(r["mlm_losses"])
+    errs = [float(m) for _, m in r["cls_metrics"] if m is not None]
+    c = masked_lm_demo(paddle, use_tpu=False, pretrain_passes=1,
+                       finetune_passes=1, init_tars=r["init_tars"],
+                       echo=_quiet)
+    config.init(seed=0, compute_dtype="float32")      # back to the card
+    rel = float(np.max(np.abs(mlm[:4] - c["mlm_losses"][:4])
+                       / np.abs(c["mlm_losses"][:4])))
+    for line in lines:
+        log(f"masked lm: {line}")
+    if not (np.isfinite(mlm).all() and mlm[-4:].mean()
+            < 0.75 * mlm[:4].mean()):
+        raise AssertionError(f"masked lm: MLM losses {mlm}")
+    if not np.mean(errs[-4:]) < np.mean(errs[:4]):
+        raise AssertionError(f"masked lm: fine-tune errors {errs}")
+    if r["loaded"] != r["n_params"] - 1 or rel > SEQ2SEQ_CPU_RTOL:
+        raise AssertionError(f"masked lm: {r['loaded']} of "
+                             f"{r['n_params']} loaded; first costs "
+                             f"{mlm[:4]} vs the CPU port's "
+                             f"{c['mlm_losses'][:4]}")
+    log(f"masked lm ({nvidia_smi_line()}): {len(mlm)} MLM steps and "
+        f"{len(errs)} fine-tune steps in {wall:.3f} s; MLM first4 "
+        f"{mlm[:4].mean():.4f} -> last4 {mlm[-4:].mean():.4f}; fine-tune "
+        f"error {np.mean(errs[:4]):.4f} -> {np.mean(errs[-4:]):.4f}; "
+        f"{r['loaded']} trunk parameters loaded; first 4 MLM costs within "
+        f"{rel:.3g} relative of the CPU port's")
+
+
+# ------------------------------------------------------------ phase 39
+RAGGED_STEPS = 4
+ENCODER = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
+               d_ff=2048, max_len=512)
+DROPOUT = 0.1
+
+
+def _ragged_lm_batch(seed=39):
+    """TRAIN_ROWS rows of seeded lengths in 256-1024."""
+    rng = np.random.RandomState(seed)
+    rows = []
+    for _ in range(TRAIN_ROWS):
+        n = int(rng.randint(256, TRAIN["max_len"] + 1))
+        toks = rng.randint(0, TRAIN["vocab_size"], (n + 1,)).astype(np.int32)
+        rows.append((toks[:-1], np.arange(n, dtype=np.int32), toks[1:]))
+    return rows
+
+
+def _encoder_batch(seed=40):
+    """TRAIN_ROWS masked-LM rows of seeded lengths in 128-512: 15% of
+    the tokens masked to id 0, the weight 1.0 there."""
+    rng = np.random.RandomState(seed)
+    rows = []
+    for _ in range(TRAIN_ROWS):
+        n = int(rng.randint(128, ENCODER["max_len"] + 1))
+        ids = rng.randint(1, ENCODER["vocab_size"], (n,)).astype(np.int32)
+        mask = rng.rand(n) < 0.15
+        mask[0] = True
+        rows.append((np.where(mask, 0, ids).astype(np.int32),
+                     np.arange(n, dtype=np.int32), ids,
+                     mask.astype(np.float32)[:, None]))
+    return rows
+
+
+def _encoder_spec(compute_dtype):
+    from paddle_tpu_torch import config
+    from paddle_tpu_torch.core.registry import reset_name_counters
+    from paddle_tpu_torch.models import transformer_encoder
+    config.init(seed=0, compute_dtype=compute_dtype)
+    reset_name_counters()
+    return transformer_encoder(**ENCODER)
+
+
+def _timed_steps(trainer, batch, warmup, steps):
+    """(losses, step_ms, flash launches by kernel and route) of
+    ``steps`` train_batch calls after ``warmup``."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    losses = [trainer.train_batch(batch)[0] for _ in range(warmup)]
+    torch.cuda.synchronize()
+    _flash_counts(fa, zero=True)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(trainer.train_batch(batch)[0])
+    torch.cuda.synchronize()
+    return losses, (time.perf_counter() - t0) / steps * 1e3, \
+        _flash_counts(fa)
+
+
+def _grads_of_kernels(q, k, v, do, lse, dd, kv_lens, causal):
+    """(dq, dk, dv) as the bf16 dq and dk/dv kernels compute them, in
+    float32 but for their roundings: p and dS = p (dO V^T - D) scale
+    recomputed from the saved lse and D, rounded to bf16 as the wgmma
+    operands they are, times K (dq), Q (dk) and dO (dv)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    p, ds = fa._recompute(q, k, v, do, lse, dd, None, kv_lens, causal,
+                          q.shape[-1] ** -0.5)
+    p, ds = (x.to(torch.bfloat16).float() for x in (p, ds))
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()),
+            torch.einsum("bhqk,bqhd->bkhd", ds, q.float()),
+            torch.einsum("bhqk,bqhd->bkhd", p, do.float()))
+
+
+def _encoder_grad_check(batch):
+    """The encoder's non-causal flash route at full width in bfloat16,
+    from one table. (1) Every launch of one step at the shapes and
+    values the model gives it — each layer's q, k, v, kv_lens and
+    incoming dO, recorded in the kernel route — per (batch row, head)
+    slice at phase 6's bf16 bound (dO scaled by a power of two to order
+    one): out against autograd of the plain version in float32; dq, dk
+    and dv against the plain version of the functions the kernels
+    compute (_grads_of_kernels: p and dS rounded to bf16), where the
+    two planted faults of dq and of dv (_planted) must fail. Against
+    the float32 reference the gradients are printed, not bounded: at
+    this init the rows share a large common part, so dq = sum_j dS_j
+    K_j and dk = sum_i dS_i Q_i cancel and the bf16 rounding of dS
+    shows (measured: dq off by up to 0.53 of a slice's max). (2) The
+    cost within 2e-2 of the plain route's. (3)
+    Printed, not bounded: each route's gradient distance to a float32
+    run of the plain route, and a planted dv x 0.85's — that cancellation
+    makes the last layer's q gradient move by as much as the fault
+    moves it (PERF.md, PR 20), so phase 7's spread bound cannot hold
+    this model."""
+    from paddle_tpu_torch.config import global_config
+    from paddle_tpu_torch.core.topology import Topology
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.trainer import DataFeeder, create
+
+    spec = _encoder_spec("bfloat16")
+    topo = Topology(spec.cost)
+    params = create(topo, torch.Generator().manual_seed(1)).raw
+    feed = DataFeeder(topo.data_type(), device="cuda")(batch)
+    n_real = feed.pop("__batch_size__")
+    names = sorted(params)
+    leaves = [params[k].requires_grad_() for k in names]
+    cfg = global_config()
+    real_attn, real_dkv = fa.flash_attention, fa.flash_backward_dkv
+    calls = []
+
+    def recording(q, k, v, q_lens=None, kv_lens=None, causal=False,
+                  scale=None):
+        out = real_attn(q, k, v, q_lens, kv_lens, causal, scale)
+        rec = [q.detach(), k.detach(), v.detach(), kv_lens, causal]
+        out.register_hook(lambda g: rec.append(g.detach().contiguous()))
+        calls.append(rec)
+        return out
+
+    def faulty_dkv(*args):
+        dk, dv = real_dkv(*args)
+        return dk, dv * 0.85
+
+    faulty_dkv.launches = 0
+    faulty_dkv.route_launches = dict.fromkeys(fa.flash_routes("dkv"), 0)
+
+    def grads(dtype, flash_on, attn=None, dkv=None):
+        cfg.compute_dtype, cfg.use_flash_attention = dtype, flash_on
+        fa.flash_attention = attn or real_attn
+        fa.flash_backward_dkv = dkv or real_dkv
+        try:
+            outs, _ = topo.forward(params, {}, feed, n_real=n_real)
+            cost = outs[spec.cost.name].sum() / n_real
+            return cost.item(), torch.autograd.grad(cost, leaves)
+        finally:
+            cfg.compute_dtype, cfg.use_flash_attention = "bfloat16", True
+            fa.flash_attention, fa.flash_backward_dkv = real_attn, real_dkv
+
+    cost_k, g_k = grads("bfloat16", True, attn=recording)
+    cost_p, g_p = grads("bfloat16", False)
+    cost_32, g_32 = grads("float32", False)
+    _, g_bad = grads("bfloat16", True, dkv=faulty_dkv)
+    worst, planted = {}, {}
+    for rec in calls:
+        q, k, v, kv_lens, causal, do = rec
+        # dO times a power of two (exact in bf16; dq, dk, dv scale with
+        # it) to max |dO| in [1, 2): the slice floor assumes values of
+        # order 1, and a token-averaged cost's dO is far below
+        do = do * float(2.0 ** -np.floor(np.log2(do.abs().max().item())))
+        lens2 = torch.stack([torch.full_like(kv_lens, q.shape[1]),
+                             kv_lens], 1).to(torch.int32).contiguous()
+        out, lse, dd, dq, dk, dv = _flash_kernels(q, k, v, do, lens2,
+                                                  causal)
+        qf, kf, vf = (x.float().requires_grad_() for x in (q, k, v))
+        ref = fa.flash_attention_reference(qf, kf, vf, None, kv_lens,
+                                           causal, q.shape[-1] ** -0.5)
+        gq, gk, gv = torch.autograd.grad(ref, (qf, kf, vf), do.float())
+        fq, fk, fv = _grads_of_kernels(q, k, v, do, lse, dd, kv_lens,
+                                       causal)
+        for name, g, r in (("out", out, ref), ("dq", dq, fq),
+                           ("dk", dk, fk), ("dv", dv, fv),
+                           ("dq vs float32", dq, gq),
+                           ("dk vs float32", dk, gk),
+                           ("dv vs float32", dv, gv)):
+            worst[name] = max(worst.get(name, 0.0), _slice_ratio(g, r)[0])
+        for name, g, r in (("dq", dq, fq), ("dv", dv, fv)):
+            for fault, bad in _planted(name, g, r):
+                planted[fault] = min(planted.get(fault, np.inf),
+                                     _slice_ratio(bad, r)[0])
+
+    def dist(ga):
+        return [((a.float() - c.float()).norm() / c.float().norm()).item()
+                for a, c in zip(ga, g_32)]
+
+    r_k, r_p, r_bad = dist(g_k), dist(g_p), dist(g_bad)
+    i_k = max(range(len(names)), key=lambda i: r_k[i])
+    log(f"encoder bfloat16 kernels at the step's {len(calls)} launches "
+        f"(shape {tuple(calls[0][0].shape)}, non-causal), per-slice "
+        f"max|err|/max|ref|: " + ", ".join(f"{n} {r:.3e}"
+                                           for n, r in worst.items())
+        + f" (limit {BF16_ATOL} on out and the kernels' own functions, "
+        f"_grads_of_kernels); planted "
+        f"faults, least ratio: " + ", ".join(f"{n} {r:.3e}"
+                                            for n, r in planted.items()))
+    log(f"encoder bfloat16 grads over {len(names)} parameters, distance "
+        f"to a float32 run of the plain route: kernel route worst "
+        f"{r_k[i_k]:.3e} ({names[i_k]}; the plain bf16 route there "
+        f"{r_p[i_k]:.3e}, worst {max(r_p):.3e}); planted dv x 0.85 worst "
+        f"{max(r_bad):.3e}; costs {cost_k:.6f} (kernels) / {cost_p:.6f} "
+        f"(plain) / {cost_32:.6f} (float32)")
+    held = [n for n in worst if "float32" not in n]
+    if len(calls) != ENCODER["n_layers"] or \
+            max(worst[n] for n in held) > BF16_ATOL:
+        raise AssertionError(f"encoder: {len(calls)} launches, per-slice "
+                             f"ratios {worst}")
+    if min(planted.values()) <= BF16_ATOL:
+        raise AssertionError(f"encoder: the slice check passes a planted "
+                             f"fault: {planted}")
+    if abs(cost_k - cost_p) > 2e-2 * abs(cost_p):
+        raise AssertionError(f"encoder: cost {cost_k} vs {cost_p}")
+
+
+def phase_ragged_and_encoder():
+    """Phase 39: in bfloat16 at full width, (1) phase 7's LM on ragged
+    rows (lengths 256-1024): 2 + 4 steps, tokens/s counted on valid
+    tokens, 4 x 6 launches of each bf16 flash kernel, and one cost's
+    gradients through the kernels against the plain route (phase 7's
+    spread-based bounds and planted fault); (2) transformer_encoder at
+    its defaults on ragged masked-LM rows (lengths 128-512): one MLM
+    step (6 launches each, the non-causal route), held by
+    _encoder_grad_check;
+    (3) one LM step with dropout 0.1: its loss finite, and in a
+    train-mode forward each residual dropout keeps a share within 5
+    sigma of 0.9 and scales what it keeps by 1 / 0.9 exactly."""
+    from paddle_tpu_torch import config
+    from paddle_tpu_torch.core.topology import Topology
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import SGD, DataFeeder, create
+
+    card = nvidia_smi_line()
+    want = {"sm90": RAGGED_STEPS * TRAIN["n_layers"], "tf32x3": 0}
+    spec = _lm_spec("bfloat16")
+    params = create(Topology(spec.cost), torch.Generator().manual_seed(0))
+    trainer = SGD(spec.cost, params, Adam(learning_rate=1e-4))
+    batch = _ragged_lm_batch()
+    valid = sum(len(r[0]) for r in batch)
+    losses, step_ms, launches = _timed_steps(trainer, batch, TRAIN_WARMUP,
+                                             RAGGED_STEPS)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
+            any(v != want for v in launches.values()):
+        raise AssertionError(f"ragged LM: losses {losses}, launches "
+                             f"{launches}")
+    log(f"ragged lm ({card}): lengths {[len(r[0]) for r in batch]}, "
+        f"{valid} valid tokens, bfloat16, {RAGGED_STEPS} timed steps after "
+        f"{TRAIN_WARMUP}: step_ms {step_ms:.3f}, "
+        f"{valid / (step_ms / 1e3):.1f} valid tokens/s; losses "
+        f"{[round(x, 4) for x in losses]}; flash launches by route "
+        f"{launches}")
+    del trainer, params
+    phase_flash_grad_check(batch, "bfloat16", label="ragged lm bfloat16")
+
+    spec = _encoder_spec("bfloat16")
+    params = create(Topology(spec.cost, extra_outputs=[spec.output]),
+                    torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in params.raw.values())
+    trainer = SGD(spec.cost, params, Adam(learning_rate=1e-4))
+    batch = _encoder_batch()
+    losses, step_ms, launches = _timed_steps(trainer, batch, 0, 1)
+    one = {"sm90": TRAIN["n_layers"], "tf32x3": 0}
+    if not np.isfinite(losses[0]) or any(v != one
+                                         for v in launches.values()):
+        raise AssertionError(f"encoder: loss {losses}, launches {launches}")
+    log(f"encoder ({card}): {n_params} parameters, lengths "
+        f"{[len(r[0]) for r in batch]}, "
+        f"{sum(int(r[3].sum()) for r in batch)} masked tokens, bfloat16, "
+        f"one MLM step {step_ms:.3f} ms (first call), cost "
+        f"{losses[0]:.4f}; flash launches by route {launches} "
+        f"(non-causal)")
+    del trainer, params
+    _encoder_grad_check(batch)
+
+    spec = _lm_spec("bfloat16", **dict(TRAIN, dropout=DROPOUT))
+    topo = Topology(spec.cost)
+    params = create(topo, torch.Generator().manual_seed(0))
+    trainer = SGD(spec.cost, params, Adam(learning_rate=1e-4))
+    batch = _lm_batch()
+    loss = trainer.train_batch(batch)[0]
+    feed = DataFeeder(topo.data_type(), device="cuda")(batch)
+    feed.pop("__batch_size__")
+    pairs = [(f"tfm_l{i}_{a}", f"tfm_l{i}_{b}")
+             for i in range(TRAIN["n_layers"])
+             for a, b in (("proj", "drop1"), ("down", "drop2"))]
+    with torch.no_grad():
+        outs, _ = topo.forward(params.raw, {}, feed, mode="train", rng=39,
+                               output_names=[n for p in pairs for n in p])
+    shares = []
+    for a, b in pairs:
+        x, y = outs[a].data, outs[b].data
+        kept = y != 0
+        share = kept.float().mean().item()
+        sigma = (DROPOUT * (1 - DROPOUT) / kept.numel()) ** 0.5
+        if abs(share - (1 - DROPOUT)) > 5 * sigma or not torch.equal(
+                y[kept], (x / (1 - DROPOUT))[kept]):
+            raise AssertionError(f"dropout {b}: kept share {share}, or "
+                                 "kept values not x / (1 - p)")
+        shares.append(share)
+    if not np.isfinite(loss):
+        raise AssertionError(f"dropout LM loss {loss}")
+    log(f"dropout lm ({card}): p {DROPOUT}, one bfloat16 step, loss "
+        f"{loss:.4f}; kept shares {[round(v, 5) for v in shares]} (0.9 "
+        f"within 5 sigma, kept values x / 0.9 exactly)")
+    config.init(seed=0, compute_dtype="float32")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -5135,6 +6063,14 @@ def main():
     phase_seqtoseq_v2()
     phase_wide_deep()
     phase_recommendation_v2()
+    # the transformer family (phases 34-39)
+    moe_trainer = phase_moe_train()
+    phase_moe_serve(moe_trainer)
+    del moe_trainer
+    phase_flash_prefill()
+    phase_beam()
+    phase_masked_lm()
+    phase_ragged_and_encoder()
     kernels = [dict(
         name="paged_window_attention", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",

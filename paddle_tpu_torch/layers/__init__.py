@@ -13,8 +13,9 @@ sub_nested_seq, max_id, sampling_id, eos, cross_entropy_over_beam),
 the CTR and ranking path (cos_sim, square_error_cost with its aliases
 mse_cost and regression_cost, the binary and self-normalizing cross
 entropies, rank_cost, lambda_cost, the Huber and smooth-L1 costs,
-sum_cost, hsigmoid), with the JAX package's ``*_layer`` aliases of
-each.
+sum_cost, hsigmoid) and the mixture-of-experts pair (moe,
+moe_aux_cost), with the JAX package's ``*_layer`` aliases of each (the
+MoE pair has none there, and none here).
 
 Each wrapper normalizes its arguments exactly as the JAX package's
 does (activation objects -> names, non-default options only), so the
@@ -50,6 +51,8 @@ from paddle_tpu_torch.layers.crf_layers import (  # noqa: F401
     crf, crf_decoding, crf_error)
 from paddle_tpu_torch.layers.attention_layers import (  # noqa: F401
     dot_product_attention)
+from paddle_tpu_torch.layers.moe_layers import (  # noqa: F401
+    moe, moe_aux_cost)
 
 
 def _listify(x):

@@ -24,19 +24,29 @@ window kernel on the card); ``read_page`` / ``write_page`` are the
 host spill tier's device legs. ``DraftDecoder`` is the speculative
 draft over slot-private dense caches.
 
-Not in this slice (each raises ``NotImplementedError``): MoE blocks and
-beam search; the flash-attention prefill is TPU-only in the reference
-and has no counterpart here.
+MoE blocks are found in the parameter table and route through
+``ops/moe.moe_ffn`` in the shared ``_ffn``, so the paged engine serves
+an MoE table too. A prefill of 256 or more tokens on the card, with
+``use_flash_attention`` on, runs its attention through the flash
+forward kernel (``ops/flash_attention.py``) instead of the quadratic
+einsum. ``beam_search`` is an eager loop over steps: raw summed
+log-probabilities, or GNMT length-penalized scores with finished
+hypotheses banked.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch.config import global_config
 from paddle_tpu_torch.device import DeviceLike, resolve_device
+from paddle_tpu_torch.layers.seq_layers import topk_desc
+from paddle_tpu_torch.ops import flash_attention as flash
+from paddle_tpu_torch.ops import moe as moe_ops
 from paddle_tpu_torch.ops import paged_decode as paged_ops
 from paddle_tpu_torch.params import params_from_numpy
 
@@ -79,17 +89,24 @@ class TransformerDecoder:
     params: the parameter table (numpy arrays or tensors) — the JAX
     package's ``Topology.init_params`` output or a checkpoint tar read
     by ``params.load_params_tar``. Config args mirror transformer_lm.
-    ``device`` None is the CUDA card (and an error without one)."""
+    ``device`` None is the CUDA card (and an error without one).
+
+    MoE blocks are found in the table (E from the gate's shape), but k
+    is not: ``moe_k`` must match the training config. With
+    ``moe_capacity_factor`` None routing is drop-free (the capacity is
+    each call's token count), so decoding follows the training forward
+    wherever training dropped nothing; a float reproduces a training
+    capacity limit."""
 
     def __init__(self, params: Mapping, *, n_layers: int, n_heads: int,
-                 name: str = "tfm", device: DeviceLike = None):
+                 name: str = "tfm", moe_k: int = 2,
+                 moe_capacity_factor: Optional[float] = None,
+                 device: DeviceLike = None):
         self.device = resolve_device(device)
         prefix = f"_{name}"
         own = {k: v for k, v in params.items() if k.startswith(prefix)}
-        if any("_moe." in k for k in own):
-            raise NotImplementedError(
-                "MoE feed-forward blocks are not ported yet (they come "
-                "with the attention slice: ops/moe.py)")
+        self.moe_k = int(moe_k)
+        self.moe_capacity_factor = moe_capacity_factor
         self.p: Dict[str, torch.Tensor] = {
             k: v.to(self.device) for k, v in own.items()
             if isinstance(v, torch.Tensor)}
@@ -106,6 +123,16 @@ class TransformerDecoder:
         self.dtype = self.p[f"_{n}_tok_emb.w0"].dtype
 
     # ---------------------------------------------------------------- core
+    @staticmethod
+    def _use_flash_prefill(t: int, pos: int, q: torch.Tensor) -> bool:
+        """The flash-prefill gate: q [b, t, h, dh] on a CUDA card with
+        ``use_flash_attention`` on and a shape the kernels take, a
+        prompt of at least 256 tokens, and the cache empty before this
+        call (``pos == 0``)."""
+        return (q.device.type == "cuda"
+                and global_config().use_flash_attention
+                and flash.flash_supported(q, q) and t >= 256 and pos == 0)
+
     def _embed(self, ids: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         n = self.name
         return self.p[f"_{n}_tok_emb.w0"][ids] + \
@@ -128,31 +155,71 @@ class TransformerDecoder:
         v_cache[:, pos:pos + t] = v.to(v_cache.dtype)
         T = k_cache.shape[1]
         rep = h // kv_h
-        # grouped-query: q [b,t,(kv_h, rep),dh] against kv_h-head caches
-        # — the cache is read at stored width, never repeated
-        q5 = q.reshape(q.shape[0], t, kv_h, rep, dh)
-        logits = torch.einsum("bqgrd,bkgd->bgrqk", q5,
-                              k_cache.to(q.dtype)) * dh ** -0.5
-        qpos = pos + torch.arange(t, device=x.device)[:, None]
-        kpos = torch.arange(T, device=x.device)[None, :]
-        mask = (kpos <= qpos) & (kpos < kv_len)
-        logits = torch.where(mask, logits,
-                             torch.tensor(_NEG_INF, dtype=logits.dtype,
-                                          device=x.device))
-        w = torch.softmax(logits, dim=-1)
-        attn = torch.einsum("bgrqk,bkgd->bqgrd", w,
-                            v_cache.to(q.dtype)).reshape(x.shape)
+        scale = dh ** -0.5
+        if self._use_flash_prefill(t, pos, q):
+            # a long prompt into an empty cache: attention is causal over
+            # exactly these t positions, so the flash kernel streams K/V
+            # instead of the einsum's [b, g, rep, t, T] scores. GQA
+            # repeats K/V once for the prefill (q head j reads kv head
+            # j // rep, the einsum's grouping)
+            kq = k if rep == 1 else torch.repeat_interleave(k, rep, dim=2)
+            vq = v if rep == 1 else torch.repeat_interleave(v, rep, dim=2)
+            lens = torch.full((x.shape[0],), min(t, kv_len),
+                              dtype=torch.int32, device=x.device)
+            attn = flash.flash_attention(
+                q.to(x.dtype), kq.to(x.dtype), vq.to(x.dtype),
+                q_lens=lens, kv_lens=lens, causal=True,
+                scale=scale).reshape(x.shape)
+        else:
+            # grouped-query: q [b,t,(kv_h, rep),dh] against kv_h-head
+            # caches — the cache is read at stored width, never repeated
+            q5 = q.reshape(q.shape[0], t, kv_h, rep, dh)
+            logits = torch.einsum("bqgrd,bkgd->bgrqk", q5,
+                                  k_cache.to(q.dtype)) * scale
+            qpos = pos + torch.arange(t, device=x.device)[:, None]
+            kpos = torch.arange(T, device=x.device)[None, :]
+            mask = (kpos <= qpos) & (kpos < kv_len)
+            logits = torch.where(mask, logits,
+                                 torch.tensor(_NEG_INF, dtype=logits.dtype,
+                                              device=x.device))
+            w = torch.softmax(logits, dim=-1)
+            attn = torch.einsum("bgrqk,bkgd->bqgrd", w,
+                                v_cache.to(q.dtype)).reshape(x.shape)
         x = x + attn @ p[f"_{n}_l{i}_proj.w0"]
         return self._ffn(i, x)
 
     def _ffn(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        """ln2 + dense FFN + residual over [b, t, d] — shared between
-        the dense-cache block and the paged step."""
+        """ln2 + FFN (dense or MoE) + residual over [b, t, d] — shared
+        between the dense-cache block and the paged step."""
         p, n = self.p, self.name
         ln2 = _ln(x, p[f"_{n}_l{i}_ln2.w0"], p[f"_{n}_l{i}_ln2.wbias"])
-        up = torch.relu(ln2 @ p[f"_{n}_l{i}_up.w0"]
-                        + p[f"_{n}_l{i}_up.wbias"])
-        return x + up @ p[f"_{n}_l{i}_down.w0"]
+        gate = p.get(f"_{n}_l{i}_moe.gate")
+        if gate is None:
+            up = torch.relu(ln2 @ p[f"_{n}_l{i}_up.w0"]
+                            + p[f"_{n}_l{i}_up.wbias"])
+            return x + up @ p[f"_{n}_l{i}_down.w0"]
+        b_, t_, d_ = ln2.shape
+        cf = self.moe_capacity_factor
+        cap = None
+        if cf is None:
+            cap = b_ * t_
+            # the reference's bound on drop-free routing, whose einsum
+            # path would build [n, E, C=n] dispatch tensors: past it,
+            # a generous factor instead (the sort path keeps the rule)
+            if cap * cap * gate.shape[-1] > (1 << 27):
+                warnings.warn(
+                    f"moe prefill with {cap} tokens: drop-free routing "
+                    f"would need a [{cap},{gate.shape[-1]},{cap}] "
+                    "dispatch tensor; falling back to capacity_factor=2.0 "
+                    "(set moe_capacity_factor explicitly to choose)",
+                    stacklevel=2)
+                cap, cf = None, 2.0
+        y2d, _ = moe_ops.moe_ffn(
+            ln2.reshape(b_ * t_, d_), None, gate,
+            p[f"_{n}_l{i}_moe.moe_up"], p[f"_{n}_l{i}_moe.moe_down"],
+            k=self.moe_k, capacity_factor=cf if cf is not None else 1.25,
+            capacity=cap, dispatch_mode="auto")
+        return x + y2d.reshape(b_, t_, d_)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         p, n = self.p, self.name
@@ -248,9 +315,156 @@ class TransformerDecoder:
             rows.append(row)
         return rows
 
-    def beam_search(self, *args, **kwargs):
-        raise NotImplementedError(
-            "beam search is not ported yet (a later slice of the port)")
+    # ---------------------------------------------------------- beam search
+    def _vocab(self) -> int:
+        n = self.name
+        head = self.p.get(f"_{n}_head.w0")
+        return head.shape[1] if head is not None else \
+            self.p[f"_{n}_tok_emb.w0"].shape[0]
+
+    def _beam_prefill(self, prompt, max_len: int, K: int):
+        """The prompt's last-position log-probs [b, V] (float32) and the
+        caches repeated to K lanes a row ([b*K, T, g, dh])."""
+        logits, caches = self._prefill(prompt, max_len)
+        lp0 = torch.log_softmax(logits[:, -1].float(), dim=-1)
+        caches = [(kc.repeat_interleave(K, dim=0),
+                   vc.repeat_interleave(K, dim=0)) for kc, vc in caches]
+        return lp0, caches
+
+    def _beam_step(self, tokens, caches, t: int, plen: int):
+        """Feed each lane's token t-1 -> log-probs [b, K, V] (float32);
+        extends ``caches`` in place."""
+        b, K, _ = tokens.shape
+        last = tokens[:, :, t - 1].reshape(b * K)
+        pos = torch.full((b * K, 1), plen + t - 1, dtype=torch.long,
+                         device=self.device)
+        lg = self._forward(last[:, None], pos, caches, plen + t - 1,
+                           plen + t)
+        return torch.log_softmax(lg[:, -1].float(), dim=-1) \
+            .reshape(b, K, -1)
+
+    def _beam_advance(self, tokens, caches, total, t: int):
+        """Keep the K best of ``total`` [b, K, V] per row: (scores,
+        parent lanes, tokens with the winners' histories and token t,
+        caches gathered to follow the parents — fresh tensors, so no
+        later in-place cache write aliases another lane)."""
+        b, K, V = total.shape
+        scores, flat = topk_desc(total.reshape(b, K * V), K)
+        parent = flat // V
+        tokens = torch.take_along_dim(tokens, parent[:, :, None], dim=1)
+        tokens[:, :, t] = flat % V
+        pflat = (torch.arange(b, device=self.device)[:, None] * K
+                 + parent).reshape(-1)
+        caches = [(kc[pflat], vc[pflat]) for kc, vc in caches]
+        return scores, parent, tokens, caches
+
+    def _beam(self, prompt, plen: int, max_len: int, K: int, eos_id: int):
+        """Raw-sum beam search: scores are summed token log-probs; a lane
+        that emitted EOS freezes (only the EOS continuation, at no
+        cost). -> (tokens [b, K, L], scores [b, K]), best first."""
+        b = prompt.shape[0]
+        V = self._vocab()
+        lp0, caches = self._beam_prefill(prompt, max_len, K)
+        scores, tok0 = topk_desc(lp0, K)
+        tokens = torch.full((b, K, max_len - plen), eos_id,
+                            dtype=torch.long, device=self.device)
+        tokens[:, :, 0] = tok0
+        alive = tok0 != eos_id
+        frozen = torch.full((V,), _NEG_INF, device=self.device)
+        frozen[eos_id] = 0.0
+        for t in range(1, max_len - plen):
+            lp = self._beam_step(tokens, caches, t, plen)
+            lp = torch.where(alive[:, :, None], lp, frozen)
+            scores, parent, tokens, caches = self._beam_advance(
+                tokens, caches, scores[:, :, None] + lp, t)
+            alive = torch.gather(alive, 1, parent) & \
+                (tokens[:, :, t] != eos_id)
+        return tokens, scores
+
+    def _beam_gnmt(self, prompt, plen: int, max_len: int, K: int,
+                   eos_id: int, alpha: float):
+        """GNMT beam search: a hypothesis that emits EOS leaves the beam
+        and is BANKED with raw / len^alpha, freeing its lane for live
+        continuations over non-EOS tokens; at length L the live lanes
+        are drained into the bank. -> (tokens [b, K, L], penalized
+        scores [b, K]), best first."""
+        b = prompt.shape[0]
+        V = self._vocab()
+        if K >= V:
+            raise ValueError(f"gnmt beam needs beam_size={K} < "
+                             f"vocab_size={V}")
+        L = max_len - plen
+        is_eos = torch.arange(V, device=self.device) == eos_id
+        lp0, caches = self._beam_prefill(prompt, max_len, K)
+        bank_s = torch.full((b, K), _NEG_INF, device=self.device)
+        bank_t = torch.full((b, K, L), eos_id, dtype=torch.long,
+                            device=self.device)
+        # immediate EOS is the first banked candidate (length 1)
+        bank_s[:, 0] = lp0[:, eos_id]
+        scores, tok0 = topk_desc(lp0.masked_fill(is_eos, _NEG_INF), K)
+        tokens = torch.full((b, K, L), eos_id, dtype=torch.long,
+                            device=self.device)
+        tokens[:, :, 0] = tok0
+
+        def merge_bank(bank_s, bank_t, cand_s, cand_t):
+            top_s, idx = topk_desc(torch.cat([bank_s, cand_s], dim=1), K)
+            top_t = torch.take_along_dim(torch.cat([bank_t, cand_t], dim=1),
+                                         idx[:, :, None], dim=1)
+            return top_s, top_t
+
+        for t in range(1, L):
+            lp = self._beam_step(tokens, caches, t, plen)
+            # bank each lane's EOS continuation (length t + 1)
+            cand_t = tokens.clone()
+            cand_t[:, :, t] = eos_id
+            bank_s, bank_t = merge_bank(
+                bank_s, bank_t,
+                (scores + lp[:, :, eos_id]) / (t + 1.0) ** alpha, cand_t)
+            total = scores[:, :, None] + lp.masked_fill(is_eos, _NEG_INF)
+            scores, _, tokens, caches = self._beam_advance(
+                tokens, caches, total, t)
+        bank_s, bank_t = merge_bank(bank_s, bank_t,
+                                    scores / float(L) ** alpha, tokens)
+        return bank_t, bank_s
+
+    @torch.no_grad()
+    def beam_search(self, prompt, max_len: int, beam_size: int = 4,
+                    eos_id: int = 0, num_results: Optional[int] = None,
+                    length_penalty: float = 0.0):
+        """prompt [b, P] -> per-sample n-best [(score, tokens), ...],
+        best first; each row is trimmed after its first EOS.
+
+        ``length_penalty`` 0 is the raw-sum search (summed token
+        log-probs; finished beams freeze at their EOS). alpha > 0 is
+        GNMT: hypotheses that emit EOS are banked with raw / len^alpha,
+        and the returned scores are those penalized ones."""
+        prompt = self._ids(prompt)
+        plen = self._validate(prompt, int(max_len))
+        n_keep = num_results if num_results is not None else beam_size
+        if not 1 <= n_keep <= beam_size:
+            raise ValueError(f"num_results={num_results} must be in "
+                             f"[1, beam_size={beam_size}]")
+        if length_penalty < 0.0:
+            raise ValueError(f"length_penalty={length_penalty} must be "
+                             ">= 0")
+        if length_penalty > 0.0:
+            toks, scores = self._beam_gnmt(prompt, plen, int(max_len),
+                                           beam_size, eos_id,
+                                           float(length_penalty))
+        else:
+            toks, scores = self._beam(prompt, plen, int(max_len),
+                                      beam_size, eos_id)
+        toks, scores = toks.cpu().numpy(), scores.cpu().numpy()
+        out = []
+        for bi in range(toks.shape[0]):
+            rows = []
+            for ki in range(toks.shape[1]):
+                row = [int(x) for x in toks[bi, ki]]
+                if eos_id in row:
+                    row = row[:row.index(eos_id) + 1]
+                rows.append((float(scores[bi, ki]), row))
+            out.append(rows[:n_keep])
+        return out
 
     def paged(self, *, num_slots: int, page_size: int, num_pages: int,
               max_pages_per_slot: int,

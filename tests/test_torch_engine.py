@@ -231,16 +231,9 @@ def test_page_pool_refcounts():
 
 
 def test_unported_engine_options_raise():
-    """What the engine's decoder still does not port: beam search, and
-    MoE tables (refused when the decoder is built)."""
+    """What the engine still refuses: a KV quantization other than
+    int8. (Beam search and MoE tables are ported: the decoder runs
+    both.)"""
     _, tdec = _pair()
-    eng = DecodeEngine(tdec, num_slots=1, page_size=4, max_seq_len=16)
-    with pytest.raises(NotImplementedError):
-        eng.paged.dense.beam_search(np.zeros((1, 2), "int32"), max_len=6)
-    moe = {k: v.numpy() for k, v in tdec.p.items()}
-    moe["_tfm_l0_moe.gate"] = np.zeros((16, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        DecodeEngine(pt_decode.TransformerDecoder(
-            moe, n_layers=2, n_heads=2, device="cpu"))
     with pytest.raises(ValueError, match="kv_quant"):
         DecodeEngine(tdec, kv_quant="fp8")

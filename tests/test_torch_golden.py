@@ -41,8 +41,8 @@ from paddle_tpu_torch.trainer.data_feeder import DataFeeder as TFeeder
 RTOL, ATOL = 1e-4, 1e-5
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 HELD = ["attention_net", "beam_cost_net", "bidirectional_gru", "cost_suite",
-        "crf_tagger", "generation_helpers", "img_layers", "nested_rnn_group",
-        "rank_costs", "rnn_group", "seq_ops_suite", "simple_fc",
+        "crf_tagger", "generation_helpers", "img_layers", "moe_block",
+        "nested_rnn_group", "rank_costs", "rnn_group", "seq_ops_suite", "simple_fc",
         "simple_lstm_net", "simple_rnn", "tpu_stem_net",
         "word_embedding_ngram"]
 # goldens without a cost node whose gradients are held through a
@@ -122,8 +122,8 @@ def test_golden_forward_and_gradients_match_jax(golden):
                                    np.asarray(_jpayload(jout[k])),
                                    rtol=RTOL, atol=ATOL, err_msg=k)
     costs = [o.name for o in ttopo.outputs if _is_cost(ttopo, o.name)]
-    assert bool(costs) == (golden in ("crf_tagger", "rank_costs",
-                                      "simple_fc"))
+    assert bool(costs) == (golden in ("crf_tagger", "moe_block",
+                                      "rank_costs", "simple_fc"))
     if not costs and golden not in PROJECTED:
         return
     held = costs or [o.name for o in ttopo.outputs]

@@ -51,7 +51,8 @@ def test_every_module_imports_without_jax_or_paddle_tpu():
               "ops.pool", "ops.norm", "ops.fused", "layers.conv_layers",
               "layers.extra_layers", "models.image", "dataset.digits",
               "layers.group", "layers.beam", "layers.misc_layers",
-              "models.seq2seq", "dataset.wmt14"):
+              "models.seq2seq", "dataset.wmt14", "ops.moe",
+              "layers.moe_layers"):
         assert f"paddle_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

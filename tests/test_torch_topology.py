@@ -195,10 +195,6 @@ def test_unported_layers_and_options_raise():
     from paddle_tpu_torch.core.registry import make_layer
     with pytest.raises(NotImplementedError, match="not ported"):
         make_layer("mdlstm", None, [])
-    with pytest.raises(NotImplementedError, match="MoE"):
-        t_transformer_lm(**CFG, moe_experts=2)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        t_transformer_lm(**CFG, dropout=0.1)
     _, ttopo, _, _ = _topologies()
     with pytest.raises(NotImplementedError, match="mesh"):
         ttopo.forward({}, {}, {}, mesh=object())
