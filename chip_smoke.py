@@ -459,9 +459,44 @@ Phases (any failure exits non-zero before the final line):
    one LM step with dropout 0.1, and in a train-mode forward each
    residual dropout's kept share within 5 sigma of 0.9 and its kept
    values x / 0.9 exactly.
+40. googlenet — bench.py's googlenet_bs128 (bench_image, :194; the row
+   at :1573): models/image.py's googlenet at 224 x 224 x 3, 1000
+   classes, batch 128 (its inception blocks cut one wide 1x1 conv into
+   channel slices, slice_projection(channel_slice=True)),
+   Momentum(0.01/128, 0.9, L2 0.0005 x 128), in bf16 and in float32
+   (TF32 off), with torch.backends.cudnn.benchmark on for the phase: 8
+   timed steps of the trainer's step on a feed put on the card once
+   after 2 warm-ups, then 8 timed train_batch calls on one seeded
+   batch: step_ms, samples/s, the analytic model FLOPs (convs and fc;
+   forward + 2 x forward for the backward) and the TFLOP/s they imply,
+   peak memory, beside the card's name and power limit and the 2017
+   reference's own figure for the row (1149 ms a batch on one K40m,
+   BASELINE.md:18; not a target); losses finite and falling on the
+   repeated batch, parameters finite; one bf16 step under
+   torch.profiler (idle share, top kernels, the convs' share); the
+   float32 model's test-mode probabilities of 4 samples against the
+   CPU port's on the same weights and inputs (rtol 1e-4, atol 1e-5).
+41. layer families — the seven goldens that the layer families unlock
+   (util_layers, op_sugar_net, projections, misc_utils,
+   extra_algebra_layers, selection_layers, switch_order_net; read from
+   tests/golden/) serialize back equal to their files and run on the
+   card from the CPU port's init tar on the golden harness's seeded
+   batch: outputs and the gradients of a seeded projection of them
+   (of the parameters; of the float feeds for util_layers, which has
+   none) against the CPU port's at rtol 1e-4 / atol 1e-5 in float32.
+   The port copy of demo/vae/vae_train.py (only its imports changed:
+   vae_v2_demo) at --passes 6 --batches_per_pass 8: its ELBO falls
+   (the last pass under 0.7 of the first, the JAX demo test's rule)
+   and its first 8 costs are within 1e-4 relative of the same copy on
+   the CPU port from the card run's init tar. The port copy of
+   demo/quick_start/train.py (quick_start_v2_demo) at the script's
+   own widths (emb 64, hidden 64, batch 64) for 1 pass (of the
+   script's 3) and its SGD.test: its cost and AUC lines, and its first
+   8 costs within 1e-4 relative of the CPU port's from the same init
+   tar.
 
 Then logs the whole script's wall time and prints the kernel table as
-one JSON line (phases 28-39 add no kernel; the launches of phases
+one JSON line (phases 28-41 add no kernel; the launches of phases
 34-39 are on their own log lines; the flash and LSTM kernels at
 their bfloat16 times, the training dtype, naming their wgmma sources,
 with their errors in bfloat16 too; the flash kernels again at float32,
@@ -4190,7 +4225,8 @@ def _phase_convergence():
 
 
 # ------------------------------------------------------------ phase 29
-# bench.py:194 bench_image at its resnet50_bs128 row
+# bench.py:194 bench_image at its resnet50_bs128 row (phase 40 runs its
+# googlenet_bs128 row at the same shapes, batch and steps)
 RESNET = dict(height=224, width=224, channels=3, num_classes=1000)
 RESNET_BATCH, RESNET_WARMUP, RESNET_STEPS = 128, 2, 8
 RESNET_CHECK_ROWS = 4
@@ -4201,7 +4237,7 @@ RESNET_CHECK_ROWS = 4
 RESNET_PROBS_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
-def _resnet_flops(topo):
+def _model_flops(topo):
     """Analytic model FLOPs per sample of one forward pass: 2 x the
     multiply-adds of every conv and fc (batch norm, pooling and the
     activations, a few percent more, not counted)."""
@@ -4217,7 +4253,8 @@ def _resnet_flops(topo):
     return flops
 
 
-def _resnet_samples(n, seed):
+def _image_samples(n, seed):
+    """bench_image's seeded batch at its 224 x 224 x 3, 1000-class rows."""
     rng = np.random.RandomState(seed)
     dim = RESNET["height"] * RESNET["width"] * RESNET["channels"]
     img = rng.randn(n, dim).astype(np.float32)
@@ -4225,21 +4262,22 @@ def _resnet_samples(n, seed):
     return [(img[i], int(lbl[i])) for i in range(n)]
 
 
-def _resnet_train(compute_dtype, batch):
-    """bench_image's resnet50_bs128: Momentum(0.01/128, 0.9, L2
-    0.0005 x 128) on one repeated batch. As bench.py's _measure does,
-    the batch goes to the card once and the timed steps (2 warm-ups,
-    then 8) are the trainer's step on that feed; 8 train_batch calls
-    on the host samples follow, timed apart (the feeder and the host
-    copy included). Returns the trainer, the spec, the device feed and
-    the step's numbers."""
+def _image_train(model, compute_dtype, batch):
+    """bench_image's row of ``model`` (resnet50_bs128, googlenet_bs128):
+    Momentum(0.01/128, 0.9, L2 0.0005 x 128) on one repeated batch. As
+    bench.py's _measure does, the batch goes to the card once and the
+    timed steps (2 warm-ups, then 8) are the trainer's step on that
+    feed; 8 train_batch calls on the host samples follow, timed apart
+    (the feeder and the host copy included). Losses finite and falling,
+    parameters finite, and every moving statistic (if the model has
+    any) changed, finite and detached. Returns the trainer, the spec,
+    the device feed and the step's numbers."""
     import paddle_tpu_torch as paddle
-    from paddle_tpu_torch import config
+    from paddle_tpu_torch import config, models
     from paddle_tpu_torch.core.registry import reset_name_counters
-    from paddle_tpu_torch.models import resnet50
     config.init(seed=0, compute_dtype=compute_dtype)
     reset_name_counters()
-    spec = resnet50(**RESNET)
+    spec = getattr(models, model)(**RESNET)
     topo = paddle.Topology(spec.cost)
     params = paddle.create_parameters(topo)
     state0 = {k: v.clone() for k, v in params.state.items()}
@@ -4270,7 +4308,7 @@ def _resnet_train(compute_dtype, batch):
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / RESNET_STEPS * 1e3
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"resnet50 {compute_dtype}: losses not finite "
+        raise AssertionError(f"{model} {compute_dtype}: losses not finite "
                              f"and falling on the repeated batch: {losses}")
     bad = [k for k, p in params.raw.items()
            if not bool(torch.isfinite(p).all())]
@@ -4280,13 +4318,13 @@ def _resnet_train(compute_dtype, batch):
     if bad or len(moved) != len(state0) or not finite or \
             any(v.requires_grad for v in state.values()):
         raise AssertionError(
-            f"resnet50 {compute_dtype}: non-finite parameters {bad}; "
+            f"{model} {compute_dtype}: non-finite parameters {bad}; "
             f"{len(moved)} of {len(state0)} moving statistics changed, "
             f"finite {finite}")
-    flops = _resnet_flops(topo)
+    flops = _model_flops(topo)
     train_flops = 3 * flops
     tflops = train_flops * RESNET_BATCH / (step_ms / 1e3) / 1e12
-    log(f"resnet50 {compute_dtype} ({nvidia_smi_line()}): batch "
+    log(f"{model} {compute_dtype} ({nvidia_smi_line()}): batch "
         f"{RESNET_BATCH}, feed on the card, {RESNET_STEPS} timed steps "
         f"after {RESNET_WARMUP}: step_ms {step_ms:.3f}, "
         f"{RESNET_BATCH / (step_ms / 1e3):.1f} samples/s; "
@@ -4321,14 +4359,16 @@ def phase_resnet50():
     torch.backends.cudnn.benchmark = True
     log("resnet50: torch.backends.cudnn.benchmark on (the warm-up steps "
         "absorb cuDNN's autotuning)")
-    batch = _resnet_samples(RESNET_BATCH, 0)
+    batch = _image_samples(RESNET_BATCH, 0)
     out = {}
-    trainer, _, feed, out["bfloat16"] = _resnet_train("bfloat16", batch)
+    trainer, _, feed, out["bfloat16"] = _image_train("resnet50", "bfloat16",
+                                                     batch)
     _trace(lambda: trainer._step(feed, RESNET_BATCH, fetch_evals=False),
            "resnet50 bf16 train (feed on the card)", "1 step",
            "conv kernels", ("conv", "xmma", "implicit", "cudnn"))
     del trainer, feed
-    trainer, spec, _, out["float32"] = _resnet_train("float32", batch)
+    trainer, spec, _, out["float32"] = _image_train("resnet50", "float32",
+                                                    batch)
     params = trainer.parameters
     samples = [(img,) for img, _ in batch]
     paddle.infer(output_layer=spec.output, parameters=params,
@@ -6000,6 +6040,431 @@ def phase_ragged_and_encoder():
     config.init(seed=0, compute_dtype="float32")
 
 
+# ------------------------------------------------------------ phase 40
+# bench.py:194 bench_image at its googlenet_bs128 row (:1573), at
+# phase 29's shapes, batch and optimizer; the 2017 reference's own
+# figure for this row (BASELINE.md:18, from its benchmark/README.md:50):
+# one K40m, not a target
+GOOGLENET_K40M_MS = 1149.0
+
+
+def phase_googlenet():
+    """Phase 40: GoogleNet training at bench.py's googlenet_bs128 (224 x
+    224 x 3, 1000 classes, batch 128, the bench's Momentum) in bf16 and
+    in float32 (TF32 off), with cuDNN's autotuner on for the phase, as
+    phase 29 trains ResNet-50 (``_image_train``): step_ms, samples/s,
+    model TFLOP/s and peak memory; losses finite and falling on the
+    repeated batch, parameters finite; one bf16 step traced. In
+    float32, the card's test-mode probabilities of 4 samples against
+    the CPU port's on the same weights and inputs."""
+    import io
+
+    import paddle_tpu_torch as paddle
+    torch.backends.cudnn.benchmark = True
+    log("googlenet: torch.backends.cudnn.benchmark on (the warm-up steps "
+        "absorb cuDNN's autotuning)")
+    batch = _image_samples(RESNET_BATCH, 0)
+    out = {}
+    trainer, _, feed, out["bfloat16"] = _image_train("googlenet",
+                                                     "bfloat16", batch)
+    _trace(lambda: trainer._step(feed, RESNET_BATCH, fetch_evals=False),
+           "googlenet bf16 train (feed on the card)", "1 step",
+           "conv kernels", ("conv", "xmma", "implicit", "cudnn"))
+    del trainer, feed
+    trainer, spec, _, out["float32"] = _image_train("googlenet", "float32",
+                                                    batch)
+    for dt, r in out.items():
+        log(f"googlenet {dt}: {r['step_ms']:.3f} ms a batch of "
+            f"{RESNET_BATCH} against the 2017 reference's "
+            f"{GOOGLENET_K40M_MS} ms on one K40m (BASELINE.md:18; its "
+            f"figure, not a target)")
+    params = trainer.parameters
+    samples = [(img,) for img, _ in batch[:RESNET_CHECK_ROWS]]
+    probs = paddle.infer(output_layer=spec.output, parameters=params,
+                         input=samples, feeding={"image": 0})
+    buf = io.BytesIO()
+    params.to_tar(buf)
+    buf.seek(0)
+    cpu_params = paddle.Parameters.from_tar(buf, device="cpu")
+    cpu_probs = paddle.infer(output_layer=spec.output, parameters=cpu_params,
+                             input=samples, feeding={"image": 0},
+                             device="cpu")
+    err = float(np.abs(probs - cpu_probs).max())
+    if probs.shape != (RESNET_CHECK_ROWS, RESNET["num_classes"]) or \
+            not np.all(np.isfinite(probs)) or \
+            not np.allclose(probs, cpu_probs, **RESNET_PROBS_TOL):
+        raise AssertionError(
+            f"googlenet infer: probs {probs.shape}, finite "
+            f"{np.all(np.isfinite(probs))}; card against the CPU port's: "
+            f"max |diff| {err}, not within {RESNET_PROBS_TOL}")
+    log(f"googlenet float32: test-mode probs of {RESNET_CHECK_ROWS} "
+        f"samples within {err:.3g} of the CPU port's (held at "
+        f"{RESNET_PROBS_TOL}, the largest |p| "
+        f"{float(np.abs(cpu_probs).max()):.4f})")
+    torch.backends.cudnn.benchmark = False
+    del trainer, params
+    from paddle_tpu_torch import config
+    config.init(seed=0, compute_dtype="float32")
+    return out
+
+
+# ------------------------------------------------------------ phase 41
+# the goldens of the layer families, held on the card against the CPU
+# port from one init tar (forward and the gradients of a seeded
+# projection of the outputs; util_layers has no parameter: the
+# gradients of its float feeds)
+FAMILY_GOLDENS = ("util_layers", "op_sugar_net", "projections",
+                  "misc_utils", "extra_algebra_layers", "selection_layers",
+                  "switch_order_net")
+GOLDEN_TOL = dict(rtol=1e-4, atol=1e-5)
+GOLDEN_LENGTHS = (6, 2, 11)
+DEMO_CPU_BATCHES = 8
+DEMO_CPU_RTOL = 1e-4
+
+
+def vae_v2_demo(paddle, use_tpu=None, passes=40, batch_size=128,
+                batches_per_pass=10, init_tar=None, echo=print):
+    """The port copy of demo/vae/vae_train.py, its imports changed to the
+    package passed in; ``use_tpu`` False runs on the CPU and
+    ``init_tar`` (another run's) replaces the seeded init. Returns the
+    per-pass ELBO losses (the script's history), every batch's cost,
+    the prior samples' mean |coordinate| and the init tar."""
+    import importlib
+    import io
+
+    import numpy as np
+    registry = importlib.import_module(paddle.__name__ + ".core.registry")
+
+    NZ = 2           # latent dimension
+    DIM = 2          # data dimension
+
+    def build(nz=NZ, dim=DIM, hidden=64):
+        L = paddle.layer
+        act = paddle.activation
+
+        x = L.data("x", paddle.data_type.dense_vector(dim))
+        eps = L.data("eps", paddle.data_type.dense_vector(nz))
+
+        h = L.fc(x, size=hidden, act=act.Relu(), name="enc_h")
+        mu = L.fc(h, size=nz, act=None, name="enc_mu")
+        logvar = L.fc(h, size=nz, act=None, name="enc_logvar")
+
+        # z = mu + exp(0.5*logvar) * eps
+        std = L.addto([L.slope_intercept(logvar, slope=0.5)],
+                      act=act.Exp(), name="enc_std")
+        z = L.addto([mu, L.dotmul(std, eps)], name="z")
+
+        hd = L.fc(z, size=hidden, act=act.Relu(), name="dec_h")
+        recon = L.fc(hd, size=dim, act=None, name="dec_out")
+
+        # ELBO = -(recon_mse + KL); KL = -0.5 * sum(1 + logvar - mu^2 - e^lv)
+        mse = L.mse_cost(recon, x, name="recon_cost")
+        neg_mu2 = L.slope_intercept(L.dotmul(mu, mu), slope=-1.0)
+        neg_expv = L.slope_intercept(L.addto([logvar], act=act.Exp()),
+                                     slope=-1.0)
+        kl_inner = L.slope_intercept(
+            L.addto([logvar, neg_mu2, neg_expv]), slope=-0.5, intercept=-0.5)
+        kl = L.sum_cost(kl_inner, name="kl_cost")
+        return [mse, kl], x, eps, z, recon
+
+    def data_batch(rng, n):
+        """Two tight Gaussian clusters at (+2,+2) and (-2,-2)."""
+        which = rng.randint(0, 2, n)
+        centers = np.where(which[:, None] == 0, 2.0, -2.0)
+        return (centers + 0.3 * rng.randn(n, DIM)).astype("float32")
+
+    paddle.init(use_tpu=use_tpu, seed=0)
+    registry.reset_name_counters()
+    costs, x_node, eps_node, z_node, recon_node = build()
+    params = paddle.create_parameters(paddle.Topology(costs))
+    if init_tar is not None:
+        params = paddle.Parameters.from_tar(io.BytesIO(init_tar))
+    buf = io.BytesIO()
+    params.to_tar(buf)
+    trainer = paddle.SGD(cost=costs, parameters=params,
+                         update_equation=paddle.optimizer.Adam(
+                             learning_rate=4e-3))
+    rng = np.random.RandomState(0)
+    n = batch_size
+
+    hist, batch_costs = [], []
+    for p in range(passes):
+        for _ in range(batches_per_pass):
+            xs = data_batch(rng, n)
+            es = rng.randn(n, NZ).astype("float32")
+            loss, metrics = trainer.train_batch(
+                [(xs[i], es[i]) for i in range(n)])
+            batch_costs.append(loss)
+        hist.append(loss)
+        echo(f"pass {p}: elbo_loss={loss:.4f} "
+             f"recon={metrics['recon_cost']:.4f} "
+             f"kl={metrics['kl_cost']:.4f}")
+
+    # decode prior samples with the trained decoder weights: they should
+    # land near the two clusters (|coords| ~ 2)
+    zs = rng.randn(256, NZ).astype("float32")
+    w1 = np.asarray(params["_dec_h.w0"])
+    b1 = np.asarray(params["_dec_h.wbias"])
+    w2 = np.asarray(params["_dec_out.w0"])
+    b2 = np.asarray(params["_dec_out.wbias"])
+    dec = np.maximum(zs @ w1 + b1, 0.0) @ w2 + b2
+    echo(f"prior-sample abs mean: {np.abs(dec).mean(0).round(3)}")
+    return dict(hist=hist, costs=batch_costs, init_tar=buf.getvalue(),
+                prior_abs_mean=np.abs(dec).mean(0), trainer=trainer)
+
+
+def quick_start_v2_demo(paddle, use_tpu=None, num_passes=3, batch_size=64,
+                        init_tar=None, num_batches_per_pass=None,
+                        echo=print):
+    """The port copy of demo/quick_start/train.py (the IMDB text CNN with
+    AUC), its imports changed to the package passed in; ``use_tpu``
+    False runs on the CPU, ``init_tar`` (another run's) replaces the
+    seeded init and ``num_batches_per_pass`` cuts each pass. Returns
+    every batch's cost, the pass results, the test result's cost and
+    metrics and the init tar."""
+    import importlib
+    import io
+    evaluator = importlib.import_module(paddle.__name__ + ".evaluator")
+    imdb = importlib.import_module(paddle.__name__ + ".dataset.imdb")
+    convolution_net = importlib.import_module(
+        paddle.__name__ + ".models.text").convolution_net
+
+    paddle.init(use_tpu=use_tpu, seed=7)
+
+    vocab = len(imdb.word_dict())
+    model = convolution_net(vocab_size=vocab, emb_size=64, hidden_size=64)
+    parameters = paddle.create_parameters(paddle.Topology(model.cost))
+    if init_tar is not None:
+        parameters = paddle.Parameters.from_tar(io.BytesIO(init_tar))
+    buf = io.BytesIO()
+    parameters.to_tar(buf)
+    optimizer = paddle.optimizer.Adam(learning_rate=1e-3)
+    auc = evaluator.auc(model.output, model.label, name="auc")
+    trainer = paddle.SGD(cost=model.cost, parameters=parameters,
+                         update_equation=optimizer,
+                         extra_layers=model.extra_layers,
+                         evaluators=[auc])
+    costs, passes = [], []
+
+    def handler(e):
+        if isinstance(e, paddle.event.EndIteration):
+            costs.append(e.cost)
+        if isinstance(e, paddle.event.EndIteration) and e.batch_id % 25 == 0:
+            echo(f"pass {e.pass_id} batch {e.batch_id} cost {e.cost:.4f} "
+                 f"{e.evaluator}")
+        if isinstance(e, paddle.event.EndPass):
+            passes.append(dict(e.metrics))
+            echo(f"== pass {e.pass_id}: {e.evaluator}")
+
+    reader = paddle.reader.batch(
+        paddle.reader.shuffle(imdb.train(), 2048, seed=1),
+        batch_size, drop_last=True)
+    trainer.train(reader, num_passes=num_passes, event_handler=handler,
+                  feeding={"word": 0, "label": 1},
+                  num_batches_per_pass=num_batches_per_pass)
+
+    result = trainer.test(
+        paddle.reader.batch(imdb.test(), batch_size),
+        feeding={"word": 0, "label": 1})
+    echo(f"test: cost {result.cost:.4f} {result.evaluator}")
+    return dict(costs=costs, passes=passes, test_cost=result.cost,
+                test_metrics=dict(result.metrics), init_tar=buf.getvalue(),
+                trainer=trainer)
+
+
+def golden_samples(data_types, seed=4):
+    """The golden harness's seeded batch (tests/test_torch_golden.py):
+    one sample per entry of GOLDEN_LENGTHS; every sequence column of a
+    sample has that length, a nested one cut into seeded subsequences
+    of 1-4 steps."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for L in GOLDEN_LENGTHS:
+        row = []
+        for _, it in data_types:
+            seq = it.seq_type.value > 0
+            shape = (L,) if seq else ()
+            if it.kind == "integer":
+                v = rng.randint(0, it.dim, shape).astype(np.int32) \
+                    if seq else int(rng.randint(0, it.dim))
+            else:
+                v = rng.randn(*(shape + (it.dim,))).astype(np.float32)
+            if it.seq_type.value == 2:
+                cuts, at = [], 0
+                while at < L:
+                    cuts.append(v[at:at + int(rng.randint(1, 5))])
+                    at += len(cuts[-1])
+                v = cuts
+            row.append(v)
+        out.append(tuple(row))
+    return out
+
+
+def _golden_run(topo, tar, samples, device):
+    """Test-mode outputs, then the gradients of a seeded projection of
+    the train-mode outputs (of the parameters, or of the float feeds
+    where there is none), all as numpy."""
+    import io
+
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.trainer import Parameters
+    from paddle_tpu_torch.trainer.data_feeder import DataFeeder
+    raw = Parameters.from_tar(io.BytesIO(tar), device=device).raw
+    feed = DataFeeder(topo.data_type(), device=device)(samples)
+    feed.pop("__batch_size__")
+    state = topo.init_state(device=device)
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in raw.items()}
+
+    def payload(v):
+        return v.data if isinstance(v, SequenceBatch) else v
+
+    outs, _ = topo.forward(leaves, state, feed, mode="test")
+    names = [o.name for o in topo.outputs]
+    got = {k: payload(outs[k]).detach().cpu().numpy() for k in names}
+    rng = np.random.RandomState(9)
+    proj = {k: torch.as_tensor(rng.randn(*got[k].shape).astype(np.float32),
+                               device=device) for k in names}
+    if leaves:
+        wrt = dict(sorted(leaves.items()))
+    else:
+        wrt = {k: v.clone().requires_grad_() for k, v in sorted(feed.items())
+               if isinstance(v, torch.Tensor) and v.is_floating_point()}
+        feed = dict(feed, **wrt)
+    outs, _ = topo.forward(leaves, state, feed, mode="train",
+                           output_names=names)
+    loss = sum((payload(outs[k]) * proj[k]).sum() for k in names)
+    grads = torch.autograd.grad(loss, list(wrt.values()))
+    got.update({f"d/d{k}": g.detach().cpu().numpy()
+                for k, g in zip(wrt, grads)})
+    return got
+
+
+def _family_goldens():
+    """The seven goldens of the layer families on the card against the
+    CPU port, from the CPU port's init tar."""
+    import io
+    import pathlib
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.topology import Topology
+    root = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
+    worst = {}
+    for name in FAMILY_GOLDENS:
+        blob = (root / f"{name}.json").read_text()
+        topo = Topology.deserialize(blob)
+        if json.loads(topo.serialize()) != json.loads(blob):
+            raise AssertionError(f"golden {name}: does not serialize back "
+                                 "equal to the file")
+        buf = io.BytesIO()
+        paddle.create_parameters(topo, device="cpu").to_tar(buf)
+        samples = golden_samples(topo.data_type())
+        card = _golden_run(topo, buf.getvalue(), samples, "cuda")
+        cpu = _golden_run(topo, buf.getvalue(), samples, "cpu")
+        if sorted(card) != sorted(cpu):
+            raise AssertionError(f"golden {name}: {sorted(card)} against "
+                                 f"{sorted(cpu)}")
+        err = 0.0
+        for k in cpu:
+            if card[k].shape != cpu[k].shape or \
+                    not np.all(np.isfinite(card[k])) or \
+                    not np.allclose(card[k], cpu[k], **GOLDEN_TOL):
+                raise AssertionError(
+                    f"golden {name} {k}: card against the CPU port's, "
+                    f"max |diff| {float(np.abs(card[k] - cpu[k]).max())}, "
+                    f"not within {GOLDEN_TOL}")
+            err = max(err, float(np.abs(card[k] - cpu[k]).max()))
+        worst[name] = (err, len(cpu) - len(topo.outputs))
+    return worst
+
+
+def _rel(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def phase_layer_families():
+    """Phase 41: the layer families on the card. The seven goldens that
+    the slice unlocks (util_layers, op_sugar_net, projections,
+    misc_utils, extra_algebra_layers, selection_layers,
+    switch_order_net) from the CPU port's init tar: outputs and
+    gradients against the CPU port's at rtol 1e-4 / atol 1e-5 in
+    float32. The port copy of demo/vae at 6 passes of 8 batches: its
+    ELBO falls (the last pass under 0.7 of the first, the JAX demo
+    test's rule) and its first 8 costs are within 1e-4 relative of the
+    same copy on the CPU port from the card run's init tar. The port
+    copy of demo/quick_start at its own widths for 1 pass (of the
+    script's 3) and its test sweep: its cost and AUC lines, and its
+    first 8 costs within 1e-4 relative of the CPU port's."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import config
+    from paddle_tpu_torch.core.registry import reset_name_counters
+    card = nvidia_smi_line()
+    config.init(seed=0, compute_dtype="float32")
+    t0 = time.perf_counter()
+    worst = _family_goldens()
+    log(f"layer families ({card}): {len(worst)} goldens on the card "
+        f"against the CPU port in {time.perf_counter() - t0:.3f} s, "
+        f"outputs and gradients within {GOLDEN_TOL}; worst |diff| (and "
+        f"gradients held) by golden: "
+        f"{ {k: (float(f'{e:.3g}'), n) for k, (e, n) in worst.items()} }")
+
+    lines = []
+    t0 = time.perf_counter()
+    v = vae_v2_demo(paddle, passes=6, batches_per_pass=8, echo=lines.append)
+    wall = time.perf_counter() - t0
+    if v["trainer"].device.type != "cuda":
+        raise AssertionError(f"the vae script trained on "
+                             f"{v['trainer'].device}, not the card")
+    c = vae_v2_demo(paddle, use_tpu=False, passes=1,
+                    batches_per_pass=DEMO_CPU_BATCHES,
+                    init_tar=v["init_tar"], echo=_quiet)
+    config.init(seed=0, compute_dtype="float32")      # back to the card
+    rel = _rel(v["costs"][:DEMO_CPU_BATCHES], c["costs"])
+    for line in lines:
+        log(f"vae v2: {line}")
+    hist = np.asarray(v["hist"])
+    if not (np.isfinite(hist).all() and hist[-1] < hist[0] * 0.7) or \
+            rel > DEMO_CPU_RTOL:
+        raise AssertionError(f"vae v2: elbo per pass {hist}; first costs "
+                             f"{v['costs'][:DEMO_CPU_BATCHES]} against the "
+                             f"CPU port's {c['costs']}")
+    log(f"vae v2 ({card}): {len(v['costs'])} train batches in {wall:.3f} s; "
+        f"elbo {hist[0]:.4f} -> {hist[-1]:.4f}; first {DEMO_CPU_BATCHES} "
+        f"costs within {rel:.3g} relative of the CPU port's")
+
+    lines = []
+    reset_name_counters()             # one set of layer names for both runs
+    t0 = time.perf_counter()
+    q = quick_start_v2_demo(paddle, num_passes=1, echo=lines.append)
+    wall = time.perf_counter() - t0
+    if q["trainer"].device.type != "cuda":
+        raise AssertionError(f"the quick_start script trained on "
+                             f"{q['trainer'].device}, not the card")
+    reset_name_counters()
+    c = quick_start_v2_demo(paddle, use_tpu=False, num_passes=1,
+                            num_batches_per_pass=DEMO_CPU_BATCHES,
+                            init_tar=q["init_tar"], echo=_quiet)
+    config.init(seed=0, compute_dtype="float32")      # back to the card
+    rel = _rel(q["costs"][:DEMO_CPU_BATCHES], c["costs"])
+    for line in lines:
+        log(f"quick_start v2: {line}")
+    n_train = sum(1 for _ in paddle.dataset.imdb.train()())
+    test_auc = q["test_metrics"].get("auc")
+    if len(q["costs"]) != n_train // 64 or \
+            not np.all(np.isfinite(q["costs"])) or \
+            not np.isfinite(q["test_cost"]) or test_auc is None or \
+            len(c["costs"]) != DEMO_CPU_BATCHES or rel > DEMO_CPU_RTOL:
+        raise AssertionError(
+            f"quick_start v2: {len(q['costs'])} steps, costs "
+            f"{q['costs'][:DEMO_CPU_BATCHES]} against the CPU port's "
+            f"{c['costs']}, test {q['test_cost']} {q['test_metrics']}")
+    log(f"quick_start v2 ({card}): {len(q['costs'])} train batches and the "
+        f"test sweep in {wall:.3f} s; costs {q['costs'][0]:.4f} -> "
+        f"{q['costs'][-1]:.4f}, test cost {q['test_cost']:.4f}, test auc "
+        f"{float(test_auc):.4f}; first {DEMO_CPU_BATCHES} costs within "
+        f"{rel:.3g} relative of the CPU port's")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -6071,6 +6536,9 @@ def main():
     phase_beam()
     phase_masked_lm()
     phase_ragged_and_encoder()
+    # the layer families (phases 40-41)
+    phase_googlenet()
+    phase_layer_families()
     kernels = [dict(
         name="paged_window_attention", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",

@@ -45,7 +45,7 @@ Slices ported so far:
   (reader/), the MNIST and CoNLL-05 datasets with their synthetic
   fallback (dataset/), the evaluators (evaluator/), every optimizer
   and schedule of the JAX package with model averaging, and
-  ``SGD.save_pass``. ``op`` and ``model`` are not ported yet.
+  ``SGD.save_pass``. ``model`` is not ported yet.
 - the image path — conv, pool, batch norm, LRN, space_to_depth and
   dropout (ops/conv.py, ops/pool.py, ops/norm.py, ops/fused.py,
   layers/conv_layers.py), the image stacks of networks.py and
@@ -61,6 +61,12 @@ Slices ported so far:
   regression) and dataset/movielens.py. The JAX package computes the
   row path with XLA outside Pallas, so it runs on PyTorch's sort,
   searchsorted, gathers and index copies.
+- the layer families — the element-wise, projection and selection
+  layer types, ``mixed`` and the projections, ``op`` (the LayerOutput
+  operators), ``models.convolution_net`` / ``ngram_lm`` /
+  ``crf_tagger`` / ``googlenet`` and ``dataset.imdb``. The JAX package
+  computes them outside Pallas: plain PyTorch ops, and cuDNN for
+  GoogleNet's convs.
 
 Entry points run on the card unless the caller passes
 ``device="cpu"`` or called ``init(use_gpu=False)``; with no GPU and no
@@ -102,6 +108,7 @@ from paddle_tpu_torch import activation  # noqa: E402
 from paddle_tpu_torch import attr  # noqa: E402
 from paddle_tpu_torch import pooling  # noqa: E402
 from paddle_tpu_torch import evaluator  # noqa: E402
+from paddle_tpu_torch import op  # noqa: E402  (installs the operators)
 
 __all__ = [
     "init",
@@ -122,5 +129,6 @@ __all__ = [
     "attr",
     "pooling",
     "evaluator",
+    "op",
     "resolve_device",
 ]

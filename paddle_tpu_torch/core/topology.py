@@ -278,9 +278,10 @@ def _unjsonify(obj):
         if "__param_attr__" in obj:
             d = dict(obj["__param_attr__"])
             if d.get("update_hooks"):
-                raise NotImplementedError(
-                    "parameter update hooks (pruning) are not ported yet")
-            d.pop("update_hooks", None)
+                from paddle_tpu_torch.attr import HookAttribute
+                d["update_hooks"] = [
+                    HookAttribute(h["type"], h.get("sparsity_ratio"))
+                    for h in d["update_hooks"]]
             return ParamAttr(**d)
         return {k: _unjsonify(v) for k, v in obj.items()}
     if isinstance(obj, list):

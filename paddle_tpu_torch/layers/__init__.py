@@ -13,9 +13,15 @@ sub_nested_seq, max_id, sampling_id, eos, cross_entropy_over_beam),
 the CTR and ranking path (cos_sim, square_error_cost with its aliases
 mse_cost and regression_cost, the binary and self-normalizing cross
 entropies, rank_cost, lambda_cost, the Huber and smooth-L1 costs,
-sum_cost, hsigmoid) and the mixture-of-experts pair (moe,
-moe_aux_cost), with the JAX package's ``*_layer`` aliases of each (the
-MoE pair has none there, and none here).
+sum_cost, hsigmoid), the mixture-of-experts pair (moe,
+moe_aux_cost), ``multi_head_attention``, and the layer families:
+``mixed`` with the projections (full_matrix, identity, slice, table,
+scaling, dotmul, trans_full_matrix), the element-wise types (dotmul,
+interpolation, slope_intercept, outer_prod, sum_to_one_norm, trans,
+resize, clip, scale_shift, power, featmap_expand), data_norm,
+selective_fc, multiplex, print_layer, tensor, conv_shift,
+linear_comb, prelu, row_l2_norm and switch_order — with the JAX
+package's ``*_layer`` aliases of each, and none it lacks.
 
 Each wrapper normalizes its arguments exactly as the JAX package's
 does (activation objects -> names, non-default options only), so the
@@ -50,7 +56,7 @@ from paddle_tpu_torch.layers.beam import (  # noqa: F401
 from paddle_tpu_torch.layers.crf_layers import (  # noqa: F401
     crf, crf_decoding, crf_error)
 from paddle_tpu_torch.layers.attention_layers import (  # noqa: F401
-    dot_product_attention)
+    dot_product_attention, multi_head_attention)
 from paddle_tpu_torch.layers.moe_layers import (  # noqa: F401
     moe, moe_aux_cost)
 
@@ -152,6 +158,108 @@ def scaling(weight, input, name: Optional[str] = None, **kw) -> LayerOutput:
 
 
 scaling_layer = scaling
+
+
+def dotmul(a, b, scale: float = 1.0, name: Optional[str] = None) -> LayerOutput:
+    return make_layer("dotmul", name, [a, b], scale=scale)
+
+
+def interpolation(input, weight, name: Optional[str] = None,
+                  **kw) -> LayerOutput:
+    a, b = input
+    return make_layer("interpolation", name, [weight, a, b])
+
+
+interpolation_layer = interpolation
+
+
+def slope_intercept(input, slope: float = 1.0, intercept: float = 0.0,
+                    name: Optional[str] = None, **kw) -> LayerOutput:
+    return make_layer("slope_intercept", name, [input], slope=slope,
+                      intercept=intercept)
+
+
+slope_intercept_layer = slope_intercept
+
+
+def outer_prod(a, b, name: Optional[str] = None) -> LayerOutput:
+    return make_layer("outer_prod", name, [a, b])
+
+
+def sum_to_one_norm(input, name: Optional[str] = None) -> LayerOutput:
+    return make_layer("sum_to_one_norm", name, [input])
+
+
+sum_to_one_norm_layer = sum_to_one_norm
+
+
+def trans(input, name: Optional[str] = None) -> LayerOutput:
+    return make_layer("trans", name, [input])
+
+
+trans_layer = trans
+
+
+def resize(input, size: int, name: Optional[str] = None) -> LayerOutput:
+    return make_layer("resize", name, [input], size=size)
+
+
+resize_layer = resize
+
+
+def mixed(size: int = 0, input=None, act=None, name: Optional[str] = None,
+          bias_attr=None, **kw) -> LayerOutput:
+    """mixed_layer: the sum of its projections (each already a node),
+    with an optional bias and activation — an ``addto``."""
+    return make_layer("addto", name, _listify(input),
+                      act=act_mod.to_name(act), bias_attr=bias_attr)
+
+
+mixed_layer = mixed
+
+
+# Projections are plain nodes here, summed by mixed() / addto.
+
+def full_matrix_projection(input, size: int, param_attr=None,
+                           **kw) -> LayerOutput:
+    return make_layer("fc", None, [input], size=size, act="linear",
+                      param_attr=param_attr, bias_attr=False)
+
+
+def identity_projection(input, offset: int = 0, size: Optional[int] = None,
+                        **kw):
+    if offset == 0 and size is None:
+        return input
+    sz = size if size is not None else input.size - offset
+    return slice_projection(input, offset, offset + sz)
+
+
+def slice_projection(input, start: int, end: int,
+                     channel_slice: bool = False, **kw) -> LayerOutput:
+    return make_layer("slice", None, [input], start=start, end=end,
+                      channel_slice=channel_slice)
+
+
+def table_projection(input, size: int, param_attr=None,
+                     **kw) -> LayerOutput:
+    return make_layer("embedding", None, [input], size=size,
+                      param_attr=param_attr)
+
+
+def scaling_projection(input, param_attr=None, **kw) -> LayerOutput:
+    return make_layer("scaling_projection", None, [input],
+                      param_attr=param_attr)
+
+
+def dotmul_projection(input, param_attr=None, **kw) -> LayerOutput:
+    return make_layer("dotmul_projection", None, [input],
+                      param_attr=param_attr)
+
+
+def trans_full_matrix_projection(input, size: int, param_attr=None,
+                                 **kw) -> LayerOutput:
+    return make_layer("trans_fc", None, [input], size=size,
+                      param_attr=param_attr)
 
 
 def context_projection(input, context_len: int, context_start=None,
@@ -496,3 +604,106 @@ def sampling_id(input, name=None, **kw) -> LayerOutput:
 
 def eos(input, eos_id: int, name=None, **kw) -> LayerOutput:
     return make_layer("eos_id", name, [input], eos_id=eos_id)
+
+
+def multiplex(input, name=None, **kw) -> LayerOutput:
+    return make_layer("multiplex", name, _listify(input))
+
+
+# ---------------------------------------------------------------------------
+# element-wise and feature utilities
+
+
+def clip(input, min: float, max: float, name=None, **kw) -> LayerOutput:
+    return make_layer("clip", name, [input], min=min, max=max)
+
+
+def scale_shift(input, name=None, param_attr=None, bias_attr=None,
+                **kw) -> LayerOutput:
+    return make_layer("scale_shift", name, [input], param_attr=param_attr,
+                      bias_attr=bias_attr)
+
+
+def power(input, weight, name=None, **kw) -> LayerOutput:
+    return make_layer("power", name, [weight, input])
+
+
+def featmap_expand(input, num_filters: int, as_row_vector: bool = True,
+                   name=None, **kw) -> LayerOutput:
+    return make_layer("featmap_expand", name, [input],
+                      num_filters=num_filters, as_row_vector=as_row_vector)
+
+
+def data_norm(input, data_norm_strategy: str = "z-score", name=None,
+              param_attr=None, **kw) -> LayerOutput:
+    return make_layer("data_norm", name, [input],
+                      data_norm_strategy=data_norm_strategy,
+                      param_attr=param_attr)
+
+
+def selective_fc(input, size: int, select=None, act=None, name=None,
+                 param_attr=None, bias_attr=None, **kw) -> LayerOutput:
+    inputs = _listify(input) + ([select] if select is not None else [])
+    return make_layer("selective_fc", name, inputs, size=size,
+                      act=act_mod.to_name(act), param_attr=param_attr,
+                      bias_attr=bias_attr)
+
+
+def print_layer(input, format=None, name=None, **kw) -> LayerOutput:
+    return make_layer("print", name, [input],
+                      **({"format": format} if format else {}))
+
+
+# ---------------------------------------------------------------------------
+# bilinear, addressing and normalization types
+
+
+def tensor(a, b, size: int, act=None, name=None, param_attr=None,
+           bias_attr=None, **kw) -> LayerOutput:
+    return make_layer("tensor", name, [a, b], size=size,
+                      act=act_mod.to_name(act), param_attr=param_attr,
+                      bias_attr=bias_attr)
+
+
+tensor_layer = tensor
+
+
+def conv_shift(a, b, name=None, **kw) -> LayerOutput:
+    return make_layer("conv_shift", name, [a, b])
+
+
+conv_shift_layer = conv_shift
+
+
+def linear_comb(weights, vectors, size: int = None, name=None,
+                **kw) -> LayerOutput:
+    return make_layer("convex_comb", name, [weights, vectors], size=size)
+
+
+linear_comb_layer = linear_comb
+convex_comb_layer = linear_comb
+
+
+def prelu(input, partial_sum: int = 1, name=None, param_attr=None,
+          **kw) -> LayerOutput:
+    return make_layer("prelu", name, [input], partial_sum=partial_sum,
+                      param_attr=param_attr)
+
+
+prelu_layer = prelu
+
+
+def row_l2_norm(input, name=None, **kw) -> LayerOutput:
+    return make_layer("row_l2_norm", name, [input])
+
+
+row_l2_norm_layer = row_l2_norm
+
+
+def switch_order(input, reshape_axis=None, height=None, width=None,
+                 name=None, **kw) -> LayerOutput:
+    return make_layer("switch_order", name, [input], height=height,
+                      width=width)
+
+
+switch_order_layer = switch_order

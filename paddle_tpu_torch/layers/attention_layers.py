@@ -93,3 +93,6 @@ def dot_product_attention(query, key=None, value=None, num_heads: int = 1,
     opts = {"num_kv_heads": num_kv_heads} if num_kv_heads else {}
     return make_layer("dot_product_attention", name, [query, key, value],
                       num_heads=num_heads, causal=causal, **opts)
+
+
+multi_head_attention = dot_product_attention

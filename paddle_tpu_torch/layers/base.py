@@ -1,6 +1,10 @@
-"""Core layers — the port of the ``data``, ``fc``, ``embedding``,
-``dropout``, ``addto``, ``concat``, ``batch_norm``, ``scaling`` and
-``cos_sim`` layers of ``paddle_tpu/layers/base.py``.
+"""Core layers — the port of ``paddle_tpu/layers/base.py``: ``data``,
+``fc``, ``embedding``, ``dropout``, ``addto``, ``concat``,
+``batch_norm``, ``scaling`` and ``cos_sim``, the element-wise types
+(``dotmul``, ``interpolation``, ``slope_intercept``, ``outer_prod``,
+``sum_to_one_norm``, ``trans``, ``resize``) and the projections that
+are layers of their own (``slice``, ``scaling_projection``,
+``dotmul_projection``, ``trans_fc``).
 
 Conventions (the JAX package's): non-sequence values are
 ``[batch, size]``; sequences are SequenceBatch with data
@@ -21,6 +25,7 @@ from paddle_tpu_torch.core.registry import (LayerMeta, ParamAttr, ParamSpec,
                                             StateSpec, default_weight_init,
                                             register_layer)
 from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.layers.conv_layers import ensure_nhwc
 from paddle_tpu_torch.ops import activations as act_ops
 from paddle_tpu_torch.ops import embedding as emb_ops
 from paddle_tpu_torch.ops import linear as linear_ops
@@ -353,3 +358,194 @@ class CosSimLayer:
                                  cfg.get("scale", 1.0))[..., None]
         ref = next((v for v in inputs if isinstance(v, SequenceBatch)), None)
         return ref.with_data(out) if ref is not None else out
+
+
+@register_layer("dotmul")
+class DotMulLayer:
+    """dotmul_operator as a layer: elementwise a * b, optionally
+    scaled."""
+    @staticmethod
+    def build(name, cfg, input_metas):
+        return LayerMeta(size=input_metas[0].size,
+                         seq_level=max(m.seq_level
+                                       for m in input_metas)), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        a, b = inputs
+        ref = next((v for v in inputs if isinstance(v, SequenceBatch)), None)
+        out = cfg.get("scale", 1.0) * _payload(a) * _payload(b)
+        return ref.with_data(out) if ref is not None else out
+
+
+@register_layer("interpolation")
+class InterpolationLayer:
+    """w * a + (1 - w) * b with a per-row weight (input 0, [b, 1])."""
+    @staticmethod
+    def build(name, cfg, input_metas):
+        return LayerMeta(size=input_metas[1].size,
+                         seq_level=input_metas[1].seq_level), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        w, a, b = inputs
+        out = linear_ops.interpolation(_payload(w), _payload(a), _payload(b))
+        ref = next((v for v in (a, b) if isinstance(v, SequenceBatch)), None)
+        return ref.with_data(out) if ref is not None else out
+
+
+@register_layer("slope_intercept")
+class SlopeInterceptLayer:
+    @staticmethod
+    def build(name, cfg, input_metas):
+        m = input_metas[0]
+        return LayerMeta(size=m.size, seq_level=m.seq_level), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        return _map_seq(
+            lambda x: linear_ops.slope_intercept(
+                x, cfg.get("slope", 1.0), cfg.get("intercept", 0.0)),
+            inputs[0])
+
+
+@register_layer("outer_prod")
+class OuterProdLayer:
+    """Row-wise outer product [b, m], [b, n] -> [b, m*n]."""
+    @staticmethod
+    def build(name, cfg, input_metas):
+        return LayerMeta(size=input_metas[0].size
+                         * input_metas[1].size), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        return linear_ops.outer(_payload(inputs[0]), _payload(inputs[1]))
+
+
+@register_layer("sum_to_one_norm")
+class SumToOneNormLayer:
+    @staticmethod
+    def build(name, cfg, input_metas):
+        m = input_metas[0]
+        return LayerMeta(size=m.size, seq_level=m.seq_level), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        return _map_seq(linear_ops.sum_to_one_norm, inputs[0])
+
+
+@register_layer("trans")
+class TransLayer:
+    """Transposes the [b, n] activation as a matrix (the reference's use
+    has b == n); the output is a plain, non-sequence value."""
+    @staticmethod
+    def build(name, cfg, input_metas):
+        return LayerMeta(size=input_metas[0].size), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        return _payload(inputs[0]).transpose(-1, -2)
+
+
+@register_layer("slice")
+class SliceLayer:
+    """Feature slice [start, end) — identity_projection with an offset.
+    With ``channel_slice=True`` on an image input, [start, end) indexes
+    channels (of the NHWC payload; a flat channel-major feed becomes
+    NHWC first) and the image meta is kept for the convs and pools
+    after it."""
+    @staticmethod
+    def build(name, cfg, input_metas):
+        m = input_metas[0]
+        n = cfg["end"] - cfg["start"]
+        if cfg.get("channel_slice"):
+            assert m.channels and m.height and cfg["end"] <= m.channels, \
+                f"channel_slice needs an image input with >= {cfg['end']} " \
+                "channels"
+            cfg["_chan"] = (m.channels, m.height, m.width)
+            return LayerMeta(size=n * m.height * m.width, height=m.height,
+                             width=m.width, channels=n,
+                             seq_level=m.seq_level), [], []
+        return LayerMeta(size=n, seq_level=m.seq_level), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        def cut(x):
+            if cfg.get("_chan"):
+                # a channel block of NHWC memory, made contiguous so the
+                # conv after it runs on channels-last strides
+                if x.dim() == 2:
+                    x = ensure_nhwc(x, *cfg["_chan"])
+                return x[..., cfg["start"]:cfg["end"]].contiguous()
+            return x[..., cfg["start"]:cfg["end"]]
+
+        return _map_seq(cut, inputs[0])
+
+
+@register_layer("scaling_projection")
+class ScalingProjection:
+    """w * x with one learned scalar weight (ScalingProjection)."""
+    @staticmethod
+    def build(name, cfg, input_metas):
+        m = input_metas[0]
+        a = ParamAttr.of(cfg.get("param_attr"))
+        pname = a.name or f"_{name}.w0"
+        cfg["_w_name"] = pname
+        return (LayerMeta(size=m.size, seq_level=m.seq_level),
+                [ParamSpec(pname, (1,), initializers.ones, a)], [])
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        return _map_seq(lambda x: params[cfg["_w_name"]] * x, inputs[0])
+
+
+@register_layer("dotmul_projection")
+class DotMulProjection:
+    """x * w elementwise with a learned [size] weight
+    (DotMulProjection)."""
+    @staticmethod
+    def build(name, cfg, input_metas):
+        m = input_metas[0]
+        a = ParamAttr.of(cfg.get("param_attr"))
+        pname = a.name or f"_{name}.w0"
+        cfg["_w_name"] = pname
+        return (LayerMeta(size=m.size, seq_level=m.seq_level),
+                [ParamSpec(pname, (m.size,), initializers.ones, a)], [])
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        return _map_seq(lambda x: x * params[cfg["_w_name"]], inputs[0])
+
+
+@register_layer("trans_fc")
+class TransFCLayer:
+    """trans_full_matrix_projection: y = x @ W^T with W [size, in], so a
+    weight can be shared between a projection and its transpose."""
+    @staticmethod
+    def build(name, cfg, input_metas):
+        m = input_metas[0]
+        size = cfg["size"]
+        a = ParamAttr.of(cfg.get("param_attr"))
+        pname = a.name or f"_{name}.w0"
+        cfg["_w_name"] = pname
+        return (LayerMeta(size=size, seq_level=m.seq_level),
+                [ParamSpec(pname, (size, m.size),
+                           default_weight_init(a, (1,)), a)], [])
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        w = params[cfg["_w_name"]]
+        return _map_seq(lambda x: linear_ops.matmul(x, w.t()), inputs[0])
+
+
+@register_layer("resize")
+class ResizeLayer:
+    """Reshapes the payload to [-1, size]: rows change with the width;
+    the output is a plain, non-sequence value."""
+    @staticmethod
+    def build(name, cfg, input_metas):
+        return LayerMeta(size=cfg["size"]), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        return _payload(inputs[0]).reshape(-1, cfg["size"])

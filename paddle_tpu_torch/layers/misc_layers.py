@@ -1,15 +1,23 @@
-"""Id helpers of generation — the port of ``maxid``, ``sampling_id``
-and ``eos_id`` of ``paddle_tpu/layers/misc_layers.py`` (the file's
-other layers wait for queue A.7)."""
+"""Assorted layers — the port of ``paddle_tpu/layers/misc_layers.py``:
+the id helpers of generation (``maxid``, ``sampling_id``, ``eos_id``),
+``multiplex``, the element-wise utilities (``clip``, ``scale_shift``,
+``power``, ``featmap_expand``), ``data_norm``, ``selective_fc`` and
+``print`` (``rotate`` and ``row_conv`` wait for the slice of the image
+transforms)."""
 
 from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.core.registry import LayerMeta, register_layer
+from paddle_tpu_torch.core import initializers
+from paddle_tpu_torch.core.registry import (LayerMeta, ParamAttr, ParamSpec,
+                                            default_weight_init,
+                                            register_layer)
 from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.layers.base import _map_seq, _payload
 from paddle_tpu_torch.layers.seq_layers import topk_desc
+from paddle_tpu_torch.ops import activations as act_ops
+from paddle_tpu_torch.ops import linear as linear_ops
 
 
 @register_layer("maxid")
@@ -81,3 +89,227 @@ class EosIdCheckLayer:
             ids = ids[..., None]
         out = (ids == cfg["eos_id"]).to(torch.float32)
         return val.with_data(out) if isinstance(val, SequenceBatch) else out
+
+
+@register_layer("multiplex")
+class MultiplexLayer:
+    """Row-wise select among k value inputs by an id input (input 0 is
+    the ids, inputs 1..k the candidates). An id out of range selects as
+    JAX's gather does: a negative id counts from the end, then every id
+    is clamped into [0, k) — on the card an index past the end would be
+    a device assert, not a value. As in JAX, whose gradient of a gather
+    is a scatter that drops out-of-range indices, a row whose id is
+    still out of range after the wrap passes no gradient back."""
+
+    @staticmethod
+    def build(name, cfg, input_metas):
+        size = input_metas[1].size
+        for m in input_metas[2:]:
+            assert m.size == size, "multiplex candidates must agree in size"
+        return LayerMeta(size=size), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        stacked = torch.stack([_payload(v) for v in inputs[1:]], dim=0)
+        k = stacked.shape[0]
+        ids = _payload(inputs[0]).reshape(-1).long()
+        ids = torch.where(ids < 0, ids + k, ids)
+        valid = ((ids >= 0) & (ids < k))[:, None]
+        out = stacked[ids.clamp(0, k - 1),
+                      torch.arange(stacked.shape[1], device=stacked.device)]
+        return torch.where(valid, out, out.detach())
+
+
+@register_layer("clip")
+class ClipLayer:
+    @staticmethod
+    def build(name, cfg, input_metas):
+        m = input_metas[0]
+        return LayerMeta(size=m.size, seq_level=m.seq_level, height=m.height,
+                         width=m.width, channels=m.channels), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        lo, hi = cfg["min"], cfg["max"]
+        return _map_seq(lambda x: torch.clamp(x, lo, hi), inputs[0])
+
+
+@register_layer("scale_shift")
+class ScaleShiftLayer:
+    """y = w * x + b with a learned scalar w (and scalar b unless
+    ``bias_attr=False``)."""
+
+    @staticmethod
+    def build(name, cfg, input_metas):
+        m = input_metas[0]
+        a = ParamAttr.of(cfg.get("param_attr"))
+        wname = a.name or f"_{name}.w0"
+        specs = [ParamSpec(wname, (1,), a.initializer or initializers.ones,
+                           a)]
+        cfg["_w_name"] = wname
+        if cfg.get("bias_attr") is not False:
+            battr = ParamAttr.of(None if cfg.get("bias_attr") in (True, None)
+                                 else cfg.get("bias_attr"))
+            bname = battr.name or f"_{name}.wbias"
+            specs.append(ParamSpec(bname, (1,), initializers.zeros, battr))
+            cfg["_bias_name"] = bname
+        return LayerMeta(size=m.size, seq_level=m.seq_level), specs, []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        w = params[cfg["_w_name"]]
+        b = params[cfg["_bias_name"]] if cfg.get("_bias_name") else 0.0
+        return _map_seq(lambda x: w * x + b, inputs[0])
+
+
+@register_layer("power")
+class PowerLayer:
+    """y = v ** w with a per-row exponent (input 0, [b, 1]); the
+    exponent's gradient goes through log(v), so v must be positive
+    wherever it is taken (the layer does not clamp, as JAX's does
+    not)."""
+
+    @staticmethod
+    def build(name, cfg, input_metas):
+        return LayerMeta(size=input_metas[1].size,
+                         seq_level=input_metas[1].seq_level), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        w = _payload(inputs[0])
+        v = inputs[1]
+        out = torch.pow(_payload(v), w)
+        return v.with_data(out) if isinstance(v, SequenceBatch) else out
+
+
+@register_layer("featmap_expand")
+class FeatureMapExpandLayer:
+    """Repeats a [b, d] input num_filters times -> [b, num_filters*d]:
+    the whole row after itself (``as_row_vector``, the default) or each
+    element in place."""
+
+    @staticmethod
+    def build(name, cfg, input_metas):
+        m = input_metas[0]
+        nf = cfg["num_filters"]
+        return LayerMeta(size=m.size * nf, seq_level=m.seq_level), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        nf = cfg["num_filters"]
+        as_row = cfg.get("as_row_vector", True)
+
+        def expand(x):
+            if as_row:
+                return x.repeat(*([1] * (x.dim() - 1)), nf)
+            return torch.repeat_interleave(x, nf, dim=-1)
+
+        return _map_seq(expand, inputs[0])
+
+
+def _data_norm_stats_init(gen, shape, dtype=torch.float32):
+    """Rows (min, max, mean, std, decimal_scale) = (0, 1, 0, 1, 1): the
+    identity under every strategy until statistics are loaded."""
+    base = torch.zeros(shape, dtype=dtype)
+    base[1] = 1.0
+    base[3] = 1.0
+    base[4] = 1.0
+    return base
+
+
+@register_layer("data_norm")
+class DataNormLayer:
+    """Feature normalization from precomputed statistics: z-score,
+    min-max or decimal scaling. The statistics are one static
+    ``[5, size]`` parameter with rows (min, max, mean, std,
+    decimal_scale), loaded and never trained."""
+
+    @staticmethod
+    def build(name, cfg, input_metas):
+        m = input_metas[0]
+        a = ParamAttr.of(cfg.get("param_attr"))
+        a.is_static = True
+        pname = a.name or f"_{name}.w0"
+        cfg["_w_name"] = pname
+        specs = [ParamSpec(pname, (5, m.size), _data_norm_stats_init, a)]
+        return LayerMeta(size=m.size, seq_level=m.seq_level), specs, []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        mn, mx, mean, std, dscale = params[cfg["_w_name"]].unbind(0)
+        strat = cfg.get("data_norm_strategy", "z-score")
+
+        def norm(x):
+            if strat == "min-max":
+                return (x - mn) / torch.clamp(mx - mn, min=1e-8)
+            if strat == "decimal-scaling":
+                return x / torch.clamp(dscale, min=1e-8)
+            return (x - mean) / torch.clamp(std, min=1e-8)
+
+        return _map_seq(norm, inputs[0])
+
+
+@register_layer("selective_fc")
+class SelectiveFCLayer:
+    """An fc whose outputs are kept only on the selected columns: the
+    selection is a dense 0/1 mask [b, size] (input 1), applied after the
+    activation; without it, a plain fc. The weight is stored [size, in],
+    as the reference stores it."""
+
+    @staticmethod
+    def build(name, cfg, input_metas):
+        size = cfg["size"]
+        m = input_metas[0]
+        a = ParamAttr.of(cfg.get("param_attr"))
+        wname = a.name or f"_{name}.w0"
+        specs = [ParamSpec(wname, (size, m.size),
+                           default_weight_init(a, (1,)), a)]
+        cfg["_w_name"] = wname
+        if cfg.get("bias_attr") is not False:
+            battr = ParamAttr.of(None if cfg.get("bias_attr") in (True, None)
+                                 else cfg.get("bias_attr"))
+            bname = battr.name or f"_{name}.wbias"
+            specs.append(ParamSpec(bname, (size,), initializers.zeros, battr))
+            cfg["_bias_name"] = bname
+        cfg["_has_select"] = len(input_metas) > 1
+        return LayerMeta(size=size, seq_level=m.seq_level), specs, []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        w = params[cfg["_w_name"]]
+        b = params[cfg["_bias_name"]] if cfg.get("_bias_name") else None
+        sel = _payload(inputs[1]) if cfg.get("_has_select") else None
+
+        def run(v):
+            y = linear_ops.matmul(v, w.t())
+            if b is not None:
+                y = y + b
+            y = act_ops.get(cfg.get("act", "linear"))(y)
+            if sel is not None:
+                y = y * sel.to(y.dtype)
+            return y
+
+        return _map_seq(run, inputs[0])
+
+
+@register_layer("print")
+class PrintLayer:
+    """The identity, which prints its input's payload when it runs
+    (``format``, default ``name + ": {x}"``, with the values as a numpy
+    array). It returns the input object itself, so autograd flows
+    through and a SequenceBatch stays one. Printing reads the values
+    back to the host: on the card it waits for them."""
+
+    @staticmethod
+    def build(name, cfg, input_metas):
+        m = input_metas[0]
+        return LayerMeta(size=m.size, seq_level=m.seq_level, height=m.height,
+                         width=m.width, channels=m.channels,
+                         is_integer=m.is_integer), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        val = inputs[0]
+        fmt = cfg.get("format", name + ": {x}")
+        print(fmt.format(x=_payload(val).detach().cpu().numpy()))
+        return val

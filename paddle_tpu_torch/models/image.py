@@ -1,9 +1,7 @@
 """Image classification models — the port of
 ``paddle_tpu/models/image.py``: ``mnist_mlp``, ``smallnet``,
-``alexnet``, ``vgg16`` and ``resnet`` / ``resnet50`` (with the
-space-to-depth stem variant). ``googlenet`` needs
-``slice_projection(channel_slice=True)``, which comes with the slice of
-the layer families (ROADMAP.md queue A.7); it raises until then.
+``alexnet``, ``vgg16``, ``googlenet`` and ``resnet`` / ``resnet50``
+(with the space-to-depth stem variant).
 
 Every builder takes an image ``data`` layer named "image" (flat
 channel-major ``[b, c*h*w]``, the paddle feed convention) and a
@@ -105,12 +103,58 @@ def vgg16(height: int = 224, width: int = 224, channels: int = 3,
     return _close("vgg16", img, out, lbl)
 
 
+# ---------------------------------------------------------------------------
+# GoogleNet (inception v1)
+
+
+def _inception(name, input, f1, f3r, f3, f5r, f5, proj):
+    # the three 1x1 branches (direct, 3x3 reducer, 5x5 reducer) are one
+    # wide 1x1 conv cut into channel slices, as in the JAX package: the
+    # same arithmetic, and the block input is read once
+    c1x1 = layer.img_conv(input, filter_size=1, num_filters=f1 + f3r + f5r,
+                          act=act.Relu(), name=f"{name}_1x1s")
+    c1 = layer.slice_projection(c1x1, 0, f1, channel_slice=True)
+    c3r = layer.slice_projection(c1x1, f1, f1 + f3r, channel_slice=True)
+    c5r = layer.slice_projection(c1x1, f1 + f3r, f1 + f3r + f5r,
+                                 channel_slice=True)
+    c3 = layer.img_conv(c3r, filter_size=3, num_filters=f3, padding=1,
+                        act=act.Relu(), name=f"{name}_3x3")
+    c5 = layer.img_conv(c5r, filter_size=5, num_filters=f5, padding=2,
+                        act=act.Relu(), name=f"{name}_5x5")
+    mp = layer.img_pool(input, pool_size=3, stride=1, padding=1,
+                        name=f"{name}_maxpool")
+    cp = layer.img_conv(mp, filter_size=1, num_filters=proj, act=act.Relu(),
+                        name=f"{name}_proj")
+    return layer.concat([c1, c3, c5, cp], name=f"{name}_concat")
+
+
 def googlenet(height: int = 224, width: int = 224, channels: int = 3,
               num_classes: int = 1000) -> ModelSpec:
-    raise NotImplementedError(
-        "googlenet is not ported yet: its inception blocks need "
-        "slice_projection(channel_slice=True), which comes with the slice "
-        "of the layer families (ROADMAP.md queue A.7)")
+    img, lbl = _image_inputs(height, width, channels, num_classes)
+    t = layer.img_conv(img, filter_size=7, num_filters=64,
+                       num_channels=channels, stride=2, padding=3,
+                       act=act.Relu(), name="gn_conv1")
+    t = layer.img_pool(t, pool_size=3, stride=2, padding=1, name="gn_pool1")
+    t = layer.img_conv(t, filter_size=1, num_filters=64, act=act.Relu(),
+                       name="gn_conv2r")
+    t = layer.img_conv(t, filter_size=3, num_filters=192, padding=1,
+                       act=act.Relu(), name="gn_conv2")
+    t = layer.img_pool(t, pool_size=3, stride=2, padding=1, name="gn_pool2")
+    t = _inception("gn_i3a", t, 64, 96, 128, 16, 32, 32)
+    t = _inception("gn_i3b", t, 128, 128, 192, 32, 96, 64)
+    t = layer.img_pool(t, pool_size=3, stride=2, padding=1, name="gn_pool3")
+    t = _inception("gn_i4a", t, 192, 96, 208, 16, 48, 64)
+    t = _inception("gn_i4b", t, 160, 112, 224, 24, 64, 64)
+    t = _inception("gn_i4c", t, 128, 128, 256, 24, 64, 64)
+    t = _inception("gn_i4d", t, 112, 144, 288, 32, 64, 64)
+    t = _inception("gn_i4e", t, 256, 160, 320, 32, 128, 128)
+    t = layer.img_pool(t, pool_size=3, stride=2, padding=1, name="gn_pool4")
+    t = _inception("gn_i5a", t, 256, 160, 320, 32, 128, 128)
+    t = _inception("gn_i5b", t, 384, 192, 384, 48, 128, 128)
+    t = layer.global_img_pool(t, pool_type=pooling.Avg(), name="gn_gap")
+    t = layer.dropout(t, 0.4, name="gn_drop")
+    out = layer.fc(t, size=num_classes, act=act.Softmax(), name="gn_out")
+    return _close("googlenet", img, out, lbl)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Dense matmul with the mixed-precision policy — the port of
-``paddle_tpu/ops/linear.py`` (with ``cos_sim``).
+"""Dense matmul with the mixed-precision policy and the row-wise
+helpers — the port of ``paddle_tpu/ops/linear.py``.
 
 compute_dtype float32: the product runs in full float32 (TF32 is off,
 ``paddle_tpu_torch/__init__.py``), the counterpart of the JAX
@@ -38,3 +38,31 @@ def cos_sim(a: torch.Tensor, b: torch.Tensor, scale: float = 1.0,
     num = torch.sum(a * b, dim=-1)
     den = torch.sqrt(torch.sum(a * a, dim=-1) * torch.sum(b * b, dim=-1))
     return scale * num / torch.clamp(den, min=eps)
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.sum(a * b, dim=-1)
+
+
+def outer(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row-wise outer product [b, m], [b, n] -> [b, m*n]
+    (OuterProdLayer)."""
+    o = a[..., :, None] * b[..., None, :]
+    return o.reshape(o.shape[:-2] + (o.shape[-2] * o.shape[-1],))
+
+
+def interpolation(w: torch.Tensor, a: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """w*a + (1-w)*b with a per-row scalar w [batch, 1]
+    (InterpolationLayer)."""
+    return w * a + (1.0 - w) * b
+
+
+def slope_intercept(x: torch.Tensor, slope: float,
+                    intercept: float) -> torch.Tensor:
+    return slope * x + intercept
+
+
+def sum_to_one_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Row-normalize to sum 1 (SumToOneNormLayer)."""
+    return x / torch.clamp(torch.sum(x, dim=-1, keepdim=True), min=eps)

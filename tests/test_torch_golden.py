@@ -5,14 +5,19 @@ Every golden whose layer types the port has is held here, in one
 parametrised test: it deserializes in both packages (and serializes
 back equal to the file in the port), runs from one weight table
 (the JAX package's init, carried through a ``paddle_tpu.params.v1``
-tar) on one seeded ragged batch, and gives the JAX forward's outputs
+tar) on one seeded ragged batch (``chip_smoke.golden_samples``, which
+phase 41 feeds the card too), and gives the JAX forward's outputs
 at rtol 1e-4 / atol 1e-5. Where the golden has a cost, autograd's
 gradients of the summed cost equal ``jax.grad``'s at the same
 tolerance (two CPU matmul libraries summing in different orders). The
-image goldens (``img_layers``, ``tpu_stem_net``) and ``cost_suite``
-(an addto of five costs) have no cost node: their train-mode gradients
-(batch norm on the batch statistics) are those of a fixed seeded
-projection of the outputs. Layers with state
+image goldens (``img_layers``, ``tpu_stem_net``), ``cost_suite`` (an
+addto of five costs) and the goldens of the layer families
+(``util_layers``, ``op_sugar_net``, ``projections``, ``misc_utils``,
+``extra_algebra_layers``, ``selection_layers``, ``switch_order_net``)
+have no cost node: their train-mode gradients (batch norm on the batch
+statistics) are those of a fixed seeded projection of the outputs;
+``util_layers`` has no parameter, so its gradients are those of its
+float feeds. Layers with state
 (batch norm's moving statistics) start from each package's
 ``init_state``.
 
@@ -33,6 +38,8 @@ import paddle_tpu as jpaddle
 import torch
 from paddle_tpu.trainer.data_feeder import DataFeeder as JFeeder
 
+from chip_smoke import golden_samples
+
 from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.core.topology import Topology as TTopology
 from paddle_tpu_torch.trainer import Parameters as TParameters
@@ -41,41 +48,17 @@ from paddle_tpu_torch.trainer.data_feeder import DataFeeder as TFeeder
 RTOL, ATOL = 1e-4, 1e-5
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 HELD = ["attention_net", "beam_cost_net", "bidirectional_gru", "cost_suite",
-        "crf_tagger", "generation_helpers", "img_layers", "moe_block",
-        "nested_rnn_group", "rank_costs", "rnn_group", "seq_ops_suite", "simple_fc",
-        "simple_lstm_net", "simple_rnn", "tpu_stem_net",
+        "crf_tagger", "extra_algebra_layers", "generation_helpers",
+        "img_layers", "misc_utils", "moe_block", "nested_rnn_group",
+        "op_sugar_net", "projections", "rank_costs", "rnn_group",
+        "selection_layers", "seq_ops_suite", "simple_fc", "simple_lstm_net",
+        "simple_rnn", "switch_order_net", "tpu_stem_net", "util_layers",
         "word_embedding_ngram"]
 # goldens without a cost node whose gradients are held through a
 # projection (cost_suite's output is the addto of its five costs)
-PROJECTED = ("cost_suite", "img_layers", "tpu_stem_net")
-LENGTHS = (6, 2, 11)
-
-
-def _samples(data_types, seed=4):
-    """One sample per entry of LENGTHS; every sequence column of a
-    sample has that length (a tagger's words and labels must agree). A
-    nested column splits it into seeded subsequences of 1-4 steps."""
-    rng = np.random.RandomState(seed)
-    out = []
-    for L in LENGTHS:
-        row = []
-        for _, it in data_types:
-            seq = it.seq_type.value > 0
-            shape = (L,) if seq else ()
-            if it.kind == "integer":
-                v = rng.randint(0, it.dim, shape).astype(np.int32) \
-                    if seq else int(rng.randint(0, it.dim))
-            else:
-                v = rng.randn(*(shape + (it.dim,))).astype(np.float32)
-            if it.seq_type.value == 2:
-                cuts, at = [], 0
-                while at < L:
-                    cuts.append(v[at:at + int(rng.randint(1, 5))])
-                    at += len(cuts[-1])
-                v = cuts
-            row.append(v)
-        out.append(tuple(row))
-    return out
+PROJECTED = ("cost_suite", "extra_algebra_layers", "img_layers",
+             "misc_utils", "op_sugar_net", "projections", "selection_layers",
+             "switch_order_net", "tpu_stem_net", "util_layers")
 
 
 def _payload(v):
@@ -106,7 +89,7 @@ def test_golden_forward_and_gradients_match_jax(golden):
     tparams = TParameters.from_tar(buf, device="cpu").raw
     table = {k: v.numpy() for k, v in tparams.items()}
     assert sorted(table) == sorted(ttopo.param_specs)
-    samples = _samples(jtopo.data_type())
+    samples = golden_samples(jtopo.data_type())
     jfeed = JFeeder(jtopo.data_type())(samples)
     jfeed.pop("__batch_size__")
     tfeed = TFeeder(ttopo.data_type(), device="cpu")(samples)
@@ -132,19 +115,32 @@ def test_golden_forward_and_gradients_match_jax(golden):
         k: rng.randn(*np.shape(_jpayload(jout[k]))).astype(np.float32)
         for k in held}
 
-    def jloss(p):
-        outs, _ = jtopo.forward(p, jstate, jfeed, mode="train",
+    def jloss(p, feed):
+        outs, _ = jtopo.forward(p, jstate, feed, mode="train",
                                 output_names=held)
         return sum(jnp.sum(_jpayload(outs[c]) * proj.get(c, 1.0))
                    for c in held)
 
-    jg = jax.grad(jloss)({k: jnp.asarray(v) for k, v in table.items()})
+    if table:
+        names = sorted(leaves)
+        jg = jax.grad(jloss)({k: jnp.asarray(v) for k, v in table.items()},
+                             jfeed)
+        wrt = [leaves[k] for k in names]
+    else:
+        # no parameter (util_layers): the gradients of the float feeds
+        names = sorted(k for k, v in tfeed.items()
+                       if isinstance(v, torch.Tensor)
+                       and v.is_floating_point())
+        assert names, golden
+        jg = jax.grad(lambda f: jloss({}, dict(jfeed, **f)))(
+            {k: jfeed[k] for k in names})
+        wrt = [tfeed[k].clone().requires_grad_() for k in names]
+        tfeed = dict(tfeed, **dict(zip(names, wrt)))
     outs, _ = ttopo.forward(leaves, tstate, tfeed, mode="train",
                             output_names=held)
-    names = sorted(leaves)
     tloss = sum((_payload(outs[c]) * torch.as_tensor(proj[c])).sum()
                 if c in proj else _payload(outs[c]).sum() for c in held)
-    tg = torch.autograd.grad(tloss, [leaves[k] for k in names])
+    tg = torch.autograd.grad(tloss, wrt)
     for k, g in zip(names, tg):
         np.testing.assert_allclose(g.numpy(), np.asarray(jg[k]), rtol=RTOL,
                                    atol=ATOL, err_msg=f"d/d{k}")

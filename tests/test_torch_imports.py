@@ -52,7 +52,7 @@ def test_every_module_imports_without_jax_or_paddle_tpu():
               "layers.extra_layers", "models.image", "dataset.digits",
               "layers.group", "layers.beam", "layers.misc_layers",
               "models.seq2seq", "dataset.wmt14", "ops.moe",
-              "layers.moe_layers"):
+              "layers.moe_layers", "op", "dataset.imdb"):
         assert f"paddle_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

@@ -15,7 +15,10 @@ against paddle_tpu on the CPU.
   equivalences and Adam's frozen untouched rows.
 - Pruning hooks: masks equal to JAX's, masked weights 0 through
   updates, ``refresh_update_hooks`` after a late load, and the
-  ``ValueError`` for a hook on a sparse table.
+  ``ValueError`` for a hook on a sparse table. A topology with a hook
+  round-trips through the JSON port to port and across the packages in
+  both directions, and a port trainer built from the deserialized JAX
+  graph reaches JAX's masks.
 """
 
 import io
@@ -361,6 +364,57 @@ def test_refresh_update_hooks_recomputes_masks_like_jax():
     np.testing.assert_array_equal(
         _np(ttr.opt_state["slots"]["_out.w0"]["_mask"]),
         np.asarray(jtr.opt_state["slots"]["_out.w0"]["_mask"]))
+
+
+def _hooked_blob(pkg, ratio=0.5):
+    (j_reset if pkg is jpaddle else t_reset)()
+    cost = _emb_model(pkg, 32, 4, False,
+                      hook=pkg.attr.HookAttribute("pruning", ratio))
+    return pkg.Topology(cost).serialize()
+
+
+@pytest.mark.parametrize("src,dst", [("port", "port"), ("jax", "port"),
+                                     ("port", "jax")])
+def test_hooked_topology_round_trips(src, dst):
+    """A topology with a pruning hook deserializes with the hook rebuilt
+    (the reading package's HookAttribute, its ratio kept) and
+    serializes back to the same JSON, port to port and across the
+    packages in both directions."""
+    pkgs = {"port": tpaddle, "jax": jpaddle}
+    blob = _hooked_blob(pkgs[src], 0.3)
+    topo = pkgs[dst].Topology.deserialize(blob)
+    assert topo.serialize() == blob
+    attr = topo.by_name["out"].config["param_attr"][0]
+    (hook,) = attr.update_hooks
+    assert isinstance(hook, pkgs[dst].attr.HookAttribute)
+    assert (hook.type, hook.sparsity_ratio) == ("pruning", 0.3)
+
+
+def test_trainer_from_deserialized_hooked_graph_reaches_jax_masks():
+    """The port trains from the JAX package's serialized topology (the
+    hook rebuilt on deserialize) and reaches the JAX trainer's masks and
+    weights after the steps of
+    test_pruning_masks_equal_jax_and_stay_zero."""
+    batches = _batches()
+    mk = OPTIMIZERS["momentum"]
+    jtr, tar = _run(jpaddle, False, mk, batches,
+                    hook=jpaddle.attr.HookAttribute("pruning", 0.5))
+    tconfig.init(use_gpu=False, seed=7)
+    topo = tpaddle.Topology.deserialize(jtr.topology.serialize())
+    params = tpaddle.Parameters.from_tar(io.BytesIO(tar))
+    ttr = tpaddle.SGD(cost=topo.outputs[0], parameters=params,
+                      update_equation=mk(tpaddle))
+    ttr.train(lambda: ([(int(i), int(y)) for i, y in zip(ids, ys)]
+                       for ids, ys in batches),
+              num_passes=1, event_handler=lambda e: None)
+    jmask = np.asarray(jtr.opt_state["slots"]["_out.w0"]["_mask"])
+    tmask = _np(ttr.opt_state["slots"]["_out.w0"]["_mask"])
+    np.testing.assert_array_equal(tmask, jmask)
+    assert 0 < tmask.sum() < tmask.size
+    w = _np(ttr.parameters.raw["_out.w0"])
+    assert (w[tmask == 0] == 0.0).all()
+    np.testing.assert_allclose(w, np.asarray(jtr.parameters.raw["_out.w0"]),
+                               rtol=RTOL, atol=ATOL)
 
 
 def test_sort_quantile_matches_jnp_quantile():

@@ -97,10 +97,16 @@ def assert_values_close(tval, jval, name, rtol=RTOL, atol=ATOL):
 
 
 def check_parity(build, samples, *, feeding=None, grads=True, mode="test",
-                 rtol=RTOL, atol=ATOL, seed=3):
-    """Build, run and compare; returns (JAX outputs, port outputs)."""
+                 rtol=RTOL, atol=ATOL, seed=3, edit=None):
+    """Build, run and compare; returns (JAX outputs, port outputs).
+    ``edit(table)`` may change the numpy weight table before both runs
+    (values a layer's init leaves trivial, e.g. data_norm's
+    statistics)."""
     jt, tt = build_both(build)
     table, raw = table_of(jt, seed)
+    if edit is not None:
+        table = edit(dict(table))
+        raw = {k: torch.as_tensor(v) for k, v in table.items()}
     jfeed, tfeed = feeds_of(jt, tt, samples, feeding)
     jparams = {k: jnp.asarray(v) for k, v in table.items()}
     jout, _ = jt.forward(jparams, jt.init_state(), jfeed, mode=mode)
