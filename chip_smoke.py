@@ -494,9 +494,46 @@ Phases (any failure exits non-zero before the final line):
    script's 3) and its SGD.test: its cost and AUC lines, and its first
    8 costs within 1e-4 relative of the CPU port's from the same init
    tar.
+42. c3d — C3D (Tran et al., ICCV 2015, section 3.3 and Fig. 3; c3d_net)
+   at c3d_bs30: eight 3x3x3 convs (64, 128, 256, 256, 512, 512, 512,
+   512), five max pools (pool1 1x2x2), fc6 and fc7 of 4096 with ReLU,
+   a 487-way softmax; 80.0 M parameters; built with the port's DSL
+   (img_conv3d, img_pool3d with explicit input_depth / height / width)
+   on a flat channel-major 3 x 16 x 112 x 112 clip and trained through
+   SGD with Momentum(0.9, lr 0.003) on 30 seeded clips fed on the card,
+   in bf16 and float32 (TF32 off), cuDNN's autotuner on for bf16 (off
+   for float32, where it tries algorithms for minutes): 2 warm-ups and
+   8 timed steps each; step_ms, clips/s, model TFLOP/s
+   (77.1 GFLOP a clip forward, _model_flops), peak memory, one traced
+   step each (idle share, top kernels, the convs' share). Asserts the
+   losses finite and falling, the parameters finite, the feed and every
+   parameter on the card, and the float32 model's test-mode
+   probabilities of 2 clips from the init tar within 1e-5 of the CPU
+   port's. Its one departure from the paper: no dropout after fc6 and
+   fc7, so the card's values can be held against the CPU port's.
+43. slice types — the five goldens of the slice (img_trans_layers,
+   conv3d_net, deep_speech_row_conv, mdlstm_ocr, ctc_net) on the card
+   from the CPU port's init tar: outputs and gradients at rtol 1e-4 /
+   atol 1e-5 of the CPU port's. Each new type at one larger size
+   (_slice_type_cases: maxout, spp, pad, crop, rotate, bilinear up and
+   down, block_expand on 8 maps of 256 x 28 x 28; deconv3d and pool3d
+   on 2 maps of 256 x 4 x 14 x 14; mdlstm at b 16, 32 x 100, h 64;
+   row_conv at b 16, T 500, d 2048, context 20; ctc and warp_ctc at b
+   32, T 200, 29 classes, U 25-50): outputs and gradients within 1e-4
+   of each tensor's max |cpu| of the CPU port's, forward and backward
+   timed; mdlstm's anti-diagonal walk (131 dependent steps) against
+   its plain cell-by-cell walk (3200) on the card, both timed;
+   ops/ctc.ctc_loss against F.ctc_loss on a feasible batch (a
+   yardstick the port never calls), both timed. Then the OCR stack
+   (ocr_ctc_net: 32 x 100 images, 1x1 conv gates, mdlstm h 32,
+   block_expand into columns, fc softmax, ctc over 37 classes) and the
+   speech stack (speech_ctc_net: 161 bins, fc 512, row_conv context
+   20, fc logits, warp_ctc over 29 classes), each trained 8 steps with
+   Adam(1e-3) on a batch of 16: costs finite and falling, the first 2
+   within 1e-4 relative of the CPU port's from the card run's init tar.
 
 Then logs the whole script's wall time and prints the kernel table as
-one JSON line (phases 28-41 add no kernel; the launches of phases
+one JSON line (phases 28-43 add no kernel; the launches of phases
 34-39 are on their own log lines; the flash and LSTM kernels at
 their bfloat16 times, the training dtype, naming their wgmma sources,
 with their errors in bfloat16 too; the flash kernels again at float32,
@@ -4109,6 +4146,76 @@ def convergence_cnn(paddle, in_dim=64, drop_rate=0.5):
     return cost, out, err
 
 
+# C3D (Tran et al., ICCV 2015, section 3.3 and Fig. 3): eight 3x3x3 convs,
+# five max pools (pool1 1x2x2), fc6 and fc7 of 4096, a Sports-1M softmax
+C3D = dict(depth=16, height=112, width=112, filters=(64, 128, 256, 256, 512,
+                                                     512, 512, 512),
+           fc=4096, classes=487)
+C3D_POOLS = (1, 2, 4, 6, 8)          # a pool after these convs (1-based)
+
+
+def c3d_net(paddle, depth, height, width, filters, fc, classes):
+    """C3D built with the DSL of ``paddle`` (either package): a flat
+    channel-major clip [3 * depth * height * width], 3x3x3 convs with
+    padding 1 and ReLU, max pools (pool1 1x2x2 / 1x2x2, the rest 2x2x2
+    / 2), fc6 and fc7 with ReLU and a softmax over ``classes``. No
+    dropout after fc6 and fc7 (the paper has 0.5): the card's losses
+    are held against the CPU port's. Returns (cost, the softmax
+    output)."""
+    L, act = paddle.layer, paddle.activation
+    x = L.data("clip", paddle.data_type.dense_vector(
+        3 * depth * height * width))
+    c, d, h, w = 3, depth, height, width
+    for i, nf in enumerate(filters, 1):
+        x = L.img_conv3d(x, filter_size=3, num_filters=nf, input_depth=d,
+                         num_channels=c, input_height=h, input_width=w,
+                         padding=1, act=act.Relu(), name=f"c3d_conv{i}")
+        c = nf
+        if i in C3D_POOLS:
+            k = [1, 2, 2] if i == 1 else 2
+            x = L.img_pool3d(x, pool_size=k, stride=k, input_depth=d,
+                             num_channels=c, input_height=h, input_width=w,
+                             name=f"c3d_pool{C3D_POOLS.index(i) + 1}")
+            h, w = x.meta.height, x.meta.width
+            d = x.meta.size // (c * h * w)
+    x = L.fc(x, size=fc, act=act.Relu(), name="c3d_fc6")
+    x = L.fc(x, size=fc, act=act.Relu(), name="c3d_fc7")
+    out = L.fc(x, size=classes, act=act.Softmax(), name="c3d_fc8")
+    lbl = L.data("label", paddle.data_type.integer_value(classes))
+    return L.classification_cost(out, lbl), out
+
+
+def ocr_ctc_net(paddle, height, width, hidden, classes):
+    """The OCR stack built with the DSL of ``paddle``: a one-channel
+    image, 1x1 conv gates (5 x ``hidden``), mdlstm, block_expand into
+    one step a column, an fc softmax and a ctc cost (the blank the last
+    class). Returns the cost."""
+    L, dt = paddle.layer, paddle.data_type
+    im = L.data("im", dt.dense_vector(height * width), height=height,
+                width=width)
+    g = L.img_conv(im, filter_size=1, num_filters=5 * hidden,
+                   num_channels=1, name="gates")
+    md = L.mdlstm(g, name="md")
+    cols = L.block_expand(md, block_x=1, block_y=height, name="cols")
+    probs = L.fc(cols, size=classes, act=paddle.activation.Softmax(),
+                 name="probs")
+    lbl = L.data("lbl", dt.integer_value_sequence(classes))
+    return L.ctc(probs, lbl, size=classes, name="ctc_cost")
+
+
+def speech_ctc_net(paddle, dim, hidden, context, classes):
+    """The DeepSpeech2-style stack built with the DSL of ``paddle``: fc
+    with ReLU, a lookahead row_conv of ``context`` steps with ReLU, fc
+    logits and a warp_ctc cost (blank 0). Returns the cost."""
+    L, dt, act = paddle.layer, paddle.data_type, paddle.activation
+    x = L.data("audio", dt.dense_vector_sequence(dim))
+    h = L.fc(x, size=hidden, act=act.Relu(), name="h1")
+    rc = L.row_conv(h, context_len=context, act=act.Relu(), name="rc")
+    logits = L.fc(rc, size=classes, name="logits")
+    lbl = L.data("lbl", dt.integer_value_sequence(classes))
+    return L.warp_ctc(logits, lbl, size=classes, name="ctc_cost")
+
+
 def convergence_demo(paddle, readers, use_tpu=None, num_passes=100,
                      batch_size=128, drop_rate=0.5, init_tar=None,
                      num_batches_per_pass=None):
@@ -4239,8 +4346,8 @@ RESNET_PROBS_TOL = dict(rtol=1e-4, atol=1e-5)
 
 def _model_flops(topo):
     """Analytic model FLOPs per sample of one forward pass: 2 x the
-    multiply-adds of every conv and fc (batch norm, pooling and the
-    activations, a few percent more, not counted)."""
+    multiply-adds of every conv (2-D and 3-D) and fc (batch norm,
+    pooling and the activations, a few percent more, not counted)."""
     flops = 0
     for l in topo.layers:
         if l.type == "conv":
@@ -4248,6 +4355,15 @@ def _model_flops(topo):
             flops += 2 * cfg["filter_size"] ** 2 * (
                 cfg["_ic"] // cfg.get("groups", 1)) * m.channels * \
                 m.height * m.width
+        elif l.type in ("conv3d", "deconv3d"):
+            # each input (deconv) or output (conv) voxel: k^3 x ic x oc
+            cfg = l.config
+            k = cfg["filter_size"]
+            k = [k] * 3 if isinstance(k, int) else k
+            ic, idp, ih, iw = cfg["_in"]
+            voxels = idp * ih * iw if l.type == "deconv3d" else \
+                l.meta.size // l.meta.channels
+            flops += 2 * int(np.prod(k)) * ic * l.meta.channels * voxels
         elif l.type == "fc":
             flops += 2 * sum(p.meta.size for p in l.parents) * l.meta.size
     return flops
@@ -6300,18 +6416,22 @@ def golden_samples(data_types, seed=4):
     return out
 
 
-def _golden_run(topo, tar, samples, device):
+def _golden_run(topo, tar, samples, device, dtype=torch.float32):
     """Test-mode outputs, then the gradients of a seeded projection of
     the train-mode outputs (of the parameters, or of the float feeds
-    where there is none), all as numpy."""
+    where there is none), all as numpy. ``dtype`` float64 runs the
+    parameters and float feeds in float64 (a reference run)."""
     import io
 
     from paddle_tpu_torch.core.sequence import SequenceBatch
     from paddle_tpu_torch.trainer import Parameters
     from paddle_tpu_torch.trainer.data_feeder import DataFeeder
-    raw = Parameters.from_tar(io.BytesIO(tar), device=device).raw
+    raw = {k: v.to(dtype) for k, v in
+           Parameters.from_tar(io.BytesIO(tar), device=device).raw.items()}
     feed = DataFeeder(topo.data_type(), device=device)(samples)
     feed.pop("__batch_size__")
+    feed = {k: v.to(dtype) if isinstance(v, torch.Tensor) and
+            v.is_floating_point() else v for k, v in feed.items()}
     state = topo.init_state(device=device)
     leaves = {k: v.detach().clone().requires_grad_() for k, v in raw.items()}
 
@@ -6323,7 +6443,7 @@ def _golden_run(topo, tar, samples, device):
     got = {k: payload(outs[k]).detach().cpu().numpy() for k in names}
     rng = np.random.RandomState(9)
     proj = {k: torch.as_tensor(rng.randn(*got[k].shape).astype(np.float32),
-                               device=device) for k in names}
+                               device=device).to(dtype) for k in names}
     if leaves:
         wrt = dict(sorted(leaves.items()))
     else:
@@ -6339,9 +6459,10 @@ def _golden_run(topo, tar, samples, device):
     return got
 
 
-def _family_goldens():
-    """The seven goldens of the layer families on the card against the
-    CPU port, from the CPU port's init tar."""
+def _goldens_on_card(names):
+    """The goldens ``names`` (tests/golden/) on the card against the CPU
+    port, from the CPU port's init tar: {name: (worst |diff|, gradients
+    held)}."""
     import io
     import pathlib
 
@@ -6349,7 +6470,7 @@ def _family_goldens():
     from paddle_tpu_torch.core.topology import Topology
     root = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
     worst = {}
-    for name in FAMILY_GOLDENS:
+    for name in names:
         blob = (root / f"{name}.json").read_text()
         topo = Topology.deserialize(blob)
         if json.loads(topo.serialize()) != json.loads(blob):
@@ -6401,7 +6522,7 @@ def phase_layer_families():
     card = nvidia_smi_line()
     config.init(seed=0, compute_dtype="float32")
     t0 = time.perf_counter()
-    worst = _family_goldens()
+    worst = _goldens_on_card(FAMILY_GOLDENS)
     log(f"layer families ({card}): {len(worst)} goldens on the card "
         f"against the CPU port in {time.perf_counter() - t0:.3f} s, "
         f"outputs and gradients within {GOLDEN_TOL}; worst |diff| (and "
@@ -6463,6 +6584,589 @@ def phase_layer_families():
         f"{q['costs'][-1]:.4f}, test cost {q['test_cost']:.4f}, test auc "
         f"{float(test_auc):.4f}; first {DEMO_CPU_BATCHES} costs within "
         f"{rel:.3g} relative of the CPU port's")
+
+
+# ------------------------------------------------------------ phase 42
+# C3D (c3d_net, C3D) at c3d_bs30: the paper's batch of 30 clips of 3 x 16
+# x 112 x 112, SGD momentum 0.9 at lr 0.003, 487 Sports-1M classes
+C3D_BATCH, C3D_WARMUP, C3D_STEPS = 30, 2, 8
+C3D_LR, C3D_MOMENTUM = 0.003, 0.9
+C3D_CHECK_CLIPS = 2
+C3D_PROBS_ATOL = 1e-5
+CONV_MARKS = ("conv", "xmma", "implicit", "cudnn")
+
+
+def _clips(n, seed):
+    """A seeded batch of flat channel-major clips and their labels."""
+    rng = np.random.RandomState(seed)
+    dim = 3 * C3D["depth"] * C3D["height"] * C3D["width"]
+    x = rng.randn(n, dim).astype(np.float32)
+    lbl = rng.randint(0, C3D["classes"], n)
+    return [(x[i], int(lbl[i])) for i in range(n)]
+
+
+def _c3d_train(compute_dtype, batch):
+    """C3D trained in ``compute_dtype`` on one repeated batch put on the
+    card once, as phase 29 trains ResNet-50: 2 warm-ups, then 8 timed
+    steps of the trainer's step. Losses finite and falling, parameters
+    finite, the feed and every parameter on the card. Returns the
+    trainer, the topology, the softmax node, the feed, the init tar and
+    the step's numbers."""
+    import io
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import config
+    from paddle_tpu_torch.core.registry import reset_name_counters
+    config.init(seed=0, compute_dtype=compute_dtype)
+    reset_name_counters()
+    cost, out = c3d_net(paddle, **C3D)
+    topo = paddle.Topology(cost)
+    params = paddle.create_parameters(topo)
+    init = io.BytesIO()
+    params.to_tar(init)
+    trainer = paddle.SGD(cost=cost, parameters=params,
+                         update_equation=paddle.optimizer.Momentum(
+                             learning_rate=C3D_LR, momentum=C3D_MOMENTUM))
+    feed = trainer._feeder(None)(batch)
+    n_real = int(feed.pop("__batch_size__"))
+    off = [k for k, v in list(feed.items()) + list(params.raw.items())
+           if v.device.type != "cuda"]
+    if off:
+        raise AssertionError(f"c3d {compute_dtype}: {off} not on the card")
+
+    def step():
+        return trainer._step(feed, n_real, fetch_evals=False)[0]
+
+    losses = [step() for _ in range(C3D_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(C3D_STEPS):
+        losses.append(step())
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / C3D_STEPS * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bad = [k for k, p in params.raw.items()
+           if not bool(torch.isfinite(p).all())]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or bad:
+        raise AssertionError(f"c3d {compute_dtype}: losses {losses}, "
+                             f"non-finite parameters {bad}")
+    flops = _model_flops(topo)
+    tflops = 3 * flops * C3D_BATCH / (step_ms / 1e3) / 1e12
+    n_params = sum(p.numel() for p in params.raw.values())
+    log(f"c3d {compute_dtype} ({nvidia_smi_line()}): c3d_bs30, "
+        f"{n_params} parameters, batch {C3D_BATCH} of 3 x {C3D['depth']} "
+        f"x {C3D['height']} x {C3D['width']}, feed on the card, "
+        f"{C3D_STEPS} timed steps after {C3D_WARMUP}: step_ms "
+        f"{step_ms:.3f}, {C3D_BATCH / (step_ms / 1e3):.1f} clips/s; model "
+        f"FLOPs {flops / 1e9:.4f} G a clip forward, {3 * flops / 1e9:.4f} G "
+        f"trained (forward + 2 x forward; convs and fc only), "
+        f"{tflops:.1f} TFLOP/s at step_ms; peak {peak_gb:.3f} GB; losses "
+        f"{[round(x, 5) for x in losses]}")
+    return trainer, topo, out, feed, init.getvalue(), dict(
+        step_ms=step_ms, peak_gb=peak_gb, losses=losses, tflops=tflops)
+
+
+def phase_c3d():
+    """Phase 42: C3D (Tran et al., ICCV 2015, section 3.3: eight 3x3x3
+    convs, five max pools, fc6 and fc7 of 4096, 487 Sports-1M classes;
+    80.0 M parameters) built with the port's DSL (``c3d_net``) and
+    trained through SGD with Momentum(0.9, lr 0.003) on 30 seeded clips
+    of 3 x 16 x 112 x 112 fed on the card, in bf16 and in float32 (TF32
+    off), cuDNN's autotuner on for bf16 (off for float32, where it
+    tries algorithms for minutes): step_ms, clips/s, model
+    TFLOP/s (77.1 GFLOP a clip forward), peak memory, one traced step
+    each; losses finite and falling, the feed and the parameters on the
+    card. Its one departure from the paper: no dropout after fc6 and
+    fc7, so the card's values can be held against the CPU port's. Then
+    the float32 model's test-mode probabilities of 2 clips from the
+    init tar, on the card against the CPU port: max |diff| <= 1e-5."""
+    import io
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import config
+    log("c3d: torch.backends.cudnn.benchmark on for bf16 (the warm-up steps "
+        "absorb cuDNN's autotuning), off for float32")
+    batch = _clips(C3D_BATCH, 0)
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        # float32 3-D convs: cuDNN's autotuner spent 125 s of one run
+        # of this phase trying algorithms; its heuristics pick instead
+        torch.backends.cudnn.benchmark = dt == "bfloat16"
+        trainer, topo, node, feed, init_tar, out[dt] = _c3d_train(dt, batch)
+        _trace(lambda: trainer._step(feed, C3D_BATCH, fetch_evals=False),
+               f"c3d {dt} train (feed on the card)", "1 step",
+               "conv kernels", CONV_MARKS)
+        del trainer, feed
+        torch.cuda.empty_cache()
+    samples = [(x,) for x, _ in batch[:C3D_CHECK_CLIPS]]
+    probs = paddle.infer(output_layer=node, input=samples,
+                         parameters=paddle.Parameters.from_tar(
+                             io.BytesIO(init_tar)), feeding={"clip": 0})
+    cpu_probs = paddle.infer(output_layer=node, input=samples,
+                             parameters=paddle.Parameters.from_tar(
+                                 io.BytesIO(init_tar), device="cpu"),
+                             feeding={"clip": 0}, device="cpu")
+    err = float(np.abs(probs - cpu_probs).max())
+    if probs.shape != (C3D_CHECK_CLIPS, C3D["classes"]) or \
+            not np.all(np.isfinite(probs)) or err > C3D_PROBS_ATOL:
+        raise AssertionError(f"c3d infer: probs {probs.shape}, card against "
+                             f"the CPU port's max |diff| {err}")
+    log(f"c3d float32: test-mode probs of {C3D_CHECK_CLIPS} clips from the "
+        f"init tar within {err:.3g} of the CPU port's (held at "
+        f"{C3D_PROBS_ATOL}; the largest p {float(cpu_probs.max()):.5f})")
+    torch.backends.cudnn.benchmark = False
+    config.init(seed=0, compute_dtype="float32")
+    return out
+
+
+# ------------------------------------------------------------ phase 43
+SLICE_GOLDENS = ("img_trans_layers", "conv3d_net", "deep_speech_row_conv",
+                 "mdlstm_ocr", "ctc_net")
+# a larger size of each type against the CPU port: max |card - cpu| of
+# each output and gradient over the tensor's max |cpu|
+SLICE_TOL = 1e-4
+ANCHORED = " [float64 anchor]"
+SLICE_TOL64 = 1e-9
+SLICE_F32_ANCHOR = 2e-2
+SLICE_MAP = dict(n=8, c=256, h=28, w=28)     # a C3D conv3 frame, 8 of them
+SLICE_REPS = 3
+MDLSTM = dict(b=16, H=32, W=100, h=64)
+ROW_CONV = dict(b=16, T=500, d=2048, context=20)
+CTC = dict(b=32, T=200, classes=29, U=50)
+OCR_CARD = dict(height=32, width=100, hidden=32, classes=37)
+SPEECH_CARD = dict(dim=161, hidden=512, context=20, classes=29)
+CTC_BATCH, CTC_STEPS, CTC_CPU_STEPS = 16, 8, 2
+CTC_CPU_RTOL = 1e-4
+# F.ctc_loss computes its gradient by its own alpha-beta formula in
+# float32: 2.1e-4 of the largest from autograd of the lattice on the card
+CTC_LIBRARY_GRAD_TOL = 1e-3
+
+
+def _map_samples(n, c, h, w, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, c * h * w).astype(np.float32)
+    return [(x[i],) for i in range(n)]
+
+
+def _slice_type_cases():
+    """(label, build(paddle) -> output node, samples) of each type at
+    one larger size: the 2-D types on 8 maps of 256 x 28 x 28 (a C3D
+    conv3 frame), the 3-D ones on 2 C3D conv4 maps, block_expand and
+    mdlstm at b 16 over 32 x 100, row_conv at b 16, T 500, d 2048,
+    context 20, ctc and warp_ctc at b 32, T 200, 29 classes."""
+    m = SLICE_MAP
+
+    def img(p, c=m["c"], h=m["h"], w=m["w"]):
+        return p.layer.data("map", p.data_type.dense_vector(c * h * w),
+                            height=h, width=w)
+
+    maps = _map_samples(m["n"], m["c"], m["h"], m["w"], 43)
+    vol = dict(c=256, d=4, h=14, w=14)
+
+    def volume(p):
+        return p.layer.data("vol", p.data_type.dense_vector(
+            vol["c"] * vol["d"] * vol["h"] * vol["w"]))
+
+    def v3(kind, p):
+        kw = dict(input_depth=vol["d"], num_channels=vol["c"],
+                  input_height=vol["h"], input_width=vol["w"])
+        if kind == "deconv3d":
+            return p.layer.img_conv3d(volume(p), filter_size=3,
+                                      num_filters=128, stride=2, padding=1,
+                                      trans=True, name="dc3", **kw)
+        return p.layer.img_pool3d(volume(p), pool_size=3, stride=2,
+                                  padding=1, name="p3",
+                                  pool_type=p.pooling.Avg(), **kw)
+
+    vols = _map_samples(2, vol["c"], vol["d"] * vol["h"], vol["w"], 44)
+    md = MDLSTM
+    rc = ROW_CONV
+    rng = np.random.RandomState(45)
+    rc_lens = rng.randint(rc["T"] // 2, rc["T"] + 1, rc["b"])
+    rc_lens[0] = rc["T"]
+    rc_rows = [(rng.randn(n, rc["d"]).astype(np.float32),) for n in rc_lens]
+    ct = CTC
+    ct_lens = rng.randint(ct["T"] // 2, ct["T"] + 1, ct["b"])
+    ct_lens[0] = ct["T"]
+    ct_rows = [(rng.randn(n, ct["classes"]).astype(np.float32),
+                rng.randint(1, ct["classes"],
+                            rng.randint(ct["U"] // 2, ct["U"] + 1))
+                .astype(np.int32)) for n in ct_lens]
+
+    def ctc_graph(kind, p):
+        x = p.layer.data("frames", p.data_type.dense_vector_sequence(
+            ct["classes"]))
+        lbl = p.layer.data("lbl", p.data_type.integer_value_sequence(
+            ct["classes"]))
+        if kind == "ctc":
+            x = p.layer.fc(x, size=ct["classes"],
+                           act=p.activation.Softmax(), name="probs")
+            return p.layer.ctc(x, lbl, size=ct["classes"], blank=0,
+                               name="cost")
+        x = p.layer.fc(x, size=ct["classes"], name="logits")
+        return p.layer.warp_ctc(x, lbl, size=ct["classes"], name="cost")
+
+    def gates(p):
+        im = p.layer.data("im", p.data_type.dense_vector(md["H"] * md["W"]),
+                          height=md["H"], width=md["W"])
+        return p.layer.img_conv(im, filter_size=1, num_filters=5 * md["h"],
+                                num_channels=1, name="gates")
+
+    ims = _map_samples(md["b"], 1, md["H"], md["W"], 46)
+    shape = f"{m['n']} x {m['c']} x {m['h']} x {m['w']}"
+    crop = [m["c"] * 25 // 32, m["h"] - 8, m["w"] - 4]
+    vshape = f"2 x {vol['c']} x {vol['d']} x {vol['h']} x {vol['w']}"
+    return [
+        (f"maxout {shape}, groups 2",
+         lambda p: p.layer.maxout(img(p), groups=2), maps),
+        (f"spp {shape}, pyramid 3",
+         lambda p: p.layer.spp(img(p), pyramid_height=3), maps),
+        (f"pad {shape}, c +1/+2, h +1/+1, w +2/+0",
+         lambda p: p.layer.pad(img(p), pad_c=[1, 2], pad_h=[1, 1],
+                               pad_w=[2, 0]), maps),
+        (f"crop {shape} to {crop[0]} x {crop[1]} x {crop[2]}",
+         lambda p: p.layer.crop(img(p), shape=crop,
+                                offset=[m["c"] // 16, 4, 2]), maps),
+        (f"rotate {shape}", lambda p: p.layer.rotate(img(p)), maps),
+        (f"bilinear_interp {shape} to 56 x 56",
+         lambda p: p.layer.bilinear_interp(img(p), out_size_x=56,
+                                           out_size_y=56), maps),
+        (f"bilinear_interp {shape} to 17 x 11 (shrink)",
+         lambda p: p.layer.bilinear_interp(img(p), out_size_x=11,
+                                           out_size_y=17), maps),
+        (f"block_expand {shape}, 3 x 3 blocks, stride 2",
+         lambda p: p.layer.block_expand(img(p), block_x=3, block_y=3,
+                                        stride_x=2, stride_y=2), maps),
+        (f"deconv3d {vshape} to 128 x 7 x 27 x 27, k 3, s 2, p 1",
+         lambda p: v3("deconv3d", p), vols),
+        (f"pool3d avg {vshape}, k 3, s 2, p 1",
+         lambda p: v3("pool3d", p), vols),
+        (f"mdlstm b {md['b']}, {md['H']} x {md['W']}, h {md['h']} "
+         f"({md['H'] + md['W'] - 1} dependent steps, "
+         f"{md['H'] * md['W']} cells){ANCHORED}",
+         lambda p: p.layer.mdlstm(gates(p), name="md"), ims),
+        (f"row_conv b {rc['b']}, T {rc['T']} (ragged), d {rc['d']}, "
+         f"context {rc['context']}",
+         lambda p: p.layer.row_conv(
+             p.layer.data("s", p.data_type.dense_vector_sequence(rc["d"])),
+             context_len=rc["context"], name="rc"), rc_rows),
+        (f"ctc b {ct['b']}, T {ct['T']} (ragged), {ct['classes']} classes, "
+         f"U {ct['U'] // 2}-{ct['U']}", lambda p: ctc_graph("ctc", p),
+         ct_rows),
+        (f"warp_ctc b {ct['b']}, T {ct['T']} (ragged), {ct['classes']} "
+         f"classes, U {ct['U'] // 2}-{ct['U']}",
+         lambda p: ctc_graph("warp_ctc", p), ct_rows),
+    ]
+
+
+def _fwd_bwd_ms(topo, tar, samples, reps=SLICE_REPS):
+    """Wall ms of one train-mode forward and the backward of a seeded
+    projection of the outputs on the card, synchronised (these types
+    are eager PyTorch: the host's issue time is part of their cost)."""
+    import io
+
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.trainer import Parameters
+    from paddle_tpu_torch.trainer.data_feeder import DataFeeder
+    raw = Parameters.from_tar(io.BytesIO(tar), device="cuda").raw
+    feed = DataFeeder(topo.data_type(), device="cuda")(samples)
+    feed.pop("__batch_size__")
+    state = topo.init_state(device="cuda")
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in raw.items()}
+    if not leaves:
+        leaves_or_feeds = {k: v.clone().requires_grad_()
+                           for k, v in feed.items()
+                           if isinstance(v, torch.Tensor)
+                           and v.is_floating_point()}
+        feed = dict(feed, **leaves_or_feeds)
+    else:
+        leaves_or_feeds = leaves
+    names = [o.name for o in topo.outputs]
+
+    def run():
+        outs, _ = topo.forward(leaves, state, feed, mode="train",
+                               output_names=names)
+        loss = sum((o.data if isinstance(o, SequenceBatch) else o)
+                   .float().sum() for o in outs.values())
+        return torch.autograd.grad(loss, list(leaves_or_feeds.values()))
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _rel_max(got, want):
+    """max |got - want| over max |want|."""
+    if got.shape != want.shape:
+        return float("inf")
+    return float(np.abs(got - want).max()) / \
+        max(float(np.abs(want).max()), 1e-30)
+
+
+def _slice_types_on_card():
+    """Each case of ``_slice_type_cases`` from the CPU port's init tar:
+    outputs and gradients on the card against the CPU port within
+    SLICE_TOL of each tensor's max |cpu|, and the card's forward and
+    backward timed. An ANCHORED case (mdlstm: its recurrence over the
+    grid amplifies float32 rounding; at this size the CPU port's own
+    float32 run lies 4e-4 of the output's max from its float64 run) is
+    run in float64 on the card and held against the CPU port's float64
+    run within SLICE_TOL64, and its float32 run on the card within
+    SLICE_F32_ANCHOR of that float64 run."""
+    import io
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.registry import reset_name_counters
+    for label, build, samples in _slice_type_cases():
+        reset_name_counters()
+        topo = paddle.Topology(build(paddle))
+        buf = io.BytesIO()
+        paddle.create_parameters(topo, device="cpu").to_tar(buf)
+        tar = buf.getvalue()
+        card = _golden_run(topo, tar, samples, "cuda")
+        cpu = _golden_run(topo, tar, samples, "cpu")
+        checks = [("", card, cpu, SLICE_TOL)]
+        if label.endswith(ANCHORED):
+            ref = _golden_run(topo, tar, samples, "cpu", torch.float64)
+            card64 = _golden_run(topo, tar, samples, "cuda", torch.float64)
+            checks = [("float64 ", card64, ref, SLICE_TOL64),
+                      ("float32 ", card, ref, SLICE_F32_ANCHOR),
+                      ("the CPU port's float32 ", cpu, ref, None)]
+        held = []
+        for what, got, want, tol in checks:
+            worst = 0.0
+            for k in want:
+                rel = _rel_max(got[k], want[k])
+                if tol is not None and (not np.all(np.isfinite(got[k])) or
+                                        rel > tol):
+                    raise AssertionError(f"{label} {what}{k}: card against "
+                                         f"the CPU port, max |diff| / max "
+                                         f"|cpu| {rel}, held at {tol}")
+                worst = max(worst, rel)
+            ref_of = "the CPU port's" if not what else \
+                "the CPU port's float64 run"
+            held.append(f"{what}outputs and {len(want) - len(topo.outputs)} "
+                        f"gradients within {worst:.3g} of {ref_of}"
+                        + (f" (held at {tol})" if tol else ""))
+        ms = _fwd_bwd_ms(topo, tar, samples)
+        log(f"slice type {label}: {'; '.join(held)}, relative to each "
+            f"tensor's max; forward + backward {ms:.3f} ms on the card "
+            f"(wall, synchronised, {SLICE_REPS} reps)")
+
+
+def _mdlstm_walks():
+    """mdlstm_2d's anti-diagonal walk and its plain cell-by-cell version
+    on the card at MDLSTM in float32, forward and backward timed, their
+    outputs and gradients within SLICE_F32_ANCHOR of each other (the
+    recurrence amplifies float32 rounding; the walk's exactness is held
+    in float64 by ``_slice_types_on_card`` and on the CPU against JAX
+    by tests/test_torch_ocr_speech.py)."""
+    from paddle_tpu_torch.ops import recurrent as rnn
+    md = MDLSTM
+    g = torch.Generator(device="cuda").manual_seed(47)
+    x = torch.randn(md["b"], md["H"], md["W"], 5 * md["h"], device="cuda",
+                    generator=g)
+    w = torch.randn(md["h"], 5 * md["h"], device="cuda", generator=g) * 0.1
+    bias = torch.randn(9 * md["h"], device="cuda", generator=g) * 0.1
+    dy = torch.randn(md["b"], md["H"], md["W"], md["h"], device="cuda",
+                     generator=g)
+    res, ms = {}, {}
+    # warm-up: the first backward through the walk's ops loads their
+    # kernels (4.4 s of one cold run against 0.3 s warm)
+    args = [t.clone().requires_grad_() for t in (x, w, bias)]
+    torch.autograd.grad(rnn.mdlstm_2d(*args, reverse_w=True), args, dy)
+    for fn in (rnn.mdlstm_2d, rnn.mdlstm_2d_reference):
+        args = [t.clone().requires_grad_() for t in (x, w, bias)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = fn(*args, reverse_w=True)
+        out = [y] + list(torch.autograd.grad(y, args, dy))
+        torch.cuda.synchronize()
+        ms[fn.__name__] = (time.perf_counter() - t0) * 1e3
+        res[fn.__name__] = [t.detach() for t in out]
+    err = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(res["mdlstm_2d"], res["mdlstm_2d_reference"]))
+    if err > SLICE_F32_ANCHOR:
+        raise AssertionError(f"mdlstm walks: {err} apart")
+    log(f"mdlstm at b {md['b']}, {md['H']} x {md['W']}, h {md['h']} "
+        f"(reverse_w), float32: the anti-diagonal walk "
+        f"({md['H'] + md['W'] - 1} dependent steps) "
+        f"{ms['mdlstm_2d']:.3f} ms forward + backward, the plain "
+        f"cell-by-cell walk ({md['H'] * md['W']} steps) "
+        f"{ms['mdlstm_2d_reference']:.3f} ms (wall, synchronised); outputs "
+        f"and gradients within {err:.3g} of each other, relative to each "
+        f"tensor's max (held at {SLICE_F32_ANCHOR})")
+
+
+def _ctc_yardstick():
+    """ops/ctc.ctc_loss at CTC on the card against F.ctc_loss, a
+    yardstick on the same feasible batch (the port never calls it):
+    costs within 1e-4 relative, gradients within CTC_LIBRARY_GRAD_TOL
+    of the largest, and both timed, forward and backward."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.ctc import ctc_loss
+    ct = CTC
+    rng = np.random.RandomState(48)
+    frames = rng.randint(ct["T"] // 2, ct["T"] + 1, ct["b"])
+    ulen = rng.randint(ct["U"] // 2, ct["U"] + 1, ct["b"])
+    x = torch.tensor(rng.randn(ct["b"], ct["T"], ct["classes"])
+                     .astype(np.float32), device="cuda")
+    lab = torch.tensor(rng.randint(1, ct["classes"], (ct["b"], ct["U"])),
+                       device="cuda")
+    tpos = torch.arange(ct["T"], device="cuda")[None]
+    upos = torch.arange(ct["U"], device="cuda")[None]
+    fl = torch.tensor(frames, device="cuda")
+    ul = torch.tensor(ulen, device="cuda")
+    lpad = (tpos >= fl[:, None]).float()
+    upad = (upos >= ul[:, None]).float()
+
+    def ours():
+        xx = x.clone().requires_grad_()
+        cost = ctc_loss(xx, lpad, lab, upad, blank_id=0)
+        return cost.detach(), torch.autograd.grad(cost.sum(), xx)[0]
+
+    def library():
+        xx = x.clone().requires_grad_()
+        cost = F.ctc_loss(torch.log_softmax(xx, -1).transpose(0, 1), lab, fl,
+                          ul, blank=0, reduction="none")
+        return cost.detach(), torch.autograd.grad(cost.sum(), xx)[0]
+
+    out, ms = {}, {}
+    for name, fn in (("ops/ctc.ctc_loss", ours), ("F.ctc_loss", library)):
+        out[name] = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SLICE_REPS):
+            fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) / SLICE_REPS * 1e3
+    (c1, g1), (c2, g2) = out["ops/ctc.ctc_loss"], out["F.ctc_loss"]
+    rel = float(((c1 - c2).abs() / c2.abs()).max())
+    grel = float((g1 - g2).abs().max() / g2.abs().max())
+    if rel > 1e-4 or grel > CTC_LIBRARY_GRAD_TOL or \
+            not bool(torch.isfinite(c1).all()):
+        raise AssertionError(f"ctc against F.ctc_loss: costs {rel}, "
+                             f"gradients {grel}")
+    log(f"ctc at b {ct['b']}, T {ct['T']} (ragged), {ct['classes']} "
+        f"classes, U {ct['U'] // 2}-{ct['U']}: ops/ctc.ctc_loss "
+        f"{ms['ops/ctc.ctc_loss']:.3f} ms forward + backward (wall, "
+        f"synchronised; a loop over T), F.ctc_loss {ms['F.ctc_loss']:.3f} "
+        f"ms (yardstick, never on a path); costs within {rel:.3g} "
+        f"relative, gradients within {grel:.3g} of the largest")
+
+
+def _ocr_samples(n, seed):
+    """One-channel images and label rows of 4-12 ids off the blank (the
+    last class)."""
+    o = OCR_CARD
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(o["height"] * o["width"]).astype(np.float32),
+             rng.randint(0, o["classes"] - 1, rng.randint(4, 13))
+             .astype(np.int32)) for _ in range(n)]
+
+
+def _speech_samples(n, seed):
+    """Ragged utterances of 150-300 frames of 161 bins and label rows of
+    20-50 ids off the blank (0)."""
+    sp = SPEECH_CARD
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(rng.randint(150, 301), sp["dim"]).astype(np.float32),
+             rng.randint(1, sp["classes"], rng.randint(20, 51))
+             .astype(np.int32)) for _ in range(n)]
+
+
+def _ctc_graph_train(label, build, samples):
+    """``build(paddle)``'s graph trained CTC_STEPS steps on the card with
+    Adam(1e-3) on one repeated batch: costs finite and falling; then the
+    first CTC_CPU_STEPS on the CPU port from the card run's init tar,
+    within CTC_CPU_RTOL relative."""
+    import io
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import config
+    from paddle_tpu_torch.core.registry import reset_name_counters
+    config.init(seed=0, compute_dtype="float32")
+    costs, secs, tar = [], [], io.BytesIO()
+    for device, steps in ((None, CTC_STEPS), ("cpu", CTC_CPU_STEPS)):
+        reset_name_counters()
+        cost = build(paddle)
+        if device is None:
+            params = paddle.create_parameters(paddle.Topology(cost))
+            params.to_tar(tar)
+        else:
+            params = paddle.Parameters.from_tar(io.BytesIO(tar.getvalue()),
+                                                device="cpu")
+        trainer = paddle.SGD(cost=cost, parameters=params, device=device,
+                             update_equation=paddle.optimizer.Adam(
+                                 learning_rate=1e-3))
+        if device is None and trainer.device.type != "cuda":
+            raise AssertionError(f"{label} trained on {trainer.device}")
+        run = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            run.append(trainer.train_batch(samples)[0])
+            secs.append(time.perf_counter() - t0)
+        costs.append(run)
+    card, cpu = costs
+    rel = _rel(card[:CTC_CPU_STEPS], cpu)
+    if not np.all(np.isfinite(card)) or not card[-1] < card[0] or \
+            rel > CTC_CPU_RTOL:
+        raise AssertionError(f"{label}: card costs {card}, the CPU port's "
+                             f"first {cpu}")
+    step_ms = float(np.mean(secs[2:CTC_STEPS])) * 1e3
+    log(f"{label} ({nvidia_smi_line()}): {CTC_STEPS} train_batch steps on "
+        f"the card, costs {card[0]:.4f} -> {card[-1]:.4f}; step_ms "
+        f"{step_ms:.3f} (the last {CTC_STEPS - 2}, feeder included), "
+        f"{len(samples) / (step_ms / 1e3):.1f} samples/s; first "
+        f"{CTC_CPU_STEPS} costs within {rel:.3g} relative of the CPU port's")
+
+
+def phase_slice_types():
+    """Phase 43: the slice's types on the card. The five goldens of the
+    slice (img_trans_layers, conv3d_net, deep_speech_row_conv,
+    mdlstm_ocr, ctc_net) from the CPU port's init tar: outputs and
+    gradients within rtol 1e-4 / atol 1e-5 of the CPU port's. Each type
+    at one larger size (``_slice_type_cases``), forward and backward
+    against the CPU port (SLICE_TOL of each tensor's max), timed;
+    mdlstm's anti-diagonal walk against its plain cell-by-cell version
+    at b 16, 32 x 100, h 64, both timed; ctc against F.ctc_loss on a
+    feasible batch (a yardstick). Then the OCR stack (ocr_ctc_net: 32 x
+    100 images, mdlstm h 32, 37 classes) and the speech stack
+    (speech_ctc_net: 161 bins, fc 512, row_conv context 20, 29 classes)
+    each trained 8 steps on a batch of 16: costs falling, the first 2
+    within 1e-4 relative of the CPU port's."""
+    from paddle_tpu_torch import config
+    card = nvidia_smi_line()
+    config.init(seed=0, compute_dtype="float32")
+    t0 = time.perf_counter()
+    worst = _goldens_on_card(SLICE_GOLDENS)
+    log(f"slice goldens ({card}): {len(worst)} goldens on the card against "
+        f"the CPU port in {time.perf_counter() - t0:.3f} s, outputs and "
+        f"gradients within {GOLDEN_TOL}; worst |diff| (and gradients held) "
+        f"by golden: "
+        f"{ {k: (float(f'{e:.3g}'), n) for k, (e, n) in worst.items()} }")
+    _slice_types_on_card()
+    _mdlstm_walks()
+    _ctc_yardstick()
+    _ctc_graph_train(
+        f"ocr stack ({OCR_CARD['height']} x {OCR_CARD['width']}, mdlstm h "
+        f"{OCR_CARD['hidden']}, "
+        f"{OCR_CARD['classes']} classes, batch {CTC_BATCH})",
+        lambda p: ocr_ctc_net(p, **OCR_CARD), _ocr_samples(CTC_BATCH, 49))
+    _ctc_graph_train(
+        f"speech stack ({SPEECH_CARD['dim']} bins, fc "
+        f"{SPEECH_CARD['hidden']}, row_conv "
+        f"{SPEECH_CARD['context']}, {SPEECH_CARD['classes']} classes, batch "
+        f"{CTC_BATCH})",
+        lambda p: speech_ctc_net(p, **SPEECH_CARD),
+        _speech_samples(CTC_BATCH, 50))
+    config.init(seed=0, compute_dtype="float32")
 
 
 def main():
@@ -6539,6 +7243,9 @@ def main():
     # the layer families (phases 40-41)
     phase_googlenet()
     phase_layer_families()
+    # the 3-D, image-transform and OCR/speech types (phases 42-43)
+    phase_c3d()
+    phase_slice_types()
     kernels = [dict(
         name="paged_window_attention", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",

@@ -20,7 +20,10 @@ scaling, dotmul, trans_full_matrix), the element-wise types (dotmul,
 interpolation, slope_intercept, outer_prod, sum_to_one_norm, trans,
 resize, clip, scale_shift, power, featmap_expand), data_norm,
 selective_fc, multiplex, print_layer, tensor, conv_shift,
-linear_comb, prelu, row_l2_norm and switch_order — with the JAX
+linear_comb, prelu, row_l2_norm and switch_order; the image
+transforms and the 3-D and multi-dimensional types (maxout, spp, pad,
+crop, bilinear_interp, block_expand, rotate, row_conv, img_conv3d,
+img_pool3d, mdlstm) and the CTC costs (ctc, warp_ctc) — with the JAX
 package's ``*_layer`` aliases of each, and none it lacks.
 
 Each wrapper normalizes its arguments exactly as the JAX package's
@@ -54,7 +57,7 @@ from paddle_tpu_torch.layers.group import (  # noqa: F401
 from paddle_tpu_torch.layers.beam import (  # noqa: F401
     BeamInput, cross_entropy_over_beam)
 from paddle_tpu_torch.layers.crf_layers import (  # noqa: F401
-    crf, crf_decoding, crf_error)
+    crf, crf_decoding, crf_error, ctc, ctc_layer, warp_ctc)
 from paddle_tpu_torch.layers.attention_layers import (  # noqa: F401
     dot_product_attention, multi_head_attention)
 from paddle_tpu_torch.layers.moe_layers import (  # noqa: F401
@@ -378,6 +381,82 @@ def img_cmrnorm(input, size: int = 5, scale: float = 0.0128,
 img_cmrnorm_layer = img_cmrnorm
 
 
+def maxout(input, groups: int, name=None, **kw) -> LayerOutput:
+    return make_layer("maxout", name, [input], groups=groups)
+
+
+maxout_layer = maxout
+
+
+def spp(input, pyramid_height: int = 3, pool_type=None, name=None,
+        **kw) -> LayerOutput:
+    return make_layer("spp", name, [input], pyramid_height=pyramid_height,
+                      pool_type=pool_mod.to_name(pool_type or "max"))
+
+
+spp_layer = spp
+
+
+def pad(input, pad_c=None, pad_h=None, pad_w=None, name=None,
+        **kw) -> LayerOutput:
+    return make_layer("pad", name, [input], pad_c=pad_c or [0, 0],
+                      pad_h=pad_h or [0, 0], pad_w=pad_w or [0, 0])
+
+
+pad_layer = pad
+
+
+def crop(input, shape, offset=None, name=None, **kw) -> LayerOutput:
+    return make_layer("crop", name, [input], shape=shape,
+                      offset=offset or [0, 0, 0])
+
+
+def bilinear_interp(input, out_size_x: int, out_size_y: int, name=None,
+                    **kw) -> LayerOutput:
+    return make_layer("bilinear_interp", name, [input], out_size_x=out_size_x,
+                      out_size_y=out_size_y)
+
+
+bilinear_interp_layer = bilinear_interp
+
+
+def block_expand(input, block_x: int, block_y: int, stride_x: int = 1,
+                 stride_y: int = 1, padding_x: int = 0, padding_y: int = 0,
+                 num_channels=None, name=None, **kw) -> LayerOutput:
+    return make_layer("block_expand", name, [input], block_x=block_x,
+                      block_y=block_y, stride_x=stride_x, stride_y=stride_y,
+                      padding_x=padding_x, padding_y=padding_y,
+                      channels=num_channels)
+
+
+block_expand_layer = block_expand
+
+
+def img_conv3d(input, filter_size, num_filters: int, input_depth: int,
+               name=None, num_channels=None, act=None, stride=1, padding=0,
+               trans: bool = False, param_attr=None, bias_attr=None,
+               input_height=None, input_width=None, **kw) -> LayerOutput:
+    """A 3-D conv (``trans``: the transposed conv, type deconv3d)."""
+    return make_layer("deconv3d" if trans else "conv3d", name, [input],
+                      filter_size=filter_size, num_filters=num_filters,
+                      input_depth=input_depth, channels=num_channels,
+                      act=act_mod.to_name(act), stride=stride,
+                      padding=padding, param_attr=param_attr,
+                      bias_attr=bias_attr, input_height=input_height,
+                      input_width=input_width)
+
+
+def img_pool3d(input, pool_size, input_depth: int, name=None,
+               num_channels=None, pool_type=None, stride=1, padding=0,
+               input_height=None, input_width=None, **kw) -> LayerOutput:
+    return make_layer("pool3d", name, [input], pool_size=pool_size,
+                      input_depth=input_depth, channels=num_channels,
+                      pool_type=pool_mod.to_name(pool_type) if pool_type
+                      else "max",
+                      stride=stride, padding=padding,
+                      input_height=input_height, input_width=input_width)
+
+
 # ---------------------------------------------------------------------------
 # sequence layers
 
@@ -449,6 +528,16 @@ def sub_nested_seq(input, selected_indices, name=None, **kw) -> LayerOutput:
 
 # ---------------------------------------------------------------------------
 # recurrent layers
+
+
+def mdlstm(input, name=None, directions=None, act=None, gate_act=None,
+           param_attr=None, bias_attr=None, **kw) -> LayerOutput:
+    return make_layer("mdlstm", name, [input],
+                      directions=directions or [True, True],
+                      act=act_mod.to_name(act) if act else "tanh",
+                      gate_act=act_mod.to_name(gate_act) if gate_act
+                      else "sigmoid",
+                      param_attr=param_attr, bias_attr=bias_attr)
 
 
 def lstmemory(input, name=None, reverse: bool = False, act=None,
@@ -628,6 +717,10 @@ def power(input, weight, name=None, **kw) -> LayerOutput:
     return make_layer("power", name, [weight, input])
 
 
+def rotate(input, height=None, width=None, name=None, **kw) -> LayerOutput:
+    return make_layer("rotate", name, [input], height=height, width=width)
+
+
 def featmap_expand(input, num_filters: int, as_row_vector: bool = True,
                    name=None, **kw) -> LayerOutput:
     return make_layer("featmap_expand", name, [input],
@@ -647,6 +740,12 @@ def selective_fc(input, size: int, select=None, act=None, name=None,
     return make_layer("selective_fc", name, inputs, size=size,
                       act=act_mod.to_name(act), param_attr=param_attr,
                       bias_attr=bias_attr)
+
+
+def row_conv(input, context_len: int, act=None, name=None, param_attr=None,
+             **kw) -> LayerOutput:
+    return make_layer("row_conv", name, [input], context_len=context_len,
+                      act=act_mod.to_name(act), param_attr=param_attr)
 
 
 def print_layer(input, format=None, name=None, **kw) -> LayerOutput:

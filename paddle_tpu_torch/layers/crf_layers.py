@@ -1,6 +1,6 @@
-"""Linear-chain CRF layers — the port of the ``crf``, ``crf_decoding``
-and ``crf_error`` layers of ``paddle_tpu/layers/crf_layers.py`` (``ctc``
-and ``warp_ctc`` wait).
+"""Linear-chain CRF and CTC layers — the port of the ``crf``,
+``crf_decoding``, ``crf_error``, ``ctc`` and ``warp_ctc`` layers of
+``paddle_tpu/layers/crf_layers.py``.
 
 The parameter is (n+2, n): row 0 the start scores, row 1 the end
 scores, rows 2.. the transitions (trans[i, j] = score of i -> j). The
@@ -16,6 +16,7 @@ from paddle_tpu_torch.core import initializers
 from paddle_tpu_torch.core.registry import (LayerMeta, ParamAttr, ParamSpec,
                                             make_layer, register_layer)
 from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.ops.ctc import ctc_loss
 
 
 def crf_nll(emissions: torch.Tensor, labels: torch.Tensor,
@@ -130,6 +131,48 @@ class CRFDecodingErrorLayer(CRFDecodingLayer):
         return CRFDecodingLayer.build(name, cfg, input_metas)
 
 
+@register_layer("ctc")
+class CTCLayer:
+    """CTC cost of a sequence of class scores against a label sequence.
+    ``ctc`` takes probabilities (a softmax output), clamped at 1e-10
+    and logged, with the blank the last class; ``from_logits`` takes
+    raw scores. ``blank`` overrides the blank class."""
+
+    @staticmethod
+    def build(name, cfg, input_metas):
+        return LayerMeta(size=1), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        seq: SequenceBatch = inputs[0]
+        labels = inputs[1]
+        logits = seq.data
+        if not cfg.get("from_logits", False):
+            logits = torch.log(torch.clamp(logits, min=1e-10))
+        if isinstance(labels, SequenceBatch):
+            lab, lab_pad = labels.data, 1.0 - labels.mask()
+        else:
+            lab = labels
+            lab_pad = torch.zeros(lab.shape, dtype=torch.float32,
+                                  device=lab.device)
+        blank = cfg.get("blank")
+        if blank is None:
+            blank = logits.shape[-1] - 1
+        return ctc_loss(logits, 1.0 - seq.mask(), lab, lab_pad,
+                        blank_id=blank)
+
+
+@register_layer("warp_ctc")
+class WarpCTCLayer(CTCLayer):
+    """The warp-ctc semantics even when the config carries only the
+    type's name: raw logits in, blank 0."""
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        cfg = {"from_logits": True, "blank": 0, **cfg}
+        return CTCLayer.apply(ctx, name, cfg, params, inputs)
+
+
 def crf(input, label, size=None, param_attr=None, name=None, **kw):
     return make_layer("crf", name, [input, label], size=size,
                       param_attr=param_attr)
@@ -145,3 +188,17 @@ def crf_decoding(input, size=None, label=None, param_attr=None, name=None,
 def crf_error(input, label, size=None, param_attr=None, name=None, **kw):
     return make_layer("crf_error", name, [input, label], size=size,
                       param_attr=param_attr)
+
+
+def ctc(input, label, size=None, blank=None, name=None, **kw):
+    """CTC cost on probabilities; the blank defaults to the last class."""
+    return make_layer("ctc", name, [input, label], size=size, blank=blank)
+
+
+ctc_layer = ctc
+
+
+def warp_ctc(input, label, size=None, blank=0, name=None, **kw):
+    """CTC cost on raw logits; the blank defaults to class 0."""
+    return make_layer("warp_ctc", name, [input, label], size=size,
+                      blank=blank, from_logits=True)

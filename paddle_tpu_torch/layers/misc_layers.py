@@ -1,9 +1,8 @@
 """Assorted layers — the port of ``paddle_tpu/layers/misc_layers.py``:
 the id helpers of generation (``maxid``, ``sampling_id``, ``eos_id``),
 ``multiplex``, the element-wise utilities (``clip``, ``scale_shift``,
-``power``, ``featmap_expand``), ``data_norm``, ``selective_fc`` and
-``print`` (``rotate`` and ``row_conv`` wait for the slice of the image
-transforms)."""
+``power``, ``featmap_expand``), ``data_norm``, ``selective_fc``,
+``print``, ``rotate`` and the lookahead ``row_conv``."""
 
 from __future__ import annotations
 
@@ -15,8 +14,10 @@ from paddle_tpu_torch.core.registry import (LayerMeta, ParamAttr, ParamSpec,
                                             register_layer)
 from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.layers.base import _map_seq, _payload
+from paddle_tpu_torch.layers.conv_layers import ensure_nhwc
 from paddle_tpu_torch.layers.seq_layers import topk_desc
 from paddle_tpu_torch.ops import activations as act_ops
+from paddle_tpu_torch.ops import conv as conv_ops
 from paddle_tpu_torch.ops import linear as linear_ops
 
 
@@ -290,6 +291,50 @@ class SelectiveFCLayer:
             return y
 
         return _map_seq(run, inputs[0])
+
+
+@register_layer("rotate")
+class RotateLayer:
+    """A CHW map turned 90 degrees counter-clockwise; the meta's height
+    and width swap."""
+
+    @staticmethod
+    def build(name, cfg, input_metas):
+        m = input_metas[0]
+        h = cfg.get("height") or m.height
+        w = cfg.get("width") or m.width
+        c = m.channels or (m.size // max(h * w, 1))
+        cfg["_ic"], cfg["_ih"], cfg["_iw"] = c, h, w
+        return LayerMeta(size=m.size, height=w, width=h, channels=c), [], []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        x = ensure_nhwc(inputs[0], cfg["_ic"], cfg["_ih"], cfg["_iw"])
+        return torch.rot90(x, 1, dims=(1, 2))
+
+
+@register_layer("row_conv")
+class RowConvLayer:
+    """Lookahead row convolution over a sequence (DeepSpeech2): out[t] =
+    sum_{i < context} in[t + i] * w[i], per-channel weights [context,
+    d]. The padding of a row reads as zeros, so a row's lookahead stops
+    at its own end."""
+
+    @staticmethod
+    def build(name, cfg, input_metas):
+        m = input_metas[0]
+        a = ParamAttr.of(cfg.get("param_attr"))
+        pname = a.name or f"_{name}.w0"
+        cfg["_w_name"] = pname
+        specs = [ParamSpec(pname, (cfg["context_len"], m.size),
+                           default_weight_init(a, (0,)), a)]
+        return LayerMeta(size=m.size, seq_level=1), specs, []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        seq: SequenceBatch = inputs[0]
+        out = conv_ops.row_conv(seq.masked_data(), params[cfg["_w_name"]])
+        return seq.with_data(act_ops.get(cfg.get("act", "linear"))(out))
 
 
 @register_layer("print")

@@ -1,8 +1,8 @@
 """Recurrent layers — the port of the ``lstmemory``, ``gru`` and
 ``recurrent`` layers of ``paddle_tpu/layers/recurrent_layers.py``
 (full-sequence scans) and of its step layers ``gru_step`` and
-``lstm_step``, which run inside a ``recurrent_group`` (``mdlstm`` waits
-for ``block_expand``).
+``lstm_step``, which run inside a ``recurrent_group``, and the 2-D
+``mdlstm`` over an image.
 
 The input of lstmemory / grumemory is already projected by a
 preceding fc to 4*size (LSTM) or 3*size (GRU); the layer owns only the
@@ -18,6 +18,7 @@ from paddle_tpu_torch.core import initializers
 from paddle_tpu_torch.core.registry import (LayerMeta, ParamAttr, ParamSpec,
                                             register_layer)
 from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.layers.conv_layers import ensure_nhwc
 from paddle_tpu_torch.ops import recurrent as rnn_ops
 
 
@@ -169,3 +170,33 @@ class LstmStepLayer:
         if cfg.get("expose_state"):
             return torch.cat([h_new, c_new], dim=-1)
         return h_new
+
+
+@register_layer("mdlstm")
+class MDLstmLayer:
+    """2-D multi-directional LSTM over an image whose channels are the
+    pre-projected gates, 5*size of them (in, ig, fg_y, fg_x, og). Owns
+    the shared recurrent weight [size, 5*size] and the 9*size bias
+    (gates, then the peepholes of ig, fg_y, fg_x, og). ``directions``
+    [bool, bool]: False walks that axis (height, width) backwards."""
+
+    @staticmethod
+    def build(name, cfg, input_metas):
+        m = input_metas[0]
+        assert m.channels and m.channels % 5 == 0, \
+            f"mdlstm {name}: input channels must be 5*size"
+        h = m.channels // 5
+        specs = _recurrent_specs(name, cfg, h, 5 * h, 9 * h)
+        cfg["_in"] = (m.channels, m.height, m.width)
+        return (LayerMeta(size=h * m.height * m.width, height=m.height,
+                          width=m.width, channels=h), specs, [])
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        x = ensure_nhwc(inputs[0], *cfg["_in"])
+        bias = params[cfg["_b_name"]] if cfg.get("_b_name") else None
+        dirs = cfg.get("directions", [True, True])
+        return rnn_ops.mdlstm_2d(
+            x, params[cfg["_w_name"]], bias, act=cfg.get("act", "tanh"),
+            gate_act=cfg.get("gate_act", "sigmoid"),
+            reverse_h=not dirs[0], reverse_w=not dirs[1])

@@ -1,5 +1,6 @@
 """Recurrent cells and masked scans — the port of
-``paddle_tpu/ops/recurrent.py`` (``mdlstm_2d`` waits).
+``paddle_tpu/ops/recurrent.py``, with the 2-D multi-dimensional LSTM
+``mdlstm_2d``.
 
 A scan runs time-major over the padded axis with a per-step validity
 mask: state freezes on padded steps, so results match the ragged
@@ -22,6 +23,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.ops import activations
@@ -210,3 +212,109 @@ def rnn_scan(seq: SequenceBatch, w_rec: torch.Tensor,
 
     _, outs = _masked_scan(step, h_init, seq, reverse)
     return seq.with_data(outs)
+
+
+def _mdlstm_parts(x, w, bias, act, gate_act, reverse_h, reverse_w):
+    """The flipped input, and the cell function of ``mdlstm_2d``."""
+    h = x.shape[-1] // 5
+    fa = activations.get(act)
+    ga = activations.get(gate_act)
+    if bias is None:
+        gate_b = torch.zeros((5 * h,), dtype=x.dtype, device=x.device)
+        peep = torch.zeros((4 * h,), dtype=x.dtype, device=x.device)
+    else:
+        gate_b, peep = bias[:5 * h], bias[5 * h:]
+    p_ig, p_fy, p_fx, p_og = (peep[i * h:(i + 1) * h] for i in range(4))
+    flips = [d for d, r in ((1, reverse_h), (2, reverse_w)) if r]
+    if flips:
+        x = x.flip(flips)
+
+    def cell(pre, h_up, c_up, h_left, c_left):
+        pre = pre + matmul(h_up + h_left, w) + gate_b
+        a_in = fa(pre[..., :h])
+        ig = ga(pre[..., h:2 * h] + p_ig * (c_up + c_left))
+        fy = ga(pre[..., 2 * h:3 * h] + p_fy * c_up)
+        fx = ga(pre[..., 3 * h:4 * h] + p_fx * c_left)
+        c = ig * a_in + fy * c_up + fx * c_left
+        og = ga(pre[..., 4 * h:] + p_og * c)
+        return og * fa(c), c
+
+    return x, cell, flips
+
+
+def mdlstm_2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+              *, act: str = "tanh", gate_act: str = "sigmoid",
+              reverse_h: bool = False, reverse_w: bool = False
+              ) -> torch.Tensor:
+    """2-D multi-dimensional LSTM over an image grid (MDLstmLayer).
+
+    x [b, H, W, 5h] is the pre-projected gate input, laid out (in, ig,
+    fg_y, fg_x, og); w [h, 5h] the recurrent weight both predecessors
+    share; bias [9h] the 5h gate bias, then the peepholes of ig, fg_y,
+    fg_x and og. Cell (i, j) reads h and c from (i-1, j) and (i, j-1);
+    ``reverse_h`` / ``reverse_w`` walk an axis backwards. Returns
+    [b, H, W, h].
+
+    The cells of one anti-diagonal i + j = k depend only on diagonal
+    k - 1, so the walk is H + W - 1 dependent steps, each one batched
+    product over the diagonal's cells, in place of the H * W steps of
+    the JAX package's nested scan (``mdlstm_2d_reference``, the plain
+    version, walks those)."""
+    b, H, W, d5 = x.shape
+    h = d5 // 5
+    x, cell, flips = _mdlstm_parts(x, w, bias, act, gate_act, reverse_h,
+                                   reverse_w)
+    dev = x.device
+    zero = torch.zeros((b, 1, h), dtype=x.dtype, device=dev)
+    prev_h = prev_c = None
+    hs, order = [], []
+    for k in range(H + W - 1):
+        lo, hi = max(0, k - W + 1), min(H - 1, k)
+        ii = torch.arange(lo, hi + 1, device=dev)
+        pre = x[:, ii, k - ii]                        # [b, n, 5h]
+        if prev_h is None:
+            h_up = c_up = h_left = c_left = zero
+        else:
+            # the rows of diagonal k - 1 (plo..), a zero row each side
+            plo = max(0, k - W)
+            ph = F.pad(prev_h, (0, 0, 1, 1))
+            pc = F.pad(prev_c, (0, 0, 1, 1))
+            up = slice(lo - plo, hi - plo + 1)
+            left = slice(lo - plo + 1, hi - plo + 2)
+            h_up, c_up, h_left, c_left = ph[:, up], pc[:, up], ph[:, left], \
+                pc[:, left]
+        prev_h, prev_c = cell(pre, h_up, c_up, h_left, c_left)
+        hs.append(prev_h)
+        order += [i * W + (k - i) for i in range(lo, hi + 1)]
+    inv = torch.empty(H * W, dtype=torch.long)
+    inv[torch.tensor(order)] = torch.arange(H * W)
+    out = torch.cat(hs, dim=1)[:, inv.to(dev)].reshape(b, H, W, h)
+    return out.flip(flips) if flips else out
+
+
+def mdlstm_2d_reference(x: torch.Tensor, w: torch.Tensor,
+                        bias: Optional[torch.Tensor], *, act: str = "tanh",
+                        gate_act: str = "sigmoid", reverse_h: bool = False,
+                        reverse_w: bool = False) -> torch.Tensor:
+    """The plain version of ``mdlstm_2d``: the JAX package's nested scan
+    spelt out, a row at a time and a cell at a time (H * W dependent
+    steps)."""
+    b, H, W, d5 = x.shape
+    h = d5 // 5
+    x, cell, flips = _mdlstm_parts(x, w, bias, act, gate_act, reverse_h,
+                                   reverse_w)
+    zero = torch.zeros((b, h), dtype=x.dtype, device=x.device)
+    h_up, c_up = [zero] * W, [zero] * W
+    rows = []
+    for i in range(H):
+        h_left = c_left = zero
+        hs, cs = [], []
+        for j in range(W):
+            h_left, c_left = cell(x[:, i, j], h_up[j], c_up[j], h_left,
+                                  c_left)
+            hs.append(h_left)
+            cs.append(c_left)
+        h_up, c_up = hs, cs
+        rows.append(torch.stack(hs, dim=1))
+    out = torch.stack(rows, dim=1)
+    return out.flip(flips) if flips else out

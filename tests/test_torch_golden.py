@@ -9,12 +9,15 @@ tar) on one seeded ragged batch (``chip_smoke.golden_samples``, which
 phase 41 feeds the card too), and gives the JAX forward's outputs
 at rtol 1e-4 / atol 1e-5. Where the golden has a cost, autograd's
 gradients of the summed cost equal ``jax.grad``'s at the same
-tolerance (two CPU matmul libraries summing in different orders). The
-image goldens (``img_layers``, ``tpu_stem_net``), ``cost_suite`` (an
-addto of five costs) and the goldens of the layer families
-(``util_layers``, ``op_sugar_net``, ``projections``, ``misc_utils``,
-``extra_algebra_layers``, ``selection_layers``, ``switch_order_net``)
-have no cost node: their train-mode gradients (batch norm on the batch
+tolerance (two CPU matmul libraries summing in different orders);
+``ctc_net``'s cost is a CTC layer. The image goldens (``img_layers``,
+``tpu_stem_net``), ``cost_suite`` (an addto of five costs), the goldens
+of the layer families (``util_layers``, ``op_sugar_net``,
+``projections``, ``misc_utils``, ``extra_algebra_layers``,
+``selection_layers``, ``switch_order_net``) and those of the 3-D,
+image-transform and OCR/speech types (``img_trans_layers``,
+``conv3d_net``, ``deep_speech_row_conv``, ``mdlstm_ocr``) have no
+cost node: their train-mode gradients (batch norm on the batch
 statistics) are those of a fixed seeded projection of the outputs;
 ``util_layers`` has no parameter, so its gradients are those of its
 float feeds. Layers with state
@@ -47,18 +50,21 @@ from paddle_tpu_torch.trainer.data_feeder import DataFeeder as TFeeder
 
 RTOL, ATOL = 1e-4, 1e-5
 GOLDEN = pathlib.Path(__file__).parent / "golden"
-HELD = ["attention_net", "beam_cost_net", "bidirectional_gru", "cost_suite",
-        "crf_tagger", "extra_algebra_layers", "generation_helpers",
-        "img_layers", "misc_utils", "moe_block", "nested_rnn_group",
-        "op_sugar_net", "projections", "rank_costs", "rnn_group",
-        "selection_layers", "seq_ops_suite", "simple_fc", "simple_lstm_net",
-        "simple_rnn", "switch_order_net", "tpu_stem_net", "util_layers",
-        "word_embedding_ngram"]
+HELD = ["attention_net", "beam_cost_net", "bidirectional_gru", "conv3d_net",
+        "cost_suite", "crf_tagger", "ctc_net", "deep_speech_row_conv",
+        "extra_algebra_layers", "generation_helpers", "img_layers",
+        "img_trans_layers", "mdlstm_ocr", "misc_utils", "moe_block",
+        "nested_rnn_group", "op_sugar_net", "projections", "rank_costs",
+        "rnn_group", "selection_layers", "seq_ops_suite", "simple_fc",
+        "simple_lstm_net", "simple_rnn", "switch_order_net", "tpu_stem_net",
+        "util_layers", "word_embedding_ngram"]
 # goldens without a cost node whose gradients are held through a
 # projection (cost_suite's output is the addto of its five costs)
-PROJECTED = ("cost_suite", "extra_algebra_layers", "img_layers",
-             "misc_utils", "op_sugar_net", "projections", "selection_layers",
-             "switch_order_net", "tpu_stem_net", "util_layers")
+PROJECTED = ("conv3d_net", "cost_suite", "deep_speech_row_conv",
+             "extra_algebra_layers", "img_layers", "img_trans_layers",
+             "mdlstm_ocr", "misc_utils", "op_sugar_net", "projections",
+             "selection_layers", "switch_order_net", "tpu_stem_net",
+             "util_layers")
 
 
 def _payload(v):
@@ -71,7 +77,8 @@ def _jpayload(v):
 
 def _is_cost(topo, name):
     t = topo.by_name[name].type
-    return t.endswith("cost") or t in ("crf", "multi-class-cross-entropy")
+    return t.endswith("cost") or t in ("crf", "multi-class-cross-entropy",
+                                       "ctc", "warp_ctc")
 
 
 @pytest.mark.parametrize("golden", HELD)
@@ -105,7 +112,7 @@ def test_golden_forward_and_gradients_match_jax(golden):
                                    np.asarray(_jpayload(jout[k])),
                                    rtol=RTOL, atol=ATOL, err_msg=k)
     costs = [o.name for o in ttopo.outputs if _is_cost(ttopo, o.name)]
-    assert bool(costs) == (golden in ("crf_tagger", "moe_block",
+    assert bool(costs) == (golden in ("crf_tagger", "ctc_net", "moe_block",
                                       "rank_costs", "simple_fc"))
     if not costs and golden not in PROJECTED:
         return

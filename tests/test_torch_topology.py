@@ -194,7 +194,7 @@ def test_ce_from_logits_matches_jax(smoothing):
 def test_unported_layers_and_options_raise():
     from paddle_tpu_torch.core.registry import make_layer
     with pytest.raises(NotImplementedError, match="not ported"):
-        make_layer("mdlstm", None, [])
+        make_layer("nce", None, [])
     _, ttopo, _, _ = _topologies()
     with pytest.raises(NotImplementedError, match="mesh"):
         ttopo.forward({}, {}, {}, mesh=object())
