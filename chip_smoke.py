@@ -531,9 +531,49 @@ Phases (any failure exits non-zero before the final line):
    20, fc logits, warp_ctc over 29 classes), each trained 8 steps with
    Adam(1e-3) on a batch of 16: costs finite and falling, the first 2
    within 1e-4 relative of the CPU port's from the card run's init tar.
+44. ssd300 — SSD300 (Liu et al., ECCV 2016, section 2.2 and Fig. 2; the
+   authors' Caffe ssd_pascal.py; ssd300_net) at ssd300_bs32: the VGG-16
+   trunk through conv5_3, pool5 3x3 / 1, fc6 a 3x3 conv of 1024 with
+   dilation 6, fc7 1x1, conv6-conv9, cross_channel_norm on conv4_3,
+   3x3 loc and conf heads and a priorbox on six maps (38, 19, 10, 5, 3,
+   1; 8,732 priors), 21 classes, 26.29 M parameters; trained through
+   SGD with Momentum(0.9, lr 1e-3) under multibox_loss (overlap 0.5,
+   neg_pos_ratio 3, neg_overlap 0.5) on 32 seeded synthetic 300 x 300
+   images with 1-8 class-coloured boxes each (ssd_samples; gt rows fed
+   as dense_vector_sequence(6)) on the card, in bf16 and float32 (TF32
+   off), cuDNN's autotuner on for bf16 only: 2 warm-ups and 8 timed
+   steps each; step_ms, images/s, model TFLOP/s (62.7 GFLOP an image
+   forward), peak memory; one traced step each: idle share, top
+   kernels, and the span on the device timeline of the multibox loss's
+   forward, its matching and its mining beside the busy time
+   (profiler ranges put in for that step). Asserts losses finite and falling, parameters
+   finite, the feed and every parameter on the card, 8,732 priors, and
+   the first float32 loss within 1e-4 relative of the CPU port's from
+   the init tar. Then detection_output (nms 0.45, nms_top_k 400,
+   keep_top_k 200, confidence 0.01) on 8 images with the trained
+   float32 table: the card's rows equal the CPU port's detection_output
+   on the card's own heads (labels and order identical, scores and
+   boxes within 1e-5; runs of rows whose scores lie within 1e-6 may
+   come reordered, counted and printed), the layer timed alone with
+   its NMS loop's step count, paddle.infer timed, and its rows with
+   the gt rows through the detection_map evaluator. Its departures from
+   Caffe are the JAX layer's own: priors clipped to [0, 1], a map's
+   step image / map.
+45. detection types — the three goldens of the slice (detection_net,
+   multibox_net, nce_hsigmoid; nce on one draw made on the CPU and
+   passed in) on the card from the CPU port's init tar: outputs and
+   gradients at rtol 1e-4 / atol 1e-5 of the CPU port's. nce_loss at b
+   1024, d 256, 100,000 classes, 20 negatives, forward and backward on
+   the card against the CPU port on one draw (1e-5 of each tensor's
+   max), timed beside a full-softmax cross entropy over the same
+   classes (a yardstick the port never calls). gradient_printer: the
+   activation gradients two printers receive in one SGD step on the
+   card within 1e-5 of the CPU port's. dataset.uci_housing's reader
+   through fit-a-line (fc(1), square_error_cost, lr 0.1) for one pass
+   on the card: the cost of the last 3 batches below the first 3's.
 
 Then logs the whole script's wall time and prints the kernel table as
-one JSON line (phases 28-43 add no kernel; the launches of phases
+one JSON line (phases 28-45 add no kernel; the launches of phases
 34-39 are on their own log lines; the flash and LSTM kernels at
 their bfloat16 times, the training dtype, naming their wgmma sources,
 with their errors in bfloat16 too; the flash kernels again at float32,
@@ -555,6 +595,7 @@ last {"ok": true, "device": {...}}.
 
 import contextlib
 import functools
+import io
 import json
 import re
 import subprocess
@@ -4216,6 +4257,143 @@ def speech_ctc_net(paddle, dim, hidden, context, classes):
     return L.warp_ctc(logits, lbl, size=classes, name="ctc_cost")
 
 
+# SSD300 (Liu et al., ECCV 2016, section 2.2 and Fig. 2; the authors'
+# Caffe ssd_pascal.py): the source maps, their priors and heads
+SSD_SOURCES = (  # (layer, min size, max size, aspect ratios)
+    ("conv4_3_norm", 30, 60, (2.0,)), ("fc7", 60, 111, (2.0, 3.0)),
+    ("conv6_2", 111, 162, (2.0, 3.0)), ("conv7_2", 162, 213, (2.0, 3.0)),
+    ("conv8_2", 213, 264, (2.0,)), ("conv9_2", 264, 315, (2.0,)))
+SSD_VARIANCE = (0.1, 0.1, 0.2, 0.2)
+SSD_PRIORS = 8732
+
+
+def ssd300_net(paddle, size=300, width_div=1, classes=21):
+    """SSD300 built with the DSL of ``paddle`` (either package): the
+    VGG-16 trunk through conv5_3 (Caffe ceil-mode pools, 75 -> 38 at
+    pool3), pool5 3x3 stride 1 pad 1, fc6 a 3x3 conv of 1024 with
+    dilation 6, fc7 a 1x1 conv of 1024, the extra layers conv6 to conv9
+    (1x1 then 3x3: 256/512 and 128/256 at stride 2, then 128/256 valid
+    twice), ``cross_channel_norm`` on conv4_3 (scale 20), and on each of
+    the six source maps (38, 19, 10, 5, 3, 1 at 300 x 300) 3x3 loc and
+    conf heads and a ``priorbox`` (4, 6, 6, 6, 4, 4 priors a cell; 8,732
+    in all), the six concatenated in map order. ``width_div`` divides
+    every channel count (a narrow copy for the CPU tests). Two
+    departures from Caffe, both the JAX layer's own: priors are always
+    clipped to [0, 1], and a map's prior step is image / map (300 / 38),
+    not a fixed 8. Returns (multibox_loss cost, detection_output)."""
+    L, act = paddle.layer, paddle.activation
+    img = L.data("image", paddle.data_type.dense_vector(3 * size * size),
+                 height=size, width=size)
+    gt = L.data("gt", paddle.data_type.dense_vector_sequence(6))
+
+    def conv(x, name, nf, k=3, stride=1, pad=1, dilation=1, channels=None):
+        return L.img_conv(x, filter_size=k, num_filters=max(nf // width_div,
+                                                            1),
+                          num_channels=channels, stride=stride, padding=pad,
+                          dilation=dilation, act=act.Relu(), name=name)
+
+    x, nodes = img, {}
+    for block, (nf, n) in enumerate(((64, 2), (128, 2), (256, 3), (512, 3),
+                                     (512, 3)), 1):
+        for i in range(1, n + 1):
+            x = conv(x, f"conv{block}_{i}", nf,
+                     channels=3 if x is img else None)
+        nodes[f"conv{block}_{n}"] = x
+        if block < 5:
+            x = L.img_pool(x, pool_size=2, stride=2, name=f"pool{block}")
+    x = L.img_pool(x, pool_size=3, stride=1, padding=1, name="pool5")
+    x = conv(x, "fc6", 1024, pad=6, dilation=6)
+    x = nodes["fc7"] = conv(x, "fc7", 1024, k=1, pad=0)
+    for i, (nf1, nf2, stride, pad) in enumerate(
+            ((256, 512, 2, 1), (128, 256, 2, 1), (128, 256, 1, 0),
+             (128, 256, 1, 0)), 6):
+        x = conv(x, f"conv{i}_1", nf1, k=1, pad=0)
+        x = nodes[f"conv{i}_2"] = conv(x, f"conv{i}_2", nf2, stride=stride,
+                                       pad=pad)
+    nodes["conv4_3_norm"] = L.cross_channel_norm(nodes["conv4_3"],
+                                                 name="conv4_3_norm")
+    locs, confs, priors = [], [], []
+    for src, lo, hi, ratios in SSD_SOURCES:
+        n_priors = 2 + 2 * len(ratios)
+        locs.append(L.img_conv(nodes[src], filter_size=3, padding=1,
+                               num_filters=n_priors * 4, name=f"{src}_loc"))
+        confs.append(L.img_conv(nodes[src], filter_size=3, padding=1,
+                                num_filters=n_priors * classes,
+                                name=f"{src}_conf"))
+        priors.append(L.priorbox(nodes[src], img, aspect_ratio=ratios,
+                                 variance=SSD_VARIANCE, min_size=[lo],
+                                 max_size=[hi], name=f"{src}_priorbox"))
+    pb = L.concat(priors, name="priorbox")
+    cost = L.multibox_loss(locs, confs, pb, gt, num_classes=classes,
+                           overlap_threshold=0.5, neg_pos_ratio=3.0,
+                           neg_overlap=0.5, name="multibox_loss")
+    det = L.detection_output(locs, confs, pb, num_classes=classes,
+                             nms_threshold=0.45, nms_top_k=400,
+                             keep_top_k=200, confidence_threshold=0.01,
+                             name="detection_output")
+    return cost, det
+
+
+def ssd_samples(n, size, classes, seed, max_boxes=8):
+    """n seeded synthetic detection samples: a 3 x size x size image
+    (flat, channel-major) with 1..max_boxes boxes of random classes
+    (1..classes-1) painted in their class's colour over noise, and the
+    gt rows (label, xmin, ymin, xmax, ymax, difficult 0) in [0, 1]."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        im = 0.1 * rng.randn(3, size, size).astype(np.float32)
+        rows = []
+        for _ in range(int(rng.randint(1, max_boxes + 1))):
+            c = int(rng.randint(1, classes))
+            w, h = rng.uniform(0.1, 0.6, 2)
+            x0, y0 = rng.uniform(0.0, 1.0 - w), rng.uniform(0.0, 1.0 - h)
+            x1, y1 = x0 + w, y0 + h
+            im[:, int(y0 * size):int(y1 * size),
+               int(x0 * size):int(x1 * size)] += np.array(
+                [c % 3, c % 5, c % 7], np.float32)[:, None, None] / 3.0
+            rows.append([c, x0, y0, x1, y1, 0.0])
+        out.append((im.reshape(-1), np.asarray(rows, np.float32)))
+    return out
+
+
+def detection_rows_match(got, want, score_tol=1e-6, atol=1e-5):
+    """Hold detection_output rows ``got`` against ``want`` ([b, K * 7],
+    numpy): image ids and labels identical, scores and boxes within
+    ``atol``, row for row. Rows whose scores lie within ``score_tol`` of
+    each other (a run of near-ties in ``want``) may come in another
+    order: such a run is compared as a set. Returns the count of runs
+    that came reordered; raises where the rows differ otherwise."""
+    b = want.shape[0]
+    got, want = got.reshape(b, -1, 7), want.reshape(b, -1, 7)
+    if got.shape != want.shape:
+        raise AssertionError(f"detections {got.shape} against {want.shape}")
+
+    def same(g, w):
+        return np.array_equal(g[:, :2], w[:, :2]) and \
+            np.allclose(g[:, 2:], w[:, 2:], rtol=0.0, atol=atol)
+
+    swaps = 0
+    for n in range(b):
+        i, k = 0, want.shape[1]
+        while i < k:
+            j = i + 1
+            while j < k and abs(want[n, j, 2] - want[n, j - 1, 2]) <= \
+                    score_tol:
+                j += 1
+            g, w = got[n, i:j], want[n, i:j]
+            if not same(g, w):
+                key = (lambda r: np.lexsort(r[:, ::-1].T))
+                if j - i < 2 or not same(g[key(np.round(g, 4))],
+                                         w[key(np.round(w, 4))]):
+                    raise AssertionError(
+                        f"detections of image {n}, rows {i}..{j - 1}: "
+                        f"{g.tolist()} against {w.tolist()}")
+                swaps += 1
+            i = j
+    return swaps
+
+
 def convergence_demo(paddle, readers, use_tpu=None, num_passes=100,
                      batch_size=128, drop_rate=0.5, init_tar=None,
                      num_batches_per_pass=None):
@@ -7169,6 +7347,508 @@ def phase_slice_types():
     config.init(seed=0, compute_dtype="float32")
 
 
+# ------------------------------------------------------------ phase 44
+SSD = dict(size=300, width_div=1, classes=21)
+SSD_BATCH, SSD_WARMUP, SSD_STEPS = 32, 2, 8
+SSD_LR, SSD_MOMENTUM = 1e-3, 0.9
+SSD_LOSS_RTOL = 1e-4          # the card's first float32 loss against the CPU
+SSD_DET_IMAGES, SSD_DET_REPS = 8, 5
+SSD_SCORE_TIE, SSD_DET_ATOL = 1e-6, 1e-5
+# the multibox loss's parts, read as profiler ranges in a traced step
+SSD_RANGES = ("multibox_loss", "multibox_loss.match",
+              "multibox_loss.mine")
+
+
+def _payload_device(v):
+    return (v.data if hasattr(v, "lengths") else v).device.type
+
+
+def _ssd_train(compute_dtype, batch):
+    """SSD300 trained in ``compute_dtype`` on one repeated batch put on
+    the card once, as phase 42 trains C3D: 2 warm-ups, then 8 timed
+    steps of the trainer's step. Losses finite and falling, parameters
+    finite, the feed and every parameter on the card, 8,732 priors.
+    Returns the trainer, the topology, the detection_output node, the
+    feed, the init tar and the step's numbers."""
+    import io
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import config
+    from paddle_tpu_torch.core.registry import reset_name_counters
+    config.init(seed=0, compute_dtype=compute_dtype)
+    reset_name_counters()
+    cost, det = ssd300_net(paddle, **SSD)
+    topo = paddle.Topology(cost)
+    n_priors = sum(l.meta.size for l in topo.layers
+                   if l.type == "priorbox") // 8
+    if n_priors != SSD_PRIORS:
+        raise AssertionError(f"ssd300: {n_priors} priors, not {SSD_PRIORS}")
+    params = paddle.create_parameters(topo)
+    init = io.BytesIO()
+    params.to_tar(init)
+    trainer = paddle.SGD(cost=cost, parameters=params,
+                         update_equation=paddle.optimizer.Momentum(
+                             learning_rate=SSD_LR, momentum=SSD_MOMENTUM))
+    feed = trainer._feeder(None)(batch)
+    n_real = int(feed.pop("__batch_size__"))
+    off = [k for k, v in list(feed.items()) + list(params.raw.items())
+           if _payload_device(v) != "cuda"]
+    if off:
+        raise AssertionError(f"ssd300 {compute_dtype}: {off} not on the "
+                             "card")
+
+    def step():
+        return trainer._step(feed, n_real, fetch_evals=False)[0]
+
+    losses = [step() for _ in range(SSD_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(SSD_STEPS):
+        losses.append(step())
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / SSD_STEPS * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bad = [k for k, p in params.raw.items()
+           if not bool(torch.isfinite(p).all())]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or bad:
+        raise AssertionError(f"ssd300 {compute_dtype}: losses {losses}, "
+                             f"non-finite parameters {bad}")
+    flops = _model_flops(topo)
+    tflops = 3 * flops * SSD_BATCH / (step_ms / 1e3) / 1e12
+    n_params = sum(p.numel() for p in params.raw.values())
+    log(f"ssd300 {compute_dtype} ({nvidia_smi_line()}): ssd300_bs32, "
+        f"{n_params} parameters, {n_priors} priors, batch {SSD_BATCH} of 3 "
+        f"x {SSD['size']} x {SSD['size']}, {SSD['classes']} classes, feed "
+        f"on the card, {SSD_STEPS} timed steps after {SSD_WARMUP}: step_ms "
+        f"{step_ms:.3f}, {SSD_BATCH / (step_ms / 1e3):.1f} images/s; model "
+        f"FLOPs {flops / 1e9:.4f} G an image forward, "
+        f"{3 * flops / 1e9:.4f} G trained (forward + 2 x forward; convs "
+        f"only), {tflops:.1f} TFLOP/s at step_ms; peak {peak_gb:.3f} GB; "
+        f"losses {[round(x, 5) for x in losses]}")
+    return trainer, topo, det, feed, init.getvalue(), dict(
+        step_ms=step_ms, peak_gb=peak_gb, losses=losses, tflops=tflops)
+
+
+def _ssd_cpu_loss(topo, init_tar, batch):
+    """The CPU port's first training loss (the masked mean of the per-
+    image costs) from ``init_tar`` on ``batch``."""
+    import io
+
+    from paddle_tpu_torch.trainer import Parameters
+    from paddle_tpu_torch.trainer.data_feeder import DataFeeder
+    raw = Parameters.from_tar(io.BytesIO(init_tar), device="cpu").raw
+    feed = DataFeeder(topo.data_type(), device="cpu")(batch)
+    n_real = int(feed.pop("__batch_size__"))
+    with torch.no_grad():
+        outs, _ = topo.forward(raw, topo.init_state(device="cpu"), feed,
+                               mode="train")
+    return float(sum(v.sum() for v in outs.values())) / n_real
+
+
+@contextlib.contextmanager
+def _multibox_ranges():
+    """Profiler ranges around the multibox loss's forward (SSD_RANGES:
+    the whole layer, its prior matching and its hard-negative mining),
+    put in for one traced step and taken out after."""
+    from torch.profiler import record_function
+
+    from paddle_tpu_torch.core.registry import _LAYER_REGISTRY
+    from paddle_tpu_torch.layers import detection_layers as dl
+    from paddle_tpu_torch.ops import detection as do
+    impl = _LAYER_REGISTRY["multibox_loss"]
+    saved = (impl["apply"], do.batched_match_priors, dl.hard_negatives)
+
+    def ranged(name, fn):
+        def run(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return run
+
+    impl["apply"] = ranged(SSD_RANGES[0], saved[0])
+    do.batched_match_priors = ranged(SSD_RANGES[1], saved[1])
+    dl.hard_negatives = ranged(SSD_RANGES[2], saved[2])
+    try:
+        yield
+    finally:
+        impl["apply"], do.batched_match_priors, dl.hard_negatives = saved
+
+
+def _ssd_trace(run, label):
+    """One step under torch.profiler: device busy time against the wall
+    clock (the idle share), the top kernels, and the span on the device
+    timeline of the multibox loss's forward, its matching and its
+    mining (from its first kernel to its last, so the gaps where the
+    device waits for the host's launches count) beside the busy
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with _multibox_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel, ranges, n_kernels = {}, dict.fromkeys(SSD_RANGES, 0.0), 0
+    for ev in prof.key_averages():
+        if ev.key in ranges:
+            ranges[ev.key] = max(ranges[ev.key], ev.device_time_total / 1e3)
+        elif ev.device_type.name == "CUDA" and ev.self_device_time_total > 0:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + \
+                ev.self_device_time_total / 1e3
+            n_kernels += ev.count
+    busy_ms = sum(by_kernel.values())
+    log(f"{label} trace: 1 step, wall {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}) in "
+        f"{n_kernels} device operations; the multibox loss's forward on "
+        f"the device timeline, each range's span: "
+        + ", ".join(f"{k} {v:.3f} ms ({v / busy_ms:.4f} of busy)"
+                    for k, v in ranges.items())
+        + " (a span counts the gaps where the device waits for the "
+        "host's launches; the loss's backward is not in them)")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"{label} trace top kernel: {ms:.3f} ms ({ms / busy_ms:.3f} of "
+            f"busy)  {name[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, **ranges)
+
+
+def _ssd_detect(trainer, det, batch):
+    """detection_output on SSD_DET_IMAGES images with the trained
+    float32 table: one card forward gives the heads and the rows, held
+    against the CPU port's detection_output on the card's own heads
+    (labels and row order identical, scores and boxes within 1e-5; rows
+    whose scores lie within 1e-6 may swap, counted); the layer timed
+    alone on the card; then paddle.infer (the Inference path) timed, its
+    rows fed with the gt rows to the detection_map evaluator."""
+    import io
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.registry import ApplyContext, get_layer_impl
+    from paddle_tpu_torch.trainer.data_feeder import DataFeeder
+    imgs = batch[:SSD_DET_IMAGES]
+    topo = paddle.Topology(det)
+    node = topo.by_name[det.name]
+    raw = {k: v.detach() for k, v in trainer.parameters.raw.items()
+           if k in topo.param_specs}
+    feed = DataFeeder(topo.data_type(), device="cuda")([(x,) for x, _ in
+                                                        imgs])
+    feed.pop("__batch_size__")
+    names = [p.name for p in node.parents] + [det.name]
+    with torch.no_grad():
+        vals, _ = topo.forward(raw, topo.init_state(device="cuda"), feed,
+                               mode="test", output_names=names)
+    card = vals[det.name].cpu().numpy()
+    apply = get_layer_impl("detection_output")["apply"]
+    heads = [vals[p.name] for p in node.parents]
+    if tuple(heads[0].shape) != (len(imgs), SSD_PRIORS * 8):
+        raise AssertionError(f"ssd300 priors on the card: "
+                             f"{tuple(heads[0].shape)}")
+    cpu = apply(ApplyContext("test", {}), det.name, node.config, {},
+                [h.cpu() for h in heads]).numpy()
+    swaps = detection_rows_match(card, cpu, SSD_SCORE_TIE, SSD_DET_ATOL)
+    times = []
+    with torch.no_grad():
+        for _ in range(SSD_DET_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            apply(ApplyContext("test", {}), det.name, node.config, {}, heads)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    det_ms = float(np.median(times[1:]))
+    buf = io.BytesIO()
+    trainer.parameters.to_tar(buf)
+    params = paddle.Parameters.from_tar(io.BytesIO(buf.getvalue()))
+    t0 = time.perf_counter()
+    rows = paddle.infer(output_layer=det, parameters=params,
+                        input=[(x,) for x, _ in imgs], feeding={"image": 0})
+    infer_ms = (time.perf_counter() - t0) * 1e3
+    if rows.shape != card.shape or not np.all(np.isfinite(rows)):
+        raise AssertionError(f"ssd300 infer: rows {rows.shape}")
+    gt_layer = trainer.topology.by_name["gt"]
+    ev = paddle.evaluator.detection_map(det, gt_layer)
+    ev.start()
+    gt = DataFeeder([("gt", paddle.data_type.dense_vector_sequence(6))],
+                    device="cpu")([(g,) for _, g in imgs])["gt"]
+    ev.eval_batch([rows, gt], len(imgs))
+    m_ap = ev.result()["detection_map"]
+    k = min(node.config["nms_top_k"], SSD_PRIORS)
+    kept = int((card.reshape(len(imgs), -1, 7)[..., 1] >= 0).sum())
+    log(f"ssd300 detection_output ({nvidia_smi_line()}): {len(imgs)} images, "
+        f"{SSD_PRIORS} priors, {SSD['classes'] - 1} classes: the NMS loop "
+        f"{k} steps over {len(imgs) * (SSD['classes'] - 1)} (image, class) "
+        f"rows at once, {det_ms:.3f} ms the layer alone (median of "
+        f"{SSD_DET_REPS}, synchronised); paddle.infer (feed, forward, "
+        f"host copy) {infer_ms:.3f} ms; {kept} rows kept; card against "
+        f"the CPU port on the card's own heads: labels and order "
+        f"identical, scores and boxes within {SSD_DET_ATOL}, {swaps} "
+        f"near-tie runs (scores within {SSD_SCORE_TIE}) reordered; "
+        f"detection_map (11-point, after 10 steps on random data) "
+        f"{m_ap:.5f}")
+    return dict(det_ms=det_ms, infer_ms=infer_ms, swaps=swaps, m_ap=m_ap,
+                nms_steps=k)
+
+
+def phase_ssd300():
+    """Phase 44: SSD300 (Liu et al., ECCV 2016; ssd300_net) at
+    ssd300_bs32, trained through SGD with Momentum(0.9, lr 1e-3) under
+    multibox_loss on 32 seeded synthetic 300 x 300 images (ssd_samples)
+    fed on the card, in bf16 and float32 (TF32 off): step_ms, images/s,
+    model TFLOP/s (62.7 GFLOP an image forward), peak memory, one traced
+    step each with the multibox loss's share. The first float32 loss
+    within 1e-4 relative of the CPU port's from the init tar. Then
+    detection_output on 8 images (_ssd_detect)."""
+    from paddle_tpu_torch import config
+    batch = ssd_samples(SSD_BATCH, SSD["size"], SSD["classes"], seed=0)
+    log("ssd300: torch.backends.cudnn.benchmark on for bf16, off for "
+        "float32 (as phase 42)")
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        torch.backends.cudnn.benchmark = dt == "bfloat16"
+        trainer, topo, det, feed, init_tar, out[dt] = _ssd_train(dt, batch)
+        out[dt]["trace"] = _ssd_trace(
+            lambda: trainer._step(feed, SSD_BATCH, fetch_evals=False),
+            f"ssd300 {dt} train (feed on the card)")
+        if dt == "float32":
+            t0 = time.perf_counter()
+            cpu = _ssd_cpu_loss(topo, init_tar, batch)
+            first = out[dt]["losses"][0]
+            rel = abs(first - cpu) / abs(cpu)
+            log(f"ssd300 float32: first loss {first:.6f} on the card, "
+                f"{cpu:.6f} on the CPU port from the init tar (relative "
+                f"{rel:.3g}, held at {SSD_LOSS_RTOL}; CPU forward "
+                f"{time.perf_counter() - t0:.1f} s)")
+            if not rel <= SSD_LOSS_RTOL:
+                raise AssertionError(f"ssd300 first loss {first} against "
+                                     f"the CPU port's {cpu}")
+            out["detect"] = _ssd_detect(trainer, det, batch)
+        del trainer, feed
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = False
+    config.init(seed=0, compute_dtype="float32")
+    return out
+
+
+# ------------------------------------------------------------ phase 45
+DET_GOLDENS = ("detection_net", "multibox_net", "nce_hsigmoid")
+NCE_CARD = dict(b=1024, d=256, classes=100000, k=20)
+NCE_REPS = 10
+NCE_TOL = 1e-5                # of each tensor's max |cpu|
+GP_TOL = 1e-5
+HOUSING_BATCH, HOUSING_LR = 16, 0.1
+
+
+@contextlib.contextmanager
+def _nce_draw(draws):
+    """The port's nce layers sample ``draws`` ({layer name: [b, k] ids on
+    the CPU}) on whatever device they run, for a card-vs-CPU check."""
+    from paddle_tpu_torch.layers import cost_layers
+    saved = cost_layers.nce_sample_ids
+
+    def sample(ctx, name, batch, k, num_classes, device):
+        return draws[name].to(device)
+
+    cost_layers.nce_sample_ids = sample
+    try:
+        yield
+    finally:
+        cost_layers.nce_sample_ids = saved
+
+
+def _nce_large():
+    """nce_loss at NCE_CARD (forward and backward) on the card against
+    the CPU port on the same draw, both timed; a full-softmax cross
+    entropy over the same classes timed beside it as a yardstick (never
+    called on a path)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import cost as cost_ops
+    b, d, nc, k = (NCE_CARD[x] for x in ("b", "d", "classes", "k"))
+    gen = torch.Generator().manual_seed(45)
+    host = [torch.randn(b, d, generator=gen),
+            torch.randn(nc, d, generator=gen) * d ** -0.5,
+            torch.randn(nc, generator=gen) * 0.1]
+    labels = torch.randint(0, nc, (b,), generator=gen)
+    ids = torch.randint(0, nc, (b, k), generator=gen)
+
+    def run(dev):
+        on = [t.to(dev) for t in host]
+        lab, draw = labels.to(dev), ids.to(dev)
+
+        def fwd_bwd():
+            leaves = [t.detach().requires_grad_() for t in on]
+            loss = cost_ops.nce_loss(*leaves, lab, draw, nc)
+            return [loss.detach()] + list(torch.autograd.grad(loss.sum(),
+                                                              leaves))
+        return fwd_bwd
+
+    nce_card = run("cuda")
+    card = [t.cpu() for t in nce_card()]
+    cpu = run("cpu")()
+    errs = [float((a - c).abs().max() / c.abs().max().clamp(min=1e-30))
+            for a, c in zip(card, cpu)]
+    if max(errs) > NCE_TOL:
+        raise AssertionError(f"nce at {NCE_CARD}: card against the CPU "
+                             f"port, relative errors {errs}")
+    x, w, bias = [t.cuda() for t in host]
+    lab = labels.cuda()
+
+    def softmax_ce():
+        leaves = [t.detach().requires_grad_() for t in (x, w, bias)]
+        loss = F.cross_entropy(leaves[0] @ leaves[1].t() + leaves[2], lab,
+                               reduction="sum")
+        return torch.autograd.grad(loss, leaves)
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(NCE_REPS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / NCE_REPS * 1e3
+
+    nce_ms = timed(nce_card)
+    ce_ms = timed(softmax_ce)
+    log(f"nce ({nvidia_smi_line()}): b {b}, d {d}, {nc} classes, {k} "
+        f"negatives, forward and backward on the card's tensors: "
+        f"{nce_ms:.3f} ms (synchronised, mean of {NCE_REPS}), card against the CPU port on one "
+        f"draw within {max(errs):.3g} of each tensor's max (held at "
+        f"{NCE_TOL}); yardstick, a full-softmax cross entropy over the "
+        f"{nc} classes forward and backward: {ce_ms:.3f} ms "
+        f"({ce_ms / nce_ms:.2f} x nce)")
+    return dict(nce_ms=nce_ms, softmax_ms=ce_ms, err=max(errs))
+
+
+def gradient_printer_net(paddle):
+    """A small fc net with a gradient printer on its hidden layer and
+    one on its softmax. Returns (cost, the evaluators)."""
+    L, dt, act = paddle.layer, paddle.data_type, paddle.activation
+    x = L.data("x", dt.dense_vector(32))
+    h = L.fc(x, size=64, act=act.Tanh(), name="h")
+    out = L.fc(h, size=10, act=act.Softmax(), name="out")
+    lbl = L.data("y", dt.integer_value(10))
+    cost = L.classification_cost(out, lbl, name="cost")
+    return cost, [paddle.evaluator.gradient_printer(h, stream=io.StringIO()),
+                  paddle.evaluator.gradient_printer(out, name="gp_out",
+                                                    stream=io.StringIO())]
+
+
+def _gradient_printer_step(device, init_tar=None):
+    """The values each gradient printer of gradient_printer_net receives
+    in one SGD step on ``device`` (from ``init_tar`` where given), and
+    the init tar."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import config
+    from paddle_tpu_torch.core.registry import reset_name_counters
+    config.init(seed=0, compute_dtype="float32")
+    reset_name_counters()
+    cost, evs = gradient_printer_net(paddle)
+    params = paddle.create_parameters(paddle.Topology(cost), device="cpu")
+    if init_tar is not None:
+        params = paddle.Parameters.from_tar(io.BytesIO(init_tar),
+                                            device="cpu")
+    buf = io.BytesIO()
+    params.to_tar(buf)
+    seen = {}
+    for ev in evs:
+        def record(values, n_real, ev=ev, orig=ev.eval_batch):
+            seen[ev.name] = np.asarray(values[0])
+            orig(values, n_real)
+        ev.eval_batch = record
+    trainer = paddle.SGD(cost=cost, parameters=params, evaluators=evs,
+                         update_equation=paddle.optimizer.Momentum(
+                             learning_rate=0.1, momentum=0.9),
+                         device=device)
+    rng = np.random.RandomState(45)
+    data = [(rng.randn(32).astype(np.float32), int(rng.randint(0, 10)))
+            for _ in range(64)]
+    trainer.train(lambda: iter([data]), num_passes=1,
+                  event_handler=lambda e: None)
+    return seen, buf.getvalue()
+
+
+def _housing_fit():
+    """dataset.uci_housing's reader feeding fit-a-line (fc(1) on 13
+    features, square_error_cost) on the card for one pass: the cost of
+    the last batches below the first's."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import config
+    from paddle_tpu_torch.core.registry import reset_name_counters
+    config.init(seed=0, compute_dtype="float32")
+    reset_name_counters()
+    L, dt = paddle.layer, paddle.data_type
+    x = L.data("x", dt.dense_vector(13))
+    y = L.data("y", dt.dense_vector(1))
+    pred = L.fc(x, size=1, act=paddle.activation.Linear(), name="pred")
+    cost = L.square_error_cost(pred, y, name="cost")
+    params = paddle.create_parameters(paddle.Topology(cost))
+    trainer = paddle.SGD(cost=cost, parameters=params,
+                         update_equation=paddle.optimizer.Momentum(
+                             learning_rate=HOUSING_LR, momentum=0.0))
+    costs = []
+    trainer.train(paddle.reader.batch(paddle.dataset.uci_housing.train(),
+                                      HOUSING_BATCH), num_passes=1,
+                  event_handler=lambda e: costs.append(e.cost) if isinstance(
+                      e, paddle.event.EndIteration) else None)
+    if not all(np.isfinite(costs)) or \
+            not np.mean(costs[-3:]) < np.mean(costs[:3]):
+        raise AssertionError(f"fit-a-line on uci_housing: costs {costs}")
+    test = trainer.test(paddle.reader.batch(
+        paddle.dataset.uci_housing.test(), HOUSING_BATCH))
+    log(f"fit-a-line on dataset.uci_housing (card): {len(costs)} batches "
+        f"of {HOUSING_BATCH}, cost {np.mean(costs[:3]):.4f} over the "
+        f"first 3 -> {np.mean(costs[-3:]):.4f} over the last 3; test cost "
+        f"{test.cost:.4f}")
+    return costs
+
+
+def phase_detection_types():
+    """Phase 45: the slice's other parts on the card. The three goldens
+    (detection_net, multibox_net, nce_hsigmoid, its nce on one draw
+    made on the CPU and passed in) from the CPU port's init tar:
+    outputs and gradients within rtol 1e-4 / atol 1e-5 of the CPU
+    port's. nce at b 1024, d 256, 100,000 classes, 20 negatives,
+    forward and backward against the CPU port, timed beside a
+    full-softmax cross entropy. The gradient printer's values from one
+    SGD step on the card within 1e-5 of the CPU port's. The uci_housing
+    reader through fit-a-line for one pass, the cost falling."""
+    from paddle_tpu_torch import config
+    card = nvidia_smi_line()
+    config.init(seed=0, compute_dtype="float32")
+    gen = torch.Generator().manual_seed(23)
+    draws = {"nce_cost": torch.randint(0, 32, (len(GOLDEN_LENGTHS), 5),
+                                       generator=gen)}
+    t0 = time.perf_counter()
+    with _nce_draw(draws):
+        worst = _goldens_on_card(DET_GOLDENS)
+    log(f"detection goldens ({card}): {len(worst)} goldens on the card "
+        f"against the CPU port in {time.perf_counter() - t0:.3f} s (nce on "
+        f"one CPU draw), outputs and gradients within {GOLDEN_TOL}; worst "
+        f"|diff| (and gradients held) by golden: "
+        f"{ {k: (float(f'{e:.3g}'), n) for k, (e, n) in worst.items()} }")
+    nce = _nce_large()
+    card_seen, tar = _gradient_printer_step("cuda")
+    cpu_seen, _ = _gradient_printer_step("cpu", tar)
+    if sorted(card_seen) != ["gp_out", "gradient_printer"] or \
+            sorted(cpu_seen) != sorted(card_seen):
+        raise AssertionError(f"gradient printers: {sorted(card_seen)} on "
+                             f"the card, {sorted(cpu_seen)} on the CPU")
+    gp_err = max(float(np.abs(card_seen[k] - cpu_seen[k]).max())
+                 for k in card_seen)
+    if gp_err > GP_TOL or not all(np.abs(v).max() > 0
+                                  for v in card_seen.values()):
+        raise AssertionError(f"gradient printers: card against the CPU "
+                             f"port, max |diff| {gp_err}")
+    log(f"gradient_printer: one SGD step (batch 64) on the card, the "
+        f"activation gradients of {sorted(card_seen)} within {gp_err:.3g} "
+        f"of the CPU port's (held at {GP_TOL})")
+    _housing_fit()
+    config.init(seed=0, compute_dtype="float32")
+    return dict(nce=nce, gp_err=gp_err, worst=worst)
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -7246,6 +7926,10 @@ def main():
     # the 3-D, image-transform and OCR/speech types (phases 42-43)
     phase_c3d()
     phase_slice_types()
+    # the detection types, nce, the datasets and gradient_printer
+    # (phases 44-45)
+    phase_ssd300()
+    phase_detection_types()
     kernels = [dict(
         name="paged_window_attention", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",

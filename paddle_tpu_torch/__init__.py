@@ -67,6 +67,12 @@ Slices ported so far:
   ``crf_tagger`` / ``googlenet`` and ``dataset.imdb``. The JAX package
   computes them outside Pallas: plain PyTorch ops, and cuDNN for
   GoogleNet's convs.
+- the 3-D, image-transform and OCR/speech types with CTC, and the SSD
+  detection types with ``nce`` (ops/detection.py,
+  layers/detection_layers.py): every layer type of the JAX package.
+  With them the rest of the v2 datasets, ``image.py`` and the
+  gradient printer. Plain PyTorch ops and cuDNN again: the JAX package
+  computes them outside Pallas.
 
 Entry points run on the card unless the caller passes
 ``device="cpu"`` or called ``init(use_gpu=False)``; with no GPU and no

@@ -192,10 +192,8 @@ def register_layer(layer_type: str):
 
 def get_layer_impl(layer_type: str) -> Dict[str, Callable]:
     if layer_type not in _LAYER_REGISTRY:
-        raise NotImplementedError(
-            f"layer type {layer_type!r} is not ported yet (this slice "
-            f"has {sorted(_LAYER_REGISTRY)}; the rest come with later "
-            "slices, ROADMAP.md queue A)")
+        raise KeyError(f"unknown layer type {layer_type!r}; registered: "
+                       f"{sorted(_LAYER_REGISTRY)}")
     return _LAYER_REGISTRY[layer_type]
 
 

@@ -25,6 +25,7 @@ from paddle_tpu_torch.core.data_type import InputType, SeqType
 from paddle_tpu_torch.core.registry import (ApplyContext, LayerOutput,
                                             ParamAttr, ParamSpec, StateSpec,
                                             get_layer_impl, make_layer)
+from paddle_tpu_torch.core.sequence import SequenceBatch
 
 
 def _collect(outputs: Sequence[LayerOutput]) -> List[LayerOutput]:
@@ -129,24 +130,29 @@ class Topology:
                 rng: Optional[int] = None,
                 output_names: Optional[Sequence[str]] = None,
                 sparse_sub: Optional[Dict[str, Any]] = None,
-                mesh=None, n_real=None):
+                mesh=None, n_real=None,
+                taps: Optional[Dict[str, Any]] = None):
         """One forward pass. Returns (outputs_dict, new_state);
         ``outputs_dict`` maps layer name -> value for the requested
         outputs (default: ``self.outputs``). ``rng`` seeds the random
         layers (dropout) of a train step, ``ApplyContext.rng_for``.
         ``sparse_sub``: {table name: (uids, rows)} prefetched row blocks
         — embedding layers whose table appears there look ids up inside
-        the block, so gradients stay row-sparse."""
+        the block, so gradients stay row-sparse. ``taps``: {layer name:
+        tensor added to that layer's output (its payload, for a
+        sequence)}; a None entry is filled with a fresh zero leaf that
+        requires grad, so that autograd's gradient of the caller's loss
+        with respect to it is d(loss)/d(output) (gradient_printer)."""
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh is not ported yet (the parallelism slice, "
                 "ROADMAP.md queue A.10)")
         with torch.no_grad() if self.generates else contextlib.nullcontext():
             return self._forward(params, state, feed, mode, rng,
-                                 output_names, n_real, sparse_sub)
+                                 output_names, n_real, sparse_sub, taps)
 
     def _forward(self, params, state, feed, mode, rng, output_names,
-                 n_real, sparse_sub=None):
+                 n_real, sparse_sub=None, taps=None):
         ctx = ApplyContext(mode, state, rng)
         ctx.n_real = n_real
         ctx.sparse_sub = sparse_sub
@@ -167,6 +173,9 @@ class Topology:
                 values[layer.name] = impl["apply"](ctx, layer.name,
                                                    layer.config, lparams,
                                                    inputs)
+            if taps is not None and layer.name in taps:
+                values[layer.name] = _tapped(values[layer.name], taps,
+                                             layer.name)
         new_state = dict(state)
         new_state.update(ctx.state_updates)
         outs = {n: values[n] for n in wanted if n in values}
@@ -236,6 +245,16 @@ class Topology:
             built[ld["name"]] = make_layer(ld["type"], ld["name"], inputs,
                                            **cfg)
         return Topology([built[n] for n in spec["outputs"]])
+
+
+def _tapped(v, taps, name):
+    """``v`` plus its tap ``taps[name]`` (made a zero leaf when None)."""
+    seq = isinstance(v, SequenceBatch)
+    data = v.data if seq else v
+    if taps[name] is None:
+        taps[name] = torch.zeros_like(data).requires_grad_(True)
+    data = data + taps[name]
+    return v.with_data(data) if seq else data
 
 
 def _jsonify(obj):

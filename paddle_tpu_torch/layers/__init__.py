@@ -23,14 +23,16 @@ selective_fc, multiplex, print_layer, tensor, conv_shift,
 linear_comb, prelu, row_l2_norm and switch_order; the image
 transforms and the 3-D and multi-dimensional types (maxout, spp, pad,
 crop, bilinear_interp, block_expand, rotate, row_conv, img_conv3d,
-img_pool3d, mdlstm) and the CTC costs (ctc, warp_ctc) — with the JAX
-package's ``*_layer`` aliases of each, and none it lacks.
+img_pool3d, mdlstm), the CTC costs (ctc, warp_ctc), nce and the SSD
+detection types (priorbox, cross_channel_norm, multibox_loss,
+detection_output) — with the JAX package's ``*_layer`` aliases of
+each, and none it lacks.
 
 Each wrapper normalizes its arguments exactly as the JAX package's
 does (activation objects -> names, non-default options only), so the
 same calls give the same graph, the same auto-names and the same
-serialized topology. Layer types of later slices are not registered:
-building or deserializing one raises ``NotImplementedError``.
+serialized topology. Every layer type of the JAX package is
+registered; an unknown type raises ``KeyError``, as there.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from paddle_tpu_torch.layers import recurrent_layers as _rec  # noqa: F401
 from paddle_tpu_torch.layers import seq_layers as _seq       # noqa: F401
 from paddle_tpu_torch.layers import group as _group          # noqa: F401
 from paddle_tpu_torch.layers import misc_layers as _misc     # noqa: F401
+from paddle_tpu_torch.layers import detection_layers as _det  # noqa: F401
 from paddle_tpu_torch.layers.group import (  # noqa: F401
     GeneratedInput, StaticInput, SubsequenceInput, beam_search, get_output,
     memory, recurrent_group)
@@ -669,6 +672,16 @@ def sum_cost(input, name=None, **kw) -> LayerOutput:
     return make_layer("sum_cost", name, [input])
 
 
+def nce(input, label, num_classes: int, num_neg_samples: int = 10,
+        param_attr=None, bias_attr=None, name=None, **kw) -> LayerOutput:
+    return make_layer("nce", name, [input, label], num_classes=num_classes,
+                      num_neg_samples=num_neg_samples, param_attr=param_attr,
+                      bias_attr=bias_attr)
+
+
+nce_layer = nce
+
+
 def hsigmoid(input, label, num_classes: int, param_attr=None, bias_attr=None,
              name=None, **kw) -> LayerOutput:
     nodes = _listify(input) + [label]
@@ -806,3 +819,52 @@ def switch_order(input, reshape_axis=None, height=None, width=None,
 
 
 switch_order_layer = switch_order
+
+
+# ---------------------------------------------------------------------------
+# SSD detection (priorbox_layer:1095, multibox_loss_layer:1141,
+#  detection_output_layer:1214, cross_channel_norm_layer:1294)
+
+
+def priorbox(input, image, aspect_ratio, variance, min_size, max_size=None,
+             name=None, **kw) -> LayerOutput:
+    return make_layer("priorbox", name, [input, image],
+                      aspect_ratio=list(aspect_ratio),
+                      variance=list(variance), min_size=list(min_size),
+                      max_size=list(max_size or []))
+
+
+def cross_channel_norm(input, name=None, param_attr=None, **kw) -> LayerOutput:
+    return make_layer("cross_channel_norm", name, [input],
+                      param_attr=param_attr)
+
+
+def multibox_loss(input_loc, input_conf, priorbox, label, num_classes: int,
+                  overlap_threshold: float = 0.5, neg_pos_ratio: float = 3.0,
+                  neg_overlap: float = 0.5, background_id: int = 0,
+                  name=None, **kw) -> LayerOutput:
+    locs = _listify(input_loc)
+    confs = _listify(input_conf)
+    assert len(locs) == len(confs)
+    return make_layer("multibox_loss", name,
+                      [priorbox, label] + locs + confs,
+                      input_num=len(locs), num_classes=num_classes,
+                      overlap_threshold=overlap_threshold,
+                      neg_pos_ratio=neg_pos_ratio, neg_overlap=neg_overlap,
+                      background_id=background_id)
+
+
+def detection_output(input_loc, input_conf, priorbox, num_classes: int,
+                     nms_threshold: float = 0.45, nms_top_k: int = 400,
+                     keep_top_k: int = 200,
+                     confidence_threshold: float = 0.01,
+                     background_id: int = 0, name=None, **kw) -> LayerOutput:
+    locs = _listify(input_loc)
+    confs = _listify(input_conf)
+    assert len(locs) == len(confs)
+    return make_layer("detection_output", name, [priorbox] + locs + confs,
+                      input_num=len(locs), num_classes=num_classes,
+                      nms_threshold=nms_threshold, nms_top_k=nms_top_k,
+                      keep_top_k=keep_top_k,
+                      confidence_threshold=confidence_threshold,
+                      background_id=background_id)

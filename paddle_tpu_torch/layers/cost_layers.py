@@ -1,9 +1,9 @@
-"""Cost layers — the port of ``paddle_tpu/layers/cost_layers.py`` but
-for ``nce``: ``multi-class-cross-entropy``, ``square_error``,
+"""Cost layers — the port of ``paddle_tpu/layers/cost_layers.py``:
+``multi-class-cross-entropy``, ``square_error``,
 ``soft_binary_class_cross_entropy``, ``multi_binary_label_cross_entropy``,
 ``rank-cost``, ``lambda_cost``, ``huber_regression``,
 ``huber_classification``, ``smooth_l1``, ``sum_cost``,
-``cross_entropy_with_selfnorm``, ``hsigmoid`` and
+``cross_entropy_with_selfnorm``, ``nce``, ``hsigmoid`` and
 ``classification_error``. A cost layer outputs per-sample loss
 [batch]; a sequence prediction sums its per-position costs over the
 valid positions.
@@ -203,6 +203,46 @@ class CrossEntropySelfNormCost:
             lambda p, l: cost_ops.cross_entropy_with_selfnorm(
                 p, l, cfg.get("softmax_selfnorm_alpha", 0.1)),
             inputs[0], inputs[1])
+
+
+def nce_sample_ids(ctx, name: str, batch: int, k: int, num_classes: int,
+                   device) -> torch.Tensor:
+    """The ``nce`` layer's noise draw: [batch, k] uniform class ids from
+    the layer's own generator of this step (``ctx.rng_for``), in test
+    mode as well, as the JAX package draws them."""
+    return torch.randint(0, num_classes, (batch, k), device=device,
+                         generator=ctx.rng_for(name, device))
+
+
+@register_layer("nce")
+class NCELayer:
+    @staticmethod
+    def build(name, cfg, input_metas):
+        num_classes = cfg["num_classes"]
+        feat_dim = input_metas[0].size
+        a = ParamAttr.of(cfg.get("param_attr"))
+        wname = a.name or f"_{name}.w0"
+        specs = [ParamSpec(wname, (num_classes, feat_dim),
+                           a.initializer or initializers.smart_normal(1), a)]
+        cfg["_w_name"] = wname
+        battr = ParamAttr.of(None if cfg.get("bias_attr") in (True, None)
+                             else cfg.get("bias_attr"))
+        bname = battr.name or f"_{name}.wbias"
+        specs.append(ParamSpec(bname, (num_classes,), initializers.zeros,
+                               battr))
+        cfg["_b_name"] = bname
+        return LayerMeta(size=1), specs, []
+
+    @staticmethod
+    def apply(ctx, name, cfg, params, inputs):
+        feats, labels = _payload(inputs[0]), _payload(inputs[1])
+        nc = cfg["num_classes"]
+        sample_ids = nce_sample_ids(ctx, name, feats.shape[0],
+                                    cfg.get("num_neg_samples", 10), nc,
+                                    feats.device)
+        return cost_ops.nce_loss(feats, params[cfg["_w_name"]],
+                                 params[cfg["_b_name"]], labels, sample_ids,
+                                 nc)
 
 
 @register_layer("hsigmoid")

@@ -1,8 +1,8 @@
-"""Cost functions — the port of ``paddle_tpu/ops/cost.py`` but for
-NCE: cross entropy (with the self-normalizing term), soft and
-multi-label binary CE, squared error, the ranking costs (pairwise
-``rank_cost`` and LambdaRank's ``lambda_cost``), Huber regression and
-two-class Huber, smooth L1, ``sum_cost``, hierarchical sigmoid and the
+"""Cost functions — the port of ``paddle_tpu/ops/cost.py``: cross
+entropy (with the self-normalizing term), soft and multi-label binary
+CE, squared error, the ranking costs (pairwise ``rank_cost`` and
+LambdaRank's ``lambda_cost``), Huber regression and two-class Huber,
+smooth L1, ``sum_cost``, NCE, hierarchical sigmoid and the
 classification error. Costs return per-sample values; the trainer
 averages. Each is the JAX function's formula, term for term, so
 autograd gives ``jax.grad``'s gradient.
@@ -10,6 +10,7 @@ autograd gives ``jax.grad``'s gradient.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -188,6 +189,27 @@ def smooth_l1(pred: torch.Tensor, label: torch.Tensor,
 def sum_cost(x: torch.Tensor) -> torch.Tensor:
     """SumCostLayer: the sum of the input as the loss."""
     return torch.sum(x, dim=tuple(range(1, x.dim())))
+
+
+def nce_loss(features: torch.Tensor, weights: torch.Tensor,
+             bias: torch.Tensor, labels: torch.Tensor,
+             sample_ids: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """Noise-contrastive estimation (NCELayer.cpp) against a uniform
+    noise distribution. features [b, d], weights [num_classes, d], bias
+    [num_classes], labels [b], sample_ids [b, k] -> [b]: the true
+    class's logit and the k noise logits (gathered rows, no product
+    over all classes), each through softplus(-/+(logit - log k -
+    log(1 / num_classes)))."""
+    k = sample_ids.shape[-1]
+    log_noise = math.log(1.0 / num_classes)
+    labels = labels.reshape(-1).long()
+    sample_ids = sample_ids.long()
+    true_logit = torch.sum(features * weights[labels], dim=-1) + bias[labels]
+    noise_logit = torch.sum(features[:, None, :] * weights[sample_ids],
+                            dim=-1) + bias[sample_ids]
+    true_cost = _softplus(-(true_logit - math.log(float(k)) - log_noise))
+    noise_cost = _softplus(noise_logit - math.log(float(k)) - log_noise)
+    return true_cost + torch.sum(noise_cost, dim=-1)
 
 
 def hsigmoid_loss(features: torch.Tensor, weights: torch.Tensor,

@@ -25,11 +25,14 @@ accumulators: their input layers become extra outputs of the step, and
 the rows below the batch's real count feed them. ``test`` evaluates the
 optimizer's ``test_params`` (the model average when it is on, the
 sparse tables caught up to the current step);
-``save_pass`` writes ``pass-%05d/params.tar``.
+``save_pass`` writes ``pass-%05d/params.tar``. An evaluator that
+``wants_gradient`` (the gradient printer) gets d(cost)/d(activation)
+of its input layers: the step adds a zero tap to each such output
+(``Topology.forward(taps=)``) and differentiates it beside the
+parameters, in the same backward pass.
 
-Not ported yet (each raises): a device mesh, pipeline stages, the
-gradient printer's activation taps, and the checkpoint / elastic /
-fault / microbatch options of ``train``.
+Not ported yet (each raises): a device mesh, pipeline stages, and the
+checkpoint / elastic / fault / microbatch options of ``train``.
 """
 
 from __future__ import annotations
@@ -72,6 +75,11 @@ class SGD:
         self.costs = list(costs)
         self.extra_layers = list(extra_layers or [])
         self.evaluators = list(evaluators or [])
+        # gradient printers need d(cost)/d(activation) of their inputs:
+        # the step taps those outputs (one backward)
+        self._grad_tap_names = sorted({
+            li.name for ev in self.evaluators
+            if getattr(ev, "wants_gradient", False) for li in ev.inputs})
         # evaluator inputs become extra outputs of the step
         eval_inputs: List[LayerOutput] = []
         seen = {c.name for c in self.costs} | \
@@ -124,6 +132,10 @@ class SGD:
         for k, v in list(parameters.state.items()):
             parameters.state[k] = v.to(self.device)
         self._sparse_map = self.topology.sparse_tables()
+        if self._sparse_map and self._grad_tap_names:
+            raise NotImplementedError(
+                "gradient_printer is not supported together with "
+                "row-sparse embedding tables")
         self.optimizer = update_equation.bind(
             self.topology.param_specs, sparse_params=self._sparse_map.keys())
         self.opt_state = self.optimizer.init_state(self._own_params())
@@ -155,11 +167,12 @@ class SGD:
 
     def _loss_and_metrics(self, params, state, feed, n_real: int,
                           mode: str, rng: Optional[int] = None,
-                          sparse_sub=None):
+                          sparse_sub=None, taps=None):
         outs, new_state = self.topology.forward(params, state, feed,
                                                 mode=mode, rng=rng,
                                                 n_real=n_real,
-                                                sparse_sub=sparse_sub)
+                                                sparse_sub=sparse_sub,
+                                                taps=taps)
         total = 0.0
         metrics = {}
         for c in self.costs:
@@ -230,7 +243,9 @@ class SGD:
         """The train step: prefetch each row-sparse table's touched rows,
         forward on those row blocks, gradients of the dense parameters
         and the blocks (never of the tables), the update. With no
-        row-sparse table it is the plain dense step."""
+        row-sparse table it is the plain dense step. The gradient
+        printers' activation gradients (the taps') join the evaluator
+        inputs as ``__grad__<layer>``."""
         from paddle_tpu_torch.ops import embedding as emb_ops
         next_step = self.opt_state["step"] + 1
         slots = self.opt_state["slots"]
@@ -243,13 +258,21 @@ class SGD:
                 pname, params[pname], slots[pname], uids[pname], next_step)
         rows = {k: r.detach().requires_grad_(True) for k, r in rows0.items()}
         sub = {k: (uids[k], rows[k]) for k in rows}
+        taps = dict.fromkeys(self._grad_tap_names) or None
         out = self._loss_and_metrics(params, self.parameters.state, feed,
-                                     n_real, "train", rng, sparse_sub=sub)
+                                     n_real, "train", rng, sparse_sub=sub,
+                                     taps=taps)
         dense = [k for k in params if k not in self._sparse_map]
         tables = list(rows)
+        tapped = list(taps or ())
         grads = torch.autograd.grad(
-            out[0], [params[k] for k in dense] + [rows[k] for k in tables],
-            allow_unused=True)
+            out[0], [params[k] for k in dense] + [rows[k] for k in tables]
+            + [taps[k] for k in tapped], allow_unused=True)
+        g_taps = grads[len(dense) + len(tables):]
+        grads = grads[:len(dense) + len(tables)]
+        for k, g in zip(tapped, g_taps):
+            out[1][2]["__grad__" + k] = torch.zeros_like(taps[k]) \
+                if g is None else g
         g_rows = grads[len(dense):]
         sparse_rows = {
             k: (uids[k], torch.zeros_like(rows0[k]) if g is None else g,
@@ -269,7 +292,13 @@ class SGD:
         host = {k: _to_np(v) for k, v in eval_host.items()}
         results: Dict[str, float] = {}
         for ev in self.evaluators:
-            ev.eval_batch([host[li.name] for li in ev.inputs], n_real)
+            if getattr(ev, "wants_gradient", False):
+                keys = ["__grad__" + li.name for li in ev.inputs]
+                if any(k not in host for k in keys):
+                    continue    # no backward ran (a test sweep)
+                ev.eval_batch([host[k] for k in keys], n_real)
+            else:
+                ev.eval_batch([host[li.name] for li in ev.inputs], n_real)
             if not getattr(ev, "expensive_result", False):
                 results.update(ev.result())
         return results

@@ -16,7 +16,8 @@
   and the test sweep's results in TestResult equal the JAX trainer's
   (pass averages of the cost at rtol 1e-6: the JAX trainer sums them
   compensated, the port in plain floats).
-- ``gradient_printer`` is not ported yet and says so.
+- ``gradient_printer``'s values from a train step are held in
+  tests/test_torch_datasets.py.
 """
 
 import io
@@ -205,11 +206,6 @@ def test_printers_print_what_jax_prints(kind):
         assert ev.result() == {}
         outs.append(s.getvalue())
     assert outs[1] == outs[0] and outs[0]
-
-
-def test_gradient_printer_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tev.gradient_printer(_Node("x"))
 
 
 def test_tensor_inputs_reach_evaluators_as_numpy():

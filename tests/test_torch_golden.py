@@ -1,7 +1,7 @@
 """Port parity: the golden topologies of tests/golden/ in
 paddle_tpu_torch against paddle_tpu on the CPU.
 
-Every golden whose layer types the port has is held here, in one
+Every golden of tests/golden/ (32 of 32) is held here, in one
 parametrised test: it deserializes in both packages (and serializes
 back equal to the file in the port), runs from one weight table
 (the JAX package's init, carried through a ``paddle_tpu.params.v1``
@@ -16,16 +16,20 @@ of the layer families (``util_layers``, ``op_sugar_net``,
 ``projections``, ``misc_utils``, ``extra_algebra_layers``,
 ``selection_layers``, ``switch_order_net``) and those of the 3-D,
 image-transform and OCR/speech types (``img_trans_layers``,
-``conv3d_net``, ``deep_speech_row_conv``, ``mdlstm_ocr``) have no
+``conv3d_net``, ``deep_speech_row_conv``, ``mdlstm_ocr``),
+``detection_net`` (its output a detection_output) and
+``nce_hsigmoid`` (an addto of the nce and hsigmoid costs) have no
 cost node: their train-mode gradients (batch norm on the batch
 statistics) are those of a fixed seeded projection of the outputs;
 ``util_layers`` has no parameter, so its gradients are those of its
-float feeds. Layers with state
+float feeds. ``multibox_net``'s output is a multibox_loss cost.
+``nce`` draws its noise in test mode as well: the port's layers take
+the JAX package's draw (``torch_parity.use_draws``). Layers with state
 (batch norm's moving statistics) start from each package's
 ``init_state``.
 
 ``test_held_goldens_are_every_one_the_port_deserializes`` keeps the
-list complete: a golden that a later slice unlocks must join it.
+list complete.
 """
 
 import io
@@ -41,7 +45,8 @@ import paddle_tpu as jpaddle
 import torch
 from paddle_tpu.trainer.data_feeder import DataFeeder as JFeeder
 
-from chip_smoke import golden_samples
+from chip_smoke import GOLDEN_LENGTHS, golden_samples
+from torch_parity import jax_nce_draws, use_draws
 
 from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.core.topology import Topology as TTopology
@@ -52,19 +57,21 @@ RTOL, ATOL = 1e-4, 1e-5
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 HELD = ["attention_net", "beam_cost_net", "bidirectional_gru", "conv3d_net",
         "cost_suite", "crf_tagger", "ctc_net", "deep_speech_row_conv",
-        "extra_algebra_layers", "generation_helpers", "img_layers",
-        "img_trans_layers", "mdlstm_ocr", "misc_utils", "moe_block",
-        "nested_rnn_group", "op_sugar_net", "projections", "rank_costs",
-        "rnn_group", "selection_layers", "seq_ops_suite", "simple_fc",
-        "simple_lstm_net", "simple_rnn", "switch_order_net", "tpu_stem_net",
-        "util_layers", "word_embedding_ngram"]
+        "detection_net", "extra_algebra_layers", "generation_helpers",
+        "img_layers", "img_trans_layers", "mdlstm_ocr", "misc_utils",
+        "moe_block", "multibox_net", "nce_hsigmoid", "nested_rnn_group",
+        "op_sugar_net", "projections", "rank_costs", "rnn_group",
+        "selection_layers", "seq_ops_suite", "simple_fc", "simple_lstm_net",
+        "simple_rnn", "switch_order_net", "tpu_stem_net", "util_layers",
+        "word_embedding_ngram"]
 # goldens without a cost node whose gradients are held through a
-# projection (cost_suite's output is the addto of its five costs)
+# projection (cost_suite's and nce_hsigmoid's outputs are addtos of
+# costs)
 PROJECTED = ("conv3d_net", "cost_suite", "deep_speech_row_conv",
-             "extra_algebra_layers", "img_layers", "img_trans_layers",
-             "mdlstm_ocr", "misc_utils", "op_sugar_net", "projections",
-             "selection_layers", "switch_order_net", "tpu_stem_net",
-             "util_layers")
+             "detection_net", "extra_algebra_layers", "img_layers",
+             "img_trans_layers", "mdlstm_ocr", "misc_utils", "nce_hsigmoid",
+             "op_sugar_net", "projections", "selection_layers",
+             "switch_order_net", "tpu_stem_net", "util_layers")
 
 
 def _payload(v):
@@ -78,15 +85,18 @@ def _jpayload(v):
 def _is_cost(topo, name):
     t = topo.by_name[name].type
     return t.endswith("cost") or t in ("crf", "multi-class-cross-entropy",
-                                       "ctc", "warp_ctc")
+                                       "ctc", "warp_ctc", "multibox_loss")
 
 
 @pytest.mark.parametrize("golden", HELD)
-def test_golden_forward_and_gradients_match_jax(golden):
+def test_golden_forward_and_gradients_match_jax(golden, monkeypatch):
     blob = (GOLDEN / f"{golden}.json").read_text()
     jpaddle.init(use_tpu=False, seed=0)
     jtopo = jpaddle.Topology.deserialize(blob)
     ttopo = TTopology.deserialize(blob)
+    # nce samples its noise in test mode as well: the port takes the JAX
+    # package's draw (the same one in both modes, rng None)
+    use_draws(monkeypatch, jax_nce_draws(jtopo, len(GOLDEN_LENGTHS)))
     assert json.loads(ttopo.serialize()) == json.loads(blob)
     assert [n for n, _ in ttopo.data_type()] == \
         [n for n, _ in jtopo.data_type()]
@@ -113,7 +123,8 @@ def test_golden_forward_and_gradients_match_jax(golden):
                                    rtol=RTOL, atol=ATOL, err_msg=k)
     costs = [o.name for o in ttopo.outputs if _is_cost(ttopo, o.name)]
     assert bool(costs) == (golden in ("crf_tagger", "ctc_net", "moe_block",
-                                      "rank_costs", "simple_fc"))
+                                      "multibox_net", "rank_costs",
+                                      "simple_fc"))
     if not costs and golden not in PROJECTED:
         return
     held = costs or [o.name for o in ttopo.outputs]
@@ -158,7 +169,7 @@ def test_held_goldens_are_every_one_the_port_deserializes():
     for path in sorted(GOLDEN.glob("*.json")):
         try:
             TTopology.deserialize(path.read_text())
-        except NotImplementedError:
+        except KeyError:        # an unknown layer type
             continue
         ok.append(path.stem)
     assert ok == sorted(HELD)

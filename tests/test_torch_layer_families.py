@@ -242,17 +242,15 @@ def test_layer_family_matches_jax(case):
 
 def test_every_type_is_registered_and_held():
     """The 25 types are in the port's registry, each reached by a case
-    here (print by its own test), and the port's registry now misses
-    only the types of the next slices."""
+    here (print by its own test), and the port's registry holds every
+    type of the JAX package's, 101 of 101."""
     from paddle_tpu.core.registry import _LAYER_REGISTRY as J_REGISTRY
     assert set(FAMILY_TYPES) <= set(T_REGISTRY)
     held = {t for t in FAMILY_TYPES
             if any(k.startswith(t) for k in CASES)}
     assert sorted(set(FAMILY_TYPES) - held) == ["print"]
-    assert len(T_REGISTRY) == 96
-    assert sorted(set(J_REGISTRY) - set(T_REGISTRY)) == sorted([
-        "cross_channel_norm", "detection_output", "multibox_loss", "nce",
-        "priorbox"])
+    assert len(T_REGISTRY) == 101
+    assert sorted(set(J_REGISTRY) - set(T_REGISTRY)) == []
 
 
 def test_multiplex_out_of_range_ids_clamp_as_jax():

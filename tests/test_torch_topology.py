@@ -193,8 +193,10 @@ def test_ce_from_logits_matches_jax(smoothing):
 
 def test_unported_layers_and_options_raise():
     from paddle_tpu_torch.core.registry import make_layer
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_layer("nce", None, [])
+    from paddle_tpu.core.registry import make_layer as jmake_layer
+    for make in (make_layer, jmake_layer):
+        with pytest.raises(KeyError, match="unknown layer type"):
+            make("no_such_layer_type", None, [])
     _, ttopo, _, _ = _topologies()
     with pytest.raises(NotImplementedError, match="mesh"):
         ttopo.forward({}, {}, {}, mesh=object())

@@ -159,3 +159,25 @@ def nested_rows(rng, splits, dim):
     return [[rng.randn(n, dim).astype(np.float32) for n in sample]
             for sample in splits]
 
+
+def jax_nce_draws(jtopo, batch, mode="test", rng=None):
+    """{nce layer name: the [batch, k] ids the JAX package draws for it}
+    from its own ``ApplyContext.rng_for``, as numpy."""
+    from paddle_tpu.core.registry import ApplyContext
+    ctx = ApplyContext(mode, rng, {})
+    return {l.name: np.array(jax.random.randint(
+        ctx.rng_for(l.name), (batch, l.config.get("num_neg_samples", 10)),
+        0, l.config["num_classes"]))
+        for l in jtopo.layers if l.type == "nce"}
+
+
+def use_draws(monkeypatch, draws):
+    """Make the port's ``nce`` layers sample ``draws`` (by layer name)."""
+    from paddle_tpu_torch.layers import cost_layers
+
+    def sample(ctx, name, batch, k, num_classes, device):
+        ids = torch.as_tensor(draws[name], device=device)
+        assert ids.shape == (batch, k)
+        return ids
+
+    monkeypatch.setattr(cost_layers, "nce_sample_ids", sample)
