@@ -571,10 +571,37 @@ Phases (any failure exits non-zero before the final line):
    card within 1e-5 of the CPU port's. dataset.uci_housing's reader
    through fit-a-line (fc(1), square_error_cost, lr 0.1) for one pass
    on the card: the cost of the last 3 batches below the first 3's.
+46. serving front — phase 3's full-width transformer_lm (float32,
+   seed 0) in a DecodeEngine of 8 slots, page 16, 273 pages and the
+   prefix cache, behind InferenceServer(mnist_artifact, engine=eng)
+   (phase 26's merged MNIST MLP, save_inference_model) and
+   build_http_server on 127.0.0.1, with the profiler sampling every 8
+   steps. Phase 3's 16 requests come from 8 client threads over real
+   sockets, half of them streamed (NDJSON); every token sequence must
+   equal phase 3's. Measured: the client-side TTFT p50/p99 of the
+   streamed requests, the inter-token gap p50/p99 from the arrival of
+   their lines, tokens/s through the front against the direct engine's
+   on the same prompts and client threads (the engine's loop thread,
+   no HTTP), and the cost of a /metrics scrape. Checked: /metrics
+   carries the served count and the engine's page gauges equal to
+   stats(); /events pages forward with since_seq; /flight holds every
+   trace id served; /profile has the decode phase, the card's memory
+   and an MFU and roofline share at most 1.0; /infer on 64-row batches
+   equals Inference.forward_batch on the same rows; a burst of 32
+   long requests past max_queue 8 gets only typed 429s (reason
+   queue_full, Retry-After); a too-short deadline_ms gets 504 (both
+   routes); /admin/drain answers 503 to new work and /admin/resume
+   200; a streaming client that disconnects is cancelled and its
+   pages return (page_accounting() leaked 0); after shutdown() no
+   pt-serve-* or pt-obs-* thread is alive. The window kernel's
+   launches on this route (steps x 6) join phase 3's on the kernel
+   table.
 
 Then logs the whole script's wall time and prints the kernel table as
-one JSON line (phases 28-45 add no kernel; the launches of phases
-34-39 are on their own log lines; the flash and LSTM kernels at
+one JSON line (phases 28-46 add no kernel; the launches of phases
+34-39 are on their own log lines; the window kernel's launches are
+phase 3's and phase 46's, by route in route_launches — "engine" and
+"http"; the flash and LSTM kernels at
 their bfloat16 times, the training dtype, naming their wgmma sources,
 with their errors in bfloat16 too; the flash kernels again at float32,
 the default dtype, as flash_attention_*_f32 with phase 24's launches
@@ -4026,6 +4053,10 @@ def phase_mnist_v2():
     if len(want) != MNIST_STEP_CHECK or rel > MNIST_CPU_RTOL:
         raise AssertionError(f"mnist v2: card costs {got} against the CPU "
                              f"port's {want}: max rel {rel}")
+    # the merged artifact phase 46 serves on /infer
+    artifact = paddle.trainer.save_inference_model(
+        os.path.join(MNIST_OUT, "mnist_mlp.tar"), r["out"],
+        trainer.parameters)
     for line in lines:
         log(f"mnist v2: {line}")
     log(f"mnist v2 ({card}): {n_steps} steps over {MNIST_PASSES} passes, "
@@ -4036,7 +4067,7 @@ def phase_mnist_v2():
         f"within {rel:.3g} relative of the CPU port's; saved pass reloaded, "
         f"infer argmax {probs.argmax(-1).tolist()} (CPU infer within "
         f"{probs_err:.3g})")
-    return dict(step_ms=step_ms, samples_s=samples_s)
+    return dict(step_ms=step_ms, samples_s=samples_s, artifact=artifact)
 
 
 # ------------------------------------------------------------ phase 27
@@ -7849,6 +7880,453 @@ def phase_detection_types():
 
 
 
+# ------------------------------------------------------------ phase 46
+FRONT_CLIENTS = 8
+FRONT_QUEUE = 8                 # the server's max_queue and the engine's
+FRONT_BURST = 32                # long requests sent at once past it
+FRONT_INFER_ROWS = 64
+FRONT_SCRAPES = 20
+FRONT_INFER_ATOL = 1e-6         # /infer against forward_batch, one card
+
+
+def _http(base, path, payload=None, headers=None, timeout=120):
+    """(status, headers, body bytes) of one request to the front."""
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(
+        base + path, data=data, method="GET" if data is None else "POST",
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _http_json(base, path, payload=None, headers=None):
+    code, hdrs, body = _http(base, path, payload, headers)
+    return code, hdrs, json.loads(body)
+
+
+def _stream_generate(port, prompt, max_new, trace_id):
+    """One streamed /generate over its own connection: (tokens, the
+    terminal record, the send time, each token line's arrival time)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    t_send = time.perf_counter()
+    conn.request("POST", "/generate", json.dumps(
+        {"prompt": [int(t) for t in prompt], "max_new_tokens": int(max_new),
+         "stream": True}),
+        {"Content-Type": "application/json", "X-Trace-Id": trace_id})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise AssertionError(f"stream {trace_id}: status {resp.status}")
+    toks, arrivals, done = [], [], None
+    while True:
+        line = resp.fp.readline()
+        if not line:
+            break
+        rec = json.loads(line)
+        if "token" in rec:
+            toks.append(rec["token"])
+            arrivals.append(time.perf_counter())
+        else:
+            done = rec
+    conn.close()
+    if done is None or not done.get("done") or done["tokens"] != toks:
+        raise AssertionError(f"stream {trace_id}: terminal record {done}")
+    return toks, done, t_send, arrivals
+
+
+def front_client(port, prompts, news, n_clients=FRONT_CLIENTS):
+    """The client side of phase 46, run in a process of its own (so the
+    server's interpreter lock carries only the server): the requests
+    from ``n_clients`` threads over real sockets, every odd one
+    streamed. Returns (per-request results by index, wall seconds from
+    the first send to the last settle)."""
+    import threading
+    base = f"http://127.0.0.1:{port}"
+    it = iter(range(len(prompts)))
+    lock = threading.Lock()
+    out, errors = {}, []
+
+    def run(i):
+        tid = f"smoke-{i:02d}"
+        if i % 2:
+            toks, _, t_send, arr = _stream_generate(port, prompts[i],
+                                                    news[i], tid)
+            return dict(tokens=toks, ttft_ms=(arr[0] - t_send) * 1e3,
+                        gaps_ms=(np.diff(arr) * 1e3).tolist())
+        t_send = time.perf_counter()
+        code, hdrs, body = _http_json(
+            base, "/generate", {"prompt": [int(t) for t in prompts[i]],
+                                "max_new_tokens": news[i]},
+            {"X-Trace-Id": tid})
+        if code != 200 or hdrs["X-Trace-Id"] != tid:
+            raise AssertionError(f"/generate {i}: {code} {body}")
+        return dict(tokens=body["tokens"],
+                    latency_ms=(time.perf_counter() - t_send) * 1e3)
+
+    def client():
+        while True:
+            with lock:
+                i = next(it, None)
+            if i is None:
+                return
+            try:
+                out[i] = run(i)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"request {i}: {e!r}")
+
+    ts = [threading.Thread(target=client, name=f"smoke-client-{k}")
+          for k in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if errors or len(out) != len(prompts):
+        raise AssertionError(f"front clients: {errors[:4]}")
+    return out, wall
+
+
+def _front_client_process(port, prompts, news):
+    """``front_client`` in a child process (the requests on its
+    standard input); its JSON result."""
+    import os
+    code = ("import json, sys, chip_smoke as c; "
+            "r = json.load(sys.stdin); "
+            "out, wall = c.front_client(int(sys.argv[1]), r['prompts'], "
+            "r['news']); print(json.dumps({'out': out, 'wall': wall}))")
+    res = subprocess.run([sys.executable, "-c", code, str(port)],
+                         input=json.dumps({
+                             "prompts": [[int(t) for t in p]
+                                         for p in prompts],
+                             "news": [int(n) for n in news]}),
+                         capture_output=True, text=True, timeout=900,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    if res.returncode != 0:
+        raise AssertionError(f"front client process failed: "
+                             f"{res.stderr[-2000:]}")
+    r = json.loads(res.stdout.strip().splitlines()[-1])
+    return {int(k): v for k, v in r["out"].items()}, r["wall"]
+
+
+def _scrape_value(text, name):
+    for ln in text.splitlines():
+        if ln.startswith(name + " "):
+            return float(ln.split()[1])
+    raise AssertionError(f"/metrics has no {name}")
+
+
+def _pct(vals, q):
+    return float(np.percentile(np.asarray(vals, np.float64), q))
+
+
+def phase_front(want_tokens, mnist_artifact):
+    """Phase 46: the serving plane around the engine (see the module
+    doc). ``want_tokens`` are phase 3's token sequences, ``mnist_artifact``
+    phase 26's merged artifact."""
+    import socket
+    import threading
+
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch.models.decode import TransformerDecoder
+    from paddle_tpu_torch.obs.profile import PROFILER
+    from paddle_tpu_torch.ops import paged_decode as ops
+    from paddle_tpu_torch.params import init_transformer_lm_params
+    from paddle_tpu_torch.serving import (DecodeEngine, InferenceServer,
+                                          build_http_server)
+    from paddle_tpu_torch.trainer.inference import load_inference_model
+
+    card = nvidia_smi_line()
+    obs.reset_all()
+    dec = TransformerDecoder(init_transformer_lm_params(FULL, seed=0),
+                             n_layers=FULL["n_layers"],
+                             n_heads=FULL["n_heads"])
+    prompts, news = serving_requests()
+    jobs = list(range(N_REQ))
+
+    def engine():
+        e = DecodeEngine(dec, num_slots=SLOTS, page_size=PAGE,
+                         max_seq_len=FULL["max_len"],
+                         max_waiting=FRONT_QUEUE)
+        if e.pool.num_pages != SLOTS * (FULL["max_len"] // PAGE) + 1 \
+                or e.prefix is None:
+            raise AssertionError(f"engine: {e.pool.num_pages} pages")
+        e.warmup()
+        return e
+
+    def direct_route():
+        """The direct engine route: a fresh engine on its loop thread
+        fed by 8 client threads in this process, no HTTP; the wall
+        seconds from the first submit to the last settle."""
+        e = engine().start()
+        it = iter(jobs)
+        lock = threading.Lock()
+        toks = {}
+
+        def client():
+            while True:
+                with lock:
+                    i = next(it, None)
+                if i is None:
+                    return
+                toks[i] = e.submit(prompts[i], news[i]).get(timeout=600)
+
+        ts = [threading.Thread(target=client, name=f"smoke-client-{k}")
+              for k in range(FRONT_CLIENTS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        e.shutdown(drain=True)
+        if [toks.get(i) for i in jobs] != want_tokens:
+            raise AssertionError("the direct engine route's tokens "
+                                 "differ from phase 3's")
+        return wall
+
+    # direct, front, direct, after one untimed direct run (the fresh
+    # decoder's first steps pay one-time costs): the host's speed drifts
+    # between runs, so the front is compared with the direct runs on
+    # either side of it
+    direct_route()
+    direct_walls = [direct_route()]
+    n_tokens = sum(news)
+
+    eng = engine()
+    PROFILER.enable(sample_every=8, memory_interval=0.5)
+    srv = InferenceServer(mnist_artifact, engine=eng, workers=2,
+                          max_queue=FRONT_QUEUE).start()
+    httpd = build_http_server(srv, "127.0.0.1", 0)
+    http_thread = threading.Thread(target=httpd.serve_forever,
+                                   name="pt-serve-http")
+    http_thread.start()
+    port = httpd.server_address[1]
+    base = f"http://127.0.0.1:{port}"
+    try:
+        # one warm-up request resolves the profiler's FLOP count (one
+        # counted step) before the launch counts are zeroed
+        code, _, body = _http_json(base, "/generate", {
+            "prompt": [1, 2, 3], "max_new_tokens": 12})
+        if code != 200 or len(body["tokens"]) != 12:
+            raise AssertionError(f"warm-up /generate: {code} {body}")
+        steps0 = eng.stats()["steps"]
+        torch.cuda.synchronize()
+        ops.paged_window_attention.launches = 0
+        got, front_wall = _front_client_process(port, prompts, news)
+        torch.cuda.synchronize()
+        front_launches = ops.paged_window_attention.launches
+        st = srv.stats()
+        steps = st["engine"]["steps"] - steps0
+        ttft = [got[i]["ttft_ms"] for i in jobs if i % 2]
+        gaps = [g for i in jobs if i % 2 for g in got[i]["gaps_ms"]]
+        plain_ms = [got[i]["latency_ms"] for i in jobs if not i % 2]
+        if [got[i]["tokens"] for i in jobs] != want_tokens:
+            bad = [i for i in jobs if got[i]["tokens"] != want_tokens[i]]
+            raise AssertionError(f"front tokens differ from phase 3's in "
+                                 f"requests {bad}")
+        if front_launches != steps * FULL["n_layers"] or not steps:
+            raise AssertionError(f"window launches {front_launches} != "
+                                 f"steps {steps} x {FULL['n_layers']}")
+
+        # /flight: every trace id served, each with its engine chain
+        _, _, flight = _http_json(base, "/flight")
+        ring = {r.get("trace_id") for r in flight["ring"]}
+        missing = [f"smoke-{i:02d}" for i in jobs
+                   if f"smoke-{i:02d}" not in ring]
+        if missing or not any(k.startswith("engine-")
+                              for k in flight["state"]):
+            raise AssertionError(f"/flight lacks trace ids {missing}")
+
+        # /infer on 64-row batches against forward_batch on the card
+        inf = load_inference_model(mnist_artifact)
+        rng = np.random.RandomState(46)
+        served0 = srv.stats()["served"]
+        infer_err = 0.0
+        for b in range(2):
+            rows = rng.rand(FRONT_INFER_ROWS, 784).astype(np.float32)
+            code, _, body = _http_json(base, "/infer",
+                                       {"rows": rows.tolist()})
+            want = inf.forward_batch([(r,) for r in rows])[0]
+            if code != 200:
+                raise AssertionError(f"/infer: {code} {body}")
+            infer_err = max(infer_err, float(np.abs(
+                np.asarray(body["outputs"]) - want).max()))
+        if infer_err > FRONT_INFER_ATOL:
+            raise AssertionError(f"/infer differs from forward_batch by "
+                                 f"{infer_err}")
+
+        # /metrics: the served count and the engine's page gauges equal
+        # stats() (the engine is idle); then the scrape's cost
+        code, hdrs, body = _http(base, "/metrics")
+        text = body.decode()
+        st = srv.stats()
+        checks = {"paddle_tpu_serving_served": st["served"]}
+        for k in ("kv_pages_free", "kv_pages_used", "kv_pages_total",
+                  "kv_pages_shared", "finished", "tokens_out"):
+            checks[f"paddle_tpu_serving_engine_{k}"] = st["engine"][k]
+        off = {k: (_scrape_value(text, k), v) for k, v in checks.items()
+               if _scrape_value(text, k) != v}
+        if code != 200 or off or st["served"] != served0 + 2:
+            raise AssertionError(f"/metrics against stats(): {off}")
+        scrape = []
+        for _ in range(FRONT_SCRAPES):
+            t0 = time.perf_counter()
+            _http(base, "/metrics")
+            scrape.append((time.perf_counter() - t0) * 1e3)
+
+        # /events pages forward with since_seq
+        _, _, ev = _http_json(base, "/events?n=5")
+        cur, paged = 0, []
+        while True:
+            _, _, page = _http_json(base, f"/events?since_seq={cur}&n=7")
+            if not page["events"]:
+                break
+            paged += [r["seq"] for r in page["events"]]
+            cur = page["events"][-1]["seq"]
+        if not paged or paged != list(range(paged[0],
+                                            ev["last_seq"] + 1)):
+            raise AssertionError(f"/events paging: {paged[:10]}")
+
+        # /profile: the engine's phase, the card's memory, share <= 1
+        PROFILER.sample_memory()
+        _, _, prof = _http_json(base, "/profile")
+        p = prof["profile"]
+        decode = p["kinds"].get("decode", {})
+        mfu = p.get("mfu", {}).get("decode")
+        frac = p.get("roofline_frac", {}).get("decode")
+        if not decode.get("phases", {}).get("decode_step") or \
+                p["memory"]["bytes_in_use"] <= 0 or \
+                p["memory"]["device_total_bytes"] <= 0 or \
+                mfu is None or not 0.0 < mfu <= 1.0 or \
+                frac is None or frac < 1.0:
+            raise AssertionError(f"/profile: {decode} {p['memory']} "
+                                 f"mfu {mfu} roofline_frac {frac}")
+
+        # a burst past max_queue: only typed 429s beside the 200s
+        burst = {}
+
+        def burst_one(i):
+            try:
+                burst[i] = _http(base, "/generate", {
+                    "prompt": [int(t) for t in prompts[i % N_REQ][:16]],
+                    "max_new_tokens": 64})
+            except Exception as e:  # noqa: BLE001 — an untyped failure
+                burst[i] = (repr(e), {}, b"")
+
+        ts = [threading.Thread(target=burst_one, args=(i,),
+                               name=f"smoke-burst-{i}")
+              for i in range(FRONT_BURST)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(600)
+        codes = sorted(burst[i][0] for i in sorted(burst)
+                       if isinstance(burst[i][0], int))
+        untyped = [c for c, _, _ in burst.values() if not isinstance(c, int)]
+        shed = [(h, json.loads(b)) for c, h, b in burst.values()
+                if c == 429]
+        if untyped or len(codes) != FRONT_BURST or \
+                set(codes) != {200, 429} or \
+                any(b["reason"] != "queue_full" or "Retry-After" not in h
+                    for h, b in shed):
+            raise AssertionError(f"burst: codes {codes}, {untyped[:3]}")
+
+        # a deadline too short for the work: 504 on both routes
+        c1 = _http(base, "/generate", {"prompt": [5, 6, 7],
+                                       "max_new_tokens": 200,
+                                       "deadline_ms": 20})[0]
+        c2 = _http(base, "/infer", {"rows": [[0.5] * 784],
+                                    "deadline_ms": 0.001})[0]
+        if (c1, c2) != (504, 504):
+            raise AssertionError(f"deadlines: {c1}, {c2}")
+
+        # drain -> 503 to new work, resume -> 200
+        d = _http_json(base, "/admin/drain", {})
+        g1 = _http_json(base, "/generate", {"prompt": [1, 2],
+                                            "max_new_tokens": 2})
+        r_ = _http_json(base, "/admin/resume", {})
+        g2 = _http_json(base, "/generate", {"prompt": [1, 2],
+                                            "max_new_tokens": 2})
+        if (d[0], d[2]["status"], g1[0], g1[2].get("reason"), r_[0],
+                r_[2]["status"], g2[0]) != (200, "draining", 503,
+                                            "draining", 200, "ok", 200):
+            raise AssertionError(f"drain/resume: {d} {g1} {r_} {g2}")
+
+        # a streaming client that goes away: cancelled, pages returned
+        cancelled0 = eng.stats()["cancelled"]
+        body = json.dumps({"prompt": [int(t) for t in prompts[0]],
+                           "max_new_tokens": 200, "stream": True}).encode()
+        sock = socket.create_connection(("127.0.0.1", port), timeout=60)
+        sock.sendall(b"POST /generate HTTP/1.1\r\nHost: smoke\r\n"
+                     b"Content-Type: application/json\r\n"
+                     + f"Content-Length: {len(body)}\r\n\r\n".encode()
+                     + body)
+        seen = b""
+        while b'{"token"' not in seen:
+            seen += sock.recv(4096)
+        sock.close()
+        t0 = time.perf_counter()
+        while eng.stats()["cancelled"] <= cancelled0:
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError("the torn stream was never cancelled")
+            time.sleep(0.01)
+        acc = eng.page_accounting()
+        if acc["leaked"] or acc["free"] + acc["held_by_trie"] != \
+                acc["total_usable"] or acc["refs_total"] != \
+                acc["held_by_slots"] + acc["held_by_trie"]:
+            raise AssertionError(f"pages after the torn stream: {acc}")
+    finally:
+        httpd.shutdown()
+        http_thread.join(timeout=30)
+        httpd.server_close()
+        srv.shutdown(drain=True, timeout=120)
+        PROFILER.disable()
+    del srv, eng
+    direct_walls.append(direct_route())
+    time.sleep(0.5)
+    alive = [t.name for t in threading.enumerate()
+             if t.is_alive() and t.name.startswith(("pt-serve", "pt-obs"))]
+    if alive:
+        raise AssertionError(f"threads alive after shutdown: {alive}")
+    front_tps = n_tokens / front_wall
+    direct_tps = n_tokens / float(np.mean(direct_walls))
+    log(f"front ({card}): {N_REQ} requests from {FRONT_CLIENTS} client "
+        f"threads ({N_REQ // 2} streamed), {n_tokens} tokens in "
+        f"{front_wall:.3f} s = {front_tps:.1f} tokens/s through HTTP "
+        f"(clients in a process of their own) against {direct_tps:.1f} "
+        f"direct (engine loop thread, 8 client threads, no HTTP; "
+        f"{direct_walls[0]:.3f} s before, {direct_walls[1]:.3f} s after; "
+        f"the front's overhead {(1 - front_tps / direct_tps) * 100:.1f} "
+        f"%); tokens identical to phase 3's; {steps} steps, window "
+        f"launches {front_launches}")
+    log(f"front ({card}): TTFT p50 {_pct(ttft, 50):.3f} ms p99 "
+        f"{_pct(ttft, 99):.3f} ms (streamed, client side); inter-token "
+        f"gap p50 {_pct(gaps, 50):.3f} ms p99 {_pct(gaps, 99):.3f} ms "
+        f"(line arrivals); plain request latency p50 "
+        f"{_pct(plain_ms, 50):.3f} ms p99 {_pct(plain_ms, 99):.3f} ms; "
+        f"engine p50 inter-token {st['engine']['token_latency_p50_ms']} "
+        f"ms, TTFT p50 {st['engine']['ttft_p50_ms']} ms")
+    log(f"front ({card}): /metrics scrape p50 {_pct(scrape, 50):.3f} ms "
+        f"p99 {_pct(scrape, 99):.3f} ms ({len(text)} bytes); /infer "
+        f"{FRONT_INFER_ROWS}-row batches within {infer_err:.3g} of "
+        f"forward_batch; burst of {FRONT_BURST}: {codes.count(200)} x 200, "
+        f"{codes.count(429)} x 429 (queue_full); deadlines 504; drain "
+        f"503, resume 200; torn stream cancelled, pages balanced; live "
+        f"MFU {mfu:.4g}, roofline_frac {frac:.4g} (decode step, "
+        f"FlopCounterMode count against 67 TFLOP/s float32); "
+        f"/flight holds all {N_REQ} trace ids")
+    return dict(launches=front_launches, steps=steps, front_tps=front_tps,
+                direct_tps=direct_tps, direct_walls=direct_walls,
+                ttft_ms=ttft, gap_ms=gaps, scrape_ms=scrape)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -7904,7 +8382,7 @@ def main():
     phase_full_context_timings([len(p) + n for p, n in
                                 zip(prompts[:SLOTS], news[:SLOTS])])
     # the v2 scripts last: paddle.init resets the seed and compute dtype
-    phase_mnist_v2()
+    mnist = phase_mnist_v2()
     phase_tagging_v2()
     phase_convergence()
     phase_resnet50()
@@ -7930,11 +8408,15 @@ def main():
     # (phases 44-45)
     phase_ssd300()
     phase_detection_types()
+    # the serving plane around the engine (phase 46)
+    front = phase_front(serve["tokens"], mnist["artifact"])
     kernels = [dict(
         name="paged_window_attention", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",
         replaces="paddle_tpu/ops/pallas_decode.py:257",
-        launches=launches, max_abs_err=max_err, **timing)]
+        launches=launches + front["launches"], max_abs_err=max_err,
+        route_launches={"engine": launches, "http": front["launches"]},
+        **timing)]
     for name, line, _, src in FLASH_KERNELS:
         kernels.append(dict(
             name=f"flash_attention_{name}", route="cuda",

@@ -38,11 +38,22 @@
 
 ``stats()`` exports KV-page occupancy, slot utilization, per-token
 latency percentiles, prefix-hit, speculation and spill accounting and
-the scheduling counters.
+the scheduling counters; serving/http.py re-exports them as Prometheus
+gauges on GET /metrics, alongside the ``paddle_tpu_prefix_*`` /
+``paddle_tpu_spec_*`` / ``paddle_tpu_kv_*`` families registered here.
 
-The reference's observability plane (event journal, flight recorder,
-profiler, SLO watchdog, metrics registry) is not ported: its counters
-stay in ``stats()``.
+The engine reports through the obs plane (obs/) under the JAX
+engine's names: flight-recorder marks for a request's whole chain
+(``engine/submit``, ``engine/admit``, ``engine/prefix_attach``, one
+``engine/slot_step`` a slot-step, ``engine/settle``), journal events
+(``engine`` domain: preemption, prefix_evict, page_spill,
+page_restore, spill_integrity, cow_copy_failure, draft_failure,
+step_failure), a flight state provider (its slots and wait queue by
+trace_id), its page pool on the profiler's memory sampler, each step
+on ``PROFILER.on_step("decode")`` with a FLOP-counted cost source, and
+an SLO-watchdog source (``stats()`` plus a derived ``tokens_per_s``).
+``drain_admission()`` / ``resume_admission()`` stop and re-open
+admission while in-flight requests keep stepping.
 """
 
 from __future__ import annotations
@@ -50,20 +61,64 @@ from __future__ import annotations
 import logging
 import threading
 import time
-import uuid
+import weakref
 from collections import deque
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch.analysis.lockdep import named_condition, named_lock
+from paddle_tpu_torch.obs import context as obs_context
+from paddle_tpu_torch.obs.events import emit as journal_emit
+from paddle_tpu_torch.obs.flight import FLIGHT
+from paddle_tpu_torch.obs.metrics import REGISTRY as _METRICS
+from paddle_tpu_torch.obs.profile import PROFILER, cost_of
 from paddle_tpu_torch.serving.prefix import PrefixIndex
 from paddle_tpu_torch.serving.spill import SpillEntry, SpillStore
 from paddle_tpu_torch.serving.server import (Expired, Rejected,
                                              ServerClosed, ServingError,
                                              percentile)
+from paddle_tpu_torch.utils.stats import global_counters, stat_timer
 
 log = logging.getLogger(__name__)
+
+# /metrics families of the prefix cache, speculation and the two-tier
+# KV plane — the JAX engine's names and help texts (idempotent: the
+# registry returns the existing family on re-registration)
+_PREFIX_HIT = _METRICS.counter(
+    "paddle_tpu_prefix_hit_pages",
+    "KV pages attached from the shared-prefix index instead of "
+    "recomputed")
+_PREFIX_MISS = _METRICS.counter(
+    "paddle_tpu_prefix_miss_pages",
+    "prompt pages admitted with no shared-prefix match")
+_PREFIX_COW = _METRICS.counter(
+    "paddle_tpu_prefix_cow_copies",
+    "copy-on-write page copies on intra-page prefix divergence")
+_PREFIX_SHARED = _METRICS.gauge(
+    "paddle_tpu_prefix_shared_pages",
+    "physical pages currently referenced by more than one owner")
+_SPEC_PROPOSED = _METRICS.counter(
+    "paddle_tpu_spec_proposed_tokens_total",
+    "draft-model tokens proposed for target verification")
+_SPEC_ACCEPTED = _METRICS.counter(
+    "paddle_tpu_spec_accepted_tokens_total",
+    "draft proposals the target model accepted (greedy token match)")
+_SPILL_PAGES = _METRICS.counter(
+    "paddle_tpu_kv_pages_spilled_total",
+    "cold prefix-cache pages spilled device->host instead of freed")
+_SPILL_RESTORED = _METRICS.counter(
+    "paddle_tpu_kv_pages_restored_total",
+    "spilled pages restored host->device on a prefix match, before "
+    "prefill was charged")
+_SPILL_INTEGRITY = _METRICS.counter(
+    "paddle_tpu_kv_spill_integrity_drops_total",
+    "spill entries dropped on checksum mismatch or transfer failure "
+    "— a torn page degrades to a prefix miss, never a restore")
+_SPILLED_NOW = _METRICS.gauge(
+    "paddle_tpu_kv_pages_spilled_now",
+    "pages currently resident in the host-RAM spill tier")
 
 
 class PagePool:
@@ -83,7 +138,7 @@ class PagePool:
                              f"{num_pages}")
         self.num_pages = int(num_pages)
         self.usable = self.num_pages - 1
-        self._lock = threading.Lock()
+        self._lock = named_lock("serving.pagepool")
         # pop() hands out page 1 first — deterministic layouts in tests
         self._free_list = list(range(self.num_pages - 1, 0, -1))
         self._allocated: set = set()
@@ -174,7 +229,7 @@ class GenRequest:
         self.max_new = int(max_new_tokens)
         self.eos_id = eos_id
         self.deadline = deadline          # absolute time.monotonic()
-        self.trace_id = trace_id or uuid.uuid4().hex[:16]
+        self.trace_id = trace_id or obs_context.new_trace_id()
         self.tokens: List[int] = []
         self.state = "waiting"  # waiting|running|done|cancelled|failed
         self.error: Optional[ServingError] = None
@@ -322,7 +377,7 @@ class DecodeEngine:
         self._tables = np.zeros((S, P), np.int32)
         self._active = np.zeros((S, W), np.bool_)
         self._waiting: deque = deque()
-        self._cv = threading.Condition()
+        self._cv = named_condition("serving.engine")
         self._accepting = True
         self._stopping = False
         self._close_now = False
@@ -349,6 +404,94 @@ class DecodeEngine:
                           "kv_pages_restored": 0,
                           "kv_spill_integrity_drops": 0,
                           "kv_spill_cleared": 0}
+        self._register_obs()
+
+    def _register_obs(self) -> None:
+        """Wire the engine into the obs plane: a flight-bundle state
+        provider (the slot table and wait queue by trace_id), its page
+        pool on the profiler's memory sampler, a FLOP-counted cost
+        source for the decode step, and an SLO-watchdog source. Every
+        closure holds the engine by weakref, so a dead engine never
+        pins itself in the process-global recorders."""
+        ref = weakref.ref(self)
+        tag = f"engine-{id(self):x}"
+
+        def _flight_state():
+            eng = ref()
+            if eng is None:
+                return None
+            slots = [
+                None if sl is None else
+                {"trace_id": sl.req.trace_id, "pos": sl.pos,
+                 "generated": sl.req.num_generated,
+                 "pages": len(sl.pages)}
+                for sl in list(eng.slots)]
+            with eng._cv:
+                waiting = [r.trace_id for r in eng._waiting]
+                steps = eng._steps
+                counters = dict(eng._counters)
+            # prefix summary AFTER _cv release: lock order is
+            # engine -> prefix -> pagepool, never held together here
+            prefix = None if eng.prefix is None else {
+                "pages": eng.prefix.page_count(),
+                "reclaimable": eng.prefix.reclaimable_pages(),
+                "hit_pages": counters["prefix_hit_pages"],
+                "miss_pages": counters["prefix_miss_pages"],
+                "cow_copies": counters["prefix_cow_copies"],
+                "evicted_pages": counters["prefix_evicted_pages"]}
+            return {"slots": slots, "waiting_trace_ids": waiting,
+                    "steps": steps,
+                    "pages": eng.pool.accounting(),
+                    "prefix": prefix}
+
+        FLIGHT.register_state_provider(tag, _flight_state)
+
+        def _pool_accounting():
+            eng = ref()
+            return None if eng is None else eng.pool.accounting()
+
+        PROFILER.register_pool(tag, _pool_accounting)
+
+        def _decode_cost():
+            eng = ref()
+            return (None, None) if eng is None else eng.decode_cost()
+
+        PROFILER.set_cost_source("decode", _decode_cost)
+
+        rate_state = {"t": None, "tokens": 0}
+
+        def _slo_stats():
+            eng = ref()
+            if eng is None:
+                return None
+            s = eng.stats()
+            now = time.monotonic()
+            t0, tok0 = rate_state["t"], rate_state["tokens"]
+            tokens = s.get("tokens_out", 0)
+            rate_state["t"], rate_state["tokens"] = now, tokens
+            if t0 is not None and now > t0:
+                s["tokens_per_s"] = (tokens - tok0) / (now - t0)
+            return s
+
+        from paddle_tpu_torch.obs.slo import WATCHDOG
+        WATCHDOG.add_source(tag, _slo_stats)
+
+    def decode_cost(self):
+        """(FLOPs, None) of one target step, counted under
+        ``FlopCounterMode`` on an all-inactive step (inactive slots
+        write only the reserved null page, so the pools are untouched;
+        the step's products are as wide as any step's). The hand kernel
+        counts nothing, so the count is a lower bound. Runs on the
+        stepping thread (the profiler calls it from ``on_step``)."""
+        S, W = self.num_slots, self.window
+        z = np.zeros((S, W), np.int32)
+        inactive = np.zeros((S, W), np.bool_)
+
+        def one():
+            _, self.k_pool, self.v_pool = self.paged.step(
+                self.k_pool, self.v_pool, z, z, self._tables, inactive)
+
+        return cost_of(one)
 
     # ------------------------------------------------------------ admission
     def _pages_for(self, n_tokens: int) -> int:
@@ -368,8 +511,12 @@ class DecodeEngine:
         a request the pool could NEVER hold, ``queue_full`` for a
         saturated wait queue; ``ServerClosed`` when draining); the
         request itself settles with tokens or a typed error.
-        ``deadline`` is relative, in seconds."""
+        ``deadline`` is relative, in seconds. ``trace_id`` correlates
+        the request through admission, slot, every decode step and
+        settle (minted here when the front passed none)."""
         now = time.monotonic()
+        trace_id = trace_id or obs_context.current().trace_id \
+            or obs_context.new_trace_id()
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         if not prompt or int(max_new_tokens) < 1:
             raise ValueError("need a non-empty prompt and "
@@ -384,6 +531,8 @@ class DecodeEngine:
             if total > self.max_seq_len or \
                     self._pages_for(total) > self.pool.usable:
                 self._counters["rejected_capacity"] += 1
+                FLIGHT.record("mark", "engine/reject",
+                              trace_id=trace_id, reason="kv_capacity")
                 raise Rejected(
                     f"request needs {total} positions "
                     f"({self._pages_for(total)} KV pages) but the "
@@ -394,6 +543,8 @@ class DecodeEngine:
             if len(self._waiting) >= self.max_waiting:
                 self._counters["rejected_queue"] += 1
                 retry = self._retry_hint()
+                FLIGHT.record("mark", "engine/reject",
+                              trace_id=trace_id, reason="queue_full")
                 raise Rejected(
                     f"generation queue full ({self.max_waiting}); "
                     f"retry in {retry:.2f}s", retry_after=retry,
@@ -403,6 +554,9 @@ class DecodeEngine:
             self._counters["submitted"] += 1
             self._waiting.append(req)
             self._cv.notify_all()
+        FLIGHT.record("mark", "engine/submit", trace_id=trace_id,
+                      prompt_len=len(prompt),
+                      max_new=int(max_new_tokens))
         return req
 
     # ------------------------------------------------------------ scheduling
@@ -443,6 +597,8 @@ class DecodeEngine:
         self.pool.free(slot.pages)
         slot.pages = []
         self._clear_slot(s)
+        counter = {"done": "finished", "cancelled": "cancelled",
+                   "failed": "failed", "closed": "closed"}.get(state)
         with self._cv:
             if state == "done":
                 self._counters["finished"] += 1
@@ -452,6 +608,12 @@ class DecodeEngine:
                 self._counters["expired"] += 1
             elif isinstance(error, ServerClosed):
                 self._counters["closed"] += 1
+        if counter:
+            global_counters.bump(f"serving/decode_{counter}")
+        FLIGHT.record("mark", "engine/settle",
+                      trace_id=slot.req.trace_id, state=state,
+                      slot=s, generated=slot.req.num_generated,
+                      error=repr(error)[:200] if error else None)
         self._settle(slot.req, state, error)
         with self._cv:
             self._cv.notify_all()
@@ -472,6 +634,13 @@ class DecodeEngine:
         req.evictions += 1
         with self._cv:
             self._counters["preemptions"] += 1
+        global_counters.bump("serving/decode_preemptions")
+        journal_emit("engine", "preemption",
+                     generated=req.num_generated,
+                     evictions=req.evictions,
+                     free_pages=self.pool.free_pages,
+                     trace_id=req.trace_id)
+        with self._cv:
             self._waiting.appendleft(req)
 
     def _reap(self, now: float) -> None:
@@ -493,9 +662,15 @@ class DecodeEngine:
             for req in self._waiting:
                 if req._cancelled:
                     self._counters["cancelled"] += 1
+                    FLIGHT.record("mark", "engine/settle",
+                                  trace_id=req.trace_id,
+                                  state="cancelled", where="waiting")
                     self._settle(req, "cancelled")
                 elif req.deadline is not None and now > req.deadline:
                     self._counters["expired"] += 1
+                    FLIGHT.record("mark", "engine/settle",
+                                  trace_id=req.trace_id,
+                                  state="expired", where="waiting")
                     self._settle(req, "failed", Expired(
                         "deadline passed while queued for a slot"))
                 else:
@@ -519,6 +694,9 @@ class DecodeEngine:
             if not freed:
                 return None
             self._counters["prefix_evicted_pages"] += len(freed)
+            journal_emit("engine", "prefix_evict", pages=freed,
+                         free_pages=self.pool.free_pages,
+                         engine_step=self._steps)
             page = self.pool.alloc()
         return page
 
@@ -584,9 +762,14 @@ class DecodeEngine:
                 entry = SpillEntry(payload)
             # a failed device read falls back to the lossy evict path:
             # the serving loop must not die for a cache optimization
-            except Exception:  # noqa: BLE001
+            except Exception as e:  # noqa: BLE001
                 log.exception("KV page spill read failed")
                 self._counters["kv_spill_integrity_drops"] += 1
+                _SPILL_INTEGRITY.inc()
+                journal_emit("engine", "spill_integrity",
+                             reason="read_failed",
+                             error=repr(e)[:200], page=page,
+                             engine_step=self._steps)
                 return freed
             if self.prefix.evict_exact(path) is None:
                 continue               # node changed under us — skip
@@ -595,6 +778,12 @@ class DecodeEngine:
             self.spill.put(path, entry)
             freed += 1
             self._counters["kv_pages_spilled"] += 1
+            _SPILL_PAGES.inc()
+            journal_emit("engine", "page_spill", page=page,
+                         key_pages=len(path) // self.page_size,
+                         spilled_now=len(self.spill),
+                         free_pages=self.pool.free_pages,
+                         engine_step=self._steps)
         return freed
 
     def _restore_spilled(self, replay) -> int:
@@ -634,6 +823,11 @@ class DecodeEngine:
                 self.pool.free([page])
                 self.spill.dropped_integrity += 1
                 self._counters["kv_spill_integrity_drops"] += 1
+                _SPILL_INTEGRITY.inc()
+                journal_emit("engine", "spill_integrity",
+                             reason="crc_mismatch",
+                             key_pages=nxt // ps,
+                             engine_step=self._steps)
                 break
             try:
                 k_page = self._unflatten_page("k", self.k_pool,
@@ -644,11 +838,16 @@ class DecodeEngine:
                     self.k_pool, self.v_pool, k_page, v_page, page)
             # a failed upload degrades to a prefix miss — it never
             # kills admission
-            except Exception:  # noqa: BLE001
+            except Exception as e:  # noqa: BLE001
                 log.exception("KV page restore failed")
                 self.pool.free([page])
                 self.spill.dropped_integrity += 1
                 self._counters["kv_spill_integrity_drops"] += 1
+                _SPILL_INTEGRITY.inc()
+                journal_emit("engine", "spill_integrity",
+                             reason="restore_write_failed",
+                             error=repr(e)[:200], page=page,
+                             engine_step=self._steps)
                 break
             # the trie takes the page over: insert refs it (2), dropping
             # our alloc ref leaves it trie-only (1) — exactly the state
@@ -658,6 +857,11 @@ class DecodeEngine:
             self.spill.restored_count += 1
             restored += 1
             self._counters["kv_pages_restored"] += 1
+            _SPILL_RESTORED.inc()
+            journal_emit("engine", "page_restore", page=page,
+                         key_pages=nxt // ps,
+                         spilled_now=len(self.spill),
+                         engine_step=self._steps)
         return restored
 
     def _attach_prefix(self, s: int, slot: _Slot, match) -> None:
@@ -676,11 +880,20 @@ class DecodeEngine:
             self.pool.ref(src)
             dst = self._alloc_page()
             if dst is not None:
-                self.k_pool, self.v_pool = self.paged.copy_page(
-                    self.k_pool, self.v_pool, src, dst)
-                slot.pages.append(dst)
-                matched += rows
-                self._counters["prefix_cow_copies"] += 1
+                try:
+                    self.k_pool, self.v_pool = self.paged.copy_page(
+                        self.k_pool, self.v_pool, src, dst)
+                # a failed copy degrades to recomputing the tail rows
+                except Exception as e:  # noqa: BLE001
+                    self.pool.free([dst])
+                    journal_emit("engine", "cow_copy_failure",
+                                 error=repr(e)[:200],
+                                 trace_id=req.trace_id)
+                else:
+                    slot.pages.append(dst)
+                    matched += rows
+                    self._counters["prefix_cow_copies"] += 1
+                    _PREFIX_COW.inc()
             self.pool.free([src])       # unpin
         for j, p in enumerate(slot.pages):
             self._tables[s, j] = p
@@ -689,7 +902,16 @@ class DecodeEngine:
         miss = self._pages_for(len(slot.replay)) - hit
         self._counters["prefix_hit_pages"] += hit
         self._counters["prefix_miss_pages"] += max(miss, 0)
+        if hit:
+            _PREFIX_HIT.inc(hit)
+        if miss > 0:
+            _PREFIX_MISS.inc(miss)
         req.prefix_hit_pages = hit
+        if matched:
+            FLIGHT.record("mark", "engine/prefix_attach",
+                          trace_id=req.trace_id, slot=s,
+                          shared_pages=hit, matched_tokens=matched,
+                          cow=match.cow is not None)
 
     def _admit(self) -> None:
         """Waiting -> free slots, gated on FREE PAGES: the queue head
@@ -726,6 +948,10 @@ class DecodeEngine:
                 if match is not None and \
                         (match.pages or match.cow is not None):
                     self._attach_prefix(s, slot, match)
+                FLIGHT.record("mark", "engine/admit",
+                              trace_id=req.trace_id, slot=s,
+                              replay=len(replay),
+                              prefix_tokens=slot.pos)
 
     def _ensure_pages(self, plan: Dict[int, List[int]]) -> None:
         """Allocate each planned slot's pages through the LAST position
@@ -812,9 +1038,12 @@ class DecodeEngine:
                     self._draft_kc, self._draft_vc, toks, poss, act)
             # a draft failure must not kill the serving loop: the target
             # path continues unassisted
-            except Exception:  # noqa: BLE001
+            except Exception as e:  # noqa: BLE001
                 log.exception("draft step failed")
                 self._counters["draft_failures"] += 1
+                journal_emit("engine", "draft_failure",
+                             error=repr(e)[:400],
+                             engine_step=self._steps)
                 self._draft_kc, self._draft_vc = self.draft.init_caches()
                 for s in props:
                     if self.slots[s] is not None:
@@ -871,9 +1100,11 @@ class DecodeEngine:
             self._positions[s, :w] = np.arange(slot.pos, slot.pos + w)
             self._active[s, :w] = True
         try:
-            nxt, self.k_pool, self.v_pool = self.paged.step(
-                self.k_pool, self.v_pool, self._tokens, self._positions,
-                self._tables, self._active, generator=self.generator)
+            with stat_timer("serving/decode_step"):
+                nxt, self.k_pool, self.v_pool = self.paged.step(
+                    self.k_pool, self.v_pool, self._tokens,
+                    self._positions, self._tables, self._active,
+                    generator=self.generator)
         # serving boundary: in-flight requests settle typed and the pools
         # rebuild; the engine thread must never die
         except Exception as e:  # noqa: BLE001
@@ -884,12 +1115,21 @@ class DecodeEngine:
         with self._cv:
             self._steps += 1
             self._active_steps_sum += len(live)
+        if PROFILER.enabled:
+            PROFILER.on_step("decode")
         for s in live:
             slot = self.slots[s]
             toks = plan[s]
             w = len(toks)
             fed = slot.pos
             req = slot.req
+            # one compact flight record per slot-step: the "each decode
+            # step" link of the request's trace chain — a postmortem
+            # bundle reconstructs the request's schedule by trace_id
+            FLIGHT.record("mark", "engine/slot_step",
+                          trace_id=req.trace_id,
+                          engine_step=self._steps, slot=s, pos=fed,
+                          width=w)
             with self._cv:
                 self._cache_tokens_read += sum(
                     fed + j + 1 for j in range(w))
@@ -920,6 +1160,9 @@ class DecodeEngine:
                     with self._cv:
                         self._counters["spec_proposed_tokens"] += m
                         self._counters["spec_accepted_tokens"] += a
+                    _SPEC_PROPOSED.inc(m)
+                    if a:
+                        _SPEC_ACCEPTED.inc(a)
                     req.accepted_tokens += a
                 seq_before = len(req.prompt) + len(req.tokens)
                 slot.draft_pos = min(slot.draft_pos, seq_before + a)
@@ -946,6 +1189,7 @@ class DecodeEngine:
                 if dt is not None:
                     for _ in range(n_commit):
                         self._lat.append(dt / n_commit)
+            global_counters.bump("serving/decode_tokens", n_commit)
             if fed >= len(slot.replay) - 1:
                 # keep only the fed rows that match the committed
                 # sequence: pending token + (n_commit - 1) accepted
@@ -960,8 +1204,12 @@ class DecodeEngine:
         everything in flight with a typed error, then rebuild pools +
         free-list + prefix index + spill store + draft caches so fresh
         traffic can still be served."""
+        in_flight = [self.slots[s].req.trace_id
+                     for s in range(self.num_slots)
+                     if self.slots[s] is not None]
         with self._cv:
             self._counters["step_failures"] += 1
+            waiting_ids = [r.trace_id for r in self._waiting]
         self.last_step_error = repr(exc)
         err = ServingError(f"decode step failed: {exc}")
         for s in range(self.num_slots):
@@ -969,7 +1217,11 @@ class DecodeEngine:
                 self._finish(s, "failed", err)
         with self._cv:
             while self._waiting:
-                self._settle(self._waiting.popleft(), "failed", err)
+                req = self._waiting.popleft()
+                FLIGHT.record("mark", "engine/settle",
+                              trace_id=req.trace_id, state="failed",
+                              where="waiting")
+                self._settle(req, "failed", err)
         self.k_pool, self.v_pool = self.paged.init_pools()
         self.pool = PagePool(self.pool.num_pages)
         if self.prefix is not None:
@@ -985,6 +1237,13 @@ class DecodeEngine:
             self._draft_kc, self._draft_vc = self.draft.init_caches()
         self._tables[:, :] = 0
         self._active[:, :] = False
+        # journaled AFTER the typed settles so the auto-dumped bundle
+        # (obs/flight.py trigger) holds each victim's whole chain —
+        # submit, admit, every slot_step, settle(failed) — plus this
+        # record naming the in-flight trace ids at fault time
+        journal_emit("engine", "step_failure", error=repr(exc)[:400],
+                     trace_ids=in_flight, waiting_trace_ids=waiting_ids,
+                     engine_step=self._steps)
 
     def _has_work(self) -> bool:
         return any(s is not None for s in self.slots) or \
@@ -1063,6 +1322,22 @@ class DecodeEngine:
                 self._settle(req, "failed", ServerClosed(
                     "engine shut down before this request ran"))
 
+    def drain_admission(self) -> None:
+        """Deploy-drain: stop ADMITTING (submit raises ServerClosed)
+        while the loop keeps stepping everything already in flight —
+        the engine's leg of ``POST /admin/drain``. Reversible via
+        :meth:`resume_admission`; a full stop stays :meth:`shutdown`."""
+        with self._cv:
+            self._accepting = False
+
+    def resume_admission(self) -> None:
+        """Re-open admission after :meth:`drain_admission` (no-op on a
+        stopping engine)."""
+        with self._cv:
+            if not self._stopping:
+                self._accepting = True
+                self._cv.notify_all()
+
     def shutdown(self, drain: bool = True,
                  timeout: Optional[float] = 30.0) -> None:
         """Stop accepting. With ``drain`` in-flight generation
@@ -1116,8 +1391,11 @@ class DecodeEngine:
             cache_read = self._cache_tokens_read
         active = sum(1 for s in self.slots if s is not None)
         util = (active_sum / (steps * self.num_slots)) if steps else 0.0
+        shared = self.pool.shared_pages
+        _PREFIX_SHARED.set(shared)
         spilled_now = len(self.spill) if self.spill is not None else 0
         spill_cap = self.spill.capacity if self.spill is not None else 0
+        _SPILLED_NOW.set(spilled_now)
         out = dict(counters)
         out.update({
             "slots": self.num_slots,
@@ -1127,7 +1405,7 @@ class DecodeEngine:
             "kv_pages_total": self.pool.usable,
             "kv_pages_free": self.pool.free_pages,
             "kv_pages_used": self.pool.used_pages,
-            "kv_pages_shared": self.pool.shared_pages,
+            "kv_pages_shared": shared,
             "kv_pages_leaked": self.pool.accounting()["leaked"],
             "kv_pages_reclaimable": self.prefix.reclaimable_pages()
             if self.prefix is not None else 0,

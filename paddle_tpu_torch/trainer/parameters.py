@@ -61,8 +61,14 @@ class Parameters:
             if tuple(np.shape(value)) != exp:
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{np.shape(value)} vs {exp}")
-        self._params[key] = torch.as_tensor(np.asarray(value)).to(
-            self.device)
+        t = torch.as_tensor(np.asarray(value)).to(self.device)
+        old = self._params.get(key)
+        if old is not None:
+            # a parameter a trainer holds stays its dtype and an
+            # autograd leaf: setting it mid-training (the v2 API's
+            # parameters.set) goes on training from the new value
+            t = t.to(old.dtype).requires_grad_(old.requires_grad)
+        self._params[key] = t
 
     # --- device-side access ----------------------------------------------
     @property

@@ -1,7 +1,9 @@
 """The port's serving front on the CPU: InferenceServer.generate and
 POST /generate over a loopback HTTP server, both against the JAX
-package's dense ``TransformerDecoder.generate``, plus the typed
-admission errors and the serve CLI's wiring."""
+package's dense ``TransformerDecoder.generate``, the typed admission
+errors and the serve CLI's wiring — with the server built the JAX
+package's way, ``InferenceServer(model, engine=...)``, including from
+a JAX-saved inference artifact served on POST /infer."""
 
 import json
 import threading
@@ -64,7 +66,7 @@ def test_server_generate_matches_reference(decoders):
     jdec, tdec, _ = decoders
     prompt = np.array([3, 9, 1, 4, 4], np.int32)
     want = jdec.generate(prompt[None, :], max_len=len(prompt) + 7)[0]
-    srv = InferenceServer(_engine(tdec)).start()
+    srv = InferenceServer(engine=_engine(tdec)).start()
     try:
         assert srv.health()["status"] == "ok"
         got = srv.generate(prompt, 7)
@@ -73,7 +75,7 @@ def test_server_generate_matches_reference(decoders):
         srv.shutdown()
     assert got == [int(t) for t in want] == again
     st = srv.stats()
-    assert st["served"] == 2
+    assert st["engine"]["finished"] == 2
     assert st["engine"]["prefix_hit_pages"] >= 1
     assert srv.health()["status"] == "stopped"
     with pytest.raises(ServerClosed):
@@ -85,7 +87,7 @@ def test_http_generate_health_stats(decoders):
     prompt = [5, 2, 8, 8, 1, 0, 3]
     want = jdec.generate(np.asarray(prompt, np.int32)[None, :],
                          max_len=len(prompt) + 6)[0]
-    srv = InferenceServer(_engine(tdec)).start()
+    srv = InferenceServer(engine=_engine(tdec)).start()
     httpd = build_http_server(srv, "127.0.0.1", 0)
     t = threading.Thread(target=httpd.serve_forever, name="pt-serve-http")
     t.start()
@@ -108,8 +110,8 @@ def test_http_generate_health_stats(decoders):
         code, health = _get(base + "/health")
         assert code == 200 and health["status"] == "ok"
         code, stats = _get(base + "/stats")
-        assert stats["served"] == 2 and stats["rejected_capacity"] == 1
         assert stats["engine"]["finished"] == 2
+        assert stats["engine"]["rejected_capacity"] == 1
     finally:
         httpd.shutdown()
         t.join(timeout=10)
@@ -123,12 +125,12 @@ def test_full_queue_rejects_typed(decoders):
     the (max_waiting + 1)-th request is shed with Rejected queue_full
     and a retry hint; the queued ones then complete."""
     _, tdec, _ = decoders
-    srv = InferenceServer(_engine(tdec, max_waiting=2))
+    srv = InferenceServer(engine=_engine(tdec, max_waiting=2))
     reqs = [srv.submit_generate([1, 2, 3], 2) for _ in range(2)]
     with pytest.raises(Rejected) as ei:
         srv.submit_generate([1, 2, 3], 2)
     assert ei.value.reason == "queue_full" and ei.value.retry_after > 0
-    assert srv.stats()["rejected_full"] == 1
+    assert srv.stats()["engine"]["rejected_queue"] == 1
     srv.engine.run(timeout=60)
     assert all(len(r.get(timeout=1)) == 2 for r in reqs)
 
@@ -156,3 +158,48 @@ def test_cli_builds_engine_from_decode_config(decoders, tmp_path):
     r = eng.submit([1, 2], 3)
     eng.run(timeout=60)
     assert len(r.get(timeout=1)) == 3
+
+
+def test_server_from_jax_artifact_infers_like_reference(decoders, tmp_path):
+    """``InferenceServer(model_path, engine=eng)``, the JAX package's
+    call: the model is a merged artifact the JAX package saved, loaded
+    by the port (on the CPU after ``init(use_gpu=False)``). POST /infer
+    matches ``paddle_tpu``'s ``load_inference_model(...).forward_batch``
+    on the same rows (atol 1e-5); /generate is served beside it."""
+    from paddle_tpu.trainer import inference as jinf
+    from paddle_tpu_torch import config as tconfig
+    _, tdec, _ = decoders
+    L = paddle.layer
+    x = L.data("x", paddle.data_type.dense_vector(12))
+    h = L.fc(x, size=16, act=paddle.activation.Relu())
+    out = L.fc(h, size=5, act=paddle.activation.Softmax())
+    params = paddle.create_parameters(paddle.Topology(out))
+    path = str(tmp_path / "mlp.tar")
+    jinf.save_inference_model(path, out, params)
+    rows = np.random.RandomState(3).randn(7, 12).astype(np.float32)
+    want = jinf.load_inference_model(path).forward_batch(
+        [(r,) for r in rows])[0]
+    tconfig.init(use_gpu=False, seed=0)
+    try:
+        srv = InferenceServer(path, engine=_engine(tdec)).start()
+    finally:
+        tconfig.init(seed=0)
+    httpd = build_http_server(srv, "127.0.0.1", 0)
+    t = threading.Thread(target=httpd.serve_forever, name="pt-serve-http")
+    t.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        code, body = _post(base + "/infer", {"rows": rows.tolist()})
+        assert code == 200, body
+        np.testing.assert_allclose(np.asarray(body["outputs"]), want,
+                                   rtol=0, atol=1e-5)
+        code, body = _post(base + "/generate",
+                           {"prompt": [1, 2, 3], "max_new_tokens": 2})
+        assert code == 200 and len(body["tokens"]) == 2
+        st = srv.stats()
+        assert st["served"] == 1 and st["engine"]["finished"] == 1
+    finally:
+        httpd.shutdown()
+        t.join(timeout=10)
+        httpd.server_close()
+        srv.shutdown()
