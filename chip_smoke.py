@@ -596,12 +596,55 @@ Phases (any failure exits non-zero before the final line):
    pt-serve-* or pt-obs-* thread is alive. The window kernel's
    launches on this route (steps x 6) join phase 3's on the kernel
    table.
+47. training infrastructure — first the LSTM kernels at every row
+   count the bisection of 128 reaches (64 ... 1, h 1280, T 128, bf16):
+   kernel_ok admits each, each forward and backward held against the
+   plain versions. Then phase 12's classifier (bf16, full width) on 6
+   batches of 128 seeded samples that dataset.common.convert wrote as
+   recordio shards with the native codec: (a) SGD.train for 2 passes
+   over reader.batch(CheckpointableReader(...)) with checkpoint_dir,
+   checkpoint_period 2, FaultPolicy(3) and microbatch "auto" — the step
+   interval beside train_batch, train() and train() guarded on the same
+   batches, the checkpoint/snapshot and checkpoint/write times, how
+   many steps began while a write ran; no fault, 12 launches of each
+   LSTM kernel at 128 rows; the checkpoints kept (8, 10, 12), the
+   step-10 one's reader position, the last one restoring the trained
+   state bit for bit. (b) A real OOM: the 128-row step's and a 64-row
+   microbatch's peaks measured on a throwaway trainer, the process
+   capped between them (set_per_process_memory_fraction, restored to
+   1.0 in a finally), 2 steps with microbatch "auto": one OOMEvent
+   carrying a torch.cuda.OutOfMemoryError, 128 -> 64 rows, the kernels
+   launched at 64 rows; the parameters equal a run fixed at 64 rows
+   (both under deterministic algorithms). Before the cap, the first
+   step's loss and gradients as 2 accumulated 64-row microbatches are
+   held against the full-batch step's on the same batch and parameters
+   (relative norm of the difference over all gradients within
+   ACCUM_TOL; Adam's scale invariance would hide a wrongly scaled
+   accumulation from the parameters, and the line prints what such a
+   fault would read). (c) Kill and resume: a worker
+   (this script with --resume-worker) trains one pass with
+   checkpoint_period 1 and auto_resume, is SIGKILLed after step 4 and
+   relaunched: its parameters equal an uninterrupted worker's (within
+   two uninterrupted runs' spread, were they to differ). (d) The guard
+   on fit-a-line (float features; the classifier's are word ids): NaN
+   and inf batches skipped bit-identical to the run without them
+   (parameters, Adam's slots and counters), and a streak of 3 rolled
+   back to the newest checkpoint. (e) python -m paddle_tpu_torch.cli
+   train --job=time on the classifier (128 x 100, bf16) and
+   --job=checkgrad on a small MLP, each in a process of its own and on
+   the card; then cli.main's checkgrad on a narrow stacked_lstm_net
+   (float32) in this process, which must launch both float32 LSTM
+   kernels (bf16x3). The
+   LSTM kernels' launches of (a) and (b) join phase 12's on the kernel
+   table, by route and by batch rows.
 
 Then logs the whole script's wall time and prints the kernel table as
-one JSON line (phases 28-46 add no kernel; the launches of phases
+one JSON line (phases 28-47 add no kernel; the launches of phases
 34-39 are on their own log lines; the window kernel's launches are
 phase 3's and phase 46's, by route in route_launches — "engine" and
-"http"; the flash and LSTM kernels at
+"http"; the LSTM kernels' are phase 12's and phase 47's, by route —
+"train_batch", "train_infra", "oom_microbatch" — with row_launches by
+batch rows; the flash and LSTM kernels at
 their bfloat16 times, the training dtype, naming their wgmma sources,
 with their errors in bfloat16 too; the flash kernels again at float32,
 the default dtype, as flash_attention_*_f32 with phase 24's launches
@@ -624,6 +667,7 @@ import contextlib
 import functools
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -8327,6 +8371,753 @@ def phase_front(want_tokens, mnist_artifact):
                 ttft_ms=ttft, gap_ms=gaps, scrape_ms=scrape)
 
 
+# ------------------------------------------------------------ phase 47
+# the training infrastructure on the card: phase 12's classifier through
+# SGD.train with its options; 2 passes of 6 batches of LSTM_ROWS
+INFRA_BATCHES, INFRA_PASSES, INFRA_SHARD_ROWS = 6, 2, 256
+# the rows the bisection of 128 can reach, each held on the card
+INFRA_ROWS = (64, 32, 16, 8, 4, 2, 1)
+INFRA_KILL_STEP = 4
+# fit-a-line's poisoned batches: NaN, inf, NaN (skipped one by one),
+# then a streak of three that rolls back
+GUARD_BAD = {2: float("nan"), 4: float("inf"), 7: float("nan")}
+GUARD_STREAK = (10, 11, 12)
+# the capped run's steps (in-memory batches of LSTM_ROWS)
+OOM_STEPS = 2
+# 2 accumulated microbatches against the full-batch step: the relative
+# norm of the gradients' difference. The halves' weight gradients are
+# rounded to bf16 (2^-9 relative) and added in bf16, a few roundings
+# where the full batch has one; a wrongly scaled accumulation reads 1.0
+ACCUM_TOL = 2e-2
+
+
+def _infra_shards(d):
+    """The main run's data: INFRA_BATCHES x LSTM_ROWS seeded samples
+    written by dataset.common.convert as recordio shards of
+    INFRA_SHARD_ROWS samples with the native codec."""
+    from paddle_tpu_torch.dataset import common
+    samples = _lstm_samples(INFRA_BATCHES * LSTM_ROWS, seed=47)
+    return common.convert(d, lambda: iter(samples), INFRA_SHARD_ROWS,
+                          "lstm47", use_native=True), samples
+
+
+def _infra_reader(paths):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.reader import CheckpointableReader
+    return paddle.reader.batch(
+        CheckpointableReader(paths, use_native=True), LSTM_ROWS)
+
+
+def _lstm_trainer(spec):
+    from paddle_tpu_torch.core.topology import Topology
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import SGD, create
+    params = create(Topology(spec.cost), torch.Generator().manual_seed(0))
+    return SGD(spec.cost, params, Adam(learning_rate=LSTM_LR))
+
+
+def _host_params(trainer):
+    return {k: v.detach().float().cpu().numpy().copy()
+            for k, v in trainer.parameters.raw.items()}
+
+
+def _max_diff(a, b):
+    return max(float(np.abs(a[k] - b[k]).max()) for k in a)
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """torch.use_deterministic_algorithms(True) for the block (an op with
+    no deterministic version warns), the earlier setting restored."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
+def _rows_vs_plain():
+    """The LSTM kernels at every row count the bisection of 128 reaches
+    (h 1280, T 128, bf16, ragged): kernel_ok admits each, and the
+    forward (with residuals) and backward launches hold against the
+    plain versions (_held). Returns the worst errors."""
+    from paddle_tpu_torch.ops import fused_rnn as fr
+    h, T = LSTM_NET["hidden_size"], 128
+    worst = {"lstm_fwd": 0.0, "lstm_bwd": 0.0}
+    for i, b in enumerate(INFRA_ROWS):
+        if not fr.kernel_ok(b, h, gates=4, device="cuda"):
+            raise AssertionError(f"kernel_ok refuses b={b}, h={h}")
+        lens = _ragged_lens(b, T, seed=470 + i, must=(T, 1)[:b])
+        x4, w, bias, peep = _rnn_inputs(b, h, T, 4, torch.bfloat16, 480 + i)
+        res = fr.lstm_forward(x4, lens, w, bias, peep, save_res=True)
+        ref = fr.lstm_reference(x4, lens, w, bias, peep, save_res=True)
+        run = int(lens.max())
+        err = max(_held(n, a, r, torch.bfloat16) for n, a, r in (
+            ("out", res[0], ref[0]), ("hT", res[1], ref[1]),
+            ("cT", res[2], ref[2]), ("cseq", res[3], ref[3]),
+            ("gates", res[4][:, :run], ref[4][:, :run])))
+        gen = torch.Generator(device="cuda").manual_seed(490 + i)
+        d_out = _randn(gen, b, T, h, dtype=torch.bfloat16)
+        dhT, dcT = _randn(gen, b, h), _randn(gen, b, h)
+        dz = fr.lstm_backward(w, peep, lens, res[4], res[3], d_out, dhT,
+                              dcT)
+        dz_ref = fr.lstm_backward_reference(w, peep, lens, res[4], res[3],
+                                            d_out, dhT, dcT)
+        worst["lstm_fwd"] = max(worst["lstm_fwd"], err)
+        worst["lstm_bwd"] = max(worst["lstm_bwd"],
+                                _held("dz", dz, dz_ref, torch.bfloat16))
+    torch.cuda.synchronize()
+    return worst
+
+
+def _infra_timings(spec, batches):
+    """ms/step of phase 12's classifier on the same in-memory batches:
+    train_batch (phase 12's route), train() with lazy events, train()
+    with the guard (one host read a step). 2 untimed steps first."""
+    from paddle_tpu_torch.trainer.fault import FaultPolicy
+    tr = _lstm_trainer(spec)
+    for b in batches[:2]:
+        tr.train_batch(b)
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        tr.train_batch(b)
+    torch.cuda.synchronize()
+    out["train_batch"] = (time.perf_counter() - t0) / len(batches) * 1e3
+    for label, kw in (("train", {}),
+                      ("train guarded",
+                       {"fault_policy": FaultPolicy(max_bad_steps=3)})):
+        tr.train(lambda: iter(batches[:2]), event_handler=lambda e: None,
+                 **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train(lambda: iter(batches), event_handler=lambda e: None, **kw)
+        torch.cuda.synchronize()
+        out[label] = (time.perf_counter() - t0) / len(batches) * 1e3
+    del tr
+    return out
+
+
+def _infra_main_run(spec, paths, ckpt):
+    """(a): SGD.train over the recordio reader with every option of the
+    single trainer; returns its record."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import fused_rnn as fr
+    from paddle_tpu_torch.trainer.checkpoint import CheckpointManager
+    from paddle_tpu_torch.trainer.fault import FaultPolicy
+    from paddle_tpu_torch.utils.stats import global_stat
+    tr = _lstm_trainer(spec)
+    mgr = CheckpointManager(ckpt)
+    stat_names = ("checkpoint/snapshot", "checkpoint/write")
+    stats0 = [global_stat.get(n).snapshot() for n in stat_names]
+    starts, costs, ends, bad = [], [], [], []
+    overlapped = []
+
+    def handler(e):
+        if isinstance(e, paddle.event.BeginIteration):
+            overlapped.append(mgr.writing())
+            starts.append(time.perf_counter())
+        elif isinstance(e, paddle.event.EndIteration):
+            costs.append(e.cost)        # the guard already waited
+        elif isinstance(e, paddle.event.EndPass):
+            ends.append(e.metrics)
+        elif isinstance(e, paddle.event.FaultEvent):
+            bad.append(e)
+
+    _rnn_counts(fr, zero=True)
+    fr.lstm_forward.row_launches.clear()
+    fr.lstm_backward.row_launches.clear()
+    t0 = time.perf_counter()
+    tr.train(_infra_reader(paths), num_passes=INFRA_PASSES,
+             event_handler=handler, checkpoint_manager=mgr,
+             checkpoint_period=2,
+             fault_policy=FaultPolicy(max_bad_steps=3), microbatch="auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _rnn_counts(fr)
+    rows = (dict(fr.lstm_forward.row_launches),
+            dict(fr.lstm_backward.row_launches))
+    steps = INFRA_BATCHES * INFRA_PASSES
+    if bad or len(costs) != steps or not all(np.isfinite(costs)):
+        raise AssertionError(f"main run: faults {bad}, costs {costs}")
+    if any(m["fault_ok"] != 1.0 for m in ends):
+        raise AssertionError(f"main run: pass metrics {ends}")
+    if not (counts["lstm_fwd"] == counts["lstm_res"] == counts["lstm_bwd"]
+            == steps) or rows != ({LSTM_ROWS: steps}, {LSTM_ROWS: steps}):
+        raise AssertionError(f"main run: LSTM launches {counts}, rows "
+                             f"{rows}, expected {steps} at {LSTM_ROWS}")
+    if tr._memory_exec.plan.provenance != "full":
+        raise AssertionError(f"main run: plan {tr._memory_exec.plan}")
+    kept = mgr.all_steps()
+    if kept != [8, 10, 12]:
+        raise AssertionError(f"checkpoints kept {kept}")
+    mid = mgr.peek_meta(10)
+    if mid["batch_in_pass"] != 4 or mid["reader_state"]["epoch"] != 1:
+        raise AssertionError(f"the step-10 checkpoint's meta: {mid}")
+    back = _lstm_trainer(spec)
+    back.restore_checkpoint(mgr)
+    if back.opt_state["step"] != steps or \
+            _max_diff(_host_params(back), _host_params(tr)) != 0.0:
+        raise AssertionError("the last checkpoint does not restore the "
+                             "trained state")
+    snap, write = ((n1 - n0, t1 - t0_, m1) for (n0, t0_, _), (n1, t1, m1)
+                   in zip(stats0, (global_stat.get(n).snapshot()
+                                   for n in stat_names)))
+    gaps = np.diff(starts)          # BeginIteration to BeginIteration
+    return dict(wall=wall, step_ms=gaps[2:] * 1e3, counts=counts,
+                rows=rows, snapshot=snap, write=write,
+                overlapped=sum(overlapped), costs=costs, trainer=tr)
+
+
+def _infra_oom(spec, batches):
+    """(b): a real OOM. The 128-row step's peak and a 64-row
+    microbatch's are measured on a throwaway trainer, and the
+    accumulation is held against the full-batch step
+    (``_accum_vs_full``); the process is capped between the peaks
+    (set_per_process_memory_fraction) and a fresh trainer trains
+    OOM_STEPS batches with microbatch="auto": its first step raises
+    torch.cuda.OutOfMemoryError, the executor bisects to 64 rows, one
+    OOMEvent. Its parameters equal a run fixed at 64 rows; their
+    distance from the uncapped full-batch run is printed and held only
+    to Adam's step bound (Adam is blind to a gradient's scale)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import fused_rnn as fr
+    total = torch.cuda.get_device_properties(0).total_memory
+    gc_collect()
+    m = _lstm_trainer(spec)
+    feed = m._feeder(None)(batches[0])
+    n = int(feed.pop("__batch_size__"))
+
+    def peak(k):
+        gc_collect()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        m._device_step(feed, n, 0, k=k)
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base,
+                torch.cuda.max_memory_reserved() - base)
+
+    peak(1)                                    # untimed first step
+    full_alloc, full_res = peak(1)
+    half_alloc, half_res = peak(2)
+    grad_rel, loss_rel, planted = _accum_vs_full(m, feed, n)
+    del m, feed
+    if not half_res < full_alloc:
+        raise AssertionError(f"the 64-row microbatch reserves "
+                             f"{half_res} bytes, the 128-row step "
+                             f"allocates {full_alloc}: no cap between")
+    runs = {}
+    with _deterministic():
+        for label, mb in (("full", None), ("fixed", LSTM_ROWS // 2)):
+            tr = _lstm_trainer(spec)
+            tr.train(lambda: iter(batches), event_handler=lambda e: None,
+                     microbatch=mb)
+            runs[label] = _host_params(tr)
+            del tr
+        tr = _lstm_trainer(spec)
+        gc_collect()
+        cap = torch.cuda.memory_allocated() + (full_alloc + half_res) // 2
+        events = []
+        _rnn_counts(fr, zero=True)
+        fr.lstm_forward.row_launches.clear()
+        fr.lstm_backward.row_launches.clear()
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        try:
+            tr.train(lambda: iter(batches), event_handler=events.append,
+                     microbatch="auto")
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+            gc_collect()
+        runs["capped"] = _host_params(tr)
+    counts = _rnn_counts(fr)
+    rows = (dict(fr.lstm_forward.row_launches),
+            dict(fr.lstm_backward.row_launches))
+    ooms = [e for e in events if isinstance(e, paddle.event.OOMEvent)]
+    if [(e.batch_id, e.microbatch, e.accum_steps) for e in ooms] != \
+            [(0, LSTM_ROWS // 2, 2)] or \
+            not isinstance(ooms[0].error, torch.cuda.OutOfMemoryError) or \
+            "injected" in str(ooms[0].error):
+        raise AssertionError(f"capped run's OOM events: {ooms}")
+    if tr._memory_exec.plan.microbatch != LSTM_ROWS // 2:
+        raise AssertionError(f"capped run's plan {tr._memory_exec.plan}")
+    half = LSTM_ROWS // 2
+    # besides the microbatches' launches, at most the failed full-batch
+    # attempt's one
+    other = [(k, v) for r in rows for k, v in r.items() if k != half]
+    if rows[0].get(half) != 2 * OOM_STEPS or \
+            rows[1].get(half) != 2 * OOM_STEPS or \
+            any(k != LSTM_ROWS or v > 1 for k, v in other):
+        raise AssertionError(f"capped run's launches by rows {rows}: "
+                             f"{2 * OOM_STEPS} each at {half} expected")
+    fixed_diff = _max_diff(runs["capped"], runs["fixed"])
+    full_diff = _max_diff(runs["capped"], runs["full"])
+    # a sanity bound only (_accum_vs_full is the check that sees an
+    # accumulation fault): Adam moves a weight by at most 1.0013 lr in
+    # each of its first two steps (|m_hat| / sqrt(v_hat) by
+    # Cauchy-Schwarz), so two runs differ by at most twice that per step
+    bound = 2 * 1.0013 * LSTM_LR * OOM_STEPS
+    if fixed_diff != 0.0 or full_diff > bound:
+        raise AssertionError(f"capped run off the fixed-64 run by "
+                             f"{fixed_diff} (must be 0) or off the "
+                             f"full-batch run by {full_diff} > {bound}")
+    return dict(full_alloc=full_alloc, full_res=full_res,
+                half_alloc=half_alloc, half_res=half_res, cap=cap,
+                total=total, fixed_diff=fixed_diff, full_diff=full_diff,
+                bound=bound, counts=counts, rows=rows,
+                grad_rel=grad_rel, loss_rel=loss_rel, planted=planted,
+                error=repr(ooms[0].error)[:200])
+
+
+def _accum_vs_full(tr, feed, n):
+    """The first step's loss and gradients as 2 accumulated microbatches
+    (``_accum_grads``) against the full-batch step's (``_grads``), on
+    the same batch and parameters, nothing written. Returns the relative
+    norm of the gradients' difference over all parameters, the loss's
+    relative difference, and what the gradient measure reads for a
+    planted fault: the microbatch costs divided by their own rows
+    instead of the batch's (every gradient doubled)."""
+    params = tr._own_params()
+    loss1, _, g1, _ = tr._grads(params, feed, n, 0)
+    loss2, _, _, _, g2, _ = tr._accum_grads(params, feed, n, 0, 2)
+    names = [k for k in g1 if g1[k] is not None]
+    if any(g2[k] is None for k in names):
+        raise AssertionError("the accumulated step lacks gradients of "
+                             f"{[k for k in names if g2[k] is None]}")
+    full = torch.cat([g1[k].float().reshape(-1) for k in names])
+    accum = torch.cat([g2[k].float().reshape(-1) for k in names])
+    norm = torch.linalg.vector_norm(full)
+    grad_rel = float(torch.linalg.vector_norm(accum - full) / norm)
+    planted = float(torch.linalg.vector_norm(2 * accum - full) / norm)
+    loss1, loss2 = float(loss1.detach()), float(loss2)
+    loss_rel = abs(loss2 - loss1) / abs(loss1)
+    if not (grad_rel <= ACCUM_TOL and loss_rel <= ACCUM_TOL):
+        raise AssertionError(
+            f"2 accumulated microbatches off the full-batch step: "
+            f"gradients {grad_rel:.3e}, loss {loss_rel:.3e} > {ACCUM_TOL}")
+    return grad_rel, loss_rel, planted
+
+
+def gc_collect():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _resume_worker(ckpt, shard_dir, out, go=None):
+    """The kill-and-resume worker (``chip_smoke.py --resume-worker CKPT
+    SHARDS OUT [GO]``): phase 12's classifier, bf16, under deterministic
+    algorithms, one pass over the phase's shards with
+    checkpoint_period=1 and auto_resume; prints ``STEP n`` after each
+    step, writes the final parameters to OUT (.npz). With GO it builds
+    the trainer, then waits for the file GO before it trains (a relaunch
+    started ahead, ready when its victim dies)."""
+    import paddle_tpu_torch as paddle
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    spec = _lstm_spec("bfloat16")
+    tr = _lstm_trainer(spec)
+    paths = sorted(os.path.join(shard_dir, p)
+                   for p in os.listdir(shard_dir) if p.startswith("lstm47"))
+    print(f"READY {time.perf_counter() - t0:.2f}", flush=True)
+    while go and not os.path.exists(go):
+        time.sleep(0.05)
+    t1 = time.perf_counter()
+
+    def handler(e):
+        if isinstance(e, paddle.event.EndIteration):
+            print(f"STEP {tr._step_count} cost {e.cost:.6f} at "
+                  f"{time.perf_counter() - t1:.2f}", flush=True)
+
+    tr.train(_infra_reader(paths), num_passes=1, event_handler=handler,
+             checkpoint_dir=ckpt, checkpoint_period=1, auto_resume=True)
+    np.savez(out, **_host_params(tr))
+    print(f"WORKER DONE steps {tr._step_count} in "
+          f"{time.perf_counter() - t1:.2f}", flush=True)
+    return 0
+
+
+def _worker(ckpt, shard_dir, out, go=None):
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--resume-worker",
+         ckpt, shard_dir, out] + ([go] if go else []), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _infra_kill_resume(shard_dir, work, side=()):
+    """(c): an uninterrupted worker and a victim SIGKILLed after step
+    INFRA_KILL_STEP run together (with the ``side`` processes, which
+    need no card time of their own); the victim relaunched with
+    auto_resume must end with the uninterrupted parameters — bit for bit
+    under deterministic algorithms; else within the spread of two
+    uninterrupted runs, a second of which then runs."""
+    import signal
+
+    def npz(name):
+        return os.path.join(work, f"{name}.npz")
+
+    def finish(p, name):
+        out, err = p.communicate(timeout=300)
+        if p.returncode != 0:
+            raise AssertionError(f"{name}: {err[-3000:]}")
+        return out
+
+    t0 = time.perf_counter()
+    go = os.path.join(work, "victim_killed")
+    procs = {name: _worker(os.path.join(work, f"ck_{name}"), shard_dir,
+                           npz(name)) for name in ("ref1", "victim")}
+    # the relaunch starts now and waits, built, for the victim's death
+    procs["resumed"] = _worker(os.path.join(work, "ck_victim"), shard_dir,
+                               npz("victim"), go=go)
+    try:
+        victim = procs["victim"]
+        for line in victim.stdout:
+            if line.startswith(f"STEP {INFRA_KILL_STEP} "):
+                victim.send_signal(signal.SIGKILL)
+                break
+        victim.wait(timeout=300)
+        t_kill = time.perf_counter() - t0
+        if victim.returncode != -signal.SIGKILL:
+            raise AssertionError(f"victim was not killed: rc "
+                                 f"{victim.returncode} "
+                                 f"{victim.stderr.read()[-2000:]}")
+        open(go, "w").close()
+        finish(procs["ref1"], "ref1")
+        out = finish(procs["resumed"], "resumed")
+        got, ref = (dict(np.load(npz(n))) for n in ("victim", "ref1"))
+        diff, spread = _max_diff(got, ref), 0.0
+        if diff:
+            procs["ref2"] = _worker(os.path.join(work, "ck_ref2"),
+                                    shard_dir, npz("ref2"))
+            finish(procs["ref2"], "ref2")
+            spread = _max_diff(ref, dict(np.load(npz("ref2"))))
+        side_out = [p.communicate(timeout=300) + (p.returncode,)
+                    for p in side]
+    finally:
+        for p in list(procs.values()) + list(side):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    steps = [ln for ln in out.splitlines() if ln.startswith("STEP ")]
+    if not steps or int(steps[0].split()[1]) <= 1 or \
+            int(steps[-1].split()[1]) != INFRA_BATCHES:
+        raise AssertionError(f"the resumed run's steps: {steps}")
+    if diff > spread:
+        raise AssertionError(f"resumed run off the uninterrupted one by "
+                             f"{diff} > the uninterrupted runs' spread "
+                             f"{spread}")
+    return dict(diff=diff, spread=spread, wall=wall, t_kill=t_kill,
+                resumed_from=int(steps[0].split()[1]) - 1,
+                side=side_out, resumed_log=out.splitlines())
+
+
+def _guard_card():
+    """(d): fit-a-line (float features) on the card under FaultPolicy:
+    NaN/inf batches GUARD_BAD skipped one by one, bit-identical to the
+    run that never saw them (parameters, Adam's slots and counters);
+    then a streak GUARD_STREAK rolls back to the newest checkpoint."""
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import config
+    from paddle_tpu_torch.core.registry import reset_name_counters
+    from paddle_tpu_torch.trainer.checkpoint import CheckpointManager
+    from paddle_tpu_torch.trainer.fault import FaultPolicy
+
+    def trainer():
+        config.init(seed=0, compute_dtype="float32")
+        reset_name_counters()
+        L, dt = paddle.layer, paddle.data_type
+        x = L.data("x", dt.dense_vector(13))
+        y = L.data("y", dt.dense_vector(1))
+        pred = L.fc(x, size=1, act=paddle.activation.Linear(), name="pred")
+        cost = L.square_error_cost(pred, y, name="cost")
+        params = paddle.create_parameters(paddle.Topology(cost))
+        return paddle.SGD(cost=cost, parameters=params,
+                          update_equation=paddle.optimizer.Adam(
+                              learning_rate=0.01))
+
+    batches = list(paddle.reader.batch(paddle.dataset.uci_housing.train(),
+                                       HOUSING_BATCH)())[:14]
+
+    def poisoned(bad):
+        def r():
+            for i, b in enumerate(batches):
+                if i in bad:
+                    b = [(np.full(13, bad[i], np.float32), y) for _, y in b]
+                yield b
+        return r
+
+    def state(tr):
+        out = {f"p/{k}": v for k, v in _host_params(tr).items()}
+        for k, s in tr.opt_state["slots"].items():
+            out.update({f"s/{k}/{n}": v.cpu().numpy() for n, v in s.items()})
+        return out, (tr.opt_state["step"], tr.opt_state["num_samples"])
+
+    guarded, events = trainer(), []
+    guarded.train(poisoned(GUARD_BAD), event_handler=events.append,
+                  num_batches_per_pass=10,
+                  fault_policy=FaultPolicy(max_bad_steps=3))
+    skip = trainer()
+    skip.train(lambda: (b for i, b in enumerate(batches[:10])
+                        if i not in GUARD_BAD), event_handler=lambda e: None,
+               fault_policy=FaultPolicy(max_bad_steps=3))
+    (g, gc), (s, sc) = state(guarded), state(skip)
+    same = gc == sc and all(np.array_equal(g[k], s[k]) for k in s)
+    faults = [e for e in events if isinstance(e, paddle.event.FaultEvent)]
+    if not same or any(f.kind != "nonfinite" for f in faults) or \
+            not all(np.isfinite(v).all() for v in g.values()):
+        raise AssertionError(f"guarded fit-a-line off its skip run "
+                             f"(counters {gc} vs {sc}) or faults {faults}")
+    streak = {i: float("nan") for i in GUARD_STREAK}
+    with tempfile.TemporaryDirectory() as d:
+        tr, events = trainer(), []
+        tr.train(poisoned(streak), event_handler=events.append,
+                 checkpoint_manager=CheckpointManager(d),
+                 checkpoint_period=4,
+                 fault_policy=FaultPolicy(max_bad_steps=3, check_period=1))
+    rb = [(e.kind, e.batch_id, e.bad_streak, e.restored_step)
+          for e in events if isinstance(e, paddle.event.FaultEvent)]
+    a, b, c = GUARD_STREAK
+    # the step-12 checkpoint was taken mid-streak: the bad steps were
+    # skipped, so it holds the state before the streak
+    if rb != [("nonfinite", a, 1, None), ("nonfinite", b, 2, None),
+              ("rollback", c, 3, 12)]:
+        raise AssertionError(f"streak events {rb}")
+    return dict(nonfinite=len(faults), counters=gc, rollback=rb[-1])
+
+
+LSTM_CLI_CONFIG = """\
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch.models import stacked_lstm_net
+spec = stacked_lstm_net(vocab_size={vocab_size}, emb_size={emb_size},
+                        hidden_size={hidden_size}, lstm_num={lstm_num},
+                        num_classes={num_classes})
+cost = spec.cost
+optimizer = paddle.optimizer.Adam(learning_rate={lr})
+"""
+LSTM_CHECKGRAD_CONFIG = """\
+from paddle_tpu_torch.models import stacked_lstm_net
+cost = stacked_lstm_net(vocab_size=64, emb_size=16, hidden_size=32,
+                        num_classes=2).cost
+"""
+SMALL_CLI_CONFIG = """\
+import paddle_tpu_torch as paddle
+x = paddle.layer.data("x", paddle.data_type.dense_vector(16))
+h = paddle.layer.fc(x, size=8, act=paddle.activation.Tanh())
+out = paddle.layer.fc(h, size=3, act=paddle.activation.Softmax())
+y = paddle.layer.data("y", paddle.data_type.integer_value(3))
+cost = paddle.layer.classification_cost(out, y, name="cost")
+"""
+
+
+def _cli_configs(work):
+    lstm = os.path.join(work, "lstm_cfg.py")
+    with open(lstm, "w") as f:
+        f.write(LSTM_CLI_CONFIG.format(lr=LSTM_LR, **LSTM_NET))
+    small = os.path.join(work, "small_cfg.py")
+    with open(small, "w") as f:
+        f.write(SMALL_CLI_CONFIG)
+    narrow = os.path.join(work, "narrow_lstm_cfg.py")
+    with open(narrow, "w") as f:
+        f.write(LSTM_CHECKGRAD_CONFIG)
+    return lstm, small, narrow
+
+
+def _checkgrad_lstm_in_process(cfg):
+    """cli.main's --job=checkgrad on a narrow stacked_lstm_net (float32,
+    4 rows of 8 tokens) in this process, with the LSTM kernels' counts
+    zeroed before and read after: the job runs on the card and goes
+    through both float32 LSTM kernels. Returns its JSON record and the
+    launches by route."""
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.ops import fused_rnn as fr
+    out = io.StringIO()
+    _rnn_counts(fr, zero=True)
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["train", "--config", cfg, "--job", "checkgrad",
+                       "--batch_size", "4", "--seq_len", "8"])
+    torch.cuda.synchronize()
+    counts = _rnn_counts(fr)
+    rec = _cli_result("checkgrad", out.getvalue(), "", rc)
+    if not (counts["lstm_fwd_routes"]["bf16x3"] > 0 and
+            counts["lstm_bwd_routes"]["bf16x3"] > 0):
+        raise AssertionError(f"checkgrad on the LSTM config launched "
+                             f"{counts}")
+    return rec, {"lstm_fwd": counts["lstm_fwd_routes"],
+                 "lstm_bwd": counts["lstm_bwd_routes"]}
+
+
+def _cli_train(cfg, job, *extra):
+    """``python -m paddle_tpu_torch.cli train`` in a process of its own
+    (started, not waited for)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    return subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.cli", "train", "--config",
+         cfg, "--job", job] + list(extra), cwd=here, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _cli_result(job, out, err, rc):
+    if rc != 0:
+        raise AssertionError(f"cli --job={job}: {err[-3000:]}")
+    return json.loads([ln for ln in out.splitlines()
+                       if ln.startswith("{")][-1])
+
+
+def phase_train_infra():
+    """Phase 47: the training infrastructure (see the module doc).
+    Returns the LSTM kernels' launches on its routes and their row
+    counts."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    rows_err = _rows_vs_plain()
+    t_rows = time.perf_counter() - t_phase
+    spec = _lstm_spec("bfloat16")
+    work = tempfile.mkdtemp(prefix="phase47-")
+    try:
+        paths, samples = _infra_shards(os.path.join(work, "shards"))
+        batches = [samples[i:i + LSTM_ROWS]
+                   for i in range(0, len(samples), LSTM_ROWS)]
+        t_a = time.perf_counter()
+        timing = _infra_timings(spec, batches)
+        main_run = _infra_main_run(spec, paths, os.path.join(work, "ckpt"))
+        del main_run["trainer"]
+        t_a = time.perf_counter() - t_a
+        t_b = time.perf_counter()
+        oom = _infra_oom(spec, batches[:OOM_STEPS])
+        t_b = time.perf_counter() - t_b
+        # (e)'s checkgrad process beside (c)'s workers; --job=time
+        # alone after them, then checkgrad on the narrow LSTM here
+        lstm_cfg, small_cfg, narrow_cfg = _cli_configs(work)
+        t_c = time.perf_counter()
+        resume = _infra_kill_resume(
+            os.path.join(work, "shards"), work,
+            side=[_cli_train(small_cfg, "checkgrad", "--batch_size", "8")])
+        cli = {"checkgrad": _cli_result("checkgrad", *resume["side"][0])}
+        t_c = time.perf_counter() - t_c
+        t_d = time.perf_counter()
+        guard = _guard_card()
+        t_d = time.perf_counter() - t_d
+        t_e = time.perf_counter()
+        proc = _cli_train(lstm_cfg, "time", "--batch_size", str(LSTM_ROWS),
+                          "--seq_len", str(LSTM_TOKENS), "--iters", "8",
+                          "--dtype", "bfloat16")
+        out, err = proc.communicate(timeout=300)
+        cli["time"] = _cli_result("time", out, err, proc.returncode)
+        cli["checkgrad_lstm"], cg_launches = \
+            _checkgrad_lstm_in_process(narrow_cfg)
+        t_e = time.perf_counter() - t_e
+        if not cli["time"]["device"].startswith("cuda") or \
+                not cli["time"]["value"] > 0 or \
+                any(cli[j]["status"] != "ok" or
+                    not cli[j]["device"].startswith("cuda")
+                    for j in ("checkgrad", "checkgrad_lstm")):
+            raise AssertionError(f"cli jobs: {cli}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    step = main_run["step_ms"]
+    snap_n, snap_total, snap_max = main_run["snapshot"]
+    write_n, write_total, write_max = main_run["write"]
+    log(f"train infra ({card}): the LSTM kernels take every row count the "
+        f"bisection of {LSTM_ROWS} reaches {list(INFRA_ROWS)} at h "
+        f"{LSTM_NET['hidden_size']} (kernel_ok; forward "
+        f"{rows_err['lstm_fwd']:.3e}, backward {rows_err['lstm_bwd']:.3e} "
+        "off plain, bf16 tolerance)")
+    log(f"train infra ({card}): phase 12's classifier, {INFRA_PASSES} "
+        f"passes of {INFRA_BATCHES} batches of {LSTM_ROWS} from recordio "
+        f"shards (dataset.common.convert, native codec) through "
+        f"SGD.train with checkpoint_period 2, FaultPolicy(3) and "
+        f"microbatch auto: {main_run['wall']:.3f} s, step interval "
+        f"median {np.median(step):.3f} ms (mean {np.mean(step):.3f}, max "
+        f"{np.max(step):.3f}) after 2; same batches in memory: "
+        f"train_batch {timing['train_batch']:.3f} ms/step, train() "
+        f"{timing['train']:.3f}, train() guarded "
+        f"{timing['train guarded']:.3f} (one host read of the guard a "
+        f"step); checkpoint/snapshot {snap_n} x mean "
+        f"{snap_total / max(snap_n, 1) * 1e3:.3f} ms (max "
+        f"{snap_max * 1e3:.3f}), checkpoint/write {write_n} x mean "
+        f"{write_total / max(write_n, 1) * 1e3:.3f} ms (max "
+        f"{write_max * 1e3:.3f}) in pt-ckpt-writer; "
+        f"{main_run['overlapped']} of {len(main_run['costs'])} steps "
+        f"began while a write ran; LSTM launches {main_run['counts']}, "
+        f"rows {main_run['rows']}; costs "
+        f"{[round(c, 5) for c in main_run['costs']]}")
+    log(f"train infra ({card}): real OOM — the {LSTM_ROWS}-row step "
+        f"allocates {oom['full_alloc'] / 1e6:.1f} MB over its base "
+        f"(reserves {oom['full_res'] / 1e6:.1f}), a {LSTM_ROWS // 2}-row "
+        f"microbatch step reserves {oom['half_res'] / 1e6:.1f} MB; capped "
+        f"at {oom['cap'] / 1e9:.4f} GB of {oom['total'] / 1e9:.2f} "
+        f"(fraction {oom['cap'] / oom['total']:.6f}): one OOMEvent, "
+        f"{LSTM_ROWS} -> {LSTM_ROWS // 2} rows x 2, error "
+        f"{oom['error']}; parameters {oom['fixed_diff']} off the run fixed "
+        f"at {LSTM_ROWS // 2} rows, {oom['full_diff']:.3e} off the "
+        f"full-batch run (sanity bound 2 x lr x steps = "
+        f"{oom['bound']:.1e}); before the cap, 2 accumulated microbatches "
+        f"against the full-batch step: gradients {oom['grad_rel']:.3e} "
+        f"(relative norm), loss {oom['loss_rel']:.3e} (tolerance "
+        f"{ACCUM_TOL}; a planted scale fault reads "
+        f"{oom['planted']:.3e}); "
+        f"LSTM launches {oom['counts']}, rows {oom['rows']}; fraction "
+        f"restored to 1.0")
+    log(f"train infra ({card}): kill and resume — SIGKILL after step "
+        f"{INFRA_KILL_STEP}, the relaunch resumed from step "
+        f"{resume['resumed_from']} (checkpoint_period 1, "
+        f"auto_resume, deterministic algorithms): parameters "
+        f"{resume['diff']} off an uninterrupted run (two uninterrupted "
+        f"runs differ by {resume['spread']}; a second uninterrupted run "
+        f"only when the first differs); {resume['wall']:.1f} s, the "
+        f"victim killed at {resume['t_kill']:.1f} s; the relaunch: "
+        f"{'; '.join(resume['resumed_log'])}")
+    log(f"train infra ({card}): guard on fit-a-line — {len(GUARD_BAD)} "
+        f"NaN/inf batches skipped bit-identical to the skip run "
+        f"(parameters, Adam slots, counters {guard['counters']}), "
+        f"{guard['nonfinite']} nonfinite events; a streak of 3 rolled "
+        f"back: {guard['rollback']}")
+    log(f"train infra ({card}): cli train --job=time (bf16, "
+        f"{LSTM_ROWS} x {LSTM_TOKENS}): {cli['time']['value']} ms/batch on "
+        f"{cli['time']['device']}; --job=checkgrad on "
+        f"{cli['checkgrad']['device']}: "
+        f"{cli['checkgrad']['coords_checked']} coordinates of "
+        f"{cli['checkgrad']['params_checked']} parameters ok (small MLP), "
+        f"{cli['checkgrad_lstm']['coords_checked']} of "
+        f"{cli['checkgrad_lstm']['params_checked']} ok on "
+        f"{cli['checkgrad_lstm']['device']} (narrow stacked_lstm_net, "
+        f"float32; LSTM launches by route {cg_launches}); phase "
+        f"{time.perf_counter() - t_phase:.1f} s (rows {t_rows:.1f}, (a) "
+        f"{t_a:.1f}, (b) {t_b:.1f}, (c) with checkgrad {t_c:.1f}, (d) "
+        f"{t_d:.1f}, (e) time and LSTM checkgrad {t_e:.1f})")
+    fwd = main_run["counts"]["lstm_fwd"] + oom["counts"]["lstm_fwd"]
+    bwd = main_run["counts"]["lstm_bwd"] + oom["counts"]["lstm_bwd"]
+    return dict(
+        lstm_fwd=fwd, lstm_bwd=bwd,
+        routes={"lstm_fwd": {"train_infra": main_run["counts"]["lstm_fwd"],
+                             "oom_microbatch": oom["counts"]["lstm_fwd"]},
+                "lstm_bwd": {"train_infra": main_run["counts"]["lstm_bwd"],
+                             "oom_microbatch": oom["counts"]["lstm_bwd"]}},
+        rows={"lstm_fwd": _merge_rows(main_run["rows"][0], oom["rows"][0]),
+              "lstm_bwd": _merge_rows(main_run["rows"][1], oom["rows"][1])},
+        rows_err=rows_err, step_ms=float(np.median(step)), timing=timing)
+
+
+def _merge_rows(*dicts):
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[str(k)] = out.get(str(k), 0) + v
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -8410,6 +9201,8 @@ def main():
     phase_detection_types()
     # the serving plane around the engine (phase 46)
     front = phase_front(serve["tokens"], mnist["artifact"])
+    # the single trainer's training infrastructure (phase 47)
+    infra = phase_train_infra()
     kernels = [dict(
         name="paged_window_attention", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",
@@ -8434,9 +9227,13 @@ def main():
             launches=f32_launches[name],
             max_abs_err=flash_err[(name, torch.float32)],
             **flash_timing[(name, torch.float32)]))
-    rnn_launches = {"lstm_fwd": lstm_counts["lstm_fwd"],
-                    "lstm_bwd": lstm_counts["lstm_bwd"],
-                    "gru_fwd": gru_launches + nmt["launches"]}
+    rnn_launches = {
+        "lstm_fwd": lstm_counts["lstm_fwd"] + infra["lstm_fwd"],
+        "lstm_bwd": lstm_counts["lstm_bwd"] + infra["lstm_bwd"],
+        "gru_fwd": gru_launches + nmt["launches"]}
+    for name, err in infra["rows_err"].items():
+        # phase 47 holds the LSTM kernels at the microbatch rows too
+        rnn_err[name] = max(rnn_err[name], err)
     for name, line, src in RNN_KERNELS:
         # the LSTM trains in bfloat16 on its main path, the tagger decodes
         # in float32
@@ -8446,6 +9243,15 @@ def main():
             replaces=f"paddle_tpu/ops/pallas_rnn.py:{line}",
             launches=rnn_launches[name], max_abs_err=rnn_err[name],
             **rnn_timing[(name, dt)]))
+        if name in infra["routes"]:
+            # phase 12's train_batch steps and phase 47's routes through
+            # SGD.train, with the launches by batch rows (the
+            # microbatches of the capped run at half the rows)
+            kernels[-1].update(
+                route_launches={"train_batch": lstm_counts[name],
+                                **infra["routes"][name]},
+                row_launches=_merge_rows({LSTM_ROWS: lstm_counts[name]},
+                                         infra["rows"][name]))
     # the GRU's launches by route: the tagger's decode (phase 14) on
     # gru_fwd_sm90.cu, the nmt decode's (phase 30) on the cooperative
     # gru_fwd.cu, with that route's time at the nmt decode's shape
@@ -8498,4 +9304,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resume-worker"]:
+        sys.exit(_resume_worker(*sys.argv[2:6]))
     sys.exit(main())

@@ -73,6 +73,15 @@ Slices ported so far:
   With them the rest of the v2 datasets, ``image.py`` and the
   gradient printer. Plain PyTorch ops and cuDNN again: the JAX package
   computes them outside Pallas.
+- the serving plane around the engine (serving/server.py, http.py,
+  breaker.py, obs/) and the single trainer's training infrastructure:
+  full-state checkpoints with auto-resume (trainer/checkpoint.py), the
+  guarded step (trainer/fault.py), adaptive microbatching on a device
+  OOM (trainer/memory.py), the supervised and checkpointable reader
+  pipeline over recordio shards (reader/pipeline.py, recordio.py with
+  the native codec native/recordio.cc) and ``cli.py train``. They run
+  the kernels above; the JAX package's elastic coordinator is not
+  ported yet.
 
 Entry points run on the card unless the caller passes
 ``device="cpu"`` or called ``init(use_gpu=False)``; with no GPU and no

@@ -1,14 +1,32 @@
 """Command line of the port — ``python -m paddle_tpu_torch.cli``.
 
-The port has ``serve``: ``--model`` (a ``save_inference_model``
-artifact) serves ``POST /infer`` through the admission-controlled
-``InferenceServer`` (bounded queue, deadlines, circuit breaker,
-memory-pressure shedding), and ``--decode_config`` (a Python file run
-with ``runpy`` that must define ``decoder``, a
-``paddle_tpu_torch.models.TransformerDecoder``) attaches a
-continuous-batching ``DecodeEngine`` behind ``POST /generate`` (plain
-or streamed). The front also serves ``/health``, ``/stats``,
-``/metrics``, ``/events``, ``/flight``, ``/profile`` and
+``train`` is `paddle train` (TrainerMain.cpp:32-58): ``--config`` is a
+Python config script (it defines ``cost``, and may define
+``optimizer``, ``train_reader`` / ``test_reader``, ``extra_layers``,
+``evaluators``, ``num_passes``) or a serialized topology JSON, and
+``--job`` one of
+
+  train      SGD over train_reader with the training infrastructure's
+             flags (checkpoints and ``--auto_resume``, the guarded step,
+             adaptive microbatching, the supervised reader pipeline);
+  time       timed train steps on synthetic data, one JSON line;
+  test       evaluate test_reader (from ``--init_model_path``);
+  checkgrad  central differences against autograd over the config's
+             topology;
+  dump_config  the normalized topology JSON;
+  profile    a ``torch.profiler`` trace of train steps.
+
+The job runs on the card unless ``--use_tpu=false`` asks for the CPU
+(``init(use_tpu=)``'s meaning).
+
+``serve``: ``--model`` (a ``save_inference_model`` artifact) serves
+``POST /infer`` through the admission-controlled ``InferenceServer``
+(bounded queue, deadlines, circuit breaker, memory-pressure shedding),
+and ``--decode_config`` (a Python file run with ``runpy`` that must
+define ``decoder``, a ``paddle_tpu_torch.models.TransformerDecoder``)
+attaches a continuous-batching ``DecodeEngine`` behind ``POST
+/generate`` (plain or streamed). The front also serves ``/health``,
+``/stats``, ``/metrics``, ``/events``, ``/flight``, ``/profile`` and
 ``/admin/drain|resume|quit`` (serving/http.py) until SIGTERM/SIGINT or
 ``POST /admin/quit``, then drains with a flight postmortem.
 ``--draft_config`` and ``--spec_k`` turn on speculative decoding,
@@ -21,11 +39,15 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import runpy
 import signal
 import sys
 import threading
-from typing import List, Optional
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
 
 
 def _build_engine(args):
@@ -106,7 +128,8 @@ def _wire_obs(args) -> None:
     if args.flight_dir:
         FLIGHT.configure(dump_dir=args.flight_dir)
     install_excepthook()
-    if not args.profile_every and not args.slo:
+    if not getattr(args, "profile_every", 0) and \
+            not getattr(args, "slo", None):
         return
     from paddle_tpu_torch.obs.profile import PROFILER
     from paddle_tpu_torch.obs.slo import WATCHDOG, parse_objective
@@ -165,9 +188,341 @@ def _cmd_serve(args) -> int:
     return 0
 
 
+# ------------------------------------------------------------------ train
+def _load_config(path: str) -> Dict[str, Any]:
+    """Run a .py config (its namespace) or load a topology .json (whose
+    outputs are its costs)."""
+    if path.endswith(".py"):
+        ns = runpy.run_path(path)
+        if "cost" not in ns:
+            raise SystemExit(f"config {path!r} defines no `cost`")
+        return ns
+    from paddle_tpu_torch.core.topology import Topology
+    with open(path) as f:
+        topo = Topology.deserialize(f.read())
+    return {"cost": list(topo.outputs)}
+
+
+def _topo_from_ns(ns: Dict[str, Any]):
+    from paddle_tpu_torch.core.topology import Topology
+    cost = ns["cost"]
+    return Topology(cost if isinstance(cost, (list, tuple)) else [cost],
+                    extra_outputs=list(ns.get("extra_layers") or []))
+
+
+def _build_trainer(ns: Dict[str, Any], init_model_path: Optional[str]):
+    import paddle_tpu_torch as paddle
+    topo = _topo_from_ns(ns)
+    if init_model_path:
+        with open(init_model_path, "rb") as f:
+            parameters = paddle.Parameters.from_tar(f)
+    else:
+        parameters = paddle.create_parameters(topo)
+    optimizer = ns.get("optimizer") or paddle.optimizer.Momentum(
+        learning_rate=1e-3, momentum=0.9)
+    return paddle.SGD(cost=ns["cost"], parameters=parameters,
+                      update_equation=optimizer,
+                      extra_layers=ns.get("extra_layers"),
+                      evaluators=ns.get("evaluators"))
+
+
+def _synthetic_batch(trainer, batch_size: int, seq_len: int = 16):
+    """One seeded batch matching the topology's data types (``time`` and
+    ``profile`` need shapes, not data)."""
+    from paddle_tpu_torch.core.data_type import SeqType
+    rng = np.random.RandomState(0)
+    samples = []
+    for _ in range(batch_size):
+        row = []
+        for _, t in trainer.topology.data_type():
+            if t.seq_type != SeqType.NO_SEQUENCE:
+                if t.kind == "integer":
+                    row.append([int(v) for v in
+                                rng.randint(0, t.dim, seq_len)])
+                else:
+                    row.append([rng.randn(t.dim).astype("float32")
+                                for _ in range(seq_len)])
+            elif t.kind == "integer":
+                row.append(int(rng.randint(0, t.dim)))
+            else:
+                row.append(rng.randn(t.dim).astype("float32"))
+        samples.append(tuple(row))
+    return samples
+
+
+def _job_time(trainer, batch_size: int, iters: int,
+              seq_len: int = 16) -> int:
+    """TrainerBenchmark.cpp parity: timed train steps, update included;
+    each step's time runs until its cost is on the host."""
+    import paddle_tpu_torch as paddle
+    batch = _synthetic_batch(trainer, batch_size, seq_len)
+
+    def reader():
+        while True:
+            yield batch
+
+    times = []
+    t_last = [None]
+
+    def handler(e):
+        if isinstance(e, paddle.event.BeginIteration):
+            t_last[0] = time.perf_counter()
+        elif isinstance(e, paddle.event.EndIteration):
+            e.cost                   # waits for the step
+            times.append(time.perf_counter() - t_last[0])
+
+    trainer.train(reader, num_passes=1, event_handler=handler,
+                  num_batches_per_pass=iters + 3)
+    steady = times[3:] or times              # drop the warm-up steps
+    ms = 1000.0 * float(np.mean(steady))
+    print(json.dumps({"metric": "train_ms_per_batch", "value": round(ms, 3),
+                      "unit": "ms/batch", "batch_size": batch_size,
+                      "seq_len": seq_len, "iters": len(steady),
+                      "device": str(trainer.device)}), flush=True)
+    return 0
+
+
+def _job_profile(trainer, args) -> int:
+    """``torch.profiler`` over ``--iters`` train steps on synthetic data
+    (after two untraced warm-up steps): a Chrome trace under
+    ``--profile_dir`` and the top operators by self time on stderr."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = _synthetic_batch(trainer, args.batch_size, args.seq_len)
+
+    def reader():
+        while True:
+            yield batch
+
+    def quiet(e):
+        getattr(e, "cost", None)     # lazy events: wait for each step
+
+    out = args.profile_dir or os.path.join(".", "profile_out")
+    os.makedirs(out, exist_ok=True)
+    trainer.train(reader, num_passes=1, event_handler=quiet,
+                  num_batches_per_pass=2)
+    acts = [ProfilerActivity.CPU]
+    if trainer.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        trainer.train(reader, num_passes=1, event_handler=quiet,
+                      num_batches_per_pass=args.iters)
+    trace = os.path.join(out, "trace.json")
+    prof.export_chrome_trace(trace)
+    print(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                    row_limit=15), file=sys.stderr)
+    print(json.dumps({"job": "profile", "status": "ok", "trace_dir": out,
+                      "trace": trace, "iters": args.iters}), flush=True)
+    return 0
+
+
+def _job_train(trainer, ns, args) -> int:
+    import paddle_tpu_torch as paddle
+    reader = ns.get("train_reader")
+    if reader is None:
+        raise SystemExit("--job=train needs a `train_reader` in the config")
+    if args.data_max_bad or args.data_sample_timeout or args.data_prefetch:
+        # supervise the config's batch reader: bounded prefetch with
+        # clean shutdown, hung-source watchdog, per-batch error budget
+        from paddle_tpu_torch.reader import ErrorBudget, supervised
+        reader = supervised(
+            reader, buffer_size=args.data_prefetch or 4,
+            sample_timeout=args.data_sample_timeout or None,
+            error_budget=ErrorBudget(max_bad=args.data_max_bad,
+                                     on_bad=args.data_on_bad),
+            name="train-feed")
+
+    def handler(e):
+        if isinstance(e, paddle.event.EndIteration) and \
+                e.batch_id % max(args.log_period, 1) == 0:
+            print(f"Pass {e.pass_id}, Batch {e.batch_id}, "
+                  f"Cost {e.cost:.6f}, {e.evaluator}", flush=True)
+        elif isinstance(e, paddle.event.EndPass):
+            print(f"Pass {e.pass_id} done. {e.evaluator}", flush=True)
+            if args.save_dir:
+                trainer.save_pass(args.save_dir, e.pass_id)
+        elif isinstance(e, paddle.event.FaultEvent):
+            print(f"FAULT {e!r}", file=sys.stderr, flush=True)
+
+    fault_policy = None
+    if args.fault_max_bad_steps:
+        from paddle_tpu_torch.trainer.fault import FaultPolicy
+        fault_policy = FaultPolicy(max_bad_steps=args.fault_max_bad_steps)
+    microbatch = args.microbatch
+    if microbatch is not None and microbatch != "auto":
+        microbatch = int(microbatch)
+    num_passes = args.num_passes or int(ns.get("num_passes", 1))
+    trainer.train(reader, num_passes=num_passes, event_handler=handler,
+                  checkpoint_dir=args.checkpoint_dir,
+                  checkpoint_period=args.checkpoint_period,
+                  auto_resume=args.auto_resume, fault_policy=fault_policy,
+                  microbatch=microbatch, oom_probe=args.oom_probe)
+    if ns.get("test_reader") is not None:
+        res = trainer.test(ns["test_reader"])
+        print(f"Test: cost={res.cost:.6f} {res.evaluator}", flush=True)
+    return 0
+
+
+def _job_test(trainer, ns) -> int:
+    reader = ns.get("test_reader") or ns.get("train_reader")
+    if reader is None:
+        raise SystemExit("--job=test needs a `test_reader` in the config")
+    res = trainer.test(reader)
+    print(f"Test: cost={res.cost:.6f} {res.evaluator}", flush=True)
+    return 0
+
+
+def _job_checkgrad(trainer, ns, args) -> int:
+    """Trainer::checkGradient parity (Trainer.h:43): central finite
+    differences against autograd over the config's whole topology, on a
+    batch of the config's reader (else a synthetic one), on the
+    trainer's device. The card keeps float32 matmuls off TF32
+    (``paddle_tpu_torch/__init__.py``), so at the default float32
+    ``--dtype`` the differences at eps 1e-3 hold there as here."""
+    from paddle_tpu_torch.trainer.data_feeder import DataFeeder
+    from paddle_tpu_torch.trainer.grad_check import check_topology_grads
+
+    reader = ns.get("train_reader")
+    if reader is not None:
+        batch = next(iter(reader()))
+        batch = batch[:min(len(batch), args.batch_size)]
+    else:
+        batch = _synthetic_batch(trainer, min(args.batch_size, 8),
+                                 args.seq_len)
+    feed = DataFeeder(trainer.topology.data_type(), None,
+                      device=trainer.device)(batch)
+    feed.pop("__batch_size__")
+    checked = check_topology_grads(trainer.topology, feed,
+                                   eps=args.checkgrad_eps, seed=args.seed,
+                                   device=trainer.device)
+    print(json.dumps({"job": "checkgrad", "status": "ok",
+                      "params_checked": len(trainer.topology.param_specs),
+                      "coords_checked": checked, "batch": len(batch),
+                      "eps": args.checkgrad_eps,
+                      "device": str(trainer.device)}), flush=True)
+    return 0
+
+
+def _cmd_train(args) -> int:
+    import paddle_tpu_torch as paddle
+    if args.job == "dump_config":
+        print(_topo_from_ns(_load_config(args.config)).serialize())
+        return 0
+    paddle.init(use_tpu=args.use_tpu, seed=args.seed,
+                compute_dtype=args.dtype, log_period=args.log_period)
+    _wire_obs(args)
+    from paddle_tpu_torch.obs.events import JOURNAL
+    JOURNAL.emit("trainer", "run_start", job=args.job, config=args.config)
+    try:
+        ns = _load_config(args.config)
+        trainer = _build_trainer(ns, args.init_model_path)
+        if args.job == "time":
+            return _job_time(trainer, args.batch_size, args.iters,
+                             args.seq_len)
+        if args.job == "test":
+            return _job_test(trainer, ns)
+        if args.job == "checkgrad":
+            return _job_checkgrad(trainer, ns, args)
+        if args.job == "profile":
+            return _job_profile(trainer, args)
+        return _job_train(trainer, ns, args)
+    finally:
+        JOURNAL.emit("trainer", "run_end", job=args.job)
+
+
+def _flag_bool(v: str) -> bool:
+    low = str(v).lower()
+    if low in ("1", "true", "yes", "on"):
+        return True
+    if low in ("0", "false", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"not a boolean: {v!r}")
+
+
+def _add_train_parser(sub) -> None:
+    tr = sub.add_parser("train", help="train / time / test / checkgrad / "
+                        "dump_config / profile")
+    tr.add_argument("--config", required=True,
+                    help=".py config script or serialized topology .json")
+    tr.add_argument("--job", default="train",
+                    choices=["train", "time", "test", "checkgrad",
+                             "dump_config", "profile"])
+    tr.add_argument("--use_tpu", type=_flag_bool, nargs="?", const=True,
+                    default=None,
+                    help="the accelerator, as init(use_tpu=): false runs "
+                         "the job on the CPU (default: the card)")
+    tr.add_argument("--num_passes", type=int, default=None)
+    tr.add_argument("--batch_size", type=int, default=128,
+                    help="--job=time/profile synthetic batch size; "
+                         "checkgrad's rows")
+    tr.add_argument("--seq_len", type=int, default=16,
+                    help="synthetic sequence length for --job=time")
+    tr.add_argument("--iters", type=int, default=20,
+                    help="--job=time/profile timed steps")
+    tr.add_argument("--save_dir", default=None,
+                    help="write pass-%%05d/params.tar at each pass end")
+    tr.add_argument("--checkpoint_dir", default=None,
+                    help="full-state checkpoint dir (params, optimizer "
+                         "slots and counters, md5-verified)")
+    tr.add_argument("--checkpoint_period", type=int, default=0,
+                    help="checkpoint every N steps (0: pass ends only)")
+    tr.add_argument("--auto_resume", action="store_true",
+                    help="resume from the newest intact checkpoint in "
+                         "--checkpoint_dir: a killed run relaunched with "
+                         "the same flags continues where it died")
+    tr.add_argument("--fault_max_bad_steps", type=int, default=0,
+                    help="the guarded train step: skip non-finite "
+                         "updates, roll back after N consecutive bad "
+                         "steps (0 disables)")
+    tr.add_argument("--data_prefetch", type=int, default=0,
+                    help="supervise the train reader with an N-batch "
+                         "bounded prefetch pipeline (0 disables)")
+    tr.add_argument("--data_sample_timeout", type=float, default=0,
+                    help="hung-source watchdog: warn and count when the "
+                         "reader produces nothing for N seconds")
+    tr.add_argument("--data_max_bad", type=int, default=0,
+                    help="error budget: tolerate N quarantined bad "
+                         "batches before a data FaultEvent")
+    tr.add_argument("--data_on_bad", default="log",
+                    choices=["log", "raise"],
+                    help="past --data_max_bad: keep skipping (log) or "
+                         "abort the run (raise)")
+    tr.add_argument("--microbatch", default=None,
+                    help="adaptive microbatching: 'auto' starts "
+                         "full-batch and bisects into accumulated "
+                         "microbatches when a step runs out of device "
+                         "memory; an integer fixes the starting rows")
+    tr.add_argument("--oom_probe", action="store_true",
+                    help="with --microbatch: find the largest safe "
+                         "microbatch on the first batch before training")
+    tr.add_argument("--checkgrad_eps", type=float, default=1e-3,
+                    help="--job=checkgrad finite-difference step")
+    tr.add_argument("--init_model_path", default=None,
+                    help="params.tar to start from")
+    tr.add_argument("--profile_dir", default=None,
+                    help="--job=profile trace dir (default ./profile_out)")
+    tr.add_argument("--log_period", type=int, default=100)
+    tr.add_argument("--event_log", default=None,
+                    help="append the event journal (faults, OOMs, data "
+                         "faults, checkpoints) to this JSONL file")
+    tr.add_argument("--event_log_max_bytes", type=int, default=0,
+                    help="rotate the --event_log file at N bytes")
+    tr.add_argument("--event_log_keep", type=int, default=3,
+                    help="rotated journal segments to keep")
+    tr.add_argument("--run_id", default=None,
+                    help="correlation id stamped on every journal record")
+    tr.add_argument("--flight_dir", default=None,
+                    help="arm flight-recorder auto-dump")
+    tr.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    tr.add_argument("--seed", type=int, default=0)
+    tr.set_defaults(fn=_cmd_train)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="paddle_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    _add_train_parser(sub)
     sv = sub.add_parser("serve", help="serve a merged artifact and/or "
                         "generation over HTTP with admission control")
     sv.add_argument("--model", default=None,

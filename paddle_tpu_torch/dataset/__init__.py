@@ -5,8 +5,8 @@ imikolov (PTB n-grams), CoNLL-05, Oxford flowers, MovieLens-1M,
 MQ2007, sentiment, VOC2012 and WMT-14, and the UCI 8x8 digits
 (digits.py, from a copy in the package). Each reads the real file
 under ``DATA_HOME`` where it is present, else the JAX package's seeded
-synthetic fallback, drawn in the same order. ``convert`` waits for the
-port's recordio (ROADMAP.md queue A.9)."""
+synthetic fallback, drawn in the same order. Each ``convert`` writes
+its splits as the JAX package's recordio shards (common.convert)."""
 
 from paddle_tpu_torch.dataset import (cifar, common, conll05, digits, flowers,
                                       imdb, imikolov, mnist, movielens, mq2007,

@@ -71,9 +71,10 @@ def test100():
 
 
 def convert(path):
-    """RecordIO shards for cloud dispatch: they need
-    ``dataset.common.convert``, which comes with the training
-    infrastructure (ROADMAP.md queue A.9)."""
-    raise NotImplementedError(
-        "cifar.convert needs dataset.common.convert, which is not ported "
-        "yet (ROADMAP.md queue A.9)")
+    """RecordIO shards of the splits (the JAX package's convert: the
+    same shards, the same records)."""
+    from paddle_tpu_torch.dataset import common
+    common.convert(path, train100(), 1000, "cifar-100-train")
+    common.convert(path, test100(), 1000, "cifar-100-test")
+    common.convert(path, train10(), 1000, "cifar-10-train")
+    common.convert(path, test10(), 1000, "cifar-10-test")

@@ -4,13 +4,15 @@ Every loader first checks the cache directory for real data and
 otherwise falls back to a DETERMINISTIC synthetic generator with the
 same shapes and vocabulary; nothing is downloaded. ``DATA_HOME`` reads
 the same ``PADDLE_TPU_DATA_HOME`` variable as the JAX package, so both
-packages find the same files. ``convert`` and ``record_deserializer``
-wait for the port's recordio (ROADMAP.md).
+packages find the same files. ``convert`` writes a reader's samples as
+recordio shards (reader/recordio.py) that ``record_deserializer`` reads
+back, the same bytes as the JAX package's ``convert`` writes.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 DATA_HOME = os.path.expanduser(
     os.environ.get("PADDLE_TPU_DATA_HOME", "~/.cache/paddle_tpu/dataset"))
@@ -77,3 +79,52 @@ def has_cached(module: str, filename: str, md5: str = None) -> bool:
         "to the synthetic generator. Re-download it or fix the "
         f"{MANIFEST_NAME} entry.", stacklevel=2)
     return False
+
+
+def convert(output_path: str, reader, line_count: int,
+            name_prefix: str, use_native: Optional[bool] = None) -> list:
+    """Emit a reader's samples as RecordIO shards —
+    python/paddle/v2/dataset/common.py convert():143 parity. Each shard
+    holds up to `line_count` pickled samples (pickle's highest protocol,
+    as the JAX package writes them); readers deserialize with
+    `record_deserializer`. ``use_native`` picks the recordio codec
+    (reader/recordio.py); both write the same bytes.
+
+    Returns the list of shard paths ({name_prefix}-{i:05d})."""
+    import pickle
+
+    from paddle_tpu_torch.reader import recordio
+
+    assert line_count >= 1
+    os.makedirs(output_path, exist_ok=True)
+    paths = []
+
+    def write_shard(idx, lines):
+        p = os.path.join(output_path, f"{name_prefix}-{idx:05d}")
+        recordio.write_records(
+            p, (pickle.dumps(l, protocol=pickle.HIGHEST_PROTOCOL)
+                for l in lines), use_native=use_native)
+        paths.append(p)
+
+    lines = []
+    for d in reader():
+        lines.append(d)
+        if len(lines) >= line_count:
+            write_shard(len(paths), lines)
+            lines = []
+    if lines:
+        write_shard(len(paths), lines)
+    return paths
+
+
+def record_deserializer(rec: bytes):
+    """Inverse of convert()'s per-record pickling.
+
+    TRUST BOUNDARY: pickle executes arbitrary code on load, so shards
+    must be as trusted as the training code itself — the same
+    assumption the reference's cloud data path makes (its RecordIO
+    chunks carry cPickle records too). For data crossing a trust
+    boundary, serialize samples yourself and hand convert() a reader
+    that yields those."""
+    import pickle
+    return pickle.loads(rec)

@@ -115,3 +115,10 @@ def train():
 
 def test():
     return _reader("test", 400, 6)
+
+
+def convert(path):
+    """RecordIO shards of the splits (the JAX package's convert: the
+    same shards, the same records)."""
+    from paddle_tpu_torch.dataset import common
+    common.convert(path, test(), 1000, "conll05-test")

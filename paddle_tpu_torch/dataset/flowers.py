@@ -71,8 +71,9 @@ def test():
 
 
 def convert(path):
-    """RecordIO shards for cloud dispatch: they need
-    ``dataset.common.convert`` (ROADMAP.md queue A.9)."""
-    raise NotImplementedError(
-        "flowers.convert needs dataset.common.convert, which is not "
-        "ported yet (ROADMAP.md queue A.9)")
+    """RecordIO shards of the splits (the JAX package's convert: the
+    same shards, the same records)."""
+    from paddle_tpu_torch.dataset import common
+    common.convert(path, train(), 200, "flowers-train")
+    common.convert(path, valid(), 200, "flowers-valid")
+    common.convert(path, test(), 200, "flowers-test")

@@ -35,9 +35,9 @@ def test(word_idx=None):
 
 
 def convert(path):
-    """RecordIO shards for cloud dispatch: they need
-    ``dataset.common.convert``, which comes with the training
-    infrastructure (ROADMAP.md queue A.9)."""
-    raise NotImplementedError(
-        "imdb.convert needs dataset.common.convert, which is not ported "
-        "yet (ROADMAP.md queue A.9)")
+    """RecordIO shards of the splits (the JAX package's convert: the
+    same shards, the same records)."""
+    from paddle_tpu_torch.dataset import common
+    w = word_dict()
+    common.convert(path, train(w), 1000, "imdb-train")
+    common.convert(path, test(w), 1000, "imdb-test")

@@ -44,8 +44,9 @@ def test(word_idx=None, n: int = 5):
 
 
 def convert(path):
-    """RecordIO shards for cloud dispatch: they need
-    ``dataset.common.convert`` (ROADMAP.md queue A.9)."""
-    raise NotImplementedError(
-        "imikolov.convert needs dataset.common.convert, which is not "
-        "ported yet (ROADMAP.md queue A.9)")
+    """RecordIO shards of the splits (the JAX package's convert: the
+    same shards, the same records)."""
+    from paddle_tpu_torch.dataset import common
+    w = build_dict()
+    common.convert(path, train(w), 1000, "imikolov-train")
+    common.convert(path, test(w), 1000, "imikolov-test")

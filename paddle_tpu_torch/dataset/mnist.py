@@ -58,3 +58,11 @@ def train():
 
 def test():
     return _reader(_TEST_IMAGES, _TEST_LABELS, 1024, 4321)
+
+
+def convert(path):
+    """RecordIO shards of the splits (the JAX package's convert: the
+    same shards, the same records)."""
+    from paddle_tpu_torch.dataset import common
+    common.convert(path, train(), 1000, "mnist-train")
+    common.convert(path, test(), 1000, "mnist-test")

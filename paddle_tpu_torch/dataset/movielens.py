@@ -122,3 +122,11 @@ def test(seed: int = 0):
             if i % 10 == 1:
                 yield s
     return reader
+
+
+def convert(path):
+    """RecordIO shards of the splits (the JAX package's convert: the
+    same shards, the same records)."""
+    from paddle_tpu_torch.dataset import common
+    common.convert(path, train(), 1000, "movielens-train")
+    common.convert(path, test(), 1000, "movielens-test")

@@ -67,8 +67,8 @@ def test():
 
 
 def convert(path):
-    """RecordIO shards for cloud dispatch: they need
-    ``dataset.common.convert`` (ROADMAP.md queue A.9)."""
-    raise NotImplementedError(
-        "sentiment.convert needs dataset.common.convert, which is not "
-        "ported yet (ROADMAP.md queue A.9)")
+    """RecordIO shards of the splits (the JAX package's convert: the
+    same shards, the same records)."""
+    from paddle_tpu_torch.dataset import common
+    common.convert(path, train(), 1000, "sentiment-train")
+    common.convert(path, test(), 1000, "sentiment-test")

@@ -49,8 +49,8 @@ def test():
 
 
 def convert(path):
-    """RecordIO shards for cloud dispatch: they need
-    ``dataset.common.convert`` (ROADMAP.md queue A.9)."""
-    raise NotImplementedError(
-        "uci_housing.convert needs dataset.common.convert, which is not "
-        "ported yet (ROADMAP.md queue A.9)")
+    """RecordIO shards of the splits (the JAX package's convert: the
+    same shards, the same records)."""
+    from paddle_tpu_torch.dataset import common
+    common.convert(path, train(), 100, "uci_housing-train")
+    common.convert(path, test(), 100, "uci_housing-test")

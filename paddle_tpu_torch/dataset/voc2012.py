@@ -79,8 +79,8 @@ test = val
 
 
 def convert(path):
-    """RecordIO shards for cloud dispatch: they need
-    ``dataset.common.convert`` (ROADMAP.md queue A.9)."""
-    raise NotImplementedError(
-        "voc2012.convert needs dataset.common.convert, which is not "
-        "ported yet (ROADMAP.md queue A.9)")
+    """RecordIO shards of the splits (the JAX package's convert: the
+    same shards, the same records)."""
+    from paddle_tpu_torch.dataset import common
+    common.convert(path, train(), 200, "voc2012-train")
+    common.convert(path, val(), 200, "voc2012-val")

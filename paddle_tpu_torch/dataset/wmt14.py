@@ -71,3 +71,11 @@ def train(dict_size: int = DEFAULT_DICT_SIZE):
 
 def test(dict_size: int = DEFAULT_DICT_SIZE):
     return _reader("test", 400, 15, dict_size)
+
+
+def convert(path, dict_size: int = DEFAULT_DICT_SIZE):
+    """RecordIO shards of the splits (the JAX package's convert: the
+    same shards, the same records)."""
+    from paddle_tpu_torch.dataset import common
+    common.convert(path, train(dict_size), 1000, "wmt14-train")
+    common.convert(path, test(dict_size), 1000, "wmt14-test")

@@ -346,12 +346,28 @@ def tail(n: int = 100, domain: Optional[str] = None,
 
 
 def record_fields(event) -> Tuple[str, str, dict]:
-    """(domain, kind, fields) for a trainer-event object: its class
-    name and public attributes (a metric dict rides as one field). The
-    port's trainer/event.py has the v2 loop's events (BeginPass,
-    EndPass, BeginIteration, EndIteration, TestResult); the fault
-    events of the JAX package (OOMEvent, DataFaultEvent, FaultEvent)
-    come with the training infrastructure (ROADMAP A.9)."""
+    """(domain, kind, fields) for a trainer-event object, the JAX
+    package's record shapes: the v2 loop's events and the fault events
+    of trainer/event.py (FaultEvent, OOMEvent, DataFaultEvent), which
+    the guarded step, the adaptive microbatcher and the reader pipeline
+    journal. Import is function-level so obs never becomes a hard
+    import edge into the trainer package."""
+    from paddle_tpu_torch.trainer import event as evt
+    if isinstance(event, evt.OOMEvent):
+        return "trainer", "oom", {
+            "pass_id": event.pass_id, "batch_id": event.batch_id,
+            "microbatch": event.microbatch,
+            "accum_steps": event.accum_steps,
+            "error": _err_str(event.error)}
+    if isinstance(event, evt.DataFaultEvent):
+        return "data", event.kind, {
+            "count": event.count, "where": event.where,
+            "error": _err_str(event.error)}
+    if isinstance(event, evt.FaultEvent):
+        return "trainer", event.kind, {
+            "pass_id": event.pass_id, "batch_id": event.batch_id,
+            "bad_streak": event.bad_streak,
+            "restored_step": event.restored_step}
     return "trainer", type(event).__name__, {
         k: _jsonable(v) for k, v in vars(event).items()
         if not k.startswith("_")}

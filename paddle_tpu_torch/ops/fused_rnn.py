@@ -25,7 +25,8 @@
   Each launch adds one to the wrapper's ``launches``
   (``lstm_forward.res_launches`` counts the launches that also wrote
   the training residuals, ``route_launches`` each wrapper's launches by
-  route).
+  route, and the LSTM wrappers' ``row_launches`` their launches by batch
+  rows — a microbatched step launches at fewer rows).
 - :func:`lstm_sequence`: the differentiable LSTM. When a gradient is
   needed, a ``torch.autograd.Function`` (the JAX package's
   ``custom_vjp``) runs the forward with residuals and its backward runs
@@ -487,6 +488,7 @@ def lstm_forward(x4: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
         res = lstm_fwd_bf16x3_launch(x4, lens, w, bias, peep, save_res)
     lstm_forward.launches += 1
     lstm_forward.route_launches[route] += 1
+    lstm_forward.row_launches[b] = lstm_forward.row_launches.get(b, 0) + 1
     if save_res:
         lstm_forward.res_launches += 1
     return res
@@ -698,6 +700,7 @@ def lstm_backward(w: torch.Tensor, peep: torch.Tensor, lens: torch.Tensor,
     dz = launch(w, peep, lens, gates, cseq, d_out, dhT, dcT)
     lstm_backward.launches += 1
     lstm_backward.route_launches[route] += 1
+    lstm_backward.row_launches[b] = lstm_backward.row_launches.get(b, 0) + 1
     return dz
 
 
@@ -780,8 +783,10 @@ def gru_fwd_coop_launch(x3, lens, w, bias):
 lstm_forward.launches = 0
 lstm_forward.res_launches = 0
 lstm_forward.route_launches = {"sm90": 0, "bf16x3": 0}
+lstm_forward.row_launches = {}
 lstm_backward.launches = 0
 lstm_backward.route_launches = {"sm90": 0, "bf16x3": 0}
+lstm_backward.row_launches = {}
 gru_forward.launches = 0
 gru_forward.route_launches = {"sm90": 0, "coop": 0}
 

@@ -6,9 +6,13 @@ firstn, xmap_readers, cache), and ``batch`` groups samples into lists.
 
 Host-only Python, the same code as the JAX package's, so both packages
 yield the same samples in the same order (``shuffle`` draws from
-``random.Random(seed)``). The checkpointable batch reader,
-``pipeline.py``, ``provider.py`` and ``recordio.py`` are not ported
-yet (ROADMAP.md).
+``random.Random(seed)``). ``batch`` over a checkpointable sample reader
+(``pipeline.CheckpointableReader``, an ordered ``supervised`` one)
+records the source position at each batch boundary, which the
+trainer's checkpoints carry; ``pipeline.py`` is the supervised
+pipeline, ``recordio.py`` the shard format, ``provider.py`` the v1
+data-provider protocol. ``creator.cloud_reader`` comes with the
+coordinator (ROADMAP.md queue A.9's rest).
 """
 
 from __future__ import annotations
@@ -21,9 +25,61 @@ from typing import Any, Callable, Iterable, List
 
 Reader = Callable[[], Iterable[Any]]
 
+from paddle_tpu_torch.reader.pipeline import (  # noqa: E402
+    CheckpointableReader, ErrorBudget, ErrorBudgetExceeded, SupervisedReader,
+    supervised)
+
+
+class _CheckpointableBatches:
+    """``batch()`` over a checkpointable sample reader (one exposing
+    ``state()``/``set_state()`` — CheckpointableReader or an ordered
+    SupervisedReader over one): records the source position at every
+    batch boundary so the trainer can checkpoint mid-pass reader state.
+    ``state_for(n)`` is the position after the n-th batch yielded by the
+    CURRENT iteration (a bounded window of recent batches is kept)."""
+
+    _KEEP = 256
+
+    def __init__(self, reader, batch_size: int, drop_last: bool):
+        self._src = reader
+        self.batch_size = batch_size
+        self.drop_last = drop_last
+        self._states: dict = {}
+
+    def set_state(self, st) -> None:
+        self._src.set_state(st)
+
+    def state_for(self, n: int):
+        return self._states.get(n)
+
+    def _mark(self, n: int) -> None:
+        self._states[n] = self._src.state()
+        while len(self._states) > self._KEEP:
+            del self._states[min(self._states)]
+
+    def __call__(self):
+        self._states = {}
+        n = 0
+        buf: List[Any] = []
+        for sample in self._src():
+            buf.append(sample)
+            if len(buf) == self.batch_size:
+                self._mark(n)
+                yield buf
+                n += 1
+                buf = []
+        if buf and not self.drop_last:
+            self._mark(n)
+            yield buf
+
 
 def batch(reader: Reader, batch_size: int, drop_last: bool = False) -> Reader:
-    """paddle.batch: sample reader -> batch reader."""
+    """paddle.batch: sample reader -> batch reader. A checkpointable
+    sample reader yields a checkpointable batch reader
+    (_CheckpointableBatches)."""
+    if hasattr(reader, "state") and hasattr(reader, "set_state") and \
+            getattr(reader, "checkpointable", True):
+        return _CheckpointableBatches(reader, batch_size, drop_last)
 
     def batch_reader():
         buf: List[Any] = []
@@ -253,9 +309,9 @@ def cache(reader: Reader) -> Reader:
 
 
 class creator:
-    """reader.creator parity: build readers from arrays and text files
-    (``recordio`` and ``cloud_reader`` wait for the reader pipeline,
-    ROADMAP.md)."""
+    """reader.creator parity: build readers from arrays, text files and
+    recordio shards (``cloud_reader`` comes with the coordinator,
+    ROADMAP.md queue A.9's rest)."""
 
     @staticmethod
     def np_array(arr) -> Reader:
@@ -271,3 +327,23 @@ class creator:
                 for line in f:
                     yield line.rstrip("\n")
         return reader
+
+    @staticmethod
+    def recordio(paths, buf_size: int = 100) -> Reader:
+        """Samples from RecordIO shard file(s) — the output of
+        dataset.*.convert() (reader.creator.recordio parity, buffered
+        like the reference: a background thread prefetches buf_size
+        samples). ``paths`` is a path, a comma-separated string, or a
+        list. Records deserialize with the convert() pickling; see
+        dataset/common.py for the trust note."""
+        from paddle_tpu_torch.dataset.common import record_deserializer
+        from paddle_tpu_torch.reader import recordio as rio
+        if isinstance(paths, str):
+            paths = paths.split(",")
+        read = rio.chunk_reader(record_deserializer)
+
+        def reader():
+            for p in paths:
+                for desc in rio.chunk_descriptors(p):
+                    yield from read(desc)
+        return buffered(reader, buf_size)

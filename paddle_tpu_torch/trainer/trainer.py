@@ -31,14 +31,33 @@ of its input layers: the step adds a zero tap to each such output
 (``Topology.forward(taps=)``) and differentiates it beside the
 parameters, in the same backward pass.
 
+``train`` carries the single trainer's infrastructure: full-state
+checkpoints (``checkpoint_manager`` / ``checkpoint_dir``,
+``checkpoint_period``, trainer/checkpoint.py) with ``auto_resume`` —
+the pass, the position in it (a checkpointable reader seeks its
+source) and the optimizer's counters all resume; the guarded step
+(``fault_policy``, trainer/fault.py): a step whose cost or new values
+are not finite leaves parameters, slots, layer state and the
+optimizer's counters as they were, and a streak rolls back to the
+newest checkpoint; adaptive microbatching (``microbatch``,
+``oom_probe``, trainer/memory.py): a step that runs out of device
+memory re-runs as accumulated microbatches. With no evaluator attached
+the loop never waits for the card: its events are lazy and the pass
+sums stay on the device (compensated); a bounded thread converts the
+next batches meanwhile (``_prefetched``).
+
 Not ported yet (each raises): a device mesh, pipeline stages, and the
-checkpoint / elastic / fault / microbatch options of ``train``.
+elastic options of ``train`` (``coordinator``, ``chunk_reader``,
+``batch_size``, ``idle_timeout``, ``worker_id``, ``on_reshape``:
+ROADMAP.md queue A.9's rest).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
+import sys
 import warnings
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -143,6 +162,32 @@ class SGD:
         # layer its name (ApplyContext.rng_for)
         self._seed = global_config().seed
         self._step_count = 0
+        # the position auto-resume re-enters: completed passes and
+        # completed batches of the current pass (both checkpointed)
+        self._pass_count = 0
+        self._batch_in_pass = 0
+        # a checkpointable train reader (reader.batch over a
+        # CheckpointableReader): mid-pass checkpoints carry its position
+        # and auto-resume seeks instead of re-reading
+        self._reader_batches = None
+        self._reader_batch_base = 0
+        self._reader_state = None
+        # train(fault_policy=): the [current, sticky peak] bad-step
+        # streak, host ints (the guard reads each step's outcome on the
+        # host), acted on every check_period steps
+        self._fault_policy = None
+        self._bad_streak = [0, 0]
+        self._fault_steps_since_check = 0
+        # train(microbatch=): the adaptive executor (trainer/memory.py)
+        self._memory_exec = None
+        self._restored_memory_plan = None
+        # fault-injection seam: called as (accum_steps, microbatch_rows)
+        # right before each step the memory executor or its probe runs;
+        # may raise an OOM
+        self._step_interceptor = None
+        # optimizer updates begun: an OOM after this moved cannot be
+        # retried, the update writes the parameters in place
+        self._update_writes = 0
 
     # ------------------------------------------------------------------
     def refresh_update_hooks(self):
@@ -167,31 +212,47 @@ class SGD:
 
     def _loss_and_metrics(self, params, state, feed, n_real: int,
                           mode: str, rng: Optional[int] = None,
-                          sparse_sub=None, taps=None):
+                          sparse_sub=None, taps=None, row0: int = 0,
+                          part: bool = False):
+        """Forward ``feed`` and reduce the costs and extra layers over the
+        batch's ``n_real`` real rows. ``part``: ``feed`` holds rows
+        ``[row0, row0 + rows)`` of a larger batch (a microbatch), so each
+        reduction sums its own real rows and divides by the whole
+        batch's ``n_real`` — the parts' losses, metrics and gradients add
+        up to the whole batch's."""
+        n_local = n_real
+        if part:
+            from paddle_tpu_torch.trainer.memory import _leading_rows
+            n_local = min(max(n_real - row0, 0), _leading_rows(feed))
         outs, new_state = self.topology.forward(params, state, feed,
                                                 mode=mode, rng=rng,
-                                                n_real=n_real,
+                                                n_real=n_local,
                                                 sparse_sub=sparse_sub,
                                                 taps=taps)
         total = 0.0
         metrics = {}
         for c in self.costs:
-            cost_val = self._masked_cost(outs[c.name], 0, n_real)
+            cost_val = self._masked_cost(outs[c.name], row0, n_real)
             total = total + cost_val
             metrics[c.name] = cost_val
         for e in self.extra_layers:
             v = outs[e.name]
             if isinstance(v, SequenceBatch):
+                if part:
+                    # a token mean over the whole batch does not split
+                    # into the parts' sums
+                    raise NotImplementedError(
+                        f"sequence-output extra layer {e.name!r} is not "
+                        "supported under microbatch accumulation")
                 m = v.mask()
                 data = v.data.reshape(v.data.shape[0], v.data.shape[1], -1)
                 metrics[e.name] = torch.sum(data.float().mean(-1) * m) / \
                     torch.clamp(torch.sum(m), min=1.0)
             else:
                 v = v.reshape(v.shape[0], -1).float().mean(dim=-1)
-                row_mask = (torch.arange(v.shape[0], device=v.device)
-                            < n_real).to(v.dtype)
-                metrics[e.name] = torch.sum(v * row_mask) / \
-                    max(float(n_real), 1.0)
+                rows = row0 + torch.arange(v.shape[0], device=v.device)
+                metrics[e.name] = torch.sum(v * (rows < n_real).to(v.dtype)) \
+                    / max(float(n_real), 1.0)
         # evaluator inputs: graph outputs, or raw feed entries (labels)
         eval_outs = {n: (outs[n] if n in outs else feed[n])
                      for n in self._eval_out_names}
@@ -227,25 +288,50 @@ class SGD:
         return host[0], dict(zip(names, host[1:])), eval_host
 
     def _step(self, feed, n_real: int, fetch_evals: bool = True):
-        params = self._own_params()
         rng = fold_seed(self._seed, self._step_count)
         self._step_count += 1
-        loss, (metrics, new_state, eval_outs) = self._train_step(
-            params, feed, n_real, rng)
-        # detached: a moving statistic that kept its graph would hold
-        # every earlier step's activations alive
-        self.parameters.state = {k: v.detach()
-                                 for k, v in new_state.items()}
+        loss, metrics, eval_outs = self._device_step(feed, n_real, rng)
         return self._fetch_host(loss, metrics,
                                 eval_outs if fetch_evals else None)
 
-    def _train_step(self, params, feed, n_real: int, rng):
-        """The train step: prefetch each row-sparse table's touched rows,
-        forward on those row blocks, gradients of the dense parameters
-        and the blocks (never of the tables), the update. With no
-        row-sparse table it is the plain dense step. The gradient
-        printers' activation gradients (the taps') join the evaluator
-        inputs as ``__grad__<layer>``."""
+    def _device_step(self, feed, n_real: int, rng, k: int = 1,
+                     guarded: bool = False):
+        """One optimizer step over ``feed``: the gradients (of ``k``
+        accumulated microbatches when k > 1), the update of the
+        parameters (in place), the optimizer state and the layer state;
+        with ``guarded`` a step whose values are not finite is undone
+        (``_guarded_update``). Returns (loss, metrics, eval_outs) on the
+        device."""
+        params = self._own_params()
+        if k > 1:
+            (loss, metrics, new_state, eval_outs, grads,
+             sparse_rows) = self._accum_grads(params, feed, n_real, rng, k)
+        else:
+            (loss, (metrics, new_state, eval_outs), grads,
+             sparse_rows) = self._grads(params, feed, n_real, rng)
+        # detached: a moving statistic that kept its graph would hold
+        # every earlier step's activations alive
+        new_state = {name: v.detach() for name, v in new_state.items()}
+        if guarded:
+            metrics = self._guarded_update(params, grads, sparse_rows,
+                                           n_real, loss, metrics, new_state)
+        else:
+            self._update_writes += 1
+            _, self.opt_state = self.optimizer.update(
+                params, grads, self.opt_state, n_real,
+                sparse_rows=sparse_rows)
+            self.parameters.state = new_state
+        return loss, metrics, eval_outs
+
+    def _grads(self, params, feed, n_real: int, rng):
+        """Forward and backward of one step, nothing written: prefetch
+        each row-sparse table's touched rows, forward on those row
+        blocks, gradients of the dense parameters and the blocks (never
+        of the tables). With no row-sparse table it is the plain dense
+        step. The gradient printers' activation gradients (the taps')
+        join the evaluator inputs as ``__grad__<layer>``. Returns
+        (loss, (metrics, new_state, eval_outs), dense grads,
+        sparse_rows for ``optimizer.update``)."""
         from paddle_tpu_torch.ops import embedding as emb_ops
         next_step = self.opt_state["step"] + 1
         slots = self.opt_state["slots"]
@@ -278,10 +364,106 @@ class SGD:
             k: (uids[k], torch.zeros_like(rows0[k]) if g is None else g,
                 rows0[k], slot_rows[k])
             for k, g in zip(tables, g_rows)}
-        _, self.opt_state = self.optimizer.update(
-            params, dict(zip(dense, grads[:len(dense)])), self.opt_state,
-            n_real, sparse_rows=sparse_rows)
-        return out
+        return out[0], out[1], dict(zip(dense, grads[:len(dense)])), \
+            sparse_rows
+
+    def _accum_grads(self, params, feed, n_real: int, rng, k: int):
+        """The gradient of a batch as ``k`` contiguous microbatches (the
+        memory executor pads the rows to a multiple of k): microbatch j
+        runs rows [j*mb, (j+1)*mb) forward and backward on its own, its
+        cost the masked cost of its GLOBAL rows divided by ``n_real``,
+        so the k losses, metrics and gradients add up to the full-batch
+        step's. Peak activation memory drops to a microbatch's, plus one
+        gradient-sized accumulator. Layer state threads through the
+        microbatches (each sees its own statistics) and the random
+        layers draw per microbatch (``fold_seed(rng, j)``), the standard
+        accumulation trade, as in the JAX package."""
+        from paddle_tpu_torch.trainer.memory import _leading_rows, split_feed
+        if self._sparse_map:
+            raise NotImplementedError(
+                "microbatch accumulation does not compose with "
+                "row-sparse embedding tables yet")
+        if self._grad_tap_names or self.evaluators:
+            raise NotImplementedError(
+                "microbatch accumulation does not support "
+                "gradient-printer or host evaluators")
+        parts = split_feed(feed, k)
+        mb = _leading_rows(feed) // k
+        names = list(params)
+        state = self.parameters.state
+        grads = [None] * len(names)
+        loss = 0.0
+        metrics: Dict[str, torch.Tensor] = {}
+        for j, part in enumerate(parts):
+            total, (m, state, _) = self._loss_and_metrics(
+                params, state, part, n_real, "train", fold_seed(rng, j),
+                row0=j * mb, part=True)
+            for name, v in m.items():
+                metrics[name] = metrics.get(name, 0.0) + v.detach()
+            g = torch.autograd.grad(total, [params[n] for n in names],
+                                    allow_unused=True)
+            grads = [gj if acc is None else
+                     acc if gj is None else acc + gj
+                     for acc, gj in zip(grads, g)]
+            loss = loss + total.detach().float()
+            del total, m, g
+        return loss, metrics, state, {}, dict(zip(names, grads)), {}
+
+    def _guarded_update(self, params, grads, sparse_rows, n_real: int,
+                        loss, metrics, new_state):
+        """The update under a FaultPolicy. What the in-place update
+        overwrites is copied first (``_snapshot``); after the update the
+        loss and every float value of the new parameters, optimizer state
+        and layer state are checked on the device, and the one host read
+        of that check decides: keep the step, or restore the copies and
+        keep the old optimizer state (its host counters ``step`` and
+        ``num_samples`` included) and layer state — bit-identical to
+        skipping the batch. The streak [current, sticky peak] advances
+        either way. Returns the metrics (zeroed on a bad step) with
+        ``fault_ok``."""
+        restore = self._snapshot()
+        with torch.no_grad():
+            self._update_writes += 1
+            _, new_opt = self.optimizer.update(
+                params, grads, self.opt_state, n_real,
+                sparse_rows=sparse_rows)
+            ok = bool(_all_finite([loss, params, new_opt, new_state]))
+        cur = 0 if ok else self._bad_streak[0] + 1
+        self._bad_streak = [cur, max(self._bad_streak[1], cur)]
+        if ok:
+            self.opt_state = new_opt
+            self.parameters.state = new_state
+        else:
+            restore()
+            metrics = {k: torch.zeros_like(v) for k, v in metrics.items()}
+        metrics = dict(metrics)
+        metrics["fault_ok"] = torch.tensor(float(ok), device=loss.device)
+        return metrics
+
+    def _snapshot(self):
+        """Copy what an optimizer update writes in place — the
+        parameters, and the slots of the row-sparse tables (a dense
+        update makes new slot tensors) — and return a function that
+        writes the copies back and reinstates this optimizer state and
+        layer state."""
+        with torch.no_grad():
+            params = self._own_params()
+            saved = {k: p.detach().clone() for k, p in params.items()}
+            opt = self.opt_state
+            slots = {k: {n: v.clone() for n, v in opt["slots"][k].items()}
+                     for k in self._sparse_map}
+        state = self.parameters.state
+
+        def restore():
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(saved[k])
+                for k, sl in slots.items():
+                    for n, v in sl.items():
+                        opt["slots"][k][n].copy_(v)
+            self.opt_state = opt
+            self.parameters.state = state
+        return restore
 
     def _feed_evaluators(self, eval_host, n_real: int) -> Dict[str, float]:
         """Push a batch's fetched outputs through the evaluators; returns
@@ -316,45 +498,420 @@ class SGD:
 
     def train(self, reader=None, num_passes: int = 1,
               event_handler: Optional[Callable] = None, feeding=None,
-              num_batches_per_pass: Optional[int] = None, **kwargs):
+              num_batches_per_pass: Optional[int] = None,
+              coordinator=None, chunk_reader=None, batch_size: int = 0,
+              checkpoint_manager=None, checkpoint_period: int = 0,
+              checkpoint_dir: Optional[str] = None,
+              auto_resume: bool = False, fault_policy=None,
+              idle_timeout: float = 600.0, microbatch=None,
+              oom_probe: bool = False,
+              worker_id: Optional[str] = None, on_reshape=None):
         """reader: callable yielding batches (lists of sample tuples).
-        Emits BeginPass / BeginIteration / EndIteration / EndPass; the
-        EndIteration metrics carry the evaluators' running results, the
-        EndPass metrics the pass averages and the evaluators' pass
-        results."""
-        unsupported = sorted(k for k, v in kwargs.items() if v)
+        Emits BeginPass / BeginIteration / EndIteration / EndPass (and
+        FaultEvent / OOMEvent); the EndIteration metrics carry the
+        evaluators' running results, the EndPass metrics the pass
+        averages and the evaluators' pass results. With no evaluator the
+        EndIteration events are ``LazyEndIteration``: reading ``cost``
+        or ``metrics`` waits for that step, nothing else does.
+
+        checkpoint_manager / checkpoint_dir (shorthand for
+        ``CheckpointManager(checkpoint_dir)``): save the full state every
+        ``checkpoint_period`` steps and at each pass end.
+
+        auto_resume: restore the newest intact checkpoint before the
+        first pass and continue FROM it — the pass, the position in it,
+        the optimizer state and the step count (the random layers' seed
+        folds it in) all resume, so a killed run relaunched with the
+        same flags replays the uninterrupted one (``num_passes`` is the
+        run's total). A checkpointable reader (``reader.batch`` over a
+        ``CheckpointableReader``) resumes by seeking its source to the
+        saved position; any other reader is re-read and the covered
+        batches skipped.
+
+        fault_policy: a trainer.fault.FaultPolicy — skip non-finite
+        updates and roll back to the newest checkpoint after
+        ``max_bad_steps`` bad steps in a row, emitting FaultEvent.
+
+        microbatch: "auto" or an int — adaptive microbatching
+        (trainer/memory.py): a step that runs out of device memory is
+        re-run as accumulated microbatches (numerically the full-batch
+        step), an OOMEvent per adaptation; an int fixes the starting
+        microbatch rows. The plan rides in checkpoint meta.
+        oom_probe: with microbatch="auto", find the largest safe
+        microbatch on the first batch before stepping.
+
+        ``coordinator``, ``chunk_reader``, ``batch_size``,
+        ``idle_timeout``, ``worker_id`` and ``on_reshape`` (the elastic
+        fleet) are not ported yet and raise."""
+        elastic = {"coordinator": coordinator is not None,
+                   "chunk_reader": chunk_reader is not None,
+                   "batch_size": bool(batch_size),
+                   "idle_timeout": idle_timeout != 600.0,
+                   "worker_id": worker_id is not None,
+                   "on_reshape": on_reshape is not None}
+        unsupported = sorted(k for k, v in elastic.items() if v)
         if unsupported:
             raise NotImplementedError(
-                f"train options {unsupported} are not ported yet (only the "
-                "plain loop is in this slice)")
+                f"train options {unsupported} (the elastic fleet) are not "
+                "ported yet (ROADMAP.md queue A.9's rest)")
         if event_handler is None:
             event_handler = _default_event_handler
         feeder = self._feeder(feeding)
-        for pass_id in range(num_passes):
-            event_handler(evt.BeginPass(pass_id))
-            pass_metrics: Dict[str, float] = {}
-            n_batches = 0
-            for ev in self.evaluators:
-                ev.start()
-            for batch_id, batch in enumerate(reader()):
-                if num_batches_per_pass is not None and \
-                        batch_id >= num_batches_per_pass:
-                    break
-                event_handler(evt.BeginIteration(pass_id, batch_id))
-                feed = feeder(batch)
-                n_real = int(feed.pop("__batch_size__"))
-                loss, metrics, eval_host = self._step(feed, n_real)
-                for k, v in metrics.items():
+        if checkpoint_manager is None and checkpoint_dir:
+            from paddle_tpu_torch.trainer.checkpoint import CheckpointManager
+            checkpoint_manager = CheckpointManager(checkpoint_dir)
+
+        self._fault_policy = fault_policy
+        if fault_policy is not None:
+            self._fault_steps_since_check = 0
+
+        self._memory_exec = None
+        if microbatch is not None:
+            from paddle_tpu_torch.trainer.memory import (
+                AdaptiveMicrobatcher, MemoryPlan)
+            if self.evaluators:
+                raise NotImplementedError(
+                    "microbatch= does not compose with host evaluators "
+                    "yet — drop the evaluators or the microbatching")
+            if microbatch == "auto":
+                plan = MemoryPlan()
+            else:
+                mb = int(microbatch)
+                if mb < 1:
+                    raise ValueError("microbatch must be >= 1 or 'auto'")
+                plan = MemoryPlan(microbatch=mb, provenance="configured")
+            self._memory_exec = AdaptiveMicrobatcher(self, plan,
+                                                     probe=oom_probe)
+        elif oom_probe:
+            raise ValueError(
+                "oom_probe=True needs microbatch='auto' or an int")
+
+        ckptable = hasattr(reader, "state_for") and \
+            hasattr(reader, "set_state")
+        self._reader_batches = reader if ckptable else None
+        start_pass, skip_batches, seek_batches = 0, 0, 0
+        if auto_resume and checkpoint_manager is not None and \
+                self.restore_checkpoint(checkpoint_manager):
+            self._adopt_restored_plan()
+            start_pass = self._pass_count
+            skip_batches = self._batch_in_pass
+            if ckptable and skip_batches and self._reader_state:
+                # position the source right after the last checkpointed
+                # batch: each remaining record is consumed exactly once
+                reader.set_state(self._reader_state)
+                seek_batches, skip_batches = skip_batches, 0
+        try:
+            for pass_id in range(start_pass, num_passes):
+                first = pass_id == start_pass
+                self._run_pass(pass_id, reader, feeder, event_handler,
+                               num_batches_per_pass, checkpoint_manager,
+                               checkpoint_period,
+                               skip_batches=skip_batches if first else 0,
+                               batch_offset=seek_batches if first else 0)
+                if checkpoint_manager is not None:
+                    self.save_checkpoint(checkpoint_manager)
+        finally:
+            self._reader_batches = None
+            if checkpoint_manager is not None:
+                # never leave train() with a write in flight, and
+                # surface a background write error
+                checkpoint_manager.wait()
+
+    def _prefetched(self, reader, feeder, depth: int = 2):
+        """Feed conversion (samples -> padded tensors on the device) in a
+        background thread, ``depth`` batches ahead — the DoubleBuffer
+        discipline (DataProvider.h:249) applied to the feeder. The
+        thread is named ``pt-data-feed`` and exits on a stop event when
+        the consumer abandons the generator (a ``break`` out of the
+        pass) instead of blocking on a full queue."""
+        import queue
+        import threading
+
+        from paddle_tpu_torch.utils.stats import stat_timer
+        q: "queue.Queue" = queue.Queue(maxsize=depth)
+        stop = threading.Event()
+        done = object()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def work():
+            try:
+                for batch in reader():
+                    with stat_timer("train/h2d"):
+                        converted = feeder(batch)
+                    if not put((None, converted)):
+                        return
+                put((None, done))
+            except BaseException as e:      # surfaced in the main thread
+                put((e, None))
+
+        t = threading.Thread(target=work, daemon=True, name="pt-data-feed")
+        t.start()
+        try:
+            while True:
+                with stat_timer("train/data_wait"):
+                    err, feed = q.get()
+                if err is not None:
+                    raise err
+                if feed is done:
+                    return
+                yield feed
+        finally:
+            stop.set()
+            t.join(timeout=5.0)
+
+    @staticmethod
+    def _kahan_add(acc, v):
+        """One compensated-summation step on the device: (sum, comp) + v
+        (eager ops: nothing simplifies the compensation away)."""
+        s, c = acc
+        y = v - c
+        t = s + y
+        return t, (t - s) - y
+
+    def _check_faults(self, policy, pass_id, batch_id, event_handler,
+                      checkpoint_manager):
+        """Host side of the guarded step: every check_period steps look
+        at the [current, peak-since-last-check] bad-step streak; roll
+        back and emit FaultEvent when the peak reached the policy's
+        limit. The peak is sticky, so a streak that ended between checks
+        is still seen."""
+        from paddle_tpu_torch.obs.events import emit_event
+        from paddle_tpu_torch.utils.stats import global_counters
+        self._fault_steps_since_check += 1
+        if self._fault_steps_since_check < policy.effective_check_period:
+            return
+        self._fault_steps_since_check = 0
+        cur, high = self._bad_streak
+        if high >= policy.max_bad_steps:
+            restored = None
+            if policy.rollback and checkpoint_manager is not None and \
+                    self.restore_checkpoint(checkpoint_manager):
+                restored = self._step_count
+            self._bad_streak = [0, 0]
+            ev = evt.FaultEvent(pass_id, batch_id, "rollback", high,
+                                restored)
+        elif high > 0:
+            # a streak below the limit, live or ended: report it once,
+            # lowering the peak to the live value
+            self._bad_streak = [cur, cur]
+            ev = evt.FaultEvent(pass_id, batch_id, "nonfinite", high, None)
+        else:
+            return
+        global_counters.bump("trainer/fault_events")
+        emit_event(ev)      # journaled BEFORE the handler, which may raise
+        event_handler(ev)
+
+    def _run_pass(self, pass_id, reader, feeder, event_handler,
+                  num_batches_per_pass, checkpoint_manager=None,
+                  checkpoint_period: int = 0, skip_batches: int = 0,
+                  batch_offset: int = 0):
+        """One pass. batch_offset: the reader's source was SEEKED past
+        the first ``batch_offset`` batches, so numbering continues from
+        there; skip_batches: the replay of a non-checkpointable reader,
+        whose first batches are consumed and discarded."""
+        from paddle_tpu_torch.obs import context as obs_context
+        from paddle_tpu_torch.utils.stats import global_counters, stat_timer
+        event_handler(evt.BeginPass(pass_id))
+        pass_metrics: Dict[str, float] = {}
+        metrics_dev = None      # lazy path: on-device (sum, comp) pairs
+        n_batches = 0
+        policy = self._fault_policy
+        for ev in self.evaluators:
+            ev.start()
+        # with host evaluators their inputs come to the host every step;
+        # without, nothing in the loop needs host data per step
+        lazy = not self.evaluators
+        self._batch_in_pass = skip_batches or batch_offset
+        self._reader_batch_base = batch_offset
+        for idx, feed in enumerate(self._prefetched(reader, feeder)):
+            batch_id = idx + batch_offset
+            if num_batches_per_pass is not None and \
+                    batch_id >= num_batches_per_pass:
+                break
+            if batch_id < skip_batches:
+                continue        # the checkpoint already covers it
+            obs_context.set_step(self._step_count)
+            event_handler(evt.BeginIteration(pass_id, batch_id))
+            n_real = int(feed.pop("__batch_size__"))
+            rng = fold_seed(self._seed, self._step_count)
+            with stat_timer("train_step"):
+                if self._memory_exec is not None:
+                    loss, metrics, eval_outs = self._memory_exec.run(
+                        feed, rng, n_real, guarded=policy is not None,
+                        ctx=(pass_id, batch_id, event_handler))
+                else:
+                    loss, metrics, eval_outs = self._device_step(
+                        feed, n_real, rng, guarded=policy is not None)
+            del feed
+            self._step_count += 1
+            global_counters.bump("trainer/steps")
+            self._batch_in_pass = batch_id + 1
+            n_batches += 1
+            if lazy:
+                acc = {k: v.detach().float() for k, v in metrics.items()}
+                if metrics_dev is None:
+                    metrics_dev = {k: (v, torch.zeros_like(v))
+                                   for k, v in acc.items()}
+                else:
+                    metrics_dev = {k: self._kahan_add(metrics_dev[k], v)
+                                   for k, v in acc.items()}
+                fetch_host = self._fetch_host   # the event must not pin
+                # the trainer alive
+                event_handler(evt.LazyEndIteration(
+                    pass_id, batch_id,
+                    lambda loss=loss, metrics=metrics, fh=fetch_host:
+                        fh(loss, metrics)[:2]))
+            else:
+                loss_h, metrics_h, eval_host = self._fetch_host(
+                    loss, metrics, eval_outs)
+                for k, v in metrics_h.items():
                     pass_metrics[k] = pass_metrics.get(k, 0.0) + v
-                metrics.update(self._feed_evaluators(eval_host, n_real))
-                n_batches += 1
-                event_handler(evt.EndIteration(pass_id, batch_id, loss,
-                                               metrics))
-            denom = float(max(n_batches, 1))
+                metrics_h.update(self._feed_evaluators(eval_host, n_real))
+                event_handler(evt.EndIteration(pass_id, batch_id, loss_h,
+                                               metrics_h))
+            del loss, metrics, eval_outs
+            if policy is not None:
+                self._check_faults(policy, pass_id, batch_id,
+                                   event_handler, checkpoint_manager)
+            if checkpoint_manager is not None and checkpoint_period and \
+                    self._step_count % checkpoint_period == 0:
+                self.save_checkpoint(checkpoint_manager)
+        if metrics_dev is not None:
+            # one transfer fetches the whole pass's sums
+            names = list(metrics_dev)
+            sums = torch.stack([torch.stack(metrics_dev[k])
+                                for k in names]).double().sum(1).tolist()
+            for k, v in zip(names, sums):
+                pass_metrics[k] = pass_metrics.get(k, 0.0) + v
+        # guarded runs: skipped steps contributed zeros — average over
+        # the GOOD steps, and report the good share
+        denom = float(max(n_batches, 1))
+        if policy is not None and "fault_ok" in pass_metrics:
+            good = pass_metrics.pop("fault_ok")
+            avg = {k: v / max(good, 1.0) for k, v in pass_metrics.items()}
+            avg["fault_ok"] = good / denom
+        else:
             avg = {k: v / denom for k, v in pass_metrics.items()}
-            for ev in self.evaluators:
-                avg.update(ev.result())
-            event_handler(evt.EndPass(pass_id, avg, self.parameters))
+        for ev in self.evaluators:
+            avg.update(ev.result())
+        self._pass_count = pass_id + 1
+        self._batch_in_pass = 0
+        event_handler(evt.EndPass(pass_id, avg, self.parameters))
+
+    @contextlib.contextmanager
+    def _scratch_state(self):
+        """Steps inside run on the training state and leave it as it was
+        (the warmup probe's trial steps)."""
+        restore = self._snapshot()
+        try:
+            yield
+        finally:
+            restore()
+
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, manager, meta: Optional[Dict] = None) -> str:
+        """Full-state checkpoint (parameters, optimizer slots and
+        counters, layer state, the trainer's position) through a
+        CheckpointManager; returns its path."""
+        m = {"step_count": self._step_count,
+             "pass_count": self._pass_count,
+             "batch_in_pass": self._batch_in_pass}
+        # the position of a checkpointable reader after the last
+        # completed batch (pass-end saves carry none)
+        if self._reader_batches is not None and self._batch_in_pass > 0:
+            rs = self._reader_batches.state_for(
+                self._batch_in_pass - 1 - self._reader_batch_base)
+            if rs is not None:
+                m["reader_state"] = rs
+        if self._memory_exec is not None:
+            pm = self._memory_exec.plan.to_meta()
+            if pm is not None:
+                m["memory_plan"] = pm
+        m.update(meta or {})
+        return manager.save(self._step_count, self.parameters.raw,
+                            self.opt_state, self.parameters.state, m)
+
+    def restore_checkpoint(self, manager, step: Optional[int] = None) -> bool:
+        """Resume the parameters, optimizer and layer state and the
+        trainer's position from the newest intact (or the given)
+        checkpoint, written by either package. The parameters are
+        written into the trainer's tensors in place (they stay its
+        autograd leaves); a JAX-written ``rng`` in the meta is not used
+        (the port's random layers fold the restored step count into the
+        seed). Returns False if there is none."""
+        res = manager.restore(step)
+        if res is None:
+            return False
+        _, tree = res
+        raw = self.parameters.raw
+        own = set(self.topology.param_specs)
+        with torch.no_grad():
+            for k, v in tree["params"].items():
+                t = torch.from_numpy(v)
+                if k in own:
+                    if tuple(raw[k].shape) != tuple(t.shape):
+                        raise ValueError(
+                            f"checkpoint parameter {k!r} has shape "
+                            f"{tuple(t.shape)}, the trainer's "
+                            f"{tuple(raw[k].shape)}")
+                    raw[k].copy_(t)
+                else:
+                    raw[k] = t.to(self.device)
+        self.parameters.state = {k: torch.from_numpy(v).to(self.device)
+                                 for k, v in tree["state"].items()}
+        self.opt_state = self._opt_state_from(tree["opt_state"])
+        meta = tree["meta"]
+        self._step_count = int(meta.get("step_count", 0))
+        self._pass_count = int(meta.get("pass_count", 0))
+        self._batch_in_pass = int(meta.get("batch_in_pass", 0))
+        self._reader_state = meta.get("reader_state")
+        self._restored_memory_plan = meta.get("memory_plan")
+        return True
+
+    def _opt_state_from(self, tree) -> Dict:
+        """The optimizer state of a checkpoint in the port's form: the
+        counters as host numbers (the JAX package stores int32 and
+        float32 scalars), the slots as tensors on the device, each
+        parameter's slot names checked against this optimizer's."""
+        dev = self.device
+
+        def tensors(d):
+            return {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+
+        out = {"step": int(tree["step"]),
+               "num_samples": float(tree["num_samples"]),
+               "slots": {k: tensors(v)
+                         for k, v in tree.get("slots", {}).items()}}
+        for k, now in self.opt_state["slots"].items():
+            got = out["slots"].get(k)
+            if got is None or set(got) != set(now):
+                raise ValueError(
+                    f"checkpoint optimizer slots of {k!r} are "
+                    f"{sorted(got or {})}, this optimizer keeps "
+                    f"{sorted(now)}")
+        if "avg" in tree:
+            out["avg"] = tensors(tree["avg"])
+        return out
+
+    def _adopt_restored_plan(self):
+        """Auto-resume with microbatching on: restart at the checkpoint's
+        known-safe MemoryPlan instead of re-probing or re-discovering it
+        by an OOM."""
+        if self._memory_exec is None or not self._restored_memory_plan:
+            return
+        from paddle_tpu_torch.trainer.memory import MemoryPlan
+        plan = MemoryPlan.from_meta(self._restored_memory_plan,
+                                    provenance="resumed")
+        if plan is not None:
+            self._memory_exec.adopt(plan)
 
     def test(self, reader, feeding=None) -> evt.TestResult:
         """One sweep of ``reader`` in test mode, with the optimizer's
@@ -400,6 +957,25 @@ class SGD:
             self.parameters.to_tar(f)
 
 
+def _all_finite(trees) -> torch.Tensor:
+    """A device bool: every floating value in ``trees`` (tensors in
+    nested dicts and lists) is finite. Host numbers are not checked."""
+    checks = []
+
+    def walk(v):
+        if isinstance(v, dict):
+            for x in v.values():
+                walk(x)
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                walk(x)
+        elif isinstance(v, torch.Tensor) and v.is_floating_point():
+            checks.append(torch.isfinite(v).all())
+
+    walk(trees)
+    return torch.stack(checks).all()
+
+
 def _default_event_handler(e):
     cfg = global_config()
     if isinstance(e, evt.EndIteration):
@@ -408,3 +984,5 @@ def _default_event_handler(e):
                   f"Cost {e.cost:.6f}, {e.evaluator}")
     elif isinstance(e, evt.EndPass):
         print(f"Pass {e.pass_id} done. {e.evaluator}")
+    elif isinstance(e, evt.FaultEvent):
+        print(f"FAULT {e!r}", file=sys.stderr)

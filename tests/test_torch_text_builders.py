@@ -97,7 +97,7 @@ def test_builders_export_under_the_jax_names():
         assert getattr(tmodels, name).__name__ == name
 
 
-def test_imdb_samples_equal_jax():
+def test_imdb_samples_equal_jax(tmp_path):
     assert tpaddle.dataset.imdb.word_dict() == \
         jpaddle.dataset.imdb.word_dict()
     for split in ("train", "test"):
@@ -109,8 +109,17 @@ def test_imdb_samples_equal_jax():
         for (tw, tl), (jw, jl) in zip(t, j):
             assert tl == jl and tw.dtype == jw.dtype
             np.testing.assert_array_equal(tw, jw)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tpaddle.dataset.imdb.convert("unused")
+    # convert: the port's shards hold the JAX package's samples
+    tpaddle.dataset.imdb.convert(str(tmp_path))
+    for split, n in (("train", 4096), ("test", 512)):
+        shards = sorted(str(p) for p in tmp_path.iterdir()
+                        if p.name.startswith(f"imdb-{split}-"))
+        got = list(tpaddle.reader.creator.recordio(shards)())
+        want = list(getattr(jpaddle.dataset.imdb, split)()())
+        assert len(got) == len(want) == n
+        for (tw, tl), (jw, jl) in zip(got[:64], want[:64]):
+            assert tl == jl
+            np.testing.assert_array_equal(tw, jw)
 
 
 def test_quick_start_v2_script_tracks_jax():

@@ -173,15 +173,22 @@ def test_train_loop_events_and_test_pass():
             assert set(e.metrics) == {"tfm_cost"}
 
     ttr.train(lambda: iter(batches), num_passes=2, event_handler=handler)
-    assert seen == (["BeginPass"] + ["BeginIteration", "EndIteration"] * 2
-                    + ["EndPass"]) * 2
+    # no evaluator: the iteration events are the lazy kind, as in the
+    # JAX package
+    assert seen == (["BeginPass"] + ["BeginIteration", "LazyEndIteration"]
+                    * 2 + ["EndPass"]) * 2
     before = {k: ttr.parameters[k].copy() for k in ttr.parameters.keys()}
     res = ttr.test(lambda: iter(batches))
     assert np.isfinite(res.cost)
     for k, v in before.items():
         np.testing.assert_array_equal(ttr.parameters[k], v)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ttr.train(lambda: iter(batches), fault_policy=object())
+    # the elastic fleet's options still raise, each naming A.9's rest
+    for opt, value in (("coordinator", object()), ("chunk_reader", iter),
+                       ("batch_size", 4), ("idle_timeout", 1.0),
+                       ("worker_id", "w0"), ("on_reshape", print)):
+        with pytest.raises(NotImplementedError,
+                           match=rf"\['{opt}'\].*A\.9's rest"):
+            ttr.train(lambda: iter(batches), **{opt: value})
 
 
 def test_params_tar_round_trips_between_packages():
