@@ -637,13 +637,37 @@ Phases (any failure exits non-zero before the final line):
    kernels (bf16x3). The
    LSTM kernels' launches of (a) and (b) join phase 12's on the kernel
    table, by route and by batch rows.
+48. elastic fleet — one CoordinatorServer in this process and worker
+   processes (this script with --elastic-worker), each training phase
+   12's classifier (bf16, b 128, h 1280, 100 tokens, under
+   deterministic algorithms, 0.15 of the card's memory) through
+   SGD.train(coordinator=, chunk_reader=, worker_id=) over recordio
+   shards that dataset.common.convert wrote (one chunk of 128 samples
+   a task). (a) 24 tasks, one pass: w1 and w2 (microbatch fixed at 128,
+   the plan they publish "configured") begin together once they and
+   w3 are warm; w1 is SIGKILLed at its STEP 2 line and w3 joins with
+   microbatch "auto" and oom_probe. The pass must complete with no
+   task dropped and no grant refused; every record delivered exactly
+   once, counted per chunk from the workers' GRANT and CHUNK lines over
+   the completions the coordinator accepted; w3 holding the published
+   plan with provenance "adopted" and no probe or OOM in its journal;
+   and of w2 and w3, both calling model.save_model with
+   PADDLE_TPU_COORDINATOR set, exactly one writing (one model.tar).
+   (b) 2 passes of 4 tasks: "solo" over a coordinator of its own, and
+   over another "d1" for the first pass (it checkpoints and leaves)
+   and "d2" for the second (it joins and restores): d1's and d2's
+   losses must equal solo's, digit for digit. Every finished worker
+   prints its LSTM kernels' launches, which must not be 0; the
+   coordinators' stats() and each worker's step interval beside phase
+   47's train() step alone are logged.
 
 Then logs the whole script's wall time and prints the kernel table as
-one JSON line (phases 28-47 add no kernel; the launches of phases
+one JSON line (phases 28-48 add no kernel; the launches of phases
 34-39 are on their own log lines; the window kernel's launches are
 phase 3's and phase 46's, by route in route_launches — "engine" and
-"http"; the LSTM kernels' are phase 12's and phase 47's, by route —
-"train_batch", "train_infra", "oom_microbatch" — with row_launches by
+"http"; the LSTM kernels' are phase 12's, phase 47's and phase 48's,
+by route — "train_batch", "train_infra", "oom_microbatch", "elastic" —
+with row_launches by
 batch rows; the flash and LSTM kernels at
 their bfloat16 times, the training dtype, naming their wgmma sources,
 with their errors in bfloat16 too; the flash kernels again at float32,
@@ -671,7 +695,9 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
+import xmlrpc.client
 
 import numpy as np
 import torch
@@ -9118,6 +9144,535 @@ def _merge_rows(*dicts):
     return out
 
 
+# ------------------------------------------------------------ phase 48
+# the elastic fleet: phase 12's classifier trained by worker processes
+# through one coordinator. (a) kill and join: ELASTIC_CHUNKS tasks of one
+# recordio chunk (LSTM_ROWS samples) each, one pass; (b) the digest run:
+# ELASTIC_DIGEST_CHUNKS tasks a pass, 2 passes. The chunk counts are the
+# phase's cut (PERF.md): the widths are phase 12's.
+ELASTIC_CHUNKS, ELASTIC_DIGEST_CHUNKS, ELASTIC_KILL_STEP = 24, 4, 2
+# (a)'s task lease (s): a SIGKILLed worker's task goes back to the queue
+# this long after its last heartbeat. The membership lease is longer: a
+# live worker renews it only when it asks for a task, which a loaded
+# host can delay past a few seconds
+ELASTIC_LEASE, ELASTIC_WORKER_LEASE = 4.0, 30.0
+# (a)'s workers sleep this long (s) after reading each chunk, so the pass
+# outlasts the replacement's arrival
+ELASTIC_DELAY = 0.25
+# each worker's share of the card's memory (at most five run at once)
+ELASTIC_MEM_FRACTION = 0.15
+# the narrow net and samples the CPU tests run the same fleet with
+NARROW_NET = dict(vocab_size=64, emb_size=16, hidden_size=32, lstm_num=1,
+                  num_classes=2)
+NARROW_ROWS, NARROW_TOKENS = 8, 12
+
+
+_SAY_LOCK = threading.Lock()
+
+
+def _say(line):
+    """One whole line on stdout: a worker's reader thread and its main
+    thread both print, and the accounting parses their lines."""
+    with _SAY_LOCK:
+        sys.stdout.write(line + "\n")
+        sys.stdout.flush()
+
+
+class _LoggedProxy(xmlrpc.client.ServerProxy):
+    """A coordinator proxy that prints every grant (``GRANT task_id
+    generation skip chunks``), for the exactly-once accounting."""
+
+    def __getattr__(self, name):
+        method = super().__getattr__(name)
+        if name != "get_task":
+            return method
+
+        def get_task(*args):
+            t = method(*args)
+            if t is not None:
+                skip = int((t.get("resume_state") or {})
+                           .get("records_consumed", 0))
+                _say(f"GRANT {t['task_id']} {t.get('generation')} {skip} "
+                     f"{json.dumps(t['chunks'])}")
+            return t
+        return get_task
+
+
+def _fleet_samples(n, seed, narrow):
+    vocab = (NARROW_NET if narrow else LSTM_NET)["vocab_size"]
+    tokens = NARROW_TOKENS if narrow else LSTM_TOKENS
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(0, vocab, (tokens,)).astype(np.int32),
+             int(rng.randint(0, 2))) for _ in range(n)]
+
+
+def elastic_shards(d, chunks, narrow=False):
+    """``chunks`` recordio shards of one chunk each (the rows of a batch),
+    written by dataset.common.convert with the native codec; returns the
+    shard paths."""
+    from paddle_tpu_torch.dataset import common
+    rows = NARROW_ROWS if narrow else LSTM_ROWS
+    samples = _fleet_samples(chunks * rows, 48, narrow)
+    return common.convert(d, lambda: iter(samples), rows, "lstm48",
+                          use_native=True)
+
+
+def _elastic_worker(argv):
+    """One worker of the fleet (``chip_smoke.py --elastic-worker PORT
+    WORKER_ID [options]``): phase 12's classifier (``--narrow``: a narrow
+    one, the CPU tests' size; ``--device cpu`` only with it) trained
+    through ``SGD.train(coordinator=, chunk_reader=, worker_id=)`` over
+    the coordinator at 127.0.0.1:PORT, under deterministic algorithms.
+    Warms the kernels on a throwaway forward and backward, zeroes the
+    LSTM launch counts, prints READY, waits for ``--go`` if given, then
+    trains, printing GRANT, CHUNK (a chunk read: its descriptor and
+    records) and STEP lines, and last one RESULT line (JSON: launches,
+    losses, memory plan, trainer journal kinds, the save's outcome).
+    ``--save DIR`` calls model.save_model after training (cloud mode
+    when PADDLE_TPU_COORDINATOR is set)."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --elastic-worker")
+    ap.add_argument("port", type=int)
+    ap.add_argument("worker_id")
+    ap.add_argument("--passes", type=int, default=1)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--microbatch", default=None)
+    ap.add_argument("--probe", action="store_true")
+    ap.add_argument("--delay", type=float, default=0.0)
+    ap.add_argument("--save", default=None)
+    ap.add_argument("--go", default=None)
+    ap.add_argument("--narrow", action="store_true")
+    ap.add_argument("--device", default=None)
+    a = ap.parse_args(argv)
+    t0 = time.perf_counter()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import config, model
+    from paddle_tpu_torch.core.registry import (fold_seed,
+                                                reset_name_counters)
+    from paddle_tpu_torch.core.topology import Topology
+    from paddle_tpu_torch.dataset.common import record_deserializer
+    from paddle_tpu_torch.models import stacked_lstm_net
+    from paddle_tpu_torch.obs.events import tail
+    from paddle_tpu_torch.ops import fused_rnn as fr
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.reader import recordio as rio
+    from paddle_tpu_torch.trainer import SGD, create
+    from paddle_tpu_torch.trainer.checkpoint import CheckpointManager
+
+    cpu = a.device == "cpu"
+    if cpu and not a.narrow:
+        raise SystemExit("--device cpu runs the narrow net only")
+    if not cpu:
+        if not torch.cuda.is_available():
+            print("elastic worker: FAIL: no CUDA card", file=sys.stderr)
+            return 3
+        torch.cuda.set_per_process_memory_fraction(ELASTIC_MEM_FRACTION)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    config.init(seed=0, use_gpu=False if cpu else None,
+                compute_dtype="float32" if a.narrow else "bfloat16")
+    reset_name_counters()
+    spec = stacked_lstm_net(**(NARROW_NET if a.narrow else LSTM_NET))
+    rows = NARROW_ROWS if a.narrow else LSTM_ROWS
+    tr = SGD(spec.cost, create(Topology(spec.cost),
+                               torch.Generator().manual_seed(0)),
+             Adam(learning_rate=LSTM_LR))
+    # the one-time costs (kernel loads, library handles) before joining:
+    # a forward and backward that writes nothing
+    feed = tr._feeder(None)(_fleet_samples(rows, 999, a.narrow))
+    n_real = int(feed.pop("__batch_size__"))
+    tr._grads(tr._own_params(), feed, n_real, fold_seed(0, 0))
+    if not cpu:
+        torch.cuda.synchronize()
+    _rnn_counts(fr, zero=True)
+    _say(f"READY {time.perf_counter() - t0:.2f} {tr.device}")
+    while a.go and not os.path.exists(a.go):
+        time.sleep(0.05)
+    read = rio.chunk_reader(record_deserializer)
+
+    def chunk_reader(chunk):
+        n = 0
+        for rec in read(chunk):
+            n += 1
+            yield rec
+        if a.delay:
+            time.sleep(a.delay)
+        _say(f"CHUNK {json.dumps(chunk)} {n}")
+
+    t1 = time.perf_counter()
+    losses = []
+
+    def handler(e):
+        if isinstance(e, paddle.event.EndIteration):
+            cost = e.cost               # waits for the step
+            losses.append(cost)
+            _say(f"STEP {tr._step_count} LOSS {cost!r} AT "
+                 f"{time.perf_counter() - t1:.4f}")
+
+    mb = a.microbatch
+    if mb is not None and mb != "auto":
+        mb = int(mb)
+    tr.train(coordinator=_LoggedProxy(f"http://127.0.0.1:{a.port}",
+                                      allow_none=True),
+             chunk_reader=chunk_reader, batch_size=rows,
+             num_passes=a.passes, event_handler=handler,
+             checkpoint_manager=CheckpointManager(a.ckpt) if a.ckpt else None,
+             worker_id=a.worker_id, microbatch=mb, oom_probe=a.probe,
+             idle_timeout=120.0)
+    if not cpu:
+        torch.cuda.synchronize()
+    counts = _rnn_counts(fr)
+    plan = None
+    if tr._memory_exec is not None:
+        p = tr._memory_exec.plan
+        plan = {"microbatch": p.microbatch, "accum_steps": p.accum_steps,
+                "provenance": p.provenance}
+    saved = model.save_model(tr.parameters, a.save, window_s=600.0) \
+        if a.save else None
+    _say("RESULT " + json.dumps({
+        "worker_id": a.worker_id, "device": str(tr.device),
+        "steps": tr._step_count, "losses": [repr(c) for c in losses],
+        "lstm_fwd": counts["lstm_fwd"], "lstm_bwd": counts["lstm_bwd"],
+        "plan": plan, "saved": saved, "trainer_id": model.trainer_id,
+        "journal": [r["kind"] for r in tail(1000, domain="trainer")],
+        "train_s": time.perf_counter() - t1}))
+    return 0
+
+
+def ledger_coordinator(chunks, **kw):
+    """A Coordinator that records every accepted completion and release:
+    (kind, task_id, generation, worker_id, records_consumed)."""
+    from paddle_tpu_torch.trainer.coordinator import Coordinator
+
+    class LedgerCoordinator(Coordinator):
+        def _holder(self, task_id):
+            ent = self._pending.get(task_id)
+            return None if ent is None else ent.get("worker_id")
+
+        def task_finished(self, task_id, generation=None):
+            wid = self._holder(task_id)
+            ok = super().task_finished(task_id, generation)
+            if ok:
+                self.ledger.append(("finished", task_id, generation, wid,
+                                    None))
+            return ok
+
+        def task_release(self, task_id, generation=None, state=None):
+            wid = self._holder(task_id)
+            ok = super().task_release(task_id, generation, state)
+            if ok:
+                self.ledger.append((
+                    "released", task_id, generation, wid,
+                    int((state or {}).get("records_consumed", 0))))
+            return ok
+
+    c = LedgerCoordinator(chunks, **kw)
+    c.ledger = []
+    return c
+
+
+def elastic_accounting(logs, ledger):
+    """Records delivered per chunk, counted from the workers' logs: for
+    each completion or release the coordinator accepted, the grant line
+    of the worker that held it (its skip) and that worker's CHUNK lines
+    for it (the records read) — a finished grant delivered the records
+    read past its skip, a released one those it had consumed past its
+    skip. Returns {chunk key: records}."""
+    reads = {}
+    for wid, lines in logs.items():
+        cur = None
+        for ln in lines:
+            if ln.startswith("GRANT "):
+                _, tid, gen, skip, _chunks = ln.split(" ", 4)
+                cur = (int(tid), None if gen == "None" else int(gen), wid)
+                reads[cur] = {"skip": int(skip), "chunks": []}
+            elif ln.startswith("CHUNK ") and cur is not None:
+                body, n = ln[len("CHUNK "):].rsplit(" ", 1)
+                path, k = json.loads(body)
+                reads[cur]["chunks"].append(
+                    (f"{os.path.basename(path)}:{k}", int(n)))
+    out = {}
+    for kind, tid, gen, wid, consumed in ledger:
+        r = reads.get((tid, gen, wid))
+        if r is None:
+            raise AssertionError(f"{kind} task {tid} (generation {gen}) "
+                                 f"of {wid}: no grant in its log")
+        left = r["skip"]
+        budget = None if kind == "finished" else consumed - r["skip"]
+        for key, n in r["chunks"]:
+            take = max(n - left, 0)
+            left = max(left - n, 0)
+            if budget is not None:
+                take = min(take, budget)
+                budget -= take
+            out[key] = out.get(key, 0) + take
+    return out
+
+
+def _fleet_proc(args, env):
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **env)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--elastic-worker"] +
+        [str(a) for a in args], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def run_elastic_fleet(work, narrow=False, timeout=600.0):
+    """The fleet of phase 48 (and of the port's CPU test, with ``narrow``:
+    the narrow net in CPU workers), with its CoordinatorServers in this
+    process:
+
+    (a) workers w1 and w2 (microbatch fixed at the batch rows, so the
+    plan they publish is "configured") train one pass of
+    ELASTIC_CHUNKS tasks, starting together once w1, w2 and w3 are warm;
+    w1 is SIGKILLed at its STEP ELASTIC_KILL_STEP line and w3, waiting
+    ready, joins with
+    microbatch "auto" and oom_probe: it must adopt the published plan
+    (provenance "adopted", no probe). The pass completes, every record
+    is delivered exactly once (``elastic_accounting``), and w2 and w3
+    each call model.save_model under PADDLE_TPU_COORDINATOR: exactly one
+    writes. (b) beside it, "solo" trains 2 passes of
+    ELASTIC_DIGEST_CHUNKS tasks over a coordinator of its own; "d1"
+    trains the first pass over another and leaves (its checkpoint
+    written at the pass end) and "d2" joins, restores it and trains the
+    second: the losses must equal solo's, digit for digit.
+
+    Returns the measurements; raises on any failure."""
+    import hashlib
+    import signal
+
+    from paddle_tpu_torch.reader import recordio as rio
+    from paddle_tpu_torch.trainer.coordinator import CoordinatorServer
+
+    t0 = time.perf_counter()
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    extra = ("--narrow", "--device", "cpu") if narrow else ()
+    rows = NARROW_ROWS if narrow else LSTM_ROWS
+    shards = elastic_shards(os.path.join(work, "shards"), ELASTIC_CHUNKS,
+                            narrow)
+    chunks = [list(d) for p in shards for d in rio.chunk_descriptors(p)]
+    coord = ledger_coordinator(chunks, chunks_per_task=1,
+                               timeout_s=ELASTIC_LEASE, failure_max=10,
+                               worker_lease_s=ELASTIC_WORKER_LEASE)
+    digest = chunks[:ELASTIC_DIGEST_CHUNKS]
+    fixed = ledger_coordinator(digest, chunks_per_task=1)
+    elastic = ledger_coordinator(digest, chunks_per_task=1)
+    servers = [CoordinatorServer(c).start() for c in (coord, fixed, elastic)]
+    port, fport, eport = (s.port for s in servers)
+    begin = os.path.join(work, "all_ready")
+    go = os.path.join(work, "w1_killed")
+    save = os.path.join(work, "models")
+    cloud = dict(env, PADDLE_TPU_COORDINATOR=f"127.0.0.1:{port}")
+    procs, pumps, logs = {}, {}, {}
+
+    def start(name, args, penv):
+        procs[name] = p = _fleet_proc(list(args) + list(extra), penv)
+        logs[name] = out = []
+
+        def pump():
+            for ln in p.stdout:
+                out.append(ln.rstrip("\n"))
+        pumps[name] = threading.Thread(target=pump, daemon=True,
+                                       name=f"fleet-log-{name}")
+        pumps[name].start()
+
+    def finish(name):
+        p = procs[name]
+        try:
+            p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            raise AssertionError(f"{name} timed out: "
+                                 f"{p.stderr.read()[-3000:]}")
+        pumps[name].join(30.0)
+        err = p.stderr.read()
+        if p.returncode != 0:
+            raise AssertionError(f"{name} exited {p.returncode}: "
+                                 f"{err[-3000:]}")
+        res = [ln for ln in logs[name] if ln.startswith("RESULT ")]
+        if not res:
+            raise AssertionError(f"{name} printed no RESULT: "
+                                 f"{err[-3000:]}")
+        return json.loads(res[-1][len("RESULT "):])
+
+    def wait_line(name, prefix, limit):
+        end = time.perf_counter() + limit
+        while time.perf_counter() < end:
+            if any(ln.startswith(prefix) for ln in list(logs[name])):
+                return
+            if procs[name].poll() is not None:
+                pumps[name].join(30.0)
+                if any(ln.startswith(prefix) for ln in logs[name]):
+                    return
+                raise AssertionError(
+                    f"{name} exited {procs[name].returncode} before "
+                    f"{prefix!r}: {procs[name].stderr.read()[-3000:]}")
+            time.sleep(0.02)
+        raise AssertionError(f"{name} printed no {prefix!r} in {limit} s")
+
+    try:
+        start("w1", [port, "w1", "--microbatch", rows, "--delay",
+                     ELASTIC_DELAY, "--go", begin], env)
+        start("w2", [port, "w2", "--microbatch", rows, "--delay",
+                     ELASTIC_DELAY, "--save", save, "--go", begin], cloud)
+        start("w3", [port, "w3", "--microbatch", "auto", "--probe",
+                     "--delay", ELASTIC_DELAY, "--save", save, "--go", go],
+              cloud)
+        start("solo", [fport, "solo", "--passes", 2, "--ckpt",
+                       os.path.join(work, "ck_solo")], env)
+        start("d1", [eport, "d1", "--passes", 1, "--ckpt",
+                     os.path.join(work, "ck_elastic")], env)
+        # w1 and w2 begin together once all three are warm
+        for name in ("w1", "w2", "w3"):
+            wait_line(name, "READY", timeout)
+        open(begin, "w").close()
+        wait_line("w1", f"STEP {ELASTIC_KILL_STEP} ", timeout)
+        procs["w1"].send_signal(signal.SIGKILL)
+        procs["w1"].wait(timeout=60)
+        pumps["w1"].join(30.0)
+        t_kill = time.perf_counter() - t0
+        if procs["w1"].returncode != -signal.SIGKILL:
+            raise AssertionError(f"w1 was not killed: rc "
+                                 f"{procs['w1'].returncode}")
+        todo_at_kill = coord.stats()["tasks_todo"]
+        open(go, "w").close()
+        t_go = time.perf_counter() - t0
+        res = {"d1": finish("d1")}
+        start("d2", [eport, "d2", "--passes", 2, "--ckpt",
+                     os.path.join(work, "ck_elastic")], env)
+        for name in ("w2", "w3", "solo", "d2"):
+            res[name] = finish(name)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            for f in (p.stdout, p.stderr):
+                f.close()
+        for s in servers:
+            s.stop()
+    wall = time.perf_counter() - t0
+    # (a): the pass completed, every record once, the join mid-pass
+    st = coord.stats()
+    if st["epoch"] != 1 or st["tasks_dropped"] or st["stale_grants"]:
+        raise AssertionError(f"(a) coordinator: {st}")
+    records = elastic_accounting(
+        {w: logs[w] for w in ("w1", "w2", "w3")}, coord.ledger)
+    want = {f"{os.path.basename(c[0])}:{c[1]}": rows for c in chunks}
+    if records != want:
+        bad = {k: records.get(k, 0) for k in want if records.get(k) != rows}
+        seen = [f"{w}: {ln}" for w in ("w1", "w2", "w3") for ln in logs[w]
+                if any(k.split(":")[0] in ln for k in bad)]
+        raise AssertionError(f"(a) records per chunk off: {bad}; ledger "
+                             f"{coord.ledger}; log lines {seen}")
+    grants = {w: sum(ln.startswith("GRANT ") for ln in logs[w])
+              for w in ("w1", "w2", "w3")}
+    accepted = {w: sum(1 for e in coord.ledger if e[3] == w)
+                for w in ("w1", "w2", "w3")}
+    if not accepted["w3"] or todo_at_kill == 0:
+        raise AssertionError(f"(a) w3 did not join mid-pass: accepted "
+                             f"{accepted}, todo at the kill {todo_at_kill}")
+    # the replacement adopted the fleet's plan without probing
+    w3 = res["w3"]
+    if w3["plan"] is None or w3["plan"]["provenance"] != "adopted" or \
+            w3["plan"]["microbatch"] != rows or \
+            "plan_adopted" not in w3["journal"] or \
+            {"oom", "probe"} & set(w3["journal"]):
+        raise AssertionError(f"(a) w3's memory plan {w3['plan']}, journal "
+                             f"{sorted(set(w3['journal']))}")
+    # exactly one of w2, w3 won the save election and wrote
+    saved = {w: res[w]["saved"] for w in ("w2", "w3")}
+    files = sorted(os.path.relpath(os.path.join(d, f), save)
+                   for d, _, fs in os.walk(save) for f in fs)
+    winner = [w for w, ok in saved.items() if ok]
+    if len(winner) != 1 or files != [
+            os.path.join(res[winner[0]]["trainer_id"], "model.tar")]:
+        raise AssertionError(f"(a) save election: {saved}, files {files}")
+    # (b): the leave and join at the pass boundary changed no loss
+    solo = res["solo"]["losses"]
+    split = res["d1"]["losses"] + res["d2"]["losses"]
+    if len(solo) != 2 * ELASTIC_DIGEST_CHUNKS or split != solo:
+        raise AssertionError(f"(b) losses: fixed {solo}, leave+join "
+                             f"{split}")
+    if elastic.stats()["generation"] < 3:
+        raise AssertionError(f"(b) membership: {elastic.stats()}")
+    # the kernels, per worker that finished on the card
+    finished = ("w2", "w3", "solo", "d1", "d2")
+    for w in finished:
+        if res[w]["device"].startswith("cuda") and not (
+                res[w]["lstm_fwd"] > 0 and res[w]["lstm_bwd"] > 0):
+            raise AssertionError(f"{w} launched no LSTM kernel: {res[w]}")
+    step_ms = {}
+    for w in finished:
+        at = [float(ln.rsplit(" ", 1)[1]) for ln in logs[w]
+              if ln.startswith("STEP ")]
+        step_ms[w] = (np.diff(at) * 1e3).tolist()
+    return dict(
+        stats=st, fixed_stats=fixed.stats(), elastic_stats=elastic.stats(),
+        records=sum(records.values()), chunks=len(chunks), grants=grants,
+        accepted=accepted, todo_at_kill=todo_at_kill, t_kill=t_kill,
+        t_go=t_go, wall=wall, plan=w3["plan"], saved=saved,
+        digest=hashlib.sha256(" ".join(solo).encode()).hexdigest()[:16],
+        losses=solo, results=res, step_ms=step_ms,
+        lstm_fwd=sum(res[w]["lstm_fwd"] for w in finished),
+        lstm_bwd=sum(res[w]["lstm_bwd"] for w in finished),
+        ready={w: float(next(ln.split()[1] for ln in logs[w]
+                             if ln.startswith("READY")))
+               for w in logs})
+
+
+def phase_elastic(single_step_ms=None):
+    """Phase 48: the elastic fleet on the card (``run_elastic_fleet``);
+    ``single_step_ms`` is phase 47's train() step alone in this process,
+    printed beside the shared card's. Returns the LSTM launches of the
+    finished workers."""
+    import shutil
+    import tempfile
+
+    card = nvidia_smi_line()
+    gc_collect()        # the workers share the card with this process
+    work = tempfile.mkdtemp(prefix="phase48-")
+    try:
+        r = run_elastic_fleet(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    off = {w: x["device"] for w, x in r["results"].items()
+           if not x["device"].startswith("cuda")}
+    if off:
+        raise AssertionError(f"workers off the card: {off}")
+    log(f"elastic fleet ({card}): (a) coordinator stats {r['stats']}")
+    log(f"elastic fleet ({card}): (b) coordinator stats, fixed "
+        f"{r['fixed_stats']}, leave+join {r['elastic_stats']}")
+    med = {w: float(np.median(v)) if v else float("nan")
+           for w, v in r["step_ms"].items()}
+    log(f"elastic fleet ({card}): (a) {r['chunks']} tasks of {LSTM_ROWS} "
+        f"samples ({LSTM_TOKENS} tokens, bf16, h "
+        f"{LSTM_NET['hidden_size']}), w1 SIGKILLed at STEP "
+        f"{ELASTIC_KILL_STEP} ({r['t_kill']:.1f} s, {r['todo_at_kill']} "
+        f"tasks still queued), w3 released at {r['t_go']:.1f} s: grants "
+        f"{r['grants']}, accepted completions {r['accepted']}; "
+        f"{r['records']} records, each chunk's exactly once; w3's plan "
+        f"{r['plan']} (adopted, no probe); save election {r['saved']}, "
+        f"one model.tar")
+    log(f"elastic fleet ({card}): (b) 2 passes of "
+        f"{ELASTIC_DIGEST_CHUNKS} tasks, fixed membership against a leave "
+        f"and a join at the pass boundary: losses identical (sha256 "
+        f"{r['digest']}): {r['losses']}")
+    log(f"elastic fleet ({card}): step interval medians (ms; up to 5 "
+        f"workers on the card, (a)'s paced by its {ELASTIC_DELAY} s a "
+        f"chunk) {{{', '.join(f'{w}: {v:.3f}' for w, v in med.items())}}}"
+        + (f"; phase 47's train() alone {single_step_ms:.3f}"
+           if single_step_ms else "") +
+        f"; workers ready after (s) {r['ready']}; LSTM launches of the "
+        f"finished workers: forward {r['lstm_fwd']}, backward "
+        f"{r['lstm_bwd']}; phase {r['wall']:.1f} s")
+    return dict(lstm_fwd=r["lstm_fwd"], lstm_bwd=r["lstm_bwd"],
+                wall=r["wall"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -9203,6 +9758,8 @@ def main():
     front = phase_front(serve["tokens"], mnist["artifact"])
     # the single trainer's training infrastructure (phase 47)
     infra = phase_train_infra()
+    # the elastic fleet (phase 48): worker processes on this card
+    elastic = phase_elastic(infra["timing"]["train"])
     kernels = [dict(
         name="paged_window_attention", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",
@@ -9228,8 +9785,10 @@ def main():
             max_abs_err=flash_err[(name, torch.float32)],
             **flash_timing[(name, torch.float32)]))
     rnn_launches = {
-        "lstm_fwd": lstm_counts["lstm_fwd"] + infra["lstm_fwd"],
-        "lstm_bwd": lstm_counts["lstm_bwd"] + infra["lstm_bwd"],
+        "lstm_fwd": lstm_counts["lstm_fwd"] + infra["lstm_fwd"] +
+        elastic["lstm_fwd"],
+        "lstm_bwd": lstm_counts["lstm_bwd"] + infra["lstm_bwd"] +
+        elastic["lstm_bwd"],
         "gru_fwd": gru_launches + nmt["launches"]}
     for name, err in infra["rows_err"].items():
         # phase 47 holds the LSTM kernels at the microbatch rows too
@@ -9244,14 +9803,17 @@ def main():
             launches=rnn_launches[name], max_abs_err=rnn_err[name],
             **rnn_timing[(name, dt)]))
         if name in infra["routes"]:
-            # phase 12's train_batch steps and phase 47's routes through
-            # SGD.train, with the launches by batch rows (the
-            # microbatches of the capped run at half the rows)
+            # phase 12's train_batch steps, phase 47's routes through
+            # SGD.train and phase 48's workers (at the batch rows), with
+            # the launches by batch rows (the microbatches of the capped
+            # run at half the rows)
             kernels[-1].update(
                 route_launches={"train_batch": lstm_counts[name],
-                                **infra["routes"][name]},
+                                **infra["routes"][name],
+                                "elastic": elastic[name]},
                 row_launches=_merge_rows({LSTM_ROWS: lstm_counts[name]},
-                                         infra["rows"][name]))
+                                         infra["rows"][name],
+                                         {LSTM_ROWS: elastic[name]}))
     # the GRU's launches by route: the tagger's decode (phase 14) on
     # gru_fwd_sm90.cu, the nmt decode's (phase 30) on the cooperative
     # gru_fwd.cu, with that route's time at the nmt decode's shape
@@ -9306,4 +9868,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resume-worker"]:
         sys.exit(_resume_worker(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["--elastic-worker"]:
+        sys.exit(_elastic_worker(sys.argv[2:]))
     sys.exit(main())

@@ -45,7 +45,7 @@ Slices ported so far:
   (reader/), the MNIST and CoNLL-05 datasets with their synthetic
   fallback (dataset/), the evaluators (evaluator/), every optimizer
   and schedule of the JAX package with model averaging, and
-  ``SGD.save_pass``. ``model`` is not ported yet.
+  ``SGD.save_pass``.
 - the image path — conv, pool, batch norm, LRN, space_to_depth and
   dropout (ops/conv.py, ops/pool.py, ops/norm.py, ops/fused.py,
   layers/conv_layers.py), the image stacks of networks.py and
@@ -80,8 +80,12 @@ Slices ported so far:
   OOM (trainer/memory.py), the supervised and checkpointable reader
   pipeline over recordio shards (reader/pipeline.py, recordio.py with
   the native codec native/recordio.cc) and ``cli.py train``. They run
-  the kernels above; the JAX package's elastic coordinator is not
-  ported yet.
+  the kernels above.
+- the elastic fleet — the coordinator (trainer/coordinator.py: tasks,
+  leases, membership, snapshot stores, the save election, the XML-RPC
+  server), ``SGD.train``'s coordinator mode, ``model.save_model`` /
+  ``load_model`` and ``reader.creator.cloud_reader``; it runs the LSTM
+  kernels above through the coordinator-driven loop.
 
 Entry points run on the card unless the caller passes
 ``device="cpu"`` or called ``init(use_gpu=False)``; with no GPU and no
@@ -124,6 +128,7 @@ from paddle_tpu_torch import attr  # noqa: E402
 from paddle_tpu_torch import pooling  # noqa: E402
 from paddle_tpu_torch import evaluator  # noqa: E402
 from paddle_tpu_torch import op  # noqa: E402  (installs the operators)
+from paddle_tpu_torch import model  # noqa: E402
 
 __all__ = [
     "init",
@@ -145,5 +150,6 @@ __all__ = [
     "pooling",
     "evaluator",
     "op",
+    "model",
     "resolve_device",
 ]

@@ -31,8 +31,14 @@ attaches a continuous-batching ``DecodeEngine`` behind ``POST
 ``POST /admin/quit``, then drains with a flight postmortem.
 ``--draft_config`` and ``--spec_k`` turn on speculative decoding,
 ``--kv_quant int8`` stores the KV pages in int8, and
-``--kv_spill_pages`` attaches the host spill tier. The other
-subcommands of ``paddle_tpu`` wait for later slices.
+``--kv_spill_pages`` attaches the host spill tier.
+
+``coordinator``: the elastic-training coordinator daemon — partitions
+the recordio chunks of ``--data`` into tasks and serves them, the
+membership and the save election over XML-RPC (trainer/coordinator.py)
+until SIGTERM/SIGINT, printing one JSON line when it serves and one
+with its ``stats()`` when it stops. The other subcommands of
+``paddle_tpu`` wait for later slices.
 """
 
 from __future__ import annotations
@@ -185,6 +191,57 @@ def _cmd_serve(args) -> int:
         PROFILER.disable()       # joins the pt-obs-profiler thread
     print(json.dumps({"job": "serve", "status": "stopped",
                       "stats": server.stats()}), flush=True)
+    return 0
+
+
+def _cmd_coordinator(args) -> int:
+    """Run the elastic-training coordinator as a daemon (go/master's
+    role): partition the recordio chunks into tasks, serve the task,
+    membership and save-election RPCs, and snapshot the queues for a
+    restart (``--snapshot`` dir or ``--snapshot_rpc`` KVStoreServer)."""
+    import glob as _glob
+
+    from paddle_tpu_torch.reader import recordio as rio
+    from paddle_tpu_torch.trainer.coordinator import (Coordinator,
+                                                      CoordinatorServer,
+                                                      FileStore, RpcStore)
+    # overlapping globs must not serve a chunk twice
+    paths = sorted({p for pat in args.data for p in _glob.glob(pat)})
+    if not paths:
+        raise SystemExit(f"no files match --data {args.data}")
+    chunks = [d for p in paths for d in rio.chunk_descriptors(p)]
+    if args.snapshot and args.snapshot_rpc:
+        raise SystemExit("--snapshot and --snapshot_rpc are mutually "
+                         "exclusive")
+    store = None
+    if args.snapshot:
+        store = FileStore(args.snapshot)
+    elif args.snapshot_rpc:
+        host, _, port = args.snapshot_rpc.rpartition(":")
+        store = RpcStore(host or "127.0.0.1", int(port))
+    coord = Coordinator(chunks, chunks_per_task=args.chunks_per_task,
+                        timeout_s=args.task_timeout,
+                        failure_max=args.failure_max, store=store,
+                        worker_lease_s=args.worker_lease)
+    server = CoordinatorServer(coord, host=args.host, port=args.port)
+
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *a: stop.set())
+    signal.signal(signal.SIGINT, lambda *a: stop.set())
+    server.start()
+    # the coordinator's own state: after a snapshot recovery it serves
+    # the recovered chunk list, not this invocation's --data
+    print(json.dumps({"job": "coordinator", "status": "serving",
+                      "host": args.host, "port": server.port,
+                      "files": len(paths), "chunks": len(coord.chunks),
+                      "chunks_per_task": coord.chunks_per_task,
+                      "recovered": coord.recovered,
+                      "generation": coord.generation}), flush=True)
+    while not stop.wait(0.2):
+        pass
+    server.stop()
+    print(json.dumps({"job": "coordinator", "status": "stopped",
+                      "stats": coord.stats()}), flush=True)
     return 0
 
 
@@ -428,6 +485,9 @@ def _cmd_train(args) -> int:
         return _job_train(trainer, ns, args)
     finally:
         JOURNAL.emit("trainer", "run_end", job=args.job)
+        if args.profile_every or args.slo:
+            from paddle_tpu_torch.obs.profile import PROFILER
+            PROFILER.disable()      # joins the pt-obs-profiler thread
 
 
 def _flag_bool(v: str) -> bool:
@@ -513,6 +573,16 @@ def _add_train_parser(sub) -> None:
                     help="correlation id stamped on every journal record")
     tr.add_argument("--flight_dir", default=None,
                     help="arm flight-recorder auto-dump")
+    tr.add_argument("--profile_every", type=int, default=0,
+                    help="continuous step profiler: sample the "
+                         "per-phase breakdown (data_wait, h2d, compute, "
+                         "settle) every N steps and export live MFU and "
+                         "device-memory gauges (0: off)")
+    tr.add_argument("--slo", action="append", default=None,
+                    metavar="METRIC<=TARGET[@WINDOW]",
+                    help="SLO objective for the watchdog, repeatable "
+                         "(e.g. step_time_p99_ms<=250@64); implies "
+                         "--profile_every 8 when that flag is absent")
     tr.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
     tr.add_argument("--seed", type=int, default=0)
@@ -599,6 +669,30 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--port", type=int, default=0,
                     help="0 picks a free port (printed at start)")
     sv.set_defaults(fn=_cmd_serve)
+
+    co = sub.add_parser("coordinator", help="run the elastic-training "
+                        "coordinator daemon")
+    co.add_argument("--data", nargs="+", required=True,
+                    help="recordio file paths or globs to partition")
+    co.add_argument("--chunks_per_task", type=int, default=1)
+    co.add_argument("--host", default="127.0.0.1")
+    co.add_argument("--port", type=int, default=0,
+                    help="0 picks a free port (printed as JSON)")
+    co.add_argument("--task_timeout", type=float, default=60.0,
+                    help="task lease seconds (renewed by heartbeats)")
+    co.add_argument("--failure_max", type=int, default=3,
+                    help="failures after which a task is dropped")
+    co.add_argument("--worker_lease", type=float, default=None,
+                    help="elastic membership lease seconds (expiry is "
+                         "an implicit leave and a reshard; default: "
+                         "--task_timeout)")
+    co.add_argument("--snapshot", default=None,
+                    help="dir for crash-recovery snapshots (FileStore)")
+    co.add_argument("--snapshot_rpc", default=None,
+                    help="HOST:PORT of a KVStoreServer: snapshots over "
+                         "RPC instead of a shared filesystem (RpcStore; "
+                         "exclusive with --snapshot)")
+    co.set_defaults(fn=_cmd_coordinator)
     return ap
 
 

@@ -15,9 +15,14 @@ One typed config object, read by the ops and layers at call time:
   own meaning of the flag, the JAX package's ``config.py`` reads the
   same arguments; left unset (None or True) the entry points take the
   current CUDA card and raise without one (device.py).
+- ``debug_nans``: the FPE-trap discipline. The JAX package sets
+  ``jax_debug_nans``; here ``SGD`` checks the step's cost, metrics and
+  layer state after the forward and every gradient after the backward,
+  and raises ``FloatingPointError`` at the first non-finite value,
+  before the update writes anything.
 
-The JAX package's ``trainer_count``, process index/count and
-``debug_nans`` have no counterpart in the port.
+The JAX package's ``trainer_count`` and process index/count have no
+counterpart in the port.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ class GlobalConfig:
     seed: int = 0
     use_flash_attention: bool = True
     device: Optional[str] = None
+    debug_nans: bool = False
     initialized: bool = False
 
 
@@ -42,11 +48,13 @@ _g = GlobalConfig()
 def init(use_tpu: Optional[bool] = None, use_gpu: Optional[bool] = None,
          trainer_count: int = 1, seed: int = 0,
          compute_dtype: str = "float32", log_period: int = 100,
-         use_flash_attention: bool = True, **kwargs) -> GlobalConfig:
+         use_flash_attention: bool = True, debug_nans: bool = False,
+         **kwargs) -> GlobalConfig:
     """paddle.v2.init counterpart. ``use_tpu`` (or, when it is None,
     ``use_gpu``) False asks for the CPU; None or True for the card.
     ``trainer_count`` is accepted for source compatibility: the port
-    trains on one device."""
+    trains on one device. ``debug_nans`` is set and cleared by each
+    call, as the JAX package's is."""
     if compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                          f"got {compute_dtype!r}")
@@ -56,6 +64,7 @@ def init(use_tpu: Optional[bool] = None, use_gpu: Optional[bool] = None,
     _g.compute_dtype = compute_dtype
     _g.log_period = log_period
     _g.use_flash_attention = bool(use_flash_attention)
+    _g.debug_nans = bool(debug_nans)
     _g.initialized = True
     return _g
 

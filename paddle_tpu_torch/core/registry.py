@@ -197,6 +197,10 @@ def get_layer_impl(layer_type: str) -> Dict[str, Callable]:
     return _LAYER_REGISTRY[layer_type]
 
 
+def registered_layer_types() -> List[str]:
+    return sorted(_LAYER_REGISTRY)
+
+
 def make_layer(layer_type: str, name: Optional[str],
                inputs: Sequence[LayerOutput], **config) -> LayerOutput:
     """Construct a graph node: run the build half, wrap the result."""

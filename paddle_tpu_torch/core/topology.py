@@ -211,6 +211,13 @@ class Topology:
         """Name -> data layer, in declaration order (the feeding order)."""
         return {l.name: l for l in self.layers if l.type == "data"}
 
+    def get_layer(self, name: str) -> LayerOutput:
+        """The layer node by name (v2's ``Topology.get_layer``)."""
+        if name not in self.by_name:
+            raise ValueError(f"layer {name!r} not in topology; have "
+                             f"{sorted(self.by_name)}")
+        return self.by_name[name]
+
     def data_type(self):
         """[(name, InputType)] for the DataFeeder."""
         return [(name, l.config["input_type"])
@@ -245,6 +252,10 @@ class Topology:
             built[ld["name"]] = make_layer(ld["type"], ld["name"], inputs,
                                            **cfg)
         return Topology([built[n] for n in spec["outputs"]])
+
+    def proto(self) -> str:
+        """v2's ``Topology.proto()``: the serialized model config."""
+        return self.serialize()
 
 
 def _tapped(v, taps, name):

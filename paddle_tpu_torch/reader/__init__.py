@@ -11,8 +11,8 @@ yield the same samples in the same order (``shuffle`` draws from
 records the source position at each batch boundary, which the
 trainer's checkpoints carry; ``pipeline.py`` is the supervised
 pipeline, ``recordio.py`` the shard format, ``provider.py`` the v1
-data-provider protocol. ``creator.cloud_reader`` comes with the
-coordinator (ROADMAP.md queue A.9's rest).
+data-provider protocol; ``creator.cloud_reader`` reads recordio chunks
+dispatched by the elastic coordinator (trainer/coordinator.py).
 """
 
 from __future__ import annotations
@@ -309,9 +309,8 @@ def cache(reader: Reader) -> Reader:
 
 
 class creator:
-    """reader.creator parity: build readers from arrays, text files and
-    recordio shards (``cloud_reader`` comes with the coordinator,
-    ROADMAP.md queue A.9's rest)."""
+    """reader.creator parity: build readers from arrays, text files,
+    recordio shards and coordinator-dispatched shard chunks."""
 
     @staticmethod
     def np_array(arr) -> Reader:
@@ -347,3 +346,24 @@ class creator:
                 for desc in rio.chunk_descriptors(p):
                     yield from read(desc)
         return buffered(reader, buf_size)
+
+    @staticmethod
+    def cloud_reader(host: str, port: int,
+                     timeout_sec: float = 600.0) -> Reader:
+        """Samples of coordinator-dispatched recordio chunks
+        (creator.cloud_reader parity): the coordinator at ``host:port``
+        holds the shards' chunk list (``cli.py coordinator --data``) and
+        hands chunks out as fault-tolerant tasks; a crashed consumer's
+        chunk re-queues when its lease lapses. ``timeout_sec`` is the
+        reader's idle timeout."""
+        from paddle_tpu_torch.dataset.common import record_deserializer
+        from paddle_tpu_torch.reader import recordio as rio
+        from paddle_tpu_torch.trainer.coordinator import (connect,
+                                                          task_reader)
+
+        def reader():
+            coord = connect(host, port)
+            yield from task_reader(
+                coord, rio.chunk_reader(record_deserializer),
+                idle_timeout=timeout_sec)()
+        return reader

@@ -185,6 +185,15 @@ class PagePool:
         with self._lock:
             return self._refs.get(page, 0)
 
+    def refcount_histogram(self) -> Dict[int, int]:
+        """{refcount: page count} over the allocated pages — the flight
+        bundle's picture of the sharing."""
+        with self._lock:
+            hist: Dict[int, int] = {}
+            for c in self._refs.values():
+                hist[c] = hist.get(c, 0) + 1
+            return hist
+
     def free(self, pages) -> None:
         with self._lock:
             for p in pages:
@@ -394,9 +403,6 @@ class DecodeEngine:
                           "rejected_queue": 0, "rejected_capacity": 0,
                           "closed": 0, "step_failures": 0,
                           "tokens_out": 0, "prefill_tokens": 0,
-                          "prefix_hit_pages": 0, "prefix_miss_pages": 0,
-                          "prefix_cow_copies": 0,
-                          "prefix_evicted_pages": 0,
                           "spec_proposed_tokens": 0,
                           "spec_accepted_tokens": 0,
                           "draft_failures": 0,
@@ -429,16 +435,10 @@ class DecodeEngine:
             with eng._cv:
                 waiting = [r.trace_id for r in eng._waiting]
                 steps = eng._steps
-                counters = dict(eng._counters)
             # prefix summary AFTER _cv release: lock order is
             # engine -> prefix -> pagepool, never held together here
-            prefix = None if eng.prefix is None else {
-                "pages": eng.prefix.page_count(),
-                "reclaimable": eng.prefix.reclaimable_pages(),
-                "hit_pages": counters["prefix_hit_pages"],
-                "miss_pages": counters["prefix_miss_pages"],
-                "cow_copies": counters["prefix_cow_copies"],
-                "evicted_pages": counters["prefix_evicted_pages"]}
+            prefix = eng.prefix.summary() \
+                if eng.prefix is not None else None
             return {"slots": slots, "waiting_trace_ids": waiting,
                     "steps": steps,
                     "pages": eng.pool.accounting(),
@@ -693,7 +693,6 @@ class DecodeEngine:
             freed = self.prefix.evict_lru(1)
             if not freed:
                 return None
-            self._counters["prefix_evicted_pages"] += len(freed)
             journal_emit("engine", "prefix_evict", pages=freed,
                          free_pages=self.pool.free_pages,
                          engine_step=self._steps)
@@ -892,20 +891,20 @@ class DecodeEngine:
                 else:
                     slot.pages.append(dst)
                     matched += rows
-                    self._counters["prefix_cow_copies"] += 1
                     _PREFIX_COW.inc()
+                    self.prefix.cow_hits += 1
             self.pool.free([src])       # unpin
         for j, p in enumerate(slot.pages):
             self._tables[s, j] = p
         slot.pos = matched
         hit = len(match.pages)
         miss = self._pages_for(len(slot.replay)) - hit
-        self._counters["prefix_hit_pages"] += hit
-        self._counters["prefix_miss_pages"] += max(miss, 0)
         if hit:
             _PREFIX_HIT.inc(hit)
         if miss > 0:
             _PREFIX_MISS.inc(miss)
+        self.prefix.hit_pages += hit
+        self.prefix.miss_pages += max(miss, 0)
         req.prefix_hit_pages = hit
         if matched:
             FLIGHT.record("mark", "engine/prefix_attach",
@@ -1397,7 +1396,16 @@ class DecodeEngine:
         spill_cap = self.spill.capacity if self.spill is not None else 0
         _SPILLED_NOW.set(spilled_now)
         out = dict(counters)
+        px = self.prefix
         out.update({
+            # the trie owns the cumulative prefix accounting; the
+            # engine's evictions are the lossy LRU ones (spills count
+            # under kv_pages_spilled)
+            "prefix_hit_pages": px.hit_pages if px is not None else 0,
+            "prefix_miss_pages": px.miss_pages if px is not None else 0,
+            "prefix_cow_copies": px.cow_hits if px is not None else 0,
+            "prefix_evicted_pages":
+                px.evicted_lru_pages if px is not None else 0,
             "slots": self.num_slots,
             "active_slots": active,
             "waiting": waiting,

@@ -84,6 +84,16 @@ class PrefixIndex:
         self._root = _Node(None, None, None)
         self._seq = 0
         self._nodes = 0
+        # cumulative accounting (``summary()`` and the engine's
+        # stats); the engine adds the hits, misses and copy-on-write
+        # copies of each admission. Evictions are counted apart: the
+        # lossy LRU ones and the exact ones of the spill path.
+        self.hit_pages = 0
+        self.miss_pages = 0
+        self.cow_hits = 0
+        self.inserted_pages = 0
+        self.evicted_lru_pages = 0
+        self.evicted_exact_pages = 0
 
     # --------------------------------------------------------------- lookup
     def match(self, tokens) -> PrefixMatch:
@@ -153,6 +163,7 @@ class PrefixIndex:
                 child.last_used = self._seq
                 node = child
                 i += ps
+            self.inserted_pages += new
         return new
 
     # ------------------------------------------------------------ eviction
@@ -180,6 +191,7 @@ class PrefixIndex:
                 self._nodes -= 1
                 self.pool.free([victim.page])
                 freed.append(victim.page)
+            self.evicted_lru_pages += len(freed)
         return freed
 
     # --------------------------------------------------------------- spill
@@ -239,6 +251,7 @@ class PrefixIndex:
             del node.parent.children[node.key]
             self._nodes -= 1
             self.pool.free([page])
+            self.evicted_exact_pages += 1
             return page
 
     def reclaimable_pages(self) -> int:
@@ -284,3 +297,27 @@ class PrefixIndex:
     def page_count(self) -> int:
         with self._lock:
             return self._nodes
+
+    def summary(self) -> dict:
+        """The flight bundle's view: the trie's shape, the cumulative
+        hit accounting and the pool's refcount histogram (the JAX
+        package's keys)."""
+        with self._lock:
+            depth = 0
+            stack = [(self._root, 0)]
+            while stack:
+                nd, d = stack.pop()
+                depth = max(depth, d)
+                stack.extend((c, d + 1) for c in nd.children.values())
+            return {
+                "nodes": self._nodes,
+                "pages": self._nodes,
+                "max_depth_pages": depth,
+                "hit_pages": self.hit_pages,
+                "miss_pages": self.miss_pages,
+                "cow_copies": self.cow_hits,
+                "inserted_pages": self.inserted_pages,
+                "evicted_pages":
+                    self.evicted_lru_pages + self.evicted_exact_pages,
+                "refcount_histogram": self.pool.refcount_histogram(),
+            }

@@ -13,12 +13,15 @@ Sequences are padded to the same length buckets as in the JAX
 package, so both packages see the same feed shapes; a nested column
 (a list of subsequences per sample) pads to its longest row, as the
 JAX package's does. Every batch
-carries ``__batch_size__``, its count of real rows.
+carries ``__batch_size__``, its count of real rows. With
+``fixed_batch_size`` a short batch pads to that many rows, as the JAX
+feeder pads it: zero rows for a flat column, a one-step zero filler of
+length 0 for a sequence column (a nested column is not padded).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,6 +35,7 @@ from paddle_tpu_torch.device import DeviceLike, resolve_device
 
 class DataFeeder:
     def __init__(self, data_types, feeding=None,
+                 fixed_batch_size: Optional[int] = None,
                  bucket_lengths: Sequence[int] = (16, 32, 64, 128, 256, 512,
                                                   1024),
                  device: DeviceLike = None):
@@ -46,6 +50,7 @@ class DataFeeder:
             self.feeding = feeding
         else:
             self.feeding = {name: i for i, name in enumerate(feeding)}
+        self.fixed_batch_size = fixed_batch_size
         self.bucket_lengths = bucket_lengths
         self.device = resolve_device(device)
 
@@ -66,7 +71,29 @@ class DataFeeder:
         feed["__batch_size__"] = len(batch)
         return feed
 
+    def _pad_count(self, n: int) -> int:
+        if self.fixed_batch_size and n < self.fixed_batch_size:
+            return self.fixed_batch_size - n
+        return 0
+
     def _convert_column(self, rows: List[Any], itype: InputType):
+        pad = self._pad_count(len(rows))
+        if itype.seq_type == SeqType.SEQUENCE and pad:
+            # one-step zero fillers, given length 0 once packed
+            filler = [[]] if itype.kind == "sparse_binary" else \
+                np.zeros((1,) if itype.kind == "integer"
+                         else (1, itype.dim), np.float32
+                         if itype.kind == "dense" else np.int32)
+            out = self._convert_unpadded(list(rows) + [filler] * pad, itype)
+            lengths = out.lengths.clone()
+            lengths[len(rows):] = 0
+            return SequenceBatch(out.data, lengths)
+        if itype.seq_type == SeqType.NO_SEQUENCE and pad:
+            out = self._convert_unpadded(rows, itype)
+            return torch.cat([out, out.new_zeros((pad,) + out.shape[1:])])
+        return self._convert_unpadded(rows, itype)
+
+    def _convert_unpadded(self, rows: List[Any], itype: InputType):
         if itype.seq_type == SeqType.NO_SEQUENCE:
             if itype.kind == "dense":
                 arr = np.asarray(rows, dtype=np.float32).reshape(len(rows), -1)

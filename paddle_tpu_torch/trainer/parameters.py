@@ -43,6 +43,12 @@ class Parameters:
     def keys(self):
         return self._params.keys()
 
+    def names(self):
+        return list(self._params.keys())
+
+    def has_key(self, key):
+        return key in self._params
+
     def __contains__(self, key):
         return key in self._params
 
@@ -69,6 +75,15 @@ class Parameters:
             # parameters.set) goes on training from the new value
             t = t.to(old.dtype).requires_grad_(old.requires_grad)
         self._params[key] = t
+
+    def get(self, key) -> np.ndarray:
+        return self[key]
+
+    def set(self, key, value):
+        self[key] = value
+
+    def get_shape(self, key):
+        return tuple(self._params[key].shape)
 
     # --- device-side access ----------------------------------------------
     @property
@@ -123,6 +138,21 @@ class Parameters:
                 params[member.name[:-4]] = torch.from_numpy(arr)
         tf.close()
         return cls(params, state, device=device)
+
+    def init_from_tar(self, f):
+        """Load the values of matching names in place (v2's
+        ``init_from_tar``): each parameter keeps its device, dtype and
+        autograd-leaf state (``__setitem__``), each state entry its
+        device and dtype."""
+        other = Parameters.from_tar(f, device="cpu")
+        for name in other.names():
+            if name in self._params:
+                self[name] = other[name]
+        for name, val in other.state.items():
+            if name in self.state:
+                old = self.state[name]
+                self.state[name] = val.to(device=old.device,
+                                          dtype=old.dtype)
 
 
 def create(topology, generator: Optional[torch.Generator] = None,

@@ -46,10 +46,11 @@ the loop never waits for the card: its events are lazy and the pass
 sums stay on the device (compensated); a bounded thread converts the
 next batches meanwhile (``_prefetched``).
 
-Not ported yet (each raises): a device mesh, pipeline stages, and the
-elastic options of ``train`` (``coordinator``, ``chunk_reader``,
-``batch_size``, ``idle_timeout``, ``worker_id``, ``on_reshape``:
-ROADMAP.md queue A.9's rest).
+The elastic fleet: ``train(coordinator=, chunk_reader=, worker_id=)``
+reads coordinator-dispatched tasks (trainer/coordinator.py), joins and
+leaves the fleet's membership and shares its MemoryPlan.
+
+Not ported yet (each raises): a device mesh and pipeline stages.
 """
 
 from __future__ import annotations
@@ -68,6 +69,8 @@ from paddle_tpu_torch.core.registry import LayerOutput, fold_seed
 from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.core.topology import Topology
 from paddle_tpu_torch.device import DeviceLike, resolve_device
+from paddle_tpu_torch.obs import context as obs_context
+from paddle_tpu_torch.obs.profile import PROFILER
 from paddle_tpu_torch.trainer import event as evt
 from paddle_tpu_torch.trainer.data_feeder import DataFeeder
 from paddle_tpu_torch.trainer.parameters import Parameters
@@ -188,6 +191,10 @@ class SGD:
         # optimizer updates begun: an OOM after this moved cannot be
         # retried, the update writes the parameters in place
         self._update_writes = 0
+        # the continuous profiler's cost source: the last step's inputs
+        # (kept only while the profiler is on), registered once
+        self._profile_feed = None
+        self._profile_cost_armed = False
 
     # ------------------------------------------------------------------
     def refresh_update_hooks(self):
@@ -263,7 +270,9 @@ class SGD:
         """One device -> host transfer for a step's loss, metrics and
         evaluator inputs: the scalars and every evaluator tensor go to
         the host as one byte buffer. Returns (loss, {name: metric},
-        {name: host tensor or SequenceBatch of host tensors})."""
+        {name: host tensor or SequenceBatch of host tensors}). Timed as
+        the profiler's ``settle`` phase (the wait for the card)."""
+        from paddle_tpu_torch.utils.stats import stat_timer
         names = list(metrics)
         scalars = torch.stack([loss.detach().float()] +
                               [metrics[k].detach().float() for k in names])
@@ -271,8 +280,9 @@ class SGD:
         for v in (eval_outs or {}).values():
             parts += [v.data, v.lengths] if isinstance(v, SequenceBatch) \
                 else [v]
-        flat = torch.cat([p.detach().contiguous().reshape(-1)
-                          .view(torch.uint8) for p in parts]).cpu()
+        with stat_timer("train/settle"):
+            flat = torch.cat([p.detach().contiguous().reshape(-1)
+                              .view(torch.uint8) for p in parts]).cpu()
         host_parts, off = [], 0
         for p in parts:
             n = p.numel() * p.element_size()
@@ -288,11 +298,44 @@ class SGD:
         return host[0], dict(zip(names, host[1:])), eval_host
 
     def _step(self, feed, n_real: int, fetch_evals: bool = True):
+        obs_context.set_step(self._step_count)
         rng = fold_seed(self._seed, self._step_count)
         self._step_count += 1
         loss, metrics, eval_outs = self._device_step(feed, n_real, rng)
+        self._profile_step(feed, rng, n_real)
         return self._fetch_host(loss, metrics,
                                 eval_outs if fetch_evals else None)
+
+    def _profile_step(self, feed, rng, n_real: int) -> None:
+        """The continuous profiler's per-step hook (a no-op attribute
+        read while it is off)."""
+        if not PROFILER.enabled:
+            return
+        self._profile_feed = (feed, rng, n_real)
+        self._arm_profile_cost()
+        PROFILER.on_step("train")
+
+    def _arm_profile_cost(self) -> None:
+        """Register the profiler's lazy FLOP source once: a weakref
+        closure that counts one forward and backward of the last step's
+        inputs (``cost_of``; nothing written, the update's element-wise
+        work is left out). The profiler calls it at most once per
+        enable, off a sampled step."""
+        if self._profile_cost_armed:
+            return
+        self._profile_cost_armed = True
+        import weakref
+        ref = weakref.ref(self)
+
+        def _cost():
+            tr = ref()
+            if tr is None or tr._profile_feed is None:
+                return None, None
+            from paddle_tpu_torch.obs.profile import cost_of
+            feed, rng, n_real = tr._profile_feed
+            return cost_of(tr._grads, tr._own_params(), feed, n_real, rng)
+
+        PROFILER.set_cost_source("train", _cost)
 
     def _device_step(self, feed, n_real: int, rng, k: int = 1,
                      guarded: bool = False):
@@ -312,6 +355,9 @@ class SGD:
         # detached: a moving statistic that kept its graph would hold
         # every earlier step's activations alive
         new_state = {name: v.detach() for name, v in new_state.items()}
+        if global_config().debug_nans:
+            _raise_if_nonfinite("forward", [loss, metrics, new_state])
+            _raise_if_nonfinite("backward", [grads, sparse_rows])
         if guarded:
             metrics = self._guarded_update(params, grads, sparse_rows,
                                            n_real, loss, metrics, new_state)
@@ -540,22 +586,24 @@ class SGD:
         oom_probe: with microbatch="auto", find the largest safe
         microbatch on the first batch before stepping.
 
-        ``coordinator``, ``chunk_reader``, ``batch_size``,
-        ``idle_timeout``, ``worker_id`` and ``on_reshape`` (the elastic
-        fleet) are not ported yet and raise."""
-        elastic = {"coordinator": coordinator is not None,
-                   "chunk_reader": chunk_reader is not None,
-                   "batch_size": bool(batch_size),
-                   "idle_timeout": idle_timeout != 600.0,
-                   "worker_id": worker_id is not None,
-                   "on_reshape": on_reshape is not None}
-        unsupported = sorted(k for k, v in elastic.items() if v)
-        if unsupported:
-            raise NotImplementedError(
-                f"train options {unsupported} (the elastic fleet) are not "
-                "ported yet (ROADMAP.md queue A.9's rest)")
+        Elastic mode: pass ``coordinator`` (a Coordinator or a
+        ``coordinator.connect`` proxy, trainer/coordinator.py) and
+        ``chunk_reader(chunk) -> records`` instead of ``reader``. The
+        data then comes as coordinator-dispatched tasks (``task_reader``,
+        grouped into ``batch_size`` batches), re-queued when this trainer
+        dies; ``num_passes`` counts coordinator epochs, and a pass ends
+        when the reader has seen the epoch turn or ``idle_timeout``
+        seconds with no task. With ``checkpoint_manager`` the trainer
+        restores the newest checkpoint on entry. ``worker_id`` joins the
+        fleet's membership (adopting its published MemoryPlan when this
+        trainer has none of its own, and publishing its plan after each
+        pass) and leaves gracefully at the end; a grant that shows a new
+        membership generation journals ``trainer/reshape`` and calls
+        ``on_reshape(generation)``."""
         if event_handler is None:
             event_handler = _default_event_handler
+        # one run id for the whole run: every journal record carries it
+        obs_context.ensure_run_id()
         feeder = self._feeder(feeding)
         if checkpoint_manager is None and checkpoint_dir:
             from paddle_tpu_torch.trainer.checkpoint import CheckpointManager
@@ -586,6 +634,13 @@ class SGD:
             raise ValueError(
                 "oom_probe=True needs microbatch='auto' or an int")
 
+        if coordinator is not None:
+            return self._train_elastic(
+                coordinator, chunk_reader, num_passes, event_handler,
+                feeder, num_batches_per_pass, batch_size,
+                checkpoint_manager, checkpoint_period, idle_timeout,
+                worker_id, on_reshape)
+
         ckptable = hasattr(reader, "state_for") and \
             hasattr(reader, "set_state")
         self._reader_batches = reader if ckptable else None
@@ -615,6 +670,99 @@ class SGD:
             if checkpoint_manager is not None:
                 # never leave train() with a write in flight, and
                 # surface a background write error
+                checkpoint_manager.wait()
+
+    def _train_elastic(self, coordinator, chunk_reader, num_passes,
+                       event_handler, feeder, num_batches_per_pass,
+                       batch_size, checkpoint_manager, checkpoint_period,
+                       idle_timeout, worker_id, on_reshape):
+        """``train``'s elastic mode (its docstring): every coordinator
+        RPC retries with backoff, so a coordinator restarting while the
+        trainers come up delays them instead of killing them."""
+        import xmlrpc.client as xc
+
+        from paddle_tpu_torch.obs.events import emit
+        from paddle_tpu_torch.reader import batch as batch_reader
+        from paddle_tpu_torch.trainer.coordinator import (
+            RetryPolicy, call_with_retry, coordinator_epoch, task_reader)
+        if chunk_reader is None:
+            raise ValueError(
+                "coordinator mode needs chunk_reader(chunk) -> records")
+        retry = RetryPolicy()
+        joined = False
+        join_plan_meta = None
+        if worker_id is not None:
+            try:
+                resp = call_with_retry(coordinator.join, worker_id,
+                                       policy=retry)
+                joined = True
+                join_plan_meta = (resp or {}).get("memory_plan")
+            except xc.Fault:
+                warnings.warn(
+                    "coordinator has no join() RPC — running without "
+                    "elastic membership")
+
+        def on_generation_change(gen):
+            # a grant showed a new membership generation: the fleet
+            # resharded under this trainer
+            emit("trainer", "reshape", generation=int(gen),
+                 worker_id=worker_id)
+            if on_reshape is not None:
+                on_reshape(gen)
+
+        rdr = task_reader(coordinator, chunk_reader,
+                          idle_timeout=idle_timeout, retry=retry,
+                          worker_id=worker_id if joined else None,
+                          on_generation_change=on_generation_change)
+        if batch_size:
+            rdr = batch_reader(rdr, batch_size)
+        if checkpoint_manager is not None and \
+                self.restore_checkpoint(checkpoint_manager):
+            self._adopt_restored_plan()
+        self._adopt_fleet_plan(join_plan_meta)
+
+        def publish_plan():
+            # the next joiner adopts this trainer's known-safe plan from
+            # its join() response instead of probing or running out of
+            # memory on its own
+            if not joined or self._memory_exec is None:
+                return
+            pm = self._memory_exec.plan.to_meta()
+            if pm is None:
+                return
+            try:
+                call_with_retry(coordinator.put_memory_plan, pm,
+                                policy=retry)
+            except (xc.Fault, TimeoutError):
+                pass        # an older coordinator, or it is gone
+
+        publish_plan()
+        try:
+            while coordinator_epoch(coordinator, retry=retry) < num_passes:
+                pass_id = coordinator_epoch(coordinator, retry=retry)
+                self._run_pass(pass_id, rdr, feeder, event_handler,
+                               num_batches_per_pass, checkpoint_manager,
+                               checkpoint_period)
+                if checkpoint_manager is not None:
+                    self.save_checkpoint(checkpoint_manager)
+                publish_plan()
+                if coordinator_epoch(coordinator, retry=retry) == pass_id:
+                    # the reader gave up without the epoch turning
+                    # (every task dropped, or idle_timeout)
+                    warnings.warn(
+                        f"elastic training stopped at epoch {pass_id} "
+                        f"of {num_passes}: the pass never completed")
+                    break
+        finally:
+            if joined:
+                # graceful scale-in: the leased tasks go back now, with
+                # their reader position, instead of at lease expiry
+                try:
+                    call_with_retry(coordinator.leave, worker_id,
+                                    policy=retry)
+                except (xc.Fault, TimeoutError):
+                    pass        # coordinator gone: the leases expire
+            if checkpoint_manager is not None:
                 checkpoint_manager.wait()
 
     def _prefetched(self, reader, feeder, depth: int = 2):
@@ -750,9 +898,10 @@ class SGD:
                 else:
                     loss, metrics, eval_outs = self._device_step(
                         feed, n_real, rng, guarded=policy is not None)
-            del feed
             self._step_count += 1
             global_counters.bump("trainer/steps")
+            self._profile_step(feed, rng, n_real)
+            del feed
             self._batch_in_pass = batch_id + 1
             n_batches += 1
             if lazy:
@@ -913,6 +1062,24 @@ class SGD:
         if plan is not None:
             self._memory_exec.adopt(plan)
 
+    def _adopt_fleet_plan(self, meta):
+        """Elastic join: adopt the fleet's published MemoryPlan (the
+        coordinator's join() response) when this trainer has none better
+        — a restored, configured or probed plan wins — so a replacement
+        starts at the known-safe microbatch (provenance "adopted")."""
+        if self._memory_exec is None or not meta:
+            return
+        if self._memory_exec.plan.provenance != "full":
+            return
+        from paddle_tpu_torch.trainer.memory import MemoryPlan
+        plan = MemoryPlan.from_meta(meta, provenance="adopted")
+        if plan is None:
+            return
+        self._memory_exec.adopt(plan)
+        from paddle_tpu_torch.obs.events import emit
+        emit("trainer", "plan_adopted", provenance="adopted",
+             microbatch=plan.microbatch, accum_steps=plan.accum_steps)
+
     def test(self, reader, feeding=None) -> evt.TestResult:
         """One sweep of ``reader`` in test mode, with the optimizer's
         ``test_params``; the evaluators' training accumulators are kept
@@ -973,7 +1140,19 @@ def _all_finite(trees) -> torch.Tensor:
             checks.append(torch.isfinite(v).all())
 
     walk(trees)
+    if not checks:
+        return torch.tensor(True)
     return torch.stack(checks).all()
+
+
+def _raise_if_nonfinite(where: str, trees) -> None:
+    """``init(debug_nans=True)``: raise FloatingPointError when a value
+    of ``trees`` is not finite (one host read of a device bool)."""
+    if not bool(_all_finite(trees)):
+        raise FloatingPointError(
+            f"debug_nans: a non-finite value in the step's {where} "
+            "(the cost, metrics and layer state after the forward; the "
+            "gradients after the backward); no update was written")
 
 
 def _default_event_handler(e):

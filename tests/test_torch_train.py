@@ -182,13 +182,40 @@ def test_train_loop_events_and_test_pass():
     assert np.isfinite(res.cost)
     for k, v in before.items():
         np.testing.assert_array_equal(ttr.parameters[k], v)
-    # the elastic fleet's options still raise, each naming A.9's rest
-    for opt, value in (("coordinator", object()), ("chunk_reader", iter),
-                       ("batch_size", 4), ("idle_timeout", 1.0),
-                       ("worker_id", "w0"), ("on_reshape", print)):
-        with pytest.raises(NotImplementedError,
-                           match=rf"\['{opt}'\].*A\.9's rest"):
-            ttr.train(lambda: iter(batches), **{opt: value})
+    # the elastic fleet's options: each accepted, each reaching the
+    # coordinator path (trainer/coordinator.py)
+    from paddle_tpu_torch.obs.events import tail
+    from paddle_tpu_torch.trainer.coordinator import Coordinator
+    reads, reshapes, steps = [], [], []
+
+    def chunk_reader(chunk):
+        reads.append(chunk)
+        return iter(batches[chunk])         # the 3 samples of a batch
+
+    coord = Coordinator([0, 1], chunks_per_task=1)
+    # a peer joins after the first grant: the next one shows generation 2
+    coord._grant_interceptor = \
+        lambda i, g: coord.join("peer") if i == 0 else None
+    ttr.train(coordinator=coord, chunk_reader=chunk_reader, batch_size=3,
+              worker_id="w0", on_reshape=reshapes.append,
+              idle_timeout=30.0,
+              event_handler=lambda e: steps.append(e.cost)
+              if isinstance(e, tevt.EndIteration) else None)
+    assert coord.epoch == 1                 # coordinator: the pass ran
+    assert reads == [0, 1]                  # chunk_reader
+    assert len(steps) == 2                  # batch_size: 3 rows a step
+    assert coord.workers() == ["peer"]      # worker_id: joined and left
+    assert [r["worker_id"] for r in tail(50, domain="coordinator",
+                                         kind="join")] == ["w0", "peer"]
+    assert reshapes == [2]                  # on_reshape
+    # idle_timeout: the only task is held elsewhere, so the pass cannot
+    # end; the reader gives up after 0.4 s and train() stops
+    held = Coordinator([0], chunks_per_task=1)
+    assert held.get_task(0) is not None
+    with pytest.warns(UserWarning, match="never completed"):
+        ttr.train(coordinator=held, chunk_reader=chunk_reader,
+                  idle_timeout=0.4, event_handler=lambda e: None)
+    assert held.epoch == 0
 
 
 def test_params_tar_round_trips_between_packages():

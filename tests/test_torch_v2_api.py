@@ -75,10 +75,12 @@ def test_v2_namespace():
     assert y.size == 3
     assert paddle.create_parameters is paddle.trainer.create
     assert paddle.event.EndPass is paddle.trainer.event.EndPass
-    # the LayerOutput operators are installed; what waits (ROADMAP.md):
-    # the model coordinator
+    # the LayerOutput operators are installed, and the cloud-aware
+    # model save/load is exported as in the JAX package
     assert (x + x).type == "addto" and (2 * x).type == "slope_intercept"
-    assert not hasattr(paddle, "model")
+    assert "model" in paddle.__all__
+    assert callable(paddle.model.save_model) and \
+        callable(paddle.model.load_model)
 
 
 def test_init_cpu_request_and_card_rule():
