@@ -661,8 +661,38 @@ Phases (any failure exits non-zero before the final line):
    coordinators' stats() and each worker's step interval beside phase
    47's train() step alone are logged.
 
+49. parallelism plane — a world of 4 ranks as processes on this one
+   card (spawned, gloo over a file store, each rank computing on the
+   card, its collectives staged through pinned host memory), every
+   rank running the port's SGD(mesh=) on phase 7's LM at TRAIN widths
+   in float32 with TF32 off (8 global rows of 1024 tokens;
+   Momentum(1e-2)),
+   2 steps of each mode from one weight tar: (a) dp4, (b) dp2 x mp2,
+   (c) dp2 x sp2 (ring attention over 512-token blocks; ring and
+   Ulysses attention at the LM's q/k/v shapes against plain attention
+   within 1e-4), (d) dp2 x ep2 on MOE_TRAIN (8 experts, 4 a rank), (e)
+   dp2 x pp2 (3 blocks a stage) under GPipe with remat and under 1F1B
+   (their losses equal within 1e-3), (f) the 1,000,000 x 16 row-sparse
+   table under dp2 x mp2 (Adam, 4096 ids a step); each mode's losses
+   (rtol 1e-4) and gathered parameters (each tensor's update in norm
+   within 10 times the single-process run's own spread — from weights
+   scaled by 1 + 2^-22, and on the rows in reverse order — or 1e-4 of
+   it; 2e-3 for the Adam-trained table; 1e-2 for the MoE, whose
+   routing has no such spread) held against the single-process port
+   on the same card, tar and batch;
+   the flash kernels launched in every mode but (c) and (f), on their
+   float32 route. (g) two AsyncSGDIsland processes (sync_period 2) on
+   the LM, one poisoned before its 4th step: dropped and healed. (h) a
+   world of one on NCCL through SGD(mesh=data_parallel_mesh(1)). A
+   rank that fails fails the phase; a world past its deadline is
+   killed. Each mode's step_ms at 4 ranks and alone and its staged
+   bytes a step are logged beside the card's name and power limit,
+   with the note that four ranks share one card, so no figure is
+   scaling.
+
 Then logs the whole script's wall time and prints the kernel table as
-one JSON line (phases 28-48 add no kernel; the launches of phases
+one JSON line (phases 28-49 add no kernel; the float32 flash rows carry
+phase 49's launches as route_launches["mesh"]; the launches of phases
 34-39 are on their own log lines; the window kernel's launches are
 phase 3's and phase 46's, by route in route_launches — "engine" and
 "http"; the LSTM kernels' are phase 12's, phase 47's and phase 48's,
@@ -9673,6 +9703,469 @@ def phase_elastic(single_step_ms=None):
                 wall=r["wall"])
 
 
+
+# ------------------------------------------------------------ phase 49
+# the parallelism plane: four ranks as processes on the one card, over
+# gloo (NCCL refuses two ranks on one device); the collectives pass
+# through pinned host memory, so no figure of this phase is scaling
+MESH_RANKS = 4
+MESH_DEADLINE_S = 420.0            # the world's; each collective's is 60 s
+MESH_STEPS = 2
+# float32, TF32 off, mesh run against the single-process port: the
+# losses at the tests' rtol (tests/torch_parity.py); each parameter's
+# update |p - p_init| held in norm against the single-process run's,
+# within MESH_SPREAD_FACTOR times that run's own spread or
+# MESH_UPDATE_FLOOR of the update. The spread is the larger of the same
+# run's update from every initial weight scaled by 1 + MESH_SPREAD_EPS
+# (the float32 rounding of phase 23's GRAD_CHECK) and its update on the
+# batch's rows in reverse order: each gradient summed in another order,
+# which is what the ranks' reductions change. The MoE has no such
+# spread — its capacity routing depends on the rows' order, and the
+# scaled weights move a near-tie token to another expert (that run's
+# update sat up to 0.32 of its norm from the single-process run's on
+# an H100) — so it is held at MESH_MOE_BOUND, above the dense LM's
+# errors in the same runs (up to 2.5e-3) and below a missed share's
+# 0.25; the mesh's MoE routes on the products one device computes
+# (ops/moe.py), so its routing is the single-process run's.
+# Elementwise the updates are not held: a gradient summed over 8192 tokens in another
+# order moves a cancelling element by far more than its share, and
+# Adam's normalized step of a near-zero row gradient by up to its sign
+# (on an H100 the mesh runs' updates sat 0.0007-0.0026 of their norm
+# from the single-process run's at Momentum(1e-2); the row table's
+# elements up to 0.00065 against Adam's 0.01 steps), while a missed
+# shard or replica moves the norm by its share, 0.25-1.
+# The row table trains under Adam, whose step normalizes each element:
+# an id twice in the batch whose two rows pull apart has a near-zero
+# gradient that the ranks' sum (each rank's share halved, then added)
+# rounds differently from the one process's, and the step of that
+# element follows the rounding (8.45e-4 of the table's update, on an
+# H100 and on the CPU alike; its largest element, 0.00065 against
+# Adam's 0.01 steps, is id 335257's, twice in the batch with labels 1
+# and 0) — a rounding neither spread run reproduces, as both keep the
+# two-term sum.
+# Its floor is MESH_ADAM_FLOOR; a missed reduction loses whole rows'
+# steps, 0.5-1 of the norm.
+MESH_TOL = dict(rtol=1e-4)
+MESH_ADAM_FLOOR = 2e-3
+MESH_MOE_BOUND = 1e-2
+MESH_SPREAD_FACTOR = 10.0
+MESH_SPREAD_EPS = 2.0 ** -22
+MESH_UPDATE_FLOOR = 1e-4
+MESH_LR = dict(learning_rate=1e-2)
+SPARSE_VOCAB, SPARSE_EMB, SPARSE_ROWS = 1_000_000, 16, 4096
+MESH_STAGE_LAYERS = ("ln1", "q", "k", "v", "attn", "proj", "res1", "ln2",
+                     "up", "down", "res2")
+
+
+def _mesh_stages():
+    """dp2 x pp2: 3 of the 6 blocks a stage."""
+    half = TRAIN["n_layers"] // 2
+    return [[f"tfm_l{i}_{s}" for i in range(st * half, (st + 1) * half)
+             for s in MESH_STAGE_LAYERS] for st in range(2)]
+
+
+def _mesh_modes(tars):
+    """(name, mesh shape, model, tar, SGD kwargs) of runs (a)-(f)."""
+    pp = {"pipeline_stages": _mesh_stages()}
+    return [
+        ("a_dp4", [("dp", 4)], "lm", tars["lm"], {}),
+        ("b_dp2_mp2", [("dp", 2), ("mp", 2)], "lm", tars["lm"], {}),
+        ("c_dp2_sp2", [("dp", 2), ("sp", 2)], "lm", tars["lm"], {}),
+        ("d_dp2_ep2", [("dp", 2), ("ep", 2)], "moe", tars["moe"], {}),
+        ("e_dp2_pp2_gpipe", [("dp", 2), ("pp", 2)], "lm", tars["lm"],
+         dict(pp, pipeline_remat=True)),
+        ("e_dp2_pp2_1f1b", [("dp", 2), ("pp", 2)], "lm", tars["lm"],
+         dict(pp, pipeline_schedule="1f1b")),
+        ("f_dp2_mp2_sparse", [("dp", 2), ("mp", 2)], "sparse",
+         tars["sparse"], {}),
+    ]
+
+
+def _mesh_net(model):
+    """(cost, optimizer, batch) of a phase-49 model: the TRAIN LM or the
+    MoE LM in float32 (Momentum), or the 1M x 16 row-sparse table
+    (Adam) on SPARSE_ROWS seeded ids."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.registry import ParamAttr
+    if model in ("lm", "moe"):
+        spec = _lm_spec("float32", **(MOE_TRAIN if model == "moe"
+                                      else TRAIN))
+        return spec.cost, spec.output, \
+            paddle.optimizer.Momentum(**MESH_LR), _lm_batch()
+    from paddle_tpu_torch import config
+    from paddle_tpu_torch.core.registry import reset_name_counters
+    config.init(seed=0)
+    reset_name_counters()
+    ids = paddle.layer.data("ids",
+                            paddle.data_type.integer_value(SPARSE_VOCAB))
+    lbl = paddle.layer.data("y", paddle.data_type.integer_value(2))
+    e = paddle.layer.embedding(ids, size=SPARSE_EMB, name="big_emb",
+                               param_attr=ParamAttr(name="_big_emb_w",
+                                                    sparse=True))
+    out = paddle.layer.fc(e, size=2, act=paddle.activation.Softmax())
+    cost = paddle.layer.classification_cost(out, lbl)
+    rng = np.random.RandomState(49)
+    batch = [(int(rng.randint(SPARSE_VOCAB)), int(rng.randint(2)))
+             for _ in range(SPARSE_ROWS)]
+    return cost, None, paddle.optimizer.Adam(learning_rate=1e-2), batch
+
+
+def _mesh_train(model, tar, mesh, sgd_kw, perturb=0.0, reverse=False):
+    """MESH_STEPS train_batch steps of ``model`` from ``tar`` (mesh None:
+    the single-process port). ``perturb``: every initial weight scaled
+    by 1 + perturb, the returned parameters less that scaling of the
+    initial ones (so their update is the run's); ``reverse``: the
+    batch's rows in reverse order. Returns the losses,
+    the second step's wall ms, the staged bytes of that step, the flash
+    launches by route and the gathered parameters (on the card)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel.comm import staged_bytes
+    from paddle_tpu_torch.trainer import SGD, Parameters
+    cost, output, opt, batch = _mesh_net(model)
+    if reverse:
+        batch = batch[::-1]
+    with open(tar, "rb") as f:
+        params = Parameters.from_tar(f)
+    shift = {}
+    if perturb:
+        with torch.no_grad():
+            for k, v in params.raw.items():
+                shift[k] = v * perturb
+                v.mul_(1.0 + perturb)
+    trainer = SGD(cost, params, opt, mesh=mesh, **sgd_kw)
+    _flash_counts(fa, zero=True)
+    losses = [trainer.train_batch(batch)[0]]
+    torch.cuda.synchronize()
+    staged0 = staged_bytes()
+    t0 = time.perf_counter()
+    for _ in range(MESH_STEPS - 1):
+        losses.append(trainer.train_batch(batch)[0])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (MESH_STEPS - 1)
+    staged = (staged_bytes() - staged0) / (MESH_STEPS - 1)
+    launches = _flash_counts(fa)
+    full = trainer.gathered_parameters()
+    full = {k: v - shift[k] if k in shift else v for k, v in full.items()}
+    del trainer
+    return dict(losses=losses, step_ms=step_ms, staged=staged,
+                launches=launches, params=full)
+
+
+def _update_errors(got, ref_path, init_path):
+    """{parameter: (|got - ref| / |ref - init| in norm — the update's
+    relative error —, max |got - ref|)} over the reference's
+    parameters."""
+    from paddle_tpu_torch.trainer import Parameters
+    ref = torch.load(ref_path)
+    with open(init_path, "rb") as f:
+        init = Parameters.from_tar(f).raw
+    out = {}
+    for k, r in ref.items():
+        r = r.to(got[k].device)
+        d = got[k].detach() - r
+        upd = float((r - init[k].to(r.device)).double().norm())
+        err = float(d.double().norm())
+        out[k] = (err / upd if upd > 0 else (0.0 if err == 0 else
+                                              float("inf")),
+                  float(d.abs().max()))
+    return out
+
+
+def _held_updates(errors, spread, floor):
+    """The tensors whose update error passes its bound (MESH_SPREAD_FACTOR
+    x the single-process spread, None for none, at least ``floor``),
+    worst first as (name, error, bound), and the largest element
+    |diff|."""
+    rows = sorted(((k, e, max(MESH_SPREAD_FACTOR * spread[k][0]
+                              if spread else 0.0, floor))
+                   for k, (e, _) in errors.items()),
+                  key=lambda x: -x[1] / x[2])
+    return [(k, f"{e:.3g}", f"{b:.3g}") for k, e, b in rows if e > b], \
+        rows[:3], max(m for _, m in errors.values())
+
+
+def _mesh_attention_check(mesh):
+    """Ring and Ulysses attention over the sp axis at the LM's q/k/v
+    shapes (2 rows, 1024 tokens, 8 heads of 64, causal), each against
+    the plain attention of sequence_parallel on the same inputs: max
+    |err|."""
+    from paddle_tpu_torch.parallel.sequence_parallel import (
+        attention, ring_attention, ulysses_attention)
+    from paddle_tpu_torch.parallel.mesh import compute_device
+    dev = compute_device(mesh)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    T, h = TRAIN["max_len"], TRAIN["n_heads"]
+    q, k, v = (torch.randn((2, T, h, TRAIN["d_model"] // h), device=dev,
+                           generator=gen) for _ in range(3))
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                 device=dev))[None].expand(2, T, T)
+    with torch.no_grad():
+        ref = attention(q, k, v, mask)
+        ring = ring_attention(q, k, v, mesh, causal=True)
+        uly = ulysses_attention(q, k, v, mesh, causal=True)
+    return {"ring": float((ring - ref).abs().max()),
+            "ulysses": float((uly - ref).abs().max())}
+
+
+def _mesh_world_rank(rank, world, store, out, plan):
+    """One rank of phase 49's worlds: join the group (gloo, the card),
+    run the plan's modes and checks, write (status, results)."""
+    import pickle
+    import traceback
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch.parallel import create_mesh, init_distributed
+        paddle.init(seed=0)
+        init_distributed(f"file://{store}", world, rank, timeout_s=60)
+        import torch.distributed as dist
+        res = {}
+        for name, shape, model, tar, kw in plan.get("modes", ()):
+            mesh = create_mesh(shape)
+            r = _mesh_train(model, tar, mesh, kw)
+            if name.startswith("c_"):
+                r["attention"] = _mesh_attention_check(mesh)
+            params = r.pop("params")
+            if rank == 0:
+                r["errors"] = _update_errors(params, plan["refs"][name], tar)
+            del params
+            gc_collect()
+            res[name] = r
+        if plan.get("islands"):
+            res["islands"] = _mesh_islands(rank, world, plan["islands"])
+        dist.barrier()
+        dist.destroy_process_group()
+        with open(out, "wb") as f:
+            pickle.dump(("ok", res), f)
+    except BaseException:
+        with open(out, "wb") as f:
+            pickle.dump(("err", traceback.format_exc()), f)
+        os._exit(1)
+
+
+def _mesh_islands(rank, world, tar):
+    """(g): an AsyncSGDIsland a process (sync_period 2) over the TRAIN
+    LM from ``tar``, each on its own 4 seeded rows; the last rank's
+    parameters go NaN before its 4th step, so the reconcile after it
+    drops that island and both hold the healthy one's. Returns the
+    losses, the poisoned-island count, and a per-parameter float64 sum
+    after the healing reconcile."""
+    from paddle_tpu_torch.parallel import AsyncSGDIsland
+    from paddle_tpu_torch.trainer import SGD, Parameters
+    from paddle_tpu_torch.utils.stats import global_counters
+    cost, _, opt, _ = _mesh_net("lm")
+    with open(tar, "rb") as f:
+        params = Parameters.from_tar(f)
+    island = AsyncSGDIsland(SGD(cost, params, opt), sync_period=2)
+    batch = _lm_batch(seed=100 + rank)[:4]
+    losses = []
+    for step in range(4):
+        if rank == world - 1 and step == 3:
+            with torch.no_grad():
+                for p in params.raw.values():
+                    p.fill_(float("nan"))
+        losses.append(island.train_batch(batch)[0])
+    sums = [float(params.raw[k].detach().double().sum())
+            for k in sorted(params.raw)]
+    return dict(losses=losses, sums=sums,
+                poisoned=global_counters.value("parallel/poisoned_islands"))
+
+
+def _run_mesh_world(world, plan, work, deadline_s=MESH_DEADLINE_S):
+    """Spawn ``world`` ranks of ``_mesh_world_rank`` over a file store in
+    ``work``; a rank that fails fails the world at once, and a world
+    still running at the deadline is killed. Returns the ranks'
+    results."""
+    import multiprocessing as mp
+    import pickle
+    ctx = mp.get_context("spawn")
+    store = os.path.join(work, f"store{world}")
+    outs = [os.path.join(work, f"rank{world}_{r}.pkl") for r in range(world)]
+    procs = [ctx.Process(target=_mesh_world_rank,
+                         args=(r, world, store, outs[r], plan))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + deadline_s
+    try:
+        while any(p.is_alive() for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.exitcode not in (None, 0)]
+            if bad:
+                raise AssertionError(f"rank {bad[0]} of {world} failed:\n"
+                                     + _pickled(outs[bad[0]]))
+            if time.monotonic() > end:
+                raise AssertionError(f"the world of {world} ran past "
+                                     f"{deadline_s} s: killed")
+            time.sleep(0.1)
+        res = []
+        for r, p in enumerate(procs):
+            status, val = pickle.load(open(outs[r], "rb"))
+            if p.exitcode != 0 or status != "ok":
+                raise AssertionError(f"rank {r} of {world} failed:\n{val}")
+            res.append(val)
+        return res
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+
+
+def _pickled(path):
+    import pickle
+    try:
+        return pickle.load(open(path, "rb"))[1]
+    except Exception:
+        return "(no traceback written)"
+
+
+def phase_mesh():
+    """Phase 49: the parallelism plane on the card (module docstring).
+    Returns {flash kernel: launches on its float32 route} of the four
+    ranks' runs."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.core.topology import Topology
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel import data_parallel_mesh
+    from paddle_tpu_torch.trainer import create
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    gc_collect()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = tempfile.mkdtemp(prefix="phase49-")
+    try:
+        tars = {}
+        for model in ("lm", "moe", "sparse"):
+            cost, output, _, _ = _mesh_net(model)
+            topo = Topology(cost, extra_outputs=[output] if output else [])
+            params = create(topo, torch.Generator().manual_seed(0))
+            tars[model] = os.path.join(work, f"{model}.tar")
+            with open(tars[model], "wb") as f:
+                params.to_tar(f)
+            del params
+        modes = _mesh_modes(tars)
+        alone, refs, spread = {}, {}, {}
+        for name, _, model, tar, _ in modes:
+            r = _mesh_train(model, tar, None, {})
+            refs[name] = os.path.join(work, f"ref_{name}.pt")
+            torch.save({k: v.cpu() for k, v in r.pop("params").items()},
+                       refs[name])
+            alone[name] = r
+            if model == "moe":
+                continue
+            errs = [_update_errors(
+                _mesh_train(model, tar, None, {}, **kw)["params"],
+                refs[name], tar)
+                for kw in (dict(perturb=MESH_SPREAD_EPS),
+                           dict(reverse=True))]
+            spread[name] = {k: max(e[k] for e in errs) for k in errs[0]}
+            gc_collect()
+        t_world = time.perf_counter()
+        ranks = _run_mesh_world(MESH_RANKS, {"modes": modes, "refs": refs},
+                                work)
+        world_s = time.perf_counter() - t_world
+        islands = _run_mesh_world(2, {"islands": tars["lm"]}, work)
+        # (h) a world of one on NCCL: SGD(mesh=data_parallel_mesh(1))
+        one = _mesh_train("lm", tars["lm"], data_parallel_mesh(1), {})
+        backend = dist.get_backend()
+        dist.destroy_process_group()
+        one_err = _update_errors(one.pop("params"), refs["a_dp4"],
+                                 tars["lm"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+
+    failures = []
+    f32_route = {n: fa.flash_route(n, torch.float32)
+                 for n in ("fwd", "dq", "dkv")}
+    mesh_launches = dict.fromkeys(f32_route, 0)
+    for name, shape, model, _, _ in modes:
+        rs = [r[name] for r in ranks]
+        ref = alone[name]
+        for i, r in enumerate(rs):
+            if not np.allclose(r["losses"], ref["losses"],
+                               rtol=MESH_TOL["rtol"], atol=0):
+                failures.append(f"{name} rank {i} losses {r['losses']} "
+                                f"!= alone {ref['losses']}")
+        off, top, worst = _held_updates(
+            rs[0]["errors"], spread.get(name),
+            {"sparse": MESH_ADAM_FLOOR,
+             "moe": MESH_MOE_BOUND}.get(model, MESH_UPDATE_FLOOR))
+        if off:
+            failures.append(f"{name}: updates off the single-process "
+                            f"run's past their bounds (name, error, "
+                            f"bound): {off}")
+        top = [(k, f"{e:.3g}", f"{b:.3g}") for k, e, b in top]
+        got = {n: sum(r["launches"][n][f32_route[n]] for r in rs)
+               for n in f32_route}
+        for n in f32_route:
+            mesh_launches[n] += got[n]
+        flash = model != "sparse" and not name.startswith("c_")
+        if flash and min(got.values()) < 1:
+            failures.append(f"{name}: no float32 flash launch {got}")
+        if not flash and max(got.values()) > 0:
+            failures.append(f"{name}: flash launched {got} where the ring "
+                            "or no attention runs")
+        log(f"mesh ({card}): ({name[0]}) {dict(shape)} {model}: losses "
+            f"{[round(x, 6) for x in rs[0]['losses']]} (alone "
+            f"{[round(x, 6) for x in ref['losses']]}); updates' relative "
+            f"error in norm against its bound, the tensors nearest it "
+            f"(name, error, bound) {top}, params max |diff| "
+            f"{worst:.3g}; step_ms at 4 ranks {rs[0]['step_ms']:.3f} "
+            f"(ranks {[round(r['step_ms'], 3) for r in rs]}), alone "
+            f"{ref['step_ms']:.3f}; staged bytes per step (rank 0) "
+            f"{rs[0]['staged']:.0f}; float32 flash launches {got}")
+    g, f = ranks[0]["e_dp2_pp2_gpipe"], ranks[0]["e_dp2_pp2_1f1b"]
+    if abs(g["losses"][0] - f["losses"][0]) >= 1e-3:
+        failures.append(f"GPipe {g['losses']} and 1F1B {f['losses']} "
+                        "disagree")
+    att = ranks[0]["c_dp2_sp2"]["attention"]
+    if max(att.values()) > 1e-4:
+        failures.append(f"ring/Ulysses attention off plain: {att}")
+    log(f"mesh ({card}): (c) sp2 over 512-token blocks at the LM's q/k/v "
+        f"(2 x 1024 x 8 x 64, causal) against plain attention: max |err| "
+        f"{att}")
+    i0, i1 = (r["islands"] for r in islands)
+    healed = i0["sums"] == i1["sums"] and all(np.isfinite(i0["sums"]))
+    if not (healed and i1["poisoned"] == 1 and i0["poisoned"] == 0):
+        failures.append(f"islands not dropped and healed: poisoned "
+                        f"{i0['poisoned']}/{i1['poisoned']}, sums equal "
+                        f"{i0['sums'] == i1['sums']}")
+    log(f"mesh ({card}): (g) two AsyncSGDIsland processes, sync_period 2, "
+        f"island 1 poisoned before its step 4: dropped "
+        f"(parallel/poisoned_islands {i1['poisoned']}) and healed "
+        f"(parameters equal and finite: {healed}); losses {i0['losses']} / "
+        f"{i1['losses']}")
+    worst = max(m for _, m in one_err.values())
+    if backend != "nccl" or worst > 0.0 or \
+            not np.allclose(one["losses"], alone["a_dp4"]["losses"],
+                            rtol=MESH_TOL["rtol"], atol=0):
+        failures.append(f"(h) world of one on {backend}: losses "
+                        f"{one['losses']}, params max |diff| {worst:.3g}")
+    log(f"mesh ({card}): (h) world of one on {backend} through "
+        f"SGD(mesh=data_parallel_mesh(1)): losses {one['losses']}, params "
+        f"max |diff| {worst:.3g}, step_ms {one['step_ms']:.3f}")
+    log(f"mesh ({card}): four ranks share ONE card over gloo, their "
+        f"collectives staged through pinned host memory: no figure of "
+        f"this phase is multi-card scaling; world of 4 {world_s:.1f} s, "
+        f"phase {time.perf_counter() - t_phase:.1f} s; float32 flash "
+        f"launches of the four ranks {mesh_launches}")
+    if failures:
+        raise AssertionError("phase 49: " + "; ".join(failures))
+    return mesh_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -9760,6 +10253,8 @@ def main():
     infra = phase_train_infra()
     # the elastic fleet (phase 48): worker processes on this card
     elastic = phase_elastic(infra["timing"]["train"])
+    # the parallelism plane (phase 49): four ranks sharing this card
+    mesh_launches = phase_mesh()
     kernels = [dict(
         name="paged_window_attention", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",
@@ -9776,12 +10271,15 @@ def main():
             max_abs_err=flash_err[(name, torch.bfloat16)],
             **flash_timing[(name, torch.bfloat16)]))
     for name, line, _, _ in FLASH_KERNELS:
-        # float32, the framework's default dtype (phase 24)
+        # float32, the framework's default dtype (phase 24), and the
+        # four ranks of phase 49 (route "mesh")
         kernels.append(dict(
             name=f"flash_attention_{name}_f32", route="cuda",
             source=f"paddle_tpu_torch/csrc/{FLASH_F32_SOURCES[name]}",
             replaces=f"paddle_tpu/ops/pallas_attention.py:{line}",
-            launches=f32_launches[name],
+            launches=f32_launches[name] + mesh_launches[name],
+            route_launches={"train": f32_launches[name],
+                            "mesh": mesh_launches[name]},
             max_abs_err=flash_err[(name, torch.float32)],
             **flash_timing[(name, torch.float32)]))
     rnn_launches = {

@@ -465,8 +465,16 @@ def _cmd_train(args) -> int:
     if args.job == "dump_config":
         print(_topo_from_ns(_load_config(args.config)).serialize())
         return 0
-    paddle.init(use_tpu=args.use_tpu, seed=args.seed,
-                compute_dtype=args.dtype, log_period=args.log_period)
+    paddle.init(use_tpu=args.use_tpu, trainer_count=args.trainer_count,
+                seed=args.seed, compute_dtype=args.dtype,
+                log_period=args.log_period)
+    if args.trainer_count > 1:
+        # data parallelism over the launcher's process group (torchrun
+        # sets MASTER_ADDR / WORLD_SIZE / RANK): every rank runs this
+        # command, and SGD builds the dp mesh
+        from paddle_tpu_torch.parallel import init_distributed
+        init_distributed(device_type="cpu" if args.use_tpu is False
+                         else None)
     _wire_obs(args)
     from paddle_tpu_torch.obs.events import JOURNAL
     JOURNAL.emit("trainer", "run_start", job=args.job, config=args.config)
@@ -511,6 +519,10 @@ def _add_train_parser(sub) -> None:
                     default=None,
                     help="the accelerator, as init(use_tpu=): false runs "
                          "the job on the CPU (default: the card)")
+    tr.add_argument("--trainer_count", type=int, default=1,
+                    help="data-parallel trainers: > 1 trains on a dp "
+                         "mesh over the process group a launcher forms "
+                         "(one rank a trainer)")
     tr.add_argument("--num_passes", type=int, default=None)
     tr.add_argument("--batch_size", type=int, default=128,
                     help="--job=time/profile synthetic batch size; "

@@ -21,8 +21,15 @@ One typed config object, read by the ops and layers at call time:
   and raises ``FloatingPointError`` at the first non-finite value,
   before the update writes anything.
 
-The JAX package's ``trainer_count`` and process index/count have no
-counterpart in the port.
+- ``trainer_count``: data parallelism without an explicit mesh, the
+  v2 contract. ``SGD(mesh=None)`` with ``trainer_count > 1`` trains on
+  a dp mesh over the initialized process group
+  (``parallel.init_distributed``), one rank per trainer; with no group,
+  or one of a single rank, it warns and trains on one device, as the
+  JAX package does when it sees one device. A group smaller than the
+  count gives dp = its size (with a warning); a larger one raises.
+- ``process_index`` / ``process_count``: this rank and the world size,
+  recorded by ``parallel.init_distributed`` (0 and 1 without a group).
 """
 
 from __future__ import annotations
@@ -39,6 +46,9 @@ class GlobalConfig:
     use_flash_attention: bool = True
     device: Optional[str] = None
     debug_nans: bool = False
+    trainer_count: int = 1
+    process_index: int = 0
+    process_count: int = 1
     initialized: bool = False
 
 
@@ -52,9 +62,9 @@ def init(use_tpu: Optional[bool] = None, use_gpu: Optional[bool] = None,
          **kwargs) -> GlobalConfig:
     """paddle.v2.init counterpart. ``use_tpu`` (or, when it is None,
     ``use_gpu``) False asks for the CPU; None or True for the card.
-    ``trainer_count`` is accepted for source compatibility: the port
-    trains on one device. ``debug_nans`` is set and cleared by each
-    call, as the JAX package's is."""
+    ``trainer_count`` > 1 makes ``SGD`` train data-parallel over the
+    process group (the module docstring). ``debug_nans`` is set and
+    cleared by each call, as the JAX package's is."""
     if compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                          f"got {compute_dtype!r}")
@@ -65,6 +75,7 @@ def init(use_tpu: Optional[bool] = None, use_gpu: Optional[bool] = None,
     _g.log_period = log_period
     _g.use_flash_attention = bool(use_flash_attention)
     _g.debug_nans = bool(debug_nans)
+    _g.trainer_count = int(trainer_count)
     _g.initialized = True
     return _g
 

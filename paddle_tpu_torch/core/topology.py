@@ -130,7 +130,8 @@ class Topology:
                 rng: Optional[int] = None,
                 output_names: Optional[Sequence[str]] = None,
                 sparse_sub: Optional[Dict[str, Any]] = None,
-                mesh=None, n_real=None,
+                injected: Optional[Dict[str, Any]] = None,
+                skip: Sequence[str] = (), mesh=None, n_real=None,
                 taps: Optional[Dict[str, Any]] = None):
         """One forward pass. Returns (outputs_dict, new_state);
         ``outputs_dict`` maps layer name -> value for the requested
@@ -138,28 +139,38 @@ class Topology:
         layers (dropout) of a train step, ``ApplyContext.rng_for``.
         ``sparse_sub``: {table name: (uids, rows)} prefetched row blocks
         — embedding layers whose table appears there look ids up inside
-        the block, so gradients stay row-sparse. ``taps``: {layer name:
+        the block, so gradients stay row-sparse (an entry may carry the
+        table's global row count third, for a table held as a shard).
+        ``injected`` / ``skip``: values computed elsewhere (the
+        pipelined body's output) and layer names NOT to run here; a
+        skipped value that is not injected and is consumed downstream
+        raises KeyError. ``mesh``: the trainer's device mesh
+        (parallel/mesh.py); layers read it to take their sharded paths
+        (ring attention over sp, the MoE's global routing and ep
+        experts, batch statistics over dp). ``taps``: {layer name:
         tensor added to that layer's output (its payload, for a
         sequence)}; a None entry is filled with a fresh zero leaf that
         requires grad, so that autograd's gradient of the caller's loss
         with respect to it is d(loss)/d(output) (gradient_printer)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet (the parallelism slice, "
-                "ROADMAP.md queue A.10)")
         with torch.no_grad() if self.generates else contextlib.nullcontext():
             return self._forward(params, state, feed, mode, rng,
-                                 output_names, n_real, sparse_sub, taps)
+                                 output_names, n_real, sparse_sub, taps,
+                                 injected, skip, mesh)
 
     def _forward(self, params, state, feed, mode, rng, output_names,
-                 n_real, sparse_sub=None, taps=None):
+                 n_real, sparse_sub=None, taps=None, injected=None,
+                 skip=(), mesh=None):
         ctx = ApplyContext(mode, state, rng)
         ctx.n_real = n_real
         ctx.sparse_sub = sparse_sub
-        values: Dict[str, Any] = {}
+        ctx.mesh = mesh
+        values: Dict[str, Any] = dict(injected or {})
+        skip_set = set(skip)
         wanted = set(output_names) if output_names is not None else \
             {o.name for o in self.outputs}
         for layer in self.layers:
+            if layer.name in values or layer.name in skip_set:
+                continue
             impl = get_layer_impl(layer.type)
             if layer.type == "data":
                 if layer.name not in feed:

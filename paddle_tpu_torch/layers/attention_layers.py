@@ -10,8 +10,9 @@ the TPU, and its flash kernel). As in the JAX layer, only
 ``kv_lens=ks.lengths`` is passed: rows past a sequence's length still
 attend to its valid columns, and the cost layer masks them.
 
-Ring attention over a mesh ``sp`` axis comes with the parallelism
-slice.
+When the trainer's mesh has an ``sp`` axis of size > 1, attention runs
+as a ring over it instead (parallel/sequence_parallel.py), as the JAX
+layer does.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import torch
 
 from paddle_tpu_torch.core.registry import (LayerMeta, make_layer,
                                             register_layer)
+from paddle_tpu_torch.parallel.mesh import SP_AXIS, live
+from paddle_tpu_torch.parallel.sequence_parallel import ring_attention
 
 
 def _split_heads(x: torch.Tensor, h: int) -> torch.Tensor:
@@ -59,10 +62,6 @@ class DotProductAttentionLayer:
         h = cfg.get("num_heads", 1)
         kv_h = cfg.get("num_kv_heads") or h
         causal = cfg.get("causal", False)
-        if getattr(ctx, "mesh", None) is not None:
-            raise NotImplementedError(
-                "ring attention over a mesh sp axis is not ported yet "
-                "(the parallelism slice)")
         q = _split_heads(qs.data, h)
         k = _split_heads(ks.data, kv_h)
         v = _split_heads(vs.data, kv_h)
@@ -71,8 +70,13 @@ class DotProductAttentionLayer:
             # heads — repeated to full width for the kernels
             k = torch.repeat_interleave(k, h // kv_h, dim=2)
             v = torch.repeat_interleave(v, h // kv_h, dim=2)
-        if (q.device.type == "cuda" and global_config().use_flash_attention
-                and flash.flash_supported(q, k)):
+        mesh = getattr(ctx, "mesh", None)
+        if live(mesh, SP_AXIS):
+            out = ring_attention(q, k, v, mesh, lengths=ks.lengths,
+                                 causal=causal)
+        elif (q.device.type == "cuda" and
+                global_config().use_flash_attention and
+                flash.flash_supported(q, k)):
             out = flash.flash_attention(q, k, v, kv_lens=ks.lengths,
                                         causal=causal)
         else:

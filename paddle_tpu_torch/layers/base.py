@@ -175,8 +175,11 @@ class EmbeddingLayer:
         table = params[pname]
         sub = ctx.sparse_sub
         if sub and pname in sub:
-            uids, rows = sub[pname]
-            out = emb_ops.row_sub_lookup(uids, rows, ids, table.shape[0],
+            uids, rows = sub[pname][:2]
+            # a table held as an mp shard: the global row count rides
+            # third in the entry
+            vocab = sub[pname][2] if len(sub[pname]) > 2 else table.shape[0]
+            out = emb_ops.row_sub_lookup(uids, rows, ids, vocab,
                                          pad_id=cfg.get("pad_id", -1))
         else:
             out = emb_ops.embedding_lookup(table, ids,
@@ -318,7 +321,8 @@ class BatchNormLayer:
         else:
             y, nm, nv = norm_ops.batch_norm_train(
                 xr, gamma, beta, mm, mv,
-                momentum=cfg.get("moving_average_fraction", 0.9))
+                momentum=cfg.get("moving_average_fraction", 0.9),
+                mesh=ctx.mesh)
             ctx.set_state(f"_{name}.moving_mean", nm)
             ctx.set_state(f"_{name}.moving_var", nv)
         if flat_image:

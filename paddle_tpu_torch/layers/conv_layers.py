@@ -139,8 +139,10 @@ class ConvBNLayer:
         eps = cfg.get("epsilon", 1e-5)
         train = ctx.is_train and not cfg.get("use_global_stats")
         mom = cfg.get("moving_average_fraction", 0.9)
+        # batch statistics over a dp mesh reduce across ranks: the
+        # unfused path carries that reduction
         fusable = (cfg.get("fuse_stats") and k == 1 and s == 1
-                   and p == 0 and d == 1)
+                   and p == 0 and d == 1 and not _dp_live(ctx))
         if train and fusable:
             y, mean, var = fused_ops.conv_bn_train(x, w, gamma, beta, eps)
             ctx.set_state(f"_{name}.moving_mean",
@@ -151,13 +153,19 @@ class ConvBNLayer:
             c = conv_ops.conv2d(x, w, stride=s, padding=p, dilation=d)
             if train:
                 y, nm, nv = norm_ops.batch_norm_train(
-                    c, gamma, beta, mm, mv, momentum=mom, eps=eps)
+                    c, gamma, beta, mm, mv, momentum=mom, eps=eps,
+                    mesh=ctx.mesh)
                 ctx.set_state(f"_{name}.moving_mean", nm)
                 ctx.set_state(f"_{name}.moving_var", nv)
             else:
                 y = norm_ops.batch_norm_infer(c, gamma, beta, mm, mv,
                                               eps=eps)
         return act_ops.get(cfg.get("act", "linear"))(y)
+
+
+def _dp_live(ctx) -> bool:
+    from paddle_tpu_torch.parallel.mesh import DP_AXIS, live
+    return live(ctx.mesh, DP_AXIS)
 
 
 @register_layer("pool")

@@ -118,6 +118,16 @@ class MoEAuxCostLayer:
     def apply(ctx, name, cfg, params, inputs):
         v = inputs[0]
         x2d, valid, _ = _flatten(v, ctx)
+        mesh = getattr(ctx, "mesh", None)
+        from paddle_tpu_torch.parallel.mesh import DP_AXIS, live
+        if live(mesh, DP_AXIS):
+            # the router's balance over the GLOBAL batch's tokens
+            from paddle_tpu_torch.parallel import comm
+            x2d = comm.all_gather(x2d, mesh, DP_AXIS, 0)
+            if valid is not None:
+                with torch.no_grad():
+                    valid = comm.all_gather(valid.float(), mesh, DP_AXIS,
+                                            0)
         logits = x2d.float() @ params[cfg["_gate"]].float()
         aux = moe_ops.moe_aux_loss(logits, valid)
         b = v.data.shape[0] if isinstance(v, SequenceBatch) else v.shape[0]
@@ -129,7 +139,7 @@ def moe(input, expert_num: int, expert_hidden=None, k: int = 2,
         capacity_factor: float = 1.25, name=None, param_attr=None,
         dispatch_mode: str = "auto", **kw):
     """Mixture-of-experts FFN layer (see MoELayer). dispatch_mode:
-    'auto' (the default; 'sort' in the port, which has no ep mesh),
+    'auto' (the default: 'sort', or 'einsum' under an ep mesh),
     'einsum' (dense [n, E, C] dispatch tensors) or 'sort' (argsort and
     scatter)."""
     return make_layer("moe", name, [input], expert_num=expert_num,

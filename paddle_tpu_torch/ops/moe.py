@@ -7,18 +7,42 @@ computes it with PyTorch's own operations: ``torch.argsort``, gathers,
 ``index_add`` and batched products. No kernel is written for it.
 
 - :func:`moe_dispatch`: the k-round argmax routing as dense one-hot
-  ``dispatch`` / ``combine`` tensors ``[n, E, C]`` (the einsum path).
+  ``dispatch`` / ``combine`` tensors ``[n, E, C]``, whose einsums
+  define the einsum path's function.
 - :func:`moe_sorted_ffn`: the same routing by a stable argsort on the
   expert id and a scatter into ``[E*C + 1, d]`` expert buffers, whose
   last row takes every dropped entry and is sliced off; it never
   materializes ``[n, E, C]``.
 - :func:`moe_ffn`: the block, ``dispatch_mode`` "einsum", "sort" or
-  "auto". The port has no ``ep`` mesh, so "auto" is "sort", as in the
-  JAX package without one, and a ``mesh`` raises.
+  "auto" ("einsum" under an ep mesh of size > 1, "sort" otherwise, as
+  in the JAX package).
+
+The einsum path's function is computed without its ``[n, E, C]``
+tensors (``_experts_ffn``), which at 8192 tokens and 8 experts would
+hold 0.67 GB each a layer: the routing's placements put each kept
+token into its expert's buffer slot by a scatter, and each token
+gathers its kept slots' outputs with the combine weights (a token
+holds at most one slot per expert). One function serves one device
+and every mesh. Under a mesh (parallel/mesh.py) routing runs over the
+GLOBAL token order, as the one global JAX program's does: the block
+all-gathers its tokens over dp (differentiably) and routes them all,
+so the capacity and each token's position in its expert's buffer see
+the whole global batch, and the gate logits are the single-device
+product's, row for row. Under ``ep`` each rank holds E/ep experts
+(``[E/ep, d, f]`` tables, parallel/tensor_parallel.py); the dp ranks
+of an ep group split those experts further (where dp divides E/ep),
+each filling its experts' buffers from every global token, and an
+all-gather over dp returns the outputs. Each rank combines its own
+rows, and one all-reduce over ep sums the experts' shares. The ranks
+of an ep group hold the same tokens (the feed is split over dp only),
+so that all-reduce takes the place of the token all-to-all a
+token-sharded layout needs. So a rank of dp x ep runs 1/(dp * ep) of
+the expert work.
 
 Routing runs in float32 at every compute dtype: the gate logits are
-``x.float() @ gate.float()`` and ``dispatch`` / ``combine`` are built in
-float32, then cast to the activation dtype for the expert products.
+``x.float() @ gate.float()`` and the placements and combine weights
+are built in float32, then cast to the activation dtype for the expert
+products.
 ``torch.argmax`` returns the first maximum, as ``jnp.argmax`` does, so
 a row of zero probabilities (``valid`` 0) lands on expert 0 and is
 masked out by ``valid``.
@@ -119,19 +143,11 @@ def moe_dispatch(gate_logits: torch.Tensor, valid: Optional[torch.Tensor],
     n, num_experts = gate_logits.shape
     _check_k(k, num_experts)
     dev = gate_logits.device
-    valid = _valid(valid, n, dev)
-    probs = torch.softmax(gate_logits.float(), dim=-1) * valid[:, None]
-    fill = torch.zeros((num_experts,), dtype=torch.float32, device=dev)
+    rounds, probs, aux = _placements(gate_logits, valid, k, capacity)
     dispatch = torch.zeros((n, num_experts, capacity), dtype=torch.float32,
                            device=dev)
     combine = torch.zeros_like(dispatch)
-    rounds = _route(probs, valid, k)
-    for _, onehot in rounds:
-        gate_j = torch.sum(probs * onehot, dim=-1)
-        pos = torch.cumsum(onehot, dim=0) - onehot + fill[None, :]
-        pos_tok = torch.sum(pos * onehot, dim=-1)
-        keep = ((pos_tok < capacity) & (gate_j > 0)).float()
-        fill = fill + torch.sum(onehot * keep[:, None], dim=0)
+    for onehot, gate_j, pos_tok, keep in rounds:
         slot = _one_hot(pos_tok, capacity)     # zero past the capacity
         placed = (onehot * keep[:, None])[:, :, None] * slot[:, None, :]
         dispatch = dispatch + placed
@@ -139,7 +155,31 @@ def moe_dispatch(gate_logits: torch.Tensor, valid: Optional[torch.Tensor],
     if normalize and k > 1:
         total = torch.sum(combine, dim=(1, 2), keepdim=True)
         combine = combine / torch.clamp(total, min=1e-9)
-    return dispatch, combine, _aux(probs, rounds[0][1], valid)
+    return dispatch, combine, aux
+
+
+def _placements(gate_logits, valid, k: int, capacity: int):
+    """The einsum path's routing as per-round placements: for each of
+    the k rounds (the expert one-hot [n, E] — zero on invalid rows —,
+    the gate [n], the position in the expert's buffer [n], keep [n]
+    0/1: below the capacity with a live gate), the masked probabilities
+    and the aux loss. A token's position is the count kept there in
+    earlier rounds plus the earlier tokens of this round."""
+    n, num_experts = gate_logits.shape
+    dev = gate_logits.device
+    valid = _valid(valid, n, dev)
+    probs = torch.softmax(gate_logits.float(), dim=-1) * valid[:, None]
+    fill = torch.zeros((num_experts,), dtype=torch.float32, device=dev)
+    rounds = _route(probs, valid, k)
+    out = []
+    for _, onehot in rounds:
+        gate_j = torch.sum(probs * onehot, dim=-1)
+        pos = torch.cumsum(onehot, dim=0) - onehot + fill[None, :]
+        pos_tok = torch.sum(pos * onehot, dim=-1)
+        keep = ((pos_tok < capacity) & (gate_j > 0)).float()
+        fill = fill + torch.sum(onehot * keep[:, None], dim=0)
+        out.append((onehot, gate_j, pos_tok, keep))
+    return out, probs, _aux(probs, rounds[0][1], valid)
 
 
 def moe_sorted_ffn(x: torch.Tensor, valid: Optional[torch.Tensor],
@@ -209,38 +249,107 @@ def moe_ffn(x: torch.Tensor, valid: Optional[torch.Tensor],
             gate_w: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
             *, k: int = 2, capacity_factor: float = 1.25,
             capacity: Optional[int] = None, act: Act = torch.relu,
-            mesh=None, dispatch_mode: str = "einsum"
+            mesh=None, ep_axis: str = "ep", dispatch_mode: str = "einsum"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [n, d] -> (y [n, d], aux loss).
 
-    gate_w [d, E]; w_up [E, d, f]; w_down [E, f, d]. ``capacity``
-    overrides the factor-derived per-expert buffer (capacity=n routes
-    drop-free). ``dispatch_mode`` "auto" is "sort": the port has no
-    ``ep`` mesh, whose dispatch einsum would carry the token
-    all-to-all."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "an expert-parallel (ep) mesh is not ported yet (the "
-            "parallelism slice, ROADMAP.md queue A.10)")
+    gate_w [d, E]; w_up [E, d, f]; w_down [E, f, d] (or this rank's
+    [E/ep, ...] experts under an ep mesh). ``capacity`` overrides the
+    factor-derived per-expert buffer (capacity=n routes drop-free).
+    ``dispatch_mode`` "auto" is "einsum" under an ep mesh of size > 1
+    and "sort" otherwise; "sort" under ep raises, as in the JAX
+    package. With a ``mesh`` whose dp or ep axis is live, x is this
+    rank's rows and the routing is the global batch's (module
+    docstring); there "sort" computes its function — the einsum
+    path's — by the mesh's split of the expert work."""
+    from paddle_tpu_torch.parallel.mesh import DP_AXIS, axis_size
+    ep = axis_size(mesh, ep_axis)
     if dispatch_mode == "auto":
-        dispatch_mode = "sort"
-    if dispatch_mode == "sort":
+        dispatch_mode = "einsum" if ep > 1 else "sort"
+    if dispatch_mode not in ("einsum", "sort"):
+        raise ValueError(f"dispatch_mode must be 'einsum', 'sort' or "
+                         f"'auto', got {dispatch_mode!r}")
+    if dispatch_mode == "sort" and ep > 1:
+        raise ValueError("dispatch_mode='sort' is single-host; use "
+                         "'einsum' under ep")
+    if dispatch_mode == "sort" and axis_size(mesh, DP_AXIS) == 1:
         return moe_sorted_ffn(x, valid, gate_w, w_up, w_down, k=k,
                               capacity_factor=capacity_factor,
                               capacity=capacity, act=act)
-    if dispatch_mode != "einsum":
-        raise ValueError(f"dispatch_mode must be 'einsum', 'sort' or "
-                         f"'auto', got {dispatch_mode!r}")
-    n = x.shape[0]
+    return _experts_ffn(x, valid, gate_w, w_up, w_down, k=k,
+                        capacity_factor=capacity_factor, capacity=capacity,
+                        act=act, mesh=mesh, ep_axis=ep_axis)
+
+
+def _experts_ffn(x, valid, gate_w, w_up, w_down, *, k: int,
+                 capacity_factor: float, capacity: Optional[int], act: Act,
+                 mesh=None, ep_axis: str = "ep", normalize: bool = True):
+    """The einsum path's function for this rank's rows, run by this
+    rank's share of the expert work (module docstring): of its ep
+    rank's experts [e_ep, e_ep + E/ep), the dp rank's block of E/ep/dp
+    (all of them where dp does not divide E/ep), fed from every global
+    token. The combine weights are normalized over all of a token's
+    kept slots, the other ranks' experts included. Without a mesh every
+    collective is the identity."""
+    from paddle_tpu_torch.parallel import comm
+    from paddle_tpu_torch.parallel.mesh import DP_AXIS, axis_index, axis_size
+    n_local, d = x.shape
     num_experts = gate_w.shape[-1]
+    _check_k(k, num_experts)
+    dp, ep = axis_size(mesh, DP_AXIS), axis_size(mesh, ep_axis)
+    if num_experts % ep:
+        raise ValueError(f"ep={ep} must divide the {num_experts} experts")
+    e_local = num_experts // ep
+    e_ep = axis_index(mesh, ep_axis) * e_local
+    if w_up.shape[0] != e_local:            # full tables given
+        w_up, w_down = w_up[e_ep:e_ep + e_local], w_down[e_ep:e_ep + e_local]
+    split = e_local % dp == 0
+    e_mine = e_local // dp if split else e_local
+    e0 = e_ep + (axis_index(mesh, DP_AXIS) * e_mine if split else 0)
+    dev, cdt = x.device, x.dtype
+    xg = comm.all_gather(x, mesh, DP_AXIS, 0)
+    vg = None
+    if valid is not None:
+        with torch.no_grad():
+            vg = comm.all_gather(_valid(valid, n_local, dev), mesh,
+                                 DP_AXIS, 0)
+    n = xg.shape[0]
     if capacity is None:
         capacity = moe_capacity(n, num_experts, k, capacity_factor)
-    logits = x.float() @ gate_w.float()
-    dispatch, combine, aux = moe_dispatch(logits, valid, k=k,
-                                          capacity=capacity)
-    cdt = x.dtype
-    expert_in = torch.einsum("nec,nd->ecd", dispatch.to(cdt), x)
-    h = act(torch.einsum("ecd,edf->ecf", expert_in, w_up.to(cdt)))
-    expert_out = torch.einsum("ecf,efd->ecd", h, w_down.to(cdt))
-    y = torch.einsum("nec,ecd->nd", combine.to(cdt), expert_out)
-    return y, aux
+    rounds, _, aux = _placements(xg.float() @ gate_w.float(), vg, k,
+                                 capacity)
+    row0 = axis_index(mesh, DP_AXIS) * n_local
+    own = slice(row0, row0 + n_local)
+
+    def slots(e, pos, keep, lo, count):
+        """Buffer rows of the kept placements on experts [lo, lo +
+        count); the others go to the scratch row count * capacity."""
+        on = (keep > 0) & (e >= lo) & (e < lo + count)
+        return on, torch.where(on, (e - lo) * capacity + pos.long(),
+                               torch.full_like(e, count * capacity))
+
+    buf = torch.zeros((e_mine * capacity + 1, d), dtype=cdt, device=dev)
+    combine = []
+    total = torch.zeros((n_local,), dtype=torch.float32, device=dev)
+    for onehot, gate_j, pos_tok, keep in rounds:
+        e = torch.argmax(onehot, dim=-1)
+        on, dest = slots(e, pos_tok, keep, e0, e_mine)
+        buf = buf.index_add(0, dest, xg * on.to(cdt)[:, None])
+        on, dest = slots(e[own], pos_tok[own], keep[own], e_ep, e_local)
+        w = gate_j[own] * keep[own]
+        combine.append((dest, w * on.float()))
+        total = total + w
+    expert_in = buf[:-1].reshape(e_mine, capacity, d)
+    mine = slice(e0 - e_ep, e0 - e_ep + e_mine)
+    h = act(torch.bmm(expert_in, w_up[mine].to(cdt)))
+    expert_out = torch.bmm(h, w_down[mine].to(cdt))
+    if split:
+        expert_out = comm.all_gather(expert_out, mesh, DP_AXIS, 0)
+    flat_out = torch.cat([expert_out.reshape(e_local * capacity, d),
+                          torch.zeros((1, d), dtype=cdt, device=dev)])
+    y = torch.zeros((n_local, d), dtype=cdt, device=dev)
+    for dest, w in combine:
+        if normalize and k > 1:
+            w = w / torch.clamp(total, min=1e-9)
+        y = y + flat_out[dest] * w.to(cdt)[:, None]
+    return comm.all_reduce(y, mesh, ep_axis), aux

@@ -29,11 +29,23 @@ def _stats_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def _batch_stats(x: torch.Tensor, axes):
+def _batch_stats(x: torch.Tensor, axes, mesh=None):
+    """The biased batch statistics over ``axes``. With a ``mesh`` whose
+    dp axis splits the rows they are the GLOBAL batch's: the ranks' sums
+    of x and x^2 all-reduced together (differentiably) over dp — the
+    statistics XLA's mean takes over the dp shards of one global
+    program. Without one the all-reduce is the identity."""
+    from paddle_tpu_torch.parallel import comm
+    from paddle_tpu_torch.parallel.mesh import DP_AXIS, axis_size
     xf = x.to(_stats_dtype(x))
-    mean = torch.mean(xf, dim=axes)
-    var = torch.clamp(torch.mean(xf * xf, dim=axes) - mean * mean, min=0.0)
-    return mean, var
+    count = axis_size(mesh, DP_AXIS)
+    for a in axes:
+        count *= x.shape[a]
+    sums = comm.all_reduce(torch.stack([torch.sum(xf, dim=axes),
+                                        torch.sum(xf * xf, dim=axes)]),
+                           mesh, DP_AXIS)
+    mean = sums[0] / count
+    return mean, torch.clamp(sums[1] / count - mean * mean, min=0.0)
 
 
 def _affine(x, gamma, beta, mean, inv_std):
@@ -45,12 +57,14 @@ def _affine(x, gamma, beta, mean, inv_std):
 
 def batch_norm_train(x: torch.Tensor, gamma, beta, moving_mean, moving_var,
                      *, momentum: float = 0.9, eps: float = 1e-5,
-                     axes: Optional[Tuple[int, ...]] = None):
+                     axes: Optional[Tuple[int, ...]] = None, mesh=None):
     """Training-mode batch norm over all axes but the last. Returns
-    (y, new_moving_mean, new_moving_var)."""
+    (y, new_moving_mean, new_moving_var). With a ``mesh`` whose dp axis
+    splits the batch, the statistics are the global batch's (so the
+    moving statistics agree on every rank)."""
     if axes is None:
         axes = tuple(range(x.dim() - 1))
-    mean, var = _batch_stats(x, axes)
+    mean, var = _batch_stats(x, axes, mesh)
     y = _affine(x, gamma, beta, mean, torch.rsqrt(var + eps))
     new_mean = moving_mean * momentum + mean * (1.0 - momentum)
     new_var = moving_var * momentum + var * (1.0 - momentum)

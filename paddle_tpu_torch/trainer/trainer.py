@@ -50,7 +50,29 @@ The elastic fleet: ``train(coordinator=, chunk_reader=, worker_id=)``
 reads coordinator-dispatched tasks (trainer/coordinator.py), joins and
 leaves the fleet's membership and shares its MemoryPlan.
 
-Not ported yet (each raises): a device mesh and pipeline stages.
+A device mesh (``mesh=``, parallel/mesh.py; or ``init(trainer_count=)``
+over an initialized process group) runs the step as one rank of the
+global program the JAX package jits over the mesh. Every rank feeds the
+same GLOBAL batch and keeps its dp block of it; its loss is the masked
+cost of its rows (by global index) over the GLOBAL real-row count,
+divided by R, the ranks that share those rows (the live mp, sp, ep and
+pp axes), so the world's losses sum to the global loss and autograd
+through the differentiable collectives (parallel/comm.py) gives each
+rank its share of every gradient. Each gradient is then summed over the
+axes its parameter is replicated on (one all-reduce per group of
+parameters), and the optimizer updates what the rank holds: whole
+replicated parameters, its shard of each mp/ep-sharded one (and their
+slots), its pipeline stage's. The reported loss and metrics are summed
+over dp, the evaluators' inputs gathered over dp. Row-sparse tables
+under mp take their touched ids from the global batch; each row block
+comes from its owner shard (with the optimizer's catch-up), and each
+owner updates only its rows. Pipelined models (``pipeline_stages``,
+one list of layer names per pp rank) run GPipe (optionally with
+``pipeline_remat``) or 1F1B (``pipeline_schedule``) over
+``pipeline_microbatches``. Under a mesh, ``test`` runs the same sharded
+forward, ``gathered_parameters`` assembles the full table on every rank
+and ``save_parameter_to_tar`` writes it; full-state checkpoints of a
+mesh trainer raise (not ported).
 """
 
 from __future__ import annotations
@@ -87,12 +109,30 @@ class SGD:
     def __init__(self, cost, parameters: Parameters, update_equation,
                  extra_layers: Optional[Sequence[LayerOutput]] = None,
                  is_local: bool = True, mesh=None, evaluators=None,
-                 pipeline_stages=None, device: DeviceLike = None, **kwargs):
-        if mesh is not None or pipeline_stages is not None:
-            raise NotImplementedError(
-                "mesh and pipeline parallelism are not ported yet (the "
-                "parallelism slice, ROADMAP.md queue A)")
+                 pipeline_stages=None, pipeline_remat: bool = False,
+                 pipeline_schedule: str = "gpipe",
+                 pipeline_microbatches: Optional[int] = None,
+                 device: DeviceLike = None, **kwargs):
+        if pipeline_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(f"pipeline_schedule must be 'gpipe' or "
+                             f"'1f1b', got {pipeline_schedule!r}")
+        if mesh is None:
+            mesh = self._default_mesh()
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            from paddle_tpu_torch.parallel.mesh import compute_device
+            device = compute_device(mesh)
         self.device = resolve_device(device)
+        # the explicit stage map over the mesh's pp axis
+        # (ParallelNeuralNetwork deviceId pinning): [[stage0 layers], ...]
+        self.pipeline_stages = pipeline_stages
+        # torch.utils.checkpoint each GPipe stage: the backward keeps the
+        # stage boundaries and recomputes the interiors
+        self.pipeline_remat = bool(pipeline_remat)
+        # "gpipe" or "1f1b" (O(stages) activation memory,
+        # parallel/pipeline.py)
+        self.pipeline_schedule = pipeline_schedule
+        self.pipeline_microbatches = pipeline_microbatches
         costs = cost if isinstance(cost, (list, tuple)) else [cost]
         self.costs = list(costs)
         self.extra_layers = list(extra_layers or [])
@@ -158,6 +198,14 @@ class SGD:
             raise NotImplementedError(
                 "gradient_printer is not supported together with "
                 "row-sparse embedding tables")
+        # the parameters this rank holds and updates (a pipeline stage's
+        # live on its pp rank only) and, under mp/ep, their specs
+        self._own_names = list(self.topology.param_specs)
+        self._specs: Dict[str, tuple] = {}
+        self._pp = None
+        self._loss_scale = 1.0
+        if mesh is not None:
+            self._place_on_mesh()
         self.optimizer = update_equation.bind(
             self.topology.param_specs, sparse_params=self._sparse_map.keys())
         self.opt_state = self.optimizer.init_state(self._own_params())
@@ -206,7 +254,123 @@ class SGD:
 
     def _own_params(self) -> Dict[str, torch.Tensor]:
         raw = self.parameters.raw
-        return {k: raw[k] for k in self.topology.param_specs}
+        return {k: raw[k] for k in self._own_names}
+
+    @staticmethod
+    def _default_mesh():
+        """trainer_count > 1 without an explicit mesh: data parallelism
+        over the initialized process group, one rank per trainer
+        (config.py); otherwise one device, with the JAX package's
+        warning."""
+        import torch.distributed as dist
+        tc = global_config().trainer_count
+        if tc <= 1:
+            return None
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world < 2:
+            warnings.warn(
+                f"trainer_count={tc} requested but the process group has "
+                f"{world} rank (parallel.init_distributed forms one); "
+                "training single-device", stacklevel=3)
+            return None
+        if tc > world:
+            warnings.warn(
+                f"trainer_count={tc} > {world} ranks in the process "
+                f"group; using dp={world}", stacklevel=3)
+            tc = world
+        from paddle_tpu_torch.parallel.mesh import data_parallel_mesh
+        return data_parallel_mesh(tc)
+
+    def _place_on_mesh(self):
+        """Set up this rank's part of the mesh program: the pipeline's
+        stage (its parameters kept, the other stages' dropped), or the
+        mp/ep shards of the parameters; the axes each gradient is summed
+        over; the loss scale 1/R."""
+        from paddle_tpu_torch.parallel import mesh as pm
+        from paddle_tpu_torch.parallel import tensor_parallel as tp
+        mesh = self.mesh
+        live = [a for a in pm.axis_names(mesh) if pm.live(mesh, a)]
+        self._live_axes = live
+        raw = self.parameters.raw
+        for a in live:
+            if a != pm.DP_AXIS:
+                self._loss_scale /= pm.axis_size(mesh, a)
+        self._grad_axes = {}
+        if pm.PP_AXIS in live:
+            self._place_pipeline(live)
+            return
+        if pm.MP_AXIS in live or pm.EP_AXIS in live:
+            with torch.no_grad():
+                for k in self._own_names:
+                    spec = tp.spec_for(k, tuple(raw[k].shape), mesh)
+                    self._specs[k] = spec
+                    if spec:
+                        raw[k] = tp.local_shard(raw[k].detach(), spec, mesh) \
+                            .contiguous().requires_grad_(True)
+        for k in self._own_names:
+            spec = self._specs.get(k, ())
+            self._grad_axes[k] = [a for a in live if a not in spec]
+
+    def _place_pipeline(self, live):
+        from paddle_tpu_torch.parallel import mesh as pm
+        from paddle_tpu_torch.parallel.pipeline import topology_stages
+        mesh = self.mesh
+        if self._grad_tap_names:
+            raise NotImplementedError(
+                "gradient_printer is not supported with a pipelined "
+                "train step; use it on the plain path")
+        if not self.pipeline_stages:
+            raise ValueError("a pp mesh needs SGD(..., pipeline_stages="
+                             "[[layer names]...])")
+        n = pm.axis_size(mesh, pm.PP_AXIS)
+        if len(self.pipeline_stages) != n:
+            raise ValueError("pipeline_stages must have one entry per pp "
+                             f"rank ({len(self.pipeline_stages)} for pp={n})")
+        other = sorted(set(live) - {pm.DP_AXIS, pm.PP_AXIS})
+        if other or self._sparse_map:
+            raise NotImplementedError(
+                f"a pipelined step on a mesh with {other or 'row-sparse'}"
+                " beside dp x pp is not supported")
+        stage_fn, stack, body, x_src, body_end = topology_stages(
+            self.topology, self.pipeline_stages)
+        stage = pm.axis_index(mesh, pm.PP_AXIS)
+        mine = stack.names_of(stage)
+        for k in stack.param_names - mine:
+            self.parameters.raw.pop(k, None)    # lives on its stage's rank
+        self._own_names = [k for k in self._own_names
+                           if k not in stack.param_names or k in mine]
+        if self.pipeline_schedule == "1f1b":
+            for lname, l in self.topology.by_name.items():
+                if lname not in body and l.type == "dropout":
+                    raise AssertionError(
+                        f"dropout layer {lname!r} in the tail is "
+                        "unsupported with pipeline_schedule='1f1b' "
+                        "(per-microbatch rng would diverge from the "
+                        "metrics pass)")
+            # the schedule's gradients are whole on every pp rank
+            self._loss_scale = 1.0
+        self._pp = dict(stage_fn=stage_fn, stack=stack, body=body,
+                        x_src=x_src, body_end=body_end, stage=stage,
+                        prologue_skip=self._pipeline_prologue_skip(x_src))
+        for k in self._own_names:
+            whole = self.pipeline_schedule == "1f1b" or k in mine
+            self._grad_axes[k] = [pm.DP_AXIS] if whole else list(live)
+
+    def _pipeline_prologue_skip(self, x_src):
+        """None when the pipeline's boundary is a data layer (fed
+        directly); otherwise the layers to SKIP so a forward computes
+        exactly the boundary's ancestors (the embedding prologue)."""
+        if self.topology.by_name[x_src].type == "data":
+            return None
+        anc = set()
+        stack = [self.topology.by_name[x_src]]
+        while stack:
+            l = stack.pop()
+            if l.name in anc:
+                continue
+            anc.add(l.name)
+            stack.extend(l.parents)
+        return [l.name for l in self.topology.layers if l.name not in anc]
 
     @staticmethod
     def _masked_cost(v, row0, n_real: int):
@@ -220,22 +384,40 @@ class SGD:
     def _loss_and_metrics(self, params, state, feed, n_real: int,
                           mode: str, rng: Optional[int] = None,
                           sparse_sub=None, taps=None, row0: int = 0,
-                          part: bool = False):
+                          part: bool = False, body=None):
         """Forward ``feed`` and reduce the costs and extra layers over the
         batch's ``n_real`` real rows. ``part``: ``feed`` holds rows
         ``[row0, row0 + rows)`` of a larger batch (a microbatch), so each
         reduction sums its own real rows and divides by the whole
         batch's ``n_real`` — the parts' losses, metrics and gradients add
-        up to the whole batch's."""
+        up to the whole batch's. On a mesh ``feed`` is the global batch
+        (or a microbatch of it): the rank keeps its dp block, gathers its
+        sharded parameters, runs the pipelined body (or injects
+        ``body``, its output), and returns its rows' partial loss and
+        metrics (``_reduce_reported`` sums them) with the evaluators'
+        inputs gathered over dp."""
+        from paddle_tpu_torch.trainer.memory import _leading_rows
+        mesh = self.mesh
+        if mesh is not None:
+            from paddle_tpu_torch.parallel import data_parallel as dpm
+            from paddle_tpu_torch.parallel.mesh import DP_AXIS, axis_index
+            feed = dpm.shard_feed(feed, mesh)
+            row0 += axis_index(mesh, DP_AXIS) * _leading_rows(feed)
+            params = self._gathered_for_use(params)
         n_local = n_real
-        if part:
-            from paddle_tpu_torch.trainer.memory import _leading_rows
+        if part or mesh is not None:
             n_local = min(max(n_real - row0, 0), _leading_rows(feed))
+        injected, skip = None, ()
+        if self._pp is not None:
+            if body is None:
+                body = self._gpipe_body(params, state, feed, rng, n_local)
+            injected, skip = {self._pp["body_end"]: body}, self._pp["body"]
         outs, new_state = self.topology.forward(params, state, feed,
                                                 mode=mode, rng=rng,
                                                 n_real=n_local,
                                                 sparse_sub=sparse_sub,
-                                                taps=taps)
+                                                taps=taps, injected=injected,
+                                                skip=skip, mesh=mesh)
         total = 0.0
         metrics = {}
         for c in self.costs:
@@ -253,8 +435,16 @@ class SGD:
                         "supported under microbatch accumulation")
                 m = v.mask()
                 data = v.data.reshape(v.data.shape[0], v.data.shape[1], -1)
+                den = torch.sum(m)
+                if mesh is not None:
+                    # the token mean of the global batch: this rank's
+                    # share over the global token count
+                    from paddle_tpu_torch.parallel import comm
+                    from paddle_tpu_torch.parallel.mesh import DP_AXIS
+                    den = comm.all_reduce(den.detach().float(), mesh,
+                                          DP_AXIS)
                 metrics[e.name] = torch.sum(data.float().mean(-1) * m) / \
-                    torch.clamp(torch.sum(m), min=1.0)
+                    torch.clamp(den, min=1.0)
             else:
                 v = v.reshape(v.shape[0], -1).float().mean(dim=-1)
                 rows = row0 + torch.arange(v.shape[0], device=v.device)
@@ -263,7 +453,94 @@ class SGD:
         # evaluator inputs: graph outputs, or raw feed entries (labels)
         eval_outs = {n: (outs[n] if n in outs else feed[n])
                      for n in self._eval_out_names}
+        if mesh is not None:
+            from paddle_tpu_torch.parallel.data_parallel import gather_rows
+            eval_outs = {n: gather_rows(v, mesh)
+                         for n, v in eval_outs.items()}
         return total, (metrics, new_state, eval_outs)
+
+    # ------------------------------------------------------ the mesh step
+    def _gathered_for_use(self, params):
+        """The parameters a forward reads: the mp-sharded ones gathered
+        (differentiably), the ep experts and row-sparse tables as held."""
+        if not self._specs:
+            return params
+        from paddle_tpu_torch.parallel import tensor_parallel as tp
+        return tp.gather_params(params, self._specs, self.mesh,
+                                keep_local=self._sparse_map)
+
+    def _gpipe_body(self, params, state, feed, rng, n_local):
+        """The pipelined body's output (GPipe, parallel/pipeline.py): the
+        boundary is a data layer's feed or the prologue's output."""
+        from paddle_tpu_torch.parallel.pipeline import pipeline
+        pp = self._pp
+        x = self._pipeline_input(params, state, feed, rng, n_local)
+        return pipeline(pp["stage_fn"], pp["stack"](params, pp["stage"]), x,
+                        self.mesh, num_microbatches=self.pipeline_microbatches,
+                        remat=self.pipeline_remat)
+
+    def _pipeline_input(self, params, state, feed, rng, n_local):
+        """The boundary feeding the pipeline: a data layer's feed, or the
+        ancestor slice (embeddings) run forward — one implementation for
+        both schedules."""
+        pp = self._pp
+        if pp["prologue_skip"] is None:
+            return feed[pp["x_src"]]
+        outs, _ = self.topology.forward(
+            params, state, feed, mode="train", rng=rng,
+            output_names=[pp["x_src"]], skip=pp["prologue_skip"],
+            mesh=self.mesh, n_real=n_local)
+        return outs[pp["x_src"]]
+
+    def _reduce_grads(self, grads):
+        """Each gradient summed over the axes its parameter is replicated
+        on: one all-reduce per group of parameters with the same axes. A
+        gradient that is None on this rank is zeros when another rank has
+        one (the ranks agree on the set through one small all-reduce)."""
+        if self.mesh is None:
+            return grads
+        from paddle_tpu_torch.parallel import comm
+        names = sorted(grads)
+        dev = self.device
+        has = torch.tensor([float(grads[k] is not None) for k in names],
+                           device=dev)
+        has = comm.all_reduce(has, self.mesh, self._live_axes).tolist()
+        own = self._own_params()
+        buckets: Dict[tuple, List[str]] = {}
+        for k, h in zip(names, has):
+            if h == 0:
+                continue
+            if grads[k] is None:
+                grads[k] = torch.zeros_like(own[k])
+            axes = tuple(self._grad_axes.get(k, self._live_axes))
+            if axes:
+                buckets.setdefault((axes, grads[k].dtype), []).append(k)
+        with torch.no_grad():
+            for (axes, _), ks in buckets.items():
+                flat = comm.all_reduce(
+                    torch.cat([grads[k].reshape(-1) for k in ks]),
+                    self.mesh, axes)
+                off = 0
+                for k in ks:
+                    n = grads[k].numel()
+                    grads[k] = flat[off:off + n].view_as(grads[k])
+                    off += n
+        return grads
+
+    def _reduce_reported(self, loss, metrics):
+        """The ranks' partial loss and metrics summed over dp (the other
+        axes' ranks hold the same partials)."""
+        if self.mesh is None:
+            return loss, metrics
+        from paddle_tpu_torch.parallel import comm
+        from paddle_tpu_torch.parallel.mesh import DP_AXIS
+        names = list(metrics)
+        with torch.no_grad():
+            flat = comm.all_reduce(torch.stack(
+                [torch.as_tensor(loss, device=self.device).float()] +
+                [metrics[k].detach().float() for k in names]),
+                self.mesh, DP_AXIS)
+        return flat[0], dict(zip(names, flat[1:]))
 
     @staticmethod
     def _fetch_host(loss, metrics, eval_outs=None):
@@ -321,7 +598,9 @@ class SGD:
         inputs (``cost_of``; nothing written, the update's element-wise
         work is left out). The profiler calls it at most once per
         enable, off a sampled step."""
-        if self._profile_cost_armed:
+        if self._profile_cost_armed or self.mesh is not None:
+            # on a mesh the cost source's step is a collective, which a
+            # sampled rank cannot run alone
             return
         self._profile_cost_armed = True
         import weakref
@@ -355,6 +634,7 @@ class SGD:
         # detached: a moving statistic that kept its graph would hold
         # every earlier step's activations alive
         new_state = {name: v.detach() for name, v in new_state.items()}
+        loss, metrics = self._reduce_reported(loss, metrics)
         if global_config().debug_nans:
             _raise_if_nonfinite("forward", [loss, metrics, new_state])
             _raise_if_nonfinite("backward", [grads, sparse_rows])
@@ -375,21 +655,34 @@ class SGD:
         blocks, gradients of the dense parameters and the blocks (never
         of the tables). With no row-sparse table it is the plain dense
         step. The gradient printers' activation gradients (the taps')
-        join the evaluator inputs as ``__grad__<layer>``. Returns
+        join the evaluator inputs as ``__grad__<layer>``. On a mesh the
+        gradients come back summed over the ranks (``_reduce_grads``),
+        the loss and metrics as this rank's partials. Returns
         (loss, (metrics, new_state, eval_outs), dense grads,
         sparse_rows for ``optimizer.update``)."""
+        if self._pp is not None and self.pipeline_schedule == "1f1b":
+            return self._grads_1f1b(params, feed, n_real, rng)
         from paddle_tpu_torch.ops import embedding as emb_ops
         next_step = self.opt_state["step"] + 1
         slots = self.opt_state["slots"]
-        uids, rows0, slot_rows = {}, {}, {}
+        uids, rows0, slot_rows, owned = {}, {}, {}, {}
         for pname, src in self._sparse_map.items():
             v = feed[src]
             ids = v.data if isinstance(v, SequenceBatch) else v
-            uids[pname] = emb_ops.touched_ids(ids, params[pname].shape[0])
+            table = params[pname]
+            if self._specs.get(pname):
+                # the table's rows are sharded over mp: the global ids'
+                # rows come from their owners, caught up there
+                (uids[pname], rows0[pname], slot_rows[pname],
+                 owned[pname]) = self._owner_prefetch(pname, table, ids,
+                                                      next_step)
+                continue
+            uids[pname] = emb_ops.touched_ids(ids, table.shape[0])
             rows0[pname], slot_rows[pname] = self.optimizer.sparse_prefetch(
-                pname, params[pname], slots[pname], uids[pname], next_step)
+                pname, table, slots[pname], uids[pname], next_step)
         rows = {k: r.detach().requires_grad_(True) for k, r in rows0.items()}
-        sub = {k: (uids[k], rows[k]) for k in rows}
+        sub = {k: (uids[k], rows[k]) + ((owned[k][2],) if k in owned else ())
+               for k in rows}
         taps = dict.fromkeys(self._grad_tap_names) or None
         out = self._loss_and_metrics(params, self.parameters.state, feed,
                                      n_real, "train", rng, sparse_sub=sub,
@@ -398,20 +691,157 @@ class SGD:
         tables = list(rows)
         tapped = list(taps or ())
         grads = torch.autograd.grad(
-            out[0], [params[k] for k in dense] + [rows[k] for k in tables]
+            out[0] * self._loss_scale,
+            [params[k] for k in dense] + [rows[k] for k in tables]
             + [taps[k] for k in tapped], allow_unused=True)
         g_taps = grads[len(dense) + len(tables):]
         grads = grads[:len(dense) + len(tables)]
         for k, g in zip(tapped, g_taps):
-            out[1][2]["__grad__" + k] = torch.zeros_like(taps[k]) \
-                if g is None else g
-        g_rows = grads[len(dense):]
-        sparse_rows = {
-            k: (uids[k], torch.zeros_like(rows0[k]) if g is None else g,
-                rows0[k], slot_rows[k])
-            for k, g in zip(tables, g_rows)}
-        return out[0], out[1], dict(zip(dense, grads[:len(dense)])), \
-            sparse_rows
+            g = torch.zeros_like(taps[k]) if g is None else g
+            out[1][2]["__grad__" + k] = self._whole_activation_grad(g)
+        g_dense = self._reduce_grads(dict(zip(dense, grads[:len(dense)])))
+        g_rows = self._reduce_grads(
+            {k: torch.zeros_like(rows0[k]) if g is None else g
+             for k, g in zip(tables, grads[len(dense):])})
+        sparse_rows = {}
+        for k in tables:
+            entry = (uids[k], g_rows[k], rows0[k], slot_rows[k])
+            if k in owned:
+                entry = self._owned_rows(entry, owned[k])
+                if entry is None:
+                    continue        # no touched row lives on this rank
+            sparse_rows[k] = entry
+        return out[0], out[1], g_dense, sparse_rows
+
+    def _owner_prefetch(self, pname, shard, ids, next_step: int):
+        """Prefetch of an mp-row-sharded table: the global batch's
+        touched ids, each row read (with the optimizer's catch-up) from
+        the rank that owns it and summed over mp so every rank holds the
+        block. Returns (uids, rows, this rank's slot rows, (owned mask,
+        local ids, global rows))."""
+        from paddle_tpu_torch.ops import embedding as emb_ops
+        from paddle_tpu_torch.parallel import comm
+        from paddle_tpu_torch.parallel.mesh import (MP_AXIS, axis_index,
+                                                    axis_size)
+        local = shard.shape[0]
+        vocab = local * axis_size(self.mesh, MP_AXIS)
+        lo = axis_index(self.mesh, MP_AXIS) * local
+        uids = emb_ops.touched_ids(ids, vocab)
+        own = (uids >= lo) & (uids < lo + local)
+        luids = torch.where(own, uids - lo, torch.full_like(uids, local))
+        p_rows, s_rows = self.optimizer.sparse_prefetch(
+            pname, shard, self.opt_state["slots"][pname], luids, next_step)
+        with torch.no_grad():
+            p_rows = comm.all_reduce(p_rows * own[:, None].to(p_rows.dtype),
+                                     self.mesh, MP_AXIS)
+        return uids, p_rows, s_rows, (own, luids, vocab)
+
+    @staticmethod
+    def _owned_rows(entry, owned):
+        """The sparse update entry of the rows this rank owns, by their
+        shard-local ids; None when it owns none of them."""
+        uids, g_rows, p_rows, slot_rows = entry
+        own, luids, _ = owned
+        idx = torch.nonzero(own).reshape(-1)
+        if idx.numel() == 0:
+            return None
+        return (luids[idx], g_rows[idx], p_rows[idx],
+                {k: v[idx] for k, v in slot_rows.items()})
+
+    def _whole_activation_grad(self, g):
+        """A gradient printer's d(cost)/d(activation) of the global
+        batch: this rank's share summed over the ranks that share its
+        rows, gathered over dp."""
+        if self.mesh is None:
+            return g
+        from paddle_tpu_torch.parallel import comm
+        from paddle_tpu_torch.parallel.data_parallel import gather_rows
+        from paddle_tpu_torch.parallel.mesh import DP_AXIS
+        with torch.no_grad():
+            g = comm.all_reduce(g, self.mesh, [a for a in self._live_axes
+                                               if a != DP_AXIS])
+        return gather_rows(g, self.mesh)
+
+    def _grads_1f1b(self, params, feed, n_real: int, rng):
+        """The 1F1B step: the gradients come out of the schedule
+        (parallel/pipeline.py pipeline_1f1b), not a backward of the
+        whole loss — the tail's from the per-microbatch head on the last
+        rank, the stage's on its rank, the prologue's through the
+        schedule's input cotangent; then a tail pass without gradients
+        gives the reported loss, metrics, layer state and evaluator
+        inputs, math identical to GPipe's. ``pipeline_loss_drift`` (the
+        schedule's loss minus the pass's) shows an objective that
+        drifted from the report."""
+        from paddle_tpu_torch.parallel import data_parallel as dpm
+        from paddle_tpu_torch.parallel.mesh import (DP_AXIS, PP_AXIS,
+                                                    axis_index, axis_size)
+        from paddle_tpu_torch.parallel.pipeline import (_flatten,
+                                                        is_dynamic_leaf,
+                                                        pipeline_1f1b)
+        from paddle_tpu_torch.trainer.memory import _leading_rows, _rows
+        pp, mesh = self._pp, self.mesh
+        state = self.parameters.state
+        feed_l = dpm.shard_feed(feed, mesh)
+        rows = _leading_rows(feed_l)
+        row0 = axis_index(mesh, DP_AXIS) * rows
+        n_local = min(max(n_real - row0, 0), rows)
+        x = self._pipeline_input(params, state, feed_l, rng, n_local)
+        leaves, rebuild = _flatten(x)
+        x_dyn = [a for a in leaves if is_dynamic_leaf(a)]
+        x_in = rebuild([a.detach() for a in leaves])
+        m = self.pipeline_microbatches or axis_size(mesh, PP_AXIS)
+        if rows % m:
+            raise ValueError(f"microbatches {m} must divide the rank's "
+                             f"{rows} rows")
+        mb = rows // m
+        body = set(pp["body"])
+        tail_p = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()
+                  if k not in pp["stack"].param_names}
+
+        def tail_vjp(y_mb, j, tp, fl):
+            y_leaves, y_rebuild = _flatten(y_mb)
+            yl = [a.detach().requires_grad_(True) if is_dynamic_leaf(a)
+                  else a for a in y_leaves]
+            r0 = row0 + j * mb
+            feed_j = {k: _rows(v, j * mb, (j + 1) * mb)
+                      for k, v in fl.items()}
+            with torch.enable_grad():
+                outs, _ = self.topology.forward(
+                    tp, state, feed_j, mode="train", rng=fold_seed(rng, j),
+                    injected={pp["body_end"]: y_rebuild(yl)}, skip=body,
+                    n_real=min(max(n_real - r0, 0), mb))
+                total = sum(self._masked_cost(outs[c.name], r0, n_real)
+                            for c in self.costs)
+            names = sorted(tp)
+            dyn = [a for a in yl if is_dynamic_leaf(a)]
+            gs = torch.autograd.grad(total, [tp[k] for k in names] + dyn,
+                                     allow_unused=True)
+            dtail = {k: torch.zeros_like(tp[k]) if g is None else g
+                     for k, g in zip(names, gs[:len(names)])}
+            dy = [torch.zeros_like(a) if g is None else g
+                  for a, g in zip(dyn, gs[len(names):])]
+            return total.detach(), dy, dtail
+
+        loss_sum, y, g_stage, dtail, dx = pipeline_1f1b(
+            pp["stage_fn"], pp["stack"](params, pp["stage"]), x_in, tail_vjp,
+            mesh, num_microbatches=m, tail_args=(tail_p, feed_l))
+        grads = dict(dtail)
+        if x_dyn and any(a.requires_grad for a in x_dyn):
+            # the schedule's input cotangent back through the prologue
+            names = list(params)
+            g_pro = torch.autograd.grad(x_dyn, [params[k] for k in names],
+                                        dx, allow_unused=True)
+            for k, g in zip(names, g_pro):
+                if g is not None:
+                    grads[k] = grads[k] + g if k in grads else g
+        grads.update(pp["stack"].unstack(g_stage, pp["stage"]))
+        with torch.no_grad():
+            loss, (metrics, new_state, eval_outs) = self._loss_and_metrics(
+                params, state, feed, n_real, "train", rng, body=y)
+        metrics["pipeline_loss_drift"] = loss_sum - loss
+        return loss, (metrics, new_state, eval_outs), \
+            self._reduce_grads(grads), {}
 
     def _accum_grads(self, params, feed, n_real: int, rng, k: int):
         """The gradient of a batch as ``k`` contiguous microbatches (the
@@ -429,10 +859,22 @@ class SGD:
             raise NotImplementedError(
                 "microbatch accumulation does not compose with "
                 "row-sparse embedding tables yet")
+        if self._pp is not None:
+            raise NotImplementedError(
+                "pipelined meshes microbatch through "
+                "pipeline_microbatches, not the memory executor")
         if self._grad_tap_names or self.evaluators:
             raise NotImplementedError(
                 "microbatch accumulation does not support "
                 "gradient-printer or host evaluators")
+        if self.mesh is not None:
+            # each microbatch's rows split over dp: pad (masked rows past
+            # n_real) so dp divides them
+            from paddle_tpu_torch.parallel.mesh import DP_AXIS, axis_size
+            from paddle_tpu_torch.trainer.memory import _pad_to_multiple
+            step = k * axis_size(self.mesh, DP_AXIS)
+            if _leading_rows(feed) % step:
+                feed, _ = _pad_to_multiple(feed, step)
         parts = split_feed(feed, k)
         mb = _leading_rows(feed) // k
         names = list(params)
@@ -446,14 +888,16 @@ class SGD:
                 row0=j * mb, part=True)
             for name, v in m.items():
                 metrics[name] = metrics.get(name, 0.0) + v.detach()
-            g = torch.autograd.grad(total, [params[n] for n in names],
+            g = torch.autograd.grad(total * self._loss_scale,
+                                    [params[n] for n in names],
                                     allow_unused=True)
             grads = [gj if acc is None else
                      acc if gj is None else acc + gj
                      for acc, gj in zip(grads, g)]
             loss = loss + total.detach().float()
             del total, m, g
-        return loss, metrics, state, {}, dict(zip(names, grads)), {}
+        return loss, metrics, state, {}, \
+            self._reduce_grads(dict(zip(names, grads))), {}
 
     def _guarded_update(self, params, grads, sparse_rows, n_real: int,
                         loss, metrics, new_state):
@@ -970,6 +1414,7 @@ class SGD:
         """Full-state checkpoint (parameters, optimizer slots and
         counters, layer state, the trainer's position) through a
         CheckpointManager; returns its path."""
+        self._refuse_mesh_checkpoint()
         m = {"step_count": self._step_count,
              "pass_count": self._pass_count,
              "batch_in_pass": self._batch_in_pass}
@@ -996,6 +1441,7 @@ class SGD:
         autograd leaves); a JAX-written ``rng`` in the meta is not used
         (the port's random layers fold the restored step count into the
         seed). Returns False if there is none."""
+        self._refuse_mesh_checkpoint()
         res = manager.restore(step)
         if res is None:
             return False
@@ -1024,6 +1470,13 @@ class SGD:
         self._reader_state = meta.get("reader_state")
         self._restored_memory_plan = meta.get("memory_plan")
         return True
+
+    def _refuse_mesh_checkpoint(self):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "full-state checkpoints of a trainer on a device mesh are "
+                "not ported yet; save_parameter_to_tar writes the "
+                "gathered parameters")
 
     def _opt_state_from(self, tree) -> Dict:
         """The optimizer state of a checkpoint in the port's form: the
@@ -1099,6 +1552,7 @@ class SGD:
                 n_real = int(feed.pop("__batch_size__"))
                 loss, (metrics, _, eval_outs) = self._loss_and_metrics(
                     params, self.parameters.state, feed, n_real, "test")
+                loss, metrics = self._reduce_reported(loss, metrics)
                 loss_h, metrics_h, eval_host = self._fetch_host(
                     loss, metrics, eval_outs)
                 total_loss += loss_h
@@ -1113,15 +1567,48 @@ class SGD:
             ev.__dict__.update(st)
         return evt.TestResult(total_loss / n, avg)
 
+    def gathered_parameters(self) -> Dict[str, torch.Tensor]:
+        """The whole parameter table on every rank (a collective on a
+        mesh: the mp/ep shards gathered, each pipeline stage's
+        parameters from its rank); the trainer's own tensors, detached,
+        without one."""
+        raw = self.parameters.raw
+        if self.mesh is None:
+            return {k: v.detach() for k, v in raw.items()}
+        from paddle_tpu_torch.parallel import comm
+        from paddle_tpu_torch.parallel import tensor_parallel as tp
+        from paddle_tpu_torch.parallel.mesh import PP_AXIS
+        staged = self._pp["stack"].param_names if self._pp else set()
+        out = {k: v.detach() for k, v in raw.items()}
+        with torch.no_grad():
+            for k in sorted(self.topology.param_specs):
+                if k in staged:
+                    ps = self.topology.param_specs[k]
+                    held = raw.get(k)
+                    t = held.detach() if held is not None else torch.zeros(
+                        tuple(ps.shape), dtype=ps.dtype, device=self.device)
+                    out[k] = comm.all_reduce(t, self.mesh, PP_AXIS)
+                elif self._specs.get(k):
+                    out[k] = tp.gather_param(raw[k].detach(), self._specs[k],
+                                             self.mesh)
+        return out
+
+    def _tar_parameters(self) -> Parameters:
+        if self.mesh is None:
+            return self.parameters
+        return Parameters(self.gathered_parameters(), self.parameters.state,
+                          device=self.device)
+
     def save_parameter_to_tar(self, f):
-        self.parameters.to_tar(f)
+        self._tar_parameters().to_tar(f)
 
     def save_pass(self, output_dir: str, pass_id: int):
         """ParamUtil parity: ``output_dir/pass-%05d/params.tar``."""
+        params = self._tar_parameters()
         d = os.path.join(output_dir, f"pass-{pass_id:05d}")
         os.makedirs(d, exist_ok=True)
         with open(os.path.join(d, "params.tar"), "wb") as f:
-            self.parameters.to_tar(f)
+            params.to_tar(f)
 
 
 def _all_finite(trees) -> torch.Tensor:

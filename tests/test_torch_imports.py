@@ -63,7 +63,12 @@ def test_every_module_imports_without_jax_or_paddle_tpu():
               "trainer.memory", "cli", "plot",
               # the single trainer's training infrastructure
               "trainer.checkpoint", "trainer.fault", "trainer.grad_check",
-              "reader.pipeline", "reader.provider", "reader.recordio"):
+              "reader.pipeline", "reader.provider", "reader.recordio",
+              # the parallelism plane
+              "parallel", "parallel.mesh", "parallel.comm",
+              "parallel.data_parallel", "parallel.tensor_parallel",
+              "parallel.sequence_parallel", "parallel.pipeline",
+              "parallel.multihost", "parallel.async_sgd"):
         assert f"paddle_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

@@ -13,7 +13,16 @@ against paddle_tpu on the CPU, at a small size (d 6-16, 2-4 experts,
   cost, ``moe_block``'s graph through ``check_parity`` (forward and
   gradients of the shared gate), and the MoE transformer_lm's costs
   over three ``Adam(1e-3)`` steps from one weight table at rtol 1e-4.
+- The ep mesh: ``moe_ffn`` over a dp2 x ep2 gloo world of 4
+  (tests/torch_dist.py) against the JAX function on a dp2 x ep2 mesh —
+  each rank's output rows, aux and gradients at rtol 1e-4 / atol 1e-5
+  — the sort path's refusal under ep beside the JAX one, and the
+  capacity trap: tokens that overflow only in the global token order;
+  and over a dp2 world without ep, on the einsum path and on "auto",
+  against the JAX function on a dp2 mesh at the same tolerance.
 """
+
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -106,9 +115,19 @@ def test_k_beyond_experts_and_mesh_refused():
     with pytest.raises(ValueError, match="k=3"):
         tmoe.moe_ffn(x, None, torch.zeros(3, 2), torch.zeros(2, 3, 5),
                      torch.zeros(2, 5, 3), k=3, dispatch_mode="sort")
-    with pytest.raises(NotImplementedError, match="A.10"):
+    # the sort dispatch under an ep mesh of size > 1 is refused, as the
+    # JAX function refuses it (before any collective: a stand-in mesh
+    # carries the axis sizes)
+    ep_mesh = SimpleNamespace(mesh_dim_names=("ep",), mesh=torch.zeros(2))
+    with pytest.raises(ValueError, match="single-host"):
         tmoe.moe_ffn(x, None, torch.zeros(3, 2), torch.zeros(2, 3, 5),
-                     torch.zeros(2, 5, 3), mesh=object())
+                     torch.zeros(2, 5, 3), mesh=ep_mesh,
+                     dispatch_mode="sort")
+    from paddle_tpu.parallel import create_mesh as jmesh
+    with pytest.raises(AssertionError, match="single-host"):
+        jmoe.moe_ffn(jnp.zeros((4, 3)), None, jnp.zeros((3, 2)),
+                     jnp.zeros((2, 3, 5)), jnp.zeros((2, 5, 3)),
+                     mesh=jmesh([("ep", 2)]), dispatch_mode="sort")
     with pytest.raises(ValueError, match="dispatch_mode"):
         tmoe.moe_ffn(x, None, torch.zeros(3, 2), torch.zeros(2, 3, 5),
                      torch.zeros(2, 5, 3), dispatch_mode="ring")
@@ -317,3 +336,127 @@ def test_moe_lm_three_adam_steps_track_jax():
             np.testing.assert_allclose(tm[name], jm[name], rtol=RTOL,
                                        err_msg=name)
         assert np.isfinite(tl)
+
+
+# ------------------------------------------------------- the ep mesh
+
+def _mesh_cases():
+    """moe_ffn cases for a dp2 x ep2 world: the einsum path at k 1 and 2
+    with padded rows and gradients, and the capacity trap — every token
+    prefers expert 0, capacity ceil(8 * 1.0 / 2) = 4: the 4 tokens of dp
+    rank 0 fill it and rank 1's 4 overflow, which only the GLOBAL token
+    order decides (a rank routing its own 4 tokens, capacity 2, would
+    keep 2 of each)."""
+    ffn = _ffn_inputs(16, 8, 4, 12, seed=21)
+    valid = np.ones(16, np.float32)
+    valid[13:] = 0.0
+    proj = np.random.RandomState(22).randn(16, 8).astype(np.float32)
+    gate = np.zeros((6, 2), np.float32)
+    gate[:, 0] = 1.0
+    x = np.abs(np.random.RandomState(23).randn(8, 6)).astype(np.float32) + 1
+    rng = np.random.RandomState(24)
+    trap = dict(x=x, gate_w=gate,
+                w_up=(0.1 * rng.randn(2, 6, 5)).astype(np.float32),
+                w_down=(0.1 * rng.randn(2, 5, 6)).astype(np.float32),
+                valid=None, k=1, capacity_factor=1.0, mode="einsum")
+    return {"k2": dict(ffn, valid=valid, k=2, proj=proj),
+            "k1": dict(ffn, valid=valid, k=1, capacity_factor=0.75,
+                       proj=proj),
+            "trap": trap}
+
+
+@pytest.fixture(scope="module")
+def ep_world(tmp_path_factory):
+    from tests import torch_dist as td
+    cases = _mesh_cases()
+    res = td.run_world(td.moe_cases, 4, tmp_path_factory.mktemp("ep"),
+                       list(cases.values()), [("dp", 2), ("ep", 2)])
+    return cases, [dict(zip(cases, r)) for r in res]
+
+
+def _jax_mesh_ffn(c, mesh=None):
+    args = [jnp.asarray(c[k]) for k in ("x",)] + \
+        [None if c.get("valid") is None else jnp.asarray(c["valid"])] + \
+        [jnp.asarray(c[k]) for k in ("gate_w", "w_up", "w_down")]
+
+    def f(x, gate_w, w_up, w_down):
+        return jmoe.moe_ffn(x, args[1], gate_w, w_up, w_down,
+                            k=c.get("k", 2),
+                            capacity_factor=c.get("capacity_factor", 1.25),
+                            mesh=mesh, dispatch_mode="einsum")
+    return f, [args[0]] + args[2:]
+
+
+@pytest.mark.parametrize("name", ["k2", "k1"])
+def test_ep_mesh_ffn_matches_jax(ep_world, name):
+    """dp2 x ep2: each rank's rows of the output, the aux loss and the
+    gradients (x, gate, expert tables) against the JAX function on the
+    whole batch over a dp2 x ep2 mesh of its CPU devices, at rtol 1e-4 /
+    atol 1e-5."""
+    from paddle_tpu.parallel import create_mesh as jmesh
+    cases, ranks = ep_world
+    c = cases[name]
+    f, args = _jax_mesh_ffn(c, jmesh([("dp", 2), ("ep", 2)]))
+    y, aux = f(*args)
+    grads = jax.grad(lambda *a: jnp.sum(f(*a)[0] * c["proj"]),
+                     argnums=(0, 1, 2, 3))(*args)
+    for rank in ranks:
+        got = rank[name]
+        rows = got["rows"]
+        np.testing.assert_allclose(got["y"], np.asarray(y)[rows], rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(got["aux"], float(aux), rtol=RTOL)
+        np.testing.assert_allclose(got["dx"], np.asarray(grads[0])[rows],
+                                   rtol=RTOL, atol=ATOL)
+        for k, g in zip(("gate_w", "w_up", "w_down"), grads[1:]):
+            np.testing.assert_allclose(got["grads"][k], np.asarray(g),
+                                       rtol=RTOL, atol=ATOL, err_msg=k)
+
+
+def test_ep_mesh_capacity_follows_global_token_order(ep_world):
+    cases, ranks = ep_world
+    f, args = _jax_mesh_ffn(cases["trap"])
+    y = np.asarray(f(*args)[0])
+    assert np.abs(y[:4]).min(axis=1).all() and not y[4:].any()
+    for rank in ranks:
+        got = rank["trap"]
+        np.testing.assert_allclose(got["y"], y[got["rows"]], rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.fixture(scope="module")
+def dp_world(tmp_path_factory):
+    """A dp2 world without ep: the k2 case on the einsum path and on
+    "auto" (the sort dispatch, which a live dp axis runs by the mesh's
+    split of the experts)."""
+    from tests import torch_dist as td
+    c = _mesh_cases()["k2"]
+    cases = {"einsum": dict(c, mode="einsum"), "auto": dict(c, mode="auto")}
+    res = td.run_world(td.moe_cases, 2, tmp_path_factory.mktemp("dp"),
+                       list(cases.values()), [("dp", 2)])
+    return cases, [dict(zip(cases, r)) for r in res]
+
+
+@pytest.mark.parametrize("name", ["einsum", "auto"])
+def test_dp_mesh_ffn_matches_jax(dp_world, name):
+    """dp2: each rank routes the global batch but runs half of the
+    experts; its rows, the aux loss and the gradients against the
+    JAX function on a dp2 mesh, at rtol 1e-4 / atol 1e-5."""
+    from paddle_tpu.parallel import create_mesh as jmesh
+    cases, ranks = dp_world
+    c = cases[name]
+    f, args = _jax_mesh_ffn(c, jmesh([("dp", 2)]))
+    y, aux = f(*args)
+    grads = jax.grad(lambda *a: jnp.sum(f(*a)[0] * c["proj"]),
+                     argnums=(0, 1, 2, 3))(*args)
+    for rank in ranks:
+        got = rank[name]
+        rows = got["rows"]
+        np.testing.assert_allclose(got["y"], np.asarray(y)[rows], rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(got["aux"], float(aux), rtol=RTOL)
+        np.testing.assert_allclose(got["dx"], np.asarray(grads[0])[rows],
+                                   rtol=RTOL, atol=ATOL)
+        for k, g in zip(("gate_w", "w_up", "w_down"), grads[1:]):
+            np.testing.assert_allclose(got["grads"][k], np.asarray(g),
+                                       rtol=RTOL, atol=ATOL, err_msg=k)

@@ -30,10 +30,12 @@ from paddle_tpu.trainer.data_feeder import DataFeeder as JFeeder
 
 from paddle_tpu_torch import config as tconfig
 from paddle_tpu_torch.core.registry import reset_name_counters as t_reset
+from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.core.topology import Topology as TTopology
 from paddle_tpu_torch.models import transformer_lm as t_transformer_lm
 from paddle_tpu_torch.ops import cost as tcost
 from paddle_tpu_torch.trainer.data_feeder import DataFeeder as TFeeder
+from tests.torch_parity import assert_values_close, feeds_of, table_of
 
 CFG = dict(vocab_size=40, d_model=16, n_heads=2, n_layers=2, d_ff=32,
            max_len=32)
@@ -197,9 +199,29 @@ def test_unported_layers_and_options_raise():
     for make in (make_layer, jmake_layer):
         with pytest.raises(KeyError, match="unknown layer type"):
             make("no_such_layer_type", None, [])
-    _, ttopo, _, _ = _topologies()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ttopo.forward({}, {}, {}, mesh=object())
+    # forward(injected=, skip=) (the pipelined trainer's prologue and
+    # tail): a skipped value that is not injected and is consumed
+    # downstream raises KeyError naming it, in both packages; an
+    # injected value replaces the layer, the outputs as the full pass's
+    jtopo, ttopo, _, _ = _topologies()
+    table, raw = table_of(jtopo)
+    jfeed, tfeed = feeds_of(jtopo, ttopo, _batch())
+    jparams = {k: jnp.asarray(v) for k, v in table.items()}
+    name = "tfm_l0_attn"
+    with pytest.raises(KeyError, match=name):
+        jtopo.forward(jparams, jtopo.init_state(), jfeed, skip=[name])
+    with pytest.raises(KeyError, match=name):
+        ttopo.forward(raw, ttopo.init_state(), tfeed, skip=[name])
+    jmid, _ = jtopo.forward(jparams, jtopo.init_state(), jfeed,
+                            output_names=[name])
+    inj = jmid[name]
+    tinj = SequenceBatch(torch.as_tensor(np.asarray(inj.data)),
+                         torch.as_tensor(np.asarray(inj.lengths)))
+    tfull, _ = ttopo.forward(raw, ttopo.init_state(), tfeed)
+    tout, _ = ttopo.forward(raw, ttopo.init_state(), tfeed,
+                            injected={name: tinj}, skip=[name])
+    for k in tfull:
+        assert_values_close(tout[k], tfull[k], k)
 
 
 @pytest.mark.parametrize("golden", ["simple_fc", "attention_net",
