@@ -689,10 +689,45 @@ Phases (any failure exits non-zero before the final line):
    bytes a step are logged beside the card's name and power limit,
    with the note that four ranks share one card, so no figure is
    scaling.
+50. chaos and the obs plane — the protocol witness has watched every
+   phase before (what it saw fails this one). (a) Engine faults at
+   phase 3's full width (testing/faults.py FaultPlan): a decode_script
+   that joins, cancels, evicts a slot and shuts down (drain=False) at
+   fixed engine steps; disconnect_after on a started engine; a
+   prefix_evict_storm on a 40-page pool; divergent_twins (copy-on-write
+   inside a page); cancel_mid_verify at spec_k 2; spill_storm on float
+   and on int8 pages (a 40-page pool and a 256-page spill store);
+   corrupt_spilled_page; kill_during_spill at "read" and at "commit".
+   After each: leaked 0, refcounts and both tiers balanced (with
+   superseded spill entries), every request the fault did not touch
+   token-identical to the same requests on an unfaulted engine of the
+   same kind (full pool, no prefix cache), and no live protocol
+   violation; the window kernels' launches in the faulted runs (float
+   and int8 pages) are route "chaos". (b) cli.py train in a process of
+   its own (this script with --chaos-train-worker): phase 47's
+   classifier in bf16 over 32 batches of 128, microbatch "auto",
+   --metrics_port 0, --profile_every 1, an event log and a flight dir,
+   under FaultPlan.slow_step (x 5 over steps 10-13) and
+   FaultPlan.oom_at (step 20); /health, /metrics, /events?since_seq=,
+   /flight and /profile scraped while its reader waits at batches 3, 8
+   and 26, and /metrics every 0.1 s in between, each scrape's time
+   logged; then fit-a-line guarded, once with a NaN batch
+   (FaultPlan.poison_batches), once without it. Its journal must hold
+   a slo/step_regression on "compute", one trainer/oom at 64 rows and
+   a trainer/nonfinite record, the poisoned run's parameters equal the
+   skip run's, and its LSTM launches (route "chaos") be non-zero. (c)
+   cli.py trace merge of this process's journal and the worker's: mseq
+   1..N, both pids, and audit_exactly_once of the forced eviction
+   (engine/preemption, trace "chaos-evict") equal to a count by hand.
+   (d) The witness's cost: the 16 serving requests on a full-width
+   engine, armed and disarmed alternately (5 runs each after a warm
+   one), tokens/s median and spread and the journal records a run;
+   and observe_journal's host time a record over 20,000 hop records.
 
 Then logs the whole script's wall time and prints the kernel table as
-one JSON line (phases 28-49 add no kernel; the float32 flash rows carry
-phase 49's launches as route_launches["mesh"]; the launches of phases
+one JSON line (phases 28-50 add no kernel; the float32 flash rows carry
+phase 49's launches as route_launches["mesh"]; phase 50's window and
+LSTM launches are route_launches["chaos"]; the launches of phases
 34-39 are on their own log lines; the window kernel's launches are
 phase 3's and phase 46's, by route in route_launches — "engine" and
 "http"; the LSTM kernels' are phase 12's, phase 47's and phase 48's,
@@ -727,6 +762,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.request
 import xmlrpc.client
 
 import numpy as np
@@ -3481,6 +3517,7 @@ def _serve(eng, prompts, news, timeout=600):
     if eng.spill is not None and acc["spill_puts"] != (
             acc["spill_restores"] + acc["spill_evicted_lru"]
             + acc["spill_dropped_integrity"] + acc["spill_cleared"]
+            + acc["spill_superseded"]
             + acc["spilled"]):
         raise AssertionError(f"spill tier not conserved: {acc}")
     return reqs, wall
@@ -10166,6 +10203,693 @@ def phase_mesh():
     return mesh_launches
 
 
+# ------------------------------------------------------------ phase 50
+CHAOS_PROMPT = 24                  # tokens a scripted prompt
+CHAOS_POOL = 41                    # the storms' pool: 40 usable pages
+CHAOS_SPILL = 256                  # the spill store's pages
+CHAOS_STORM = dict(per_wave=8, gap=16, prompt_len=48, max_new=8,
+                   vocab=FULL["vocab_size"])
+CHAOS_TRAIN_BATCHES = 32
+CHAOS_SCRAPE_AT = (3, 8, 26)       # batches the worker waits at for a scrape
+CHAOS_SLOW = dict(step=10, factor=5.0, n=4)
+CHAOS_OOM_STEP = 20
+CHAOS_POISON = 3                   # the fit-a-line batch made NaN
+CHAOS_HOUSING_BATCHES = 10
+WITNESS_RUNS = 5
+WITNESS_RECORDS = 20000            # hop start/settle records, host timing
+FIT_A_LINE_CONFIG = """\
+import paddle_tpu_torch as paddle
+x = paddle.layer.data("x", paddle.data_type.dense_vector(13))
+y = paddle.layer.data("y", paddle.data_type.dense_vector(1))
+pred = paddle.layer.fc(x, size=1, act=paddle.activation.Linear(),
+                       name="pred")
+cost = paddle.layer.square_error_cost(pred, y, name="cost")
+optimizer = paddle.optimizer.Adam(learning_rate=0.01)
+"""
+
+
+def _chaos_prompts(n, seed, length=CHAOS_PROMPT):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, FULL["vocab_size"], (length,)).astype(np.int32)
+            for _ in range(n)]
+
+
+def _chaos_engine(dec, **kw):
+    from paddle_tpu_torch.serving import DecodeEngine
+    eng = DecodeEngine(dec, **dict(dict(num_slots=SLOTS, page_size=PAGE,
+                                        max_seq_len=FULL["max_len"]), **kw))
+    eng.warmup()
+    return eng
+
+
+def _unfaulted(dec, pairs, **kw):
+    """Each (prompt, new tokens) on an engine of the same kind (int8
+    pages, speculation) with the full pool and no prefix cache, run
+    without faults: the tokens the chaos survivors must give. Its window
+    launches are not counted (the counts are put back after it)."""
+    from paddle_tpu_torch.ops import paged_decode as ops
+    kept = _window_counts(ops)
+    kw = {k: v for k, v in kw.items()
+          if k not in ("num_pages", "kv_spill_pages")}
+    eng = _chaos_engine(dec, prefix_cache=False, **kw)
+    reqs = [eng.submit(p, n) for p, n in pairs]
+    eng.run(timeout=600)
+    torch.cuda.synchronize()
+    (ops.paged_window_attention.launches,
+     ops.paged_window_attention.dequant_launches) = kept
+    return [r.get(timeout=1) for r in reqs]
+
+
+def _window_counts(ops, zero=False):
+    if zero:
+        ops.paged_window_attention.launches = 0
+        ops.paged_window_attention.dequant_launches = 0
+    return (ops.paged_window_attention.launches,
+            ops.paged_window_attention.dequant_launches)
+
+
+def _chaos_held(label, eng, got, want, stats):
+    """After a fault: leaked 0 with refcounts and both tiers balanced,
+    the untouched requests' tokens equal the unfaulted run's, no live
+    protocol violation."""
+    from paddle_tpu_torch.obs import WITNESS
+    acc = eng.page_accounting()
+    if acc["leaked"] or acc["refs_total"] != \
+            acc["held_by_slots"] + acc["held_by_trie"]:
+        raise AssertionError(f"chaos {label}: pages unbalanced {acc}")
+    if eng.spill is not None and acc["spill_puts"] != (
+            acc["spill_restores"] + acc["spill_evicted_lru"]
+            + acc["spill_dropped_integrity"] + acc["spill_cleared"]
+            + acc["spill_superseded"]
+            + acc["spilled"]):
+        raise AssertionError(f"chaos {label}: spill tier not conserved "
+                             f"{acc}")
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"chaos {label}: requests {bad} differ from "
+                             f"the unfaulted run")
+    if WITNESS.violations():
+        raise AssertionError(f"chaos {label}: protocol violations "
+                             f"{WITNESS.violations()}")
+    stats[label] = dict(leaked=acc["leaked"], survivors=len(got))
+    return acc
+
+
+def _chaos_script(dec, stats):
+    """Joins, a cancel, a forced eviction and a shutdown at fixed engine
+    steps (decode_script)."""
+    from paddle_tpu_torch.testing import FaultPlan
+    ps = _chaos_prompts(5, 501)
+    eng = _chaos_engine(dec)
+    r0 = eng.submit(ps[0], 12)
+    r1 = eng.submit(ps[1], 48)
+    r2 = eng.submit(ps[2], 12, trace_id="chaos-evict")
+    joined = {}
+
+    def evict():
+        eng._evict(next(s for s, sl in enumerate(eng.slots)
+                        if sl is not None and sl.req is r2))
+
+    acts = {4: lambda: joined.setdefault("r3", eng.submit(ps[3], 12)),
+            8: r1.cancel, 12: evict,
+            20: lambda: joined.setdefault("r4", eng.submit(ps[4], 64)),
+            80: lambda: eng.shutdown(drain=False)}
+    with FaultPlan.decode_script(eng, acts) as st:
+        eng.run(timeout=600)
+    r3, r4 = joined["r3"], joined["r4"]
+    if st["fired"] != sorted(acts) or r1.state != "cancelled" or \
+            r2.evictions != 1 or r4.state != "failed" or \
+            any(r.state != "done" for r in (r0, r2, r3)):
+        raise AssertionError(
+            f"decode_script: fired {st['fired']}, states "
+            f"{[r.state for r in (r0, r1, r2, r3, r4)]}, evictions "
+            f"{r2.evictions}")
+    got = [r.get(timeout=1) for r in (r0, r2, r3)]
+    want = _unfaulted(dec, [(ps[0], 12), (ps[2], 12), (ps[3], 12)])
+    return _chaos_held("decode_script", eng, got, want, stats)
+
+
+def _chaos_disconnect(dec, stats):
+    from paddle_tpu_torch.testing import FaultPlan
+    ps = _chaos_prompts(3, 502)
+    eng = _chaos_engine(dec).start()
+    try:
+        ra = eng.submit(ps[0], 64)
+        rb, rc = eng.submit(ps[1], 24), eng.submit(ps[2], 24)
+        killer = FaultPlan.disconnect_after(ra, 8)
+        got = [rb.get(timeout=300), rc.get(timeout=300)]
+        killer.join(60)
+        ra.done.wait(60)
+        if ra.state != "cancelled" or ra.num_generated < 8:
+            raise AssertionError(f"disconnect_after: {ra.state}, "
+                                 f"{ra.num_generated} tokens")
+    finally:
+        eng.shutdown(drain=True, timeout=60)
+    want = _unfaulted(dec, [(ps[1], 24), (ps[2], 24)])
+    return _chaos_held("disconnect_after", eng, got, want, stats)
+
+
+def _chaos_evict_storm(dec, stats):
+    from paddle_tpu_torch.testing import FaultPlan
+    eng = _chaos_engine(dec, num_pages=CHAOS_POOL)
+    schedule, sub = FaultPlan(seed=503).prefix_evict_storm(
+        eng, waves=4, **{k: v for k, v in CHAOS_STORM.items()
+                         if k != "gap"}, gap=12)
+    with FaultPlan.decode_script(eng, schedule):
+        eng.run(timeout=600)
+    if eng.stats()["prefix_evicted_pages"] < 1:
+        raise AssertionError("eviction storm reclaimed no trie page")
+    got = [r.get(timeout=1) for r, _ in sub]
+    want = _unfaulted(dec, [(p, CHAOS_STORM["max_new"]) for _, p in sub])
+    _chaos_held("prefix_evict_storm", eng, got, want, stats)
+    stats["prefix_evict_storm"]["evicted_pages"] = \
+        eng.stats()["prefix_evicted_pages"]
+
+
+def _chaos_twins(dec, stats):
+    from paddle_tpu_torch.testing import FaultPlan
+    eng = _chaos_engine(dec)
+    plan = FaultPlan(seed=504)
+    # a first pair fills the trie with the shared prefix; the four
+    # pairs after it (the same prefix: the plan's seed) attach its full
+    # page and copy the page they diverge inside
+    twins = plan.divergent_twins(eng, max_new=8, pairs=1,
+                                 vocab=FULL["vocab_size"])
+    eng.run(timeout=600)
+    twins += plan.divergent_twins(eng, max_new=8, pairs=4,
+                                  vocab=FULL["vocab_size"])
+    eng.run(timeout=600)
+    st = eng.stats()
+    if st["prefix_cow_copies"] < 1 or st["prefix_hit_pages"] < 1:
+        raise AssertionError(f"divergent_twins: no copy-on-write {st}")
+    got = [r.get(timeout=1) for r, _ in twins]
+    want = _unfaulted(dec, [(p, 8) for _, p in twins])
+    _chaos_held("divergent_twins", eng, got, want, stats)
+    stats["divergent_twins"]["cow_copies"] = st["prefix_cow_copies"]
+
+
+def _chaos_mid_verify(dec, stats):
+    from paddle_tpu_torch.testing import FaultPlan
+    kw = dict(draft=dec, spec_k=SPEC_K)
+    eng = _chaos_engine(dec, **kw)
+    rng = np.random.RandomState(505)
+    shared = list(rng.randint(0, FULL["vocab_size"], 16))
+    victim = eng.submit(shared + list(rng.randint(0, FULL["vocab_size"], 8)),
+                        48)
+    surv_p = shared + list(rng.randint(0, FULL["vocab_size"], 8))
+    surv = eng.submit(surv_p, 24)
+    with FaultPlan.decode_script(
+            eng, FaultPlan.cancel_mid_verify(victim, at=2)) as st:
+        eng.run(timeout=600)
+    if st["fired"] != [2] or victim.state != "cancelled" or \
+            eng.stats()["spec_proposed_tokens"] < 1:
+        raise AssertionError(f"cancel_mid_verify: {st}, {victim.state}")
+    want = _unfaulted(dec, [(surv_p, 24)], **kw)
+    return _chaos_held("cancel_mid_verify", eng, [surv.get(timeout=1)],
+                       want, stats)
+
+
+def _chaos_spill_storm(dec, stats, kv_quant=None):
+    from paddle_tpu_torch.testing import FaultPlan
+    kw = dict(num_pages=CHAOS_POOL, kv_spill_pages=CHAOS_SPILL,
+              kv_quant=kv_quant)
+    eng = _chaos_engine(dec, **kw)
+    schedule, sub = FaultPlan(seed=506).spill_storm(
+        eng, waves=5, revisit_from=2, **CHAOS_STORM)
+    with FaultPlan.decode_script(eng, schedule):
+        eng.run(timeout=600)
+    st = eng.stats()
+    if st["kv_pages_spilled"] < 1 or st["kv_pages_restored"] < 1:
+        raise AssertionError(f"spill storm ({kv_quant}): no round trip "
+                             f"{st}")
+    got = [r.get(timeout=1) for r, _ in sub]
+    want = _unfaulted(dec, [(p, CHAOS_STORM["max_new"]) for _, p in sub],
+                      **kw)
+    label = f"spill_storm_{kv_quant or 'float'}"
+    _chaos_held(label, eng, got, want, stats)
+    stats[label].update(spilled=st["kv_pages_spilled"],
+                        restored=st["kv_pages_restored"])
+
+
+def _spill_only(dec, seed, **kw):
+    """A storm whose waves only spill (revisits past the last wave)."""
+    from paddle_tpu_torch.testing import FaultPlan
+    eng = _chaos_engine(dec, num_pages=CHAOS_POOL,
+                        kv_spill_pages=CHAOS_SPILL)
+    schedule, sub = FaultPlan(seed=seed).spill_storm(
+        eng, waves=4, revisit_from=4, **CHAOS_STORM)
+    return eng, schedule, sub
+
+
+def _chaos_corrupt(dec, stats):
+    from paddle_tpu_torch.testing import FaultPlan
+    eng, schedule, sub = _spill_only(dec, 507)
+    with FaultPlan.decode_script(eng, schedule):
+        eng.run(timeout=600)
+    plan = FaultPlan(seed=508)
+    n = len(eng.spill)
+    hit = {plan.corrupt_spilled_page(eng) for _ in range(2 * n)}
+    prompts = []
+    for _, p in sub:
+        if not any(np.array_equal(p, q) for q in prompts):
+            prompts.append(p)
+    again = [eng.submit(p, CHAOS_STORM["max_new"]) for p in prompts]
+    eng.run(timeout=600)
+    drops = eng.stats()["kv_spill_integrity_drops"]
+    if not n or drops < 1:
+        raise AssertionError(f"corrupt_spilled_page: {n} entries, "
+                             f"{len(hit)} corrupted, {drops} drops")
+    got = [r.get(timeout=1) for r in again]
+    want = _unfaulted(dec, [(p, CHAOS_STORM["max_new"]) for p in prompts])
+    _chaos_held("corrupt_spilled_page", eng, got, want, stats)
+    stats["corrupt_spilled_page"].update(corrupted=len(hit),
+                                         integrity_drops=drops)
+
+
+def _chaos_kill_spill(dec, stats, stage):
+    from paddle_tpu_torch.testing import FaultPlan, WorkerCrash
+    eng, schedule, sub = _spill_only(dec, 509)
+    with FaultPlan.decode_script(eng, schedule):
+        with FaultPlan.kill_during_spill(eng, at=0, stage=stage) as ks:
+            try:
+                eng.run(timeout=600)
+            except WorkerCrash:
+                pass
+            else:
+                raise AssertionError(f"kill_during_spill({stage}) never "
+                                     "fired")
+    acc = eng.page_accounting()
+    if ks["fired"] != 1 or acc["leaked"] or \
+            tuple(ks["path"]) in eng.spill._entries:
+        raise AssertionError(f"kill_during_spill({stage}): {ks}, {acc}")
+    eng.run(timeout=600)
+    got = [r.get(timeout=1) for r, _ in sub]
+    want = _unfaulted(dec, [(p, CHAOS_STORM["max_new"]) for _, p in sub])
+    _chaos_held(f"kill_during_spill_{stage}", eng, got, want, stats)
+
+
+def _chaos_engine_faults(dec):
+    """(a): every engine fault, each held after it. Returns the stats
+    by fault and the window kernels' launches in the faulted runs
+    (float pages, int8 pages), the unfaulted reference runs excluded."""
+    from paddle_tpu_torch.ops import paged_decode as ops
+    stats, times = {}, {}
+    faults = [("decode_script", _chaos_script),
+              ("disconnect_after", _chaos_disconnect),
+              ("prefix_evict_storm", _chaos_evict_storm),
+              ("divergent_twins", _chaos_twins),
+              ("cancel_mid_verify", _chaos_mid_verify),
+              ("spill_storm_float", _chaos_spill_storm),
+              ("spill_storm_int8",
+               functools.partial(_chaos_spill_storm, kv_quant="int8")),
+              ("corrupt_spilled_page", _chaos_corrupt),
+              ("kill_during_spill_read",
+               functools.partial(_chaos_kill_spill, stage="read")),
+              ("kill_during_spill_commit",
+               functools.partial(_chaos_kill_spill, stage="commit"))]
+    torch.cuda.synchronize()
+    _window_counts(ops, zero=True)
+    for label, fn in faults:
+        t0 = time.perf_counter()
+        fn(dec, stats)
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t0
+    return stats, times, _window_counts(ops)
+
+
+def _chaos_train_worker(work):
+    """Phase 50 (b)'s process (``chip_smoke.py --chaos-train-worker
+    WORK``): ``cli.main``'s train on phase 47's classifier in bf16
+    (CHAOS_TRAIN_BATCHES seeded batches of 128, microbatch "auto",
+    --metrics_port 0, --profile_every 1, an event log and a flight dir)
+    under FaultPlan.slow_step and FaultPlan.oom_at; then fit-a-line
+    twice, guarded: once with batch CHAOS_POISON made NaN
+    (FaultPlan.poison_batches), once without it. Prints the CLI's lines
+    and last one CHAOS RESULT line (JSON)."""
+    if not torch.cuda.is_available():
+        print("chaos worker: no CUDA card", file=sys.stderr)
+        return 2
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.obs import WATCHDOG
+    from paddle_tpu_torch.ops import fused_rnn as fr
+    from paddle_tpu_torch.testing import FaultPlan
+
+    lstm_cfg, _, _ = _cli_configs(work)
+    line_cfg = os.path.join(work, "fit_a_line_cfg.py")
+    with open(line_cfg, "w") as f:
+        f.write(FIT_A_LINE_CONFIG)
+    log_path = os.path.join(work, "child.jsonl")
+    flight = os.path.join(work, "flight")
+    real_build, real_load = cli._build_trainer, cli._load_config
+    trainers, faults = [], {}
+    stack = contextlib.ExitStack()
+    samples = _lstm_samples(CHAOS_TRAIN_BATCHES * LSTM_ROWS, seed=50)
+    housing = list(paddle.reader.batch(paddle.dataset.uci_housing.train(),
+                                       HOUSING_BATCH)())
+    housing = housing[:CHAOS_HOUSING_BATCHES]
+    def lstm_reader():
+        for k, i in enumerate(range(0, len(samples), LSTM_ROWS)):
+            if k in CHAOS_SCRAPE_AT:
+                # the parent scrapes every endpoint while this run is
+                # in flight, then lets the reader go on
+                print(f"SCRAPE {k}", flush=True)
+                go = os.path.join(work, f"scraped-{k}")
+                end = time.monotonic() + 120
+                while not os.path.exists(go) and time.monotonic() < end:
+                    time.sleep(0.01)
+            yield samples[i:i + LSTM_ROWS]
+
+    readers = {
+        "lstm": lstm_reader,
+        "poisoned": FaultPlan(seed=0).poison_batches(
+            lambda: iter(housing), [CHAOS_POISON]),
+        "skip": lambda: (b for i, b in enumerate(housing)
+                         if i != CHAOS_POISON)}
+    which = ["lstm"]
+
+    def load(path):
+        ns = real_load(path)
+        ns["train_reader"] = readers[which[0]]
+        return ns
+
+    def build(ns, init):
+        tr = real_build(ns, init)
+        trainers.append(tr)
+        if which[0] == "lstm":
+            faults["slow"] = stack.enter_context(
+                FaultPlan.slow_step(tr, **CHAOS_SLOW))
+            faults["oom"] = stack.enter_context(
+                FaultPlan.oom_at(tr, step=CHAOS_OOM_STEP, n=1))
+        return tr
+
+    cli._load_config, cli._build_trainer = load, build
+    WATCHDOG.configure(regression_factor=3.0, regression_steps=2,
+                       min_samples=4, cooldown_s=0.0)
+    common = ["--event_log", log_path, "--log_period", "1",
+              "--num_passes", "1"]
+    _rnn_counts(fr, zero=True)
+    with stack:
+        rc = cli.main(["train", "--config", lstm_cfg, "--job", "train",
+                       "--dtype", "bfloat16", "--metrics_port", "0",
+                       "--microbatch", "auto", "--profile_every", "1",
+                       "--flight_dir", flight] + common)
+    torch.cuda.synchronize()
+    counts = _rnn_counts(fr)
+    lstm_steps = trainers[0]._step_count
+    for name in ("poisoned", "skip"):
+        which[0] = name
+        rc |= cli.main(["train", "--config", line_cfg, "--job", "train",
+                        "--fault_max_bad_steps", "3"] + common)
+    a, b = (_host_params(t) for t in trainers[1:])
+    same = all(np.array_equal(a[k], b[k]) for k in a) and \
+        all(np.isfinite(v).all() for v in a.values())
+    print("CHAOS RESULT " + json.dumps(dict(
+        rc=rc, pid=os.getpid(), journal=log_path,
+        flight=sorted(os.listdir(flight)) if os.path.isdir(flight) else [],
+        lstm_steps=lstm_steps, slow=faults["slow"], oom=faults["oom"],
+        lstm_fwd=counts["lstm_fwd_routes"],
+        lstm_bwd=counts["lstm_bwd_routes"], poisoned_equals_skip=same,
+        card=nvidia_smi_line())), flush=True)
+    return rc
+
+
+def _scrape(port, path):
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        body = r.read().decode()
+        code = r.status
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+def _scrape_all(port, since):
+    """One scrape of every endpoint: (per-endpoint code and ms, the
+    /events cursor after it)."""
+    out = {}
+    for path in ("/health", "/metrics", f"/events?since_seq={since}",
+                 "/flight", "/profile"):
+        code, body, ms = _scrape(port, path)
+        if code != 200:
+            raise AssertionError(f"scrape {path}: {code}")
+        key = path.split("?")[0]
+        out[key] = round(ms, 3)
+        if key == "/events":
+            since = json.loads(body)["last_seq"]
+        if key == "/health" and json.loads(body) != {"status": "ok"}:
+            raise AssertionError(f"/health: {body}")
+    return out, since
+
+
+def _scrape_loop(port, stop, out):
+    """/metrics scraped every 0.1 s while the worker trains freely:
+    each scrape's ms, until ``stop`` or the server is gone."""
+    while not stop.is_set():
+        try:
+            code, _, ms = _scrape(port, "/metrics")
+        except OSError:
+            return
+        if code == 200:
+            out.append(ms)
+        time.sleep(0.1)
+
+
+def _chaos_training(work):
+    """(b): the chaos worker in a process of its own, scraped while it
+    trains (every endpoint at each of its SCRAPE pauses, and /metrics
+    every 0.1 s in between); its journal checked. Returns its result
+    and the scrapes."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    err_path = os.path.join(work, "child.err")
+    err = open(err_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--chaos-train-worker",
+         work], cwd=here, stdout=subprocess.PIPE, stderr=err, text=True)
+    scrapes, port, since, result = [], None, 0, None
+    loop_ms, stop, loop = [], threading.Event(), None
+    try:
+        for line in proc.stdout:
+            line = line.strip()
+            if line.startswith("{") and '"metrics_port"' in line and \
+                    port is None:
+                port = json.loads(line)["metrics_port"]
+            if line.startswith("SCRAPE ") and port is not None:
+                k = int(line.split()[1])
+                t = time.perf_counter() - _T0
+                got, since = _scrape_all(port, since)
+                scrapes.append(dict(batch=k, t_s=round(t, 3), ms=got))
+                with open(os.path.join(work, f"scraped-{k}"), "w"):
+                    pass
+                if loop is None:
+                    loop = threading.Thread(
+                        target=_scrape_loop, args=(port, stop, loop_ms),
+                        name="pt-chaos-scrape", daemon=True)
+                    loop.start()
+            if line.startswith("CHAOS RESULT "):
+                result = json.loads(line[len("CHAOS RESULT "):])
+        proc.wait(timeout=600)
+    finally:
+        stop.set()
+        if loop is not None:
+            loop.join()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
+    if proc.returncode != 0 or result is None or result["rc"] != 0 or \
+            len(scrapes) != len(CHAOS_SCRAPE_AT):
+        with open(err_path) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError(f"chaos worker rc {proc.returncode}, "
+                             f"{len(scrapes)} scrapes: {tail}")
+    from paddle_tpu_torch.obs.events import read_journal
+    recs = list(read_journal(result["journal"], strict=False))
+    regs = [r for r in recs if r["domain"] == "slo" and
+            r["kind"] == "step_regression" and r["step_kind"] == "train"]
+    ooms = [r for r in recs if (r["domain"], r["kind"]) == ("trainer",
+                                                            "oom")]
+    nonf = [r for r in recs if (r["domain"], r["kind"]) == ("trainer",
+                                                            "nonfinite")]
+    if not regs or regs[0]["phase"] != "compute":
+        raise AssertionError(f"no step regression on compute: {regs}")
+    if len(ooms) != 1 or ooms[0]["microbatch"] != LSTM_ROWS // 2 or \
+            result["oom"]["injected"] != 1:
+        raise AssertionError(f"oom records {ooms}, {result['oom']}")
+    if not nonf or not result["poisoned_equals_skip"]:
+        raise AssertionError(f"nonfinite records {nonf}, parameters equal "
+                             f"{result['poisoned_equals_skip']}")
+    if not (result["lstm_fwd"]["sm90"] > 0 and
+            result["lstm_bwd"]["sm90"] > 0):
+        raise AssertionError(f"LSTM launches {result}")
+    if not loop_ms:
+        raise AssertionError("no /metrics scrape while the worker ran")
+    return dict(result=result, scrapes=scrapes, regression=regs[0],
+                oom=ooms[0], nonfinite=len(nonf), loop_ms=loop_ms)
+
+
+def _chaos_merge(parent_log, child):
+    """(c): ``cli.py trace merge`` of this process's journal and the
+    worker's; mseq monotone, both pids, the exactly-once audit of the
+    forced eviction against a count by hand."""
+    from collections import Counter
+
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.testing import audit_exactly_once
+    out = os.path.join(os.path.dirname(parent_log), "merged.jsonl")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["trace", "merge", "--journal", parent_log,
+                       child["journal"], "--out-journal", out])
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    with open(out) as f:
+        merged = [json.loads(ln) for ln in f]
+    mseq = [r["mseq"] for r in merged]
+    pids = {r["pid"] for r in merged}
+    if rc != 0 or mseq != list(range(1, len(merged) + 1)) or \
+            not {os.getpid(), child["pid"]} <= pids or \
+            summary["records"] != len(merged):
+        raise AssertionError(f"merge: rc {rc}, {summary}, pids {pids}")
+    report = audit_exactly_once([parent_log, child["journal"]],
+                                ["chaos-evict"], domain="engine",
+                                kind="preemption")
+    hand = Counter(r["trace_id"] for r in merged
+                   if (r["domain"], r["kind"]) == ("engine", "preemption")
+                   and r.get("trace_id") is not None)
+    want = dict(ok=hand["chaos-evict"] == 1, settled=len(hand),
+                duplicates={t: n for t, n in hand.items() if n > 1},
+                lost=[] if hand["chaos-evict"] else ["chaos-evict"],
+                strays=sorted(t for t in hand if t != "chaos-evict"))
+    if not report["ok"] or any(report[k] != v for k, v in want.items()):
+        raise AssertionError(f"audit {report} against the count {want}")
+    return dict(records=len(merged), pids=sorted(pids),
+                audit=report)
+
+
+def _witness_cost(dec):
+    """(d): the direct engine route's tokens/s with the witness armed
+    and disarmed, alternated, WITNESS_RUNS each after a warm run; and
+    the witness's own host cost per journal record."""
+    from paddle_tpu_torch.obs import JOURNAL, WITNESS, ProtocolWitness
+    prompts, news = serving_requests()
+    eng = _chaos_engine(dec)
+    _serve(eng, prompts, news)
+    runs = {"armed": [], "disarmed": []}
+    records = {"armed": [], "disarmed": []}
+    try:
+        for _ in range(WITNESS_RUNS):
+            for mode in ("armed", "disarmed"):
+                if mode == "armed":
+                    JOURNAL.add_observer(WITNESS.observe_journal)
+                else:
+                    JOURNAL.remove_observer(WITNESS.observe_journal)
+                seq0, tok0 = JOURNAL.last_seq, eng.stats()["tokens_out"]
+                _, wall = _serve(eng, prompts, news)
+                runs[mode].append((eng.stats()["tokens_out"] - tok0) / wall)
+                records[mode].append(JOURNAL.last_seq - seq0)
+    finally:
+        JOURNAL.add_observer(WITNESS.observe_journal)
+    w = ProtocolWitness()
+    recs = []
+    for i in range(WITNESS_RECORDS // 2):
+        recs.append(dict(domain="serving", kind="hop", seq=2 * i + 1,
+                         trace_id=f"t{i}", phase="start"))
+        recs.append(dict(domain="serving", kind="hop", seq=2 * i + 2,
+                         trace_id=f"t{i}", phase="settle", tokens=1))
+    t0 = time.perf_counter()
+    for r in recs:
+        w.observe_journal(r)
+    per_rec_us = (time.perf_counter() - t0) / len(recs) * 1e6
+    if w.counts()["completed"] != {"serving_hop": WITNESS_RECORDS // 2}:
+        raise AssertionError(f"witness counts {w.counts()}")
+
+    def med(v):
+        return float(np.median(v))
+
+    return dict(armed_median=med(runs["armed"]),
+                armed_spread=max(runs["armed"]) - min(runs["armed"]),
+                disarmed_median=med(runs["disarmed"]),
+                disarmed_spread=max(runs["disarmed"]) -
+                min(runs["disarmed"]),
+                runs=runs, records=records, observe_us=per_rec_us)
+
+
+def phase_chaos(serve):
+    """Phase 50: chaos and the obs plane on the card (see the module
+    doc). Returns the launches by kernel under route "chaos"."""
+    import tempfile
+
+    from paddle_tpu_torch.obs import JOURNAL, WITNESS
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    # the witness has watched every phase before this one: what it saw
+    # there fails the phase at its end (after the readings)
+    early = WITNESS.violations()
+    if early:
+        log(f"chaos: protocol violations before phase 50: {early}")
+    WITNESS.reset()
+    work = tempfile.mkdtemp(prefix="phase50-")
+    parent_log = os.path.join(work, "parent.jsonl")
+    JOURNAL.configure(parent_log)
+    try:
+        t_a = time.perf_counter()
+        stats, times, (win, win8) = _chaos_engine_faults(serve["dec"])
+        t_a = time.perf_counter() - t_a
+        if win < 1 or win8 < 1:
+            raise AssertionError(f"chaos window launches {win} / {win8}")
+        for label in stats:
+            log(f"chaos (a) {label}: {stats[label]}, "
+                f"{times[label]:.3f} s [{card}]")
+        t_b = time.perf_counter()
+        train = _chaos_training(work)
+        t_b = time.perf_counter() - t_b
+    finally:
+        JOURNAL.configure(None)
+    res = train["result"]
+    for s in train["scrapes"]:
+        log(f"chaos (b) scrape at batch {s['batch']} (t {s['t_s']} s): "
+            f"ms {s['ms']} [{card}]")
+    lm = train["loop_ms"]
+    log(f"chaos (b) /metrics every 0.1 s while it trained: {len(lm)} "
+        f"scrapes, median {float(np.median(lm)):.3f} ms, max "
+        f"{max(lm):.3f} ms [{card}]")
+    log(f"chaos (b) train worker (pid {res['pid']}): slow_step "
+        f"{res['slow']}, regression factor "
+        f"{train['regression']['factor']} on "
+        f"{train['regression']['phase']}; oom {res['oom']}, microbatch "
+        f"{train['oom']['microbatch']} x {train['oom']['accum_steps']}; "
+        f"nonfinite records {train['nonfinite']}, poisoned run == skip "
+        f"run {res['poisoned_equals_skip']}; flight bundles "
+        f"{res['flight']}; LSTM launches fwd {res['lstm_fwd']} bwd "
+        f"{res['lstm_bwd']} [{res['card']}]")
+    t_c = time.perf_counter()
+    merged = _chaos_merge(parent_log, res)
+    t_c = time.perf_counter() - t_c
+    log(f"chaos (c) trace merge: {merged['records']} records, pids "
+        f"{merged['pids']}, mseq 1..{merged['records']} monotone; audit "
+        f"{merged['audit']} equals the count by hand")
+    t_d = time.perf_counter()
+    cost = _witness_cost(serve["dec"])
+    t_d = time.perf_counter() - t_d
+    log(f"chaos (d) witness cost, engine tokens/s over {WITNESS_RUNS} "
+        f"alternated runs: armed median {cost['armed_median']:.1f} "
+        f"(spread {cost['armed_spread']:.1f}), disarmed median "
+        f"{cost['disarmed_median']:.1f} (spread "
+        f"{cost['disarmed_spread']:.1f}); journal records a run "
+        f"{cost['records']}; observe_journal "
+        f"{cost['observe_us']:.3f} us a record (host) [{card}]")
+    if early or WITNESS.violations():
+        raise AssertionError(f"protocol violations: before phase 50 "
+                             f"{early}, in it {WITNESS.violations()}")
+    log(f"phase 50: (a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) {t_c:.1f} s, "
+        f"(d) {t_d:.1f} s, total {time.perf_counter() - t_phase:.1f} s; "
+        f"chaos launches: window {win} (float) / {win8} (int8), LSTM "
+        f"fwd {res['lstm_fwd']['sm90']} / bwd {res['lstm_bwd']['sm90']} "
+        f"[{card}]")
+    return {"window": win, "window_int8": win8,
+            "lstm_fwd": res["lstm_fwd"]["sm90"],
+            "lstm_bwd": res["lstm_bwd"]["sm90"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -10255,12 +10979,16 @@ def main():
     elastic = phase_elastic(infra["timing"]["train"])
     # the parallelism plane (phase 49): four ranks sharing this card
     mesh_launches = phase_mesh()
+    # chaos and the obs plane (phase 50)
+    chaos = phase_chaos(serve)
     kernels = [dict(
         name="paged_window_attention", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",
         replaces="paddle_tpu/ops/pallas_decode.py:257",
-        launches=launches + front["launches"], max_abs_err=max_err,
-        route_launches={"engine": launches, "http": front["launches"]},
+        launches=launches + front["launches"] + chaos["window"],
+        max_abs_err=max_err,
+        route_launches={"engine": launches, "http": front["launches"],
+                        "chaos": chaos["window"]},
         **timing)]
     for name, line, _, src in FLASH_KERNELS:
         kernels.append(dict(
@@ -10284,9 +11012,9 @@ def main():
             **flash_timing[(name, torch.float32)]))
     rnn_launches = {
         "lstm_fwd": lstm_counts["lstm_fwd"] + infra["lstm_fwd"] +
-        elastic["lstm_fwd"],
+        elastic["lstm_fwd"] + chaos["lstm_fwd"],
         "lstm_bwd": lstm_counts["lstm_bwd"] + infra["lstm_bwd"] +
-        elastic["lstm_bwd"],
+        elastic["lstm_bwd"] + chaos["lstm_bwd"],
         "gru_fwd": gru_launches + nmt["launches"]}
     for name, err in infra["rows_err"].items():
         # phase 47 holds the LSTM kernels at the microbatch rows too
@@ -10308,7 +11036,8 @@ def main():
             kernels[-1].update(
                 route_launches={"train_batch": lstm_counts[name],
                                 **infra["routes"][name],
-                                "elastic": elastic[name]},
+                                "elastic": elastic[name],
+                                "chaos": chaos[name]},
                 row_launches=_merge_rows({LSTM_ROWS: lstm_counts[name]},
                                          infra["rows"][name],
                                          {LSTM_ROWS: elastic[name]}))
@@ -10341,7 +11070,10 @@ def main():
         name="paged_window_attention_int8", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",
         replaces="paddle_tpu/ops/pallas_decode.py:322",
-        launches=dequant_launches, max_abs_err=dequant_err,
+        launches=dequant_launches + chaos["window_int8"],
+        route_launches={"int8_engine": dequant_launches,
+                        "chaos": chaos["window_int8"]},
+        max_abs_err=dequant_err,
         **tt_timing[("int8", 1, torch.float32)]))
     kernels.append(dict(
         name="decode_attention", route="cuda",
@@ -10368,4 +11100,6 @@ if __name__ == "__main__":
         sys.exit(_resume_worker(*sys.argv[2:6]))
     if sys.argv[1:2] == ["--elastic-worker"]:
         sys.exit(_elastic_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--chaos-train-worker"]:
+        sys.exit(_chaos_train_worker(sys.argv[2]))
     sys.exit(main())

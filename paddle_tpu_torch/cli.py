@@ -37,8 +37,17 @@ attaches a continuous-batching ``DecodeEngine`` behind ``POST
 the recordio chunks of ``--data`` into tasks and serves them, the
 membership and the save election over XML-RPC (trainer/coordinator.py)
 until SIGTERM/SIGINT, printing one JSON line when it serves and one
-with its ``stats()`` when it stops. The other subcommands of
-``paddle_tpu`` wait for later slices.
+with its ``stats()`` when it stops.
+
+``train --metrics_port N`` serves ``/metrics``, ``/events``,
+``/flight``, ``/profile`` and ``/health`` (obs/httpd.py) for the whole
+run and prints ``{"job": "obs", "status": "serving", "metrics_port":
+N}``. ``events tail`` prints (and with ``--follow`` streams) a
+journal's records; ``obs dump|selfcheck|catalog`` writes a flight
+bundle (this process's, or ``--url``'s), exercises every obs surface,
+or prints the declared contract (obs/catalog.py); ``trace merge`` fuses
+per-process journals and traces (obs/merge.py). The other subcommands
+of ``paddle_tpu`` wait for later slices.
 """
 
 from __future__ import annotations
@@ -477,6 +486,13 @@ def _cmd_train(args) -> int:
                          else None)
     _wire_obs(args)
     from paddle_tpu_torch.obs.events import JOURNAL
+    obs_httpd = None
+    if args.metrics_port is not None:
+        from paddle_tpu_torch.obs.httpd import start_obs_server
+        obs_httpd = start_obs_server(port=args.metrics_port)
+        print(json.dumps({"job": "obs", "status": "serving",
+                          "metrics_port": obs_httpd.server_address[1]}),
+              flush=True)
     JOURNAL.emit("trainer", "run_start", job=args.job, config=args.config)
     try:
         ns = _load_config(args.config)
@@ -496,6 +512,175 @@ def _cmd_train(args) -> int:
         if args.profile_every or args.slo:
             from paddle_tpu_torch.obs.profile import PROFILER
             PROFILER.disable()      # joins the pt-obs-profiler thread
+        if obs_httpd is not None:
+            obs_httpd.shutdown()    # joins the pt-obs-http thread
+
+
+def _iter_journal_follow(path: str, domain=None, kind=None,
+                         poll: float = 0.25, idle_timeout=None,
+                         from_pos: int = 0, stop=None):
+    """``tail -f`` over a journal JSONL file: yield each NEW
+    schema-valid (filtered) record as it is appended. A torn trailing
+    line stays buffered until its newline lands (the writer flushes
+    whole lines, so this is just the race window). Ends when
+    ``idle_timeout`` seconds pass with no new record (None: follow
+    forever) or ``stop`` (a threading.Event) is set — the testable
+    seam. Size-based rotation
+    (EventJournal.configure(max_bytes=...)) is spanned losslessly:
+    when the active file shrinks, the unread remainder of what is now
+    ``path.1`` is drained first, then the fresh active file from 0."""
+    from paddle_tpu_torch.obs.events import validate
+    pos = from_pos
+    buf = ""
+    last_new = time.monotonic()
+    while True:
+        try:
+            size = os.path.getsize(path)
+        except OSError:
+            size = 0
+        if size < pos:                  # truncated or rotated under us
+            try:
+                # rotation moved the active file to path.1 — drain the
+                # records appended after our cursor before restarting
+                with open(path + ".1", encoding="utf-8") as f:
+                    f.seek(pos)
+                    buf += f.read()
+            except OSError:
+                buf = ""                # plain truncation: drop the tail
+            pos = 0
+        if size > pos:
+            with open(path, encoding="utf-8") as f:
+                f.seek(pos)
+                buf += f.read()
+                pos = f.tell()
+        if buf:
+            lines = buf.split("\n")
+            buf = lines.pop()           # possibly-torn tail
+            for line in lines:
+                if not line.strip():
+                    continue
+                try:
+                    rec = validate(json.loads(line))
+                except (json.JSONDecodeError, ValueError):
+                    continue            # torn/corrupt mid-stream line
+                last_new = time.monotonic()
+                if domain is not None and rec["domain"] != domain:
+                    continue
+                if kind is not None and rec["kind"] != kind:
+                    continue
+                yield rec
+        if stop is not None and stop.is_set():
+            return
+        if idle_timeout is not None and \
+                time.monotonic() - last_new >= idle_timeout:
+            return
+        time.sleep(poll)
+
+
+def _cmd_events(args) -> int:
+    """``events tail`` — the incident-response verb: newest journal
+    records (schema-validated, filtered) as JSON lines; with
+    ``--follow`` keep streaming records as the run appends them."""
+    from paddle_tpu_torch.obs.events import read_journal
+    if not os.path.exists(args.log):
+        raise SystemExit(f"no journal at {args.log!r}")
+    recs = list(read_journal(args.log, strict=False,
+                             domain=args.domain, kind=args.kind))
+    for r in recs[-max(args.n, 0):]:
+        print(json.dumps(r), flush=True)
+    if not args.follow:
+        return 0
+    idle = args.exit_after_idle if args.exit_after_idle > 0 else None
+    for r in _iter_journal_follow(
+            args.log, domain=args.domain, kind=args.kind,
+            idle_timeout=idle,
+            from_pos=os.path.getsize(args.log)):
+        print(json.dumps(r), flush=True)
+    return 0
+
+
+def _cmd_obs(args) -> int:
+    """``obs dump|selfcheck|catalog`` — the flight-recorder verbs plus
+    the declared-contract dump."""
+    from paddle_tpu_torch.obs.flight import FLIGHT
+    if args.action == "catalog":
+        # the machine-readable contract: every legal journal
+        # (domain, kind) + fields, metric family, protocol machine and
+        # fault-family mapping — what the runtime witness enforces
+        from paddle_tpu_torch.obs.catalog import catalog_as_dict
+        print(json.dumps(catalog_as_dict(), indent=2, sort_keys=True))
+        return 0
+    if args.action == "dump":
+        if args.url:
+            # a RUNNING process's bundle over its /flight endpoint
+            # (serving front or obs httpd)
+            import urllib.request
+            with urllib.request.urlopen(
+                    args.url.rstrip("/") + "/flight", timeout=30) as r:
+                bundle = json.loads(r.read())
+            out = args.out or f"flight-remote-{os.getpid()}.json"
+            with open(out, "w", encoding="utf-8") as f:
+                json.dump(bundle, f)
+            print(json.dumps({"job": "obs_dump", "status": "ok",
+                              "source": args.url, "out": out,
+                              "ring_records":
+                                  len(bundle.get("ring", []))}))
+            return 0
+        path = FLIGHT.dump("cli", path=args.out)
+        print(json.dumps({"job": "obs_dump", "status": "ok",
+                          "out": path}))
+        return 0
+    # selfcheck: exercise every observability surface end-to-end
+    import tempfile
+
+    from paddle_tpu_torch.obs.events import EventJournal, read_journal
+    from paddle_tpu_torch.obs.metrics import REGISTRY
+    from paddle_tpu_torch.obs.trace import TRACER
+    from paddle_tpu_torch.utils.stats import global_counters
+    checks = {}
+    global_counters.bump("obs/selfcheck")
+    text = REGISTRY.exposition()
+    checks["metrics_scrape"] = \
+        'paddle_tpu_counter_total{name="obs/selfcheck"} ' in text
+    with tempfile.TemporaryDirectory(prefix="pt-obs-selfcheck-") as td:
+        jpath = os.path.join(td, "journal.jsonl")
+        j = EventJournal()
+        j.configure(jpath)
+        j.emit("obs", "selfcheck", probe=1)
+        j.configure(None)
+        recs = list(read_journal(jpath))
+        checks["journal_roundtrip"] = (
+            len(recs) == 1 and recs[0]["kind"] == "selfcheck"
+            and "run_id" in recs[0] and "host" in recs[0])
+        TRACER.start(capture_compiles=False)
+        with TRACER.span("obs/selfcheck"):
+            pass
+        TRACER.stop()
+        checks["trace_spans"] = any(
+            s["name"] == "obs/selfcheck" for s in TRACER.spans())
+        from paddle_tpu_torch.obs.flight import BUNDLE_VERSION
+        FLIGHT.record("mark", "obs/selfcheck")
+        dpath = FLIGHT.dump("selfcheck",
+                            path=os.path.join(td, "flight.json"))
+        with open(dpath, encoding="utf-8") as f:
+            bundle = json.load(f)
+        checks["flight_dump"] = (
+            bundle.get("v") == BUNDLE_VERSION
+            and any(r.get("name") == "obs/selfcheck"
+                    for r in bundle.get("ring", []))
+            and "metrics" in bundle and "journal" in bundle)
+    ok = all(checks.values())
+    print(json.dumps({"job": "obs_selfcheck",
+                      "status": "ok" if ok else "fail",
+                      "checks": checks}))
+    return 0 if ok else 1
+
+
+def _cmd_trace(args) -> int:
+    """``trace merge`` — fuse per-process journals + chrome traces into
+    one timeline (obs/merge.py)."""
+    from paddle_tpu_torch.obs.merge import main as merge_main
+    return merge_main(list(args.merge_args or []))
 
 
 def _flag_bool(v: str) -> bool:
@@ -574,6 +759,11 @@ def _add_train_parser(sub) -> None:
     tr.add_argument("--profile_dir", default=None,
                     help="--job=profile trace dir (default ./profile_out)")
     tr.add_argument("--log_period", type=int, default=100)
+    tr.add_argument("--metrics_port", type=int, default=None,
+                    help="expose GET /metrics (Prometheus), /events, "
+                         "/flight, /profile and /health on this port for "
+                         "the whole run (0 picks a free port, printed as "
+                         "JSON; omit to disable)")
     tr.add_argument("--event_log", default=None,
                     help="append the event journal (faults, OOMs, data "
                          "faults, checkpoints) to this JSONL file")
@@ -705,6 +895,59 @@ def build_parser() -> argparse.ArgumentParser:
                          "RPC instead of a shared filesystem (RpcStore; "
                          "exclusive with --snapshot)")
     co.set_defaults(fn=_cmd_coordinator)
+
+    evp = sub.add_parser("events", help="inspect a structured event "
+                         "journal")
+    evp.add_argument("action", choices=["tail"],
+                     help="tail: print the newest records as JSON lines")
+    evp.add_argument("--log", required=True,
+                     help="journal JSONL file (train/serve --event_log)")
+    evp.add_argument("-n", type=int, default=20, dest="n",
+                     help="how many records (newest last)")
+    evp.add_argument("--domain", default=None,
+                     help="filter: trainer|data|serving|engine|"
+                          "checkpoint|slo|profile|protocol")
+    evp.add_argument("--kind", default=None,
+                     help="filter: oom, quarantine, shed, preemption, "
+                          "...")
+    evp.add_argument("--follow", action="store_true",
+                     help="after printing the tail, keep streaming "
+                          "records as the run appends them "
+                          "(tail -f for the journal)")
+    evp.add_argument("--exit-after-idle", type=float, default=0,
+                     dest="exit_after_idle",
+                     help="with --follow: exit after N seconds with "
+                          "no new record (0: follow forever)")
+    evp.set_defaults(fn=_cmd_events)
+
+    ob = sub.add_parser("obs", help="flight-recorder verbs: postmortem "
+                        "dump, observability selfcheck, the declared "
+                        "contract")
+    ob.add_argument("action", choices=["dump", "selfcheck", "catalog"],
+                    help="dump: write a postmortem bundle (this "
+                         "process, or --url for a running one); "
+                         "selfcheck: exercise metrics/journal/trace/"
+                         "recorder end-to-end; catalog: print the "
+                         "declared journal/metric/protocol contracts "
+                         "as JSON")
+    ob.add_argument("--url", default=None,
+                    help="dump: base URL of a running process's obs "
+                         "endpoint (serving front or train "
+                         "--metrics_port) — fetches GET /flight")
+    ob.add_argument("--out", default=None,
+                    help="dump: output path (default: the configured "
+                         "dump dir or the system temp dir)")
+    ob.set_defaults(fn=_cmd_obs)
+
+    trc = sub.add_parser("trace", help="cross-process trace tooling")
+    trc.add_argument("action", choices=["merge"],
+                     help="merge: fuse N per-process journals + chrome "
+                          "traces into one timeline")
+    trc.add_argument("merge_args", nargs=argparse.REMAINDER,
+                     help="merge flags: --journal FILES... "
+                          "--trace FILES... --out-journal P "
+                          "--out-trace P --offset HOST=SECONDS")
+    trc.set_defaults(fn=_cmd_trace)
     return ap
 
 

@@ -41,6 +41,7 @@ from __future__ import annotations
 import logging
 import os
 import socket
+import weakref
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -117,20 +118,24 @@ def backend_rule(device_type: str, places: Sequence[RankPlace]) -> str:
     return "nccl" if len(used) == len(places) else "gloo"
 
 
-_PLACES = None          # (the default group, its ranks' resolved places)
+# (a weak reference to the default group, its ranks' resolved places):
+# a strong one kept the group — and gloo's loop and worker threads —
+# alive past destroy_process_group() until interpreter exit
+_PLACES = None
 
 
 def record_places(places: Sequence[RankPlace]) -> None:
     """Keep the initialized default group's resolved places."""
     global _PLACES
-    _PLACES = (dist.group.WORLD, list(places))
+    _PLACES = (weakref.ref(dist.group.WORLD), list(places))
 
 
 def group_places() -> List[RankPlace]:
     """The default group's resolved places: those recorded when it was
     formed, else all-gathered over it (a collective: every rank calls
     it)."""
-    if _PLACES is not None and _PLACES[0] is dist.group.WORLD:
+    kept = _PLACES[0]() if _PLACES is not None else None
+    if kept is not None and kept is dist.group.WORLD:
         return _PLACES[1]
     got = [None] * dist.get_world_size()
     dist.all_gather_object(got, this_place())

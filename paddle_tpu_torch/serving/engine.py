@@ -391,6 +391,10 @@ class DecodeEngine:
         self._stopping = False
         self._close_now = False
         self._thread: Optional[threading.Thread] = None
+        # test seam: called with the step index at the top of every
+        # step(), before reap and admit — where a concurrent client's
+        # submit or cancel would land (testing/faults.py decode_script)
+        self._step_interceptor: Optional[Callable[[int], None]] = None
         self._steps = 0
         self._arrival_seq = 0
         self._active_steps_sum = 0
@@ -1064,6 +1068,9 @@ class DecodeEngine:
         plan, page-ensure, ONE device step, bookkeep. Returns True iff
         a device step ran. Single-threaded by contract: the engine
         thread in serving mode, the caller in sync mode."""
+        interceptor = self._step_interceptor
+        if interceptor is not None:
+            interceptor(self._steps)
         self._reap(time.monotonic())
         self._admit()
         active_idx = [s for s in range(self.num_slots)
@@ -1364,8 +1371,8 @@ class DecodeEngine:
         (zero refcount underflows). With a spill store the dict grows
         the host tier (``spilled``, ``spill_capacity``, ``spill_puts``
         ...), whose invariant is conservation: puts == restores +
-        integrity drops + LRU drops + recovery clears + still-resident
-        entries."""
+        integrity drops + LRU drops + recovery clears + superseded
+        entries + still-resident entries."""
         acc = self.pool.accounting()
         acc["held_by_slots"] = sum(
             len(s.pages) for s in self.slots if s is not None)

@@ -86,8 +86,10 @@ import numpy as np
 
 from paddle_tpu_torch.analysis.lockdep import named_lock
 from paddle_tpu_torch.obs import context as obs_context
-from paddle_tpu_torch.obs.events import JOURNAL
 from paddle_tpu_torch.obs.events import emit as journal_emit
+from paddle_tpu_torch.obs.httpd import (events_payload, flight_payload,
+                                        profile_payload, send_json,
+                                        send_text)
 from paddle_tpu_torch.obs.metrics import (REGISTRY, SampleFamily,
                                           stats_families)
 from paddle_tpu_torch.serving.server import (Expired, InferenceServer,
@@ -161,14 +163,7 @@ def build_http_server(server: InferenceServer, host: str = "127.0.0.1",
             return f"http://{h}:{p}"
 
         def _json(self, code: int, payload: dict, headers=()):
-            body = json.dumps(payload).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            for k, v in headers:
-                self.send_header(k, v)
-            self.end_headers()
-            self.wfile.write(body)
+            send_json(self, code, payload, headers)
 
         def _trace_id(self, req: dict) -> str:
             """The request's end-to-end correlation id, minted HERE at
@@ -188,51 +183,14 @@ def build_http_server(server: InferenceServer, host: str = "127.0.0.1",
             elif url.path == "/stats":
                 self._json(200, server.stats())
             elif url.path == "/metrics":
-                body = prometheus_text(
-                    server, endpoint=self._endpoint()).encode()
-                self.send_response(200)
-                self.send_header("Content-Type",
-                                 "text/plain; version=0.0.4")
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
+                send_text(self, prometheus_text(
+                    server, endpoint=self._endpoint()))
             elif url.path == "/events":
-                qs = parse_qs(url.query)
-                try:
-                    n = int(qs.get("n", ["100"])[0])
-                    since = qs.get("since_seq", [None])[0]
-                    since = int(since) if since is not None else None
-                except ValueError:
-                    self._json(400, {"error": "n/since_seq must be "
-                                              "integers"})
-                    return
-                self._json(200, {"events": JOURNAL.tail(
-                    n, domain=qs.get("domain", [None])[0],
-                    kind=qs.get("kind", [None])[0], since_seq=since),
-                    "last_seq": JOURNAL.last_seq})
+                self._json(*events_payload(parse_qs(url.query)))
             elif url.path == "/flight":
-                from paddle_tpu_torch.obs.flight import FLIGHT
-                self._json(200, FLIGHT.bundle(reason="http"))
+                self._json(*flight_payload())
             elif url.path == "/profile":
-                # live per-phase/MFU/memory snapshot + SLO state;
-                # ?deep_steps=N arms a torch.profiler window over the
-                # next N decode steps (obs/profile.py)
-                from paddle_tpu_torch.obs.profile import PROFILER
-                from paddle_tpu_torch.obs.slo import WATCHDOG
-                qs = parse_qs(url.query)
-                payload = {}
-                deep = qs.get("deep_steps", [None])[0]
-                if deep is not None:
-                    try:
-                        payload["armed_trace_dir"] = \
-                            PROFILER.arm_window(int(deep))
-                    except ValueError:
-                        self._json(400, {"error": "deep_steps must "
-                                                  "be an integer"})
-                        return
-                payload["profile"] = PROFILER.snapshot()
-                payload["slo"] = WATCHDOG.snapshot()
-                self._json(200, payload)
+                self._json(*profile_payload(parse_qs(url.query)))
             else:
                 self._json(404, {"error": f"no route {self.path}"})
 

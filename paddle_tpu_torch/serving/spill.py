@@ -94,6 +94,11 @@ class SpillStore:
         self.restored_count = 0
         self.evicted_lru = 0
         self.dropped_integrity = 0
+        # a put whose key was still resident: the fresh copy replaces
+        # the stale one, which leaves the store uncounted otherwise (a
+        # revisit recomputes the page holding its last prompt token, so
+        # the trie can spill one path twice)
+        self.superseded = 0
         self.high_water = 0
 
     def __len__(self) -> int:
@@ -117,6 +122,7 @@ class SpillStore:
         with self._lock:
             if key in self._entries:
                 del self._entries[key]
+                self.superseded += 1
             self._entries[key] = entry
             self.put_count += 1
             self.high_water = max(self.high_water, len(self._entries))
@@ -158,6 +164,7 @@ class SpillStore:
                     "spill_restores": self.restored_count,
                     "spill_evicted_lru": self.evicted_lru,
                     "spill_dropped_integrity": self.dropped_integrity,
+                    "spill_superseded": self.superseded,
                     "spill_high_water": self.high_water}
 
     def corrupt_one(self, mode: str = "bitflip",

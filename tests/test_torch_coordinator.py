@@ -12,7 +12,6 @@ snapshot bytes).
 """
 
 import collections
-import contextlib
 import os
 import threading
 import time
@@ -24,6 +23,7 @@ import pytest
 from paddle_tpu_torch import obs as tobs
 from paddle_tpu_torch.obs.events import tail
 from paddle_tpu_torch.obs.metrics import REGISTRY
+from paddle_tpu_torch.testing.faults import FaultPlan
 from paddle_tpu_torch.trainer.coordinator import (Coordinator,
                                                   CoordinatorServer,
                                                   FileStore, InMemStore,
@@ -60,28 +60,10 @@ def clock(monkeypatch):
     return c
 
 
-@contextlib.contextmanager
-def membership_script(coordinator, at):
-    """Run ``at[i]()`` right after the coordinator's i-th grant (0-based
-    from entering), outside its lock, through its ``_grant_interceptor``
-    seam (the JAX package's ``FaultPlan.membership_script``)."""
-    stats = {"fired": []}
-    prev = coordinator._grant_interceptor
-    base = coordinator._grants
-
-    def intercept(idx, grant):
-        if prev is not None:
-            prev(idx, grant)
-        fn = at.get(idx - base)
-        if fn is not None:
-            stats["fired"].append(idx - base)
-            fn()
-
-    coordinator._grant_interceptor = intercept
-    try:
-        yield stats
-    finally:
-        coordinator._grant_interceptor = prev
+# the port's FaultPlan.membership_script: ``at[i]()`` right after the
+# coordinator's i-th grant (0-based from entering), outside its lock,
+# through its ``_grant_interceptor`` seam
+membership_script = FaultPlan.membership_script
 
 
 # ------------------------------------------------ tests/test_elastic.py

@@ -337,3 +337,30 @@ def test_filter_finite_rows_and_tree_isfinite():
         jcounters.value("parallel/poisoned_rows") - jbefore == 2
     assert tree_isfinite({"a": torch.ones(2), "b": [torch.zeros(1)]})
     assert not tree_isfinite({"a": {"b": torch.tensor([1.0, float("nan")])}})
+
+
+@pytest.mark.parametrize("codes, says", [
+    ((None, 1), "rank 1 failed: exit code 1; it wrote status 'ok'"),
+    ((None, "kill"), "rank 1 failed: killed by signal SIGKILL (9); "
+                     "it wrote status 'ok'"),
+])
+def test_run_world_reports_a_rank_that_exits_nonzero_after_ok(
+        tmp_path, codes, says):
+    # rank 1 writes its ("ok", result) record, then ends non-zero while
+    # rank 0 still lingers: the world fails with the exit code or
+    # signal and the written status — never a TypeError
+    with pytest.raises(AssertionError) as err:
+        run_world(td.exit_after_result, 2, tmp_path, codes, 3.0)
+    assert says in str(err.value)
+
+
+def test_world_teardown_ends_gloo_threads(tmp_path):
+    # the port's record of the group's places held the default group
+    # past destroy_process_group(), and with it gloo's loop and worker
+    # threads, which then aborted some ranks at interpreter exit
+    res, threads = run_world(td.places_then_threads, 2, tmp_path,
+                             with_threads=True)
+    assert res[0] == res[1] and len(res[0]) == 2
+    for t in threads:
+        assert t["python"] == ["MainThread"], t
+        assert not [n for n in t["native"] if "gloo" in n], t

@@ -40,6 +40,16 @@ from tests.torch_dist import run_world
 RTOL, ATOL = 2e-4, 2e-5
 
 
+@pytest.fixture(autouse=True)
+def _port_device_restored():
+    """The port's process device back to the default (the card) after
+    each test: a test here that inits the CPU must not leave it to the
+    next file's tests."""
+    yield
+    from paddle_tpu_torch import config as tconfig
+    tconfig.init(seed=0)
+
+
 def _tar(tmp, name, model, model_kw=None, seed=0):
     """The JAX init of ``model`` as a weight tar (its path)."""
     jpaddle.init(use_tpu=False, seed=seed)

@@ -124,6 +124,16 @@ SGD_RUNS = ["pp2", "pp2_remat", "pp2_1f1b", "pp4", "pp4_1f1b_m8", "lm_gpipe",
             "lm_1f1b"]
 
 
+@pytest.fixture(autouse=True)
+def _port_device_restored():
+    """The port's process device back to the default (the card) after
+    each test: a test here that inits the CPU must not leave it to the
+    next file's tests."""
+    yield
+    from paddle_tpu_torch import config as tconfig
+    tconfig.init(seed=0)
+
+
 @pytest.fixture(scope="module")
 def pp_world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("pp")

@@ -27,8 +27,9 @@ import pytest
 import paddle_tpu.reader as jreader
 import paddle_tpu_torch.reader as treader
 from paddle_tpu.reader import recordio as jrio
-from paddle_tpu.testing.faults import FaultPlan
+from paddle_tpu.testing.faults import FaultPlan as JaxFaultPlan
 from paddle_tpu_torch.reader import recordio as trio
+from paddle_tpu_torch.testing.faults import FaultPlan
 from paddle_tpu_torch.trainer.event import DataFaultEvent, FaultEvent
 from paddle_tpu_torch.utils.stats import global_counters
 
@@ -63,6 +64,17 @@ def _shard(path, rio, n=25, seed=0, chunk_bytes=128, corrupt_at=()):
         recs = list(FaultPlan(seed=seed).corrupt_records(recs, corrupt_at))
     rio.write_records(str(path), recs, max_chunk_bytes=chunk_bytes)
     return str(path)
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_corrupt_records_byte_equal_to_jax(seed):
+    recs = _records(12, seed=seed)
+    got = list(FaultPlan(seed=seed).corrupt_records(recs, [1, 4, 11]))
+    assert got == list(JaxFaultPlan(seed=seed).corrupt_records(recs,
+                                                               [1, 4, 11]))
+    assert [i for i, (a, b) in enumerate(zip(got, recs)) if a != b] == \
+        [1, 4, 11]
+    assert all(got[i][0] == 0xFF for i in (1, 4, 11))
 
 
 # ----------------------------------------------------------- ErrorBudget

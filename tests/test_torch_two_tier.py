@@ -33,12 +33,14 @@ import torch
 from paddle_tpu import models
 from paddle_tpu.ops import pallas_decode as jax_ops
 from paddle_tpu.serving.engine import DecodeEngine as JaxEngine
+from paddle_tpu.testing.faults import FaultPlan as JaxFaultPlan
 
 from paddle_tpu_torch.models import decode as pt_decode
 from paddle_tpu_torch.ops import paged_decode as pt_ops
 from paddle_tpu_torch.serving import DecodeEngine
 from paddle_tpu_torch.serving.spill import (SpillEntry, SpillStore,
                                             entry_checksum)
+from paddle_tpu_torch.testing.faults import FaultPlan
 from tests.test_torch_paged_decode import (CHUNKS, chunked_window_reference,
                                            plan_for)
 
@@ -418,35 +420,29 @@ def test_spill_store_lru_checksum_and_corruption():
 
 def _storm(eng, seed, waves=5, per_wave=2, gap=4, prompt_len=8,
            max_new=3, vocab=40, revisit_from=2, submitted=None):
-    """The spill storm of tests/test_serving_faults.py
-    (FaultPlan.spill_storm) driven step by step without the JAX fault
-    harness: ``per_wave`` distinct prompts join every ``gap`` device
-    steps, and from wave ``revisit_from`` on each wave also resubmits
-    one of the earliest prompts, whose pages are by then the coldest.
-    Works on either package's engine. Returns (and appends to
-    ``submitted`` as they join) the (request, prompt) pairs."""
-    rng = np.random.RandomState(seed + 2)
-    prompts = [[int(t) for t in rng.randint(0, vocab, prompt_len)]
-               for _ in range(waves * per_wave)]
+    """The spill storm of tests/test_serving_faults.py: the engine's own
+    package's ``FaultPlan.spill_storm`` (``per_wave`` distinct prompts
+    join every ``gap`` device steps, and from wave ``revisit_from`` on
+    each wave also resubmits one of the earliest prompts, whose pages
+    are by then the coldest) driven step by step under its
+    ``FaultPlan.decode_script``. Works on either package's engine.
+    Returns (and appends to ``submitted`` as they join, even when a
+    step raises) the (request, prompt) pairs."""
+    plan = (FaultPlan if isinstance(eng, DecodeEngine)
+            else JaxFaultPlan)(seed=seed)
+    schedule, joined = plan.spill_storm(
+        eng, waves=waves, per_wave=per_wave, gap=gap,
+        prompt_len=prompt_len, max_new=max_new, vocab=vocab,
+        revisit_from=revisit_from)
     submitted = [] if submitted is None else submitted
-
-    def fire(w):
-        for j in range(per_wave):
-            prompt = prompts[(w * per_wave + j) % len(prompts)]
-            submitted.append((eng.submit(prompt, max_new), prompt))
-        if w >= revisit_from:
-            prompt = prompts[w % revisit_from]
-            submitted.append((eng.submit(prompt, max_new), prompt))
-
-    fire(0)
-    due = {w * gap: w for w in range(1, waves)}
-    base = eng._steps
-    while eng._has_work():
-        w = due.pop(eng._steps - base, None)
-        if w is not None:
-            fire(w)
-        eng.step()
-    assert not due, "the engine drained before every wave joined"
+    try:
+        with plan.decode_script(eng, schedule) as st:
+            while eng._has_work():
+                eng.step()
+    finally:
+        submitted.extend(joined)
+    assert len(st["fired"]) == waves - 1, \
+        "the engine drained before every wave joined"
     return submitted
 
 
@@ -470,6 +466,7 @@ def assert_pool_balanced(eng):
         assert acc["spill_puts"] == (
             acc["spill_restores"] + acc["spill_evicted_lru"]
             + acc["spill_dropped_integrity"] + acc["spill_cleared"]
+            + acc["spill_superseded"]
             + acc["spilled"]), acc
     return acc
 
@@ -504,9 +501,11 @@ def test_spill_storm_matches_jax_engine(kv_quant):
         assert t_st[key] == j_st[key], key
     assert t_st["kv_pages_spilled_now"] == acc["spilled"]
     assert t_st["kv_quant_bits"] == (8 if kv_quant else 32)
-    assert t_eng.page_accounting() == {
-        k: v for k, v in j_eng.page_accounting().items()
-        if k in t_eng.page_accounting()}
+    # the port's store also counts superseded entries (none here)
+    t_acc, j_acc = t_eng.page_accounting(), j_eng.page_accounting()
+    assert set(t_acc) - set(j_acc) == {"spill_superseded"}
+    assert t_acc["spill_superseded"] == 0
+    assert {k: v for k, v in t_acc.items() if k in j_acc} == j_acc
 
 
 def test_corrupt_spilled_page_degrades_to_miss():
@@ -581,6 +580,7 @@ def test_crash_during_spill_stays_balanced(stage):
     assert acc["spill_puts"] == (
         acc["spill_restores"] + acc["spill_evicted_lru"]
         + acc["spill_dropped_integrity"] + acc["spill_cleared"]
+        + acc["spill_superseded"]
         + acc["spilled"])
     assert hit["path"] is not None and not eng.spill.has(hit["path"])
     eng.run(timeout=300)

@@ -7,9 +7,12 @@ per-rank workers they run.
 TCP port, so concurrent test workers cannot collide) with a 60 s
 collective timeout, runs ``fn(rank, world, *args)`` on the CPU, and
 returns the ranks' results in rank order. The parent polls the ranks
-against a deadline: a rank that raises fails the world at once with
-its traceback, and a world still running at the deadline is killed —
-a broken collective fails its test, it never hangs the suite.
+against a deadline: a rank that exits non-zero fails the world at once
+with its exit code or signal, the status it wrote and its traceback,
+and a world still running at the deadline is killed — a broken
+collective fails its test, it never hangs the suite. Each rank records
+its live threads after ``destroy_process_group()``
+(``run_world(..., with_threads=True)`` returns them).
 
 This module imports torch and the port only: the workers must not load
 JAX (the parent test holds their results against it).
@@ -17,8 +20,11 @@ JAX (the parent test holds their results against it).
 
 from __future__ import annotations
 
+import gc
 import os
 import pickle
+import signal
+import threading
 import time
 import traceback
 
@@ -27,6 +33,30 @@ import torch
 
 STORE_TIMEOUT_S = 60
 DEADLINE_S = 300
+
+
+def live_threads():
+    """This process's live threads: the Python ones by name, and every
+    native thread by its kernel name (gloo's ``gloo_tcp_loop`` and
+    ``pt_gloo_runloop`` are C++ threads Python does not see)."""
+    native = []
+    for tid in sorted(os.listdir("/proc/self/task")):
+        try:
+            with open(f"/proc/self/task/{tid}/comm") as f:
+                native.append(f.read().strip())
+        except OSError:                 # the thread ended meanwhile
+            pass
+    return {"python": sorted(t.name for t in threading.enumerate()),
+            "native": native}
+
+
+def _write(out, record):
+    """Write the rank's record whole: flushed and fsynced before the
+    rank goes on to exit."""
+    with open(out, "wb") as f:
+        pickle.dump(record, f)
+        f.flush()
+        os.fsync(f.fileno())
 
 
 def _child(fn, rank, world, store, out, args):
@@ -41,15 +71,19 @@ def _child(fn, rank, world, store, out, args):
         import torch.distributed as dist
         dist.barrier()
         dist.destroy_process_group()
-        with open(out, "wb") as f:
-            pickle.dump(("ok", res), f)
+        gc.collect()
+        _write(out, ("ok", res, live_threads()))
     except BaseException:
-        with open(out, "wb") as f:
-            pickle.dump(("err", traceback.format_exc()), f)
+        _write(out, ("err", traceback.format_exc(), live_threads()))
         os._exit(1)
 
 
-def run_world(fn, world, tmp_path, *args, deadline_s=DEADLINE_S):
+def run_world(fn, world, tmp_path, *args, deadline_s=DEADLINE_S,
+              with_threads=False):
+    """The ranks' results in rank order; with ``with_threads`` also each
+    rank's ``live_threads()`` after its group was destroyed. A rank
+    that exits non-zero fails the world with its exit code (or signal),
+    what it wrote and its traceback."""
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     tag = f"{fn.__name__}_{time.monotonic_ns()}"
@@ -67,21 +101,21 @@ def run_world(fn, world, tmp_path, *args, deadline_s=DEADLINE_S):
             bad = [r for r, p in enumerate(procs)
                    if p.exitcode not in (None, 0)]
             if bad:
-                raise AssertionError(f"rank {bad[0]} failed:\n"
-                                     + _read(outs[bad[0]]))
+                raise AssertionError(
+                    _failure(bad[0], procs[bad[0]].exitcode, outs[bad[0]]))
             if time.monotonic() > end:
                 raise AssertionError(
                     f"world {fn.__name__} still running after "
                     f"{deadline_s} s: killed")
             time.sleep(0.05)
-        results = []
+        results, threads = [], []
         for r, p in enumerate(procs):
-            status, val = pickle.load(open(outs[r], "rb")) \
-                if os.path.exists(outs[r]) else ("err", "no result")
-            if p.exitcode != 0 or status != "ok":
-                raise AssertionError(f"rank {r} failed:\n{val}")
-            results.append(val)
-        return results
+            record = _load(outs[r])
+            if p.exitcode != 0 or record is None or record[0] != "ok":
+                raise AssertionError(_failure(r, p.exitcode, outs[r]))
+            results.append(record[1])
+            threads.append(record[2])
+        return (results, threads) if with_threads else results
     finally:
         for p in procs:
             if p.is_alive():
@@ -89,11 +123,43 @@ def run_world(fn, world, tmp_path, *args, deadline_s=DEADLINE_S):
             p.join(5)
 
 
-def _read(path):
+def _load(path):
+    """The rank's (status, value, threads) record, or None."""
     try:
-        return pickle.load(open(path, "rb"))[1]
+        with open(path, "rb") as f:
+            return pickle.load(f)
     except Exception:
-        return "(no traceback written)"
+        return None
+
+
+def _exit_text(code):
+    if code is None:
+        return "still running"
+    if code < 0:
+        try:
+            return f"killed by signal {signal.Signals(-code).name} ({-code})"
+        except ValueError:
+            return f"killed by signal {-code}"
+    return f"exit code {code}"
+
+
+def _failure(rank, code, path):
+    """One rank's failure: its exit code or signal, whether it wrote a
+    record and with which status, and its traceback when it wrote one."""
+    return f"rank {rank} failed: {_exit_text(code)}; " + _read(path)
+
+
+def _read(path):
+    """What the rank wrote, as text (never raises)."""
+    record = _load(path)
+    if record is None:
+        return "it wrote no result"
+    status, val = record[0], record[1]
+    if status == "ok":
+        threads = record[2] if len(record) > 2 else None
+        return (f"it wrote status 'ok' (a result), then exited; threads "
+                f"alive after destroy_process_group(): {threads}")
+    return f"it wrote status {status!r}:\n{val}"
 
 
 def np_tree(tree):
@@ -513,6 +579,32 @@ def poisoned_islands(rank, world, tar, batches, sync_period=2,
             after.append(np_tree(dict(params.raw)))
     return dict(after=after,
                 poisoned=global_counters.value("parallel/poisoned_islands"))
+
+
+def exit_after_result(rank, world, codes, linger_s=0.0):
+    """Return a result, then end the process at interpreter exit with
+    ``codes[rank]``: an int exit code, ``"kill"`` (SIGKILL) or None (a
+    clean exit that lingers ``linger_s``) — a rank that wrote ``ok``
+    and still failed."""
+    import atexit
+    import signal as sig
+    code = codes[rank]
+    if code == "kill":
+        atexit.register(os.kill, os.getpid(), sig.SIGKILL)
+    elif code is not None:
+        atexit.register(os._exit, code)
+    else:
+        atexit.register(time.sleep, linger_s)
+    return [rank, "done"]
+
+
+def places_then_threads(rank, world):
+    """Resolve the group's places (``group_places`` keeps them): the
+    world's teardown must still end gloo's threads."""
+    from paddle_tpu_torch.parallel import create_mesh
+    from paddle_tpu_torch.parallel.mesh import group_places
+    create_mesh([("dp", world)], device_type="cpu")
+    return [tuple(p) for p in group_places()]
 
 
 def moe_cases(rank, world, cases, shape):

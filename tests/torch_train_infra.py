@@ -1,16 +1,14 @@
 """Shared helpers of the port's training-infrastructure tests
 (checkpoints, the guarded step, microbatching, the CLI): one small
 classifier built in both packages from one JAX weight table, seeded
-batch readers, the fault injections the JAX package's
-``testing/faults.py`` applies to its trainer, written for the port's
-trainer, and parameter comparisons.
+batch readers, the fault injections of the port's ``testing/faults.py``
+under the names these tests use, and parameter comparisons.
 
 Both trainers start from the same table: the JAX package's init,
 carried to the port as numpy arrays. Names match because each package
 builds the graph from reset name counters.
 """
 
-import contextlib
 import warnings
 
 import jax
@@ -22,7 +20,7 @@ import paddle_tpu as jpaddle
 import paddle_tpu_torch as tpaddle
 from paddle_tpu.core.registry import reset_name_counters as jreset
 from paddle_tpu_torch.core.registry import reset_name_counters as treset
-from paddle_tpu_torch.trainer.memory import resource_exhausted_error
+from paddle_tpu_torch.testing.faults import FaultPlan
 
 
 def build(paddle, in_dim=8, hidden=4, classes=2, bn=False):
@@ -80,16 +78,8 @@ def reader(rows=8, batches=6, seed=42, in_dim=8, classes=2):
 
 def poison(rdr, steps, value=float("nan")):
     """The batches at ``steps`` with every feature replaced by ``value``
-    (``testing/faults.py`` ``poison_batches``)."""
-    bad = set(steps)
-
-    def r():
-        for i, batch in enumerate(rdr()):
-            if i in bad:
-                batch = [(np.full_like(np.asarray(f, np.float32), value), y)
-                         for f, y in batch]
-            yield batch
-    return r
+    (the port's ``FaultPlan.poison_batches``)."""
+    return FaultPlan().poison_batches(rdr, steps, value=value)
 
 
 def skipping(rdr, steps):
@@ -140,41 +130,8 @@ def kinds(events, cls):
     return [e for e in events if isinstance(e, cls)]
 
 
-@contextlib.contextmanager
-def oom_at(trainer, step, n=1):
-    """The port trainer's step raises a device OOM on its first ``n``
-    attempts at step ``step`` (``testing/faults.py`` ``oom_at``)."""
-    stats = {"injected": 0}
-    left = [n]
-
-    def intercept(k, mb):
-        if trainer._step_count == step and left[0] > 0:
-            left[0] -= 1
-            stats["injected"] += 1
-            raise resource_exhausted_error(where=f"oom_at(step={step})")
-
-    trainer._step_interceptor = intercept
-    try:
-        yield stats
-    finally:
-        trainer._step_interceptor = None
-
-
-@contextlib.contextmanager
-def memory_pressure(trainer, max_rows):
-    """Every step or probe trial whose microbatch exceeds ``max_rows``
-    rows raises a device OOM (``testing/faults.py``
-    ``memory_pressure``)."""
-    stats = {"injected": 0}
-
-    def intercept(k, mb):
-        if mb > max_rows:
-            stats["injected"] += 1
-            raise resource_exhausted_error(
-                where=f"memory_pressure({max_rows}), microbatch={mb}")
-
-    trainer._step_interceptor = intercept
-    try:
-        yield stats
-    finally:
-        trainer._step_interceptor = None
+# the port's FaultPlan under the names these tests use: the step raises a
+# device OOM on its first ``n`` attempts at step ``step``; every step or
+# probe trial over ``max_rows`` microbatch rows raises one
+oom_at = FaultPlan.oom_at
+memory_pressure = FaultPlan.memory_pressure
