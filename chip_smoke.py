@@ -723,9 +723,65 @@ Phases (any failure exits non-zero before the final line):
    engine, armed and disarmed alternately (5 runs each after a warm
    one), tokens/s median and spread and the journal records a run;
    and observe_journal's host time a record over 20,000 hop records.
+51. the warm-start artifact plane — each step a fresh process (this
+   script with --artifact-worker SPEC) on a compile cache and an
+   artifact store of its own, counting its nvcc launches
+   (ops/_build.nvcc_launches). (a) Fully cold (compile cache off, empty
+   store): phase 3's engine (warm_start on) warms up and serves its 16
+   requests, tokens equal to phase 3's, one nvcc (the window library,
+   journaled artifacts/build and backfilled). (b) The compile cache
+   alone (phase 1's build directory, empty store), beside (a): the
+   engine and all 14 libraries resolve with 0 nvcc and are backfilled.
+   (c) Warm (compile cache off, (b)'s store), alone: 0 nvcc, 14
+   artifacts/load records from the store, the 16 requests
+   token-identical to (a), and each library called once at its check's
+   shapes (phase 2's window case, phase 17's int8 case, phase 18's
+   decode case, phase 6's causal T 1024 flash case in bfloat16 and
+   float32, phase 11's full-width LSTM case in both dtypes, the GRU at
+   the tagger's shape and at one the cooperative kernel takes) held
+   against its plain version at that check's tolerance; first-token
+   seconds and each library's load ms beside (a)'s build. (d) Each of
+   corrupt_artifact's modes (payload, torn, magic) and
+   stale_fingerprint on the window library, one cold-cache process each
+   on a copy of (b)'s store, all four at once: exactly a fallback with
+   its reason and one rebuild (nvcc 1), tokens equal to (a)'s, no
+   witness violation; cache_race with 8 writers leaves one complete
+   frame; cli.py artifacts build (started beside (a)) then serve
+   --artifacts DIR --compile_cache 0 answering a /generate whose
+   journal holds one store load and nothing built; artifacts verify
+   exits 0 on the store and 1 on a copy with a torn frame.
+52. the sharded embedding service — phase 32's Wide&Deep (vocabs
+   100000 / 100000 / 10000, embedding 64, hidden 256 / 128 / 64, batch
+   512, Zipf 1.1 ids) built with the DSL, its three 64-wide deep tables
+   remote=True (one client: the tables share one key space), the
+   1-wide tables local. (a) Four cli.py pserver processes on a cli.py
+   coordinator process, each with --snapshot_dir: the remote forward
+   equals the local-table forward (tables set to the store's rows)
+   within 1e-6 relative; 50 steps under deterministic algorithms
+   (forward on the card, torch.autograd.grad with respect to the
+   gathered row blocks, push_grads, flush; snapshot_now after step 2),
+   the first 4 losses within WD_CPU_RTOL of the same loop on the CPU
+   port against a fresh in-process service of the same seed. (b) A
+   second cluster (up beside the first): pserver 1 runs under
+   --pserver-kill-at, which SIGKILLs it inside commit 6's torn window
+   (the WAL entry durable, the ack never sent); its replacement,
+   started with the same flags, restores snapshot + WAL and rejoins;
+   the same 50 steps end with (a)'s digest and losses, and every
+   shard's ledger (restored from its SIGTERM snapshot) equals the
+   client's own sequence. (c) On an in-process EmbedService:
+   kill_shard at commit and replace (digest equal to the uninterrupted
+   run), stale_read against a dead shard (journaled), slow_shard on
+   one chosen RPC; the witness holds no violation. (d) Readings:
+   gather, forward + grad and push + flush ms a step, the remote step
+   against the same step on device-resident tables, and a traced
+   run's idle share.
 
 Then logs the whole script's wall time and prints the kernel table as
-one JSON line (phases 28-50 add no kernel; the float32 flash rows carry
+one JSON line (phases 28-52 add no kernel; route_launches["artifacts"]
+on every row counts phase 51's launches on libraries loaded from the
+store: the engines' window launches of (a)-(d), which the window row's
+launches include, and each row's check call in (c), a comparison
+that launches do not include; the float32 flash rows carry
 phase 49's launches as route_launches["mesh"]; phase 50's window and
 LSTM launches are route_launches["chaos"]; the launches of phases
 34-39 are on their own log lines; the window kernel's launches are
@@ -10890,6 +10946,1047 @@ def phase_chaos(serve):
             "lstm_bwd": res["lstm_bwd"]["sm90"]}
 
 
+# ------------------------------------------------------------ phase 51
+# the artifact ladder: each step a fresh process on this card with its
+# own compile cache and artifact store (this script with
+# --artifact-worker SPEC)
+ARTIFACT_FAULTS = ("payload", "torn", "magic", "stale")
+ARTIFACT_RACE_WRITERS = 8
+ARTIFACT_SERVE_NEW = 8             # tokens the CLI replica's request asks
+
+
+def _artifact_start(spec, cache_dir, store_dir):
+    """Start one ``--artifact-worker`` step: a fresh process with
+    PADDLE_TPU_COMPILE_CACHE ``cache_dir`` ("0": off) and
+    PADDLE_TPU_ARTIFACTS ``store_dir``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PADDLE_TPU_COMPILE_CACHE=cache_dir,
+               PADDLE_TPU_ARTIFACTS=store_dir)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--artifact-worker", json.dumps(spec)],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, spec, time.perf_counter()
+
+
+def _artifact_result(started, timeout=600):
+    """An ``_artifact_start`` step's ARTIFACT RESULT (JSON), with the
+    process's wall seconds added."""
+    proc, spec, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith("ARTIFACT RESULT ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"artifact worker {spec} exit "
+                             f"{proc.returncode}:\n{out[-3000:]}\n"
+                             f"{err[-6000:]}")
+    res = json.loads(lines[-1][len("ARTIFACT RESULT "):])
+    res["process_s"] = wall
+    return res
+
+
+def _artifact_engine_run(dec, t0):
+    """Phase 3's engine (warm_start on) on ``dec``: warmup, then the 16
+    requests. Returns tokens, the window kernel's launches, warmup
+    seconds and the seconds from ``t0`` to the first token."""
+    from paddle_tpu_torch.ops import paged_decode as ops
+    from paddle_tpu_torch.serving import DecodeEngine
+    eng = DecodeEngine(dec, num_slots=SLOTS, page_size=PAGE,
+                       max_seq_len=FULL["max_len"], warm_start=True)
+    t_w = time.perf_counter()
+    stats = eng.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t_w
+    prompts, news = serving_requests()
+    n0 = ops.paged_window_attention.launches
+    t_sub = time.perf_counter()
+    reqs, wall = _serve(eng, prompts, news)
+    first = min(eng._ttft)
+    return dict(tokens=[[int(t) for t in r.get(timeout=1)] for r in reqs],
+                launches=ops.paged_window_attention.launches - n0,
+                warmup_s=warmup_s, serve_s=wall, warmup_stats=stats,
+                first_token_s=t_sub - t0 + first)
+
+
+def _artifact_checks():
+    """One call of each of the 14 kernel libraries at its check's
+    shapes (phase 2's window case, phase 17's int8 case, phase 18's
+    decode case, phase 6's causal T 1024 flash case in bfloat16 and
+    float32, phase 11's full-width LSTM case in both dtypes, the GRU at
+    the tagger's shape and at one the cooperative kernel takes), held
+    against the plain version at that check's tolerance. Returns
+    ({library: max |err|}, {kernel row: launches})."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_rnn as fr
+    from paddle_tpu_torch.ops import paged_decode as ops
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs, rows = {}, {}
+    # rows 7 and 8: the window kernel on float and int8 pages
+    args, _, _ = _window_case(8, 8, 1, f32, seed=8 * 10 + 8 + 1)
+    n0, q0 = (ops.paged_window_attention.launches,
+              ops.paged_window_attention.dequant_launches)
+    got = ops.paged_window_attention(*args)
+    torch.cuda.synchronize()
+    want = ops.paged_window_reference(*args)
+    torch.testing.assert_close(got, want, **F32_TOL)
+    errs["paged_window_attention"] = (got - want).abs().max().item()
+    a, _, _ = _quant_window_case(8, 8, 1, f32, seed=8 * 10 + 8 + 1)
+    kw = dict(k_scales=a["ks"], v_scales=a["vs"])
+    got = ops.paged_window_attention(a["q"], a["kq"], a["vq"], a["tb"],
+                                     a["ln"], **kw)
+    torch.cuda.synchronize()
+    want = ops.paged_window_reference(a["q"], a["kq"], a["vq"], a["tb"],
+                                      a["ln"], **kw)
+    torch.testing.assert_close(got, want, **F32_TOL)
+    errs["paged_window_attention/int8"] = (got - want).abs().max().item()
+    rows["paged_window_attention"] = \
+        ops.paged_window_attention.launches - n0
+    rows["paged_window_attention_int8"] = \
+        ops.paged_window_attention.dequant_launches - q0
+    # row 9: the decode kernel
+    q, k, v = _decode_case(8, f32, seed=188)
+    n0 = ops.decode_attention.launches
+    errs["decode_attention"] = _decode_check(ops, q, k, v, DECODE_LENS,
+                                             "store-loaded g=8 float32")
+    rows["decode_attention"] = ops.decode_attention.launches - n0
+    # rows 4-6: the flash kernels, bfloat16 (sm90) and float32 (tf32x3)
+    for dtype, suffix in ((bf16, ""), (f32, "_f32")):
+        q, k, v, do = _flash_inputs(1024, dtype, seed=60)
+        lens2 = torch.tensor(np.stack([[1024] * 8, FLASH_KV_LENS], 1),
+                             dtype=torch.int32, device="cuda")
+        before = {n: getattr(fa, fn).launches for n, fn in
+                  (("fwd", "flash_forward"), ("dq", "flash_backward_dq"),
+                   ("dkv", "flash_backward_dkv"))}
+        out, lse, _, dq, dk, dv = _flash_kernels(q, k, v, do, lens2, True)
+        torch.cuda.synchronize()
+        qf, kf, vf = (x.float().requires_grad_() for x in (q, k, v))
+        ql, kl = lens2[:, 0], lens2[:, 1]
+        scale = q.shape[-1] ** -0.5
+        ref = fa.flash_attention_reference(qf, kf, vf, ql, kl, True, scale)
+        gq, gk, gv = torch.autograd.grad(ref, (qf, kf, vf), do.float())
+        lse_ref = fa.flash_lse_reference(qf.detach(), kf.detach(), ql, kl,
+                                         True, scale)
+        live = lse_ref > fa.NEG_INF / 2
+        for name, keys in (("fwd", (("out", out, ref),)),
+                           ("dq", (("dq", dq, gq),)),
+                           ("dkv", (("dk", dk, gk), ("dv", dv, gv)))):
+            route = fa.flash_route(name, dtype)
+            lib = f"flash_{name}_{'sm90' if route == 'sm90' else 'tf32_sm90'}"
+            errs[lib] = max(_held(n, g_, r_, dtype) for n, g_, r_ in keys)
+            fn = {"fwd": fa.flash_forward, "dq": fa.flash_backward_dq,
+                  "dkv": fa.flash_backward_dkv}[name]
+            rows[f"flash_attention_{name}{suffix}"] = \
+                fn.launches - before[name]
+        errs[f"flash_fwd_{'sm90' if dtype == bf16 else 'tf32_sm90'}"] = max(
+            errs[f"flash_fwd_{'sm90' if dtype == bf16 else 'tf32_sm90'}"],
+            _held_lse(lse[live], lse_ref[live]))
+        del ref, gq, gk, gv
+    # rows 1-2: the LSTM kernels, bfloat16 (sm90) and float32 (bf16x3)
+    b, h, T = 128, 1280, 128
+    lens = _ragged_lens(b, T, seed=110, must=(100, 1, 128))
+    for dtype, suffix in ((bf16, ""), (f32, "_f32")):
+        x4, w, bias, peep = _rnn_inputs(b, h, T, 4, dtype, 120)
+        f0, b0 = fr.lstm_forward.launches, fr.lstm_backward.launches
+        res = fr.lstm_forward(x4, lens, w, bias, peep, save_res=True)
+        torch.cuda.synchronize()
+        ref = fr.lstm_reference(x4, lens, w, bias, peep, save_res=True)
+        run = int(lens.max())
+        fwd = max(_held(n, g_, r_, dtype) for n, g_, r_ in (
+            ("out", res[0], ref[0]), ("hT", res[1], ref[1]),
+            ("cT", res[2], ref[2]), ("cseq", res[3], ref[3]),
+            ("gates", res[4][:, :run], ref[4][:, :run])))
+        gen = torch.Generator(device="cuda").manual_seed(130)
+        d_out = _randn(gen, b, T, h, dtype=dtype)
+        dhT, dcT = _randn(gen, b, h), _randn(gen, b, h)
+        dz = fr.lstm_backward(w, peep, lens, res[4], res[3], d_out, dhT, dcT)
+        torch.cuda.synchronize()
+        dz_ref = fr.lstm_backward_reference(w, peep, lens, res[4], res[3],
+                                            d_out, dhT, dcT)
+        bwd = _held("dz", dz, dz_ref, dtype)
+        fwd_lib = "lstm_fwd_sm90" if fr.lstm_fwd_route(dtype) == "sm90" \
+            else "lstm_fwd_bf16x3_sm90"
+        bwd_lib = "lstm_bwd_sm90" if fr.lstm_bwd_route(dtype) == "sm90" \
+            else "lstm_bwd_bf16x3_sm90"
+        errs[fwd_lib], errs[bwd_lib] = fwd, bwd
+        rows[f"lstm_fwd{suffix}"] = fr.lstm_forward.launches - f0
+        rows[f"lstm_bwd{suffix}"] = fr.lstm_backward.launches - b0
+        del res, ref, dz, dz_ref
+    # row 3: the GRU, on the cluster kernel and on the cooperative one
+    g0 = fr.gru_forward.launches
+    for (b, h, T), lib in (((64, 128, 64), "gru_fwd_sm90"),
+                           ((64, 1024, 17), "gru_fwd")):
+        plan = fr.gru_fwd_plan(b, h, f32, _sms())
+        if (plan.route == "sm90") != (lib == "gru_fwd_sm90"):
+            raise AssertionError(f"gru b{b} h{h}: route {plan.route}, "
+                                 f"not {lib}'s")
+        lens = _ragged_lens(b, T, seed=150, must=(T, 1))
+        x3, w, bias, _ = _rnn_inputs(b, h, T, 3, f32, 160)
+        out, hT = fr.gru_forward(x3, lens, w, bias)
+        torch.cuda.synchronize()
+        ref_out, ref_hT = fr.gru_reference(x3, lens, w, bias)
+        errs[lib] = max(_held("gru out", out, ref_out, f32),
+                        _held("gru hT", hT, ref_hT, f32))
+    rows["gru_fwd"] = fr.gru_forward.launches - g0
+    return errs, rows
+
+
+def _artifact_worker(spec_json):
+    """Phase 51's process (``chip_smoke.py --artifact-worker SPEC``),
+    on the compile cache and store its environment names. SPEC's
+    ``engine``: run phase 3's engine (warmup, 16 requests); ``libs``:
+    resolve all 14 kernel libraries, each timed; ``checks``: then hold
+    each against its plain version (_artifact_checks); ``fault``: one
+    of corrupt_artifact's modes, or "stale" for stale_fingerprint, on
+    the window kernel's stored library around the engine run.
+    Prints last one ARTIFACT RESULT line (JSON): nvcc launches, the
+    artifacts journal, witness violations and each part's readings."""
+    t0 = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("artifact worker: no CUDA card", file=sys.stderr)
+        return 2
+    spec = json.loads(spec_json)
+    from paddle_tpu_torch import artifacts as A
+    from paddle_tpu_torch.models.decode import TransformerDecoder
+    from paddle_tpu_torch.obs import JOURNAL, WITNESS
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.params import init_transformer_lm_params
+    from paddle_tpu_torch.testing import FaultPlan
+    res = {"nvcc_before": _build.nvcc_launches()}
+    dec = None
+    if spec.get("engine") or spec.get("fault"):
+        dec = TransformerDecoder(init_transformer_lm_params(FULL, seed=0),
+                                 n_layers=FULL["n_layers"],
+                                 n_heads=FULL["n_heads"])
+    if spec.get("engine"):
+        res["engine"] = _artifact_engine_run(dec, t0)
+    if spec.get("libs"):
+        for name in _build.SOURCES:
+            _build.load(name)
+        res["load_ms"] = _build.resolve_ms()
+    if spec.get("checks"):
+        res["check_errs"], res["check_launches"] = _artifact_checks()
+    if spec.get("fault"):
+        mode = spec["fault"]
+        store = A.current_store()
+        name = A.runtime._artifact_name(
+            _build.fingerprint_of("paged_window_attention"))
+        fault = FaultPlan.stale_fingerprint(store, name=name) \
+            if mode == "stale" else \
+            FaultPlan.corrupt_artifact(store, name=name, mode=mode)
+        with fault:
+            res["engine"] = _artifact_engine_run(dec, t0)
+    res["nvcc"] = _build.nvcc_launches() - res.pop("nvcc_before")
+    res["records"] = [[r["kind"], r.get("name"), r.get("source"),
+                       r.get("reason"), r.get("build_ms")]
+                      for r in JOURNAL.tail(200, domain="artifacts")]
+    res["violations"] = WITNESS.violations()
+    res["executables"] = A.EXECUTABLES.stats()
+    res["wall_s"] = time.perf_counter() - t0
+    print("ARTIFACT RESULT " + json.dumps(res), flush=True)
+    return 0
+
+
+ARTIFACT_DECODE_CONFIG = """\
+# phase 3's full-width decoder (chip_smoke.py), for cli.py artifacts
+# build and serve
+from paddle_tpu_torch.models.decode import TransformerDecoder
+from paddle_tpu_torch.params import init_transformer_lm_params
+FULL = {full!r}
+decoder = TransformerDecoder(init_transformer_lm_params(FULL, seed=0),
+                             n_layers=FULL["n_layers"],
+                             n_heads=FULL["n_heads"])
+"""
+
+
+def _cli_proc(args, env, **kw):
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **env)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.Popen([sys.executable, "-m", "paddle_tpu_torch.cli"]
+                            + [str(a) for a in args], env=env, **kw)
+
+
+def _artifact_cli_build(work, build_dir):
+    """Phase 51 (d)'s ``cli.py artifacts build`` of phase 3's decoder
+    into a store of its own, from the compile cache (no nvcc): started
+    here, read by _artifact_cli."""
+    cfg = os.path.join(work, "decode_cfg.py")
+    with open(cfg, "w") as f:
+        f.write(ARTIFACT_DECODE_CONFIG.format(full=FULL))
+    store = os.path.join(work, "cli-store")
+    proc = _cli_proc(["artifacts", "build", "--dir", store,
+                      "--decode_config", cfg, "--gen_slots", SLOTS,
+                      "--gen_page_size", PAGE],
+                     {"PADDLE_TPU_COMPILE_CACHE": build_dir},
+                     stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                     text=True)
+    return proc, cfg, store, time.perf_counter()
+
+
+def _artifact_cli(work, want_tokens, started):
+    """Phase 51 (d)'s CLI part: the ``artifacts build`` started by
+    _artifact_cli_build stored the window library; ``serve --artifacts
+    DIR --compile_cache 0`` answers one request, its journal showing
+    that library loaded from the store and nothing built; ``artifacts
+    verify`` exits 0 on the store and 1 on a copy with a torn frame."""
+    import shutil
+    from paddle_tpu_torch import artifacts as A
+    from paddle_tpu_torch.testing import FaultPlan
+    proc, cfg, store, t0 = started
+    so, se = proc.communicate(timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"artifacts build exit {proc.returncode}: "
+                             f"{se[-3000:]}")
+    built = json.loads(so)
+    out = {"build_s": time.perf_counter() - t0}
+    if [e["kind"] for e in built["entries"]] != ["paged_window_attention"]:
+        raise AssertionError(f"artifacts build stored {built['entries']}")
+    log_path = os.path.join(work, "serve.jsonl")
+    t0 = time.perf_counter()
+    srv = _cli_proc(["serve", "--decode_config", cfg, "--artifacts", store,
+                     "--compile_cache", "0", "--gen_slots", SLOTS,
+                     "--gen_page_size", PAGE, "--event_log", log_path],
+                    {}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+    try:
+        line = srv.stdout.readline()
+        if not line:
+            raise AssertionError(f"serve died: {srv.stderr.read()[-3000:]}")
+        port = json.loads(line)["port"]
+        prompts, _ = serving_requests()
+        code, _, resp = _http_json(f"http://127.0.0.1:{port}", "/generate",
+                                   {"prompt": [int(t) for t in prompts[0]],
+                                    "max_new_tokens": ARTIFACT_SERVE_NEW})
+        out["first_answer_s"] = time.perf_counter() - t0
+        if code != 200:
+            raise AssertionError(f"serve /generate: {code} {resp}")
+        toks = resp["tokens"]
+    finally:
+        _stop(srv)
+    recs = []
+    with open(log_path) as f:
+        for ln in f:
+            r = json.loads(ln)
+            if r.get("domain") == "artifacts":
+                recs.append([r["kind"], r.get("source")])
+    if recs != [["load", "store"]]:
+        raise AssertionError(f"serve --artifacts --compile_cache 0: "
+                             f"artifacts records {recs} (want one load "
+                             "from the store, nothing built)")
+    if len(toks) != ARTIFACT_SERVE_NEW or \
+            not all(0 <= t < FULL["vocab_size"] for t in toks):
+        raise AssertionError(f"serve answered {toks}")
+    out["same_as_engine"] = toks == want_tokens[0][:ARTIFACT_SERVE_NEW]
+    torn = os.path.join(work, "cli-store-torn")
+    shutil.copytree(store, torn)
+    with FaultPlan.corrupt_artifact(A.ArtifactStore(torn), mode="torn"):
+        procs = [_cli_proc(["artifacts", "verify", "--dir", d], {},
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True) for d in (store, torn)]
+        for p in procs:
+            p.communicate(timeout=120)
+    out["verify_rcs"] = [p.returncode for p in procs]
+    if out["verify_rcs"] != [0, 1]:
+        raise AssertionError(f"artifacts verify exits {out['verify_rcs']},"
+                             " not [0, 1]")
+    return out
+
+
+def phase_artifacts(serve):
+    """Phase 51: the artifact ladder on the card (see the module doc).
+    (a) and (b) run together (their stores and caches are their own),
+    then (c) alone, then (d)'s fault processes (each on a copy of
+    (b)'s store) beside the CLI's serve and verify. Returns route
+    "artifacts" launches by kernel row."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import artifacts as A
+    from paddle_tpu_torch.artifacts import cache as compile_cache
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.testing import FaultPlan
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    work = tempfile.mkdtemp(prefix="phase51-")
+    build_dir = compile_cache.build_dir()
+    store_a = os.path.join(work, "store-a")
+    store_b = os.path.join(work, "store-b")
+    n_libs = len(_build.SOURCES)
+    window = "paged_window_attention"
+    # (a) fully cold (compile cache off, empty store) beside (b) the
+    # compile cache alone (phase 1's build directory, empty store) and
+    # (d)'s `cli.py artifacts build` (the compile cache, a store of its
+    # own)
+    started_a = _artifact_start({"engine": True}, "0", store_a)
+    started_b = _artifact_start({"engine": True, "libs": True}, build_dir,
+                                store_b)
+    started_cli = _artifact_cli_build(work, build_dir)
+    a = _artifact_result(started_a)
+    b = _artifact_result(started_b)
+    ea = a["engine"]
+    kinds = [r[0] for r in a["records"]]
+    if a["nvcc"] != 1 or kinds != ["build"] or a["records"][0][1] != \
+            A.runtime._artifact_name(_build.fingerprint_of(window)):
+        raise AssertionError(f"(a) cold: nvcc {a['nvcc']}, records "
+                             f"{a['records']}")
+    if ea["tokens"] != serve["tokens"]:
+        raise AssertionError("(a) cold engine's tokens differ from "
+                             "phase 3's")
+    build_ms_a = a["records"][0][4]
+    log(f"artifacts (a) cold: nvcc {a['nvcc']}, window library built in "
+        f"{build_ms_a:.1f} ms, warmup {ea['warmup_s']:.3f} s, first token "
+        f"{ea['first_token_s']:.3f} s after the worker's start, 16 "
+        f"requests {ea['serve_s']:.3f} s, worker {a['wall_s']:.3f} s, "
+        f"process {a['process_s']:.3f} s [{card}]")
+    kinds = [r[0] for r in b["records"]]
+    entries = A.ArtifactStore(store_b).entries()
+    if b["nvcc"] != 0 or kinds != ["build"] * n_libs or \
+            len(entries) != n_libs or not all(e["ok"] for e in entries) \
+            or b["engine"]["tokens"] != ea["tokens"]:
+        raise AssertionError(f"(b) compile cache only: nvcc {b['nvcc']}, "
+                             f"records {kinds}, {len(entries)} entries")
+    eb = b["engine"]
+    log(f"artifacts (b) compile cache only: {n_libs} libraries resolved "
+        f"with nvcc {b['nvcc']}, backfilled {len(entries)} frames "
+        f"({sum(e['size'] for e in entries) / 1e6:.2f} MB); the engine "
+        f"(beside (a)) token-identical, warmup {eb['warmup_s']:.3f} s, "
+        f"first token {eb['first_token_s']:.3f} s after the worker's "
+        f"start, worker {b['wall_s']:.3f} s [{card}]")
+    # (c) warm from the store: compile cache off, (b)'s store, alone
+    c = _artifact_result(_artifact_start(
+        {"engine": True, "libs": True, "checks": True}, "0", store_b))
+    kinds = [r[0] for r in c["records"]]
+    if c["nvcc"] != 0 or kinds != ["load"] * n_libs or \
+            any(r[2] != "store" for r in c["records"]):
+        raise AssertionError(f"(c) warm: nvcc {c['nvcc']}, records "
+                             f"{c['records']}")
+    ec = c["engine"]
+    if ec["tokens"] != ea["tokens"]:
+        raise AssertionError("(c) warm engine's tokens differ from (a)'s")
+    if sorted(c["check_errs"]) != sorted(list(_build.SOURCES) +
+                                         [window + "/int8"]):
+        raise AssertionError(f"(c) checked {sorted(c['check_errs'])}")
+    log(f"artifacts (c) warm from the store: nvcc {c['nvcc']}, {n_libs} "
+        f"libraries loaded; first token {ec['first_token_s']:.3f} s (cold "
+        f"{ea['first_token_s']:.3f} s), warmup {ec['warmup_s']:.3f} s "
+        f"(cold {ea['warmup_s']:.3f} s), worker {c['wall_s']:.3f} s, "
+        f"process {c['process_s']:.3f} s; tokens == (a)'s [{card}]")
+    for name in _build.SOURCES:
+        log(f"artifacts (c) {name}: load {c['load_ms'][name]:.2f} ms from "
+            f"the store (compile cache: {b['load_ms'][name]:.2f} ms"
+            + (f"; cold build {build_ms_a:.1f} ms" if name == window
+               else "") + f"), held against its plain version: max_abs_err "
+            f"{c['check_errs'][name]:.3e} [{card}]")
+    log(f"artifacts (c) int8 window on the stored library: max_abs_err "
+        f"{c['check_errs'][window + '/int8']:.3e}")
+    # (d) each fault in a cold-cache process of its own, on a copy of
+    # (b)'s store, beside the CLI's serve and verify
+    started_d = {}
+    for mode in ARTIFACT_FAULTS:
+        copy = os.path.join(work, f"store-{mode}")
+        shutil.copytree(store_b, copy)
+        started_d[mode] = _artifact_start({"fault": mode}, "0", copy)
+    cli = _artifact_cli(work, ea["tokens"], started_cli)
+    d = {m: _artifact_result(st) for m, st in started_d.items()}
+    for mode in ARTIFACT_FAULTS:
+        f = d[mode]
+        reason = "stale" if mode == "stale" else "corrupt"
+        recs = [r[0::3] for r in f["records"]]
+        if recs != [["fallback", reason], ["build", None]] or \
+                f["nvcc"] != 1 or f["engine"]["tokens"] != ea["tokens"] \
+                or f["violations"]:
+            raise AssertionError(f"(d) {mode}: {f['records']}, nvcc "
+                                 f"{f['nvcc']}, tokens equal "
+                                 f"{f['engine']['tokens'] == ea['tokens']}"
+                                 f", violations {f['violations']}")
+        log(f"artifacts (d) {mode}: fallback ({reason}), one rebuild "
+            f"(nvcc {f['nvcc']}), 16 requests token-identical to (a), first "
+            f"token {f['engine']['first_token_s']:.3f} s (four fault "
+            f"processes at once), no witness violation [{card}]")
+    log(f"artifacts (d) cli: artifacts build {cli['build_s']:.3f} s; serve "
+        f"--artifacts --compile_cache 0 answered its first request "
+        f"{cli['first_answer_s']:.3f} s after its start with 0 nvcc "
+        f"(one store load), tokens == the engine's "
+        f"{cli['same_as_engine']}; artifacts verify exits "
+        f"{cli['verify_rcs']} [{card}]")
+    race = A.ArtifactStore(os.path.join(work, "race"))
+    blob = open(_build._target(window), "rb").read()
+    fp = _build.fingerprint_of(window)
+    payloads = [blob + bytes(i) for i in range(ARTIFACT_RACE_WRITERS)]
+    rr = FaultPlan.cache_race(race, A.runtime._artifact_name(fp), fp,
+                              payloads, threads=ARTIFACT_RACE_WRITERS)
+    if rr["errors"] or not rr["winner"]["ok"] or \
+            race.get(A.runtime._artifact_name(fp), fp) not in payloads:
+        raise AssertionError(f"(d) cache_race: {rr}")
+    log(f"artifacts (d) cache_race: {rr['writes']} writers, one complete "
+        f"frame of {rr['winner']['size']} bytes")
+    shutil.rmtree(work, ignore_errors=True)
+    # route "artifacts": the engines' window launches (the main path
+    # served from a stored library) and each check call (a comparison)
+    engine_launches = ea["launches"] + eb["launches"] + ec["launches"] + sum(
+        d[m]["engine"]["launches"] for m in ARTIFACT_FAULTS)
+    routes = dict(c["check_launches"])
+    routes["paged_window_attention"] += engine_launches
+    log(f"phase 51: {time.perf_counter() - t_phase:.1f} s; artifacts "
+        f"launches: window in the engines {engine_launches}, check calls "
+        f"{c['check_launches']} [{card}]")
+    return {"routes": routes, "engine_launches": engine_launches,
+            "cold_first_token_s": ea["first_token_s"],
+            "warm_first_token_s": ec["first_token_s"]}
+
+
+# ------------------------------------------------------------ phase 52
+# the sharded embedding service: phase 32's Wide&Deep with its three
+# 64-wide deep tables remote (cli.py pserver processes)
+EMBED_SHARDS, EMBED_DIM, EMBED_SEED = 4, 64, 52
+EMBED_LR = 0.5                     # the pushed rows' SGD step
+EMBED_STEPS, EMBED_CPU_STEPS = WD_STEPS, WD_CPU_STEPS
+EMBED_SNAPSHOT_AT = 2              # snapshot_now on every shard after it
+EMBED_KILL_AT = 6                  # the victim's commit its SIGKILL cuts
+EMBED_VICTIM = 1
+EMBED_REL = 1e-6                   # remote against local forward
+
+
+def _wd_remote_build(paddle, remote=True):
+    """(Topology, cost name) of phase 32's Wide&Deep (models/recommender
+    .py at its defaults) through the DSL, its three 64-wide deep tables
+    ``remote`` (no parameter; rows from the store); the 1-wide wide
+    tables stay local parameters."""
+    from paddle_tpu_torch.core.registry import ParamAttr, reset_name_counters
+    reset_name_counters()
+    L, act, dt = paddle.layer, paddle.activation, paddle.data_type
+    dense = L.data("dense_features", dt.dense_vector(WD_DENSE))
+    ids = [L.data(f"sparse_{i}", dt.integer_value(v))
+           for i, v in enumerate(WD_VOCABS)]
+    lbl = L.data("label", dt.integer_value(2))
+    embs = [L.embedding(s, size=EMBED_DIM, name=f"wd_emb{i}",
+                        param_attr=ParamAttr(name=f"_wd_emb{i}_w"),
+                        remote=remote) for i, s in enumerate(ids)]
+    deep = L.concat(embs + [dense], name="wd_deep_concat")
+    for j, h in enumerate((256, 128, 64)):
+        deep = L.fc(deep, size=h, act=act.Relu(), name=f"wd_deep_fc{j}")
+    wides = [L.embedding(s, size=1, name=f"wd_wide{i}",
+                         param_attr=ParamAttr(name=f"_wd_wide{i}_w"))
+             for i, s in enumerate(ids)]
+    wide = L.concat(wides + [dense], name="wd_wide_concat")
+    merged = L.concat([wide, deep], name="wd_merge")
+    out = L.fc(merged, size=2, act=act.Softmax(), name="wd_out")
+    cost = L.classification_cost(out, lbl, name="wd_cost")
+    return paddle.Topology(cost), cost.name
+
+
+def _embed_batches(n):
+    data = CtrData(WD_VOCABS, seed=EMBED_SEED)
+    return [data.batch() for _ in range(n)]
+
+
+def _embed_ids(batch):
+    return {f"sparse_{i}": np.array([s[i] for s in batch], np.int64)
+            for i in range(3)}
+
+
+def _embed_loop(topo, cost, params, client, batches, device,
+                snapshot=None):
+    """The remote-table training loop: per batch RemoteLookup.sparse_sub
+    (the rows as tensors on ``device``), the forward, torch.autograd.grad
+    with respect to the row blocks, push_grads and flush. Returns
+    (losses, gather ms, forward+grad ms, push ms) a step."""
+    from paddle_tpu_torch.embed import RemoteLookup
+    from paddle_tpu_torch.trainer.data_feeder import DataFeeder
+    lookup = RemoteLookup(topo, client, device=device)
+    feeder = DataFeeder(topo.data_type(), WD_FEEDING, device=device)
+    names = sorted(lookup.tables)
+    losses, gather_ms, step_ms, push_ms = [], [], [], []
+    for k, b in enumerate(batches):
+        feed = feeder(b)
+        t0 = time.perf_counter()
+        sub = lookup.sparse_sub(_embed_ids(b))
+        t1 = time.perf_counter()
+        rows = {n: (sub[n][0], sub[n][1].clone().requires_grad_())
+                for n in names}
+        outs, _ = topo.forward(params, {}, feed, mode="train",
+                               sparse_sub=rows)
+        loss = outs[cost].float().mean()
+        grads = torch.autograd.grad(loss, [rows[n][1] for n in names])
+        losses.append(float(loss.detach()))
+        t2 = time.perf_counter()
+        lookup.push_grads(sub, dict(zip(names, grads)), lr=EMBED_LR)
+        if not client.flush(timeout=180.0):
+            raise AssertionError(f"embed step {k}: pushes never drained")
+        t3 = time.perf_counter()
+        gather_ms.append((t1 - t0) * 1e3)
+        step_ms.append((t2 - t1) * 1e3)
+        push_ms.append((t3 - t2) * 1e3)
+        if snapshot is not None and k + 1 == EMBED_SNAPSHOT_AT:
+            snapshot()
+    return losses, gather_ms, step_ms, push_ms
+
+
+def _json_line(proc, timeout=120.0):
+    """The first JSON line a CLI daemon prints."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        line = proc.stdout.readline()
+        if not line:
+            break
+        if line.startswith("{"):
+            return json.loads(line)
+    raise AssertionError(f"pid {proc.pid} printed no JSON line: "
+                         f"{proc.stderr.read()[-3000:]}")
+
+
+def _stop(proc, timeout=60.0):
+    """SIGTERM a CLI daemon; its last JSON line (the ``stopped`` one)."""
+    import signal
+    proc.send_signal(signal.SIGTERM)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        raise AssertionError(f"pid {proc.pid} ignored SIGTERM: {err[-2000:]}")
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"pid {proc.pid} exit {proc.returncode}: "
+                             f"{err[-3000:]}")
+    return json.loads(lines[-1])
+
+
+class _EmbedCluster:
+    """A ``cli.py coordinator`` process and EMBED_SHARDS ``cli.py
+    pserver`` processes registered with it, snapshots in ``snap``;
+    with ``kill_at``, shard EMBED_VICTIM runs under this script's
+    --pserver-kill-at, which SIGKILLs it inside that commit's torn
+    window, and a watcher starts its replacement with the same flags.
+    Started in steps (the coordinator, the pservers, their ``serving``
+    lines), so two clusters come up together."""
+
+    def __init__(self, work, snap, kill_at=None):
+        from paddle_tpu_torch.reader import recordio as rio
+        data = os.path.join(work, "coord.rio")
+        if not os.path.exists(data):
+            rio.write_records(data, [b"phase 52"], use_native=False)
+        self.coord = _cli_proc(["coordinator", "--data", data,
+                                "--worker_lease", 30],
+                               {}, stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True)
+        self.snap = snap
+        self.kill_at = kill_at
+        self.procs = {}
+        self.replaced = None
+        self.closing = False
+
+    def start_shards(self):
+        from paddle_tpu_torch.trainer.coordinator import connect
+        self.coord_port = _json_line(self.coord)["port"]
+        self.directory = connect("127.0.0.1", self.coord_port)
+        for sid in range(EMBED_SHARDS):
+            self.procs[sid] = self._start(
+                sid, self.kill_at if sid == EMBED_VICTIM else None)
+
+    def wait_up(self):
+        self.up = {sid: _json_line(p) for sid, p in self.procs.items()}
+        if self.kill_at is not None:
+            self._watch = threading.Thread(target=self._replace_victim,
+                                           daemon=True)
+            self._watch.start()
+
+    def _flags(self, sid):
+        return ["pserver", "--shard_id", sid, "--shards", EMBED_SHARDS,
+                "--dim", EMBED_DIM, "--seed", EMBED_SEED, "--coordinator",
+                f"127.0.0.1:{self.coord_port}", "--snapshot_dir", self.snap,
+                "--heartbeat", 0.5]
+
+    def _start(self, sid, kill_at=None):
+        if kill_at is None:
+            return _cli_proc(self._flags(sid), {}, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--pserver-kill-at",
+             str(kill_at)] + [str(a) for a in self._flags(sid)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def _replace_victim(self):
+        victim = self.procs[EMBED_VICTIM]
+        victim.wait()
+        victim.stdout.close()
+        victim.stderr.close()
+        if self.closing:
+            return
+        proc = self._start(EMBED_VICTIM)
+        self.replaced = (proc, _json_line(proc))
+        self.procs[EMBED_VICTIM] = proc
+
+    def endpoints(self):
+        return {sid: self.directory.worker_info(f"embed/{sid}")["endpoint"]
+                for sid in range(EMBED_SHARDS)}
+
+    def call_all(self, method):
+        out = {}
+        for sid, ep in self.endpoints().items():
+            out[sid] = getattr(xmlrpc.client.ServerProxy(
+                f"http://{ep}", allow_none=True), method)()
+        return out
+
+    def table_digest(self):
+        """EmbedService.table_digest over the processes."""
+        import hashlib
+        h = hashlib.md5()
+        for sid, d in sorted(self.call_all("digest").items()):
+            h.update(f"{sid}:{d};".encode())
+        return h.hexdigest()
+
+    def stop(self):
+        """SIGTERM every pserver (each snapshots, leaves, closes), then
+        the coordinator; the pservers' ``stopped`` lines."""
+        stopped = {sid: _stop(p) for sid, p in self.procs.items()}
+        _stop(self.coord)
+        return stopped
+
+    def kill(self):
+        """SIGKILL whatever of the cluster still runs (a failed phase)."""
+        self.closing = True
+        for p in [self.coord, *self.procs.values()] + \
+                ([self.replaced[0]] if self.replaced else []):
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
+def _pserver_kill_worker(kill_at, argv):
+    """Phase 52 (b)'s victim (``chip_smoke.py --pserver-kill-at N
+    PSERVER-ARGS``): ``cli.py pserver`` whose shard SIGKILLs its own
+    process inside commit ``N``'s torn window — after the WAL entry is
+    durable, before the table mutates or the ack is sent."""
+    import signal
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.embed import shard as shard_mod
+    real_init = shard_mod.EmbeddingShard.__init__
+    count = [0]
+
+    def init(self, *a, **kw):
+        real_init(self, *a, **kw)
+
+        def seam(wal_seq):
+            if count[0] == kill_at:
+                os.kill(os.getpid(), signal.SIGKILL)
+            count[0] += 1
+        self._commit_interceptor = seam
+
+    shard_mod.EmbeddingShard.__init__ = init
+    return cli.main(argv)
+
+
+def _embed_faults_in_process():
+    """Phase 52 (c): the JAX tests' families on an in-process
+    EmbedService — kill_shard at commit with replace (digest equal to
+    the uninterrupted run), stale_read against a dead shard, slow_shard
+    on chosen RPCs. Returns a summary."""
+    from paddle_tpu_torch.embed import EmbedService, EmbedUnavailable
+    from paddle_tpu_torch.obs import JOURNAL
+    from paddle_tpu_torch.testing import FaultPlan
+    from paddle_tpu_torch.trainer.coordinator import Coordinator
+    rng = np.random.default_rng(5)
+    pushes = [(np.arange(b * 32, (b + 1) * 32, dtype=np.int64),
+               rng.normal(size=(32, EMBED_DIM)).astype(np.float32),
+               0.1 + 0.05 * b) for b in range(6)]
+
+    def run(kill):
+        coord = Coordinator(chunks=[], worker_lease_s=30.0)
+        with EmbedService(3, EMBED_DIM, seed=EMBED_SEED, coordinator=coord,
+                          heartbeat_s=0.1) as svc:
+            client = svc.client(client_id="c52", retry_deadline=30.0)
+            if kill:
+                with FaultPlan.kill_shard(svc.server(1), at=1,
+                                          window="commit") as ks:
+                    for k, g, lr in pushes:
+                        client.push(k, g, lr=lr)
+                    end = time.monotonic() + 10
+                    while ks["killed_at"] is None and time.monotonic() < end:
+                        time.sleep(0.02)
+                    if ks["killed_at"] != 1:
+                        raise AssertionError("(c) commit kill never fired")
+                    svc.replace(1)
+                    client.flush(timeout=30.0)
+            else:
+                for k, g, lr in pushes:
+                    client.push(k, g, lr=lr)
+                client.flush(timeout=30.0)
+            st = client.stats()
+            client.close()
+            return svc.table_digest(), st
+    ref, _ = run(False)
+    got, st = run(True)
+    if got != ref or st["dup_acks"] < 1 or st["push_failures"]:
+        raise AssertionError(f"(c) kill_shard: digest equal {got == ref}, "
+                             f"client {st}")
+    with EmbedService(1, EMBED_DIM, seed=EMBED_SEED) as svc:
+        with svc.client(client_id="s52", staleness_s=30.0,
+                        retry_deadline=0.3) as client:
+            keys = np.arange(10, dtype=np.int64)
+            fresh = client.gather(keys)
+            svc.kill(0)
+            with FaultPlan.stale_read(client, age_s=100.0):
+                rows = client.gather(keys)
+            try:
+                client.gather(np.array([777], np.int64))
+                raise AssertionError("(c) an uncached key was served")
+            except EmbedUnavailable:
+                pass
+    stale = [r for r in JOURNAL.tail(200, domain="embed")
+             if r["kind"] == "stale_read"]
+    if not np.array_equal(rows, fresh) or not stale or \
+            stale[-1]["rows"] != 10:
+        raise AssertionError(f"(c) stale_read: records {stale}")
+    with EmbedService(1, EMBED_DIM, seed=EMBED_SEED) as svc:
+        with svc.client(client_id="w52") as client:
+            keys = np.arange(4, dtype=np.int64)
+            with FaultPlan.slow_shard(svc.server(0), ms=80.0,
+                                      at=[1]) as sl:
+                times = []
+                for i in range(3):
+                    t0 = time.monotonic()
+                    client.gather(keys + 100 * i)
+                    times.append(time.monotonic() - t0)
+    if sl["slowed"] != [1] or times[1] < 0.07:
+        raise AssertionError(f"(c) slow_shard: {sl}, {times}")
+    return {"digest_equal": True, "dup_acks": st["dup_acks"],
+            "stale_rows": stale[-1]["rows"],
+            "stale_age_s": stale[-1]["age_s"],
+            "slow_ms": [round(t * 1e3, 3) for t in times]}
+
+
+def _embed_local_step_ms(topo_local, cost, params, batches, device):
+    """The same step on device-resident tables (the row-sparse path:
+    touched rows gathered on the card, their gradients added back with
+    index_add_): ms a step after 2 warm-ups."""
+    from paddle_tpu_torch.ops import embedding as emb_ops
+    from paddle_tpu_torch.trainer.data_feeder import DataFeeder
+    gen = torch.Generator(device=device).manual_seed(EMBED_SEED)
+    tables = {f"_wd_emb{i}_w": torch.randn(v, EMBED_DIM, generator=gen,
+                                           device=device) * 0.01
+              for i, v in enumerate(WD_VOCABS)}
+    feeder = DataFeeder(topo_local.data_type(), WD_FEEDING, device=device)
+    times = []
+    for k, b in enumerate(batches):
+        feed = feeder(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sub = {}
+        for i in range(3):
+            name = f"_wd_emb{i}_w"
+            uids, rows = emb_ops.touched_rows(tables[name],
+                                              feed[f"sparse_{i}"])
+            sub[name] = (uids, rows.requires_grad_())
+        outs, _ = topo_local.forward(dict(params, **tables), {}, feed,
+                                     mode="train", sparse_sub=sub)
+        loss = outs[cost].float().mean()
+        grads = torch.autograd.grad(loss, [sub[n][1] for n in sorted(sub)])
+        for n, g in zip(sorted(sub), grads):
+            uids = sub[n][0]
+            keep = uids < tables[n].shape[0]
+            tables[n].index_add_(0, uids[keep], -EMBED_LR * g[keep])
+        float(loss.detach())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.mean(times[2:]))
+
+
+def phase_embed():
+    """Phase 52: the sharded embedding service on the card (see the
+    module doc)."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.embed import (EmbeddingClient, EmbeddingShard,
+                                        EmbedService)
+    from paddle_tpu_torch.obs import WITNESS
+    from paddle_tpu_torch.trainer.coordinator import FileStore
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    dev = torch.device("cuda")
+    paddle.init(seed=0)
+    work = tempfile.mkdtemp(prefix="phase52-")
+    topo, cost = _wd_remote_build(paddle, remote=True)
+    if sorted(topo.remote_tables()) != [f"_wd_emb{i}_w" for i in range(3)] \
+            or any(n.startswith("_wd_emb") for n in topo.param_specs):
+        raise AssertionError(f"remote tables {topo.remote_tables()}")
+    init = topo.init_params(torch.Generator().manual_seed(EMBED_SEED))
+    params = {k: v.to(dev) for k, v in init.items()}
+    batches = _embed_batches(EMBED_STEPS)
+    # (a) four pserver processes on a coordinator process; (b)'s
+    # cluster comes up beside it
+    t_a = time.perf_counter()
+    cluster = _EmbedCluster(work, os.path.join(work, "snap-a"))
+    cluster_b = _EmbedCluster(work, os.path.join(work, "snap-b"),
+                              kill_at=EMBED_KILL_AT)
+    try:
+        for cl in (cluster, cluster_b):
+            cl.start_shards()
+        for cl in (cluster, cluster_b):
+            cl.wait_up()
+    except BaseException:
+        cluster.kill()
+        cluster_b.kill()
+        raise
+    up_s = time.perf_counter() - t_a
+    try:
+        client = EmbeddingClient(EMBED_SHARDS, EMBED_DIM,
+                                 coordinator=cluster.directory,
+                                 client_id="wd52", retry_deadline=120.0)
+        try:
+            # the remote forward against the local-table forward, tables
+            # set to the store's rows
+            topo_l, cost_l = _wd_remote_build(paddle, remote=False)
+            from paddle_tpu_torch.embed import RemoteLookup
+            from paddle_tpu_torch.trainer.data_feeder import DataFeeder
+            b0 = batches[0]
+            sub = RemoteLookup(topo, client, device=dev).sparse_sub(
+                _embed_ids(b0))
+            local = dict(params)
+            for i, v in enumerate(WD_VOCABS):
+                name = f"_wd_emb{i}_w"
+                t = torch.zeros(v, EMBED_DIM, device=dev)
+                uids = sub[name][0]
+                t[uids] = torch.from_numpy(client.gather(
+                    uids.cpu().numpy(), max_stale_s=0.0)).to(dev)
+                local[name] = t
+            feed = DataFeeder(topo.data_type(), WD_FEEDING, device=dev)(b0)
+            with torch.no_grad():
+                o_r, _ = topo.forward(params, {}, feed, mode="test",
+                                      sparse_sub=sub,
+                                      output_names=["wd_out", cost])
+                o_l, _ = topo_l.forward(local, {}, feed, mode="test",
+                                        output_names=["wd_out", cost_l])
+            rel = max(((o_r[k].float() - o_l[k].float()).abs().max() /
+                       o_l[k].float().abs().max().clamp_min(1e-30)).item()
+                      for k in ("wd_out", cost))
+            if rel > EMBED_REL:
+                raise AssertionError(f"remote forward off the local one by "
+                                     f"{rel} relative")
+            log(f"embed (a) two clusters of {EMBED_SHARDS} pservers + a "
+                f"coordinator up in {up_s:.3f} s; remote forward == "
+                f"local-table forward within {rel:.3e} relative (bound "
+                f"{EMBED_REL}) [{card}]")
+            with _deterministic():
+                losses, g_ms, s_ms, p_ms = _embed_loop(
+                    topo, cost, params, client, batches, dev,
+                    snapshot=lambda: cluster.call_all("snapshot_now"))
+            digest_a = cluster.table_digest()
+            seq_a = dict(client._seq)
+        finally:
+            client.close()
+        stopped_a = cluster.stop()
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"embed losses {losses}")
+        # the CPU port on a fresh in-process service of the same seed
+        cpu_params = {k: v.clone() for k, v in init.items()}
+        with EmbedService(EMBED_SHARDS, EMBED_DIM,
+                          seed=EMBED_SEED) as svc:
+            with svc.client(client_id="wd52") as cc:
+                cpu_losses = _embed_loop(topo, cost, cpu_params, cc,
+                                         batches[:EMBED_CPU_STEPS],
+                                         torch.device("cpu"))[0]
+        rel_cpu = max(abs(a - b) / abs(b) for a, b in
+                      zip(losses[:EMBED_CPU_STEPS], cpu_losses))
+        if rel_cpu > WD_CPU_RTOL:
+            raise AssertionError(f"embed losses "
+                                 f"{losses[:EMBED_CPU_STEPS]} vs the CPU "
+                                 f"port's {cpu_losses}")
+        log(f"embed (a) {EMBED_STEPS} steps (batch {WD_BATCH}, remote deep "
+            f"tables): losses {losses[0]:.5f} -> {losses[-1]:.5f}; first "
+            f"{EMBED_CPU_STEPS} within {rel_cpu:.3e} relative of the CPU "
+            f"port's (bound {WD_CPU_RTOL}); pserver stops "
+            f"{[s['status'] for s in stopped_a.values()]} [{card}]")
+        # (b) SIGKILL one pserver inside a commit, mid-pass
+        cluster = cluster_b
+        client = EmbeddingClient(EMBED_SHARDS, EMBED_DIM,
+                                 coordinator=cluster.directory,
+                                 client_id="wd52", retry_deadline=120.0)
+        t_b = time.perf_counter()
+        try:
+            with _deterministic():
+                losses_b = _embed_loop(
+                    topo, cost, params, client, batches, dev,
+                    snapshot=lambda: cluster.call_all("snapshot_now"))[0]
+            if cluster.replaced is None:
+                raise AssertionError("(b) the victim was never killed")
+            digest_b = cluster.table_digest()
+            cst = client.stats()
+            seq_b = dict(client._seq)
+        finally:
+            client.close()
+        wall_b = time.perf_counter() - t_b
+        up_b = cluster.replaced[1]
+        stopped_b = cluster.stop()
+        if digest_b != digest_a or losses_b != losses:
+            raise AssertionError(f"(b) digest equal "
+                                 f"{digest_b == digest_a}, losses equal "
+                                 f"{losses_b == losses}")
+        if not up_b["restored"] or cst["dup_acks"] < 1 or \
+                cst["push_failures"] or cst["failovers"] < 1:
+            raise AssertionError(f"(b) replacement {up_b}, client {cst}")
+        # exactly once: every shard's ledger, restored from its snapshot,
+        # is the client's own sequence — no (client, seq) twice, none lost
+        for sid in range(EMBED_SHARDS):
+            sh = EmbeddingShard(
+                sid, EMBED_SHARDS, EMBED_DIM, seed=EMBED_SEED,
+                store=FileStore(os.path.join(work, "snap-b")))
+            sh.restore_from_store()
+            if sh.applied_seqs() != {"wd52": seq_b[sid]}:
+                raise AssertionError(f"(b) shard {sid} ledger "
+                                     f"{sh.applied_seqs()} != the client's "
+                                     f"{seq_b[sid]}")
+        replayed = stopped_b[EMBED_VICTIM]["stats"]["replayed_wal"]
+        log(f"embed (b) pserver {EMBED_VICTIM} SIGKILLed in commit "
+            f"{EMBED_KILL_AT}'s torn window; its replacement restored "
+            f"(snapshot + {replayed} WAL entries) and rejoined; the pass "
+            f"({wall_b:.3f} s) ended with the fault-free digest, the same "
+            f"{EMBED_STEPS} losses, dup acks {cst['dup_acks']}, failovers "
+            f"{cst['failovers']}, every ledger == the client's seqs "
+            f"{seq_b} [{card}]")
+    finally:
+        cluster.kill()
+        cluster_b.kill()
+    # (c) the other families in-process
+    fc = _embed_faults_in_process()
+    if WITNESS.violations():
+        raise AssertionError(f"embed witness: {WITNESS.violations()}")
+    log(f"embed (c) in-process: kill_shard at commit -> digest == "
+        f"uninterrupted (dup acks {fc['dup_acks']}); stale_read served "
+        f"{fc['stale_rows']} rows {fc['stale_age_s']} s old from a dead "
+        f"shard, journaled; slow_shard stalled RPC 1 only, gathers "
+        f"{fc['slow_ms']} ms; witness violations 0")
+    # (d) readings
+    local_ms = _embed_local_step_ms(topo_l, cost_l, params,
+                                    batches[:10], dev)
+    remote_ms = [g + s + p for g, s, p in zip(g_ms, s_ms, p_ms)]
+    with EmbedService(EMBED_SHARDS, EMBED_DIM, seed=EMBED_SEED) as svc:
+        with svc.client(client_id="trace52") as tc:
+            _trace(lambda: _embed_loop(topo, cost, params, tc, batches[:5],
+                                       dev), "embed (d) remote", "5 steps",
+                   "embedding ops", ("index",))
+    log(f"embed (d) readings, a step after 2 warm-ups: gather "
+        f"{np.mean(g_ms[2:]):.3f} ms, forward+grad {np.mean(s_ms[2:]):.3f}"
+        f" ms, push+flush {np.mean(p_ms[2:]):.3f} ms, remote step "
+        f"{np.mean(remote_ms[2:]):.3f} ms against {local_ms:.3f} ms on "
+        f"device-resident tables [{card}]")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 52: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"remote_step_ms": float(np.mean(remote_ms[2:])),
+            "local_step_ms": local_ms}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -10981,6 +12078,10 @@ def main():
     mesh_launches = phase_mesh()
     # chaos and the obs plane (phase 50)
     chaos = phase_chaos(serve)
+    # the warm-start artifact plane (phase 51) and the sharded embedding
+    # service (phase 52)
+    arts = phase_artifacts(serve)
+    phase_embed()
     kernels = [dict(
         name="paged_window_attention", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",
@@ -11081,7 +12182,13 @@ def main():
         replaces="paddle_tpu/ops/pallas_decode.py:112",
         launches=decode_launches, max_abs_err=decode_err,
         **tt_timing[("decode", None, torch.float32)]))
-    bad = [k["name"] for k in kernels if k["launches"] < 1]
+    # phase 51: every row's launches on libraries loaded from the store
+    kernels[0]["launches"] += arts["engine_launches"]
+    for k in kernels:
+        k.setdefault("route_launches", {})["artifacts"] = \
+            arts["routes"][k["name"]]
+    bad = [k["name"] for k in kernels if k["launches"] < 1 or
+           k["route_launches"]["artifacts"] < 1]
     if bad:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{bad}")
@@ -11102,4 +12209,8 @@ if __name__ == "__main__":
         sys.exit(_elastic_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--chaos-train-worker"]:
         sys.exit(_chaos_train_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--artifact-worker"]:
+        sys.exit(_artifact_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--pserver-kill-at"]:
+        sys.exit(_pserver_kill_worker(int(sys.argv[2]), sys.argv[3:]))
     sys.exit(main())

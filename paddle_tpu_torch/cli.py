@@ -39,6 +39,18 @@ membership and the save election over XML-RPC (trainer/coordinator.py)
 until SIGTERM/SIGINT, printing one JSON line when it serves and one
 with its ``stats()`` when it stops.
 
+``pserver``: one embedding shard daemon (embed/shard.py) — serves
+row-gather / scatter-update RPCs for its key range, keeps a membership
+lease on ``--coordinator``, and persists WAL + snapshots to
+``--snapshot_dir``; SIGTERM snapshots, leaves, then closes the socket.
+
+``artifacts build|verify|ls``: the warm-start store
+(paddle_tpu_torch/artifacts) offline — ``build`` resolves a
+``--decode_config`` engine's kernel libraries into ``--dir``; ``serve
+--artifacts DIR`` then starts with no ``nvcc``. ``train`` and ``serve``
+take ``--compile_cache`` (the directory the libraries are built into;
+``0`` builds afresh into a private one).
+
 ``train --metrics_port N`` serves ``/metrics``, ``/events``,
 ``/flight``, ``/profile`` and ``/health`` (obs/httpd.py) for the whole
 run and prints ``{"job": "obs", "status": "serving", "metrics_port":
@@ -251,6 +263,101 @@ def _cmd_coordinator(args) -> int:
     server.stop()
     print(json.dumps({"job": "coordinator", "status": "stopped",
                       "stats": coord.stats()}), flush=True)
+    return 0
+
+
+def _cmd_artifacts(args) -> int:
+    """`artifacts build|verify|ls` — operate the warm-start store
+    offline: a deploy pipeline builds the kernel libraries ONCE,
+    verifies them, and every replica of the rollout then cold-starts
+    with no ``nvcc`` from them."""
+    from paddle_tpu_torch.artifacts import ArtifactStore, configure
+    from paddle_tpu_torch.artifacts.runtime import ENV_STORE
+    root = args.dir or os.environ.get(ENV_STORE)
+    if not root:
+        raise SystemExit("need --dir (or $PADDLE_TPU_ARTIFACTS)")
+    if args.event_log:
+        from paddle_tpu_torch.obs.events import JOURNAL
+        JOURNAL.configure(args.event_log)
+    store = ArtifactStore(root)
+    if args.action == "ls":
+        rows = store.entries()
+        print(json.dumps({"job": "artifacts", "action": "ls",
+                          "dir": store.root, "count": len(rows),
+                          "entries": rows}, indent=2))
+        return 0
+    if args.action == "verify":
+        rows = store.entries()
+        bad = [r for r in rows if not r["ok"]]
+        from paddle_tpu_torch.obs.events import emit
+        for r in bad:   # same audit trail as ArtifactStore.verify()
+            emit("artifacts", "verify_failed", name=r["name"],
+                 path=r["path"], detail=r.get("error"))
+        print(json.dumps({"job": "artifacts", "action": "verify",
+                          "dir": store.root, "checked": len(rows),
+                          "defective": bad}, indent=2))
+        return 1 if bad else 0
+    # build: construct the engine exactly as `serve` would and warm it
+    # up — the ladder backfills the store with the kernel libraries
+    # the engine launches
+    if not args.decode_config:
+        raise SystemExit("artifacts build needs --decode_config")
+    configure(store.root)
+    engine = _build_engine(args)
+    stats = engine.warmup()
+    rows = store.entries()
+    print(json.dumps({"job": "artifacts", "action": "build",
+                      "dir": store.root, "executables": stats,
+                      "entries": rows}, indent=2))
+    return 0
+
+
+def _cmd_pserver(args) -> int:
+    """Run one embedding shard as a daemon — the 2017 `paddle pserver`
+    binary's role reborn: serve row-gather/scatter-update RPCs for this shard's
+    key range, keep a membership lease on the coordinator so clients
+    resolve (and fail over) through the directory, and persist
+    WAL+snapshots to --snapshot_dir so a replacement started with the
+    same flags restores the range digest-stable. SIGTERM snapshots,
+    leaves the membership plane, and drains cleanly."""
+    from paddle_tpu_torch.embed import (EmbeddingShard, EmbeddingShardServer,
+                                  ShardRegistration)
+    from paddle_tpu_torch.trainer.coordinator import FileStore, connect
+
+    store = FileStore(args.snapshot_dir) if args.snapshot_dir else None
+    shard = EmbeddingShard(args.shard_id, args.shards, args.dim,
+                           seed=args.seed, store=store)
+    restored = shard.restore_from_store() if store is not None else False
+    server = EmbeddingShardServer(shard, host=args.host,
+                                  port=args.port).start()
+    registration = None
+    if args.coordinator:
+        host, _, port = args.coordinator.rpartition(":")
+        registration = ShardRegistration(
+            connect(host or "127.0.0.1", int(port)), shard,
+            server.endpoint, heartbeat_s=args.heartbeat).join()
+
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *a: stop.set())
+    signal.signal(signal.SIGINT, lambda *a: stop.set())
+    print(json.dumps({"job": "pserver", "status": "serving",
+                      "shard_id": shard.shard_id, "shards": shard.num_shards,
+                      "dim": shard.dim, "endpoint": server.endpoint,
+                      "port": server.port, "restored": restored,
+                      "generation": registration.generation
+                      if registration else None}), flush=True)
+    while not stop.wait(0.2):
+        pass
+    # orderly exit: durable state first, then the goodbye, then the
+    # socket — a client mid-retry sees the directory lose the entry
+    # before the endpoint stops answering
+    if store is not None:
+        shard.save_snapshot()
+    if registration is not None:
+        registration.stop(leave=True)
+    server.stop()
+    print(json.dumps({"job": "pserver", "status": "stopped",
+                      "stats": shard.stats()}), flush=True)
     return 0
 
 
@@ -788,6 +895,13 @@ def _add_train_parser(sub) -> None:
     tr.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
     tr.add_argument("--seed", type=int, default=0)
+    tr.add_argument("--compile_cache", default=None,
+                    help="kernel-library compile cache dir: a relaunched "
+                         "run (auto_resume, elastic replacement) loads "
+                         "its libraries instead of running nvcc ('0'/"
+                         "'off' builds afresh into a private dir; "
+                         "default: $PADDLE_TPU_COMPILE_CACHE, else the "
+                         "repository's build/paddle_tpu_torch/)")
     tr.set_defaults(fn=_cmd_train)
 
 
@@ -867,10 +981,57 @@ def build_parser() -> argparse.ArgumentParser:
                     help="SLO objective, repeatable (e.g. "
                          "decode_step_time_p99_ms<=50); implies "
                          "--profile_every 8 when that flag is absent")
+    sv.add_argument("--compile_cache", default=None,
+                    help="kernel-library compile cache dir ('0'/'off' "
+                         "builds afresh into a private dir; default: "
+                         "$PADDLE_TPU_COMPILE_CACHE, else the "
+                         "repository's build/paddle_tpu_torch/)")
+    sv.add_argument("--artifacts", default=None,
+                    help="artifact store dir: the decode engine loads "
+                         "fingerprint-verified kernel libraries from "
+                         "here at startup — a respawned replica serves "
+                         "with no nvcc — and backfills it on a miss "
+                         "(exported as $PADDLE_TPU_ARTIFACTS to the "
+                         "processes it starts)")
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=0,
                     help="0 picks a free port (printed at start)")
     sv.set_defaults(fn=_cmd_serve)
+
+    arts = sub.add_parser("artifacts", help="operate the warm-start "
+                          "artifact store: build the decode engine's "
+                          "kernel libraries into it, verify frame "
+                          "integrity, list")
+    arts.add_argument("action", choices=["build", "verify", "ls"],
+                      help="build: resolve the kernel libraries of a "
+                           "--decode_config's engine into --dir, so "
+                           "replica cold starts run no nvcc; verify: "
+                           "re-read every frame (nonzero exit + "
+                           "artifacts/verify_failed journal records on "
+                           "any corrupt/torn file); ls: one JSON row "
+                           "per artifact with age/size/fingerprint")
+    arts.add_argument("--dir", default=None,
+                      help="artifact store directory (default: "
+                           "$PADDLE_TPU_ARTIFACTS)")
+    arts.add_argument("--decode_config", default=None,
+                      help="build: .py script defining `decoder` — the "
+                           "SAME script the serve replicas run with")
+    arts.add_argument("--draft_config", default=None,
+                      help="build: draft decoder script for "
+                           "speculative fleets")
+    arts.add_argument("--spec_k", type=int, default=0)
+    arts.add_argument("--gen_slots", type=int, default=4)
+    arts.add_argument("--gen_page_size", type=int, default=16)
+    arts.add_argument("--prefix_cache", choices=["on", "off"],
+                      default="on")
+    arts.add_argument("--kv_quant", choices=["none", "int8"],
+                      default="none")
+    arts.add_argument("--kv_spill_pages", type=int, default=0)
+    arts.add_argument("--max_queue", type=int, default=64)
+    arts.add_argument("--event_log", default=None,
+                      help="append the artifacts journal records to "
+                           "this JSONL file")
+    arts.set_defaults(fn=_cmd_artifacts)
 
     co = sub.add_parser("coordinator", help="run the elastic-training "
                         "coordinator daemon")
@@ -895,6 +1056,34 @@ def build_parser() -> argparse.ArgumentParser:
                          "RPC instead of a shared filesystem (RpcStore; "
                          "exclusive with --snapshot)")
     co.set_defaults(fn=_cmd_coordinator)
+
+    ps = sub.add_parser("pserver", help="run one embedding shard daemon "
+                        "(the 2017 `paddle pserver` reborn)")
+    ps.add_argument("--shard_id", type=int, required=True,
+                    help="this shard's index in [0, --shards)")
+    ps.add_argument("--shards", type=int, required=True,
+                    help="total shard count (the hash-partition modulus "
+                         "— every pserver of one table must agree)")
+    ps.add_argument("--dim", type=int, default=64,
+                    help="embedding row width")
+    ps.add_argument("--host", default="127.0.0.1")
+    ps.add_argument("--port", type=int, default=0,
+                    help="0 picks a free port (printed as JSON)")
+    ps.add_argument("--coordinator", default=None,
+                    help="HOST:PORT of a `coordinator` daemon — register "
+                         "on the membership plane so clients resolve "
+                         "endpoints (and fail over) through the "
+                         "directory")
+    ps.add_argument("--snapshot_dir", default=None,
+                    help="dir for WAL + snapshots (FileStore): a "
+                         "replacement started with the same flags "
+                         "restores this shard's key range digest-stable")
+    ps.add_argument("--heartbeat", type=float, default=1.0,
+                    help="membership lease heartbeat seconds")
+    ps.add_argument("--seed", type=int, default=0,
+                    help="row-init seed (every pserver of one table "
+                         "must agree)")
+    ps.set_defaults(fn=_cmd_pserver)
 
     evp = sub.add_parser("events", help="inspect a structured event "
                          "journal")
@@ -953,6 +1142,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.cmd in ("train", "serve"):
+        # the warm-start plane, one seam for every long-lived verb:
+        # --compile_cache wins, else $PADDLE_TPU_COMPILE_CACHE, else the
+        # default directory. Exported so child processes inherit the
+        # same choice.
+        from paddle_tpu_torch.artifacts import cache as _compile_cache
+        if args.compile_cache is not None:
+            d = _compile_cache.enable(args.compile_cache)
+            os.environ[_compile_cache.ENV_VAR] = d if d else "0"
+        else:
+            _compile_cache.ensure_default()
+    if args.cmd == "serve" and args.artifacts:
+        from paddle_tpu_torch.artifacts import configure
+        from paddle_tpu_torch.artifacts.runtime import ENV_STORE
+        configure(args.artifacts)
+        os.environ[ENV_STORE] = args.artifacts
     return args.fn(args)
 
 

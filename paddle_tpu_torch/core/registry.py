@@ -26,8 +26,8 @@ from paddle_tpu_torch.core import initializers
 class ParamAttr:
     """Per-parameter attributes (lr scale, L1/L2, static, shared name,
     init). The fields are the JAX package's, so ``_jsonify`` writes the
-    same JSON; ``remote`` is carried for that and rejected where a layer
-    would need it (the sharded embedding store is not ported)."""
+    same JSON; ``remote`` puts an embedding table in the sharded
+    embedding store (paddle_tpu_torch/embed)."""
     name: Optional[str] = None
     learning_rate: float = 1.0
     l1_rate: Optional[float] = None

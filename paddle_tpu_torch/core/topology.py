@@ -217,6 +217,22 @@ class Topology:
             out.pop(n, None)
         return out
 
+    def remote_tables(self) -> Dict[str, str]:
+        """param_name -> ids data-layer name, for every embedding table
+        marked ``remote=True`` — the set :class:`embed.lookup.RemoteLookup`
+        must gather rows for before each forward. Remote ids must come
+        straight from a data layer (they are fetched host-side, before
+        the forward can compute anything)."""
+        out: Dict[str, str] = {}
+        for l in self.layers:
+            if l.type != "embedding" or not l.config.get("_remote"):
+                continue
+            assert l.parents and l.parents[0].type == "data", \
+                f"remote embedding {l.name!r} must read ids from a " \
+                "data layer (rows are gathered host-side per batch)"
+            out[l.config["_w_name"]] = l.parents[0].name
+        return out
+
     # ------------------------------------------------------------ data layers
     def data_layers(self) -> Dict[str, LayerOutput]:
         """Name -> data layer, in declaration order (the feeding order)."""

@@ -148,7 +148,12 @@ class EmbeddingLayer:
     ordinary parameter; a train step that prefetches its rows passes
     them in ``ctx.sparse_sub[table name]`` as ``(uids, rows)``, and the
     lookup then runs inside that block (``row_sub_lookup``), so the
-    gradient is the block's and not the table's."""
+    gradient is the block's and not the table's. With ``remote=True``
+    the table lives in the sharded embedding store
+    (paddle_tpu_torch/embed): no parameter is created — the
+    ``[vocab, size]`` table never materializes on the device — and the
+    rows arrive per batch through ``ctx.sparse_sub``
+    (``embed.lookup.RemoteLookup``)."""
 
     @staticmethod
     def build(name, cfg, input_metas):
@@ -159,10 +164,9 @@ class EmbeddingLayer:
         pname = a.name or f"_{name}.w0"
         cfg["_w_name"] = pname
         if cfg.get("remote") or a.remote:
-            raise NotImplementedError(
-                "remote embedding tables (the sharded embedding store, "
-                "paddle_tpu/embed/) are not ported yet (ROADMAP.md queue "
-                "A.11)")
+            cfg["_remote"] = True
+            cfg["_vocab"] = m.size
+            return LayerMeta(size=size, seq_level=m.seq_level), [], []
         init = a.initializer or initializers.normal(a.initial_std or 0.01)
         specs = [ParamSpec(pname, (m.size, size), init, a)]
         return LayerMeta(size=size, seq_level=m.seq_level), specs, []
@@ -172,17 +176,27 @@ class EmbeddingLayer:
         pname = cfg["_w_name"]
         val = inputs[0]
         ids = _payload(val)
-        table = params[pname]
         sub = ctx.sparse_sub
-        if sub and pname in sub:
+        if cfg.get("_remote"):
+            if not sub or pname not in sub:
+                raise KeyError(
+                    f"embedding layer {name!r} uses a REMOTE table "
+                    f"({pname}); pass sparse_sub={{...}} built by "
+                    "paddle_tpu_torch.embed.lookup.RemoteLookup for this "
+                    "batch")
             uids, rows = sub[pname][:2]
+            out = emb_ops.row_sub_lookup(uids, rows, ids, cfg["_vocab"],
+                                         pad_id=cfg.get("pad_id", -1))
+        elif sub and pname in sub:
+            uids, rows = sub[pname][:2]
+            table = params[pname]
             # a table held as an mp shard: the global row count rides
             # third in the entry
             vocab = sub[pname][2] if len(sub[pname]) > 2 else table.shape[0]
             out = emb_ops.row_sub_lookup(uids, rows, ids, vocab,
                                          pad_id=cfg.get("pad_id", -1))
         else:
-            out = emb_ops.embedding_lookup(table, ids,
+            out = emb_ops.embedding_lookup(params[pname], ids,
                                            pad_id=cfg.get("pad_id", -1))
         return val.with_data(out) if isinstance(val, SequenceBatch) else out
 

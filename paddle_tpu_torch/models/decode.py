@@ -469,14 +469,15 @@ class TransformerDecoder:
     def paged(self, *, num_slots: int, page_size: int, num_pages: int,
               max_pages_per_slot: int,
               temperature: Optional[float] = None, window: int = 1,
-              kv_quant: Optional[str] = None) -> "PagedDecoder":
+              kv_quant: Optional[str] = None,
+              warm_start: bool = True) -> "PagedDecoder":
         """A fixed-shape paged-KV decode step over this decoder's
         parameter table (the serving engine's hot path)."""
         return PagedDecoder(self, num_slots=num_slots, page_size=page_size,
                             num_pages=num_pages,
                             max_pages_per_slot=max_pages_per_slot,
                             temperature=temperature, window=window,
-                            kv_quant=kv_quant)
+                            kv_quant=kv_quant, warm_start=warm_start)
 
 
 class PagedDecoder:
@@ -513,12 +514,22 @@ class PagedDecoder:
 
     Scheduling (which slot holds which request, page alloc/free,
     eviction) is host policy in serving/engine.py; this class is only
-    the device step."""
+    the device step.
+
+    ``warm_start`` (the artifact plane, paddle_tpu_torch/artifacts):
+    on a CUDA card the step's kernel library resolves through the warm
+    ladder — in-process cache, artifact store, then the compile cache
+    or ``nvcc`` — at :meth:`load_kernels` (the engine's ``warmup()``,
+    else the first step); with ``warm_start=False`` the store is not
+    read and the compile cache alone serves."""
+
+    #: the kernel libraries the step launches on a CUDA card
+    KERNEL_LIBRARIES = ("paged_window_attention",)
 
     def __init__(self, dense: TransformerDecoder, *, num_slots: int,
                  page_size: int, num_pages: int, max_pages_per_slot: int,
                  temperature: Optional[float] = None, window: int = 1,
-                 kv_quant: Optional[str] = None):
+                 kv_quant: Optional[str] = None, warm_start: bool = True):
         if kv_quant not in (None, "int8"):
             raise ValueError(f"kv_quant must be None or 'int8', got "
                              f"{kv_quant!r}")
@@ -540,6 +551,8 @@ class PagedDecoder:
         self.temperature = temperature
         self.window = int(window)
         self.kv_quant = kv_quant
+        self.warm_start = bool(warm_start)
+        self._kernels_loaded = False
         self.head_dim = dense.head_dim
         self.kv_heads = dense.kv_heads
         self.dtype = dense.dtype
@@ -560,6 +573,18 @@ class PagedDecoder:
                     f"page {self.page_size}, {self.dtype}"
                     + (" with int8 pages" if kv_quant else "")
                     + " (paged_kernel_supported)")
+
+    def load_kernels(self) -> Tuple[str, ...]:
+        """Resolve the step's kernel libraries now (module doc of
+        artifacts/runtime.py); a no-op off the card. Returns the names
+        resolved."""
+        if self.device.type != "cuda":
+            return ()
+        from paddle_tpu_torch.ops import _build
+        for name in self.KERNEL_LIBRARIES:
+            _build.load(name, warm=self.warm_start)
+        self._kernels_loaded = True
+        return self.KERNEL_LIBRARIES
 
     def init_pools(self):
         """Zeroed (k_pool, v_pool), each [L, n_pages, page_size, g, dh]
@@ -661,6 +686,8 @@ class PagedDecoder:
         the objects passed in, updated in place; reading the tokens back
         is the one host sync of the step."""
         dev = self.device
+        if not self._kernels_loaded:
+            self.load_kernels()
         tokens = torch.as_tensor(np.asarray(tokens), device=dev).long()
         squeeze = tokens.dim() == 1
         positions = torch.as_tensor(np.asarray(positions),
@@ -778,10 +805,15 @@ class DraftDecoder:
 
     One [S, W] step serves catch-up (feed up to W committed tokens)
     and proposal (feed 1 token, read its argmax). Its attention is the
-    reference's einsum outside any kernel (plain ``torch.einsum``)."""
+    reference's einsum outside any kernel (plain ``torch.einsum``), as
+    the JAX draft step runs no Pallas kernel: it has no kernel library
+    to resolve, and ``warm_start`` is kept for the engine's one flag."""
+
+    KERNEL_LIBRARIES: Tuple[str, ...] = ()
 
     def __init__(self, dense: TransformerDecoder, *, num_slots: int,
-                 max_seq_len: int, window: int = 1):
+                 max_seq_len: int, window: int = 1,
+                 warm_start: bool = True):
         pos_rows = dense.p[f"_{dense.name}_pos_emb.w0"].shape[0]
         if max_seq_len > pos_rows:
             raise ValueError(f"max_seq_len {max_seq_len} exceeds the "
@@ -791,9 +823,13 @@ class DraftDecoder:
         self.num_slots = int(num_slots)
         self.max_seq_len = int(max_seq_len)
         self.window = int(window)
+        self.warm_start = bool(warm_start)
         self.head_dim = dense.head_dim
         self.kv_heads = dense.kv_heads
         self.dtype = dense.dtype
+
+    def load_kernels(self) -> Tuple[str, ...]:
+        return self.KERNEL_LIBRARIES
 
     def init_caches(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Zeroed (k, v), each [L, S, T+1, g, dh] — row T is the null

@@ -13,9 +13,10 @@ JSON-equal).
   [failover*]->exactly-one settle, page spill->restore|integrity, ...):
   obs/protocol.py's ProtocolWitness advances them at runtime.
 
-Declarations of planes the port has not yet (fleet, embed, artifacts,
-autopilot, soak) stay: the contract is the system's, and the two
-packages' journals must mean the same thing.
+The artifact plane (artifacts/) and the embedding service (embed/)
+emit their declared records; declarations of planes the port has not
+yet (fleet, autopilot, soak) stay: the contract is the system's, and
+the two packages' journals must mean the same thing.
 
 Import-light (dataclasses only — no torch, no obs runtime).
 

@@ -69,6 +69,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.analysis.lockdep import named_condition, named_lock
+from paddle_tpu_torch.artifacts import EXECUTABLES
 from paddle_tpu_torch.obs import context as obs_context
 from paddle_tpu_torch.obs.events import emit as journal_emit
 from paddle_tpu_torch.obs.flight import FLIGHT
@@ -313,7 +314,11 @@ class DecodeEngine:
     ``kv_spill_pages`` > 0 attaches a host-RAM spill store of that many
     pages behind the prefix cache. ``generator`` (a
     ``torch.Generator`` on the decoder's device) drives sampling when
-    ``temperature`` is set.
+    ``temperature`` is set. ``warm_start`` (default on) resolves the
+    decoders' kernel libraries through the artifact plane's warm
+    ladder (paddle_tpu_torch/artifacts: in-process cache, artifact
+    store, then the compile cache or ``nvcc``); off, the store is not
+    read and the compile cache alone serves.
 
     Drive it synchronously (``step()`` / ``run()`` — deterministic, the
     test/bench mode) or as a background thread (``start()`` /
@@ -329,7 +334,8 @@ class DecodeEngine:
                  prefix_cache: bool = True,
                  kv_quant: Optional[str] = None,
                  kv_spill_pages: int = 0,
-                 generator=None):
+                 generator=None,
+                 warm_start: bool = True):
         pos_rows = decoder.p[f"_{decoder.name}_pos_emb.w0"].shape[0]
         if max_seq_len is None:
             max_seq_len = pos_rows
@@ -348,11 +354,12 @@ class DecodeEngine:
         if num_pages is None:
             num_pages = self.num_slots * pages_per_slot + 1
         self.kv_quant = kv_quant
+        self.warm_start = bool(warm_start)
         self.paged = decoder.paged(
             num_slots=self.num_slots, page_size=self.page_size,
             num_pages=int(num_pages), max_pages_per_slot=pages_per_slot,
             temperature=temperature, window=self.window,
-            kv_quant=kv_quant)
+            kv_quant=kv_quant, warm_start=self.warm_start)
         self.pool = PagePool(int(num_pages))
         self.k_pool, self.v_pool = self.paged.init_pools()
         self.prefix: Optional[PrefixIndex] = (
@@ -374,7 +381,8 @@ class DecodeEngine:
             from paddle_tpu_torch.models.decode import DraftDecoder
             self.draft = DraftDecoder(
                 draft, num_slots=self.num_slots,
-                max_seq_len=self.max_seq_len, window=self.window)
+                max_seq_len=self.max_seq_len, window=self.window,
+                warm_start=self.warm_start)
             self._draft_kc, self._draft_vc = self.draft.init_caches()
         self.max_waiting = int(max_waiting)
         self.temperature = temperature
@@ -1272,13 +1280,19 @@ class DecodeEngine:
         with self._cv:
             return self._accepting
 
-    def warmup(self) -> None:
-        """One all-inactive step (target, and draft when speculating)
-        before any request is admitted: inactive slots write only the
-        reserved null page / null row, so the pools are semantically
-        untouched, and the first request never pays
-        the one-time costs (kernel build and load, cuBLAS handles,
-        the allocator's first blocks)."""
+    def warmup(self) -> dict:
+        """Resolve the decoders' kernel libraries NOW, before any
+        request is admitted — the artifact plane's engine hook — then
+        one all-inactive step (target, and draft when speculating):
+        inactive slots write only the reserved null page / null row, so
+        the pools are semantically untouched, and the first request
+        never pays the one-time costs (kernel build or store load,
+        cuBLAS handles, the allocator's first blocks). With a warm
+        artifact store the call runs no ``nvcc``. Returns the
+        in-process cache's stats and ``warm_start``."""
+        self.paged.load_kernels()
+        if self.draft is not None:
+            self.draft.load_kernels()
         S, W = self.num_slots, self.window
         z = np.zeros((S, W), np.int32)
         inactive = np.zeros((S, W), np.bool_)
@@ -1287,6 +1301,7 @@ class DecodeEngine:
         if self.draft is not None:
             _, self._draft_kc, self._draft_vc = self.draft.step(
                 self._draft_kc, self._draft_vc, z, z, inactive)
+        return dict(EXECUTABLES.stats(), warm_start=self.warm_start)
 
     def start(self) -> "DecodeEngine":
         with self._cv:

@@ -38,12 +38,18 @@ loops through the seams they expose, one family per target:
 - (q) the control plane: ``coordinator_outage`` (every RPC of an
   object's ``coordinator`` raises ``OSError`` for the context).
 
-The families whose targets the port has not yet — the artifact store's
-(``corrupt_artifact``, ``stale_fingerprint``, ``cache_race``), the
-embedding service's (``kill_shard``, ``stale_read``, ``slow_shard``),
-the serving fleet's (``kill_replica``, ``lease_lapse``,
-``drain_during_burst``, ``kill_router``) and the C ABI's
-(``poison_bytes``, ``destroy_during``) — come with those planes.
+- (o) the sharded embedding service: ``kill_shard`` (the SIGKILL twin
+  at a scatter-update's torn ``commit`` window or at an ``rpc``),
+  ``stale_read`` (cached rows aged past the staleness bound),
+  ``slow_shard`` (chosen RPCs stall);
+- (r) the warm-start artifacts: ``corrupt_artifact`` (``payload``,
+  ``torn``, ``magic``), ``stale_fingerprint`` (an intact frame built
+  for another torch), ``cache_race`` (N writers of one artifact).
+
+The families whose targets the port has not yet — the serving fleet's
+(``kill_replica``, ``lease_lapse``, ``drain_during_burst``,
+``kill_router``) and the C ABI's (``poison_bytes``,
+``destroy_during``) — come with those planes.
 
 The invariants the chaos tests hold the port to: KV pages always
 return to the pool (``page_accounting()["leaked"] == 0``), surviving
@@ -928,6 +934,251 @@ class FaultPlan:
             yield registry
         finally:
             registry.coordinator = real
+
+    # ------------------------------------------ (o) sharded embeddings
+    @staticmethod
+    @contextlib.contextmanager
+    def kill_shard(server, at: int = 0, window: str = "commit"):
+        """Within the context, SIGKILL-twin an embedding shard at a
+        chosen point (:meth:`EmbeddingShardServer.kill`: every in-flight
+        and future RPC tears its connection with NO response; new
+        connections are refused; no snapshot, no leave — the membership
+        lease just lapses).
+
+        window="commit": die inside the ``at``-th scatter-update's TORN
+        WINDOW — after the WAL append is durable, before the table
+        mutates or the ack is sent (the shard's ``_commit_interceptor``
+        seam). This is the worst-case kill for exactly-once accounting:
+        the replacement must REPLAY the entry and the client's retry of
+        the same seq must come back ``dup``.
+
+        window="rpc": die at the ``at``-th RPC of any kind (the
+        server's ``_rpc_interceptor`` seam) — the request dies BEFORE
+        any side effect; the retry applies cleanly on the replacement.
+
+        Yields a stats dict (``killed_at``: the index it fired on, or
+        None if never reached)."""
+        from paddle_tpu_torch.embed.shard import ShardKilled
+        stats = {"killed_at": None}
+        if window == "commit":
+            shard = server.shard
+            prev = shard._commit_interceptor
+            count = [0]
+
+            def commit_seam(wal_seq):
+                if prev is not None:
+                    prev(wal_seq)
+                i = count[0]
+                count[0] += 1
+                if i == at:
+                    stats["killed_at"] = i
+                    server.kill()
+                    raise ShardKilled(
+                        f"kill_shard: commit #{i} (WAL {wal_seq} "
+                        "durable, ack never sent)")
+
+            shard._commit_interceptor = commit_seam
+            try:
+                yield stats
+            finally:
+                shard._commit_interceptor = prev
+        elif window == "rpc":
+            prev = server._rpc_interceptor
+
+            def rpc_seam(method, idx):
+                if prev is not None:
+                    prev(method, idx)
+                if idx == at:
+                    stats["killed_at"] = idx
+                    server.kill()
+                    raise ShardKilled(
+                        f"kill_shard: rpc #{idx} ({method})")
+
+            server._rpc_interceptor = rpc_seam
+            try:
+                yield stats
+            finally:
+                server._rpc_interceptor = prev
+        else:
+            raise ValueError(f"unknown kill window {window!r}")
+
+    @staticmethod
+    @contextlib.contextmanager
+    def stale_read(client, age_s: float):
+        """Within the context, every row in the client's bounded-
+        staleness cache (present now or fetched later) reads as
+        ``age_s`` seconds OLDER than it is — rows age past the bound
+        deterministically instead of waiting wall-clock time. Against a
+        LIVE shard this forces refetches (the bound doing its job);
+        against a killed shard it forces stale SERVES, which must be
+        journaled as ``embed/stale_read`` violations. Yields a stats
+        dict (``aged``: entries rewritten so far)."""
+        stats = {"aged": 0}
+        lock = client._lock
+        real_gather = client.gather
+
+        def age_now():
+            with lock:
+                for k, (row, ts) in list(client._cache.items()):
+                    client._cache[k] = (row, ts - age_s)
+                    stats["aged"] += 1
+
+        def gather(keys, max_stale_s=None):
+            out = real_gather(keys, max_stale_s=max_stale_s)
+            age_now()            # rows fetched by THIS call age too
+            return out
+
+        age_now()
+        client.gather = gather
+        try:
+            yield stats
+        finally:
+            client.gather = real_gather
+
+    @staticmethod
+    @contextlib.contextmanager
+    def slow_shard(server, ms: float, at: Iterable[int] = (),
+                   every: bool = False):
+        """Within the context, the shard's RPCs STALL ``ms``
+        milliseconds before handling — chosen 0-based RPC indices, or
+        every RPC (``every=True``): the deterministic straggler/hot-
+        shard twin for tail-latency and timeout tests. Yields a stats
+        dict (``slowed``: indices that stalled)."""
+        indices = set(int(i) for i in at)
+        stats = {"slowed": []}
+        prev = server._rpc_interceptor
+
+        def seam(method, idx):
+            if prev is not None:
+                prev(method, idx)
+            if every or idx in indices:
+                stats["slowed"].append(idx)
+                time.sleep(ms / 1000.0)
+
+        server._rpc_interceptor = seam
+        try:
+            yield stats
+        finally:
+            server._rpc_interceptor = prev
+
+    # -------------------------------------------- (r) warm-start artifacts
+    @staticmethod
+    @contextlib.contextmanager
+    def corrupt_artifact(store, name: Optional[str] = None,
+                         mode: str = "payload"):
+        """Damage one on-disk artifact — the torn-write / bit-rot /
+        partial-copy fault the warm-start plane must DETECT and
+        degrade past, never crash on. ``name`` picks the artifact (default:
+        the newest); ``mode``:
+
+        - ``payload``: flip one payload byte (crc catches it),
+        - ``torn``: truncate mid-payload (a writer died without the
+          atomic rename discipline — or the volume did),
+        - ``magic``: clobber the frame magic (not an artifact at all).
+
+        The contract under this fault: ``store.get`` returns None,
+        counts a fallback, journals ``artifacts/fallback`` with
+        ``reason="corrupt"`` — and the caller rebuilds the library
+        (compile cache or ``nvcc``) and serves token-identically. Yields ``{"path", "mode"}``; the original
+        bytes are restored on exit."""
+        paths = [r["path"] for r in store.entries()
+                 if name is None or r["name"] == f"{name}.ptaf"]
+        if name is None and paths:
+            paths = [max(paths, key=os.path.getmtime)]
+        if not paths:
+            raise ValueError(f"no artifact to corrupt "
+                             f"(name={name!r}) in {store.root}")
+        path = paths[0]
+        with open(path, "rb") as f:
+            original = f.read()
+        if mode == "payload":
+            blob = original[:-5] + bytes([original[-5] ^ 0xFF]) + \
+                original[-4:]
+        elif mode == "torn":
+            blob = original[:max(9, len(original) // 2)]
+        elif mode == "magic":
+            blob = b"XXXX" + original[4:]
+        else:
+            raise ValueError(f"unknown mode {mode!r}")
+        with open(path, "wb") as f:
+            f.write(blob)
+        try:
+            yield {"path": path, "mode": mode}
+        finally:
+            with open(path, "wb") as f:
+                f.write(original)
+
+    @staticmethod
+    @contextlib.contextmanager
+    def stale_fingerprint(store, name: Optional[str] = None):
+        """Rewrite one artifact as an INTERNALLY-CONSISTENT frame
+        built for a different environment — the stale-artifact fault
+        (the store survived a torch or CUDA upgrade; every byte is
+        intact, the library is just for the wrong world: the JAX
+        package doctors ``env["jax"]``, the port ``env["torch"]``). The
+        frame passes magic/crc/digest re-derivation, so only the
+        fingerprint comparison can catch it: ``store.get`` must
+        return None with ``reason="stale"`` in the
+        ``artifacts/fallback`` journal record. Yields ``{"path",
+        "doctored_digest"}``; restored on exit."""
+        import json as _json
+        import struct as _struct
+        import zlib as _zlib
+
+        from paddle_tpu_torch.artifacts.fingerprint import Fingerprint
+        from paddle_tpu_torch.artifacts.store import MAGIC
+
+        paths = [r["path"] for r in store.entries()
+                 if name is None or r["name"] == f"{name}.ptaf"]
+        if name is None and paths:
+            paths = [max(paths, key=os.path.getmtime)]
+        if not paths:
+            raise ValueError(f"no artifact to doctor "
+                             f"(name={name!r}) in {store.root}")
+        path = paths[0]
+        with open(path, "rb") as f:
+            original = f.read()
+        (hlen,) = _struct.unpack("<I", original[4:8])
+        header = _json.loads(original[8:8 + hlen])
+        payload = original[8 + hlen:]
+        fields = dict(header["fingerprint"])
+        env = dict(fields.get("env") or {})
+        env["torch"] = "0.0.0-doctored"
+        fields["env"] = env
+        doctored = Fingerprint(fields)
+        header["fingerprint"] = doctored.fields
+        header["digest"] = doctored.digest
+        hbytes = _json.dumps(header, sort_keys=True).encode()
+        blob = MAGIC + _struct.pack("<I", len(hbytes)) + hbytes + \
+            payload
+        assert _zlib.crc32(payload) & 0xFFFFFFFF == \
+            header["payload_crc"]
+        with open(path, "wb") as f:
+            f.write(blob)
+        try:
+            yield {"path": path, "doctored_digest": doctored.digest}
+        finally:
+            with open(path, "wb") as f:
+                f.write(original)
+
+    @staticmethod
+    def cache_race(store, name: str, fp, payloads, threads: int = 8,
+                   timeout: float = 60.0) -> dict:
+        """N writers publish the SAME artifact name concurrently — the
+        fleet-cold-start thundering herd (every replica of a fresh
+        rollout finishes its build at once and races to backfill).
+        The atomic tmp+rename discipline must leave exactly one
+        COMPLETE frame under the final name — readers never observe a
+        partial file — and no writer may raise. Returns ``{"writes",
+        "errors", "winner"}`` where ``winner`` is the surviving
+        frame's inspect() row (``winner["ok"]`` is the assertion)."""
+        results, errors = FaultPlan.burst(
+            lambda i: store.put(name, fp, payloads[i % len(payloads)],
+                                meta={"writer": i}),
+            len(payloads), threads=threads, timeout=timeout)
+        return {"writes": sum(1 for r in results if r is not None),
+                "errors": [e for e in errors if e is not None],
+                "winner": store.inspect(store.path(name))}
 
     @staticmethod
     def bursty_trace(seed: int = 0, ticks: int = 30, base: int = 1,

@@ -1048,6 +1048,11 @@ class SGD:
             event_handler = _default_event_handler
         # one run id for the whole run: every journal record carries it
         obs_context.ensure_run_id()
+        # warm start: a relaunched (auto_resume / elastic-replacement)
+        # trainer takes its kernel libraries from the compile cache —
+        # the default one, or PADDLE_TPU_COMPILE_CACHE when it is set
+        from paddle_tpu_torch.artifacts import cache as _compile_cache
+        _compile_cache.ensure_default()
         feeder = self._feeder(feeding)
         if checkpoint_manager is None and checkpoint_dir:
             from paddle_tpu_torch.trainer.checkpoint import CheckpointManager

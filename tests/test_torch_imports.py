@@ -71,7 +71,12 @@ def test_every_module_imports_without_jax_or_paddle_tpu():
               "parallel.multihost", "parallel.async_sgd",
               # the chaos harness and the rest of the obs plane
               "obs.merge", "obs.catalog", "obs.protocol", "obs.httpd",
-              "testing", "testing.audit", "testing.faults"):
+              "testing", "testing.audit", "testing.faults",
+              # the warm-start artifact plane and the embedding service
+              "artifacts", "artifacts.fingerprint", "artifacts.store",
+              "artifacts.aot", "artifacts.runtime", "artifacts.cache",
+              "embed", "embed.shard", "embed.client", "embed.service",
+              "embed.lookup", "embed.online", "embed.obs"):
         assert f"paddle_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

@@ -467,7 +467,23 @@ def test_sparse_tables_dense_fallbacks_equal_jax():
 
 
 def test_remote_table_raises_naming_its_queue():
+    """A remote table creates no parameter, and its forward without a
+    ``sparse_sub`` raises KeyError naming the REMOTE table — the JAX
+    layer's behaviour (the rows live in the embedding store)."""
+    t_reset()
     ids = tpaddle.layer.data("ids", tpaddle.data_type.integer_value(10))
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tpaddle.layer.embedding(ids, size=4, param_attr=tpaddle.attr.Param(
-            name="r"), remote=True)
+    emb = tpaddle.layer.embedding(ids, size=4, param_attr=tpaddle.attr.Param(
+        name="r"), remote=True)
+    topo = tpaddle.Topology(emb)
+    assert topo.remote_tables() == {"r": "ids"}
+    assert "r" not in topo.param_specs and topo.init_params() == {}
+    j_reset()
+    jids = jpaddle.layer.data("ids", jpaddle.data_type.integer_value(10))
+    jtopo = jpaddle.Topology(jpaddle.layer.embedding(
+        jids, size=4, param_attr=jpaddle.attr.Param(name="r"), remote=True))
+    assert jtopo.remote_tables() == topo.remote_tables()
+    feed = np.arange(4, dtype=np.int64)
+    with pytest.raises(KeyError, match="REMOTE table"):
+        topo.forward({}, {}, {"ids": torch.as_tensor(feed)}, mode="test")
+    with pytest.raises(KeyError, match="REMOTE table"):
+        jtopo.forward({}, {}, {"ids": feed}, mode="test")
