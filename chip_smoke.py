@@ -775,9 +775,44 @@ Phases (any failure exits non-zero before the final line):
    gather, forward + grad and push + flush ms a step, the remote step
    against the same step on device-resident tables, and a traced
    run's idle share.
+53. the serving fleet — phase 3's decoder (its seed, float32, 8
+   slots, page 16, prefix cache) in three cli.py serve --coordinator
+   replica processes on this card (status lines naming cuda:0, each
+   start warm from phase 1's compile cache: 0 nvcc), one cli.py
+   coordinator and two cli.py router processes (--affinity prefix),
+   all started together; the timeouts it sets are FLEET_*. (a) Phase
+   3's 16 requests through a router, tokens equal to phase 3's, then
+   the reading: the 16 requests FLEET_PASSES times through the router,
+   and the same passes straight to the three replicas with no router;
+   a same-prefix set of 10 pinned to one replica (at least 9); an
+   in-process Router's refresh and one scrape timed; one replica's
+   traced window of decode steps for its idle share. (b) kill_replica
+   on an in-process Router: SIGKILL the prefix set's home after 2
+   relayed tokens of a burst of 24 streamed requests from 8 threads;
+   each settles once (assert_exactly_once over the router's journal),
+   every continuation equals the undisturbed tokens, the survivors
+   leak 0 pages and count 0 witness violations, merge_journals
+   rebuilds each failover's hop chain from its trace id; kill to the
+   first resumed token. (c) lease_lapse (SIGSTOP past the lease): the
+   replica leaves routing and rejoins on SIGCONT; drain_during_burst
+   under 12 requests loses none, undrain re-admits. (d) kill_router:
+   SIGKILL a router mid-stream, the client retries the trace id
+   through the other router, both placed it on one replica
+   (rendezvous), one settle across the merged journals. (e) A router
+   with --autopilot --spawn_cmd (the same serve flags, --min_replicas
+   1, --max_replicas 3) on a coordinator of its own: cli.py fleet
+   scale --replicas 3, then fleet deploy under open-loop requests 100
+   ms apart, none failed, each spawn and respawn 0 nvcc; fleet status
+   exits 0 and accounts for every spawn. Readings: tokens/s, TTFT and
+   gap p50/p99 through the router and straight to the replicas, scrape
+   ms, kill to first resumed token, rollout seconds a replica, window
+   launches a replica process from its join to its exit (route
+   "fleet"), the idle share.
 
 Then logs the whole script's wall time and prints the kernel table as
-one JSON line (phases 28-52 add no kernel; route_launches["artifacts"]
+one JSON line (phases 28-53 add no kernel; route_launches["fleet"] on
+the window rows counts phase 53's replicas' launches, by replica in
+fleet_replica_launches; route_launches["artifacts"]
 on every row counts phase 51's launches on libraries loaded from the
 store: the engines' window launches of (a)-(d), which the window row's
 launches include, and each row's check call in (c), a comparison
@@ -8132,30 +8167,30 @@ def _stream_generate(port, prompt, max_new, trace_id):
     return toks, done, t_send, arrivals
 
 
-def front_client(port, prompts, news, n_clients=FRONT_CLIENTS):
+def front_client(ports, prompts, news, n_clients=FRONT_CLIENTS,
+                 tag="smoke"):
     """The client side of phase 46, run in a process of its own (so the
     server's interpreter lock carries only the server): the requests
-    from ``n_clients`` threads over real sockets, every odd one
-    streamed. Returns (per-request results by index, wall seconds from
-    the first send to the last settle)."""
+    from ``n_clients`` threads over real sockets, request i to port
+    ``ports[i]``, every odd one streamed. Returns (per-request results
+    by index, wall seconds from the first send to the last settle)."""
     import threading
-    base = f"http://127.0.0.1:{port}"
     it = iter(range(len(prompts)))
     lock = threading.Lock()
     out, errors = {}, []
 
     def run(i):
-        tid = f"smoke-{i:02d}"
+        tid = f"{tag}-{i:02d}"
         if i % 2:
-            toks, _, t_send, arr = _stream_generate(port, prompts[i],
+            toks, _, t_send, arr = _stream_generate(ports[i], prompts[i],
                                                     news[i], tid)
             return dict(tokens=toks, ttft_ms=(arr[0] - t_send) * 1e3,
                         gaps_ms=(np.diff(arr) * 1e3).tolist())
         t_send = time.perf_counter()
         code, hdrs, body = _http_json(
-            base, "/generate", {"prompt": [int(t) for t in prompts[i]],
-                                "max_new_tokens": news[i]},
-            {"X-Trace-Id": tid})
+            f"http://127.0.0.1:{ports[i]}", "/generate",
+            {"prompt": [int(t) for t in prompts[i]],
+             "max_new_tokens": news[i]}, {"X-Trace-Id": tid})
         if code != 200 or hdrs["X-Trace-Id"] != tid:
             raise AssertionError(f"/generate {i}: {code} {body}")
         return dict(tokens=body["tokens"],
@@ -8185,16 +8220,18 @@ def front_client(port, prompts, news, n_clients=FRONT_CLIENTS):
     return out, wall
 
 
-def _front_client_process(port, prompts, news):
-    """``front_client`` in a child process (the requests on its
-    standard input); its JSON result."""
+def _front_client_process(ports, prompts, news, tag="smoke"):
+    """``front_client`` in a child process (the ports and requests on
+    its standard input; trace ids ``tag``-NN); its JSON result."""
     import os
     code = ("import json, sys, chip_smoke as c; "
             "r = json.load(sys.stdin); "
-            "out, wall = c.front_client(int(sys.argv[1]), r['prompts'], "
-            "r['news']); print(json.dumps({'out': out, 'wall': wall}))")
-    res = subprocess.run([sys.executable, "-c", code, str(port)],
+            "o, w = c.front_client(r['ports'], r['prompts'], r['news'], "
+            "tag=sys.argv[1]); "
+            "print(json.dumps({'out': o, 'wall': w}))")
+    res = subprocess.run([sys.executable, "-c", code, tag],
                          input=json.dumps({
+                             "ports": [int(p) for p in ports],
                              "prompts": [[int(t) for t in p]
                                          for p in prompts],
                              "news": [int(n) for n in news]}),
@@ -8312,7 +8349,8 @@ def phase_front(want_tokens, mnist_artifact):
         steps0 = eng.stats()["steps"]
         torch.cuda.synchronize()
         ops.paged_window_attention.launches = 0
-        got, front_wall = _front_client_process(port, prompts, news)
+        got, front_wall = _front_client_process([port] * N_REQ,
+                                                prompts, news)
         torch.cuda.synchronize()
         front_launches = ops.paged_window_attention.launches
         st = srv.stats()
@@ -11987,6 +12025,997 @@ def phase_embed():
             "local_step_ms": local_ms}
 
 
+# ------------------------------------------------------------ phase 53
+# the serving fleet: three `cli.py serve --coordinator` replicas of
+# phase 3's decoder on this card behind `cli.py router` daemons. The
+# timeouts the phase sets:
+FLEET_REPLICAS = ("r0", "r1", "r2")
+FLEET_LEASE_S = 3.0        # coordinator --worker_lease: a dead or stopped
+                           # replica leaves routing this long after its
+                           # last heartbeat
+FLEET_HEARTBEAT_S = 0.5    # replicas' and routers' --heartbeat (a thread
+                           # of its own, not an engine step)
+FLEET_SCRAPE_S = 0.2       # routers' --scrape_interval
+FLEET_QUEUE_S = 30.0       # routers' --queue_timeout (5 s by default)
+FLEET_REQUEST_S = 30.0     # the in-process router's request_timeout
+                           # (its default; a hop here lasts < 1 s)
+FLEET_START_S = 300.0      # a daemon's status line
+FLEET_PREFIX, FLEET_PREFIX_N = 48, 10   # (a)'s same-prefix set: 3 pages
+FLEET_BURST, FLEET_CLIENTS, FLEET_KILL_AT = 24, 8, 2
+FLEET_KILL_ROUTER_NEW = 192   # (d)'s streamed tokens (~1 s of decode)
+FLEET_DEEP_STEPS = 32      # the profiled replica's traced window
+FLEET_SCRAPES = 20         # timed Router.refresh() passes
+FLEET_PASSES = 6           # (a)'s reading: phase 3's 16 requests this many
+                           # times in one client run (~5 s of decode)
+FLEET_OPEN_LOOP_GAP_S = 0.1  # (e)'s open-loop arrivals during the rollout
+FLEET_PROFILE_EVERY = 8    # r0's --profile_every (as phase 46's front):
+                           # the replica whose idle share is read; the
+                           # profiler's FLOP count costs a start seconds
+# phase 53's narrow twin, for a dry run on the CPU (phase_fleet(narrow=True))
+FLEET_NARROW = dict(vocab_size=40, d_model=16, n_heads=2, n_layers=2,
+                    d_ff=32, max_len=64)
+
+FLEET_DECODE_CONFIG = """\
+# phase 3's decoder (chip_smoke.py phase 53) for cli.py serve replicas,
+# with this script's counters on the replica's /metrics: nvcc processes
+# this process started, the window kernel's launches and the process id;
+# the same counts land in COUNTS_DIR/<pid>.json when the process exits
+import atexit
+import json
+import os
+
+from paddle_tpu_torch.models.decode import TransformerDecoder
+from paddle_tpu_torch.obs.metrics import REGISTRY, SampleFamily
+from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import paged_decode as _ops
+from paddle_tpu_torch.params import init_transformer_lm_params
+CFG = {cfg!r}
+COUNTS_DIR = {counts_dir!r}
+decoder = TransformerDecoder(init_transformer_lm_params(CFG, seed=0),
+                             n_layers=CFG["n_layers"],
+                             n_heads=CFG["n_heads"], device={device!r})
+
+
+def _counts():
+    return {{"nvcc_launches": _build.nvcc_launches(),
+             "window_launches": _ops.paged_window_attention.launches,
+             "window_int8_launches":
+             _ops.paged_window_attention.dequant_launches,
+             "pid": os.getpid()}}
+
+
+def _smoke_counts():
+    out = []
+    for key, val in _counts().items():
+        name = "chip_smoke_fleet_" + key
+        out.append(SampleFamily(name, "gauge", key,
+                                [(name, {{}}, float(val))]))
+    return out
+
+
+def _exit_counts():
+    path = os.path.join(COUNTS_DIR, f"{{os.getpid()}}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(_counts(), f)
+    os.replace(path + ".tmp", path)
+
+
+REGISTRY.register_collector(_smoke_counts)
+atexit.register(_exit_counts)
+"""
+
+
+def _fleet_requests(cfg, narrow):
+    """(a)'s requests: phase 3's 16 (serving_requests) at full width;
+    16 seeded short ones on the narrow twin."""
+    if not narrow:
+        return serving_requests()
+    rng = np.random.RandomState(53)
+    prompts = [rng.randint(0, cfg["vocab_size"], (int(rng.randint(4, 13)),))
+               .astype(np.int32) for _ in range(N_REQ)]
+    return prompts, [int(rng.randint(4, 11)) for _ in range(N_REQ)]
+
+
+def _fleet_prefix_requests(cfg, narrow):
+    """(a)'s same-prefix set: FLEET_PREFIX_N prompts sharing their first
+    FLEET_PREFIX tokens (8 on the narrow twin), seeded."""
+    rng = np.random.RandomState(530)
+    shared = rng.randint(0, cfg["vocab_size"], (8 if narrow else
+                                                FLEET_PREFIX,))
+    prompts = [np.concatenate([shared, rng.randint(
+        0, cfg["vocab_size"], (int(rng.randint(1, 5 if narrow else 17)),))])
+        .astype(np.int32) for _ in range(FLEET_PREFIX_N)]
+    news = [int(rng.randint(4, 11)) if narrow else int(rng.randint(16, 49))
+            for _ in range(FLEET_PREFIX_N)]
+    return prompts, news
+
+
+def _fleet_direct(dec, slots, page, prompts, news):
+    """The direct engine's tokens for ``prompts`` (an engine of the
+    fleet's shape on ``dec``)."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    eng = DecodeEngine(dec, num_slots=slots, page_size=page,
+                       max_seq_len=dec.p[f"_{dec.name}_pos_emb.w0"].shape[0])
+    reqs = [eng.submit(p, n) for p, n in zip(prompts, news)]
+    eng.run(timeout=600)
+    return [[int(t) for t in r.get(timeout=1)] for r in reqs]
+
+
+class _FleetProcs:
+    """Every process phase 53 starts, each with its stderr in a file of
+    the work directory; ``close()`` stops what is left (SIGTERM, then
+    SIGKILL) and every process of a session ``sessions`` names (a
+    router's spawned replicas)."""
+
+    def __init__(self, work, narrow):
+        self.work = work
+        self.narrow = narrow
+        self.procs = {}
+        self.sessions = []
+
+    def start(self, name, args, session=False):
+        env = {"PADDLE_TPU_HOST": name}
+        if self.narrow:
+            env["CUDA_VISIBLE_DEVICES"] = ""
+        err = open(os.path.join(self.work, f"{name}.err"), "w")
+        proc = _cli_proc(args, env, stdout=subprocess.PIPE, stderr=err,
+                         text=True, start_new_session=session)
+        err.close()
+        self.procs[name] = proc
+        if session:
+            self.sessions.append(proc.pid)
+        return proc
+
+    def line(self, name, timeout=FLEET_START_S):
+        """The daemon's first JSON line (its status), within ``timeout``."""
+        proc = self.procs[name]
+        out = {}
+
+        def read():
+            while True:
+                ln = proc.stdout.readline()
+                if not ln or ln.startswith("{"):
+                    out["line"] = ln
+                    return
+
+        t = threading.Thread(target=read, name=f"smoke-fleet-read-{name}")
+        t.start()
+        t.join(timeout)
+        if not out.get("line"):
+            raise AssertionError(f"{name} printed no status line in "
+                                 f"{timeout} s (exit {proc.poll()}): "
+                                 f"{self.err_tail(name)}")
+        return json.loads(out["line"])
+
+    def err_tail(self, name, n=3000):
+        with open(os.path.join(self.work, f"{name}.err")) as f:
+            return f.read()[-n:]
+
+    def stop(self, name, timeout=60.0):
+        """SIGTERM; the daemon's last JSON line (``stopped``)."""
+        import signal
+        proc = self.procs[name]
+        proc.send_signal(signal.SIGTERM)
+        try:
+            out, _ = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"{name} ignored SIGTERM")
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"{name} exit {proc.returncode}: "
+                                 f"{self.err_tail(name)}")
+        return json.loads(lines[-1])
+
+    def close(self):
+        import signal
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGCONT)
+                proc.terminate()
+        for proc in self.procs.values():
+            try:
+                proc.communicate(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+        for pgid in self.sessions:
+            for sig in (signal.SIGTERM, signal.SIGKILL):
+                try:
+                    os.killpg(pgid, sig)
+                except (ProcessLookupError, PermissionError):
+                    break
+                time.sleep(2.0)
+
+
+class _Stopped:
+    """``Registration.pause()`` / ``unpause()`` for a replica PROCESS:
+    SIGSTOP / SIGCONT — the wedged-process fault that
+    FaultPlan.lease_lapse models: its heartbeat thread stops with it, so
+    its lease lapses while it holds whatever it held."""
+
+    def __init__(self, proc):
+        self.proc = proc
+
+    def pause(self):
+        import signal
+        self.proc.send_signal(signal.SIGSTOP)
+
+    def unpause(self):
+        import signal
+        self.proc.send_signal(signal.SIGCONT)
+
+
+def _fleet_counts(endpoint):
+    """A replica's smoke counters off its /metrics: {nvcc_launches,
+    window_launches, window_int8_launches, pid, violations}."""
+    _, _, body = _http(endpoint, "/metrics", timeout=30)
+    text = body.decode()
+    out = {k: int(_scrape_value(text, "chip_smoke_fleet_" + k))
+           for k in ("nvcc_launches", "window_launches",
+                     "window_int8_launches", "pid")}
+    out["violations"] = int(sum(
+        float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+        if ln.startswith("paddle_tpu_protocol_violations_total")))
+    return out
+
+
+def _wait_until(pred, timeout, what):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(0.1)
+    raise AssertionError(f"phase 53: {what} within {timeout} s")
+
+
+def _trace_idle(path):
+    """(device busy ms, wall ms) of a Chrome trace: the union of the
+    device's kernel, copy and set intervals against the span of every
+    event."""
+    with open(path) as f:
+        ev = [e for e in json.load(f)["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                 for e in ev if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                 "gpu_memset"))
+    busy, end = 0.0, None
+    for s, e in dev:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    wall = max(float(e["ts"]) + float(e["dur"]) for e in ev) - \
+        min(float(e["ts"]) for e in ev)
+    return busy / 1e3, wall / 1e3
+
+
+def _fleet_boot(P, work, serve, narrow, build_dir):
+    """Phase 53's daemons, started together in ``work``: the two
+    coordinators first, then the hand-started replicas, the two routers
+    of (a)-(d) and (e)'s autopilot router; their status lines. Returns
+    the state the rest of the phase reads."""
+    import shlex
+
+    from paddle_tpu_torch.reader import recordio as rio
+
+    cfg = FLEET_NARROW if narrow else FULL
+    slots, page = (2, 4) if narrow else (SLOTS, PAGE)
+    device = "cpu" if narrow else None
+    prompts, news = _fleet_requests(cfg, narrow)
+    pprompts, pnews = _fleet_prefix_requests(cfg, narrow)
+    counts_dir = os.path.join(work, "counts")
+    os.makedirs(counts_dir)
+    cfg_path = os.path.join(work, "fleet_decode.py")
+    with open(cfg_path, "w") as f:
+        f.write(FLEET_DECODE_CONFIG.format(cfg=cfg, device=device,
+                                           counts_dir=counts_dir))
+    data = os.path.join(work, "fleet.ptr")
+    rio.write_records(data, [b"r0", b"r1"], max_chunk_bytes=64)
+    log_of = {n: os.path.join(work, f"{n}.jsonl") for n in
+              FLEET_REPLICAS + ("router", "router1", "router2", "routerE")}
+    S = dict(P=P, narrow=narrow, page=page, prompts=prompts, news=news,
+             pprompts=pprompts, pnews=pnews, log_of=log_of, cfg=cfg,
+             slots=slots, device=device, serve=serve,
+             counts_dir=counts_dir,
+             card="cpu" if narrow else nvidia_smi_line(),
+             out={"launches": {}, "int8_launches": {}})
+    for name in ("coord", "coordE"):
+        P.start(name, ["coordinator", "--data", data, "--worker_lease",
+                       FLEET_LEASE_S])
+    S["cport"] = P.line("coord")["port"]
+    S["cportE"] = P.line("coordE")["port"]
+    serve_args = ["serve", "--decode_config", cfg_path, "--gen_slots",
+                  slots, "--gen_page_size", page, "--heartbeat",
+                  FLEET_HEARTBEAT_S, "--compile_cache",
+                  "0" if narrow else build_dir]
+    t_start = time.perf_counter()
+    for rid in FLEET_REPLICAS:
+        P.start(rid, serve_args + [
+            "--coordinator", f"127.0.0.1:{S['cport']}", "--replica_id",
+            rid, "--event_log", log_of[rid]] + (
+            ["--profile_every", FLEET_PROFILE_EVERY] if rid == "r0"
+            else []))
+    router_args = ["router", "--page_size", page, "--affinity",
+                   "prefix", "--scrape_interval", FLEET_SCRAPE_S,
+                   "--queue_timeout", FLEET_QUEUE_S, "--heartbeat",
+                   FLEET_HEARTBEAT_S]
+    for name in ("router1", "router2"):
+        P.start(name, router_args + [
+            "--coordinator", f"127.0.0.1:{S['cport']}", "--event_log",
+            log_of[name]])
+    # (e)'s router: its autopilot spawns the same serve command on
+    # coordE, so its replicas never enter (a)-(d)'s directory; it
+    # spawns nothing until (e)'s fleet scale
+    spawn = [sys.executable, "-m", "paddle_tpu_torch.cli"] + \
+        [str(a) for a in serve_args] + [
+            "--coordinator", f"127.0.0.1:{S['cportE']}",
+            "--replica_id", "{replica_id}", "--event_log",
+            os.path.join(work, "{replica_id}.jsonl")]
+    P.start("routerE", router_args + [
+        "--coordinator", f"127.0.0.1:{S['cportE']}", "--autopilot",
+        "--spawn_cmd", shlex.join(spawn), "--min_replicas", 1,
+        "--max_replicas", 3, "--compile_cache",
+        "0" if narrow else build_dir, "--event_log",
+        log_of["routerE"]], session=True)
+    S["st"] = {n: P.line(n) for n in FLEET_REPLICAS + (
+        "router1", "router2", "routerE")}
+    S["start_s"] = time.perf_counter() - t_start
+    return S
+
+
+def _fleet_decoder(S):
+    """Phase 3's decoder (``serve``'s), or the narrow twin's, built from
+    seed 0 as the replicas build theirs."""
+    from paddle_tpu_torch.models.decode import TransformerDecoder
+    from paddle_tpu_torch.params import init_transformer_lm_params
+    if S["serve"] is not None:
+        return S["serve"]["dec"]
+    cfg = S["cfg"]
+    return TransformerDecoder(init_transformer_lm_params(cfg, seed=0),
+                              n_layers=cfg["n_layers"],
+                              n_heads=cfg["n_heads"], device=S["device"])
+
+
+def _fleet_autopilot(S):
+    """(e): cli.py fleet scale --replicas 3 on routerE's autopilot, then
+    fleet deploy under open-loop requests FLEET_OPEN_LOOP_GAP_S apart,
+    then fleet status; the autopilot's replicas quit after. A thread
+    reads each spawned replica's counts off its /metrics as it joins
+    the directory (its start's launches, as r0-r2's are read after
+    their boot); each process writes its counts when it exits. Returns
+    the readings and the window launches by replica id."""
+    from paddle_tpu_torch.obs.events import read_journal
+    from paddle_tpu_torch.trainer.coordinator import connect
+    P, e = S["P"], {}
+    prompts, news = S["prompts"], S["news"]
+    want = [[int(t) for t in r] for r in S["serve"]["tokens"]] \
+        if S["serve"] is not None else _fleet_direct(
+            _fleet_decoder(S), S["slots"], S["page"], prompts, news)
+    t_e = time.perf_counter()
+    baseE = f"http://127.0.0.1:{S['st']['routerE']['port']}"
+    coordE = connect("127.0.0.1", S["cportE"])
+
+    def fleet_cli(*argv):
+        name = "fleet-" + argv[0]
+        P.start(name, ["fleet", *argv, "--router", baseE,
+                       "--timeout", 600])
+        o, _ = P.procs[name].communicate(timeout=900)
+        return P.procs[name].returncode, json.loads(
+            o.strip().splitlines()[-1])
+
+    def live_replicas(coord=coordE):
+        """{boot_id: (replica_id, endpoint)} of coordE's serve/*."""
+        reps = {}
+        for w in coord.workers():
+            info = coord.worker_info(w) if str(w).startswith(
+                "serve/") else None
+            if info:
+                reps[info["boot_id"]] = (info["replica_id"],
+                                         info["endpoint"])
+        return reps
+
+    joined = {}                  # pid -> (replica_id, counts at join)
+    seen, watch_err = set(), []
+    watch_stop = threading.Event()
+
+    def watch():
+        # a proxy of its own: one XML-RPC connection is not shared
+        # across threads
+        coord_w = connect("127.0.0.1", S["cportE"])
+        try:
+            while not watch_stop.is_set():
+                for boot, (rid, ep) in live_replicas(coord_w).items():
+                    if boot not in seen:
+                        c = _fleet_counts(ep)
+                        seen.add(boot)
+                        joined[c["pid"]] = (rid, c)
+                watch_stop.wait(0.05)
+        except Exception as err:  # noqa: BLE001 — raised below
+            watch_err.append(err)
+
+    wt = threading.Thread(target=watch, name="smoke-fleet-join-watch")
+    wt.start()
+    try:
+        t0 = time.perf_counter()
+        rc, sc = fleet_cli("scale", "--replicas", 3)
+        e["scale_s"] = time.perf_counter() - t0
+        if rc != 0 or sc["result"]["replicas_live"] != 3:
+            raise AssertionError(f"(e) fleet scale: {rc} {sc}")
+        e["scaled"] = sorted(r for r, _ in live_replicas().values())
+        _wait_until(lambda: len(joined) == 3 or watch_err, 60,
+                    "(e) the spawned replicas' counts at their join")
+        loop_res, loop_threads = [], []
+        stop_loop = threading.Event()
+
+        def ask(k):
+            i = k % N_REQ
+            code, _, b = _http_json(baseE, "/generate", {
+                "prompt": [int(t) for t in prompts[i]],
+                "max_new_tokens": news[i]})
+            loop_res.append((code, b.get("tokens") == want[i],
+                             b.get("reason") or b.get("error")))
+
+        def open_loop():
+            k = 0
+            while not stop_loop.is_set():
+                t = threading.Thread(target=ask, args=(k,),
+                                     name=f"smoke-fleet-open-{k}")
+                t.start()
+                loop_threads.append(t)
+                k += 1
+                stop_loop.wait(FLEET_OPEN_LOOP_GAP_S)
+
+        lt = threading.Thread(target=open_loop, name="smoke-fleet-open")
+        lt.start()
+        try:
+            t0 = time.perf_counter()
+            rc, dp = fleet_cli("deploy")
+            e["deploy_s"] = time.perf_counter() - t0
+        finally:
+            stop_loop.set()
+            lt.join()
+            for t in loop_threads:
+                t.join(600)
+        failed = [r for r in loop_res if r[:2] != (200, True)]
+        if rc != 0 or dp["result"]["status"] != "complete" or failed or \
+                len(loop_res) != len(loop_threads):
+            raise AssertionError(f"(e) fleet deploy: rc {rc}, "
+                                 f"{dp['result'].get('status')}, "
+                                 f"{len(failed)} failed of "
+                                 f"{len(loop_res)}: {failed[:8]}")
+        e["steps"] = dp["result"]["steps"]
+        e["open_loop"] = len(loop_res)
+        for rid, ep in live_replicas().values():
+            c = _fleet_counts(ep)
+            if c["nvcc_launches"] or c["violations"]:
+                raise AssertionError(f"(e) respawned {rid}: {c}")
+        # the autopilot may drain a replica of the calm fleet once the
+        # deploy's cooldown has passed (min_replicas 1): status must
+        # account for every replica it spawned
+        rc_st, stt = fleet_cli("status")
+        ap = stt["autopilot"]
+        if rc_st != 0 or ap["deploys"] != 1 or ap["deploys_paused"] or \
+                stt["result"]["replicas_live"] != \
+                ap["scale_ups"] - ap["scale_downs"]:
+            raise AssertionError(f"(e) fleet status: {rc_st} {stt}")
+        e["live"] = stt["result"]["replicas_live"]
+        e["stopped"] = P.stop("routerE")
+        e["downs"] = [r["replica"] for r in read_journal(
+            S["log_of"]["routerE"]) if r.get("domain") == "autopilot"
+            and r.get("kind") == "scale_down"]
+        if len(e["downs"]) != ap["scale_downs"]:
+            raise AssertionError(f"(e) scale_down records {e['downs']}")
+        e["ups"] = ap["scale_ups"]
+        for _, ep in live_replicas().values():
+            _http(ep, "/admin/quit", {})
+        _wait_until(lambda: not live_replicas(), 120,
+                    "(e) the autopilot's replicas quit and leave")
+    finally:
+        watch_stop.set()
+        wt.join(60)
+    if watch_err:
+        raise watch_err[0]
+    # every spawned process: its launches from its join to its exit
+    path = os.path.join(S["counts_dir"], "{}.json")
+    _wait_until(lambda: all(os.path.exists(path.format(pid))
+                            for pid in joined), 120,
+                "(e) every spawned replica wrote its counts at exit")
+    if len(joined) != e["ups"] + len(e["steps"]):
+        raise AssertionError(f"(e) {len(joined)} replica processes "
+                             f"joined, not {e['ups']} spawned + "
+                             f"{len(e['steps'])} restarted")
+    e["launches"], e["int8_launches"] = {}, {}
+    for pid, (rid, c0) in joined.items():
+        with open(path.format(pid)) as f:
+            c1 = json.load(f)
+        if c0["nvcc_launches"] or c1["nvcc_launches"]:
+            raise AssertionError(f"(e) spawned {rid} ran nvcc: {c1}")
+        key = f"e-{rid}"
+        e["launches"][key] = e["launches"].get(key, 0) + \
+            c1["window_launches"] - c0["window_launches"]
+        e["int8_launches"][key] = e["int8_launches"].get(key, 0) + \
+            c1["window_int8_launches"] - c0["window_int8_launches"]
+    P.stop("coordE")
+    e["wall_s"] = time.perf_counter() - t_e
+    return e
+
+
+def _fleet_hand(S):
+    """(a)-(d) on the hand-started fleet. Returns the readings and the
+    window launches by replica."""
+    import signal
+
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch.fleet import Router
+    from paddle_tpu_torch.obs import WITNESS
+    from paddle_tpu_torch.obs.events import JOURNAL
+    from paddle_tpu_torch.obs.merge import merge_journals
+    from paddle_tpu_torch.testing import FaultPlan, assert_exactly_once
+    from paddle_tpu_torch.trainer.coordinator import connect
+
+    P, out, card, narrow = S["P"], S["out"], S["card"], S["narrow"]
+    page, log_of, cport = S["page"], S["log_of"], S["cport"]
+    prompts, news = S["prompts"], S["news"]
+    pprompts, pnews = S["pprompts"], S["pnews"]
+    cfg, slots = S["cfg"], S["slots"]
+    rt = None
+    obs.reset_all()
+    try:
+        # the direct references: phase 3's tokens, the same-prefix
+        # set's, and (d)'s request (phase 3's first prompt, long enough
+        # that its router dies while the replica still decodes)
+        dec = _fleet_decoder(S)
+        if S["serve"] is None:
+            want = _fleet_direct(dec, slots, page, prompts, news)
+        else:
+            want = [[int(t) for t in r] for r in S["serve"]["tokens"]]
+        pwant = _fleet_direct(dec, slots, page, pprompts, pnews)
+        dnew = min(FLEET_KILL_ROUTER_NEW, cfg["max_len"] - len(prompts[0]))
+        dwant = _fleet_direct(dec, slots, page, prompts[:1], [dnew])[0]
+        ref = {(tuple(int(t) for t in p), n): w for p, n, w in
+               zip(list(prompts) + list(pprompts),
+                   list(news) + list(pnews), want + pwant)}
+        st, start_s = S["st"], S["start_s"]
+        want_dev = "cpu" if narrow else "cuda:0"
+        for rid in FLEET_REPLICAS:
+            if st[rid]["status"] != "serving" or \
+                    st[rid]["replica_id"] != rid or \
+                    st[rid]["device"] != want_dev:
+                raise AssertionError(f"{rid} status line {st[rid]}")
+        ep = {rid: f"http://127.0.0.1:{st[rid]['port']}"
+              for rid in FLEET_REPLICAS}
+        bases = {n: f"http://127.0.0.1:{st[n]['port']}"
+                 for n in ("router1", "router2")}
+        base0 = {rid: _fleet_counts(ep[rid]) for rid in FLEET_REPLICAS}
+        if any(c["nvcc_launches"] for c in base0.values()):
+            raise AssertionError(f"a replica start ran nvcc: {base0}")
+        log(f"fleet ({card}): two coordinators, then 3 replicas (status "
+            f"lines name {want_dev}; 0 nvcc each, from the compile cache) "
+            f"and 3 routers up in {start_s:.3f} s, started together")
+        for name, b in bases.items():
+            _wait_until(lambda b=b: _http_json(b, "/stats")[2]
+                        ["replicas_live"] == 3, 60,
+                        f"{name} sees 3 replicas")
+
+        # (a) phase 3's 16 requests through router1: one pass that
+        # meets replicas which have served nothing yet (each new prefill
+        # shape's first kernels), then the reading, FLEET_PASSES passes
+        # in one client run through router1, and the same passes
+        # straight to the replicas with no router (prompt j always on
+        # replica j % 3); then the same-prefix set; the routers' scrape
+        # cost from an in-process Router
+        jobs = list(range(N_REQ))
+        r1 = st["router1"]["port"]
+        got0, wall0 = _front_client_process([r1] * N_REQ, prompts, news,
+                                            tag="fleet0")
+        many = list(range(N_REQ * FLEET_PASSES))
+        mprompts = [prompts[i % N_REQ] for i in many]
+        mnews = [news[i % N_REQ] for i in many]
+        got, wall = _front_client_process([r1] * len(many), mprompts,
+                                          mnews, tag="fleet1")
+        rports = [st[rid]["port"] for rid in FLEET_REPLICAS]
+        dgot, dwall = _front_client_process(
+            [rports[i % N_REQ % len(rports)] for i in many], mprompts,
+            mnews, tag="fleet-direct")
+        for name, g in (("first pass", got0), ("router's passes", got),
+                        ("direct passes", dgot)):
+            bad = [i for i in g if g[i]["tokens"] != want[i % N_REQ]]
+            if bad:
+                raise AssertionError(f"(a) tokens of the {name} differ "
+                                     f"from the direct engine's in {bad}")
+        first_ms = [got0[i].get("ttft_ms", got0[i].get("latency_ms"))
+                    for i in jobs]
+        queued = _http_json(bases["router1"], "/stats")[2]["queued"]
+        ttft = [got[i]["ttft_ms"] for i in many if i % 2]
+        gaps = [g for i in many if i % 2 for g in got[i]["gaps_ms"]]
+        dttft = [dgot[i]["ttft_ms"] for i in many if i % 2]
+        dgaps = [g for i in many if i % 2 for g in dgot[i]["gaps_ms"]]
+        tokens = sum(mnews)
+        tps, dtps = tokens / wall, tokens / dwall
+        homes, pres = [], {}
+
+        def pone(i):
+            code, _, body = _http_json(bases["router1"], "/generate", {
+                "prompt": [int(t) for t in pprompts[i]],
+                "max_new_tokens": pnews[i]})
+            if code != 200:
+                raise AssertionError(f"(a) prefix request {i}: {code} "
+                                     f"{body}")
+            pres[i] = body
+
+        ts = [threading.Thread(target=pone, args=(i,),
+                               name=f"smoke-fleet-prefix-{i}")
+              for i in range(FLEET_PREFIX_N)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(300)
+        for i in range(FLEET_PREFIX_N):
+            if pres[i]["tokens"] != pwant[i]:
+                raise AssertionError(f"(a) prefix request {i}: tokens "
+                                     "differ from the direct engine's")
+            homes.append(pres[i]["replica_chain"][-1])
+        pin = max(homes.count(h) for h in set(homes))
+        if pin < 0.9 * FLEET_PREFIX_N:
+            raise AssertionError(f"(a) same-prefix homes {homes}")
+        probe = Router(coordinator=connect("127.0.0.1", cport),
+                       page_size=page)
+        refresh_ms, scrape_ms = [], []
+        for _ in range(FLEET_SCRAPES):
+            t0 = time.perf_counter()
+            probe.refresh()
+            refresh_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            probe._scrape(FLEET_REPLICAS[0])
+            scrape_ms.append((time.perf_counter() - t0) * 1e3)
+        probe.shutdown(drain=False)
+        if probe.stats()["replicas_live"] != 3 or \
+                probe.stats()["kv_pages_total"] <= 0:
+            raise AssertionError(f"probe router: {probe.stats()}")
+        # one replica's idle share: a traced window of its decode steps
+        # under 8 direct requests
+        deep = 8 if narrow else FLEET_DEEP_STEPS
+        code, _, prof = _http_json(ep["r0"], f"/profile?deep_steps={deep}")
+        trace = os.path.join(prof["armed_trace_dir"], "trace.json")
+        front_client([st["r0"]["port"]] * 8, prompts[:8], news[:8])
+        _wait_until(lambda: os.path.exists(trace), 120,
+                    "the replica's traced window lands")
+        time.sleep(0.5)
+        busy_ms, trace_ms = _trace_idle(trace)
+        log(f"fleet (a) ({card}): first pass on fresh replicas "
+            f"{sum(news)} tokens in {wall0:.3f} s = "
+            f"{sum(news) / wall0:.1f} tokens/s, each request's TTFT "
+            f"(streamed) or latency ms in order "
+            f"{[round(x, 1) for x in first_ms]}; router1 queued {queued}"
+            " requests for headroom over its passes")
+        log(f"fleet (a) ({card}): phase 3's {N_REQ} requests "
+            f"{FLEET_PASSES} times from {FRONT_CLIENTS} client threads "
+            f"(half streamed), {tokens} tokens: through router1 in "
+            f"{wall:.3f} s = {tps:.1f} tokens/s, TTFT p50 "
+            f"{_pct(ttft, 50):.3f} ms p99 {_pct(ttft, 99):.3f} ms, "
+            f"inter-token gap p50 {_pct(gaps, 50):.3f} ms p99 "
+            f"{_pct(gaps, 99):.3f} ms; straight to the 3 replicas (no "
+            f"router) in {dwall:.3f} s = {dtps:.1f} tokens/s, TTFT p50 "
+            f"{_pct(dttft, 50):.3f} ms p99 {_pct(dttft, 99):.3f} ms, gap "
+            f"p50 {_pct(dgaps, 50):.3f} ms p99 {_pct(dgaps, 99):.3f} ms "
+            f"(client side); tokens identical to phase 3's direct engine "
+            f"in both; same-prefix set: "
+            f"{pin} of {FLEET_PREFIX_N} on {max(set(homes), key=homes.count)}"
+            f", tokens identical to the direct engine's")
+        log(f"fleet (a) ({card}): Router.refresh() (directory poll + 3 "
+            f"scrapes) p50 {_pct(refresh_ms, 50):.3f} ms p99 "
+            f"{_pct(refresh_ms, 99):.3f} ms; one replica's /metrics "
+            f"scrape p50 {_pct(scrape_ms, 50):.3f} ms p99 "
+            f"{_pct(scrape_ms, 99):.3f} ms; r0's idle share "
+            f"{1 - busy_ms / trace_ms:.3f} (device busy {busy_ms:.3f} ms of"
+            f" a {trace_ms:.3f} ms traced window of {deep} "
+            "steps; the profiler slows the host: an upper bound)")
+        out.update(tokens_per_s=tps, direct_tokens_per_s=dtps,
+                   first_pass_tokens_per_s=sum(news) / wall0,
+                   ttft_ms=ttft, gap_ms=gaps,
+                   refresh_ms=refresh_ms, scrape_ms=scrape_ms,
+                   idle=1 - busy_ms / trace_ms, pin=pin, start_s=start_s)
+
+        # (b) kill_replica: SIGKILL the prefix set's home mid-stream
+        # during a burst of 24 streamed requests from 8 client threads
+        JOURNAL.configure(log_of["router"])
+        rt = Router(coordinator=connect("127.0.0.1", cport),
+                    page_size=page, scrape_interval=FLEET_SCRAPE_S,
+                    queue_timeout=FLEET_QUEUE_S,
+                    request_timeout=FLEET_REQUEST_S).start()
+        _wait_until(lambda: rt.stats()["replicas_live"] == 3, 60,
+                    "the in-process router sees 3 replicas")
+        victim = rt.generate(pprompts[0], 2).replica_chain[-1]
+        survivors = [r for r in FLEET_REPLICAS if r != victim]
+        vproc = P.procs[victim]
+        burst = [(pprompts[i], pnews[i]) for i in range(8)] + \
+            list(zip(prompts, news))
+        arrivals = {}
+        t_kill = []
+
+        def kill():
+            out["launches"][victim] = _fleet_counts(ep[victim])[
+                "window_launches"] - base0[victim]["window_launches"]
+            t_kill.append(time.perf_counter())
+            vproc.kill()
+
+        def one(i):
+            p, n = burst[i]
+            arr = arrivals.setdefault(i, [])
+            return rt.generate(
+                p, n, on_token=lambda t: arr.append(time.perf_counter()))
+
+        with FaultPlan.kill_replica(rt, victim, kill,
+                                    at=FLEET_KILL_AT) as chaos:
+            results, errors = FaultPlan.burst(one, FLEET_BURST,
+                                              threads=FLEET_CLIENTS,
+                                              timeout=600)
+        vproc.wait(timeout=60)
+        if chaos["fired"] != 1 or vproc.returncode != -signal.SIGKILL:
+            raise AssertionError(f"(b) kill: {chaos}, exit "
+                                 f"{vproc.returncode}")
+        if any(e is not None for e in errors):
+            raise AssertionError(f"(b) errors: {[repr(e) for e in errors]}")
+        failed_over = [i for i, r in enumerate(results) if r.hops >= 2]
+        if not failed_over:
+            raise AssertionError("(b) no request failed over")
+        for i, r in enumerate(results):
+            w = ref[(tuple(int(t) for t in burst[i][0]), burst[i][1])]
+            if r.tokens != w:
+                k = next(j for j, (a, b) in enumerate(zip(r.tokens, w))
+                         if a != b) if len(r.tokens) == len(w) else None
+                raise AssertionError(
+                    f"(b) request {i} (hops {r.hops}, chain "
+                    f"{r.replica_chain}): tokens differ from the "
+                    f"undisturbed ones at position {k}: {r.tokens} "
+                    f"against {w}")
+        resumed_ms = []
+        for i in failed_over:
+            after = [t for t in arrivals[i] if t > t_kill[0]]
+            if after:
+                resumed_ms.append((after[0] - t_kill[0]) * 1e3)
+        if not resumed_ms:
+            raise AssertionError("(b) no token arrived after the kill")
+        for rid in survivors:
+            _wait_until(lambda rid=rid: (lambda s: s["kv_pages_leaked"] == 0
+                                         and s["active_slots"] == 0)(
+                _http_json(ep[rid], "/stats")[2]["engine"]), 60,
+                f"(b) {rid} idle with no leaked page")
+            if _fleet_counts(ep[rid])["violations"]:
+                raise AssertionError(f"(b) {rid}: witness violations")
+        if WITNESS.violations():
+            raise AssertionError(f"(b) router witness: "
+                                 f"{WITNESS.violations()[:3]}")
+        JOURNAL.configure(None)
+        assert_exactly_once(log_of["router"], [r.trace_id for r in results])
+        merged = merge_journals([log_of["router"]] +
+                                [log_of[r] for r in FLEET_REPLICAS])
+        for i in failed_over:
+            r = results[i]
+            chain = [x for x in merged if x.get("trace_id") == r.trace_id]
+            routes = [x["replica"] for x in chain if x["domain"] == "fleet"
+                      and x["kind"] == "route"]
+            fails = [x for x in chain if x["kind"] == "failover"]
+            settles = [x for x in chain if x["domain"] == "fleet"
+                       and x["kind"] == "settle"]
+            hops = [(x.get("host"), x["phase"]) for x in chain
+                    if x["kind"] == "hop"]
+            if routes != r.replica_chain or routes[0] != victim or \
+                    not fails or fails[0]["victim"] != victim or \
+                    len(settles) != 1 or \
+                    ((victim, "start") not in hops and
+                     fails[0]["streamed"] > 0) or \
+                    (routes[-1], "settle") not in hops or \
+                    (victim, "settle") in hops:
+                raise AssertionError(f"(b) trace {r.trace_id}: routes "
+                                     f"{routes}, hops {hops}")
+        n_tok = sum(len(r.tokens) for r in results)
+        log(f"fleet (b) ({card}): kill_replica SIGKILLed {victim} after "
+            f"{chaos['at_tokens']} streamed tokens; {FLEET_BURST} requests "
+            f"({n_tok} tokens) settled exactly once, {len(failed_over)} "
+            f"failed over to the survivors, every continuation identical "
+            f"to the undisturbed tokens; survivors leaked 0 pages; merged "
+            f"journals rebuild each hop chain; 0 witness violations; "
+            f"kill to first resumed token p50 {_pct(resumed_ms, 50):.3f} ms"
+            f" max {max(resumed_ms):.3f} ms ({len(resumed_ms)} streams)")
+        out.update(resumed_ms=resumed_ms, failed_over=len(failed_over),
+                   victim=victim)
+
+        # (c) lease_lapse (the replica process stopped), then
+        # drain_during_burst
+        _wait_until(lambda: rt.stats()["replicas_live"] == 2, 60,
+                    "(c) the victim's lease lapses")
+        paused, other = survivors
+        rejoins0 = rt.stats()["rejoins"]
+        JOURNAL.configure(log_of["router"])
+        seq0 = JOURNAL.last_seq
+        with FaultPlan.lease_lapse(_Stopped(P.procs[paused]),
+                                   wait_s=FLEET_LEASE_S + 1.5):
+            _wait_until(lambda: (rt.refresh() or True) and
+                        rt.stats()["replicas_live"] == 1, 60,
+                        f"(c) {paused} drops out of routing")
+            for i in range(4):
+                r = rt.generate(prompts[i], news[i])
+                if r.replica_chain != [other] or r.tokens != want[i]:
+                    raise AssertionError(f"(c) lapsed: {r.replica_chain}")
+        _wait_until(lambda: (rt.refresh() or True) and
+                    rt.stats()["replicas_live"] == 2 and
+                    rt.stats()["rejoins"] > rejoins0, 60,
+                    f"(c) {paused} rejoins")
+        lapses = [x["replica"] for x in JOURNAL.tail(
+            500, domain="fleet", kind="lease_lapse", since_seq=seq0)]
+        if lapses != [paused]:
+            raise AssertionError(f"(c) lease_lapse records {lapses}")
+        drain_set = list(range(12))
+
+        def done(i):
+            return rt.generate(prompts[i], news[i])
+
+        with FaultPlan.drain_during_burst(rt, paused, after=3) as dchaos:
+            dres, derr = FaultPlan.burst(done, len(drain_set), threads=4,
+                                         timeout=600)
+        if any(e is not None for e in derr) or \
+                [r.tokens for r in dres] != want[:len(drain_set)] or \
+                not dchaos["drained"] or not dchaos["drained"]["draining"]:
+            raise AssertionError(f"(c) drain under load: {derr} "
+                                 f"{dchaos}")
+        health = _http_json(ep[paused], "/health")[2]["status"]
+        after = rt.generate(prompts[0], news[0]).replica_chain
+        rt.undrain(paused)
+        health2 = _http_json(ep[paused], "/health")[2]["status"]
+        if health != "draining" or after != [other] or health2 != "ok" \
+                or not rt.balancer.get(paused).routable():
+            raise AssertionError(f"(c) drain/undrain: {health} {after} "
+                                 f"{health2}")
+        log(f"fleet (c) ({card}): lease_lapse stopped {paused} "
+            f"(SIGSTOP) {FLEET_LEASE_S + 1.5:.1f} s: it dropped out of "
+            f"routing, 4 requests landed on {other}, and it rejoined on "
+            f"SIGCONT; drain_during_burst drained {paused} at the 3rd of "
+            f"{dchaos['dispatches']} dispatches: {len(drain_set)} requests"
+            f" settled with phase 3's tokens, new work on {other}, undrain "
+            "re-admitted it")
+        rt.shutdown(drain=True, timeout=30)
+        rt = None
+        JOURNAL.configure(None)
+
+        # (d) kill_router: SIGKILL router1 mid-stream; the client retries
+        # the same trace id through router2
+        for name, b in bases.items():
+            _wait_until(lambda b=b: _http_json(b, "/stats")[2]
+                        ["replicas_live"] == 2, 60,
+                        f"(d) {name} sees 2 replicas")
+        import http.client
+        tid = "smoke-fleet-kill-router"
+        body = {"prompt": [int(t) for t in prompts[0]],
+                "max_new_tokens": dnew, "stream": True, "trace_id": tid}
+        conn = http.client.HTTPConnection("127.0.0.1",
+                                          st["router1"]["port"],
+                                          timeout=300)
+        conn.request("POST", "/generate", json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        toks1 = []
+        while len(toks1) < FLEET_KILL_AT:
+            rec = json.loads(resp.fp.readline())
+            toks1.append(rec["token"])
+        P.procs["router1"].kill()
+        P.procs["router1"].wait(timeout=60)
+        torn = True
+        try:
+            while True:
+                ln = resp.fp.readline()
+                if not ln:
+                    break
+                if json.loads(ln).get("done"):
+                    torn = False
+        except (OSError, ValueError):
+            pass
+        conn.close()
+        toks2, done2, _, _ = _stream_generate(st["router2"]["port"],
+                                              prompts[0], dnew, tid)
+        stopped2 = P.stop("router2")
+        merged = merge_journals([log_of["router1"], log_of["router2"]] +
+                                [log_of[r] for r in FLEET_REPLICAS])
+        assert_exactly_once(merged, [tid])
+        chain = [x for x in merged if x.get("trace_id") == tid]
+        placed = {(x.get("host"), x["replica"]) for x in chain
+                  if x["domain"] == "fleet" and x["kind"] == "route"}
+        hops = sorted(x["phase"] for x in chain if x["kind"] == "hop")
+        if not torn or toks2 != dwant or toks2[:2] != toks1 or \
+                done2["trace_id"] != tid or \
+                len({p[1] for p in placed}) != 1 or \
+                {p[0] for p in placed} != {"router1", "router2"} or \
+                hops != ["settle", "start", "start", "torn"] or \
+                stopped2["status"] != "stopped":
+            raise AssertionError(f"(d) kill_router: torn {torn}, placed "
+                                 f"{placed}, hops {hops}")
+        log(f"fleet (d) ({card}): kill_router SIGKILLed router1 after "
+            f"{len(toks1)} relayed tokens of {dnew}; the client's retry of "
+            f"{tid} through router2 landed the direct engine's tokens; "
+            f"both routers placed"
+            f" it on {placed.pop()[1]} (rendezvous), one settle across the "
+            f"merged journals, the replica's hops start, torn, start, "
+            f"settle; router2 left and stopped on SIGTERM")
+
+        # the hand-started replicas' launches, then their SIGTERM
+        for rid in survivors:
+            c = _fleet_counts(ep[rid])
+            out["launches"][rid] = c["window_launches"] - \
+                base0[rid]["window_launches"]
+            out["int8_launches"][rid] = c["window_int8_launches"] - \
+                base0[rid]["window_int8_launches"]
+            P.stop(rid)
+        coord = connect("127.0.0.1", cport)
+        _wait_until(lambda: not [w for w in coord.workers()
+                                 if str(w).startswith("serve/")
+                                 and coord.worker_info(w)], 60,
+                    "the stopped replicas leave the directory")
+        P.stop("coord")
+        return out
+    finally:
+        JOURNAL.configure(None)
+        if rt is not None:
+            rt.shutdown(drain=False)
+
+
+def phase_fleet(serve=None, narrow=False):
+    """Phase 53 (see the module doc) in a work directory of its own:
+    the daemons start together, (a)-(d) run on the hand-started fleet,
+    then (e) on the autopilot's; every process it started is stopped
+    and the directory removed on the way out. At full width on the card
+    ``serve`` is phase 3's result (its tokens are (a)'s reference, its
+    decoder the same-prefix set's); ``narrow`` runs the narrow twin on
+    the CPU. Returns the readings and the window launches by replica."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.artifacts import cache as compile_cache
+    work = tempfile.mkdtemp(prefix="phase53-")
+    P = _FleetProcs(work, narrow)
+    try:
+        t_phase = time.perf_counter()
+        S = _fleet_boot(P, work, serve, narrow,
+                        None if narrow else compile_cache.build_dir())
+        out, card = _fleet_hand(S), S["card"]
+        e = _fleet_autopilot(S)
+        steps = e["steps"]
+        log(f"fleet (e) ({card}): router --autopilot --spawn_cmd on a "
+            f"coordinator of its own; fleet scale --replicas 3 spawned "
+            f"{e['scaled']} in {e['scale_s']:.3f} s (0 nvcc each); fleet "
+            f"deploy restarted {[x['replica'] for x in steps]} in "
+            f"{e['deploy_s']:.3f} s (rollout "
+            f"{', '.join(f'{x['step_s']:.3f}' for x in steps)} s a replica,"
+            f" 0 nvcc each) under {e['open_loop']} open-loop requests "
+            f"({FLEET_OPEN_LOOP_GAP_S * 1e3:.0f} ms apart), 0 failed, each "
+            f"with phase 3's tokens; fleet status exit 0 ({e['live']} live,"
+            f" the calm fleet's scale-downs {e['downs']}); routerE stopped "
+            f"({e['stopped']['stats']['settled']} settled); (e) took "
+            f"{e['wall_s']:.1f} s")
+        out["launches"].update(e["launches"])
+        out["int8_launches"].update(e["int8_launches"])
+        out.update(scale_s=e["scale_s"], deploy_s=e["deploy_s"],
+                   step_s=[x["step_s"] for x in steps],
+                   open_loop=e["open_loop"])
+        total = sum(out["launches"].values())
+        if not narrow and not (
+                sum(out["launches"].get(r, 0) for r in FLEET_REPLICAS)
+                and sum(e["launches"].values())):
+            raise AssertionError(f"the replicas launched no window "
+                                 f"kernel: {out['launches']}")
+        log(f"phase 53: {time.perf_counter() - t_phase:.1f} s; window "
+            f"launches on route fleet {total} ({out['launches']}), int8 "
+            f"{sum(out['int8_launches'].values())} [{card}]")
+        out["window_launches"] = total
+        out["window_int8_launches"] = sum(out["int8_launches"].values())
+        return out
+    finally:
+        P.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -12082,14 +13111,20 @@ def main():
     # service (phase 52)
     arts = phase_artifacts(serve)
     phase_embed()
+    # the serving fleet (phase 53): replica processes on this card
+    # behind router processes
+    fleet = phase_fleet(serve)
     kernels = [dict(
         name="paged_window_attention", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",
         replaces="paddle_tpu/ops/pallas_decode.py:257",
-        launches=launches + front["launches"] + chaos["window"],
+        launches=launches + front["launches"] + chaos["window"] +
+        fleet["window_launches"],
         max_abs_err=max_err,
         route_launches={"engine": launches, "http": front["launches"],
-                        "chaos": chaos["window"]},
+                        "chaos": chaos["window"],
+                        "fleet": fleet["window_launches"]},
+        fleet_replica_launches=fleet["launches"],
         **timing)]
     for name, line, _, src in FLASH_KERNELS:
         kernels.append(dict(
@@ -12171,9 +13206,11 @@ def main():
         name="paged_window_attention_int8", route="cuda",
         source="paddle_tpu_torch/csrc/paged_window_attention.cu",
         replaces="paddle_tpu/ops/pallas_decode.py:322",
-        launches=dequant_launches + chaos["window_int8"],
+        launches=dequant_launches + chaos["window_int8"] +
+        fleet["window_int8_launches"],
         route_launches={"int8_engine": dequant_launches,
-                        "chaos": chaos["window_int8"]},
+                        "chaos": chaos["window_int8"],
+                        "fleet": fleet["window_int8_launches"]},
         max_abs_err=dequant_err,
         **tt_timing[("int8", 1, torch.float32)]))
     kernels.append(dict(

@@ -31,7 +31,21 @@ attaches a continuous-batching ``DecodeEngine`` behind ``POST
 ``POST /admin/quit``, then drains with a flight postmortem.
 ``--draft_config`` and ``--spec_k`` turn on speculative decoding,
 ``--kv_quant int8`` stores the KV pages in int8, and
-``--kv_spill_pages`` attaches the host spill tier.
+``--kv_spill_pages`` attaches the host spill tier. With
+``--coordinator HOST:PORT`` the replica joins the membership plane as
+``serve/<--replica_id>`` (after its warmup, once its socket is bound)
+and keeps the lease with a ``--heartbeat`` thread; it exits leave ->
+transport -> drain.
+
+``router``: the serving-fleet router daemon (fleet/) over the
+``serve --coordinator`` replicas of one ``--coordinator`` —
+aggregate-KV admission, prefix-affine placement, drain and
+exactly-once mid-stream failover, behind ``/generate``, ``/health``,
+``/stats``, ``/metrics`` and ``/admin/drain|resume``. ``--autopilot``
+(implied by ``--spawn_cmd``) runs the autoscaler and arms
+``/admin/deploy``, ``/admin/scale`` and ``/autopilot``. ``fleet
+deploy|scale|status --router URL`` operates a running router over
+that admin plane (exit 1 when a deploy pauses).
 
 ``coordinator``: the elastic-training coordinator daemon — partitions
 the recordio chunks of ``--data`` into tasks and serves them, the
@@ -58,8 +72,9 @@ N}``. ``events tail`` prints (and with ``--follow`` streams) a
 journal's records; ``obs dump|selfcheck|catalog`` writes a flight
 bundle (this process's, or ``--url``'s), exercises every obs surface,
 or prints the declared contract (obs/catalog.py); ``trace merge`` fuses
-per-process journals and traces (obs/merge.py). The other subcommands
-of ``paddle_tpu`` wait for later slices.
+per-process journals and traces (obs/merge.py). The JAX package's
+``soak``, ``lint``, ``merge``, ``infer``, ``diagram``, ``profile`` and
+``version`` wait for later slices.
 """
 
 from __future__ import annotations
@@ -190,6 +205,21 @@ def _cmd_serve(args) -> int:
         stop.set()
 
     server, httpd = _build_server(args, on_quit=_on_admin_quit)
+    # fleet membership: join the coordinator directory as
+    # serve/<replica_id> publishing the HTTP endpoint (the engine is
+    # warm and the socket bound), so a `router` discovers and fails
+    # over this replica with no static config
+    registration = None
+    if args.coordinator:
+        from paddle_tpu_torch.fleet import ReplicaRegistration
+        from paddle_tpu_torch.trainer.coordinator import connect
+        chost, _, cport = args.coordinator.rpartition(":")
+        port = httpd.server_address[1]
+        registration = ReplicaRegistration(
+            connect(chost or "127.0.0.1", int(cport)),
+            args.replica_id or f"{args.host}-{port}",
+            f"http://{args.host}:{port}",
+            heartbeat_s=args.heartbeat).join()
     signal.signal(signal.SIGTERM, _on_stop_signal)
     signal.signal(signal.SIGINT, _on_stop_signal)
     t = threading.Thread(target=httpd.serve_forever, name="pt-serve-http")
@@ -200,9 +230,16 @@ def _cmd_serve(args) -> int:
                       "workers": args.workers,
                       "max_queue": args.max_queue,
                       "device": str(engine.paged.device)
-                      if engine is not None else None}), flush=True)
+                      if engine is not None else None,
+                      "replica_id": registration.replica_id
+                      if registration else None}), flush=True)
     while not stop.wait(0.2):
         pass
+    # the goodbye FIRST (a router mid-retry sees the directory lose the
+    # entry before the endpoint stops answering), then the transport,
+    # then the drain
+    if registration is not None:
+        registration.stop(leave=True)
     httpd.shutdown()             # stop admissions at the transport...
     t.join()
     httpd.server_close()
@@ -359,6 +396,291 @@ def _cmd_pserver(args) -> int:
     print(json.dumps({"job": "pserver", "status": "stopped",
                       "stats": shard.stats()}), flush=True)
     return 0
+
+
+# ------------------------------------------------------------ the fleet
+def _build_router(args, Router, build_router_http_server, connect):
+    """router-flag wiring, split from the signal loop so tests can
+    check the flags reach Router (and the autopilot, when enabled)
+    without a live coordinator."""
+    chost, _, cport = args.coordinator.rpartition(":")
+    coord = connect(chost or "127.0.0.1", int(cport))
+    router = Router(coordinator=coord, affinity=args.affinity,
+                    page_size=args.page_size,
+                    scrape_interval=args.scrape_interval,
+                    queue_timeout=args.queue_timeout,
+                    drain_timeout=args.drain_timeout).start()
+    autopilot = None
+    if getattr(args, "autopilot", False) or \
+            getattr(args, "spawn_cmd", None):
+        autopilot = _build_autopilot(args, router)
+    httpd = build_router_http_server(router, args.host, args.port,
+                                     autopilot=autopilot)
+    return router, httpd, coord, autopilot
+
+
+def _build_autopilot(args, router):
+    """autopilot-flag wiring (fleet/autopilot.py): with --spawn_cmd the
+    provisioner runs one subprocess per replica (the {replica_id}
+    template); without, spawning is impossible (journaled
+    ``autopilot/spawn_failed``) but the ROLLING DEPLOY still works —
+    restart asks each replica to POST /admin/quit itself and its
+    supervisor to respawn it (the fresh boot_id rejoin re-admits)."""
+    import shlex
+
+    from paddle_tpu_torch.fleet.autopilot import (Autopilot,
+                                                  AutopilotPolicy,
+                                                  CallbackProvisioner,
+                                                  SubprocessProvisioner)
+    policy = AutopilotPolicy(min_replicas=args.min_replicas,
+                             max_replicas=args.max_replicas)
+    if getattr(args, "spawn_cmd", None):
+        cmd = shlex.split(args.spawn_cmd)
+        # the fleet's KV mode rides into every autoscaled replica: a
+        # spawn that comes up single-tier/float in an int8+spill fleet
+        # would scrape mismatched capacity and break restore-path
+        # affinity
+        if getattr(args, "kv_quant", "none") not in (None, "none"):
+            cmd += ["--kv_quant", args.kv_quant]
+        if getattr(args, "kv_spill_pages", 0):
+            cmd += ["--kv_spill_pages", str(args.kv_spill_pages)]
+        prov = SubprocessProvisioner(cmd)
+    else:
+        def _no_spawn(rid):
+            raise RuntimeError("no --spawn_cmd: this autopilot can "
+                               "deploy but not spawn")
+
+        def _quit_restart(rid):
+            # supervisor-managed replica: ask it to exit cleanly; the
+            # supervisor respawns it and the fresh boot_id rejoins
+            st = router.balancer.get(rid)
+            if st is None:
+                raise KeyError(f"unknown replica {rid!r}")
+            router._http_post_json(st.endpoint, "/admin/quit", {})
+            return {}
+
+        prov = CallbackProvisioner(spawn=_no_spawn, stop=_no_spawn,
+                                   restart=_quit_restart)
+    return Autopilot(router, prov, policy=policy,
+                     interval=args.autopilot_interval,
+                     drain_timeout=args.drain_timeout)
+
+
+def _router_teardown(router, registration, httpd,
+                     autopilot=None) -> None:
+    """The SIGTERM contract, in this order: AUTOPILOT FIRST — stop the
+    control loop so no scale/deploy decision races the teardown;
+    DRAIN — stop admitting, let in-flight requests settle on their
+    replicas; LEAVE — drop the router's membership lease so clients
+    resolving through the directory stop finding it; CLOSE — only then
+    stop answering the socket. A client mid-retry never sees a live
+    directory entry pointing at a dead port."""
+    if autopilot is not None:
+        autopilot.stop()
+    router.shutdown(drain=True)
+    if registration is not None:
+        registration.stop(leave=True)
+    httpd.shutdown()
+    httpd.server_close()
+
+
+def _cmd_router(args) -> int:
+    """Run the serving-fleet router daemon: front N ``serve
+    --coordinator`` replicas with aggregate-KV admission,
+    prefix-affinity routing, drain/deploy and exactly-once mid-stream
+    failover, until SIGTERM/SIGINT."""
+    from paddle_tpu_torch.fleet import Router, build_router_http_server
+    from paddle_tpu_torch.fleet.registry import Registration
+    from paddle_tpu_torch.obs.flight import FLIGHT
+    from paddle_tpu_torch.trainer.coordinator import connect
+
+    _wire_obs(args)
+    router, httpd, coord, autopilot = _build_router(
+        args, Router, build_router_http_server, connect)
+    if autopilot is not None:
+        autopilot.start()
+    endpoint = f"http://{args.host}:{httpd.server_address[1]}"
+    registration = Registration(
+        coord, "fleet/router",
+        {"role": "fleet_router", "endpoint": endpoint},
+        heartbeat_s=args.heartbeat).join()
+    stop = threading.Event()
+
+    def _on_stop_signal(*_):
+        FLIGHT.maybe_autodump("sigterm")
+        stop.set()
+
+    signal.signal(signal.SIGTERM, _on_stop_signal)
+    signal.signal(signal.SIGINT, _on_stop_signal)
+    t = threading.Thread(target=httpd.serve_forever, name="pt-fleet-http")
+    t.start()
+    print(json.dumps({"job": "router", "status": "serving",
+                      "host": args.host, "port": httpd.server_address[1],
+                      "affinity": args.affinity,
+                      "autopilot": autopilot is not None,
+                      "replicas": len(router.balancer.replicas())}),
+          flush=True)
+    while not stop.wait(0.2):
+        pass
+    _router_teardown(router, registration, httpd, autopilot=autopilot)
+    t.join()
+    print(json.dumps({"job": "router", "status": "stopped",
+                      "stats": router.stats()}), flush=True)
+    return 0
+
+
+def _build_fleet_request(args):
+    """fleet-verb wiring, split from the HTTP call so tests can check
+    the request shape without a live daemon: returns (method, url,
+    json_body_or_None)."""
+    base = args.router.rstrip("/")
+    if args.action == "deploy":
+        return "POST", f"{base}/admin/deploy", \
+            {"force": bool(args.force)}
+    if args.action == "scale":
+        if args.replicas is None:
+            raise SystemExit("fleet scale needs --replicas N")
+        return "POST", f"{base}/admin/scale", \
+            {"replicas": int(args.replicas)}
+    return "GET", f"{base}/stats", None
+
+
+def _cmd_fleet(args) -> int:
+    """Operate a RUNNING ``router`` daemon over its admin plane:
+    ``deploy`` runs the SLO-gated rolling restart (exit 1 when it
+    pauses), ``scale`` resizes through the autopilot, ``status`` prints
+    the fleet + autopilot snapshots."""
+    import urllib.error
+    import urllib.request
+
+    def _call(method, url, body):
+        data = json.dumps(body).encode() if body is not None else None
+        req = urllib.request.Request(
+            url, data=data, method=method,
+            headers={"Content-Type": "application/json"}
+            if data else {})
+        try:
+            with urllib.request.urlopen(req,
+                                        timeout=args.timeout) as resp:
+                return resp.status, json.loads(resp.read() or b"{}")
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read() or b"{}")
+
+    method, url, body = _build_fleet_request(args)
+    code, payload = _call(method, url, body)
+    out = {"job": "fleet", "action": args.action, "router": args.router,
+           "http_status": code, "result": payload}
+    if args.action == "status" and code == 200:
+        ap_code, ap = _call("GET",
+                            args.router.rstrip("/") + "/autopilot", None)
+        out["autopilot"] = ap if ap_code == 200 else None
+    print(json.dumps(out), flush=True)
+    if code != 200:
+        return 1
+    if args.action == "deploy" and payload.get("status") != "complete":
+        return 1                       # a paused rollout is no success
+    return 0
+
+
+def _add_router_parsers(sub) -> None:
+    rt = sub.add_parser("router", help="run the serving-fleet router "
+                        "daemon: KV-aware, prefix-affine dispatch over "
+                        "N serve replicas with mid-stream failover")
+    rt.add_argument("--coordinator", required=True,
+                    help="HOST:PORT of the `coordinator` whose "
+                         "membership plane the replicas join")
+    rt.add_argument("--host", default="127.0.0.1")
+    rt.add_argument("--port", type=int, default=0,
+                    help="0 picks a free port (printed as JSON)")
+    rt.add_argument("--affinity", choices=["prefix", "load"],
+                    default="prefix",
+                    help="placement policy: 'prefix' steers "
+                         "shared-prefix traffic to the replica whose "
+                         "KV trie holds those pages; 'load' is pure "
+                         "least-loaded-by-KV-headroom")
+    rt.add_argument("--drain_timeout", type=float, default=10.0,
+                    help="seconds to wait for in-flight settles on "
+                         "POST /admin/drain and SIGTERM")
+    rt.add_argument("--page_size", type=int, default=16,
+                    help="KV page size in tokens — must match the "
+                         "replicas' --gen_page_size (the affinity index "
+                         "mirrors their prefix-trie keying)")
+    rt.add_argument("--scrape_interval", type=float, default=0.5,
+                    help="seconds between KV-gauge scrapes of each "
+                         "replica's /metrics")
+    rt.add_argument("--queue_timeout", type=float, default=5.0,
+                    help="how long a request may queue for fleet KV "
+                         "headroom before a typed 429")
+    rt.add_argument("--heartbeat", type=float, default=1.0,
+                    help="the router's own membership lease heartbeat")
+    rt.add_argument("--event_log", default=None,
+                    help="append the fleet journal (route/failover/"
+                         "drain/rejoin records) to this JSONL file")
+    rt.add_argument("--run_id", default=None,
+                    help="correlation id stamped on every journal "
+                         "record and span (default: generated)")
+    rt.add_argument("--flight_dir", default=None,
+                    help="arm flight-recorder auto-dump (SIGTERM and "
+                         "fatal exceptions)")
+    rt.add_argument("--event_log_max_bytes", type=int, default=0,
+                    help="rotate the --event_log file at N bytes "
+                         "(0: never)")
+    rt.add_argument("--event_log_keep", type=int, default=3,
+                    help="rotated journal segments to keep")
+    rt.add_argument("--autopilot", action="store_true",
+                    help="run the fleet autopilot control loop "
+                         "(autoscaler + SLO-gated deploys); implied by "
+                         "--spawn_cmd")
+    rt.add_argument("--spawn_cmd", default=None,
+                    help="shell command template spawning ONE replica "
+                         "process ({replica_id} substituted; the "
+                         "process must print the serve daemon's JSON "
+                         "status line) — arms scale-up/down; without "
+                         "it the autopilot can deploy (replicas quit, "
+                         "supervisors respawn) but not spawn")
+    rt.add_argument("--kv_quant", choices=["none", "int8"],
+                    default="none",
+                    help="fleet KV mode, appended to --spawn_cmd so "
+                         "autoscaled replicas boot in the same "
+                         "configuration as the hand-started ones")
+    rt.add_argument("--kv_spill_pages", type=int, default=0,
+                    help="per-replica host spill capacity, appended to "
+                         "--spawn_cmd replicas (0: omit)")
+    rt.add_argument("--min_replicas", type=int, default=1,
+                    help="autoscaler floor (scale-down stops here)")
+    rt.add_argument("--max_replicas", type=int, default=8,
+                    help="autoscaler ceiling (scale-up stops here)")
+    rt.add_argument("--autopilot_interval", type=float, default=1.0,
+                    help="seconds between autopilot control ticks")
+    rt.add_argument("--compile_cache", default=None,
+                    help="kernel-library compile cache dir, exported "
+                         "to --spawn_cmd replicas so autoscale-up "
+                         "starts load their libraries ('0'/'off' "
+                         "disables; default: $PADDLE_TPU_COMPILE_CACHE)")
+    rt.set_defaults(fn=_cmd_router)
+
+    fl = sub.add_parser("fleet", help="operate a running `router` "
+                        "daemon: SLO-gated rolling deploy, operator "
+                        "scaling, status")
+    fl.add_argument("action", choices=["deploy", "scale", "status"],
+                    help="deploy: drain->restart->rejoin each replica "
+                         "one at a time, pausing on SLO breaches; "
+                         "scale: resize to --replicas through the "
+                         "autopilot; status: fleet + autopilot "
+                         "snapshots as JSON")
+    fl.add_argument("--router", required=True,
+                    help="base URL of the router daemon "
+                         "(http://HOST:PORT)")
+    fl.add_argument("--replicas", type=int, default=None,
+                    help="scale: target replica count (clamped to the "
+                         "daemon's --min/--max_replicas)")
+    fl.add_argument("--force", action="store_true",
+                    help="deploy: keep rolling through SLO breaches "
+                         "(the journal still records them)")
+    fl.add_argument("--timeout", type=float, default=600.0,
+                    help="HTTP timeout for the admin call (a deploy "
+                         "waits for every replica to cycle)")
+    fl.set_defaults(fn=_cmd_fleet)
 
 
 # ------------------------------------------------------------------ train
@@ -993,10 +1315,20 @@ def build_parser() -> argparse.ArgumentParser:
                          "with no nvcc — and backfills it on a miss "
                          "(exported as $PADDLE_TPU_ARTIFACTS to the "
                          "processes it starts)")
+    sv.add_argument("--coordinator", default=None,
+                    help="HOST:PORT of a `coordinator` daemon — join "
+                         "the membership plane as serve/<replica_id> "
+                         "publishing this HTTP endpoint, so a `router` "
+                         "discovers and fails over this replica")
+    sv.add_argument("--replica_id", default=None,
+                    help="fleet replica id (default: host-port)")
+    sv.add_argument("--heartbeat", type=float, default=1.0,
+                    help="membership lease heartbeat seconds")
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=0,
                     help="0 picks a free port (printed at start)")
     sv.set_defaults(fn=_cmd_serve)
+    _add_router_parsers(sub)
 
     arts = sub.add_parser("artifacts", help="operate the warm-start "
                           "artifact store: build the decode engine's "
@@ -1142,7 +1474,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.cmd in ("train", "serve"):
+    if args.cmd in ("train", "serve", "router"):
         # the warm-start plane, one seam for every long-lived verb:
         # --compile_cache wins, else $PADDLE_TPU_COMPILE_CACHE, else the
         # default directory. Exported so child processes inherit the

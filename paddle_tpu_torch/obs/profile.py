@@ -383,6 +383,18 @@ class StepProfiler:
         st.phase_ms = out
         return out
 
+    def resolve_cost(self, kind: str) -> None:
+        """Count ``kind``'s step cost now, if profiling is on and it is
+        not counted yet: the first ``FlopCounterMode`` of a process
+        takes seconds, which a warmup pays instead of the first
+        sampled step (and the requests riding it)."""
+        with self._lock:
+            pending = self._enabled and kind in self._cost_src \
+                and kind not in self._cost \
+                and not self._cost_failed.get(kind)
+        if pending:
+            self._resolve_cost(kind)
+
     def _resolve_cost(self, kind: str) -> None:
         src = self._cost_src.get(kind)
         if src is None:

@@ -1287,8 +1287,9 @@ class DecodeEngine:
         inactive slots write only the reserved null page / null row, so
         the pools are semantically untouched, and the first request
         never pays the one-time costs (kernel build or store load,
-        cuBLAS handles, the allocator's first blocks). With a warm
-        artifact store the call runs no ``nvcc``. Returns the
+        cuBLAS handles, the allocator's first blocks, and with the
+        profiler on its step count under ``FlopCounterMode``). With a
+        warm artifact store the call runs no ``nvcc``. Returns the
         in-process cache's stats and ``warm_start``."""
         self.paged.load_kernels()
         if self.draft is not None:
@@ -1301,6 +1302,7 @@ class DecodeEngine:
         if self.draft is not None:
             _, self._draft_kc, self._draft_vc = self.draft.step(
                 self._draft_kc, self._draft_vc, z, z, inactive)
+        PROFILER.resolve_cost("decode")
         return dict(EXECUTABLES.stats(), warm_start=self.warm_start)
 
     def start(self) -> "DecodeEngine":

@@ -35,7 +35,15 @@ loops through the seams they expose, one family per target:
 - (h) the data pipeline: ``hung_reader``, ``raising_mapper``,
   ``crashing_mapper`` (:class:`WorkerCrash`), ``corrupt_records``;
 - (d) processes: ``kill_at_marker`` (SIGKILL at a printed step marker);
-- (q) the control plane: ``coordinator_outage`` (every RPC of an
+- (p) the serving fleet: ``kill_replica`` (the replica's kill — a
+  subprocess SIGKILL or the in-process ``httpd.kill()`` — mid-stream
+  or before dispatch, over the router's ``_stream_interceptor`` /
+  ``_route_interceptor``), ``lease_lapse`` (a replica's heartbeats
+  paused without a leave), ``drain_during_burst`` (an admin drain
+  after n dispatches);
+- (q) the control plane: ``kill_router`` (the router itself killed
+  mid-stream: its clients see a torn NDJSON stream and retry on a
+  sibling router) and ``coordinator_outage`` (every RPC of an
   object's ``coordinator`` raises ``OSError`` for the context).
 
 - (o) the sharded embedding service: ``kill_shard`` (the SIGKILL twin
@@ -46,10 +54,8 @@ loops through the seams they expose, one family per target:
   ``torn``, ``magic``), ``stale_fingerprint`` (an intact frame built
   for another torch), ``cache_race`` (N writers of one artifact).
 
-The families whose targets the port has not yet — the serving fleet's
-(``kill_replica``, ``lease_lapse``, ``drain_during_burst``,
-``kill_router``) and the C ABI's (``poison_bytes``,
-``destroy_during``) — come with those planes.
+The families whose target the port has not yet — the C ABI's
+(``poison_bytes``, ``destroy_during``) — come with that plane.
 
 The invariants the chaos tests hold the port to: KV pages always
 return to the pool (``page_accounting()["leaked"] == 0``), surviving
@@ -903,7 +909,168 @@ class FaultPlan:
             f"marker {pattern!r} never reached step {step} "
             f"within {timeout}s")
 
+    # --------------------------------------------- (p) fleet chaos
+    @staticmethod
+    @contextlib.contextmanager
+    def kill_replica(router, replica_id: str, kill: Callable[[], None],
+                     at: int = 2, mid_stream: bool = True):
+        """Arm a one-shot replica kill on the router's chaos seams:
+        with ``mid_stream`` the caller's ``kill()`` fires the moment
+        the router has relayed ``at`` tokens of any request streaming
+        off ``replica_id`` (the SIGKILL-mid-generation fault — the
+        victim connection tears before its terminal record, which is
+        the router's failover trigger); without it, ``kill()`` fires
+        right before the router's next dispatch TO that replica (the
+        request dies on connect and fails over with zero streamed
+        tokens). ``kill`` is a subprocess SIGKILL or the in-process
+        ``httpd.kill()`` tear — the seam doesn't care. Yields a stats
+        dict (``fired``: kill count, ``at_tokens``: stream position
+        it fired at, ``victim_traces``: trace_ids that were streaming
+        off the victim when it died)."""
+        stats = {"fired": 0, "at_tokens": None, "victim_traces": []}
+        lock = threading.Lock()
+        prev_stream = router._stream_interceptor
+        prev_route = router._route_interceptor
+
+        def fire(trace_id, n):
+            with lock:
+                if stats["fired"]:
+                    return
+                stats["fired"] = 1
+                stats["at_tokens"] = n
+            if trace_id is not None:
+                stats["victim_traces"].append(trace_id)
+            kill()
+
+        def stream_seam(trace_id, rid, n):
+            if prev_stream is not None:
+                prev_stream(trace_id, rid, n)
+            if mid_stream and rid == replica_id and n >= at:
+                fire(trace_id, n)
+
+        def route_seam(trace_id, rid, hop):
+            if prev_route is not None:
+                prev_route(trace_id, rid, hop)
+            if not mid_stream and rid == replica_id:
+                fire(trace_id, 0)
+
+        router._stream_interceptor = stream_seam
+        router._route_interceptor = route_seam
+        try:
+            yield stats
+        finally:
+            router._stream_interceptor = prev_stream
+            router._route_interceptor = prev_route
+
+    @staticmethod
+    @contextlib.contextmanager
+    def lease_lapse(registration, wait_s: Optional[float] = None):
+        """Pause a replica's membership heartbeats WITHOUT leaving —
+        the long-GC-pause / wedged-process fault. The lease expires
+        (``worker_info`` goes None: the router treats it as an
+        implicit drain and stops routing there) while the replica
+        keeps serving whatever it already holds. On exit the
+        heartbeats resume; the next tick re-joins (the registration's
+        ``rejoins`` counter bumps) and the router re-admits. With
+        ``wait_s`` the context sleeps that long after pausing so the
+        lapse is guaranteed by the time the body runs."""
+        registration.pause()
+        if wait_s:
+            time.sleep(wait_s)
+        try:
+            yield registration
+        finally:
+            registration.unpause()
+
+    @staticmethod
+    @contextlib.contextmanager
+    def drain_during_burst(router, replica_id: str, after: int = 3,
+                           timeout: Optional[float] = None):
+        """Arm a drain-under-load: once the router has dispatched
+        ``after`` requests (any replica), a side thread calls
+        ``router.drain(replica_id)`` — new admissions shift to
+        siblings while the drained replica's in-flight requests
+        settle. Yields a stats dict (``drained``: the drain() result,
+        set once it completes; ``dispatches``: dispatch count seen).
+        Join happens on exit."""
+        stats = {"drained": None, "dispatches": 0}
+        fired = threading.Event()
+        prev_route = router._route_interceptor
+
+        def do_drain():
+            stats["drained"] = router.drain(replica_id,
+                                            timeout=timeout)
+
+        thread = threading.Thread(target=do_drain, daemon=True,
+                                  name="pt-fault-drain")
+
+        def route_seam(trace_id, rid, hop):
+            if prev_route is not None:
+                prev_route(trace_id, rid, hop)
+            stats["dispatches"] += 1
+            if stats["dispatches"] >= after and not fired.is_set():
+                fired.set()
+                thread.start()
+
+        router._route_interceptor = route_seam
+        try:
+            yield stats
+        finally:
+            router._route_interceptor = prev_route
+            if fired.is_set():
+                thread.join(timeout=30)
+
     # ------------------------------------------- (q) control-plane chaos
+    @staticmethod
+    @contextlib.contextmanager
+    def kill_router(router, kill: Callable[[], None], at: int = 2,
+                    mid_stream: bool = True):
+        """Arm a one-shot kill of the ROUTER ITSELF — family (p)'s
+        ``kill_replica`` one level up the plane. With ``mid_stream``
+        the caller's ``kill()`` (the in-process router
+        ``httpd.kill()`` tear, or a subprocess SIGKILL) fires the
+        moment this router has relayed ``at`` tokens of ANY stream;
+        without it, right before its next dispatch. Streaming clients
+        see a torn NDJSON stream (no terminal record) and retry the
+        same trace_id on a sibling router — the replica-side hop
+        journal dedupes fleet-wide. Yields the same stats dict shape
+        as ``kill_replica`` (``fired``, ``at_tokens``,
+        ``victim_traces``)."""
+        stats = {"fired": 0, "at_tokens": None, "victim_traces": []}
+        lock = threading.Lock()
+        prev_stream = router._stream_interceptor
+        prev_route = router._route_interceptor
+
+        def fire(trace_id, n):
+            with lock:
+                if stats["fired"]:
+                    return
+                stats["fired"] = 1
+                stats["at_tokens"] = n
+            if trace_id is not None:
+                stats["victim_traces"].append(trace_id)
+            kill()
+
+        def stream_seam(trace_id, rid, n):
+            if prev_stream is not None:
+                prev_stream(trace_id, rid, n)
+            if mid_stream and n >= at:
+                fire(trace_id, n)
+
+        def route_seam(trace_id, rid, hop):
+            if prev_route is not None:
+                prev_route(trace_id, rid, hop)
+            if not mid_stream:
+                fire(trace_id, 0)
+
+        router._stream_interceptor = stream_seam
+        router._route_interceptor = route_seam
+        try:
+            yield stats
+        finally:
+            router._stream_interceptor = prev_stream
+            router._route_interceptor = prev_route
+
     @staticmethod
     @contextlib.contextmanager
     def coordinator_outage(target, for_s: Optional[float] = None):

@@ -76,7 +76,10 @@ def test_every_module_imports_without_jax_or_paddle_tpu():
               "artifacts", "artifacts.fingerprint", "artifacts.store",
               "artifacts.aot", "artifacts.runtime", "artifacts.cache",
               "embed", "embed.shard", "embed.client", "embed.service",
-              "embed.lookup", "embed.online", "embed.obs"):
+              "embed.lookup", "embed.online", "embed.obs",
+              # the serving fleet
+              "fleet", "fleet.balance", "fleet.registry", "fleet.router",
+              "fleet.obs", "fleet.http", "fleet.autopilot"):
         assert f"paddle_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

@@ -591,3 +591,40 @@ def test_engine_live_mfu_and_share_at_most_one():
         assert names[:2] == ["engine/submit", "engine/admit"]
         assert names.count("engine/slot_step") >= 6
         assert names[-1] == "engine/settle"
+
+
+def test_engine_warmup_counts_the_step_cost_before_any_request(
+        monkeypatch):
+    """With the profiler on, ``warmup()`` pays the one-time FLOP count
+    (a process's first ``FlopCounterMode`` takes seconds): the sampled
+    steps of the requests that follow count nothing again. Off, it
+    counts nothing."""
+    from paddle_tpu_torch import params as pt_params
+    from paddle_tpu_torch.models import TransformerDecoder
+    from paddle_tpu_torch.serving import DecodeEngine
+    cfg = dict(vocab_size=40, d_model=32, n_heads=2, n_layers=2,
+               d_ff=64, max_len=32)
+    dec = TransformerDecoder(pt_params.init_transformer_lm_params(
+        cfg, seed=0), n_layers=2, n_heads=2, device="cpu")
+    P = tprofile.PROFILER
+    calls = []
+    real = DecodeEngine.decode_cost
+
+    def counted(self):
+        calls.append(self.stats()["steps"])
+        return real(self)
+
+    monkeypatch.setattr(DecodeEngine, "decode_cost", counted)
+    DecodeEngine(dec, num_slots=2, page_size=4, max_seq_len=32).warmup()
+    assert calls == []
+    eng = DecodeEngine(dec, num_slots=2, page_size=4, max_seq_len=32)
+    P.enable(sample_every=1)
+    try:
+        eng.warmup()
+        assert calls == [0]
+        r = eng.submit([1, 2, 3], 4)
+        eng.run(timeout=60)
+    finally:
+        P.disable()
+    assert len(r.get(timeout=1)) == 4 and calls == [0]
+    assert P.snapshot()["cost"]["decode"]["flops"] >= 2 * 2 * 32 * 40
